@@ -1,0 +1,129 @@
+"""Full network = input wrapper → MPNN → (BN) → dense head, packed batches,
+eval mode (counterpart of mpnn_tpu/models/network.py).
+
+The lipo composition (test_lipo.py:103-129): the graph_norm wrapper
+(masked bn1d over nafm, concatenated onto afm), the MPNN core, torch's
+plain BatchNorm1d over the graph embeddings, and the halving head.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Sequence, Tuple, Union
+
+import torch
+from torch import nn
+
+from mpnn_tpu_torch.device import resolve_device
+from mpnn_tpu_torch.models.config import MPNNConfig
+from mpnn_tpu_torch.models.mpnn import MPNN
+from mpnn_tpu_torch.ops.linear import linear_init_, make_linear
+from mpnn_tpu_torch.ops.norm import MaskedBatchNorm1d, bn_rows_eval
+
+
+@dataclasses.dataclass(frozen=True)
+class NetworkConfig:
+    mpnn: MPNNConfig
+    input_wrapper: str = "plain"        # plain|graph_norm|batch_norm
+    nafm_features: int = 0              # needed for graph_norm wrapper
+    head: str = "linear"                # linear|halving|mlp|none
+    head_dims: Tuple[int, ...] = ()     # for 'mlp': hidden+output widths
+    head_output: int = 1                # final width for linear/halving
+    head_bn: bool = False               # nn.BatchNorm1d on graph embeddings
+    kaiming_head: bool = True           # drivers apply init_weights (kaiming)
+
+
+def halving_dims(start: int, floor: int = 10) -> Sequence[Tuple[int, int]]:
+    """test_lipo.py:104-110: halve (ceil) until ≤ floor, then Linear(→1)."""
+    dims = []
+    den = start
+    while den > floor:
+        new_den = int(math.ceil(den / 2))
+        dims.append((den, new_den))
+        den = new_den
+    return dims
+
+
+class Network(nn.Module):
+    def __init__(self, cfg: NetworkConfig, device=None):
+        super().__init__()
+        if cfg.input_wrapper not in ("plain", "graph_norm") \
+                or cfg.head != "halving":
+            raise NotImplementedError(
+                f"input wrapper {cfg.input_wrapper!r} / head {cfg.head!r}: "
+                "the port has the lipo shell (graph_norm, halving); the "
+                "others are still to port (ROADMAP queue 2)")
+        self.cfg = cfg
+        self.mpnn = MPNN(cfg.mpnn, device=device)
+        if cfg.input_wrapper == "graph_norm":
+            self.nafm_bn = MaskedBatchNorm1d(cfg.nafm_features,
+                                             device=device)
+        if cfg.head_bn:
+            self.head_bn = nn.BatchNorm1d(cfg.mpnn.effective_output_dim,
+                                          eps=1e-5, momentum=0.1,
+                                          device=device)
+        emb = cfg.mpnn.effective_output_dim
+        widths = list(halving_dims(emb))
+        last = widths[-1][1] if widths else emb
+        self.head = nn.ModuleList(
+            make_linear(i, o, device=device)
+            for i, o in widths + [(last, cfg.head_output)])
+
+    def reset_parameters(self, generator: Optional[torch.Generator] = None):
+        self.mpnn.reset_parameters(generator)
+        init = "kaiming_relu" if self.cfg.kaiming_head else "torch_default"
+        for layer in self.head:
+            linear_init_(layer, init, generator)
+        for name in ("nafm_bn", "head_bn"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters()
+
+
+def make_module(cfg: Union[NetworkConfig, MPNNConfig], device
+                ) -> nn.Module:
+    """A Network, or a bare MPNN for an MPNNConfig (bench.py's flagship),
+    with uninitialized weights on `device`, in eval mode."""
+    mod = Network(cfg, device=device) if isinstance(cfg, NetworkConfig) \
+        else MPNN(cfg, device=device)
+    return mod.eval()
+
+
+def network_init(cfg: Union[NetworkConfig, MPNNConfig],
+                 generator: Optional[torch.Generator] = None,
+                 device=None) -> nn.Module:
+    """make_module, initialized from `generator` (drawn on the CPU, so a
+    seed gives the same weights on every device), on `cuda` unless
+    device='cpu'."""
+    device = resolve_device(device)
+    mod = make_module(cfg, "cpu")
+    mod.reset_parameters(generator)
+    return mod.to(device)
+
+
+def mpnn_input(net: Network, batch) -> dict:
+    """The batch the MPNN core sees: with the graph_norm wrapper, the
+    masked-bn1d nafm columns concatenated onto node_feats."""
+    mb = dict(batch)
+    if net.cfg.input_wrapper == "graph_norm":
+        nafm = net.nafm_bn(batch["node_nafm"], batch["node_mask"])
+        mb["node_feats"] = torch.cat([batch["node_feats"], nafm], dim=-1)
+    return mb
+
+
+def network_apply_packed(net: Network, batch, *, fused: bool = True
+                         ) -> torch.Tensor:
+    """Packed-batch network forward, eval mode. With `fused` the MPNN core
+    runs through the whole-step eval kernel (models/fused_train.py) — the
+    serving path; with fused=False through the plain model
+    (models/sparse.py). Returns out (num_graphs, head_output)."""
+    from mpnn_tpu_torch.models.fused_train import fused_mpnn_eval
+    from mpnn_tpu_torch.models.sparse import sparse_mpnn_apply
+    mb = mpnn_input(net, batch)
+    out = fused_mpnn_eval(net.mpnn, mb) if fused \
+        else sparse_mpnn_apply(net.mpnn, mb)
+    if net.cfg.head_bn:
+        out = bn_rows_eval(net.head_bn, out)
+    for layer in net.head[:-1]:
+        out = torch.relu(layer(out))
+    return net.head[-1](out)

@@ -1,0 +1,111 @@
+"""Sparse (packed COO) MPNN forward in plain PyTorch, eval mode
+(counterpart of mpnn_tpu/models/sparse.py) — the model the CUDA eval
+kernel's path is tested against.
+
+Exactness of the A-form for the edge-network family (bias leakage): with
+A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
+
+    m_v = Σ_{real edges w→v} (A(e) − A(0)) h_w  +  A(0) · Σ_{w∈graph} h_w
+
+Padded edges carry the zero row's vocab id, so A(e) − A(0) = 0 for them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from mpnn_tpu_torch.models.config import MPNNConfig
+from mpnn_tpu_torch.models.mpnn import MPNN, check_supported
+from mpnn_tpu_torch.ops.message import EdgeNetwork, _edge_mlp_penultimate
+from mpnn_tpu_torch.ops.readout import GraphLevelOutput, gated_rows
+from mpnn_tpu_torch.ops.update import gru_apply
+
+
+def _edge_penultimates(mp: EdgeNetwork, edge_feats, cfg: MPNNConfig,
+                       edge_vfirst):
+    """The zero-edge penultimate (1, pf) and the vocab table (K, pf): the
+    ×50-tail MLP runs on the K distinct rows plus the zero row, in one
+    chain. (The A-form needs no per-edge gather of the table.)"""
+    zero = edge_feats.new_zeros((1, edge_feats.shape[-1]))
+    vocab = edge_feats[edge_vfirst.long()]                    # (K, ef)
+    pen_both = _edge_mlp_penultimate(mp, torch.cat([vocab, zero], dim=0),
+                                     cfg.edge_mlp_tail_repeats)
+    return pen_both[-1:], pen_both[:-1]
+
+
+def final_weights(mp: EdgeNetwork, nf: int, mf: int):
+    """The final projection as wf (pf, mf, nf) and bf (mf, nf) — the JAX
+    layout, from nn.Linear's (nf·mf, pf) weight."""
+    pf = mp.final.weight.shape[1]
+    wf = mp.final.weight.t().reshape(pf, mf, nf)
+    bf = mp.final.bias.reshape(mf, nf)
+    return wf, bf
+
+
+def a_form(mp: EdgeNetwork, pen0, pen_vocab, nf: int, mf: int):
+    """Fold the penultimates through the final layer: A_k = Σ_p (pen_k −
+    pen_0)[p]·W̃[p] (K, mf, nf), and the bias-leakage matrix
+    A0 = Σ_p pen_0[p]·W̃[p] + Bf (mf, nf)."""
+    wf, bf = final_weights(mp, nf, mf)
+    amat = torch.einsum("kp,pmf->kmf", pen_vocab - pen0, wf)
+    a0 = torch.einsum("p,pmf->mf", pen0[0], wf) + bf
+    return amat, a0
+
+
+def sparse_edge_network_fused(mp: EdgeNetwork, pen0, h, edge_src,
+                              edge_dst, node_graph, graph_mask, *, nf: int,
+                              mf: int, pen_vocab, edge_vid):
+    """m = SpMM(edges) + A(0)·S_graph + message_bias (the A-form branch).
+    h: (node_cap, nf) → (node_cap, mf)."""
+    node_cap = h.shape[0]
+    amat, a0 = a_form(mp, pen0, pen_vocab, nf, mf)
+    v2 = torch.einsum("kmf,nf->knm", amat, h)                 # (K, N, mf)
+    edge_msg = v2[edge_vid.long(), edge_src.long()]
+    agg = h.new_zeros((node_cap, mf)).index_add_(0, edge_dst.long(),
+                                                 edge_msg)
+    num_graphs = graph_mask.shape[0]
+    ng = node_graph.long()
+    s = h.new_zeros((num_graphs + 1, h.shape[1])).index_add_(0, ng, h)
+    base = s[ng] @ a0.T
+    return agg + base + mp.message_bias
+
+
+def sparse_graph_level_output(ro: GraphLevelOutput, x, node_mask,
+                              node_graph, num_graphs: int):
+    """Packed gated readout: per-node gating, then a sum per graph."""
+    gated = gated_rows(ro, x, node_mask)
+    out = gated.new_zeros((num_graphs + 1, gated.shape[-1]))
+    return out.index_add_(0, node_graph.long(), gated)[:-1]
+
+
+def sparse_mpnn_apply(mpnn: MPNN, batch):
+    """Packed-batch MPNN forward, eval mode. batch: dict of tensors with
+    node_feats, node_mask, node_graph, edge_src, edge_dst, edge_feats,
+    edge_mask, graph_mask, edge_vid, edge_vfirst. Returns out (G, od)."""
+    cfg = mpnn.cfg
+    check_supported(cfg)
+    mask = batch["node_mask"]
+    node_graph = batch["node_graph"]
+    graph_mask = batch["graph_mask"]
+    num_graphs = graph_mask.shape[0]
+    h0 = batch["node_feats"] * mask
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    mp = mpnn.message[0]
+    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                         batch["edge_vfirst"])
+    # messages from the INITIAL features with shared weights: constant
+    # across steps, computed once
+    msgs = sparse_edge_network_fused(
+        mp, pen0, h0, batch["edge_src"], batch["edge_dst"], node_graph,
+        graph_mask, nf=cfg.node_features, mf=cfg.message_features,
+        pen_vocab=pen_vocab, edge_vid=batch["edge_vid"])
+    if cfg.msg_norm == "bn1d":
+        msgs = mpnn.ma_bn[0](msgs, mask)
+    h = h0
+    for _ in range(cfg.message_steps):
+        h = gru_apply(mpnn.gru, msgs, h, mask)
+        if cfg.state_norm == "bn1d":
+            h = mpnn.bn[0](h, mask)
+    readout_in = torch.cat([h, h0], dim=-1)
+    return sparse_graph_level_output(mpnn.readout, readout_in, mask,
+                                     node_graph, num_graphs)
