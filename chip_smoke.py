@@ -5,22 +5,35 @@
 
 Phases, one line each:
   1. device  — nvidia-smi name and power limit, torch/CUDA versions;
-  2. build   — nvcc of every kernel source in mpnn_tpu_torch/csrc/, with
-               ptxas' register / shared-memory / spill report;
+  2. build   — nvcc of every kernel source in mpnn_tpu_torch/csrc/ (one
+               process each, started together), with ptxas' register /
+               shared-memory / spill report;
   3. kernel-check — each CUDA kernel against its plain PyTorch version on
                the card: flagship lipo widths at batch 1024 for every
                msg/state norm pair in {bn1d, none}², and a ragged batch
                with padded edges and single-atom molecules
-               (rtol 1e-4, atol 1e-5: float32 sums in other orders);
+               (rtol 1e-4, atol 1e-5: float32 sums in other orders); the
+               training kernels with nonzero loss and `out` cotangents,
+               each gradient leaf scaled by its max abs;
   4. serve   — the `predict` verb from SMILES (bench.py's ten molecules,
                repeated) at batch 16 and 1024 with a checkpoint built from
                a seeded torch.Generator; launch counts read around it;
                predictions checked finite and against the plain path;
   5. times   — request latency (host clock ending in a device sync) and
-               the kernel's time (CUDA events) beside its bound and its
-               plain version's time;
+               the eval kernel's time (CUDA events) beside its bound and
+               its plain version's time;
   6. profile — torch.profiler trace of one batch-1024 request: device
-               busy time, the kernel's share and the device idle share.
+               busy time, the kernel's share and the device idle share;
+  7. train   — the `train` verb at batch 16 for 2 epochs on 640 of
+               bench.py's molecules (validation split, plateau schedule,
+               a checkpoint per epoch); launch counts read around it (one
+               forward and one backward launch per step); the first 3
+               steps' losses against the plain path on the card (rtol
+               1e-3); then `predict` from the checkpoint it wrote;
+  8. train-times — train-step latency at batch 16 and 1024, and each
+               training kernel's time beside its bound and its plain
+               version's time;
+  9. train-profile — torch.profiler trace of one batch-1024 train step.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -32,6 +45,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -95,7 +109,9 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 t = re.search(r"Li(\d+)ELi(\d+)E", m.group(1))
-                entry = f"<{t.group(1)},{t.group(2)}>" if t else m.group(1)
+                k = re.search(r"\d(fused_[a-z_]+_kernel)E", m.group(1))
+                entry = (f"<{t.group(1)},{t.group(2)}>" if t
+                         else f" {k.group(1)}" if k else m.group(1))
                 spill = "?"
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and entry:
@@ -108,12 +124,17 @@ def phase_build():
                               f"smem, spill {spill} B")
     if not report:
         raise RuntimeError("no ptxas report in the build log")
-    # the kernel's weights live in dynamic shared memory, which ptxas does
-    # not see: the launch's size at the flagship vocab of 16
-    dyn = K._lib().mpnn_fused_eval_smem_bytes(16)
+    # the kernels' weights live in dynamic shared memory, which ptxas does
+    # not see: the launch's size at the flagship vocab of 16 (and T = 6)
+    dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
+           f"fused_step_fwd "
+           f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
+           f" B, fused_step_bwd "
+           f"{K._lib('fused_step_bwd').mpnn_fused_step_bwd_smem_bytes(16, 6)}"
+           f" B")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
-          f" ptxas: {'; '.join(report)}; fused_eval dynamic smem {dyn} B "
-          f"per block at K=16", flush=True)
+          f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
+          f"{dyn}", flush=True)
 
 
 def _random_weights(f, od, k, gen, device):
@@ -193,7 +214,95 @@ def phase_kernel_check(device):
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{failed}")
-    return worst, flag
+    worst_fwd, worst_bwd, results = 0.0, 0.0, []
+    for tb, mn, sn in cases:
+        k = int(tb["edge_vfirst"].shape[0])
+        f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
+        w = _random_weights(f, 14, k, gen, device)
+        args, leaves = _step_args(tb, w, gen)
+        g = int(tb["graph_mask"].shape[0])
+        cw = torch.randn(g, 14, generator=gen).to(device)
+        kw = dict(steps=6, msg_norm=mn, state_norm=sn)
+        got = _step_and_grads(K.fused_step, args, leaves, cw, kw)
+        torch.cuda.synchronize()
+        want = _step_and_grads(K.fused_step_reference, args, leaves, cw, kw)
+        ok_f, err_f, ok_b, err_b = _step_errors(got, want, mn)
+        worst_fwd, worst_bwd = max(worst_fwd, err_f), max(worst_bwd, err_b)
+        what = ("ragged" if tb is ragged else "batch1024") + f" {mn}/{sn}"
+        results.append(f"{what} fwd max_abs={err_f:.3e} "
+                       f"bwd max_scaled={err_b:.3e} "
+                       f"{'ok' if ok_f and ok_b else 'FAIL'}")
+        if not (ok_f and ok_b):
+            failed.append(what)
+    print(f"kernel-check: fused_step_fwd vs fused_step_reference, "
+          f"fused_step_bwd vs autograd through it (T 6, cotangents "
+          f"1.3·loss + Σ out·c; forward rtol {RTOL} atol {ATOL}; each "
+          f"gradient leaf divided by its max abs, rtol {RTOL} atol {ATOL}; "
+          f"message_bias under the message bn1d within {ATOL}·max|dA0|): "
+          + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"training kernels disagree with their plain "
+                           f"version: {failed}")
+    return {"fused_eval": worst, "fused_step_fwd": worst_fwd,
+            "fused_step_bwd": worst_bwd}
+
+
+def _step_args(tb, w, gen):
+    """fused_step's positional arguments for a device batch `tb` with the
+    weights `w` made leaves, random labels and one padded graph slot; and
+    the leaves in fused_step's gradient order."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    mask = tb["node_mask"]
+    h0 = (torch.cat([tb["node_feats"], tb["node_nafm"]], -1) * mask)
+    h0 = h0.contiguous().requires_grad_()
+    leaves = [w["amat"], w["a0"], w["mbias"], h0, *w["gru"].values(),
+              *w["ma"].values(), *w["bn"].values(), w["ro"]["i"]["w"],
+              w["ro"]["i"]["b"], w["ro"]["j"]["w"], w["ro"]["j"]["b"]]
+    for x in leaves:
+        x.requires_grad_()
+    g = int(tb["graph_mask"].shape[0])
+    labels = torch.randn(g, generator=gen).to(mask.device)
+    gmask = torch.ones(g, device=mask.device)
+    gmask[-1] = 0.0
+    return ((w["amat"], w["a0"], w["mbias"], h0, mask, tb["node_graph"],
+             w["gru"], w["ma"], w["bn"], w["ro"], labels, gmask,
+             tb["edge_vid"], tb["edge_src"], tb["edge_dst"],
+             plan_from_batch(tb)), leaves)
+
+
+def _step_and_grads(fn, args, leaves, cw, kw):
+    """fn's (loss, out, stats) and the gradient of 1.3·loss + Σ out·cw in
+    every leaf (zeros for a leaf the norm modes leave out)."""
+    import torch
+    loss, out, ma, steps = fn(*args, **kw)
+    grads = torch.autograd.grad(1.3 * loss + (out * cw).sum(), leaves,
+                                allow_unused=True)
+    stats = [x for pair in [ma, *steps] for x in pair]
+    return ([loss.detach().reshape(1), out.detach(), *stats],
+            [torch.zeros_like(x) if gr is None else gr
+             for x, gr in zip(leaves, grads)])
+
+
+def _step_errors(got, want, msg_norm):
+    """(forward ok, forward max abs error, backward ok, backward max error
+    of the leaves scaled by their max abs)."""
+    ok_f, err_f = True, 0.0
+    for a, b in zip(got[0], want[0]):
+        ok, mabs, _ = _within(a, b)
+        ok_f, err_f = ok_f and ok, max(err_f, mabs)
+    ok_b, err_b = True, 0.0
+    da0_scale = float(want[1][1].abs().max())
+    for i, (a, b) in enumerate(zip(got[1], want[1])):
+        if i == 2 and msg_norm == "bn1d":        # message_bias
+            d = float((a - b).abs().max())
+            ok_b = ok_b and d <= ATOL * da0_scale
+            err_b = max(err_b, d / max(da0_scale, 1e-30))
+            continue
+        scale = float(b.abs().max()) or 1.0
+        ok, mabs, _ = _within(a / scale, b / scale)
+        ok_b, err_b = ok_b and ok, max(err_b, mabs)
+    return ok_f, err_f, ok_b, err_b
 
 
 def _serving_net(gen, afm, bfm, nafm, device):
@@ -381,13 +490,36 @@ def phase_times(device, card, runs):
     return out
 
 
+def _device_ops(prof):
+    """(device busy us, key_averages rows of the device ops): the kernels
+    and copies of a torch.profiler trace, user annotations (such as the
+    optimizer's step range "Optimizer.step#Adam.step", which spans its
+    kernels and the gaps between them) left out; busy time is the union of
+    their intervals."""
+    from torch.autograd import DeviceType
+
+    def is_op(e):
+        name = getattr(e, "key", None) or e.name
+        annotation = getattr(e, "is_user_annotation", None)
+        if annotation is None:           # an older profiler: by the name
+            annotation = re.fullmatch(r"\S+#\S+", name) is not None
+        return e.device_type == DeviceType.CUDA and not annotation
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if is_op(e))
+    busy, end = 0.0, float("-inf")
+    for s0, s1 in spans:
+        if s1 > end:
+            busy += s1 - max(s0, end)
+            end = s1
+    return busy, [e for e in prof.key_averages() if is_op(e)]
+
+
 def phase_profile(device, runs, request_ms):
     """Device-time breakdown of one batch-1024 request: busy time = the
-    sum of the request's device kernels and copies; the idle share compares
-    it with the unprofiled request median. Fails when the trace shows no
-    device time for the kernel."""
+    union of the request's device kernels and copies (_device_ops); the
+    idle share compares it with the unprofiled request median. Fails when
+    the trace shows no device time for the kernel."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.train.trainer import (batch_to_device,
                                               eval_step_for_batch)
@@ -408,8 +540,7 @@ def phase_profile(device, runs, request_ms):
     def dev(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    ops = [e for e in ka if e.device_type == DeviceType.CUDA]
-    busy = sum(dev(e) for e in ops)
+    busy, ops = _device_ops(prof)
     kern = sum(dev(e) for e in ops if "fused_eval_kernel" in e.key)
     if kern <= 0:
         raise RuntimeError("profile: the trace shows no device time for "
@@ -424,6 +555,329 @@ def phase_profile(device, runs, request_ms):
                       for e in top), flush=True)
 
 
+TRAIN_ROWS, TRAIN_BATCH, TRAIN_EPOCHS = 640, 16, 2
+
+
+def _train_csv(rows):
+    """bench.py's molecules repeated to `rows`, with smooth labels."""
+    csv = os.path.join(OUT_DIR, f"lipo_{rows}.csv")
+    smiles = (SMILES * (rows // len(SMILES) + 1))[:rows]
+    with open(csv, "w") as fh:
+        fh.write("smiles,exp\n")
+        for i, s in enumerate(smiles):
+            fh.write(f"{s},{0.8 * math.sin(0.7 * i) + 0.1 * (i % 5)}\n")
+    return csv
+
+
+def phase_train(device):
+    """The `train` verb as a user runs it, launch counts read around it;
+    the first 3 steps against the plain path on the card from the same
+    weights and batches; then `predict` from the checkpoint it wrote.
+    Returns the training kernels' launch counts."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import cli
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    os.makedirs(OUT_DIR, exist_ok=True)
+    csv = _train_csv(TRAIN_ROWS)
+    log = os.path.join(OUT_DIR, "train_log.jsonl")
+    ckdir = os.path.join(OUT_DIR, "train_ckpt")
+    if os.path.exists(log):
+        os.remove(log)
+    buf = io.StringIO()
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train", "--experiment", "lipo", "--data", csv,
+                  "--epochs", str(TRAIN_EPOCHS), "--batch-size",
+                  str(TRAIN_BATCH), "--ckpt-dir", ckdir, "--log", log])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(K.launch_counts)
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(log) as fh:
+        recs = [json.loads(x) for x in fh if x.strip()]
+    steps = [r["loss"] for r in recs if "step" in r]
+    epochs = [r for r in recs if "train_loss" in r]
+    # the split and batches the verb used
+    gs, _ = G.load_number_dataset(csv, "smiles", "exp")
+    train_gs, test_gs = train_test_split(gs, 0.1, 317)
+    train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+    per_epoch = -(-len(train_gs) // TRAIN_BATCH)
+    n_val = -(-len(val_gs) // TRAIN_BATCH)
+    n_test = -(-len(test_gs) // TRAIN_BATCH)
+    if len(steps) != TRAIN_EPOCHS * per_epoch or len(epochs) != TRAIN_EPOCHS:
+        raise RuntimeError(f"train: {len(steps)} steps logged, expected "
+                           f"{TRAIN_EPOCHS * per_epoch}")
+    want = {"fused_step_fwd": len(steps), "fused_step_bwd": len(steps),
+            "fused_eval": TRAIN_EPOCHS * n_val + n_test}
+    if {k: counts[k] for k in want} != want:
+        raise RuntimeError(f"train: launches {counts}, the design's count "
+                           f"is {want} (one forward and one backward "
+                           f"launch per step, one eval launch per "
+                           f"validation and test batch)")
+    if not (all(math.isfinite(x) for x in steps)
+            and math.isfinite(result["test"]["loss"])
+            and all(math.isfinite(r["val_loss"]) for r in epochs)):
+        raise RuntimeError("train: non-finite loss")
+    # the plain path on the card: the trainer's initial weights (seed 317)
+    # and its first three shuffled batches
+    afm = int(gs[0].afm.shape[-1])
+    cfg = zoo.lipo(afm, int(gs[0].bfm.shape[-1]), int(gs[0].nafm.shape[-1]))
+    net = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(net.parameters(), 1e-2, weight_decay=1e-4)
+    loader = G.GraphLoader(train_gs, TRAIN_BATCH, shuffle=True, seed=317)
+    plain = []
+    for b in loader:
+        if len(plain) == 3:
+            break
+        plain.append(float(train_step(net, opt, batch_to_device(b, device),
+                                      fused=False)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"train: first steps {steps[:3]} vs plain path "
+                           f"{plain} (rel {rel:.2e} > 1e-3)")
+    # serve the checkpoint the run wrote
+    ckpt = os.path.join(ckdir, f"ckpt_{TRAIN_EPOCHS - 1}.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["predict", "--experiment", "lipo", "--data", csv,
+                  "--ckpt", ckpt, "--batch-size", "64"])
+    preds = [json.loads(x)["pred"] for x in buf.getvalue().splitlines() if x]
+    if len(preds) != TRAIN_ROWS or not all(math.isfinite(p) for p in preds):
+        raise RuntimeError("train: predict from the written checkpoint "
+                           "failed")
+    print(f"train: `train` verb, {TRAIN_ROWS} molecules (train "
+          f"{len(train_gs)}, val {len(val_gs)}, test {len(test_gs)}), batch "
+          f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs, {len(steps)} steps in "
+          f"{wall:.2f} s wall (featurize + train + validate + checkpoint); "
+          f"launches fused_step_fwd {counts['fused_step_fwd']}, "
+          f"fused_step_bwd {counts['fused_step_bwd']}, fused_eval "
+          f"{counts['fused_eval']} (design: 1 + 1 per step, 1 per eval "
+          f"batch); step losses first {steps[0]:.5f} last {steps[-1]:.5f};"
+          f" epoch val_loss {[round(r['val_loss'], 5) for r in epochs]}, "
+          f"lr {[r['lr'] for r in epochs]}; test loss "
+          f"{result['test']['loss']:.5f}; first 3 steps vs plain path "
+          f"max rel {rel:.2e} (kernel {[round(x, 6) for x in steps[:3]]}, "
+          f"plain {[round(x, 6) for x in plain]}); predict from "
+          f"ckpt_{TRAIN_EPOCHS - 1}.npz: {len(preds)} finite predictions",
+          flush=True)
+    return counts
+
+
+def _step_bounds(b, f, od, k, steps):
+    """Least times of the training kernels' work on this batch, each the
+    larger of its float32 operations over the peak CUDA-core rate and its
+    bytes (each input read once, each output written once, the residual
+    stash written by the forward and read by the backward) over HBM
+    bandwidth. Real nodes and edges only.
+
+    The function's own work, not the kernels': the messages, and so the
+    input gates gi = W_ih·m + b_ih, are the same in every step, so the
+    forward takes them once and each step one W_hh GEMV. The backward
+    takes per step one W_hh GEMV (the gates, recomputed from the stash),
+    W_hhᵀ·dg and the dW_hh outer product, and sums dgi over the steps;
+    W_ih's two products run once, on Σ_t dgi_t. The readout's VJP
+    recomputes its two GEMVs and takes their transposes and outer
+    products."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    g = float(b["graph_mask"].shape[0])
+    weights = k * f * f + f * f + 6 * f * f + 11 * f + 4 * f * od + 2 * od
+    gemv = 2 * f * 3 * f                           # one f → 3f gate GEMV
+    gate = 3 * f + 12 * f                          # + b_hh, the gate math
+    norm = 8 * f                                   # stats + normalize
+    ro_gemv = 2 * 2 * (2 * f) * od                 # W_i·x and W_j·x
+    fwd_ops = (er * 2 * f * f + g * 2 * f * f + nr * 3 * f  # messages
+               + nr * norm + nr * (gemv + 3 * f)            # ma BN, gi once
+               + steps * nr * (gemv + gate + norm)
+               + nr * (ro_gemv + 8 * od) + g * 3 * od)      # readout, loss
+    stash = (steps + 1) * nr * f + 2 * (steps + 1) * f
+    fwd_bytes = 4 * (nr * f + er * 3 + nr + g * 2 + weights + 1 + g * od
+                     + stash)
+    bwd_ops = (nr * (3 * ro_gemv + 16 * od)                  # readout VJP
+               + steps * nr * (3 * gemv + gate + 20 * f + 2 * norm)
+               + nr * 2 * gemv                               # W_ih, Σ dgi
+               + nr * 2 * norm                               # message BN
+               + er * 4 * f * f + g * 4 * f * f + nr * 4 * f)  # message VJP
+    bwd_bytes = 4 * (nr * f + er * 3 + 2 * nr + g * (2 + 2 * od) + 1
+                     + weights + stash + nr * f + weights)
+    out = {}
+    for name, ops, nbytes in (("fused_step_fwd", fwd_ops, fwd_bytes),
+                              ("fused_step_bwd", bwd_ops, bwd_bytes)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def _train_net(b, gen, device):
+    import torch
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    cfg = zoo.lipo(b["node_feats"].shape[1], b["edge_feats"].shape[1],
+                   b["node_nafm"].shape[1])
+    net = network_init(cfg, gen, device)
+    return net, adam(net.parameters(), 1e-2, weight_decay=1e-4)
+
+
+def _kernel_trace_us(*prepared):
+    """Device time of one launch of each prepared training kernel, from a
+    torch.profiler trace (the events' time over back-to-back launches also
+    holds any host launch gap)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.kernels import fused_step as K
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for p in prepared:
+            K.launch_prepared(p)
+        torch.cuda.synchronize()
+    _, ops = _device_ops(prof)
+    return {p.name: sum(getattr(e, "self_device_time_total", 0.0)
+                        for e in ops if f"{p.name}_kernel" in e.key)
+            for p in prepared}
+
+
+def phase_train_times(device, card):
+    """Train-step latency (host clock ending in a device sync, the loss
+    read back) at batch 16 and 1024, and each training kernel's time
+    (CUDA events over repeated launches on the main path's inputs) beside
+    its bound and its plain version's time (autograd through
+    fused_step_reference for the backward)."""
+    import statistics
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models.fused_train import fused_step_args
+    from mpnn_tpu_torch.models.network import mpnn_input
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    out, lines = {}, []
+    gen = torch.Generator().manual_seed(2)
+    for bs in (16, 1024):
+        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+        b["labels"] = torch.randn(bs, generator=gen).numpy()
+        tb = batch_to_device(b, device)
+        net, opt = _train_net(b, gen, device)
+        reps = 30 if bs <= 16 else 15
+        for _ in range(3):
+            float(train_step(net, opt, tb))
+        lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            float(train_step(net, opt, tb))
+            torch.cuda.synchronize()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        # the kernels alone, on the inputs the main path gives them
+        mb, _ = mpnn_input(net, tb, training=True)
+        args, kw = fused_step_args(net.mpnn, mb, tb["labels"])
+        args = [a.detach() if isinstance(a, torch.Tensor) else a
+                for a in args]
+        (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels, gmask,
+         vid, src, dst, plan) = args
+        det = lambda d: {k: (det(v) if isinstance(v, dict) else v.detach())
+                         for k, v in d.items()}
+        gru, ma, bnp, ro = det(gru), det(ma), det(bnp), det(ro)
+        weights = K._flat_weights(amat, a0, mbias, gru, ma, bnp, ro)
+        meta = K.StepMeta(kw["steps"], 1, 1)
+        pf = K.prepare_fused_step_fwd(weights, h0, mask, ng, labels, gmask,
+                                      vid, src, dst, plan, meta)
+        f_ms = _events_ms(lambda: K.launch_prepared(pf), 100)
+        _, o, st, htil = K.launch_prepared(pf)
+        gout = torch.randn(o.shape, generator=gen).to(device)
+        gl = torch.ones(1, device=device)
+        pb = K.prepare_fused_step_bwd(weights, h0, labels, gmask, o, gout,
+                                      gl, htil, st, ng, vid, src, dst, plan,
+                                      meta)
+        b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
+        trace_us = _kernel_trace_us(pf, pb)
+        ref_args = (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels,
+                    gmask, vid, src, dst, plan)
+        with torch.no_grad():
+            pf_ms = _events_ms(lambda: K.fused_step_reference(*ref_args,
+                                                              **kw), 10)
+        leaves = [x.requires_grad_() for _, x in weights] + [
+            h0.requires_grad_()]
+        loss, o_ref, _, _ = K.fused_step_reference(*ref_args, **kw)
+        obj = loss + (o_ref * gout).sum()
+        pb_ms = _events_ms(lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True, allow_unused=True), 10)
+        cfg = net.cfg.mpnn
+        bounds = _step_bounds(b, cfg.node_features, cfg.output_dim,
+                              amat.shape[0], cfg.message_steps)
+        out[bs] = {"step_ms": statistics.median(lat),
+                   "fused_step_fwd": dict(ms=f_ms, plain_ms=pf_ms),
+                   "fused_step_bwd": dict(ms=b_ms, plain_ms=pb_ms)}
+        for name in ("fused_step_fwd", "fused_step_bwd"):
+            out[bs][name]["trace_us"] = trace_us[name]
+        for name in ("fused_step_fwd", "fused_step_bwd"):
+            bound, by, ops, nbytes = bounds[name]
+            out[bs][name].update(bound_ms=bound, bound_by=by)
+        lines.append(
+            f"batch {bs} (nodes {int(b['node_mask'].sum())}/"
+            f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
+            f"{b['edge_src'].shape[0]}, vocab {amat.shape[0]}): train step "
+            f"median {statistics.median(lat):.3f} ms mean "
+            f"{statistics.fmean(lat):.3f} ms ({reps} reps, loss read back); "
+            + ", ".join(
+                f"{name} {out[bs][name]['ms'] * 1e3:.2f} us (events, 100 "
+                f"launches; {out[bs][name]['trace_us']:.2f} us device time "
+                f"of one launch in a trace), plain {out[bs][name]['plain_ms'] * 1e3:.1f} us, "
+                f"bound {bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.2f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)"
+                for name in ("fused_step_fwd", "fused_step_bwd")))
+    print(f"train-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
+def phase_train_profile(device, step_ms):
+    """Device-time breakdown of one batch-1024 train step (forward,
+    backward, Adam, running statistics); fails when the trace shows no
+    device time for either training kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    gen = torch.Generator().manual_seed(3)
+    b = _batch((SMILES * 103)[:1024], 1024)
+    b["labels"] = torch.randn(1024, generator=gen).numpy()
+    net, opt = _train_net(b, gen, device)
+    for _ in range(2):
+        float(train_step(net, opt, batch_to_device(b, device)))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(train_step(net, opt, batch_to_device(b, device)))
+        torch.cuda.synchronize()
+    ka = prof.key_averages()
+    with open(os.path.join(OUT_DIR, "profile_train_1024.txt"), "w") as f:
+        f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
+
+    def dev(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+    busy, ops = _device_ops(prof)
+    kern = {k: sum(dev(e) for e in ops if f"{k}_kernel" in e.key)
+            for k in ("fused_step_fwd", "fused_step_bwd")}
+    if min(kern.values()) <= 0:
+        raise RuntimeError(f"train-profile: no device time for {kern}")
+    top = sorted(ops, key=dev, reverse=True)[:6]
+    print(f"train-profile: batch-1024 train step (H2D + forward + backward"
+          f" + Adam + EMAs + loss read-back): device busy {busy:.1f} us in "
+          f"{sum(e.count for e in ops)} device ops; fused_step_fwd_kernel "
+          f"{kern['fused_step_fwd']:.1f} us, fused_step_bwd_kernel "
+          f"{kern['fused_step_bwd']:.1f} us; device idle share "
+          f"{1 - busy / (step_ms * 1e3):.3f} of the {step_ms:.3f} ms step "
+          f"median; top: "
+          + ", ".join(f"{e.key[:48]} {dev(e):.1f} us x{e.count}"
+                      for e in top), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -434,18 +888,32 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = phase_device()
     phase_build()
-    worst, _ = phase_kernel_check(device)
+    worst = phase_kernel_check(device)
     launches, runs = phase_serve(device)
     times = phase_times(device, card, runs)
     phase_profile(device, runs, times[1024]["request_ms"])
+    train_counts = phase_train(device)
+    ttimes = phase_train_times(device, card)
+    phase_train_profile(device, ttimes[1024]["step_ms"])
     t = times[1024]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_eval", "route": "cuda",
         "source": "mpnn_tpu_torch/csrc/fused_eval.cu",
         "replaces": "mpnn_tpu/kernels/fused_step.py:374",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches, "max_abs_err": worst["fused_eval"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]}), flush=True)
+        "bound_by": t["bound_by"], "library_ms": None}]
+    for name, line in (("fused_step_fwd", 232), ("fused_step_bwd", 668)):
+        tt = ttimes[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/fused_step.py:{line}",
+            "launches": train_counts[name], "max_abs_err": worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(f"card: {card}", flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 path only; the native C++ packer and the TPU window plans are not part of
 the port).
 
-Batch composition (input order; the serving path does not shuffle) and
-the fixed packed capacities are identical to the reference loader, so the
-two produce the same arrays batch for batch. In place of the TPU window
+Batch composition (input order, or with `shuffle` one
+RandomState(seed).shuffle of the indices per epoch) and the fixed packed
+capacities are identical to the reference loader, so the two produce the
+same arrays batch for batch, epoch after epoch. In place of the TPU window
 plan, every batch carries the CUDA eval kernel's index plan
 (graphs/batching.py::plan_fused_eval), computed on the host in numpy.
 """
@@ -21,10 +22,11 @@ from mpnn_tpu_torch.graphs.graph import MolGraph
 
 
 class GraphLoader:
-    """Iterates packed batch dicts of numpy arrays, in input order (move
-    them to a device with train/trainer.py::batch_to_device)."""
+    """Iterates packed batch dicts of numpy arrays (move them to a device
+    with train/trainer.py::batch_to_device)."""
 
     def __init__(self, graphs: List[MolGraph], batch_size: int,
+                 shuffle: bool = False, seed: int = 317,
                  collate: str = "packed"):
         if collate != "packed":
             raise NotImplementedError(
@@ -32,6 +34,8 @@ class GraphLoader:
                 "(ROADMAP: dense path)")
         self.graphs = graphs
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.rng = np.random.RandomState(seed)
         # ONE packed shape for the whole run: cap = the worst possible batch
         # (top-batch_size graphs by node/edge count)
         self._packed_caps = None
@@ -62,6 +66,8 @@ class GraphLoader:
 
     def _epoch_chunks(self):
         idx = np.arange(len(self.graphs))
+        if self.shuffle:
+            self.rng.shuffle(idx)
         return [idx[s:s + self.batch_size]
                 for s in range(0, len(idx), self.batch_size)]
 

@@ -24,6 +24,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 # kernel library name → source file under csrc/
 SOURCES: Dict[str, str] = {
     "fused_eval": "fused_eval.cu",
+    "fused_step_fwd": "fused_step_fwd.cu",
+    "fused_step_bwd": "fused_step_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -52,9 +54,13 @@ def _so_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """True when the library is missing or older than its source or any
+    shared header in csrc/."""
     so = _so_path(name)
-    src = os.path.join(CSRC, SOURCES[name])
-    return not os.path.exists(so) or os.path.getmtime(so) < os.path.getmtime(src)
+    deps = [os.path.join(CSRC, SOURCES[name])] + [
+        os.path.join(CSRC, h) for h in os.listdir(CSRC) if h.endswith(".cuh")]
+    return not os.path.exists(so) or os.path.getmtime(so) < max(
+        os.path.getmtime(d) for d in deps)
 
 
 def build_all(force: bool = False) -> Dict[str, float]:

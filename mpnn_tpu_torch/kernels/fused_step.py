@@ -1,38 +1,52 @@
-"""Whole-step INFERENCE op of the shared-weight edge-network MPNN — the
-serving path's one kernel launch.
+"""Whole-step ops of the shared-weight edge-network MPNN: the serving
+path's inference kernel and the training path's forward and backward
+kernels.
 
-Counterpart of mpnn_tpu/kernels/fused_step.py::make_fused_eval_op (Pallas
-`_eval_kernel`). The CUDA kernel (csrc/fused_eval.cu) computes, per graph,
-the A-form messages + A0 bias leakage + message bias, the folded message
-norm, T × [GRU → folded state norm], and the gated readout, in one launch.
+  * fused_eval — counterpart of mpnn_tpu/kernels/fused_step.py::
+    make_fused_eval_op (Pallas `_eval_kernel`). The CUDA kernel
+    (csrc/fused_eval.cu) computes, per graph, the A-form messages + A0 bias
+    leakage + message bias, the folded message norm, T × [GRU → folded
+    state norm], and the gated readout, in one launch.
+  * fused_step — counterpart of make_fused_step_op (Pallas `_fwd_kernel`
+    and `_full_bwd_kernel`): the same chain with the masked bn1d norms in
+    training mode (batch statistics over all real nodes, per step) and the
+    masked-MSE loss, as a torch.autograd.Function whose forward and
+    backward are one cooperative CUDA launch each (csrc/fused_step_fwd.cu,
+    csrc/fused_step_bwd.cu).
 
 The TPU kernel's window plan (`fs_win`/`fs_ns`, 128-lane one-hot windows,
 128-graph blocks) is a VMEM workaround and is not ported. In its place the
 host attaches an index plan (graphs/batching.py::plan_fused_eval): a
 stable destination-sorted edge order with row pointers, and each graph's
-node and edge range.
+node and edge range. The training backward also walks each node's
+outgoing edges: that source-sorted order is derived from edge_src on the
+device at launch (source_order), so serving batches do not carry it.
 
-`fused_eval` launches the kernel for CUDA tensors and runs the plain
-version `fused_eval_reference` for CPU tensors — nothing else: there is
-no fallback from the kernel to the plain version.
+Each op launches its kernels for CUDA tensors and runs its plain version
+(fused_eval_reference, fused_step_reference under autograd) for CPU
+tensors — nothing else: there is no fallback from a kernel to its plain
+version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, NamedTuple
 
 import torch
 
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
-from mpnn_tpu_torch.ops.norm import fold_bn1d
+from mpnn_tpu_torch.ops.norm import BN_EPS, bn1d_train, fold_bn1d
 
-BN_EPS = 1e-5
-# the widest f and od the CUDA kernel is compiled for (csrc/fused_eval.cu)
+# the widest f and od the CUDA kernels are compiled for (csrc/*.cu)
 MAX_WIDTH = 16
+# the most recurrent steps the training kernels take (kMaxSteps)
+MAX_STEPS = 32
 
 # launches of each kernel wrapper; reset with reset_launch_counts()
-launch_counts: Dict[str, int] = {"fused_eval": 0}
+launch_counts: Dict[str, int] = {"fused_eval": 0, "fused_step_fwd": 0,
+                                 "fused_step_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -54,7 +68,7 @@ def fold_norm(p_bn, s_bn, mode: str, f: int, like: torch.Tensor):
     if mode != "bn1d":
         raise NotImplementedError(
             f"norm mode {mode!r}: the stateless state norm needs per-step "
-            "batch statistics over all nodes (ROADMAP queue 2, row 1)")
+            "batch statistics over all nodes (ROADMAP queue 1)")
     return fold_bn1d(p_bn["weight"], p_bn["bias"], s_bn["running_mean"],
                      s_bn["running_var"], BN_EPS)
 
@@ -63,68 +77,143 @@ def fold_norm(p_bn, s_bn, mode: str, f: int, like: torch.Tensor):
 # plain version (CPU path; the card's comparison baseline)
 # ---------------------------------------------------------------------------
 
+def _messages(amat, a0, mbias, h0, ng, vid, src, dst, num_graphs: int):
+    """m_d = Σ_{e: dst_e = d} A[vid_e]·h0[src_e] + A0·S_graph(d) + mbias."""
+    vid, src, dst = vid.long(), src.long(), dst.long()
+    edge_msg = torch.bmm(amat[vid], h0[src].unsqueeze(-1)).squeeze(-1)
+    agg = torch.zeros_like(h0).index_add(0, dst, edge_msg)
+    s = h0.new_zeros((num_graphs + 1, h0.shape[1])).index_add(0, ng, h0)
+    return agg + s[ng] @ a0.T + mbias
+
+
+def _gru(gru, gi, h, mask):
+    """One masked GRU step from the precomputed input gates gi."""
+    f = h.shape[1]
+    gir, giz, gin = gi.split(f, dim=-1)
+    ghr, ghz, ghn = (h @ gru["w_hh"] + gru["b_hh"]).split(f, dim=-1)
+    r = torch.sigmoid(gir + ghr) * mask
+    z = torch.sigmoid(giz + ghz) * mask
+    nn_ = torch.tanh(gin + r * ghn) * mask
+    return ((1.0 - z) * nn_ + z * h) * mask
+
+
+def _readout(h, h0, mask, ng, ro, num_graphs: int):
+    """Per-graph sums of softmax_od(W_i·[h ‖ h0] + b_i) ⊙ (W_j·[h ‖ h0] + b_j)."""
+    x = torch.cat([h, h0 * mask], dim=-1)
+    gated = torch.softmax(x @ ro["i"]["w"] + ro["i"]["b"], dim=-1) \
+        * (x @ ro["j"]["w"] + ro["j"]["b"]) * mask
+    out = gated.new_zeros((num_graphs + 1, gated.shape[-1]))
+    return out.index_add(0, ng, gated)[:num_graphs]
+
+
+def _check_modes(who: str, msg_norm: str, state_norm: str) -> None:
+    if msg_norm not in ("bn1d", "none") or state_norm not in ("bn1d",
+                                                              "none"):
+        raise NotImplementedError(
+            f"{who}: msg_norm={msg_norm!r}, state_norm={state_norm!r}; the "
+            "kernels take bn1d/none — the stateless state norm is still to "
+            "port (ROADMAP queue 1)")
+
+
 def fused_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                          ma_state, bn, bn_state, ro, vid, src, dst,
                          plan: FusedEvalPlan, *, steps: int,
                          msg_norm: str = "bn1d", state_norm: str = "bn1d"):
-    """Plain PyTorch version of the kernel, same arguments. h0 PRE-MASKED
-    (N, f); mask (N, 1); weights in the JAX layout (in, out); gates r|z|n.
-    Returns out (G, od). Only the plan's graph count is read: the plain
-    version sums with index_add_ over all edges and nodes."""
+    """Plain PyTorch version of the eval kernel, same arguments. h0
+    PRE-MASKED (N, f); mask (N, 1); weights in the JAX layout (in, out);
+    gates r|z|n. Returns out (G, od). Only the plan's graph count is read:
+    the plain version sums with index_add over all edges and nodes."""
     f = h0.shape[1]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
     maw, mab = fold_norm(ma_bn, ma_state, msg_norm, f, h0)
     sw, sb = fold_norm(bn, bn_state, state_norm, f, h0)
-    vid, src, dst = vid.long(), src.long(), dst.long()
     ng = node_graph.long()
-    edge_msg = torch.bmm(amat[vid], h0[src].unsqueeze(-1)).squeeze(-1)
-    agg = torch.zeros_like(h0).index_add_(0, dst, edge_msg)
-    s = torch.zeros(num_graphs + 1, f, dtype=h0.dtype,
-                    device=h0.device).index_add_(0, ng, h0)
-    base = s[ng] @ a0.T
-    msgs = (agg + base + mbias) * mask
+    msgs = _messages(amat, a0, mbias, h0, ng, vid, src, dst,
+                     num_graphs) * mask
     mb = (maw * msgs + mab) * mask
     gi = mb @ gru["w_ih"] + gru["b_ih"]
-    gir, giz, gin = gi.split(f, dim=-1)
     h = h0 * mask
     for _ in range(steps):
-        gh = h @ gru["w_hh"] + gru["b_hh"]
-        ghr, ghz, ghn = gh.split(f, dim=-1)
-        r = torch.sigmoid(gir + ghr) * mask
-        z = torch.sigmoid(giz + ghz) * mask
-        nn_ = torch.tanh(gin + r * ghn) * mask
-        h = ((1.0 - z) * nn_ + z * h) * mask
-        h = (sw * h + sb) * mask
-    x = torch.cat([h, h0 * mask], dim=-1)
-    gated = torch.softmax(x @ ro["i"]["w"] + ro["i"]["b"], dim=-1) \
-        * (x @ ro["j"]["w"] + ro["j"]["b"]) * mask
-    od = gated.shape[-1]
-    out = torch.zeros(num_graphs + 1, od, dtype=h0.dtype,
-                      device=h0.device).index_add_(0, ng, gated)
-    return out[:num_graphs]
+        h = (sw * _gru(gru, gi, h, mask) + sb) * mask
+    return _readout(h, h0, mask, ng, ro, num_graphs)
+
+
+def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
+                         bn, ro, labels, gmask, vid, src, dst,
+                         plan: FusedEvalPlan, *, steps: int,
+                         msg_norm: str = "bn1d", state_norm: str = "bn1d"):
+    """Plain PyTorch version of the training forward kernel (and, through
+    autograd, of the backward kernel): make_fused_step_op's arguments
+    minus the TPU window plan, plus the index plan (only its graph count is
+    read). h0 PRE-MASKED. Returns (loss, out (G, od), (ma_mean, ma_var),
+    [(mean_t, var_t)] × steps); the statistics are detached (they feed the
+    running EMAs only), zeros for a norm in mode 'none'.
+    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm."""
+    _check_modes("fused_step", msg_norm, state_norm)
+    f = h0.shape[1]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    ng = node_graph.long()
+    zero = h0.new_zeros(f)
+    msgs = _messages(amat, a0, mbias, h0, ng, vid, src, dst,
+                     num_graphs) * mask
+    if msg_norm == "bn1d":
+        mb, ma_stats = bn1d_train(msgs, mask, ma_bn["weight"], ma_bn["bias"])
+    else:
+        mb, ma_stats = msgs, (zero, zero)
+    gi = mb @ gru["w_ih"] + gru["b_ih"]
+    h = h0 * mask
+    step_stats = []
+    for _ in range(steps):
+        h = _gru(gru, gi, h, mask)
+        if state_norm == "bn1d":
+            h, st = bn1d_train(h, mask, bn["weight"], bn["bias"])
+        else:
+            st = (zero, zero)
+        step_stats.append(tuple(x.detach() for x in st))
+    out = _readout(h, h0, mask, ng, ro, num_graphs)
+    loss = (((out - labels[:, None]) ** 2) * gmask[:, None]).sum() \
+        / gmask.sum()
+    return (loss, out, tuple(x.detach() for x in ma_stats), step_stats)
 
 
 # ---------------------------------------------------------------------------
-# the CUDA kernel's wrapper
+# the CUDA kernels' libraries and checks
 # ---------------------------------------------------------------------------
 
-_ARGTYPES_SET = False
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# C signatures: (argtypes, restype) of each library's entry points
+_SIGNATURES = {
+    "fused_eval": {
+        "mpnn_fused_eval": ([_P] * 22 + [_I] * 5 + [_P], _I),
+        "mpnn_fused_eval_smem_bytes": ([_I], _I),
+    },
+    "fused_step_fwd": {
+        "mpnn_fused_step_fwd": ([_P] * 28 + [_I] * 9 + [_P], _I),
+        "mpnn_fused_step_fwd_smem_bytes": ([_I, _I], _I),
+        "mpnn_fused_step_fwd_scratch_floats": ([_I, _I], ctypes.c_longlong),
+        "mpnn_fused_step_fwd_grid": ([_I] * 4, _I),
+    },
+    "fused_step_bwd": {
+        "mpnn_fused_step_bwd": ([_P] * 33 + [_I] * 10 + [_P], _I),
+        "mpnn_fused_step_bwd_smem_bytes": ([_I, _I], _I),
+        "mpnn_fused_step_bwd_layout": ([_I, _I, _I, _P], None),
+        "mpnn_fused_step_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+        "mpnn_fused_step_bwd_grid": ([_I] * 5, _I),
+    },
+}
+_READY = set()
 
 
-def _lib():
-    global _ARGTYPES_SET
+def _lib(name: str = "fused_eval"):
     from mpnn_tpu_torch.kernels import build
-    lib = build.load("fused_eval")
-    if not _ARGTYPES_SET:
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.mpnn_fused_eval.argtypes = [p] * 22 + [i] * 5 + [p]
-        lib.mpnn_fused_eval.restype = i
-        lib.mpnn_fused_eval_smem_bytes.argtypes = [i]
-        lib.mpnn_fused_eval_smem_bytes.restype = i
-        lib.mpnn_cuda_error_string.argtypes = [i]
+    lib = build.load(name)
+    if name not in _READY:
+        for fn, (args, res) in _SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = args
+            getattr(lib, fn).restype = res
+        lib.mpnn_cuda_error_string.argtypes = [_I]
         lib.mpnn_cuda_error_string.restype = ctypes.c_char_p
-        _ARGTYPES_SET = True
+        _READY.add(name)
     return lib
 
 
@@ -143,8 +232,8 @@ def _check(name, t, shape, device, dtype):
 
 
 def check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
-                       num_graphs: int) -> None:
-    """The invariants the kernel relies on, checked with one device sync:
+                       num_graphs: int, who: str = "fused_eval") -> None:
+    """The invariants the kernels rely on, checked with one device sync:
     node_graph non-decreasing over real nodes; padded nodes (and only they)
     carry node_graph == G and mask 0; real masks are 1; every edge stays
     inside one graph; vocab ids in range; the plan agrees with edge_dst
@@ -185,8 +274,63 @@ def check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
              "plan graph_node_ptr disagrees with node_graph"]
     for flag, what in zip(bad.cpu().tolist(), names):
         if flag:
-            raise ValueError(f"fused_eval: {what}")
+            raise ValueError(f"{who}: {what}")
 
+
+def _check_widths(who: str, f: int, od: int) -> None:
+    if f > MAX_WIDTH or od > MAX_WIDTH:
+        raise NotImplementedError(
+            f"{who}: f={f}, od={od}; the kernel is compiled for widths "
+            f"up to {MAX_WIDTH} (the lipo family's)")
+
+
+def _check_plan(plan, device, n, e, num_graphs):
+    ints = [("plan.edge_order", plan.edge_order, (e,)),
+            ("plan.dst_ptr", plan.dst_ptr, (n + 1,)),
+            ("plan.graph_node_ptr", plan.graph_node_ptr, (num_graphs + 1,))]
+    for name, t, shape in ints:
+        _check(name, t, shape, device, torch.int32)
+
+
+def source_order(src: torch.Tensor, n: int):
+    """(edge ids stably sorted by source, row pointers (n+1,)), int32, on
+    src's device without a host sync: the backward kernel's transposed
+    message sum walks each node's outgoing edges in batch order. Derived
+    from the checked edge_src, so it needs no layout check of its own."""
+    s_sorted, order = torch.sort(src, stable=True)
+    nodes = torch.arange(n + 1, dtype=src.dtype, device=src.device)
+    ptr = torch.searchsorted(s_sorted, nodes, out_int32=True)
+    return order.to(torch.int32), ptr
+
+
+class PreparedLaunch(NamedTuple):
+    """A checked kernel call: the launch-count key, the C function, its
+    arguments (pointers into `keep`), what it writes, and the tensors that
+    must outlive the launch."""
+    name: str
+    fn: object
+    error_string: object
+    args: tuple
+    out: object
+    keep: tuple
+
+
+def launch_prepared(p: PreparedLaunch):
+    """Launch a prepared kernel call on the stream captured when it was
+    prepared; raise if the launch is refused. Counts the launch."""
+    device = (p.out[0] if isinstance(p.out, tuple) else p.out).device
+    with torch.cuda.device(device):
+        err = p.fn(*p.args)
+    if err != 0:
+        raise RuntimeError(f"{p.name} kernel launch failed: "
+                           + p.error_string(err).decode())
+    launch_counts[p.name] += 1
+    return p.out
+
+
+# ---------------------------------------------------------------------------
+# fused_eval: the serving kernel
+# ---------------------------------------------------------------------------
 
 def fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state,
                bn, bn_state, ro, vid, src, dst, plan: FusedEvalPlan, *,
@@ -195,14 +339,8 @@ def fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state,
     (make_fused_eval_op), minus the TPU window plan, plus the index plan
     (tensors on the same device as h0). CPU tensors run the plain version;
     CUDA tensors launch the CUDA kernel or raise."""
-    if state_norm == "stateless" or msg_norm not in ("bn1d", "none") \
-            or state_norm not in ("bn1d", "none"):
-        raise NotImplementedError(
-            f"fused_eval: msg_norm={msg_norm!r}, state_norm={state_norm!r}; "
-            "the kernel takes bn1d/none folded affines — the stateless "
-            "state norm is still to port (ROADMAP queue 2, row 1)")
-    device = h0.device
-    if device.type == "cpu":
+    _check_modes("fused_eval", msg_norm, state_norm)
+    if h0.device.type == "cpu":
         return fused_eval_reference(
             amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state, bn,
             bn_state, ro, vid, src, dst, plan, steps=steps,
@@ -211,15 +349,6 @@ def fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state,
         amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state, bn,
         bn_state, ro, vid, src, dst, plan, steps=steps, msg_norm=msg_norm,
         state_norm=state_norm))
-
-
-class PreparedLaunch(NamedTuple):
-    """A checked kernel call: the C arguments (pointers into `keep`), the
-    output it writes, and the tensors that must outlive the launch."""
-    lib: ctypes.CDLL
-    args: tuple
-    out: torch.Tensor
-    keep: tuple
 
 
 def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
@@ -239,11 +368,8 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     od = ro["i"]["b"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    if f > MAX_WIDTH or od > MAX_WIDTH:
-        raise NotImplementedError(
-            f"fused_eval: f={f}, od={od}; the kernel is compiled for widths "
-            f"up to {MAX_WIDTH} (the lipo family's)")
-    lib = _lib()
+    _check_widths("fused_eval", f, od)
+    lib = _lib("fused_eval")
     maw, mab = fold_norm(ma_bn, ma_state, msg_norm, f, h0)
     sw, sb = fold_norm(bn, bn_state, state_norm, f, h0)
     floats = [("amat", amat, (k_vocab, f, f)), ("a0", a0, (f, f)),
@@ -261,13 +387,10 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
               ("mask", mask, (n, 1))]
     for name, t, shape in floats:
         _check(name, t, shape, device, torch.float32)
-    ints = [("vid", vid, (e,)), ("src", src, (e,)), ("dst", dst, (e,)),
-            ("node_graph", node_graph, (n,)),
-            ("plan.edge_order", plan.edge_order, (e,)),
-            ("plan.dst_ptr", plan.dst_ptr, (n + 1,)),
-            ("plan.graph_node_ptr", plan.graph_node_ptr, (num_graphs + 1,))]
-    for name, t, shape in ints:
-        _check(name, t, shape, device, torch.int32)
+    for name, t in [("vid", vid), ("src", src), ("dst", dst)]:
+        _check(name, t, (e,), device, torch.int32)
+    _check("node_graph", node_graph, (n,), device, torch.int32)
+    _check_plan(plan, device, n, e, num_graphs)
     if check:
         check_batch_layout(h0, mask, node_graph, vid, src, dst, plan,
                            k_vocab, num_graphs)
@@ -277,16 +400,239 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
         vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr, out]
     args = (*(t.data_ptr() for t in tensors), num_graphs, f, od, k_vocab,
             steps, torch.cuda.current_stream(device).cuda_stream)
-    return PreparedLaunch(lib, args, out, tuple(tensors))
+    return PreparedLaunch("fused_eval", lib.mpnn_fused_eval,
+                          lib.mpnn_cuda_error_string, args, out,
+                          tuple(tensors))
 
 
-def launch_prepared(p: PreparedLaunch) -> torch.Tensor:
-    """Launch the kernel on the stream captured by prepare_fused_eval;
-    raise if the launch is refused. Counts the launch."""
-    with torch.cuda.device(p.out.device):
-        err = p.lib.mpnn_fused_eval(*p.args)
-    if err != 0:
-        raise RuntimeError("fused_eval kernel launch failed: "
-                           + p.lib.mpnn_cuda_error_string(err).decode())
-    launch_counts["fused_eval"] += 1
-    return p.out
+# ---------------------------------------------------------------------------
+# fused_step: the training forward and backward kernels
+# ---------------------------------------------------------------------------
+
+_GRAD_LEAVES = ("amat", "a0", "mbias", "w_ih", "w_hh", "b_ih", "b_hh",
+                "ma_w", "ma_b", "bn_w", "bn_b", "ro_iw", "ro_ib", "ro_jw",
+                "ro_jb")
+
+
+def grad_layout(k_vocab: int, f: int, od: int) -> Dict[str, tuple]:
+    """{leaf: (offset, shape)} of the backward kernel's flat gradient
+    output, in csrc/fused_step_bwd.cu's GradLayout order."""
+    shapes = [(k_vocab, f, f), (f, f), (f,), (f, 3 * f), (f, 3 * f),
+              (3 * f,), (3 * f,), (f,), (f,), (f,), (f,), (2 * f, od),
+              (od,), (2 * f, od), (od,)]
+    out, off = {}, 0
+    for name, shape in zip(_GRAD_LEAVES, shapes):
+        out[name] = (off, shape)
+        off += math.prod(shape)
+    out["total"] = (off, ())
+    return out
+
+
+_GRIDS: Dict[tuple, int] = {}
+
+
+def _grid(lib, fn: str, *key) -> int:
+    """Blocks of a cooperative launch (all co-resident blocks, capped at
+    the work's need), cached per shape."""
+    k = (fn, torch.cuda.current_device(), *key)
+    if k not in _GRIDS:
+        grid = getattr(lib, fn)(*key)
+        if grid < 1:
+            raise RuntimeError(f"{fn}: no cooperative grid fits this card")
+        _GRIDS[k] = grid
+    return _GRIDS[k]
+
+
+def _flat_weights(amat, a0, mbias, gru, ma_bn, bn, ro):
+    return [("amat", amat), ("a0", a0), ("mbias", mbias),
+            ("w_ih", gru["w_ih"]), ("w_hh", gru["w_hh"]),
+            ("b_ih", gru["b_ih"]), ("b_hh", gru["b_hh"]),
+            ("ma_w", ma_bn["weight"]), ("ma_b", ma_bn["bias"]),
+            ("bn_w", bn["weight"]), ("bn_b", bn["bias"]),
+            ("ro_iw", ro["i"]["w"]), ("ro_ib", ro["i"]["b"]),
+            ("ro_jw", ro["j"]["w"]), ("ro_jb", ro["j"]["b"])]
+
+
+class StepMeta(NamedTuple):
+    steps: int
+    msg_bn: int
+    state_bn: int
+
+
+def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
+                       src, dst, plan):
+    """Device, dtype, shape and contiguity of every training-kernel input;
+    returns (n, f, od, k_vocab, e, num_graphs)."""
+    device = h0.device
+    if device.type != "cuda":
+        raise ValueError(f"fused_step: unsupported device {device}")
+    n, f = h0.shape
+    w = dict(weights)
+    k_vocab = w["amat"].shape[0]
+    od = w["ro_ib"].shape[0]
+    e = src.shape[0]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    _check_widths("fused_step", f, od)
+    layout = grad_layout(k_vocab, f, od)
+    for name, t in weights:
+        _check(name, t, layout[name][1], device, torch.float32)
+    for name, t, shape in [("h0", h0, (n, f)), ("mask", mask, (n, 1)),
+                           ("labels", labels, (num_graphs,)),
+                           ("gmask", gmask, (num_graphs,))]:
+        _check(name, t, shape, device, torch.float32)
+    for name, t in [("vid", vid), ("src", src), ("dst", dst)]:
+        _check(name, t, (e,), device, torch.int32)
+    _check("node_graph", node_graph, (n,), device, torch.int32)
+    _check_plan(plan, device, n, e, num_graphs)
+    return n, f, od, k_vocab, e, num_graphs
+
+
+def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
+                           vid, src, dst, plan: FusedEvalPlan,
+                           meta: StepMeta) -> PreparedLaunch:
+    """One checked forward launch: its arguments and outputs (loss (1,),
+    out (G, od), stats (T+1, 2, f), htil (T+1, N, f)). `weights` is the
+    (name, tensor) list of _flat_weights."""
+    n, f, od, k_vocab, e, g = _check_step_inputs(
+        weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan)
+    check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab, g,
+                       who="fused_step")
+    lib = _lib("fused_step_fwd")
+    device, T = h0.device, meta.steps
+    grid = _grid(lib, "mpnn_fused_step_fwd_grid", k_vocab, T, n, g)
+    kw = dict(dtype=torch.float32, device=device)
+    loss = torch.empty(1, **kw)
+    out = torch.empty(g, od, **kw)
+    stats = torch.empty(T + 1, 2, f, **kw)
+    htil = torch.empty(T + 1, n, f, **kw)
+    scratch = torch.empty(lib.mpnn_fused_step_fwd_scratch_floats(n, g), **kw)
+    w = dict(weights)
+    tensors = [w["amat"], w["a0"], w["mbias"], h0] + [
+        w[k] for k in _GRAD_LEAVES[3:]] + [
+        labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
+        plan.graph_node_ptr, loss, out, stats, htil, scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
+            meta.msg_bn, meta.state_bn, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    return PreparedLaunch("fused_step_fwd", lib.mpnn_fused_step_fwd,
+                          lib.mpnn_cuda_error_string, args,
+                          (loss, out, stats, htil), tuple(tensors))
+
+
+def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
+                           stats, node_graph, vid, src, dst,
+                           plan: FusedEvalPlan, meta: StepMeta
+                           ) -> PreparedLaunch:
+    """One checked backward launch on the forward's residuals (the batch
+    tensors as the forward checked them): its arguments and outputs
+    (dh0 (N, f), the flat gradient of grad_layout)."""
+    device = h0.device
+    n, f = h0.shape
+    w = dict(weights)
+    k_vocab, od = w["amat"].shape[0], w["ro_ib"].shape[0]
+    e, g, T = src.shape[0], plan.graph_node_ptr.shape[0] - 1, meta.steps
+    for name, t, shape in [("out", out, (g, od)), ("gout", gout, (g, od)),
+                           ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
+                           ("stats", stats, (T + 1, 2, f))]:
+        _check(name, t, shape, device, torch.float32)
+    lib = _lib("fused_step_bwd")
+    layout = grad_layout(k_vocab, f, od)
+    c_layout = (ctypes.c_int * 16)()
+    lib.mpnn_fused_step_bwd_layout(k_vocab, f, od, c_layout)
+    if [v[0] for v in layout.values()] != list(c_layout):
+        raise RuntimeError("fused_step_bwd: the gradient layout of the "
+                           "built library disagrees with grad_layout")
+    grid = _grid(lib, "mpnn_fused_step_bwd_grid", k_vocab, T, n, g, e)
+    kw = dict(dtype=torch.float32, device=device)
+    dh0 = torch.empty(n, f, **kw)
+    dw = torch.empty(layout["total"][0], **kw)
+    scratch = torch.empty(lib.mpnn_fused_step_bwd_scratch_floats(
+        n, k_vocab, f, od, grid), **kw)
+    src_order, src_ptr = source_order(src, n)
+    tensors = [w["amat"], w["a0"], w["mbias"], h0] + [
+        w[k] for k in _GRAD_LEAVES[3:]] + [
+        labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
+        src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
+        scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, e, f, od, k_vocab, T,
+            meta.msg_bn, meta.state_bn, grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    return PreparedLaunch("fused_step_bwd", lib.mpnn_fused_step_bwd,
+                          lib.mpnn_cuda_error_string, args, (dh0, dw),
+                          tuple(tensors))
+
+
+def split_grads(dw: torch.Tensor, k_vocab: int, f: int, od: int):
+    """The flat gradient as {leaf: view of its shape}."""
+    return {name: dw[off:off + math.prod(shape)].view(shape)
+            for name, (off, shape) in grad_layout(k_vocab, f, od).items()
+            if name != "total"}
+
+
+class _FusedStep(torch.autograd.Function):
+    """The training forward kernel, with the backward kernel as its VJP.
+    Inputs: meta, the 15 weight leaves (_GRAD_LEAVES order), h0, then the
+    non-differentiable batch tensors and the plan. Outputs (loss (1,),
+    out, stats); stats carry no gradient (they feed the running EMAs)."""
+
+    @staticmethod
+    def forward(ctx, meta, *args):
+        weights = list(zip(_GRAD_LEAVES, args[:15]))
+        h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        plan = FusedEvalPlan(*args[23:])
+        loss, out, stats, htil = launch_prepared(prepare_fused_step_fwd(
+            weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
+            plan, meta))
+        ctx.meta = meta
+        ctx.save_for_backward(*args, out, stats, htil)
+        ctx.mark_non_differentiable(stats)
+        return loss, out, stats
+
+    @staticmethod
+    def backward(ctx, g_loss, g_out, _g_stats):
+        saved = ctx.saved_tensors
+        args, (out, stats, htil) = saved[:-3], saved[-3:]
+        weights = list(zip(_GRAD_LEAVES, args[:15]))
+        h0, _mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        plan = FusedEvalPlan(*args[23:])
+        gl = (torch.zeros(1, dtype=out.dtype, device=out.device)
+              if g_loss is None else g_loss.reshape(1).contiguous())
+        gout = (torch.zeros_like(out) if g_out is None
+                else g_out.contiguous())
+        dh0, dw = launch_prepared(prepare_fused_step_bwd(
+            weights, h0, labels, gmask, out, gout, gl, htil, stats,
+            node_graph, vid, src, dst, plan, ctx.meta))
+        f, od, k = h0.shape[1], out.shape[1], args[0].shape[0]
+        grads = split_grads(dw, k, f, od)
+        return (None, *(grads[name] for name in _GRAD_LEAVES), dh0,
+                *([None] * (len(args) - 16)))
+
+
+def fused_step(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
+               labels, gmask, vid, src, dst, plan: FusedEvalPlan, *,
+               steps: int, msg_norm: str = "bn1d",
+               state_norm: str = "bn1d"):
+    """Whole-step training forward: (loss, out (G, od), (ma_mean, ma_var),
+    [(mean_t, var_t)] × steps), differentiable in the weights and h0 for
+    the cotangents of both loss and out. Arguments as fused_step_reference.
+    CPU tensors run the plain version under autograd; CUDA tensors launch
+    the forward kernel (and, in the backward pass, the backward kernel) or
+    raise."""
+    _check_modes("fused_step", msg_norm, state_norm)
+    if h0.device.type == "cpu":
+        return fused_step_reference(
+            amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
+            labels, gmask, vid, src, dst, plan, steps=steps,
+            msg_norm=msg_norm, state_norm=state_norm)
+    if not 1 <= steps <= MAX_STEPS:
+        raise NotImplementedError(
+            f"fused_step: steps={steps}; the kernels take 1 to {MAX_STEPS}")
+    meta = StepMeta(steps, int(msg_norm == "bn1d"),
+                    int(state_norm == "bn1d"))
+    weights = [t for _, t in _flat_weights(amat, a0, mbias, gru, ma_bn, bn,
+                                           ro)]
+    loss, out, stats = _FusedStep.apply(
+        meta, *weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
+        *plan)
+    return (loss[0], out, (stats[0, 0], stats[0, 1]),
+            [(stats[t, 0], stats[t, 1]) for t in range(1, steps + 1)])

@@ -1,9 +1,12 @@
-"""The MPNN core through the whole-step inference kernel (counterpart of
-mpnn_tpu/models/fused_train.py: _build_a_form, fused_eval_eligible,
-fused_mpnn_eval for the shared-weight family).
+"""The MPNN core through the whole-step kernels (counterpart of
+mpnn_tpu/models/fused_train.py for the shared-weight family):
+_build_a_form and fused_eval_eligible (both paths); fused_mpnn_eval
+(serving, one eval-kernel launch); fused_mpnn_out and fused_flagship_loss
+(training, one forward and one backward launch).
 
-The plain PyTorch work left around the one kernel launch is the edge-MLP
-vocab chain (K+1 rows through the ×50 tail) and the A-matrix fold.
+The plain PyTorch work left around the kernels is the edge-MLP vocab chain
+(K+1 rows through the ×50 tail) and the A-matrix fold, whose gradients
+autograd takes from the kernel's dA and dA0, and the running-stat EMAs.
 """
 
 from __future__ import annotations
@@ -11,10 +14,11 @@ from __future__ import annotations
 import torch
 
 from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
-from mpnn_tpu_torch.kernels.fused_step import fused_eval
+from mpnn_tpu_torch.kernels.fused_step import fused_eval, fused_step
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.models.mpnn import MPNN, supported
-from mpnn_tpu_torch.models.sparse import _edge_penultimates, a_form
+from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
+                                          mpnn_new_state)
 
 
 def _build_a_form(mpnn: MPNN, batch):
@@ -32,9 +36,10 @@ def _build_a_form(mpnn: MPNN, batch):
 
 
 def fused_eval_eligible(cfg: MPNNConfig, batch) -> bool:
-    """True when the eval kernel computes exactly this config's eval
-    forward on this batch: a supported config (models/mpnn.py) and a packed
-    batch that carries the edge vocab and the kernel's index plan."""
+    """True when the eval kernel (and the training kernels) compute
+    exactly this config's forward on this batch: a supported config
+    (models/mpnn.py; msg/state norms in {bn1d, none}) and a packed batch
+    that carries the edge vocab and the kernels' index plan."""
     return (supported(cfg) and "edge_vid" in batch
             and all(k in batch for k in PLAN_KEYS))
 
@@ -53,23 +58,26 @@ def _bn_or_dummy(mods, f: int, like: torch.Tensor):
             {"running_mean": zero, "running_var": one})
 
 
+def _ro_jax(mpnn: MPNN):
+    """The readout weights in the JAX layout (in, out)."""
+    ro = mpnn.readout
+    return {"i": {"w": ro.i.weight.t().contiguous(), "b": ro.i.bias},
+            "j": {"w": ro.j.weight.t().contiguous(), "b": ro.j.bias}}
+
+
 def fused_eval_args(mpnn: MPNN, batch):
     """(args, kwargs) of the fused_eval call for this batch: the A-form,
     the pre-masked h0, the weights in the JAX layout and the index plan."""
     cfg = mpnn.cfg
     h0 = batch["node_feats"] * batch["node_mask"]
     amat, a0, vid = _build_a_form(mpnn, batch)
-    ro = mpnn.readout
     ma_p, ma_s = _bn_or_dummy(mpnn.ma_bn, cfg.message_features, h0)
     bn_p, bn_s = _bn_or_dummy(mpnn.bn, cfg.node_features, h0)
     args = (amat.contiguous(), a0.contiguous(),
             mpnn.message[0].message_bias, h0.contiguous(),
             batch["node_mask"], batch["node_graph"], mpnn.gru.as_dict(),
-            ma_p, ma_s, bn_p, bn_s,
-            {"i": {"w": ro.i.weight.t().contiguous(), "b": ro.i.bias},
-             "j": {"w": ro.j.weight.t().contiguous(), "b": ro.j.bias}},
-            vid, batch["edge_src"], batch["edge_dst"],
-            plan_from_batch(batch))
+            ma_p, ma_s, bn_p, bn_s, _ro_jax(mpnn), vid, batch["edge_src"],
+            batch["edge_dst"], plan_from_batch(batch))
     return args, dict(steps=cfg.message_steps, msg_norm=cfg.msg_norm,
                       state_norm=cfg.state_norm)
 
@@ -80,3 +88,44 @@ def fused_mpnn_eval(mpnn: MPNN, batch) -> torch.Tensor:
     within f32 summation-order error."""
     args, kwargs = fused_eval_args(mpnn, batch)
     return fused_eval(*args, **kwargs)
+
+
+def fused_step_args(mpnn: MPNN, batch, labels):
+    """(args, kwargs) of the fused_step call for this batch: the A-form,
+    the pre-masked h0, the weights in the JAX layout, the labels and the
+    index plan."""
+    cfg = mpnn.cfg
+    h0 = batch["node_feats"] * batch["node_mask"]
+    amat, a0, vid = _build_a_form(mpnn, batch)
+    ma_p, _ = _bn_or_dummy(mpnn.ma_bn, cfg.message_features, h0)
+    bn_p, _ = _bn_or_dummy(mpnn.bn, cfg.node_features, h0)
+    args = (amat.contiguous(), a0.contiguous(),
+            mpnn.message[0].message_bias, h0.contiguous(),
+            batch["node_mask"], batch["node_graph"], mpnn.gru.as_dict(),
+            ma_p, bn_p, _ro_jax(mpnn), labels, batch["graph_mask"], vid,
+            batch["edge_src"], batch["edge_dst"], plan_from_batch(batch))
+    return args, dict(steps=cfg.message_steps, msg_norm=cfg.msg_norm,
+                      state_norm=cfg.state_norm)
+
+
+def fused_flagship_loss(mpnn: MPNN, batch, labels):
+    """The bare MPNN's training step through the kernels with the masked
+    MSE in the kernel: (loss, out, new_state), new_state as
+    models/sparse.py::mpnn_new_state gives it."""
+    args, kwargs = fused_step_args(mpnn, batch, labels)
+    loss, out, ma_stats, step_stats = fused_step(*args, **kwargs)
+    return loss, out, mpnn_new_state(mpnn, ma_stats, step_stats)
+
+
+def fused_mpnn_out(mpnn: MPNN, batch):
+    """The MPNN core through the training kernels, loss OUTSIDE: returns
+    (out (G, output_dim), new_state) — a drop-in for
+    sparse_mpnn_apply(training=True), so a network with a wrapper, head
+    BN or dense head (the lipo model) runs messages → readout as one
+    forward launch. The kernel's loss against zero labels is discarded:
+    its cotangent is zero, so the backward kernel is driven by the `out`
+    cotangent alone."""
+    zero_labels = torch.zeros_like(batch["graph_mask"])
+    args, kwargs = fused_step_args(mpnn, batch, zero_labels)
+    _, out, ma_stats, step_stats = fused_step(*args, **kwargs)
+    return out, mpnn_new_state(mpnn, ma_stats, step_stats)

@@ -1,5 +1,5 @@
 """Full network = input wrapper → MPNN → (BN) → dense head, packed batches,
-eval mode (counterpart of mpnn_tpu/models/network.py).
+eval and training mode (counterpart of mpnn_tpu/models/network.py).
 
 The lipo composition (test_lipo.py:103-129): the graph_norm wrapper
 (masked bn1d over nafm, concatenated onto afm), the MPNN core, torch's
@@ -19,7 +19,9 @@ from mpnn_tpu_torch.device import resolve_device
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.models.mpnn import MPNN
 from mpnn_tpu_torch.ops.linear import linear_init_, make_linear
-from mpnn_tpu_torch.ops.norm import MaskedBatchNorm1d, bn_rows_eval
+from mpnn_tpu_torch.ops.norm import (MaskedBatchNorm1d, bn1d_train,
+                                     bn_rows_eval, bn_rows_train, ema,
+                                     running_state)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,29 +103,70 @@ def network_init(cfg: Union[NetworkConfig, MPNNConfig],
     return mod.to(device)
 
 
-def mpnn_input(net: Network, batch) -> dict:
+def mpnn_input(net: Network, batch, *, training: bool = False):
     """The batch the MPNN core sees: with the graph_norm wrapper, the
-    masked-bn1d nafm columns concatenated onto node_feats."""
+    masked-bn1d nafm columns concatenated onto node_feats (gradients flow
+    through the concatenation into the nafm norm). Eval mode returns the
+    batch; training mode (batch, nafm_bn's new running state or None)."""
     mb = dict(batch)
+    new_state = None
     if net.cfg.input_wrapper == "graph_norm":
-        nafm = net.nafm_bn(batch["node_nafm"], batch["node_mask"])
+        bn = net.nafm_bn
+        if training:
+            nafm, stats = bn1d_train(batch["node_nafm"], batch["node_mask"],
+                                     bn.weight, bn.bias)
+            new_state = ema(running_state(bn), stats)
+        else:
+            nafm = bn(batch["node_nafm"], batch["node_mask"])
         mb["node_feats"] = torch.cat([batch["node_feats"], nafm], dim=-1)
-    return mb
+    return (mb, new_state) if training else mb
 
 
-def network_apply_packed(net: Network, batch, *, fused: bool = True
-                         ) -> torch.Tensor:
-    """Packed-batch network forward, eval mode. With `fused` the MPNN core
-    runs through the whole-step eval kernel (models/fused_train.py) — the
-    serving path; with fused=False through the plain model
-    (models/sparse.py). Returns out (num_graphs, head_output)."""
-    from mpnn_tpu_torch.models.fused_train import fused_mpnn_eval
+def network_apply_packed(net: Network, batch, *, fused: bool = True,
+                         training: bool = False):
+    """Packed-batch network forward. With `fused` the MPNN core runs
+    through the whole-step kernels (models/fused_train.py): the eval
+    kernel, or in training the forward/backward kernels; with fused=False
+    through the plain model (models/sparse.py). Eval mode returns out
+    (num_graphs, head_output); training mode normalizes with batch
+    statistics and returns (out, new_state) — the running statistics after
+    this step in the JAX state layout (nafm_bn, mpnn, head_bn); write them
+    into the module with assign_state."""
+    from mpnn_tpu_torch.models.fused_train import (fused_mpnn_eval,
+                                                   fused_mpnn_out)
     from mpnn_tpu_torch.models.sparse import sparse_mpnn_apply
-    mb = mpnn_input(net, batch)
-    out = fused_mpnn_eval(net.mpnn, mb) if fused \
-        else sparse_mpnn_apply(net.mpnn, mb)
+    if not training:
+        mb = mpnn_input(net, batch)
+        out = fused_mpnn_eval(net.mpnn, mb) if fused \
+            else sparse_mpnn_apply(net.mpnn, mb)
+        if net.cfg.head_bn:
+            out = bn_rows_eval(net.head_bn, out)
+        return _head(net, out)
+    new_state = {}
+    mb, nafm_state = mpnn_input(net, batch, training=True)
+    if nafm_state is not None:
+        new_state["nafm_bn"] = nafm_state
+    out, new_state["mpnn"] = fused_mpnn_out(net.mpnn, mb) if fused \
+        else sparse_mpnn_apply(net.mpnn, mb, training=True)
     if net.cfg.head_bn:
-        out = bn_rows_eval(net.head_bn, out)
+        out, new_state["head_bn"] = bn_rows_train(net.head_bn, out)
+    return _head(net, out), new_state
+
+
+def _head(net: Network, out):
     for layer in net.head[:-1]:
         out = torch.relu(layer(out))
     return net.head[-1](out)
+
+
+def assign_state(net: Network, new_state: dict) -> None:
+    """Write the running statistics of a training step (network_apply_packed
+    (training=True)'s new_state) into the module's buffers."""
+    pairs = [(getattr(net, k), v) for k, v in new_state.items()
+             if k != "mpnn"]
+    for key, states in new_state.get("mpnn", {}).items():
+        pairs += list(zip(getattr(net.mpnn, key), states))
+    with torch.no_grad():
+        for mod, st in pairs:
+            mod.running_mean.copy_(st["running_mean"])
+            mod.running_var.copy_(st["running_var"])

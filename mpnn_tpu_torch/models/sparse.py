@@ -1,6 +1,7 @@
-"""Sparse (packed COO) MPNN forward in plain PyTorch, eval mode
-(counterpart of mpnn_tpu/models/sparse.py) — the model the CUDA eval
-kernel's path is tested against.
+"""Sparse (packed COO) MPNN forward in plain PyTorch, eval and training
+mode (counterpart of mpnn_tpu/models/sparse.py) — the model the CUDA
+kernels' paths are tested against. Differentiable throughout: the edge-MLP
+tail and the A-form fold get their gradient from autograd.
 
 Exactness of the A-form for the edge-network family (bias leakage): with
 A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
@@ -17,6 +18,7 @@ import torch
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.models.mpnn import MPNN, check_supported
 from mpnn_tpu_torch.ops.message import EdgeNetwork, _edge_mlp_penultimate
+from mpnn_tpu_torch.ops.norm import bn1d_train, ema, running_state
 from mpnn_tpu_torch.ops.readout import GraphLevelOutput, gated_rows
 from mpnn_tpu_torch.ops.update import gru_apply
 
@@ -78,10 +80,32 @@ def sparse_graph_level_output(ro: GraphLevelOutput, x, node_mask,
     return out.index_add_(0, node_graph.long(), gated)[:-1]
 
 
-def sparse_mpnn_apply(mpnn: MPNN, batch):
-    """Packed-batch MPNN forward, eval mode. batch: dict of tensors with
-    node_feats, node_mask, node_graph, edge_src, edge_dst, edge_feats,
-    edge_mask, graph_mask, edge_vid, edge_vfirst. Returns out (G, od)."""
+def mpnn_new_state(mpnn: MPNN, ma_stats, step_stats) -> dict:
+    """The MPNN's running statistics after one training step, in the JAX
+    state layout {"ma_bn": [..], "bn": [..]} (the norms the config has).
+    The EMAs of mpnn_tpu/models/sparse.py::fold_recurrence_emas (momentum
+    0.1): the SHARED ma_bn sees the same constant-message stats once per
+    step, `steps` times; the shared bn sees each step's stats once."""
+    state = {}
+    if mpnn.cfg.msg_norm == "bn1d":
+        ma = running_state(mpnn.ma_bn[0])
+        for _ in range(mpnn.cfg.message_steps):
+            ma = ema(ma, ma_stats)
+        state["ma_bn"] = [ma]
+    if mpnn.cfg.state_norm == "bn1d":
+        bn = running_state(mpnn.bn[0])
+        for st in step_stats:
+            bn = ema(bn, st)
+        state["bn"] = [bn]
+    return state
+
+
+def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
+    """Packed-batch MPNN forward. batch: dict of tensors with node_feats,
+    node_mask, node_graph, edge_src, edge_dst, edge_feats, edge_mask,
+    graph_mask, edge_vid, edge_vfirst. Eval mode returns out (G, od);
+    training mode normalizes with batch statistics and returns
+    (out, new_state), new_state as mpnn_new_state gives it."""
     cfg = mpnn.cfg
     check_supported(cfg)
     mask = batch["node_mask"]
@@ -99,13 +123,26 @@ def sparse_mpnn_apply(mpnn: MPNN, batch):
         mp, pen0, h0, batch["edge_src"], batch["edge_dst"], node_graph,
         graph_mask, nf=cfg.node_features, mf=cfg.message_features,
         pen_vocab=pen_vocab, edge_vid=batch["edge_vid"])
+    ma_stats, step_stats = None, []
     if cfg.msg_norm == "bn1d":
-        msgs = mpnn.ma_bn[0](msgs, mask)
+        ma = mpnn.ma_bn[0]
+        if training:
+            msgs, ma_stats = bn1d_train(msgs, mask, ma.weight, ma.bias)
+        else:
+            msgs = ma(msgs, mask)
     h = h0
     for _ in range(cfg.message_steps):
         h = gru_apply(mpnn.gru, msgs, h, mask)
         if cfg.state_norm == "bn1d":
-            h = mpnn.bn[0](h, mask)
+            bn = mpnn.bn[0]
+            if training:
+                h, st = bn1d_train(h, mask, bn.weight, bn.bias)
+                step_stats.append(st)
+            else:
+                h = bn(h, mask)
     readout_in = torch.cat([h, h0], dim=-1)
-    return sparse_graph_level_output(mpnn.readout, readout_in, mask,
-                                     node_graph, num_graphs)
+    out = sparse_graph_level_output(mpnn.readout, readout_in, mask,
+                                    node_graph, num_graphs)
+    if not training:
+        return out
+    return out, mpnn_new_state(mpnn, ma_stats, step_stats)

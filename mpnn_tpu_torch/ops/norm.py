@@ -1,24 +1,30 @@
-"""Batch normalization, eval mode (counterpart of mpnn_tpu/ops/norm.py and
-of the plain BN in mpnn_tpu/ops/autoencoders.py::_bn_rows_apply).
+"""Batch normalization (counterpart of mpnn_tpu/ops/norm.py and of the
+plain BN in mpnn_tpu/ops/autoencoders.py::_bn_rows_apply).
 
-Three forms, with two epsilon conventions — a reference quirk kept exactly:
+Two norms, with two epsilon conventions — a reference quirk kept exactly:
 
-  * MaskedBatchNorm1d — the masked MaskBatchNorm1d with running stats
-    (bn1d_apply). Eval normalizes by (running_var**0.5 + eps): eps OUTSIDE
-    the sqrt; the output is re-masked.
-  * fold_bn1d — the same eval map as a per-feature affine
-    scale = w / (rv**0.5 + eps), shift = b − rm·scale, the form the CUDA
-    eval kernel takes.
-  * bn_rows_eval — torch's plain BatchNorm1d over graph rows (the lipo
-    head BN): (x − rm) / sqrt(rv + eps), eps INSIDE the sqrt.
-
-Training-mode statistics are not part of this slice.
+  * the masked MaskBatchNorm1d with running stats (MaskedBatchNorm1d,
+    bn1d_apply). Training normalizes by the batch statistics over the
+    masked rows, (x − mean) / (sqrt(max(var, 1e-12)) + eps), and feeds the
+    BIASED var to the running-stat EMA (bn1d_train, ema); eval by
+    (running_var**0.5 + eps) (bn1d_eval, folded to a per-feature affine by
+    fold_bn1d for the CUDA eval kernel). eps is OUTSIDE the sqrt in both;
+    the output is re-masked. These are not nn.BatchNorm1d.
+  * torch's plain BatchNorm1d over graph rows (the lipo head BN): eps
+    INSIDE the sqrt; training normalizes by the biased batch var and feeds
+    the UNBIASED var to the EMA (bn_rows_train), eval uses the running
+    stats (bn_rows_eval).
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+
+BN_EPS = 1e-5
+VAR_CLAMP = 1e-12
+MOMENTUM = 0.1
 
 
 class MaskedBatchNorm1d(nn.Module):
@@ -47,6 +53,38 @@ class MaskedBatchNorm1d(nn.Module):
                          self.running_var, self.eps)
 
 
+def masked_stats(x, mask):
+    """(mean, biased var) over the masked rows of x (R, f), mask (R, 1)."""
+    c = mask.sum()
+    mean = (x * mask).sum(0) / c
+    var = (((x - mean) * mask) ** 2).sum(0) / c
+    return mean, var
+
+
+def bn1d_train(x, mask, weight, bias, eps: float = BN_EPS):
+    """bn1d_apply(training=True): returns (out, (mean, var)), the batch
+    statistics for the caller's running-stat EMA. The clamp inside the
+    sqrt keeps the gradient finite for a zero-variance feature."""
+    mean, var = masked_stats(x, mask)
+    out = (x - mean) / (torch.sqrt(torch.clamp(var, min=VAR_CLAMP)) + eps)
+    return (weight * out + bias) * mask, (mean, var)
+
+
+def ema(state, stats, momentum: float = MOMENTUM):
+    """One running-stat update {running_mean, running_var} from one batch's
+    (mean, var), detached from the graph."""
+    mean, var = (s.detach() for s in stats)
+    return {"running_mean": (1 - momentum) * state["running_mean"]
+            + momentum * mean,
+            "running_var": (1 - momentum) * state["running_var"]
+            + momentum * var}
+
+
+def running_state(mod: nn.Module):
+    """The {running_mean, running_var} dict of a BN module."""
+    return {"running_mean": mod.running_mean, "running_var": mod.running_var}
+
+
 def bn1d_eval(x, mask, weight, bias, running_mean, running_var,
               eps: float = 1e-5):
     """bn1d_apply(training=False): x (R, f), mask (R, 1)."""
@@ -58,6 +96,20 @@ def fold_bn1d(weight, bias, running_mean, running_var, eps: float = 1e-5):
     """(scale, shift) with bn1d_eval(x) == (scale·x + shift)·mask."""
     scale = weight / (running_var ** 0.5 + eps)
     return scale, bias - running_mean * scale
+
+
+def bn_rows_train(bn: nn.BatchNorm1d, x: torch.Tensor):
+    """Plain BatchNorm1d in training mode over rows: normalize by the
+    biased batch var (eps inside the sqrt), EMA the unbiased one — what
+    nn.BatchNorm1d does in train mode, and also defined for one row.
+    Returns (out, new running state)."""
+    mean = x.mean(0)
+    var = x.var(0, unbiased=False)
+    n = x.shape[0]
+    unbiased = var.detach() * n / max(n - 1, 1)
+    new_state = ema(running_state(bn), (mean, unbiased), bn.momentum)
+    out = (x - mean) / torch.sqrt(var + bn.eps)
+    return bn.weight * out + bn.bias, new_state
 
 
 def bn_rows_eval(bn: nn.BatchNorm1d, x: torch.Tensor) -> torch.Tensor:

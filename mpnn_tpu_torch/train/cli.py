@@ -1,10 +1,17 @@
 """CLI: `python -m mpnn_tpu_torch.train.cli <verb>` (counterpart of
 mpnn_tpu/train/cli.py).
 
-Verb:
+Verbs (both run on `cuda` unless --device cpu):
+  train    train an experiment on a SMILES CSV through the whole-step
+           training kernels: the split of the JAX package's `train` (0.1
+           test, then 0.1 of the rest for validation, random_state = the
+           seed), per-epoch validation through the eval kernel, one
+           checkpoint per epoch in --ckpt-dir, per-step losses and
+           per-epoch records in --log; prints one JSON line with the
+           history's last record and the test metrics.
   predict  checkpoint + SMILES CSV → predictions, one JSON line per
            molecule: {"index": i, "pred": x} — the serving path, through
-           the whole-step eval kernel. Runs on `cuda` unless --device cpu.
+           the whole-step eval kernel.
 
 The checkpoint is the .npz either package writes (train/checkpoint.py).
 """
@@ -76,9 +83,51 @@ def cmd_predict(args):
         print(json.dumps(rec))
 
 
+def cmd_train(args):
+    """Train an experiment; one JSON line of results."""
+    import dataclasses
+    from mpnn_tpu_torch.device import resolve_device
+    from mpnn_tpu_torch.train import experiments, trainer
+    from mpnn_tpu_torch.train.split import train_test_split
+    exp = experiments.get(args.experiment)
+    device = resolve_device(args.device)      # before the featurization
+    gs, _ge = _load_for(exp, args.data)
+    net_cfg = _build_net(exp, gs, 1)
+    overrides = {k: v for k, v in (("epochs", args.epochs),
+                                   ("batch_size", args.batch_size),
+                                   ("ckpt_dir", args.ckpt_dir),
+                                   ("log_path", args.log))
+                 if v is not None}
+    tcfg = dataclasses.replace(exp.train, **overrides)
+    # the reference split: 0.1 test, then 0.1 validation, random_state =
+    # the seed (test_lipo.py:143-146)
+    train_gs, test_gs = train_test_split(gs, 0.1, tcfg.seed)
+    train_gs, val_gs = train_test_split(train_gs, 0.1, tcfg.seed)
+    net, history = trainer.train(net_cfg, tcfg, train_gs, val_gs,
+                                 device=device)
+    test = trainer.evaluate(net, GraphLoader(test_gs, tcfg.batch_size),
+                            exp.loss, device=device)
+    print(json.dumps({"experiment": exp.name, "epochs": len(history),
+                      "last": history[-1] if history else None,
+                      "test": test}))
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="mpnn_tpu_torch")
     sub = p.add_subparsers(dest="verb", required=True)
+
+    tr = sub.add_parser("train")
+    tr.add_argument("--experiment", required=True)
+    tr.add_argument("--data", required=True)
+    tr.add_argument("--epochs", type=int)
+    tr.add_argument("--batch-size", type=int)
+    tr.add_argument("--ckpt-dir")
+    tr.add_argument("--log", help="append every step's loss and every "
+                                  "epoch's record as JSON lines")
+    tr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                    help="cuda (the CUDA training kernels, default) or cpu "
+                         "(their plain PyTorch versions)")
+    tr.set_defaults(fn=cmd_train)
 
     pd = sub.add_parser("predict")
     pd.add_argument("--experiment", required=True)

@@ -30,11 +30,12 @@ def _register(e: Experiment):
     return e
 
 
-# test_lipo.py: regression, batch 16 (trained with Adam 1e-2 / wd 1e-4 +
-# ReduceLROnPlateau for 1000 epochs — the training loop is still to port)
+# test_lipo.py: regression, Adam 1e-2 / wd 1e-4 + ReduceLROnPlateau,
+# batch 16, 1000 epochs
 _register(Experiment(
     name="lipo", task="regression", model="lipo", loss="mse",
-    train=TrainConfig(batch_size=16),
+    train=TrainConfig(epochs=1000, batch_size=16, learning_rate=1e-2,
+                      weight_decay=1e-4, plateau=True),
     label_col="exp",
     notes="test_lipo.py: the flagship Lipophilicity config"))
 

@@ -162,3 +162,140 @@ def test_serving_path_on_card():
                                  fused=False).reshape(-1).cpu().numpy()
             for b in loader])
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the training kernels (fused_step_fwd.cu, fused_step_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _step_problem(rng, g, device="cuda"):
+    """fused_step's arguments on a _problem batch (its eval-only running
+    statistics dropped), with labels and a graph mask, and the weight and
+    h0 leaves set to require grad."""
+    (amat, a0, mbias, h0, mask, ng, gru, ma_p, _, bn_p, _, ro, vid, src,
+     dst, plan) = _problem(rng, g=g, device=device)
+    leaves = [amat, a0, mbias, h0, *gru.values(), *ma_p.values(),
+              *bn_p.values(), ro["i"]["w"], ro["i"]["b"], ro["j"]["w"],
+              ro["j"]["b"]]
+    for x in leaves:
+        x.requires_grad_(True)
+    labels = torch.as_tensor(rng.randn(g).astype(np.float32), device=device)
+    gmask = torch.ones(g, device=device)
+    gmask[-1] = 0.0                          # one padded graph slot
+    args = (amat, a0, mbias, h0, mask, ng, gru, ma_p, bn_p, ro, labels,
+            gmask, vid, src, dst, plan)
+    names = ["amat", "a0", "mbias", "h0", "w_ih", "w_hh", "b_ih", "b_hh",
+             "ma_w", "ma_b", "bn_w", "bn_b", "ro_iw", "ro_ib", "ro_jw",
+             "ro_jb"]
+    return args, dict(zip(names, leaves))
+
+
+def step_and_grads(fn, args, leaves, cw, **kw):
+    """fn's forward and the gradient of 1.3·loss + Σ out·cw in every
+    leaf: (loss, out, ma_stats, step_stats, {leaf: grad})."""
+    loss, out, ma, steps = fn(*args, **kw)
+    grads = torch.autograd.grad(1.3 * loss + (out * cw).sum(),
+                                list(leaves.values()), allow_unused=True)
+    return loss, out, ma, steps, {
+        k: torch.zeros_like(v) if gr is None else gr
+        for (k, v), gr in zip(leaves.items(), grads)}
+
+
+def assert_step_close(got, want, msg_norm, rtol=RTOL, atol=ATOL):
+    """Forward outputs within rtol/atol; each gradient leaf scaled by its
+    max abs within rtol/atol; message_bias, whose gradient is zero in
+    theory under the message bn1d, by an absolute bound on that scale."""
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+    for (m1, v1), (m2, v2) in zip([got[2], *got[3]], [want[2], *want[3]]):
+        torch.testing.assert_close(m1, m2, rtol=rtol, atol=atol)
+        torch.testing.assert_close(v1, v2, rtol=rtol, atol=atol)
+    for name, g in got[4].items():
+        w = want[4][name]
+        if name == "mbias" and msg_norm == "bn1d":
+            scale = want[4]["a0"].abs().max()
+            assert float((g - w).abs().max()) <= atol * float(scale), name
+            continue
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm,g",
+                         [("bn1d", "bn1d", 1024), ("bn1d", "none", 1024),
+                          ("none", "bn1d", 1024), ("none", "none", 1024),
+                          ("bn1d", "bn1d", 37)])
+def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g):
+    """Flagship widths (f 10, od 14, T 6): the forward kernel against
+    fused_step_reference, the backward kernel against autograd through it,
+    with the cotangents of both the loss and out nonzero. g = 37 is a
+    ragged batch: single-atom graphs, padded edges, a padded graph slot."""
+    _need_card()
+    rng = np.random.RandomState(g)
+    args, leaves = _step_problem(rng, g)
+    cw = torch.as_tensor(rng.randn(g, 14).astype(np.float32), device="cuda")
+    kw = dict(steps=6, msg_norm=msg_norm, state_norm=state_norm)
+    K.reset_launch_counts()
+    got = step_and_grads(K.fused_step, args, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert (K.launch_counts["fused_step_fwd"],
+            K.launch_counts["fused_step_bwd"]) == (1, 1)
+    want = step_and_grads(K.fused_step_reference, args, leaves, cw, **kw)
+    assert all(torch.isfinite(x).all() for x in got[4].values())
+    assert_step_close(got, want, msg_norm)
+
+
+@pytest.mark.gpu
+def test_cuda_step_wrapper_raises_instead_of_falling_back():
+    _need_card()
+    args, _ = _step_problem(np.random.RandomState(3), 64)
+    K.reset_launch_counts()
+    bad = list(args)
+    bad[0] = args[0].detach().transpose(1, 2)         # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        K.fused_step(*bad, steps=6)
+    bad = list(args)
+    bad[10] = args[10].double()
+    with pytest.raises(TypeError, match="float32"):
+        K.fused_step(*bad, steps=6)
+    bad = list(args)
+    plan = args[15]
+    order = plan.edge_order.clone()
+    order[0] = order[1]
+    bad[15] = plan._replace(edge_order=order)
+    with pytest.raises(ValueError, match="fused_step: plan edge_order"):
+        K.fused_step(*bad, steps=6)
+    with pytest.raises(NotImplementedError, match="stateless"):
+        K.fused_step(*args, steps=6, state_norm="stateless")
+    assert K.launch_counts["fused_step_fwd"] == 0
+    assert K.launch_counts["fused_step_bwd"] == 0
+
+
+@pytest.mark.gpu
+def test_train_epoch_on_card(tmp_path):
+    """One train() epoch of lipo on cuda: every step one forward and one
+    backward launch, validation through the eval kernel, finite losses."""
+    import json
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.train.trainer import TrainConfig, train
+    smiles = ["CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Oc1ccccc1C(=O)O",
+              "c1ccncc1CCO", "C", "NC(=O)c1ccccc1", "CCN"] * 8
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(
+        smiles, [0.1 * i for i in range(len(smiles))]))
+    cfg = zoo.lipo(ge.atom_width(), ge.bond_width(), 3)
+    log = str(tmp_path / "train.jsonl")
+    K.reset_launch_counts()
+    net, hist = train(cfg, TrainConfig(epochs=1, batch_size=16,
+                                       learning_rate=1e-2, plateau=True,
+                                       log_path=log),
+                      gs[:40], gs[40:], device=device)
+    with open(log) as fh:
+        losses = [r["loss"] for r in map(json.loads, fh) if "step" in r]
+    assert len(losses) == 3 and np.all(np.isfinite(losses))
+    assert K.launch_counts["fused_step_fwd"] == 3
+    assert K.launch_counts["fused_step_bwd"] == 3
+    assert K.launch_counts["fused_eval"] == 1
+    assert np.isfinite(hist[0]["val_loss"])

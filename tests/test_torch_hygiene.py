@@ -70,7 +70,7 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("entry", ["network_init", "params_from_jax_arrays",
                                    "load_checkpoint", "evaluate",
-                                   "predict_records"])
+                                   "predict_records", "train"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     """Each entry point, called without a device on a host with no card,
     raises instead of running on the CPU; with device='cpu' it runs."""
@@ -85,7 +85,7 @@ def test_entry_points_raise_without_card(entry, tmp_path):
                                                  params_from_jax_arrays,
                                                  save_checkpoint)
     from mpnn_tpu_torch.train.cli import predict_records
-    from mpnn_tpu_torch.train.trainer import evaluate
+    from mpnn_tpu_torch.train.trainer import TrainConfig, evaluate, train
     gs, ge = G.encode_molgraphs(G.generate_molgraphs(
         ["CCO", "C", "c1ccccc1"], [0.1, 0.2, 0.3]))
     cfg = zoo.lipo(ge.atom_width(), ge.bond_width(),
@@ -102,6 +102,8 @@ def test_entry_points_raise_without_card(entry, tmp_path):
         "evaluate": lambda **kw: evaluate(net, loader, "mse", **kw),
         "predict_records": lambda **kw: list(predict_records(
             experiments.get("lipo"), gs, ckpt, batch_size=2, **kw)),
+        "train": lambda **kw: train(cfg, TrainConfig(epochs=1, batch_size=2),
+                                    gs, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -128,6 +130,7 @@ def test_evaluate_refuses_a_module_on_another_device():
 def test_kernel_wrapper_builds_nothing_at_import():
     from mpnn_tpu_torch.kernels import build
     assert build._LIBS == {}
-    assert set(build.SOURCES) == {"fused_eval"}
+    assert set(build.SOURCES) == {"fused_eval", "fused_step_fwd",
+                                  "fused_step_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
