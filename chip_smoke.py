@@ -33,7 +33,26 @@ Phases, one line each:
   8. train-times — train-step latency at batch 16 and 1024, and each
                training kernel's time beside its bound and its plain
                version's time;
-  9. train-profile — torch.profiler trace of one batch-1024 train step.
+  9. train-profile — torch.profiler trace of one batch-1024 train step;
+ 10. ps-kernel-check — the per-step family's three kernels against their
+               plain versions on the card (rtol 1e-4, atol 1e-5; each
+               gradient leaf scaled by its max abs; cotangents
+               1.3·loss + Σ out·c): encoded widths (f 8, od 16, T 3) at
+               batch 1024 for all six msg × state norm pairs, graph_norm's
+               widths (f 7, od 28), a ragged batch, and one forward and
+               backward past 28,672 padded node slots (2,560 molecules);
+ 11. ps-serve  — `predict` of graph_norm_classification and
+               encoded_classification from SMILES at batch 16 and 1024,
+               checkpoints built from a seeded torch.Generator; one eval
+               launch per request; logits against the plain path;
+ 12. ps-train  — the `train` verb of both experiments for 2 epochs on a
+               4-class CSV of bench.py's molecules; one forward and one
+               backward launch per step; the first 3 losses against the
+               plain path (rtol 1e-3); then `predict` from a checkpoint;
+ 13. ps-times  — request and train-step latency of the encoded model at
+               batch 128 and 1024, each per-step kernel's time beside its
+               bound and its plain version's, and the b1024 train step's
+               device idle share.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -126,12 +145,17 @@ def phase_build():
         raise RuntimeError("no ptxas report in the build log")
     # the kernels' weights live in dynamic shared memory, which ptxas does
     # not see: the launch's size at the flagship vocab of 16 (and T = 6)
+    from mpnn_tpu_torch.kernels import fused_psteps as P
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
            f"fused_step_fwd "
            f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
            f" B, fused_step_bwd "
            f"{K._lib('fused_step_bwd').mpnn_fused_step_bwd_smem_bytes(16, 6)}"
-           f" B")
+           f" B (T 6); " + ", ".join(
+               f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
+               for n in ("fused_psteps_eval", "fused_psteps_fwd",
+                         "fused_psteps_bwd"))
+           + " (T 3; their A tables stay in device memory, any K)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -272,13 +296,16 @@ def _step_args(tb, w, gen):
 
 
 def _step_and_grads(fn, args, leaves, cw, kw):
-    """fn's (loss, out, stats) and the gradient of 1.3·loss + Σ out·cw in
-    every leaf (zeros for a leaf the norm modes leave out)."""
+    """fn's (loss, out, every slot's stats) and the gradient of
+    1.3·loss + Σ out·cw in every leaf (zeros for a leaf the norm modes
+    leave out)."""
     import torch
     loss, out, ma, steps = fn(*args, **kw)
     grads = torch.autograd.grad(1.3 * loss + (out * cw).sum(), leaves,
                                 allow_unused=True)
-    stats = [x for pair in [ma, *steps] for x in pair]
+    # the shared family's one message-norm pair, or the per-step T pairs
+    stats = [x for pair in [*(ma if isinstance(ma, list) else [ma]),
+                            *steps] for x in pair]
     return ([loss.detach().reshape(1), out.detach(), *stats],
             [torch.zeros_like(x) if gr is None else gr
              for x, gr in zip(leaves, grads)])
@@ -305,11 +332,12 @@ def _step_errors(got, want, msg_norm):
     return ok_f, err_f, ok_b, err_b
 
 
-def _serving_net(gen, afm, bfm, nafm, device):
+def _serving_net(gen, cfg, device):
+    """network_init(cfg) from `gen`, every norm's affine and running
+    statistics and every message bias random."""
     import torch
-    from mpnn_tpu_torch.models import zoo
     from mpnn_tpu_torch.models.network import network_init
-    net = network_init(zoo.lipo(afm, bfm, nafm), gen, "cpu")
+    net = network_init(cfg, gen, "cpu")
     with torch.no_grad():
         for mod in net.modules():
             if hasattr(mod, "running_var"):
@@ -318,8 +346,9 @@ def _serving_net(gen, afm, bfm, nafm, device):
                 mod.bias.copy_(0.2 * torch.randn(f, generator=gen))
                 mod.running_mean.copy_(0.3 * torch.randn(f, generator=gen))
                 mod.running_var.copy_(0.3 + torch.rand(f, generator=gen))
-        mb = net.mpnn.message[0].message_bias
-        mb.copy_(0.2 * torch.randn(mb.shape[0], generator=gen))
+        for mp in net.mpnn.message:
+            mb = mp.message_bias
+            mb.copy_(0.2 * torch.randn(mb.shape[0], generator=gen))
     return net.to(device)
 
 
@@ -336,7 +365,8 @@ def phase_serve(device):
     gen = torch.Generator().manual_seed(0)
     probe, ge = G.encode_molgraphs(G.generate_molgraphs(SMILES, [0.0] * 10))
     afm, bfm, nafm = ge.atom_width(), ge.bond_width(), probe[0].nafm.shape[1]
-    net = _serving_net(gen, afm, bfm, nafm, "cpu")
+    from mpnn_tpu_torch.models import zoo
+    net = _serving_net(gen, zoo.lipo(afm, bfm, nafm), "cpu")
     ckpt = os.path.join(OUT_DIR, "ckpt.npz")
     save_checkpoint(ckpt, net, meta={"seed": 0, "model": "lipo"})
     total_launches, runs, lines = 0, {}, []
@@ -878,6 +908,531 @@ def phase_train_profile(device, step_ms):
                       for e in top), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the per-step family (graph_norm, encoded): phases 10-13
+# ---------------------------------------------------------------------------
+
+PS_NORMS = [(m, s) for m in ("bn1d", "none")
+            for s in ("bn1d", "stateless", "none")]
+PS_EXPERIMENTS = (("graph_norm_classification", "graph_norm"),
+                  ("encoded_classification", "encoded"))
+PS_CLASSES = 4
+PS_KERNELS = ("fused_psteps_eval", "fused_psteps_fwd", "fused_psteps_bwd")
+
+
+def _ps_case(tb, f, od, gen, device, steps=3, from_feats=False):
+    """The per-step ops' arguments on a device batch `tb`, as a dict: h0
+    the batch's node features (graph_norm's f = afm) or random (N, f)
+    rows, masked; random per-step weights (vocab id 0 the zero row) and
+    running statistics; random labels and one padded graph slot. The
+    differentiable leaves require grad; returns (case, leaves)."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+    mask = tb["node_mask"]
+    h0 = tb["node_feats"] if from_feats else r(mask.shape[0], f)
+    amat = r(steps, int(tb["edge_vfirst"].shape[0]), f, f, s=0.2)
+    amat[:, 0] = 0.0
+    g = int(tb["graph_mask"].shape[0])
+    gmask = torch.ones(g, device=device)
+    gmask[-1] = 0.0
+    c = dict(amat=amat, a0=r(steps, f, f, s=0.1), mbias=r(steps, f, s=0.1),
+             h0=(h0 * mask).contiguous(), mask=mask,
+             node_graph=tb["node_graph"],
+             gru={"w_ih": r(f, 3 * f, s=0.3), "w_hh": r(f, 3 * f, s=0.3),
+                  "b_ih": r(3 * f, s=0.1), "b_hh": r(3 * f, s=0.1)},
+             ro={"i": {"w": r(2 * f, od, s=0.3), "b": r(od, s=0.1)},
+                 "j": {"w": r(2 * f, od, s=0.3), "b": r(od, s=0.1)}},
+             ma_bns=[{"weight": 1 + r(f, s=0.2), "bias": r(f, s=0.2)}
+                     for _ in range(steps)],
+             bns=[{"weight": 1 + r(f, s=0.2), "bias": r(f, s=0.2)}
+                  for _ in range(steps)],
+             ma_states=[{"running_mean": r(f, s=0.3), "running_var": (
+                 0.3 + torch.rand(f, generator=gen)).to(device)}
+                 for _ in range(steps)],
+             bn_states=[{"running_mean": r(f, s=0.3), "running_var": (
+                 0.3 + torch.rand(f, generator=gen)).to(device)}
+                 for _ in range(steps)],
+             labels=r(g), gmask=gmask, vid=tb["edge_vid"],
+             src=tb["edge_src"], dst=tb["edge_dst"],
+             plan=plan_from_batch(tb))
+    leaves = [c["amat"], c["a0"], c["mbias"], c["h0"], *c["gru"].values(),
+              *[b[k] for b in c["ma_bns"] for k in ("weight", "bias")],
+              *[b[k] for b in c["bns"] for k in ("weight", "bias")],
+              c["ro"]["i"]["w"], c["ro"]["i"]["b"], c["ro"]["j"]["w"],
+              c["ro"]["j"]["b"]]
+    for x in leaves:
+        x.requires_grad_()
+    return c, leaves
+
+
+def _ps_eval_call(fn, c, **kw):
+    return fn(c["amat"], c["a0"], c["mbias"], c["h0"], c["mask"],
+              c["node_graph"], c["gru"], c["ma_bns"], c["ma_states"],
+              c["bns"], c["bn_states"], c["ro"], c["vid"], c["src"],
+              c["dst"], c["plan"], **kw)
+
+
+def _ps_step_args(c):
+    """fused_psteps' positional arguments from a _ps_case dict."""
+    return (c["amat"], c["a0"], c["mbias"], c["h0"], c["mask"],
+            c["node_graph"], c["gru"], c["ma_bns"], c["bns"], c["ro"],
+            c["labels"], c["gmask"], c["vid"], c["src"], c["dst"],
+            c["plan"])
+
+
+def phase_ps_kernel_check(device):
+    """The per-step kernels against their plain versions on the card."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    gen = torch.Generator().manual_seed(11)
+    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    ragged_smiles = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
+    ragged = batch_to_device(_batch(ragged_smiles, len(ragged_smiles)),
+                             device)
+    big = batch_to_device(_batch((SMILES * 256)[:2560], 2560), device)
+    # graph_norm's widths come from the batch: f = afm, od = 4·afm
+    cases = ([("batch1024", b1024, 8, mn, sn) for mn, sn in PS_NORMS]
+             + [("batch1024 graph_norm", b1024, None, "none", "stateless"),
+                ("ragged", ragged, 8, "bn1d", "bn1d"),
+                ("ragged graph_norm", ragged, None, "none", "stateless"),
+                ("batch2560", big, 8, "bn1d", "bn1d")])
+    worst = dict.fromkeys(PS_KERNELS, 0.0)
+    results, failed = [], []
+    for what, tb, f, mn, sn in cases:
+        feats = f is None
+        f = int(tb["node_feats"].shape[1]) if feats else f
+        od = 4 * f if feats else 16
+        c, leaves = _ps_case(tb, f, od, gen, device, from_feats=feats)
+        kw = dict(steps=3, msg_norm=mn, state_norm=sn)
+        with torch.no_grad():
+            got = _ps_eval_call(P.fused_psteps_eval, c, **kw)
+            torch.cuda.synchronize()
+            want = _ps_eval_call(P.fused_psteps_eval_reference, c, **kw)
+        ok_e, err_e, _ = _within(got, want)
+        ok_e = ok_e and bool(torch.isfinite(got).all())
+        cw = torch.randn(want.shape, generator=gen).to(device)
+        got = _step_and_grads(P.fused_psteps, _ps_step_args(c), leaves,
+                              cw, kw)
+        torch.cuda.synchronize()
+        want = _step_and_grads(P.fused_psteps_reference, _ps_step_args(c),
+                               leaves, cw, kw)
+        ok_f, err_f, ok_b, err_b = _step_errors(got, want, mn)
+        for name, err in zip(PS_KERNELS, (err_e, err_f, err_b)):
+            worst[name] = max(worst[name], err)
+        ok = ok_e and ok_f and ok_b
+        results.append(
+            f"{what} {mn}/{sn} f={f} od={od} (nodes "
+            f"{int(tb['node_mask'].sum())}/{tb['node_mask'].shape[0]} "
+            f"slots, G={tb['graph_mask'].shape[0]}): eval max_abs="
+            f"{err_e:.3e} fwd max_abs={err_f:.3e} bwd max_scaled="
+            f"{err_b:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{what} {mn}/{sn}")
+    print(f"ps-kernel-check: fused_psteps_eval vs fused_psteps_eval_"
+          f"reference, fused_psteps_fwd vs fused_psteps_reference, "
+          f"fused_psteps_bwd vs autograd through it (T 3, cotangents "
+          f"1.3·loss + Σ out·c; rtol {RTOL} atol {ATOL}, gradient leaves "
+          f"divided by their max abs; message biases under the message "
+          f"bn1d within {ATOL}·max|dA0|): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"per-step kernels disagree with their plain "
+                           f"versions: {failed}")
+    return worst
+
+
+def _ps_csv(name, rows):
+    """bench.py's molecules repeated to `rows`, with seeded classes."""
+    import numpy as np
+    csv = os.path.join(OUT_DIR, f"{name}_{rows}.csv")
+    smiles = (SMILES * (rows // len(SMILES) + 1))[:rows]
+    labels = np.random.RandomState(rows).randint(0, PS_CLASSES, rows)
+    labels[:PS_CLASSES] = np.arange(PS_CLASSES)     # every class present
+    with open(csv, "w") as fh:
+        fh.write("smiles,target\n")
+        for s, y in zip(smiles, labels):
+            fh.write(f"{s},{y}\n")
+    return csv
+
+
+def phase_ps_serve(device):
+    """`predict` of both per-step experiments as a user runs it, launch
+    counts read around it, logits against the plain path on the card.
+    Returns the eval kernel's launches."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_apply_packed
+    from mpnn_tpu_torch.train import cli
+    from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    os.makedirs(OUT_DIR, exist_ok=True)
+    probe, ge = G.encode_molgraphs(G.generate_molgraphs(SMILES, [0] * 10))
+    afm, bfm, nafm = ge.atom_width(), ge.bond_width(), probe[0].nafm.shape[1]
+    total, lines = 0, []
+    for exp, model in PS_EXPERIMENTS:
+        gen = torch.Generator().manual_seed(21)
+        net = _serving_net(gen, zoo.build(
+            model, afm=afm, bfm=bfm, nafm=nafm, n_out=PS_CLASSES), "cpu")
+        ckpt = os.path.join(OUT_DIR, f"ckpt_{model}.npz")
+        save_checkpoint(ckpt, net, meta={"seed": 21, "model": model})
+        for bs, rows in ((16, 64), (1024, 3072)):
+            csv = _ps_csv(f"new_{model}", rows)
+            buf = io.StringIO()
+            P.reset_launch_counts()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                cli.main(["predict", "--experiment", exp, "--data", csv,
+                          "--ckpt", ckpt, "--batch-size", str(bs)])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = P.launch_counts["fused_psteps_eval"]
+            recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+            n_req = -(-rows // bs)
+            if len(recs) != rows or [r["index"] for r in recs] != list(
+                    range(rows)):
+                raise RuntimeError(f"{exp} predict at batch {bs}: "
+                                   f"{len(recs)} records for {rows}")
+            logits = torch.tensor([r["logits"] for r in recs],
+                                  dtype=torch.float64)
+            if not torch.isfinite(logits).all() or any(
+                    r["pred"] != int(torch.argmax(lg))
+                    for r, lg in zip(recs, logits)):
+                raise RuntimeError(f"{exp} predict at batch {bs}: "
+                                   "non-finite logits or a wrong argmax")
+            if launches != n_req:
+                raise RuntimeError(f"{exp} predict at batch {bs}: "
+                                   f"{launches} kernel launches for "
+                                   f"{n_req} requests")
+            total += launches
+            gs, _, _, _ = G.load_classification_dataset(csv, "smiles",
+                                                        "target")
+            pnet, _ = load_checkpoint(ckpt, net.cfg, device=device)
+            with torch.no_grad():
+                plain = torch.cat([
+                    network_apply_packed(pnet, batch_to_device(b, device),
+                                         fused=False).cpu()
+                    for b in G.GraphLoader(gs, bs)]).to(torch.float64)
+            ok, mabs, mrel = _within(logits, plain)
+            lines.append(f"{exp} batch {bs}: {rows} molecules in {n_req} "
+                         f"requests, {launches} kernel launches, "
+                         f"{wall:.2f} s wall (featurize+load+serve), logits "
+                         f"vs plain path max_abs={mabs:.3e} "
+                         f"max_rel={mrel:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise RuntimeError(f"{exp} batch {bs}: served logits "
+                                   f"disagree with the plain path "
+                                   f"({mabs:.3e})")
+    print("ps-serve: " + "; ".join(lines), flush=True)
+    return total
+
+
+def phase_ps_train(device):
+    """The `train` verb of both per-step experiments as a user runs it,
+    launch counts read around it; the first 3 steps against the plain
+    path on the card; then `predict` from a checkpoint. Returns the
+    training kernels' launches."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import cli, experiments
+    from mpnn_tpu_torch.train.checkpoint import save_checkpoint
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    totals, lines = dict.fromkeys(PS_KERNELS, 0), []
+    for exp_name, model in PS_EXPERIMENTS:
+        exp = experiments.get(exp_name)
+        csv = _ps_csv(f"train_{model}", TRAIN_ROWS)
+        log = os.path.join(OUT_DIR, f"train_{model}.jsonl")
+        ckdir = os.path.join(OUT_DIR, f"train_ckpt_{model}")
+        if os.path.exists(log):
+            os.remove(log)
+        buf = io.StringIO()
+        P.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["train", "--experiment", exp_name, "--data", csv,
+                      "--epochs", str(TRAIN_EPOCHS), "--ckpt-dir", ckdir,
+                      "--log", log])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(P.launch_counts)
+        result = json.loads(buf.getvalue().strip().splitlines()[-1])
+        with open(log) as fh:
+            recs = [json.loads(x) for x in fh if x.strip()]
+        steps = [r["loss"] for r in recs if "step" in r]
+        epochs = [r for r in recs if "train_loss" in r]
+        gs, _, _, _ = G.load_classification_dataset(csv, "smiles", "target")
+        bs = exp.train.batch_size
+        train_gs, test_gs = train_test_split(gs, 0.1, 317)
+        train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+        per_epoch = -(-len(train_gs) // bs)
+        want = {"fused_psteps_fwd": TRAIN_EPOCHS * per_epoch,
+                "fused_psteps_bwd": TRAIN_EPOCHS * per_epoch,
+                "fused_psteps_eval": TRAIN_EPOCHS * -(-len(val_gs) // bs)
+                + -(-len(test_gs) // bs)}
+        if len(steps) != want["fused_psteps_fwd"] or counts != want:
+            raise RuntimeError(f"{exp_name} train: {len(steps)} steps, "
+                               f"launches {counts}; the design's count is "
+                               f"{want}")
+        if not (all(math.isfinite(x) for x in steps)
+                and math.isfinite(result["test"]["loss"])
+                and all(math.isfinite(r["val_loss"]) for r in epochs)):
+            raise RuntimeError(f"{exp_name} train: non-finite loss")
+        for k in PS_KERNELS:
+            totals[k] += counts[k]
+        # the plain path on the card: the trainer's initial weights (seed
+        # 317) and its first three shuffled batches
+        cfg = zoo.build(model, afm=int(gs[0].afm.shape[-1]),
+                        bfm=int(gs[0].bfm.shape[-1]),
+                        nafm=int(gs[0].nafm.shape[-1]), n_out=PS_CLASSES)
+        net = network_init(cfg, torch.Generator().manual_seed(317), device)
+        opt = adam(net.parameters(), exp.train.learning_rate,
+                   weight_decay=exp.train.weight_decay)
+        plain = []
+        for b in G.GraphLoader(train_gs, bs, shuffle=True, seed=317):
+            if len(plain) == 3:
+                break
+            plain.append(float(train_step(net, opt, batch_to_device(
+                b, device), fused=False, loss_kind="ce")))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+        if rel > 1e-3:
+            raise RuntimeError(f"{exp_name} train: first steps {steps[:3]} "
+                               f"vs plain path {plain} (rel {rel:.2e})")
+        # the F1 gate keeps the verb's checkpoints back at random weights:
+        # serve the last one it wrote, or one saved from the seed
+        written = sorted((f for f in os.listdir(ckdir) if f.endswith(
+            ".npz")), key=lambda f: int(f[5:-4])) \
+            if os.path.isdir(ckdir) else []
+        if written:
+            ckpt = os.path.join(ckdir, written[-1])
+        else:
+            ckpt = os.path.join(OUT_DIR, f"seed_{model}.npz")
+            save_checkpoint(ckpt, network_init(
+                cfg, torch.Generator().manual_seed(317), "cpu"))
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--experiment", exp_name, "--data", csv,
+                      "--ckpt", ckpt])
+        preds = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+        if len(preds) != TRAIN_ROWS or not all(
+                math.isfinite(v) for r in preds for v in r["logits"]):
+            raise RuntimeError(f"{exp_name}: predict from {ckpt} failed")
+        lines.append(
+            f"{exp_name}: {TRAIN_ROWS} molecules (train {len(train_gs)}, "
+            f"val {len(val_gs)}, test {len(test_gs)}), batch {bs}, "
+            f"{TRAIN_EPOCHS} epochs, {len(steps)} steps in {wall:.2f} s "
+            f"wall; launches fwd {counts['fused_psteps_fwd']}, bwd "
+            f"{counts['fused_psteps_bwd']}, eval "
+            f"{counts['fused_psteps_eval']} (design: 1 + 1 per step, 1 per "
+            f"eval batch); step losses first {steps[0]:.5f} last "
+            f"{steps[-1]:.5f}; val f1 {[round(r['val_f1'], 4) for r in epochs]}"
+            f" (gate {exp.train.ckpt_f1_gate}, {len(written)} checkpoints "
+            f"written); test f1 {result['test']['f1']:.4f}; first 3 steps "
+            f"vs plain path max rel {rel:.2e}; predict from "
+            f"{os.path.basename(ckpt)}: {len(preds)} finite records")
+    print("ps-train: " + "; ".join(lines), flush=True)
+    return totals
+
+
+def _ps_bounds(b, f, od, k, steps, msg_norm, state_norm):
+    """Least times of the per-step kernels' work on this batch, each the
+    larger of its float32 operations over the peak CUDA-core rate and its
+    bytes (each input read once, each output written once, the residual
+    stash written by the forward and read by the backward) over HBM
+    bandwidth. Real nodes and edges only; T message tables, so the edge
+    work and the messages' input gates are per step (_step_bounds counts
+    them once for the shared family). The norms as each kernel computes
+    them in these modes: in training a norm on batch statistics, at
+    serving time a folded eval bn1d is a per-feature affine and only the
+    stateless norm takes statistics; 'none' costs nothing."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    g = float(b["graph_mask"].shape[0])
+    T = steps
+    weights = (T * k * f * f + T * f * f + 6 * f * f + 6 * f + 5 * T * f
+               + 4 * f * od + 2 * od)
+    gemv = 2 * f * 3 * f                           # one f → 3f gate GEMV
+    gate = 3 * f + 12 * f                          # + b_hh, the gate math
+    norm = 8 * f                                   # stats + normalize
+    affine = 2 * f                                 # a folded eval bn1d
+    # per node and step, the message norm's and the state norm's work
+    train_norms = norm * ((msg_norm != "none") + (state_norm != "none"))
+    eval_norms = ({"bn1d": affine, "none": 0}[msg_norm]
+                  + {"bn1d": affine, "stateless": norm,
+                     "none": 0}[state_norm])
+    ro_gemv = 2 * 2 * (2 * f) * od                 # W_i·x and W_j·x
+    msgs = er * T * 2 * f * f + g * T * 2 * f * f + nr * f + nr * T * 2 * f
+    core = (msgs + T * nr * (2 * gemv + 3 * f + gate)
+            + nr * (ro_gemv + 8 * od))
+    stash = 2 * T * nr * f + 4 * T * f
+    batch_bytes = nr * f + er * 3 + nr
+    out = {"fused_psteps_eval": (core + T * nr * eval_norms,
+                                 4 * (batch_bytes + g + weights + g * od)),
+           "fused_psteps_fwd": (core + T * nr * train_norms + g * 3 * od,
+                                4 * (batch_bytes + 2 * g + weights + 1
+                                     + g * od + stash))}
+    bwd = (nr * (3 * ro_gemv + 16 * od)
+           + T * nr * (6 * gemv + gate + 20 * f + 2 * train_norms)
+           + er * T * 4 * f * f + g * T * 4 * f * f + nr * T * 4 * f)
+    out["fused_psteps_bwd"] = (bwd, 4 * (batch_bytes + nr + g * (2 + 2 * od)
+                                         + 1 + weights + stash + nr * f
+                                         + weights))
+    res = {}
+    for name, (ops, nbytes) in out.items():
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        res[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return res
+
+
+def phase_ps_times(device, card):
+    """The encoded model at batch 128 and 1024: request latency and
+    train-step latency (host clock ending in a device sync), each
+    per-step kernel's time (CUDA events over repeated launches on the
+    main path's inputs) beside its bound and its plain version's time,
+    and the device busy time of one batch-1024 train step."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.fused_train import (fused_psteps_args,
+                                                   fused_psteps_eval_args)
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch,
+                                              train_step)
+    out, lines = {}, []
+    gen = torch.Generator().manual_seed(31)
+    for bs in (128, 1024):
+        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+        b["labels"] = torch.randint(0, PS_CLASSES, (bs,),
+                                    generator=gen).numpy()
+        tb = batch_to_device(b, device)
+        cfg = zoo.encoded(b["node_feats"].shape[1], b["edge_feats"].shape[1],
+                          b["node_nafm"].shape[1], n_out=PS_CLASSES)
+        net = network_init(cfg, gen, device)
+        opt = adam(net.parameters(), 1e-3, weight_decay=1e-5)
+        reps = 20
+        for _ in range(3):
+            float(train_step(net, opt, tb, loss_kind="ce"))
+        step_lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            float(train_step(net, opt, tb, loss_kind="ce"))
+            torch.cuda.synchronize()
+            step_lat.append((time.perf_counter() - t0) * 1e3)
+        estep = eval_step_for_batch(cfg, "ce", b)
+
+        def request():
+            _, o = estep(net, batch_to_device(b, device))
+            o.cpu()
+            torch.cuda.synchronize()
+        for _ in range(3):
+            request()
+        req_lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            request()
+            req_lat.append((time.perf_counter() - t0) * 1e3)
+        busy = None
+        if bs == 1024:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                float(train_step(net, opt, tb, loss_kind="ce"))
+                torch.cuda.synchronize()
+            busy, ops = _device_ops(prof)
+            with open(os.path.join(OUT_DIR, "profile_ps_train_1024.txt"),
+                      "w") as f:
+                f.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=40))
+        # the kernels alone, on the inputs the main path gives them
+        with torch.no_grad():
+            args, kw = fused_psteps_eval_args(net.mpnn, tb)
+            pe = P.prepare_fused_psteps_eval(*args, **kw)
+            e_ms = _events_ms(lambda: K.launch_prepared(pe), 200)
+            pe_ms = _events_ms(lambda: P.fused_psteps_eval_reference(
+                *args, **kw), 10)
+            (sargs, skw), _ = fused_psteps_args(net.mpnn, tb,
+                                                tb["labels"].float())
+        det = lambda x: ({k: det(v) for k, v in x.items()}
+                         if isinstance(x, dict) else
+                         [det(v) for v in x] if isinstance(x, list) else
+                         x.detach() if isinstance(x, torch.Tensor) else x)
+        sargs = [det(a) for a in sargs]
+        (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels, gmask,
+         vid, src, dst, plan) = sargs
+        weights, meta = P.flat_weights(amat, a0, mbias, gru, ma, bnp, ro, h0,
+                                       **skw)
+        pf = P.prepare_fused_psteps_fwd(weights, h0, mask, ng, labels,
+                                        gmask, vid, src, dst, plan, meta)
+        f_ms = _events_ms(lambda: K.launch_prepared(pf), 100)
+        _, o, st, htil = K.launch_prepared(pf)
+        gout = torch.randn(o.shape, generator=gen).to(device)
+        gl = torch.ones(1, device=device)
+        pb = P.prepare_fused_psteps_bwd(weights, h0, labels, gmask, o, gout,
+                                        gl, htil, st, ng, vid, src, dst,
+                                        plan, meta)
+        b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
+        with torch.no_grad():
+            pf_ms = _events_ms(lambda: P.fused_psteps_reference(
+                *sargs, **skw), 10)
+        leaves = [x.requires_grad_() for _, x in weights] + [
+            h0.requires_grad_()]
+        ref_args = [amat, a0, mbias, h0, mask, ng, gru,
+                    [{"weight": weights[7][1][t], "bias": weights[8][1][t]}
+                     for t in range(meta.steps)],
+                    [{"weight": weights[9][1][t], "bias": weights[10][1][t]}
+                     for t in range(meta.steps)],
+                    ro, labels, gmask, vid, src, dst, plan]
+        loss, o_ref, _, _ = P.fused_psteps_reference(*ref_args, **skw)
+        obj = loss + (o_ref * gout).sum()
+        pb_ms = _events_ms(lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True, allow_unused=True), 10)
+        bounds = _ps_bounds(b, cfg.mpnn.node_features, cfg.mpnn.output_dim,
+                            amat.shape[1], cfg.mpnn.message_steps,
+                            cfg.mpnn.msg_norm, cfg.mpnn.state_norm)
+        rec = {"step_ms": statistics.median(step_lat),
+               "request_ms": statistics.median(req_lat),
+               "fused_psteps_eval": dict(ms=e_ms, plain_ms=pe_ms),
+               "fused_psteps_fwd": dict(ms=f_ms, plain_ms=pf_ms),
+               "fused_psteps_bwd": dict(ms=b_ms, plain_ms=pb_ms)}
+        for name in PS_KERNELS:
+            rec[name].update(bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1])
+        out[bs] = rec
+        idle = "" if busy is None else (
+            f"; one train step's device busy {busy:.1f} us in "
+            f"{sum(e.count for e in ops)} device ops, idle share "
+            f"{1 - busy / (rec['step_ms'] * 1e3):.3f}")
+        lines.append(
+            f"encoded batch {bs} (nodes {int(b['node_mask'].sum())}/"
+            f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
+            f"{b['edge_src'].shape[0]}, vocab {amat.shape[1]}): request "
+            f"median {rec['request_ms']:.3f} ms, train step median "
+            f"{rec['step_ms']:.3f} ms ({reps} reps each){idle}; "
+            + ", ".join(
+                f"{name} {rec[name]['ms'] * 1e3:.2f} us (events), plain "
+                f"{rec[name]['plain_ms'] * 1e3:.1f} us, bound "
+                f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.2f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in PS_KERNELS))
+    print(f"ps-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -895,6 +1450,11 @@ def main() -> int:
     train_counts = phase_train(device)
     ttimes = phase_train_times(device, card)
     phase_train_profile(device, ttimes[1024]["step_ms"])
+    ps_worst = phase_ps_kernel_check(device)
+    ps_launches = phase_ps_serve(device)
+    ps_counts = phase_ps_train(device)
+    ps_times = phase_ps_times(device, card)
+    ps_counts["fused_psteps_eval"] += ps_launches
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -910,6 +1470,16 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_step.py:{line}",
             "launches": train_counts[name], "max_abs_err": worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    for name, line in zip(PS_KERNELS, (1254, 195, 428)):
+        tt = ps_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/fused_psteps.py:{line}",
+            "launches": ps_counts[name], "max_abs_err": ps_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -20,6 +20,7 @@ from mpnn_tpu_torch.graphs.dataset import (
     encode_molgraphs,
     fit_encoders,
     generate_molgraphs,
+    load_classification_dataset,
     load_number_dataset,
 )
 from mpnn_tpu_torch.graphs.dataloader import GraphLoader

@@ -1,6 +1,6 @@
 """Dataset loaders: CSV → molecules → encoded MolGraphs (copied from
-mpnn_tpu/graphs/dataset.py; the regression flavor only, and the CSV is read
-with the stdlib `csv` module instead of pandas).
+mpnn_tpu/graphs/dataset.py; the classification and regression flavors, and
+the CSV is read with the stdlib `csv` module instead of pandas).
 
 Reference semantics (pre_process/load_dataset.py:86-167): read CSV, parse
 each molecule (skip unparseable rows), featurize, fit encoders on the FULL
@@ -15,7 +15,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from mpnn_tpu_torch.chem import mol_from_smiles
-from mpnn_tpu_torch.graphs.encoders import GraphEncoder
+from mpnn_tpu_torch.graphs.encoders import GraphEncoder, LabelEncoder
 from mpnn_tpu_torch.graphs.graph import MolGraph, from_mol
 
 
@@ -72,6 +72,33 @@ def encode_molgraphs(graphs: List[MolGraph],
     for g in graphs:
         g.encode(ge)
     return graphs, ge
+
+
+def _typed_labels(values):
+    """CSV label strings typed as pandas' reader types a column: all
+    integers → int, else all numbers → float, else the strings."""
+    for cast in (int, float):
+        try:
+            return [cast(v) for v in values]
+        except ValueError:
+            continue
+    return list(values)
+
+
+def load_classification_dataset(path: str, mol_col: str, label_col: str,
+                                parser=mol_from_smiles,
+                                ge: Optional[GraphEncoder] = None):
+    """→ (graphs, n_classes, encoded_labels, graph_encoder): labels
+    LabelEncoder-encoded over the parsed molecules (load_dataset.py)."""
+    mols, labels = _read_csv_columns(path, [mol_col, label_col])
+    graphs = generate_molgraphs(mols, _typed_labels(labels), parser=parser)
+    graphs, ge = encode_molgraphs(graphs, ge)
+    le = LabelEncoder()
+    encoded = le.fit_transform([g.label for g in graphs])
+    ge.label_enc = le
+    for g, lab in zip(graphs, encoded):
+        g.label = int(lab)
+    return graphs, int(encoded.max()) + 1, encoded, ge
 
 
 def load_number_dataset(path: str, mol_col: str, label_col: str,

@@ -26,6 +26,9 @@ SOURCES: Dict[str, str] = {
     "fused_eval": "fused_eval.cu",
     "fused_step_fwd": "fused_step_fwd.cu",
     "fused_step_bwd": "fused_step_bwd.cu",
+    "fused_psteps_eval": "fused_psteps_eval.cu",
+    "fused_psteps_fwd": "fused_psteps_fwd.cu",
+    "fused_psteps_bwd": "fused_psteps_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

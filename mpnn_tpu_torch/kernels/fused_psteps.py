@@ -1,0 +1,517 @@
+"""Whole-step ops of the PER-STEP edge-network MPNN (the graph_norm and
+encoded models): one message network and, where the model has bn1d norms,
+one norm pair per step; messages from the initial state.
+
+  * fused_psteps_eval — counterpart of mpnn_tpu/kernels/fused_psteps.py::
+    make_fused_psteps_eval_op (Pallas `_ps_eval_kernel`): T per-step
+    SpMMs Σ A_t[vid]·h0[src] + A0_t·S_g + bias_t, then per step the folded
+    message affine, the GRU and the state norm (folded bn1d, the
+    STATELESS norm over the whole batch, or none), and the gated readout
+    over [h_T ‖ h0] — one launch (csrc/fused_psteps_eval.cu).
+  * fused_psteps — counterpart of make_fused_psteps_op (Pallas
+    `_ps_fwd_kernel` and the monolithic `_ps_bwd_kernel`): the same chain
+    with the per-step norms in training mode (batch statistics per step)
+    and the masked-MSE loss, as a torch.autograd.Function whose forward
+    and backward are one cooperative launch each
+    (csrc/fused_psteps_fwd.cu, csrc/fused_psteps_bwd.cu). The backward has
+    no node cap: the JAX package's streaming backward past 28,672 padded
+    nodes is a TPU VMEM workaround; this one computes the same function at
+    any size that fits device memory.
+
+The index plan and the device-built source order are the shared family's
+(graphs/batching.py::plan_fused_eval, kernels/fused_step.py::
+source_order). Each op launches its kernel for CUDA tensors and runs its
+plain version (fused_psteps_eval_reference, fused_psteps_reference under
+autograd) for CPU tensors — nothing else: no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, List, NamedTuple
+
+import torch
+
+from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
+from mpnn_tpu_torch.kernels import fused_step as K
+from mpnn_tpu_torch.ops.norm import (BN_EPS, bn1d_train, fold_bn1d,
+                                     mask_batch_norm_stats)
+
+# the widest f and od, and the most steps, the CUDA kernels take
+MAX_WIDTH = 16
+MAX_OUT = 32
+MAX_STEPS = 8
+
+# launches of each kernel wrapper; reset with reset_launch_counts()
+launch_counts: Dict[str, int] = {"fused_psteps_eval": 0,
+                                 "fused_psteps_fwd": 0,
+                                 "fused_psteps_bwd": 0}
+
+# norm modes as the kernels read them
+_MSG_MODES = ("bn1d", "none")
+_STATE_MODES = ("bn1d", "stateless", "none")
+NONE, BATCH_BN, AFFINE, STATELESS = 0, 1, 2, 3
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _check_modes(who: str, msg_norm: str, state_norm: str) -> None:
+    if msg_norm not in _MSG_MODES or state_norm not in _STATE_MODES:
+        raise NotImplementedError(
+            f"{who}: msg_norm={msg_norm!r}, state_norm={state_norm!r}; the "
+            f"per-step kernels take msg norm in {_MSG_MODES} and state norm "
+            f"in {_STATE_MODES}")
+
+
+def _check_widths(who: str, f: int, od: int, steps: int) -> None:
+    if f > MAX_WIDTH or od > MAX_OUT:
+        raise NotImplementedError(
+            f"{who}: f={f}, od={od}; the kernels are compiled for f up to "
+            f"{MAX_WIDTH} and od up to {MAX_OUT} (wider builds: ROADMAP)")
+    if not 1 <= steps <= MAX_STEPS:
+        raise NotImplementedError(
+            f"{who}: steps={steps}; the kernels take 1 to {MAX_STEPS}")
+
+
+# ---------------------------------------------------------------------------
+# plain versions (CPU path; the card's comparison baseline)
+# ---------------------------------------------------------------------------
+
+def _fold_steps(p_bns, s_bns, mode: str, f: int, steps: int, like):
+    """Per-step (scale (T, f), shift (T, f)) of eval-mode bn1d norms,
+    eps OUTSIDE the sqrt; identity stand-ins for a mode without running
+    statistics (the stateless norm normalizes inside the kernel)."""
+    if mode != "bn1d":
+        return (torch.ones(steps, f, dtype=like.dtype, device=like.device),
+                torch.zeros(steps, f, dtype=like.dtype, device=like.device))
+    folds = [fold_bn1d(p["weight"], p["bias"], s["running_mean"],
+                       s["running_var"], BN_EPS)
+             for p, s in zip(p_bns, s_bns)]
+    return (torch.stack([a for a, _ in folds]),
+            torch.stack([b for _, b in folds]))
+
+
+def fused_psteps_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru,
+                                ma_bns, ma_states, bns, bn_states, ro, vid,
+                                src, dst, plan: FusedEvalPlan, *, steps: int,
+                                msg_norm: str = "bn1d",
+                                state_norm: str = "bn1d"):
+    """Plain PyTorch version of the eval kernel, the JAX op's arguments
+    minus the TPU window plan plus the index plan (its graph count only is
+    read): amat (T, K, f, f), a0 (T, f, f), mbias (T, f), h0 PRE-MASKED
+    (N, f), per-step norm dicts as lists of T (ignored for a mode without
+    them), weights in the JAX layout. Returns out (G, od)."""
+    _check_modes("fused_psteps_eval", msg_norm, state_norm)
+    f = h0.shape[1]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    ng = node_graph.long()
+    maw, mab = _fold_steps(ma_bns, ma_states, msg_norm, f, steps, h0)
+    sw, sb = _fold_steps(bns, bn_states, state_norm, f, steps, h0)
+    h = h0 * mask
+    for t in range(steps):
+        msgs = K._messages(amat[t], a0[t], mbias[t], h0, ng, vid, src, dst,
+                           num_graphs) * mask
+        mb = (maw[t] * msgs + mab[t]) * mask
+        h = K._gru(gru, mb @ gru["w_ih"] + gru["b_ih"], h, mask)
+        if state_norm == "stateless":
+            h, _ = mask_batch_norm_stats(h, mask)
+        else:
+            h = (sw[t] * h + sb[t]) * mask
+    return K._readout(h, h0, mask, ng, ro, num_graphs)
+
+
+def fused_psteps_reference(amat, a0, mbias, h0, mask, node_graph, gru,
+                           ma_bns, bns, ro, labels, gmask, vid, src, dst,
+                           plan: FusedEvalPlan, *, steps: int,
+                           msg_norm: str = "bn1d", state_norm: str = "bn1d"):
+    """Plain PyTorch version of the training forward kernel (and, through
+    autograd, of the backward kernel): make_fused_psteps_op's arguments
+    minus the TPU window plan, plus the index plan. Returns (loss, out
+    (G, od), [(ma_mean_t, ma_var_t)] × T, [(mean_t, var_t)] × T); the
+    statistics are detached, zeros for a norm in mode 'none' (the
+    stateless norm's are its batch mean and var, which feed no EMA).
+    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm."""
+    _check_modes("fused_psteps", msg_norm, state_norm)
+    f = h0.shape[1]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    ng = node_graph.long()
+    zero = h0.new_zeros(f)
+    h = h0 * mask
+    ma_stats, bn_stats = [], []
+    for t in range(steps):
+        msgs = K._messages(amat[t], a0[t], mbias[t], h0, ng, vid, src, dst,
+                           num_graphs) * mask
+        if msg_norm == "bn1d":
+            mb, st = bn1d_train(msgs, mask, ma_bns[t]["weight"],
+                                ma_bns[t]["bias"])
+        else:
+            mb, st = msgs, (zero, zero)
+        ma_stats.append(tuple(x.detach() for x in st))
+        h = K._gru(gru, mb @ gru["w_ih"] + gru["b_ih"], h, mask)
+        if state_norm == "bn1d":
+            h, st = bn1d_train(h, mask, bns[t]["weight"], bns[t]["bias"])
+        elif state_norm == "stateless":
+            h, st = mask_batch_norm_stats(h, mask)
+        else:
+            st = (zero, zero)
+        bn_stats.append(tuple(x.detach() for x in st))
+    out = K._readout(h, h0, mask, ng, ro, num_graphs)
+    loss = (((out - labels[:, None]) ** 2) * gmask[:, None]).sum() \
+        / gmask.sum()
+    return loss, out, ma_stats, bn_stats
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' libraries
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fused_psteps_eval": {
+        "mpnn_fused_psteps_eval": ([_P] * 24 + [_I] * 9 + [_P], _I),
+        "mpnn_fused_psteps_eval_smem_bytes": ([_I], _I),
+        "mpnn_fused_psteps_eval_scratch_floats": ([_I, _I, _I],
+                                                  ctypes.c_longlong),
+        "mpnn_fused_psteps_eval_grid": ([_I] * 3, _I),
+    },
+    "fused_psteps_fwd": {
+        "mpnn_fused_psteps_fwd": ([_P] * 28 + [_I] * 9 + [_P], _I),
+        "mpnn_fused_psteps_fwd_smem_bytes": ([_I], _I),
+        "mpnn_fused_psteps_fwd_scratch_floats": ([_I, _I, _I],
+                                                 ctypes.c_longlong),
+        "mpnn_fused_psteps_fwd_grid": ([_I] * 3, _I),
+    },
+    "fused_psteps_bwd": {
+        "mpnn_fused_psteps_bwd": ([_P] * 33 + [_I] * 10 + [_P], _I),
+        "mpnn_fused_psteps_bwd_smem_bytes": ([_I], _I),
+        "mpnn_fused_psteps_bwd_layout": ([_I] * 4 + [_P], None),
+        "mpnn_fused_psteps_bwd_scratch_floats": ([_I] * 7,
+                                                 ctypes.c_longlong),
+        "mpnn_fused_psteps_bwd_grid": ([_I] * 4, _I),
+    },
+}
+
+
+def _lib(name: str):
+    return K._lib(name, _SIGNATURES)
+
+
+# the weight leaves, in the kernels' argument order (and the backward's
+# flat gradient layout)
+_GRAD_LEAVES = ("amat", "a0", "mbias", "w_ih", "w_hh", "b_ih", "b_hh",
+                "ma_w", "ma_b", "bn_w", "bn_b", "ro_iw", "ro_ib", "ro_jw",
+                "ro_jb")
+
+
+def _leaf_shapes(k_vocab: int, f: int, od: int, steps: int):
+    T = steps
+    return [(T, k_vocab, f, f), (T, f, f), (T, f), (f, 3 * f), (f, 3 * f),
+            (3 * f,), (3 * f,), (T, f), (T, f), (T, f), (T, f), (2 * f, od),
+            (od,), (2 * f, od), (od,)]
+
+
+def grad_layout(k_vocab: int, f: int, od: int, steps: int
+                ) -> Dict[str, tuple]:
+    """{leaf: (offset, shape)} of the backward kernel's flat gradient, in
+    csrc/fused_psteps_bwd.cu's PsGradLayout order."""
+    out, off = {}, 0
+    for name, shape in zip(_GRAD_LEAVES,
+                           _leaf_shapes(k_vocab, f, od, steps)):
+        out[name] = (off, shape)
+        off += math.prod(shape)
+    out["total"] = (off, ())
+    return out
+
+
+def split_grads(dw: torch.Tensor, k_vocab: int, f: int, od: int,
+                steps: int):
+    """The flat gradient as {leaf: view of its shape}."""
+    return {name: dw[off:off + math.prod(shape)].view(shape)
+            for name, (off, shape)
+            in grad_layout(k_vocab, f, od, steps).items() if name != "total"}
+
+
+def _stack_norms(bns, key: str, f: int, steps: int, like):
+    """(T, f) of the per-step norms' `key`, or the identity stand-in for a
+    mode without them (ones for a weight, zeros for a bias)."""
+    if bns:
+        return torch.stack([b[key] for b in bns])
+    fill = 1.0 if key == "weight" else 0.0
+    return torch.full((steps, f), fill, dtype=like.dtype, device=like.device)
+
+
+def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
+                  steps, extra=()):
+    """Device, dtype, shape and contiguity of every kernel input; returns
+    (n, f, od, k_vocab, e, num_graphs)."""
+    device = h0.device
+    if device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {device}")
+    n, f = h0.shape
+    w = dict(weights)
+    k_vocab = w["amat"].shape[1]
+    od = w["ro_ib"].shape[0]
+    e = src.shape[0]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    _check_widths(who, f, od, steps)
+    for name, shape in zip(_GRAD_LEAVES,
+                           _leaf_shapes(k_vocab, f, od, steps)):
+        K._check(name, w[name], shape, device, torch.float32)
+    for name, t, shape in [("h0", h0, (n, f)), ("mask", mask, (n, 1)),
+                           *[(nm, t, (num_graphs,)) for nm, t in extra]]:
+        K._check(name, t, shape, device, torch.float32)
+    for name, t in [("vid", vid), ("src", src), ("dst", dst)]:
+        K._check(name, t, (e,), device, torch.int32)
+    K._check("node_graph", node_graph, (n,), device, torch.int32)
+    K._check_plan(plan, device, n, e, num_graphs)
+    K.check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
+                         num_graphs, who=who)
+    return n, f, od, k_vocab, e, num_graphs
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# fused_psteps_eval: the serving kernel
+# ---------------------------------------------------------------------------
+
+def fused_psteps_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bns,
+                      ma_states, bns, bn_states, ro, vid, src, dst,
+                      plan: FusedEvalPlan, *, steps: int,
+                      msg_norm: str = "bn1d", state_norm: str = "bn1d"):
+    """Whole-step inference of the per-step family: out (G, od). Arguments
+    as fused_psteps_eval_reference. CPU tensors run the plain version;
+    CUDA tensors launch the CUDA kernel or raise."""
+    _check_modes("fused_psteps_eval", msg_norm, state_norm)
+    if h0.device.type == "cpu":
+        return fused_psteps_eval_reference(
+            amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, ma_states,
+            bns, bn_states, ro, vid, src, dst, plan, steps=steps,
+            msg_norm=msg_norm, state_norm=state_norm)
+    return K.launch_prepared(prepare_fused_psteps_eval(
+        amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, ma_states, bns,
+        bn_states, ro, vid, src, dst, plan, steps=steps, msg_norm=msg_norm,
+        state_norm=state_norm))
+
+
+def prepare_fused_psteps_eval(amat, a0, mbias, h0, mask, node_graph, gru,
+                              ma_bns, ma_states, bns, bn_states, ro, vid,
+                              src, dst, plan: FusedEvalPlan, *, steps: int,
+                              msg_norm: str = "bn1d",
+                              state_norm: str = "bn1d") -> K.PreparedLaunch:
+    """Checks every input and the batch layout, folds the eval-mode norms
+    to per-step affines, allocates the output and the scratch of one
+    CUDA launch."""
+    _check_modes("fused_psteps_eval", msg_norm, state_norm)
+    f = h0.shape[1]
+    maw, mab = _fold_steps(ma_bns, ma_states, msg_norm, f, steps, h0)
+    sw, sb = _fold_steps(bns, bn_states, state_norm, f, steps, h0)
+    weights = [("amat", amat), ("a0", a0), ("mbias", mbias),
+               ("w_ih", gru["w_ih"]), ("w_hh", gru["w_hh"]),
+               ("b_ih", gru["b_ih"]), ("b_hh", gru["b_hh"]),
+               ("ma_w", maw.contiguous()), ("ma_b", mab.contiguous()),
+               ("bn_w", sw.contiguous()), ("bn_b", sb.contiguous()),
+               ("ro_iw", ro["i"]["w"]), ("ro_ib", ro["i"]["b"]),
+               ("ro_jw", ro["j"]["w"]), ("ro_jb", ro["j"]["b"])]
+    n, f, od, k_vocab, e, g = _check_inputs(
+        "fused_psteps_eval", weights, h0, mask, node_graph, vid, src, dst,
+        plan, steps)
+    lib = _lib("fused_psteps_eval")
+    device = h0.device
+    grid = K._grid(lib, "mpnn_fused_psteps_eval_grid", steps, n, g)
+    kw = dict(dtype=torch.float32, device=device)
+    out = torch.empty(g, od, **kw)
+    # the T steps' messages and one state slot, updated in place
+    htil = torch.empty(steps + 1, n, f, **kw)
+    scratch = torch.empty(
+        lib.mpnn_fused_psteps_eval_scratch_floats(n, g, steps), **kw)
+    msg_mode = AFFINE if msg_norm == "bn1d" else NONE
+    state_mode = {"bn1d": AFFINE, "stateless": STATELESS,
+                  "none": NONE}[state_norm]
+    tensors = [t for _, t in weights] + [
+        h0, vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr,
+        out, htil, scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, steps,
+            msg_mode, state_mode, grid, _stream(device))
+    return K.PreparedLaunch("fused_psteps_eval", lib.mpnn_fused_psteps_eval,
+                            lib.mpnn_cuda_error_string, args, out,
+                            tuple(tensors), launch_counts)
+
+
+# ---------------------------------------------------------------------------
+# fused_psteps: the training forward and backward kernels
+# ---------------------------------------------------------------------------
+
+class PsMeta(NamedTuple):
+    steps: int
+    msg_mode: int
+    state_mode: int
+
+
+def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
+                             vid, src, dst, plan: FusedEvalPlan,
+                             meta: PsMeta) -> K.PreparedLaunch:
+    """One checked forward launch: outputs loss (1,), out (G, od), stats
+    (2T, 2, f) and the residual stash htil (2T, N, f) — slots 0..T-1 the
+    masked messages of each step, T..2T-1 the pre-norm GRU outputs.
+    `weights` is the (name, tensor) list in _GRAD_LEAVES order."""
+    T = meta.steps
+    n, f, od, k_vocab, e, g = _check_inputs(
+        "fused_psteps", weights, h0, mask, node_graph, vid, src, dst, plan,
+        T, extra=(("labels", labels), ("gmask", gmask)))
+    lib = _lib("fused_psteps_fwd")
+    device = h0.device
+    grid = K._grid(lib, "mpnn_fused_psteps_fwd_grid", T, n, g)
+    kw = dict(dtype=torch.float32, device=device)
+    loss = torch.empty(1, **kw)
+    out = torch.empty(g, od, **kw)
+    stats = torch.empty(2 * T, 2, f, **kw)
+    htil = torch.empty(2 * T, n, f, **kw)
+    scratch = torch.empty(
+        lib.mpnn_fused_psteps_fwd_scratch_floats(n, g, T), **kw)
+    tensors = [t for _, t in weights] + [
+        h0, labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
+        plan.graph_node_ptr, loss, out, stats, htil, scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
+            meta.msg_mode, meta.state_mode, grid, _stream(device))
+    return K.PreparedLaunch("fused_psteps_fwd", lib.mpnn_fused_psteps_fwd,
+                            lib.mpnn_cuda_error_string, args,
+                            (loss, out, stats, htil), tuple(tensors),
+                            launch_counts)
+
+
+def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
+                             htil, stats, node_graph, vid, src, dst,
+                             plan: FusedEvalPlan, meta: PsMeta
+                             ) -> K.PreparedLaunch:
+    """One checked backward launch on the forward's residuals (the batch
+    tensors as the forward checked them): outputs dh0 (N, f) and the flat
+    gradient of grad_layout."""
+    device = h0.device
+    n, f = h0.shape
+    w = dict(weights)
+    k_vocab, od = w["amat"].shape[1], w["ro_ib"].shape[0]
+    e, g, T = src.shape[0], plan.graph_node_ptr.shape[0] - 1, meta.steps
+    for name, t, shape in [("out", out, (g, od)), ("gout", gout, (g, od)),
+                           ("gl", gl, (1,)), ("htil", htil, (2 * T, n, f)),
+                           ("stats", stats, (2 * T, 2, f))]:
+        K._check(name, t, shape, device, torch.float32)
+    lib = _lib("fused_psteps_bwd")
+    layout = grad_layout(k_vocab, f, od, T)
+    c_layout = (ctypes.c_int * 16)()
+    lib.mpnn_fused_psteps_bwd_layout(k_vocab, f, od, T, c_layout)
+    if [v[0] for v in layout.values()] != list(c_layout):
+        raise RuntimeError("fused_psteps_bwd: the gradient layout of the "
+                           "built library disagrees with grad_layout")
+    grid = K._grid(lib, "mpnn_fused_psteps_bwd_grid", T, n, g, e)
+    kw = dict(dtype=torch.float32, device=device)
+    dh0 = torch.empty(n, f, **kw)
+    dw = torch.empty(layout["total"][0], **kw)
+    scratch = torch.empty(lib.mpnn_fused_psteps_bwd_scratch_floats(
+        n, g, k_vocab, f, od, T, grid), **kw)
+    src_order, src_ptr = K.source_order(src, n)
+    tensors = [w[k] for k in _GRAD_LEAVES] + [
+        h0, labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
+        src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
+        scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, e, f, od, k_vocab, T,
+            meta.msg_mode, meta.state_mode, grid, _stream(device))
+    return K.PreparedLaunch("fused_psteps_bwd", lib.mpnn_fused_psteps_bwd,
+                            lib.mpnn_cuda_error_string, args, (dh0, dw),
+                            tuple(tensors), launch_counts)
+
+
+def flat_weights(amat, a0, mbias, gru, ma_bns, bns, ro, h0, *, steps: int,
+                 msg_norm: str, state_norm: str):
+    """The training kernels' (name, tensor) weight list in _GRAD_LEAVES
+    order — the per-step norms stacked (T, f), identity stand-ins for a
+    mode without them — and their PsMeta."""
+    f = h0.shape[1]
+    meta = PsMeta(steps, BATCH_BN if msg_norm == "bn1d" else NONE,
+                  {"bn1d": BATCH_BN, "stateless": STATELESS,
+                   "none": NONE}[state_norm])
+    ma = ma_bns if msg_norm == "bn1d" else []
+    sn = bns if state_norm == "bn1d" else []
+    tensors = [amat, a0, mbias, gru["w_ih"], gru["w_hh"], gru["b_ih"],
+               gru["b_hh"], _stack_norms(ma, "weight", f, steps, h0),
+               _stack_norms(ma, "bias", f, steps, h0),
+               _stack_norms(sn, "weight", f, steps, h0),
+               _stack_norms(sn, "bias", f, steps, h0), ro["i"]["w"],
+               ro["i"]["b"], ro["j"]["w"], ro["j"]["b"]]
+    return list(zip(_GRAD_LEAVES, tensors)), meta
+
+
+class _FusedPsteps(torch.autograd.Function):
+    """The training forward kernel, with the backward kernel as its VJP.
+    Inputs: meta, the 15 weight leaves (_GRAD_LEAVES order, per-step norms
+    stacked (T, f)), h0, then the non-differentiable batch tensors and the
+    plan. Outputs (loss (1,), out, stats); stats carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, meta, *args):
+        weights = list(zip(_GRAD_LEAVES, args[:15]))
+        h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        plan = FusedEvalPlan(*args[23:])
+        loss, out, stats, htil = K.launch_prepared(prepare_fused_psteps_fwd(
+            weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
+            plan, meta))
+        ctx.meta = meta
+        ctx.save_for_backward(*args, out, stats, htil)
+        ctx.mark_non_differentiable(stats)
+        return loss, out, stats
+
+    @staticmethod
+    def backward(ctx, g_loss, g_out, _g_stats):
+        saved = ctx.saved_tensors
+        args, (out, stats, htil) = saved[:-3], saved[-3:]
+        weights = list(zip(_GRAD_LEAVES, args[:15]))
+        h0, _mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        plan = FusedEvalPlan(*args[23:])
+        gl = (torch.zeros(1, dtype=out.dtype, device=out.device)
+              if g_loss is None else g_loss.reshape(1).contiguous())
+        gout = (torch.zeros_like(out) if g_out is None
+                else g_out.contiguous())
+        dh0, dw = K.launch_prepared(prepare_fused_psteps_bwd(
+            weights, h0, labels, gmask, out, gout, gl, htil, stats,
+            node_graph, vid, src, dst, plan, ctx.meta))
+        f, od = h0.shape[1], out.shape[1]
+        grads = split_grads(dw, args[0].shape[1], f, od, ctx.meta.steps)
+        return (None, *(grads[name] for name in _GRAD_LEAVES), dh0,
+                *([None] * (len(args) - 16)))
+
+
+def fused_psteps(amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns,
+                 ro, labels, gmask, vid, src, dst, plan: FusedEvalPlan, *,
+                 steps: int, msg_norm: str = "bn1d",
+                 state_norm: str = "bn1d"):
+    """Whole-step training forward of the per-step family: (loss, out
+    (G, od), [(ma_mean_t, ma_var_t)] × T, [(mean_t, var_t)] × T),
+    differentiable in the weights and h0 for the cotangents of both loss
+    and out. Arguments as fused_psteps_reference (ma_bns / bns: T dicts,
+    or empty for a mode without them). CPU tensors run the plain version
+    under autograd; CUDA tensors launch the forward kernel (and, in the
+    backward pass, the backward kernel) or raise."""
+    _check_modes("fused_psteps", msg_norm, state_norm)
+    if h0.device.type == "cpu":
+        return fused_psteps_reference(
+            amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns, ro,
+            labels, gmask, vid, src, dst, plan, steps=steps,
+            msg_norm=msg_norm, state_norm=state_norm)
+    _check_widths("fused_psteps", h0.shape[1], ro["i"]["b"].shape[0], steps)
+    weights, meta = flat_weights(amat, a0, mbias, gru, ma_bns, bns, ro, h0,
+                                 steps=steps, msg_norm=msg_norm,
+                                 state_norm=state_norm)
+    loss, out, stats = _FusedPsteps.apply(
+        meta, *(t for _, t in weights), h0, mask, node_graph, labels, gmask,
+        vid, src, dst, *plan)
+    ma_stats: List[tuple] = [(stats[t, 0], stats[t, 1])
+                             for t in range(steps)]
+    bn_stats = [(stats[steps + t, 0], stats[steps + t, 1])
+                for t in range(steps)]
+    return loss[0], out, ma_stats, bn_stats

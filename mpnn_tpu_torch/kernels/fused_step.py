@@ -204,11 +204,13 @@ _SIGNATURES = {
 _READY = set()
 
 
-def _lib(name: str = "fused_eval"):
+def _lib(name: str = "fused_eval", signatures=None):
+    """The loaded library `name` (built at first use), its C functions
+    typed from `signatures` (default: this module's _SIGNATURES)."""
     from mpnn_tpu_torch.kernels import build
     lib = build.load(name)
     if name not in _READY:
-        for fn, (args, res) in _SIGNATURES[name].items():
+        for fn, (args, res) in (signatures or _SIGNATURES)[name].items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = res
         lib.mpnn_cuda_error_string.argtypes = [_I]
@@ -305,14 +307,15 @@ def source_order(src: torch.Tensor, n: int):
 
 class PreparedLaunch(NamedTuple):
     """A checked kernel call: the launch-count key, the C function, its
-    arguments (pointers into `keep`), what it writes, and the tensors that
-    must outlive the launch."""
+    arguments (pointers into `keep`), what it writes, the tensors that
+    must outlive the launch, and the launch-count table it adds to."""
     name: str
     fn: object
     error_string: object
     args: tuple
     out: object
     keep: tuple
+    counts: Dict[str, int] = launch_counts
 
 
 def launch_prepared(p: PreparedLaunch):
@@ -324,7 +327,7 @@ def launch_prepared(p: PreparedLaunch):
     if err != 0:
         raise RuntimeError(f"{p.name} kernel launch failed: "
                            + p.error_string(err).decode())
-    launch_counts[p.name] += 1
+    p.counts[p.name] += 1
     return p.out
 
 

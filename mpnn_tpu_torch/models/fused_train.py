@@ -1,24 +1,31 @@
 """The MPNN core through the whole-step kernels (counterpart of
-mpnn_tpu/models/fused_train.py for the shared-weight family):
-_build_a_form and fused_eval_eligible (both paths); fused_mpnn_eval
-(serving, one eval-kernel launch); fused_mpnn_out and fused_flagship_loss
-(training, one forward and one backward launch).
+mpnn_tpu/models/fused_train.py for the shared-weight and the per-step
+families): _build_a_form / _build_a_form_psteps and fused_eval_eligible
+(both paths); fused_mpnn_eval (serving, one eval-kernel launch);
+fused_mpnn_out and fused_flagship_loss (training, one forward and one
+backward launch).
 
-The plain PyTorch work left around the kernels is the edge-MLP vocab chain
-(K+1 rows through the ×50 tail) and the A-matrix fold, whose gradients
-autograd takes from the kernel's dA and dA0, and the running-stat EMAs.
+The plain PyTorch work left around the kernels is the per-step family's
+input transforms (tanh encoders, input bn1d), the edge-MLP vocab chain
+(K+1 rows through the ×50 tail, once per message network) and the
+A-matrix fold, whose gradients autograd takes from the kernels' dA and
+dA0, and the running-stat EMAs.
 """
 
 from __future__ import annotations
 
+from typing import Callable, NamedTuple
+
 import torch
 
 from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
+from mpnn_tpu_torch.kernels.fused_psteps import fused_psteps, fused_psteps_eval
 from mpnn_tpu_torch.kernels.fused_step import fused_eval, fused_step
 from mpnn_tpu_torch.models.config import MPNNConfig
-from mpnn_tpu_torch.models.mpnn import MPNN, supported
+from mpnn_tpu_torch.models.mpnn import MPNN, shared_shape, supported
 from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
-                                          mpnn_new_state)
+                                          input_transforms, mpnn_new_state,
+                                          psteps_new_state)
 
 
 def _build_a_form(mpnn: MPNN, batch):
@@ -35,11 +42,87 @@ def _build_a_form(mpnn: MPNN, batch):
     return amat, a0, batch["edge_vid"]
 
 
+def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
+    """Per-STEP A-matrix form: (amat (T, K, mf, nf), a0 (T, mf, nf),
+    mbias (T, mf)) — one vocab fold per step's message network, on the
+    edge features after the input transforms (the vocab rows are gathered
+    from the transformed features, mpnn_tpu/models/sparse.py:74-81)."""
+    cfg = mpnn.cfg
+    amats, a0s = [], []
+    for mp in mpnn.message:
+        pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                             batch["edge_vfirst"])
+        amat, a0 = a_form(mp, pen0, pen_vocab, cfg.node_features,
+                          cfg.message_features)
+        amats.append(amat)
+        a0s.append(a0)
+    mbias = torch.stack([mp.message_bias for mp in mpnn.message])
+    return torch.stack(amats), torch.stack(a0s), mbias
+
+
+def _norm_dicts(mods):
+    """The per-step norms as the kernels' lists of (params, state) dicts
+    (empty for a mode without them)."""
+    return ([{"weight": m.weight, "bias": m.bias} for m in mods],
+            [{"running_mean": m.running_mean,
+              "running_var": m.running_var} for m in mods])
+
+
+def _psteps_args(mpnn: MPNN, batch, *, training: bool):
+    """The per-step family's common kernel arguments for one batch:
+    ((amat, a0, mbias, h0), the input norms' state updates)."""
+    h0, edge_feats, updates = input_transforms(mpnn, batch,
+                                               training=training)
+    amat, a0, mbias = _build_a_form_psteps(mpnn, batch, edge_feats)
+    return (amat.contiguous(), a0.contiguous(), mbias.contiguous(),
+            h0.contiguous()), updates
+
+
+def fused_psteps_eval_args(mpnn: MPNN, batch):
+    """(args, kwargs) of the fused_psteps_eval call for this batch."""
+    cfg = mpnn.cfg
+    (amat, a0, mbias, h0), _ = _psteps_args(mpnn, batch, training=False)
+    ma_p, ma_s = _norm_dicts(mpnn.ma_bn)
+    bn_p, bn_s = _norm_dicts(mpnn.bn)
+    args = (amat, a0, mbias, h0, batch["node_mask"], batch["node_graph"],
+            mpnn.gru.as_dict(), ma_p, ma_s, bn_p, bn_s, _ro_jax(mpnn),
+            batch["edge_vid"], batch["edge_src"], batch["edge_dst"],
+            plan_from_batch(batch))
+    return args, dict(steps=cfg.message_steps, msg_norm=cfg.msg_norm,
+                      state_norm=cfg.state_norm)
+
+
+def fused_psteps_args(mpnn: MPNN, batch, labels):
+    """((args, kwargs) of the fused_psteps call, the input norms' state
+    updates) for this training batch."""
+    cfg = mpnn.cfg
+    (amat, a0, mbias, h0), updates = _psteps_args(mpnn, batch,
+                                                  training=True)
+    ma_p, _ = _norm_dicts(mpnn.ma_bn)
+    bn_p, _ = _norm_dicts(mpnn.bn)
+    args = (amat, a0, mbias, h0, batch["node_mask"], batch["node_graph"],
+            mpnn.gru.as_dict(), ma_p, bn_p, _ro_jax(mpnn), labels,
+            batch["graph_mask"], batch["edge_vid"], batch["edge_src"],
+            batch["edge_dst"], plan_from_batch(batch))
+    return (args, dict(steps=cfg.message_steps, msg_norm=cfg.msg_norm,
+                       state_norm=cfg.state_norm)), updates
+
+
+def _psteps_train(mpnn: MPNN, batch, labels):
+    """(loss, out, new_state) of the per-step training kernels: each
+    per-step norm's EMA from its own statistics, plus the input norms'."""
+    (args, kwargs), updates = fused_psteps_args(mpnn, batch, labels)
+    loss, out, ma_stats, bn_stats = fused_psteps(*args, **kwargs)
+    new_state = psteps_new_state(mpnn, ma_stats, bn_stats)
+    new_state.update(updates)
+    return loss, out, new_state
+
+
 def fused_eval_eligible(cfg: MPNNConfig, batch) -> bool:
     """True when the eval kernel (and the training kernels) compute
     exactly this config's forward on this batch: a supported config
-    (models/mpnn.py; msg/state norms in {bn1d, none}) and a packed batch
-    that carries the edge vocab and the kernels' index plan."""
+    (models/mpnn.py: either family) and a packed batch that carries the
+    edge vocab and the kernels' index plan."""
     return (supported(cfg) and "edge_vid" in batch
             and all(k in batch for k in PLAN_KEYS))
 
@@ -82,10 +165,12 @@ def fused_eval_args(mpnn: MPNN, batch):
                       state_norm=cfg.state_norm)
 
 
-def fused_mpnn_eval(mpnn: MPNN, batch) -> torch.Tensor:
-    """Inference through the whole-step eval kernel — the serving path.
-    Returns out (G, output_dim). Equal to sparse_mpnn_apply
-    within f32 summation-order error."""
+def _psteps_eval(mpnn: MPNN, batch) -> torch.Tensor:
+    args, kwargs = fused_psteps_eval_args(mpnn, batch)
+    return fused_psteps_eval(*args, **kwargs)
+
+
+def _shared_eval(mpnn: MPNN, batch) -> torch.Tensor:
     args, kwargs = fused_eval_args(mpnn, batch)
     return fused_eval(*args, **kwargs)
 
@@ -108,13 +193,39 @@ def fused_step_args(mpnn: MPNN, batch, labels):
                       state_norm=cfg.state_norm)
 
 
-def fused_flagship_loss(mpnn: MPNN, batch, labels):
-    """The bare MPNN's training step through the kernels with the masked
-    MSE in the kernel: (loss, out, new_state), new_state as
-    models/sparse.py::mpnn_new_state gives it."""
+def _shared_train(mpnn: MPNN, batch, labels):
+    """(loss, out, new_state) of the shared family's training kernels."""
     args, kwargs = fused_step_args(mpnn, batch, labels)
     loss, out, ma_stats, step_stats = fused_step(*args, **kwargs)
     return loss, out, mpnn_new_state(mpnn, ma_stats, step_stats)
+
+
+class _Family(NamedTuple):
+    infer: Callable   # (mpnn, batch) -> out
+    train: Callable   # (mpnn, batch, labels) -> (loss, out, new_state)
+
+
+_SHARED = _Family(_shared_eval, _shared_train)
+_PSTEPS = _Family(_psteps_eval, _psteps_train)
+
+
+def _family(cfg: MPNNConfig) -> _Family:
+    """The one place that tells the families apart on the kernel path."""
+    return _SHARED if shared_shape(cfg) else _PSTEPS
+
+
+def fused_mpnn_eval(mpnn: MPNN, batch) -> torch.Tensor:
+    """Inference through the whole-step eval kernel of the config's
+    family — the serving path. Returns out (G, output_dim). Equal to
+    sparse_mpnn_apply within f32 summation-order error."""
+    return _family(mpnn.cfg).infer(mpnn, batch)
+
+
+def fused_flagship_loss(mpnn: MPNN, batch, labels):
+    """The bare MPNN's training step through the kernels with the masked
+    MSE in the kernel: (loss, out, new_state), new_state as
+    models/sparse.py::mpnn_new_state (psteps_new_state) gives it."""
+    return _family(mpnn.cfg).train(mpnn, batch, labels)
 
 
 def fused_mpnn_out(mpnn: MPNN, batch):
@@ -125,7 +236,6 @@ def fused_mpnn_out(mpnn: MPNN, batch):
     forward launch. The kernel's loss against zero labels is discarded:
     its cotangent is zero, so the backward kernel is driven by the `out`
     cotangent alone."""
-    zero_labels = torch.zeros_like(batch["graph_mask"])
-    args, kwargs = fused_step_args(mpnn, batch, zero_labels)
-    _, out, ma_stats, step_stats = fused_step(*args, **kwargs)
-    return out, mpnn_new_state(mpnn, ma_stats, step_stats)
+    _, out, new_state = fused_flagship_loss(
+        mpnn, batch, torch.zeros_like(batch["graph_mask"]))
+    return out, new_state

@@ -2,9 +2,10 @@
 mpnn_tpu/models/mpnn.py::mpnn_init).
 
 Submodule names follow the JAX parameter tree (`message/0/head/0`, `gru`,
-`ma_bn/0`, `bn/0`, `readout/i`), so train/checkpoint.py maps one onto the
-other by path. The forward passes are functions over this module:
-models/sparse.py (plain) and models/fused_train.py (the CUDA kernel).
+`ma_bn/0`, `bn/0`, `readout/i`, `atom_encoder/enc/0`, `aebn`), so
+train/checkpoint.py maps one onto the other by path. The forward passes
+are functions over this module: models/sparse.py (plain) and
+models/fused_train.py (the CUDA kernels).
 """
 
 from __future__ import annotations
@@ -15,36 +16,65 @@ import torch
 from torch import nn
 
 from mpnn_tpu_torch.models.config import MPNNConfig
+from mpnn_tpu_torch.ops.autoencoders import TanhAutoencoder
 from mpnn_tpu_torch.ops.message import EdgeNetwork
 from mpnn_tpu_torch.ops.norm import MaskedBatchNorm1d
 from mpnn_tpu_torch.ops.readout import GraphLevelOutput
 from mpnn_tpu_torch.ops.update import GRU
 
 
-def supported(cfg: MPNNConfig) -> bool:
-    """The slice of the config space the port runs: the shared-weight
-    edge-network family with msg/state norm in {bn1d, none} and the gated
-    graph-level readout (lipo, and bench.py's flagship MPNN) — exactly what
-    the whole-step eval kernel computes."""
-    return (cfg.message_fn == "edge_network"
-            and cfg.share_message_weights
-            and cfg.message_input == "initial"
-            and cfg.update_hidden == "state"
+def shared_shape(cfg: MPNNConfig) -> bool:
+    """The shared-weight family (lipo, bench.py's flagship): one message
+    network and one norm pair for all steps, msg/state norm in
+    {bn1d, none}."""
+    return (cfg.share_message_weights
             and cfg.msg_norm in ("bn1d", "none")
             and cfg.state_norm in ("bn1d", "none")
             and not cfg.per_step_norms
-            and cfg.readout == "graph_level"
             and cfg.atom_encoder is None and cfg.bond_encoder is None
-            and not cfg.input_norm and not cfg.output_norm
-            and not cfg.concat_state_history)
+            and not cfg.input_norm)
+
+
+def psteps_shape(cfg: MPNNConfig) -> bool:
+    """The per-step family (graph_norm, encoded; mpnn_tpu/models/
+    fused_train.py::_psteps_shape): one message network per step, and a
+    bn1d norm, where there is one, per step too; msg norm in {bn1d, none},
+    state norm in {bn1d, stateless, none}; encoders only with the input
+    norm (it re-masks the padded rows the kernels rely on)."""
+    any_bn1d = cfg.msg_norm == "bn1d" or cfg.state_norm == "bn1d"
+    has_encoder = (cfg.atom_encoder is not None
+                   or cfg.bond_encoder is not None)
+    return (not cfg.share_message_weights
+            and (cfg.per_step_norms or not any_bn1d)
+            and cfg.msg_norm in ("bn1d", "none")
+            and cfg.state_norm in ("bn1d", "stateless", "none")
+            and cfg.atom_encoder in (None, "atom_ae")
+            and cfg.bond_encoder in (None, "bond_ae")
+            and not (has_encoder and not cfg.input_norm))
+
+
+def supported(cfg: MPNNConfig) -> bool:
+    """The slice of the config space the port runs: the edge-network
+    message from the initial state, GRU on the evolving state, the gated
+    graph-level readout, and either family — exactly what the whole-step
+    kernels compute. Output norm (obn) is still to port."""
+    return (cfg.message_fn == "edge_network"
+            and cfg.message_input == "initial"
+            and cfg.update_hidden == "state"
+            and cfg.readout == "graph_level"
+            and not cfg.output_norm
+            and not cfg.concat_state_history
+            and (shared_shape(cfg) or psteps_shape(cfg)))
 
 
 def check_supported(cfg: MPNNConfig) -> None:
     if not supported(cfg):
         raise NotImplementedError(
-            "mpnn_tpu_torch runs the shared-weight edge_network family with "
-            "msg/state norm in {bn1d, none} and graph_level readout; other "
-            "configs are still to port (ROADMAP queue 2)")
+            "mpnn_tpu_torch runs the edge_network families with graph_level "
+            "readout: shared weights with msg/state norm in {bn1d, none}, "
+            "or per-step weights with state norm in {bn1d, stateless, "
+            "none}; other configs (output_norm among them) are still to "
+            "port (ROADMAP)")
 
 
 class MPNN(nn.Module):
@@ -52,16 +82,30 @@ class MPNN(nn.Module):
         super().__init__()
         check_supported(cfg)
         self.cfg = cfg
-        nf, mf = cfg.node_features, cfg.message_features
+        nf, mf, ef = cfg.node_features, cfg.message_features, \
+            cfg.edge_features
+        n_msg = 1 if cfg.share_message_weights else cfg.message_steps
         self.message = nn.ModuleList(
-            [EdgeNetwork(nf, cfg.edge_features, mf, device=device)])
+            [EdgeNetwork(nf, ef, mf, device=device) for _ in range(n_msg)])
         self.gru = GRU(nf, mf, device=device)
+        n_norm = cfg.message_steps if cfg.per_step_norms else 1
         self.ma_bn = nn.ModuleList(
-            [MaskedBatchNorm1d(mf, device=device)]
+            [MaskedBatchNorm1d(mf, device=device) for _ in range(n_norm)]
             if cfg.msg_norm == "bn1d" else [])
         self.bn = nn.ModuleList(
-            [MaskedBatchNorm1d(nf, device=device)]
+            [MaskedBatchNorm1d(nf, device=device) for _ in range(n_norm)]
             if cfg.state_norm == "bn1d" else [])
+        if cfg.atom_encoder == "atom_ae":
+            i = cfg.atom_encoder_in
+            self.atom_encoder = TanhAutoencoder(i, max(i // 2, nf), nf,
+                                                device=device)
+        if cfg.bond_encoder == "bond_ae":
+            i = cfg.bond_encoder_in
+            self.bond_encoder = TanhAutoencoder(i, max(i // 2, ef), ef,
+                                                device=device)
+        if cfg.input_norm:
+            self.aebn = MaskedBatchNorm1d(nf, device=device)
+            self.bebn = MaskedBatchNorm1d(ef, device=device)
         self.readout = GraphLevelOutput(cfg.readout_node_features,
                                         cfg.output_dim, device=device)
 
@@ -71,5 +115,10 @@ class MPNN(nn.Module):
             mp.reset_parameters(init, generator)
         self.gru.reset_parameters(generator)
         self.readout.reset_parameters(init, generator)
-        for bn in [*self.ma_bn, *self.bn]:
+        for name in ("atom_encoder", "bond_encoder"):
+            if hasattr(self, name):
+                getattr(self, name).reset_parameters(generator)
+        inputs = [getattr(self, n) for n in ("aebn", "bebn")
+                  if hasattr(self, n)]
+        for bn in [*self.ma_bn, *self.bn, *inputs]:
             bn.reset_parameters()

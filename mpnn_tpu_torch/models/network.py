@@ -3,7 +3,9 @@ eval and training mode (counterpart of mpnn_tpu/models/network.py).
 
 The lipo composition (test_lipo.py:103-129): the graph_norm wrapper
 (masked bn1d over nafm, concatenated onto afm), the MPNN core, torch's
-plain BatchNorm1d over the graph embeddings, and the halving head.
+plain BatchNorm1d over the graph embeddings, and the halving head. The
+per-step family's (test_graph_norm.py, test_graph_encode_norm.py): the
+plain wrapper, the MPNN core and one linear head.
 """
 
 from __future__ import annotations
@@ -51,11 +53,12 @@ class Network(nn.Module):
     def __init__(self, cfg: NetworkConfig, device=None):
         super().__init__()
         if cfg.input_wrapper not in ("plain", "graph_norm") \
-                or cfg.head != "halving":
+                or cfg.head not in ("halving", "linear"):
             raise NotImplementedError(
                 f"input wrapper {cfg.input_wrapper!r} / head {cfg.head!r}: "
-                "the port has the lipo shell (graph_norm, halving); the "
-                "others are still to port (ROADMAP queue 2)")
+                "the port has the plain and graph_norm wrappers and the "
+                "linear and halving heads; the others are still to port "
+                "(ROADMAP)")
         self.cfg = cfg
         self.mpnn = MPNN(cfg.mpnn, device=device)
         if cfg.input_wrapper == "graph_norm":
@@ -66,7 +69,8 @@ class Network(nn.Module):
                                           eps=1e-5, momentum=0.1,
                                           device=device)
         emb = cfg.mpnn.effective_output_dim
-        widths = list(halving_dims(emb))
+        # 'linear': one Linear(emb → head_output); 'halving': test_lipo.py's
+        widths = list(halving_dims(emb)) if cfg.head == "halving" else []
         last = widths[-1][1] if widths else emb
         self.head = nn.ModuleList(
             make_linear(i, o, device=device)
@@ -165,7 +169,9 @@ def assign_state(net: Network, new_state: dict) -> None:
     pairs = [(getattr(net, k), v) for k, v in new_state.items()
              if k != "mpnn"]
     for key, states in new_state.get("mpnn", {}).items():
-        pairs += list(zip(getattr(net.mpnn, key), states))
+        mod = getattr(net.mpnn, key)
+        pairs += (list(zip(mod, states)) if isinstance(mod, nn.ModuleList)
+                  else [(mod, states)])
     with torch.no_grad():
         for mod, st in pairs:
             mod.running_mean.copy_(st["running_mean"])

@@ -16,9 +16,11 @@ from __future__ import annotations
 import torch
 
 from mpnn_tpu_torch.models.config import MPNNConfig
-from mpnn_tpu_torch.models.mpnn import MPNN, check_supported
+from mpnn_tpu_torch.models.mpnn import MPNN, check_supported, shared_shape
+from mpnn_tpu_torch.ops.autoencoders import tanh_encoder_apply
 from mpnn_tpu_torch.ops.message import EdgeNetwork, _edge_mlp_penultimate
-from mpnn_tpu_torch.ops.norm import bn1d_train, ema, running_state
+from mpnn_tpu_torch.ops.norm import (bn1d_train, ema, mask_batch_norm,
+                                     running_state)
 from mpnn_tpu_torch.ops.readout import GraphLevelOutput, gated_rows
 from mpnn_tpu_torch.ops.update import gru_apply
 
@@ -100,14 +102,106 @@ def mpnn_new_state(mpnn: MPNN, ma_stats, step_stats) -> dict:
     return state
 
 
+def _norm_train(mod, x, mask, stats_out):
+    """bn1d_train with the module's affine; its batch statistics are
+    appended to stats_out."""
+    out, st = bn1d_train(x, mask, mod.weight, mod.bias)
+    stats_out.append(st)
+    return out
+
+
+def input_transforms(mpnn: MPNN, batch, *, training: bool):
+    """The encoded family's input pipeline (mpnn_tpu/models/fused_train.py::
+    _input_transforms, sparse.py's prologue): mask → tanh encoders → input
+    bn1d (aebn over nodes, bebn over edges masked by edge_mask). Returns
+    (h0, edge_feats, state updates {aebn, bebn} in training, else {}). The
+    bn1d re-masks its output, so padded rows come back exactly zero."""
+    cfg = mpnn.cfg
+    mask = batch["node_mask"]
+    emask = batch["edge_mask"][:, None]
+    h0 = batch["node_feats"] * mask
+    edge_feats = batch["edge_feats"] * emask
+    if cfg.atom_encoder == "atom_ae":
+        h0 = tanh_encoder_apply(mpnn.atom_encoder, h0)
+    if cfg.bond_encoder == "bond_ae":
+        edge_feats = tanh_encoder_apply(mpnn.bond_encoder, edge_feats)
+    updates = {}
+    if cfg.input_norm:
+        if training:
+            h0, st_a = bn1d_train(h0, mask, mpnn.aebn.weight, mpnn.aebn.bias)
+            edge_feats, st_b = bn1d_train(edge_feats, emask,
+                                          mpnn.bebn.weight, mpnn.bebn.bias)
+            updates = {"aebn": ema(running_state(mpnn.aebn), st_a),
+                       "bebn": ema(running_state(mpnn.bebn), st_b)}
+        else:
+            h0 = mpnn.aebn(h0, mask)
+            edge_feats = mpnn.bebn(edge_feats, emask)
+    return h0, edge_feats, updates
+
+
+def psteps_new_state(mpnn: MPNN, ma_stats, step_stats) -> dict:
+    """The per-step family's running statistics after one training step:
+    each per-step norm gets exactly ONE EMA update from its own step's
+    statistics (the sequential bn1d_apply loop; not the shared family's
+    T-fold fold)."""
+    state = {}
+    if mpnn.cfg.msg_norm == "bn1d":
+        state["ma_bn"] = [ema(running_state(m), st)
+                          for m, st in zip(mpnn.ma_bn, ma_stats)]
+    if mpnn.cfg.state_norm == "bn1d":
+        state["bn"] = [ema(running_state(m), st)
+                       for m, st in zip(mpnn.bn, step_stats)]
+    return state
+
+
+def _sparse_psteps_apply(mpnn: MPNN, batch, *, training: bool):
+    """The per-step family's plain loop: step t's messages from the
+    INITIAL state through its own message network, its own norms, the
+    stateless norm where configured, the gated readout."""
+    cfg = mpnn.cfg
+    mask = batch["node_mask"]
+    node_graph = batch["node_graph"]
+    graph_mask = batch["graph_mask"]
+    h0, edge_feats, updates = input_transforms(mpnn, batch,
+                                               training=training)
+    ma_stats, step_stats = [], []
+    h = h0
+    for t, mp in enumerate(mpnn.message):
+        pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                             batch["edge_vfirst"])
+        msgs = sparse_edge_network_fused(
+            mp, pen0, h0, batch["edge_src"], batch["edge_dst"], node_graph,
+            graph_mask, nf=cfg.node_features, mf=cfg.message_features,
+            pen_vocab=pen_vocab, edge_vid=batch["edge_vid"])
+        if cfg.msg_norm == "bn1d":
+            msgs = _norm_train(mpnn.ma_bn[t], msgs, mask, ma_stats) \
+                if training else mpnn.ma_bn[t](msgs, mask)
+        h = gru_apply(mpnn.gru, msgs, h, mask)
+        if cfg.state_norm == "stateless":
+            h = mask_batch_norm(h, mask)
+        elif cfg.state_norm == "bn1d":
+            h = _norm_train(mpnn.bn[t], h, mask, step_stats) \
+                if training else mpnn.bn[t](h, mask)
+    out = sparse_graph_level_output(mpnn.readout, torch.cat([h, h0], -1),
+                                    mask, node_graph, graph_mask.shape[0])
+    if not training:
+        return out
+    new_state = psteps_new_state(mpnn, ma_stats, step_stats)
+    new_state.update(updates)
+    return out, new_state
+
+
 def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
     """Packed-batch MPNN forward. batch: dict of tensors with node_feats,
     node_mask, node_graph, edge_src, edge_dst, edge_feats, edge_mask,
     graph_mask, edge_vid, edge_vfirst. Eval mode returns out (G, od);
     training mode normalizes with batch statistics and returns
-    (out, new_state), new_state as mpnn_new_state gives it."""
+    (out, new_state), new_state as mpnn_new_state (shared family) or
+    psteps_new_state (per-step family) gives it."""
     cfg = mpnn.cfg
     check_supported(cfg)
+    if not shared_shape(cfg):
+        return _sparse_psteps_apply(mpnn, batch, training=training)
     mask = batch["node_mask"]
     node_graph = batch["node_graph"]
     graph_mask = batch["graph_mask"]

@@ -1,8 +1,13 @@
 """Batch normalization (counterpart of mpnn_tpu/ops/norm.py and of the
 plain BN in mpnn_tpu/ops/autoencoders.py::_bn_rows_apply).
 
-Two norms, with two epsilon conventions — a reference quirk kept exactly:
+Three norms, with three epsilon conventions — reference quirks kept
+exactly:
 
+  * the stateless masked norm (mask_batch_norm): no affine, no running
+    statistics, batch statistics in eval mode too, eps 1e-6 INSIDE the
+    sqrt; the mean is the sum over ALL rows divided by the mask count,
+    right only because the rows come in pre-masked;
   * the masked MaskBatchNorm1d with running stats (MaskedBatchNorm1d,
     bn1d_apply). Training normalizes by the batch statistics over the
     masked rows, (x − mean) / (sqrt(max(var, 1e-12)) + eps), and feeds the
@@ -24,7 +29,23 @@ from torch import nn
 
 BN_EPS = 1e-5
 VAR_CLAMP = 1e-12
+STATELESS_EPS = 1e-6
 MOMENTUM = 0.1
+
+
+def mask_batch_norm_stats(x, mask, eps: float = STATELESS_EPS):
+    """mask_batch_norm of x (R, f), mask (R, 1): returns (out, (mean,
+    biased var)). The mean sums all rows (x must be pre-masked)."""
+    c = mask.sum()
+    mean = x.sum(0) / c
+    cen = (x - mean) * mask
+    var = (cen ** 2).sum(0) / c
+    return cen / torch.sqrt(var + eps), (mean, var)
+
+
+def mask_batch_norm(x, mask, eps: float = STATELESS_EPS):
+    """The reference's stateless MaskBatchNorm over rows."""
+    return mask_batch_norm_stats(x, mask, eps)[0]
 
 
 class MaskedBatchNorm1d(nn.Module):

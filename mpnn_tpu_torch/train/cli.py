@@ -10,8 +10,13 @@ Verbs (both run on `cuda` unless --device cpu):
            per-epoch records in --log; prints one JSON line with the
            history's last record and the test metrics.
   predict  checkpoint + SMILES CSV → predictions, one JSON line per
-           molecule: {"index": i, "pred": x} — the serving path, through
-           the whole-step eval kernel.
+           molecule: {"index": i, "pred": x}, or for a classification
+           experiment {"index": i, "pred": argmax, "logits": [...]} — the
+           serving path, through the whole-step eval kernel.
+
+Experiments: lipo (regression), graph_norm_classification and
+encoded_classification (classification; the CSV's label column holds the
+classes, LabelEncoder-encoded over the file as the JAX package does).
 
 The checkpoint is the .npz either package writes (train/checkpoint.py).
 """
@@ -29,10 +34,20 @@ from mpnn_tpu_torch.graphs.graph import MolGraph
 
 
 def _load_for(exp, data_path):
-    from mpnn_tpu_torch.graphs.dataset import load_number_dataset
-    if exp.task != "regression":
-        raise NotImplementedError(f"task {exp.task!r} is still to port")
-    return load_number_dataset(data_path, exp.mol_col, exp.label_col)
+    from mpnn_tpu_torch.graphs import dataset as D
+    if exp.task == "classification":
+        gs, _n, _labels, ge = D.load_classification_dataset(
+            data_path, exp.mol_col, exp.label_col)
+        return gs, ge
+    if exp.task == "regression":
+        return D.load_number_dataset(data_path, exp.mol_col, exp.label_col)
+    raise NotImplementedError(f"task {exp.task!r} is still to port")
+
+
+def _n_out_for(exp, gs):
+    if exp.task == "classification":
+        return int(max(g.label for g in gs)) + 1
+    return 1
 
 
 def _build_net(exp, gs, n_out):
@@ -57,17 +72,22 @@ def predict_batches(net, loss_kind: str, loader: GraphLoader, device
 
 def predict_records(exp, graphs: List[MolGraph], ckpt: str, *,
                     batch_size=None, device=None) -> Iterator[dict]:
-    """{"index": i, "pred": x} for each molecule, in input order."""
+    """{"index": i, "pred": x} for each molecule, in input order; for a
+    ce experiment {"index": i, "pred": argmax, "logits": [...]}."""
     from mpnn_tpu_torch.train.checkpoint import load_checkpoint
     from mpnn_tpu_torch.device import resolve_device
     device = resolve_device(device)
-    net_cfg = _build_net(exp, graphs, 1)
+    net_cfg = _build_net(exp, graphs, _n_out_for(exp, graphs))
     net, _ = load_checkpoint(ckpt, net_cfg, device=device)
     loader = GraphLoader(graphs, batch_size or exp.train.batch_size)
     idx = 0
     for out in predict_batches(net, exp.loss, loader, device):
         for row in out:
-            yield {"index": idx, "pred": float(row.reshape(-1)[0])}
+            if exp.loss == "ce":
+                yield {"index": idx, "pred": int(row.argmax()),
+                       "logits": row.tolist()}
+            else:
+                yield {"index": idx, "pred": float(row.reshape(-1)[0])}
             idx += 1
 
 
@@ -92,7 +112,7 @@ def cmd_train(args):
     exp = experiments.get(args.experiment)
     device = resolve_device(args.device)      # before the featurization
     gs, _ge = _load_for(exp, args.data)
-    net_cfg = _build_net(exp, gs, 1)
+    net_cfg = _build_net(exp, gs, _n_out_for(exp, gs))
     overrides = {k: v for k, v in (("epochs", args.epochs),
                                    ("batch_size", args.batch_size),
                                    ("ckpt_dir", args.ckpt_dir),
@@ -106,7 +126,7 @@ def cmd_train(args):
     net, history = trainer.train(net_cfg, tcfg, train_gs, val_gs,
                                  device=device)
     test = trainer.evaluate(net, GraphLoader(test_gs, tcfg.batch_size),
-                            exp.loss, device=device)
+                            exp.loss, tcfg.metric_average, device=device)
     print(json.dumps({"experiment": exp.name, "epochs": len(history),
                       "last": history[-1] if history else None,
                       "test": test}))

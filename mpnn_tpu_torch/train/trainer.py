@@ -1,6 +1,6 @@
 """Training and evaluation on packed batches (counterpart of
 mpnn_tpu/train/trainer.py: train, the train step, eval_step_for_batch and
-evaluate, mse loss).
+evaluate, the mse and ce losses, the F1 checkpoint gate).
 
 On an eligible config every training batch takes the whole-step training
 kernels (one forward and one backward launch per step) and every
@@ -35,16 +35,19 @@ from mpnn_tpu_torch.train.optim import (ReduceLROnPlateau, adam,
 @dataclasses.dataclass
 class TrainConfig:
     """mpnn_tpu's TrainConfig fields that the ported path reads. The
-    packed collation, the whole-step kernels, the mse loss and a shuffled
-    loader are the only path, so `packed`/`fuse_step`/`loss`/`shuffle`
-    have no switch here."""
+    packed collation, the whole-step kernels and a shuffled loader are the
+    only path, so `packed`/`fuse_step`/`shuffle` have no switch here. The
+    loss defaults to mse (the port's first experiment, lipo)."""
     epochs: int = 100
     batch_size: int = 16
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
+    loss: str = "mse"                # mse | ce
     seed: int = 317
     plateau: bool = False            # ReduceLROnPlateau on the val loss
+    metric_average: str = "weighted"  # classification report averaging
     ckpt_dir: Optional[str] = None   # one checkpoint per epoch
+    ckpt_f1_gate: Optional[float] = None   # save only when val f1 > gate
     log_path: Optional[str] = None   # JSON lines: every step, every epoch
 
 
@@ -73,17 +76,41 @@ def mse_loss(out: torch.Tensor, labels: torch.Tensor,
         / (graph_mask.sum() * out.shape[-1])
 
 
+def ce_loss(out: torch.Tensor, labels: torch.Tensor,
+            graph_mask: torch.Tensor) -> torch.Tensor:
+    """Masked softmax cross entropy with integer labels:
+    Σ_g per_g·gm_g / Σ_g gm_g."""
+    per = torch.logsumexp(out, dim=-1) \
+        - out.gather(-1, labels.long()[:, None])[:, 0]
+    return (per * graph_mask).sum() / graph_mask.sum()
+
+
+LOSSES = {"mse": mse_loss, "ce": ce_loss}
+
+
+def _loss_fn(kind: str):
+    if kind not in LOSSES:
+        raise NotImplementedError(f"loss {kind!r} is still to port")
+    return LOSSES[kind]
+
+
 def train_step(net: Network, opt: torch.optim.Optimizer, tb: dict,
-               fused: bool = True) -> torch.Tensor:
+               fused: bool = True, loss_kind: str = "mse") -> torch.Tensor:
     """One optimizer step on a device batch: the network in training mode
     (the training kernels with `fused`, else the plain model), the masked
-    MSE, its gradient, Adam, and the running statistics written back.
-    Returns the loss (a device scalar, not synchronized)."""
+    loss, its gradient, Adam, and the running statistics written back.
+    A parameter the loss does not reach (the autoencoders' decoders) gets
+    a zero gradient, so the coupled weight decay moves it as the JAX
+    package's optimizer does. Returns the loss (a device scalar, not
+    synchronized)."""
     opt.zero_grad(set_to_none=True)
     out, new_state = network_apply_packed(net, tb, fused=fused,
                                           training=True)
-    loss = mse_loss(out, tb["labels"], tb["graph_mask"])
+    loss = _loss_fn(loss_kind)(out, tb["labels"], tb["graph_mask"])
     loss.backward()
+    for p in net.parameters():
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
     opt.step()
     assign_state(net, new_state)
     return loss.detach()
@@ -91,27 +118,29 @@ def train_step(net: Network, opt: torch.optim.Optimizer, tb: dict,
 
 def eval_step_for_batch(net_cfg: NetworkConfig, loss_kind: str, batch
                         ) -> Callable[[Network, dict], tuple]:
-    """The eval step for one packed batch: the whole-step eval kernel.
-    Returns step(net, device_batch) → (loss, out)."""
-    if loss_kind != "mse":
-        raise NotImplementedError(f"loss {loss_kind!r} is still to port")
+    """The eval step for one packed batch: the whole-step eval kernel of
+    the config's family. Returns step(net, device_batch) → (loss, out)."""
+    loss_fn = _loss_fn(loss_kind)
     if not fused_eval_eligible(net_cfg.mpnn, batch):
         raise NotImplementedError(
-            "this config or batch is not served by the fused eval kernel; "
-            "the other families are still to port (ROADMAP queue 2)")
+            "this config or batch is not served by the fused eval kernels; "
+            "the other families are still to port (ROADMAP)")
 
     def step(net: Network, tb: dict):
         with torch.no_grad():
             out = network_apply_packed(net, tb, fused=True)
-            return mse_loss(out, tb["labels"], tb["graph_mask"]), out
+            return loss_fn(out, tb["labels"], tb["graph_mask"]), out
 
     return step
 
 
 def evaluate(net: Network, loader: GraphLoader, loss_kind: str = "mse",
-             device=None) -> Dict[str, float]:
-    """Eval-mode loss, mse and rmse over a loader, on `cuda` unless
-    device='cpu'. Raises when `net` is not on that device."""
+             metric_average: str = "weighted", device=None
+             ) -> Dict[str, float]:
+    """Eval-mode loss and metrics over a loader — mse and rmse, or for
+    'ce' the classification report of the arg-max predictions with
+    `metric_average` — on `cuda` unless device='cpu'. Raises when `net` is
+    not on that device."""
     device = resolve_device(device)
     require_on(net, device)
     tot_loss, preds, trues = 0.0, [], []
@@ -121,11 +150,31 @@ def evaluate(net: Network, loader: GraphLoader, loss_kind: str = "mse",
         loss, out = step(net, batch_to_device(batch, device))
         tot_loss += float(loss)
         n_batches += 1
-        preds.extend(out.cpu().numpy().reshape(-1).tolist())
-        trues.extend(np.asarray(batch["labels"]).reshape(-1).tolist())
-    return {"loss": tot_loss / max(n_batches, 1),
-            "mse": M.mean_squared_error(trues, preds),
-            "rmse": M.rmse(trues, preds)}
+        out = out.cpu().numpy()
+        if loss_kind == "ce":
+            preds.extend(out.argmax(-1).tolist())
+            trues.extend(np.asarray(batch["labels"]).tolist())
+        else:
+            preds.extend(out.reshape(-1).tolist())
+            trues.extend(np.asarray(batch["labels"]).reshape(-1).tolist())
+    result = {"loss": tot_loss / max(n_batches, 1)}
+    if loss_kind == "ce":
+        result.update(M.classification_report(trues, preds, metric_average))
+    else:
+        result["mse"] = M.mean_squared_error(trues, preds)
+        result["rmse"] = M.rmse(trues, preds)
+    return result
+
+
+def _gate_ok(cfg: TrainConfig, record: dict) -> bool:
+    """The reference scripts' F1 gate: with ckpt_f1_gate set, an epoch's
+    checkpoint is written only when its validation f1 is finite and above
+    the gate."""
+    if cfg.ckpt_f1_gate is None:
+        return True
+    f1 = record.get("val_f1")
+    return f1 is not None and bool(np.isfinite(f1)) \
+        and f1 > cfg.ckpt_f1_gate
 
 
 def _check_trainable(net_cfg: NetworkConfig, loader: GraphLoader) -> None:
@@ -145,7 +194,8 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
     statistics written back after each step, per-epoch validation through
     the eval kernel, the plateau schedule on the validation loss, and one
     checkpoint per epoch (`ckpt_<epoch>.npz` in cfg.ckpt_dir, readable by
-    `predict` in either package). `net` defaults to network_init from
+    `predict` in either package; with cfg.ckpt_f1_gate only the epochs
+    whose validation f1 passes it). `net` defaults to network_init from
     cfg.seed; runs on `cuda` unless device='cpu'. With cfg.log_path every
     step's loss and every epoch's record are appended there as JSON lines.
     Returns (net, history). Resume and optimizer state in checkpoints are
@@ -171,7 +221,8 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
             epoch_loss = 0.0
             for batch in train_loader:
                 loss = float(train_step(net, opt,
-                                        batch_to_device(batch, device)))
+                                        batch_to_device(batch, device),
+                                        loss_kind=cfg.loss))
                 epoch_loss += loss
                 if log:
                     log.write(json.dumps({"epoch": epoch, "step": step,
@@ -180,7 +231,8 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
             record = {"epoch": epoch, "train_loss": epoch_loss,
                       "lr": get_learning_rate(opt)}
             if val_loader is not None:
-                val = evaluate(net, val_loader, device=device)
+                val = evaluate(net, val_loader, cfg.loss,
+                               cfg.metric_average, device=device)
                 record.update({f"val_{k}": v for k, v in val.items()})
                 if sched:
                     set_learning_rate(opt, sched.step(val["loss"]))
@@ -188,7 +240,7 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
             if log:
                 log.write(json.dumps(record) + "\n")
                 log.flush()
-            if cfg.ckpt_dir:
+            if cfg.ckpt_dir and _gate_ok(cfg, record):
                 os.makedirs(cfg.ckpt_dir, exist_ok=True)
                 save_checkpoint(
                     os.path.join(cfg.ckpt_dir, f"ckpt_{epoch}.npz"), net,

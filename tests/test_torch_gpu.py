@@ -299,3 +299,164 @@ def test_train_epoch_on_card(tmp_path):
     assert K.launch_counts["fused_step_bwd"] == 3
     assert K.launch_counts["fused_eval"] == 1
     assert np.isfinite(hist[0]["val_loss"])
+
+
+# ---------------------------------------------------------------------------
+# the per-step family's kernels (fused_psteps_eval.cu, fused_psteps_fwd.cu,
+# fused_psteps_bwd.cu)
+# ---------------------------------------------------------------------------
+
+PS_NORMS = [(m, s) for m in ("bn1d", "none")
+            for s in ("bn1d", "stateless", "none")]
+
+
+def _ps_problem(rng, g, f=8, od=16, k=8, steps=3, device="cuda"):
+    """A _problem batch with per-step weights: T A tables (vocab id 0 the
+    zero row), A0 matrices, message biases, norm pairs and running
+    statistics; labels, one padded graph slot, and {leaf: tensor} of the
+    training op's differentiable arguments, each requiring grad."""
+    (_, _, _, h0, mask, ng, gru, _, _, _, _, ro, vid, src, dst,
+     plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    amat = rng.randn(steps, k, f, f) * 0.2
+    amat[:, 0] = 0.0
+
+    def bn():
+        return {"weight": t(1 + 0.2 * rng.randn(f)),
+                "bias": t(0.2 * rng.randn(f))}
+
+    def state():
+        return {"running_mean": t(0.3 * rng.randn(f)),
+                "running_var": t(0.3 + rng.rand(f))}
+    c = dict(amat=t(amat), a0=t(rng.randn(steps, f, f) * 0.1),
+             mbias=t(rng.randn(steps, f) * 0.1), h0=h0, mask=mask,
+             node_graph=ng, gru=gru, ma_bns=[bn() for _ in range(steps)],
+             bns=[bn() for _ in range(steps)], ro=ro,
+             ma_states=[state() for _ in range(steps)],
+             bn_states=[state() for _ in range(steps)],
+             labels=t(rng.randn(g)), gmask=torch.ones(g, device=device),
+             vid=vid, src=src, dst=dst, plan=plan)
+    c["gmask"][-1] = 0.0
+    leaves = {"amat": c["amat"], "a0": c["a0"], "mbias": c["mbias"],
+              "h0": h0, **{f"gru/{n}": v for n, v in gru.items()},
+              **{f"ma{i}/{n}": v for i, b in enumerate(c["ma_bns"])
+                 for n, v in b.items()},
+              **{f"bn{i}/{n}": v for i, b in enumerate(c["bns"])
+                 for n, v in b.items()},
+              **{f"ro/{s}/{n}": v for s in ("i", "j")
+                 for n, v in ro[s].items()}}
+    for x in leaves.values():
+        x.requires_grad_(True)
+    return c, leaves
+
+
+def _ps_eval(fn, c, **kw):
+    return fn(c["amat"], c["a0"], c["mbias"], c["h0"], c["mask"],
+              c["node_graph"], c["gru"], c["ma_bns"], c["ma_states"],
+              c["bns"], c["bn_states"], c["ro"], c["vid"], c["src"],
+              c["dst"], c["plan"], **kw)
+
+
+def ps_step_and_grads(fn, c, leaves, cw, **kw):
+    """fn's forward and the gradient of 1.3·loss + Σ out·cw in every
+    leaf: (loss, out, ma_stats, bn_stats, {leaf: grad})."""
+    loss, out, ma, st = fn(
+        c["amat"], c["a0"], c["mbias"], c["h0"], c["mask"],
+        c["node_graph"], c["gru"], c["ma_bns"], c["bns"], c["ro"],
+        c["labels"], c["gmask"], c["vid"], c["src"], c["dst"], c["plan"],
+        **kw)
+    grads = torch.autograd.grad(1.3 * loss + (out * cw).sum(),
+                                list(leaves.values()), allow_unused=True)
+    return loss, out, ma, st, {
+        k: torch.zeros_like(v) if gr is None else gr
+        for (k, v), gr in zip(leaves.items(), grads)}
+
+
+def assert_ps_close(got, want, msg_norm, rtol=RTOL, atol=ATOL):
+    """Forward outputs within rtol/atol; each gradient leaf scaled by its
+    max abs; the message biases, whose gradient is zero in theory under
+    the message bn1d, by an absolute bound on the A0 gradient's scale."""
+    for a, b in zip(got[:2], want[:2]):
+        torch.testing.assert_close(a, b, rtol=rtol, atol=atol)
+    for (m1, v1), (m2, v2) in zip([*got[2], *got[3]], [*want[2], *want[3]]):
+        torch.testing.assert_close(m1, m2, rtol=rtol, atol=atol)
+        torch.testing.assert_close(v1, v2, rtol=rtol, atol=atol)
+    for name, g in got[4].items():
+        w = want[4][name]
+        if name == "mbias" and msg_norm == "bn1d":
+            scale = want[4]["a0"].abs().max()
+            assert float((g - w).abs().max()) <= atol * float(scale), name
+            continue
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm", PS_NORMS)
+def test_cuda_psteps_eval_matches_plain_version(msg_norm, state_norm):
+    """Encoded widths (f 8, od 16, T 3) at batch 1024, every norm pair."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    c, _ = _ps_problem(np.random.RandomState(5), 1024)
+    P.reset_launch_counts()
+    with torch.no_grad():
+        got = _ps_eval(P.fused_psteps_eval, c, steps=3, msg_norm=msg_norm,
+                       state_norm=state_norm)
+        torch.cuda.synchronize()
+        assert P.launch_counts["fused_psteps_eval"] == 1
+        want = _ps_eval(P.fused_psteps_eval_reference, c, steps=3,
+                        msg_norm=msg_norm, state_norm=state_norm)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm,g,f,od",
+                         [(m, s, 1024, 8, 16) for m, s in PS_NORMS]
+                         + [("none", "stateless", 300, 7, 28),
+                            ("bn1d", "bn1d", 37, 16, 32)])
+def test_cuda_psteps_step_kernels_match_plain_version(msg_norm, state_norm,
+                                                      g, f, od):
+    """The training forward kernel against fused_psteps_reference and the
+    backward kernel against autograd through it, cotangents of both the
+    loss and out nonzero: encoded widths at batch 1024 for every norm
+    pair, graph_norm's widths (f 7, od 28), and the widest build (f 16,
+    od 32) on a ragged batch of 37."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    rng = np.random.RandomState(g + f)
+    c, leaves = _ps_problem(rng, g, f=f, od=od)
+    cw = torch.as_tensor(rng.randn(g, od).astype(np.float32), device="cuda")
+    kw = dict(steps=3, msg_norm=msg_norm, state_norm=state_norm)
+    P.reset_launch_counts()
+    got = ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert (P.launch_counts["fused_psteps_fwd"],
+            P.launch_counts["fused_psteps_bwd"]) == (1, 1)
+    want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
+    assert all(torch.isfinite(x).all() for x in got[4].values())
+    assert_ps_close(got, want, msg_norm)
+
+
+@pytest.mark.gpu
+def test_cuda_psteps_wrappers_raise_instead_of_falling_back():
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    c, _ = _ps_problem(np.random.RandomState(7), 64)
+    c = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+         for k, v in c.items()}
+    P.reset_launch_counts()
+    bad = dict(c, amat=c["amat"].transpose(2, 3))
+    with pytest.raises(ValueError, match="contiguous"):
+        _ps_eval(P.fused_psteps_eval, bad, steps=3)
+    bad = dict(c, h0=c["h0"].double())
+    with pytest.raises(TypeError, match="float32"):
+        _ps_eval(P.fused_psteps_eval, bad, steps=3)
+    with pytest.raises(NotImplementedError, match="steps=9"):
+        _ps_eval(P.fused_psteps_eval, c, steps=9)
+    wide, _ = _ps_problem(np.random.RandomState(8), 8, f=P.MAX_WIDTH + 2)
+    with pytest.raises(NotImplementedError, match="compiled for f up to"):
+        _ps_eval(P.fused_psteps_eval, wide, steps=3)
+    assert set(P.launch_counts.values()) == {0}

@@ -131,6 +131,46 @@ def test_kernel_wrapper_builds_nothing_at_import():
     from mpnn_tpu_torch.kernels import build
     assert build._LIBS == {}
     assert set(build.SOURCES) == {"fused_eval", "fused_step_fwd",
-                                  "fused_step_bwd"}
+                                  "fused_step_bwd", "fused_psteps_eval",
+                                  "fused_psteps_fwd", "fused_psteps_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
+
+
+@pytest.mark.parametrize("exp", ["graph_norm_classification",
+                                 "encoded_classification"])
+@pytest.mark.parametrize("entry", ["network_init", "evaluate",
+                                   "predict_records", "train"])
+def test_psteps_entry_points_raise_without_card(entry, exp, tmp_path):
+    """The per-step family's entry points, called without a device on a
+    host with no card, raise instead of running on the CPU; with
+    device='cpu' they run (their plain versions)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import build
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.checkpoint import save_checkpoint
+    from mpnn_tpu_torch.train.cli import predict_records
+    from mpnn_tpu_torch.train.trainer import TrainConfig, evaluate, train
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(
+        ["CCO", "C", "c1ccccc1", "CC(=O)O"], [0, 1, 1, 0]))
+    e = experiments.get(exp)
+    cfg = build(e.model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                nafm=int(gs[0].nafm.shape[-1]), n_out=2)
+    net = network_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ckpt = str(tmp_path / "ckpt.npz")
+    save_checkpoint(ckpt, net)
+    loader = G.GraphLoader(gs, 2)
+    calls = {
+        "network_init": lambda **kw: network_init(cfg, None, **kw),
+        "evaluate": lambda **kw: evaluate(net, loader, "ce", **kw),
+        "predict_records": lambda **kw: list(predict_records(
+            e, gs, ckpt, batch_size=2, **kw)),
+        "train": lambda **kw: train(cfg, TrainConfig(
+            epochs=1, batch_size=2, loss="ce"), gs, **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert calls[entry](device="cpu") is not None
