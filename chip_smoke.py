@@ -52,7 +52,26 @@ Phases, one line each:
  13. ps-times  — request and train-step latency of the encoded model at
                batch 128 and 1024, each per-step kernel's time beside its
                bound and its plain version's, and the b1024 train step's
-               device idle share.
+               device idle share;
+ 14. att-kernel-check — the attention model's four kernels (fused_att
+               fwd/bwd, set2vec fwd/bwd) against their plain versions on
+               the card (rtol 1e-4, atol 1e-5; gradient leaves scaled by
+               their max abs): adv widths (f 7, w 14) at batch 1024 and
+               T 100, both aggregations (att, adj), both softmax modes,
+               T 3, and a ragged batch with a padded graph slot;
+ 15. att-serve — `predict --experiment adv_classification` at batch 16
+               and 1024 from a seeded checkpoint: one fused_att_fwd and one
+               set2vec_fwd launch per request, logits against the plain
+               path on the same batches;
+ 16. att-train — its `train` verb, 2 epochs at batch 16: one launch of
+               each forward and backward per step, the first 3 losses
+               against the plain path (rtol 1e-3), the first step's logits
+               and every parameter gradient against it (each divided by
+               its max abs; rtol 1e-4, atol 1e-5), `predict` from the
+               checkpoint it wrote;
+ 17. att-times — request and train-step latency at batch 16 and 1024,
+               each kernel's time beside its bound and its plain version's,
+               and the b1024 train step's device idle share.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -128,9 +147,13 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 t = re.search(r"Li(\d+)ELi(\d+)E", m.group(1))
-                k = re.search(r"\d(fused_[a-z_]+_kernel)E", m.group(1))
+                k = re.search(r"\d((?:fused|set2vec)_[a-z_]+_kernel)[EI]",
+                              m.group(1))
+                w = re.search(r"_kernelILi(\d+)EE", m.group(1))
                 entry = (f"<{t.group(1)},{t.group(2)}>" if t
-                         else f" {k.group(1)}" if k else m.group(1))
+                         else f" {k.group(1)}" + (f"<{w.group(1)}>" if w
+                                                   else "")
+                         if k else m.group(1))
                 spill = "?"
             m = re.search(r"(\d+) bytes spill stores", line)
             if m and entry:
@@ -145,7 +168,9 @@ def phase_build():
         raise RuntimeError("no ptxas report in the build log")
     # the kernels' weights live in dynamic shared memory, which ptxas does
     # not see: the launch's size at the flagship vocab of 16 (and T = 6)
+    from mpnn_tpu_torch.kernels import fused_att as A
     from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import set2vec as S
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
            f"fused_step_fwd "
            f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
@@ -155,7 +180,13 @@ def phase_build():
                f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
                for n in ("fused_psteps_eval", "fused_psteps_fwd",
                          "fused_psteps_bwd"))
-           + " (T 3; their A tables stay in device memory, any K)")
+           + " (T 3; their A tables stay in device memory, any K); "
+           + ", ".join(
+               f"{n} {getattr(A._lib(n), f'mpnn_{n}_smem_bytes')(16)} B"
+               for n in ("fused_att_fwd", "fused_att_bwd"))
+           + " (K 16); " + ", ".join(
+               f"{n} {getattr(S._lib(n), f'mpnn_{n}_smem_bytes')(14)} B"
+               for n in ("set2vec_fwd", "set2vec_bwd")) + " (w 14)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -1433,6 +1464,582 @@ def phase_ps_times(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the attention model adv (adv_classification): phases 14-17
+# ---------------------------------------------------------------------------
+
+ATT_KERNELS = ("fused_att_fwd", "fused_att_bwd", "set2vec_fwd", "set2vec_bwd")
+ATT_EXP = "adv_classification"
+
+
+def _ragged_att_batch(device):
+    """bench.py's molecules with single-atom ones, padded edges on the
+    dummy node and one padded graph slot at the end."""
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    smiles = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
+    gs, _ = G.encode_molgraphs(G.generate_molgraphs(smiles, [0] * 12))
+    b = G.collate_packed(gs, num_graphs=len(gs) + 1).as_dict()
+    b = attach_fused_plan(G.attach_edge_vocab(b, vocab_cap=16))
+    return batch_to_device(b, device)
+
+
+def _att_case(tb, gen, device, w=14):
+    """The two ops' arguments on a device batch: fused_att's with h0 the
+    batch's (masked) node features and random weights (A' of vid 0 not
+    zero), set2vec's with a random masked x (N, w) and leaves drawn as
+    the JAX init draws them; (att args, att leaves, s2v args, s2v
+    leaves), every leaf requiring grad."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+
+    def u(*shape, b):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * b).to(device)
+    mask = tb["node_mask"]
+    f = int(tb["node_feats"].shape[1])
+    k = int(tb["edge_vfirst"].shape[0])
+    h0 = (tb["node_feats"] * mask).contiguous()
+    gru = {"w_ih": r(f, 3 * f, s=0.3), "w_hh": r(f, 3 * f, s=0.3),
+           "b_ih": r(3 * f, s=0.1), "b_hh": r(3 * f, s=0.1)}
+    aw = dict(aprime=r(k, f, f, s=0.3), a0=r(f, f, s=0.3), qv=r(k, f),
+              q0=r(f), wh=r(f, f, s=0.5))
+    att_leaves = [*aw.values(), h0, *gru.values()]
+    att_args = (aw["aprime"], aw["a0"], aw["qv"], aw["q0"], aw["wh"], h0,
+                mask, tb["node_graph"], gru, tb["edge_vid"], tb["edge_src"],
+                tb["edge_dst"], plan_from_batch(tb))
+    b = (2 * w) ** -0.5
+    rp = {"lstm": {**{f"w_h{c}": u(2 * w, w, b=b) for c in "ifgo"},
+                   **{f"b_h{c}": u(1, w, b=b) for c in "ifgo"}},
+          "q_attn": {"w": u(w, w, b=w ** -0.5)},
+          "e_attn": {"w": u(w, 1, b=w ** -0.5)}}
+    x = (r(mask.shape[0], w) * mask).contiguous()
+    s2v_leaves = [*rp["lstm"].values(), rp["q_attn"]["w"],
+                  rp["e_attn"]["w"], x]
+    for t in att_leaves + s2v_leaves:
+        t.requires_grad_()
+    s2v_args = (rp, x, mask, tb["node_graph"], tb["plan_graph_node_ptr"])
+    return att_args, att_leaves, s2v_args, s2v_leaves
+
+
+def _fwd_and_grads(fn, args, leaves, cw, kw):
+    """fn's output and the gradient of Σ out·cw in every leaf."""
+    import torch
+    out = fn(*args, **kw)
+    grads = torch.autograd.grad((out * cw).sum(), leaves, allow_unused=True)
+    return out.detach(), [torch.zeros_like(x) if g is None else g
+                          for x, g in zip(leaves, grads)]
+
+
+def _fwd_bwd_errors(got, want):
+    """(forward ok, forward max abs error, backward ok, backward max error
+    of the leaves scaled by their max abs)."""
+    ok_f, err_f, _ = _within(got[0], want[0])
+    ok_f = ok_f and bool(got[0].isfinite().all())
+    ok_b, err_b = True, 0.0
+    for a, b in zip(got[1], want[1]):
+        scale = float(b.abs().max()) or 1.0
+        ok, mabs, _ = _within(a / scale, b / scale)
+        ok_b, err_b = ok_b and ok and bool(a.isfinite().all()), max(err_b,
+                                                                    mabs)
+    return ok_f, err_f, ok_b, err_b
+
+
+def phase_att_kernel_check(device):
+    """The four attention-family kernels against their plain versions on
+    the card: adv widths (f 7, w 14) at batch 1024 and T 100 with the 'att'
+    aggregation and the batch-global softmax, then 'adj', the per-graph
+    softmax, T 3, and a ragged batch (single-atom molecules, padded edges,
+    a padded graph slot)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import set2vec as S
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    gen = torch.Generator().manual_seed(41)
+    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    ragged = _ragged_att_batch(device)
+    cases = [("batch1024 att/global T100", b1024, True, True, 100),
+             ("batch1024 adj/global T100", b1024, False, True, 100),
+             ("batch1024 att/per-graph T100", b1024, True, False, 100),
+             ("batch1024 att/global T3", b1024, True, True, 3),
+             ("ragged att/global T100", ragged, True, True, 100),
+             ("ragged adj/per-graph T3", ragged, False, False, 3)]
+    worst = dict.fromkeys(ATT_KERNELS, 0.0)
+    results, failed = [], []
+    for what, tb, corr, bsm, T in cases:
+        aa, al, sa, sl = _att_case(tb, gen, device)
+        n, g = int(tb["node_mask"].shape[0]), int(tb["graph_mask"].shape[0])
+        cw = torch.randn(n, aa[0].shape[1], generator=gen).to(device)
+        kw = dict(with_corr=corr)
+        got = _fwd_and_grads(A.fused_att, aa, al, cw, kw)
+        torch.cuda.synchronize()
+        want = _fwd_and_grads(A.fused_att_reference, aa, al, cw, kw)
+        ok1, ef1, ok2, eb1 = _fwd_bwd_errors(got, want)
+        cw = torch.randn(g, 28, generator=gen).to(device)
+        kw = dict(time_steps=T, batch_softmax=bsm)
+        got = _fwd_and_grads(S.set2vec, sa, sl, cw, kw)
+        torch.cuda.synchronize()
+        want = _fwd_and_grads(S.set2vec_reference, sa, sl, cw, kw)
+        ok3, ef2, ok4, eb2 = _fwd_bwd_errors(got, want)
+        for name, err in zip(ATT_KERNELS, (ef1, eb1, ef2, eb2)):
+            worst[name] = max(worst[name], err)
+        ok = ok1 and ok2 and ok3 and ok4
+        results.append(
+            f"{what} (nodes {int(tb['node_mask'].sum())}/{n} slots, G={g}, "
+            f"edges {int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}):"
+            f" att fwd {ef1:.2e} bwd {eb1:.2e}, set2vec fwd {ef2:.2e} bwd "
+            f"{eb2:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+    print(f"att-kernel-check: fused_att_fwd/bwd vs fused_att_reference and "
+          f"autograd through it, set2vec_fwd/bwd vs set2vec_reference and "
+          f"autograd through it (cotangent Σ out·c; forward max abs error, "
+          f"rtol {RTOL} atol {ATOL}; gradient leaves divided by their max "
+          f"abs, max error, rtol {RTOL} atol {ATOL}): " + "; ".join(results),
+          flush=True)
+    if failed:
+        raise RuntimeError(f"attention kernels disagree with their plain "
+                           f"versions: {failed}")
+    return worst
+
+
+def _att_reset():
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import set2vec as S
+    A.reset_launch_counts()
+    S.reset_launch_counts()
+
+
+def _att_counts():
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import set2vec as S
+    return {**A.launch_counts, **S.launch_counts}
+
+
+def phase_att_serve(device):
+    """`predict --experiment adv_classification` as a user runs it, at
+    batch 16 and 1024 from a seeded checkpoint; exactly one fused_att_fwd
+    and one set2vec_fwd launch per request; logits against the plain path
+    on the card, batch by batch (the batch-global softmax couples each
+    batch's molecules). Returns the launch counts."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train import cli
+    from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    os.makedirs(OUT_DIR, exist_ok=True)
+    probe, ge = G.encode_molgraphs(G.generate_molgraphs(SMILES, [0] * 10))
+    cfg = zoo.adv(ge.atom_width(), ge.bond_width(), n_out=PS_CLASSES)
+    net = network_init(cfg, torch.Generator().manual_seed(43), "cpu")
+    ckpt = os.path.join(OUT_DIR, "ckpt_adv.npz")
+    save_checkpoint(ckpt, net, meta={"seed": 43, "model": "adv"})
+    totals, lines = dict.fromkeys(ATT_KERNELS, 0), []
+    for bs, rows in ((16, 64), (1024, 3072)):
+        csv = _ps_csv("new_adv", rows)
+        buf = io.StringIO()
+        _att_reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--experiment", ATT_EXP, "--data", csv,
+                      "--ckpt", ckpt, "--batch-size", str(bs)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _att_counts()
+        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+        n_req = -(-rows // bs)
+        want = {"fused_att_fwd": n_req, "fused_att_bwd": 0,
+                "set2vec_fwd": n_req, "set2vec_bwd": 0}
+        if counts != want:
+            raise RuntimeError(f"adv predict at batch {bs}: launches "
+                               f"{counts}, the design's count is {want}")
+        if len(recs) != rows or [r["index"] for r in recs] != list(
+                range(rows)):
+            raise RuntimeError(f"adv predict at batch {bs}: {len(recs)} "
+                               f"records for {rows}")
+        logits = torch.tensor([r["logits"] for r in recs],
+                              dtype=torch.float64)
+        if not torch.isfinite(logits).all() or any(
+                r["pred"] != int(torch.argmax(lg))
+                for r, lg in zip(recs, logits)):
+            raise RuntimeError(f"adv predict at batch {bs}: non-finite "
+                               "logits or a wrong argmax")
+        for k in ATT_KERNELS:
+            totals[k] += counts[k]
+        gs, _, _, _ = G.load_classification_dataset(csv, "smiles", "target")
+        pnet, _ = load_checkpoint(ckpt, net.cfg, device=device)
+        with torch.no_grad():
+            plain = torch.cat([
+                network_apply_packed(pnet, batch_to_device(b, device),
+                                     fused=False).cpu()
+                for b in G.GraphLoader(gs, bs)]).to(torch.float64)
+        ok, mabs, mrel = _within(logits, plain)
+        lines.append(f"batch {bs}: {rows} molecules in {n_req} requests, "
+                     f"launches fused_att_fwd {counts['fused_att_fwd']} "
+                     f"set2vec_fwd {counts['set2vec_fwd']}, {wall:.2f} s "
+                     f"wall (featurize+load+serve), logits vs plain path "
+                     f"max_abs={mabs:.3e} max_rel={mrel:.3e} "
+                     f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"adv batch {bs}: served logits disagree "
+                               f"with the plain path ({mabs:.3e})")
+    print("att-serve: " + "; ".join(lines), flush=True)
+    return totals
+
+
+def phase_att_train(device):
+    """The `train` verb of adv_classification as a user runs it (2 epochs
+    at batch 16 on a 4-class CSV), launch counts read around it: one
+    launch of each forward and each backward per step, one of each
+    forward per validation and test batch; the first 3 losses against the
+    plain path on the card (rtol 1e-3), and the first step's logits and
+    gradients against it (rtol 1e-4 of each one's max abs); then `predict`
+    from the last checkpoint. Returns the launch counts."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train import cli, experiments
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import (batch_to_device, ce_loss,
+                                              train_step)
+    exp = experiments.get(ATT_EXP)
+    csv = _ps_csv("train_adv", TRAIN_ROWS)
+    log = os.path.join(OUT_DIR, "train_adv.jsonl")
+    ckdir = os.path.join(OUT_DIR, "train_ckpt_adv")
+    if os.path.exists(log):
+        os.remove(log)
+    buf = io.StringIO()
+    _att_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train", "--experiment", ATT_EXP, "--data", csv,
+                  "--epochs", str(TRAIN_EPOCHS), "--ckpt-dir", ckdir,
+                  "--log", log])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _att_counts()
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(log) as fh:
+        recs = [json.loads(x) for x in fh if x.strip()]
+    steps = [r["loss"] for r in recs if "step" in r]
+    epochs = [r for r in recs if "train_loss" in r]
+    gs, _, _, _ = G.load_classification_dataset(csv, "smiles", "target")
+    bs = exp.train.batch_size
+    train_gs, test_gs = train_test_split(gs, 0.1, 317)
+    train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+    n_steps = TRAIN_EPOCHS * -(-len(train_gs) // bs)
+    n_eval = TRAIN_EPOCHS * -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
+    want = {"fused_att_fwd": n_steps + n_eval, "fused_att_bwd": n_steps,
+            "set2vec_fwd": n_steps + n_eval, "set2vec_bwd": n_steps}
+    if len(steps) != n_steps or counts != want:
+        raise RuntimeError(f"adv train: {len(steps)} steps, launches "
+                           f"{counts}; the design's count is {want}")
+    if not (all(math.isfinite(x) for x in steps)
+            and math.isfinite(result["test"]["loss"])
+            and all(math.isfinite(r["val_loss"]) for r in epochs)):
+        raise RuntimeError("adv train: non-finite loss")
+    cfg = zoo.adv(int(gs[0].afm.shape[-1]), int(gs[0].bfm.shape[-1]),
+                  n_out=PS_CLASSES)
+    net = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(net.parameters(), exp.train.learning_rate)
+    plain = []
+    for b in G.GraphLoader(train_gs, bs, shuffle=True, seed=317):
+        if len(plain) == 3:
+            break
+        plain.append(float(train_step(net, opt, batch_to_device(b, device),
+                                      fused=False, loss_kind="ce")))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"adv train: first steps {steps[:3]} vs plain "
+                           f"path {plain} (rel {rel:.2e})")
+    # the losses sit near ln 4 and barely move: also hold the first step's
+    # logits and every parameter gradient, kernels against the plain path,
+    # on the trainer's initial weights and first batch, each divided by its
+    # max abs (rtol RTOL, atol ATOL)
+    tb = batch_to_device(next(iter(G.GraphLoader(train_gs, bs, shuffle=True,
+                                                 seed=317))), device)
+    net = network_init(cfg, torch.Generator().manual_seed(317), device)
+    res = []
+    for fused in (True, False):
+        net.zero_grad(set_to_none=True)
+        out, _ = network_apply_packed(net, tb, fused=fused, training=True)
+        ce_loss(out, tb["labels"], tb["graph_mask"]).backward()
+        res.append((out.detach(), [
+            torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for p in net.parameters()]))
+    scale = float(res[1][0].abs().max()) or 1.0
+    ok_l, err_l, _ = _within(res[0][0] / scale, res[1][0] / scale)
+    _, _, ok_g, err_g = _fwd_bwd_errors(res[0], res[1])
+    if not (ok_l and ok_g):
+        raise RuntimeError(f"adv train: first step vs plain path, logits "
+                           f"{err_l:.2e}, gradients {err_g:.2e} (each divided"
+                           f" by its max abs)")
+    ckpt = os.path.join(ckdir, f"ckpt_{len(epochs) - 1}.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["predict", "--experiment", ATT_EXP, "--data", csv,
+                  "--ckpt", ckpt])
+    preds = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+    if len(preds) != TRAIN_ROWS or not all(
+            math.isfinite(v) for r in preds for v in r["logits"]):
+        raise RuntimeError(f"adv: predict from {ckpt} failed")
+    print(f"att-train: {ATT_EXP}, {TRAIN_ROWS} molecules (train "
+          f"{len(train_gs)}, val {len(val_gs)}, test {len(test_gs)}), batch "
+          f"{bs}, {len(epochs)} epochs, {len(steps)} steps in {wall:.2f} s "
+          f"wall; launches {counts} (design: each forward 1 per step and 1 "
+          f"per eval batch, each backward 1 per step); step losses first "
+          f"{steps[0]:.5f} last {steps[-1]:.5f}; epoch train loss sums "
+          f"{[round(r['train_loss'], 4) for r in epochs]} (early stop below "
+          f"{exp.train.early_stop_loss}); test f1 {result['test']['f1']:.4f};"
+          f" first 3 steps vs plain path max rel {rel:.2e} (kernel "
+          f"{[round(x, 6) for x in steps[:3]]}, plain "
+          f"{[round(x, 6) for x in plain]}); first step's logits (max abs "
+          f"{scale:.3e}) and {len(res[0][1])} parameter gradients vs plain "
+          f"path, each divided by its max abs: {err_l:.2e}, {err_g:.2e} "
+          f"(rtol {RTOL} atol {ATOL}); predict from "
+          f"{os.path.basename(ckpt)}: {len(preds)} finite records",
+          flush=True)
+    return counts
+
+
+def _att_bounds(b, f, w, k, T):
+    """Least times of the four kernels' work on this batch, each the larger
+    of its float32 operations over the peak CUDA-core rate and its bytes
+    (each input read once, each output written once, set2vec's stash
+    written by the forward and read by the backward) over HBM bandwidth.
+    Real nodes and edges, every graph slot. The forwards as the serving
+    path runs them (no message stash, no set2vec stash); a transcendental
+    counts as one operation."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    g = float(b["graph_mask"].shape[0])
+    gemv = 2 * f * 3 * f                            # f → 3f gate GEMV
+    att_w = k * f * f + k * f + 2 * f * f + f + 2 * gemv // 2 + 6 * f
+    edge_g = 5 * f + f + f                         # gate, g, Σ h0[u]
+    node_g = (2 * f * f + f                        # h0·Wh, S_g
+              + 5 * f + 2 * f                      # g0, X and g0 ⊙ X
+              + 2 * gemv + 15 * f)                 # the GRU
+    idx = er * 3 + nr + 1 + g + 1                  # vid, src, order, ptrs
+    fwd = (er * (edge_g + 2 * f * f)               # + A'·g
+           + nr * (node_g + 2 * f * f),            # + A0·(g0 ⊙ X)
+           4 * (nr * f + idx + att_w + nr * f))
+    # the backward recomputes the gates and the GRU's pre-activations
+    # (edge_g, node_g), not the forward's products A'·g and A0·(g0 ⊙ X)
+    edge_b = edge_g + 2 * f * f + 6 * f + 2 * f * f + f  # A'ᵀdm, VJPs, dA'
+    node_b = (node_g + 2 * gemv + 20 * f           # GRU VJP: W_ihᵀ, W_hhᵀ
+              + 2 * f * f + 8 * f + 2 * f * f      # correction VJP, dA0
+              + 2 * f * f + 2 * f * f + 2 * gemv)  # dWh, Wh·dz, dW_ih/hh
+    bwd = (er * edge_b + nr * node_b,
+           4 * (3 * nr * f + idx + er + nr + 1 + att_w + nr * f + att_w))
+    lstm = 4 * 2 * (2 * w) * w + 10 * w            # gates + cell, per graph
+    step = g * (lstm + 2 * w * w) + nr * (4 * w + 3 + 2 * w)
+    s2v_w = 8 * w * w + 4 * w + w * w + w
+    stash = T * (3 * g * w + nr)
+    s2v_f = (T * step, 4 * (nr * w + g + 1 + s2v_w + 2 * g * w))
+    # per graph: the LSTM and q recomputed from the stashed carry, their
+    # VJPs and leaf outer products; per node, the attention row stashed:
+    # datt = dmr·x (2w), Σ datt·att and de (4), th = tanh(q + x) (2w),
+    # ∂we (2w), dth (4w), ∂x (3w), dq (w)
+    step_b = g * (lstm + 2 * w * w + 2 * 8 * w * w * 2 + 4 * w * w
+                  + 12 * w) + nr * (14 * w + 4)
+    s2v_b = (T * step_b, 4 * (nr * w + g + 1 + s2v_w + stash + 2 * g * w
+                              + nr * w + s2v_w))
+    out = {}
+    for name, (ops, nbytes) in zip(ATT_KERNELS, (fwd, bwd, s2v_f, s2v_b)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def phase_att_times(device, card):
+    """adv at batch 16 and 1024: request latency and train-step latency
+    (host clock ending in a device sync), each kernel's time (CUDA events
+    over repeated launches on the main path's inputs) beside its bound and
+    its plain version's, and the device idle share of one profiled
+    batch-1024 train step."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import set2vec as S
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.fused_train import _build_att_form
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch,
+                                              train_step)
+    out, lines = {}, []
+    gen = torch.Generator().manual_seed(47)
+    for bs in (16, 1024):
+        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+        b["labels"] = torch.randint(0, PS_CLASSES, (bs,),
+                                    generator=gen).numpy()
+        tb = batch_to_device(b, device)
+        cfg = zoo.adv(b["node_feats"].shape[1], b["edge_feats"].shape[1],
+                      n_out=PS_CLASSES)
+        net = network_init(cfg, gen, device)
+        opt = adam(net.parameters(), 1e-3)
+        reps = 20
+        for _ in range(3):
+            float(train_step(net, opt, tb, loss_kind="ce"))
+        step_lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            float(train_step(net, opt, tb, loss_kind="ce"))
+            torch.cuda.synchronize()
+            step_lat.append((time.perf_counter() - t0) * 1e3)
+        estep = eval_step_for_batch(cfg, "ce", b)
+
+        def request():
+            _, o = estep(net, batch_to_device(b, device))
+            o.cpu()
+            torch.cuda.synchronize()
+        for _ in range(3):
+            request()
+        req_lat = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            request()
+            req_lat.append((time.perf_counter() - t0) * 1e3)
+        busy = None
+        if bs == 1024:
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                float(train_step(net, opt, tb, loss_kind="ce"))
+                torch.cuda.synchronize()
+            busy, ops = _device_ops(prof)
+            with open(os.path.join(OUT_DIR, "profile_att_train_1024.txt"),
+                      "w") as fh:
+                fh.write(prof.key_averages().table(
+                    sort_by="self_device_time_total", row_limit=40))
+            kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
+                           for e in ops if f"{k}_kernel" in e.key)
+                    for k in ATT_KERNELS}
+            if min(kern.values()) <= 0:
+                raise RuntimeError(f"att-times: no device time for {kern}")
+        # the kernels alone, on the inputs the main path gives them
+        mpnn = net.mpnn
+        with torch.no_grad():
+            mask, ng = tb["node_mask"], tb["node_graph"]
+            h0 = (tb["node_feats"] * mask).contiguous()
+            aprime, a0, qv, q0, wh = _build_att_form(mpnn, tb)
+            gru = {k: v.detach() for k, v in mpnn.gru.as_dict().items()}
+            plan = plan_from_batch(tb)
+            weights = list(zip(A._GRAD_LEAVES, (
+                aprime, a0, qv, q0.detach(), wh, gru["w_ih"], gru["w_hh"],
+                gru["b_ih"], gru["b_hh"])))
+            att_in = (weights, h0, mask, ng, tb["edge_vid"], tb["edge_src"],
+                      tb["edge_dst"], plan)
+            pe = A.prepare_fused_att_fwd(*att_in, with_corr=True,
+                                         write_msgs=False)
+            pt = A.prepare_fused_att_fwd(*att_in, with_corr=True,
+                                         write_msgs=True)
+            ref = (aprime, a0, qv, q0, wh, h0, mask, ng, gru,
+                   tb["edge_vid"], tb["edge_src"], tb["edge_dst"], plan)
+            times = {"fused_att_fwd": _events_ms(
+                lambda: K.launch_prepared(pe), 100)}
+            t_train = {"fused_att_fwd": _events_ms(
+                lambda: K.launch_prepared(pt), 100)}
+            plain = {"fused_att_fwd": _events_ms(
+                lambda: A.fused_att_reference(*ref), 10)}
+            h, msgs = K.launch_prepared(pt)
+            gh = torch.randn(h.shape, generator=gen).to(device)
+            pb = A.prepare_fused_att_bwd(weights, h0, msgs, gh,
+                                         tb["edge_vid"], tb["edge_src"],
+                                         tb["edge_dst"], plan,
+                                         with_corr=True)
+            times["fused_att_bwd"] = _events_ms(
+                lambda: K.launch_prepared(pb), 100)
+            x = torch.cat([h, h0], -1).contiguous()
+            ro = mpnn.readout.as_jax()
+            leaves = [t.detach() for t in S.flat_leaves(ro)]
+            meta = S.S2vMeta(cfg.mpnn.set2vec_steps,
+                             cfg.mpnn.set2vec_batch_softmax)
+            gnp = tb["plan_graph_node_ptr"]
+            se = S.prepare_set2vec_fwd(leaves, x, mask, ng, gnp, meta,
+                                       stash=False)
+            st = S.prepare_set2vec_fwd(leaves, x, mask, ng, gnp, meta,
+                                       stash=True)
+            times["set2vec_fwd"] = _events_ms(
+                lambda: K.launch_prepared(se), 20)
+            t_train["set2vec_fwd"] = _events_ms(
+                lambda: K.launch_prepared(st), 20)
+            m, carry, att = K.launch_prepared(st)
+            gm = torch.randn(m.shape, generator=gen).to(device)
+            sb = S.prepare_set2vec_bwd(leaves, x, gnp, carry, att, gm, meta)
+            times["set2vec_bwd"] = _events_ms(
+                lambda: K.launch_prepared(sb), 20)
+            rp = {"lstm": dict(zip(S._GRAD_LEAVES[:8], leaves[:8])),
+                  "q_attn": {"w": leaves[8]}, "e_attn": {"w": leaves[9]}}
+            skw = dict(time_steps=meta.steps,
+                       batch_softmax=meta.batch_softmax)
+            plain["set2vec_fwd"] = _events_ms(lambda: S.set2vec_reference(
+                rp, x, mask, ng, gnp, **skw), 5)
+        a_leaves = [t.requires_grad_() for _, t in weights] + [
+            h0.requires_grad_()]
+        g_ref = {k: v for k, v in zip(("w_ih", "w_hh", "b_ih", "b_hh"),
+                                      a_leaves[5:9])}
+        h_ref = A.fused_att_reference(*a_leaves[:5], h0, mask, ng, g_ref,
+                                      tb["edge_vid"], tb["edge_src"],
+                                      tb["edge_dst"], plan)
+        obj = (h_ref * gh).sum()
+        plain["fused_att_bwd"] = _events_ms(lambda: torch.autograd.grad(
+            obj, a_leaves, retain_graph=True), 5)
+        s_leaves = [t.requires_grad_() for t in leaves] + [
+            x.requires_grad_()]
+        rp = {"lstm": dict(zip(S._GRAD_LEAVES[:8], s_leaves[:8])),
+              "q_attn": {"w": s_leaves[8]}, "e_attn": {"w": s_leaves[9]}}
+        m_ref = S.set2vec_reference(rp, x, mask, ng, gnp, **skw)
+        obj = (m_ref * gm).sum()
+        plain["set2vec_bwd"] = _events_ms(lambda: torch.autograd.grad(
+            obj, s_leaves, retain_graph=True), 3, warm=1)
+        bounds = _att_bounds(b, cfg.mpnn.node_features,
+                             2 * cfg.mpnn.node_features, aprime.shape[0],
+                             cfg.mpnn.set2vec_steps)
+        rec = {"step_ms": statistics.median(step_lat),
+               "request_ms": statistics.median(req_lat)}
+        for name in ATT_KERNELS:
+            rec[name] = dict(ms=times[name], plain_ms=plain[name],
+                             bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1])
+        out[bs] = rec
+        idle = "" if busy is None else (
+            f"; one train step's device busy {busy:.1f} us in "
+            f"{sum(e.count for e in ops)} device ops, idle share "
+            f"{1 - busy / (rec['step_ms'] * 1e3):.3f}, kernels in the trace "
+            + ", ".join(f"{k} {v:.1f} us" for k, v in kern.items()))
+        lines.append(
+            f"adv batch {bs} (nodes {int(b['node_mask'].sum())}/"
+            f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
+            f"{b['edge_src'].shape[0]}, vocab {aprime.shape[0]}): request "
+            f"median {rec['request_ms']:.3f} ms, train step median "
+            f"{rec['step_ms']:.3f} ms ({reps} reps each){idle}; "
+            + ", ".join(
+                f"{name} {times[name] * 1e3:.2f} us (events"
+                + (f"; with the training stash {t_train[name] * 1e3:.2f} us"
+                   if name in t_train else "")
+                + f"), plain {plain[name] * 1e3:.1f} us, bound "
+                f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.2f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in ATT_KERNELS))
+    print(f"att-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1455,6 +2062,11 @@ def main() -> int:
     ps_counts = phase_ps_train(device)
     ps_times = phase_ps_times(device, card)
     ps_counts["fused_psteps_eval"] += ps_launches
+    att_worst = phase_att_kernel_check(device)
+    att_counts = phase_att_serve(device)
+    for k, v in phase_att_train(device).items():
+        att_counts[k] += v
+    att_times = phase_att_times(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -1480,6 +2092,20 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_psteps.py:{line}",
             "launches": ps_counts[name], "max_abs_err": ps_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    att_sites = {"fused_att_fwd": "fused_att.py:77",
+                 "fused_att_bwd": "fused_att.py:157",
+                 "set2vec_fwd": "set2vec.py:84",
+                 "set2vec_bwd": "set2vec.py:180"}
+    for name in ATT_KERNELS:
+        tt = att_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/{att_sites[name]}",
+            "launches": att_counts[name], "max_abs_err": att_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

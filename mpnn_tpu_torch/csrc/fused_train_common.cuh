@@ -137,26 +137,30 @@ __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
   }
 }
 
-// Load a node's f features (zero-padded to FP) from a row-major (·, f) array.
+// Load a node's f features (zero-padded to NF, FP unless a kernel is
+// compiled for a narrower width) from a row-major (·, f) array.
+template <int NF = FP>
 __device__ __forceinline__ void load_row(const float* base, int n, int f,
                                          float* x) {
 #pragma unroll
-  for (int j = 0; j < FP; ++j) x[j] = j < f ? base[size_t(n) * f + j] : 0.f;
+  for (int j = 0; j < NF; ++j) x[j] = j < f ? base[size_t(n) * f + j] : 0.f;
 }
 
 // The same for data another thread wrote earlier in this launch: loads
 // that bypass L1 (which is not coherent across SMs) and read L2.
+template <int NF = FP>
 __device__ __forceinline__ void load_row_cg(const float* base, int n, int f,
                                             float* x) {
 #pragma unroll
-  for (int j = 0; j < FP; ++j)
+  for (int j = 0; j < NF; ++j)
     x[j] = j < f ? __ldcg(base + size_t(n) * f + j) : 0.f;
 }
 
+template <int NF = FP>
 __device__ __forceinline__ void store_row(float* base, int n, int f,
                                           const float* x) {
 #pragma unroll
-  for (int j = 0; j < FP; ++j)
+  for (int j = 0; j < NF; ++j)
     if (j < f) base[size_t(n) * f + j] = x[j];
 }
 

@@ -29,6 +29,10 @@ SOURCES: Dict[str, str] = {
     "fused_psteps_eval": "fused_psteps_eval.cu",
     "fused_psteps_fwd": "fused_psteps_fwd.cu",
     "fused_psteps_bwd": "fused_psteps_bwd.cu",
+    "fused_att_fwd": "fused_att_fwd.cu",
+    "fused_att_bwd": "fused_att_bwd.cu",
+    "set2vec_fwd": "set2vec_fwd.cu",
+    "set2vec_bwd": "set2vec_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,9 +1,10 @@
 """The MPNN core through the whole-step kernels (counterpart of
-mpnn_tpu/models/fused_train.py for the shared-weight and the per-step
-families): _build_a_form / _build_a_form_psteps and fused_eval_eligible
-(both paths); fused_mpnn_eval (serving, one eval-kernel launch);
-fused_mpnn_out and fused_flagship_loss (training, one forward and one
-backward launch).
+mpnn_tpu/models/fused_train.py for the shared-weight, the per-step and the
+collapsed attention families): _build_a_form / _build_a_form_psteps /
+_build_att_form and fused_eval_eligible (both paths); fused_mpnn_eval
+(serving, one eval-kernel launch; the attention family one message+GRU
+and one set2vec launch); fused_mpnn_out and fused_flagship_loss (training,
+one forward and one backward launch of each kernel).
 
 The plain PyTorch work left around the kernels is the per-step family's
 input transforms (tanh encoders, input bn1d), the edge-MLP vocab chain
@@ -19,13 +20,17 @@ from typing import Callable, NamedTuple
 import torch
 
 from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
+from mpnn_tpu_torch.kernels.fused_att import fused_att
 from mpnn_tpu_torch.kernels.fused_psteps import fused_psteps, fused_psteps_eval
 from mpnn_tpu_torch.kernels.fused_step import fused_eval, fused_step
+from mpnn_tpu_torch.kernels.set2vec import set2vec
 from mpnn_tpu_torch.models.config import MPNNConfig
-from mpnn_tpu_torch.models.mpnn import MPNN, shared_shape, supported
+from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, shared_shape,
+                                        supported)
 from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
-                                          input_transforms, mpnn_new_state,
-                                          psteps_new_state)
+                                          final_weights, input_transforms,
+                                          mpnn_new_state, psteps_new_state,
+                                          sparse_graph_level_output)
 
 
 def _build_a_form(mpnn: MPNN, batch):
@@ -58,6 +63,55 @@ def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
         a0s.append(a0)
     mbias = torch.stack([mp.message_bias for mp in mpnn.message])
     return torch.stack(amats), torch.stack(a0s), mbias
+
+
+def _build_att_form(mpnn: MPNN, batch):
+    """The attention kernel's operands (mpnn_tpu/models/fused_train.py::
+    _build_att_form): aprime (K, mf, nf) = fold(pen_vocab) + Bf — the
+    per-vocab message matrices WITH the final bias, which the attention
+    message keeps per edge (unlike the edge network's A_k − A_0); a0 =
+    fold(pen0) + Bf, the non-edge matrix; qv (K, nf) = evocab·W_e + b, the
+    gate's per-vocab pre-activation; q0 = b, the zero edge's; wh =
+    attn.w[:nf], the h_dst block."""
+    cfg = mpnn.cfg
+    nf, mf = cfg.node_features, cfg.message_features
+    mp = mpnn.message[0]
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                         batch["edge_vfirst"])
+    wf, bf = final_weights(mp, nf, mf)
+    aprime = torch.einsum("kp,pmf->kmf", pen_vocab, wf) + bf
+    a0 = torch.einsum("p,pmf->mf", pen0[0], wf) + bf
+    evocab = edge_feats[batch["edge_vfirst"].long()]
+    w = mp.attn.weight.t()                                  # (nf + ef, nf)
+    qv = evocab @ w[nf:] + mp.attn.bias
+    return (aprime.contiguous(), a0.contiguous(), qv.contiguous(),
+            mp.attn.bias, w[:nf].contiguous())
+
+
+def fused_att_out(mpnn: MPNN, batch) -> torch.Tensor:
+    """The attention family through its kernels (mpnn_tpu/models/
+    fused_train.py::fused_att_out): gating, messages, the 'att'
+    correction and the GRU in one launch, then the set2vec readout in one
+    more (a graph-level readout stays plain PyTorch). Serves eval and
+    training alike — the family has no norms, so the state is empty.
+    Returns out (G, output_dim)."""
+    cfg = mpnn.cfg
+    mask, ng = batch["node_mask"], batch["node_graph"]
+    h0 = (batch["node_feats"] * mask).contiguous()
+    aprime, a0, qv, q0, wh = _build_att_form(mpnn, batch)
+    h = fused_att(aprime, a0, qv, q0, wh, h0, mask, ng, mpnn.gru.as_dict(),
+                  batch["edge_vid"], batch["edge_src"], batch["edge_dst"],
+                  plan_from_batch(batch),
+                  with_corr=cfg.aggregation == "att")
+    x = torch.cat([h, h0], dim=-1)
+    if cfg.readout == "set2vec":
+        return set2vec(mpnn.readout.as_jax(), x, mask, ng,
+                       batch["plan_graph_node_ptr"],
+                       time_steps=cfg.set2vec_steps,
+                       batch_softmax=cfg.set2vec_batch_softmax)
+    return sparse_graph_level_output(mpnn.readout, x, mask, ng,
+                                     batch["graph_mask"].shape[0])
 
 
 def _norm_dicts(mods):
@@ -121,8 +175,8 @@ def _psteps_train(mpnn: MPNN, batch, labels):
 def fused_eval_eligible(cfg: MPNNConfig, batch) -> bool:
     """True when the eval kernel (and the training kernels) compute
     exactly this config's forward on this batch: a supported config
-    (models/mpnn.py: either family) and a packed batch that carries the
-    edge vocab and the kernels' index plan."""
+    (models/mpnn.py: any of the three families) and a packed batch that
+    carries the edge vocab and the kernels' index plan."""
     return (supported(cfg) and "edge_vid" in batch
             and all(k in batch for k in PLAN_KEYS))
 
@@ -202,15 +256,33 @@ def _shared_train(mpnn: MPNN, batch, labels):
 
 class _Family(NamedTuple):
     infer: Callable   # (mpnn, batch) -> out
-    train: Callable   # (mpnn, batch, labels) -> (loss, out, new_state)
+    out: Callable     # (mpnn, batch) -> (out, new_state), loss outside
 
 
-_SHARED = _Family(_shared_eval, _shared_train)
-_PSTEPS = _Family(_psteps_eval, _psteps_train)
+def _loss_free(train):
+    """A family's training `out` from its in-kernel-loss step: the loss
+    against zero labels is discarded, its cotangent is zero, so the
+    backward kernel is driven by the `out` cotangent alone."""
+    def out(mpnn: MPNN, batch):
+        _, o, new_state = train(mpnn, batch,
+                                torch.zeros_like(batch["graph_mask"]))
+        return o, new_state
+    return out
+
+
+_SHARED = _Family(_shared_eval, _loss_free(_shared_train))
+_PSTEPS = _Family(_psteps_eval, _loss_free(_psteps_train))
+_ATT = _Family(fused_att_out,
+               lambda mpnn, batch: (fused_att_out(mpnn, batch), {}))
+# the families whose training kernels carry the masked MSE:
+# (mpnn, batch, labels) -> (loss, out, new_state)
+_KERNEL_LOSS = {_SHARED: _shared_train, _PSTEPS: _psteps_train}
 
 
 def _family(cfg: MPNNConfig) -> _Family:
     """The one place that tells the families apart on the kernel path."""
+    if att_shape(cfg):
+        return _ATT
     return _SHARED if shared_shape(cfg) else _PSTEPS
 
 
@@ -224,8 +296,15 @@ def fused_mpnn_eval(mpnn: MPNN, batch) -> torch.Tensor:
 def fused_flagship_loss(mpnn: MPNN, batch, labels):
     """The bare MPNN's training step through the kernels with the masked
     MSE in the kernel: (loss, out, new_state), new_state as
-    models/sparse.py::mpnn_new_state (psteps_new_state) gives it."""
-    return _family(mpnn.cfg).train(mpnn, batch, labels)
+    models/sparse.py::mpnn_new_state (psteps_new_state) gives it. The
+    shared-weight and per-step families only: the attention kernels carry
+    no loss (their readout is a second kernel)."""
+    train = _KERNEL_LOSS.get(_family(mpnn.cfg))
+    if train is None:
+        raise NotImplementedError(
+            "the attention family's kernels carry no in-kernel loss; use "
+            "fused_mpnn_out and the loss outside")
+    return train(mpnn, batch, labels)
 
 
 def fused_mpnn_out(mpnn: MPNN, batch):
@@ -233,9 +312,5 @@ def fused_mpnn_out(mpnn: MPNN, batch):
     (out (G, output_dim), new_state) — a drop-in for
     sparse_mpnn_apply(training=True), so a network with a wrapper, head
     BN or dense head (the lipo model) runs messages → readout as one
-    forward launch. The kernel's loss against zero labels is discarded:
-    its cotangent is zero, so the backward kernel is driven by the `out`
-    cotangent alone."""
-    _, out, new_state = fused_flagship_loss(
-        mpnn, batch, torch.zeros_like(batch["graph_mask"]))
-    return out, new_state
+    forward launch per kernel."""
+    return _family(mpnn.cfg).out(mpnn, batch)

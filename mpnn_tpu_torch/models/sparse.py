@@ -1,7 +1,10 @@
 """Sparse (packed COO) MPNN forward in plain PyTorch, eval and training
 mode (counterpart of mpnn_tpu/models/sparse.py) — the model the CUDA
 kernels' paths are tested against. Differentiable throughout: the edge-MLP
-tail and the A-form fold get their gradient from autograd.
+tail and the A-form fold get their gradient from autograd. The attention
+family runs per edge (the penultimates through the final layer, the gate
+from the edge's own features) and takes every message step literally, as
+the JAX package's loop does: nothing here assumes the kernels' collapse.
 
 Exactness of the A-form for the edge-network family (bias leakage): with
 A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
@@ -16,12 +19,15 @@ from __future__ import annotations
 import torch
 
 from mpnn_tpu_torch.models.config import MPNNConfig
-from mpnn_tpu_torch.models.mpnn import MPNN, check_supported, shared_shape
+from mpnn_tpu_torch.kernels.set2vec import set2vec_reference
+from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, check_supported,
+                                        shared_shape)
 from mpnn_tpu_torch.ops.autoencoders import tanh_encoder_apply
-from mpnn_tpu_torch.ops.message import EdgeNetwork, _edge_mlp_penultimate
+from mpnn_tpu_torch.ops.message import (AttEdgeNetwork, EdgeNetwork,
+                                        _edge_mlp_penultimate)
 from mpnn_tpu_torch.ops.norm import (bn1d_train, ema, mask_batch_norm,
                                      running_state)
-from mpnn_tpu_torch.ops.readout import GraphLevelOutput, gated_rows
+from mpnn_tpu_torch.ops.readout import GraphLevelOutput, Set2Vec, gated_rows
 from mpnn_tpu_torch.ops.update import gru_apply
 
 
@@ -80,6 +86,81 @@ def sparse_graph_level_output(ro: GraphLevelOutput, x, node_mask,
     gated = gated_rows(ro, x, node_mask)
     out = gated.new_zeros((num_graphs + 1, gated.shape[-1]))
     return out.index_add_(0, node_graph.long(), gated)[:-1]
+
+
+def sparse_att_edge_network(mp: AttEdgeNetwork, pen0, pen_vocab, h,
+                            edge_feats, edge_vid, edge_src, edge_dst,
+                            node_graph, num_graphs: int, *, nf: int, mf: int,
+                            aggregation: str):
+    """The attention message family (mpnn_tpu/models/sparse.py::
+    sparse_att_edge_network, its per-edge path): per pair m(v, w) =
+    A(e_vw)·(softmax_feat(attn([h_v ‖ e_vw])) ⊙ h_w) with A(e) = W̃·pen(e)
+    + Bf. 'adj' sums the real edges; 'att' (the learned singleton softmax,
+    constant 1) sums every pair of the graph: the non-edges, whose edge
+    features are zero, decompose per node into A(0)·(g0_v ⊙ S_g) minus the
+    same term over the real edges. h: (node_cap, nf) → (node_cap, mf)."""
+    node_cap = h.shape[0]
+    wf, bf = final_weights(mp, nf, mf)
+    src, dst = edge_src.long(), edge_dst.long()
+    pen = pen_vocab[edge_vid.long()]                          # (E, pf)
+    h_src = h[src]
+    gate = torch.softmax(mp.attn(torch.cat([h[dst], edge_feats], -1)), -1)
+    g = gate * h_src
+    t = torch.einsum("pmf,ef->epm", wf, g)
+    edge_msg = torch.einsum("ep,epm->em", pen, t) + g @ bf.T
+    agg = h.new_zeros((node_cap, mf)).index_add_(0, dst, edge_msg)
+    if aggregation == "att":
+        ng = node_graph.long()
+        zero_e = h.new_zeros((node_cap, edge_feats.shape[-1]))
+        g0 = torch.softmax(mp.attn(torch.cat([h, zero_e], -1)), -1)
+        a0 = torch.einsum("p,pmf->mf", pen0[0], wf) + bf
+        s = h.new_zeros((num_graphs + 1, h.shape[1])).index_add_(0, ng, h)
+        agg = agg + (g0 * s[ng]) @ a0.T
+        corr = h.new_zeros((node_cap, nf)).index_add_(0, dst, g0[dst] * h_src)
+        agg = agg - corr @ a0.T
+    return agg
+
+
+def sparse_set2vec(ro: Set2Vec, x, node_mask, node_graph, graph_node_ptr, *,
+                   time_steps: int, batch_softmax: bool):
+    """Packed set2set readout (mpnn_tpu/models/sparse.py::sparse_set2vec):
+    the plain loop of kernels/set2vec.py on the module's leaves."""
+    return set2vec_reference(ro.as_jax(), x, node_mask, node_graph,
+                             graph_node_ptr, time_steps=time_steps,
+                             batch_softmax=batch_softmax)
+
+
+def _sparse_att_apply(mpnn: MPNN, batch):
+    """The attention family's plain loop, as mpnn_tpu's sparse_mpnn_apply
+    runs it: messages from the initial state with the shared weights,
+    computed once, then `message_steps` GRU applications, each from the
+    INITIAL state (update_hidden='initial'); no norms, so training and
+    eval are one forward and the state is empty."""
+    cfg = mpnn.cfg
+    mask = batch["node_mask"]
+    node_graph = batch["node_graph"]
+    num_graphs = batch["graph_mask"].shape[0]
+    h0 = batch["node_feats"] * mask
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    mp = mpnn.message[0]
+    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                         batch["edge_vfirst"])
+    msgs = sparse_att_edge_network(
+        mp, pen0, pen_vocab, h0, edge_feats, batch["edge_vid"],
+        batch["edge_src"], batch["edge_dst"], node_graph, num_graphs,
+        nf=cfg.node_features, mf=cfg.message_features,
+        aggregation=cfg.aggregation)
+    h = h0
+    for _ in range(cfg.message_steps):
+        h = gru_apply(mpnn.gru, msgs, h0, mask)
+    x = torch.cat([h, h0], dim=-1)
+    if cfg.readout == "set2vec":
+        return sparse_set2vec(mpnn.readout, x, mask, node_graph,
+                              batch["plan_graph_node_ptr"],
+                              time_steps=cfg.set2vec_steps,
+                              batch_softmax=cfg.set2vec_batch_softmax)
+    return sparse_graph_level_output(mpnn.readout, x, mask, node_graph,
+                                     num_graphs)
 
 
 def mpnn_new_state(mpnn: MPNN, ma_stats, step_stats) -> dict:
@@ -197,9 +278,13 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
     graph_mask, edge_vid, edge_vfirst. Eval mode returns out (G, od);
     training mode normalizes with batch statistics and returns
     (out, new_state), new_state as mpnn_new_state (shared family) or
-    psteps_new_state (per-step family) gives it."""
+    psteps_new_state (per-step family) gives it, empty for the attention
+    family (no norms)."""
     cfg = mpnn.cfg
     check_supported(cfg)
+    if att_shape(cfg):
+        out = _sparse_att_apply(mpnn, batch)
+        return (out, {}) if training else out
     if not shared_shape(cfg):
         return _sparse_psteps_apply(mpnn, batch, training=training)
     mask = batch["node_mask"]

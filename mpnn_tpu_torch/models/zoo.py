@@ -1,7 +1,7 @@
 """Named model configurations (counterpart of mpnn_tpu/models/zoo.py).
-The port carries the flagship `lipo` and the per-step family's
-`graph_norm` and `encoded`; the other families are still to port
-(ROADMAP).
+The port carries the flagship `lipo`, the per-step family's `graph_norm`
+and `encoded`, and the attention model `adv`; the other families are
+still to port (ROADMAP).
 
 Naming trap: the `graph_norm` MODEL (test_graph_norm.py) has the `plain`
 input wrapper; the lipo shell's `graph_norm` WRAPPER is another thing."""
@@ -25,6 +25,19 @@ def lipo(afm: int, bfm: int, nafm: int, n_out: int = 1) -> NetworkConfig:
             msg_norm="bn1d", state_norm="bn1d", per_step_norms=False),
         input_wrapper="graph_norm", nafm_features=nafm,
         head="halving", head_output=n_out, head_bn=True, kaiming_head=True)
+
+
+def adv(afm: int, bfm: int, nafm: int = 0, n_out: int = 4) -> NetworkConfig:
+    """MolGraphModelNoRep (test_adv.py): attention message + 'att'
+    aggregation, set2vec readout (100 steps, batch-global softmax), GRU
+    hidden = the initial features every step (models/models.py:122)."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=4 * afm, message_fn="att_edge_network",
+            aggregation="att", update_hidden="initial",
+            readout="set2vec"),
+        head="linear", head_output=n_out, kaiming_head=False)
 
 
 def graph_norm(afm: int, bfm: int, nafm: int = 0,
@@ -58,6 +71,7 @@ def encoded(afm: int = 30, bfm: int = 8, nafm: int = 0,
 
 ZOO: Dict[str, Callable[..., NetworkConfig]] = {
     "lipo": lipo,
+    "adv": adv,
     "graph_norm": graph_norm,
     "encoded": encoded,
 }

@@ -1,11 +1,17 @@
-"""Edge-network message function (counterpart of mpnn_tpu/ops/message.py,
-the edge-MLP part).
+"""Edge-network message functions (counterpart of mpnn_tpu/ops/message.py:
+the edge-MLP part, and the attention variant's gate).
 
 The reference edge MLP (edge_network.py:16-21) is a width-squaring head,
 then ONE weight-shared square layer applied `tail_repeats` (50) times with
 relu, then a final projection pf → nf·mf. The port runs the head and the
 tail here; the final projection is folded into per-vocab A matrices by
 models/sparse.py and models/fused_train.py.
+
+AttEdgeNetwork (att_edge_network.py:6-31) is the same stack plus the gate
+`attn = Linear(nf + ef → nf)`: a pair's message is A(e)·(softmax_feat(
+attn([h_dst ‖ e])) ⊙ h_src). It keeps `message_bias`, which the
+attention family never adds: the leaf exists for checkpoint parity and
+takes a zero gradient.
 """
 
 from __future__ import annotations
@@ -46,6 +52,19 @@ class EdgeNetwork(nn.Module):
             linear_init_(layer, init, generator)
         with torch.no_grad():
             self.message_bias.zero_()
+
+
+class AttEdgeNetwork(EdgeNetwork):
+    def __init__(self, nf: int, ef: int, mf: int, device=None):
+        super().__init__(nf, ef, mf, device=device)
+        self.attn = make_linear(nf + ef, nf, device=device)
+
+    def reset_parameters(self, init: str,
+                         generator: Optional[torch.Generator] = None):
+        """The edge MLP as `init` says; the gate torch-default always, as
+        the JAX package's att_edge_network_init draws it."""
+        super().reset_parameters(init, generator)
+        linear_init_(self.attn, "torch_default", generator)
 
 
 def _edge_mlp_penultimate(mp: EdgeNetwork, e: torch.Tensor,

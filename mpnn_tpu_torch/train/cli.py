@@ -14,9 +14,13 @@ Verbs (both run on `cuda` unless --device cpu):
            experiment {"index": i, "pred": argmax, "logits": [...]} — the
            serving path, through the whole-step eval kernel.
 
-Experiments: lipo (regression), graph_norm_classification and
-encoded_classification (classification; the CSV's label column holds the
-classes, LabelEncoder-encoded over the file as the JAX package does).
+Experiments: lipo (regression), graph_norm_classification,
+encoded_classification and adv_classification (classification; the CSV's
+label column holds the classes, LabelEncoder-encoded over the file as the
+JAX package does). adv_classification stops training after the first
+epoch whose summed step loss is below 0.02; its set2vec readout
+normalizes attention over the whole batch, so a molecule's logits depend
+on the batch it is served in, as in the reference.
 
 The checkpoint is the .npz either package writes (train/checkpoint.py).
 """

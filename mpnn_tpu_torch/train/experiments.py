@@ -1,8 +1,9 @@
 """Experiment registry (counterpart of mpnn_tpu/train/experiments.py): the
 dataset flavor, model-zoo builder, loss and hyperparameters of each
-reference training script. The port carries the flagship `lipo` and the
+reference training script. The port carries the flagship `lipo`, the
 per-step family's `graph_norm_classification` and
-`encoded_classification`."""
+`encoded_classification`, and the attention model's
+`adv_classification`."""
 
 from __future__ import annotations
 
@@ -31,6 +32,15 @@ def _register(e: Experiment):
     EXPERIMENTS[e.name] = e
     return e
 
+
+# test_adv.py: attention model, early stop once an epoch's summed train
+# loss is below 0.02
+_register(Experiment(
+    name="adv_classification", task="classification", model="adv",
+    loss="ce",
+    train=TrainConfig(epochs=500, batch_size=16, learning_rate=1e-3,
+                      loss="ce", early_stop_loss=0.02),
+    notes="test_adv.py: MolGraphModelNoRep (AttEdge+AttAgg+Set2Vec)"))
 
 # test_lipo.py: regression, Adam 1e-2 / wd 1e-4 + ReduceLROnPlateau,
 # batch 16, 1000 epochs

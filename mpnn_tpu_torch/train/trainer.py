@@ -48,6 +48,9 @@ class TrainConfig:
     metric_average: str = "weighted"  # classification report averaging
     ckpt_dir: Optional[str] = None   # one checkpoint per epoch
     ckpt_f1_gate: Optional[float] = None   # save only when val f1 > gate
+    # stop after the epoch (and its checkpoint) whose SUMMED batch loss is
+    # below this (test_adv.py:96-98)
+    early_stop_loss: Optional[float] = None
     log_path: Optional[str] = None   # JSON lines: every step, every epoch
 
 
@@ -195,8 +198,10 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
     the eval kernel, the plateau schedule on the validation loss, and one
     checkpoint per epoch (`ckpt_<epoch>.npz` in cfg.ckpt_dir, readable by
     `predict` in either package; with cfg.ckpt_f1_gate only the epochs
-    whose validation f1 passes it). `net` defaults to network_init from
-    cfg.seed; runs on `cuda` unless device='cpu'. With cfg.log_path every
+    whose validation f1 passes it), and with cfg.early_stop_loss a stop
+    after the first epoch whose summed step loss is below it. `net`
+    defaults to network_init from cfg.seed; runs on `cuda` unless
+    device='cpu'. With cfg.log_path every
     step's loss and every epoch's record are appended there as JSON lines.
     Returns (net, history). Resume and optimizer state in checkpoints are
     still to port."""
@@ -246,4 +251,7 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
                     os.path.join(cfg.ckpt_dir, f"ckpt_{epoch}.npz"), net,
                     meta={"epoch": epoch,
                           "sched": sched.state_dict() if sched else None})
+            if cfg.early_stop_loss is not None \
+                    and epoch_loss < cfg.early_stop_loss:
+                break
     return net, history

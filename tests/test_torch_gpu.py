@@ -460,3 +460,193 @@ def test_cuda_psteps_wrappers_raise_instead_of_falling_back():
     with pytest.raises(NotImplementedError, match="compiled for f up to"):
         _ps_eval(P.fused_psteps_eval, wide, steps=3)
     assert set(P.launch_counts.values()) == {0}
+
+
+# ---------------------------------------------------------------------------
+# the attention family's kernels (fused_att_fwd.cu, fused_att_bwd.cu,
+# set2vec_fwd.cu, set2vec_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _att_problem(rng, g, f=7, k=8, device="cuda"):
+    """fused_att's arguments on a _problem batch (ragged graphs, padded
+    edges on the dummy node with vid 0, whose A' is NOT zero), and
+    {leaf: tensor} of its differentiable arguments, each requiring
+    grad."""
+    (_, _, _, h0, mask, ng, gru, _, _, _, _, _, vid, src, dst,
+     plan) = _problem(rng, g=g, f=f, od=4, k=k, device=device)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    w = {"aprime": t(rng.randn(k, f, f) * 0.3), "a0": t(rng.randn(f, f) * 0.3),
+         "qv": t(rng.randn(k, f)), "q0": t(rng.randn(f)),
+         "wh": t(rng.randn(f, f) * 0.5)}
+    leaves = {**w, "h0": h0, **{f"gru/{n}": v for n, v in gru.items()}}
+    for x in leaves.values():
+        x.requires_grad_(True)
+    args = (w["aprime"], w["a0"], w["qv"], w["q0"], w["wh"], h0, mask, ng,
+            gru, vid, src, dst, plan)
+    return args, leaves
+
+
+def _grads_close(got, want, rtol=RTOL, atol=ATOL):
+    """Each gradient leaf scaled by its max abs within rtol/atol."""
+    for name, g in got.items():
+        w = want[name]
+        scale = w.abs().max().clamp_min(1e-30)
+        torch.testing.assert_close(g / scale, w / scale, rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+def _value_and_grads(fn, args, leaves, cw, **kw):
+    out = fn(*args, **kw)
+    grads = torch.autograd.grad((out * cw).sum(), list(leaves.values()),
+                                allow_unused=True)
+    return out.detach(), {k: torch.zeros_like(v) if gr is None else gr
+                          for (k, v), gr in zip(leaves.items(), grads)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("with_corr,g,f", [(True, 1024, 7), (False, 1024, 7),
+                                           (True, 37, 7), (True, 37, 16)])
+def test_cuda_att_kernels_match_plain_version(with_corr, g, f):
+    """adv widths (f 7): the forward kernel against fused_att_reference,
+    the backward against autograd through it, for 'att' (with_corr) and
+    'adj', at batch 1024 and on a ragged batch of 37; and the widest
+    build (f 16, the backward's other instantiation)."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att as A
+    rng = np.random.RandomState(g + with_corr)
+    args, leaves = _att_problem(rng, g, f=f)
+    cw = torch.as_tensor(rng.randn(*args[5].shape).astype(np.float32),
+                         device="cuda")
+    A.reset_launch_counts()
+    got = _value_and_grads(A.fused_att, args, leaves, cw,
+                           with_corr=with_corr)
+    torch.cuda.synchronize()
+    assert (A.launch_counts["fused_att_fwd"],
+            A.launch_counts["fused_att_bwd"]) == (1, 1)
+    want = _value_and_grads(A.fused_att_reference, args, leaves, cw,
+                            with_corr=with_corr)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+    with torch.no_grad():                     # serving: no message stash
+        h = A.fused_att(*args, with_corr=with_corr)
+    assert A.launch_counts["fused_att_fwd"] == 2
+    torch.testing.assert_close(h, want[0], rtol=RTOL, atol=ATOL)
+
+
+def _s2v_problem(rng, g, w=14, device="cuda"):
+    """set2vec's arguments on a _problem batch: a random masked x (N, w),
+    random readout leaves in the JAX layout, each requiring grad."""
+    (_, _, _, h0, mask, ng, _, _, _, _, _, _, _, _, _,
+     plan) = _problem(rng, g=g, f=4, od=4, k=3, device=device)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    b = 1.0 / np.sqrt(2 * w)
+    u = lambda *s: t(rng.uniform(-b, b, s))
+    rp = {"lstm": {**{f"w_h{k}": u(2 * w, w) for k in "ifgo"},
+                   **{f"b_h{k}": u(1, w) for k in "ifgo"}},
+          "q_attn": {"w": t(rng.uniform(-1, 1, (w, w)) / np.sqrt(w))},
+          "e_attn": {"w": t(rng.uniform(-1, 1, (w, 1)) / np.sqrt(w))}}
+    x = t(rng.randn(mask.shape[0], w)) * mask
+    leaves = {**{f"lstm/{k}": v for k, v in rp["lstm"].items()},
+              "q_attn": rp["q_attn"]["w"], "e_attn": rp["e_attn"]["w"],
+              "x": x}
+    for v in leaves.values():
+        v.requires_grad_(True)
+    return (rp, x, mask, ng, plan.graph_node_ptr), leaves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch_softmax,steps,g", [
+    (True, 100, 1024), (False, 100, 1024), (True, 3, 37), (False, 3, 37)])
+def test_cuda_set2vec_kernels_match_plain_version(batch_softmax, steps, g):
+    """adv's set width (w 14): the forward kernel against
+    set2vec_reference, the backward against autograd through it, both
+    softmax modes, the reference's 100 steps at batch 1024 and 3 steps on
+    a ragged batch of 37."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import set2vec as S
+    rng = np.random.RandomState(g + steps + batch_softmax)
+    args, leaves = _s2v_problem(rng, g)
+    cw = torch.as_tensor(rng.randn(g, 28).astype(np.float32), device="cuda")
+    kw = dict(time_steps=steps, batch_softmax=batch_softmax)
+    S.reset_launch_counts()
+    got = _value_and_grads(S.set2vec, args, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert (S.launch_counts["set2vec_fwd"],
+            S.launch_counts["set2vec_bwd"]) == (1, 1)
+    want = _value_and_grads(S.set2vec_reference, args, leaves, cw, **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_att_wrappers_raise_instead_of_falling_back():
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import set2vec as S
+    args, _ = _att_problem(np.random.RandomState(9), 64)
+    args = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+    A.reset_launch_counts()
+    S.reset_launch_counts()
+    bad = list(args)
+    bad[0] = args[0].transpose(1, 2)                  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        A.fused_att(*bad)
+    bad = list(args)
+    bad[5] = args[5].double()
+    with pytest.raises(TypeError, match="float32"):
+        A.fused_att(*bad)
+    wide, _ = _att_problem(np.random.RandomState(10), 8, f=A.MAX_WIDTH + 1)
+    with pytest.raises(NotImplementedError, match="f up to"):
+        A.fused_att(*wide)
+    s_args, _ = _s2v_problem(np.random.RandomState(11), 16,
+                             w=S.MAX_WIDTH + 2)
+    with pytest.raises(NotImplementedError, match="w up to"):
+        S.set2vec(*s_args, time_steps=3)
+    s_args, _ = _s2v_problem(np.random.RandomState(12), 16)
+    bad_mask = s_args[2].clone()
+    bad_mask[0] = 0.0
+    with pytest.raises(ValueError, match="set2vec: mask"):
+        S.set2vec(s_args[0], s_args[1], bad_mask, *s_args[3:],
+                  time_steps=3)
+    assert set(A.launch_counts.values()) == set(
+        S.launch_counts.values()) == {0}
+
+
+@pytest.mark.gpu
+def test_adv_serving_path_on_card():
+    """predict of adv on cuda (one fused_att_fwd and one set2vec_fwd
+    launch per request) against the plain model on cuda, batch by
+    batch."""
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import set2vec as S
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.cli import predict_batches
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    smiles = ["CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Oc1ccccc1C(=O)O",
+              "c1ccncc1CCO", "C", "NC(=O)c1ccccc1", "CCN"] * 11
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(smiles,
+                                                     [0] * len(smiles)))
+    cfg = zoo.adv(ge.atom_width(), ge.bond_width(), n_out=4)
+    net = network_init(cfg, torch.Generator().manual_seed(0), device)
+    loader = G.GraphLoader(gs, 16)
+    A.reset_launch_counts()
+    S.reset_launch_counts()
+    got = np.concatenate(list(predict_batches(net, "ce", loader, device)))
+    assert A.launch_counts == {"fused_att_fwd": len(loader),
+                               "fused_att_bwd": 0}
+    assert S.launch_counts == {"set2vec_fwd": len(loader),
+                               "set2vec_bwd": 0}
+    with torch.no_grad():
+        want = np.concatenate([
+            network_apply_packed(net, batch_to_device(b, device),
+                                 fused=False).cpu().numpy()
+            for b in loader])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)

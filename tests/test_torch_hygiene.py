@@ -132,19 +132,23 @@ def test_kernel_wrapper_builds_nothing_at_import():
     assert build._LIBS == {}
     assert set(build.SOURCES) == {"fused_eval", "fused_step_fwd",
                                   "fused_step_bwd", "fused_psteps_eval",
-                                  "fused_psteps_fwd", "fused_psteps_bwd"}
+                                  "fused_psteps_fwd", "fused_psteps_bwd",
+                                  "fused_att_fwd", "fused_att_bwd",
+                                  "set2vec_fwd", "set2vec_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
 
 
 @pytest.mark.parametrize("exp", ["graph_norm_classification",
-                                 "encoded_classification"])
+                                 "encoded_classification",
+                                 "adv_classification"])
 @pytest.mark.parametrize("entry", ["network_init", "evaluate",
                                    "predict_records", "train"])
 def test_psteps_entry_points_raise_without_card(entry, exp, tmp_path):
-    """The per-step family's entry points, called without a device on a
-    host with no card, raise instead of running on the CPU; with
-    device='cpu' they run (their plain versions)."""
+    """The per-step family's and the attention model's entry points,
+    called without a device on a host with no card, raise instead of
+    running on the CPU; with device='cpu' they run (their plain
+    versions)."""
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     from mpnn_tpu_torch import graphs as G
