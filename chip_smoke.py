@@ -71,7 +71,27 @@ Phases, one line each:
                checkpoint it wrote;
  17. att-times — request and train-step latency at batch 16 and 1024,
                each kernel's time beside its bound and its plain version's,
-               and the b1024 train step's device idle share.
+               and the b1024 train step's device idle share;
+ 18. atts-kernel-check — the T-step attention model's two kernels
+               (fused_att_steps fwd/bwd) against their plain versions on the
+               card (rtol 1e-4, atol 1e-5; gradient leaves scaled by their
+               max abs; each case also through the serving launch): att
+               widths (f 7, T 3) at batch 1024 in the four modes (per-step
+               or shared message tables, stateless norm or none, adj or
+               att), and a ragged batch with a padded graph slot;
+ 19. atts-serve — `predict --experiment att_classification` at batch 16
+               and 1024 from a seeded checkpoint: one fused_att_steps_fwd
+               and one set2vec_fwd launch per request, logits against the
+               plain path on the same batches;
+ 20. atts-train — its `train` verb, 2 epochs at batch 16: one launch of
+               each forward and backward per step, the first 3 losses
+               against the plain path (rtol 1e-3), the first step's logits
+               and every parameter gradient against it (each divided by
+               its max abs; rtol 1e-4, atol 1e-5), `predict` from the
+               checkpoint it wrote;
+ 21. atts-times — request and train-step latency at batch 16 and 1024,
+               both kernels' times beside their bounds and their plain
+               versions', and the b1024 train step's device idle share.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -169,8 +189,13 @@ def phase_build():
     # the kernels' weights live in dynamic shared memory, which ptxas does
     # not see: the launch's size at the flagship vocab of 16 (and T = 6)
     from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
     from mpnn_tpu_torch.kernels import fused_psteps as P
     from mpnn_tpu_torch.kernels import set2vec as S
+    atts_fwd = AS._lib("fused_att_steps_fwd") \
+        .mpnn_fused_att_steps_fwd_smem_bytes(3, 16, 3)
+    atts_bwd = AS._lib("fused_att_steps_bwd") \
+        .mpnn_fused_att_steps_bwd_smem_bytes(3, 16, 3, 7)
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
            f"fused_step_fwd "
            f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
@@ -186,7 +211,10 @@ def phase_build():
                for n in ("fused_att_fwd", "fused_att_bwd"))
            + " (K 16); " + ", ".join(
                f"{n} {getattr(S._lib(n), f'mpnn_{n}_smem_bytes')(14)} B"
-               for n in ("set2vec_fwd", "set2vec_bwd")) + " (w 14)")
+               for n in ("set2vec_fwd", "set2vec_bwd")) + " (w 14); "
+           f"fused_att_steps_fwd {atts_fwd} B, fused_att_steps_bwd "
+           f"{atts_bwd} B (Tm 3, K 16, T 3, f 7; their A' tables stay in "
+           "device memory)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -1469,7 +1497,11 @@ def phase_ps_times(device, card):
 # ---------------------------------------------------------------------------
 
 ATT_KERNELS = ("fused_att_fwd", "fused_att_bwd", "set2vec_fwd", "set2vec_bwd")
-ATT_EXP = "adv_classification"
+ATTS_KERNELS = ("fused_att_steps_fwd", "fused_att_steps_bwd")
+# the two attention models: their experiment and message kernels (both
+# read out through the set2vec kernels)
+ATT_MODELS = {"adv": ("adv_classification", ATT_KERNELS[:2]),
+              "att": ("att_classification", ATTS_KERNELS)}
 
 
 def _ragged_att_batch(device):
@@ -1608,23 +1640,40 @@ def phase_att_kernel_check(device):
 
 def _att_reset():
     from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
     from mpnn_tpu_torch.kernels import set2vec as S
     A.reset_launch_counts()
+    AS.reset_launch_counts()
     S.reset_launch_counts()
 
 
 def _att_counts():
+    """The launch counts of both attention models' six kernels."""
     from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
     from mpnn_tpu_torch.kernels import set2vec as S
-    return {**A.launch_counts, **S.launch_counts}
+    return {**A.launch_counts, **AS.launch_counts, **S.launch_counts}
 
 
-def phase_att_serve(device):
-    """`predict --experiment adv_classification` as a user runs it, at
-    batch 16 and 1024 from a seeded checkpoint; exactly one fused_att_fwd
-    and one set2vec_fwd launch per request; logits against the plain path
-    on the card, batch by batch (the batch-global softmax couples each
-    batch's molecules). Returns the launch counts."""
+def _att_want(model, fwd, bwd):
+    """The design's launch counts for `model`: each forward of its path
+    `fwd` times, each backward `bwd` times, the other model's kernels
+    never."""
+    want = dict.fromkeys(ATT_KERNELS + ATTS_KERNELS, 0)
+    msg_fwd, msg_bwd = ATT_MODELS[model][1]
+    want.update({msg_fwd: fwd, "set2vec_fwd": fwd, msg_bwd: bwd,
+                 "set2vec_bwd": bwd})
+    return want
+
+
+def phase_att_serve(device, model="adv"):
+    """`predict --experiment adv_classification` (or att_classification)
+    as a user runs it, at batch 16 and 1024 from a seeded checkpoint;
+    exactly one forward launch of the model's message kernel and one of
+    set2vec_fwd per request, no other; logits against the plain path on
+    the card, batch by batch (the batch-global softmax and the att model's
+    stateless norm couple each batch's molecules). Returns the launch
+    counts."""
     import torch
     from mpnn_tpu_torch import graphs as G
     from mpnn_tpu_torch.models import zoo
@@ -1634,43 +1683,45 @@ def phase_att_serve(device):
     from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                  save_checkpoint)
     from mpnn_tpu_torch.train.trainer import batch_to_device
+    exp, kernels = ATT_MODELS[model]
+    seed = {"adv": 43, "att": 53}[model]
     os.makedirs(OUT_DIR, exist_ok=True)
     probe, ge = G.encode_molgraphs(G.generate_molgraphs(SMILES, [0] * 10))
-    cfg = zoo.adv(ge.atom_width(), ge.bond_width(), n_out=PS_CLASSES)
-    net = network_init(cfg, torch.Generator().manual_seed(43), "cpu")
-    ckpt = os.path.join(OUT_DIR, "ckpt_adv.npz")
-    save_checkpoint(ckpt, net, meta={"seed": 43, "model": "adv"})
-    totals, lines = dict.fromkeys(ATT_KERNELS, 0), []
+    cfg = zoo.build(model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                    n_out=PS_CLASSES)
+    net = network_init(cfg, torch.Generator().manual_seed(seed), "cpu")
+    ckpt = os.path.join(OUT_DIR, f"ckpt_{model}.npz")
+    save_checkpoint(ckpt, net, meta={"seed": seed, "model": model})
+    totals, lines = dict.fromkeys(ATT_KERNELS + ATTS_KERNELS, 0), []
     for bs, rows in ((16, 64), (1024, 3072)):
-        csv = _ps_csv("new_adv", rows)
+        csv = _ps_csv(f"new_{model}", rows)
         buf = io.StringIO()
         _att_reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
-            cli.main(["predict", "--experiment", ATT_EXP, "--data", csv,
+            cli.main(["predict", "--experiment", exp, "--data", csv,
                       "--ckpt", ckpt, "--batch-size", str(bs)])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _att_counts()
         recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
         n_req = -(-rows // bs)
-        want = {"fused_att_fwd": n_req, "fused_att_bwd": 0,
-                "set2vec_fwd": n_req, "set2vec_bwd": 0}
+        want = _att_want(model, n_req, 0)
         if counts != want:
-            raise RuntimeError(f"adv predict at batch {bs}: launches "
+            raise RuntimeError(f"{model} predict at batch {bs}: launches "
                                f"{counts}, the design's count is {want}")
         if len(recs) != rows or [r["index"] for r in recs] != list(
                 range(rows)):
-            raise RuntimeError(f"adv predict at batch {bs}: {len(recs)} "
-                               f"records for {rows}")
+            raise RuntimeError(f"{model} predict at batch {bs}: "
+                               f"{len(recs)} records for {rows}")
         logits = torch.tensor([r["logits"] for r in recs],
                               dtype=torch.float64)
         if not torch.isfinite(logits).all() or any(
                 r["pred"] != int(torch.argmax(lg))
                 for r, lg in zip(recs, logits)):
-            raise RuntimeError(f"adv predict at batch {bs}: non-finite "
+            raise RuntimeError(f"{model} predict at batch {bs}: non-finite "
                                "logits or a wrong argmax")
-        for k in ATT_KERNELS:
+        for k in totals:
             totals[k] += counts[k]
         gs, _, _, _ = G.load_classification_dataset(csv, "smiles", "target")
         pnet, _ = load_checkpoint(ckpt, net.cfg, device=device)
@@ -1681,26 +1732,28 @@ def phase_att_serve(device):
                 for b in G.GraphLoader(gs, bs)]).to(torch.float64)
         ok, mabs, mrel = _within(logits, plain)
         lines.append(f"batch {bs}: {rows} molecules in {n_req} requests, "
-                     f"launches fused_att_fwd {counts['fused_att_fwd']} "
+                     f"launches {kernels[0]} {counts[kernels[0]]} "
                      f"set2vec_fwd {counts['set2vec_fwd']}, {wall:.2f} s "
                      f"wall (featurize+load+serve), logits vs plain path "
                      f"max_abs={mabs:.3e} max_rel={mrel:.3e} "
                      f"{'ok' if ok else 'FAIL'}")
         if not ok:
-            raise RuntimeError(f"adv batch {bs}: served logits disagree "
+            raise RuntimeError(f"{model} batch {bs}: served logits disagree "
                                f"with the plain path ({mabs:.3e})")
-    print("att-serve: " + "; ".join(lines), flush=True)
+    label = {"adv": "att-serve", "att": "atts-serve"}[model]
+    print(f"{label}: {exp}; " + "; ".join(lines), flush=True)
     return totals
 
 
-def phase_att_train(device):
-    """The `train` verb of adv_classification as a user runs it (2 epochs
-    at batch 16 on a 4-class CSV), launch counts read around it: one
-    launch of each forward and each backward per step, one of each
-    forward per validation and test batch; the first 3 losses against the
-    plain path on the card (rtol 1e-3), and the first step's logits and
-    gradients against it (rtol 1e-4 of each one's max abs); then `predict`
-    from the last checkpoint. Returns the launch counts."""
+def phase_att_train(device, model="adv"):
+    """The `train` verb of adv_classification (or att_classification) as
+    a user runs it (2 epochs at batch 16 on a 4-class CSV), launch counts
+    read around it: one launch of each forward and each backward of the
+    model's path per step, one of each forward per validation and test
+    batch, none of the other model's kernels; the first 3 losses against
+    the plain path on the card (rtol 1e-3), and the first step's logits
+    and gradients against it (rtol 1e-4 of each one's max abs); then
+    `predict` from the last checkpoint. Returns the launch counts."""
     import torch
     from mpnn_tpu_torch import graphs as G
     from mpnn_tpu_torch.models import zoo
@@ -1711,17 +1764,18 @@ def phase_att_train(device):
     from mpnn_tpu_torch.train.split import train_test_split
     from mpnn_tpu_torch.train.trainer import (batch_to_device, ce_loss,
                                               train_step)
-    exp = experiments.get(ATT_EXP)
-    csv = _ps_csv("train_adv", TRAIN_ROWS)
-    log = os.path.join(OUT_DIR, "train_adv.jsonl")
-    ckdir = os.path.join(OUT_DIR, "train_ckpt_adv")
+    exp_name = ATT_MODELS[model][0]
+    exp = experiments.get(exp_name)
+    csv = _ps_csv(f"train_{model}", TRAIN_ROWS)
+    log = os.path.join(OUT_DIR, f"train_{model}.jsonl")
+    ckdir = os.path.join(OUT_DIR, f"train_ckpt_{model}")
     if os.path.exists(log):
         os.remove(log)
     buf = io.StringIO()
     _att_reset()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
-        cli.main(["train", "--experiment", ATT_EXP, "--data", csv,
+        cli.main(["train", "--experiment", exp_name, "--data", csv,
                   "--epochs", str(TRAIN_EPOCHS), "--ckpt-dir", ckdir,
                   "--log", log])
     torch.cuda.synchronize()
@@ -1738,17 +1792,16 @@ def phase_att_train(device):
     train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
     n_steps = TRAIN_EPOCHS * -(-len(train_gs) // bs)
     n_eval = TRAIN_EPOCHS * -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
-    want = {"fused_att_fwd": n_steps + n_eval, "fused_att_bwd": n_steps,
-            "set2vec_fwd": n_steps + n_eval, "set2vec_bwd": n_steps}
+    want = _att_want(model, n_steps + n_eval, n_steps)
     if len(steps) != n_steps or counts != want:
-        raise RuntimeError(f"adv train: {len(steps)} steps, launches "
+        raise RuntimeError(f"{model} train: {len(steps)} steps, launches "
                            f"{counts}; the design's count is {want}")
     if not (all(math.isfinite(x) for x in steps)
             and math.isfinite(result["test"]["loss"])
             and all(math.isfinite(r["val_loss"]) for r in epochs)):
-        raise RuntimeError("adv train: non-finite loss")
-    cfg = zoo.adv(int(gs[0].afm.shape[-1]), int(gs[0].bfm.shape[-1]),
-                  n_out=PS_CLASSES)
+        raise RuntimeError(f"{model} train: non-finite loss")
+    cfg = zoo.build(model, afm=int(gs[0].afm.shape[-1]),
+                    bfm=int(gs[0].bfm.shape[-1]), n_out=PS_CLASSES)
     net = network_init(cfg, torch.Generator().manual_seed(317), device)
     opt = adam(net.parameters(), exp.train.learning_rate)
     plain = []
@@ -1759,8 +1812,8 @@ def phase_att_train(device):
                                       fused=False, loss_kind="ce")))
     rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
     if rel > 1e-3:
-        raise RuntimeError(f"adv train: first steps {steps[:3]} vs plain "
-                           f"path {plain} (rel {rel:.2e})")
+        raise RuntimeError(f"{model} train: first steps {steps[:3]} vs "
+                           f"plain path {plain} (rel {rel:.2e})")
     # the losses sit near ln 4 and barely move: also hold the first step's
     # logits and every parameter gradient, kernels against the plain path,
     # on the trainer's initial weights and first batch, each divided by its
@@ -1780,26 +1833,29 @@ def phase_att_train(device):
     ok_l, err_l, _ = _within(res[0][0] / scale, res[1][0] / scale)
     _, _, ok_g, err_g = _fwd_bwd_errors(res[0], res[1])
     if not (ok_l and ok_g):
-        raise RuntimeError(f"adv train: first step vs plain path, logits "
-                           f"{err_l:.2e}, gradients {err_g:.2e} (each divided"
-                           f" by its max abs)")
+        raise RuntimeError(f"{model} train: first step vs plain path, "
+                           f"logits {err_l:.2e}, gradients {err_g:.2e} (each"
+                           f" divided by its max abs)")
     ckpt = os.path.join(ckdir, f"ckpt_{len(epochs) - 1}.npz")
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        cli.main(["predict", "--experiment", ATT_EXP, "--data", csv,
+        cli.main(["predict", "--experiment", exp_name, "--data", csv,
                   "--ckpt", ckpt])
     preds = [json.loads(x) for x in buf.getvalue().splitlines() if x]
     if len(preds) != TRAIN_ROWS or not all(
             math.isfinite(v) for r in preds for v in r["logits"]):
-        raise RuntimeError(f"adv: predict from {ckpt} failed")
-    print(f"att-train: {ATT_EXP}, {TRAIN_ROWS} molecules (train "
+        raise RuntimeError(f"{model}: predict from {ckpt} failed")
+    stop = ("" if exp.train.early_stop_loss is None else
+            f" (early stop below {exp.train.early_stop_loss})")
+    label = {"adv": "att-train", "att": "atts-train"}[model]
+    print(f"{label}: {exp_name}, {TRAIN_ROWS} molecules (train "
           f"{len(train_gs)}, val {len(val_gs)}, test {len(test_gs)}), batch "
           f"{bs}, {len(epochs)} epochs, {len(steps)} steps in {wall:.2f} s "
           f"wall; launches {counts} (design: each forward 1 per step and 1 "
           f"per eval batch, each backward 1 per step); step losses first "
           f"{steps[0]:.5f} last {steps[-1]:.5f}; epoch train loss sums "
-          f"{[round(r['train_loss'], 4) for r in epochs]} (early stop below "
-          f"{exp.train.early_stop_loss}); test f1 {result['test']['f1']:.4f};"
+          f"{[round(r['train_loss'], 4) for r in epochs]}{stop}; test f1 "
+          f"{result['test']['f1']:.4f};"
           f" first 3 steps vs plain path max rel {rel:.2e} (kernel "
           f"{[round(x, 6) for x in steps[:3]]}, plain "
           f"{[round(x, 6) for x in plain]}); first step's logits (max abs "
@@ -1862,75 +1918,93 @@ def _att_bounds(b, f, w, k, T):
     return out
 
 
+def _att_latency(model, bs, device, gen):
+    """One attention model at batch `bs` with random weights: its request
+    and train-step latency (host clock ending in a device sync, medians of
+    20) and, at batch 1024, the device busy time of one profiled train
+    step with each of its path's kernels' time in the trace. Returns
+    (host batch, device batch, cfg, net, {step_ms, request_ms}, idle
+    line)."""
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch,
+                                              train_step)
+    b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+    b["labels"] = torch.randint(0, PS_CLASSES, (bs,), generator=gen).numpy()
+    tb = batch_to_device(b, device)
+    cfg = zoo.build(model, afm=b["node_feats"].shape[1],
+                    bfm=b["edge_feats"].shape[1], n_out=PS_CLASSES)
+    net = network_init(cfg, gen, device)
+    opt = adam(net.parameters(), 1e-3)
+    reps = 20
+    for _ in range(3):
+        float(train_step(net, opt, tb, loss_kind="ce"))
+    step_lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        float(train_step(net, opt, tb, loss_kind="ce"))
+        torch.cuda.synchronize()
+        step_lat.append((time.perf_counter() - t0) * 1e3)
+    estep = eval_step_for_batch(cfg, "ce", b)
+
+    def request():
+        _, o = estep(net, batch_to_device(b, device))
+        o.cpu()
+        torch.cuda.synchronize()
+    for _ in range(3):
+        request()
+    req_lat = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        request()
+        req_lat.append((time.perf_counter() - t0) * 1e3)
+    rec = {"step_ms": statistics.median(step_lat),
+           "request_ms": statistics.median(req_lat)}
+    idle = ""
+    if bs == 1024:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            float(train_step(net, opt, tb, loss_kind="ce"))
+            torch.cuda.synchronize()
+        busy, ops = _device_ops(prof)
+        with open(os.path.join(OUT_DIR, f"profile_{model}_train_1024.txt"),
+                  "w") as fh:
+            fh.write(prof.key_averages().table(
+                sort_by="self_device_time_total", row_limit=40))
+        kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in ops if f"{k}_kernel" in e.key)
+                for k in (*ATT_MODELS[model][1], *ATT_KERNELS[2:])}
+        if min(kern.values()) <= 0:
+            raise RuntimeError(f"{model} times: no device time for {kern}")
+        idle = (f"; one train step's device busy {busy:.1f} us in "
+                f"{sum(e.count for e in ops)} device ops, idle share "
+                f"{1 - busy / (rec['step_ms'] * 1e3):.3f}, kernels in the "
+                "trace " + ", ".join(f"{k} {v:.1f} us"
+                                     for k, v in kern.items()))
+    return b, tb, cfg, net, rec, idle
+
+
 def phase_att_times(device, card):
     """adv at batch 16 and 1024: request latency and train-step latency
     (host clock ending in a device sync), each kernel's time (CUDA events
     over repeated launches on the main path's inputs) beside its bound and
     its plain version's, and the device idle share of one profiled
     batch-1024 train step."""
-    import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.graphs.batching import plan_from_batch
     from mpnn_tpu_torch.kernels import fused_att as A
     from mpnn_tpu_torch.kernels import fused_step as K
     from mpnn_tpu_torch.kernels import set2vec as S
-    from mpnn_tpu_torch.models import zoo
     from mpnn_tpu_torch.models.fused_train import _build_att_form
-    from mpnn_tpu_torch.models.network import network_init
-    from mpnn_tpu_torch.train.optim import adam
-    from mpnn_tpu_torch.train.trainer import (batch_to_device,
-                                              eval_step_for_batch,
-                                              train_step)
     out, lines = {}, []
     gen = torch.Generator().manual_seed(47)
     for bs in (16, 1024):
-        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
-        b["labels"] = torch.randint(0, PS_CLASSES, (bs,),
-                                    generator=gen).numpy()
-        tb = batch_to_device(b, device)
-        cfg = zoo.adv(b["node_feats"].shape[1], b["edge_feats"].shape[1],
-                      n_out=PS_CLASSES)
-        net = network_init(cfg, gen, device)
-        opt = adam(net.parameters(), 1e-3)
-        reps = 20
-        for _ in range(3):
-            float(train_step(net, opt, tb, loss_kind="ce"))
-        step_lat = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            float(train_step(net, opt, tb, loss_kind="ce"))
-            torch.cuda.synchronize()
-            step_lat.append((time.perf_counter() - t0) * 1e3)
-        estep = eval_step_for_batch(cfg, "ce", b)
-
-        def request():
-            _, o = estep(net, batch_to_device(b, device))
-            o.cpu()
-            torch.cuda.synchronize()
-        for _ in range(3):
-            request()
-        req_lat = []
-        for _ in range(reps):
-            t0 = time.perf_counter()
-            request()
-            req_lat.append((time.perf_counter() - t0) * 1e3)
-        busy = None
-        if bs == 1024:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                float(train_step(net, opt, tb, loss_kind="ce"))
-                torch.cuda.synchronize()
-            busy, ops = _device_ops(prof)
-            with open(os.path.join(OUT_DIR, "profile_att_train_1024.txt"),
-                      "w") as fh:
-                fh.write(prof.key_averages().table(
-                    sort_by="self_device_time_total", row_limit=40))
-            kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
-                           for e in ops if f"{k}_kernel" in e.key)
-                    for k in ATT_KERNELS}
-            if min(kern.values()) <= 0:
-                raise RuntimeError(f"att-times: no device time for {kern}")
+        b, tb, cfg, net, rec, idle = _att_latency("adv", bs, device, gen)
         # the kernels alone, on the inputs the main path gives them
         mpnn = net.mpnn
         with torch.no_grad():
@@ -2010,24 +2084,17 @@ def phase_att_times(device, card):
         bounds = _att_bounds(b, cfg.mpnn.node_features,
                              2 * cfg.mpnn.node_features, aprime.shape[0],
                              cfg.mpnn.set2vec_steps)
-        rec = {"step_ms": statistics.median(step_lat),
-               "request_ms": statistics.median(req_lat)}
         for name in ATT_KERNELS:
             rec[name] = dict(ms=times[name], plain_ms=plain[name],
                              bound_ms=bounds[name][0],
                              bound_by=bounds[name][1])
         out[bs] = rec
-        idle = "" if busy is None else (
-            f"; one train step's device busy {busy:.1f} us in "
-            f"{sum(e.count for e in ops)} device ops, idle share "
-            f"{1 - busy / (rec['step_ms'] * 1e3):.3f}, kernels in the trace "
-            + ", ".join(f"{k} {v:.1f} us" for k, v in kern.items()))
         lines.append(
             f"adv batch {bs} (nodes {int(b['node_mask'].sum())}/"
             f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
             f"{b['edge_src'].shape[0]}, vocab {aprime.shape[0]}): request "
             f"median {rec['request_ms']:.3f} ms, train step median "
-            f"{rec['step_ms']:.3f} ms ({reps} reps each){idle}; "
+            f"{rec['step_ms']:.3f} ms (20 reps each){idle}; "
             + ", ".join(
                 f"{name} {times[name] * 1e3:.2f} us (events"
                 + (f"; with the training stash {t_train[name] * 1e3:.2f} us"
@@ -2037,6 +2104,233 @@ def phase_att_times(device, card):
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
                 f"{bounds[name][3] / 1e6:.3f} MB)" for name in ATT_KERNELS))
     print(f"att-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the T-step attention model att (att_classification): phases 18-21
+# ---------------------------------------------------------------------------
+
+# (per-step message tables, state norm, the 'att' aggregation): the att
+# model's own first, then the other modes the kernels take
+ATTS_MODES = [(True, "stateless", False), (True, "none", False),
+              (False, "stateless", False), (True, "stateless", True)]
+
+
+def _atts_case(tb, gen, device, tm):
+    """fused_att_steps' arguments on a device batch, h0 its masked node
+    features, Tm random message tables (A' of vid 0 not zero) and a random
+    GRU: (args, leaves), every leaf requiring grad."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+    mask = tb["node_mask"]
+    f = int(tb["node_feats"].shape[1])
+    k = int(tb["edge_vfirst"].shape[0])
+    h0 = (tb["node_feats"] * mask).contiguous()
+    gru = {"w_ih": r(f, 3 * f, s=0.3), "w_hh": r(f, 3 * f, s=0.3),
+           "b_ih": r(3 * f, s=0.1), "b_hh": r(3 * f, s=0.1)}
+    aw = dict(aprime=r(tm, k, f, f, s=0.3), a0=r(tm, f, f, s=0.3),
+              qv=r(tm, k, f), q0=r(tm, f), wh=r(tm, f, f, s=0.5))
+    leaves = [*aw.values(), h0, *gru.values()]
+    for t in leaves:
+        t.requires_grad_()
+    args = (aw["aprime"], aw["a0"], aw["qv"], aw["q0"], aw["wh"], h0, mask,
+            tb["node_graph"], gru, tb["edge_vid"], tb["edge_src"],
+            tb["edge_dst"], plan_from_batch(tb))
+    return args, leaves
+
+
+def phase_atts_kernel_check(device):
+    """The two att-steps kernels against their plain versions on the card
+    (rtol 1e-4, atol 1e-5; gradient leaves divided by their max abs): the
+    att model's widths (f 7, T 3) at batch 1024 in the four modes (per-step
+    or shared message tables, the stateless norm or none, 'adj' or 'att'),
+    and a ragged batch (single-atom molecules, padded edges, a padded graph
+    slot) in two; each case also through the serving launch (no
+    residuals)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    gen = torch.Generator().manual_seed(51)
+    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    ragged = _ragged_att_batch(device)
+
+    def name(per_step, norm, corr):
+        return (f"{'per-step' if per_step else 'shared'}/{norm}/"
+                f"{'att' if corr else 'adj'}")
+    cases = [(f"batch1024 {name(*m)}", b1024, *m) for m in ATTS_MODES] + [
+        (f"ragged {name(*m)}", ragged, *m)
+        for m in (ATTS_MODES[0], (False, "none", True))]
+    worst = dict.fromkeys(ATTS_KERNELS, 0.0)
+    results, failed = [], []
+    for what, tb, per_step, norm, corr in cases:
+        args, leaves = _atts_case(tb, gen, device, 3 if per_step else 1)
+        cw = torch.randn(args[5].shape, generator=gen).to(device)
+        kw = dict(steps=3, with_corr=corr, state_norm=norm)
+        got = _fwd_and_grads(AS.fused_att_steps, args, leaves, cw, kw)
+        torch.cuda.synchronize()
+        want = _fwd_and_grads(AS.fused_att_steps_reference, args, leaves, cw,
+                              kw)
+        ok_f, ef, ok_b, eb = _fwd_bwd_errors(got, want)
+        with torch.no_grad():
+            served = AS.fused_att_steps(*args, **kw)
+        torch.cuda.synchronize()
+        ok_s, es, _ = _within(served, want[0])
+        worst["fused_att_steps_fwd"] = max(worst["fused_att_steps_fwd"], ef,
+                                           es)
+        worst["fused_att_steps_bwd"] = max(worst["fused_att_steps_bwd"], eb)
+        ok = ok_f and ok_b and ok_s
+        n, g = int(tb["node_mask"].shape[0]), int(tb["graph_mask"].shape[0])
+        results.append(
+            f"{what} (nodes {int(tb['node_mask'].sum())}/{n} slots, G={g}, "
+            f"edges {int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}):"
+            f" fwd {ef:.2e} (serving {es:.2e}) bwd {eb:.2e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+    print(f"atts-kernel-check: fused_att_steps_fwd/bwd vs "
+          f"fused_att_steps_reference and autograd through it (T 3; "
+          f"cotangent Σ h·c; forward max abs error, rtol {RTOL} atol "
+          f"{ATOL}; gradient leaves divided by their max abs, max error, "
+          f"rtol {RTOL} atol {ATOL}): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"att-steps kernels disagree with their plain "
+                           f"versions: {failed}")
+    return worst
+
+
+def _atts_bounds(b, f, k, T, tm, with_corr, stateless):
+    """Least times of the two att-steps kernels' work on this batch, each
+    the larger of its float32 operations over the peak CUDA-core rate and
+    its bytes (each input read once, each output written once; the
+    training residuals — Tm message slots, T pre-norm states, T means and
+    vars — written by the forward and read by the backward) over HBM
+    bandwidth. Real nodes and edges, every graph slot. The forward as the
+    serving path runs it (no residuals); a transcendental counts as one
+    operation."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    g = float(b["graph_mask"].shape[0])
+    gemv = 2 * f * 3 * f                            # f → 3f gate GEMV
+    corr = 1 if with_corr else 0
+    weights = tm * (k * f * f + 2 * f * f + k * f + f) + 6 * f * f + 6 * f
+    idx = er * 3 + nr + 1 + g + 1                  # vid, src, order, ptrs
+    # per message step: the gate (5f), g (f), A'·g per edge, Σ h0[u] for
+    # the correction; h0·Wh per node, and S_g, g0, X, g0 ⊙ X and A0·(g0 ⊙ X)
+    edge_f = 6 * f + corr * f + 2 * f * f
+    node_f = 2 * f * f + corr * (f + 5 * f + 2 * f + 2 * f * f)
+    # per step and node: the GRU (two gate GEMVs, the blend) and the
+    # stateless norm (Σx, Σ(x − m)², the normalization)
+    chain_f = 2 * gemv + 15 * f + (6 * f if stateless else 0)
+    fwd = (tm * (er * edge_f + nr * node_f) + T * nr * chain_f,
+           4 * (nr * f + idx + weights + nr * f))
+    resid = tm * nr * f + T * nr * f + 2 * T * f
+    # backward, per step and node: the norm VJP with its two batch sums
+    # (8f), the gate pre-activations recomputed (2 GEMVs) and their VJP
+    # (2 transposed GEMVs, 2 outer products, ~35f); per message step and
+    # edge: the gate and g recomputed (6f), A'ᵀ·dm (2f²), the softmax VJP
+    # (6f), ∂A' (2f²), ∂qv and ∂h0[u] (f each), and the correction's Σ
+    # h0[u] and −dX at the source (3f); per message step and node: h0·Wh
+    # recomputed, ∂Wh and Wh·dz (2f² each), Σ dz (f), and the
+    # correction's A0ᵀ·dm, ∂A0 (2f² each), g0 and its VJP (~13f)
+    chain_b = 6 * gemv + 35 * f + (8 * f if stateless else 0)
+    edge_b = 6 * f + 4 * f * f + 8 * f + corr * 3 * f
+    node_b = 6 * f * f + f + corr * (4 * f * f + 13 * f)
+    bwd = (T * nr * chain_b + tm * (er * edge_b + nr * node_b),
+           4 * (nr * f + resid + nr * f + idx + 2 * er + nr + 1 + weights
+                + nr * f + weights))
+    out = {}
+    for name, (ops, nbytes) in zip(ATTS_KERNELS, (fwd, bwd)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def phase_atts_times(device, card):
+    """att at batch 16 and 1024: request and train-step latency (host
+    clock ending in a device sync), the two att-steps kernels' times (CUDA
+    events over repeated launches on the main path's inputs; the forward
+    as serving runs it, and with the training residuals) beside their
+    bounds and their plain versions' times, and the device idle share of
+    one profiled batch-1024 train step (set2vec's kernels are timed in
+    att-times)."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models.fused_train import _build_att_form_steps
+    out, lines = {}, []
+    gen = torch.Generator().manual_seed(59)
+    for bs in (16, 1024):
+        b, tb, cfg, net, rec, idle = _att_latency("att", bs, device, gen)
+        c = cfg.mpnn
+        meta = AS.AttsMeta(c.message_steps, c.aggregation == "att",
+                           c.state_norm == "stateless")
+        kw = dict(steps=meta.steps, with_corr=meta.with_corr,
+                  state_norm=c.state_norm)
+        mask, ng = tb["node_mask"], tb["node_graph"]
+        batch = (tb["edge_vid"], tb["edge_src"], tb["edge_dst"],
+                 plan_from_batch(tb))
+        # the kernels alone, on the inputs the main path gives them
+        with torch.no_grad():
+            h0 = (tb["node_feats"] * mask).contiguous()
+            form = _build_att_form_steps(net.mpnn, tb)
+            gru = {k: v.detach() for k, v in net.mpnn.gru.as_dict().items()}
+            weights = list(zip(AS._GRAD_LEAVES, (
+                *form, gru["w_ih"], gru["w_hh"], gru["b_ih"], gru["b_hh"])))
+            pe = AS.prepare_fused_att_steps_fwd(weights, h0, mask, ng,
+                                                *batch, meta, train=False)
+            pt = AS.prepare_fused_att_steps_fwd(weights, h0, mask, ng,
+                                                *batch, meta, train=True)
+            times = {"fused_att_steps_fwd": _events_ms(
+                lambda: K.launch_prepared(pe), 100)}
+            t_train = _events_ms(lambda: K.launch_prepared(pt), 100)
+            plain = {"fused_att_steps_fwd": _events_ms(
+                lambda: AS.fused_att_steps_reference(*form, h0, mask, ng,
+                                                     gru, *batch, **kw), 10)}
+            h, msgs, htil, stats = K.launch_prepared(pt)
+            gh = torch.randn(h.shape, generator=gen).to(device)
+            pb = AS.prepare_fused_att_steps_bwd(weights, h0, msgs, htil,
+                                                stats, gh, *batch, meta)
+            times["fused_att_steps_bwd"] = _events_ms(
+                lambda: K.launch_prepared(pb), 100)
+        leaves = [t.clone().requires_grad_() for _, t in weights] + [
+            h0.clone().requires_grad_()]
+        h_ref = AS.fused_att_steps_reference(
+            *leaves[:5], leaves[9], mask, ng,
+            dict(zip(("w_ih", "w_hh", "b_ih", "b_hh"), leaves[5:9])),
+            *batch, **kw)
+        obj = (h_ref * gh).sum()
+        plain["fused_att_steps_bwd"] = _events_ms(lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True, allow_unused=True), 5)
+        bounds = _atts_bounds(b, c.node_features, form[0].shape[1],
+                              meta.steps, form[0].shape[0], meta.with_corr,
+                              meta.stateless)
+        for name in ATTS_KERNELS:
+            rec[name] = dict(ms=times[name], plain_ms=plain[name],
+                             bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1])
+        out[bs] = rec
+        lines.append(
+            f"att batch {bs} (nodes {int(b['node_mask'].sum())}/"
+            f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
+            f"{b['edge_src'].shape[0]}, vocab {form[0].shape[1]}, Tm "
+            f"{form[0].shape[0]}): request median {rec['request_ms']:.3f} "
+            f"ms, train step median {rec['step_ms']:.3f} ms (20 reps each)"
+            f"{idle}; " + ", ".join(
+                f"{name} {times[name] * 1e3:.2f} us (events"
+                + (f"; with the training residuals {t_train * 1e3:.2f} us"
+                   if name == "fused_att_steps_fwd" else "")
+                + f"), plain {plain[name] * 1e3:.1f} us, bound "
+                f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.2f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in ATTS_KERNELS))
+    print(f"atts-times [{card}]: " + "; ".join(lines), flush=True)
     return out
 
 
@@ -2067,6 +2361,11 @@ def main() -> int:
     for k, v in phase_att_train(device).items():
         att_counts[k] += v
     att_times = phase_att_times(device, card)
+    atts_worst = phase_atts_kernel_check(device)
+    atts_counts = phase_att_serve(device, "att")
+    for k, v in phase_att_train(device, "att").items():
+        atts_counts[k] += v
+    atts_times = phase_atts_times(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -2100,12 +2399,24 @@ def main() -> int:
                  "set2vec_fwd": "set2vec.py:84",
                  "set2vec_bwd": "set2vec.py:180"}
     for name in ATT_KERNELS:
+        # set2vec reads out both attention models: launches on both paths
         tt = att_times[1024][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/{att_sites[name]}",
-            "launches": att_counts[name], "max_abs_err": att_worst[name],
+            "launches": att_counts[name] + atts_counts[name],
+            "max_abs_err": att_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    for name, line in zip(ATTS_KERNELS, (561, 634)):
+        tt = atts_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/fused_att.py:{line}",
+            "launches": atts_counts[name], "max_abs_err": atts_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

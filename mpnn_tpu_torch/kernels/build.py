@@ -33,6 +33,8 @@ SOURCES: Dict[str, str] = {
     "fused_att_bwd": "fused_att_bwd.cu",
     "set2vec_fwd": "set2vec_fwd.cu",
     "set2vec_bwd": "set2vec_bwd.cu",
+    "fused_att_steps_fwd": "fused_att_steps_fwd.cu",
+    "fused_att_steps_bwd": "fused_att_steps_bwd.cu",
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

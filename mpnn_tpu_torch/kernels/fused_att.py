@@ -54,15 +54,11 @@ def reset_launch_counts() -> None:
 # plain version (CPU path; the card's comparison baseline)
 # ---------------------------------------------------------------------------
 
-def fused_att_reference(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru,
-                        vid, src, dst, plan: FusedEvalPlan, *,
-                        with_corr: bool = True):
-    """Plain PyTorch version of the op, make_fused_att_op's arguments minus
-    the TPU window plan plus the index plan (its graph count only is
-    read): aprime (K, f, f), a0 (f, f), qv (K, f), q0 (f), wh (f, f), h0
-    PRE-MASKED (N, f), mask (N, 1), GRU weights in the JAX layout.
-    Returns h (N, f)."""
-    num_graphs = plan.graph_node_ptr.shape[0] - 1
+def att_messages(aprime, a0, qv, q0, wh, h0, mask, node_graph, vid, src,
+                 dst, num_graphs: int, *, with_corr: bool):
+    """The masked gated messages (N, f) of one message network, in plain
+    PyTorch: aprime (K, f, f), a0 (f, f), qv (K, f), q0 (f), wh (f, f), h0
+    PRE-MASKED (N, f), mask (N, 1)."""
     vid, src, dst = vid.long(), src.long(), dst.long()
     zh = h0 @ wh                                      # (N, f) per node
     hs = h0[src]
@@ -75,7 +71,20 @@ def fused_att_reference(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru,
         s = h0.new_zeros((num_graphs + 1, h0.shape[1])).index_add(0, ng, h0)
         x = s[ng] - torch.zeros_like(h0).index_add(0, dst, hs)
         agg = agg + (g0 * x) @ a0.T
-    msgs = agg * mask
+    return agg * mask
+
+
+def fused_att_reference(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru,
+                        vid, src, dst, plan: FusedEvalPlan, *,
+                        with_corr: bool = True):
+    """Plain PyTorch version of the op, make_fused_att_op's arguments minus
+    the TPU window plan plus the index plan (its graph count only is
+    read): aprime (K, f, f), a0 (f, f), qv (K, f), q0 (f), wh (f, f), h0
+    PRE-MASKED (N, f), mask (N, 1), GRU weights in the JAX layout.
+    Returns h (N, f)."""
+    msgs = att_messages(aprime, a0, qv, q0, wh, h0, mask, node_graph, vid,
+                        src, dst, plan.graph_node_ptr.shape[0] - 1,
+                        with_corr=with_corr)
     return K._gru(gru, msgs @ gru["w_ih"] + gru["b_ih"], h0 * mask, mask)
 
 
@@ -225,18 +234,18 @@ def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
 
 class _FusedAtt(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its VJP. Inputs:
-    with_corr, the 9 weight leaves (_GRAD_LEAVES order), h0, then the
-    non-differentiable batch tensors and the plan. Output h (N, f)."""
+    with_corr, write_msgs (K.records_grad of the leaves), the 9 weight
+    leaves (_GRAD_LEAVES order), h0, then the non-differentiable batch
+    tensors and the plan. Output h (N, f)."""
 
     @staticmethod
-    def forward(ctx, with_corr, *args):
+    def forward(ctx, with_corr, write_msgs, *args):
         weights = list(zip(_GRAD_LEAVES, args[:9]))
         h0, mask, node_graph, vid, src, dst = args[9:15]
         plan = FusedEvalPlan(*args[15:])
-        grad = any(ctx.needs_input_grad[1:11])
         h, msgs = K.launch_prepared(prepare_fused_att_fwd(
             weights, h0, mask, node_graph, vid, src, dst, plan,
-            with_corr=with_corr, write_msgs=grad))
+            with_corr=with_corr, write_msgs=write_msgs))
         ctx.with_corr = with_corr
         ctx.save_for_backward(*args, msgs)
         return h
@@ -252,7 +261,7 @@ class _FusedAtt(torch.autograd.Function):
             weights, h0, msgs, gh.contiguous(), vid, src, dst, plan,
             with_corr=ctx.with_corr))
         grads = split_grads(dw, args[0].shape[0], h0.shape[1])
-        return (None, *(grads[name] for name in _GRAD_LEAVES), dh0,
+        return (None, None, *(grads[name] for name in _GRAD_LEAVES), dh0,
                 *([None] * (len(args) - 10)))
 
 
@@ -267,7 +276,7 @@ def fused_att(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru, vid, src,
         return fused_att_reference(aprime, a0, qv, q0, wh, h0, mask,
                                    node_graph, gru, vid, src, dst, plan,
                                    with_corr=with_corr)
-    return _FusedAtt.apply(
-        bool(with_corr), aprime, a0, qv, q0, wh, gru["w_ih"],
-        gru["w_hh"], gru["b_ih"], gru["b_hh"], h0, mask, node_graph, vid,
-        src, dst, *plan)
+    leaves = (aprime, a0, qv, q0, wh, gru["w_ih"], gru["w_hh"],
+              gru["b_ih"], gru["b_hh"], h0)
+    return _FusedAtt.apply(bool(with_corr), K.records_grad(*leaves),
+                           *leaves, mask, node_graph, vid, src, dst, *plan)

@@ -1,0 +1,319 @@
+"""The T-step attention family's message + GRU + norm op (the `att` model,
+models/att_model.py's composition): counterpart of
+mpnn_tpu/kernels/fused_att.py::make_fused_att_steps_op (Pallas
+`_att_steps_fwd_kernel` with its edge body `_att_steps_edge_fwd`, and
+`_att_steps_bwd_kernel`).
+
+With Tm message networks (Tm = T per-step, or 1 when the steps share one),
+each giving message tables over the INITIAL state h0 (fused_att.py::
+att_messages: the gate softmax_feat(h0[dst]·Wh_t + qv_t[k]), A'_t[k]·(gate
+⊙ h0[src]) summed per destination, and with the 'att' aggregation the
+rank-1 non-edge correction A0_t·(g0 ⊙ (S_g − Σ_e h0[src]))):
+
+    h = h0
+    for t < T:  h = GRU(m_{min(t, Tm−1)}, h)            (the EVOLVING state)
+                h = mask_batch_norm(h)    (the stateless norm, or none)
+
+`fused_att_steps` is a torch.autograd.Function whose forward and backward
+are one cooperative CUDA launch each (csrc/fused_att_steps_fwd.cu,
+csrc/fused_att_steps_bwd.cu). The stateless norm has no parameters and no
+running state, so serving and training share the forward; the training
+forward also writes the residuals the backward reads (the Tm message
+slots, the T pre-norm states, each step's mean and var), which serving
+skips. CPU tensors run the plain version fused_att_steps_reference (under
+autograd); CUDA tensors launch the kernels or raise — no fallback. The
+index plan is graphs/batching.py::plan_fused_eval's; the backward's source
+order is built on the device (kernels/fused_step.py::source_order).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict, NamedTuple
+
+import torch
+
+from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
+from mpnn_tpu_torch.kernels import fused_step as K
+from mpnn_tpu_torch.kernels.fused_att import att_messages
+from mpnn_tpu_torch.ops.norm import mask_batch_norm
+
+# the widest f, the largest vocab and the most steps the kernels take
+MAX_WIDTH = 16
+MAX_VOCAB = 64
+MAX_STEPS = 8
+STATE_NORMS = ("stateless", "none")
+
+launch_counts: Dict[str, int] = {"fused_att_steps_fwd": 0,
+                                 "fused_att_steps_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def _check_shape(who: str, tm: int, steps: int, state_norm: str) -> None:
+    if state_norm not in STATE_NORMS:
+        raise NotImplementedError(
+            f"{who}: state_norm={state_norm!r}; the op takes {STATE_NORMS}")
+    if tm not in (steps, 1):
+        raise ValueError(f"{who}: {tm} message tables for {steps} steps; "
+                         "expected one per step, or one shared")
+
+
+# ---------------------------------------------------------------------------
+# plain version (CPU path; the card's comparison baseline)
+# ---------------------------------------------------------------------------
+
+def fused_att_steps_reference(aprime, a0, qv, q0, wh, h0, mask, node_graph,
+                              gru, vid, src, dst, plan: FusedEvalPlan, *,
+                              steps: int, with_corr: bool = False,
+                              state_norm: str = "stateless"):
+    """Plain PyTorch version of the op, make_fused_att_steps_op's
+    arguments minus the TPU window plan plus the index plan (its graph
+    count only is read): aprime (Tm, K, f, f), a0 (Tm, f, f), qv (Tm, K, f),
+    q0 (Tm, f), wh (Tm, f, f), h0 PRE-MASKED (N, f), mask (N, 1), GRU
+    weights in the JAX layout. Returns h (N, f)."""
+    tm = aprime.shape[0]
+    _check_shape("fused_att_steps", tm, steps, state_norm)
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    msgs = [att_messages(aprime[t], a0[t], qv[t], q0[t], wh[t], h0, mask,
+                         node_graph, vid, src, dst, num_graphs,
+                         with_corr=with_corr) for t in range(tm)]
+    h = h0 * mask
+    for t in range(steps):
+        m = msgs[min(t, tm - 1)]
+        h = K._gru(gru, m @ gru["w_ih"] + gru["b_ih"], h, mask)
+        if state_norm == "stateless":
+            h = mask_batch_norm(h, mask)
+    return h
+
+
+# ---------------------------------------------------------------------------
+# the CUDA kernels' libraries
+# ---------------------------------------------------------------------------
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "fused_att_steps_fwd": {
+        "mpnn_fused_att_steps_fwd": ([_P] * 20 + [_I] * 10 + [_P], _I),
+        "mpnn_fused_att_steps_fwd_smem_bytes": ([_I] * 3, _I),
+        "mpnn_fused_att_steps_fwd_scratch_floats": ([_I], ctypes.c_longlong),
+        "mpnn_fused_att_steps_fwd_grid": ([_I] * 6, _I),
+    },
+    "fused_att_steps_bwd": {
+        "mpnn_fused_att_steps_bwd": ([_P] * 25 + [_I] * 10 + [_P], _I),
+        "mpnn_fused_att_steps_bwd_smem_bytes": ([_I] * 4, _I),
+        "mpnn_fused_att_steps_bwd_layout": ([_I, _I, _I, _P], None),
+        "mpnn_fused_att_steps_bwd_scratch_floats": ([_I] * 7,
+                                                    ctypes.c_longlong),
+        "mpnn_fused_att_steps_bwd_grid": ([_I] * 7, _I),
+    },
+}
+
+
+def _lib(name: str):
+    return K._lib(name, _SIGNATURES)
+
+
+# the differentiable leaves, in the kernels' argument order and the
+# backward's flat gradient layout (csrc/fused_att_steps_bwd.cu::
+# AttsGradLayout)
+_GRAD_LEAVES = ("aprime", "a0", "qv", "q0", "wh", "w_ih", "w_hh", "b_ih",
+                "b_hh")
+
+
+def _leaf_shapes(tm: int, k_vocab: int, f: int):
+    return [(tm, k_vocab, f, f), (tm, f, f), (tm, k_vocab, f), (tm, f),
+            (tm, f, f), (f, 3 * f), (f, 3 * f), (3 * f,), (3 * f,)]
+
+
+def grad_layout(tm: int, k_vocab: int, f: int) -> Dict[str, tuple]:
+    """{leaf: (offset, shape)} of the backward kernel's flat gradient."""
+    out, off = {}, 0
+    for name, shape in zip(_GRAD_LEAVES, _leaf_shapes(tm, k_vocab, f)):
+        out[name] = (off, shape)
+        off += math.prod(shape)
+    out["total"] = (off, ())
+    return out
+
+
+def split_grads(dw: torch.Tensor, tm: int, k_vocab: int, f: int):
+    """The flat gradient as {leaf: view of its shape}."""
+    return {name: dw[off:off + math.prod(shape)].view(shape)
+            for name, (off, shape) in grad_layout(tm, k_vocab, f).items()
+            if name != "total"}
+
+
+class AttsMeta(NamedTuple):
+    steps: int
+    with_corr: bool
+    stateless: bool
+
+
+def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
+                  meta: AttsMeta):
+    """Device, dtype, shape and contiguity of every kernel input and the
+    batch layout (one sync); returns (n, f, tm, k_vocab, e, num_graphs)."""
+    device = h0.device
+    if device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {device}")
+    n, f = h0.shape
+    w = dict(weights)
+    tm, k_vocab = w["aprime"].shape[:2]
+    e = src.shape[0]
+    num_graphs = plan.graph_node_ptr.shape[0] - 1
+    if f > MAX_WIDTH or k_vocab > MAX_VOCAB or meta.steps > MAX_STEPS:
+        raise NotImplementedError(
+            f"{who}: f={f}, K={k_vocab}, steps={meta.steps}; the kernels "
+            f"take f up to {MAX_WIDTH}, a vocab of up to {MAX_VOCAB} and up "
+            f"to {MAX_STEPS} steps")
+    for name, shape in zip(_GRAD_LEAVES, _leaf_shapes(tm, k_vocab, f)):
+        K._check(name, w[name], shape, device, torch.float32)
+    K._check("h0", h0, (n, f), device, torch.float32)
+    K._check("mask", mask, (n, 1), device, torch.float32)
+    for name, t in [("vid", vid), ("src", src), ("dst", dst)]:
+        K._check(name, t, (e,), device, torch.int32)
+    K._check("node_graph", node_graph, (n,), device, torch.int32)
+    K._check_plan(plan, device, n, e, num_graphs)
+    K.check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
+                         num_graphs, who=who)
+    return n, f, tm, k_vocab, e, num_graphs
+
+
+def prepare_fused_att_steps_fwd(weights, h0, mask, node_graph, vid, src, dst,
+                                plan: FusedEvalPlan, meta: AttsMeta, *,
+                                train: bool) -> K.PreparedLaunch:
+    """One checked forward launch: outputs h (N, f), the masked message
+    slots (Tm, N, f), the pre-norm states — (T, N, f) with `train`, else
+    one slot the kernel updates in place — and, with `train`, each step's
+    (mean, var) (T, 2, f) (else an empty tensor). `weights` is the (name,
+    tensor) list in _GRAD_LEAVES order."""
+    n, f, tm, k_vocab, e, g = _check_inputs(
+        "fused_att_steps", weights, h0, mask, node_graph, vid, src, dst,
+        plan, meta)
+    lib = _lib("fused_att_steps_fwd")
+    T = meta.steps
+    grid = K._grid(lib, "mpnn_fused_att_steps_fwd_grid", f, tm, k_vocab, T,
+                   n, g)
+    kw = dict(dtype=torch.float32, device=h0.device)
+    h = torch.empty(n, f, **kw)
+    msgs = torch.empty(tm, n, f, **kw)
+    htil = torch.empty(T if train else 1, n, f, **kw)
+    stats = torch.empty((T, 2, f) if train else (0,), **kw)
+    scratch = torch.empty(lib.mpnn_fused_att_steps_fwd_scratch_floats(n),
+                          **kw)
+    tensors = [t for _, t in weights] + [
+        h0, vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr,
+        h, msgs, htil, stats, scratch]
+    ptrs = [t.data_ptr() for t in tensors]
+    if not train:
+        ptrs[-2] = None
+    args = (*ptrs, n, g, f, k_vocab, T, tm, int(meta.with_corr),
+            int(meta.stateless), int(train), grid,
+            torch.cuda.current_stream(h0.device).cuda_stream)
+    return K.PreparedLaunch("fused_att_steps_fwd",
+                            lib.mpnn_fused_att_steps_fwd,
+                            lib.mpnn_cuda_error_string, args,
+                            (h, msgs, htil, stats), tuple(tensors),
+                            launch_counts)
+
+
+def prepare_fused_att_steps_bwd(weights, h0, msgs, htil, stats, gh, vid, src,
+                                dst, plan: FusedEvalPlan, meta: AttsMeta
+                                ) -> K.PreparedLaunch:
+    """One checked backward launch on the training forward's residuals
+    (the batch tensors as the forward checked them): outputs dh0 (N, f)
+    and the flat gradient of grad_layout."""
+    device = h0.device
+    n, f = h0.shape
+    w = dict(weights)
+    tm, k_vocab = w["aprime"].shape[:2]
+    e, g, T = src.shape[0], plan.graph_node_ptr.shape[0] - 1, meta.steps
+    for name, t, shape in [("msgs", msgs, (tm, n, f)),
+                           ("htil", htil, (T, n, f)),
+                           ("stats", stats, (T, 2, f)), ("gh", gh, (n, f))]:
+        K._check(name, t, shape, device, torch.float32)
+    lib = _lib("fused_att_steps_bwd")
+    layout = grad_layout(tm, k_vocab, f)
+    c_layout = (ctypes.c_int * 10)()
+    lib.mpnn_fused_att_steps_bwd_layout(tm, k_vocab, f, c_layout)
+    if [v[0] for v in layout.values()] != list(c_layout):
+        raise RuntimeError("fused_att_steps_bwd: the gradient layout of the "
+                           "built library disagrees with grad_layout")
+    grid = K._grid(lib, "mpnn_fused_att_steps_bwd_grid", f, tm, k_vocab, T,
+                   n, g, e)
+    kw = dict(dtype=torch.float32, device=device)
+    dh0 = torch.empty(n, f, **kw)
+    dw = torch.empty(layout["total"][0], **kw)
+    scratch = torch.empty(lib.mpnn_fused_att_steps_bwd_scratch_floats(
+        n, e, k_vocab, f, T, tm, grid), **kw)
+    src_order, src_ptr = K.source_order(src, n)
+    tensors = [w[k] for k in _GRAD_LEAVES] + [
+        h0, msgs, htil, stats, gh, vid, src, dst, plan.edge_order,
+        plan.dst_ptr, src_order, src_ptr, plan.graph_node_ptr, dh0, dw,
+        scratch]
+    args = (*(t.data_ptr() for t in tensors), n, g, e, f, k_vocab, T, tm,
+            int(meta.with_corr), int(meta.stateless), grid,
+            torch.cuda.current_stream(device).cuda_stream)
+    return K.PreparedLaunch("fused_att_steps_bwd",
+                            lib.mpnn_fused_att_steps_bwd,
+                            lib.mpnn_cuda_error_string, args, (dh0, dw),
+                            tuple(tensors), launch_counts)
+
+
+class _FusedAttSteps(torch.autograd.Function):
+    """The forward kernel, with the backward kernel as its VJP. Inputs:
+    meta, train (K.records_grad of the leaves: write the residuals), the 9
+    weight leaves (_GRAD_LEAVES order), h0, then the non-differentiable
+    batch tensors and the plan. Output h (N, f)."""
+
+    @staticmethod
+    def forward(ctx, meta, train, *args):
+        weights = list(zip(_GRAD_LEAVES, args[:9]))
+        h0, mask, node_graph, vid, src, dst = args[9:15]
+        plan = FusedEvalPlan(*args[15:])
+        h, msgs, htil, stats = K.launch_prepared(prepare_fused_att_steps_fwd(
+            weights, h0, mask, node_graph, vid, src, dst, plan, meta,
+            train=train))
+        ctx.meta = meta
+        if train:
+            ctx.save_for_backward(*args, msgs, htil, stats)
+        return h
+
+    @staticmethod
+    def backward(ctx, gh):
+        saved = ctx.saved_tensors
+        args, (msgs, htil, stats) = saved[:-3], saved[-3:]
+        weights = list(zip(_GRAD_LEAVES, args[:9]))
+        h0, _mask, _ng, vid, src, dst = args[9:15]
+        plan = FusedEvalPlan(*args[15:])
+        dh0, dw = K.launch_prepared(prepare_fused_att_steps_bwd(
+            weights, h0, msgs, htil, stats, gh.contiguous(), vid, src, dst,
+            plan, ctx.meta))
+        tm, k_vocab = args[0].shape[:2]
+        grads = split_grads(dw, tm, k_vocab, h0.shape[1])
+        return (None, None, *(grads[name] for name in _GRAD_LEAVES), dh0,
+                *([None] * (len(args) - 10)))
+
+
+def fused_att_steps(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru, vid,
+                    src, dst, plan: FusedEvalPlan, *, steps: int,
+                    with_corr: bool = False, state_norm: str = "stateless"):
+    """The T-step message + GRU + norm op: h (N, f), differentiable in
+    aprime, a0, qv, q0, wh, the GRU weights and h0. Arguments as
+    fused_att_steps_reference. CPU tensors run the plain version under
+    autograd; CUDA tensors launch the forward kernel (and, in the backward
+    pass, the backward kernel) or raise."""
+    if h0.device.type == "cpu":
+        return fused_att_steps_reference(
+            aprime, a0, qv, q0, wh, h0, mask, node_graph, gru, vid, src, dst,
+            plan, steps=steps, with_corr=with_corr, state_norm=state_norm)
+    _check_shape("fused_att_steps", aprime.shape[0], steps, state_norm)
+    meta = AttsMeta(steps, bool(with_corr), state_norm == "stateless")
+    leaves = (aprime, a0, qv, q0, wh, gru["w_ih"], gru["w_hh"],
+              gru["b_ih"], gru["b_hh"], h0)
+    return _FusedAttSteps.apply(meta, K.records_grad(*leaves), *leaves, mask,
+                                node_graph, vid, src, dst, *plan)

@@ -305,6 +305,14 @@ def source_order(src: torch.Tensor, n: int):
     return order.to(torch.int32), ptr
 
 
+def records_grad(*tensors) -> bool:
+    """True when autograd records an op on `tensors`: grad mode is on and
+    one of them requires grad. A Function's needs_input_grad ignores
+    torch.no_grad, so the ops decide this before `apply`: serving writes
+    no residuals for a backward that never runs."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 class PreparedLaunch(NamedTuple):
     """A checked kernel call: the launch-count key, the C function, its
     arguments (pointers into `keep`), what it writes, the tensors that

@@ -257,15 +257,15 @@ def prepare_set2vec_bwd(leaves, x, graph_node_ptr, carry, att, gm,
 
 class _Set2Vec(torch.autograd.Function):
     """The forward kernel, with the backward kernel as its VJP. Inputs:
-    meta, the 10 leaves (_GRAD_LEAVES order), x, then mask, node_graph
-    and graph_node_ptr. Output m (G, 2w)."""
+    meta, stash (K.records_grad of the leaves), the 10 leaves
+    (_GRAD_LEAVES order), x, then mask, node_graph and graph_node_ptr.
+    Output m (G, 2w)."""
 
     @staticmethod
-    def forward(ctx, meta, *args):
+    def forward(ctx, meta, stash, *args):
         leaves, (x, mask, node_graph, gnp) = args[:10], args[10:]
-        grad = any(ctx.needs_input_grad[1:12])
         m, carry, att = K.launch_prepared(prepare_set2vec_fwd(
-            leaves, x, mask, node_graph, gnp, meta, stash=grad))
+            leaves, x, mask, node_graph, gnp, meta, stash=stash))
         ctx.meta = meta
         ctx.save_for_backward(*leaves, x, gnp, carry, att)
         return m
@@ -277,8 +277,8 @@ class _Set2Vec(torch.autograd.Function):
         dx, dw = K.launch_prepared(prepare_set2vec_bwd(
             leaves, x, gnp, carry, att, gm.contiguous(), ctx.meta))
         grads = split_grads(dw, x.shape[1])
-        return (None, *(grads[name] for name in _GRAD_LEAVES), dx, None,
-                None, None)
+        return (None, None, *(grads[name] for name in _GRAD_LEAVES), dx,
+                None, None, None)
 
 
 def set2vec(rparams, x, mask, node_graph, graph_node_ptr, *,
@@ -291,6 +291,7 @@ def set2vec(rparams, x, mask, node_graph, graph_node_ptr, *,
         return set2vec_reference(rparams, x, mask, node_graph,
                                  graph_node_ptr, time_steps=time_steps,
                                  batch_softmax=batch_softmax)
+    leaves = (*flat_leaves(rparams), x)
     return _Set2Vec.apply(S2vMeta(int(time_steps), bool(batch_softmax)),
-                          *flat_leaves(rparams), x, mask, node_graph,
-                          graph_node_ptr)
+                          K.records_grad(*leaves), *leaves, mask,
+                          node_graph, graph_node_ptr)

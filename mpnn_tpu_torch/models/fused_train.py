@@ -1,10 +1,11 @@
 """The MPNN core through the whole-step kernels (counterpart of
-mpnn_tpu/models/fused_train.py for the shared-weight, the per-step and the
-collapsed attention families): _build_a_form / _build_a_form_psteps /
-_build_att_form and fused_eval_eligible (both paths); fused_mpnn_eval
-(serving, one eval-kernel launch; the attention family one message+GRU
-and one set2vec launch); fused_mpnn_out and fused_flagship_loss (training,
-one forward and one backward launch of each kernel).
+mpnn_tpu/models/fused_train.py for the shared-weight, the per-step, and
+the collapsed and T-step attention families): _build_a_form /
+_build_a_form_psteps / _build_att_form / _build_att_form_steps and
+fused_eval_eligible (both paths); fused_mpnn_eval (serving, one
+eval-kernel launch; the attention families one message+GRU launch and one
+set2vec launch); fused_mpnn_out and fused_flagship_loss (training, one
+forward and one backward launch of each kernel).
 
 The plain PyTorch work left around the kernels is the per-step family's
 input transforms (tanh encoders, input bn1d), the edge-MLP vocab chain
@@ -21,12 +22,13 @@ import torch
 
 from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
 from mpnn_tpu_torch.kernels.fused_att import fused_att
+from mpnn_tpu_torch.kernels.fused_att_steps import fused_att_steps
 from mpnn_tpu_torch.kernels.fused_psteps import fused_psteps, fused_psteps_eval
 from mpnn_tpu_torch.kernels.fused_step import fused_eval, fused_step
 from mpnn_tpu_torch.kernels.set2vec import set2vec
 from mpnn_tpu_torch.models.config import MPNNConfig
-from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, shared_shape,
-                                        supported)
+from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, att_steps_shape,
+                                        shared_shape, supported)
 from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
                                           final_weights, input_transforms,
                                           mpnn_new_state, psteps_new_state,
@@ -65,36 +67,65 @@ def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
     return torch.stack(amats), torch.stack(a0s), mbias
 
 
-def _build_att_form(mpnn: MPNN, batch):
-    """The attention kernel's operands (mpnn_tpu/models/fused_train.py::
-    _build_att_form): aprime (K, mf, nf) = fold(pen_vocab) + Bf — the
-    per-vocab message matrices WITH the final bias, which the attention
-    message keeps per edge (unlike the edge network's A_k − A_0); a0 =
-    fold(pen0) + Bf, the non-edge matrix; qv (K, nf) = evocab·W_e + b, the
-    gate's per-vocab pre-activation; q0 = b, the zero edge's; wh =
-    attn.w[:nf], the h_dst block."""
-    cfg = mpnn.cfg
+def _att_form_of(mp, cfg: MPNNConfig, edge_feats, edge_vfirst):
+    """One attention message network's kernel operands (mpnn_tpu/models/
+    fused_train.py::_build_att_form): aprime (K, mf, nf) = fold(pen_vocab)
+    + Bf — the per-vocab message matrices WITH the final bias, which the
+    attention message keeps per edge (unlike the edge network's A_k −
+    A_0); a0 = fold(pen0) + Bf, the non-edge matrix; qv (K, nf) =
+    evocab·W_e + b, the gate's per-vocab pre-activation; q0 = b, the zero
+    edge's; wh = attn.w[:nf], the h_dst block."""
     nf, mf = cfg.node_features, cfg.message_features
-    mp = mpnn.message[0]
-    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
-    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                         batch["edge_vfirst"])
+    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg, edge_vfirst)
     wf, bf = final_weights(mp, nf, mf)
     aprime = torch.einsum("kp,pmf->kmf", pen_vocab, wf) + bf
     a0 = torch.einsum("p,pmf->mf", pen0[0], wf) + bf
-    evocab = edge_feats[batch["edge_vfirst"].long()]
+    evocab = edge_feats[edge_vfirst.long()]
     w = mp.attn.weight.t()                                  # (nf + ef, nf)
     qv = evocab @ w[nf:] + mp.attn.bias
-    return (aprime.contiguous(), a0.contiguous(), qv.contiguous(),
-            mp.attn.bias, w[:nf].contiguous())
+    return aprime, a0, qv, mp.attn.bias, w[:nf]
+
+
+def _build_att_form(mpnn: MPNN, batch):
+    """The collapsed attention kernel's operands: _att_form_of the one
+    (shared) message network, contiguous."""
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    return tuple(x.contiguous() for x in _att_form_of(
+        mpnn.message[0], mpnn.cfg, edge_feats, batch["edge_vfirst"]))
+
+
+def _build_att_form_steps(mpnn: MPNN, batch):
+    """The T-step attention kernel's operands (mpnn_tpu/models/
+    fused_train.py::_build_att_form_steps): each of the Tm message
+    networks folded by _att_form_of and stacked — aprime (Tm, K, f, f), a0
+    (Tm, f, f), qv (Tm, K, f), q0 (Tm, f), wh (Tm, f, f); Tm = T per-step,
+    1 shared (the kernel reuses slot 0)."""
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    forms = [_att_form_of(mp, mpnn.cfg, edge_feats, batch["edge_vfirst"])
+             for mp in mpnn.message]
+    return tuple(torch.stack(x).contiguous() for x in zip(*forms))
+
+
+def _att_readout(mpnn: MPNN, batch, h, h0) -> torch.Tensor:
+    """The attention families' readout on [h_T ‖ h0]: one set2vec launch,
+    or the plain graph-level readout."""
+    cfg = mpnn.cfg
+    mask, ng = batch["node_mask"], batch["node_graph"]
+    x = torch.cat([h, h0], dim=-1)
+    if cfg.readout == "set2vec":
+        return set2vec(mpnn.readout.as_jax(), x, mask, ng,
+                       batch["plan_graph_node_ptr"],
+                       time_steps=cfg.set2vec_steps,
+                       batch_softmax=cfg.set2vec_batch_softmax)
+    return sparse_graph_level_output(mpnn.readout, x, mask, ng,
+                                     batch["graph_mask"].shape[0])
 
 
 def fused_att_out(mpnn: MPNN, batch) -> torch.Tensor:
-    """The attention family through its kernels (mpnn_tpu/models/
-    fused_train.py::fused_att_out): gating, messages, the 'att'
-    correction and the GRU in one launch, then the set2vec readout in one
-    more (a graph-level readout stays plain PyTorch). Serves eval and
-    training alike — the family has no norms, so the state is empty.
+    """The collapsed attention family through its kernels (mpnn_tpu/
+    models/fused_train.py::fused_att_out): gating, messages, the 'att'
+    correction and the GRU in one launch, then the readout. Serves eval
+    and training alike — the family has no norms, so the state is empty.
     Returns out (G, output_dim)."""
     cfg = mpnn.cfg
     mask, ng = batch["node_mask"], batch["node_graph"]
@@ -104,14 +135,26 @@ def fused_att_out(mpnn: MPNN, batch) -> torch.Tensor:
                   batch["edge_vid"], batch["edge_src"], batch["edge_dst"],
                   plan_from_batch(batch),
                   with_corr=cfg.aggregation == "att")
-    x = torch.cat([h, h0], dim=-1)
-    if cfg.readout == "set2vec":
-        return set2vec(mpnn.readout.as_jax(), x, mask, ng,
-                       batch["plan_graph_node_ptr"],
-                       time_steps=cfg.set2vec_steps,
-                       batch_softmax=cfg.set2vec_batch_softmax)
-    return sparse_graph_level_output(mpnn.readout, x, mask, ng,
-                                     batch["graph_mask"].shape[0])
+    return _att_readout(mpnn, batch, h, h0)
+
+
+def fused_att_steps_out(mpnn: MPNN, batch) -> torch.Tensor:
+    """The T-step attention family (the att model) through its kernels:
+    the Tm message slots, T × [GRU → stateless norm or none] in one launch,
+    then the readout. The stateless norm has no running state, so eval and
+    training share it and the state is empty. Returns out (G,
+    output_dim)."""
+    cfg = mpnn.cfg
+    mask, ng = batch["node_mask"], batch["node_graph"]
+    h0 = (batch["node_feats"] * mask).contiguous()
+    aprime, a0, qv, q0, wh = _build_att_form_steps(mpnn, batch)
+    h = fused_att_steps(aprime, a0, qv, q0, wh, h0, mask, ng,
+                        mpnn.gru.as_dict(), batch["edge_vid"],
+                        batch["edge_src"], batch["edge_dst"],
+                        plan_from_batch(batch), steps=cfg.message_steps,
+                        with_corr=cfg.aggregation == "att",
+                        state_norm=cfg.state_norm)
+    return _att_readout(mpnn, batch, h, h0)
 
 
 def _norm_dicts(mods):
@@ -274,6 +317,9 @@ _SHARED = _Family(_shared_eval, _loss_free(_shared_train))
 _PSTEPS = _Family(_psteps_eval, _loss_free(_psteps_train))
 _ATT = _Family(fused_att_out,
                lambda mpnn, batch: (fused_att_out(mpnn, batch), {}))
+_ATT_STEPS = _Family(fused_att_steps_out,
+                     lambda mpnn, batch: (fused_att_steps_out(mpnn, batch),
+                                          {}))
 # the families whose training kernels carry the masked MSE:
 # (mpnn, batch, labels) -> (loss, out, new_state)
 _KERNEL_LOSS = {_SHARED: _shared_train, _PSTEPS: _psteps_train}
@@ -283,6 +329,8 @@ def _family(cfg: MPNNConfig) -> _Family:
     """The one place that tells the families apart on the kernel path."""
     if att_shape(cfg):
         return _ATT
+    if att_steps_shape(cfg):
+        return _ATT_STEPS
     return _SHARED if shared_shape(cfg) else _PSTEPS
 
 
@@ -297,12 +345,12 @@ def fused_flagship_loss(mpnn: MPNN, batch, labels):
     """The bare MPNN's training step through the kernels with the masked
     MSE in the kernel: (loss, out, new_state), new_state as
     models/sparse.py::mpnn_new_state (psteps_new_state) gives it. The
-    shared-weight and per-step families only: the attention kernels carry
-    no loss (their readout is a second kernel)."""
+    shared-weight and per-step families only: the attention families'
+    kernels carry no loss (their readout is a second kernel)."""
     train = _KERNEL_LOSS.get(_family(mpnn.cfg))
     if train is None:
         raise NotImplementedError(
-            "the attention family's kernels carry no in-kernel loss; use "
+            "the attention families' kernels carry no in-kernel loss; use "
             "fused_mpnn_out and the loss outside")
     return train(mpnn, batch, labels)
 

@@ -74,13 +74,30 @@ def att_shape(cfg: MPNNConfig) -> bool:
             and cfg.readout in ("set2vec", "graph_level"))
 
 
+def att_steps_shape(cfg: MPNNConfig) -> bool:
+    """The T-step attention family (the att model; mpnn_tpu/models/
+    fused_train.py:202-234 with update_hidden='state'): gated messages
+    from the INITIAL state with the 'att' or 'adj' aggregation, per-step or
+    shared message networks, GRU on the evolving state, the stateless norm
+    (or none) after each step, no message norm and no encoders."""
+    return (cfg.message_fn == "att_edge_network"
+            and cfg.aggregation in ("att", "adj")
+            and cfg.update_hidden == "state"
+            and cfg.message_input == "initial"
+            and cfg.msg_norm == "none"
+            and cfg.state_norm in ("stateless", "none")
+            and cfg.atom_encoder is None and cfg.bond_encoder is None
+            and not cfg.input_norm
+            and cfg.readout in ("set2vec", "graph_level"))
+
+
 def supported(cfg: MPNNConfig) -> bool:
     """The slice of the config space the port runs, exactly what the
     whole-step kernels compute: messages from the initial state, and
     either the edge network with GRU on the evolving state, the gated
     graph-level readout and the shared or the per-step family, or the
-    collapsed attention family (att_shape). Output norm (obn) is still to
-    port."""
+    collapsed (att_shape) or the T-step (att_steps_shape) attention
+    family. Output norm (obn) is still to port."""
     edge = (cfg.message_fn == "edge_network"
             and cfg.update_hidden == "state"
             and cfg.readout == "graph_level"
@@ -88,7 +105,7 @@ def supported(cfg: MPNNConfig) -> bool:
     return (cfg.message_input == "initial"
             and not cfg.output_norm
             and not cfg.concat_state_history
-            and (edge or att_shape(cfg)))
+            and (edge or att_shape(cfg) or att_steps_shape(cfg)))
 
 
 def check_supported(cfg: MPNNConfig) -> None:
@@ -97,9 +114,11 @@ def check_supported(cfg: MPNNConfig) -> None:
             "mpnn_tpu_torch runs the edge_network families with graph_level "
             "readout (shared weights with msg/state norm in {bn1d, none}, "
             "or per-step weights with state norm in {bn1d, stateless, "
-            "none}) and the collapsed attention family (att or adj "
-            "aggregation, GRU hidden = the initial state, no norms, set2vec "
-            "or graph_level readout); other configs (output_norm among "
+            "none}) and the attention families (att or adj aggregation, "
+            "set2vec or graph_level readout, no encoders: GRU hidden = the "
+            "initial state with shared weights and no norms, or the "
+            "evolving state with per-step or shared weights and the "
+            "stateless norm or none); other configs (output_norm among "
             "them) are still to port (ROADMAP)")
 
 

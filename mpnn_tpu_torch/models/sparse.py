@@ -20,8 +20,8 @@ import torch
 
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.kernels.set2vec import set2vec_reference
-from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, check_supported,
-                                        shared_shape)
+from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, att_steps_shape,
+                                        check_supported, shared_shape)
 from mpnn_tpu_torch.ops.autoencoders import tanh_encoder_apply
 from mpnn_tpu_torch.ops.message import (AttEdgeNetwork, EdgeNetwork,
                                         _edge_mlp_penultimate)
@@ -131,28 +131,37 @@ def sparse_set2vec(ro: Set2Vec, x, node_mask, node_graph, graph_node_ptr, *,
 
 
 def _sparse_att_apply(mpnn: MPNN, batch):
-    """The attention family's plain loop, as mpnn_tpu's sparse_mpnn_apply
-    runs it: messages from the initial state with the shared weights,
-    computed once, then `message_steps` GRU applications, each from the
-    INITIAL state (update_hidden='initial'); no norms, so training and
-    eval are one forward and the state is empty."""
+    """The attention families' plain loop, as mpnn_tpu's sparse_mpnn_apply
+    runs it: step t's messages from the INITIAL state through message
+    network t (per-step weights) or network 0 (shared weights: computed
+    once, as the JAX loop's msgs_const branch does), the GRU from the
+    previous state (update_hidden='state', the att model) or from the
+    initial one (update_hidden='initial', adv), the stateless norm after
+    each GRU where configured, then the readout on [h_T ‖ h0]. The only
+    norm is stateless, so training and eval are one forward and the state
+    is empty."""
     cfg = mpnn.cfg
     mask = batch["node_mask"]
     node_graph = batch["node_graph"]
     num_graphs = batch["graph_mask"].shape[0]
     h0 = batch["node_feats"] * mask
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
-    mp = mpnn.message[0]
-    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                         batch["edge_vfirst"])
-    msgs = sparse_att_edge_network(
-        mp, pen0, pen_vocab, h0, edge_feats, batch["edge_vid"],
-        batch["edge_src"], batch["edge_dst"], node_graph, num_graphs,
-        nf=cfg.node_features, mf=cfg.message_features,
-        aggregation=cfg.aggregation)
+    msgs = None
     h = h0
-    for _ in range(cfg.message_steps):
-        h = gru_apply(mpnn.gru, msgs, h0, mask)
+    for step in range(cfg.message_steps):
+        if msgs is None or not cfg.share_message_weights:
+            mp = mpnn.message[0 if cfg.share_message_weights else step]
+            pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
+                                                 batch["edge_vfirst"])
+            msgs = sparse_att_edge_network(
+                mp, pen0, pen_vocab, h0, edge_feats, batch["edge_vid"],
+                batch["edge_src"], batch["edge_dst"], node_graph,
+                num_graphs, nf=cfg.node_features, mf=cfg.message_features,
+                aggregation=cfg.aggregation)
+        hidden = h if cfg.update_hidden == "state" else h0
+        h = gru_apply(mpnn.gru, msgs, hidden, mask)
+        if cfg.state_norm == "stateless":
+            h = mask_batch_norm(h, mask)
     x = torch.cat([h, h0], dim=-1)
     if cfg.readout == "set2vec":
         return sparse_set2vec(mpnn.readout, x, mask, node_graph,
@@ -279,10 +288,10 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
     training mode normalizes with batch statistics and returns
     (out, new_state), new_state as mpnn_new_state (shared family) or
     psteps_new_state (per-step family) gives it, empty for the attention
-    family (no norms)."""
+    families (no norm with running state)."""
     cfg = mpnn.cfg
     check_supported(cfg)
-    if att_shape(cfg):
+    if att_shape(cfg) or att_steps_shape(cfg):
         out = _sparse_att_apply(mpnn, batch)
         return (out, {}) if training else out
     if not shared_shape(cfg):

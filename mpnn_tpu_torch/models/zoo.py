@@ -1,7 +1,7 @@
 """Named model configurations (counterpart of mpnn_tpu/models/zoo.py).
 The port carries the flagship `lipo`, the per-step family's `graph_norm`
-and `encoded`, and the attention model `adv`; the other families are
-still to port (ROADMAP).
+and `encoded`, and the attention models `adv` and `att`; the other
+families are still to port (ROADMAP).
 
 Naming trap: the `graph_norm` MODEL (test_graph_norm.py) has the `plain`
 input wrapper; the lipo shell's `graph_norm` WRAPPER is another thing."""
@@ -40,6 +40,20 @@ def adv(afm: int, bfm: int, nafm: int = 0, n_out: int = 4) -> NetworkConfig:
         head="linear", head_output=n_out, kaiming_head=False)
 
 
+def att(afm: int, bfm: int, nafm: int = 0, n_out: int = 4) -> NetworkConfig:
+    """att_model (models/att_model.py:6-59): AttEdgeNetwork messages with
+    the adjacency aggregation, PER-STEP message fns, stateless masked BN
+    after each GRU update (hidden = evolving state), Set2Vec readout."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=4 * afm, message_fn="att_edge_network",
+            aggregation="adj", message_steps=3,
+            share_message_weights=False, state_norm="stateless",
+            readout="set2vec"),
+        head="linear", head_output=n_out, kaiming_head=False)
+
+
 def graph_norm(afm: int, bfm: int, nafm: int = 0,
                n_out: int = 4) -> NetworkConfig:
     """normed_basic_model: per-step message fns + stateless masked BN."""
@@ -72,6 +86,7 @@ def encoded(afm: int = 30, bfm: int = 8, nafm: int = 0,
 ZOO: Dict[str, Callable[..., NetworkConfig]] = {
     "lipo": lipo,
     "adv": adv,
+    "att": att,
     "graph_norm": graph_norm,
     "encoded": encoded,
 }

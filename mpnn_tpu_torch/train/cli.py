@@ -15,12 +15,14 @@ Verbs (both run on `cuda` unless --device cpu):
            serving path, through the whole-step eval kernel.
 
 Experiments: lipo (regression), graph_norm_classification,
-encoded_classification and adv_classification (classification; the CSV's
-label column holds the classes, LabelEncoder-encoded over the file as the
-JAX package does). adv_classification stops training after the first
-epoch whose summed step loss is below 0.02; its set2vec readout
-normalizes attention over the whole batch, so a molecule's logits depend
-on the batch it is served in, as in the reference.
+encoded_classification, adv_classification and att_classification
+(classification; the CSV's label column holds the classes,
+LabelEncoder-encoded over the file as the JAX package does).
+adv_classification stops training after the first epoch whose summed step
+loss is below 0.02. The attention models' set2vec readout normalizes
+attention over the whole batch (and att's stateless norm takes batch
+statistics), so a molecule's logits depend on the batch it is served in,
+as in the reference.
 
 The checkpoint is the .npz either package writes (train/checkpoint.py).
 """

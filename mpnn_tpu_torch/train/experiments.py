@@ -2,8 +2,8 @@
 dataset flavor, model-zoo builder, loss and hyperparameters of each
 reference training script. The port carries the flagship `lipo`, the
 per-step family's `graph_norm_classification` and
-`encoded_classification`, and the attention model's
-`adv_classification`."""
+`encoded_classification`, and the attention models' `adv_classification`
+and `att_classification`."""
 
 from __future__ import annotations
 
@@ -41,6 +41,19 @@ _register(Experiment(
     train=TrainConfig(epochs=500, batch_size=16, learning_rate=1e-3,
                       loss="ce", early_stop_loss=0.02),
     notes="test_adv.py: MolGraphModelNoRep (AttEdge+AttAgg+Set2Vec)"))
+
+# models/att_model.py: AttEdgeNetwork + AdjMsgAgg + per-step fns +
+# stateless masked BN + Set2Vec; the reference composition has no training
+# script of its own, so the hyperparameters follow the sibling attention
+# script (test_adv.py) without its early stop, as the JAX package
+# registers it
+_register(Experiment(
+    name="att_classification", task="classification", model="att",
+    loss="ce",
+    train=TrainConfig(epochs=500, batch_size=16, learning_rate=1e-3,
+                      loss="ce"),
+    notes="models/att_model.py: per-step AttEdge + stateless BN + "
+          "Set2Vec (reference composition without a script of its own)"))
 
 # test_lipo.py: regression, Adam 1e-2 / wd 1e-4 + ReduceLROnPlateau,
 # batch 16, 1000 epochs

@@ -1,0 +1,136 @@
+// A CPU stand-in for the CUDA runtime pieces the port's kernels use, so a
+// kernel's logic can be run on a machine without nvcc or a card: one
+// std::thread per CUDA thread, std::barrier for __syncthreads, __syncwarp
+// and the cooperative grid.sync(), a per-warp exchange array for
+// __shfl_xor_sync, and the launch's dynamic shared memory filled with NaN
+// (an uninitialised read shows in the result). A cooperative launch runs
+// the whole grid at once, every block resident, as the card's co-residency
+// limit guarantees. Nothing here models timing, caches or memory ordering
+// beyond the barriers. scripts/cuda_emu/build.sh compiles a kernel source
+// against it; scripts/cuda_emu/check_att_steps.py runs two kernels with it.
+#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdio>
+#include <limits>
+#include <memory>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__
+#define __launch_bounds__(...)
+using std::max;
+using std::min;
+
+struct uint3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+inline thread_local uint3 threadIdx, blockIdx;
+inline thread_local dim3 blockDim, gridDim;
+
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+       cudaErrorInvalidConfiguration = 9 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
+
+struct EmuBlock {
+  std::vector<float> smem;
+  std::unique_ptr<std::barrier<>> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
+  float shfl[32][32];
+};
+inline thread_local EmuBlock* emu_block = nullptr;
+inline std::barrier<>* emu_grid_bar = nullptr;
+// the "SMs" of the emulated card, one block each: a grid of a few blocks
+// exercises the kernels' block-strided loops and cross-block reductions
+inline int emu_sms = 3;
+
+// the dynamic shared memory of the calling thread's block; build.sh turns
+// `extern __shared__ float x[];` into `float* x = (float*)emu_smem();`
+inline void* emu_smem() { return emu_block->smem.data(); }
+inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
+inline void __syncwarp() {
+  emu_block->warp_bar[threadIdx.x / 32]->arrive_and_wait();
+}
+inline float __shfl_xor_sync(unsigned, float v, int off) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_block->shfl[w][l] = v;
+  __syncwarp();
+  const float r = emu_block->shfl[w][l ^ off];
+  __syncwarp();
+  return r;
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __ldcg(const float* p) { return *p; }
+
+inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = emu_sms;
+  return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T,
+                                                                 int,
+                                                                 size_t) {
+  *n = 1;
+  return cudaSuccess;
+}
+template <class T>
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
+
+// Run `kernel` (a __global__ function taking one argument struct by value)
+// over grid × block threads.
+template <class Args>
+void emu_run(const void* kernel, void* arg, unsigned grid, unsigned block,
+             size_t smem) {
+  auto fn = (void (*)(Args))kernel;
+  Args args = *(Args*)arg;
+  std::barrier<> grid_bar(grid * block);
+  emu_grid_bar = &grid_bar;
+  std::vector<EmuBlock> blocks(grid);
+  for (auto& b : blocks) {
+    b.smem.assign(smem / sizeof(float) + 1,
+                  std::numeric_limits<float>::quiet_NaN());
+    b.bar.reset(new std::barrier<>(block));
+    for (unsigned w = 0; w < block / 32; ++w)
+      b.warp_bar.emplace_back(new std::barrier<>(32));
+  }
+  std::vector<std::thread> threads;
+  for (unsigned b = 0; b < grid; ++b)
+    for (unsigned t = 0; t < block; ++t)
+      threads.emplace_back([&, b, t] {
+        threadIdx = {t, 0, 0};
+        blockIdx = {b, 0, 0};
+        blockDim = dim3(block);
+        gridDim = dim3(grid);
+        emu_block = &blocks[b];
+        fn(args);
+      });
+  for (auto& t : threads) t.join();
+}
+
+// Set by the translation unit build.sh writes for each kernel source, which
+// knows the kernel's argument type; static, so every library keeps its own.
+static void (*emu_runner)(const void*, void*, unsigned, unsigned,
+                          size_t) = nullptr;
+
+inline cudaError_t cudaLaunchCooperativeKernel(const void* kernel, dim3 grid,
+                                               dim3 block, void** args,
+                                               size_t smem, cudaStream_t) {
+  emu_runner(kernel, args[0], grid.x, block.x, smem);
+  return cudaSuccess;
+}

@@ -650,3 +650,129 @@ def test_adv_serving_path_on_card():
                                  fused=False).cpu().numpy()
             for b in loader])
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the T-step attention family's kernels (fused_att_steps_fwd.cu,
+# fused_att_steps_bwd.cu)
+# ---------------------------------------------------------------------------
+
+def _atts_problem(rng, g, f=7, k=8, tm=3, device="cuda"):
+    """fused_att_steps' arguments on a _problem batch (ragged graphs,
+    padded edges on the dummy node with vid 0, whose A' is NOT zero) with
+    Tm random message tables, and {leaf: tensor} of its differentiable
+    arguments, each requiring grad."""
+    (_, _, _, h0, mask, ng, gru, _, _, _, _, _, vid, src, dst,
+     plan) = _problem(rng, g=g, f=f, od=4, k=k, device=device)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    w = {"aprime": t(rng.randn(tm, k, f, f) * 0.3),
+         "a0": t(rng.randn(tm, f, f) * 0.3), "qv": t(rng.randn(tm, k, f)),
+         "q0": t(rng.randn(tm, f)), "wh": t(rng.randn(tm, f, f) * 0.5)}
+    leaves = {**w, "h0": h0, **{f"gru/{n}": v for n, v in gru.items()}}
+    for x in leaves.values():
+        x.requires_grad_(True)
+    args = (w["aprime"], w["a0"], w["qv"], w["q0"], w["wh"], h0, mask, ng,
+            gru, vid, src, dst, plan)
+    return args, leaves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_step,state_norm,with_corr,g,f", [
+    (True, "stateless", False, 1024, 7), (True, "none", False, 1024, 7),
+    (False, "stateless", False, 1024, 7), (True, "stateless", True, 1024, 7),
+    (True, "stateless", False, 37, 7), (True, "stateless", True, 37, 16),
+    (False, "none", True, 37, 12)])
+def test_cuda_att_steps_kernels_match_plain_version(per_step, state_norm,
+                                                    with_corr, g, f):
+    """The att model's widths (f 7, T 3): the forward kernel against
+    fused_att_steps_reference, the backward against autograd through it,
+    in the four modes (per-step or shared tables, the stateless norm or
+    none, 'adj' or 'att') at batch 1024 and on ragged batches of 37; and
+    the f <= 16 builds (f 16 and 12). Then the serving launch (no grad:
+    no residuals) against the same output."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    rng = np.random.RandomState(g + f + 2 * per_step + with_corr)
+    args, leaves = _atts_problem(rng, g, f=f, tm=3 if per_step else 1)
+    cw = torch.as_tensor(rng.randn(*args[5].shape).astype(np.float32),
+                         device="cuda")
+    kw = dict(steps=3, with_corr=with_corr, state_norm=state_norm)
+    AS.reset_launch_counts()
+    got = _value_and_grads(AS.fused_att_steps, args, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert AS.launch_counts == {"fused_att_steps_fwd": 1,
+                                "fused_att_steps_bwd": 1}
+    want = _value_and_grads(AS.fused_att_steps_reference, args, leaves, cw,
+                            **kw)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+    with torch.no_grad():
+        h = AS.fused_att_steps(*args, **kw)
+    assert AS.launch_counts["fused_att_steps_fwd"] == 2
+    torch.testing.assert_close(h, want[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_att_steps_wrapper_raises_instead_of_falling_back():
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    args, _ = _atts_problem(np.random.RandomState(13), 64)
+    args = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+    AS.reset_launch_counts()
+    bad = list(args)
+    bad[0] = args[0].transpose(2, 3)                  # not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        AS.fused_att_steps(*bad, steps=3)
+    bad = list(args)
+    bad[5] = args[5].double()
+    with pytest.raises(TypeError, match="float32"):
+        AS.fused_att_steps(*bad, steps=3)
+    with pytest.raises(ValueError, match="3 message tables for 2 steps"):
+        AS.fused_att_steps(*args, steps=2)
+    wide, _ = _atts_problem(np.random.RandomState(14), 8,
+                            f=AS.MAX_WIDTH + 1)
+    with pytest.raises(NotImplementedError, match="f up to"):
+        AS.fused_att_steps(*wide, steps=3)
+    deep, _ = _atts_problem(np.random.RandomState(15), 8,
+                            tm=AS.MAX_STEPS + 1)
+    with pytest.raises(NotImplementedError, match="steps"):
+        AS.fused_att_steps(*deep, steps=AS.MAX_STEPS + 1)
+    assert set(AS.launch_counts.values()) == {0}
+
+
+@pytest.mark.gpu
+def test_att_serving_path_on_card():
+    """predict of the att model on cuda (one fused_att_steps_fwd and one
+    set2vec_fwd launch per request) against the plain model on cuda,
+    batch by batch."""
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.kernels import set2vec as S
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.cli import predict_batches
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    smiles = ["CC(C)Cc1ccc(cc1)C(C)C(=O)O", "CC(=O)Oc1ccccc1C(=O)O",
+              "c1ccncc1CCO", "C", "NC(=O)c1ccccc1", "CCN"] * 11
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(smiles,
+                                                     [0] * len(smiles)))
+    cfg = zoo.att(ge.atom_width(), ge.bond_width(), n_out=4)
+    net = network_init(cfg, torch.Generator().manual_seed(0), device)
+    loader = G.GraphLoader(gs, 16)
+    AS.reset_launch_counts()
+    S.reset_launch_counts()
+    got = np.concatenate(list(predict_batches(net, "ce", loader, device)))
+    assert AS.launch_counts == {"fused_att_steps_fwd": len(loader),
+                                "fused_att_steps_bwd": 0}
+    assert S.launch_counts == {"set2vec_fwd": len(loader),
+                               "set2vec_bwd": 0}
+    with torch.no_grad():
+        want = np.concatenate([
+            network_apply_packed(net, batch_to_device(b, device),
+                                 fused=False).cpu().numpy()
+            for b in loader])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
