@@ -92,6 +92,23 @@ Phases, one line each:
  21. atts-times — request and train-step latency at batch 16 and 1024,
                both kernels' times beside their bounds and their plain
                versions', and the b1024 train step's device idle share.
+ 22. mlp-kernel-check — the edge-MLP chain kernels (edge_mlp fwd/bwd, the
+               ×50 tail every model's A-form build runs once per message
+               network) against their plain version on the card: each
+               model's chain at its b1024 vocab rows, and pf 16, 49, 64
+               and 256 (rtol 1e-4, atol 1e-5 of each output's or leaf's
+               max abs). Phases 4, 7, 11, 12, 15, 16, 19 and 20 also check
+               their edge-MLP launches: one forward per message network per
+               forward launch of the model's kernels, one backward per
+               message network per backward launch;
+ 23. mlp-times — both chain kernels' times at those shapes beside their
+               bounds and the plain chain's time;
+ 24. wide  — lipo, graph_norm, adv and att from SMILES that featurize to
+               afm 27 (f 27-30, od up to 108, set2vec w 54): `predict` and
+               the `train` verb through every family's wide width bucket,
+               launch counts, the plain path (predictions, first 3 losses,
+               the first step's outputs and gradients), each kernel's
+               device time in a trace; lipo at f 33 raises.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -136,6 +153,39 @@ def _within(got, want):
     return ok, float(d.max()), rel
 
 
+# the edge-MLP chain kernels' launches on the main paths (the serve and
+# train phases of every model), summed; each of those phases checks its
+# own count: one forward per message network per forward launch of the
+# model's kernels, one backward per message network per backward launch
+MLP_KERNELS = ("edge_mlp_fwd", "edge_mlp_bwd")
+MLP_MAIN = dict.fromkeys(MLP_KERNELS, 0)
+
+
+def _nets(cfg):
+    """Message networks (each with its own edge-MLP chain) of a config."""
+    return 1 if cfg.share_message_weights else cfg.message_steps
+
+
+def _mlp_reset():
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    M.reset_launch_counts()
+
+
+def _mlp_take(what, nets, fwd, bwd):
+    """Check the edge-MLP launches since _mlp_reset() against `nets`
+    message networks times the model kernels' `fwd` forward and `bwd`
+    backward launches; add them to MLP_MAIN; return them."""
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    want = {"edge_mlp_fwd": nets * fwd, "edge_mlp_bwd": nets * bwd}
+    got = dict(M.launch_counts)
+    if got != want:
+        raise RuntimeError(f"{what}: edge-MLP launches {got}, the design's "
+                           f"count is {want} ({nets} message networks)")
+    for k, v in got.items():
+        MLP_MAIN[k] += v
+    return got
+
+
 def phase_device():
     import torch
     if not torch.cuda.is_available():
@@ -167,8 +217,9 @@ def phase_build():
             m = re.search(r"Compiling entry function '(\S+)'", line)
             if m:
                 t = re.search(r"Li(\d+)ELi(\d+)E", m.group(1))
-                k = re.search(r"\d((?:fused|set2vec)_[a-z_]+_kernel)[EI]",
-                              m.group(1))
+                k = re.search(
+                    r"\d((?:fused|set2vec|edge_mlp)_[a-z_]+_kernel)[EIv]",
+                    m.group(1))
                 w = re.search(r"_kernelILi(\d+)EE", m.group(1))
                 entry = (f"<{t.group(1)},{t.group(2)}>" if t
                          else f" {k.group(1)}" + (f"<{w.group(1)}>" if w
@@ -438,6 +489,7 @@ def phase_serve(device):
                 fh.write(f"{s},{0.01 * (i % 97) - 0.3}\n")
         buf = io.StringIO()
         K.reset_launch_counts()
+        _mlp_reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli.main(["predict", "--experiment", "lipo", "--data", csv,
@@ -445,6 +497,8 @@ def phase_serve(device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = K.launch_counts["fused_eval"]
+        mlp = _mlp_take(f"predict at batch {bs}", _nets(net.cfg.mpnn),
+                        launches, 0)
         recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
         preds = torch.tensor([r["pred"] for r in recs], dtype=torch.float64)
         n_req = -(-rows // bs)
@@ -469,7 +523,8 @@ def phase_serve(device):
                 for b in loader]).to(torch.float64)
         ok, mabs, mrel = _within(preds, plain)
         lines.append(f"batch {bs}: {rows} molecules in {n_req} requests, "
-                     f"{launches} kernel launches, {wall:.2f} s wall "
+                     f"{launches} kernel launches, edge-MLP {mlp}, "
+                     f"{wall:.2f} s wall "
                      f"(featurize+load+serve), pred range "
                      f"[{float(preds.min()):.4f}, {float(preds.max()):.4f}],"
                      f" vs plain path max_abs={mabs:.3e} max_rel={mrel:.3e}"
@@ -603,6 +658,12 @@ def _device_ops(prof):
     return busy, [e for e in prof.key_averages() if is_op(e)]
 
 
+def _mm_count(prof):
+    """Host-side aten::mm calls in a trace: with the edge-MLP chain in its
+    kernels, none is left from the ×50 tails."""
+    return sum(e.count for e in prof.key_averages() if e.key == "aten::mm")
+
+
 def phase_profile(device, runs, request_ms):
     """Device-time breakdown of one batch-1024 request: busy time = the
     union of the request's device kernels and copies (_device_ops); the
@@ -636,7 +697,8 @@ def phase_profile(device, runs, request_ms):
                            "fused_eval_kernel")
     top = sorted(ops, key=dev, reverse=True)[:5]
     print(f"profile: batch-1024 request: device busy {busy:.1f} us in "
-          f"{sum(e.count for e in ops)} device ops (kernels and copies); "
+          f"{sum(e.count for e in ops)} device ops (kernels and copies), "
+          f"{_mm_count(prof)} aten::mm; "
           f"fused_eval_kernel {kern:.1f} us; device idle share "
           f"{1 - busy / (request_ms * 1e3):.3f} of the {request_ms:.3f} ms "
           f"request median; top: "
@@ -680,6 +742,7 @@ def phase_train(device):
         os.remove(log)
     buf = io.StringIO()
     K.reset_launch_counts()
+    _mlp_reset()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
         cli.main(["train", "--experiment", "lipo", "--data", csv,
@@ -688,6 +751,9 @@ def phase_train(device):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(K.launch_counts)
+    counts.update(_mlp_take(
+        "train", 1, counts["fused_step_fwd"] + counts["fused_eval"],
+        counts["fused_step_bwd"]))
     result = json.loads(buf.getvalue().strip().splitlines()[-1])
     with open(log) as fh:
         recs = [json.loads(x) for x in fh if x.strip()]
@@ -952,15 +1018,16 @@ def phase_train_profile(device, step_ms):
                        getattr(e, "self_cuda_time_total", 0.0))
     busy, ops = _device_ops(prof)
     kern = {k: sum(dev(e) for e in ops if f"{k}_kernel" in e.key)
-            for k in ("fused_step_fwd", "fused_step_bwd")}
+            for k in ("fused_step_fwd", "fused_step_bwd", *MLP_KERNELS)}
     if min(kern.values()) <= 0:
         raise RuntimeError(f"train-profile: no device time for {kern}")
     top = sorted(ops, key=dev, reverse=True)[:6]
     print(f"train-profile: batch-1024 train step (H2D + forward + backward"
           f" + Adam + EMAs + loss read-back): device busy {busy:.1f} us in "
-          f"{sum(e.count for e in ops)} device ops; fused_step_fwd_kernel "
-          f"{kern['fused_step_fwd']:.1f} us, fused_step_bwd_kernel "
-          f"{kern['fused_step_bwd']:.1f} us; device idle share "
+          f"{sum(e.count for e in ops)} device ops, {_mm_count(prof)} "
+          f"aten::mm; "
+          + ", ".join(f"{k}_kernel {v:.1f} us" for k, v in kern.items())
+          + "; device idle share "
           f"{1 - busy / (step_ms * 1e3):.3f} of the {step_ms:.3f} ms step "
           f"median; top: "
           + ", ".join(f"{e.key[:48]} {dev(e):.1f} us x{e.count}"
@@ -1144,6 +1211,7 @@ def phase_ps_serve(device):
             csv = _ps_csv(f"new_{model}", rows)
             buf = io.StringIO()
             P.reset_launch_counts()
+            _mlp_reset()
             t0 = time.perf_counter()
             with contextlib.redirect_stdout(buf):
                 cli.main(["predict", "--experiment", exp, "--data", csv,
@@ -1151,6 +1219,8 @@ def phase_ps_serve(device):
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = P.launch_counts["fused_psteps_eval"]
+            _mlp_take(f"{exp} predict at batch {bs}", _nets(net.cfg.mpnn),
+                      launches, 0)
             recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
             n_req = -(-rows // bs)
             if len(recs) != rows or [r["index"] for r in recs] != list(
@@ -1216,6 +1286,7 @@ def phase_ps_train(device):
             os.remove(log)
         buf = io.StringIO()
         P.reset_launch_counts()
+        _mlp_reset()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             cli.main(["train", "--experiment", exp_name, "--data", csv,
@@ -1224,6 +1295,10 @@ def phase_ps_train(device):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = dict(P.launch_counts)
+        _mlp_take(f"{exp_name} train",
+                  _nets(zoo.build(exp.model, afm=8, bfm=6).mpnn),
+                  counts["fused_psteps_fwd"] + counts["fused_psteps_eval"],
+                  counts["fused_psteps_bwd"])
         result = json.loads(buf.getvalue().strip().splitlines()[-1])
         with open(log) as fh:
             recs = [json.loads(x) for x in fh if x.strip()]
@@ -1645,6 +1720,7 @@ def _att_reset():
     A.reset_launch_counts()
     AS.reset_launch_counts()
     S.reset_launch_counts()
+    _mlp_reset()
 
 
 def _att_counts():
@@ -1704,6 +1780,8 @@ def phase_att_serve(device, model="adv"):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         counts = _att_counts()
+        _mlp_take(f"{model} predict at batch {bs}", _nets(cfg.mpnn),
+                  counts[kernels[0]], 0)
         recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
         n_req = -(-rows // bs)
         want = _att_want(model, n_req, 0)
@@ -1793,6 +1871,8 @@ def phase_att_train(device, model="adv"):
     n_steps = TRAIN_EPOCHS * -(-len(train_gs) // bs)
     n_eval = TRAIN_EPOCHS * -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
     want = _att_want(model, n_steps + n_eval, n_steps)
+    _mlp_take(f"{model} train", _nets(zoo.build(model, afm=7, bfm=6).mpnn),
+              n_steps + n_eval, n_steps)
     if len(steps) != n_steps or counts != want:
         raise RuntimeError(f"{model} train: {len(steps)} steps, launches "
                            f"{counts}; the design's count is {want}")
@@ -1978,14 +2058,24 @@ def _att_latency(model, bs, device, gen):
                 sort_by="self_device_time_total", row_limit=40))
         kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
                        for e in ops if f"{k}_kernel" in e.key)
-                for k in (*ATT_MODELS[model][1], *ATT_KERNELS[2:])}
+                for k in (*ATT_MODELS[model][1], *ATT_KERNELS[2:],
+                          *MLP_KERNELS)}
         if min(kern.values()) <= 0:
             raise RuntimeError(f"{model} times: no device time for {kern}")
+        mm = _mm_count(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as rprof:
+            request()
+        rbusy, rops = _device_ops(rprof)
         idle = (f"; one train step's device busy {busy:.1f} us in "
-                f"{sum(e.count for e in ops)} device ops, idle share "
-                f"{1 - busy / (rec['step_ms'] * 1e3):.3f}, kernels in the "
-                "trace " + ", ".join(f"{k} {v:.1f} us"
-                                     for k, v in kern.items()))
+                f"{sum(e.count for e in ops)} device ops, {mm} aten::mm, "
+                f"idle share {1 - busy / (rec['step_ms'] * 1e3):.3f}, "
+                "kernels in the trace " + ", ".join(
+                    f"{k} {v:.1f} us" for k, v in kern.items())
+                + f"; one request's device busy {rbusy:.1f} us in "
+                f"{sum(e.count for e in rops)} device ops, "
+                f"{_mm_count(rprof)} aten::mm, idle share "
+                f"{1 - rbusy / (rec['request_ms'] * 1e3):.3f}")
     return b, tb, cfg, net, rec, idle
 
 
@@ -2334,6 +2424,460 @@ def phase_atts_times(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the edge-MLP chain kernels (all five models' A-form builds) and the wide
+# width buckets: phases 22-24
+# ---------------------------------------------------------------------------
+
+def _mlp_cases(device, gen):
+    """(what, rows, head weights, head biases, W_s) of the chain at the
+    shapes the main paths give it — each model's edge network on its b1024
+    batch's vocab rows (K + 1), the encoded model's encoded rows at ef 2 —
+    and at the design points the zoo produces at real widths: pf 49 (bfm
+    7), 64 (bfm 8) and 256 (bfm 4 at f 19, W_s past shared memory)."""
+    import torch
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.ops.message import edge_mlp_head_dims
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    tb = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    afm, bfm = tb["node_feats"].shape[1], tb["edge_feats"].shape[1]
+    rows = torch.cat([tb["edge_feats"][tb["edge_vfirst"].long()],
+                      tb["edge_feats"].new_zeros(1, bfm)])
+    cases = []
+    for model in ("lipo", "adv", "att"):
+        cfg = (zoo.lipo(afm, bfm, tb["node_nafm"].shape[1]) if model == "lipo"
+               else zoo.build(model, afm=afm, bfm=bfm, n_out=4))
+        mp = network_init(cfg, gen, device).mpnn.message[0]
+        cases.append((f"{model} b1024", rows,
+                      [l.weight.detach().t().contiguous() for l in mp.head],
+                      [l.bias.detach() for l in mp.head],
+                      mp.shared.weight.detach().t().contiguous()))
+
+    def synthetic(what, n, ef, nf):
+        head, pf = edge_mlp_head_dims(ef, nf, nf)
+        r = lambda *shape, s=1.0: (torch.randn(*shape, generator=gen)
+                                   * s).to(device)
+        x = r(n, ef)
+        x[-1] = 0.0
+        # W_s = s·(0.7·I + 0.3·Q), Q a random rotation, s the first scale
+        # that keeps the output within 0.3-30: the relus cut about half
+        # the features, float32 rounding stays near 1e-6 over 50 steps
+        # (tests/test_torch_gpu.py::mlp_chain)
+        ws, bs = [r(i, o, s=i ** -0.5) for i, o in head], [
+            r(o, s=0.1) for _, o in head]
+        base = (0.7 * torch.eye(pf) + 0.3 * torch.linalg.qr(
+            torch.randn(pf, pf, generator=gen))[0]).to(device)
+        for scale in [0.9 + 0.05 * i for i in range(22)]:
+            pen = M.edge_mlp_reference(x, ws, bs, scale * base, 50)
+            if 0.3 <= float(pen.abs().max()) <= 30:
+                break
+        return what, x, ws, bs, scale * base
+    cases += [synthetic("encoded (ef 2, pf 16)", rows.shape[0], 2, 8),
+              synthetic("bfm 7 (pf 49)", 65, 7, 10),
+              synthetic("bfm 8 (pf 64)", 65, 8, 32),
+              synthetic("bfm 4 at f 19 (pf 256)", 65, 4, 19)]
+    return cases
+
+
+def phase_mlp_kernel_check(device):
+    """The edge-MLP chain kernels against edge_mlp_reference on the card,
+    T 50: the forward (rtol 1e-4, atol 1e-5 of the output's max abs: the
+    chain's scale depends on its weights) and the gradient of Σ pen·c in
+    the rows and every weight through the backward kernel against autograd
+    through the plain version, each leaf divided by its max abs."""
+    import torch
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    gen = torch.Generator().manual_seed(61)
+    worst_f, worst_b, lines, failed = 0.0, 0.0, [], []
+    for what, x, ws, bs, sw in _mlp_cases(device, gen):
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs, sw)]
+        h = len(ws)
+        c = torch.randn(x.shape[0], sw.shape[0], generator=gen).to(device)
+        res = []
+        for fn in (M.edge_mlp, M.edge_mlp_reference):
+            M.reset_launch_counts()
+            pen = fn(leaves[0], leaves[1:1 + h], leaves[1 + h:1 + 2 * h],
+                     leaves[-1], tail=50)
+            gr = torch.autograd.grad((pen * c).sum(), leaves)
+            torch.cuda.synchronize()
+            res.append((pen.detach(), gr, dict(M.launch_counts)))
+        if res[0][2] != {"edge_mlp_fwd": 1, "edge_mlp_bwd": 1}:
+            raise RuntimeError(f"mlp-kernel-check {what}: launches "
+                               f"{res[0][2]}")
+        scale = float(res[1][0].abs().max()) or 1.0
+        ok_f, err_f, _ = _within(res[0][0] / scale, res[1][0] / scale)
+        _, _, ok_b, err_b = _fwd_bwd_errors(
+            (res[0][0], list(res[0][1])), (res[1][0], list(res[1][1])))
+        if what.endswith("b1024"):            # the main paths' shapes
+            worst_f = max(worst_f,
+                          float((res[0][0] - res[1][0]).abs().max()))
+        worst_b = max(worst_b, err_b)
+        pf = sw.shape[0]
+        lines.append(f"{what} (R {x.shape[0]}, H {h}, pf {pf}): fwd max_abs "
+                     f"{err_f * scale:.3e} of max {scale:.3e}, bwd "
+                     f"max_scaled {err_b:.3e} "
+                     f"{'ok' if ok_f and ok_b else 'FAIL'}")
+        if not (ok_f and ok_b and torch.isfinite(res[0][0]).all()):
+            failed.append(what)
+    print("mlp-kernel-check: edge_mlp_fwd vs edge_mlp_reference, "
+          "edge_mlp_bwd vs autograd through it (T 50; forward rtol "
+          f"{RTOL} atol {ATOL} of its max abs; each gradient leaf divided "
+          f"by its max abs, rtol {RTOL} atol {ATOL}): " + "; ".join(lines),
+          flush=True)
+    if failed:
+        raise RuntimeError(f"edge-MLP kernels disagree with their plain "
+                           f"version: {failed}")
+    return {"edge_mlp_fwd": worst_f, "edge_mlp_bwd": worst_b}
+
+
+def _mlp_bounds(rows, dims, tail):
+    """Least times of the chain's forward and backward: 2·R·(Σ head
+    in·out + T·pf²) multiply-adds for the forward, twice that for the
+    backward (∂W and the cotangent of every layer; ∂x is the first head
+    layer's); bytes: the rows, the weights and the output, read or written
+    once (the backward also the cotangent in and the gradients out)."""
+    pf = dims[-1]
+    macs = sum(i * o for i, o in zip(dims[:-1], dims[1:])) + tail * pf * pf
+    weights = sum(i * o + o for i, o in zip(dims[:-1], dims[1:])) + pf * pf
+    out = {}
+    for name, ops, nbytes in (
+            ("edge_mlp_fwd", 2 * rows * macs,
+             4 * (rows * dims[0] + weights + rows * pf)),
+            ("edge_mlp_bwd", 4 * rows * macs,
+             4 * (2 * rows * dims[0] + 2 * weights + rows * pf))):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def phase_mlp_times(device, card):
+    """Each chain kernel's time (CUDA events over 200 launches) at the
+    shapes of mlp-kernel-check's cases, beside its bound and its plain
+    version's time (the 51-layer chain of torch.mm; the backward autograd
+    through it). The lipo b1024 case is the main path's row."""
+    import torch
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.kernels import fused_step as K
+    gen = torch.Generator().manual_seed(62)
+    out, lines = {}, []
+    for what, x, ws, bs, sw in _mlp_cases(device, gen):
+        g = torch.randn(x.shape[0], sw.shape[0], generator=gen).to(device)
+        pf_ = M.prepare_edge_mlp_fwd(x, ws, bs, sw, tail=50)
+        pb_ = M.prepare_edge_mlp_bwd(x, ws, bs, sw, g, tail=50)
+        f_ms = _events_ms(lambda: K.launch_prepared(pf_), 200)
+        b_ms = _events_ms(lambda: K.launch_prepared(pb_), 200)
+        with torch.no_grad():
+            pfw_ms = _events_ms(lambda: M.edge_mlp_reference(
+                x, ws, bs, sw, 50), 20)
+        leaves = [t.clone().requires_grad_() for t in (x, *ws, *bs, sw)]
+        h = len(ws)
+        pen = M.edge_mlp_reference(leaves[0], leaves[1:1 + h],
+                                   leaves[1 + h:1 + 2 * h], leaves[-1], 50)
+        pbw_ms = _events_ms(lambda: torch.autograd.grad(
+            pen, leaves, g, retain_graph=True), 20)
+        dims = [x.shape[1]] + [w.shape[1] for w in ws]
+        bounds = _mlp_bounds(x.shape[0], dims, 50)
+        out[what] = {
+            "edge_mlp_fwd": dict(ms=f_ms, plain_ms=pfw_ms),
+            "edge_mlp_bwd": dict(ms=b_ms, plain_ms=pbw_ms)}
+        for name in MLP_KERNELS:
+            bound, by, _, _ = bounds[name]
+            out[what][name].update(bound_ms=bound, bound_by=by)
+        lines.append(f"{what} (R {x.shape[0]}, dims {dims}): " + ", ".join(
+            f"{n} {out[what][n]['ms'] * 1e3:.2f} us, plain "
+            f"{out[what][n]['plain_ms'] * 1e3:.1f} us, bound "
+            f"{bounds[n][0] * 1e3:.3f} us by {bounds[n][1]} "
+            f"({bounds[n][2] / 1e6:.2f} Mop, {bounds[n][3] / 1e6:.4f} MB)"
+            for n in MLP_KERNELS))
+    print(f"mlp-times [{card}] (T 50, events over 200 launches): "
+          + "; ".join(lines), flush=True)
+    return out["lipo b1024"]
+
+
+# drug-like SMILES over many elements, charges and aromatic rings; they
+# featurize to afm 27 and bfm 6 (tests/test_torch_gpu.py::WIDE_SMILES)
+WIDE_SMILES = [
+    "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "O=C(O)c1ccccc1OC(C)=O",
+    "CN1C=NC2=C1C(=O)N(C(=O)N2C)C", "C1=CC=C(C=C1)[N+](=O)[O-]",
+    "FC(F)(F)c1ccc(Cl)cc1Br", "Ic1ccc(cc1)S(=O)(=O)N", "CP(=O)(O)O",
+    "B(O)(O)c1ccccc1", "C[Si](C)(C)OC", "[Na+].[Cl-]", "C[Se]C",
+    "[NH4+]", "O=[As](O)(O)O", "[K+].[I-]", "c1ccc2[nH]ccc2c1",
+    "C1CCNCC1", "OC[C@H]1OC(O)[C@H](O)[C@@H](O)[C@@H]1O", "[Li+].[F-]",
+    "[Mg+2].[O-]C(=O)C", "Cl[Sn](Cl)(Cl)Cl", "[Zn+2]", "[Ca+2]",
+    "[Al](Cl)(Cl)Cl",
+]
+WIDE_ROWS = 184
+# model → (experiment, the kernels its serving and training launch)
+WIDE_MODELS = {
+    "lipo": ("lipo", ("fused_eval", "fused_step_fwd", "fused_step_bwd")),
+    "graph_norm": ("graph_norm_classification", PS_KERNELS),
+    "adv": ("adv_classification", ATT_KERNELS),
+    "att": ("att_classification", (*ATTS_KERNELS, *ATT_KERNELS[2:])),
+}
+
+
+def _wide_counts():
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    return {**K.launch_counts, **P.launch_counts, **_att_counts(),
+            **M.launch_counts}
+
+
+def _wide_reset():
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    K.reset_launch_counts()
+    P.reset_launch_counts()
+    _att_reset()
+
+
+def _wide_csv(model, task, label_col):
+    import numpy as np
+    csv = os.path.join(OUT_DIR, f"wide_{model}.csv")
+    smiles = (WIDE_SMILES * (WIDE_ROWS // len(WIDE_SMILES) + 1))[:WIDE_ROWS]
+    rng = np.random.RandomState(WIDE_ROWS)
+    with open(csv, "w") as fh:
+        fh.write(f"smiles,{label_col}\n")
+        for i, sm in enumerate(smiles):
+            y = (0.8 * math.sin(0.7 * i) if task == "mse"
+                 else (i % PS_CLASSES if i < PS_CLASSES
+                       else rng.randint(PS_CLASSES)))
+            fh.write(f"{sm},{y}\n")
+    return csv
+
+
+def _kernel_device_us(prof):
+    """{kernel: device µs} of the port's kernels in a trace."""
+    out = {}
+    for e in _device_ops(prof)[1]:
+        m = re.search(r"((?:fused|set2vec|edge_mlp)[a-z_0-9]*)_kernel",
+                      e.key)
+        if m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + getattr(
+                e, "self_device_time_total", 0.0)
+    return out
+
+
+def phase_wide(device, card):
+    """lipo, graph_norm, adv and att served and trained on the card at the
+    widths of WIDE_SMILES (afm 27): `predict` at batch 16 from a seeded
+    checkpoint against the plain path on the same batches, one launch of
+    each forward (and of the edge-MLP forward per message network) per
+    request; the `train` verb for one epoch at batch 16, one launch of
+    each forward and backward per step, its first 3 losses against the
+    plain path (rtol 1e-3); the first step's outputs and every parameter
+    gradient, kernels against the plain path, each divided by its max abs
+    (rtol 1e-4, atol 1e-5): every family's wide bucket and the chain
+    kernels at these widths. Each model's kernels' device time in a trace
+    of one request and one train step. Then lipo at f 33 raises."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train import cli, experiments
+    from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import (batch_to_device, ce_loss,
+                                              eval_step_for_batch, mse_loss,
+                                              train_step)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(
+        WIDE_SMILES, [0.0] * len(WIDE_SMILES)))
+    afm, bfm, nafm = ge.atom_width(), ge.bond_width(), gs[0].nafm.shape[1]
+    if afm < 24:
+        raise RuntimeError(f"wide: the SMILES featurize to afm {afm} < 24")
+    lines = [f"afm {afm}, bfm {bfm}, nafm {nafm}"]
+    for model, (exp_name, kernels) in WIDE_MODELS.items():
+        exp = experiments.get(exp_name)
+        task = "mse" if model == "lipo" else "ce"
+        cfg = (zoo.lipo(afm, bfm, nafm) if model == "lipo" else
+               zoo.build(model, afm=afm, bfm=bfm, nafm=nafm,
+                         n_out=PS_CLASSES))
+        mc = cfg.mpnn
+        widths = (f"f {mc.node_features}, od {mc.output_dim}"
+                  + (f", set2vec w {2 * mc.node_features}"
+                     if mc.readout == "set2vec" else ""))
+        nets = _nets(mc)
+        csv = _wide_csv(model, task, exp.label_col)
+
+        def dataset():
+            return (G.load_number_dataset(csv, "smiles", exp.label_col)[0]
+                    if task == "mse" else G.load_classification_dataset(
+                        csv, "smiles", exp.label_col)[0])
+        gen = torch.Generator().manual_seed(71)
+        net = (_serving_net(gen, cfg, "cpu") if model in ("lipo",
+                                                          "graph_norm")
+               else network_init(cfg, gen, "cpu"))
+        ckpt = os.path.join(OUT_DIR, f"ckpt_wide_{model}.npz")
+        save_checkpoint(ckpt, net, meta={"seed": 71, "model": model})
+        # serving launches the eval kernel of the shared and per-step
+        # families, the forward kernels of the attention families; training
+        # the training forward (the attention families: the same forward)
+        # per step and the eval kernel per validation and test batch
+        evals = {"fused_eval", "fused_psteps_eval"}
+        train_fwd = {"fused_step_fwd", "fused_psteps_fwd"}
+        serve = [k for k in kernels
+                 if k in evals or not (k.endswith("_bwd") or k in train_fwd)]
+        buf = io.StringIO()
+        _wide_reset()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--experiment", exp_name, "--data", csv,
+                      "--ckpt", ckpt, "--batch-size", "16"])
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        n_req = -(-WIDE_ROWS // 16)
+        want = {k: (n_req if k in serve else 0) for k in kernels}
+        want.update(edge_mlp_fwd=nets * n_req, edge_mlp_bwd=0)
+        if any(counts[k] != v for k, v in want.items()):
+            raise RuntimeError(f"wide {model} predict: launches "
+                               f"{ {k: counts[k] for k in want} }, the "
+                               f"design's count is {want}")
+        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+        key = "pred" if task == "mse" else "logits"
+        got = torch.tensor([r[key] for r in recs], dtype=torch.float64)
+        loader = G.GraphLoader(dataset(), 16, collate="packed")
+        pnet, _ = load_checkpoint(ckpt, cfg, device=device)
+        with torch.no_grad():
+            plain = torch.cat([
+                network_apply_packed(pnet, batch_to_device(b, device),
+                                     fused=False)[
+                    :int(b["graph_mask"].sum())].reshape(
+                        -1, 1 if task == "mse" else PS_CLASSES).cpu()
+                for b in loader]).to(torch.float64)
+        ok_s, err_s, _ = _within(got.reshape(plain.shape), plain)
+        if not (ok_s and torch.isfinite(got).all()):
+            raise RuntimeError(f"wide {model} predict vs plain path: "
+                               f"{err_s:.3e}")
+        serve_counts = {k: counts[k] for k in want}
+        # training: the verb, then the plain path's first 3 steps
+        log = os.path.join(OUT_DIR, f"wide_train_{model}.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        bs = 16
+        _wide_reset()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli.main(["train", "--experiment", exp_name, "--data", csv,
+                      "--epochs", "1", "--batch-size", str(bs),
+                      "--ckpt-dir", os.path.join(OUT_DIR,
+                                                 f"wide_ckpt_{model}"),
+                      "--log", log])
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        with open(log) as fh:
+            steps = [json.loads(x)["loss"] for x in fh
+                     if x.strip() and '"step"' in x]
+        train_gs, test_gs = train_test_split(dataset(), 0.1, 317)
+        train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+        n_steps = -(-len(train_gs) // bs)
+        n_eval = -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
+        want = {k: (n_eval if k in evals else
+                    n_steps if k in train_fwd or k.endswith("_bwd") else
+                    n_steps + n_eval) for k in kernels}
+        want.update(edge_mlp_fwd=nets * (n_steps + n_eval),
+                    edge_mlp_bwd=nets * n_steps)
+        if len(steps) != n_steps or any(counts[k] != v
+                                        for k, v in want.items()):
+            raise RuntimeError(f"wide {model} train: {len(steps)} steps, "
+                               f"launches "
+                               f"{ {k: counts[k] for k in want} }, the "
+                               f"design's count is {want}")
+        tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
+        opt = adam(tnet.parameters(), exp.train.learning_rate,
+                   weight_decay=exp.train.weight_decay)
+        plain_steps = []
+        for b in G.GraphLoader(train_gs, bs, shuffle=True, seed=317):
+            if len(plain_steps) == 3:
+                break
+            plain_steps.append(float(train_step(
+                tnet, opt, batch_to_device(b, device), fused=False,
+                loss_kind=task)))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3],
+                                                      plain_steps))
+        if not (all(math.isfinite(x) for x in steps) and rel <= 1e-3):
+            raise RuntimeError(f"wide {model} train: first steps "
+                               f"{steps[:3]} vs plain {plain_steps}")
+        # the first step's outputs and gradients, kernels vs plain
+        tb = batch_to_device(next(iter(G.GraphLoader(
+            train_gs, bs, shuffle=True, seed=317))), device)
+        tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
+        loss_fn = mse_loss if task == "mse" else ce_loss
+        # message_bias's gradient is zero in theory under a message bn1d:
+        # both paths give float noise there, which is not compared
+        params = [p for n, p in tnet.named_parameters()
+                  if not (n.endswith("message_bias")
+                          and mc.msg_norm == "bn1d")]
+        res = []
+        for fused in (True, False):
+            tnet.zero_grad(set_to_none=True)
+            o, _ = network_apply_packed(tnet, tb, fused=fused,
+                                        training=True)
+            loss_fn(o, tb["labels"], tb["graph_mask"]).backward()
+            res.append((o.detach(), [
+                torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                for p in params]))
+        scale = float(res[1][0].abs().max()) or 1.0
+        ok_o, err_o, _ = _within(res[0][0] / scale, res[1][0] / scale)
+        _, _, ok_g, err_g = _fwd_bwd_errors(res[0], res[1])
+        if not (ok_o and ok_g):
+            raise RuntimeError(f"wide {model}: first step vs plain path, "
+                               f"outputs {err_o:.2e}, gradients "
+                               f"{err_g:.2e}")
+        # device time of the model's kernels: one request, one train step
+        step = eval_step_for_batch(cfg, task, next(iter(loader)))
+        eb = batch_to_device(next(iter(loader)), device)
+        for _ in range(2):
+            step(tnet, eb)
+            float(train_step(tnet, opt, tb, loss_kind=task))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step(tnet, eb)
+            torch.cuda.synchronize()
+        req_us = _kernel_device_us(prof)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            float(train_step(tnet, opt, tb, loss_kind=task))
+            torch.cuda.synchronize()
+        step_us = _kernel_device_us(prof)
+        lines.append(
+            f"{model} ({widths}, {nets} message networks, pf "
+            f"{tnet.mpnn.message[0].shared.weight.shape[0]}): predict "
+            f"{WIDE_ROWS} molecules in {n_req} requests, launches "
+            f"{serve_counts}, vs plain path max_abs {err_s:.3e}; train "
+            f"{n_steps} steps, launches { {k: counts[k] for k in want} }, "
+            f"first 3 losses vs plain max rel {rel:.2e}, first step's "
+            f"outputs and {len(res[0][1])} gradients vs plain (scaled) "
+            f"{err_o:.2e} / {err_g:.2e}; device us of one b16 request "
+            + str({k: round(v, 2) for k, v in req_us.items()})
+            + ", of one b16 train step "
+            + str({k: round(v, 2) for k, v in step_us.items()}))
+    # past the widest bucket: f 33 raises, naming the widths
+    too_wide = zoo.lipo(afm + 3, bfm, nafm)
+    net = network_init(too_wide, torch.Generator().manual_seed(5), device)
+    b = next(iter(G.GraphLoader(gs, 8, collate="packed")))
+    b["node_feats"] = np.pad(b["node_feats"], ((0, 0), (0, 3)))
+    try:
+        eval_step_for_batch(too_wide, "mse", b)(net,
+                                                batch_to_device(b, device))
+    except NotImplementedError as e:
+        if "f=33" not in str(e):
+            raise
+        lines.append(f"lipo at f 33 raises NotImplementedError: {e}")
+    else:
+        raise RuntimeError("wide: lipo at f 33 did not raise")
+    print(f"wide [{card}]: " + "; ".join(lines), flush=True)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2366,6 +2910,9 @@ def main() -> int:
     for k, v in phase_att_train(device, "att").items():
         atts_counts[k] += v
     atts_times = phase_atts_times(device, card)
+    mlp_worst = phase_mlp_kernel_check(device)
+    mlp_times = phase_mlp_times(device, card)
+    phase_wide(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -2417,6 +2964,18 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_att.py:{line}",
             "launches": atts_counts[name], "max_abs_err": atts_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    for name, line in zip(MLP_KERNELS, (48, 115)):
+        # every model's A-form build: the main paths' launches (MLP_MAIN),
+        # timed at lipo's b1024 shapes
+        tt = mlp_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/edge_mlp.py:{line}",
+            "launches": MLP_MAIN[name], "max_abs_err": mlp_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -96,7 +96,7 @@ __device__ __forceinline__ int first_owned(int off) {
 template <int NF>
 __device__ __forceinline__ void store_seg(float* row, int seg, int f,
                                           const float* x) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j)
     if (j < f) row[seg * FP + j] = x[j];
 }
@@ -121,13 +121,13 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
     load_row<NF>(a.gh, n, f, gin);
     // the gates one feature at a time, so only the products stay live
     float dar[NF], daz[NF], dan[NF], dnh[NF];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       float gr = w[AL::kBih + j], gz = w[AL::kBih + FP + j],
             gn = w[AL::kBih + 2 * FP + j];
       float rh = w[AL::kBhh + j], zh2 = w[AL::kBhh + FP + j],
             nh = w[AL::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
       for (int k = 0; k < NF; ++k) {
         const float* wi_ = w + AL::kWih + k * 3 * FP;
         const float* wh_ = w + AL::kWhh + k * 3 * FP;
@@ -149,12 +149,12 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
       daz[j] = dz * sz * (1.0f - sz);
       dh[j] = gin[j] * sz;
     }
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < NF; ++k) {
       const float* wh_ = w + AL::kWhh + k * 3 * FP;
       const float* wi_ = w + AL::kWih + k * 3 * FP;
       float th = dh[k], ti = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) {
         th = fmaf(wh_[j], dar[j], th);
         th = fmaf(wh_[FP + j], daz[j], th);
@@ -176,19 +176,18 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
     gate_pre<NF>(w, hp, zh);
   }
   float dx_[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) dx_[j] = 0.f;
   if (a.with_corr) {
     float g0[NF];
     feat_softmax<NF>(zh, w + AL::kQ0, f, g0);
     matvec_t_add<NF>(w + AL::kA0, dm, dx_);          // A0ᵀ·dm
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dx_[j] *= g0[j];
   }
   float xs[NF], dzall[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) xs[j] = dzall[j] = 0.f;
-  const int ap = AL::aprime(a.k_vocab);
   const int p1 = __ldg(a.dst_ptr + n + 1);
   for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
     const float* we = sm_weights();
@@ -197,15 +196,16 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
     float hs[NF], gate[NF], dg[NF];
     load_row<NF>(a.h0, __ldg(a.src + e), f, hs);
     feat_softmax<NF>(zh, we + AL::kQv + k * FP, f, gate);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dg[j] = 0.f;
-    matvec_t_add<NF>(we + ap + k * FP * FP, dm, dg);   // A'[k]ᵀ·dm
+    matvec_t_add<NF>(aprime_of(we, a.w, a.k_vocab, k), dm,
+                     dg);                           // A'[k]ᵀ·dm
     float s = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) s = fmaf(dg[j] * hs[j], gate[j], s);
     float* erow = edges + size_t(e) * kEdgeRow;
     float* drow = dhs + size_t(e) * FP;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       if (j < f) {
         const float dz = gate[j] * (dg[j] * hs[j] - s);
@@ -218,23 +218,23 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
     }
   }
   float g0x[NF], dz0[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) g0x[j] = dz0[j] = 0.f;
   if (a.with_corr) {
     float g0[NF], dwn[NF];
     feat_softmax<NF>(zh, w + AL::kQ0, f, g0);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dwn[j] = 0.f;
     matvec_t_add<NF>(w + AL::kA0, dm, dwn);
     float s0 = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       const float x = S[j] - xs[j];
       g0x[j] = g0[j] * x;
       dwn[j] *= x;                                 // ∂g0
       s0 = fmaf(dwn[j], g0[j], s0);
     }
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       dz0[j] = g0[j] * (dwn[j] - s0);
       dzall[j] += dz0[j];
@@ -248,13 +248,14 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int n,
   load_row<NF>(a.dh0, n, f, dh);
   matvec_add<NF>(w + AL::kWh, dzall, dh);              // Wh·dzall
   store_row<NF>(a.dh0, n, f, dh);
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) dS[j] += dx_[j];
 }
 
-// Instantiated for NF = 8 (f <= 8, adv's 7) and NF = FP: the per-node
-// vectors of node_backward live in registers, ~20 of them, and at NF = 16
-// they spill. (kThreads, 1): without the minimum of one block per SM,
+// Instantiated for NF = 8 (f <= 8, adv's 7) and NF = FP (16) in the
+// narrow build, NF = FP (32) alone in the wide one: the per-node vectors
+// of node_backward live in registers, ~20 of them, and at NF = 16 they
+// spill. (kThreads, 1): without the minimum of one block per SM,
 // ptxas caps this large kernel at 32 registers.
 template <int NF>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -288,33 +289,33 @@ fused_att_bwd_kernel(BwdArgs a) {
   for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float S[NF], dS[NF];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) S[j] = dS[j] = 0.f;
     if (a.with_corr) {
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[NF];
         load_row<NF>(a.h0, n, f, hn);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) S[j] += hn[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) S[j] = warp_sum(S[j]);
     }
     for (int n = n0 + lane; n < n1; n += 32)
       node_backward(a, n, S, nodes, edges, dhs, dS);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dS[j] = warp_sum(dS[j]);
     __syncwarp();                     // the lanes' source cotangents
     for (int n = n0 + lane; n < n1; n += 32) {
       float d[NF];
       load_row<NF>(a.dh0, n, f, d);
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) d[j] += dS[j];
       const int p1 = __ldg(a.src_ptr + n + 1);
       for (int p = __ldg(a.src_ptr + n); p < p1; ++p) {
         float t[NF];
         load_row_cg<NF>(dhs + size_t(__ldg(a.src_order + p)) * FP, 0, f, t);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) d[j] += t[j];
       }
       store_row<NF>(a.dh0, n, f, d);
@@ -429,8 +430,9 @@ size_t smem_bytes(int k_vocab, int f) {
 
 // The instantiation that runs width f.
 const void* kernel_for(int f) {
-  return f <= 8 ? (const void*)fused_att_bwd_kernel<8>
-                : (const void*)fused_att_bwd_kernel<FP>;
+  if constexpr (FP <= 16)               // the narrow bucket's two builds
+    if (f <= 8) return (const void*)fused_att_bwd_kernel<8>;
+  return (const void*)fused_att_bwd_kernel<FP>;
 }
 
 }  // namespace

@@ -6,8 +6,9 @@
 // messages are a walk over its destination-sorted in-edges, so every edge
 // of the batch belongs to exactly one node and every node to one warp —
 // no float atomics, sums in a fixed order. Widths are zero-padded to FP
-// (16) in shared memory, so the per-node loops are unrolled at compile
-// time; kernels/fused_att.py::MAX_WIDTH, MAX_VOCAB mirror the limits.
+// (16, or 32 in the wide bucket) in shared memory, so the per-node loops
+// are unrolled at compile time; kernels/fused_att.py::BUCKETS mirrors the
+// limits.
 
 #pragma once
 
@@ -31,8 +32,15 @@ struct AttWeights {
   const float* b_hh;    // (3f)
 };
 
+// The vocab's (K, FP, FP) message tables A': staged in shared memory in
+// the narrow bucket (FP 16, kernels/build.py); at FP 32 they would take
+// 256 KB at K 64, so the wide bucket's wrapper passes them zero-padded to
+// (K, FP, FP) and the kernels read them from device memory through the
+// read-only cache (kernels/fused_att.py::_aprime_table).
+constexpr bool kAprimeInSmem = FP <= 16;
+
 // Offsets (floats) of the zero-padded weights in shared memory; the vocab
-// tables follow, K·FP of qv then K·FP·FP of aprime.
+// tables follow, K·FP of qv then (narrow bucket) K·FP·FP of aprime.
 struct AL {
   static constexpr int kA0 = 0;                  // [m][n]
   static constexpr int kWh = kA0 + FP * FP;      // [i][j]
@@ -46,9 +54,18 @@ struct AL {
     return kQv + k_vocab * FP;                   // [k][m][n]
   }
   __host__ __device__ static int total(int k_vocab) {
-    return aprime(k_vocab) + k_vocab * FP * FP;
+    return aprime(k_vocab) + (kAprimeInSmem ? k_vocab * FP * FP : 0);
   }
 };
+
+// A'[k] (FP·FP, row m = output feature): in shared memory (`we`, the
+// staged weights) or the wide bucket's padded table in device memory.
+__device__ __forceinline__ const float* aprime_of(const float* we,
+                                                  const AttWeights& w,
+                                                  int k_vocab, int k) {
+  return (kAprimeInSmem ? we + AL::aprime(k_vocab) : w.aprime) +
+         size_t(k) * FP * FP;
+}
 
 __device__ void stage_att_weights(float* sm, const AttWeights& w, int f,
                                   int k_vocab) {
@@ -76,7 +93,7 @@ __device__ void stage_att_weights(float* sm, const AttWeights& w, int f,
     sm[AL::kQv + i] = c < f ? w.qv[k * f + c] : 0.f;
   }
   const int ap = AL::aprime(k_vocab);
-  for (int i = tid; i < k_vocab * FP * FP; i += nt) {
+  for (int i = tid; kAprimeInSmem && i < k_vocab * FP * FP; i += nt) {
     const int k = i / (FP * FP), rc = i % (FP * FP), r = rc / FP, c = rc % FP;
     sm[ap + i] = (r < f && c < f) ? w.aprime[(k * f + r) * f + c] : 0.f;
   }
@@ -90,10 +107,10 @@ __device__ void stage_att_weights(float* sm, const AttWeights& w, int f,
 template <int NF = FP>
 __device__ __forceinline__ void gate_pre(const float* w, const float* h,
                                          float* z) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) {
     float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int i = 0; i < NF; ++i) t = fmaf(h[i], w[AL::kWh + i * FP + j], t);
     z[j] = t;
   }
@@ -105,16 +122,16 @@ template <int NF = FP>
 __device__ __forceinline__ void feat_softmax(const float* z, const float* b,
                                              int f, float* out) {
   float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j)
     if (j < f) mx = fmaxf(mx, z[j] + b[j]);
   float s = 0.f;
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) {
     out[j] = j < f ? expf(z[j] + b[j] - mx) : 0.f;
     s += out[j];
   }
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) out[j] = out[j] / s;
 }
 
@@ -122,10 +139,10 @@ __device__ __forceinline__ void feat_softmax(const float* z, const float* b,
 template <int NF = FP>
 __device__ __forceinline__ void matvec_add(const float* mat, const float* v,
                                            float* acc) {
-#pragma unroll
+MPNN_UNROLL
   for (int m = 0; m < NF; ++m) {
     float t = acc[m];
-#pragma unroll
+MPNN_UNROLL
     for (int n = 0; n < NF; ++n) t = fmaf(mat[m * FP + n], v[n], t);
     acc[m] = t;
   }
@@ -135,10 +152,10 @@ __device__ __forceinline__ void matvec_add(const float* mat, const float* v,
 template <int NF = FP>
 __device__ __forceinline__ void matvec_t_add(const float* mat, const float* v,
                                              float* acc) {
-#pragma unroll
+MPNN_UNROLL
   for (int n = 0; n < NF; ++n) {
     float t = acc[n];
-#pragma unroll
+MPNN_UNROLL
     for (int m = 0; m < NF; ++m) t = fmaf(mat[m * FP + n], v[m], t);
     acc[n] = t;
   }
@@ -149,16 +166,16 @@ __device__ __forceinline__ void matvec_t_add(const float* mat, const float* v,
 __device__ __forceinline__ void gru_pre(const float* w, const float* m,
                                         const float* hp, float (&gi)[3][FP],
                                         float (&gh)[3][FP]) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) {
-#pragma unroll
+MPNN_UNROLL
     for (int g = 0; g < 3; ++g) {
       gi[g][j] = w[AL::kBih + g * FP + j];
       gh[g][j] = w[AL::kBhh + g * FP + j];
     }
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < FP; ++k) {
-#pragma unroll
+MPNN_UNROLL
       for (int g = 0; g < 3; ++g) {
         gi[g][j] = fmaf(m[k], w[AL::kWih + k * 3 * FP + g * FP + j], gi[g][j]);
         gh[g][j] = fmaf(hp[k], w[AL::kWhh + k * 3 * FP + g * FP + j], gh[g][j]);

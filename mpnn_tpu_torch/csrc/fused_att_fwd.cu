@@ -53,7 +53,6 @@ fused_att_fwd_kernel(FwdArgs a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int G = a.n_graphs, N = a.n_nodes;
   const int n_real = a.graph_node_ptr[G];
-  const int ap = AL::aprime(a.k_vocab);
 
   {  // padded rows of the outputs are zeros
     const size_t pad = size_t(N - n_real) * f;
@@ -67,16 +66,16 @@ fused_att_fwd_kernel(FwdArgs a) {
   for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float S[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) S[j] = 0.f;
     if (a.with_corr) {
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[FP];
         load_row(a.h0, n, f, hn);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) S[j] += hn[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) S[j] = warp_sum(S[j]);
     }
     for (int n = n0 + lane; n < n1; n += 32) {
@@ -84,7 +83,7 @@ fused_att_fwd_kernel(FwdArgs a) {
       float h0n[FP], zh[FP], acc[FP], xs[FP];
       load_row(a.h0, n, f, h0n);
       gate_pre(w, h0n, zh);
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) acc[j] = xs[j] = 0.f;
       const int p1 = __ldg(a.dst_ptr + n + 1);
       for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
@@ -94,24 +93,24 @@ fused_att_fwd_kernel(FwdArgs a) {
         float hs[FP], gate[FP];
         load_row(a.h0, __ldg(a.src + e), f, hs);
         feat_softmax(zh, we + AL::kQv + k * FP, f, gate);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           xs[j] += hs[j];
           gate[j] *= hs[j];
         }
-        matvec_add(we + ap + k * FP * FP, gate, acc);
+        matvec_add(aprime_of(we, a.w, a.k_vocab, k), gate, acc);
       }
       if (a.with_corr) {
         float g0[FP];
         feat_softmax(zh, w + AL::kQ0, f, g0);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) g0[j] *= S[j] - xs[j];
         matvec_add(w + AL::kA0, g0, acc);
       }
       if (a.msgs) store_row(a.msgs, n, f, acc);
       float gi[3][FP], gh[3][FP], hout[FP];
       gru_pre(w, acc, h0n, gi, gh);
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         const float r = sigmoidf_(gi[0][j] + gh[0][j]);
         const float z = sigmoidf_(gi[1][j] + gh[1][j]);

@@ -153,13 +153,13 @@ __device__ __forceinline__ void gru_backward(const float* dhp,
                                              float* dmb) {
   const float* w = sm_weights();
   float dar[NF], daz[NF], dan[NF], dnh[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) {
     float gr = w[PL::kBih + j], gz = w[PL::kBih + FP + j],
           gn = w[PL::kBih + 2 * FP + j];
     float rh = w[PL::kBhh + j], zh = w[PL::kBhh + FP + j],
           nh = w[PL::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < NF; ++k) {
       const float* wi = w + PL::kWih + k * 3 * FP;
       const float* whh = w + PL::kWhh + k * 3 * FP;
@@ -180,12 +180,12 @@ __device__ __forceinline__ void gru_backward(const float* dhp,
     daz[j] = dz * sz * (1.0f - sz);
     ghn[j] = dhp[j] * sz;
   }
-#pragma unroll
+MPNN_UNROLL
   for (int k = 0; k < NF; ++k) {
     const float* whh = w + PL::kWhh + k * 3 * FP;
     const float* wi = w + PL::kWih + k * 3 * FP;
     float th = ghn[k], ti = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       th = fmaf(whh[j], dar[j], th);
       th = fmaf(whh[FP + j], daz[j], th);
@@ -197,7 +197,7 @@ __device__ __forceinline__ void gru_backward(const float* dhp,
     ghn[k] = th;
     dmb[k] = ti;
   }
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) {
     if (j < f) {
       row[kMb * f + j] = mb[j];
@@ -255,14 +255,14 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int t, int n,
     gate_pre<NF>(blk, h0n, zh);
   }
   load_row_cg<NF>(dms, n, f, dm);
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) dwn[j] = g0[j] = 0.f;
   if (a.with_corr) {
     feat_softmax<NF>(zh, blk + AL::kQ0, f, g0);
     matvec_t_add<NF>(blk + AL::kA0, dm, dwn);         // A0_tᵀ·dm
   }
   float xsum[NF], dzall[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) xsum[j] = dzall[j] = 0.f;
   const int p1 = __ldg(a.dst_ptr + n + 1);
   for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
@@ -272,15 +272,15 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int t, int n,
     float hs[NF], gate[NF], dg[NF];
     load_row<NF>(a.h0, __ldg(a.src + e), f, hs);
     feat_softmax<NF>(zh, we + SL::kQv + k * FP, f, gate);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dg[j] = 0.f;
     gmatvec_t_add<NF>(at + size_t(k) * f * f, f, dm, dg);  // A'_t[k]ᵀ·dm
     float s = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) s = fmaf(dg[j] * hs[j], gate[j], s);
     float* er = erow + size_t(e) * kEdgeSegs * f;
     float* dr = dhs + size_t(e) * f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       if (j < f) {
         const float dz = gate[j] * (dg[j] * hs[j] - s);
@@ -294,11 +294,11 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int t, int n,
     }
   }
   float g0x[NF], dz0[NF];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) g0x[j] = dz0[j] = 0.f;
   if (a.with_corr) {
     float s0 = 0.f, dgx[NF];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       const float x = S[j] - xsum[j];
       g0x[j] = g0[j] * x;
@@ -306,14 +306,14 @@ __device__ __forceinline__ void node_backward(const BwdArgs& a, int t, int n,
       s0 = fmaf(dgx[j], g0[j], s0);
       dS[j] = fmaf(dwn[j], g0[j], dS[j]);              // dX
     }
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) {
       dz0[j] = g0[j] * (dgx[j] - s0);
       dzall[j] += dz0[j];
     }
   }
   float* row = nrow + size_t(n) * kNodeSegs * f;
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) {
     if (j < f) {
       row[kG0x * f + j] = g0x[j];
@@ -382,14 +382,14 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       float v[2][FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) v[0][j] = v[1][j] = 0.f;
       if (n < n_real) {
         float g[FP], x[FP];
         load_row(a.gh, n, f, g);
         load_row(a.htil + size_t(T - 1) * slot_sz, n, f, x);
         mpnn_train::xhat_of(stl, x, x);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           v[0][j] = g[j];
           v[1][j] = g[j] * x[j];
@@ -417,7 +417,7 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
       const int n = ch * kChunk + tid;
       float* row = xs + tid * kS;
       float v[2][FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) v[0][j] = v[1][j] = 0.f;
       if (n < n_real) {
         float g[FP], dhp[FP], hprev[FP], mb[FP], ghn[FP], dmb[FP];
@@ -426,12 +426,12 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
           float xh[FP];
           load_row(a.htil + size_t(t) * slot_sz, n, f, xh);
           mpnn_train::xhat_of(stt, xh, xh);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j)
             dhp[j] = (g[j] - cs[j] / c) / stt[2 * FP + j] -
                      xh[j] * cs[FP + j] / (c * stt[FP + j]);
         } else {
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) dhp[j] = g[j];
         }
         if (t > 0) {
@@ -446,13 +446,13 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
         if (!first) {
           float prev[NF];
           load_row<NF>(dmr, n, f, prev);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < NF; ++j) dmb[j] += prev[j];
         }
         store_row<NF>(dmr, n, f, dmb);
         store_row<NF>(t > 0 ? ghs : a.dh0, n, f, ghn);
         if (next_sums) {
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < NF; ++j) {
             v[0][j] = ghn[j];
             v[1][j] = ghn[j] * hprev[j];
@@ -480,16 +480,16 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
   for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float S[NF], dS[NF];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) S[j] = dS[j] = 0.f;
     if (a.with_corr) {
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[NF];
         load_row<NF>(a.h0, n, f, hn);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) S[j] += hn[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) S[j] = warp_sum(S[j]);
     }
     for (int t = 0; t < Tm; ++t)
@@ -497,19 +497,19 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
         node_backward<NF>(a, t, n, S, dms + size_t(t) * slot_sz,
                           nrows + size_t(t) * N * kNodeSegs * f,
                           erows + size_t(t) * E * kEdgeSegs * f, dhs, dS);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) dS[j] = warp_sum(dS[j]);
     __syncwarp();                     // the lanes' source cotangents
     for (int n = n0 + lane; n < n1; n += 32) {
       float d[NF];
       load_row_cg<NF>(a.dh0, n, f, d);
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) d[j] += dS[j];
       const int p1 = __ldg(a.src_ptr + n + 1);
       for (int p = __ldg(a.src_ptr + n); p < p1; ++p) {
         float u[NF];
         load_row_cg<NF>(dhs, __ldg(a.src_order + p), f, u);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) d[j] += u[j];
       }
       store_row<NF>(a.dh0, n, f, d);
@@ -619,8 +619,9 @@ fused_att_steps_bwd_kernel(BwdArgs a) {
 
 // The instantiation that runs width f.
 const void* kernel_for(int f) {
-  return f <= 8 ? (const void*)fused_att_steps_bwd_kernel<8>
-                : (const void*)fused_att_steps_bwd_kernel<FP>;
+  if constexpr (FP <= 16)               // the narrow bucket's two builds
+    if (f <= 8) return (const void*)fused_att_steps_bwd_kernel<8>;
+  return (const void*)fused_att_steps_bwd_kernel<FP>;
 }
 
 }  // namespace

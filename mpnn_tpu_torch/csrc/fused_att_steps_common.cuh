@@ -32,7 +32,7 @@ using mpnn_train::kThreads;
 using mpnn_train::kWarps;
 namespace cg = cooperative_groups;
 
-// kernels/fused_att_steps.py::MAX_STEPS, MAX_VOCAB mirror these
+// kernels/fused_att_steps.py::BUCKETS mirrors these
 constexpr int kMaxSteps = 8;
 constexpr int kMaxVocab = 64;
 
@@ -105,11 +105,11 @@ __device__ void stage_atts_weights(float* sm, const AttsWeights& w, int f,
 template <int NF>
 __device__ __forceinline__ void gmatvec_add(const float* A, int f,
                                             const float* v, float* acc) {
-#pragma unroll
+MPNN_UNROLL
   for (int m = 0; m < NF; ++m) {
     if (m < f) {
       float t = acc[m];
-#pragma unroll
+MPNN_UNROLL
       for (int n = 0; n < NF; ++n)
         if (n < f) t = fmaf(__ldg(A + m * f + n), v[n], t);
       acc[m] = t;
@@ -121,10 +121,10 @@ __device__ __forceinline__ void gmatvec_add(const float* A, int f,
 template <int NF>
 __device__ __forceinline__ void gmatvec_t_add(const float* A, int f,
                                               const float* v, float* acc) {
-#pragma unroll
+MPNN_UNROLL
   for (int m = 0; m < NF; ++m) {
     if (m < f) {
-#pragma unroll
+MPNN_UNROLL
       for (int n = 0; n < NF; ++n)
         if (n < f) acc[n] = fmaf(__ldg(A + m * f + n), v[m], acc[n]);
     }

@@ -41,7 +41,8 @@
 // formula) into the same statistics, double-buffered by step parity (a
 // block that combined step t may write step t+1's partials while a slower
 // one still reads step t's). No barrier in the chain without the norm.
-// Instantiated for f <= 8 (the att model's 7) and f <= 16.
+// Instantiated for f <= 8 (the att model's 7) and f <= 16 in the narrow
+// build, f <= 32 in the wide one (kernels/build.py::WIDE).
 
 #include "fused_att_steps_common.cuh"
 
@@ -124,16 +125,16 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
   for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float S[NF];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < NF; ++j) S[j] = 0.f;
     if (a.with_corr) {
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[NF];
         load_row<NF>(a.h0, n, f, hn);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) S[j] += hn[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < NF; ++j) S[j] = warp_sum(S[j]);
     }
     for (int n = n0 + lane; n < n1; n += 32) {
@@ -145,7 +146,7 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
         const float* at = a.w.aprime + size_t(t) * K * f * f;
         float zh[NF], acc[NF], xsum[NF];
         gate_pre<NF>(blk, h0n, zh);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < NF; ++j) acc[j] = xsum[j] = 0.f;
         for (int p = p0; p < p1; ++p) {
           const int e = __ldg(a.edge_order + p);
@@ -153,7 +154,7 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
           float hs[NF], gate[NF];
           load_row<NF>(a.h0, __ldg(a.src + e), f, hs);
           feat_softmax<NF>(zh, blk + SL::kQv + k * FP, f, gate);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < NF; ++j) {
             xsum[j] += hs[j];
             gate[j] *= hs[j];
@@ -163,7 +164,7 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
         if (a.with_corr) {
           float g0[NF];
           feat_softmax<NF>(zh, blk + AL::kQ0, f, g0);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < NF; ++j) g0[j] *= S[j] - xsum[j];
           matvec_add<NF>(blk + AL::kA0, g0, acc);
         }
@@ -181,7 +182,7 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
     for (int c = blockIdx.x; c < nchunks; c += gridDim.x) {
       const int n = c * kChunk + tid;
       float x[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) x[j] = 0.f;
       if (n < n_real) {
         float mb[FP], h[FP];
@@ -196,7 +197,7 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
         store_row(cur, n, f, x);
       }
       if (stateless) {
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) xs[tid * kStage + j] = x[j];
         __syncthreads();
         mpnn_psteps::chunk_moments(xs, chunk_count(c, n_real), red, cmean,
@@ -224,8 +225,9 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
 
 // The instantiation that runs width f.
 const void* kernel_for(int f) {
-  return f <= 8 ? (const void*)fused_att_steps_fwd_kernel<8>
-                : (const void*)fused_att_steps_fwd_kernel<FP>;
+  if constexpr (FP <= 16)               // the narrow bucket's two builds
+    if (f <= 8) return (const void*)fused_att_steps_fwd_kernel<8>;
+  return (const void*)fused_att_steps_fwd_kernel<FP>;
 }
 
 }  // namespace

@@ -37,6 +37,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "unroll.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;            // graphs per block
@@ -81,9 +83,12 @@ struct Smem {
   static constexpr int kRjw = kRiw + 2 * FP * ODP;
   static constexpr int kRib = kRjw + 2 * FP * ODP;
   static constexpr int kRjb = kRib + ODP;
-  static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP
+  static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP (narrow)
+  // past FP 16 the vocab tables are read, zero-padded, from device memory
+  static constexpr bool kVocabInSmem = FP <= 16;
   static size_t bytes(int k_vocab) {
-    return sizeof(float) * (size_t(kAmat) + size_t(k_vocab) * FP * FP);
+    return sizeof(float) *
+           (size_t(kAmat) + (kVocabInSmem ? size_t(k_vocab) * FP * FP : 0));
   }
 };
 
@@ -141,7 +146,8 @@ fused_eval_kernel(EvalArgs a) {
     sm[L::kRib + i] = i < od ? a.ro_ib[i] : 0.f;
     sm[L::kRjb + i] = i < od ? a.ro_jb[i] : 0.f;
   }
-  for (int i = threadIdx.x; i < a.k_vocab * FP * FP; i += blockDim.x) {
+  for (int i = threadIdx.x; L::kVocabInSmem && i < a.k_vocab * FP * FP;
+       i += blockDim.x) {
     int k = i / (FP * FP), rc = i % (FP * FP), r = rc / FP, c = rc % FP;
     sm[L::kAmat + i] =
         (r < f && c < f) ? a.amat[(k * f + r) * f + c] : 0.f;
@@ -163,72 +169,73 @@ fused_eval_kernel(EvalArgs a) {
 
   // ---- S_g = Σ_{w∈g} h0[w], then base = A0·S_g -------------------------
   float s[FP];
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) s[j] = 0.f;
   for (int n = n0 + lane; n < n1; n += 32) {
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j)
       if (j < f) s[j] += __ldg(h0 + size_t(n) * f + j);
   }
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) {
-#pragma unroll
+MPNN_UNROLL
     for (int off = 16; off > 0; off >>= 1)
       s[j] += __shfl_xor_sync(kFull, s[j], off);
   }
   float base[FP];
-#pragma unroll
+MPNN_UNROLL
   for (int m = 0; m < FP; ++m) {
     float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) t = fmaf(w[L::kA0 + m * FP + j], s[j], t);
     base[m] = t;
   }
 
   float acc[ODP];
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODP; ++o) acc[o] = 0.f;
 
   for (int n = n0 + lane; n < n1; n += 32) {
     const float* w = sm + opaque_zero();
     // ---- messages: edges into n, destination-sorted order ---------------
     float msg[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int m = 0; m < FP; ++m) msg[m] = 0.f;
     const int p1 = __ldg(a.dst_ptr + n + 1);
     for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
       const int e = __ldg(a.edge_order + p);
       const int sn = __ldg(a.src + e);
-      const float* am = w + L::kAmat + __ldg(a.vid + e) * FP * FP;
+      const float* am = (L::kVocabInSmem ? w + L::kAmat : a.amat) +
+                        __ldg(a.vid + e) * FP * FP;
       float hs[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j)
         hs[j] = j < f ? __ldg(h0 + size_t(sn) * f + j) : 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int m = 0; m < FP; ++m) {
         float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) t = fmaf(am[m * FP + j], hs[j], t);
         msg[m] += t;
       }
     }
     // ---- + A0·S_g + bias, folded msg norm, GRU input gates --------------
     float mb[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int m = 0; m < FP; ++m) {
       float v = (msg[m] + base[m]) + w[L::kVec + m];
       mb[m] = w[L::kVec + FP + m] * v + w[L::kVec + 2 * FP + m];
     }
     float gi[3 * FP];
-#pragma unroll
+MPNN_UNROLL
     for (int c = 0; c < 3 * FP; ++c) {
       float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int k = 0; k < FP; ++k) t = fmaf(mb[k], w[L::kWih + k * 3 * FP + c], t);
       gi[c] = t + w[L::kBih + c];
     }
     float h0n[FP], h[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) {
       h0n[j] = j < f ? __ldg(h0 + size_t(n) * f + j) : 0.f;
       h[j] = h0n[j];
@@ -237,10 +244,10 @@ fused_eval_kernel(EvalArgs a) {
     for (int t = 0; t < a.steps; ++t) {
       const float* ws = w + opaque_zero();
       float hn[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         float rh = 0.f, zh = 0.f, nh = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           const float* wr = ws + L::kWhh + k * 3 * FP;
           rh = fmaf(h[k], wr[j], rh);
@@ -256,20 +263,20 @@ fused_eval_kernel(EvalArgs a) {
         const float hp = (1.0f - z) * nn + z * h[j];
         hn[j] = ws[L::kVec + 3 * FP + j] * hp + ws[L::kVec + 4 * FP + j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) h[j] = hn[j];
     }
     // ---- gated readout over [h_T ‖ h0], softmax over od ------------------
     float pi[ODP], pj[ODP];
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o) {
       float ti = 0.f, tj = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int k = 0; k < FP; ++k) {
         ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
         tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
       }
-#pragma unroll
+MPNN_UNROLL
       for (int k = 0; k < FP; ++k) {
         ti = fmaf(h0n[k], w[L::kRiw + (FP + k) * ODP + o], ti);
         tj = fmaf(h0n[k], w[L::kRjw + (FP + k) * ODP + o], tj);
@@ -278,28 +285,28 @@ fused_eval_kernel(EvalArgs a) {
       pj[o] = tj + w[L::kRjb + o];
     }
     float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o)
       if (o < od) mx = fmaxf(mx, pi[o]);
     float den = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o) {
       pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
       den += pi[o];
     }
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o) acc[o] += (pi[o] / den) * pj[o];
   }
 
   // ---- per-graph sum of the gated rows ----------------------------------
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODP; ++o) {
-#pragma unroll
+MPNN_UNROLL
     for (int off = 16; off > 0; off >>= 1)
       acc[o] += __shfl_xor_sync(kFull, acc[o], off);
   }
   if (lane == 0) {
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o)
       if (o < od) a.out[size_t(g) * od + o] = acc[o];
   }
@@ -320,9 +327,19 @@ cudaError_t launch(const EvalArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The kernel is compiled for f ≤ 16 and od ≤ 16 (the flagship's f = 10,
-// od = 14), zero-padded to 16; kernels/fused_step.py::MAX_WIDTH.
-constexpr int kMaxWidth = 16;
+// The width bucket, zero-padded: f <= kMaxWidth, od <= kMaxOut. The
+// narrow build takes 16 and 16 (the flagship at bench widths: f = 10,
+// od = 14), the wide one -DMPNN_FP=32 -DMPNN_ODP=64 (kernels/build.py;
+// kernels/fused_step.py::BUCKETS). In the wide bucket `amat` arrives
+// zero-padded to (K, 32, 32).
+#ifndef MPNN_FP
+#define MPNN_FP 16
+#endif
+#ifndef MPNN_ODP
+#define MPNN_ODP 16
+#endif
+constexpr int kMaxWidth = MPNN_FP;
+constexpr int kMaxOut = MPNN_ODP;
 
 }  // namespace
 
@@ -330,7 +347,7 @@ extern "C" {
 
 // Dynamic shared memory of one block, in bytes, for a vocab of k_vocab.
 int mpnn_fused_eval_smem_bytes(int k_vocab) {
-  return int(Smem<kMaxWidth, kMaxWidth>::bytes(k_vocab));
+  return int(Smem<kMaxWidth, kMaxOut>::bytes(k_vocab));
 }
 
 // Launches on `stream` and returns cudaGetLastError() of the launch
@@ -352,8 +369,8 @@ int mpnn_fused_eval(const float* amat, const float* a0, const float* mbias,
              vid, src, edge_order, dst_ptr, graph_node_ptr, out,
              n_graphs, f, od, k_vocab, steps};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (f > kMaxWidth || od > kMaxWidth) return int(cudaErrorInvalidValue);
-  return int(launch<kMaxWidth, kMaxWidth>(a, s));
+  if (f > kMaxWidth || od > kMaxOut) return int(cudaErrorInvalidValue);
+  return int(launch<kMaxWidth, kMaxOut>(a, s));
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -99,9 +99,11 @@ struct PsBwdArgs {
       state_mode;
 };
 
-constexpr int kStage = 6 * FP + 1;     // staged floats per node (odd)
+// staged floats per node (odd): the GRU phases' 6 rows of FP, or the
+// readout's [h | h0 | dpi | djv], whichever is wider (the readout in the
+// wide bucket)
 constexpr int kRoStage = 2 * FP + 2 * ODW + 1;
-static_assert(kRoStage <= kStage, "readout staging exceeds the rows");
+constexpr int kStage = 6 * FP + 1 > kRoStage ? 6 * FP + 1 : kRoStage;
 
 __host__ __device__ inline size_t bwd_smem_floats(int steps) {
   return size_t(PL::after_stats(steps)) + kWarps * 4 * FP + 4 * FP +
@@ -192,7 +194,7 @@ __device__ void gru_grads(float* wrow, const PsGradLayout& gl,
 __device__ __forceinline__ void norm_vjp(const float* dxh, const float* xh,
                                          const float* st, const float* S,
                                          float c, float* dx) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j)
     dx[j] = (dxh[j] - S[j] / c) / st[2 * FP + j] -
             xh[j] * S[FP + j] / (c * st[FP + j]);
@@ -276,9 +278,9 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       float v[4][FP];
-#pragma unroll
+MPNN_UNROLL
       for (int q = 0; q < 4; ++q)
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) v[q][j] = 0.f;
       float* row = xs + tid * kStage;
       if (n < n_real) {
@@ -289,36 +291,38 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
         load_row(a.htil + size_t(2 * T - 1) * slot_sz, n, f, hraw);
         apply_norm(smode, stT, ws + PL::oBnW, ws + PL::oBnB, hraw, h, xh);
         load_row(a.h0, n, f, h0n);
+        const float* riw = ro_gate(w, a.w);
+        const float* rjw = ro_value(w, a.w);
         float pi[ODW];
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODW; ++o) {
           float ti = w[PL::kRib + o];
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) {
-            ti = fmaf(h[k], w[PL::kRiw + k * ODW + o], ti);
-            ti = fmaf(h0n[k], w[PL::kRiw + (FP + k) * ODW + o], ti);
+            ti = fmaf(h[k], riw[k * ODW + o], ti);
+            ti = fmaf(h0n[k], riw[(FP + k) * ODW + o], ti);
           }
           pi[o] = ti;
         }
         float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODW; ++o)
           if (o < od) mx = fmaxf(mx, pi[o]);
         float den = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODW; ++o) {
           pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
           den += pi[o];
         }
         const float y = a.labels[g], gmv = a.gmask[g];
         float dot = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODW; ++o) {
           float tj = w[PL::kRjb + o];
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) {
-            tj = fmaf(h[k], w[PL::kRjw + k * ODW + o], tj);
-            tj = fmaf(h0n[k], w[PL::kRjw + (FP + k) * ODW + o], tj);
+            tj = fmaf(h[k], rjw[k * ODW + o], tj);
+            tj = fmaf(h0n[k], rjw[(FP + k) * ODW + o], tj);
           }
           const float smx = pi[o] / den;
           float dout = 0.f;
@@ -332,20 +336,20 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
           row[2 * FP + o] = dsm;             // dsm, turned into dpi below
           dot = fmaf(dsm, smx, dot);
         }
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODW; ++o)
           row[2 * FP + o] = pi[o] * (row[2 * FP + o] - dot);     // dpi
         float gh[FP], dh[FP];
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           float t1 = 0.f, t2 = 0.f;
-#pragma unroll
+MPNN_UNROLL
           for (int o = 0; o < ODW; ++o) {
             const float dpi = row[2 * FP + o], djv = row[2 * FP + ODW + o];
-            t1 = fmaf(w[PL::kRiw + k * ODW + o], dpi, t1);
-            t1 = fmaf(w[PL::kRjw + k * ODW + o], djv, t1);
-            t2 = fmaf(w[PL::kRiw + (FP + k) * ODW + o], dpi, t2);
-            t2 = fmaf(w[PL::kRjw + (FP + k) * ODW + o], djv, t2);
+            t1 = fmaf(riw[k * ODW + o], dpi, t1);
+            t1 = fmaf(rjw[k * ODW + o], djv, t1);
+            t2 = fmaf(riw[(FP + k) * ODW + o], dpi, t2);
+            t2 = fmaf(rjw[(FP + k) * ODW + o], djv, t2);
           }
           gh[k] = t1;
           dh[k] = t2;
@@ -355,7 +359,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
         store_row(a.dh0, n, f, dh);
         store_row(ghs, n, f, gh);
         if (state_stats) {
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             v[0][j] = state_bn ? gh[j] * ws[PL::oBnW + j] : gh[j];   // dx̂
             v[1][j] = v[0][j] * xh[j];
@@ -395,7 +399,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       float dmb[FP], xhm[FP], ghn[FP], xhp[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) dmb[j] = xhm[j] = ghn[j] = xhp[j] = 0.f;
       float* row = xs + tid * kStage;
       const float* w = sm + opaque_zero();
@@ -409,14 +413,14 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
           if (state_stats) {
             float x[FP], xh[FP], dxh[FP];
             load_row(a.htil + size_t(T + t) * slot_sz, n, f, x);
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               xh[j] = (x[j] - stt[j]) / stt[2 * FP + j];
               dxh[j] = state_bn ? gh[j] * wst[PL::oBnW + j] : gh[j];
             }
             norm_vjp(dxh, xh, stt, cs, c, dhp);
           } else {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) dhp[j] = gh[j];
           }
         }
@@ -434,13 +438,13 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
           apply_norm(mmode, stm, wst + PL::oMaW, wst + PL::oMaB, m0, mb,
                      xhm);
         }
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           float gr = w[PL::kBih + j], gz = w[PL::kBih + FP + j],
                 gn = w[PL::kBih + 2 * FP + j];
           float rh = w[PL::kBhh + j], zh = w[PL::kBhh + FP + j],
                 nh = w[PL::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) {
             const float* wi = w + PL::kWih + k * 3 * FP;
             const float* wh = w + PL::kWhh + k * 3 * FP;
@@ -465,12 +469,12 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
           row[FP + j] = hprev[j];
           ghn[j] = dhp[j] * sz;
         }
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           const float* wh = w + PL::kWhh + k * 3 * FP;
           const float* wi = w + PL::kWih + k * 3 * FP;
           float th = ghn[k], ti = 0.f;
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             const float dar = row[2 * FP + j], daz = row[3 * FP + j];
             th = fmaf(wh[j], dar, th);
@@ -489,7 +493,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
         } else {
           float d0[FP];
           load_row_cg(a.dh0, n, f, d0);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) d0[j] += ghn[j];
           store_row(a.dh0, n, f, d0);
         }
@@ -500,7 +504,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
       gru_grads(wrow, gl, xs, f);
       if (msg_bn) {
         float v[4][FP];
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           v[0][j] = dmb[j] * wst[PL::oMaW + j];     // dx̂ of the messages
           v[1][j] = v[0][j] * xhm[j];
@@ -514,7 +518,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
       }
       if (next_stats) {
         float v[4][FP];
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           v[0][j] = state_bn ? ghn[j] * wsp[PL::oBnW + j] : ghn[j];
           v[1][j] = v[0][j] * xhp[j];
@@ -547,14 +551,14 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
   for (int g = gw; g < G; g += nw) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float s[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) s[j] = 0.f;
     for (int n = n0 + lane; n < n1; n += 32) {
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j)
         if (j < f) s[j] += __ldg(a.h0 + size_t(n) * f + j);
     }
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) {
       s[j] = warp_sum(s[j]);
       if (lane == j) sg[size_t(g) * FP + j] = s[j];
@@ -563,7 +567,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
       const float* stm = st + t * 3 * FP;
       const float* wst = sm + opaque_zero() + PL::step(t);
       float d[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) d[j] = 0.f;
       for (int n = n0 + lane; n < n1; n += 32) {
         float dm[FP];
@@ -571,7 +575,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
         if (msg_bn) {
           float m0[FP], xh[FP], dxh[FP];
           load_row(a.htil + size_t(t) * slot_sz, n, f, m0);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             xh[j] = (m0[j] - stm[j]) / stm[2 * FP + j];
             dxh[j] = dm[j] * wst[PL::oMaW + j];
@@ -579,10 +583,10 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
           norm_vjp(dxh, xh, stm, msum + t * 2 * FP, c, dm);
           store_row(dms + size_t(t) * slot_sz, n, f, dm);
         }
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) d[j] += dm[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         d[j] = warp_sum(d[j]);
         if (lane == j) dg[(size_t(t) * G + g) * FP + j] = d[j];
@@ -597,18 +601,18 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
     if (n >= n_real) continue;
     const int g = a.node_graph[n];
     float acc[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) acc[j] = 0.f;
     for (int t = 0; t < T; ++t) {
       const float* a0t = sm + opaque_zero() + PL::step(t) + PL::oA0;
       float d[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j)
         d[j] = __ldcg(dg + (size_t(t) * G + g) * FP + j);
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         float v = acc[j];
-#pragma unroll
+MPNN_UNROLL
         for (int m = 0; m < FP; ++m) v = fmaf(a0t[m * FP + j], d[m], v);
         acc[j] = v;
       }
@@ -621,10 +625,10 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
         const float* am = a.w.amat + (size_t(t) * K + k) * size_t(f) * f;
         float dd[FP];
         load_row_cg(dms + size_t(t) * slot_sz, dn, f, dd);
-#pragma unroll
+MPNN_UNROLL
         for (int m = 0; m < FP; ++m) {
           if (m < f) {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j)
               if (j < f) acc[j] = fmaf(__ldg(am + m * f + j), dd[m], acc[j]);
           }
@@ -633,7 +637,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
     }
     float d0[FP];
     load_row_cg(a.dh0, n, f, d0);
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) d0[j] += acc[j];
     store_row(a.dh0, n, f, d0);
   }
@@ -646,7 +650,7 @@ fused_psteps_bwd_kernel(PsBwdArgs a) {
       const int g = gc * kChunk + tid;
       for (int t = 0; t < T; ++t) {
         float* row = xs + tid * kS;
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           row[j] = g < G ? __ldcg(sg + size_t(g) * FP + j) : 0.f;
           row[FP + j] =

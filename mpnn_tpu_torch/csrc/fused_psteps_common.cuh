@@ -39,9 +39,21 @@ using mpnn_train::store_row;
 using mpnn_train::warp_sum;
 namespace cg = cooperative_groups;
 
-// compiled for f <= 16 (FP) and od <= 32: graph_norm has od = 4·afm (28 at
-// afm 7), encoded od = 16; kernels/fused_psteps.py::MAX_WIDTH, MAX_OUT
-constexpr int ODW = 32;
+// The width bucket: f <= FP (fused_train_common.cuh) and od <= ODW. The
+// narrow build takes f <= 16 and od <= 32 (graph_norm has od = 4·afm, 28
+// at afm 7; encoded od = 16), the wide one -DMPNN_FP=32 -DMPNN_ODW=128
+// (kernels/build.py::WIDE; kernels/fused_psteps.py::BUCKETS).
+#ifndef MPNN_ODW
+#define MPNN_ODW 32
+#endif
+constexpr int ODW = MPNN_ODW;
+// The readout weights (2·2FP·ODW floats, 64 KB in the wide bucket) sit in
+// shared memory in the narrow bucket only; the wide bucket's backward needs
+// the room for its 2FP + 2ODW staged floats per node, so there the wrapper
+// passes ro_iw and ro_jw zero-padded to (2FP, ODW) in device memory and
+// the kernels read them through the read-only cache
+// (kernels/fused_psteps.py::_ro_table).
+constexpr bool kRoInSmem = ODW <= 32;
 constexpr int kMaxSteps = 8;
 // steps whose messages one gather of h0[src] feeds (T <= 4: one gather)
 constexpr int kStepGroup = 4;
@@ -85,8 +97,9 @@ struct PL {
   static constexpr int kBih = kWhh + FP * 3 * FP;
   static constexpr int kBhh = kBih + 3 * FP;
   static constexpr int kRiw = kBhh + 3 * FP;      // rows [h (FP) | h0 (FP)]
-  static constexpr int kRjw = kRiw + 2 * FP * ODW;
-  static constexpr int kRib = kRjw + 2 * FP * ODW;
+  static constexpr int kRo = kRoInSmem ? 2 * FP * ODW : 0;
+  static constexpr int kRjw = kRiw + kRo;
+  static constexpr int kRib = kRjw + kRo;
   static constexpr int kRjb = kRib + ODW;
   static constexpr int kSteps = kRjb + ODW;
   // inside a step's block: A0 (FP·FP, row m = output feature), then
@@ -120,7 +133,7 @@ __device__ void stage_ps_weights(float* sm, const PsWeights& w, int f,
     sm[PL::kBih + i] = c < f ? w.b_ih[g * f + c] : 0.f;
     sm[PL::kBhh + i] = c < f ? w.b_hh[g * f + c] : 0.f;
   }
-  for (int i = tid; i < 2 * FP * ODW; i += nt) {
+  for (int i = tid; kRoInSmem && i < 2 * FP * ODW; i += nt) {
     int r = i / ODW, o = i % ODW, half = r / FP, k = r % FP;
     bool in = k < f && o < od;
     int srow = half * f + k;
@@ -172,7 +185,7 @@ __device__ __forceinline__ void apply_norm(int mode, const float* st,
                                            const float* wv, const float* bv,
                                            const float* x, float* y,
                                            float* xh) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) {
     const float xhat = (x[j] - st[j]) / st[2 * FP + j];
     xh[j] = xhat;
@@ -186,13 +199,13 @@ __device__ __forceinline__ void apply_norm(int mode, const float* st,
 // One GRU step of a real node from its message input mb and state h.
 __device__ __forceinline__ void gru_forward(const float* w, const float* mb,
                                             const float* h, float* out) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) {
     float gr = w[PL::kBih + j], gz = w[PL::kBih + FP + j],
           gn = w[PL::kBih + 2 * FP + j];
     float rh = w[PL::kBhh + j], zh = w[PL::kBhh + FP + j],
           nh = w[PL::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < FP; ++k) {
       const float* wi = w + PL::kWih + k * 3 * FP;
       const float* wh = w + PL::kWhh + k * 3 * FP;
@@ -210,41 +223,55 @@ __device__ __forceinline__ void gru_forward(const float* w, const float* mb,
   }
 }
 
+// The (2FP, ODW) readout gate and value weights: staged in shared memory
+// (`w`) or, in the wide bucket, the zero-padded tables in device memory.
+__device__ __forceinline__ const float* ro_gate(const float* w,
+                                                const PsWeights& pw) {
+  return kRoInSmem ? w + PL::kRiw : pw.ro_iw;
+}
+__device__ __forceinline__ const float* ro_value(const float* w,
+                                                 const PsWeights& pw) {
+  return kRoInSmem ? w + PL::kRjw : pw.ro_jw;
+}
+
 // readout of one real node: gate logits over od (softmax) times values;
 // acc[o] += softmax_o · value_o
 __device__ __forceinline__ void readout_accumulate(const float* w,
+                                                   const PsWeights& pw,
                                                    const float* h,
                                                    const float* h0n, int od,
                                                    float* acc) {
+  const float* riw = ro_gate(w, pw);
+  const float* rjw = ro_value(w, pw);
   float pi[ODW];
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODW; ++o) {
     float ti = w[PL::kRib + o];
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < FP; ++k) {
-      ti = fmaf(h[k], w[PL::kRiw + k * ODW + o], ti);
-      ti = fmaf(h0n[k], w[PL::kRiw + (FP + k) * ODW + o], ti);
+      ti = fmaf(h[k], riw[k * ODW + o], ti);
+      ti = fmaf(h0n[k], riw[(FP + k) * ODW + o], ti);
     }
     pi[o] = ti;
   }
   float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODW; ++o)
     if (o < od) mx = fmaxf(mx, pi[o]);
   float den = 0.f;
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODW; ++o) {
     pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
     den += pi[o];
   }
   const float inv = 1.0f / den;
-#pragma unroll
+MPNN_UNROLL
   for (int o = 0; o < ODW; ++o) {
     float tj = w[PL::kRjb + o];
-#pragma unroll
+MPNN_UNROLL
     for (int k = 0; k < FP; ++k) {
-      tj = fmaf(h[k], w[PL::kRjw + k * ODW + o], tj);
-      tj = fmaf(h0n[k], w[PL::kRjw + (FP + k) * ODW + o], tj);
+      tj = fmaf(h[k], rjw[k * ODW + o], tj);
+      tj = fmaf(h0n[k], rjw[(FP + k) * ODW + o], tj);
     }
     acc[o] = fmaf(pi[o] * inv, tj, acc[o]);
   }
@@ -438,38 +465,38 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
   for (int g = gw; g < G; g += nw) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float s[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) s[j] = 0.f;
     for (int n = n0 + lane; n < n1; n += 32) {
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j)
         if (j < f) s[j] += __ldg(a.h0 + size_t(n) * f + j);
     }
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) s[j] = warp_sum(s[j]);
     for (int n = n0 + lane; n < n1; n += 32) {
       const int p0 = __ldg(a.dst_ptr + n), p1 = __ldg(a.dst_ptr + n + 1);
       for (int t0 = 0; t0 < T; t0 += kStepGroup) {
         float acc[kStepGroup][FP];
-#pragma unroll
+MPNN_UNROLL
         for (int q = 0; q < kStepGroup; ++q)
-#pragma unroll
+MPNN_UNROLL
           for (int m = 0; m < FP; ++m) acc[q][m] = 0.f;
         for (int p = p0; p < p1; ++p) {
           const int e = __ldg(a.edge_order + p);
           const int k = __ldg(a.vid + e);
           float hs[FP];
           load_row(a.h0, __ldg(a.src + e), f, hs);
-#pragma unroll
+MPNN_UNROLL
           for (int q = 0; q < kStepGroup; ++q) {
             if (t0 + q < T) {
               const float* am =
                   a.w.amat + (size_t(t0 + q) * K + k) * size_t(f) * f;
-#pragma unroll
+MPNN_UNROLL
               for (int m = 0; m < FP; ++m) {
                 if (m < f) {
                   float v = 0.f;
-#pragma unroll
+MPNN_UNROLL
                   for (int j = 0; j < FP; ++j)
                     if (j < f) v = fmaf(__ldg(am + m * f + j), hs[j], v);
                   acc[q][m] += v;
@@ -478,15 +505,15 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
             }
           }
         }
-#pragma unroll
+MPNN_UNROLL
         for (int q = 0; q < kStepGroup; ++q) {
           if (t0 + q < T) {
             const float* ws = sm + opaque_zero() + PL::step(t0 + q);
             float msg[FP];
-#pragma unroll
+MPNN_UNROLL
             for (int m = 0; m < FP; ++m) {
               float v = acc[q][m] + ws[PL::oMb + m];
-#pragma unroll
+MPNN_UNROLL
               for (int j = 0; j < FP; ++j)
                 v = fmaf(ws[PL::oA0 + m * FP + j], s[j], v);
               msg[m] = v;
@@ -506,10 +533,10 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
       const int cnt = chunk_count(c, n_real);
       for (int t = 0; t < T; ++t) {
         float x[FP];
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) x[j] = 0.f;
         if (n < n_real) load_row_cg(a.htil + size_t(t) * slot_sz, n, f, x);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) xs[tid * kStage + j] = x[j];
         __syncthreads();
         chunk_moments(xs, cnt, red, cmean,
@@ -532,7 +559,7 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
       const int n = c * kChunk + tid;
       const int cnt = chunk_count(c, n_real);
       float x[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) x[j] = 0.f;
       if (n < n_real) {
         const float* w = sm + opaque_zero();
@@ -554,7 +581,7 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
         store_row(cur, n, f, x);
       }
       if (state_stats) {
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) xs[tid * kStage + j] = x[j];
         __syncthreads();
         chunk_moments(xs, cnt, red, cmean, part_t + size_t(c) * kPartStride);
@@ -575,7 +602,7 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
   for (int g = gw; g < G; g += nw) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float acc[ODW];
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODW; ++o) acc[o] = 0.f;
     for (int n = n0 + lane; n < n1; n += 32) {
       const float* w = sm + opaque_zero();
@@ -584,15 +611,15 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
       load_row_cg(hT, n, f, hr);
       apply_norm(smode, stT, ws + PL::oBnW, ws + PL::oBnB, hr, h, xh);
       load_row(a.h0, n, f, h0n);
-      readout_accumulate(w, h, h0n, od, acc);
+      readout_accumulate(w, a.w, h, h0n, od, acc);
     }
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODW; ++o) acc[o] = warp_sum(acc[o]);
     if (lane == 0) {
       float l = 0.f;
       const float y = kTrain ? a.labels[g] : 0.f;
       const float gm = kTrain ? a.gmask[g] : 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODW; ++o)
         if (o < od) {
           a.out[size_t(g) * od + o] = acc[o];

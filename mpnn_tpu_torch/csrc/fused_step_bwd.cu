@@ -93,6 +93,7 @@ struct BwdArgs {
 };
 
 constexpr int kStage = 6 * FP + 1;     // staged floats per node (odd)
+static_assert(2 * FP + 2 * ODP + 1 <= kStage, "readout rows exceed kStage");
 
 // First element index >= off owned by this thread (e ≡ tid mod kThreads).
 __device__ __forceinline__ int first_owned(int off) {
@@ -232,9 +233,9 @@ fused_step_bwd_kernel(BwdArgs a) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       float v[4][FP];
-#pragma unroll
+MPNN_UNROLL
       for (int q = 0; q < 4; ++q)
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) v[q][j] = 0.f;
       float* row = xs + tid * kS;
       if (n < n_real) {
@@ -244,19 +245,19 @@ fused_step_bwd_kernel(BwdArgs a) {
         load_row(a.htil + size_t(T) * slot_sz, n, f, hraw);
         if (a.state_bn) {
           xhat_of(stT, hraw, xh);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j)
             h[j] = w[L::kBnW + j] * xh[j] + w[L::kBnB + j];
         } else {
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) h[j] = hraw[j];
         }
         load_row(a.h0, n, f, h0n);
         float pi[ODP], pj[ODP];
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODP; ++o) {
           float ti = w[L::kRib + o], tj = w[L::kRjb + o];
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) {
             ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
             tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
@@ -267,18 +268,18 @@ fused_step_bwd_kernel(BwdArgs a) {
           pj[o] = tj;
         }
         float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODP; ++o)
           if (o < od) mx = fmaxf(mx, pi[o]);
         float den = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODP; ++o) {
           pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
           den += pi[o];
         }
         const float y = a.labels[g], gmv = a.gmask[g];
         float dot = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODP; ++o) {
           const float smx = pi[o] / den;
           float dout = 0.f;
@@ -293,17 +294,17 @@ fused_step_bwd_kernel(BwdArgs a) {
           row[2 * FP + o] = dsm;             // dsm, turned into dpi below
           dot = fmaf(dsm, smx, dot);
         }
-#pragma unroll
+MPNN_UNROLL
         for (int o = 0; o < ODP; ++o) {
           const float dpi = pi[o] * (row[2 * FP + o] - dot);
           row[2 * FP + o] = dpi;
           pi[o] = dpi;
         }
         float gh[FP], dh[FP];
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           float t1 = 0.f, t2 = 0.f;
-#pragma unroll
+MPNN_UNROLL
           for (int o = 0; o < ODP; ++o) {
             t1 = fmaf(w[L::kRiw + k * ODP + o], pi[o], t1);
             t1 = fmaf(w[L::kRjw + k * ODP + o], pj[o], t1);
@@ -318,7 +319,7 @@ fused_step_bwd_kernel(BwdArgs a) {
         store_row(a.dh0, n, f, dh);
         store_row(ghs, n, f, gh);
         if (a.state_bn) {
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             v[0][j] = gh[j] * w[L::kBnW + j];      // dx̂
             v[1][j] = v[0][j] * xh[j];
@@ -355,9 +356,9 @@ fused_step_bwd_kernel(BwdArgs a) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       float v[4][FP];
-#pragma unroll
+MPNN_UNROLL
       for (int q = 0; q < 4; ++q)
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) v[q][j] = 0.f;
       float* row = xs + tid * kStage;
       if (n < n_real) {
@@ -370,14 +371,14 @@ fused_step_bwd_kernel(BwdArgs a) {
             float x[FP], xh[FP];
             load_row(a.htil + size_t(t) * slot_sz, n, f, x);
             xhat_of(stt, x, xh);
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               const float dxh = gh[j] * w[L::kBnW + j];
               dhp[j] = (dxh - cs[j] / c) / stt[2 * FP + j] -
                        xh[j] * cs[FP + j] / (c * stt[FP + j]);
             }
           } else {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) dhp[j] = gh[j];
           }
         }
@@ -385,7 +386,7 @@ fused_step_bwd_kernel(BwdArgs a) {
           load_row(a.htil + size_t(t - 1) * slot_sz, n, f, hprev);
           if (a.state_bn) {
             xhat_of(stp, hprev, xhp);
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j)
               hprev[j] = w[L::kBnW + j] * xhp[j] + w[L::kBnB + j];
           }
@@ -395,18 +396,18 @@ fused_step_bwd_kernel(BwdArgs a) {
         load_row(a.htil, n, f, mb);
         if (a.msg_bn) {
           xhat_of(st0, mb, xh0);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j)
             mb[j] = w[L::kMaW + j] * xh0[j] + w[L::kMaB + j];
         }
         float ghn[FP];
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           float gr = w[L::kBih + j], gz = w[L::kBih + FP + j],
                 gn = w[L::kBih + 2 * FP + j];
           float rh = w[L::kBhh + j], zh = w[L::kBhh + FP + j],
                 nh = w[L::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) {
             const float* wi = w + L::kWih + k * 3 * FP;
             const float* wh = w + L::kWhh + k * 3 * FP;
@@ -433,17 +434,17 @@ fused_step_bwd_kernel(BwdArgs a) {
         }
         float dmb[FP];
         if (t == T) {
-#pragma unroll
+MPNN_UNROLL
           for (int k = 0; k < FP; ++k) dmb[k] = 0.f;
         } else {
           load_row(dmbs, n, f, dmb);
         }
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           const float* wh = w + L::kWhh + k * 3 * FP;
           const float* wi = w + L::kWih + k * 3 * FP;
           float th = ghn[k], ti = dmb[k];
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             const float dar = row[2 * FP + j], daz = row[3 * FP + j];
             th = fmaf(wh[j], dar, th);
@@ -460,7 +461,7 @@ fused_step_bwd_kernel(BwdArgs a) {
         if (t > 1) {
           store_row(ghs, n, f, ghn);
           if (a.state_bn) {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               v[0][j] = ghn[j] * w[L::kBnW + j];
               v[1][j] = v[0][j] * xhp[j];
@@ -471,11 +472,11 @@ fused_step_bwd_kernel(BwdArgs a) {
         } else {
           float d0[FP];
           load_row_cg(a.dh0, n, f, d0);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) d0[j] += ghn[j];
           store_row(a.dh0, n, f, d0);
           if (a.msg_bn) {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               v[0][j] = dmb[j] * w[L::kMaW + j];    // dx̂ of the messages
               v[1][j] = v[0][j] * xh0[j];
@@ -514,7 +515,7 @@ fused_step_bwd_kernel(BwdArgs a) {
         load_row(dmbs, n, f, dmb);
         load_row(a.htil, n, f, m0);
         xhat_of(st0, m0, xh0);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           const float dxm = dmb[j] * sm[L::kMaW + j];
           dm[j] = (dxm - cs[j] / c) / st0[2 * FP + j] -
@@ -531,34 +532,34 @@ fused_step_bwd_kernel(BwdArgs a) {
     const int gw = blockIdx.x * kWarps + warp, nw = gridDim.x * kWarps;
     constexpr int kPer = FP * FP / 32;
     float da0[kPer], dmbias = 0.f;
-#pragma unroll
+MPNN_UNROLL
     for (int r = 0; r < kPer; ++r) da0[r] = 0.f;
     for (int g = gw; g < G; g += nw) {
       const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
       float s[FP], d[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) s[j] = d[j] = 0.f;
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[FP], dn[FP];
         load_row(a.h0, n, f, hn);
         load_row_cg(dmsgs, n, f, dn);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {
           s[j] += hn[j];
           d[j] += dn[j];
         }
       }
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         s[j] = warp_sum(s[j]);
         d[j] = warp_sum(d[j]);
         if (j == lane) dmbias += d[j];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int r = 0; r < kPer; ++r) {
         const int e = lane + 32 * r;
         float dv = 0.f, sv = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) {          // d[e / FP], s[e % FP]
           if (j == e / FP) dv = d[j];
           if (j == e % FP) sv = s[j];
@@ -566,35 +567,35 @@ fused_step_bwd_kernel(BwdArgs a) {
         da0[r] = fmaf(dv, sv, da0[r]);
       }
       float bt[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) {
         float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
         for (int m = 0; m < FP; ++m) t = fmaf(sm[L::kA0 + m * FP + j], d[m], t);
         bt[j] = t;
       }
       for (int n = n0 + lane; n < n1; n += 32) {
         const float* w = sm + opaque_zero();
         float acc[FP];
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) acc[j] = bt[j];
         const int p1 = __ldg(a.src_ptr + n + 1);
         for (int p = __ldg(a.src_ptr + n); p < p1; ++p) {
           const int e = __ldg(a.src_order + p);
-          const float* am = w + L::kAmat + __ldg(a.vid + e) * FP * FP;
+          const float* am = amat_of(w, a.w, __ldg(a.vid + e));
           float dd[FP];
           load_row_cg(dmsgs, __ldg(a.dst + e), f, dd);
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
             for (int m = 0; m < FP; ++m) t = fmaf(am[m * FP + j], dd[m], t);
             acc[j] += t;
           }
         }
         float d0[FP];
         load_row_cg(a.dh0, n, f, d0);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) d0[j] += acc[j];
         store_row(a.dh0, n, f, d0);
       }
@@ -602,7 +603,7 @@ fused_step_bwd_kernel(BwdArgs a) {
     // warp partials → the block row, in warp order
     float* wred = xs;                            // kWarps·(FP·FP + FP)
     constexpr int kW = FP * FP + FP;
-#pragma unroll
+MPNN_UNROLL
     for (int r = 0; r < kPer; ++r) wred[warp * kW + lane + 32 * r] = da0[r];
     if (lane < FP) wred[warp * kW + FP * FP + lane] = dmbias;
     __syncthreads();

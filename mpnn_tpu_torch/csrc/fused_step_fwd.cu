@@ -187,44 +187,44 @@ fused_step_fwd_kernel(FwdArgs a) {
   for (int g = gw; g < G; g += nw) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float s[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) s[j] = 0.f;
     for (int n = n0 + lane; n < n1; n += 32) {
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j)
         if (j < f) s[j] += __ldg(a.h0 + size_t(n) * f + j);
     }
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) s[j] = warp_sum(s[j]);
     float base[FP];
-#pragma unroll
+MPNN_UNROLL
     for (int m = 0; m < FP; ++m) {
       float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) t = fmaf(sm[L::kA0 + m * FP + j], s[j], t);
       base[m] = t + sm[L::kMbias + m];
     }
     for (int n = n0 + lane; n < n1; n += 32) {
       const float* w = sm + opaque_zero();
       float msg[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int m = 0; m < FP; ++m) msg[m] = 0.f;
       const int p1 = __ldg(a.dst_ptr + n + 1);
       for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
         const int e = __ldg(a.edge_order + p);
         const int sn = __ldg(a.src + e);
-        const float* am = w + L::kAmat + __ldg(a.vid + e) * FP * FP;
+        const float* am = amat_of(w, a.w, __ldg(a.vid + e));
         float hs[FP];
         load_row(a.h0, sn, f, hs);
-#pragma unroll
+MPNN_UNROLL
         for (int m = 0; m < FP; ++m) {
           float t = 0.f;
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) t = fmaf(am[m * FP + j], hs[j], t);
           msg[m] += t;
         }
       }
-#pragma unroll
+MPNN_UNROLL
       for (int m = 0; m < FP; ++m) msg[m] += base[m];
       store_row(a.htil, n, f, msg);
     }
@@ -242,7 +242,7 @@ fused_step_fwd_kernel(FwdArgs a) {
       const int n = c * kChunk + tid;
       const int cnt = chunk_count(c, n_real);
       float x[FP];
-#pragma unroll
+MPNN_UNROLL
       for (int j = 0; j < FP; ++j) x[j] = 0.f;
       if (n < n_real) {
         if (t == 0) {
@@ -254,11 +254,11 @@ fused_step_fwd_kernel(FwdArgs a) {
           load_row_cg(a.htil, n, f, m0);
           if (a.msg_bn) {
             xhat_of(st0, m0, mb);
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j)
               mb[j] = w[L::kMaW + j] * mb[j] + w[L::kMaB + j];
           } else {
-#pragma unroll
+MPNN_UNROLL
             for (int j = 0; j < FP; ++j) mb[j] = m0[j];
           }
           float h[FP];
@@ -269,18 +269,18 @@ fused_step_fwd_kernel(FwdArgs a) {
             if (a.state_bn) {
               float xh[FP];
               xhat_of(st + (t - 1) * 3 * FP, h, xh);
-#pragma unroll
+MPNN_UNROLL
               for (int j = 0; j < FP; ++j)
                 h[j] = w[L::kBnW + j] * xh[j] + w[L::kBnB + j];
             }
           }
-#pragma unroll
+MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             float gr = w[L::kBih + j], gz = w[L::kBih + FP + j],
                   gn = w[L::kBih + 2 * FP + j];
             float rh = w[L::kBhh + j], zh = w[L::kBhh + FP + j],
                   nh = w[L::kBhh + 2 * FP + j];
-#pragma unroll
+MPNN_UNROLL
             for (int k = 0; k < FP; ++k) {
               const float* wi = w + L::kWih + k * 3 * FP;
               const float* wh = w + L::kWhh + k * 3 * FP;
@@ -300,7 +300,7 @@ fused_step_fwd_kernel(FwdArgs a) {
         }
       }
       if (bn) {
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j) xs[tid * kStage + j] = x[j];
         __syncthreads();
         chunk_moments(xs, cnt, red, cmean, part_t + size_t(c) * kPartStride);
@@ -320,7 +320,7 @@ fused_step_fwd_kernel(FwdArgs a) {
   for (int g = gw; g < G; g += nw) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
     float acc[ODP];
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o) acc[o] = 0.f;
     for (int n = n0 + lane; n < n1; n += 32) {
       const float* w = sm + opaque_zero();
@@ -329,16 +329,16 @@ fused_step_fwd_kernel(FwdArgs a) {
       if (a.state_bn) {
         float xh[FP];
         xhat_of(stT, h, xh);
-#pragma unroll
+MPNN_UNROLL
         for (int j = 0; j < FP; ++j)
           h[j] = w[L::kBnW + j] * xh[j] + w[L::kBnB + j];
       }
       load_row(a.h0, n, f, h0n);
       float pi[ODP], pj[ODP];
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODP; ++o) {
         float ti = w[L::kRib + o], tj = w[L::kRjb + o];
-#pragma unroll
+MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
           ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
           tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
@@ -349,24 +349,24 @@ fused_step_fwd_kernel(FwdArgs a) {
         pj[o] = tj;
       }
       float mx = -INFINITY;
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODP; ++o)
         if (o < od) mx = fmaxf(mx, pi[o]);
       float den = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODP; ++o) {
         pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
         den += pi[o];
       }
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODP; ++o) acc[o] += (pi[o] / den) * pj[o];
     }
-#pragma unroll
+MPNN_UNROLL
     for (int o = 0; o < ODP; ++o) acc[o] = warp_sum(acc[o]);
     if (lane == 0) {
       const float y = a.labels[g], gm = a.gmask[g];
       float l = 0.f;
-#pragma unroll
+MPNN_UNROLL
       for (int o = 0; o < ODP; ++o)
         if (o < od) {
           a.out[size_t(g) * od + o] = acc[o];

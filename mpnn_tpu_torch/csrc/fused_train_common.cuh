@@ -20,6 +20,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "unroll.cuh"
+
 namespace mpnn_train {
 
 namespace cg = cooperative_groups;
@@ -30,11 +32,26 @@ constexpr int kChunk = kThreads;     // node slots per node chunk
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-5f;        // masked bn1d: eps OUTSIDE the sqrt
 constexpr float kVarClamp = 1e-12f;  // var clamped inside the sqrt
-// compiled for f <= 16 and od <= 16 (the lipo family: f = 10, od = 14),
-// zero-padded; kernels/fused_step.py::MAX_WIDTH
-constexpr int FP = 16;
-constexpr int ODP = 16;
+// The width bucket: f <= FP and od <= ODP, zero-padded. kernels/build.py
+// compiles the narrow bucket (16, 16; the lipo family at bench widths,
+// f = 10, od = 14) and a wide one with -DMPNN_FP=32 -DMPNN_ODP=64;
+// kernels/fused_step.py::BUCKETS mirrors them.
+#ifndef MPNN_FP
+#define MPNN_FP 16
+#endif
+#ifndef MPNN_ODP
+#define MPNN_ODP 16
+#endif
+constexpr int FP = MPNN_FP;
+constexpr int ODP = MPNN_ODP;
+static_assert(FP <= 32 && kThreads % FP == 0, "a feature per lane at most");
 constexpr int kMaxSteps = 32;
+// The vocab's (K, FP, FP) message tables: staged in shared memory in the
+// narrow bucket; past FP 16 they would take most of a block's 227 KB (256
+// KB at K 64), so the wrapper passes them zero-padded to (K, FP, FP) and
+// the kernels read them from device memory through the read-only cache
+// (kernels/fused_step.py::vocab_table).
+constexpr bool kVocabInSmem = FP <= 16;
 
 struct Weights {
   const float* amat;   // (K, f, f): message = amat[k] @ h0[src]
@@ -71,9 +88,9 @@ struct L {
   static constexpr int kRjw = kRiw + 2 * FP * ODP;
   static constexpr int kRib = kRjw + 2 * FP * ODP;
   static constexpr int kRjb = kRib + ODP;
-  static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP
+  static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP (narrow)
   __host__ __device__ static int stats(int k_vocab) {
-    return kAmat + k_vocab * FP * FP;
+    return kAmat + (kVocabInSmem ? k_vocab * FP * FP : 0);
   }
   // per slot s = 0..steps: mean, s = sqrt(max(var, clamp)), d = s + eps
   __host__ __device__ static int after_stats(int k_vocab, int steps) {
@@ -131,10 +148,19 @@ __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
     sm[L::kRib + i] = i < od ? w.ro_ib[i] : 0.f;
     sm[L::kRjb + i] = i < od ? w.ro_jb[i] : 0.f;
   }
+  if (!kVocabInSmem) return;
   for (int i = tid; i < k_vocab * FP * FP; i += nt) {
     int k = i / (FP * FP), rc = i % (FP * FP), r = rc / FP, c = rc % FP;
     sm[L::kAmat + i] = (r < f && c < f) ? w.amat[(k * f + r) * f + c] : 0.f;
   }
+}
+
+// The (FP, FP) message table of vocab id k: in shared memory (`w`, the
+// staged weights) or, in a wide bucket, the zero-padded table in device
+// memory.
+__device__ __forceinline__ const float* amat_of(const float* w,
+                                                const Weights& wt, int k) {
+  return (kVocabInSmem ? w + L::kAmat : wt.amat) + size_t(k) * FP * FP;
 }
 
 // Load a node's f features (zero-padded to NF, FP unless a kernel is
@@ -142,7 +168,7 @@ __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
 template <int NF = FP>
 __device__ __forceinline__ void load_row(const float* base, int n, int f,
                                          float* x) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j) x[j] = j < f ? base[size_t(n) * f + j] : 0.f;
 }
 
@@ -151,7 +177,7 @@ __device__ __forceinline__ void load_row(const float* base, int n, int f,
 template <int NF = FP>
 __device__ __forceinline__ void load_row_cg(const float* base, int n, int f,
                                             float* x) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j)
     x[j] = j < f ? __ldcg(base + size_t(n) * f + j) : 0.f;
 }
@@ -159,7 +185,7 @@ __device__ __forceinline__ void load_row_cg(const float* base, int n, int f,
 template <int NF = FP>
 __device__ __forceinline__ void store_row(float* base, int n, int f,
                                           const float* x) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < NF; ++j)
     if (j < f) base[size_t(n) * f + j] = x[j];
 }
@@ -167,13 +193,13 @@ __device__ __forceinline__ void store_row(float* base, int n, int f,
 // Masked bn1d normalization x̂ = (x − mean) / d with the slot's constants.
 __device__ __forceinline__ void xhat_of(const float* st, const float* x,
                                         float* xh) {
-#pragma unroll
+MPNN_UNROLL
   for (int j = 0; j < FP; ++j) xh[j] = (x[j] - st[j]) / st[2 * FP + j];
 }
 
 // Sum of `v` over the 32 lanes, the same total in every lane.
 __device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
+MPNN_UNROLL
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
@@ -187,9 +213,9 @@ template <int Q>
 __device__ void block_feature_sums(const float (&vals)[Q][FP], float* red,
                                    float* out) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
+MPNN_UNROLL
   for (int q = 0; q < Q; ++q) {
-#pragma unroll
+MPNN_UNROLL
     for (int j = 0; j < FP; ++j) {
       float s = warp_sum(vals[q][j]);
       if (lane == 0) red[(warp * Q + q) * FP + j] = s;
@@ -205,24 +231,28 @@ __device__ void block_feature_sums(const float (&vals)[Q][FP], float* red,
 }
 
 // Totals over chunks of per-chunk partials part[c·stride + q·FP + j], for
-// q < Q, summed in chunk order (4 interleaved partial sums, then combined
-// in order). Results in out[q·FP + j]. Every thread of the block must call
-// it; needs Q·FP·4 <= kThreads.
+// q < Q, summed in chunk order (P interleaved partial sums, 4 where the
+// block has the threads, then combined in order). Results in
+// out[q·FP + j]. Every thread of the block must call it.
 template <int Q>
 __device__ void chunk_totals(const float* part, int stride, int nchunks,
                              float* red, float* out) {
-  static_assert(Q * FP * 4 <= kThreads, "too many sums for one block");
+  constexpr int P = kThreads / (Q * FP) < 4 ? kThreads / (Q * FP) : 4;
+  static_assert(P >= 1, "too many sums for one block");
   const int tid = threadIdx.x;
-  if (tid < Q * FP * 4) {
+  if (tid < Q * FP * P) {
     const int qj = tid % (Q * FP), p = tid / (Q * FP);
     float s = 0.f;
-    for (int c = p; c < nchunks; c += 4) s += __ldcg(part + size_t(c) * stride + qj);
+    for (int c = p; c < nchunks; c += P) s += __ldcg(part + size_t(c) * stride + qj);
     red[p * Q * FP + qj] = s;
   }
   __syncthreads();
-  if (tid < Q * FP)
-    out[tid] = ((red[tid] + red[Q * FP + tid]) + red[2 * Q * FP + tid]) +
-               red[3 * Q * FP + tid];
+  if (tid < Q * FP) {
+    float s = red[tid];
+MPNN_UNROLL
+    for (int p = 1; p < P; ++p) s += red[p * Q * FP + tid];
+    out[tid] = s;
+  }
   __syncthreads();
 }
 

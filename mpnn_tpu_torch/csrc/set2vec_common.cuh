@@ -1,7 +1,9 @@
 // Shared pieces of the set2vec readout kernels (set2vec_fwd.cu,
 // set2vec_bwd.cu): the weights' layout in shared memory, the LSTM step and
-// the query, each taken by ONE WARP per graph with lane j holding feature j
-// of the graph's carry (w = 2·nf ≤ 32 features, zero-padded to 32 lanes).
+// the query, each taken by ONE WARP per graph with lane l holding features
+// l + 32·r, r < kPL, of the graph's carry (w = 2·nf ≤ WP features,
+// zero-padded: WP 32 in the narrow bucket, one feature per lane; 64 in the
+// wide bucket, -DMPNN_WP=64, two per lane).
 //
 // Work mapping, the same in every step and in both kernels: block b owns a
 // contiguous range of graphs, [b·G/grid, (b+1)·G/grid); the graph at
@@ -25,7 +27,13 @@ namespace cg = cooperative_groups;
 
 constexpr int kThreads = 128;        // 4 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int WP = 32;               // the widest set, kernels/set2vec.py::MAX_WIDTH
+// the widest set of the build: kernels/set2vec.py::BUCKETS
+#ifndef MPNN_WP
+#define MPNN_WP 32
+#endif
+constexpr int WP = MPNN_WP;
+static_assert(WP == 32 || WP == 64, "a bucket is 32 or 64 features wide");
+constexpr int kPL = WP / 32;         // features per lane
 // Row stride of the weight matrices in shared memory: one more than WP, so
 // a warp reading a column (lane i at row i, the backward's transposed
 // products) hits 32 distinct banks, as a row read does.
@@ -89,44 +97,72 @@ __device__ __forceinline__ float warp_max_(float v) {
   return v;
 }
 
-// The kernels are instantiated for a width bound WB (16 or WP, w <= WB):
-// the products below loop over WB features; shared-memory strides stay WP.
-template <typename Kernel16, typename Kernel32>
-const void* kernel_for_width(int width, Kernel16 k16, Kernel32 k32) {
-  return width <= 16 ? (const void*)k16 : (const void*)k32;
+// The kernels are instantiated for a width bound WB (w <= WB): 16 or 32 in
+// the narrow bucket, 64 in the wide one; the products below loop over WB
+// features, shared-memory strides stay WP.
+template <typename Kernel16, typename KernelWP>
+const void* kernel_for_width(int width, Kernel16 k16, KernelWP kwp) {
+  if constexpr (WP == 32)
+    if (width <= 16) return (const void*)k16;
+  return (const void*)kwp;
 }
 
-// The LSTM's four activations at feature `lane` from the carry [mh ‖ mr]
-// (lane k holds mh[k], mr[k]; zero past the width): i, f, g, o.
+// The LSTM's four activations at this lane's features from the carry
+// [mh ‖ mr] (zero past the width): act[r] = i, f, g, o of feature
+// lane + 32·r.
 template <int WB>
-__device__ __forceinline__ void lstm_gates(const float* sm, float mh, float mr,
-                                           int lane, float (&act)[4]) {
-  float a[4];
+__device__ __forceinline__ void lstm_gates(const float* sm,
+                                           const float (&mh)[kPL],
+                                           const float (&mr)[kPL], int lane,
+                                           float (&act)[kPL][4]) {
+  float a[kPL][4];
 #pragma unroll
-  for (int g = 0; g < 4; ++g) a[g] = sm[SL::kB + g * WP + lane];
+  for (int r = 0; r < kPL; ++r)
+#pragma unroll
+    for (int g = 0; g < 4; ++g) a[r][g] = sm[SL::kB + g * WP + lane + 32 * r];
+#pragma unroll
+  for (int kr = 0; kr * 32 < WB; ++kr) {
 #pragma unroll 8
-  for (int k = 0; k < WB; ++k) {
-    const float x = __shfl_sync(kFull, mh, k), y = __shfl_sync(kFull, mr, k);
+    for (int kk = 0; kk < (WB < 32 ? WB : 32); ++kk) {
+      const int k = kr * 32 + kk;
+      const float x = __shfl_sync(kFull, mh[kr], kk);
+      const float y = __shfl_sync(kFull, mr[kr], kk);
 #pragma unroll
-    for (int g = 0; g < 4; ++g) {
-      a[g] = fmaf(x, sm[SL::kW + (g * 2 * WP + k) * WS + lane], a[g]);
-      a[g] = fmaf(y, sm[SL::kW + (g * 2 * WP + WP + k) * WS + lane], a[g]);
+      for (int r = 0; r < kPL; ++r)
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float* wg = sm + SL::kW + lane + 32 * r;
+          a[r][g] = fmaf(x, wg[(g * 2 * WP + k) * WS], a[r][g]);
+          a[r][g] = fmaf(y, wg[(g * 2 * WP + WP + k) * WS], a[r][g]);
+        }
     }
   }
-  act[0] = sigmoid_(a[0]);
-  act[1] = sigmoid_(a[1]);
-  act[2] = tanhf(a[2]);
-  act[3] = sigmoid_(a[3]);
+#pragma unroll
+  for (int r = 0; r < kPL; ++r) {
+    act[r][0] = sigmoid_(a[r][0]);
+    act[r][1] = sigmoid_(a[r][1]);
+    act[r][2] = tanhf(a[r][2]);
+    act[r][3] = sigmoid_(a[r][3]);
+  }
 }
 
-// q[lane] = Σ_k h[k]·Wq[k][lane].
+// q[r] = Σ_k h[k]·Wq[k][lane + 32·r].
 template <int WB>
-__device__ __forceinline__ float query(const float* sm, float h, int lane) {
-  float q = 0.f;
+__device__ __forceinline__ void query(const float* sm, const float (&h)[kPL],
+                                      int lane, float (&q)[kPL]) {
+#pragma unroll
+  for (int r = 0; r < kPL; ++r) q[r] = 0.f;
+#pragma unroll
+  for (int kr = 0; kr * 32 < WB; ++kr) {
 #pragma unroll 8
-  for (int k = 0; k < WB; ++k)
-    q = fmaf(__shfl_sync(kFull, h, k), sm[SL::kQ + k * WS + lane], q);
-  return q;
+    for (int kk = 0; kk < (WB < 32 ? WB : 32); ++kk) {
+      const float hk = __shfl_sync(kFull, h[kr], kk);
+#pragma unroll
+      for (int r = 0; r < kPL; ++r)
+        q[r] = fmaf(hk, sm[SL::kQ + (kr * 32 + kk) * WS + lane + 32 * r],
+                    q[r]);
+    }
+  }
 }
 
 // This block's graphs: [lo, hi).

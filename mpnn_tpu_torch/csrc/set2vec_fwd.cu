@@ -15,8 +15,8 @@
 // walks: each step's input carry (mh, mr, c) per graph and its attention
 // row.
 //
-// Design: ONE cooperative launch, one warp per graph, lane j on feature j
-// (set2vec_common.cuh). The per-graph softmax needs no barrier at all. The
+// Design: ONE cooperative launch, one warp per graph, lane l on features
+// l + 32·r (set2vec_common.cuh). The per-graph softmax needs no barrier at all. The
 // batch-global one takes ONE grid barrier per step: each block writes its
 // partials — the max m_b of its nodes' energies and Σ exp(e − m_b) — and
 // keeps its graphs' reads unnormalized, Σ exp(e_v − m_b)·x_v; after the
@@ -52,7 +52,9 @@ set2vec_fwd_kernel(FwdArgs a) {
   const int W = a.width, G = a.n_graphs, N = a.n_nodes;
   stage_s2v(sm, a.w, W);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const bool own = lane < W;
+  bool own[kPL];                                   // feature lane + 32·r
+#pragma unroll
+  for (int r = 0; r < kPL; ++r) own[r] = lane + 32 * r < W;
   float* carry = a.scratch;                        // (G, 3w)
   float* es = carry + size_t(G) * 3 * WP;          // (N) energies, then p
   float* part = es + N;                            // 2 · grid · 2
@@ -61,32 +63,48 @@ set2vec_fwd_kernel(FwdArgs a) {
   int lo, hi;
   block_graphs(G, lo, hi);
   for (int g = lo + warp; g < hi; g += kWarps)
-    if (own)
-      for (int s = 0; s < 3; ++s) carry[size_t(g) * 3 * W + s * W + lane] = 0.f;
+#pragma unroll
+    for (int r = 0; r < kPL; ++r)
+      if (own[r])
+        for (int s = 0; s < 3; ++s)
+          carry[size_t(g) * 3 * W + s * W + lane + 32 * r] = 0.f;
   __syncthreads();
 
   for (int t = 0; t < a.steps; ++t) {
     float mloc = -INFINITY;
     for (int g = lo + warp; g < hi; g += kWarps) {
       float* cr = carry + size_t(g) * 3 * W;
-      const float mh = own ? cr[lane] : 0.f, mr = own ? cr[W + lane] : 0.f;
-      float c = own ? cr[2 * W + lane] : 0.f;
-      if (a.carry_stash && own) {
-        float* st = a.carry_stash + (size_t(t) * G + g) * 3 * W;
-        st[lane] = mh;
-        st[W + lane] = mr;
-        st[2 * W + lane] = c;
+      float mh[kPL], mr[kPL], c[kPL];
+#pragma unroll
+      for (int r = 0; r < kPL; ++r) {
+        const int j = lane + 32 * r;
+        mh[r] = own[r] ? cr[j] : 0.f;
+        mr[r] = own[r] ? cr[W + j] : 0.f;
+        c[r] = own[r] ? cr[2 * W + j] : 0.f;
+        if (a.carry_stash && own[r]) {
+          float* st = a.carry_stash + (size_t(t) * G + g) * 3 * W;
+          st[j] = mh[r];
+          st[W + j] = mr[r];
+          st[2 * W + j] = c[r];
+        }
       }
-      float act[4];
+      float act[kPL][4], h[kPL], q[kPL];
       lstm_gates<WB>(sm, mh, mr, lane, act);
-      c = act[1] * c + act[0] * act[2];
-      const float h = act[3] * tanhf(c);
-      const float q = query<WB>(sm, h, lane);
-      if (own) {
-        cr[lane] = h;
-        cr[2 * W + lane] = c;
+#pragma unroll
+      for (int r = 0; r < kPL; ++r) {
+        c[r] = act[r][1] * c[r] + act[r][0] * act[r][2];
+        h[r] = act[r][3] * tanhf(c[r]);
       }
-      buf[lane] = q;
+      query<WB>(sm, h, lane, q);
+#pragma unroll
+      for (int r = 0; r < kPL; ++r) {
+        const int j = lane + 32 * r;
+        if (own[r]) {
+          cr[j] = h[r];
+          cr[2 * W + j] = c[r];
+        }
+        buf[j] = q[r];
+      }
       __syncwarp();
       const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
       float gmax = -INFINITY;
@@ -115,12 +133,15 @@ set2vec_fwd_kernel(FwdArgs a) {
           if (a.att_stash) a.att_stash[size_t(t) * N + n] = at;
         }
         __syncwarp();
-        if (own) {
-          float r = 0.f;
-          for (int n = n0; n < n1; ++n)
-            r = fmaf(es[n], a.x[size_t(n) * W + lane], r);
-          cr[W + lane] = r;
-        }
+#pragma unroll
+        for (int r = 0; r < kPL; ++r)
+          if (own[r]) {
+            const int j = lane + 32 * r;
+            float rd = 0.f;
+            for (int n = n0; n < n1; ++n)
+              rd = fmaf(es[n], a.x[size_t(n) * W + j], rd);
+            cr[W + j] = rd;
+          }
       }
       __syncwarp();
     }
@@ -141,12 +162,15 @@ set2vec_fwd_kernel(FwdArgs a) {
         sloc += p;
       }
       __syncwarp();
-      if (own) {
-        float r = 0.f;
-        for (int n = n0; n < n1; ++n)
-          r = fmaf(es[n], a.x[size_t(n) * W + lane], r);
-        carry[size_t(g) * 3 * W + W + lane] = r;  // unnormalized read
-      }
+#pragma unroll
+      for (int r = 0; r < kPL; ++r)
+        if (own[r]) {
+          const int j = lane + 32 * r;
+          float rd = 0.f;
+          for (int n = n0; n < n1; ++n)
+            rd = fmaf(es[n], a.x[size_t(n) * W + j], rd);
+          carry[size_t(g) * 3 * W + W + j] = rd;   // unnormalized read
+        }
       __syncwarp();
     }
     sloc = warp_sum_(sloc);
@@ -178,7 +202,9 @@ set2vec_fwd_kernel(FwdArgs a) {
     __syncthreads();
     const float scale = red[kWarps];
     for (int g = lo + warp; g < hi; g += kWarps) {
-      if (own) carry[size_t(g) * 3 * W + W + lane] *= scale;
+#pragma unroll
+      for (int r = 0; r < kPL; ++r)
+        if (own[r]) carry[size_t(g) * 3 * W + W + lane + 32 * r] *= scale;
       if (a.att_stash) {
         const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
         for (int n = n0 + lane; n < n1; n += 32)
@@ -189,11 +215,14 @@ set2vec_fwd_kernel(FwdArgs a) {
   }
 
   for (int g = lo + warp; g < hi; g += kWarps)
-    if (own) {
-      const float* cr = carry + size_t(g) * 3 * W;
-      a.m[size_t(g) * 2 * W + lane] = cr[lane];
-      a.m[size_t(g) * 2 * W + W + lane] = cr[W + lane];
-    }
+#pragma unroll
+    for (int r = 0; r < kPL; ++r)
+      if (own[r]) {
+        const int j = lane + 32 * r;
+        const float* cr = carry + size_t(g) * 3 * W;
+        a.m[size_t(g) * 2 * W + j] = cr[j];
+        a.m[size_t(g) * 2 * W + W + j] = cr[W + j];
+      }
 }
 
 size_t smem_bytes() { return sizeof(float) * SL::total; }

@@ -38,9 +38,11 @@ import torch
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
 from mpnn_tpu_torch.kernels import fused_step as K
 
-# the widest f and the largest vocab the CUDA kernels take
-MAX_WIDTH = 16
-MAX_VOCAB = 64
+# width buckets of the CUDA kernels, narrowest first (as fused_step.py's):
+# f and the vocab K. Each is its own build of csrc/fused_att_{fwd,bwd}.cu
+# (kernels/build.py::WIDE).
+BUCKETS = (("", dict(f=16, K=64)), ("f32", dict(f=32, K=64)))
+MAX_WIDTH = BUCKETS[-1][1]["f"]
 
 launch_counts: Dict[str, int] = {"fused_att_fwd": 0, "fused_att_bwd": 0}
 
@@ -108,8 +110,16 @@ _SIGNATURES = {
 }
 
 
-def _lib(name: str):
-    return K._lib(name, _SIGNATURES)
+def _lib(name: str, tag: str = ""):
+    return K._lib(name, _SIGNATURES, tag)
+
+
+def _kernel_tensors(weights, tag: str):
+    """The weight tensors in kernel argument order, A' as the bucket reads
+    it (zero-padded to (K, 32, 32) in the wide bucket,
+    csrc/fused_att_common.cuh::kAprimeInSmem)."""
+    return [K.vocab_table(t, tag) if name == "aprime" else t
+            for name, t in weights]
 
 
 # the differentiable leaves, in the kernels' argument order and the
@@ -151,10 +161,7 @@ def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan):
     k_vocab = w["aprime"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    if f > MAX_WIDTH or k_vocab > MAX_VOCAB:
-        raise NotImplementedError(
-            f"{who}: f={f}, K={k_vocab}; the kernels take f up to "
-            f"{MAX_WIDTH} and a vocab of up to {MAX_VOCAB}")
+    K.width_bucket(who, BUCKETS, f=f, K=k_vocab)
     for name, shape in zip(_GRAD_LEAVES, _leaf_shapes(k_vocab, f)):
         K._check(name, w[name], shape, device, torch.float32)
     K._check("h0", h0, (n, f), device, torch.float32)
@@ -177,11 +184,12 @@ def prepare_fused_att_fwd(weights, h0, mask, node_graph, vid, src, dst,
     order."""
     n, f, k_vocab, e, g = _check_inputs("fused_att", weights, h0, mask,
                                         node_graph, vid, src, dst, plan)
-    lib = _lib("fused_att_fwd")
+    tag = K.width_bucket("fused_att", BUCKETS, f=f, K=k_vocab)
+    lib = _lib("fused_att_fwd", tag)
     kw = dict(dtype=torch.float32, device=h0.device)
     h = torch.empty(n, f, **kw)
     msgs = torch.empty(n, f, **kw) if write_msgs else torch.empty(0, **kw)
-    tensors = [t for _, t in weights] + [
+    tensors = _kernel_tensors(weights, tag) + [
         h0, vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr,
         h, msgs]
     ptrs = [t.data_ptr() for t in tensors]
@@ -207,7 +215,8 @@ def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
     e, g = src.shape[0], plan.graph_node_ptr.shape[0] - 1
     for name, t in [("msgs", msgs), ("gh", gh)]:
         K._check(name, t, (n, f), device, torch.float32)
-    lib = _lib("fused_att_bwd")
+    tag = K.width_bucket("fused_att", BUCKETS, f=f, K=k_vocab)
+    lib = _lib("fused_att_bwd", tag)
     layout = grad_layout(k_vocab, f)
     c_layout = (ctypes.c_int * 10)()
     lib.mpnn_fused_att_bwd_layout(k_vocab, f, c_layout)
@@ -221,7 +230,7 @@ def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
     scratch = torch.empty(lib.mpnn_fused_att_bwd_scratch_floats(
         n, e, k_vocab, f, grid), **kw)
     src_order, src_ptr = K.source_order(src, n)
-    tensors = [w[k] for k in _GRAD_LEAVES] + [
+    tensors = _kernel_tensors(weights, tag) + [
         h0, msgs, gh, vid, src, dst, plan.edge_order, plan.dst_ptr,
         src_order, src_ptr, plan.graph_node_ptr, dh0, dw, scratch]
     args = (*(t.data_ptr() for t in tensors), n, g, e, f, k_vocab,

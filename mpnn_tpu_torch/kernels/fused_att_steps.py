@@ -39,10 +39,13 @@ from mpnn_tpu_torch.kernels import fused_step as K
 from mpnn_tpu_torch.kernels.fused_att import att_messages
 from mpnn_tpu_torch.ops.norm import mask_batch_norm
 
-# the widest f, the largest vocab and the most steps the kernels take
-MAX_WIDTH = 16
-MAX_VOCAB = 64
-MAX_STEPS = 8
+# width buckets of the CUDA kernels, narrowest first (as fused_step.py's):
+# f, the vocab K and the steps. Each is its own build of
+# csrc/fused_att_steps_{fwd,bwd}.cu (kernels/build.py::WIDE).
+BUCKETS = (("", dict(f=16, K=64, steps=8)),
+           ("f32", dict(f=32, K=64, steps=8)))
+MAX_WIDTH = BUCKETS[-1][1]["f"]
+MAX_STEPS = BUCKETS[-1][1]["steps"]
 STATE_NORMS = ("stateless", "none")
 
 launch_counts: Dict[str, int] = {"fused_att_steps_fwd": 0,
@@ -114,8 +117,8 @@ _SIGNATURES = {
 }
 
 
-def _lib(name: str):
-    return K._lib(name, _SIGNATURES)
+def _lib(name: str, tag: str = ""):
+    return K._lib(name, _SIGNATURES, tag)
 
 
 # the differentiable leaves, in the kernels' argument order and the
@@ -147,6 +150,21 @@ def split_grads(dw: torch.Tensor, tm: int, k_vocab: int, f: int):
             if name != "total"}
 
 
+def _check_smem(need: int, device, **widths) -> None:
+    """NotImplementedError naming the widths when a block of the kernel
+    needs more shared memory than the card gives one: its staged gate
+    tables grow with K·Tm, past the limit in the wide bucket at K 64 and
+    the most steps."""
+    most = torch.cuda.get_device_properties(
+        device).shared_memory_per_block_optin
+    if need > most:
+        raise NotImplementedError(
+            "fused_att_steps: " + ", ".join(f"{k}={v}" for k, v in
+                                            widths.items())
+            + f"; a block would need {need} B of shared memory, the card "
+            f"gives {most}")
+
+
 class AttsMeta(NamedTuple):
     steps: int
     with_corr: bool
@@ -165,11 +183,7 @@ def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
     tm, k_vocab = w["aprime"].shape[:2]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    if f > MAX_WIDTH or k_vocab > MAX_VOCAB or meta.steps > MAX_STEPS:
-        raise NotImplementedError(
-            f"{who}: f={f}, K={k_vocab}, steps={meta.steps}; the kernels "
-            f"take f up to {MAX_WIDTH}, a vocab of up to {MAX_VOCAB} and up "
-            f"to {MAX_STEPS} steps")
+    K.width_bucket(who, BUCKETS, f=f, K=k_vocab, steps=meta.steps)
     for name, shape in zip(_GRAD_LEAVES, _leaf_shapes(tm, k_vocab, f)):
         K._check(name, w[name], shape, device, torch.float32)
     K._check("h0", h0, (n, f), device, torch.float32)
@@ -194,8 +208,11 @@ def prepare_fused_att_steps_fwd(weights, h0, mask, node_graph, vid, src, dst,
     n, f, tm, k_vocab, e, g = _check_inputs(
         "fused_att_steps", weights, h0, mask, node_graph, vid, src, dst,
         plan, meta)
-    lib = _lib("fused_att_steps_fwd")
+    lib = _lib("fused_att_steps_fwd", K.width_bucket(
+        "", BUCKETS, f=f, K=k_vocab, steps=meta.steps))
     T = meta.steps
+    _check_smem(lib.mpnn_fused_att_steps_fwd_smem_bytes(tm, k_vocab, T),
+                h0.device, f=f, K=k_vocab, Tm=tm, steps=T)
     grid = K._grid(lib, "mpnn_fused_att_steps_fwd_grid", f, tm, k_vocab, T,
                    n, g)
     kw = dict(dtype=torch.float32, device=h0.device)
@@ -236,7 +253,10 @@ def prepare_fused_att_steps_bwd(weights, h0, msgs, htil, stats, gh, vid, src,
                            ("htil", htil, (T, n, f)),
                            ("stats", stats, (T, 2, f)), ("gh", gh, (n, f))]:
         K._check(name, t, shape, device, torch.float32)
-    lib = _lib("fused_att_steps_bwd")
+    lib = _lib("fused_att_steps_bwd", K.width_bucket(
+        "", BUCKETS, f=f, K=k_vocab, steps=T))
+    _check_smem(lib.mpnn_fused_att_steps_bwd_smem_bytes(tm, k_vocab, T, f),
+                device, f=f, K=k_vocab, Tm=tm, steps=T)
     layout = grad_layout(tm, k_vocab, f)
     c_layout = (ctypes.c_int * 10)()
     lib.mpnn_fused_att_steps_bwd_layout(tm, k_vocab, f, c_layout)

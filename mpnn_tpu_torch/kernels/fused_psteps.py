@@ -38,10 +38,14 @@ from mpnn_tpu_torch.kernels import fused_step as K
 from mpnn_tpu_torch.ops.norm import (BN_EPS, bn1d_train, fold_bn1d,
                                      mask_batch_norm_stats)
 
-# the widest f and od, and the most steps, the CUDA kernels take
-MAX_WIDTH = 16
-MAX_OUT = 32
-MAX_STEPS = 8
+# width buckets of the CUDA kernels, narrowest first (as fused_step.py's).
+# Each is its own build of csrc/fused_psteps_*.cu (kernels/build.py::
+# WIDE). The wide backward stages 2·32 + 2·128 floats per node, which
+# leaves shared memory for 6 steps' weights (csrc/fused_psteps_bwd.cu::
+# kStage).
+BUCKETS = (("", dict(f=16, od=32, steps=8)),
+           ("f32", dict(f=32, od=128, steps=6)))
+MAX_WIDTH = BUCKETS[-1][1]["f"]
 
 # launches of each kernel wrapper; reset with reset_launch_counts()
 launch_counts: Dict[str, int] = {"fused_psteps_eval": 0,
@@ -67,14 +71,29 @@ def _check_modes(who: str, msg_norm: str, state_norm: str) -> None:
             f"in {_STATE_MODES}")
 
 
-def _check_widths(who: str, f: int, od: int, steps: int) -> None:
-    if f > MAX_WIDTH or od > MAX_OUT:
-        raise NotImplementedError(
-            f"{who}: f={f}, od={od}; the kernels are compiled for f up to "
-            f"{MAX_WIDTH} and od up to {MAX_OUT} (wider builds: ROADMAP)")
-    if not 1 <= steps <= MAX_STEPS:
-        raise NotImplementedError(
-            f"{who}: steps={steps}; the kernels take 1 to {MAX_STEPS}")
+def _bucket(who: str, f: int, od: int, steps: int) -> str:
+    if steps < 1:
+        raise NotImplementedError(f"{who}: steps={steps}")
+    return K.width_bucket(who, BUCKETS, f=f, od=od, steps=steps)
+
+
+def _ro_table(t: torch.Tensor, tag: str, fp: int = 32, odw: int = 128):
+    """A (2f, od) readout weight as the wide bucket's kernels read it:
+    each half [h | h0] zero-padded to fp rows, od to odw columns, in
+    device memory (csrc/fused_psteps_common.cuh::kRoInSmem). The narrow
+    build stages the weight itself."""
+    if not tag:
+        return t
+    f, od = t.shape[0] // 2, t.shape[1]
+    pad = lambda x: torch.nn.functional.pad(x, (0, odw - od, 0, fp - f))
+    return torch.cat([pad(t[:f]), pad(t[f:])]).contiguous()
+
+
+def _kernel_tensors(weights, tag: str):
+    """The weight tensors in kernel argument order, the readout weights as
+    the bucket reads them."""
+    return [_ro_table(t, tag) if name in ("ro_iw", "ro_jw") else t
+            for name, t in weights]
 
 
 # ---------------------------------------------------------------------------
@@ -196,8 +215,8 @@ _SIGNATURES = {
 }
 
 
-def _lib(name: str):
-    return K._lib(name, _SIGNATURES)
+def _lib(name: str, tag: str = ""):
+    return K._lib(name, _SIGNATURES, tag)
 
 
 # the weight leaves, in the kernels' argument order (and the backward's
@@ -247,7 +266,7 @@ def _stack_norms(bns, key: str, f: int, steps: int, like):
 def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
                   steps, extra=()):
     """Device, dtype, shape and contiguity of every kernel input; returns
-    (n, f, od, k_vocab, e, num_graphs)."""
+    (n, f, od, k_vocab, e, num_graphs, the width bucket's tag)."""
     device = h0.device
     if device.type != "cuda":
         raise ValueError(f"{who}: unsupported device {device}")
@@ -257,7 +276,7 @@ def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
     od = w["ro_ib"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    _check_widths(who, f, od, steps)
+    tag = _bucket(who, f, od, steps)
     for name, shape in zip(_GRAD_LEAVES,
                            _leaf_shapes(k_vocab, f, od, steps)):
         K._check(name, w[name], shape, device, torch.float32)
@@ -270,7 +289,7 @@ def _check_inputs(who, weights, h0, mask, node_graph, vid, src, dst, plan,
     K._check_plan(plan, device, n, e, num_graphs)
     K.check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
                          num_graphs, who=who)
-    return n, f, od, k_vocab, e, num_graphs
+    return n, f, od, k_vocab, e, num_graphs, tag
 
 
 def _stream(device):
@@ -319,10 +338,10 @@ def prepare_fused_psteps_eval(amat, a0, mbias, h0, mask, node_graph, gru,
                ("bn_w", sw.contiguous()), ("bn_b", sb.contiguous()),
                ("ro_iw", ro["i"]["w"]), ("ro_ib", ro["i"]["b"]),
                ("ro_jw", ro["j"]["w"]), ("ro_jb", ro["j"]["b"])]
-    n, f, od, k_vocab, e, g = _check_inputs(
+    n, f, od, k_vocab, e, g, tag = _check_inputs(
         "fused_psteps_eval", weights, h0, mask, node_graph, vid, src, dst,
         plan, steps)
-    lib = _lib("fused_psteps_eval")
+    lib = _lib("fused_psteps_eval", tag)
     device = h0.device
     grid = K._grid(lib, "mpnn_fused_psteps_eval_grid", steps, n, g)
     kw = dict(dtype=torch.float32, device=device)
@@ -334,7 +353,7 @@ def prepare_fused_psteps_eval(amat, a0, mbias, h0, mask, node_graph, gru,
     msg_mode = AFFINE if msg_norm == "bn1d" else NONE
     state_mode = {"bn1d": AFFINE, "stateless": STATELESS,
                   "none": NONE}[state_norm]
-    tensors = [t for _, t in weights] + [
+    tensors = _kernel_tensors(weights, tag) + [
         h0, vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr,
         out, htil, scratch]
     args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, steps,
@@ -362,10 +381,10 @@ def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
     masked messages of each step, T..2T-1 the pre-norm GRU outputs.
     `weights` is the (name, tensor) list in _GRAD_LEAVES order."""
     T = meta.steps
-    n, f, od, k_vocab, e, g = _check_inputs(
+    n, f, od, k_vocab, e, g, tag = _check_inputs(
         "fused_psteps", weights, h0, mask, node_graph, vid, src, dst, plan,
         T, extra=(("labels", labels), ("gmask", gmask)))
-    lib = _lib("fused_psteps_fwd")
+    lib = _lib("fused_psteps_fwd", tag)
     device = h0.device
     grid = K._grid(lib, "mpnn_fused_psteps_fwd_grid", T, n, g)
     kw = dict(dtype=torch.float32, device=device)
@@ -375,7 +394,7 @@ def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
     htil = torch.empty(2 * T, n, f, **kw)
     scratch = torch.empty(
         lib.mpnn_fused_psteps_fwd_scratch_floats(n, g, T), **kw)
-    tensors = [t for _, t in weights] + [
+    tensors = _kernel_tensors(weights, tag) + [
         h0, labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
         plan.graph_node_ptr, loss, out, stats, htil, scratch]
     args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
@@ -402,7 +421,8 @@ def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
                            ("gl", gl, (1,)), ("htil", htil, (2 * T, n, f)),
                            ("stats", stats, (2 * T, 2, f))]:
         K._check(name, t, shape, device, torch.float32)
-    lib = _lib("fused_psteps_bwd")
+    tag = _bucket("fused_psteps", f, od, T)
+    lib = _lib("fused_psteps_bwd", tag)
     layout = grad_layout(k_vocab, f, od, T)
     c_layout = (ctypes.c_int * 16)()
     lib.mpnn_fused_psteps_bwd_layout(k_vocab, f, od, T, c_layout)
@@ -416,7 +436,7 @@ def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
     scratch = torch.empty(lib.mpnn_fused_psteps_bwd_scratch_floats(
         n, g, k_vocab, f, od, T, grid), **kw)
     src_order, src_ptr = K.source_order(src, n)
-    tensors = [w[k] for k in _GRAD_LEAVES] + [
+    tensors = _kernel_tensors(weights, tag) + [
         h0, labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
         src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
         scratch]
@@ -503,7 +523,7 @@ def fused_psteps(amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns,
             amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns, ro,
             labels, gmask, vid, src, dst, plan, steps=steps,
             msg_norm=msg_norm, state_norm=state_norm)
-    _check_widths("fused_psteps", h0.shape[1], ro["i"]["b"].shape[0], steps)
+    _bucket("fused_psteps", h0.shape[1], ro["i"]["b"].shape[0], steps)
     weights, meta = flat_weights(amat, a0, mbias, gru, ma_bns, bns, ro, h0,
                                  steps=steps, msg_norm=msg_norm,
                                  state_norm=state_norm)

@@ -39,8 +39,13 @@ import torch
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
 from mpnn_tpu_torch.ops.norm import BN_EPS, bn1d_train, fold_bn1d
 
-# the widest f and od the CUDA kernels are compiled for (csrc/*.cu)
-MAX_WIDTH = 16
+# width buckets of the CUDA kernels, narrowest first: (tag, the most of
+# each width the bucket's build takes). Each is its own build of
+# csrc/fused_eval.cu and fused_step_{fwd,bwd}.cu (kernels/build.py::WIDE);
+# a batch takes the narrowest that holds it (width_bucket). lipo's od =
+# 2·afm stays within 64 at f <= 32.
+BUCKETS = (("", dict(f=16, od=16)), ("f32", dict(f=32, od=64)))
+MAX_WIDTH = BUCKETS[-1][1]["f"]
 # the most recurrent steps the training kernels take (kMaxSteps)
 MAX_STEPS = 32
 
@@ -204,18 +209,19 @@ _SIGNATURES = {
 _READY = set()
 
 
-def _lib(name: str = "fused_eval", signatures=None):
-    """The loaded library `name` (built at first use), its C functions
-    typed from `signatures` (default: this module's _SIGNATURES)."""
+def _lib(name: str = "fused_eval", signatures=None, tag: str = ""):
+    """The loaded library of source `name` in width bucket `tag` (built at
+    first use), its C functions typed from `signatures` (default: this
+    module's _SIGNATURES)."""
     from mpnn_tpu_torch.kernels import build
-    lib = build.load(name)
-    if name not in _READY:
+    lib = build.load(name, tag)
+    if (name, tag) not in _READY:
         for fn, (args, res) in (signatures or _SIGNATURES)[name].items():
             getattr(lib, fn).argtypes = args
             getattr(lib, fn).restype = res
         lib.mpnn_cuda_error_string.argtypes = [_I]
         lib.mpnn_cuda_error_string.restype = ctypes.c_char_p
-        _READY.add(name)
+        _READY.add((name, tag))
     return lib
 
 
@@ -279,11 +285,29 @@ def check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab,
             raise ValueError(f"{who}: {what}")
 
 
-def _check_widths(who: str, f: int, od: int) -> None:
-    if f > MAX_WIDTH or od > MAX_WIDTH:
-        raise NotImplementedError(
-            f"{who}: f={f}, od={od}; the kernel is compiled for widths "
-            f"up to {MAX_WIDTH} (the lipo family's)")
+def width_bucket(who: str, buckets, **widths) -> str:
+    """The tag of the narrowest of `buckets` ((tag, {width: most}),
+    narrowest first; each kernel module's BUCKETS) that holds every one of
+    `widths`; past all of them, NotImplementedError naming the widths."""
+    for tag, most in buckets:
+        if all(widths[k] <= v for k, v in most.items()):
+            return tag
+    raise NotImplementedError(
+        f"{who}: " + ", ".join(f"{k}={v}" for k, v in widths.items())
+        + "; the kernels are compiled for widths up to " + " or ".join(
+            ", ".join(f"{k}={v}" for k, v in most.items())
+            for _, most in buckets))
+
+
+def vocab_table(t: torch.Tensor, tag: str, fp: int = 32) -> torch.Tensor:
+    """A (..., f, f) vocab table as a wide bucket's kernels read it: zero-
+    padded to (..., fp, fp) in device memory, which the block's shared
+    memory could not hold at fp 32 (csrc/fused_train_common.cuh::
+    kVocabInSmem). The narrow build stages the table itself."""
+    if not tag:
+        return t
+    f = t.shape[-1]
+    return torch.nn.functional.pad(t, (0, fp - f, 0, fp - f)).contiguous()
 
 
 def _check_plan(plan, device, n, e, num_graphs):
@@ -379,8 +403,8 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     od = ro["i"]["b"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    _check_widths("fused_eval", f, od)
-    lib = _lib("fused_eval")
+    tag = width_bucket("fused_eval", BUCKETS, f=f, od=od)
+    lib = _lib("fused_eval", tag=tag)
     maw, mab = fold_norm(ma_bn, ma_state, msg_norm, f, h0)
     sw, sb = fold_norm(bn, bn_state, state_norm, f, h0)
     floats = [("amat", amat, (k_vocab, f, f)), ("a0", a0, (f, f)),
@@ -407,7 +431,7 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                            k_vocab, num_graphs)
 
     out = torch.empty(num_graphs, od, dtype=torch.float32, device=device)
-    tensors = [t for _, t, _ in floats[:16]] + [
+    tensors = [vocab_table(amat, tag)] + [t for _, t, _ in floats[1:16]] + [
         vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr, out]
     args = (*(t.data_ptr() for t in tensors), num_graphs, f, od, k_vocab,
             steps, torch.cuda.current_stream(device).cuda_stream)
@@ -444,8 +468,8 @@ _GRIDS: Dict[tuple, int] = {}
 
 def _grid(lib, fn: str, *key) -> int:
     """Blocks of a cooperative launch (all co-resident blocks, capped at
-    the work's need), cached per shape."""
-    k = (fn, torch.cuda.current_device(), *key)
+    the work's need), cached per library and shape."""
+    k = (fn, id(lib), torch.cuda.current_device(), *key)
     if k not in _GRIDS:
         grid = getattr(lib, fn)(*key)
         if grid < 1:
@@ -483,7 +507,7 @@ def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
     od = w["ro_ib"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    _check_widths("fused_step", f, od)
+    width_bucket("fused_step", BUCKETS, f=f, od=od)
     layout = grad_layout(k_vocab, f, od)
     for name, t in weights:
         _check(name, t, layout[name][1], device, torch.float32)
@@ -508,7 +532,8 @@ def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
         weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan)
     check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab, g,
                        who="fused_step")
-    lib = _lib("fused_step_fwd")
+    tag = width_bucket("fused_step", BUCKETS, f=f, od=od)
+    lib = _lib("fused_step_fwd", tag=tag)
     device, T = h0.device, meta.steps
     grid = _grid(lib, "mpnn_fused_step_fwd_grid", k_vocab, T, n, g)
     kw = dict(dtype=torch.float32, device=device)
@@ -518,7 +543,7 @@ def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
     htil = torch.empty(T + 1, n, f, **kw)
     scratch = torch.empty(lib.mpnn_fused_step_fwd_scratch_floats(n, g), **kw)
     w = dict(weights)
-    tensors = [w["amat"], w["a0"], w["mbias"], h0] + [
+    tensors = [vocab_table(w["amat"], tag), w["a0"], w["mbias"], h0] + [
         w[k] for k in _GRAD_LEAVES[3:]] + [
         labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
         plan.graph_node_ptr, loss, out, stats, htil, scratch]
@@ -546,7 +571,8 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                            ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
                            ("stats", stats, (T + 1, 2, f))]:
         _check(name, t, shape, device, torch.float32)
-    lib = _lib("fused_step_bwd")
+    tag = width_bucket("fused_step", BUCKETS, f=f, od=od)
+    lib = _lib("fused_step_bwd", tag=tag)
     layout = grad_layout(k_vocab, f, od)
     c_layout = (ctypes.c_int * 16)()
     lib.mpnn_fused_step_bwd_layout(k_vocab, f, od, c_layout)
@@ -560,7 +586,7 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
     scratch = torch.empty(lib.mpnn_fused_step_bwd_scratch_floats(
         n, k_vocab, f, od, grid), **kw)
     src_order, src_ptr = source_order(src, n)
-    tensors = [w["amat"], w["a0"], w["mbias"], h0] + [
+    tensors = [vocab_table(w["amat"], tag), w["a0"], w["mbias"], h0] + [
         w[k] for k in _GRAD_LEAVES[3:]] + [
         labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
         src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,

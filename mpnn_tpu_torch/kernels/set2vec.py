@@ -32,8 +32,11 @@ import torch
 from mpnn_tpu_torch.kernels import fused_step as K
 from mpnn_tpu_torch.ops.readout import LSTM_GATES, _lstm_hidden_apply
 
-# the widest set (w = 2·nf) the CUDA kernels take
-MAX_WIDTH = 32
+# width buckets of the CUDA kernels, narrowest first (as fused_step.py's):
+# the set's width w = 2·nf. Each is its own build of
+# csrc/set2vec_{fwd,bwd}.cu (kernels/build.py::WIDE).
+BUCKETS = (("", dict(w=32)), ("w64", dict(w=64)))
+MAX_WIDTH = BUCKETS[-1][1]["w"]
 _BIG_NEG = -1e8          # the reference's masking constant
 
 launch_counts: Dict[str, int] = {"set2vec_fwd": 0, "set2vec_bwd": 0}
@@ -105,8 +108,8 @@ _SIGNATURES = {
 }
 
 
-def _lib(name: str):
-    return K._lib(name, _SIGNATURES)
+def _lib(name: str, tag: str = ""):
+    return K._lib(name, _SIGNATURES, tag)
 
 
 # the differentiable leaves, in the kernels' argument order and the
@@ -172,9 +175,7 @@ def _check_inputs(leaves, x, mask, node_graph, graph_node_ptr, steps):
     if device.type != "cuda":
         raise ValueError(f"set2vec: unsupported device {device}")
     n, w = x.shape
-    if w > MAX_WIDTH:
-        raise NotImplementedError(
-            f"set2vec: w={w}; the kernels take w up to {MAX_WIDTH}")
+    K.width_bucket("set2vec", BUCKETS, w=w)
     if steps < 1:
         raise NotImplementedError(f"set2vec: time_steps={steps}")
     for name, t, shape in zip(_GRAD_LEAVES, leaves, _leaf_shapes(w)):
@@ -202,7 +203,7 @@ def prepare_set2vec_fwd(leaves, x, mask, node_graph, graph_node_ptr,
     empty tensors."""
     n, w, g = _check_inputs(leaves, x, mask, node_graph, graph_node_ptr,
                             meta.steps)
-    lib = _lib("set2vec_fwd")
+    lib = _lib("set2vec_fwd", K.width_bucket("set2vec", BUCKETS, w=w))
     T = meta.steps
     grid = K._grid(lib, "mpnn_set2vec_fwd_grid", g, w)
     kw = dict(dtype=torch.float32, device=x.device)
@@ -232,7 +233,7 @@ def prepare_set2vec_bwd(leaves, x, graph_node_ptr, carry, att, gm,
     for name, t, shape in [("carry", carry, (T, g, 3 * w)),
                            ("att", att, (T, n)), ("gm", gm, (g, 2 * w))]:
         K._check(name, t, shape, device, torch.float32)
-    lib = _lib("set2vec_bwd")
+    lib = _lib("set2vec_bwd", K.width_bucket("set2vec", BUCKETS, w=w))
     layout = grad_layout(w)
     c_layout = (ctypes.c_int * 11)()
     lib.mpnn_set2vec_bwd_layout(w, c_layout)

@@ -7,11 +7,14 @@ eval-kernel launch; the attention families one message+GRU launch and one
 set2vec launch); fused_mpnn_out and fused_flagship_loss (training, one
 forward and one backward launch of each kernel).
 
-The plain PyTorch work left around the kernels is the per-step family's
-input transforms (tanh encoders, input bn1d), the edge-MLP vocab chain
-(K+1 rows through the ×50 tail, once per message network) and the
-A-matrix fold, whose gradients autograd takes from the kernels' dA and
-dA0, and the running-stat EMAs.
+The edge-MLP vocab chain (K+1 rows through the head and the ×50 tail,
+once per message network) runs through the edge_mlp_fn hook, which the
+fused entry points set to kernels/edge_mlp.py's op (_edge_mlp_op): one
+forward and, in training, one backward launch per message network. The
+plain PyTorch work left around the kernels is the per-step family's input
+transforms (tanh encoders, input bn1d) and the A-matrix fold, whose
+gradients autograd takes from the kernels' dA and dA0, and the running-stat
+EMAs.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from typing import Callable, NamedTuple
 import torch
 
 from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
+from mpnn_tpu_torch.kernels.edge_mlp import make_edge_mlp_op
 from mpnn_tpu_torch.kernels.fused_att import fused_att
 from mpnn_tpu_torch.kernels.fused_att_steps import fused_att_steps
 from mpnn_tpu_torch.kernels.fused_psteps import fused_psteps, fused_psteps_eval
@@ -35,7 +39,13 @@ from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
                                           sparse_graph_level_output)
 
 
-def _build_a_form(mpnn: MPNN, batch):
+def _edge_mlp_op(cfg: MPNNConfig):
+    """The edge_mlp_fn the fused entry points pass: the chain kernels'
+    op with the config's tail count (the plain version on CPU tensors)."""
+    return make_edge_mlp_op(cfg.edge_mlp_tail_repeats)
+
+
+def _build_a_form(mpnn: MPNN, batch, edge_mlp_fn=None):
     """Per-edge A-matrix form of the message op: (amat (K, mf, nf),
     a0 (mf, nf), vid (E,)) — the edge vocab penultimates folded through
     the final linear layer; A0 is the bias-leakage matrix."""
@@ -43,13 +53,13 @@ def _build_a_form(mpnn: MPNN, batch):
     mp = mpnn.message[0]
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
     pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                         batch["edge_vfirst"])
+                                         batch["edge_vfirst"], edge_mlp_fn)
     amat, a0 = a_form(mp, pen0, pen_vocab, cfg.node_features,
                       cfg.message_features)
     return amat, a0, batch["edge_vid"]
 
 
-def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
+def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats, edge_mlp_fn=None):
     """Per-STEP A-matrix form: (amat (T, K, mf, nf), a0 (T, mf, nf),
     mbias (T, mf)) — one vocab fold per step's message network, on the
     edge features after the input transforms (the vocab rows are gathered
@@ -58,7 +68,8 @@ def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
     amats, a0s = [], []
     for mp in mpnn.message:
         pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                             batch["edge_vfirst"])
+                                             batch["edge_vfirst"],
+                                             edge_mlp_fn)
         amat, a0 = a_form(mp, pen0, pen_vocab, cfg.node_features,
                           cfg.message_features)
         amats.append(amat)
@@ -67,7 +78,8 @@ def _build_a_form_psteps(mpnn: MPNN, batch, edge_feats):
     return torch.stack(amats), torch.stack(a0s), mbias
 
 
-def _att_form_of(mp, cfg: MPNNConfig, edge_feats, edge_vfirst):
+def _att_form_of(mp, cfg: MPNNConfig, edge_feats, edge_vfirst,
+                 edge_mlp_fn=None):
     """One attention message network's kernel operands (mpnn_tpu/models/
     fused_train.py::_build_att_form): aprime (K, mf, nf) = fold(pen_vocab)
     + Bf — the per-vocab message matrices WITH the final bias, which the
@@ -76,7 +88,8 @@ def _att_form_of(mp, cfg: MPNNConfig, edge_feats, edge_vfirst):
     evocab·W_e + b, the gate's per-vocab pre-activation; q0 = b, the zero
     edge's; wh = attn.w[:nf], the h_dst block."""
     nf, mf = cfg.node_features, cfg.message_features
-    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg, edge_vfirst)
+    pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg, edge_vfirst,
+                                         edge_mlp_fn)
     wf, bf = final_weights(mp, nf, mf)
     aprime = torch.einsum("kp,pmf->kmf", pen_vocab, wf) + bf
     a0 = torch.einsum("p,pmf->mf", pen0[0], wf) + bf
@@ -86,23 +99,24 @@ def _att_form_of(mp, cfg: MPNNConfig, edge_feats, edge_vfirst):
     return aprime, a0, qv, mp.attn.bias, w[:nf]
 
 
-def _build_att_form(mpnn: MPNN, batch):
+def _build_att_form(mpnn: MPNN, batch, edge_mlp_fn=None):
     """The collapsed attention kernel's operands: _att_form_of the one
     (shared) message network, contiguous."""
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
     return tuple(x.contiguous() for x in _att_form_of(
-        mpnn.message[0], mpnn.cfg, edge_feats, batch["edge_vfirst"]))
+        mpnn.message[0], mpnn.cfg, edge_feats, batch["edge_vfirst"],
+        edge_mlp_fn))
 
 
-def _build_att_form_steps(mpnn: MPNN, batch):
+def _build_att_form_steps(mpnn: MPNN, batch, edge_mlp_fn=None):
     """The T-step attention kernel's operands (mpnn_tpu/models/
     fused_train.py::_build_att_form_steps): each of the Tm message
     networks folded by _att_form_of and stacked — aprime (Tm, K, f, f), a0
     (Tm, f, f), qv (Tm, K, f), q0 (Tm, f), wh (Tm, f, f); Tm = T per-step,
     1 shared (the kernel reuses slot 0)."""
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
-    forms = [_att_form_of(mp, mpnn.cfg, edge_feats, batch["edge_vfirst"])
-             for mp in mpnn.message]
+    forms = [_att_form_of(mp, mpnn.cfg, edge_feats, batch["edge_vfirst"],
+                          edge_mlp_fn) for mp in mpnn.message]
     return tuple(torch.stack(x).contiguous() for x in zip(*forms))
 
 
@@ -130,7 +144,8 @@ def fused_att_out(mpnn: MPNN, batch) -> torch.Tensor:
     cfg = mpnn.cfg
     mask, ng = batch["node_mask"], batch["node_graph"]
     h0 = (batch["node_feats"] * mask).contiguous()
-    aprime, a0, qv, q0, wh = _build_att_form(mpnn, batch)
+    aprime, a0, qv, q0, wh = _build_att_form(mpnn, batch,
+                                             _edge_mlp_op(cfg))
     h = fused_att(aprime, a0, qv, q0, wh, h0, mask, ng, mpnn.gru.as_dict(),
                   batch["edge_vid"], batch["edge_src"], batch["edge_dst"],
                   plan_from_batch(batch),
@@ -147,7 +162,8 @@ def fused_att_steps_out(mpnn: MPNN, batch) -> torch.Tensor:
     cfg = mpnn.cfg
     mask, ng = batch["node_mask"], batch["node_graph"]
     h0 = (batch["node_feats"] * mask).contiguous()
-    aprime, a0, qv, q0, wh = _build_att_form_steps(mpnn, batch)
+    aprime, a0, qv, q0, wh = _build_att_form_steps(mpnn, batch,
+                                                   _edge_mlp_op(cfg))
     h = fused_att_steps(aprime, a0, qv, q0, wh, h0, mask, ng,
                         mpnn.gru.as_dict(), batch["edge_vid"],
                         batch["edge_src"], batch["edge_dst"],
@@ -170,7 +186,8 @@ def _psteps_args(mpnn: MPNN, batch, *, training: bool):
     ((amat, a0, mbias, h0), the input norms' state updates)."""
     h0, edge_feats, updates = input_transforms(mpnn, batch,
                                                training=training)
-    amat, a0, mbias = _build_a_form_psteps(mpnn, batch, edge_feats)
+    amat, a0, mbias = _build_a_form_psteps(mpnn, batch, edge_feats,
+                                           _edge_mlp_op(mpnn.cfg))
     return (amat.contiguous(), a0.contiguous(), mbias.contiguous(),
             h0.contiguous()), updates
 
@@ -250,7 +267,7 @@ def fused_eval_args(mpnn: MPNN, batch):
     the pre-masked h0, the weights in the JAX layout and the index plan."""
     cfg = mpnn.cfg
     h0 = batch["node_feats"] * batch["node_mask"]
-    amat, a0, vid = _build_a_form(mpnn, batch)
+    amat, a0, vid = _build_a_form(mpnn, batch, _edge_mlp_op(cfg))
     ma_p, ma_s = _bn_or_dummy(mpnn.ma_bn, cfg.message_features, h0)
     bn_p, bn_s = _bn_or_dummy(mpnn.bn, cfg.node_features, h0)
     args = (amat.contiguous(), a0.contiguous(),
@@ -278,7 +295,7 @@ def fused_step_args(mpnn: MPNN, batch, labels):
     index plan."""
     cfg = mpnn.cfg
     h0 = batch["node_feats"] * batch["node_mask"]
-    amat, a0, vid = _build_a_form(mpnn, batch)
+    amat, a0, vid = _build_a_form(mpnn, batch, _edge_mlp_op(cfg))
     ma_p, _ = _bn_or_dummy(mpnn.ma_bn, cfg.message_features, h0)
     bn_p, _ = _bn_or_dummy(mpnn.bn, cfg.node_features, h0)
     args = (amat.contiguous(), a0.contiguous(),

@@ -32,14 +32,23 @@ from mpnn_tpu_torch.ops.update import gru_apply
 
 
 def _edge_penultimates(mp: EdgeNetwork, edge_feats, cfg: MPNNConfig,
-                       edge_vfirst):
+                       edge_vfirst, edge_mlp_fn=None):
     """The zero-edge penultimate (1, pf) and the vocab table (K, pf): the
     ×50-tail MLP runs on the K distinct rows plus the zero row, in one
-    chain. (The A-form needs no per-edge gather of the table.)"""
+    chain. (The A-form needs no per-edge gather of the table.)
+
+    edge_mlp_fn(e, head_ws, head_bs, shared_w), weights in the JAX layout
+    (in, out) — optional: the chain as one op (kernels/edge_mlp.py), as
+    the JAX package's hook of the same name takes it."""
     zero = edge_feats.new_zeros((1, edge_feats.shape[-1]))
     vocab = edge_feats[edge_vfirst.long()]                    # (K, ef)
-    pen_both = _edge_mlp_penultimate(mp, torch.cat([vocab, zero], dim=0),
-                                     cfg.edge_mlp_tail_repeats)
+    rows = torch.cat([vocab, zero], dim=0)
+    if edge_mlp_fn is None:
+        pen_both = _edge_mlp_penultimate(mp, rows, cfg.edge_mlp_tail_repeats)
+    else:
+        pen_both = edge_mlp_fn(rows, tuple(l.weight.t() for l in mp.head),
+                               tuple(l.bias for l in mp.head),
+                               mp.shared.weight.t())
     return pen_both[-1:], pen_both[:-1]
 
 

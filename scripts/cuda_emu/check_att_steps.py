@@ -5,7 +5,7 @@ held against the plain version: forward, serving launch and every
 gradient leaf, in the four modes and both width builds. A rehearsal before
 a chip call; timings mean nothing here. Run from the repository root:
 
-    scripts/cuda_emu/build.sh fused_att_steps_fwd:FwdArgs \\
+    python scripts/cuda_emu/emu.py fused_att_steps_fwd:FwdArgs \\
         fused_att_steps_bwd:BwdArgs
     python scripts/cuda_emu/check_att_steps.py
 
@@ -13,49 +13,21 @@ Exits non-zero when a case disagrees beyond 1e-4 (scaled by each leaf's
 max abs for the gradients).
 """
 
-import contextlib
-import ctypes
-import inspect
 import os
 import sys
-import types
 
 import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-sys.path[:0] = [REPO, os.path.join(REPO, "tests")]
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [HERE, os.path.join(os.path.dirname(os.path.dirname(HERE)),
+                                   "tests")]
 
-from mpnn_tpu_torch.kernels import build                       # noqa: E402
+from emu import emulate                                        # noqa: E402
 from mpnn_tpu_torch.kernels import fused_att_steps as AS       # noqa: E402
 from test_torch_gpu import _problem                            # noqa: E402
 
-EMU = os.path.join(build.BUILD_DIR, "emu", "libmpnn_{}.so")
 GRU = ("w_ih", "w_hh", "b_ih", "b_hh")
-
-
-def emulate():
-    """Point the wrappers at the emulated libraries and let them take CPU
-    tensors: no stream, no device context, no device check."""
-    libs = {}
-    build.load = lambda name: libs.setdefault(
-        name, ctypes.CDLL(EMU.format(name)))
-    torch.cuda.current_stream = lambda *a: types.SimpleNamespace(
-        cuda_stream=0)
-    torch.cuda.current_device = lambda: 0
-    torch.cuda.device = lambda d: contextlib.nullcontext()
-    src = inspect.getsource(AS._check_inputs).replace(
-        'if device.type != "cuda":', "if False:")
-    exec(src, AS.__dict__)
-    empty = torch.empty
-
-    def nan_empty(*a, **kw):              # unwritten outputs show as NaN
-        t = empty(*a, **kw)
-        if t.dtype == torch.float32:
-            t.fill_(float("nan"))
-        return t
-    torch.empty = nan_empty
 
 
 def case(seed, g, f, k, tm, corr, norm, steps=3):
@@ -101,7 +73,7 @@ def case(seed, g, f, k, tm, corr, norm, steps=3):
 
 
 def main() -> int:
-    emulate()
+    emulate(AS)
     oks = [case(0, 12, 7, 6, 3, False, "stateless"),
            case(1, 12, 7, 6, 3, False, "none"),
            case(2, 12, 7, 6, 1, False, "stateless"),

@@ -6,7 +6,7 @@
 // (an uninitialised read shows in the result). A cooperative launch runs
 // the whole grid at once, every block resident, as the card's co-residency
 // limit guarantees. Nothing here models timing, caches or memory ordering
-// beyond the barriers. scripts/cuda_emu/build.sh compiles a kernel source
+// beyond the barriers. scripts/cuda_emu/emu.py compiles a kernel source
 // against it; scripts/cuda_emu/check_att_steps.py runs two kernels with it.
 #pragma once
 #include <algorithm>
@@ -17,6 +17,7 @@
 #include <limits>
 #include <memory>
 #include <thread>
+#include <type_traits>
 #include <vector>
 
 #define __global__
@@ -55,7 +56,7 @@ inline std::barrier<>* emu_grid_bar = nullptr;
 // exercises the kernels' block-strided loops and cross-block reductions
 inline int emu_sms = 3;
 
-// the dynamic shared memory of the calling thread's block; build.sh turns
+// the dynamic shared memory of the calling thread's block; emu.py turns
 // `extern __shared__ float x[];` into `float* x = (float*)emu_smem();`
 inline void* emu_smem() { return emu_block->smem.data(); }
 inline void __syncthreads() { emu_block->bar->arrive_and_wait(); }
@@ -67,6 +68,14 @@ inline float __shfl_xor_sync(unsigned, float v, int off) {
   emu_block->shfl[w][l] = v;
   __syncwarp();
   const float r = emu_block->shfl[w][l ^ off];
+  __syncwarp();
+  return r;
+}
+inline float __shfl_sync(unsigned, float v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  emu_block->shfl[w][l] = v;
+  __syncwarp();
+  const float r = emu_block->shfl[w][src & 31];
   __syncwarp();
   return r;
 }
@@ -85,11 +94,19 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T,
   *n = 1;
   return cudaSuccess;
 }
+// The most dynamic shared memory a block of the card may take (H100:
+// 227 KB); a launch or attribute above it fails, as on the card.
+constexpr size_t kEmuMaxSmem = 232448;
+inline cudaError_t emu_last_error = cudaSuccess;
 template <class T>
-inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int) {
-  return cudaSuccess;
+inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int bytes) {
+  return size_t(bytes) > kEmuMaxSmem ? cudaErrorInvalidValue : cudaSuccess;
 }
-inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+inline cudaError_t cudaGetLastError() {
+  const cudaError_t e = emu_last_error;
+  emu_last_error = cudaSuccess;
+  return e;
+}
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 // Run `kernel` (a __global__ function taking one argument struct by value)
@@ -123,7 +140,7 @@ void emu_run(const void* kernel, void* arg, unsigned grid, unsigned block,
   for (auto& t : threads) t.join();
 }
 
-// Set by the translation unit build.sh writes for each kernel source, which
+// Set by the translation unit emu.py writes for each kernel source, which
 // knows the kernel's argument type; static, so every library keeps its own.
 static void (*emu_runner)(const void*, void*, unsigned, unsigned,
                           size_t) = nullptr;
@@ -131,6 +148,23 @@ static void (*emu_runner)(const void*, void*, unsigned, unsigned,
 inline cudaError_t cudaLaunchCooperativeKernel(const void* kernel, dim3 grid,
                                                dim3 block, void** args,
                                                size_t smem, cudaStream_t) {
+  if (smem > kEmuMaxSmem) return cudaErrorInvalidValue;
   emu_runner(kernel, args[0], grid.x, block.x, smem);
   return cudaSuccess;
+}
+
+// A `kernel<<<grid, block, smem, stream>>>(args)` launch, as emu.py
+// rewrites it: runs the grid, or records the error a refused launch gives.
+template <class T> inline unsigned emu_x(T v) {
+  if constexpr (std::is_same_v<T, dim3>) return v.x;
+  else return unsigned(v);
+}
+template <class Args, class G, class B>
+inline void emu_launch(void (*kernel)(Args), G grid, B block, size_t smem,
+                       cudaStream_t, Args a) {
+  if (smem > kEmuMaxSmem) {
+    emu_last_error = cudaErrorInvalidValue;
+    return;
+  }
+  emu_run<Args>((const void*)kernel, &a, emu_x(grid), emu_x(block), smem);
 }

@@ -1,0 +1,84 @@
+"""Rehearse chip_smoke.py's phases on the CPU: every kernel of the port
+built for the CUDA stand-in (emu.py) and run through its wrapper, the
+entry points sent to the CPU, CUDA events and syncs stubbed. It finds
+wrong paths, arguments, launch counts and comparisons before a chip call;
+its times and profiles mean nothing. Run from the repository root:
+
+    python scripts/cuda_emu/rehearse_smoke.py [phase ...]
+
+phases: mlp-kernel-check, mlp-times, wide (default all three). The wide
+phase runs on 48 molecules with set2vec cut to 3 steps.
+"""
+
+import dataclasses
+import os
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(os.path.dirname(HERE))
+sys.path[:0] = [HERE, REPO]
+
+import torch                                                   # noqa: E402
+
+import emu                                                     # noqa: E402
+from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
+                                    fused_att_steps, fused_psteps,
+                                    fused_step, set2vec)
+
+ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
+        "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
+        "fused_psteps_fwd": "PsFwdArgs", "fused_psteps_bwd": "PsBwdArgs",
+        "fused_att_fwd": "FwdArgs", "fused_att_bwd": "BwdArgs",
+        "fused_att_steps_fwd": "FwdArgs", "fused_att_steps_bwd": "BwdArgs",
+        "set2vec_fwd": "FwdArgs", "set2vec_bwd": "BwdArgs",
+        "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs"}
+
+
+class _Event:
+    def __init__(self, enable_timing=False):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def elapsed_time(self, other):
+        return (other.t - self.t) * 1e3
+
+
+def main(argv) -> int:
+    emu.build([f"{lib}:{ARGS[lib.partition('.')[0]]}"
+               for lib in emu.B.all_libraries()])
+    emu.emulate(fused_step, fused_psteps, fused_att, fused_att_steps,
+                set2vec, edge_mlp)
+    torch.cuda.synchronize = lambda *a: None
+    torch.cuda.Event = _Event
+    cpu = torch.device("cpu")
+    from mpnn_tpu_torch import device as D
+    from mpnn_tpu_torch.models import network
+    from mpnn_tpu_torch.train import checkpoint, trainer
+    for mod in (D, network, checkpoint, trainer):
+        mod.resolve_device = lambda device=None: cpu
+    import chip_smoke as CS
+    # one launch per timing: the stand-in's times mean nothing; a smaller
+    # wide data set (a thread per CUDA thread is slow)
+    CS._events_ms = lambda fn, reps, warm=5: (fn(), 0.0)[1]
+    CS.WIDE_ROWS = 48
+    # set2vec's 100 steps cut to 3: the stand-in takes seconds a step
+    from mpnn_tpu_torch.models import zoo
+    for name in ("adv", "att"):
+        def cut(*a, _build=zoo.ZOO[name], **kw):
+            cfg = _build(*a, **kw)
+            return dataclasses.replace(cfg, mpnn=dataclasses.replace(
+                cfg.mpnn, set2vec_steps=3))
+        zoo.ZOO[name] = cut
+    phases = {"mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
+              "mlp-times": lambda: CS.phase_mlp_times(cpu, "emulated"),
+              "wide": lambda: CS.phase_wide(cpu, "emulated")}
+    for name in argv or list(phases):
+        phases[name]()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

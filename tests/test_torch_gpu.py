@@ -168,12 +168,12 @@ def test_serving_path_on_card():
 # the training kernels (fused_step_fwd.cu, fused_step_bwd.cu)
 # ---------------------------------------------------------------------------
 
-def _step_problem(rng, g, device="cuda"):
+def _step_problem(rng, g, f=10, od=14, k=8, device="cuda"):
     """fused_step's arguments on a _problem batch (its eval-only running
     statistics dropped), with labels and a graph mask, and the weight and
     h0 leaves set to require grad."""
     (amat, a0, mbias, h0, mask, ng, gru, ma_p, _, bn_p, _, ro, vid, src,
-     dst, plan) = _problem(rng, g=g, device=device)
+     dst, plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device)
     leaves = [amat, a0, mbias, h0, *gru.values(), *ma_p.values(),
               *bn_p.values(), ro["i"]["w"], ro["i"]["b"], ro["j"]["w"],
               ro["j"]["b"]]
@@ -457,7 +457,7 @@ def test_cuda_psteps_wrappers_raise_instead_of_falling_back():
     with pytest.raises(NotImplementedError, match="steps=9"):
         _ps_eval(P.fused_psteps_eval, c, steps=9)
     wide, _ = _ps_problem(np.random.RandomState(8), 8, f=P.MAX_WIDTH + 2)
-    with pytest.raises(NotImplementedError, match="compiled for f up to"):
+    with pytest.raises(NotImplementedError, match="widths up to"):
         _ps_eval(P.fused_psteps_eval, wide, steps=3)
     assert set(P.launch_counts.values()) == {0}
 
@@ -600,11 +600,11 @@ def test_cuda_att_wrappers_raise_instead_of_falling_back():
     with pytest.raises(TypeError, match="float32"):
         A.fused_att(*bad)
     wide, _ = _att_problem(np.random.RandomState(10), 8, f=A.MAX_WIDTH + 1)
-    with pytest.raises(NotImplementedError, match="f up to"):
+    with pytest.raises(NotImplementedError, match="widths up to"):
         A.fused_att(*wide)
     s_args, _ = _s2v_problem(np.random.RandomState(11), 16,
                              w=S.MAX_WIDTH + 2)
-    with pytest.raises(NotImplementedError, match="w up to"):
+    with pytest.raises(NotImplementedError, match="widths up to"):
         S.set2vec(*s_args, time_steps=3)
     s_args, _ = _s2v_problem(np.random.RandomState(12), 16)
     bad_mask = s_args[2].clone()
@@ -733,13 +733,22 @@ def test_cuda_att_steps_wrapper_raises_instead_of_falling_back():
         AS.fused_att_steps(*args, steps=2)
     wide, _ = _atts_problem(np.random.RandomState(14), 8,
                             f=AS.MAX_WIDTH + 1)
-    with pytest.raises(NotImplementedError, match="f up to"):
+    with pytest.raises(NotImplementedError, match="widths up to"):
         AS.fused_att_steps(*wide, steps=3)
     deep, _ = _atts_problem(np.random.RandomState(15), 8,
                             tm=AS.MAX_STEPS + 1)
     with pytest.raises(NotImplementedError, match="steps"):
         AS.fused_att_steps(*deep, steps=AS.MAX_STEPS + 1)
     assert set(AS.launch_counts.values()) == {0}
+    # the wide bucket's backward at the largest vocab and depth: its staged
+    # gate tables need more than a block's shared memory (the forward fits)
+    big, _ = _atts_problem(np.random.RandomState(16), 8, f=32, k=64,
+                           tm=AS.MAX_STEPS)
+    h = AS.fused_att_steps(*big, steps=AS.MAX_STEPS)
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        h.sum().backward()
+    assert AS.launch_counts == {"fused_att_steps_fwd": 1,
+                                "fused_att_steps_bwd": 0}
 
 
 @pytest.mark.gpu
@@ -776,3 +785,223 @@ def test_att_serving_path_on_card():
                                  fused=False).cpu().numpy()
             for b in loader])
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# ---------------------------------------------------------------------------
+# the wide width buckets (f <= 32, od <= 128, set2vec w <= 64) of every
+# family, and the edge-MLP chain kernels (edge_mlp_fwd.cu, edge_mlp_bwd.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,od", [(24, 48), (32, 64)])
+def test_cuda_shared_family_wide_bucket(f, od):
+    """Rows 1-3 at lipo's widths past 16 (od = 2·afm): the eval kernel and
+    the training kernels against their plain versions, ragged batch."""
+    _need_card()
+    rng = np.random.RandomState(f + od)
+    args = _problem(rng, g=300, f=f, od=od, k=12)
+    K.reset_launch_counts()
+    got = K.fused_eval(*args, steps=3)
+    want = K.fused_eval_reference(*args, steps=3)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    sargs, leaves = _step_problem(rng, 300, f=f, od=od, k=12)
+    cw = torch.as_tensor(rng.randn(300, od).astype(np.float32),
+                         device="cuda")
+    got = step_and_grads(K.fused_step, sargs, leaves, cw, steps=3)
+    torch.cuda.synchronize()
+    assert K.launch_counts == {"fused_eval": 1, "fused_step_fwd": 1,
+                               "fused_step_bwd": 1}
+    want = step_and_grads(K.fused_step_reference, sargs, leaves, cw, steps=3)
+    assert_step_close(got, want, "bn1d")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f,od,state_norm", [(24, 96, "stateless"),
+                                             (32, 128, "bn1d")])
+def test_cuda_psteps_wide_bucket(f, od, state_norm):
+    """Rows 13 and 14a at graph_norm's od = 4·afm: serving and training
+    against the plain versions."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    rng = np.random.RandomState(f + od)
+    c, leaves = _ps_problem(rng, 300, f=f, od=od, k=12)
+    kw = dict(steps=3, msg_norm="bn1d", state_norm=state_norm)
+    P.reset_launch_counts()
+    with torch.no_grad():
+        got = _ps_eval(P.fused_psteps_eval, c, **kw)
+        want = _ps_eval(P.fused_psteps_eval_reference, c, **kw)
+    torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
+    cw = torch.as_tensor(rng.randn(300, od).astype(np.float32),
+                         device="cuda")
+    got = ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert P.launch_counts == {"fused_psteps_eval": 1, "fused_psteps_fwd": 1,
+                               "fused_psteps_bwd": 1}
+    want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
+    assert_ps_close(got, want, "bn1d")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("f", [24, 32])
+def test_cuda_attention_wide_buckets(f):
+    """Rows 15, 16 at f 24 and 32 and row 12 at w = 2f (48, 64): each
+    family's forward and backward kernels against the plain versions."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.kernels import set2vec as S
+    rng = np.random.RandomState(f)
+    for mod, fn, ref, (args, leaves), kw in [
+            (A, A.fused_att, A.fused_att_reference,
+             _att_problem(rng, 300, f=f, k=12), dict(with_corr=True)),
+            (AS, AS.fused_att_steps, AS.fused_att_steps_reference,
+             _atts_problem(rng, 300, f=f, k=12), dict(steps=3)),
+            (S, S.set2vec, S.set2vec_reference,
+             _s2v_problem(rng, 300, w=2 * f),
+             dict(time_steps=20, batch_softmax=True))]:
+        out_shape = (args[1] if mod is S else args[5]).shape
+        cw = torch.as_tensor(rng.randn(300 if mod is S else out_shape[0],
+                                       2 * out_shape[1] if mod is S
+                                       else out_shape[1]).astype(np.float32),
+                             device="cuda")
+        mod.reset_launch_counts()
+        got = _value_and_grads(fn, args, leaves, cw, **kw)
+        torch.cuda.synchronize()
+        assert sorted(mod.launch_counts.values()) == [1, 1], mod.launch_counts
+        want = _value_and_grads(ref, args, leaves, cw, **kw)
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+        _grads_close(got[1], want[1])
+
+
+def mlp_chain(rng, rows, head, tail):
+    """An edge-MLP chain's rows (the last the zero row), head weights and
+    biases in the JAX layout and W_s, numpy float32. W_s = s·(0.7·I +
+    0.3·Q), Q a random rotation, s the first scale that keeps the output
+    after the tail within 0.3-30: the relus cut about half the features
+    and float32 rounding stays near 1e-6 over 50 steps (a pure rotation,
+    measured against float64, amplifies it to 1e-4)."""
+    pf = head[-1][1]
+    f = lambda *s, sc=1.0: (rng.randn(*s) * sc).astype(np.float32)
+    x = f(rows, head[0][0])
+    x[-1] = 0.0
+    ws = [f(i, o, sc=1 / np.sqrt(i)) for i, o in head]
+    bs = [f(o, sc=0.1) for _, o in head]
+    base = 0.7 * np.eye(pf) + 0.3 * np.linalg.qr(rng.randn(pf, pf))[0]
+    for scale in np.arange(0.9, 2.0, 0.05):
+        h = x
+        for w, b in zip(ws, bs):
+            h = np.maximum(h @ w + b, 0.0)
+        for _ in range(tail):
+            h = np.maximum(h @ (scale * base), 0.0)
+        if 0.3 <= np.abs(h).max() <= 30:
+            break
+    return x, ws, bs, (scale * base).astype(np.float32)
+
+
+def _mlp_problem(rng, rows, head, tail, device="cuda"):
+    """mlp_chain's arrays as tensors on `device`, each requiring grad."""
+    t = lambda a: torch.as_tensor(a, device=device).requires_grad_()
+    x, ws, bs, sw = mlp_chain(rng, rows, head, tail)
+    return t(x), [t(w) for w in ws], [t(b) for b in bs], t(sw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,head,tail", [
+    (9, [(2, 4), (4, 16)], 50), (14, [(6, 36)], 50), (65, [(7, 49)], 50),
+    (65, [(8, 64)], 50), (11, [(4, 16), (16, 256)], 50), (5, [(6, 36)], 0)])
+def test_cuda_edge_mlp_kernels_match_plain_version(rows, head, tail):
+    """The chain at pf 16, 36, 49, 64 and 256 (W_s past shared memory) and
+    without a tail: the forward kernel against edge_mlp_reference and the
+    backward against autograd through it, every input's gradient."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    rng = np.random.RandomState(rows + tail)
+    x, ws, bs, sw = _mlp_problem(rng, rows, head, tail)
+    leaves = {"x": x, **{f"w{i}": w for i, w in enumerate(ws)},
+              **{f"b{i}": b for i, b in enumerate(bs)}, "ws": sw}
+    cw = torch.as_tensor(rng.randn(rows, sw.shape[0]).astype(np.float32),
+                         device="cuda")
+    M.reset_launch_counts()
+    got = _value_and_grads(M.edge_mlp, (x, ws, bs, sw), leaves, cw,
+                           tail=tail)
+    torch.cuda.synchronize()
+    assert M.launch_counts == {"edge_mlp_fwd": 1, "edge_mlp_bwd": 1}
+    want = _value_and_grads(M.edge_mlp_reference, (x, ws, bs, sw), leaves,
+                            cw, tail=tail)
+    scale = float(want[0].abs().max())       # the chain's scale varies
+    assert scale > 0
+    torch.testing.assert_close(got[0] / scale, want[0] / scale, rtol=RTOL,
+                               atol=ATOL)
+    _grads_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+def test_cuda_edge_mlp_wrapper_raises_instead_of_falling_back():
+    _need_card()
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    x, ws, bs, sw = _mlp_problem(np.random.RandomState(0), 9, [(6, 36)], 3)
+    x, ws, bs, sw = x.detach(), [w.detach() for w in ws], [
+        b.detach() for b in bs], sw.detach()
+    M.reset_launch_counts()
+    with pytest.raises(ValueError, match="is on cpu"):
+        M.edge_mlp(x, ws, bs, sw.cpu(), tail=3)
+    with pytest.raises(TypeError, match="float32"):
+        M.edge_mlp(x, ws, [bs[0].double()], sw, tail=3)
+    with pytest.raises(ValueError, match="shape"):
+        M.edge_mlp(x, ws, bs, sw[:, :20], tail=3)
+    with pytest.raises(NotImplementedError, match="5 head layers"):
+        M.edge_mlp(x, ws * 5, bs * 5, sw, tail=3)
+    assert set(M.launch_counts.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["lipo", "graph_norm", "adv", "att"])
+def test_wide_model_paths_on_card(model):
+    """Serving through the kernels at afm 27 (SMILES with many atom types
+    and charges): one edge-MLP forward launch per message network per
+    request, the output equal to the plain model on the card."""
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.cli import predict_batches
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(
+        WIDE_SMILES, [0] * len(WIDE_SMILES)))
+    assert ge.atom_width() == 27
+    cfg = (zoo.lipo(ge.atom_width(), ge.bond_width(), 3) if model == "lipo"
+           else zoo.build(model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                          nafm=3, n_out=4))
+    net = network_init(cfg, torch.Generator().manual_seed(0), device)
+    loader = G.GraphLoader(gs, 16, collate="packed")
+    M.reset_launch_counts()
+    task = "mse" if model == "lipo" else "ce"
+    got = np.concatenate([o.reshape(-1) for o in
+                          predict_batches(net, task, loader, device)])
+    assert M.launch_counts == {
+        "edge_mlp_fwd": len(loader) * len(net.mpnn.message),
+        "edge_mlp_bwd": 0}
+    with torch.no_grad():
+        want = np.concatenate([
+            network_apply_packed(net, batch_to_device(b, device),
+                                 fused=False).reshape(-1).cpu().numpy()
+            for b in loader])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+# drug-like SMILES over many elements, charges and aromatic rings: they
+# featurize to afm 27 and bfm 6, so lipo's f is 30 and od 54, graph_norm's
+# od 108, adv's and att's f 27 and set2vec's w 54 (chip_smoke.py's wide
+# phase takes the same list)
+WIDE_SMILES = [
+    "CC(C)Cc1ccc(cc1)C(C)C(=O)O", "O=C(O)c1ccccc1OC(C)=O",
+    "CN1C=NC2=C1C(=O)N(C(=O)N2C)C", "C1=CC=C(C=C1)[N+](=O)[O-]",
+    "FC(F)(F)c1ccc(Cl)cc1Br", "Ic1ccc(cc1)S(=O)(=O)N", "CP(=O)(O)O",
+    "B(O)(O)c1ccccc1", "C[Si](C)(C)OC", "[Na+].[Cl-]", "C[Se]C",
+    "[NH4+]", "O=[As](O)(O)O", "[K+].[I-]", "c1ccc2[nH]ccc2c1",
+    "C1CCNCC1", "OC[C@H]1OC(O)[C@H](O)[C@@H](O)[C@@H]1O", "[Li+].[F-]",
+    "[Mg+2].[O-]C(=O)C", "Cl[Sn](Cl)(Cl)Cl", "[Zn+2]", "[Ca+2]",
+    "[Al](Cl)(Cl)Cl",
+] * 3

@@ -136,9 +136,18 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                   "fused_att_fwd", "fused_att_bwd",
                                   "set2vec_fwd", "set2vec_bwd",
                                   "fused_att_steps_fwd",
-                                  "fused_att_steps_bwd"}
+                                  "fused_att_steps_bwd", "edge_mlp_fwd",
+                                  "edge_mlp_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
+    # every source in one family; each wide bucket its own library
+    assert sorted(n for names in build.FAMILIES.values() for n in names) \
+        == sorted(build.SOURCES)
+    libs = build.all_libraries()
+    assert "fused_eval.f32" in libs and "set2vec_bwd.w64" in libs
+    assert build.defines("fused_psteps_bwd.f32") == ("MPNN_FP=32",
+                                                     "MPNN_ODW=128")
+    assert build.defines("fused_eval") == ()
 
 
 @pytest.mark.parametrize("exp", ["graph_norm_classification",
