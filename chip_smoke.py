@@ -108,7 +108,32 @@ Phases, one line each:
                the `train` verb through every family's wide width bucket,
                launch counts, the plain path (predictions, first 3 losses,
                the first step's outputs and gradients), each kernel's
-               device time in a trace; lipo at f 33 raises.
+               device time in a trace; lipo at f 33 raises;
+ 25. bil-kernel-check — the bilinear family's two kernels (fused_bilinear
+               fwd/bwd) against their plain versions on the card (rtol
+               1e-4, atol 1e-5; h0 and GRU gradients scaled by their max
+               abs; each case also through the serving launch, no message
+               stash): ecfp_bilinear's batch of 1024 (f 2, T 2, its own A
+               table), random non-symmetric tables at f 2-4, T 1-3, and a
+               ragged batch with a padded graph slot;
+ 26. bil-serve — ecfp_bilinear (reached as the reference reaches it: nf 2,
+               bond rows of width 8, ECFP labels at 32 bits) served through
+               the API's predict_batches at batch 128 and 1024: one
+               forward launch per request, outputs against the plain path;
+ 27. bil-train — ecfp_bilinear through train/trainer.py::train (ecfp_mse,
+               2 epochs at batch 128): one forward and one backward launch
+               per step, one forward per validation batch, the first 3
+               losses against the plain path (rtol 1e-3);
+ 28. bil-times — request and train-step latency at batch 128 and 1024,
+               both kernels' times beside their bounds and their plain
+               versions';
+ 29. ecfp  — encoded_ecfp (the reference's ECFP script) through `predict`
+               (batch 128 and 1024) and `train` (batch 128, 2 epochs) on
+               its own SMILES CSV at 16,384 bits: the per-step kernels'
+               and edge-MLP launch counts, the first logits and the first
+               3 losses against the plain path, obn's running statistics
+               moved, and the ECFP batch's host collation and
+               host-to-device time.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -241,6 +266,7 @@ def phase_build():
     # not see: the launch's size at the flagship vocab of 16 (and T = 6)
     from mpnn_tpu_torch.kernels import fused_att as A
     from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
     from mpnn_tpu_torch.kernels import fused_psteps as P
     from mpnn_tpu_torch.kernels import set2vec as S
     atts_fwd = AS._lib("fused_att_steps_fwd") \
@@ -265,7 +291,10 @@ def phase_build():
                for n in ("set2vec_fwd", "set2vec_bwd")) + " (w 14); "
            f"fused_att_steps_fwd {atts_fwd} B, fused_att_steps_bwd "
            f"{atts_bwd} B (Tm 3, K 16, T 3, f 7; their A' tables stay in "
-           "device memory)")
+           "device memory); " + ", ".join(
+               f"{n} {getattr(B._lib(n), f'mpnn_{n}_smem_bytes')(16, 32)} B"
+               for n in ("fused_bilinear_fwd", "fused_bilinear_bwd"))
+           + " (K 16, graphs up to 32 atoms)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -1954,7 +1983,9 @@ def _att_bounds(b, f, w, k, T):
     written by the forward and read by the backward) over HBM bandwidth.
     Real nodes and edges, every graph slot. The forwards as the serving
     path runs them (no message stash, no set2vec stash); a transcendental
-    counts as one operation."""
+    counts as one operation. The function's inputs, not the kernels': the
+    edges as vid, src and dst, not the index plan the wrapper builds from
+    them."""
     nr = float(b["node_mask"].sum())
     er = float(b["edge_mask"].sum())
     g = float(b["graph_mask"].shape[0])
@@ -1964,7 +1995,7 @@ def _att_bounds(b, f, w, k, T):
     node_g = (2 * f * f + f                        # h0·Wh, S_g
               + 5 * f + 2 * f                      # g0, X and g0 ⊙ X
               + 2 * gemv + 15 * f)                 # the GRU
-    idx = er * 3 + nr + 1 + g + 1                  # vid, src, order, ptrs
+    idx = er * 3 + 2 * nr                # vid, src, dst, mask, node_graph
     fwd = (er * (edge_g + 2 * f * f)               # + A'·g
            + nr * (node_g + 2 * f * f),            # + A0·(g0 ⊙ X)
            4 * (nr * f + idx + att_w + nr * f))
@@ -1975,7 +2006,7 @@ def _att_bounds(b, f, w, k, T):
               + 2 * f * f + 8 * f + 2 * f * f      # correction VJP, dA0
               + 2 * f * f + 2 * f * f + 2 * gemv)  # dWh, Wh·dz, dW_ih/hh
     bwd = (er * edge_b + nr * node_b,
-           4 * (3 * nr * f + idx + er + nr + 1 + att_w + nr * f + att_w))
+           4 * (3 * nr * f + idx + att_w + nr * f + att_w))
     lstm = 4 * 2 * (2 * w) * w + 10 * w            # gates + cell, per graph
     step = g * (lstm + 2 * w * w) + nr * (4 * w + 3 + 2 * w)
     s2v_w = 8 * w * w + 4 * w + w * w + w
@@ -2298,16 +2329,16 @@ def _atts_bounds(b, f, k, T, tm, with_corr, stateless):
     its bytes (each input read once, each output written once; the
     training residuals — Tm message slots, T pre-norm states, T means and
     vars — written by the forward and read by the backward) over HBM
-    bandwidth. Real nodes and edges, every graph slot. The forward as the
-    serving path runs it (no residuals); a transcendental counts as one
-    operation."""
+    bandwidth. Real nodes and edges. The forward as the serving path runs
+    it (no residuals); a transcendental counts as one operation. The
+    function's inputs, not the kernels': the edges as vid, src and dst,
+    not the index plan the wrapper builds from them."""
     nr = float(b["node_mask"].sum())
     er = float(b["edge_mask"].sum())
-    g = float(b["graph_mask"].shape[0])
     gemv = 2 * f * 3 * f                            # f → 3f gate GEMV
     corr = 1 if with_corr else 0
     weights = tm * (k * f * f + 2 * f * f + k * f + f) + 6 * f * f + 6 * f
-    idx = er * 3 + nr + 1 + g + 1                  # vid, src, order, ptrs
+    idx = er * 3 + 2 * nr                # vid, src, dst, mask, node_graph
     # per message step: the gate (5f), g (f), A'·g per edge, Σ h0[u] for
     # the correction; h0·Wh per node, and S_g, g0, X, g0 ⊙ X and A0·(g0 ⊙ X)
     edge_f = 6 * f + corr * f + 2 * f * f
@@ -2330,8 +2361,8 @@ def _atts_bounds(b, f, k, T, tm, with_corr, stateless):
     edge_b = 6 * f + 4 * f * f + 8 * f + corr * 3 * f
     node_b = 6 * f * f + f + corr * (4 * f * f + 13 * f)
     bwd = (T * nr * chain_b + tm * (er * edge_b + nr * node_b),
-           4 * (nr * f + resid + nr * f + idx + 2 * er + nr + 1 + weights
-                + nr * f + weights))
+           4 * (nr * f + resid + nr * f + idx + weights + nr * f
+                + weights))
     out = {}
     for name, (ops, nbytes) in zip(ATTS_KERNELS, (fwd, bwd)):
         t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
@@ -2878,6 +2909,658 @@ def phase_wide(device, card):
     print(f"wide [{card}]: " + "; ".join(lines), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the ECFP task: the bilinear family (ecfp_bilinear, row 17's kernels) and
+# encoded_ecfp (the per-step kernels, obn, the 16,384-bit head): phases
+# 25-29
+# ---------------------------------------------------------------------------
+
+BIL_KERNELS = ("fused_bilinear_fwd", "fused_bilinear_bwd")
+# ecfp_bilinear's od is 32 whenever nbits > 64 (its zoo entry): the task
+# is run at 32 bits, as the reference reaches the model
+BIL_NBITS = 32
+
+
+def _ecfp_csv(name, rows):
+    """bench.py's molecules repeated to `rows`; the ECFP loader replaces
+    the label column with each atom's Morgan bits."""
+    os.makedirs(OUT_DIR, exist_ok=True)
+    csv = os.path.join(OUT_DIR, f"{name}_{rows}.csv")
+    with open(csv, "w") as fh:
+        fh.write("smiles,target\n")
+        for s in (SMILES * (rows // len(SMILES) + 1))[:rows]:
+            fh.write(f"{s},0\n")
+    return csv
+
+
+def bil_cut(graphs, nf=2):
+    """ecfp_bilinear's inputs as the reference reaches the model (through
+    its Python API; mpnn_tpu's tests/test_fused_bilinear.py): node
+    features cut to nf, bond rows zero-padded and cut to nf³ (8 at nf 2,
+    the one coherent width). The port's tests take it from here."""
+    import dataclasses
+    import numpy as np
+    out = []
+    for g in graphs:
+        ef = np.asarray(g.edge_feats, np.float32)
+        ef = np.pad(ef, ((0, 0), (0, max(nf ** 3 - ef.shape[1], 0))))
+        out.append(dataclasses.replace(
+            g, afm=np.concatenate([g.afm, g.nafm], -1)[:, :nf],
+            edge_feats=ef[:, :nf ** 3]))
+    return out
+
+
+def _bil_graphs(rows, nf=2):
+    from mpnn_tpu_torch import graphs as G
+    gs, _ = G.load_ecfp_dataset(_ecfp_csv("bil", rows), "smiles", "target",
+                                nbits=BIL_NBITS)
+    return bil_cut(gs, nf)
+
+
+def _bil_net(seed, device):
+    import torch
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    cfg = zoo.build("ecfp_bilinear", afm=2, bfm=8, n_out=BIL_NBITS)
+    return cfg, network_init(cfg, torch.Generator().manual_seed(seed),
+                             device)
+
+
+def _bil_case(tb, gen, device, random_table):
+    """fused_bilinear's arguments on a device batch: h0 its masked node
+    features, the A table of its own bond rows (the main path's) or a
+    random non-symmetric one (A_0 = 0), a random GRU; (args, leaves),
+    h0 and the GRU leaves requiring grad."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    from mpnn_tpu_torch.models.fused_train import bilinear_table
+
+    def r(*shape, s=1.0):
+        return (torch.randn(*shape, generator=gen) * s).to(device)
+    mask = tb["node_mask"]
+    f = int(tb["node_feats"].shape[1])
+    k = int(tb["edge_vfirst"].shape[0])
+    h0 = (tb["node_feats"] * mask).contiguous()
+    if random_table:
+        amat = r(k, f, f * f, s=0.5)
+        amat[0] = 0.0
+    else:
+        amat = bilinear_table(tb, f)
+    gru = {"w_ih": r(f, 3 * f, s=0.5), "w_hh": r(f, 3 * f, s=0.5),
+           "b_ih": r(3 * f, s=0.1), "b_hh": r(3 * f, s=0.1)}
+    leaves = [h0, *gru.values()]
+    for t in leaves:
+        t.requires_grad_()
+    args = (amat, h0, mask, tb["node_graph"], gru, tb["edge_vid"],
+            tb["edge_src"], tb["edge_dst"], plan_from_batch(tb))
+    return args, leaves
+
+
+def _bil_device_batch(graphs, bs, device, padded_slot=False):
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    if not padded_slot:
+        return batch_to_device(next(iter(G.GraphLoader(graphs, bs))), device)
+    b = G.collate_packed(graphs, num_graphs=len(graphs) + 1).as_dict()
+    b = attach_fused_plan(G.attach_edge_vocab(b, vocab_cap=16))
+    return batch_to_device(b, device)
+
+
+def phase_bil_kernel_check(device):
+    """The two bilinear kernels against their plain versions on the card
+    (rtol 1e-4, atol 1e-5; h0 and GRU gradients each divided by their max
+    abs; each case also through the serving launch, which writes no
+    message stash): ecfp_bilinear's main path at batch 1024 (f 2, T 2,
+    the A table of its own bond rows), random non-symmetric tables at f
+    2-4 and T 1-3 on the same molecules, and a ragged batch (single-atom
+    molecules, padded edges, a padded graph slot)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    gen = torch.Generator().manual_seed(71)
+    ragged = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
+    from mpnn_tpu_torch import graphs as G
+    raw, _ = G.encode_molgraphs(G.generate_molgraphs(
+        (SMILES * 103)[:1024], [0] * 1024))
+    rg, _ = G.encode_molgraphs(G.generate_molgraphs(ragged, [0] * 12))
+    cases = [("batch1024 f2 T2 (its own table)", 1024, 2, 2, False, False),
+             ("batch1024 f2 T1", 1024, 2, 1, True, False),
+             ("batch1024 f3 T3", 1024, 3, 3, True, False),
+             ("batch1024 f4 T2", 1024, 4, 2, True, False),
+             ("ragged f2 T3", 12, 2, 3, True, True),
+             ("ragged f4 T1", 12, 4, 1, True, True)]
+    worst = dict.fromkeys(BIL_KERNELS, 0.0)
+    results, failed = [], []
+    for what, bs, f, steps, rand, pad in cases:
+        tb = _bil_device_batch(bil_cut(rg if pad else raw, f), bs, device,
+                               padded_slot=pad)
+        args, leaves = _bil_case(tb, gen, device, rand)
+        cw = torch.randn(args[1].shape[0], steps * f,
+                         generator=gen).to(device)
+        kw = dict(steps=steps)
+        got = _fwd_and_grads(B.fused_bilinear, args, leaves, cw, kw)
+        torch.cuda.synchronize()
+        want = _fwd_and_grads(B.fused_bilinear_reference, args, leaves, cw,
+                              kw)
+        ok_f, ef, ok_b, eb = _fwd_bwd_errors(got, want)
+        with torch.no_grad():
+            served = B.fused_bilinear(*args, **kw)
+        torch.cuda.synchronize()
+        ok_s, es, _ = _within(served, want[0])
+        worst["fused_bilinear_fwd"] = max(worst["fused_bilinear_fwd"], ef,
+                                          es)
+        worst["fused_bilinear_bwd"] = max(worst["fused_bilinear_bwd"], eb)
+        ok = ok_f and ok_b and ok_s
+        n, g = int(tb["node_mask"].shape[0]), int(tb["graph_mask"].shape[0])
+        results.append(
+            f"{what} (nodes {int(tb['node_mask'].sum())}/{n} slots, G={g}, "
+            f"edges {int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}, "
+            f"vocab {args[0].shape[0]}): fwd {ef:.2e} (serving {es:.2e}) "
+            f"bwd {eb:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+    print("bil-kernel-check: fused_bilinear_fwd/bwd vs "
+          "fused_bilinear_reference and autograd through it (cotangent "
+          f"Σ hist·c; forward max abs error, rtol {RTOL} atol {ATOL}; "
+          "gradient leaves divided by their max abs, max error, rtol "
+          f"{RTOL} atol {ATOL}): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"bilinear kernels disagree with their plain "
+                           f"versions: {failed}")
+    return worst
+
+
+def phase_bil_serve(device):
+    """ecfp_bilinear served through the port's API (train/cli.py::
+    predict_batches, the eval step a user's `predict` runs) at batch 128
+    and 1024 with seeded weights: exactly one fused_bilinear_fwd launch
+    per request, no backward; outputs against the plain path on the card,
+    batch by batch. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    from mpnn_tpu_torch.models.network import network_apply_packed
+    from mpnn_tpu_torch.train.cli import predict_batches
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    cfg, net = _bil_net(73, device)
+    totals, lines = dict.fromkeys(BIL_KERNELS, 0), []
+    for bs, rows in ((128, 384), (1024, 2048)):
+        gs = _bil_graphs(rows)
+        loader = G.GraphLoader(gs, bs)
+        B.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = torch.tensor(np.concatenate(
+            list(predict_batches(net, "ecfp_mse", loader, device))),
+            dtype=torch.float64)
+        wall = time.perf_counter() - t0
+        counts = dict(B.launch_counts)
+        n_req = -(-rows // bs)
+        want = {"fused_bilinear_fwd": n_req, "fused_bilinear_bwd": 0}
+        if counts != want:
+            raise RuntimeError(f"ecfp_bilinear serve at batch {bs}: "
+                               f"launches {counts}, the design's count is "
+                               f"{want}")
+        for k in totals:
+            totals[k] += counts[k]
+        with torch.no_grad():
+            plain = torch.cat([
+                network_apply_packed(net, batch_to_device(b, device),
+                                     fused=False).cpu()
+                for b in loader]).to(torch.float64)
+        ok, mabs, mrel = _within(out, plain)
+        ok = ok and bool(torch.isfinite(out).all()) \
+            and out.shape == (rows, BIL_NBITS)
+        lines.append(f"batch {bs}: {rows} molecules in {n_req} requests, "
+                     f"{counts['fused_bilinear_fwd']} forward launches, "
+                     f"{wall:.2f} s wall (collate+serve), outputs vs plain "
+                     f"path max_abs={mabs:.3e} max_rel={mrel:.3e} "
+                     f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise RuntimeError(f"ecfp_bilinear batch {bs}: served outputs "
+                               f"disagree with the plain path ({mabs:.3e})")
+    print("bil-serve: ecfp_bilinear (nf 2, ef 8, T 2, od 32, head none; "
+          f"ECFP labels at {BIL_NBITS} bits); " + "; ".join(lines),
+          flush=True)
+    return totals
+
+
+def phase_bil_train(device):
+    """ecfp_bilinear trained through train/trainer.py::train (ecfp_mse,
+    Adam lr 1e-3 / wd 1e-5, 2 epochs at batch 128 on 640 molecules, a
+    validation split): one forward and one backward launch per step, one
+    forward per validation batch; the first 3 losses against the plain
+    path on the card (rtol 1e-3); finite losses. Returns the launch
+    counts."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import (TrainConfig, batch_to_device,
+                                              train, train_step)
+    gs = _bil_graphs(TRAIN_ROWS)
+    train_gs, val_gs = train_test_split(gs, 0.1, 317)
+    cfg, _ = _bil_net(0, "cpu")
+    log = os.path.join(OUT_DIR, "train_ecfp_bilinear.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    tcfg = TrainConfig(epochs=TRAIN_EPOCHS, batch_size=128,
+                       learning_rate=1e-3, weight_decay=1e-5,
+                       loss="ecfp_mse", seed=317, log_path=log)
+    B.reset_launch_counts()
+    t0 = time.perf_counter()
+    _, hist = train(cfg, tcfg, train_gs, val_gs, device=device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(B.launch_counts)
+    with open(log) as fh:
+        steps = [json.loads(x)["loss"] for x in fh if '"step"' in x]
+    per_epoch = -(-len(train_gs) // 128)
+    want = {"fused_bilinear_fwd": TRAIN_EPOCHS * (
+        per_epoch + -(-len(val_gs) // 128)),
+        "fused_bilinear_bwd": TRAIN_EPOCHS * per_epoch}
+    if len(steps) != TRAIN_EPOCHS * per_epoch or counts != want:
+        raise RuntimeError(f"ecfp_bilinear train: {len(steps)} steps, "
+                           f"launches {counts}; the design's count is "
+                           f"{want}")
+    if not (all(math.isfinite(x) for x in steps)
+            and all(math.isfinite(r["val_loss"]) for r in hist)):
+        raise RuntimeError("ecfp_bilinear train: non-finite loss")
+    net = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(net.parameters(), 1e-3, weight_decay=1e-5)
+    plain = []
+    for b in G.GraphLoader(train_gs, 128, shuffle=True, seed=317):
+        if len(plain) == 3:
+            break
+        plain.append(float(train_step(net, opt, batch_to_device(b, device),
+                                      fused=False, loss_kind="ecfp_mse")))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"ecfp_bilinear train: first steps {steps[:3]} "
+                           f"vs plain path {plain} (rel {rel:.2e})")
+    print(f"bil-train: ecfp_bilinear, {TRAIN_ROWS} molecules (train "
+          f"{len(train_gs)}, val {len(val_gs)}), batch 128, {TRAIN_EPOCHS} "
+          f"epochs, {len(steps)} steps in {wall:.2f} s wall; launches fwd "
+          f"{counts['fused_bilinear_fwd']}, bwd "
+          f"{counts['fused_bilinear_bwd']} (design: 1 + 1 per step, 1 per "
+          f"validation batch); step losses first {steps[0]:.5f} last "
+          f"{steps[-1]:.5f}; val loss "
+          f"{[round(r['val_loss'], 5) for r in hist]}; first 3 steps vs "
+          f"plain path max rel {rel:.2e}", flush=True)
+    return counts
+
+
+def _bil_bounds(b, f, k, T):
+    """Least times of the two bilinear kernels' work on this batch, each
+    the larger of its float32 operations over the peak CUDA-core rate and
+    its bytes (each input read once, each output written once; the
+    forward as serving runs it, with no message stash; the backward reads
+    the stash) over HBM bandwidth. Real nodes and edges; a transcendental
+    counts as one operation. The function's inputs, not the kernels': the
+    edges as vid, src and dst and the node mask, not the index plan the
+    wrapper builds from them (edge and source orders, their pointers, the
+    graphs' node ranges)."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    gemv = 2 * f * 3 * f                           # f → 3f gate GEMV
+    weights = k * f ** 3 + 6 * f * f + 6 * f
+    idx = er * 3 + nr                              # vid, src, dst, mask
+    # per step: per edge φ (f²) and A·φ (2f³); per node the input gates
+    # and the blend (~15f); the hidden gates once per node
+    fwd = (T * (er * (f * f + 2 * f ** 3) + nr * (gemv + 15 * f))
+           + nr * gemv,
+           4 * (nr * f + idx + weights + nr * T * f))
+    # per step and node: the input gates recomputed from the stashed
+    # message, the gate VJP (~30f), the transposed GEMVs into dmsg and dh0
+    # and the outer products into W_ih's and W_hh's rows (1 + 2 + 2
+    # GEMV-sized); the hidden gates once per node, as they do not change
+    # between steps; per step and edge: dφ = Aᵀ·dmsg (2f³) once and its
+    # contractions with either end's state (2f² each)
+    bwd = (T * (nr * (5 * gemv + 30 * f) + er * (2 * f ** 3 + 4 * f * f))
+           + nr * gemv,
+           4 * (nr * f + 3 * nr * T * f + idx + weights + nr * f
+                + 6 * f * f + 6 * f))
+    out = {}
+    for name, (ops, nbytes) in zip(BIL_KERNELS, (fwd, bwd)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def phase_bil_times(device, card):
+    """ecfp_bilinear at batch 128 and 1024: request and train-step
+    latency (host clock ending in a device sync, medians of 20), the two
+    kernels' times (CUDA events over repeated launches on the main path's
+    inputs; the forward as serving runs it, and with the training stash)
+    beside their bounds and their plain versions' times."""
+    import statistics
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models.fused_train import bilinear_table
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch,
+                                              train_step)
+    out, lines = {}, []
+    gen = torch.Generator().manual_seed(79)
+    for bs in (128, 1024):
+        b = next(iter(G.GraphLoader(_bil_graphs(bs), bs)))
+        tb = batch_to_device(b, device)
+        cfg, net = _bil_net(79, device)
+        opt = adam(net.parameters(), 1e-3, weight_decay=1e-5)
+        estep = eval_step_for_batch(cfg, "ecfp_mse", b)
+
+        def request():
+            _, o = estep(net, batch_to_device(b, device))
+            o.cpu()
+            torch.cuda.synchronize()
+
+        def step():
+            float(train_step(net, opt, tb, loss_kind="ecfp_mse"))
+            torch.cuda.synchronize()
+        rec = {}
+        for name, fn in (("request_ms", request), ("step_ms", step)):
+            for _ in range(3):
+                fn()
+            lat = []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                fn()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            rec[name] = statistics.median(lat)
+        c = cfg.mpnn
+        f, T = c.node_features, c.message_steps
+        mask, ng = tb["node_mask"], tb["node_graph"]
+        batch = (tb["edge_vid"], tb["edge_src"], tb["edge_dst"],
+                 plan_from_batch(tb))
+        with torch.no_grad():
+            h0 = (tb["node_feats"] * mask).contiguous()
+            amat = bilinear_table(tb, f)
+            gru = {k: v.detach() for k, v in net.mpnn.gru.as_dict().items()}
+            pe = B.prepare_fused_bilinear_fwd(amat, h0, mask, ng, gru,
+                                              *batch, steps=T,
+                                              write_msgs=False)
+            pt = B.prepare_fused_bilinear_fwd(amat, h0, mask, ng, gru,
+                                              *batch, steps=T,
+                                              write_msgs=True)
+            times = {"fused_bilinear_fwd": _events_ms(
+                lambda: K.launch_prepared(pe), 200)}
+            t_train = _events_ms(lambda: K.launch_prepared(pt), 200)
+            plain = {"fused_bilinear_fwd": _events_ms(
+                lambda: B.fused_bilinear_reference(amat, h0, mask, ng, gru,
+                                                   *batch, steps=T), 20)}
+            hist, msgs = K.launch_prepared(pt)
+            gh = torch.randn(hist.shape, generator=gen).to(device)
+            pb = B.prepare_fused_bilinear_bwd(amat, h0, gru, hist, msgs, gh,
+                                              *batch, steps=T,
+                                              max_nodes=pt.args[-2])
+            times["fused_bilinear_bwd"] = _events_ms(
+                lambda: K.launch_prepared(pb), 200)
+        leaves = [h0.clone().requires_grad_()] + [
+            t.clone().requires_grad_() for t in gru.values()]
+        h_ref = B.fused_bilinear_reference(
+            amat, leaves[0], mask, ng, dict(zip(gru, leaves[1:])), *batch,
+            steps=T)
+        obj = (h_ref * gh).sum()
+        plain["fused_bilinear_bwd"] = _events_ms(lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True), 10)
+        bounds = _bil_bounds(b, f, amat.shape[0], T)
+        for name in BIL_KERNELS:
+            rec[name] = dict(ms=times[name], plain_ms=plain[name],
+                             bound_ms=bounds[name][0],
+                             bound_by=bounds[name][1])
+        out[bs] = rec
+        lines.append(
+            f"ecfp_bilinear batch {bs} (nodes {int(b['node_mask'].sum())}/"
+            f"{b['node_mask'].shape[0]}, edges {int(b['edge_mask'].sum())}/"
+            f"{b['edge_src'].shape[0]}, vocab {amat.shape[0]}, T {T}): "
+            f"request median {rec['request_ms']:.3f} ms, train step median "
+            f"{rec['step_ms']:.3f} ms (20 reps each); " + ", ".join(
+                f"{name} {times[name] * 1e3:.2f} us (events"
+                + (f"; with the message stash {t_train * 1e3:.2f} us"
+                   if name == "fused_bilinear_fwd" else "")
+                + f"), plain {plain[name] * 1e3:.1f} us, bound "
+                f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.3f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in BIL_KERNELS))
+    print(f"bil-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
+ECFP_ROWS = 1024
+
+
+def _ecfp_latency(net, b, tb, device):
+    """encoded_ecfp on one collated batch: the request (host batch →
+    predictions, collation excluded) and train-step (device batch → loss
+    read back, Adam on a copy of `net`) latency, medians of 5 after 2
+    warm-ups, and one profiled train step's device busy time and idle
+    share."""
+    import copy
+    import statistics
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch,
+                                              train_step)
+    estep = eval_step_for_batch(net.cfg, "ecfp_mse", b)
+    tnet = copy.deepcopy(net)
+    opt = adam(tnet.parameters(), 1e-3, weight_decay=1e-5)
+
+    def request():
+        _, o = estep(net, batch_to_device(b, device))
+        o.cpu()
+        torch.cuda.synchronize()
+
+    def step():
+        float(train_step(tnet, opt, tb, loss_kind="ecfp_mse"))
+        torch.cuda.synchronize()
+    rec = {}
+    for name, fn in (("request", request), ("step", step)):
+        for _ in range(2):
+            fn()
+        lat = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            fn()
+            lat.append((time.perf_counter() - t0) * 1e3)
+        rec[name] = statistics.median(lat)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step()
+    busy, ops = _device_ops(prof)
+    g = int(b["graph_mask"].shape[0])
+    with open(os.path.join(OUT_DIR, f"profile_encoded_ecfp_train_{g}.txt"),
+              "w") as fh:
+        fh.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+    return (f"request median {rec['request']:.2f} ms (host batch → "
+            f"predictions), train step median {rec['step']:.2f} ms (5 reps "
+            f"each); one train step's device busy {busy:.1f} us in "
+            f"{sum(e.count for e in ops)} device ops, idle share "
+            f"{1 - busy / (rec['step'] * 1e3):.3f}")
+
+
+def phase_ecfp(device, card):
+    """encoded_ecfp, the reference's ECFP script, through the verbs a user
+    runs, at the reference's 16,384 bits and radius 3 on its own SMILES
+    CSV: `predict` at batch 128 and 1024 from a seeded checkpoint (one
+    per-step eval launch per request, three edge-MLP forwards each; the
+    first logit of each molecule against the plain path on the card,
+    whose output norm obn follows the readout), then `train` (the
+    experiment's batch 128, 2 epochs: one per-step forward and backward
+    launch per step, one eval launch per validation and test batch; the
+    first 3 losses against the plain path, rtol 1e-3; obn's running
+    statistics moved in the checkpoint it writes). Reports, at batch 128
+    and 1024, the host collation and the host-to-device copy of a batch,
+    whose float32 node_labels dominate both, the request latency (host
+    batch → predictions) and the train-step latency (device batch → loss
+    read back), and one profiled train step's device busy time. Returns
+    the per-step kernels' launches."""
+    import statistics
+    import numpy as np
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train import cli
+    from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                 save_checkpoint)
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    csv = _ecfp_csv("ecfp", ECFP_ROWS)
+    t0 = time.perf_counter()
+    gs, ge = G.load_ecfp_dataset(csv, "smiles", "target")
+    load_s = time.perf_counter() - t0
+    cfg = zoo.build("encoded_ecfp", afm=ge.atom_width(), bfm=ge.bond_width(),
+                    n_out=16384)
+    nets = _nets(cfg.mpnn)
+    net = network_init(cfg, torch.Generator().manual_seed(83), "cpu")
+    ckpt = os.path.join(OUT_DIR, "ckpt_encoded_ecfp.npz")
+    save_checkpoint(ckpt, net, meta={"seed": 83, "model": "encoded_ecfp"})
+    pnet, _ = load_checkpoint(ckpt, cfg, device=device)
+    totals, lines = dict.fromkeys(PS_KERNELS, 0), []
+    for bs in (128, 1024):
+        loader = G.GraphLoader(gs, bs)
+        chunk = loader._epoch_chunks()[0]
+        col, h2d = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            b = loader._collate_chunk(chunk)
+            col.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tb = batch_to_device(b, device)
+            torch.cuda.synchronize()
+            h2d.append((time.perf_counter() - t0) * 1e3)
+        mb = b["node_labels"].nbytes / 1e6
+        lat = _ecfp_latency(pnet, b, tb, device)
+        del tb
+        buf = io.StringIO()
+        P.reset_launch_counts()
+        _mlp_reset()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--experiment", "encoded_ecfp", "--data",
+                      csv, "--ckpt", ckpt, "--batch-size", str(bs)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n_req = -(-ECFP_ROWS // bs)
+        counts = dict(P.launch_counts)
+        _mlp_take(f"encoded_ecfp predict at batch {bs}", nets,
+                  counts["fused_psteps_eval"], 0)
+        if counts != {"fused_psteps_eval": n_req, "fused_psteps_fwd": 0,
+                      "fused_psteps_bwd": 0}:
+            raise RuntimeError(f"encoded_ecfp predict at batch {bs}: "
+                               f"launches {counts} for {n_req} requests")
+        totals["fused_psteps_eval"] += n_req
+        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
+        if [r["index"] for r in recs] != list(range(ECFP_ROWS)):
+            raise RuntimeError(f"encoded_ecfp predict at batch {bs}: "
+                               f"{len(recs)} records for {ECFP_ROWS}")
+        got = torch.tensor([r["pred"] for r in recs], dtype=torch.float64)
+        with torch.no_grad():
+            plain = torch.cat([
+                network_apply_packed(pnet, batch_to_device(bb, device),
+                                     fused=False)[:, 0].cpu()
+                for bb in loader]).to(torch.float64)
+        ok, mabs, mrel = _within(got, plain)
+        ok = ok and bool(torch.isfinite(got).all())
+        lines.append(
+            f"predict batch {bs}: {ECFP_ROWS} molecules in {n_req} "
+            f"requests, {n_req} fused_psteps_eval launches, {wall:.2f} s "
+            f"wall (featurize+ECFP+load+serve); first logits vs plain path "
+            f"(obn after the readout) max_abs={mabs:.3e} max_rel={mrel:.3e} "
+            f"{'ok' if ok else 'FAIL'}; host collation median "
+            f"{statistics.median(col):.1f} ms, host-to-device median "
+            f"{statistics.median(h2d):.1f} ms (node_labels {mb:.1f} MB "
+            f"float32 of {b['node_mask'].shape[0]} node slots); {lat}")
+        if not ok:
+            raise RuntimeError(f"encoded_ecfp batch {bs}: served logits "
+                               f"disagree with the plain path ({mabs:.3e})")
+    log = os.path.join(OUT_DIR, "train_encoded_ecfp.jsonl")
+    ckdir = os.path.join(OUT_DIR, "train_ckpt_encoded_ecfp")
+    if os.path.exists(log):
+        os.remove(log)
+    buf = io.StringIO()
+    P.reset_launch_counts()
+    _mlp_reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["train", "--experiment", "encoded_ecfp", "--data", csv,
+                  "--epochs", str(TRAIN_EPOCHS), "--ckpt-dir", ckdir,
+                  "--log", log])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(P.launch_counts)
+    _mlp_take("encoded_ecfp train", nets,
+              counts["fused_psteps_fwd"] + counts["fused_psteps_eval"],
+              counts["fused_psteps_bwd"])
+    result = json.loads(buf.getvalue().strip().splitlines()[-1])
+    with open(log) as fh:
+        steps = [json.loads(x)["loss"] for x in fh if '"step"' in x]
+    train_gs, test_gs = train_test_split(gs, 0.1, 317)
+    train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+    per_epoch = -(-len(train_gs) // 128)
+    want = {"fused_psteps_fwd": TRAIN_EPOCHS * per_epoch,
+            "fused_psteps_bwd": TRAIN_EPOCHS * per_epoch,
+            "fused_psteps_eval": TRAIN_EPOCHS * -(-len(val_gs) // 128)
+            + -(-len(test_gs) // 128)}
+    if len(steps) != want["fused_psteps_fwd"] or counts != want:
+        raise RuntimeError(f"encoded_ecfp train: {len(steps)} steps, "
+                           f"launches {counts}; the design's count is "
+                           f"{want}")
+    if not (all(math.isfinite(x) for x in steps)
+            and math.isfinite(result["test"]["loss"])):
+        raise RuntimeError("encoded_ecfp train: non-finite loss")
+    for k in PS_KERNELS:
+        totals[k] += counts[k]
+    net = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(net.parameters(), 1e-3, weight_decay=1e-5)
+    plain = []
+    for bb in G.GraphLoader(train_gs, 128, shuffle=True, seed=317):
+        if len(plain) == 3:
+            break
+        plain.append(float(train_step(net, opt, batch_to_device(bb, device),
+                                      fused=False, loss_kind="ecfp_mse")))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"encoded_ecfp train: first steps {steps[:3]} vs "
+                           f"plain path {plain} (rel {rel:.2e})")
+    last = os.path.join(ckdir, f"ckpt_{TRAIN_EPOCHS - 1}.npz")
+    with np.load(last) as z:
+        obn_mean = z["state/mpnn/obn/running_mean"]
+        obn_var = z["state/mpnn/obn/running_var"]
+    if not (obn_mean.any() and (obn_var != 1).any()):
+        raise RuntimeError("encoded_ecfp train: obn's running statistics "
+                           "did not move")
+    lines.append(
+        f"train: {ECFP_ROWS} molecules (train {len(train_gs)}, val "
+        f"{len(val_gs)}, test {len(test_gs)}), batch 128, {TRAIN_EPOCHS} "
+        f"epochs, {len(steps)} steps in {wall:.2f} s wall; launches fwd "
+        f"{counts['fused_psteps_fwd']}, bwd {counts['fused_psteps_bwd']}, "
+        f"eval {counts['fused_psteps_eval']} (design: 1 + 1 per step, 1 per "
+        f"eval batch); step losses first {steps[0]:.5f} last "
+        f"{steps[-1]:.5f}, test loss {result['test']['loss']:.5f}; first 3 "
+        f"steps vs plain path max rel {rel:.2e}; obn running mean "
+        f"|max| {float(abs(obn_mean).max()):.3e} after training")
+    print(f"ecfp [{card}]: encoded_ecfp at 16384 bits, radius 3 "
+          f"({ECFP_ROWS} molecules featurized with their bits in "
+          f"{load_s:.2f} s); " + "; ".join(lines), flush=True)
+    return totals
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2913,6 +3596,13 @@ def main() -> int:
     mlp_worst = phase_mlp_kernel_check(device)
     mlp_times = phase_mlp_times(device, card)
     phase_wide(device, card)
+    bil_worst = phase_bil_kernel_check(device)
+    bil_counts = phase_bil_serve(device)
+    for k, v in phase_bil_train(device).items():
+        bil_counts[k] += v
+    bil_times = phase_bil_times(device, card)
+    for k, v in phase_ecfp(device, card).items():
+        ps_counts[k] += v
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -2976,6 +3666,16 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/edge_mlp.py:{line}",
             "launches": MLP_MAIN[name], "max_abs_err": mlp_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    for name, line in zip(BIL_KERNELS, (73, 137)):
+        tt = bil_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/fused_bilinear.py:{line}",
+            "launches": bil_counts[name], "max_abs_err": bil_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -21,6 +21,7 @@ from mpnn_tpu_torch.graphs.dataset import (
     fit_encoders,
     generate_molgraphs,
     load_classification_dataset,
+    load_ecfp_dataset,
     load_number_dataset,
 )
 from mpnn_tpu_torch.graphs.dataloader import GraphLoader

@@ -45,6 +45,8 @@ class PackedBatch:
     num_graphs : int
     labels     : (num_graphs, …)
     graph_mask : (num_graphs,)    1 = real graph (for padded graph slots)
+    node_labels: (node_cap, nbits) per-atom label rows (the ECFP task's
+                 bit matrices), zero at padding; absent otherwise
     """
     node_feats: np.ndarray
     node_nafm: np.ndarray
@@ -57,9 +59,15 @@ class PackedBatch:
     labels: np.ndarray
     graph_mask: np.ndarray
     num_graphs: int
+    node_labels: Optional[np.ndarray] = None
 
     def as_dict(self) -> Dict[str, np.ndarray]:
-        return dataclasses.asdict(self)
+        """The fields by name, without copies (dataclasses.asdict would
+        deep-copy every array, node_labels' hundreds of MB among them);
+        node_labels only where the batch has them."""
+        return {f.name: getattr(self, f.name)
+                for f in dataclasses.fields(self)
+                if f.name != "node_labels" or self.node_labels is not None}
 
 
 def collate_packed(graphs: List[MolGraph],
@@ -102,16 +110,28 @@ def collate_packed(graphs: List[MolGraph],
         n_off += a
         e_off += e
 
-    first_label = graphs[0].label
-    labels = np.stack([np.asarray(g.label) for g in graphs]) \
-        if first_label is not None else np.zeros((len(graphs),))
-    if labels.shape[0] < ng:
-        pad = np.zeros((ng - labels.shape[0],) + labels.shape[1:],
-                       labels.dtype)
-        labels = np.concatenate([labels, pad])
+    node_labels = None
+    first = np.asarray(graphs[0].label) if graphs[0].label is not None \
+        else None
+    if first is not None and first.ndim == 2 \
+            and first.shape[0] == graphs[0].num_atoms:
+        # per-atom label matrices (the ECFP task) ride the node axis
+        node_labels = np.zeros((node_cap, first.shape[-1]), first.dtype)
+        n_off = 0
+        for g in graphs:
+            node_labels[n_off:n_off + g.num_atoms] = g.label
+            n_off += g.num_atoms
+        labels = np.zeros((ng,), np.float32)
+    else:
+        labels = np.stack([np.asarray(g.label) for g in graphs]) \
+            if first is not None else np.zeros((len(graphs),))
+        if labels.shape[0] < ng:
+            pad = np.zeros((ng - labels.shape[0],) + labels.shape[1:],
+                           labels.dtype)
+            labels = np.concatenate([labels, pad])
     return PackedBatch(node_feats, node_nafm, node_mask, node_graph,
                        edge_src, edge_dst, edge_feats, edge_mask,
-                       labels, graph_mask, ng)
+                       labels, graph_mask, ng, node_labels)
 
 
 def build_edge_vocab(graphs, vocab_cap: int = 32):

@@ -1,6 +1,6 @@
 """Dataset loaders: CSV → molecules → encoded MolGraphs (copied from
-mpnn_tpu/graphs/dataset.py; the classification and regression flavors, and
-the CSV is read with the stdlib `csv` module instead of pandas).
+mpnn_tpu/graphs/dataset.py; the classification, regression and ECFP
+flavors, and the CSV is read with the stdlib `csv` module instead of pandas).
 
 Reference semantics (pre_process/load_dataset.py:86-167): read CSV, parse
 each molecule (skip unparseable rows), featurize, fit encoders on the FULL
@@ -15,6 +15,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import numpy as np
 
 from mpnn_tpu_torch.chem import mol_from_smiles
+from mpnn_tpu_torch.chem.ecfp import ecfp_bits_per_atom
 from mpnn_tpu_torch.graphs.encoders import GraphEncoder, LabelEncoder
 from mpnn_tpu_torch.graphs.graph import MolGraph, from_mol
 
@@ -112,3 +113,21 @@ def load_number_dataset(path: str, mol_col: str, label_col: str,
     for g in graphs:
         g.label = float(g.label)
     return graphs, ge
+
+
+def load_ecfp_dataset(path: str, mol_col: str, label_col: str,
+                      parser=mol_from_smiles, nbits: int = 16384,
+                      radius: int = 3, ge: Optional[GraphEncoder] = None):
+    """Labels := per-atom Morgan bit matrices (num_atoms, nbits), float32
+    (load_dataset.py:123-132); the CSV's label column is read and
+    replaced."""
+    mols, labels = _read_csv_columns(path, [mol_col, label_col])
+    out = []
+    for s, lab in zip(mols, labels):
+        mol = parser(s)
+        if mol is None:
+            continue
+        g = from_mol(mol, label=lab)
+        g.label = ecfp_bits_per_atom(mol, radius=radius, nbits=nbits)
+        out.append(g)
+    return encode_molgraphs(out, ge)

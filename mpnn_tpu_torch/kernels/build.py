@@ -41,6 +41,8 @@ SOURCES: Dict[str, str] = {
     "fused_att_steps_bwd": "fused_att_steps_bwd.cu",
     "edge_mlp_fwd": "edge_mlp_fwd.cu",
     "edge_mlp_bwd": "edge_mlp_bwd.cu",
+    "fused_bilinear_fwd": "fused_bilinear_fwd.cu",
+    "fused_bilinear_bwd": "fused_bilinear_bwd.cu",
 }
 
 # the sources that build and load together (one op module's kernels)
@@ -52,11 +54,13 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
     "fused_att_steps": ("fused_att_steps_fwd", "fused_att_steps_bwd"),
     "set2vec": ("set2vec_fwd", "set2vec_bwd"),
     "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd"),
+    "fused_bilinear": ("fused_bilinear_fwd", "fused_bilinear_bwd"),
 }
 
 # wide buckets: family → {tag: the -D defines of its libraries}. The
 # narrow build (tag '') takes each source's own defaults: f <= 16 (od <= 16
-# for the shared family, od <= 32 for the per-step one), set2vec w <= 32.
+# for the shared family, od <= 32 for the per-step one), set2vec w <= 32,
+# the bilinear family f <= 4 (its only bucket).
 WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
     "fused_step": {"f32": ("MPNN_FP=32", "MPNN_ODP=64")},
     "fused_psteps": {"f32": ("MPNN_FP=32", "MPNN_ODW=128")},

@@ -1,11 +1,15 @@
 """The MPNN core through the whole-step kernels (counterpart of
-mpnn_tpu/models/fused_train.py for the shared-weight, the per-step, and
-the collapsed and T-step attention families): _build_a_form /
-_build_a_form_psteps / _build_att_form / _build_att_form_steps and
-fused_eval_eligible (both paths); fused_mpnn_eval (serving, one
-eval-kernel launch; the attention families one message+GRU launch and one
-set2vec launch); fused_mpnn_out and fused_flagship_loss (training, one
-forward and one backward launch of each kernel).
+mpnn_tpu/models/fused_train.py for the shared-weight, the per-step, the
+collapsed and T-step attention, and the bilinear families): _build_a_form
+/ _build_a_form_psteps / _build_att_form / _build_att_form_steps /
+bilinear_table and fused_eval_eligible (both paths); fused_mpnn_eval
+(serving, one eval-kernel launch; the attention families one message+GRU
+launch and one set2vec launch; the bilinear family one message+GRU chain
+launch); fused_mpnn_out and fused_flagship_loss (training, one forward
+and one backward launch of each kernel). The per-step family's output
+norm (obn, the encoded_ecfp model) is a masked bn1d over the graph rows
+after its kernel's readout, in PyTorch, as the JAX package runs it in
+XLA.
 
 The edge-MLP vocab chain (K+1 rows through the head and the ×50 tail,
 once per message network) runs through the edge_mlp_fn hook, which the
@@ -27,15 +31,18 @@ from mpnn_tpu_torch.graphs.batching import PLAN_KEYS, plan_from_batch
 from mpnn_tpu_torch.kernels.edge_mlp import make_edge_mlp_op
 from mpnn_tpu_torch.kernels.fused_att import fused_att
 from mpnn_tpu_torch.kernels.fused_att_steps import fused_att_steps
+from mpnn_tpu_torch.kernels.fused_bilinear import fused_bilinear
 from mpnn_tpu_torch.kernels.fused_psteps import fused_psteps, fused_psteps_eval
 from mpnn_tpu_torch.kernels.fused_step import fused_eval, fused_step
 from mpnn_tpu_torch.kernels.set2vec import set2vec
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, att_steps_shape,
-                                        shared_shape, supported)
+                                        bilinear_shape, shared_shape,
+                                        supported)
 from mpnn_tpu_torch.models.sparse import (_edge_penultimates, a_form,
                                           final_weights, input_transforms,
-                                          mpnn_new_state, psteps_new_state,
+                                          mpnn_new_state, output_norm,
+                                          psteps_new_state,
                                           sparse_graph_level_output)
 
 
@@ -173,6 +180,35 @@ def fused_att_steps_out(mpnn: MPNN, batch) -> torch.Tensor:
     return _att_readout(mpnn, batch, h, h0)
 
 
+def bilinear_table(batch, f: int):
+    """The bilinear kernel's A table (K, f, f²) from the vocab rows
+    (mpnn_tpu/models/fused_train.py::fused_bilinear_out): W_k = the k-th
+    distinct bond row viewed as (f, f, f) in the reference's index order,
+    A_k[m, n·f + j] = W_k[n, m, j]. The loader pins the all-zero row at
+    vocab id 0, which padded edges carry, so A_0 = 0."""
+    ef = batch["edge_feats"] * batch["edge_mask"][:, None]
+    w = ef[batch["edge_vfirst"].long()].reshape(-1, f, f, f)
+    return w.permute(0, 2, 1, 3).reshape(-1, f, f * f).contiguous()
+
+
+def fused_bilinear_out(mpnn: MPNN, batch) -> torch.Tensor:
+    """The bilinear family through its kernels: the T steps of messages
+    from the evolving state and the GRU (hidden = h0) in one launch, then
+    the gated readout over cat[h0, h_1..h_T] in PyTorch. Serves eval and
+    training alike (no norms, so the state is empty). Returns out (G,
+    output_dim)."""
+    cfg = mpnn.cfg
+    mask, ng = batch["node_mask"], batch["node_graph"]
+    h0 = (batch["node_feats"] * mask).contiguous()
+    hist = fused_bilinear(bilinear_table(batch, cfg.node_features), h0,
+                          mask, ng, mpnn.gru.as_dict(), batch["edge_vid"],
+                          batch["edge_src"], batch["edge_dst"],
+                          plan_from_batch(batch), steps=cfg.message_steps)
+    return sparse_graph_level_output(mpnn.readout,
+                                     torch.cat([h0, hist], dim=-1), mask,
+                                     ng, batch["graph_mask"].shape[0])
+
+
 def _norm_dicts(mods):
     """The per-step norms as the kernels' lists of (params, state) dicts
     (empty for a mode without them)."""
@@ -224,7 +260,8 @@ def fused_psteps_args(mpnn: MPNN, batch, labels):
 
 def _psteps_train(mpnn: MPNN, batch, labels):
     """(loss, out, new_state) of the per-step training kernels: each
-    per-step norm's EMA from its own statistics, plus the input norms'."""
+    per-step norm's EMA from its own statistics, plus the input norms'.
+    The loss is on the readout's out, before any output norm."""
     (args, kwargs), updates = fused_psteps_args(mpnn, batch, labels)
     loss, out, ma_stats, bn_stats = fused_psteps(*args, **kwargs)
     new_state = psteps_new_state(mpnn, ma_stats, bn_stats)
@@ -232,11 +269,20 @@ def _psteps_train(mpnn: MPNN, batch, labels):
     return loss, out, new_state
 
 
+def _psteps_out(mpnn: MPNN, batch):
+    """(out, new_state) of the per-step training kernels, loss outside,
+    then the output norm where the config has one."""
+    out, new_state = _loss_free(_psteps_train)(mpnn, batch)
+    out, obn = output_norm(mpnn, out, batch["graph_mask"], training=True)
+    new_state.update(obn)
+    return out, new_state
+
+
 def fused_eval_eligible(cfg: MPNNConfig, batch) -> bool:
     """True when the eval kernel (and the training kernels) compute
     exactly this config's forward on this batch: a supported config
-    (models/mpnn.py: any of the three families) and a packed batch that
-    carries the edge vocab and the kernels' index plan."""
+    (models/mpnn.py: any of the families) and a packed batch that carries
+    the edge vocab and the kernels' index plan."""
     return (supported(cfg) and "edge_vid" in batch
             and all(k in batch for k in PLAN_KEYS))
 
@@ -281,7 +327,8 @@ def fused_eval_args(mpnn: MPNN, batch):
 
 def _psteps_eval(mpnn: MPNN, batch) -> torch.Tensor:
     args, kwargs = fused_psteps_eval_args(mpnn, batch)
-    return fused_psteps_eval(*args, **kwargs)
+    out = fused_psteps_eval(*args, **kwargs)
+    return output_norm(mpnn, out, batch["graph_mask"], training=False)[0]
 
 
 def _shared_eval(mpnn: MPNN, batch) -> torch.Tensor:
@@ -331,12 +378,15 @@ def _loss_free(train):
 
 
 _SHARED = _Family(_shared_eval, _loss_free(_shared_train))
-_PSTEPS = _Family(_psteps_eval, _loss_free(_psteps_train))
+_PSTEPS = _Family(_psteps_eval, _psteps_out)
 _ATT = _Family(fused_att_out,
                lambda mpnn, batch: (fused_att_out(mpnn, batch), {}))
 _ATT_STEPS = _Family(fused_att_steps_out,
                      lambda mpnn, batch: (fused_att_steps_out(mpnn, batch),
                                           {}))
+_BILINEAR = _Family(fused_bilinear_out,
+                    lambda mpnn, batch: (fused_bilinear_out(mpnn, batch),
+                                         {}))
 # the families whose training kernels carry the masked MSE:
 # (mpnn, batch, labels) -> (loss, out, new_state)
 _KERNEL_LOSS = {_SHARED: _shared_train, _PSTEPS: _psteps_train}
@@ -344,6 +394,8 @@ _KERNEL_LOSS = {_SHARED: _shared_train, _PSTEPS: _psteps_train}
 
 def _family(cfg: MPNNConfig) -> _Family:
     """The one place that tells the families apart on the kernel path."""
+    if bilinear_shape(cfg):
+        return _BILINEAR
     if att_shape(cfg):
         return _ATT
     if att_steps_shape(cfg):
@@ -362,13 +414,16 @@ def fused_flagship_loss(mpnn: MPNN, batch, labels):
     """The bare MPNN's training step through the kernels with the masked
     MSE in the kernel: (loss, out, new_state), new_state as
     models/sparse.py::mpnn_new_state (psteps_new_state) gives it. The
-    shared-weight and per-step families only: the attention families'
-    kernels carry no loss (their readout is a second kernel)."""
+    shared-weight and per-step families only, without an output norm: the
+    attention and bilinear families' kernels carry no loss (their readout
+    is outside or a second kernel), and the in-kernel loss would miss
+    obn."""
     train = _KERNEL_LOSS.get(_family(mpnn.cfg))
-    if train is None:
+    if train is None or mpnn.cfg.output_norm:
         raise NotImplementedError(
-            "the attention families' kernels carry no in-kernel loss; use "
-            "fused_mpnn_out and the loss outside")
+            "the attention and bilinear families' kernels, and an output "
+            "norm, take no in-kernel loss; use fused_mpnn_out and the loss "
+            "outside")
     return train(mpnn, batch, labels)
 
 

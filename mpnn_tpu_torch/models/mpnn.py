@@ -3,7 +3,8 @@ mpnn_tpu/models/mpnn.py::mpnn_init).
 
 Submodule names follow the JAX parameter tree (`message/0/head/0`,
 `message/0/attn`, `agg/att`, `gru`, `ma_bn/0`, `bn/0`, `readout/i`,
-`readout/lstm`, `atom_encoder/enc/0`, `aebn`), so
+`readout/lstm`, `atom_encoder/enc/0`, `aebn`, `obn`; the bilinear
+message has no parameters, so that family has no `message/` leaf), so
 train/checkpoint.py maps one onto the other by path. The forward passes
 are functions over this module: models/sparse.py (plain) and
 models/fused_train.py (the CUDA kernels).
@@ -19,7 +20,8 @@ from torch import nn
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.ops.autoencoders import TanhAutoencoder
 from mpnn_tpu_torch.ops.aggregate import AttAggregate
-from mpnn_tpu_torch.ops.message import AttEdgeNetwork, EdgeNetwork
+from mpnn_tpu_torch.ops.message import (AttEdgeNetwork, EdgeNetwork,
+                                        check_bilinear_widths)
 from mpnn_tpu_torch.ops.norm import MaskedBatchNorm1d
 from mpnn_tpu_torch.ops.readout import GraphLevelOutput, Set2Vec
 from mpnn_tpu_torch.ops.update import GRU
@@ -91,24 +93,53 @@ def att_steps_shape(cfg: MPNNConfig) -> bool:
             and cfg.readout in ("set2vec", "graph_level"))
 
 
+def bilinear_shape(cfg: MPNNConfig) -> bool:
+    """The bilinear family (basic_model_ecfp; exactly the config
+    conditions of mpnn_tpu/models/fused_train.py::_bilinear_eligible):
+    the parameter-free bilinear message from the EVOLVING state with the
+    'adj' aggregation, GRU hidden = the initial state, no norms and no
+    encoders, the readout over the whole state history, and the one
+    coherent width, ef = nf³."""
+    has_encoder = (cfg.atom_encoder is not None
+                   or cfg.bond_encoder is not None)
+    return (cfg.message_fn == "bilinear"
+            and cfg.aggregation == "adj"
+            and cfg.message_input == "state"
+            and cfg.update_hidden == "initial"
+            and cfg.msg_norm == "none"
+            and cfg.state_norm == "none"
+            and not cfg.input_norm
+            and not has_encoder
+            and cfg.concat_state_history
+            and cfg.readout == "graph_level"
+            and cfg.message_features == cfg.node_features
+            and cfg.edge_features == cfg.node_features ** 3
+            and not cfg.remat)
+
+
 def supported(cfg: MPNNConfig) -> bool:
     """The slice of the config space the port runs, exactly what the
     whole-step kernels compute: messages from the initial state, and
     either the edge network with GRU on the evolving state, the gated
-    graph-level readout and the shared or the per-step family, or the
+    graph-level readout and the shared or the per-step family (the
+    per-step family with or without the output norm, obn), or the
     collapsed (att_shape) or the T-step (att_steps_shape) attention
-    family. Output norm (obn) is still to port."""
+    family; or the bilinear family (bilinear_shape)."""
     edge = (cfg.message_fn == "edge_network"
             and cfg.update_hidden == "state"
             and cfg.readout == "graph_level"
             and (shared_shape(cfg) or psteps_shape(cfg)))
-    return (cfg.message_input == "initial"
-            and not cfg.output_norm
-            and not cfg.concat_state_history
-            and (edge or att_shape(cfg) or att_steps_shape(cfg)))
+    obn_ok = not cfg.output_norm or (edge and psteps_shape(cfg))
+    return bilinear_shape(cfg) or (
+        cfg.message_input == "initial"
+        and obn_ok
+        and not cfg.concat_state_history
+        and (edge or att_shape(cfg) or att_steps_shape(cfg)))
 
 
 def check_supported(cfg: MPNNConfig) -> None:
+    if cfg.message_fn == "bilinear":
+        check_bilinear_widths(cfg.node_features, cfg.edge_features)
     if not supported(cfg):
         raise NotImplementedError(
             "mpnn_tpu_torch runs the edge_network families with graph_level "
@@ -118,8 +149,10 @@ def check_supported(cfg: MPNNConfig) -> None:
             "set2vec or graph_level readout, no encoders: GRU hidden = the "
             "initial state with shared weights and no norms, or the "
             "evolving state with per-step or shared weights and the "
-            "stateless norm or none); other configs (output_norm among "
-            "them) are still to port (ROADMAP)")
+            "stateless norm or none), the output norm on the per-step "
+            "family, and the bilinear family (ef = nf³, messages from the "
+            "evolving state, GRU hidden = the initial state, the state-"
+            "history readout); other configs are still to port (ROADMAP)")
 
 
 class MPNN(nn.Module):
@@ -130,6 +163,8 @@ class MPNN(nn.Module):
         nf, mf, ef = cfg.node_features, cfg.message_features, \
             cfg.edge_features
         n_msg = 1 if cfg.share_message_weights else cfg.message_steps
+        if cfg.message_fn == "bilinear":      # parameter-free
+            n_msg = 0
         msg = AttEdgeNetwork if cfg.message_fn == "att_edge_network" \
             else EdgeNetwork
         self.message = nn.ModuleList(
@@ -155,6 +190,8 @@ class MPNN(nn.Module):
         if cfg.input_norm:
             self.aebn = MaskedBatchNorm1d(nf, device=device)
             self.bebn = MaskedBatchNorm1d(ef, device=device)
+        if cfg.output_norm:                   # over the graph rows
+            self.obn = MaskedBatchNorm1d(cfg.output_dim, device=device)
         self.readout = (Set2Vec(cfg.readout_node_features, device=device)
                         if cfg.readout == "set2vec" else
                         GraphLevelOutput(cfg.readout_node_features,
@@ -172,7 +209,7 @@ class MPNN(nn.Module):
         for name in ("agg", "atom_encoder", "bond_encoder"):
             if hasattr(self, name):
                 getattr(self, name).reset_parameters(generator)
-        inputs = [getattr(self, n) for n in ("aebn", "bebn")
+        inputs = [getattr(self, n) for n in ("aebn", "bebn", "obn")
                   if hasattr(self, n)]
         for bn in [*self.ma_bn, *self.bn, *inputs]:
             bn.reset_parameters()

@@ -5,7 +5,8 @@ The lipo composition (test_lipo.py:103-129): the graph_norm wrapper
 (masked bn1d over nafm, concatenated onto afm), the MPNN core, torch's
 plain BatchNorm1d over the graph embeddings, and the halving head. The
 per-step family's (test_graph_norm.py, test_graph_encode_norm.py): the
-plain wrapper, the MPNN core and one linear head.
+plain wrapper, the MPNN core and one linear head. Head 'none'
+(basic_model_ecfp.py): the MPNN core's output is the network's.
 """
 
 from __future__ import annotations
@@ -53,12 +54,12 @@ class Network(nn.Module):
     def __init__(self, cfg: NetworkConfig, device=None):
         super().__init__()
         if cfg.input_wrapper not in ("plain", "graph_norm") \
-                or cfg.head not in ("halving", "linear"):
+                or cfg.head not in ("halving", "linear", "none"):
             raise NotImplementedError(
                 f"input wrapper {cfg.input_wrapper!r} / head {cfg.head!r}: "
                 "the port has the plain and graph_norm wrappers and the "
-                "linear and halving heads; the others are still to port "
-                "(ROADMAP)")
+                "linear, halving and none heads; the others are still to "
+                "port (ROADMAP)")
         self.cfg = cfg
         self.mpnn = MPNN(cfg.mpnn, device=device)
         if cfg.input_wrapper == "graph_norm":
@@ -70,11 +71,13 @@ class Network(nn.Module):
                                           device=device)
         emb = cfg.mpnn.effective_output_dim
         # 'linear': one Linear(emb → head_output); 'halving': test_lipo.py's
+        # halving stack; 'none': no layer
         widths = list(halving_dims(emb)) if cfg.head == "halving" else []
         last = widths[-1][1] if widths else emb
         self.head = nn.ModuleList(
             make_linear(i, o, device=device)
-            for i, o in widths + [(last, cfg.head_output)])
+            for i, o in widths + [(last, cfg.head_output)]
+        ) if cfg.head != "none" else nn.ModuleList()
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.mpnn.reset_parameters(generator)
@@ -158,6 +161,8 @@ def network_apply_packed(net: Network, batch, *, fused: bool = True,
 
 
 def _head(net: Network, out):
+    if not len(net.head):
+        return out
     for layer in net.head[:-1]:
         out = torch.relu(layer(out))
     return net.head[-1](out)

@@ -5,6 +5,8 @@ tail and the A-form fold get their gradient from autograd. The attention
 family runs per edge (the penultimates through the final layer, the gate
 from the edge's own features) and takes every message step literally, as
 the JAX package's loop does: nothing here assumes the kernels' collapse.
+The bilinear family runs its per-edge message from the edge features
+themselves, in the reference's literal index order.
 
 Exactness of the A-form for the edge-network family (bias leakage): with
 A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
@@ -21,10 +23,12 @@ import torch
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.kernels.set2vec import set2vec_reference
 from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, att_steps_shape,
-                                        check_supported, shared_shape)
+                                        bilinear_shape, check_supported,
+                                        shared_shape)
 from mpnn_tpu_torch.ops.autoencoders import tanh_encoder_apply
 from mpnn_tpu_torch.ops.message import (AttEdgeNetwork, EdgeNetwork,
-                                        _edge_mlp_penultimate)
+                                        _edge_mlp_penultimate,
+                                        bilinear_message)
 from mpnn_tpu_torch.ops.norm import (bn1d_train, ema, mask_batch_norm,
                                      running_state)
 from mpnn_tpu_torch.ops.readout import GraphLevelOutput, Set2Vec, gated_rows
@@ -128,6 +132,51 @@ def sparse_att_edge_network(mp: AttEdgeNetwork, pen0, pen_vocab, h,
         corr = h.new_zeros((node_cap, nf)).index_add_(0, dst, g0[dst] * h_src)
         agg = agg - corr @ a0.T
     return agg
+
+
+def sparse_bilinear(h, edge_feats, edge_src, edge_dst, *, nf: int):
+    """The bilinear message (mpnn_tpu/models/sparse.py::sparse_bilinear,
+    ef == nf³), 'adj'-aggregated: ops/message.py::bilinear_message per
+    edge, summed per destination. W(0) = 0, so padded edges add nothing.
+    h: (node_cap, nf) → (node_cap, nf)."""
+    src, dst = edge_src.long(), edge_dst.long()
+    msg = bilinear_message(h[src], h[dst], edge_feats, nf)
+    return h.new_zeros((h.shape[0], nf)).index_add_(0, dst, msg)
+
+
+def _sparse_bilinear_apply(mpnn: MPNN, batch):
+    """The bilinear family's plain loop, as mpnn_tpu's sparse_mpnn_apply
+    runs it: step t's messages from the EVOLVING state h_{t−1}, the GRU
+    from the INITIAL state (update_hidden='initial'), and the gated
+    readout over the whole state history cat[h0, h_1..h_T]. No norms, so
+    training and eval are one forward and the state is empty."""
+    cfg = mpnn.cfg
+    mask = batch["node_mask"]
+    h0 = batch["node_feats"] * mask
+    edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
+    h, history = h0, [h0]
+    for _ in range(cfg.message_steps):
+        msgs = sparse_bilinear(h, edge_feats, batch["edge_src"],
+                               batch["edge_dst"], nf=cfg.node_features)
+        h = gru_apply(mpnn.gru, msgs, h0, mask)
+        history.append(h)
+    return sparse_graph_level_output(mpnn.readout, torch.cat(history, -1),
+                                     mask, batch["node_graph"],
+                                     batch["graph_mask"].shape[0])
+
+
+def output_norm(mpnn: MPNN, out, graph_mask, *, training: bool):
+    """The output norm (obn, normed_encoded_basic_model_ecfp.py:70-71): a
+    masked bn1d over the graph rows of the readout's out, the padded graph
+    slots masked out. Returns (out, {"obn": new running state}) in
+    training, (out, {}) in eval, and out unchanged without obn."""
+    if not mpnn.cfg.output_norm:
+        return out, {}
+    gm = graph_mask[:, None]
+    if not training:
+        return mpnn.obn(out, gm), {}
+    out, st = bn1d_train(out, gm, mpnn.obn.weight, mpnn.obn.bias)
+    return out, {"obn": ema(running_state(mpnn.obn), st)}
 
 
 def sparse_set2vec(ro: Set2Vec, x, node_mask, node_graph, graph_node_ptr, *,
@@ -283,10 +332,12 @@ def _sparse_psteps_apply(mpnn: MPNN, batch, *, training: bool):
                 if training else mpnn.bn[t](h, mask)
     out = sparse_graph_level_output(mpnn.readout, torch.cat([h, h0], -1),
                                     mask, node_graph, graph_mask.shape[0])
+    out, obn = output_norm(mpnn, out, graph_mask, training=training)
     if not training:
         return out
     new_state = psteps_new_state(mpnn, ma_stats, step_stats)
     new_state.update(updates)
+    new_state.update(obn)
     return out, new_state
 
 
@@ -296,12 +347,14 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
     graph_mask, edge_vid, edge_vfirst. Eval mode returns out (G, od);
     training mode normalizes with batch statistics and returns
     (out, new_state), new_state as mpnn_new_state (shared family) or
-    psteps_new_state (per-step family) gives it, empty for the attention
-    families (no norm with running state)."""
+    psteps_new_state (per-step family, with the output norm's) gives it,
+    empty for the attention and bilinear families (no norm with running
+    state)."""
     cfg = mpnn.cfg
     check_supported(cfg)
-    if att_shape(cfg) or att_steps_shape(cfg):
-        out = _sparse_att_apply(mpnn, batch)
+    if att_shape(cfg) or att_steps_shape(cfg) or bilinear_shape(cfg):
+        out = (_sparse_bilinear_apply if bilinear_shape(cfg)
+               else _sparse_att_apply)(mpnn, batch)
         return (out, {}) if training else out
     if not shared_shape(cfg):
         return _sparse_psteps_apply(mpnn, batch, training=training)

@@ -1,7 +1,8 @@
 """Named model configurations (counterpart of mpnn_tpu/models/zoo.py).
-The port carries the flagship `lipo`, the per-step family's `graph_norm`
-and `encoded`, and the attention models `adv` and `att`; the other
-families are still to port (ROADMAP).
+The port carries the flagship `lipo`, the per-step family's `graph_norm`,
+`encoded` and `encoded_ecfp`, the attention models `adv` and `att`, and
+the bilinear `ecfp_bilinear`; the other families are still to port
+(ROADMAP).
 
 Naming trap: the `graph_norm` MODEL (test_graph_norm.py) has the `plain`
 input wrapper; the lipo shell's `graph_norm` WRAPPER is another thing."""
@@ -83,12 +84,47 @@ def encoded(afm: int = 30, bfm: int = 8, nafm: int = 0,
         head="linear", head_output=n_out, kaiming_head=True)
 
 
+def encoded_ecfp(afm: int = 30, bfm: int = 8, nafm: int = 0,
+                 n_out: int = 16384, enc_afm: int = 8,
+                 enc_bfm: int = 2) -> NetworkConfig:
+    """ECFP multi-label: encoded model + output BN + wide head
+    (test_graph_encode_norm_ecfp.py:95-100: out=32 → Linear(32, 16384))."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=enc_afm, edge_features=enc_bfm,
+            message_features=enc_afm,
+            atom_encoder_in=afm, bond_encoder_in=bfm,
+            output_dim=32, message_steps=3,
+            share_message_weights=False, per_step_norms=True,
+            msg_norm="bn1d", state_norm="none",
+            atom_encoder="atom_ae", bond_encoder="bond_ae",
+            input_norm=True, output_norm=True),
+        head="linear", head_output=n_out, kaiming_head=True)
+
+
+def ecfp_bilinear(afm: int = 2, bfm: int = 8, nafm: int = 0,
+                  n_out: int = 16384) -> NetworkConfig:
+    """basic_model_ecfp: bilinear message (ef == nf³ coherence), 2 shared
+    steps, message from evolving state, GRU hidden = afm, state-history
+    readout."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=n_out if n_out <= 64 else 32,
+            message_fn="bilinear", aggregation="adj",
+            message_steps=2, message_input="state", update_hidden="initial",
+            concat_state_history=True),
+        head="none")
+
+
 ZOO: Dict[str, Callable[..., NetworkConfig]] = {
     "lipo": lipo,
     "adv": adv,
     "att": att,
     "graph_norm": graph_norm,
     "encoded": encoded,
+    "encoded_ecfp": encoded_ecfp,
+    "ecfp_bilinear": ecfp_bilinear,
 }
 
 

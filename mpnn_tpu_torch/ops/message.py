@@ -7,6 +7,10 @@ relu, then a final projection pf → nf·mf. The port runs the head and the
 tail here; the final projection is folded into per-vocab A matrices by
 models/sparse.py and models/fused_train.py.
 
+The bilinear message (bilinear_edge_network.py) has no parameters: each
+pair's edge features, viewed as an (nf, nf, nf) tensor, form a bilinear
+map of the two endpoint states (bilinear_message).
+
 AttEdgeNetwork (att_edge_network.py:6-31) is the same stack plus the gate
 `attn = Linear(nf + ef → nf)`: a pair's message is A(e)·(softmax_feat(
 attn([h_dst ‖ e])) ⊙ h_src). It keeps `message_bias`, which the
@@ -77,3 +81,27 @@ def _edge_mlp_penultimate(mp: EdgeNetwork, e: torch.Tensor,
     for _ in range(tail_repeats):
         x = torch.relu(mp.shared(x))
     return x
+
+
+def check_bilinear_widths(nf: int, ef: int) -> None:
+    """The reference's reshape chain is coherent only at ef = nf³; the JAX
+    package asserts it with this message."""
+    if ef != nf ** 3:
+        raise ValueError(
+            f"bilinear message requires ef == nf^3 for shape coherence "
+            f"(got ef={ef}, nf={nf}); see SURVEY.md §2.3")
+
+
+def bilinear_message(h_src, h_dst, edge_feats, nf: int):
+    """The parameter-free bilinear message per edge (mpnn_tpu/ops/
+    message.py::bilinear_edge_network_apply), in the reference's literal
+    index order: W = edge_feats viewed as (E, nf, nf, nf); the first
+    matmul contracts h_src with W's LEADING axis, x[i, j] = Σ_n
+    h_src[n]·W[n, i, j]; the second contracts h_dst with the LAST axis,
+    out[i] = Σ_j h_dst[j]·x[i, j]. Coherent only at ef = nf³ (the
+    reference's reshape chain), which raises otherwise.
+    h_src, h_dst (E, nf), edge_feats (E, ef) → (E, nf)."""
+    check_bilinear_widths(nf, edge_feats.shape[-1])
+    w = edge_feats.reshape(-1, nf, nf, nf)
+    x = torch.einsum("en,enij->eij", h_src, w)
+    return torch.einsum("ej,eij->ei", h_dst, x)

@@ -17,7 +17,14 @@ Verbs (both run on `cuda` unless --device cpu):
 Experiments: lipo (regression), graph_norm_classification,
 encoded_classification, adv_classification and att_classification
 (classification; the CSV's label column holds the classes,
-LabelEncoder-encoded over the file as the JAX package does).
+LabelEncoder-encoded over the file as the JAX package does), and the ECFP
+task's encoded_ecfp and ecfp_bilinear (labels: each atom's 16,384 Morgan
+bits at radius 3, computed from the SMILES; the CSV's label column is
+read and replaced; loss ecfp_mse, `predict` prints each molecule's first
+logit, as the JAX package's verb does). ecfp_bilinear takes nf from the
+featurized atoms, and its bilinear message is coherent only when the bond
+width is nf³: on featurized SMILES it raises, as in the JAX package (the
+reference reaches that model only through its Python API).
 adv_classification stops training after the first epoch whose summed step
 loss is below 0.02. The attention models' set2vec readout normalizes
 attention over the whole batch (and att's stateless norm takes batch
@@ -47,12 +54,16 @@ def _load_for(exp, data_path):
         return gs, ge
     if exp.task == "regression":
         return D.load_number_dataset(data_path, exp.mol_col, exp.label_col)
+    if exp.task == "ecfp":
+        return D.load_ecfp_dataset(data_path, exp.mol_col, exp.label_col)
     raise NotImplementedError(f"task {exp.task!r} is still to port")
 
 
 def _n_out_for(exp, gs):
     if exp.task == "classification":
         return int(max(g.label for g in gs)) + 1
+    if exp.task == "ecfp":
+        return int(np.asarray(gs[0].label).shape[-1])
     return 1
 
 

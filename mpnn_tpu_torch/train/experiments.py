@@ -2,8 +2,9 @@
 dataset flavor, model-zoo builder, loss and hyperparameters of each
 reference training script. The port carries the flagship `lipo`, the
 per-step family's `graph_norm_classification` and
-`encoded_classification`, and the attention models' `adv_classification`
-and `att_classification`."""
+`encoded_classification`, the attention models' `adv_classification`
+and `att_classification`, and the ECFP task's `encoded_ecfp` and
+`ecfp_bilinear`."""
 
 from __future__ import annotations
 
@@ -81,6 +82,26 @@ _register(Experiment(
                       weight_decay=1e-5, loss="ce", metric_average="micro",
                       ckpt_f1_gate=0.8),
     notes="test_graph_encode_norm.py: tanh encoders + per-step BN pairs"))
+
+
+# test_graph_encode_norm_ecfp.py: ECFP multi-label, bs 128
+_register(Experiment(
+    name="encoded_ecfp", task="ecfp", model="encoded_ecfp", loss="ecfp_mse",
+    train=TrainConfig(epochs=500, batch_size=128, learning_rate=1e-3,
+                      weight_decay=1e-5, loss="ecfp_mse"),
+    notes="test_graph_encode_norm_ecfp.py: 16384-bit Morgan multi-label"))
+
+# models/basic_model_ecfp.py: bilinear message + state-history readout on
+# the per-atom ECFP multi-label task — the reference composition has no
+# training script of its own; hyperparameters follow the ECFP script
+_register(Experiment(
+    name="ecfp_bilinear", task="ecfp", model="ecfp_bilinear",
+    loss="ecfp_mse",
+    train=TrainConfig(epochs=500, batch_size=128, learning_rate=1e-3,
+                      weight_decay=1e-5, loss="ecfp_mse"),
+    notes="models/basic_model_ecfp.py: BiLiniearEdgeNetwork + "
+          "concat-state-history readout (reference composition without "
+          "a script of its own)"))
 
 
 def get(name: str) -> Experiment:

@@ -1,6 +1,6 @@
 """Training and evaluation on packed batches (counterpart of
 mpnn_tpu/train/trainer.py: train, the train step, eval_step_for_batch and
-evaluate, the mse and ce losses, the F1 checkpoint gate).
+evaluate, the mse, ce and ecfp_mse losses, the F1 checkpoint gate).
 
 On an eligible config every training batch takes the whole-step training
 kernels (one forward and one backward launch per step) and every
@@ -42,7 +42,7 @@ class TrainConfig:
     batch_size: int = 16
     learning_rate: float = 1e-3
     weight_decay: float = 0.0
-    loss: str = "mse"                # mse | ce
+    loss: str = "mse"                # mse | ce | ecfp_mse
     seed: int = 317
     plateau: bool = False            # ReduceLROnPlateau on the val loss
     metric_average: str = "weighted"  # classification report averaging
@@ -88,13 +88,39 @@ def ce_loss(out: torch.Tensor, labels: torch.Tensor,
     return (per * graph_mask).sum() / graph_mask.sum()
 
 
-LOSSES = {"mse": mse_loss, "ce": ce_loss}
+def ecfp_mse_loss(out: torch.Tensor, node_labels: torch.Tensor,
+                  node_mask: torch.Tensor, node_graph: torch.Tensor
+                  ) -> torch.Tensor:
+    """MSE of sigmoid(out) against the per-atom bits, over the real atom
+    entries (test_graph_encode_norm_ecfp.py:137; the JAX package's packed
+    branch). Every atom of graph g shares the prediction row σ_g, so with
+    s1_g = Σ_{v∈g} y_v (bits are 0/1, so Σ y² = s1) the per-graph sum
+    collapses exactly: Σ_{v∈g} (σ_g − y_v)² = n_g·σ_g² − 2·σ_g·s1_g + s1_g.
+    s1 is a plain segment sum over the node axis (sums of 0/1 in float32
+    are exact in any order); padded atoms carry node_graph == G and fall
+    into a dropped row."""
+    g = out.shape[0]
+    ng = node_graph.long()
+    s1 = out.new_zeros((g + 1, node_labels.shape[1])).index_add_(
+        0, ng, node_labels.to(out.dtype))[:g]
+    n_g = out.new_zeros(g + 1).index_add_(0, ng, node_mask[:, 0].to(
+        out.dtype))[:g]
+    p = torch.sigmoid(out)
+    per = n_g[:, None] * (p * p) - 2.0 * p * s1 + s1
+    return per.sum() / (node_mask.sum() * out.shape[-1])
 
 
-def _loss_fn(kind: str):
+LOSSES = {"mse": mse_loss, "ce": ce_loss, "ecfp_mse": ecfp_mse_loss}
+
+
+def batch_loss(kind: str, out: torch.Tensor, tb: dict) -> torch.Tensor:
+    """The `kind` loss of the network output on the device batch `tb`."""
     if kind not in LOSSES:
         raise NotImplementedError(f"loss {kind!r} is still to port")
-    return LOSSES[kind]
+    if kind == "ecfp_mse":
+        return ecfp_mse_loss(out, tb["node_labels"], tb["node_mask"],
+                             tb["node_graph"])
+    return LOSSES[kind](out, tb["labels"], tb["graph_mask"])
 
 
 def train_step(net: Network, opt: torch.optim.Optimizer, tb: dict,
@@ -109,7 +135,7 @@ def train_step(net: Network, opt: torch.optim.Optimizer, tb: dict,
     opt.zero_grad(set_to_none=True)
     out, new_state = network_apply_packed(net, tb, fused=fused,
                                           training=True)
-    loss = _loss_fn(loss_kind)(out, tb["labels"], tb["graph_mask"])
+    loss = batch_loss(loss_kind, out, tb)
     loss.backward()
     for p in net.parameters():
         if p.grad is None:
@@ -123,7 +149,8 @@ def eval_step_for_batch(net_cfg: NetworkConfig, loss_kind: str, batch
                         ) -> Callable[[Network, dict], tuple]:
     """The eval step for one packed batch: the whole-step eval kernel of
     the config's family. Returns step(net, device_batch) → (loss, out)."""
-    loss_fn = _loss_fn(loss_kind)
+    if loss_kind not in LOSSES:
+        raise NotImplementedError(f"loss {loss_kind!r} is still to port")
     if not fused_eval_eligible(net_cfg.mpnn, batch):
         raise NotImplementedError(
             "this config or batch is not served by the fused eval kernels; "
@@ -132,7 +159,7 @@ def eval_step_for_batch(net_cfg: NetworkConfig, loss_kind: str, batch
     def step(net: Network, tb: dict):
         with torch.no_grad():
             out = network_apply_packed(net, tb, fused=True)
-            return loss_fn(out, tb["labels"], tb["graph_mask"]), out
+            return batch_loss(loss_kind, out, tb), out
 
     return step
 
@@ -142,8 +169,8 @@ def evaluate(net: Network, loader: GraphLoader, loss_kind: str = "mse",
              ) -> Dict[str, float]:
     """Eval-mode loss and metrics over a loader — mse and rmse, or for
     'ce' the classification report of the arg-max predictions with
-    `metric_average` — on `cuda` unless device='cpu'. Raises when `net` is
-    not on that device."""
+    `metric_average`, or for 'ecfp_mse' the loss alone — on `cuda` unless
+    device='cpu'. Raises when `net` is not on that device."""
     device = resolve_device(device)
     require_on(net, device)
     tot_loss, preds, trues = 0.0, [], []
@@ -153,6 +180,8 @@ def evaluate(net: Network, loader: GraphLoader, loss_kind: str = "mse",
         loss, out = step(net, batch_to_device(batch, device))
         tot_loss += float(loss)
         n_batches += 1
+        if loss_kind == "ecfp_mse":
+            continue
         out = out.cpu().numpy()
         if loss_kind == "ce":
             preds.extend(out.argmax(-1).tolist())
@@ -163,7 +192,7 @@ def evaluate(net: Network, loader: GraphLoader, loss_kind: str = "mse",
     result = {"loss": tot_loss / max(n_batches, 1)}
     if loss_kind == "ce":
         result.update(M.classification_report(trues, preds, metric_average))
-    else:
+    elif loss_kind == "mse":
         result["mse"] = M.mean_squared_error(trues, preds)
         result["rmse"] = M.rmse(trues, preds)
     return result

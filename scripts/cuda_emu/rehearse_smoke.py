@@ -6,8 +6,9 @@ its times and profiles mean nothing. Run from the repository root:
 
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
-phases: mlp-kernel-check, mlp-times, wide (default all three). The wide
-phase runs on 48 molecules with set2vec cut to 3 steps.
+phases: mlp-kernel-check, mlp-times, wide, bil-kernel-check, bil-serve,
+bil-train, bil-times, ecfp (default all). The wide phase runs on 48
+molecules with set2vec cut to 3 steps; bil-train and ecfp on 64.
 """
 
 import dataclasses
@@ -23,8 +24,8 @@ import torch                                                   # noqa: E402
 
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
-                                    fused_att_steps, fused_psteps,
-                                    fused_step, set2vec)
+                                    fused_att_steps, fused_bilinear,
+                                    fused_psteps, fused_step, set2vec)
 
 ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
@@ -32,7 +33,8 @@ ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_att_fwd": "FwdArgs", "fused_att_bwd": "BwdArgs",
         "fused_att_steps_fwd": "FwdArgs", "fused_att_steps_bwd": "BwdArgs",
         "set2vec_fwd": "FwdArgs", "set2vec_bwd": "BwdArgs",
-        "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs"}
+        "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs",
+        "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs"}
 
 
 class _Event:
@@ -50,7 +52,7 @@ def main(argv) -> int:
     emu.build([f"{lib}:{ARGS[lib.partition('.')[0]]}"
                for lib in emu.B.all_libraries()])
     emu.emulate(fused_step, fused_psteps, fused_att, fused_att_steps,
-                set2vec, edge_mlp)
+                set2vec, edge_mlp, fused_bilinear)
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.Event = _Event
     cpu = torch.device("cpu")
@@ -64,6 +66,7 @@ def main(argv) -> int:
     # wide data set (a thread per CUDA thread is slow)
     CS._events_ms = lambda fn, reps, warm=5: (fn(), 0.0)[1]
     CS.WIDE_ROWS = 48
+    CS.TRAIN_ROWS = CS.ECFP_ROWS = 64
     # set2vec's 100 steps cut to 3: the stand-in takes seconds a step
     from mpnn_tpu_torch.models import zoo
     for name in ("adv", "att"):
@@ -74,7 +77,12 @@ def main(argv) -> int:
         zoo.ZOO[name] = cut
     phases = {"mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
               "mlp-times": lambda: CS.phase_mlp_times(cpu, "emulated"),
-              "wide": lambda: CS.phase_wide(cpu, "emulated")}
+              "wide": lambda: CS.phase_wide(cpu, "emulated"),
+              "bil-kernel-check": lambda: CS.phase_bil_kernel_check(cpu),
+              "bil-serve": lambda: CS.phase_bil_serve(cpu),
+              "bil-train": lambda: CS.phase_bil_train(cpu),
+              "bil-times": lambda: CS.phase_bil_times(cpu, "emulated"),
+              "ecfp": lambda: CS.phase_ecfp(cpu, "emulated")}
     for name in argv or list(phases):
         phases[name]()
     return 0

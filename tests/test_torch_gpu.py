@@ -1005,3 +1005,176 @@ WIDE_SMILES = [
     "[Mg+2].[O-]C(=O)C", "Cl[Sn](Cl)(Cl)Cl", "[Zn+2]", "[Ca+2]",
     "[Al](Cl)(Cl)Cl",
 ] * 3
+
+
+# ---------------------------------------------------------------------------
+# the bilinear family (ecfp_bilinear) and the ECFP task (encoded_ecfp)
+# ---------------------------------------------------------------------------
+
+def bil_problem(rng, g, f=2, k=8, device="cuda"):
+    """fused_bilinear's arguments on a _problem batch (ragged graphs of 1
+    to 24 nodes, self-loops among the random edges, padded edges on the
+    dummy node with vid 0): a random non-symmetric A table (K, f, f²) with
+    the zero row's A_0 = 0, h0 and the GRU leaves requiring grad.
+    Returns (args, leaves)."""
+    p = _problem(rng, g=g, f=f, k=k, device=device)
+    amat = rng.randn(k, f, f * f).astype(np.float32) * 0.5
+    amat[0] = 0.0
+    h0, mask, ng, gru = p[3], p[4], p[5], p[6]
+    leaves = {"h0": h0, **gru}
+    for t in leaves.values():
+        t.requires_grad_()
+    args = (torch.as_tensor(amat, device=device), h0, mask, ng, gru,
+            *p[12:16])
+    return args, leaves
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,f,steps", [(1024, 2, 1), (1024, 2, 2),
+                                       (1024, 3, 3), (1024, 4, 2),
+                                       (37, 2, 3), (37, 4, 1)])
+def test_cuda_bilinear_kernels_match_plain_version(g, f, steps):
+    """ecfp_bilinear's widths (f 2, T 2) and the rest of the bucket (f 2-4,
+    T 1-3), at batch 1024 and on ragged batches of 37: the forward kernel
+    against fused_bilinear_reference, the backward against autograd
+    through it (cotangent Σ hist·c; h0 and GRU gradients each divided by
+    their max abs; amat's zero), then the serving launch (no grad: no
+    message stash) against the same output."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    rng = np.random.RandomState(g + 10 * f + steps)
+    args, leaves = bil_problem(rng, g, f=f)
+    cw = torch.as_tensor(rng.randn(args[1].shape[0], steps * f).astype(
+        np.float32), device="cuda")
+    B.reset_launch_counts()
+    got = _value_and_grads(B.fused_bilinear, args, leaves, cw, steps=steps)
+    torch.cuda.synchronize()
+    assert B.launch_counts == {"fused_bilinear_fwd": 1,
+                               "fused_bilinear_bwd": 1}
+    want = _value_and_grads(B.fused_bilinear_reference, args, leaves, cw,
+                            steps=steps)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+    amat = args[0].clone().requires_grad_()
+    out = B.fused_bilinear(amat, *args[1:], steps=steps)
+    out.sum().backward()
+    assert amat.grad is not None and not amat.grad.any()
+    with torch.no_grad():
+        hist = B.fused_bilinear(*args, steps=steps)
+    assert B.launch_counts == {"fused_bilinear_fwd": 3,
+                               "fused_bilinear_bwd": 2}
+    torch.testing.assert_close(hist, want[0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_bilinear_serving_writes_no_messages(monkeypatch):
+    """Under no_grad the op prepares its forward without the message stash
+    (a null pointer to the kernel), with grad it writes it."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    args, _ = bil_problem(np.random.RandomState(3), 64)
+    flavors = []
+    real = B.prepare_fused_bilinear_fwd
+
+    def spy(*a, **kw):
+        p = real(*a, **kw)
+        flavors.append((kw["write_msgs"], p.out[1].numel(), p.args[12]))
+        return p
+    monkeypatch.setattr(B, "prepare_fused_bilinear_fwd", spy)
+    with torch.no_grad():
+        B.fused_bilinear(*args, steps=2)
+    B.fused_bilinear(*args, steps=2)
+    n, f = args[1].shape
+    assert flavors[0] == (False, 0, None)
+    assert flavors[1][:2] == (True, n * 2 * f) and flavors[1][2]
+
+
+@pytest.mark.gpu
+def test_cuda_bilinear_wrapper_raises_instead_of_falling_back():
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    args, _ = bil_problem(np.random.RandomState(5), 64)
+    args = [a.detach() if isinstance(a, torch.Tensor) else a for a in args]
+    B.reset_launch_counts()
+    bad = list(args)
+    bad[1] = args[1].double()
+    with pytest.raises(TypeError, match="float32"):
+        B.fused_bilinear(*bad, steps=2)
+    bad = list(args)
+    bad[0] = args[0].cpu()
+    with pytest.raises(ValueError, match="amat is on cpu"):
+        B.fused_bilinear(*bad, steps=2)
+    wide, _ = bil_problem(np.random.RandomState(6), 8, f=B.MAX_WIDTH + 1)
+    with pytest.raises(NotImplementedError, match="widths up to"):
+        B.fused_bilinear(*wide, steps=2)
+    # one graph past the shared-memory cap: a chain of 257 atoms
+    n = B.MAX_GRAPH_NODES + 1
+    src = np.arange(n - 1, dtype=np.int32)
+    dst = src + 1
+    i = lambda x: torch.as_tensor(x, device="cuda")
+    ng = np.zeros(n + 1, np.int32)
+    ng[-1] = 1
+    mask = torch.ones(n + 1, 1, device="cuda")
+    mask[-1] = 0
+    big = (args[0], torch.zeros(n + 1, 2, device="cuda"), mask, i(ng),
+           args[4], i(np.ones(n - 1, np.int32)), i(src), i(dst),
+           K.FusedEvalPlan(*(i(p) for p in plan_fused_eval(dst, ng, 1))))
+    with pytest.raises(NotImplementedError, match="257 atoms"):
+        B.fused_bilinear(*big, steps=2)
+    assert set(B.launch_counts.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["encoded_ecfp", "ecfp_bilinear"])
+def test_ecfp_models_on_card(model, tmp_path):
+    """encoded_ecfp (per-step kernels, obn, the 16,384-bit head at nbits
+    64 here) and ecfp_bilinear (the bilinear kernels, nbits 32 = its od,
+    head 'none'): predict through the
+    serving path against the plain model on the card, batch by batch, and
+    3 Adam steps of ecfp_mse through the training kernels against the same
+    steps on the plain path (losses rtol 1e-4)."""
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_bilinear as B
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.cli import predict_batches
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    csv = tmp_path / "x.csv"
+    csv.write_text("smiles,target\n" + "".join(
+        f"{s},0\n" for s in WIDE_SMILES[:23] * 2))
+    nbits = 32 if model == "ecfp_bilinear" else 64
+    gs, ge = G.load_ecfp_dataset(str(csv), "smiles", "target", nbits=nbits)
+    if model == "ecfp_bilinear":
+        from chip_smoke import bil_cut
+        gs = bil_cut(gs)
+        cfg = zoo.build(model, afm=2, bfm=8, n_out=32)
+        counts = B.launch_counts
+    else:
+        cfg = zoo.build(model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                        n_out=64)
+        counts = P.launch_counts
+    net = network_init(cfg, torch.Generator().manual_seed(0), device)
+    loader = G.GraphLoader(gs, 16, collate="packed")
+    for k in counts:
+        counts[k] = 0
+    got = np.concatenate(list(predict_batches(net, "ecfp_mse", loader,
+                                              device)))
+    assert sum(counts.values()) == len(loader)
+    with torch.no_grad():
+        want = np.concatenate([
+            network_apply_packed(net, batch_to_device(b, device),
+                                 fused=False).cpu().numpy() for b in loader])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    losses = []
+    for fused in (True, False):
+        n = network_init(cfg, torch.Generator().manual_seed(0), device)
+        opt = adam(n.parameters(), 1e-3, weight_decay=1e-5)
+        losses.append([float(train_step(n, opt, batch_to_device(b, device),
+                                        fused=fused, loss_kind="ecfp_mse"))
+                       for b, _ in zip(loader, range(3))])
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)

@@ -137,7 +137,8 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                   "set2vec_fwd", "set2vec_bwd",
                                   "fused_att_steps_fwd",
                                   "fused_att_steps_bwd", "edge_mlp_fwd",
-                                  "edge_mlp_bwd"}
+                                  "edge_mlp_bwd", "fused_bilinear_fwd",
+                                  "fused_bilinear_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
     # every source in one family; each wide bucket its own library
@@ -186,6 +187,55 @@ def test_psteps_entry_points_raise_without_card(entry, exp, tmp_path):
             e, gs, ckpt, batch_size=2, **kw)),
         "train": lambda **kw: train(cfg, TrainConfig(
             epochs=1, batch_size=2, loss="ce"), gs, **kw),
+    }
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        calls[entry]()
+    assert calls[entry](device="cpu") is not None
+
+
+@pytest.mark.parametrize("exp,entry", [
+    *((e, x) for e in ("encoded_ecfp", "ecfp_bilinear")
+      for x in ("network_init", "evaluate", "train")),
+    ("encoded_ecfp", "predict_records")])
+def test_ecfp_entry_points_raise_without_card(entry, exp, tmp_path):
+    """The ECFP task's entry points (encoded_ecfp through the CLI's
+    loader at 16,384 bits; ecfp_bilinear as the reference reaches it, nf
+    2 and bond rows of width 8 at nbits 32 — the CLI's `predict` builds
+    it from the featurized widths and refuses it), called without a
+    device on a host with no card, raise instead of running on the CPU;
+    with device='cpu' they run (their plain versions)."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    from chip_smoke import bil_cut
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import build
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.checkpoint import save_checkpoint
+    from mpnn_tpu_torch.train.cli import predict_records
+    from mpnn_tpu_torch.train.trainer import TrainConfig, evaluate, train
+    csv = tmp_path / "x.csv"
+    csv.write_text("smiles,target\nCCO,0\nc1ccccc1,0\nCC(=O)O,0\nCCN,0\n")
+    e = experiments.get(exp)
+    if exp == "ecfp_bilinear":
+        gs, _ = G.load_ecfp_dataset(str(csv), "smiles", "target", nbits=32)
+        gs = bil_cut(gs)
+        cfg = build(e.model, afm=2, bfm=8, n_out=32)
+    else:
+        gs, ge = G.load_ecfp_dataset(str(csv), "smiles", "target")
+        cfg = build(e.model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                    n_out=16384)
+    net = network_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    ckpt = str(tmp_path / "ckpt.npz")
+    save_checkpoint(ckpt, net)
+    loader = G.GraphLoader(gs, 2)
+    calls = {
+        "network_init": lambda **kw: network_init(cfg, None, **kw),
+        "evaluate": lambda **kw: evaluate(net, loader, "ecfp_mse", **kw),
+        "train": lambda **kw: train(cfg, TrainConfig(
+            epochs=1, batch_size=2, loss="ecfp_mse"), gs, **kw),
+        "predict_records": lambda **kw: list(predict_records(
+            e, gs, ckpt, batch_size=2, **kw)),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
