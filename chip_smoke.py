@@ -134,6 +134,29 @@ Phases, one line each:
                3 losses against the plain path, obn's running statistics
                moved, and the ECFP batch's host collation and
                host-to-device time.
+ 30. spmm-kernel-check — the SpMM kernels (spmm_fwd: the forward and, on
+               Aᵀ through the source order, the VJP's dh; spmm_da: dA)
+               against their plain version under autograd: lipo's b1024
+               batch in 16,512 node slots at f 10 (its own vocab) and at
+               f 30 with 64 vocab ids, a ragged batch, b16 and 32,896
+               slots (rtol 1e-4, atol 1e-5; dA and dh divided by their
+               max abs);
+ 31. rec-kernel-check — the fused recurrence kernels (recurrence_fwd,
+               recurrence_bwd) against the plain chain under autograd at
+               T 6, f 10 and 30, at b16's, 16,512 and 32,896 node slots,
+               a random mask: h_T, the statistics and every gradient leaf
+               (scaled), and the serving launch;
+ 32. dec-train — the decomposed training path: `train --spmm kernel` on
+               lipo (2 epochs at 16; `predict` from its checkpoint),
+               trainer.train(fuse_step=False, fuse_recurrence=True),
+               `train --spmm kernel` of graph_norm_classification, and
+               lipo at afm 27 — each run's exact launch counts, its first
+               3 losses against the plain path (rtol 1e-3) and the first
+               step's parameter gradients (scaled, 1e-4 / 1e-5);
+ 33. dec-times — the decomposed lipo train step at batch 16 and 1024
+               beside the whole-step path's in the same run, the four new
+               kernels' times beside their bounds and plain versions'
+               (b1024), and the decomposed step's device idle share.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -226,6 +249,13 @@ def phase_device():
     return card
 
 
+def _lib_call(module, name, fn, *args):
+    """fn(*args) of the loaded library `name` of kernels/<module>.py."""
+    import importlib
+    mod = importlib.import_module(f"mpnn_tpu_torch.kernels.{module}")
+    return getattr(mod._lib(name), fn)(*args)
+
+
 def phase_build():
     from mpnn_tpu_torch.kernels import build
     from mpnn_tpu_torch.kernels import fused_step as K
@@ -243,7 +273,8 @@ def phase_build():
             if m:
                 t = re.search(r"Li(\d+)ELi(\d+)E", m.group(1))
                 k = re.search(
-                    r"\d((?:fused|set2vec|edge_mlp)_[a-z_]+_kernel)[EIv]",
+                    r"\d((?:fused|set2vec|edge_mlp|spmm|recurrence)_"
+                    r"[a-z_]+_kernel)[EIv]",
                     m.group(1))
                 w = re.search(r"_kernelILi(\d+)EE", m.group(1))
                 entry = (f"<{t.group(1)},{t.group(2)}>" if t
@@ -294,7 +325,13 @@ def phase_build():
            "device memory); " + ", ".join(
                f"{n} {getattr(B._lib(n), f'mpnn_{n}_smem_bytes')(16, 32)} B"
                for n in ("fused_bilinear_fwd", "fused_bilinear_bwd"))
-           + " (K 16, graphs up to 32 atoms)")
+           + " (K 16, graphs up to 32 atoms); spmm_fwd "
+           f"{_lib_call('spmm', 'spmm_fwd', 'mpnn_spmm_fwd_smem_bytes', 16)} B"
+           f" (K 16; the wide bucket reads A from device memory), spmm_da "
+           f"{_lib_call('spmm', 'spmm_da', 'mpnn_spmm_da_smem_bytes')} B, "
+           + ", ".join(
+               f"{n} {_lib_call('recurrence', n, f'mpnn_{n}_smem_bytes', 6)} B"
+               for n in ("recurrence_fwd", "recurrence_bwd")) + " (T 6)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -3561,6 +3598,795 @@ def phase_ecfp(device, card):
     return totals
 
 
+# ---------------------------------------------------------------------------
+# the decomposed training path (lipo, the per-step family): phases 30-33
+# ---------------------------------------------------------------------------
+
+DEC_KERNELS = ("spmm_fwd", "spmm_da", "recurrence_fwd", "recurrence_bwd")
+# the new kernels' launches on the main paths (dec-train), summed
+DEC_MAIN = dict.fromkeys(DEC_KERNELS, 0)
+DEC_STEPS = 6
+# rec-kernel-check's node slots besides b16's: b1024's and 2,560 molecules'
+REC_NODES = (16512, 32896)
+# dec-times' batch sizes; the kernels are timed at the last
+DEC_TIMES_BATCHES = (16, 1024)
+
+
+def _dec_reset():
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.kernels import spmm as S
+    for mod in (K, P, R, S):
+        mod.reset_launch_counts()
+    _mlp_reset()
+
+
+def _dec_take(what, want):
+    """Check the launches since _dec_reset() — the SpMM, recurrence,
+    edge-MLP and eval kernels' — against the design's `want`; add the
+    main path's to DEC_MAIN and MLP_MAIN; return them."""
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.kernels import spmm as S
+    got = {**S.launch_counts, **R.launch_counts, **M.launch_counts,
+           "fused_eval": K.launch_counts["fused_eval"],
+           "fused_psteps_eval": P.launch_counts["fused_psteps_eval"]}
+    # the training kernels of the whole-step paths stay unlaunched
+    other = {k: v for k, v in {**K.launch_counts, **P.launch_counts}.items()
+             if k not in got and v}
+    if other:
+        raise RuntimeError(f"{what}: whole-step training kernels launched "
+                           f"{other}")
+    if got != want:
+        raise RuntimeError(f"{what}: launches {got}, the design's count is "
+                           f"{want}")
+    for k in DEC_KERNELS:
+        DEC_MAIN[k] += got[k]
+    for k in MLP_KERNELS:
+        MLP_MAIN[k] += got[k]
+    return got
+
+
+def _spmm_case(tb, f, k, gen, device):
+    """(a, h, vid, src, dst, plan, g) on a device batch: h random on the
+    real rows and zero on the padded ones, a random table with A_0 = 0 and
+    a cotangent g. k None: the batch's own vocabulary (its edge_vid, K its
+    vocab capacity); else k ids drawn at random for the real edges, the
+    padded edges keeping id 0."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    mask = tb["node_mask"]
+    n = mask.shape[0]
+    vid = tb["edge_vid"]
+    if k is None:
+        k = int(tb["edge_vfirst"].shape[0])
+    else:
+        rnd = torch.randint(1, k, vid.shape, generator=gen,
+                            dtype=torch.int32).to(device)
+        vid = torch.where(tb["edge_mask"] > 0, rnd,
+                          torch.zeros_like(rnd)).contiguous()
+    a = 0.3 * torch.randn(k, f, f, generator=gen)
+    a[0] = 0.0
+    h = (torch.randn(n, f, generator=gen).to(device) * mask).contiguous()
+    g = torch.randn(n, f, generator=gen).to(device)
+    return (a.to(device), h, vid, tb["edge_src"], tb["edge_dst"],
+            plan_from_batch(tb), g)
+
+
+def spmm_value_and_grads(fn, a, h, vid, src, dst, plan, g):
+    """(out, dA, dh) of the SpMM op `fn` for the cotangent g of out."""
+    import torch
+    a, h = a.detach().requires_grad_(), h.detach().requires_grad_()
+    out = fn(a, h, vid, src, dst, plan)
+    da, dh = torch.autograd.grad((out * g).sum(), [a, h])
+    return out.detach(), da, dh
+
+
+def _scaled_within(got, want):
+    """_within of got and want each divided by want's max abs."""
+    scale = want.abs().max().clamp_min(1e-30)
+    return _within(got / scale, want / scale)
+
+
+def phase_spmm_kernel_check(device):
+    """spmm_fwd (the forward, and its transposed launch: the VJP's dh) and
+    spmm_da against the plain version under autograd on the card: lipo's
+    b1024 batch in 16,512 node slots at bench widths (f 10, its own
+    vocab), f 30 with 64 random
+    vocab ids (the wide bucket), a ragged batch (single atoms, padded
+    edges, a padded graph slot), b16, and 32,896 node slots. out within
+    rtol 1e-4 / atol 1e-5; dA and dh each divided by its max abs."""
+    import torch
+    from mpnn_tpu_torch.kernels import spmm as S
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+    gen = torch.Generator().manual_seed(81)
+    # b1024 at the 16,512 node slots the serving path gives it (past the
+    # 16,384 where the JAX package changes its layouts)
+    gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+        (SMILES * 103)[:1024], [0.0] * 1024))
+    b1024 = batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+        G.collate_packed(gs, node_cap=16512).as_dict(), vocab_cap=8)),
+        device)
+    b16 = batch_to_device(_batch(SMILES * 2, 16), device)
+    big = batch_to_device(_batch((SMILES * 256)[:2560], 2560), device)
+    ragged = _ragged_att_batch(device)
+    cases = [("batch1024", b1024, 10, None), ("batch1024", b1024, 30, 64),
+             ("ragged", ragged, 10, None), ("ragged", ragged, 30, 64),
+             ("batch16", b16, 10, None), ("batch2560", big, 10, None)]
+    worst = {"spmm_fwd": 0.0, "spmm_da": 0.0}
+    results, failed = [], []
+    for what, tb, f, k in cases:
+        c = _spmm_case(tb, f, k, gen, device)
+        S.reset_launch_counts()
+        got = spmm_value_and_grads(S.spmm, *c)
+        torch.cuda.synchronize()
+        counts = dict(S.launch_counts)
+        want = spmm_value_and_grads(
+            lambda *x: S.spmm_reference(*x[:5]), *c)
+        ok_o, err_o, _ = _within(got[0], want[0])
+        ok_a, err_a, _ = _scaled_within(got[1], want[1])
+        ok_h, err_h, _ = _scaled_within(got[2], want[2])
+        # the padded edges sit on the dummy (last) node: exactly zero there
+        pad0 = not got[0][-1].any() and not got[2][-1].any()
+        ok = (ok_o and ok_a and ok_h and pad0 and counts == {
+            "spmm_fwd": 2, "spmm_da": 1}
+            and all(bool(torch.isfinite(x).all()) for x in got))
+        worst["spmm_fwd"] = max(worst["spmm_fwd"], err_o, err_h)
+        worst["spmm_da"] = max(worst["spmm_da"], err_a)
+        results.append(
+            f"{what} f={f} K={c[0].shape[0]} (nodes "
+            f"{int(tb['node_mask'].sum())}/{tb['node_mask'].shape[0]} "
+            f"slots, edges {int(tb['edge_mask'].sum())}/"
+            f"{tb['edge_src'].shape[0]}): out max_abs={err_o:.3e} dh "
+            f"max_scaled={err_h:.3e} dA max_scaled={err_a:.3e} "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{what} f={f}: {counts}, padded rows zero {pad0}")
+    print(f"spmm-kernel-check: spmm_fwd (forward and dh) and spmm_da vs "
+          f"spmm_reference under autograd (rtol {RTOL} atol {ATOL}; dA, dh "
+          f"divided by their max abs; 2 + 1 launches a case): "
+          + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"the SpMM kernels disagree with their plain "
+                           f"version: {failed}")
+    return worst
+
+
+def rec_case(n, f, gen, device, weight_sd=None):
+    """The recurrence's arguments at n node slots: messages off-centre (a
+    feature mean of 0.5 to 2, so the variance is taken around a mean far
+    from 0), h0, a random 0/1 mask (a quarter of the rows off), the GRU
+    weights at the model's init scale (xavier-uniform, ops/update.py; or
+    N(0, weight_sd²)) with random biases, and non-trivial norm affines,
+    all leaves requiring grad; returns (args, leaves, cotangent of h_T),
+    args = (msgs, h0, mask, gru, ma_bn, bn). Past the init scale six
+    steps amplify float32 rounding: rec-kernel-check holds the kernels
+    and the plain chain against a float64 run at N(0, 0.3²)."""
+    import torch
+
+    def r(*shape, sc=1.0):
+        return (sc * torch.randn(*shape, generator=gen)).to(device)
+
+    def xavier(*shape):
+        if weight_sd is not None:
+            return r(*shape, sc=weight_sd)
+        lim = math.sqrt(6.0 / (shape[0] + shape[1]))
+        return ((2 * torch.rand(*shape, generator=gen) - 1) * lim).to(device)
+    mask = (torch.rand(n, 1, generator=gen) > 0.25).float().to(device)
+    msgs = (0.5 + 1.5 * torch.rand(f, generator=gen)).to(device) + r(n, f)
+    gru = {"w_ih": xavier(f, 3 * f), "w_hh": xavier(f, 3 * f),
+           "b_ih": r(3 * f, sc=0.1), "b_hh": r(3 * f, sc=0.1)}
+    ma = {"weight": 0.5 + torch.rand(f, generator=gen).to(device),
+          "bias": r(f)}
+    bn = {"weight": 0.5 + torch.rand(f, generator=gen).to(device),
+          "bias": r(f)}
+    h0 = r(n, f)
+    leaves = {"msgs": msgs, "h0": h0, **gru,
+              **{f"ma_{k}": v for k, v in ma.items()},
+              **{f"bn_{k}": v for k, v in bn.items()}}
+    for v in leaves.values():
+        v.requires_grad_()
+    return (msgs, h0, mask, gru, ma, bn), leaves, r(n, f)
+
+
+def phase_rec_kernel_check(device):
+    """recurrence_fwd and recurrence_bwd against reference_recurrence under
+    autograd on the card, T 6 at f 10 and f 30 (the wide bucket), at b16's
+    node slots, b1024's (16,512) and 32,896, a random mask: h_T, both
+    statistics and every gradient leaf (each divided by its max abs)
+    within rtol 1e-4 / atol 1e-5; then the serving launch (no residuals);
+    then at N(0, 0.3²) GRU weights the kernels within the same tolerance
+    of a float64 run, the plain chain's distance from it beside them."""
+    import torch
+    from mpnn_tpu_torch.kernels import recurrence as R
+    gen = torch.Generator().manual_seed(83)
+    n16 = int(_batch(SMILES * 2, 16)["node_mask"].shape[0])
+    worst = {"recurrence_fwd": 0.0, "recurrence_bwd": 0.0}
+    results, failed = [], []
+    for n in (n16, *REC_NODES):
+        for f in (10, 30):
+            args, leaves, g = rec_case(n, f, gen, device)
+            R.reset_launch_counts()
+            got = rec_value_and_grads(R.recurrence, args, leaves, g,
+                                      DEC_STEPS)
+            with torch.no_grad():
+                served = R.recurrence(*args, steps=DEC_STEPS)[0]
+            torch.cuda.synchronize()
+            counts = dict(R.launch_counts)
+            want = rec_value_and_grads(R.reference_recurrence, args,
+                                       leaves, g, DEC_STEPS)
+            oks, errs = zip(*[_within(x, y)[:2]
+                              for x, y in zip(got[0], want[0])])
+            ok_s, err_s, _ = _within(served, want[0][0])
+            gerr, ok_g = 0.0, True
+            for k, w in want[1].items():
+                ok_k, e_k, _ = _scaled_within(got[1][k], w)
+                ok_g, gerr = ok_g and ok_k, max(gerr, e_k)
+            ok = (all(oks) and ok_s and ok_g and counts == {
+                "recurrence_fwd": 2, "recurrence_bwd": 1})
+            worst["recurrence_fwd"] = max(worst["recurrence_fwd"], *errs,
+                                          err_s)
+            worst["recurrence_bwd"] = max(worst["recurrence_bwd"], gerr)
+            results.append(
+                f"N={n} f={f} ({int(args[2].sum())} real rows): h_T "
+                f"max_abs={errs[0]:.3e} stats max_abs="
+                f"{max(errs[1:]):.3e} serving {err_s:.3e} grads "
+                f"max_scaled={gerr:.3e} {'ok' if ok else 'FAIL'}")
+            if not ok:
+                failed.append(f"N={n} f={f}: {counts}")
+    # past the init scale: GRU weights N(0, 0.3²) at b1024's slots and f
+    # 30, the kernels and the plain chain each against a float64 run
+    args, leaves, g = rec_case(REC_NODES[0], 30, gen, device, weight_sd=0.3)
+    exact = rec_float64(args, leaves, g, DEC_STEPS)
+    dists = {}
+    for name, fn in (("kernels", R.recurrence),
+                     ("plain", R.reference_recurrence)):
+        dists[name] = rec_distances(
+            rec_value_and_grads(fn, args, leaves, g, DEC_STEPS), exact)
+    ef, eg, ok = dists["kernels"]
+    worst["recurrence_fwd"] = max(worst["recurrence_fwd"], ef)
+    worst["recurrence_bwd"] = max(worst["recurrence_bwd"], eg)
+    results.append(
+        f"N={REC_NODES[0]} f=30 GRU weights N(0, 0.3²) against a float64 "
+        f"run: kernels h_T and stats max_abs={ef:.3e} grads max_scaled="
+        f"{eg:.3e} {'ok' if ok else 'FAIL'}, plain chain h_T and stats "
+        f"max_abs={dists['plain'][0]:.3e} grads max_scaled="
+        f"{dists['plain'][1]:.3e} (within: {dists['plain'][2]})")
+    if not ok:
+        failed.append(f"N={REC_NODES[0]} f=30 N(0, 0.3²) weights: the "
+                      f"kernels off the float64 run")
+    print(f"rec-kernel-check: recurrence_fwd (training and serving) and "
+          f"recurrence_bwd vs reference_recurrence under autograd (T "
+          f"{DEC_STEPS}; rtol {RTOL} atol {ATOL}, the 10 gradient leaves "
+          f"divided by their max abs): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"the recurrence kernels disagree with their "
+                           f"plain version: {failed}")
+    return worst
+
+
+def rec_float64(args, leaves, g, steps):
+    """rec_value_and_grads of reference_recurrence on float64 copies of
+    a rec_case (the mask and the cotangent too), for distances of float32
+    runs from the exact chain."""
+    import torch
+    from mpnn_tpu_torch.kernels import recurrence as R
+    d = {k: v.detach().double().requires_grad_() for k, v in leaves.items()}
+    args64 = (d["msgs"], d["h0"], args[2].double(),
+              {k: d[k] for k in args[3]},
+              {k: d[f"ma_{k}"] for k in args[4]},
+              {k: d[f"bn_{k}"] for k in args[5]})
+    return rec_value_and_grads(R.reference_recurrence, args64, d,
+                               g.double(), steps)
+
+
+def rec_distances(got, exact):
+    """(largest abs distance of h_T and the statistics, largest distance
+    of a gradient leaf divided by its max abs, whether all lie within
+    rtol 1e-4 / atol 1e-5) of a float32 run `got` from a float64 run
+    `exact`, both as rec_value_and_grads gives them."""
+    ok, ef, eg = True, 0.0, 0.0
+    for x, y in zip(got[0], exact[0]):
+        ok_x, e_x, _ = _within(x.double(), y)
+        ok, ef = ok and ok_x, max(ef, e_x)
+    for k, w in exact[1].items():
+        ok_k, e_k, _ = _scaled_within(got[1][k].double(), w)
+        ok, eg = ok and ok_k, max(eg, e_k)
+    return ef, eg, ok
+
+
+def rec_value_and_grads(fn, args, leaves, g, steps):
+    """((h_T, ma statistics, step statistics), {leaf: gradient}) of the
+    recurrence op `fn` for the cotangent g of h_T."""
+    import torch
+    ht, ma, st = fn(*args, steps=steps)
+    grads = torch.autograd.grad((ht * g).sum(), list(leaves.values()))
+    return ((ht.detach(), torch.stack(ma),
+             torch.stack([torch.stack(s) for s in st])),
+            dict(zip(leaves, grads)))
+
+
+def _dec_first_steps(what, cfg, tcfg, train_gs, device, steps):
+    """The first 3 steps of a run against the plain path on the card from
+    the trainer's initial weights (seed 317) on its first shuffled
+    batches: the run's logged losses within rtol 1e-3; and the first
+    step's parameter gradients, the decomposed hooks against the plain
+    model, each divided by its max abs within rtol 1e-4 / atol 1e-5
+    (message_bias under the message bn1d, zero in theory: within atol).
+    Returns (max rel loss difference, max scaled gradient difference)."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (batch_loss, batch_to_device,
+                                              decomposed_hooks, train_step)
+    loader = G.GraphLoader(train_gs, tcfg.batch_size, shuffle=True,
+                           seed=tcfg.seed)
+    batches = [batch_to_device(b, device) for b, _ in zip(loader, range(3))]
+    net = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
+                       device)
+    opt = adam(net.parameters(), tcfg.learning_rate,
+               weight_decay=tcfg.weight_decay)
+    plain = [float(train_step(net, opt, b, fused=False, loss_kind=tcfg.loss))
+             for b in batches]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"{what}: first steps {steps[:3]} vs plain path "
+                           f"{plain} (rel {rel:.2e} > 1e-3)")
+    grads = []
+    for hooks in (decomposed_hooks(cfg, tcfg), None):
+        n = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
+                         device)
+        out, _ = network_apply_packed(n, batches[0], fused=False,
+                                      training=True, hooks=hooks)
+        batch_loss(tcfg.loss, out, batches[0]).backward()
+        grads.append({k: p.grad for k, p in n.named_parameters()
+                      if p.grad is not None})
+    if set(grads[0]) != set(grads[1]):
+        raise RuntimeError(f"{what}: the two paths reach other leaves")
+    worst = 0.0
+    for k, w in grads[1].items():
+        if k.endswith("message_bias") and cfg.mpnn.msg_norm == "bn1d":
+            ok, err = bool((grads[0][k] - w).abs().max() <= ATOL), 0.0
+        else:
+            ok, err, _ = _scaled_within(grads[0][k], w)
+        worst = max(worst, err)
+        if not ok:
+            raise RuntimeError(f"{what}: first-step gradient of {k}: "
+                               f"{err:.3e} (scaled) from the plain path")
+    return rel, worst
+
+
+def _dec_run(what, argv=None, api=None):
+    """One decomposed training run, the `train` verb (argv) or
+    trainer.train (api: (cfg, tcfg, train_gs, val_gs)), the launch
+    counts set to 0 just before it; returns (per-step losses, epoch
+    records, wall seconds)."""
+    import torch
+    from mpnn_tpu_torch.train import cli, trainer
+    _dec_reset()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    if argv is not None:
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv)
+        log = argv[argv.index("--log") + 1]
+    else:
+        cfg, tcfg, train_gs, val_gs = api
+        trainer.train(cfg, tcfg, train_gs, val_gs, device="cuda")
+        log = tcfg.log_path
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(log) as fh:
+        recs = [json.loads(x) for x in fh if x.strip()]
+    steps = [r["loss"] for r in recs if "step" in r]
+    epochs = [r for r in recs if "train_loss" in r]
+    if not (steps and all(math.isfinite(x) for x in steps)
+            and all(math.isfinite(r["val_loss"]) for r in epochs)):
+        raise RuntimeError(f"{what}: non-finite or no loss")
+    return steps, epochs, wall
+
+
+def phase_dec_train(device):
+    """The decomposed training path on the card, each run's launch counts
+    set to 0 just before it and read just after, against the design: the
+    `train --spmm kernel` verb on lipo (2 epochs at 16: per step 2
+    spmm_fwd — the forward and dh — 1 spmm_da, the edge-MLP chain's 1 + 1;
+    the step loop in PyTorch ops; per validation and test batch one eval
+    launch and its edge-MLP forward), then `predict` from its checkpoint;
+    trainer.train with fuse_step=False, fuse_recurrence=True (the same
+    plus 1 recurrence_fwd and 1 recurrence_bwd per step); `train --spmm
+    kernel` of graph_norm_classification (1 epoch: T forwards per step,
+    T spmm_da, and T dh launches only where h0 takes a gradient — the
+    model's plain wrapper and no encoders: none); and one lipo run at the
+    wide phase's afm 27. Each: the first 3 losses against the plain path
+    (rtol 1e-3) and the first step's parameter gradients (1e-4 / 1e-5,
+    scaled)."""
+    import dataclasses
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.train import cli, experiments
+    from mpnn_tpu_torch.train.split import train_test_split
+    os.makedirs(OUT_DIR, exist_ok=True)
+    lines = []
+
+    def split(gs):
+        tr, te = train_test_split(gs, 0.1, 317)
+        tr, va = train_test_split(tr, 0.1, 317)
+        return tr, va, te
+
+    def n_batches(gs, bs):
+        return -(-len(gs) // bs)
+
+    def want(n_steps, n_evals, nets, dh, rec, psteps=False):
+        return {"spmm_fwd": n_steps * nets * (1 + dh),
+                "spmm_da": n_steps * nets,
+                "recurrence_fwd": n_steps * rec,
+                "recurrence_bwd": n_steps * rec,
+                "edge_mlp_fwd": nets * (n_steps + n_evals),
+                "edge_mlp_bwd": nets * n_steps,
+                "fused_eval": 0 if psteps else n_evals,
+                "fused_psteps_eval": n_evals if psteps else 0}
+
+    lipo = experiments.get("lipo")
+    csv = _train_csv(TRAIN_ROWS)
+    gs, _ = G.load_number_dataset(csv, "smiles", "exp")
+    tr, va, te = split(gs)
+    cfg = zoo.lipo(int(gs[0].afm.shape[-1]), int(gs[0].bfm.shape[-1]),
+                   int(gs[0].nafm.shape[-1]))
+    # 1. the verb
+    log = os.path.join(OUT_DIR, "dec_train_lipo.jsonl")
+    ckdir = os.path.join(OUT_DIR, "dec_ckpt_lipo")
+    if os.path.exists(log):
+        os.remove(log)
+    steps, epochs, wall = _dec_run("dec-train verb", argv=[
+        "train", "--experiment", "lipo", "--data", csv, "--epochs",
+        str(TRAIN_EPOCHS), "--batch-size", str(TRAIN_BATCH), "--ckpt-dir",
+        ckdir, "--log", log, "--spmm", "kernel"])
+    n_steps = TRAIN_EPOCHS * n_batches(tr, TRAIN_BATCH)
+    n_evals = (TRAIN_EPOCHS * n_batches(va, TRAIN_BATCH)
+               + n_batches(te, TRAIN_BATCH))
+    counts = _dec_take("dec-train verb", want(n_steps, n_evals, 1, 1, 0))
+    tcfg = dataclasses.replace(lipo.train, fuse_step=False)
+    rel, gerr = _dec_first_steps("dec-train verb", cfg, tcfg, tr, device,
+                                 steps)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["predict", "--experiment", "lipo", "--data", csv,
+                  "--ckpt", os.path.join(ckdir,
+                                         f"ckpt_{TRAIN_EPOCHS - 1}.npz"),
+                  "--batch-size", "64"])
+    preds = [json.loads(x)["pred"] for x in buf.getvalue().splitlines() if x]
+    if len(preds) != TRAIN_ROWS or not all(math.isfinite(p) for p in preds):
+        raise RuntimeError("dec-train: predict from the checkpoint failed")
+    lines.append(
+        f"`train --spmm kernel` lipo ({len(tr)} train molecules, batch "
+        f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs): {len(steps)} steps in "
+        f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
+        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e}; "
+        f"val_loss {[round(r['val_loss'], 5) for r in epochs]}; predict "
+        f"from the checkpoint: {len(preds)} finite predictions")
+    # 2. the API with the fused recurrence
+    log = os.path.join(OUT_DIR, "dec_train_lipo_rec.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    tcfg = dataclasses.replace(lipo.train, epochs=TRAIN_EPOCHS,
+                               fuse_step=False, fuse_recurrence=True,
+                               log_path=log)
+    steps, epochs, wall = _dec_run("dec-train api",
+                                   api=(cfg, tcfg, tr, va))
+    n_evals = TRAIN_EPOCHS * n_batches(va, TRAIN_BATCH)
+    counts = _dec_take("dec-train api", want(n_steps, n_evals, 1, 1, 1))
+    rel, gerr = _dec_first_steps("dec-train api", cfg, tcfg, tr, device,
+                                 steps)
+    lines.append(
+        f"trainer.train(fuse_step=False, fuse_recurrence=True) lipo: "
+        f"{len(steps)} steps in {wall:.2f} s wall, launches {counts}; "
+        f"first 3 losses vs plain max rel {rel:.2e}, first-step gradients "
+        f"max_scaled {gerr:.3e}")
+    # 3. the per-step family through the verb
+    exp = experiments.get("graph_norm_classification")
+    pcsv = _ps_csv("dec_graph_norm", TRAIN_ROWS)
+    log = os.path.join(OUT_DIR, "dec_train_graph_norm.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    pgs = G.load_classification_dataset(pcsv, "smiles", "target")[0]
+    ptr, pva, pte = split(pgs)
+    pcfg = zoo.build(exp.model, afm=int(pgs[0].afm.shape[-1]),
+                     bfm=int(pgs[0].bfm.shape[-1]),
+                     nafm=int(pgs[0].nafm.shape[-1]), n_out=PS_CLASSES)
+    steps, epochs, wall = _dec_run("dec-train graph_norm", argv=[
+        "train", "--experiment", exp.name, "--data", pcsv, "--epochs", "1",
+        "--log", log, "--spmm", "kernel"])
+    bs = exp.train.batch_size
+    counts = _dec_take("dec-train graph_norm", want(
+        n_batches(ptr, bs), n_batches(pva, bs) + n_batches(pte, bs),
+        pcfg.mpnn.message_steps, 0, 0, psteps=True))
+    rel, gerr = _dec_first_steps(
+        "dec-train graph_norm", pcfg,
+        dataclasses.replace(exp.train, fuse_step=False), ptr, device, steps)
+    lines.append(
+        f"`train --spmm kernel` graph_norm_classification (T "
+        f"{pcfg.mpnn.message_steps}, 1 epoch): {len(steps)} steps in "
+        f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
+        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e}")
+    # 4. lipo at the wide widths (afm 27: the SpMM's and the recurrence's
+    #    wide buckets)
+    wcsv = _wide_csv("dec_lipo", "mse", "exp")
+    wgs, _ = G.load_number_dataset(wcsv, "smiles", "exp")
+    wtr, wva, _ = split(wgs)
+    wcfg = zoo.lipo(int(wgs[0].afm.shape[-1]), int(wgs[0].bfm.shape[-1]),
+                    int(wgs[0].nafm.shape[-1]))
+    log = os.path.join(OUT_DIR, "dec_train_wide.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    tcfg = dataclasses.replace(lipo.train, epochs=1, fuse_step=False,
+                               fuse_recurrence=True, log_path=log)
+    steps, epochs, wall = _dec_run("dec-train wide",
+                                   api=(wcfg, tcfg, wtr, wva))
+    counts = _dec_take("dec-train wide", want(
+        n_batches(wtr, TRAIN_BATCH), n_batches(wva, TRAIN_BATCH), 1, 1, 1))
+    rel, gerr = _dec_first_steps("dec-train wide", wcfg, tcfg, wtr, device,
+                                 steps)
+    lines.append(
+        f"wide lipo (f {wcfg.mpnn.node_features}, od "
+        f"{wcfg.mpnn.output_dim}; trainer.train, fuse_recurrence): "
+        f"{len(steps)} steps in {wall:.2f} s wall, launches {counts}; "
+        f"first 3 losses vs plain max rel {rel:.2e}, first-step gradients "
+        f"max_scaled {gerr:.3e}")
+    print("dec-train: " + "; ".join(lines), flush=True)
+
+
+def _spmm_bounds(nr, er, k, f):
+    """Least times of the SpMM kernels' work: the larger of the float32
+    operations over the peak CUDA-core rate and the bytes of the
+    function's own inputs and outputs (each read or written once; the
+    real rows and edges; not the index plan) over HBM bandwidth. Forward:
+    a GEMV per real edge, reading A, h, vid/src/dst, writing out. dA: an
+    outer product per real edge, reading g, h, vid/src/dst, writing dA."""
+    ops = 2.0 * er * f * f
+    fwd_bytes = 4 * (k * f * f + nr * f + 3 * er + nr * f)
+    da_bytes = 4 * (2 * nr * f + 3 * er + k * f * f)
+    out = {}
+    for name, nbytes in (("spmm_fwd", fwd_bytes), ("spmm_da", da_bytes)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def _rec_bounds(n, nr, f, steps):
+    """Least times of the recurrence kernels' work, as _spmm_bounds
+    counts it: each kernel's function on its own inputs. The forward
+    (h_T and the statistics, as the serving launch computes them) takes
+    the message norm, the input gates once (the messages are constant)
+    and per step one W_hh GEMV, the gate math and the state norm, reading
+    msgs, h0 (real rows), the mask (n slots) and the weights, writing h_T
+    and the statistics; the T pre-norm states that the training launch
+    also writes are the backward's residuals, not the function's output.
+    The backward (the VJP from the forward's inputs and h_T's cotangent)
+    charges the residuals once, as the work that rebuilds them: per step
+    the hidden gates' GEMV, gate math and norm again, W_hhᵀ·∂g and the
+    ∂W_hh outer product, the gate and norm VJPs; once the input gates,
+    W_ih·Σ∂gi, the ∂W_ih outer product and the message norm with its VJP;
+    reading the forward's inputs and the cotangent, writing ∂msgs, ∂h0
+    and the weight gradients."""
+    gemv = 2 * f * 3 * f
+    gate = 3 * f + 12 * f
+    norm = 8 * f
+    weights = 6 * f * f + 10 * f
+    stats = 2 * (steps + 1) * f
+    inputs = 2 * nr * f + n + weights
+    fwd_ops = nr * (norm + gemv + 3 * f) + steps * nr * (gemv + gate + norm)
+    fwd_bytes = 4 * (inputs + nr * f + stats)
+    bwd_ops = (steps * nr * (3 * gemv + gate + 20 * f + 2 * norm)
+               + nr * (3 * gemv + 2 * norm))
+    bwd_bytes = 4 * (inputs + nr * f + 2 * nr * f + weights)
+    out = {}
+    for name, ops, nbytes in (("recurrence_fwd", fwd_ops, fwd_bytes),
+                              ("recurrence_bwd", bwd_ops, bwd_bytes)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def _dec_trace(net, opt, b, hooks, device, step_ms):
+    """The decomposed train step's device time in a torch.profiler trace:
+    (busy us, a line with the busy time, the idle share of the step's
+    median and each new kernel's and the chain kernels' device time);
+    fails when one of them shows none."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    float(train_step(net, opt, batch_to_device(b, device), hooks=hooks))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(train_step(net, opt, batch_to_device(b, device), hooks=hooks))
+        torch.cuda.synchronize()
+    with open(os.path.join(OUT_DIR, "profile_dec_train_1024.txt"),
+              "w") as fh:
+        fh.write(prof.key_averages().table(
+            sort_by="self_device_time_total", row_limit=40))
+    busy, ops = _device_ops(prof)
+    kern = {}
+    for e in ops:
+        m = re.search(r"(spmm_(?:fwd|da)|recurrence_(?:fwd|bwd)|"
+                      r"edge_mlp_(?:fwd|bwd))_kernel", e.key)
+        if m:
+            kern[m.group(1)] = kern.get(m.group(1), 0.0) + getattr(
+                e, "self_device_time_total", 0.0)
+    if set(kern) != {*DEC_KERNELS, *MLP_KERNELS} or min(kern.values()) <= 0:
+        raise RuntimeError(f"dec-times: the trace shows device time for "
+                           f"{sorted(kern)} only")
+    return busy, (
+        f"decomposed b1024 step (H2D + forward + backward + Adam + EMAs + "
+        f"loss read-back) in a trace: device busy {busy:.1f} us in "
+        f"{sum(e.count for e in ops)} device ops, idle share "
+        f"{1 - busy / (step_ms * 1e3):.3f} of the {step_ms:.3f} ms median; "
+        + ", ".join(f"{k}_kernel {v:.1f} us" for k, v in sorted(kern.items())))
+
+
+def phase_dec_times(device, card):
+    """The decomposed lipo train step (the SpMM, recurrence and edge-MLP
+    kernels; host clock ending in the loss read-back) at batch 16 and
+    1024 beside the whole-step path's on the same batch and weights, in
+    turns (whole, decomposed, decomposed, whole); at b1024 each new
+    kernel's time (CUDA events over back-to-back launches on the step's
+    own inputs) beside its bound and its plain version's time (autograd
+    through it for a backward), and the decomposed step's device busy
+    time and idle share from a profiler trace."""
+    import statistics
+    import torch
+    from mpnn_tpu_torch.graphs.batching import (plan_from_batch,
+                                                plan_fused_eval)
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.kernels import spmm as S
+    from mpnn_tpu_torch.models.fused_train import _build_a_form, _edge_mlp_op
+    from mpnn_tpu_torch.models.network import mpnn_input
+    from mpnn_tpu_torch.train.trainer import (TrainConfig, batch_to_device,
+                                              decomposed_hooks, train_step)
+    gen = torch.Generator().manual_seed(85)
+    out, lines = {}, []
+    for bs in DEC_TIMES_BATCHES:
+        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+        b["labels"] = torch.randn(bs, generator=gen).numpy()
+        tb = batch_to_device(b, device)
+        net, opt = _train_net(b, gen, device)
+        hooks = decomposed_hooks(net.cfg, TrainConfig(fuse_step=False,
+                                                      fuse_recurrence=True))
+        reps = 30 if bs <= 16 else 15
+
+        def timed(fused):
+            kw = dict(hooks=None if fused else hooks)
+            for _ in range(3):
+                float(train_step(net, opt, tb, **kw))
+            lat = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                float(train_step(net, opt, tb, **kw))
+                torch.cuda.synchronize()
+                lat.append((time.perf_counter() - t0) * 1e3)
+            return lat
+        whole, dec = timed(True), timed(False)
+        dec += timed(False)
+        whole += timed(True)
+        out[bs] = dict(step_ms=statistics.median(dec),
+                       whole_ms=statistics.median(whole))
+        line = (f"batch {bs} (nodes {int(b['node_mask'].sum())}/"
+                f"{b['node_mask'].shape[0]}, edges "
+                f"{int(b['edge_mask'].sum())}/{b['edge_src'].shape[0]}): "
+                f"decomposed train step median {out[bs]['step_ms']:.3f} ms "
+                f"mean {statistics.fmean(dec):.3f} ms, whole-step median "
+                f"{out[bs]['whole_ms']:.3f} ms mean "
+                f"{statistics.fmean(whole):.3f} ms ({2 * reps} reps each, "
+                f"in turns, loss read back)")
+        if bs == DEC_TIMES_BATCHES[-1]:
+            # the kernels alone, on the inputs the step gives them
+            with torch.no_grad():
+                mb, _ = mpnn_input(net, tb, training=True)
+                amat, _, vid = _build_a_form(net.mpnn, mb,
+                                             _edge_mlp_op(net.cfg.mpnn))
+                h0 = (mb["node_feats"] * mb["node_mask"]).contiguous()
+                amat = amat.contiguous()
+                src, dst = tb["edge_src"], tb["edge_dst"]
+                plan = plan_from_batch(tb)
+                n, f = h0.shape
+                k = amat.shape[0]
+                msgs = S.spmm_reference(amat, h0, vid, src, dst)
+                g = torch.randn(n, f, generator=gen).to(device)
+                pf = S.prepare_spmm_fwd(amat, h0, vid, src, plan.edge_order,
+                                        plan.dst_ptr, n_out=n)
+                pd = S.prepare_spmm_da(h0, g, vid, src, dst, k)
+                m = net.mpnn
+                gru = {kk: v.detach() for kk, v in m.gru.as_dict().items()}
+                weights = [gru["w_ih"], gru["w_hh"], gru["b_ih"],
+                           gru["b_hh"], m.ma_bn[0].weight.detach(),
+                           m.ma_bn[0].bias.detach(), m.bn[0].weight.detach(),
+                           m.bn[0].bias.detach()]
+                mask = tb["node_mask"]
+                prf = R.prepare_recurrence_fwd(msgs, h0, mask, weights,
+                                               steps=DEC_STEPS, stash=True)
+                _, stats, htil = K.launch_prepared(prf)
+                prb = R.prepare_recurrence_bwd(msgs, h0, mask, weights,
+                                               stats, htil, g,
+                                               steps=DEC_STEPS)
+                ms = {p.name: _events_ms(lambda p=p: K.launch_prepared(p),
+                                         100) for p in (pf, pd, prf, prb)}
+                # the serving launch: h_T and the statistics alone, the
+                # function that recurrence_fwd's bound counts
+                prs = R.prepare_recurrence_fwd(msgs, h0, mask, weights,
+                                               steps=DEC_STEPS, stash=False)
+                serve_ms = _events_ms(lambda: K.launch_prepared(prs), 100)
+                # the forward on the real edges alone: the padded edges
+                # all end at the dummy node, whose row walks them in series
+                er_i = int(b["edge_mask"].sum())
+                real_plan = plan_fused_eval(b["edge_dst"][:er_i],
+                                            b["node_graph"], bs)
+                rp = [torch.as_tensor(x, device=device) for x in real_plan]
+                pr = S.prepare_spmm_fwd(amat, h0, vid[:er_i].contiguous(),
+                                        src[:er_i].contiguous(), rp[0],
+                                        rp[1], n_out=n)
+                real_ms = _events_ms(lambda: K.launch_prepared(pr), 100)
+                dummy_edges = int((b["edge_dst"] == n - 1).sum())
+                ma_d = {"weight": weights[4], "bias": weights[5]}
+                bn_d = {"weight": weights[6], "bias": weights[7]}
+                plain = {
+                    "spmm_fwd": _events_ms(lambda: S.spmm_reference(
+                        amat, h0, vid, src, dst), 20),
+                    "spmm_da": _events_ms(lambda: S.spmm_da_reference(
+                        h0, g, vid, src, dst, k), 20),
+                    "recurrence_fwd": _events_ms(
+                        lambda: R.reference_recurrence(
+                            msgs, h0, mask, gru, ma_d, bn_d,
+                            steps=DEC_STEPS), 20)}
+            leaves = [x.detach().requires_grad_() for x in [msgs, h0]
+                      + weights]
+            ht, _, _ = R.reference_recurrence(
+                leaves[0], leaves[1], mask,
+                dict(zip(("w_ih", "w_hh", "b_ih", "b_hh"), leaves[2:6])),
+                {"weight": leaves[6], "bias": leaves[7]},
+                {"weight": leaves[8], "bias": leaves[9]}, steps=DEC_STEPS)
+            obj = (ht * g).sum()
+            plain["recurrence_bwd"] = _events_ms(lambda: torch.autograd.grad(
+                obj, leaves, retain_graph=True), 20)
+            nr, er = float(b["node_mask"].sum()), float(b["edge_mask"].sum())
+            bounds = {**_spmm_bounds(nr, er, k, f),
+                      **_rec_bounds(n, nr, f, DEC_STEPS)}
+            for name in DEC_KERNELS:
+                bound, by, ops, nbytes = bounds[name]
+                out[bs][name] = dict(ms=ms[name], plain_ms=plain[name],
+                                     bound_ms=bound, bound_by=by)
+            line += "; " + ", ".join(
+                f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches), "
+                f"plain {plain[name] * 1e3:.1f} us, bound "
+                f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                f"({bounds[name][2] / 1e6:.3f} Mop, "
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in DEC_KERNELS)
+            line += (f" (K {k}, f {f}, T {DEC_STEPS}); recurrence_fwd "
+                     f"without the residual stash (the serving launch) "
+                     f"{serve_ms * 1e3:.2f} us; spmm_fwd on the "
+                     f"{er_i} real edges alone {real_ms * 1e3:.2f} us (the "
+                     f"dummy node's row takes the other {dummy_edges})")
+            busy, traced = _dec_trace(net, opt, b, hooks, device,
+                                      out[bs]["step_ms"])
+            out[bs]["busy_us"] = busy
+            line += "; " + traced
+        lines.append(line)
+    print(f"dec-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3603,6 +4429,10 @@ def main() -> int:
     bil_times = phase_bil_times(device, card)
     for k, v in phase_ecfp(device, card).items():
         ps_counts[k] += v
+    dec_worst = {**phase_spmm_kernel_check(device),
+                 **phase_rec_kernel_check(device)}
+    phase_dec_train(device)
+    dec_times = phase_dec_times(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -3676,6 +4506,19 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_bilinear.py:{line}",
             "launches": bil_counts[name], "max_abs_err": bil_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    dec_sites = {"spmm_fwd": "spmm.py:170", "spmm_da": "spmm.py:358",
+                 "recurrence_fwd": "recurrence.py:184",
+                 "recurrence_bwd": "recurrence.py:214"}
+    for name in DEC_KERNELS:
+        tt = dec_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/{dec_sites[name]}",
+            "launches": DEC_MAIN[name], "max_abs_err": dec_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

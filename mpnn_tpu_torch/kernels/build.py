@@ -43,6 +43,10 @@ SOURCES: Dict[str, str] = {
     "edge_mlp_bwd": "edge_mlp_bwd.cu",
     "fused_bilinear_fwd": "fused_bilinear_fwd.cu",
     "fused_bilinear_bwd": "fused_bilinear_bwd.cu",
+    "spmm_fwd": "spmm_fwd.cu",
+    "spmm_da": "spmm_da.cu",
+    "recurrence_fwd": "recurrence_fwd.cu",
+    "recurrence_bwd": "recurrence_bwd.cu",
 }
 
 # the sources that build and load together (one op module's kernels)
@@ -55,6 +59,8 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
     "set2vec": ("set2vec_fwd", "set2vec_bwd"),
     "edge_mlp": ("edge_mlp_fwd", "edge_mlp_bwd"),
     "fused_bilinear": ("fused_bilinear_fwd", "fused_bilinear_bwd"),
+    "spmm": ("spmm_fwd", "spmm_da"),
+    "recurrence": ("recurrence_fwd", "recurrence_bwd"),
 }
 
 # wide buckets: family → {tag: the -D defines of its libraries}. The
@@ -67,6 +73,8 @@ WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
     "fused_att": {"f32": ("MPNN_FP=32",)},
     "fused_att_steps": {"f32": ("MPNN_FP=32",)},
     "set2vec": {"w64": ("MPNN_WP=64",)},
+    "spmm": {"f32": ("MPNN_FP=32",)},
+    "recurrence": {"f32": ("MPNN_FP=32",)},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -1,0 +1,243 @@
+"""The fused BN→GRU→BN recurrence op (counterpart of mpnn_tpu/kernels/
+recurrence.py): the lipo family's whole step chain on messages that are
+constant across steps, with its VJP.
+
+    mb = bn1d(msgs);  h = h0·mask;  T × { h = bn1d(GRU(mb, h)) }
+
+msgs, h0 (N, f); mask (N, 1), 0/1; gru {w_ih, w_hh (f, 3f), b_ih, b_hh
+(3f)} in the JAX layout, gates r|z|n; ma_bn, bn {weight, bias} (f,). Both
+norms take the batch statistics of the masked rows, the biased variance,
+eps outside the root. Returns (h_T, (ma_mean, ma_var), [(mean_t, var_t)]
+× T) as reference_recurrence does; the statistics carry no gradient (they
+feed the running EMAs: models/sparse.py::mpnn_new_state).
+
+make_recurrence_op(steps, f) returns the `recurrence_fn` hook of
+models/sparse.py. The JAX package picks one of four TPU variants by VMEM
+size (make_recurrence_op_auto); they compute the same function, and here
+one pair of kernels does at any node count: csrc/recurrence_fwd.cu and
+csrc/recurrence_bwd.cu, one cooperative launch each. CPU tensors run the
+plain version (reference_recurrence under autograd); CUDA tensors launch
+the kernels or raise.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Dict
+
+import torch
+
+from mpnn_tpu_torch.kernels import fused_step as K
+from mpnn_tpu_torch.kernels.fused_step import _gru
+from mpnn_tpu_torch.ops.norm import bn1d_train
+
+# width buckets, narrowest first (kernels/build.py::WIDE)
+BUCKETS = (("", dict(f=16)), ("f32", dict(f=32)))
+# the most steps the kernels take (fused_train_common.cuh::kMaxSteps)
+MAX_STEPS = 32
+
+launch_counts: Dict[str, int] = {"recurrence_fwd": 0, "recurrence_bwd": 0}
+
+
+def reset_launch_counts() -> None:
+    for k in launch_counts:
+        launch_counts[k] = 0
+
+
+def reference_recurrence(msgs, h0, mask, gru, ma_bn, bn, *, steps: int):
+    """The plain version: the masked bn1d of the messages, then T × [GRU
+    from the precomputed input gates → masked bn1d], as mpnn_tpu/kernels/
+    recurrence.py::reference_recurrence chains them (and as the plain
+    model's step loop does). Returns (h_T, (ma_mean, ma_var),
+    [(mean_t, var_t)] × steps), the statistics detached."""
+    mb, ma_stats = bn1d_train(msgs, mask, ma_bn["weight"], ma_bn["bias"])
+    gi = mb @ gru["w_ih"] + gru["b_ih"]
+    h = h0 * mask
+    step_stats = []
+    for _ in range(steps):
+        h, st = bn1d_train(_gru(gru, gi, h, mask), mask, bn["weight"],
+                           bn["bias"])
+        step_stats.append(tuple(x.detach() for x in st))
+    return h, tuple(x.detach() for x in ma_stats), step_stats
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "recurrence_fwd": {
+        "mpnn_recurrence_fwd": ([_P] * 15 + [_I] * 5 + [_P], _I),
+        "mpnn_recurrence_fwd_smem_bytes": ([_I], _I),
+        "mpnn_recurrence_fwd_scratch_floats": ([_I, _I], ctypes.c_longlong),
+        "mpnn_recurrence_fwd_grid": ([_I, _I], _I),
+    },
+    "recurrence_bwd": {
+        "mpnn_recurrence_bwd": ([_P] * 18 + [_I] * 4 + [_P], _I),
+        "mpnn_recurrence_bwd_smem_bytes": ([_I], _I),
+        "mpnn_recurrence_bwd_layout": ([_I, _P], None),
+        "mpnn_recurrence_bwd_scratch_floats": ([_I, _I, _I],
+                                               ctypes.c_longlong),
+        "mpnn_recurrence_bwd_grid": ([_I, _I], _I),
+    },
+}
+
+# the weight leaves, in the kernels' order (and the backward's GradLayout)
+_LEAVES = ("w_ih", "w_hh", "b_ih", "b_hh", "ma_w", "ma_b", "bn_w", "bn_b")
+
+
+def _lib(name: str, tag: str = ""):
+    return K._lib(name, _SIGNATURES, tag)
+
+
+def grad_layout(f: int) -> Dict[str, tuple]:
+    """{leaf: (offset, shape)} of the backward kernel's flat gradient, in
+    csrc/recurrence_bwd.cu's GradLayout order."""
+    shapes = [(f, 3 * f), (f, 3 * f), (3 * f,), (3 * f,), (f,), (f,), (f,),
+              (f,)]
+    out, off = {}, 0
+    for name, shape in zip(_LEAVES, shapes):
+        out[name] = (off, shape)
+        off += math.prod(shape)
+    out["total"] = (off, ())
+    return out
+
+
+def _flat(gru, ma_bn, bn):
+    return [gru["w_ih"], gru["w_hh"], gru["b_ih"], gru["b_hh"],
+            ma_bn["weight"], ma_bn["bias"], bn["weight"], bn["bias"]]
+
+
+def _check_inputs(msgs, h0, mask, weights, steps):
+    """Device, dtype, shape and contiguity of the inputs; returns (n, f,
+    the width bucket's tag)."""
+    device = h0.device
+    if device.type != "cuda":
+        raise ValueError(f"recurrence: unsupported device {device}")
+    n, f = h0.shape
+    tag = K.width_bucket("recurrence", BUCKETS, f=f)
+    if not 1 <= steps <= MAX_STEPS:
+        raise NotImplementedError(
+            f"recurrence: steps={steps}; the kernels take 1 to {MAX_STEPS}")
+    for name, t, shape in [("msgs", msgs, (n, f)), ("h0", h0, (n, f)),
+                           ("mask", mask, (n, 1))]:
+        K._check(name, t, shape, device, torch.float32)
+    for (name, (_, shape)), t in zip(grad_layout(f).items(), weights):
+        K._check(name, t, shape, device, torch.float32)
+    return n, f, tag
+
+
+def prepare_recurrence_fwd(msgs, h0, mask, weights, *, steps: int,
+                           stash: bool) -> K.PreparedLaunch:
+    """One checked forward launch. Outputs (h_T (N, f), stats (T+1, 2, f),
+    htil): with `stash` htil (T, N, f) holds every step's pre-norm state
+    for the backward; without, a one-slot scratch."""
+    n, f, tag = _check_inputs(msgs, h0, mask, weights, steps)
+    lib = _lib("recurrence_fwd", tag)
+    grid = K._grid(lib, "mpnn_recurrence_fwd_grid", steps, n)
+    kw = dict(dtype=torch.float32, device=h0.device)
+    ht = torch.empty(n, f, **kw)
+    stats = torch.empty(steps + 1, 2, f, **kw)
+    htil = torch.empty(steps if stash else 1, n, f, **kw)
+    scratch = torch.empty(lib.mpnn_recurrence_fwd_scratch_floats(n, f), **kw)
+    keep = (msgs, h0, mask, *weights, ht, stats, htil, scratch)
+    args = (*(t.data_ptr() for t in keep), n, f, steps, int(stash), grid,
+            torch.cuda.current_stream(h0.device).cuda_stream)
+    return K.PreparedLaunch("recurrence_fwd", lib.mpnn_recurrence_fwd,
+                            lib.mpnn_cuda_error_string, args,
+                            (ht, stats, htil), keep, launch_counts)
+
+
+def prepare_recurrence_bwd(msgs, h0, mask, weights, stats, htil, ght, *,
+                           steps: int) -> K.PreparedLaunch:
+    """One checked backward launch on the forward's residuals. Outputs
+    (dmsgs (N, f), dh0 (N, f), the flat gradient of grad_layout)."""
+    n, f, tag = _check_inputs(msgs, h0, mask, weights, steps)
+    for name, t, shape in [("stats", stats, (steps + 1, 2, f)),
+                           ("htil", htil, (steps, n, f)),
+                           ("ght", ght, (n, f))]:
+        K._check(name, t, shape, h0.device, torch.float32)
+    lib = _lib("recurrence_bwd", tag)
+    layout = grad_layout(f)
+    c_layout = (ctypes.c_int * 9)()
+    lib.mpnn_recurrence_bwd_layout(f, c_layout)
+    if [v[0] for v in layout.values()] != list(c_layout):
+        raise RuntimeError("recurrence_bwd: the gradient layout of the "
+                           "built library disagrees with grad_layout")
+    grid = K._grid(lib, "mpnn_recurrence_bwd_grid", steps, n)
+    kw = dict(dtype=torch.float32, device=h0.device)
+    dmsgs = torch.empty(n, f, **kw)
+    dh0 = torch.empty(n, f, **kw)
+    dw = torch.empty(layout["total"][0], **kw)
+    scratch = torch.empty(lib.mpnn_recurrence_bwd_scratch_floats(n, f, grid),
+                          **kw)
+    keep = (msgs, h0, mask, *weights, stats, htil, ght, dmsgs, dh0, dw,
+            scratch)
+    args = (*(t.data_ptr() for t in keep), n, f, steps, grid,
+            torch.cuda.current_stream(h0.device).cuda_stream)
+    return K.PreparedLaunch("recurrence_bwd", lib.mpnn_recurrence_bwd,
+                            lib.mpnn_cuda_error_string, args,
+                            (dmsgs, dh0, dw), keep, launch_counts)
+
+
+def split_grads(dw: torch.Tensor, f: int):
+    """The flat gradient as {leaf: view of its shape}."""
+    return {name: dw[off:off + math.prod(shape)].view(shape)
+            for name, (off, shape) in grad_layout(f).items()
+            if name != "total"}
+
+
+class _Recurrence(torch.autograd.Function):
+    """The forward kernel with the residual stash, the backward kernel as
+    its VJP; applied only while autograd records the op. Inputs: steps,
+    msgs, h0, mask, the eight weight leaves (_LEAVES order). Outputs (h_T,
+    stats (T+1, 2, f)); stats carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, steps, msgs, h0, mask, *weights):
+        ht, stats, htil = K.launch_prepared(prepare_recurrence_fwd(
+            msgs, h0, mask, weights, steps=steps, stash=True))
+        ctx.steps = steps
+        ctx.save_for_backward(msgs, h0, mask, stats, htil, *weights)
+        ctx.mark_non_differentiable(stats)
+        return ht, stats
+
+    @staticmethod
+    def backward(ctx, ght, _g_stats):
+        msgs, h0, mask, stats, htil, *weights = ctx.saved_tensors
+        dmsgs, dh0, dw = K.launch_prepared(prepare_recurrence_bwd(
+            msgs, h0, mask, weights, stats, htil, ght.contiguous(),
+            steps=ctx.steps))
+        g = split_grads(dw, h0.shape[1])
+        return (None, dmsgs, dh0, None, *(g[k] for k in _LEAVES))
+
+
+def recurrence(msgs, h0, mask, gru, ma_bn, bn, *, steps: int):
+    """(h_T, (ma_mean, ma_var), [(mean_t, var_t)] × steps), differentiable
+    in msgs, h0 and the weights. CPU tensors run the plain version under
+    autograd; CUDA tensors launch the kernels or raise. Only while autograd
+    records the op does the forward keep the backward's residuals."""
+    if h0.device.type == "cpu":
+        return reference_recurrence(msgs, h0, mask, gru, ma_bn, bn,
+                                    steps=steps)
+    c = lambda t: t.contiguous()
+    weights = [c(t) for t in _flat(gru, ma_bn, bn)]
+    if K.records_grad(msgs, h0, *weights):
+        ht, stats = _Recurrence.apply(steps, c(msgs), c(h0), c(mask),
+                                      *weights)
+    else:
+        ht, stats, _ = K.launch_prepared(prepare_recurrence_fwd(
+            c(msgs), c(h0), c(mask), weights, steps=steps, stash=False))
+    return (ht, (stats[0, 0], stats[0, 1]),
+            [(stats[t, 0], stats[t, 1]) for t in range(1, steps + 1)])
+
+
+def make_recurrence_op(steps: int, f: int):
+    """The `recurrence_fn` hook: fn(msgs, h0, mask, gru, ma_bn, bn) → (h_T,
+    ma_stats, step_stats) with the step count bound, as mpnn_tpu/kernels/
+    recurrence.py::make_recurrence_op returns it — without its node cap:
+    one pair of kernels takes any node count. f is checked against the
+    kernels' widths at once."""
+    K.width_bucket("recurrence", BUCKETS, f=f)
+
+    def fn(msgs, h0, mask, gru, ma_bn, bn):
+        return recurrence(msgs, h0, mask, gru, ma_bn, bn, steps=steps)
+    return fn

@@ -137,6 +137,16 @@ def supported(cfg: MPNNConfig) -> bool:
         and (edge or att_shape(cfg) or att_steps_shape(cfg)))
 
 
+def decomposed_shape(cfg: MPNNConfig) -> bool:
+    """The configs the decomposed training path runs (the `train` verb's
+    --spmm kernel; mpnn_tpu's `train --packed --spmm kernel` without
+    --fuse-step): the edge-network families, shared or per-step, whose
+    A-form message sum goes through the SpMM hook. The attention
+    families' decomposed path runs the SDDMM kernels (row 11), and the
+    bilinear family's none."""
+    return cfg.message_fn == "edge_network" and supported(cfg)
+
+
 def check_supported(cfg: MPNNConfig) -> None:
     if cfg.message_fn == "bilinear":
         check_bilinear_widths(cfg.node_features, cfg.edge_features)

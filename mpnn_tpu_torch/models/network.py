@@ -130,22 +130,29 @@ def mpnn_input(net: Network, batch, *, training: bool = False):
 
 
 def network_apply_packed(net: Network, batch, *, fused: bool = True,
-                         training: bool = False):
+                         training: bool = False,
+                         hooks: Optional[dict] = None):
     """Packed-batch network forward. With `fused` the MPNN core runs
     through the whole-step kernels (models/fused_train.py): the eval
     kernel, or in training the forward/backward kernels; with fused=False
-    through the plain model (models/sparse.py). Eval mode returns out
+    through the plain model (models/sparse.py). `hooks` — the keyword
+    hooks of sparse_mpnn_apply (spmm_vocab_fn, recurrence_fn,
+    edge_mlp_fn) — select the JAX package's decomposed path: the plain
+    model with those ops, whatever `fused` says. Eval mode returns out
     (num_graphs, head_output); training mode normalizes with batch
-    statistics and returns (out, new_state) — the running statistics after
-    this step in the JAX state layout (nafm_bn, mpnn, head_bn); write them
-    into the module with assign_state."""
+    statistics and returns (out, new_state) — the running statistics
+    after this step in the JAX state layout (nafm_bn, mpnn, head_bn);
+    write them into the module with assign_state."""
     from mpnn_tpu_torch.models.fused_train import (fused_mpnn_eval,
                                                    fused_mpnn_out)
     from mpnn_tpu_torch.models.sparse import sparse_mpnn_apply
+    if hooks is not None:
+        fused = False
+    hooks = hooks or {}
     if not training:
         mb = mpnn_input(net, batch)
         out = fused_mpnn_eval(net.mpnn, mb) if fused \
-            else sparse_mpnn_apply(net.mpnn, mb)
+            else sparse_mpnn_apply(net.mpnn, mb, **hooks)
         if net.cfg.head_bn:
             out = bn_rows_eval(net.head_bn, out)
         return _head(net, out)
@@ -154,7 +161,7 @@ def network_apply_packed(net: Network, batch, *, fused: bool = True,
     if nafm_state is not None:
         new_state["nafm_bn"] = nafm_state
     out, new_state["mpnn"] = fused_mpnn_out(net.mpnn, mb) if fused \
-        else sparse_mpnn_apply(net.mpnn, mb, training=True)
+        else sparse_mpnn_apply(net.mpnn, mb, training=True, **hooks)
     if net.cfg.head_bn:
         out, new_state["head_bn"] = bn_rows_train(net.head_bn, out)
     return _head(net, out), new_state

@@ -8,6 +8,13 @@ the JAX package's loop does: nothing here assumes the kernels' collapse.
 The bilinear family runs its per-edge message from the edge features
 themselves, in the reference's literal index order.
 
+The edge-network families take the JAX package's hooks of the decomposed
+training path (its `train --packed --spmm kernel`): `spmm_vocab_fn`, the
+A-form message sum (kernels/spmm.py), `recurrence_fn`, the whole BN→GRU→BN
+chain of the lipo family in one op (kernels/recurrence.py, where
+recurrence_eligible), and `edge_mlp_fn`, the vocab chain
+(kernels/edge_mlp.py). Without them every piece is plain PyTorch.
+
 Exactness of the A-form for the edge-network family (bias leakage): with
 A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
 
@@ -20,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from mpnn_tpu_torch.graphs.batching import plan_from_batch
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.kernels.set2vec import set2vec_reference
 from mpnn_tpu_torch.models.mpnn import (MPNN, att_shape, att_steps_shape,
@@ -77,15 +85,22 @@ def a_form(mp: EdgeNetwork, pen0, pen_vocab, nf: int, mf: int):
 
 def sparse_edge_network_fused(mp: EdgeNetwork, pen0, h, edge_src,
                               edge_dst, node_graph, graph_mask, *, nf: int,
-                              mf: int, pen_vocab, edge_vid):
+                              mf: int, pen_vocab, edge_vid,
+                              spmm_vocab_fn=None, plan=None):
     """m = SpMM(edges) + A(0)·S_graph + message_bias (the A-form branch).
-    h: (node_cap, nf) → (node_cap, mf)."""
+    h: (node_cap, nf) → (node_cap, mf). With spmm_vocab_fn the SpMM is
+    spmm_vocab_fn(amat, h, vid, src, dst, plan) (plan: the batch's index
+    plan); the A0 term and message_bias stay here, as the JAX package
+    keeps them in XLA."""
     node_cap = h.shape[0]
     amat, a0 = a_form(mp, pen0, pen_vocab, nf, mf)
-    v2 = torch.einsum("kmf,nf->knm", amat, h)                 # (K, N, mf)
-    edge_msg = v2[edge_vid.long(), edge_src.long()]
-    agg = h.new_zeros((node_cap, mf)).index_add_(0, edge_dst.long(),
-                                                 edge_msg)
+    if spmm_vocab_fn is not None:
+        agg = spmm_vocab_fn(amat, h, edge_vid, edge_src, edge_dst, plan)
+    else:
+        v2 = torch.einsum("kmf,nf->knm", amat, h)             # (K, N, mf)
+        edge_msg = v2[edge_vid.long(), edge_src.long()]
+        agg = h.new_zeros((node_cap, mf)).index_add_(0, edge_dst.long(),
+                                                     edge_msg)
     num_graphs = graph_mask.shape[0]
     ng = node_graph.long()
     s = h.new_zeros((num_graphs + 1, h.shape[1])).index_add_(0, ng, h)
@@ -302,25 +317,30 @@ def psteps_new_state(mpnn: MPNN, ma_stats, step_stats) -> dict:
     return state
 
 
-def _sparse_psteps_apply(mpnn: MPNN, batch, *, training: bool):
+def _sparse_psteps_apply(mpnn: MPNN, batch, *, training: bool,
+                         spmm_vocab_fn=None, edge_mlp_fn=None):
     """The per-step family's plain loop: step t's messages from the
     INITIAL state through its own message network, its own norms, the
-    stateless norm where configured, the gated readout."""
+    stateless norm where configured, the gated readout. The hooks as in
+    sparse_mpnn_apply: the SpMM once per step, as the JAX loop calls it."""
     cfg = mpnn.cfg
     mask = batch["node_mask"]
     node_graph = batch["node_graph"]
     graph_mask = batch["graph_mask"]
+    plan = plan_from_batch(batch) if spmm_vocab_fn is not None else None
     h0, edge_feats, updates = input_transforms(mpnn, batch,
                                                training=training)
     ma_stats, step_stats = [], []
     h = h0
     for t, mp in enumerate(mpnn.message):
         pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                             batch["edge_vfirst"])
+                                             batch["edge_vfirst"],
+                                             edge_mlp_fn)
         msgs = sparse_edge_network_fused(
             mp, pen0, h0, batch["edge_src"], batch["edge_dst"], node_graph,
             graph_mask, nf=cfg.node_features, mf=cfg.message_features,
-            pen_vocab=pen_vocab, edge_vid=batch["edge_vid"])
+            pen_vocab=pen_vocab, edge_vid=batch["edge_vid"],
+            spmm_vocab_fn=spmm_vocab_fn, plan=plan)
         if cfg.msg_norm == "bn1d":
             msgs = _norm_train(mpnn.ma_bn[t], msgs, mask, ma_stats) \
                 if training else mpnn.ma_bn[t](msgs, mask)
@@ -341,15 +361,41 @@ def _sparse_psteps_apply(mpnn: MPNN, batch, *, training: bool):
     return out, new_state
 
 
-def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
+def recurrence_eligible(cfg: MPNNConfig, *, training: bool) -> bool:
+    """True when the fused recurrence (kernels/recurrence.py) computes
+    exactly this config's step loop: messages constant across steps
+    (message_input='initial' + shared weights) and one shared bn1d pair
+    (a copy of mpnn_tpu/models/sparse.py::recurrence_eligible; training
+    only, as there)."""
+    return (training
+            and cfg.message_fn in ("edge_network", "ggnn")
+            and cfg.message_features == cfg.node_features
+            and cfg.share_message_weights
+            and cfg.message_input == "initial"
+            and cfg.update_hidden == "state"
+            and cfg.msg_norm == "bn1d" and cfg.state_norm == "bn1d"
+            and not cfg.per_step_norms
+            and not cfg.concat_state_history
+            and not cfg.remat)
+
+
+def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False,
+                      spmm_vocab_fn=None, recurrence_fn=None,
+                      edge_mlp_fn=None):
     """Packed-batch MPNN forward. batch: dict of tensors with node_feats,
     node_mask, node_graph, edge_src, edge_dst, edge_feats, edge_mask,
-    graph_mask, edge_vid, edge_vfirst. Eval mode returns out (G, od);
-    training mode normalizes with batch statistics and returns
-    (out, new_state), new_state as mpnn_new_state (shared family) or
-    psteps_new_state (per-step family, with the output norm's) gives it,
-    empty for the attention and bilinear families (no norm with running
-    state)."""
+    graph_mask, edge_vid, edge_vfirst (and the index plan, PLAN_KEYS, for
+    spmm_vocab_fn). Eval mode returns out (G, od); training mode
+    normalizes with batch statistics and returns (out, new_state),
+    new_state as mpnn_new_state (shared family) or psteps_new_state
+    (per-step family, with the output norm's) gives it, empty for the
+    attention and bilinear families (no norm with running state).
+
+    The edge-network families take the hooks of mpnn_tpu's
+    sparse_mpnn_apply: spmm_vocab_fn(amat, h, vid, src, dst, plan) for the
+    message sum, edge_mlp_fn for the vocab chain, and in training
+    recurrence_fn(msgs, h0, mask, gru, ma_bn, bn) → (h_T, ma_stats,
+    step_stats) for the whole step chain where recurrence_eligible."""
     cfg = mpnn.cfg
     check_supported(cfg)
     if att_shape(cfg) or att_steps_shape(cfg) or bilinear_shape(cfg):
@@ -357,7 +403,9 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
                else _sparse_att_apply)(mpnn, batch)
         return (out, {}) if training else out
     if not shared_shape(cfg):
-        return _sparse_psteps_apply(mpnn, batch, training=training)
+        return _sparse_psteps_apply(mpnn, batch, training=training,
+                                    spmm_vocab_fn=spmm_vocab_fn,
+                                    edge_mlp_fn=edge_mlp_fn)
     mask = batch["node_mask"]
     node_graph = batch["node_graph"]
     graph_mask = batch["graph_mask"]
@@ -366,13 +414,27 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False):
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
     mp = mpnn.message[0]
     pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                         batch["edge_vfirst"])
+                                         batch["edge_vfirst"], edge_mlp_fn)
     # messages from the INITIAL features with shared weights: constant
     # across steps, computed once
     msgs = sparse_edge_network_fused(
         mp, pen0, h0, batch["edge_src"], batch["edge_dst"], node_graph,
         graph_mask, nf=cfg.node_features, mf=cfg.message_features,
-        pen_vocab=pen_vocab, edge_vid=batch["edge_vid"])
+        pen_vocab=pen_vocab, edge_vid=batch["edge_vid"],
+        spmm_vocab_fn=spmm_vocab_fn,
+        plan=plan_from_batch(batch) if spmm_vocab_fn is not None else None)
+    if recurrence_fn is not None and recurrence_eligible(cfg,
+                                                         training=training):
+        # the whole BN→GRU→BN chain in one op; the running statistics
+        # folded as the sequential loop would have recorded them
+        h, ma_stats, step_stats = recurrence_fn(
+            msgs, h0, mask, mpnn.gru.as_dict(),
+            {"weight": mpnn.ma_bn[0].weight, "bias": mpnn.ma_bn[0].bias},
+            {"weight": mpnn.bn[0].weight, "bias": mpnn.bn[0].bias})
+        out = sparse_graph_level_output(mpnn.readout,
+                                        torch.cat([h, h0], dim=-1), mask,
+                                        node_graph, num_graphs)
+        return out, mpnn_new_state(mpnn, ma_stats, step_stats)
     ma_stats, step_stats = None, []
     if cfg.msg_norm == "bn1d":
         ma = mpnn.ma_bn[0]

@@ -8,7 +8,12 @@ Verbs (both run on `cuda` unless --device cpu):
            seed), per-epoch validation through the eval kernel, one
            checkpoint per epoch in --ckpt-dir, per-step losses and
            per-epoch records in --log; prints one JSON line with the
-           history's last record and the test metrics.
+           history's last record and the test metrics. With --spmm kernel
+           the training step takes the decomposed path instead (the JAX
+           package's `train --packed --spmm kernel` without --fuse-step):
+           the plain model with the SpMM kernels for each message sum and
+           the step loop in PyTorch ops (the edge-network families; the
+           attention models raise: their SDDMM kernels are still to port).
   predict  checkpoint + SMILES CSV → predictions, one JSON line per
            molecule: {"index": i, "pred": x}, or for a classification
            experiment {"index": i, "pred": argmax, "logits": [...]} — the
@@ -135,6 +140,11 @@ def cmd_train(args):
                                    ("ckpt_dir", args.ckpt_dir),
                                    ("log_path", args.log))
                  if v is not None}
+    if args.spmm is not None:
+        # the JAX CLI has no --fuse-recurrence: its decomposed path runs
+        # the step loop in XLA, as this one runs it in PyTorch ops
+        # (fuse_recurrence keeps its default, False)
+        overrides["fuse_step"] = False
     tcfg = dataclasses.replace(exp.train, **overrides)
     # the reference split: 0.1 test, then 0.1 validation, random_state =
     # the seed (test_lipo.py:143-146)
@@ -161,6 +171,10 @@ def main(argv=None):
     tr.add_argument("--ckpt-dir")
     tr.add_argument("--log", help="append every step's loss and every "
                                   "epoch's record as JSON lines")
+    tr.add_argument("--spmm", choices=["kernel"],
+                    help="train through the decomposed path: the SpMM "
+                         "kernels for the message sums, the step loop in "
+                         "PyTorch ops (default: the whole-step kernels)")
     tr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="cuda (the CUDA training kernels, default) or cpu "
                          "(their plain PyTorch versions)")

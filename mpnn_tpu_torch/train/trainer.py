@@ -5,7 +5,12 @@ evaluate, the mse, ce and ecfp_mse losses, the F1 checkpoint gate).
 On an eligible config every training batch takes the whole-step training
 kernels (one forward and one backward launch per step) and every
 evaluation batch the whole-step eval kernel — on `cuda` the CUDA kernels,
-on `cpu` their plain versions. There is no small-batch crossover and no
+on `cpu` their plain versions. With fuse_step=False the training step
+takes the decomposed path instead (mpnn_tpu's `train --packed --spmm
+kernel`): the plain model with the SpMM kernels for the message sum, the
+edge-MLP chain kernels and, with fuse_recurrence, the fused recurrence
+kernels for the lipo family's step chain (decomposed_hooks); validation
+stays on the eval kernel. There is no small-batch crossover and no
 silent fallback: an ineligible config raises.
 """
 
@@ -22,7 +27,11 @@ import torch
 
 from mpnn_tpu_torch.device import require_on, resolve_device
 from mpnn_tpu_torch.graphs.dataloader import GraphLoader
+from mpnn_tpu_torch.kernels.edge_mlp import make_edge_mlp_op
+from mpnn_tpu_torch.kernels.recurrence import make_recurrence_op
+from mpnn_tpu_torch.kernels.spmm import make_spmm_op
 from mpnn_tpu_torch.models.fused_train import fused_eval_eligible
+from mpnn_tpu_torch.models.mpnn import bilinear_shape, decomposed_shape
 from mpnn_tpu_torch.models.network import (Network, NetworkConfig,
                                            assign_state, network_apply_packed,
                                            network_init)
@@ -35,9 +44,14 @@ from mpnn_tpu_torch.train.optim import (ReduceLROnPlateau, adam,
 @dataclasses.dataclass
 class TrainConfig:
     """mpnn_tpu's TrainConfig fields that the ported path reads. The
-    packed collation, the whole-step kernels and a shuffled loader are the
-    only path, so `packed`/`fuse_step`/`shuffle` have no switch here. The
-    loss defaults to mse (the port's first experiment, lipo)."""
+    packed collation and a shuffled loader are the only path, so
+    `packed`/`shuffle` have no switch here. The training step takes the
+    whole-step kernels (fuse_step, the default: the port's first path) or
+    the decomposed path (fuse_step=False: the SpMM kernels, and with
+    fuse_recurrence the recurrence kernels, as the JAX package's
+    spmm='kernel' path, whose fuse_step defaults to False; the port has
+    no other SpMM backend, so `spmm` has no switch either). The loss
+    defaults to mse (the port's first experiment, lipo)."""
     epochs: int = 100
     batch_size: int = 16
     learning_rate: float = 1e-3
@@ -52,6 +66,12 @@ class TrainConfig:
     # below this (test_adv.py:96-98)
     early_stop_loss: Optional[float] = None
     log_path: Optional[str] = None   # JSON lines: every step, every epoch
+    # the whole-step kernels (one forward and one backward launch per
+    # step); False: the decomposed path below
+    fuse_step: bool = True
+    # the decomposed path runs the lipo family's BN→GRU→BN chain as one
+    # op (kernels/recurrence.py; configs where recurrence_eligible)
+    fuse_recurrence: bool = False
 
 
 def batch_to_device(batch: dict, device) -> dict:
@@ -123,18 +143,37 @@ def batch_loss(kind: str, out: torch.Tensor, tb: dict) -> torch.Tensor:
     return LOSSES[kind](out, tb["labels"], tb["graph_mask"])
 
 
+def decomposed_hooks(net_cfg: NetworkConfig, cfg: TrainConfig
+                     ) -> Optional[dict]:
+    """The decomposed path's ops for a run (None with cfg.fuse_step), as
+    mpnn_tpu/train/trainer.py builds them once per run: the SpMM hook, the
+    edge-MLP chain op, and with cfg.fuse_recurrence the recurrence op
+    where the config is recurrence_eligible."""
+    from mpnn_tpu_torch.models.sparse import recurrence_eligible
+    if cfg.fuse_step:
+        return None
+    m = net_cfg.mpnn
+    rec = None
+    if cfg.fuse_recurrence and recurrence_eligible(m, training=True):
+        rec = make_recurrence_op(m.message_steps, m.node_features)
+    return {"spmm_vocab_fn": make_spmm_op(), "recurrence_fn": rec,
+            "edge_mlp_fn": make_edge_mlp_op(m.edge_mlp_tail_repeats)}
+
+
 def train_step(net: Network, opt: torch.optim.Optimizer, tb: dict,
-               fused: bool = True, loss_kind: str = "mse") -> torch.Tensor:
+               fused: bool = True, loss_kind: str = "mse",
+               hooks: Optional[dict] = None) -> torch.Tensor:
     """One optimizer step on a device batch: the network in training mode
-    (the training kernels with `fused`, else the plain model), the masked
-    loss, its gradient, Adam, and the running statistics written back.
-    A parameter the loss does not reach (the autoencoders' decoders) gets
-    a zero gradient, so the coupled weight decay moves it as the JAX
-    package's optimizer does. Returns the loss (a device scalar, not
-    synchronized)."""
+    (the training kernels with `fused`, else the plain model; the plain
+    model with the decomposed path's `hooks` from decomposed_hooks where
+    given), the masked loss, its gradient, Adam, and the running
+    statistics written back. A parameter the loss does not reach (the
+    autoencoders' decoders) gets a zero gradient, so the coupled weight
+    decay moves it as the JAX package's optimizer does. Returns the loss
+    (a device scalar, not synchronized)."""
     opt.zero_grad(set_to_none=True)
     out, new_state = network_apply_packed(net, tb, fused=fused,
-                                          training=True)
+                                          training=True, hooks=hooks)
     loss = batch_loss(loss_kind, out, tb)
     loss.backward()
     for p in net.parameters():
@@ -209,20 +248,33 @@ def _gate_ok(cfg: TrainConfig, record: dict) -> bool:
         and f1 > cfg.ckpt_f1_gate
 
 
-def _check_trainable(net_cfg: NetworkConfig, loader: GraphLoader) -> None:
+def _check_trainable(net_cfg: NetworkConfig, cfg: TrainConfig,
+                     loader: GraphLoader) -> None:
     probe = loader._collate_chunk(
         np.arange(min(loader.batch_size, len(loader.graphs))))
     if not fused_eval_eligible(net_cfg.mpnn, probe):
         raise NotImplementedError(
             "this config or batch is not trained by the fused step "
             "kernels; the other families are still to port (ROADMAP)")
+    if cfg.fuse_step:
+        return
+    m = net_cfg.mpnn
+    if not decomposed_shape(m):       # the attention or bilinear family
+        raise NotImplementedError(
+            "the bilinear family's decomposed path runs no kernel in the "
+            "JAX package (its message is plain XLA); train it with the "
+            "whole-step kernels (fuse_step)" if bilinear_shape(m) else
+            "the attention models' decomposed path runs the SDDMM kernels "
+            "(mpnn_tpu/kernels/sddmm.py, row 11 of PERF.md), still to "
+            "port; train them with the whole-step kernels (fuse_step)")
 
 
 def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
           val_graphs=None, *, net: Optional[Network] = None, device=None
           ) -> Tuple[Network, List[dict]]:
     """The epoch loop of mpnn_tpu's train(): Adam (coupled weight decay)
-    on shuffled packed batches through the training kernels, the running
+    on shuffled packed batches through the training kernels (or, with
+    cfg.fuse_step=False, the decomposed path's kernels), the running
     statistics written back after each step, per-epoch validation through
     the eval kernel, the plateau schedule on the validation loss, and one
     checkpoint per epoch (`ckpt_<epoch>.npz` in cfg.ckpt_dir, readable by
@@ -246,7 +298,8 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
                                seed=cfg.seed)
     val_loader = (GraphLoader(val_graphs, cfg.batch_size)
                   if val_graphs else None)
-    _check_trainable(net_cfg, train_loader)
+    _check_trainable(net_cfg, cfg, train_loader)
+    hooks = decomposed_hooks(net_cfg, cfg)
     history, step = [], 0
     with contextlib.ExitStack() as stack:
         log = (stack.enter_context(open(cfg.log_path, "a"))
@@ -256,7 +309,7 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
             for batch in train_loader:
                 loss = float(train_step(net, opt,
                                         batch_to_device(batch, device),
-                                        loss_kind=cfg.loss))
+                                        loss_kind=cfg.loss, hooks=hooks))
                 epoch_loss += loss
                 if log:
                     log.write(json.dumps({"epoch": epoch, "step": step,

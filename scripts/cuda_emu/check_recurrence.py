@@ -1,0 +1,91 @@
+"""The fused recurrence kernels (csrc/recurrence_fwd.cu,
+csrc/recurrence_bwd.cu) run on the CPU through the CUDA stand-in, driven
+through the port's own op (kernels/recurrence.py: the checks, the
+autograd Function, the residual stash) and held against the plain version
+reference_recurrence: h_T, both statistics and every gradient leaf, in
+the narrow (f <= 16) and the wide bucket (f <= 32), with a random mask,
+node counts that leave a chunk ragged and more chunks than blocks; then
+the serving launch (no residuals); then, at GRU weights past the init
+scale, the kernels against a float64 run. A rehearsal before a chip call;
+timings mean nothing here. Run from the repository root:
+
+    python scripts/cuda_emu/check_recurrence.py [--asan]
+
+which builds the four libraries first. Exits non-zero when a case
+disagrees beyond 1e-4 / 1e-5 (gradients scaled by each leaf's max abs).
+"""
+
+import os
+import sys
+
+import torch
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+sys.path[:0] = [HERE, os.path.join(os.path.dirname(os.path.dirname(HERE)),
+                                   "tests")]
+
+import emu                                                     # noqa: E402
+from mpnn_tpu_torch.kernels import recurrence as R             # noqa: E402
+from chip_smoke import (rec_case, rec_distances,              # noqa: E402
+                        rec_float64, rec_value_and_grads)
+
+
+def close(got, want):
+    return bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
+
+
+def case(seed, n, f, steps):
+    args, leaves, g = rec_case(n, f, torch.Generator().manual_seed(seed),
+                               "cpu")
+    R.reset_launch_counts()
+    got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+    assert R.launch_counts == {"recurrence_fwd": 1, "recurrence_bwd": 1}
+    want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                               steps)
+    ok = all(close(x, y) for x, y in zip(got[0], want[0]))
+    ef = max(float((x - y).abs().max()) for x, y in zip(got[0], want[0]))
+    eb = 0.0
+    for name, w in want[1].items():
+        scale = float(w.abs().max()) or 1.0
+        eb = max(eb, float(((got[1][name] - w) / scale).abs().max()))
+        ok = ok and close(got[1][name] / scale, w / scale)
+    with torch.no_grad():
+        served = R.recurrence(*args, steps=steps)[0]
+    ok = ok and close(served, want[0][0])
+    print(f"N={n} f={f} T={steps}: fwd+stats {ef:.2e} grads {eb:.2e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def float64_case(seed, n, f, steps):
+    """GRU weights N(0, 0.3²): the kernels within 1e-4 / 1e-5 of a float64
+    run of the plain chain, the plain chain's distance beside them."""
+    args, leaves, g = rec_case(n, f, torch.Generator().manual_seed(seed),
+                               "cpu", weight_sd=0.3)
+    exact = rec_float64(args, leaves, g, steps)
+    ef, eg, ok = rec_distances(
+        rec_value_and_grads(R.recurrence, args, leaves, g, steps), exact)
+    pf, pg, _ = rec_distances(rec_value_and_grads(
+        R.reference_recurrence, args, leaves, g, steps), exact)
+    print(f"N={n} f={f} T={steps} N(0, 0.3²) weights vs float64: kernels "
+          f"{ef:.2e} grads {eg:.2e}, plain {pf:.2e} grads {pg:.2e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    return ok
+
+
+def main(argv) -> int:
+    emu.build(["recurrence_fwd:FwdArgs", "recurrence_bwd:BwdArgs",
+               "recurrence_fwd.f32:FwdArgs", "recurrence_bwd.f32:BwdArgs"],
+              asan="--asan" in argv)
+    emu.emulate(R)
+    oks = [case(0, 256, 10, 4),           # TestRecurrence's shape
+           case(1, 700, 10, 6),           # 6 chunks on 3 blocks, ragged
+           case(2, 300, 24, 3),           # the wide bucket
+           case(3, 130, 32, 2),
+           case(4, 40, 7, 1),
+           float64_case(5, 700, 30, 6)]
+    return 0 if all(oks) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

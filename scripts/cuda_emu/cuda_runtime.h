@@ -15,6 +15,7 @@
 #include <cstddef>
 #include <cstdio>
 #include <limits>
+#include <map>
 #include <memory>
 #include <thread>
 #include <type_traits>
@@ -95,12 +96,23 @@ inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, T,
   return cudaSuccess;
 }
 // The most dynamic shared memory a block of the card may take (H100:
-// 227 KB); a launch or attribute above it fails, as on the card.
+// 227 KB); an attribute above it fails, as on the card. A launch fails
+// above its kernel's limit: 48 KB until cudaFuncSetAttribute sets it,
+// and then what was set last, lower or higher.
 constexpr size_t kEmuMaxSmem = 232448;
+constexpr size_t kEmuDefaultSmem = 49152;
 inline cudaError_t emu_last_error = cudaSuccess;
+inline std::map<const void*, size_t> emu_smem_limit;
+inline size_t emu_limit_of(const void* kernel) {
+  const auto it = emu_smem_limit.find(kernel);
+  return it == emu_smem_limit.end() ? kEmuDefaultSmem : it->second;
+}
 template <class T>
-inline cudaError_t cudaFuncSetAttribute(T, cudaFuncAttribute, int bytes) {
-  return size_t(bytes) > kEmuMaxSmem ? cudaErrorInvalidValue : cudaSuccess;
+inline cudaError_t cudaFuncSetAttribute(T kernel, cudaFuncAttribute,
+                                        int bytes) {
+  if (size_t(bytes) > kEmuMaxSmem) return cudaErrorInvalidValue;
+  emu_smem_limit[(const void*)kernel] = size_t(bytes);
+  return cudaSuccess;
 }
 inline cudaError_t cudaGetLastError() {
   const cudaError_t e = emu_last_error;
@@ -148,7 +160,7 @@ static void (*emu_runner)(const void*, void*, unsigned, unsigned,
 inline cudaError_t cudaLaunchCooperativeKernel(const void* kernel, dim3 grid,
                                                dim3 block, void** args,
                                                size_t smem, cudaStream_t) {
-  if (smem > kEmuMaxSmem) return cudaErrorInvalidValue;
+  if (smem > emu_limit_of(kernel)) return cudaErrorInvalidValue;
   emu_runner(kernel, args[0], grid.x, block.x, smem);
   return cudaSuccess;
 }
@@ -162,7 +174,7 @@ template <class T> inline unsigned emu_x(T v) {
 template <class Args, class G, class B>
 inline void emu_launch(void (*kernel)(Args), G grid, B block, size_t smem,
                        cudaStream_t, Args a) {
-  if (smem > kEmuMaxSmem) {
+  if (smem > emu_limit_of((const void*)kernel)) {
     emu_last_error = cudaErrorInvalidValue;
     return;
   }

@@ -7,8 +7,11 @@ its times and profiles mean nothing. Run from the repository root:
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
 phases: mlp-kernel-check, mlp-times, wide, bil-kernel-check, bil-serve,
-bil-train, bil-times, ecfp (default all). The wide phase runs on 48
-molecules with set2vec cut to 3 steps; bil-train and ecfp on 64.
+bil-train, bil-times, ecfp, spmm-kernel-check, rec-kernel-check,
+dec-train, dec-times (default all). The wide phase runs on 48 molecules
+with set2vec cut to 3 steps; bil-train, ecfp and dec-train on 64;
+rec-kernel-check at b16's and 2,000 node slots; dec-times at batch 16
+and 48, without a trace (the stand-in has no device to trace).
 """
 
 import dataclasses
@@ -25,7 +28,8 @@ import torch                                                   # noqa: E402
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
                                     fused_att_steps, fused_bilinear,
-                                    fused_psteps, fused_step, set2vec)
+                                    fused_psteps, fused_step, recurrence,
+                                    set2vec, spmm)
 
 ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
@@ -34,7 +38,9 @@ ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_att_steps_fwd": "FwdArgs", "fused_att_steps_bwd": "BwdArgs",
         "set2vec_fwd": "FwdArgs", "set2vec_bwd": "BwdArgs",
         "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs",
-        "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs"}
+        "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs",
+        "spmm_fwd": "FwdArgs", "spmm_da": "DaArgs",
+        "recurrence_fwd": "FwdArgs", "recurrence_bwd": "BwdArgs"}
 
 
 class _Event:
@@ -52,7 +58,7 @@ def main(argv) -> int:
     emu.build([f"{lib}:{ARGS[lib.partition('.')[0]]}"
                for lib in emu.B.all_libraries()])
     emu.emulate(fused_step, fused_psteps, fused_att, fused_att_steps,
-                set2vec, edge_mlp, fused_bilinear)
+                set2vec, edge_mlp, fused_bilinear, spmm, recurrence)
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.Event = _Event
     cpu = torch.device("cpu")
@@ -67,6 +73,9 @@ def main(argv) -> int:
     CS._events_ms = lambda fn, reps, warm=5: (fn(), 0.0)[1]
     CS.WIDE_ROWS = 48
     CS.TRAIN_ROWS = CS.ECFP_ROWS = 64
+    CS.REC_NODES = (2000,)
+    CS.DEC_TIMES_BATCHES = (16, 48)
+    CS._dec_trace = lambda *a: (0.0, "no trace (emulated)")
     # set2vec's 100 steps cut to 3: the stand-in takes seconds a step
     from mpnn_tpu_torch.models import zoo
     for name in ("adv", "att"):
@@ -82,7 +91,11 @@ def main(argv) -> int:
               "bil-serve": lambda: CS.phase_bil_serve(cpu),
               "bil-train": lambda: CS.phase_bil_train(cpu),
               "bil-times": lambda: CS.phase_bil_times(cpu, "emulated"),
-              "ecfp": lambda: CS.phase_ecfp(cpu, "emulated")}
+              "ecfp": lambda: CS.phase_ecfp(cpu, "emulated"),
+              "spmm-kernel-check": lambda: CS.phase_spmm_kernel_check(cpu),
+              "rec-kernel-check": lambda: CS.phase_rec_kernel_check(cpu),
+              "dec-train": lambda: CS.phase_dec_train(cpu),
+              "dec-times": lambda: CS.phase_dec_times(cpu, "emulated")}
     for name in argv or list(phases):
         phases[name]()
     return 0

@@ -1178,3 +1178,180 @@ def test_ecfp_models_on_card(model, tmp_path):
                                         fused=fused, loss_kind="ecfp_mse"))
                        for b, _ in zip(loader, range(3))])
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+
+
+def spmm_problem(rng, g, f=10, k=8, device="cuda"):
+    """The SpMM's arguments on a _problem batch (ragged graphs of 1 to 24
+    nodes, padded edges on the dummy node with vid 0 and A_0 = 0): a
+    random table A (K, f, f), h (N, f) zero on the padded rows, and a
+    cotangent g (N, f). Returns (a, h, vid, src, dst, plan, g)."""
+    p = _problem(rng, g=g, f=f, k=k, device=device)
+    amat = rng.randn(k, f, f).astype(np.float32) * 0.3
+    amat[0] = 0.0
+    n = p[3].shape[0]
+    cot = torch.as_tensor(rng.randn(n, f).astype(np.float32), device=device)
+    return (torch.as_tensor(amat, device=device), p[3], *p[12:16], cot)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,f,k", [(1024, 10, 8), (1024, 30, 64),
+                                   (37, 24, 17), (16, 16, 8),
+                                   (2560, 10, 8)])
+def test_cuda_spmm_kernels_match_plain_version(g, f, k):
+    """spmm_fwd (the forward, and on Aᵀ through the source order the dh
+    of the VJP) and spmm_da against the plain version under autograd, at
+    lipo's bench widths, at f 30 with the full vocab (the wide bucket), on
+    ragged batches and past 32k node slots (g 2560). dA and dh are divided
+    by their max abs; padded edges add exactly nothing."""
+    _need_card()
+    from chip_smoke import spmm_value_and_grads
+    from mpnn_tpu_torch.kernels import spmm as S
+    rng = np.random.RandomState(g + f + k)
+    c = spmm_problem(rng, g, f=f, k=k)
+    S.reset_launch_counts()
+    got = spmm_value_and_grads(S.spmm, *c)
+    torch.cuda.synchronize()
+    assert S.launch_counts == {"spmm_fwd": 2, "spmm_da": 1}
+    want = spmm_value_and_grads(lambda *x: S.spmm_reference(*x[:5]), *c)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    _grads_close(dict(zip("ah", got[1:])), dict(zip("ah", want[1:])))
+    # the padded edges (vid 0 on the dummy node) contribute exactly 0
+    assert not got[0][-1].any() and not got[2][-1].any()
+
+
+@pytest.mark.gpu
+def test_cuda_spmm_vocab_sizes_in_turn():
+    """One process launches the narrow bucket's forward at every vocab
+    size from 64 down to 1, then at 64 again: the forward stages A in K KB
+    of shared memory, and a launch at one K must not leave the kernel's
+    shared-memory limit below a later, larger K's. Each within rtol/atol
+    of the plain version."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import spmm as S
+    for k in [*range(S.MAX_VOCAB, 0, -1), S.MAX_VOCAB]:
+        a, h, vid, src, dst, plan, _ = spmm_problem(
+            np.random.RandomState(k), 5, f=10, k=max(k, 2))
+        a = a[:k].contiguous()
+        vid = vid.clamp(max=k - 1).contiguous()
+        got = S.spmm(a, h, vid, src, dst, plan)
+        torch.testing.assert_close(got, S.spmm_reference(a, h, vid, src,
+                                                         dst),
+                                   rtol=RTOL, atol=ATOL,
+                                   msg=lambda m, k=k: f"K={k}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,steps", [(256, 10, 4), (16512, 10, 6),
+                                       (16512, 30, 6), (32896, 10, 6),
+                                       (300, 24, 3)])
+def test_cuda_recurrence_kernels_match_plain_version(n, f, steps):
+    """recurrence_fwd and recurrence_bwd against reference_recurrence under
+    autograd: h_T, both statistics and every gradient leaf (each divided
+    by its max abs) at b16-like, b1024 (16,512 slots) and 32,896 slots,
+    f 10 and the wide bucket, a random mask; then the serving launch (no
+    residuals) against the same h_T."""
+    _need_card()
+    from chip_smoke import rec_case, rec_value_and_grads
+    from mpnn_tpu_torch.kernels import recurrence as R
+    gen = torch.Generator().manual_seed(n + f + steps)
+    args, leaves, g = rec_case(n, f, gen, "cuda")
+    R.reset_launch_counts()
+    got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+    torch.cuda.synchronize()
+    assert R.launch_counts == {"recurrence_fwd": 1, "recurrence_bwd": 1}
+    want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                               steps)
+    for x, y in zip(got[0], want[0]):
+        torch.testing.assert_close(x, y, rtol=RTOL, atol=ATOL)
+    _grads_close(got[1], want[1])
+    with torch.no_grad():
+        served = R.recurrence(*args, steps=steps)[0]
+    assert R.launch_counts == {"recurrence_fwd": 2, "recurrence_bwd": 1}
+    torch.testing.assert_close(served, want[0][0], rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.gpu
+def test_cuda_recurrence_kernels_near_float64_past_init_scale():
+    """At GRU weights N(0, 0.3²), past the model's init scale, six steps
+    amplify float32 rounding: the kernels' h_T, statistics and gradient
+    leaves (each divided by its max abs) within rtol/atol of a float64
+    run of the plain chain, at b1024's 16,512 slots and f 30."""
+    _need_card()
+    from chip_smoke import (rec_case, rec_distances, rec_float64,
+                            rec_value_and_grads)
+    from mpnn_tpu_torch.kernels import recurrence as R
+    gen = torch.Generator().manual_seed(16548)
+    args, leaves, g = rec_case(16512, 30, gen, "cuda", weight_sd=0.3)
+    got = rec_value_and_grads(R.recurrence, args, leaves, g, 6)
+    ef, eg, ok = rec_distances(got, rec_float64(args, leaves, g, 6))
+    assert ok, (ef, eg)
+
+
+@pytest.mark.gpu
+def test_cuda_spmm_recurrence_wrappers_raise_instead_of_falling_back():
+    _need_card()
+    from chip_smoke import rec_case
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.kernels import spmm as S
+    a, h, vid, src, dst, plan, _ = spmm_problem(np.random.RandomState(1),
+                                                 32)
+    S.reset_launch_counts()
+    R.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        S.spmm(a.double(), h, vid, src, dst, plan)
+    with pytest.raises(ValueError, match="a is on cpu"):
+        S.spmm(a.cpu(), h, vid, src, dst, plan)
+    with pytest.raises(ValueError, match="vid out of range"):
+        S.spmm(a, h, vid + 8, src, dst, plan)
+    wide = spmm_problem(np.random.RandomState(2), 8, f=S.BUCKETS[-1][1]["f"]
+                        + 1)
+    with pytest.raises(NotImplementedError, match="f=33"):
+        S.spmm(*wide[:6])
+    gen = torch.Generator().manual_seed(3)
+    args, _, _ = rec_case(64, 33, gen, "cuda")
+    with pytest.raises(NotImplementedError, match="f=33"):
+        R.recurrence(*args, steps=3)
+    with pytest.raises(NotImplementedError, match="f=33"):
+        R.make_recurrence_op(3, 33)
+    args, _, _ = rec_case(64, 10, gen, "cuda")
+    with pytest.raises(ValueError, match="msgs is on cpu"):
+        R.recurrence(args[0].cpu(), *args[1:], steps=3)
+    assert set(S.launch_counts.values()) | set(R.launch_counts.values()) \
+        == {0}
+
+
+@pytest.mark.gpu
+def test_decomposed_lipo_step_on_card():
+    """Three Adam steps of lipo through the decomposed path (the SpMM
+    kernels, the recurrence kernels, the edge-MLP kernels) against the
+    same steps on the plain path on the card, from the same weights: the
+    losses within rtol 1e-4, each launch count as designed."""
+    device = _need_card()
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.kernels import spmm as S
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (TrainConfig, batch_to_device,
+                                              decomposed_hooks, train_step)
+    smiles = WIDE_SMILES[:23] * 2
+    gs, ge = G.encode_molgraphs(G.generate_molgraphs(smiles,
+                                                     [0.1] * len(smiles)))
+    cfg = zoo.build("lipo", afm=ge.atom_width(), bfm=ge.bond_width(),
+                    nafm=3, n_out=1)
+    loader = G.GraphLoader(gs, 16, collate="packed")
+    batches = [batch_to_device(b, device) for b, _ in zip(loader, range(3))]
+    losses, counts = [], []
+    for hooks in (decomposed_hooks(cfg, TrainConfig(
+            fuse_step=False, fuse_recurrence=True)), None):
+        S.reset_launch_counts()
+        R.reset_launch_counts()
+        net = network_init(cfg, torch.Generator().manual_seed(0), device)
+        opt = adam(net.parameters(), 1e-2, weight_decay=1e-4)
+        losses.append([float(train_step(net, opt, b, fused=False,
+                                        hooks=hooks)) for b in batches])
+        counts.append({**S.launch_counts, **R.launch_counts})
+    np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
+    assert counts == [{"spmm_fwd": 6, "spmm_da": 3, "recurrence_fwd": 3,
+                       "recurrence_bwd": 3}, dict.fromkeys(counts[0], 0)]

@@ -70,7 +70,8 @@ def test_entry_points_default_to_cuda():
 
 @pytest.mark.parametrize("entry", ["network_init", "params_from_jax_arrays",
                                    "load_checkpoint", "evaluate",
-                                   "predict_records", "train"])
+                                   "predict_records", "train",
+                                   "train_decomposed"])
 def test_entry_points_raise_without_card(entry, tmp_path):
     """Each entry point, called without a device on a host with no card,
     raises instead of running on the CPU; with device='cpu' it runs."""
@@ -104,6 +105,9 @@ def test_entry_points_raise_without_card(entry, tmp_path):
             experiments.get("lipo"), gs, ckpt, batch_size=2, **kw)),
         "train": lambda **kw: train(cfg, TrainConfig(epochs=1, batch_size=2),
                                     gs, **kw),
+        "train_decomposed": lambda **kw: train(
+            cfg, TrainConfig(epochs=1, batch_size=2, fuse_step=False,
+                             fuse_recurrence=True), gs, **kw),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -138,7 +142,9 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                   "fused_att_steps_fwd",
                                   "fused_att_steps_bwd", "edge_mlp_fwd",
                                   "edge_mlp_bwd", "fused_bilinear_fwd",
-                                  "fused_bilinear_bwd"}
+                                  "fused_bilinear_bwd", "spmm_fwd",
+                                  "spmm_da", "recurrence_fwd",
+                                  "recurrence_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
     # every source in one family; each wide bucket its own library
@@ -149,6 +155,8 @@ def test_kernel_wrapper_builds_nothing_at_import():
     assert build.defines("fused_psteps_bwd.f32") == ("MPNN_FP=32",
                                                      "MPNN_ODW=128")
     assert build.defines("fused_eval") == ()
+    assert build.defines("spmm_da.f32") == build.defines(
+        "recurrence_bwd.f32") == ("MPNN_FP=32",)
 
 
 @pytest.mark.parametrize("exp", ["graph_norm_classification",

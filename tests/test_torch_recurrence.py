@@ -1,0 +1,115 @@
+"""The fused recurrence op of the decomposed training path on the CPU
+against the JAX package: the port's op (kernels/recurrence.py; its plain
+version on CPU tensors) — h_T, the message norm's and every step's
+statistics, and the gradient of every leaf through autograd — against
+mpnn_tpu/kernels/recurrence.py::reference_recurrence under jax.vjp, and
+once against its Pallas op (make_recurrence_op, interpret mode), on the
+same numpy inputs.
+
+Inputs as tests/test_kernels.py::TestRecurrence._inputs makes them: N 256
+node rows, a quarter of them masked, non-trivial norm affines (so their
+gradients are exercised). Tolerance: values rtol 2e-4 / atol 1e-5, each
+gradient leaf divided by its max abs first (float32 on both sides, batch
+sums in other orders).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from mpnn_tpu.kernels import recurrence as J
+from mpnn_tpu_torch.kernels import recurrence as R
+
+RTOL, ATOL = 2e-4, 1e-5
+N = 256
+LEAVES = ("msgs", "h0", "w_ih", "w_hh", "b_ih", "b_hh", "ma_w", "ma_b",
+          "bn_w", "bn_b")
+
+
+def _inputs(f, seed):
+    rs = np.random.RandomState(seed)
+    x = {"msgs": 0.5 + rs.randn(N, f), "h0": rs.randn(N, f),
+         "w_ih": 0.4 * rs.randn(f, 3 * f), "w_hh": 0.4 * rs.randn(f, 3 * f),
+         "b_ih": 0.1 * rs.randn(3 * f), "b_hh": 0.1 * rs.randn(3 * f),
+         "ma_w": rs.rand(f) + 0.5, "ma_b": rs.randn(f),
+         "bn_w": rs.rand(f) + 0.5, "bn_b": rs.randn(f)}
+    x = {k: v.astype(np.float32) for k, v in x.items()}
+    mask = (rs.rand(N, 1) > 0.25).astype(np.float32)
+    g = rs.randn(N, f).astype(np.float32)
+    return x, mask, g
+
+
+def _split(x):
+    gru = {k: x[k] for k in ("w_ih", "w_hh", "b_ih", "b_hh")}
+    return (gru, {"weight": x["ma_w"], "bias": x["ma_b"]},
+            {"weight": x["bn_w"], "bias": x["bn_b"]})
+
+
+def _port(x, mask, g, steps):
+    """(h_T, ma stats, step stats) and {leaf: gradient} of the port's op
+    for the cotangent g of h_T."""
+    t = {k: torch.tensor(v, requires_grad=True) for k, v in x.items()}
+    ht, ma, st = R.make_recurrence_op(steps, x["h0"].shape[1])(
+        t["msgs"], t["h0"], torch.from_numpy(mask), *_split(t))
+    (ht * torch.from_numpy(g)).sum().backward()
+    assert not ma[0].requires_grad and not st[0][1].requires_grad
+    vals = (ht.detach().numpy(), np.stack([s.numpy() for s in ma]),
+            np.stack([[s.numpy() for s in p] for p in st]))
+    return vals, {k: t[k].grad.numpy() for k in LEAVES}
+
+
+def _jax(fn, x, mask, g, steps):
+    """The same through jax.vjp of fn(msgs, h0, mask, gru, ma, bn); the
+    statistics' cotangents zero, as the loss never reaches them."""
+    def run(msgs, h0, gru, ma, bn):
+        return fn(msgs, h0, jnp.asarray(mask), gru, ma, bn)
+    j = {k: jnp.asarray(v) for k, v in x.items()}
+    (ht, ma, st), vjp = jax.vjp(run, j["msgs"], j["h0"], *_split(j))
+    zeros = jax.tree.map(jnp.zeros_like, (ma, st))
+    dm, dh, dg, dma, dbn = vjp((jnp.asarray(g), *zeros))
+    vals = (np.asarray(ht), np.stack([np.asarray(s) for s in ma]),
+            np.stack([[np.asarray(s) for s in p] for p in st]))
+    grads = {"msgs": dm, "h0": dh, **dg, "ma_w": dma["weight"],
+             "ma_b": dma["bias"], "bn_w": dbn["weight"], "bn_b": dbn["bias"]}
+    return vals, {k: np.asarray(v) for k, v in grads.items()}
+
+
+def _assert_close(got, want):
+    for x, y, name in zip(got[0], want[0], ("h_T", "ma stats",
+                                            "step stats")):
+        np.testing.assert_allclose(x, y, rtol=RTOL, atol=ATOL, err_msg=name)
+    for k in LEAVES:
+        scale = max(float(np.abs(want[1][k]).max()), 1e-30)
+        np.testing.assert_allclose(got[1][k] / scale, want[1][k] / scale,
+                                   rtol=RTOL, atol=ATOL, err_msg=k)
+
+
+@pytest.mark.parametrize("f,steps,seed", [(10, 4, 0), (10, 6, 1),
+                                          (24, 5, 2), (24, 4, 3)])
+def test_plain_chain_matches_reference_recurrence(f, steps, seed):
+    """The port's op on CPU tensors against reference_recurrence and its
+    jax.vjp: h_T, both statistics and every gradient leaf."""
+    x, mask, g = _inputs(f, seed)
+
+    def ref(*a):
+        return J.reference_recurrence(*a, steps=steps)
+    _assert_close(_port(x, mask, g, steps), _jax(ref, x, mask, g, steps))
+
+
+def test_plain_chain_matches_pallas_interpret():
+    """The same against the JAX package's fused Pallas op
+    (make_recurrence_op, interpret mode, its fused backward)."""
+    f, steps = 10, 4
+    x, mask, g = _inputs(f, 7)
+    op = J.make_recurrence_op(steps, f, N, interpret=True, bwd_mode="fused")
+    _assert_close(_port(x, mask, g, steps), _jax(op, x, mask, g, steps))
+
+
+def test_hook_checks_the_width_at_once():
+    """make_recurrence_op names the widths past the kernels' widest bucket
+    when it is made, before any batch."""
+    with pytest.raises(NotImplementedError, match="f=33"):
+        R.make_recurrence_op(6, 33)
+    R.make_recurrence_op(6, 32)
