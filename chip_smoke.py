@@ -157,6 +157,26 @@ Phases, one line each:
                beside the whole-step path's in the same run, the four new
                kernels' times beside their bounds and plain versions'
                (b1024), and the decomposed step's device idle share.
+ 34. sddmm-kernel-check — the attention SDDMM kernels (sddmm_fwd,
+               sddmm_bwd) against their plain version under autograd:
+               adv's b1024 batch in 16,512 node slots (f 7, its own
+               vocab), f 27 and f 32 with 64 vocab ids, mf 13 at nf 10, a
+               ragged batch, b16 and 32,896 slots, every case with
+               aprime[0], h and the cotangent random at the dummy node
+               (rtol 1e-4, atol 1e-5; the five gradients divided by
+               their max abs);
+ 35. dec-att-train — the attention models' decomposed path: `train
+               --spmm kernel` and trainer.train(fuse_step=False) on adv
+               and att (1 epoch at 16), att at afm 27 — each run's exact
+               launch counts (per step and message network 1 + 1 SDDMM
+               and chain launches, 1 + 1 set2vec), its first 3 losses
+               against the plain path (rtol 1e-3) and the first step's
+               parameter gradients (scaled, 1e-4 / 1e-5);
+ 36. dec-att-times — the decomposed adv and att train steps at batch 16
+               and 1024 beside the whole-step path's in the same run, the
+               b1024 steps' device idle share from a trace, and both SDDMM
+               kernels' times beside their bounds and plain versions'
+               (adv b1024).
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -166,6 +186,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import contextlib
+import functools
 import io
 import json
 import math
@@ -3612,41 +3633,37 @@ REC_NODES = (16512, 32896)
 DEC_TIMES_BATCHES = (16, 1024)
 
 
+def _kernel_modules():
+    import importlib
+    return [importlib.import_module(f"mpnn_tpu_torch.kernels.{m}")
+            for m in ("fused_step", "fused_psteps", "fused_att",
+                      "fused_att_steps", "set2vec", "edge_mlp",
+                      "fused_bilinear", "spmm", "recurrence", "sddmm")]
+
+
 def _dec_reset():
-    from mpnn_tpu_torch.kernels import fused_psteps as P
-    from mpnn_tpu_torch.kernels import fused_step as K
-    from mpnn_tpu_torch.kernels import recurrence as R
-    from mpnn_tpu_torch.kernels import spmm as S
-    for mod in (K, P, R, S):
+    for mod in _kernel_modules():
         mod.reset_launch_counts()
-    _mlp_reset()
 
 
 def _dec_take(what, want):
-    """Check the launches since _dec_reset() — the SpMM, recurrence,
-    edge-MLP and eval kernels' — against the design's `want`; add the
-    main path's to DEC_MAIN and MLP_MAIN; return them."""
-    from mpnn_tpu_torch.kernels import edge_mlp as M
-    from mpnn_tpu_torch.kernels import fused_psteps as P
-    from mpnn_tpu_torch.kernels import fused_step as K
-    from mpnn_tpu_torch.kernels import recurrence as R
-    from mpnn_tpu_torch.kernels import spmm as S
-    got = {**S.launch_counts, **R.launch_counts, **M.launch_counts,
-           "fused_eval": K.launch_counts["fused_eval"],
-           "fused_psteps_eval": P.launch_counts["fused_psteps_eval"]}
-    # the training kernels of the whole-step paths stay unlaunched
-    other = {k: v for k, v in {**K.launch_counts, **P.launch_counts}.items()
-             if k not in got and v}
+    """Check the launches since _dec_reset() against the design's `want`:
+    every kernel it names as it says, every other kernel of the port
+    unlaunched; add the main path's to DEC_MAIN, DEC_ATT_MAIN and
+    MLP_MAIN; return them."""
+    counts = {}
+    for mod in _kernel_modules():
+        counts.update(mod.launch_counts)
+    got = {k: counts[k] for k in want}
+    other = {k: v for k, v in counts.items() if k not in want and v}
     if other:
-        raise RuntimeError(f"{what}: whole-step training kernels launched "
-                           f"{other}")
+        raise RuntimeError(f"{what}: other kernels launched {other}")
     if got != want:
         raise RuntimeError(f"{what}: launches {got}, the design's count is "
                            f"{want}")
-    for k in DEC_KERNELS:
-        DEC_MAIN[k] += got[k]
-    for k in MLP_KERNELS:
-        MLP_MAIN[k] += got[k]
+    for main in (DEC_MAIN, DEC_ATT_MAIN, MLP_MAIN):
+        for k in main:
+            main[k] += got.get(k, 0)
     return got
 
 
@@ -3685,10 +3702,41 @@ def spmm_value_and_grads(fn, a, h, vid, src, dst, plan, g):
     return out.detach(), da, dh
 
 
+def sddmm_value_and_grads(fn, aprime, evocab, wa, ba, h, vid, src, dst,
+                          plan, g):
+    """(out, d aprime, d evocab, d wa, d ba, dh) of the SDDMM op `fn` for
+    the cotangent g of out."""
+    import torch
+    leaves = [x.detach().requires_grad_() for x in (aprime, evocab, wa, ba,
+                                                    h)]
+    out = fn(*leaves, vid, src, dst, plan)
+    return (out.detach(), *torch.autograd.grad((out * g).sum(), leaves))
+
+
 def _scaled_within(got, want):
     """_within of got and want each divided by want's max abs."""
     scale = want.abs().max().clamp_min(1e-30)
     return _within(got / scale, want / scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _dec_check_batches(device):
+    """The device batches of the decomposed kernels' checks (spmm- and
+    sddmm-kernel-check), built once: b1024 at the 16,512 node slots the
+    serving path gives it (past the 16,384 where the JAX package changes
+    its layouts), b16, 2,560 molecules in 32,896 slots, and the ragged
+    batch."""
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+        (SMILES * 103)[:1024], [0.0] * 1024))
+    b1024 = batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+        G.collate_packed(gs, node_cap=16512).as_dict(), vocab_cap=8)),
+        device)
+    return (b1024, batch_to_device(_batch(SMILES * 2, 16), device),
+            batch_to_device(_batch((SMILES * 256)[:2560], 2560), device),
+            _ragged_att_batch(device))
 
 
 def phase_spmm_kernel_check(device):
@@ -3701,20 +3749,8 @@ def phase_spmm_kernel_check(device):
     rtol 1e-4 / atol 1e-5; dA and dh each divided by its max abs."""
     import torch
     from mpnn_tpu_torch.kernels import spmm as S
-    from mpnn_tpu_torch.train.trainer import batch_to_device
-    from mpnn_tpu_torch import graphs as G
-    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
     gen = torch.Generator().manual_seed(81)
-    # b1024 at the 16,512 node slots the serving path gives it (past the
-    # 16,384 where the JAX package changes its layouts)
-    gs, _ = G.encode_molgraphs(G.generate_molgraphs(
-        (SMILES * 103)[:1024], [0.0] * 1024))
-    b1024 = batch_to_device(attach_fused_plan(G.attach_edge_vocab(
-        G.collate_packed(gs, node_cap=16512).as_dict(), vocab_cap=8)),
-        device)
-    b16 = batch_to_device(_batch(SMILES * 2, 16), device)
-    big = batch_to_device(_batch((SMILES * 256)[:2560], 2560), device)
-    ragged = _ragged_att_batch(device)
+    b1024, b16, big, ragged = _dec_check_batches(device)
     cases = [("batch1024", b1024, 10, None), ("batch1024", b1024, 30, 64),
              ("ragged", ragged, 10, None), ("ragged", ragged, 30, 64),
              ("batch16", b16, 10, None), ("batch2560", big, 10, None)]
@@ -3911,21 +3947,96 @@ def rec_value_and_grads(fn, args, leaves, g, steps):
             dict(zip(leaves, grads)))
 
 
+@contextlib.contextmanager
+def _deterministic_torch():
+    """PyTorch's deterministic algorithms within the block (its index_add_
+    and scatter sums in a fixed order instead of float atomics; an op
+    without such a version runs as it is, its warning silenced), the
+    previous setting restored after it."""
+    import warnings
+    import torch
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            yield
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+
+
+def _dec_first_grads(cfg, tcfg, batch, device, deterministic=True):
+    """The first step's parameter gradients from the trainer's initial
+    weights (seed tcfg.seed) on `batch`, three ways: the decomposed hooks
+    (float32), the plain model in float32, and the plain model in float64
+    (weights and the batch's floats cast up) as the exact reference. By
+    default under PyTorch's deterministic algorithms: the kernels sum in a
+    fixed order, but the PyTorch ops around them (the readout's index_add_
+    and others) add with float atomics on the card, and lipo's message-
+    network gradient, behind the message batch norm's cancellation, moves
+    with that order by about the tolerance (PERF.md, PR 9;
+    scripts/dec_grad_noise.py). Returns ({leaf: gradient} for each, in
+    that order)."""
+    import torch
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.trainer import batch_loss, decomposed_hooks
+
+    def grads(hooks, dtype):
+        n = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
+                         device).to(dtype)
+        b = {k: (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+                 else v) for k, v in batch.items()}
+        out, _ = network_apply_packed(n, b, fused=False, training=True,
+                                      hooks=hooks)
+        batch_loss(tcfg.loss, out, b).backward()
+        return {k: p.grad for k, p in n.named_parameters()
+                if p.grad is not None}
+
+    with (_deterministic_torch() if deterministic
+          else contextlib.nullcontext()):
+        return (grads(decomposed_hooks(cfg, tcfg), torch.float32),
+                grads(None, torch.float32), grads(None, torch.float64))
+
+
+def _grad_distance(cfg, got, exact):
+    """How far the leaves of `got` lie from `exact` (float64), each
+    divided by exact's max abs: (the largest |difference| / (atol 1e-5 +
+    rtol 1e-4 · |exact|), at most 1 where all lie within; its leaf; the
+    largest difference). message_bias under the message bn1d is zero in
+    theory, its float32 gradient rounding alone: held to atol unscaled."""
+    margin, where, worst = 0.0, None, 0.0
+    for k, w in exact.items():
+        d = got[k].double() - w
+        if k.endswith("message_bias") and cfg.mpnn.msg_norm == "bn1d":
+            m_k, e_k = float(d.abs().max()) / ATOL, 0.0
+        else:
+            scale = w.abs().max().clamp_min(1e-30)
+            d, ws = (d / scale).abs(), (w / scale).abs()
+            m_k, e_k = float((d / (ATOL + RTOL * ws)).max()), float(d.max())
+        if m_k >= margin:
+            margin, where = m_k, k
+        worst = max(worst, e_k)
+    return margin, where, worst
+
+
 def _dec_first_steps(what, cfg, tcfg, train_gs, device, steps):
     """The first 3 steps of a run against the plain path on the card from
     the trainer's initial weights (seed 317) on its first shuffled
     batches: the run's logged losses within rtol 1e-3; and the first
-    step's parameter gradients, the decomposed hooks against the plain
-    model, each divided by its max abs within rtol 1e-4 / atol 1e-5
-    (message_bias under the message bn1d, zero in theory: within atol).
-    Returns (max rel loss difference, max scaled gradient difference)."""
+    step's parameter gradients through the decomposed hooks against the
+    plain model run in float64 (_dec_first_grads), each divided by its max
+    abs within rtol 1e-4 / atol 1e-5. The plain float32 model's own
+    distance from float64 is measured beside it: it is itself a float32
+    computation, not an exact reference. Returns (max rel loss difference,
+    the hooks' max scaled gradient distance from float64, the plain
+    float32 model's)."""
     import torch
     from mpnn_tpu_torch import graphs as G
-    from mpnn_tpu_torch.models.network import (network_apply_packed,
-                                               network_init)
+    from mpnn_tpu_torch.models.network import network_init
     from mpnn_tpu_torch.train.optim import adam
-    from mpnn_tpu_torch.train.trainer import (batch_loss, batch_to_device,
-                                              decomposed_hooks, train_step)
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
     loader = G.GraphLoader(train_gs, tcfg.batch_size, shuffle=True,
                            seed=tcfg.seed)
     batches = [batch_to_device(b, device) for b, _ in zip(loader, range(3))]
@@ -3939,28 +4050,17 @@ def _dec_first_steps(what, cfg, tcfg, train_gs, device, steps):
     if rel > 1e-3:
         raise RuntimeError(f"{what}: first steps {steps[:3]} vs plain path "
                            f"{plain} (rel {rel:.2e} > 1e-3)")
-    grads = []
-    for hooks in (decomposed_hooks(cfg, tcfg), None):
-        n = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
-                         device)
-        out, _ = network_apply_packed(n, batches[0], fused=False,
-                                      training=True, hooks=hooks)
-        batch_loss(tcfg.loss, out, batches[0]).backward()
-        grads.append({k: p.grad for k, p in n.named_parameters()
-                      if p.grad is not None})
-    if set(grads[0]) != set(grads[1]):
-        raise RuntimeError(f"{what}: the two paths reach other leaves")
-    worst = 0.0
-    for k, w in grads[1].items():
-        if k.endswith("message_bias") and cfg.mpnn.msg_norm == "bn1d":
-            ok, err = bool((grads[0][k] - w).abs().max() <= ATOL), 0.0
-        else:
-            ok, err, _ = _scaled_within(grads[0][k], w)
-        worst = max(worst, err)
-        if not ok:
-            raise RuntimeError(f"{what}: first-step gradient of {k}: "
-                               f"{err:.3e} (scaled) from the plain path")
-    return rel, worst
+    dec, p32, exact = _dec_first_grads(cfg, tcfg, batches[0], device)
+    if set(dec) != set(exact) or set(p32) != set(exact):
+        raise RuntimeError(f"{what}: the paths reach other leaves")
+    margin, where, worst = _grad_distance(cfg, dec, exact)
+    p_margin, _, p_worst = _grad_distance(cfg, p32, exact)
+    if margin > 1:
+        raise RuntimeError(f"{what}: first-step gradient of {where}: "
+                           f"{margin:.2f} of the tolerance from float64 "
+                           f"(max scaled {worst:.3e}; the plain float32 "
+                           f"model: {p_margin:.2f}, {p_worst:.3e})")
+    return rel, worst, p_worst
 
 
 def _dec_run(what, argv=None, api=None):
@@ -4054,8 +4154,8 @@ def phase_dec_train(device):
                + n_batches(te, TRAIN_BATCH))
     counts = _dec_take("dec-train verb", want(n_steps, n_evals, 1, 1, 0))
     tcfg = dataclasses.replace(lipo.train, fuse_step=False)
-    rel, gerr = _dec_first_steps("dec-train verb", cfg, tcfg, tr, device,
-                                 steps)
+    rel, gerr, perr = _dec_first_steps(
+        "dec-train verb", cfg, tcfg, tr, device, steps)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         cli.main(["predict", "--experiment", "lipo", "--data", csv,
@@ -4069,7 +4169,8 @@ def phase_dec_train(device):
         f"`train --spmm kernel` lipo ({len(tr)} train molecules, batch "
         f"{TRAIN_BATCH}, {TRAIN_EPOCHS} epochs): {len(steps)} steps in "
         f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
-        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e}; "
+        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e} "
+        f"from float64 (plain float32 {perr:.3e}); "
         f"val_loss {[round(r['val_loss'], 5) for r in epochs]}; predict "
         f"from the checkpoint: {len(preds)} finite predictions")
     # 2. the API with the fused recurrence
@@ -4083,13 +4184,14 @@ def phase_dec_train(device):
                                    api=(cfg, tcfg, tr, va))
     n_evals = TRAIN_EPOCHS * n_batches(va, TRAIN_BATCH)
     counts = _dec_take("dec-train api", want(n_steps, n_evals, 1, 1, 1))
-    rel, gerr = _dec_first_steps("dec-train api", cfg, tcfg, tr, device,
-                                 steps)
+    rel, gerr, perr = _dec_first_steps(
+        "dec-train api", cfg, tcfg, tr, device, steps)
     lines.append(
         f"trainer.train(fuse_step=False, fuse_recurrence=True) lipo: "
         f"{len(steps)} steps in {wall:.2f} s wall, launches {counts}; "
         f"first 3 losses vs plain max rel {rel:.2e}, first-step gradients "
-        f"max_scaled {gerr:.3e}")
+        f"max_scaled {gerr:.3e} from float64 (plain float32 "
+        f"{perr:.3e})")
     # 3. the per-step family through the verb
     exp = experiments.get("graph_norm_classification")
     pcsv = _ps_csv("dec_graph_norm", TRAIN_ROWS)
@@ -4108,14 +4210,15 @@ def phase_dec_train(device):
     counts = _dec_take("dec-train graph_norm", want(
         n_batches(ptr, bs), n_batches(pva, bs) + n_batches(pte, bs),
         pcfg.mpnn.message_steps, 0, 0, psteps=True))
-    rel, gerr = _dec_first_steps(
+    rel, gerr, perr = _dec_first_steps(
         "dec-train graph_norm", pcfg,
         dataclasses.replace(exp.train, fuse_step=False), ptr, device, steps)
     lines.append(
         f"`train --spmm kernel` graph_norm_classification (T "
         f"{pcfg.mpnn.message_steps}, 1 epoch): {len(steps)} steps in "
         f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
-        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e}")
+        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e} "
+        f"from float64 (plain float32 {perr:.3e})")
     # 4. lipo at the wide widths (afm 27: the SpMM's and the recurrence's
     #    wide buckets)
     wcsv = _wide_csv("dec_lipo", "mse", "exp")
@@ -4132,14 +4235,15 @@ def phase_dec_train(device):
                                    api=(wcfg, tcfg, wtr, wva))
     counts = _dec_take("dec-train wide", want(
         n_batches(wtr, TRAIN_BATCH), n_batches(wva, TRAIN_BATCH), 1, 1, 1))
-    rel, gerr = _dec_first_steps("dec-train wide", wcfg, tcfg, wtr, device,
-                                 steps)
+    rel, gerr, perr = _dec_first_steps(
+        "dec-train wide", wcfg, tcfg, wtr, device, steps)
     lines.append(
         f"wide lipo (f {wcfg.mpnn.node_features}, od "
         f"{wcfg.mpnn.output_dim}; trainer.train, fuse_recurrence): "
         f"{len(steps)} steps in {wall:.2f} s wall, launches {counts}; "
         f"first 3 losses vs plain max rel {rel:.2e}, first-step gradients "
-        f"max_scaled {gerr:.3e}")
+        f"max_scaled {gerr:.3e} from float64 (plain float32 "
+        f"{perr:.3e})")
     print("dec-train: " + "; ".join(lines), flush=True)
 
 
@@ -4199,39 +4303,37 @@ def _rec_bounds(n, nr, f, steps):
     return out
 
 
-def _dec_trace(net, opt, b, hooks, device, step_ms):
-    """The decomposed train step's device time in a torch.profiler trace:
-    (busy us, a line with the busy time, the idle share of the step's
-    median and each new kernel's and the chain kernels' device time);
-    fails when one of them shows none."""
+def _dec_trace(what, step, kernels, step_ms):
+    """One decomposed b1024 train step (`step()`, which returns the loss)
+    in a torch.profiler trace: (busy us, a line with the busy time, the
+    device ops, the idle share of the step's median and each of
+    `kernels`' device time); fails when one of them shows none. The
+    trace reads the second of two steps, the first the profiler's
+    warm-up: the first kernels after the profiler starts can go missing
+    from its trace (a single-step trace once lacked the step's first
+    chain kernel)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
-    float(train_step(net, opt, batch_to_device(b, device), hooks=hooks))
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        float(train_step(net, opt, batch_to_device(b, device), hooks=hooks))
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        float(step())
         torch.cuda.synchronize()
-    with open(os.path.join(OUT_DIR, "profile_dec_train_1024.txt"),
+        prof.step()
+        float(step())
+        torch.cuda.synchronize()
+    with open(os.path.join(OUT_DIR, f"profile_dec_{what}_train_1024.txt"),
               "w") as fh:
         fh.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
     busy, ops = _device_ops(prof)
-    kern = {}
-    for e in ops:
-        m = re.search(r"(spmm_(?:fwd|da)|recurrence_(?:fwd|bwd)|"
-                      r"edge_mlp_(?:fwd|bwd))_kernel", e.key)
-        if m:
-            kern[m.group(1)] = kern.get(m.group(1), 0.0) + getattr(
-                e, "self_device_time_total", 0.0)
-    if set(kern) != {*DEC_KERNELS, *MLP_KERNELS} or min(kern.values()) <= 0:
-        raise RuntimeError(f"dec-times: the trace shows device time for "
-                           f"{sorted(kern)} only")
+    kern = {k: sum(getattr(e, "self_device_time_total", 0.0) for e in ops
+                   if f"{k}_kernel" in e.key) for k in kernels}
+    if min(kern.values()) <= 0:
+        raise RuntimeError(f"dec times: the trace shows no device time for "
+                           f"{sorted(k for k, v in kern.items() if v <= 0)}")
     return busy, (
-        f"decomposed b1024 step (H2D + forward + backward + Adam + EMAs + "
-        f"loss read-back) in a trace: device busy {busy:.1f} us in "
-        f"{sum(e.count for e in ops)} device ops, idle share "
+        f"decomposed {what} b1024 step in a trace: device busy {busy:.1f} "
+        f"us in {sum(e.count for e in ops)} device ops, idle share "
         f"{1 - busy / (step_ms * 1e3):.3f} of the {step_ms:.3f} ms median; "
         + ", ".join(f"{k}_kernel {v:.1f} us" for k, v in sorted(kern.items())))
 
@@ -4378,12 +4480,410 @@ def phase_dec_times(device, card):
                      f"{serve_ms * 1e3:.2f} us; spmm_fwd on the "
                      f"{er_i} real edges alone {real_ms * 1e3:.2f} us (the "
                      f"dummy node's row takes the other {dummy_edges})")
-            busy, traced = _dec_trace(net, opt, b, hooks, device,
-                                      out[bs]["step_ms"])
+            busy, traced = _dec_trace(
+                "lipo", lambda: train_step(net, opt, batch_to_device(
+                    b, device), hooks=hooks), DEC_KERNELS + MLP_KERNELS,
+                out[bs]["step_ms"])
             out[bs]["busy_us"] = busy
             line += "; " + traced
         lines.append(line)
     print(f"dec-times [{card}]: " + "; ".join(lines), flush=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the attention models' decomposed training path (adv, att): phases 34-36
+# ---------------------------------------------------------------------------
+
+SDDMM_KERNELS = ("sddmm_fwd", "sddmm_bwd")
+# the SDDMM and set2vec kernels' launches on the main paths (dec-att-train),
+# summed
+DEC_ATT_MAIN = dict.fromkeys(SDDMM_KERNELS + ATT_KERNELS[2:], 0)
+# dec-att-times' batch sizes; the kernels are timed at the last
+DEC_ATT_BATCHES = (16, 1024)
+
+
+def _sddmm_case(tb, f, k, gen, device, mf=None, ef=None):
+    """(aprime, evocab, wa, ba, h, vid, src, dst, plan, gout) on a device
+    batch: h and the cotangent gout random on every row, the padded rows
+    and the dummy node's too (the padded edges all end at the dummy node
+    with vid 0: they carry messages and gradients), aprime random with a
+    row 0 that is not zero (the model's A'_0 = pen(0)·W̃ + Bf), evocab
+    (K, ef), wa, ba random. k None: the batch's own vocabulary (its
+    edge_vid, K its vocab capacity); else k ids drawn at random for the
+    real edges, the padded edges keeping id 0."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    n = tb["node_mask"].shape[0]
+    mf = f if mf is None else mf
+    ef = int(tb["edge_feats"].shape[1]) if ef is None else ef
+    vid = tb["edge_vid"]
+    if k is None:
+        k = int(tb["edge_vfirst"].shape[0])
+    else:
+        rnd = torch.randint(1, k, vid.shape, generator=gen,
+                            dtype=torch.int32).to(device)
+        vid = torch.where(tb["edge_mask"] > 0, rnd,
+                          torch.zeros_like(rnd)).contiguous()
+
+    def r(*shape, s=1.0):
+        return (s * torch.randn(*shape, generator=gen)).to(device)
+    return (r(k, mf, f, s=0.3), r(k, ef), r(f + ef, f, s=0.3), r(f, s=0.1),
+            r(n, f), vid, tb["edge_src"], tb["edge_dst"],
+            plan_from_batch(tb), r(n, mf))
+
+
+def phase_sddmm_kernel_check(device):
+    """sddmm_fwd and sddmm_bwd against sddmm_reference under autograd on
+    the card: adv's b1024 batch in 16,512 node slots at bench widths (f 7,
+    ef 6, its own vocab), f 27 and f 32 with 64 random vocab ids (the wide
+    bucket; ef 32 at f 32), mf 13 at nf 10, a ragged batch (single atoms,
+    padded edges, a padded graph slot), b16, and 32,896 node slots. Every
+    case has a nonzero aprime[0] and random h and cotangent rows at the
+    dummy node, where the padded edges end: out within rtol 1e-4 / atol
+    1e-5, the five gradients each divided by its max abs; the dummy row's
+    message and gradient must not be zero where the batch has padded
+    edges."""
+    import torch
+    from mpnn_tpu_torch.kernels import sddmm as D
+    gen = torch.Generator().manual_seed(87)
+    b1024, b16, big, ragged = _dec_check_batches(device)
+    cases = [("batch1024", b1024, 7, None, None, None),
+             ("batch1024", b1024, 27, 64, None, None),
+             ("batch1024", b1024, 32, 64, None, 32),
+             ("batch1024", b1024, 10, 9, 13, None),
+             ("ragged", ragged, 7, None, None, None),
+             ("ragged", ragged, 27, 64, None, None),
+             ("batch16", b16, 7, None, None, None),
+             ("batch2560", big, 7, None, None, None)]
+    worst = dict.fromkeys(SDDMM_KERNELS, 0.0)
+    results, failed, sinks = [], [], 0
+    for what, tb, f, k, mf, ef in cases:
+        c = _sddmm_case(tb, f, k, gen, device, mf=mf, ef=ef)
+        D.reset_launch_counts()
+        got = sddmm_value_and_grads(D.sddmm, *c)
+        torch.cuda.synchronize()
+        counts = dict(D.launch_counts)
+        want = sddmm_value_and_grads(
+            lambda *x: D.sddmm_reference(*x[:8]), *c)
+        ok_o, err_o, _ = _within(got[0], want[0])
+        ok_g, err_g = True, 0.0
+        for x, w in zip(got[1:], want[1:]):
+            ok_x, e_x, _ = _scaled_within(x, w)
+            ok_g, err_g = ok_g and ok_x, max(err_g, e_x)
+        pads = int((tb["edge_mask"] == 0).sum())
+        sink = (not pads or (bool(got[0][-1].abs().max() > 0)
+                             and bool(got[5][-1].abs().max() > 0)))
+        sinks += bool(pads)
+        ok = (ok_o and ok_g and sink
+              and counts == {"sddmm_fwd": 1, "sddmm_bwd": 1}
+              and all(bool(torch.isfinite(x).all()) for x in got))
+        worst["sddmm_fwd"] = max(worst["sddmm_fwd"], err_o)
+        worst["sddmm_bwd"] = max(worst["sddmm_bwd"], err_g)
+        results.append(
+            f"{what} nf={f} mf={c[0].shape[1]} ef={c[1].shape[1]} "
+            f"K={c[0].shape[0]} (nodes {int(tb['node_mask'].sum())}/"
+            f"{tb['node_mask'].shape[0]} slots, edges "
+            f"{int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}, "
+            f"{pads} at the dummy node): out max_abs={err_o:.3e} grads "
+            f"max_scaled={err_g:.3e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{what} nf={f}: {counts}, dummy row {sink}")
+    if not sinks:
+        failed.append("no case had padded edges")
+    print(f"sddmm-kernel-check: sddmm_fwd and sddmm_bwd vs sddmm_reference "
+          f"under autograd (rtol {RTOL} atol {ATOL}; the gradients of "
+          f"aprime, evocab, wa, ba and h divided by their max abs; 1 + 1 "
+          f"launches a case; aprime[0], h and gout random at the dummy "
+          f"node): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"the SDDMM kernels disagree with their plain "
+                           f"version: {failed}")
+    return worst
+
+
+def phase_dec_att_train(device):
+    """The attention models' decomposed training path on the card, each
+    run's launch counts set to 0 just before it and read just after,
+    against the design: adv and att through the `train --spmm kernel` verb
+    (1 epoch at 16: per step and message network one sddmm_fwd, one
+    sddmm_bwd, the edge-MLP chain's 1 + 1 — adv computes its shared
+    network's messages once a step, att its three networks' — and one
+    set2vec_fwd and set2vec_bwd; per validation and test batch the eval
+    kernels: the model's message kernel, set2vec_fwd and the chain's
+    forwards, no SDDMM launch), then trainer.train(fuse_step=False), and
+    att at the wide phase's afm 27 (f 27, the wide buckets). Each: the
+    first 3 losses against the plain path (rtol 1e-3) and the first
+    step's parameter gradients (1e-4 / 1e-5, scaled)."""
+    import dataclasses
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.split import train_test_split
+    os.makedirs(OUT_DIR, exist_ok=True)
+    lines = []
+
+    def split(gs):
+        tr, te = train_test_split(gs, 0.1, 317)
+        tr, va = train_test_split(tr, 0.1, 317)
+        return tr, va, te
+
+    def n_batches(gs, bs):
+        return -(-len(gs) // bs)
+
+    def want(model, nets, n_steps, n_evals):
+        return {"sddmm_fwd": nets * n_steps, "sddmm_bwd": nets * n_steps,
+                "set2vec_fwd": n_steps + n_evals, "set2vec_bwd": n_steps,
+                ATT_MODELS[model][1][0]: n_evals,
+                "edge_mlp_fwd": nets * (n_steps + n_evals),
+                "edge_mlp_bwd": nets * n_steps}
+
+    def fresh(name):
+        log = os.path.join(OUT_DIR, f"dec_att_{name}.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        return log
+
+    for model in ("adv", "att"):
+        exp = experiments.get(ATT_MODELS[model][0])
+        csv = _ps_csv(f"dec_{model}", TRAIN_ROWS)
+        gs = G.load_classification_dataset(csv, "smiles", "target")[0]
+        tr, va, te = split(gs)
+        cfg = zoo.build(model, afm=int(gs[0].afm.shape[-1]),
+                        bfm=int(gs[0].bfm.shape[-1]), n_out=PS_CLASSES)
+        nets, bs = _nets(cfg.mpnn), exp.train.batch_size
+        tcfg = dataclasses.replace(exp.train, fuse_step=False)
+        # 1. the verb
+        log = fresh(f"{model}_verb")
+        steps, epochs, wall = _dec_run(f"dec-att-train {model} verb", argv=[
+            "train", "--experiment", exp.name, "--data", csv, "--epochs",
+            "1", "--log", log, "--spmm", "kernel"])
+        counts = _dec_take(f"dec-att-train {model} verb", want(
+            model, nets, n_batches(tr, bs),
+            n_batches(va, bs) + n_batches(te, bs)))
+        rel, gerr, perr = _dec_first_steps(
+            f"dec-att-train {model} verb", cfg, tcfg, tr, device, steps)
+        lines.append(
+            f"`train --spmm kernel` {exp.name} ({len(tr)} train molecules, "
+            f"batch {bs}, 1 epoch, {nets} message network(s)): "
+            f"{len(steps)} steps in {wall:.2f} s wall, launches {counts}; "
+            f"first 3 losses vs plain max rel {rel:.2e}, first-step "
+            f"gradients max_scaled {gerr:.3e} from float64 (plain float32 "
+            f"{perr:.3e}); val_loss "
+            f"{[round(r['val_loss'], 5) for r in epochs]}")
+        # 2. the API
+        log = fresh(f"{model}_api")
+        acfg = dataclasses.replace(tcfg, epochs=1, log_path=log)
+        steps, epochs, wall = _dec_run(f"dec-att-train {model} api",
+                                       api=(cfg, acfg, tr, va))
+        counts = _dec_take(f"dec-att-train {model} api", want(
+            model, nets, n_batches(tr, bs), n_batches(va, bs)))
+        rel, gerr, perr = _dec_first_steps(
+            f"dec-att-train {model} api", cfg, acfg, tr, device, steps)
+        lines.append(
+            f"trainer.train(fuse_step=False) {model}: {len(steps)} steps in "
+            f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
+            f"max rel {rel:.2e}, first-step gradients max_scaled "
+            f"{gerr:.3e} from float64 (plain float32 {perr:.3e})")
+    # 3. att at the wide widths (afm 27: the SDDMM's and set2vec's wide
+    #    buckets)
+    exp = experiments.get("att_classification")
+    wcsv = _wide_csv("dec_att", "ce", "target")
+    wgs = G.load_classification_dataset(wcsv, "smiles", "target")[0]
+    wtr, wva, _ = split(wgs)
+    wcfg = zoo.build("att", afm=int(wgs[0].afm.shape[-1]),
+                     bfm=int(wgs[0].bfm.shape[-1]), n_out=PS_CLASSES)
+    bs = exp.train.batch_size
+    acfg = dataclasses.replace(exp.train, epochs=1, fuse_step=False,
+                               log_path=fresh("att_wide"))
+    steps, epochs, wall = _dec_run("dec-att-train wide", api=(
+        wcfg, acfg, wtr, wva))
+    counts = _dec_take("dec-att-train wide", want(
+        "att", _nets(wcfg.mpnn), n_batches(wtr, bs), n_batches(wva, bs)))
+    rel, gerr, perr = _dec_first_steps(
+        "dec-att-train wide", wcfg, acfg, wtr, device, steps)
+    lines.append(
+        f"wide att (f {wcfg.mpnn.node_features}, ef "
+        f"{wcfg.mpnn.edge_features}; trainer.train): {len(steps)} steps in "
+        f"{wall:.2f} s wall, launches {counts}; first 3 losses vs plain "
+        f"max rel {rel:.2e}, first-step gradients max_scaled {gerr:.3e} "
+        f"from float64 (plain float32 {perr:.3e})")
+    print("dec-att-train: " + "; ".join(lines), flush=True)
+
+
+def _sddmm_bounds(n, e, k, f, ef, mf=None):
+    """Least times of the SDDMM kernels' work: the larger of the float32
+    operations over the peak CUDA-core rate and the bytes of the
+    function's own inputs and outputs (each read or written once) over
+    HBM bandwidth, on n real node rows and e real edges. The forward per
+    edge: the logits' (nf + ef)·nf FMAs and bias, the softmax (max, sub,
+    exp, sum, div: 5 nf), the gating, the GEMV with aprime[vid] and the
+    sum into out; reading h, aprime, evocab, wa, ba and vid/src/dst,
+    writing out. The backward per edge: the forward's gate again, dg =
+    aprimeᵀ·gout, the softmax VJP, the gradient of the concatenated input
+    through wa (dh's destination half and devocab), the outer products of
+    d aprime and d wa, dba and dh's source half; reading the forward's
+    inputs and gout, writing the five gradients."""
+    mf = f if mf is None else mf
+    gate = 2 * (f + ef) * f + f + 5 * f
+    fwd_ops = e * (gate + f + 2 * mf * f + mf)
+    bwd_ops = e * (gate + f + 2 * mf * f + 6 * f + 2 * (f + ef) * f
+                   + 2 * mf * f + 2 * (f + ef) * f + 2 * f)
+    weights = k * mf * f + k * ef + (f + ef) * f + f
+    fwd_bytes = 4 * (n * f + weights + 3 * e + n * mf)
+    bwd_bytes = 4 * (n * f + weights + 3 * e + n * mf + weights + n * f)
+    out = {}
+    for name, ops, nbytes in (("sddmm_fwd", fwd_ops, fwd_bytes),
+                              ("sddmm_bwd", bwd_ops, bwd_bytes)):
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def _sddmm_inputs(net, tb):
+    """The SDDMM's inputs as the model's first message network gives them
+    on a device batch (models/sparse.py::sparse_att_edge_network): aprime
+    from the edge-MLP chain's vocab rows through the final layer (bias
+    kept), the vocab's bond rows, attn's weight in the (in, out) layout,
+    h0; and the index plan."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    from mpnn_tpu_torch.models.sparse import _edge_penultimates, final_weights
+    cfg = net.mpnn.cfg
+    mp = net.mpnn.message[0]
+    with torch.no_grad():
+        ef = tb["edge_feats"] * tb["edge_mask"][:, None]
+        _, pen_vocab = _edge_penultimates(mp, ef, cfg, tb["edge_vfirst"])
+        wf, bf = final_weights(mp, cfg.node_features, cfg.message_features)
+        aprime = (torch.einsum("kp,pmf->kmf", pen_vocab, wf) + bf)
+        evocab = ef[tb["edge_vfirst"].long()]
+        h0 = tb["node_feats"] * tb["node_mask"]
+    return ([t.contiguous() for t in (aprime, evocab, mp.attn.weight.t(),
+                                      mp.attn.bias, h0)]
+            + [tb["edge_vid"], tb["edge_src"], tb["edge_dst"]],
+            plan_from_batch(tb))
+
+
+def phase_dec_att_times(device, card):
+    """The decomposed adv and att train steps (the SDDMM, set2vec and
+    edge-MLP kernels; host clock ending in the loss read-back) at batch
+    16 and 1024 beside the whole-step path's on the same batch and
+    weights, in turns (whole, decomposed, decomposed, whole); at b1024
+    the decomposed step's device busy time, device ops and idle share
+    from a trace, and each SDDMM kernel's time (CUDA events over
+    back-to-back launches on adv's first step's own inputs) beside its
+    bound and its plain version's time (autograd through it for the
+    backward), and the forward on the real edges alone (the padded edges
+    all end at the dummy node, whose row walks them in series)."""
+    import statistics
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_fused_eval
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import sddmm as D
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import (TrainConfig, batch_to_device,
+                                              decomposed_hooks, train_step)
+    gen = torch.Generator().manual_seed(89)
+    out, lines = {}, []
+    for bs in DEC_ATT_BATCHES:
+        b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
+        b["labels"] = torch.randint(0, PS_CLASSES, (bs,), generator=gen
+                                    ).numpy()
+        tb = batch_to_device(b, device)
+        out[bs] = {}
+        for model in ("adv", "att"):
+            cfg = zoo.build(model, afm=b["node_feats"].shape[1],
+                            bfm=b["edge_feats"].shape[1], n_out=PS_CLASSES)
+            net = network_init(cfg, gen, device)
+            opt = adam(net.parameters(), 1e-3)
+            hooks = decomposed_hooks(cfg, TrainConfig(fuse_step=False))
+            reps = 20 if bs <= 16 else 10
+
+            def timed(fused):
+                kw = dict(loss_kind="ce", hooks=None if fused else hooks)
+                for _ in range(3):
+                    float(train_step(net, opt, tb, **kw))
+                lat = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    float(train_step(net, opt, tb, **kw))
+                    torch.cuda.synchronize()
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                return lat
+            whole, dec = timed(True), timed(False)
+            dec += timed(False)
+            whole += timed(True)
+            rec = dict(step_ms=statistics.median(dec),
+                       whole_ms=statistics.median(whole))
+            line = (f"{model} batch {bs} (nodes {int(b['node_mask'].sum())}/"
+                    f"{b['node_mask'].shape[0]}, edges "
+                    f"{int(b['edge_mask'].sum())}/{b['edge_src'].shape[0]}"
+                    f"): decomposed train step median {rec['step_ms']:.3f} "
+                    f"ms mean {statistics.fmean(dec):.3f} ms, whole-step "
+                    f"median {rec['whole_ms']:.3f} ms mean "
+                    f"{statistics.fmean(whole):.3f} ms ({2 * reps} reps "
+                    f"each, in turns, loss read back)")
+            if bs == DEC_ATT_BATCHES[-1]:
+                busy, traced = _dec_trace(
+                    model, lambda: train_step(net, opt, tb, loss_kind="ce",
+                                              hooks=hooks),
+                    SDDMM_KERNELS + ATT_KERNELS[2:] + MLP_KERNELS,
+                    rec["step_ms"])
+                rec["busy_us"] = busy
+                line += "; " + traced
+            if bs == DEC_ATT_BATCHES[-1] and model == "adv":
+                args, plan = _sddmm_inputs(net, tb)
+                n, f = args[4].shape
+                k, mf = args[0].shape[:2]
+                ef = args[1].shape[1]
+                g = torch.randn(n, mf, generator=gen).to(device)
+                order, ptr = plan.edge_order, plan.dst_ptr
+                with torch.no_grad():
+                    pf = D.prepare_sddmm_fwd(*args[:7], order, ptr)
+                    pb = D.prepare_sddmm_bwd(*args[:5], g, *args[5:], order,
+                                             ptr)
+                    ms = {p.name: _events_ms(
+                        lambda p=p: K.launch_prepared(p), 100)
+                        for p in (pf, pb)}
+                    er_i = int(b["edge_mask"].sum())
+                    rp = [torch.as_tensor(x, device=device) for x in
+                          plan_fused_eval(b["edge_dst"][:er_i],
+                                          b["node_graph"], bs)]
+                    pr = D.prepare_sddmm_fwd(
+                        *args[:5], args[5][:er_i].contiguous(),
+                        args[6][:er_i].contiguous(), rp[0], rp[1])
+                    real_ms = _events_ms(lambda: K.launch_prepared(pr), 100)
+                    dummy_edges = int((b["edge_dst"] == n - 1).sum())
+                    plain = {"sddmm_fwd": _events_ms(
+                        lambda: D.sddmm_reference(*args), 20)}
+                leaves = [x.detach().requires_grad_() for x in args[:5]]
+                obj = (D.sddmm_reference(*leaves, *args[5:]) * g).sum()
+                plain["sddmm_bwd"] = _events_ms(lambda: torch.autograd.grad(
+                    obj, leaves, retain_graph=True), 20)
+                bounds = _sddmm_bounds(float(b["node_mask"].sum()),
+                                       float(er_i), k, f, ef, mf)
+                for name in SDDMM_KERNELS:
+                    out[bs][name] = dict(
+                        ms=ms[name], plain_ms=plain[name],
+                        bound_ms=bounds[name][0], bound_by=bounds[name][1])
+                line += "; " + ", ".join(
+                    f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches)"
+                    f", plain {plain[name] * 1e3:.1f} us, bound "
+                    f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+                    f"({bounds[name][2] / 1e6:.3f} Mop, "
+                    f"{bounds[name][3] / 1e6:.3f} MB)"
+                    for name in SDDMM_KERNELS)
+                line += (f" (K {k}, nf {f}, mf {mf}, ef {ef}); sddmm_fwd "
+                         f"on the {er_i} real edges alone "
+                         f"{real_ms * 1e3:.2f} us (the dummy node's row "
+                         f"takes the other {dummy_edges})")
+            out[bs][model] = rec
+            lines.append(line)
+    print(f"dec-att-times [{card}]: " + "; ".join(lines), flush=True)
     return out
 
 
@@ -4433,6 +4933,9 @@ def main() -> int:
                  **phase_rec_kernel_check(device)}
     phase_dec_train(device)
     dec_times = phase_dec_times(device, card)
+    sddmm_worst = phase_sddmm_kernel_check(device)
+    phase_dec_att_train(device)
+    dec_att_times = phase_dec_att_times(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -4466,13 +4969,15 @@ def main() -> int:
                  "set2vec_fwd": "set2vec.py:84",
                  "set2vec_bwd": "set2vec.py:180"}
     for name in ATT_KERNELS:
-        # set2vec reads out both attention models: launches on both paths
+        # set2vec reads out both attention models: launches on both paths,
+        # the decomposed ones too
         tt = att_times[1024][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/{att_sites[name]}",
-            "launches": att_counts[name] + atts_counts[name],
+            "launches": (att_counts[name] + atts_counts[name]
+                         + DEC_ATT_MAIN.get(name, 0)),
             "max_abs_err": att_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
@@ -4519,6 +5024,16 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/{dec_sites[name]}",
             "launches": DEC_MAIN[name], "max_abs_err": dec_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    for name, line in zip(SDDMM_KERNELS, (46, 134)):
+        tt = dec_att_times[1024][name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/sddmm.py:{line}",
+            "launches": DEC_ATT_MAIN[name], "max_abs_err": sddmm_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -47,6 +47,8 @@ SOURCES: Dict[str, str] = {
     "spmm_da": "spmm_da.cu",
     "recurrence_fwd": "recurrence_fwd.cu",
     "recurrence_bwd": "recurrence_bwd.cu",
+    "sddmm_fwd": "sddmm_fwd.cu",
+    "sddmm_bwd": "sddmm_bwd.cu",
 }
 
 # the sources that build and load together (one op module's kernels)
@@ -61,6 +63,7 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
     "fused_bilinear": ("fused_bilinear_fwd", "fused_bilinear_bwd"),
     "spmm": ("spmm_fwd", "spmm_da"),
     "recurrence": ("recurrence_fwd", "recurrence_bwd"),
+    "sddmm": ("sddmm_fwd", "sddmm_bwd"),
 }
 
 # wide buckets: family → {tag: the -D defines of its libraries}. The
@@ -75,6 +78,7 @@ WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
     "set2vec": {"w64": ("MPNN_WP=64",)},
     "spmm": {"f32": ("MPNN_FP=32",)},
     "recurrence": {"f32": ("MPNN_FP=32",)},
+    "sddmm": {"f32": ("MPNN_FP=32",)},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

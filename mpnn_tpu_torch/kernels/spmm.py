@@ -81,11 +81,12 @@ def _bucket(mf: int, nf: int) -> str:
     return K.width_bucket("spmm", BUCKETS, f=max(mf, nf))
 
 
-def check_layout(h, vid, src, dst, plan: FusedEvalPlan, k_vocab: int
-                 ) -> None:
+def check_layout(h, vid, src, dst, plan: FusedEvalPlan, k_vocab: int,
+                 who: str = "spmm") -> None:
     """The index invariants the kernels rely on, with one device sync:
     vocab ids in range, src/dst in range, the plan's order a destination-
-    sorted permutation of the edges and its row pointers those of dst."""
+    sorted permutation of the edges and its row pointers those of dst
+    (also the SDDMM kernels', kernels/sddmm.py; `who` names the op)."""
     n, e = h.shape[0], src.shape[0]
     s, d = src.long(), dst.long()
     order = plan.edge_order.long()
@@ -106,7 +107,7 @@ def check_layout(h, vid, src, dst, plan: FusedEvalPlan, k_vocab: int
              "plan dst_ptr disagrees with edge_dst"]
     for flag, what in zip(bad.cpu().tolist(), names):
         if flag:
-            raise ValueError(f"spmm: {what}")
+            raise ValueError(f"{who}: {what}")
 
 
 def _check_inputs(a, h, vid, src, dst, plan: FusedEvalPlan) -> int:

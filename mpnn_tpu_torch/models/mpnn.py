@@ -141,10 +141,11 @@ def decomposed_shape(cfg: MPNNConfig) -> bool:
     """The configs the decomposed training path runs (the `train` verb's
     --spmm kernel; mpnn_tpu's `train --packed --spmm kernel` without
     --fuse-step): the edge-network families, shared or per-step, whose
-    A-form message sum goes through the SpMM hook. The attention
-    families' decomposed path runs the SDDMM kernels (row 11), and the
-    bilinear family's none."""
-    return cfg.message_fn == "edge_network" and supported(cfg)
+    A-form message sum goes through the SpMM hook, and the attention
+    families, whose gated message sum goes through the SDDMM hook. The
+    bilinear family's decomposed path runs no kernel."""
+    return (cfg.message_fn in ("edge_network", "att_edge_network")
+            and supported(cfg))
 
 
 def check_supported(cfg: MPNNConfig) -> None:

@@ -136,9 +136,11 @@ def network_apply_packed(net: Network, batch, *, fused: bool = True,
     through the whole-step kernels (models/fused_train.py): the eval
     kernel, or in training the forward/backward kernels; with fused=False
     through the plain model (models/sparse.py). `hooks` — the keyword
-    hooks of sparse_mpnn_apply (spmm_vocab_fn, recurrence_fn,
-    edge_mlp_fn) — select the JAX package's decomposed path: the plain
-    model with those ops, whatever `fused` says. Eval mode returns out
+    hooks of sparse_mpnn_apply (spmm_vocab_fn, recurrence_fn, edge_mlp_fn
+    for the edge-network families; sddmm_fn, edge_mlp_fn, set2vec_fn for
+    the attention families) — select the JAX package's decomposed path:
+    the plain model with those ops, whatever `fused` says; a hook the
+    config's family cannot use raises. Eval mode returns out
     (num_graphs, head_output); training mode normalizes with batch
     statistics and returns (out, new_state) — the running statistics
     after this step in the JAX state layout (nafm_bn, mpnn, head_bn);

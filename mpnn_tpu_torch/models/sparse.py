@@ -8,12 +8,16 @@ the JAX package's loop does: nothing here assumes the kernels' collapse.
 The bilinear family runs its per-edge message from the edge features
 themselves, in the reference's literal index order.
 
-The edge-network families take the JAX package's hooks of the decomposed
-training path (its `train --packed --spmm kernel`): `spmm_vocab_fn`, the
-A-form message sum (kernels/spmm.py), `recurrence_fn`, the whole BN→GRU→BN
-chain of the lipo family in one op (kernels/recurrence.py, where
-recurrence_eligible), and `edge_mlp_fn`, the vocab chain
-(kernels/edge_mlp.py). Without them every piece is plain PyTorch.
+The families take the JAX package's hooks of the decomposed training path
+(its `train --packed --spmm kernel`). The edge-network families:
+`spmm_vocab_fn`, the A-form message sum (kernels/spmm.py),
+`recurrence_fn`, the whole BN→GRU→BN chain of the lipo family in one op
+(kernels/recurrence.py, where recurrence_eligible), and `edge_mlp_fn`,
+the vocab chain (kernels/edge_mlp.py). The attention families:
+`sddmm_fn`, the gated message sum (kernels/sddmm.py), `edge_mlp_fn`, and
+`set2vec_fn`, the set2vec readout (kernels/set2vec.py). The bilinear
+family takes none. A hook that the config's family cannot use raises:
+none is dropped. Without hooks every piece is plain PyTorch.
 
 Exactness of the A-form for the edge-network family (bias leakage): with
 A(e) = W̃(p_e) + Bf and p_e the edge-MLP penultimate features,
@@ -119,24 +123,39 @@ def sparse_graph_level_output(ro: GraphLevelOutput, x, node_mask,
 def sparse_att_edge_network(mp: AttEdgeNetwork, pen0, pen_vocab, h,
                             edge_feats, edge_vid, edge_src, edge_dst,
                             node_graph, num_graphs: int, *, nf: int, mf: int,
-                            aggregation: str):
+                            aggregation: str, edge_vfirst=None,
+                            sddmm_fn=None, plan=None):
     """The attention message family (mpnn_tpu/models/sparse.py::
-    sparse_att_edge_network, its per-edge path): per pair m(v, w) =
-    A(e_vw)·(softmax_feat(attn([h_v ‖ e_vw])) ⊙ h_w) with A(e) = W̃·pen(e)
-    + Bf. 'adj' sums the real edges; 'att' (the learned singleton softmax,
-    constant 1) sums every pair of the graph: the non-edges, whose edge
-    features are zero, decompose per node into A(0)·(g0_v ⊙ S_g) minus the
-    same term over the real edges. h: (node_cap, nf) → (node_cap, mf)."""
+    sparse_att_edge_network): per pair m(v, w) = A(e_vw)·(softmax_feat(
+    attn([h_v ‖ e_vw])) ⊙ h_w) with A(e) = W̃·pen(e) + Bf. 'adj' sums the
+    real edges; 'att' (the learned singleton softmax, constant 1) sums
+    every pair of the graph: the non-edges, whose edge features are zero,
+    decompose per node into A(0)·(g0_v ⊙ S_g) minus the same term over the
+    real edges. h: (node_cap, nf) → (node_cap, mf).
+
+    The edge sum runs per edge in PyTorch, or with sddmm_fn as
+    sddmm_fn(aprime, evocab, wa, ba, h, vid, src, dst, plan) (plan: the
+    batch's index plan) on the per-vocab matrices A'_k = Σ_p pen_k[p]·W̃[p]
+    + Bf (the final bias kept: not the A-form's pen_k − pen_0), the vocab's
+    bond rows and attn's weight in the JAX (in, out) layout. The 'att'
+    correction stays here, as the JAX package keeps it in XLA."""
     node_cap = h.shape[0]
     wf, bf = final_weights(mp, nf, mf)
     src, dst = edge_src.long(), edge_dst.long()
-    pen = pen_vocab[edge_vid.long()]                          # (E, pf)
     h_src = h[src]
-    gate = torch.softmax(mp.attn(torch.cat([h[dst], edge_feats], -1)), -1)
-    g = gate * h_src
-    t = torch.einsum("pmf,ef->epm", wf, g)
-    edge_msg = torch.einsum("ep,epm->em", pen, t) + g @ bf.T
-    agg = h.new_zeros((node_cap, mf)).index_add_(0, dst, edge_msg)
+    if sddmm_fn is not None:
+        aprime = torch.einsum("kp,pmf->kmf", pen_vocab, wf) + bf
+        evocab = edge_feats[edge_vfirst.long()]
+        agg = sddmm_fn(aprime, evocab, mp.attn.weight.t(), mp.attn.bias, h,
+                       edge_vid, edge_src, edge_dst, plan)
+    else:
+        pen = pen_vocab[edge_vid.long()]                      # (E, pf)
+        gate = torch.softmax(mp.attn(torch.cat([h[dst], edge_feats], -1)),
+                             -1)
+        g = gate * h_src
+        t = torch.einsum("pmf,ef->epm", wf, g)
+        edge_msg = torch.einsum("ep,epm->em", pen, t) + g @ bf.T
+        agg = h.new_zeros((node_cap, mf)).index_add_(0, dst, edge_msg)
     if aggregation == "att":
         ng = node_graph.long()
         zero_e = h.new_zeros((node_cap, edge_feats.shape[-1]))
@@ -195,15 +214,22 @@ def output_norm(mpnn: MPNN, out, graph_mask, *, training: bool):
 
 
 def sparse_set2vec(ro: Set2Vec, x, node_mask, node_graph, graph_node_ptr, *,
-                   time_steps: int, batch_softmax: bool):
+                   time_steps: int, batch_softmax: bool, set2vec_fn=None):
     """Packed set2set readout (mpnn_tpu/models/sparse.py::sparse_set2vec):
-    the plain loop of kernels/set2vec.py on the module's leaves."""
+    the plain loop of kernels/set2vec.py on the module's leaves, or with
+    set2vec_fn as set2vec_fn(rparams, x, mask, node_graph,
+    graph_node_ptr), its steps and softmax mode bound (the op
+    kernels/set2vec.py::set2vec)."""
+    if set2vec_fn is not None:
+        return set2vec_fn(ro.as_jax(), x, node_mask, node_graph,
+                          graph_node_ptr)
     return set2vec_reference(ro.as_jax(), x, node_mask, node_graph,
                              graph_node_ptr, time_steps=time_steps,
                              batch_softmax=batch_softmax)
 
 
-def _sparse_att_apply(mpnn: MPNN, batch):
+def _sparse_att_apply(mpnn: MPNN, batch, *, sddmm_fn=None, edge_mlp_fn=None,
+                      set2vec_fn=None):
     """The attention families' plain loop, as mpnn_tpu's sparse_mpnn_apply
     runs it: step t's messages from the INITIAL state through message
     network t (per-step weights) or network 0 (shared weights: computed
@@ -212,11 +238,13 @@ def _sparse_att_apply(mpnn: MPNN, batch):
     initial one (update_hidden='initial', adv), the stateless norm after
     each GRU where configured, then the readout on [h_T ‖ h0]. The only
     norm is stateless, so training and eval are one forward and the state
-    is empty."""
+    is empty. The hooks as in sparse_mpnn_apply: the SDDMM and the chain
+    once per message network, set2vec once."""
     cfg = mpnn.cfg
     mask = batch["node_mask"]
     node_graph = batch["node_graph"]
     num_graphs = batch["graph_mask"].shape[0]
+    plan = plan_from_batch(batch) if sddmm_fn is not None else None
     h0 = batch["node_feats"] * mask
     edge_feats = batch["edge_feats"] * batch["edge_mask"][:, None]
     msgs = None
@@ -225,12 +253,15 @@ def _sparse_att_apply(mpnn: MPNN, batch):
         if msgs is None or not cfg.share_message_weights:
             mp = mpnn.message[0 if cfg.share_message_weights else step]
             pen0, pen_vocab = _edge_penultimates(mp, edge_feats, cfg,
-                                                 batch["edge_vfirst"])
+                                                 batch["edge_vfirst"],
+                                                 edge_mlp_fn)
             msgs = sparse_att_edge_network(
                 mp, pen0, pen_vocab, h0, edge_feats, batch["edge_vid"],
                 batch["edge_src"], batch["edge_dst"], node_graph,
                 num_graphs, nf=cfg.node_features, mf=cfg.message_features,
-                aggregation=cfg.aggregation)
+                aggregation=cfg.aggregation,
+                edge_vfirst=batch["edge_vfirst"], sddmm_fn=sddmm_fn,
+                plan=plan)
         hidden = h if cfg.update_hidden == "state" else h0
         h = gru_apply(mpnn.gru, msgs, hidden, mask)
         if cfg.state_norm == "stateless":
@@ -240,7 +271,8 @@ def _sparse_att_apply(mpnn: MPNN, batch):
         return sparse_set2vec(mpnn.readout, x, mask, node_graph,
                               batch["plan_graph_node_ptr"],
                               time_steps=cfg.set2vec_steps,
-                              batch_softmax=cfg.set2vec_batch_softmax)
+                              batch_softmax=cfg.set2vec_batch_softmax,
+                              set2vec_fn=set2vec_fn)
     return sparse_graph_level_output(mpnn.readout, x, mask, node_graph,
                                      num_graphs)
 
@@ -379,28 +411,65 @@ def recurrence_eligible(cfg: MPNNConfig, *, training: bool) -> bool:
             and not cfg.remat)
 
 
+def usable_hooks(cfg: MPNNConfig, *, training: bool):
+    """(the config's family, the hooks of sparse_mpnn_apply it can use)."""
+    if bilinear_shape(cfg):
+        return "bilinear", ()
+    if att_shape(cfg) or att_steps_shape(cfg):
+        return "attention", ("sddmm_fn", "edge_mlp_fn") + (
+            ("set2vec_fn",) if cfg.readout == "set2vec" else ())
+    if shared_shape(cfg):
+        return "shared edge-network", ("spmm_vocab_fn", "edge_mlp_fn") + (
+            ("recurrence_fn",) if recurrence_eligible(cfg, training=training)
+            else ())
+    return "per-step edge-network", ("spmm_vocab_fn", "edge_mlp_fn")
+
+
+def check_hooks(cfg: MPNNConfig, hooks: dict, *, training: bool) -> None:
+    """Raise for a hook (not None) that the config's family cannot use,
+    naming it and the family: no hook is dropped."""
+    family, usable = usable_hooks(cfg, training=training)
+    for name, fn in hooks.items():
+        if fn is not None and name not in usable:
+            raise ValueError(
+                f"sparse_mpnn_apply: the {family} family cannot use the "
+                f"{name} hook; it takes {', '.join(usable) or 'no hook'}"
+                f" (training={training})")
+
+
 def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False,
                       spmm_vocab_fn=None, recurrence_fn=None,
-                      edge_mlp_fn=None):
+                      edge_mlp_fn=None, sddmm_fn=None, set2vec_fn=None):
     """Packed-batch MPNN forward. batch: dict of tensors with node_feats,
     node_mask, node_graph, edge_src, edge_dst, edge_feats, edge_mask,
     graph_mask, edge_vid, edge_vfirst (and the index plan, PLAN_KEYS, for
-    spmm_vocab_fn). Eval mode returns out (G, od); training mode
-    normalizes with batch statistics and returns (out, new_state),
+    spmm_vocab_fn and sddmm_fn). Eval mode returns out (G, od); training
+    mode normalizes with batch statistics and returns (out, new_state),
     new_state as mpnn_new_state (shared family) or psteps_new_state
     (per-step family, with the output norm's) gives it, empty for the
     attention and bilinear families (no norm with running state).
 
-    The edge-network families take the hooks of mpnn_tpu's
-    sparse_mpnn_apply: spmm_vocab_fn(amat, h, vid, src, dst, plan) for the
-    message sum, edge_mlp_fn for the vocab chain, and in training
-    recurrence_fn(msgs, h0, mask, gru, ma_bn, bn) → (h_T, ma_stats,
-    step_stats) for the whole step chain where recurrence_eligible."""
+    The hooks of mpnn_tpu's sparse_mpnn_apply: the edge-network families
+    take spmm_vocab_fn(amat, h, vid, src, dst, plan) for the message sum,
+    edge_mlp_fn for the vocab chain, and in training recurrence_fn(msgs,
+    h0, mask, gru, ma_bn, bn) → (h_T, ma_stats, step_stats) for the whole
+    step chain where recurrence_eligible; the attention families
+    sddmm_fn(aprime, evocab, wa, ba, h, vid, src, dst, plan) for the gated
+    message sum, edge_mlp_fn, and with the set2vec readout set2vec_fn. A
+    hook the family cannot use raises ValueError (usable_hooks)."""
     cfg = mpnn.cfg
     check_supported(cfg)
-    if att_shape(cfg) or att_steps_shape(cfg) or bilinear_shape(cfg):
-        out = (_sparse_bilinear_apply if bilinear_shape(cfg)
-               else _sparse_att_apply)(mpnn, batch)
+    check_hooks(cfg, dict(spmm_vocab_fn=spmm_vocab_fn,
+                          recurrence_fn=recurrence_fn,
+                          edge_mlp_fn=edge_mlp_fn, sddmm_fn=sddmm_fn,
+                          set2vec_fn=set2vec_fn), training=training)
+    if bilinear_shape(cfg):
+        out = _sparse_bilinear_apply(mpnn, batch)
+        return (out, {}) if training else out
+    if att_shape(cfg) or att_steps_shape(cfg):
+        out = _sparse_att_apply(mpnn, batch, sddmm_fn=sddmm_fn,
+                                edge_mlp_fn=edge_mlp_fn,
+                                set2vec_fn=set2vec_fn)
         return (out, {}) if training else out
     if not shared_shape(cfg):
         return _sparse_psteps_apply(mpnn, batch, training=training,
@@ -423,8 +492,7 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False,
         pen_vocab=pen_vocab, edge_vid=batch["edge_vid"],
         spmm_vocab_fn=spmm_vocab_fn,
         plan=plan_from_batch(batch) if spmm_vocab_fn is not None else None)
-    if recurrence_fn is not None and recurrence_eligible(cfg,
-                                                         training=training):
+    if recurrence_fn is not None:
         # the whole BN→GRU→BN chain in one op; the running statistics
         # folded as the sequential loop would have recorded them
         h, ma_stats, step_stats = recurrence_fn(

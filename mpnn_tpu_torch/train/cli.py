@@ -11,9 +11,14 @@ Verbs (both run on `cuda` unless --device cpu):
            history's last record and the test metrics. With --spmm kernel
            the training step takes the decomposed path instead (the JAX
            package's `train --packed --spmm kernel` without --fuse-step):
-           the plain model with the SpMM kernels for each message sum and
-           the step loop in PyTorch ops (the edge-network families; the
-           attention models raise: their SDDMM kernels are still to port).
+           the plain model with the step loop in PyTorch ops and a kernel
+           for each message sum: the SpMM kernels for the edge-network
+           families, the SDDMM kernels for adv_classification and
+           att_classification (with the set2vec kernels for their
+           readout); every family but ecfp_bilinear, whose message runs
+           no kernel in the JAX package either (it raises). For example
+           `train --experiment att_classification --data x.csv --spmm
+           kernel` on the card, with `--device cpu` the plain versions.
   predict  checkpoint + SMILES CSV → predictions, one JSON line per
            molecule: {"index": i, "pred": x}, or for a classification
            experiment {"index": i, "pred": argmax, "logits": [...]} — the
@@ -173,6 +178,7 @@ def main(argv=None):
                                   "epoch's record as JSON lines")
     tr.add_argument("--spmm", choices=["kernel"],
                     help="train through the decomposed path: the SpMM "
+                         "(edge-network models) or SDDMM (adv, att) "
                          "kernels for the message sums, the step loop in "
                          "PyTorch ops (default: the whole-step kernels)")
     tr.add_argument("--device", choices=["cuda", "cpu"], default="cuda",

@@ -7,10 +7,12 @@ kernels (one forward and one backward launch per step) and every
 evaluation batch the whole-step eval kernel — on `cuda` the CUDA kernels,
 on `cpu` their plain versions. With fuse_step=False the training step
 takes the decomposed path instead (mpnn_tpu's `train --packed --spmm
-kernel`): the plain model with the SpMM kernels for the message sum, the
-edge-MLP chain kernels and, with fuse_recurrence, the fused recurrence
-kernels for the lipo family's step chain (decomposed_hooks); validation
-stays on the eval kernel. There is no small-batch crossover and no
+kernel`): the plain model with the SpMM kernels for the edge-network
+families' message sum (with fuse_recurrence also the fused recurrence
+kernels for the lipo family's step chain) or the SDDMM kernels for the
+attention models' (with the set2vec kernels for their readout), and the
+edge-MLP chain kernels (decomposed_hooks); validation stays on the eval
+kernels. There is no small-batch crossover and no
 silent fallback: an ineligible config raises.
 """
 
@@ -18,6 +20,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import json
 import os
 from typing import Callable, Dict, List, Optional, Tuple
@@ -29,9 +32,12 @@ from mpnn_tpu_torch.device import require_on, resolve_device
 from mpnn_tpu_torch.graphs.dataloader import GraphLoader
 from mpnn_tpu_torch.kernels.edge_mlp import make_edge_mlp_op
 from mpnn_tpu_torch.kernels.recurrence import make_recurrence_op
+from mpnn_tpu_torch.kernels.sddmm import make_sddmm_op
+from mpnn_tpu_torch.kernels.set2vec import set2vec
 from mpnn_tpu_torch.kernels.spmm import make_spmm_op
 from mpnn_tpu_torch.models.fused_train import fused_eval_eligible
-from mpnn_tpu_torch.models.mpnn import bilinear_shape, decomposed_shape
+from mpnn_tpu_torch.models.mpnn import (att_shape, att_steps_shape,
+                                        decomposed_shape)
 from mpnn_tpu_torch.models.network import (Network, NetworkConfig,
                                            assign_state, network_apply_packed,
                                            network_init)
@@ -48,9 +54,10 @@ class TrainConfig:
     `packed`/`shuffle` have no switch here. The training step takes the
     whole-step kernels (fuse_step, the default: the port's first path) or
     the decomposed path (fuse_step=False: the SpMM kernels, and with
-    fuse_recurrence the recurrence kernels, as the JAX package's
-    spmm='kernel' path, whose fuse_step defaults to False; the port has
-    no other SpMM backend, so `spmm` has no switch either). The loss
+    fuse_recurrence the recurrence kernels, for the edge-network
+    families, the SDDMM kernels for the attention families, as the JAX
+    package's spmm='kernel' path, whose fuse_step defaults to False; the
+    port has no other SpMM backend, so `spmm` has no switch either). The loss
     defaults to mse (the port's first experiment, lipo)."""
     epochs: int = 100
     batch_size: int = 16
@@ -67,7 +74,8 @@ class TrainConfig:
     early_stop_loss: Optional[float] = None
     log_path: Optional[str] = None   # JSON lines: every step, every epoch
     # the whole-step kernels (one forward and one backward launch per
-    # step); False: the decomposed path below
+    # step); False: the decomposed path below (edge-network and attention
+    # families)
     fuse_step: bool = True
     # the decomposed path runs the lipo family's BN→GRU→BN chain as one
     # op (kernels/recurrence.py; configs where recurrence_eligible)
@@ -146,13 +154,26 @@ def batch_loss(kind: str, out: torch.Tensor, tb: dict) -> torch.Tensor:
 def decomposed_hooks(net_cfg: NetworkConfig, cfg: TrainConfig
                      ) -> Optional[dict]:
     """The decomposed path's ops for a run (None with cfg.fuse_step), as
-    mpnn_tpu/train/trainer.py builds them once per run: the SpMM hook, the
-    edge-MLP chain op, and with cfg.fuse_recurrence the recurrence op
-    where the config is recurrence_eligible."""
+    mpnn_tpu/train/trainer.py builds them once per run: for the attention
+    families the SDDMM hook, the edge-MLP chain op and, with the set2vec
+    readout, the set2vec op bound to the config's steps and softmax mode
+    (the JAX package runs set2vec in XLA there; here the ported kernels,
+    since the plain loop would set the step's pace); for the edge-network
+    families the SpMM hook, the edge-MLP chain op, and with
+    cfg.fuse_recurrence the recurrence op where the config is
+    recurrence_eligible."""
     from mpnn_tpu_torch.models.sparse import recurrence_eligible
     if cfg.fuse_step:
         return None
     m = net_cfg.mpnn
+    if att_shape(m) or att_steps_shape(m):
+        hooks = {"sddmm_fn": make_sddmm_op(),
+                 "edge_mlp_fn": make_edge_mlp_op(m.edge_mlp_tail_repeats)}
+        if m.readout == "set2vec":
+            hooks["set2vec_fn"] = functools.partial(
+                set2vec, time_steps=m.set2vec_steps,
+                batch_softmax=m.set2vec_batch_softmax)
+        return hooks
     rec = None
     if cfg.fuse_recurrence and recurrence_eligible(m, training=True):
         rec = make_recurrence_op(m.message_steps, m.node_features)
@@ -258,15 +279,11 @@ def _check_trainable(net_cfg: NetworkConfig, cfg: TrainConfig,
             "kernels; the other families are still to port (ROADMAP)")
     if cfg.fuse_step:
         return
-    m = net_cfg.mpnn
-    if not decomposed_shape(m):       # the attention or bilinear family
+    if not decomposed_shape(net_cfg.mpnn):      # the bilinear family
         raise NotImplementedError(
             "the bilinear family's decomposed path runs no kernel in the "
             "JAX package (its message is plain XLA); train it with the "
-            "whole-step kernels (fuse_step)" if bilinear_shape(m) else
-            "the attention models' decomposed path runs the SDDMM kernels "
-            "(mpnn_tpu/kernels/sddmm.py, row 11 of PERF.md), still to "
-            "port; train them with the whole-step kernels (fuse_step)")
+            "whole-step kernels (fuse_step)")
 
 
 def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,

@@ -8,10 +8,12 @@ its times and profiles mean nothing. Run from the repository root:
 
 phases: mlp-kernel-check, mlp-times, wide, bil-kernel-check, bil-serve,
 bil-train, bil-times, ecfp, spmm-kernel-check, rec-kernel-check,
-dec-train, dec-times (default all). The wide phase runs on 48 molecules
-with set2vec cut to 3 steps; bil-train, ecfp and dec-train on 64;
-rec-kernel-check at b16's and 2,000 node slots; dec-times at batch 16
-and 48, without a trace (the stand-in has no device to trace).
+dec-train, dec-times, sddmm-kernel-check, dec-att-train, dec-att-times
+(default all). The wide phase runs on 48 molecules with set2vec cut to 3
+steps (in every adv and att run); bil-train, ecfp, dec-train and
+dec-att-train on 64; rec-kernel-check at b16's and 2,000 node slots;
+dec-times and dec-att-times at batch 16 and 48, without a trace (the
+stand-in has no device to trace).
 """
 
 import dataclasses
@@ -29,7 +31,7 @@ import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
                                     fused_att_steps, fused_bilinear,
                                     fused_psteps, fused_step, recurrence,
-                                    set2vec, spmm)
+                                    sddmm, set2vec, spmm)
 
 ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
@@ -40,7 +42,8 @@ ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs",
         "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs",
         "spmm_fwd": "FwdArgs", "spmm_da": "DaArgs",
-        "recurrence_fwd": "FwdArgs", "recurrence_bwd": "BwdArgs"}
+        "recurrence_fwd": "FwdArgs", "recurrence_bwd": "BwdArgs",
+        "sddmm_fwd": "FwdArgs", "sddmm_bwd": "BwdArgs"}
 
 
 class _Event:
@@ -58,7 +61,7 @@ def main(argv) -> int:
     emu.build([f"{lib}:{ARGS[lib.partition('.')[0]]}"
                for lib in emu.B.all_libraries()])
     emu.emulate(fused_step, fused_psteps, fused_att, fused_att_steps,
-                set2vec, edge_mlp, fused_bilinear, spmm, recurrence)
+                set2vec, edge_mlp, fused_bilinear, spmm, recurrence, sddmm)
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.Event = _Event
     cpu = torch.device("cpu")
@@ -74,7 +77,7 @@ def main(argv) -> int:
     CS.WIDE_ROWS = 48
     CS.TRAIN_ROWS = CS.ECFP_ROWS = 64
     CS.REC_NODES = (2000,)
-    CS.DEC_TIMES_BATCHES = (16, 48)
+    CS.DEC_TIMES_BATCHES = CS.DEC_ATT_BATCHES = (16, 48)
     CS._dec_trace = lambda *a: (0.0, "no trace (emulated)")
     # set2vec's 100 steps cut to 3: the stand-in takes seconds a step
     from mpnn_tpu_torch.models import zoo
@@ -95,7 +98,11 @@ def main(argv) -> int:
               "spmm-kernel-check": lambda: CS.phase_spmm_kernel_check(cpu),
               "rec-kernel-check": lambda: CS.phase_rec_kernel_check(cpu),
               "dec-train": lambda: CS.phase_dec_train(cpu),
-              "dec-times": lambda: CS.phase_dec_times(cpu, "emulated")}
+              "dec-times": lambda: CS.phase_dec_times(cpu, "emulated"),
+              "sddmm-kernel-check": lambda: CS.phase_sddmm_kernel_check(cpu),
+              "dec-att-train": lambda: CS.phase_dec_att_train(cpu),
+              "dec-att-times": lambda: CS.phase_dec_att_times(cpu,
+                                                              "emulated")}
     for name in argv or list(phases):
         phases[name]()
     return 0

@@ -8,7 +8,8 @@ fuse_recurrence (make_recurrence_op_auto, interpret mode), from the same
 weights; one training step's gradients (nafm_bn's among them: they reach
 the wrapper through the SpMM's dh, the recurrence's dh0 and the readout's
 h0) and the per-step family's step with the SpMM hook alone; the `train
---spmm kernel` verb; and what the decomposed path refuses.
+--spmm kernel` verb; the attention models' `train --spmm kernel` against
+their whole-step path; and what the decomposed path refuses.
 
 The lipo shell at its widths with depth cut to T = 3 and a ×3 edge-MLP
 tail (tests/test_torch_train.py's _setup), the per-step models as
@@ -263,15 +264,25 @@ def test_cli_train_spmm_kernel_cpu(tmp_path, capsys):
                                         "att_classification"])
 def test_spmm_kernel_on_attention_models_names_row_11(tmp_path,
                                                        experiment):
-    """The attention models' decomposed path runs the SDDMM kernels, which
-    are still to port: `train --spmm kernel` raises and names row 11."""
+    """The attention models' decomposed path runs the SDDMM kernels (row
+    11 of PERF.md's table, ported): `train --spmm kernel` trains them, and
+    its per-step losses match the whole-step path's from the same weights
+    (the trainer's seed) on the same shuffled batches."""
     csv = os.path.join(str(tmp_path), "cls.csv")
     with open(csv, "w") as fh:
         fh.write("smiles,target\n" + "".join(
             f"{s},{i % 3}\n" for i, s in enumerate(SMILES[:20])))
-    with pytest.raises(NotImplementedError, match="row 11"):
+    losses = []
+    for extra in (["--spmm", "kernel"], []):
+        log = os.path.join(str(tmp_path), f"log{len(losses)}.jsonl")
         tcli.main(["train", "--experiment", experiment, "--data", csv,
-                   "--epochs", "1", "--spmm", "kernel", "--device", "cpu"])
+                   "--epochs", "1", "--log", log, "--device", "cpu",
+                   *extra])
+        with open(log) as fh:
+            losses.append([json.loads(x)["loss"] for x in fh
+                           if '"step"' in x])
+    assert len(losses[0]) == len(losses[1]) >= 1
+    np.testing.assert_allclose(losses[0], losses[1], rtol=RTOL)
 
 
 def test_decomposed_path_refuses_what_it_cannot_run():

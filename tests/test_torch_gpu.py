@@ -1355,3 +1355,142 @@ def test_decomposed_lipo_step_on_card():
     np.testing.assert_allclose(losses[0], losses[1], rtol=1e-4)
     assert counts == [{"spmm_fwd": 6, "spmm_da": 3, "recurrence_fwd": 3,
                        "recurrence_bwd": 3}, dict.fromkeys(counts[0], 0)]
+
+
+def sddmm_problem(rng, g, f=7, mf=None, ef=6, k=9, device="cuda"):
+    """The attention SDDMM's arguments on a _problem batch (ragged graphs
+    of 1 to 24 nodes, padded edges on the dummy node with vid 0): a random
+    aprime (K, mf, nf) whose row 0 is not zero (as the model's A'_0 =
+    pen(0)·W̃ + Bf), evocab (K, ef), wa (nf + ef, nf), ba, h (N, nf)
+    random on every row (the dummy row too, so the padded edges carry
+    messages), and a cotangent gout (N, mf) random on every row. Returns
+    (aprime, evocab, wa, ba, h, vid, src, dst, plan, gout)."""
+    mf = f if mf is None else mf
+    p = _problem(rng, g=g, f=f, k=k, device=device)
+    n = p[3].shape[0]
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    return (t(rng.randn(k, mf, f) * 0.3), t(rng.randn(k, ef)),
+            t(rng.randn(f + ef, f) * 0.3), t(rng.randn(f) * 0.1),
+            t(rng.randn(n, f)), *p[12:16], t(rng.randn(n, mf)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,f,mf,ef,k", [(1024, 7, 7, 6, 9),
+                                         (1024, 27, 27, 6, 64),
+                                         (37, 7, 7, 6, 64), (37, 27, 27, 6, 9),
+                                         (200, 10, 13, 6, 9),
+                                         (2560, 7, 7, 6, 9)])
+def test_cuda_sddmm_kernels_match_plain_version(g, f, mf, ef, k):
+    """sddmm_fwd and sddmm_bwd against the plain version under autograd
+    at adv's bench widths (f 7, K 9) and real widths (f 27, K 64), mf !=
+    nf, ragged batches and past 32k node slots (g 2560). aprime[0], h
+    and the cotangent are random at the dummy node, so the padded edges
+    carry messages and gradients there; the gradients are divided by
+    their max abs."""
+    _need_card()
+    from chip_smoke import sddmm_value_and_grads
+    from mpnn_tpu_torch.kernels import sddmm as D
+    rng = np.random.RandomState(g + f + k)
+    c = sddmm_problem(rng, g, f=f, mf=mf, ef=ef, k=k)
+    D.reset_launch_counts()
+    got = sddmm_value_and_grads(D.sddmm, *c)
+    torch.cuda.synchronize()
+    assert D.launch_counts == {"sddmm_fwd": 1, "sddmm_bwd": 1}
+    want = sddmm_value_and_grads(lambda *x: D.sddmm_reference(*x[:8]), *c)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    _grads_close(dict(zip(("aprime", "evocab", "wa", "ba", "h"), got[1:])),
+                 dict(zip(("aprime", "evocab", "wa", "ba", "h"), want[1:])))
+    assert got[0][-1].abs().max() > 0 and got[5][-1].abs().max() > 0
+
+
+@pytest.mark.gpu
+def test_cuda_sddmm_vocab_sizes_in_turn():
+    """Both SDDMM kernels at every vocab size from 64 down to 1, then 64
+    again, in one process (the narrow bucket stages aprime in K KB of
+    shared memory: no launch may leave a kernel's limit below a later,
+    larger K's), each within rtol/atol of the plain version."""
+    _need_card()
+    from chip_smoke import sddmm_value_and_grads
+    from mpnn_tpu_torch.kernels import sddmm as D
+    for k in [*range(D.MAX_VOCAB, 0, -1), D.MAX_VOCAB]:
+        c = list(sddmm_problem(np.random.RandomState(k), 5, f=10,
+                               k=max(k, 2)))
+        c[0], c[1] = c[0][:k].contiguous(), c[1][:k].contiguous()
+        c[5] = c[5].clamp(max=k - 1).contiguous()
+        got = sddmm_value_and_grads(D.sddmm, *c)
+        want = sddmm_value_and_grads(lambda *x: D.sddmm_reference(*x[:8]),
+                                     *c)
+        torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL,
+                                   msg=lambda m, k=k: f"K={k}: {m}")
+        _grads_close(dict(enumerate(got[1:])), dict(enumerate(want[1:])))
+
+
+@pytest.mark.gpu
+def test_cuda_sddmm_wrapper_raises_instead_of_falling_back():
+    """Past the buckets (f 33, ef 33, K 65), on a CPU/CUDA mix, a wrong
+    dtype or out-of-range ids: the wrapper raises and launches nothing."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import sddmm as D
+    c = sddmm_problem(np.random.RandomState(1), 32)
+    D.reset_launch_counts()
+    with pytest.raises(TypeError, match="float32"):
+        D.sddmm(c[0].double(), *c[1:9])
+    with pytest.raises(ValueError, match="aprime is on cpu"):
+        D.sddmm(c[0].cpu(), *c[1:9])
+    with pytest.raises(ValueError, match="vid out of range"):
+        D.sddmm(*c[:5], c[5] + 9, *c[6:9])
+    wide = sddmm_problem(np.random.RandomState(2), 8, f=33)
+    with pytest.raises(NotImplementedError, match="f=33"):
+        D.sddmm(*wide[:9])
+    wide = sddmm_problem(np.random.RandomState(3), 8, ef=33)
+    with pytest.raises(NotImplementedError, match="ef=33"):
+        D.sddmm(*wide[:9])
+    big = sddmm_problem(np.random.RandomState(4), 8, k=65)
+    with pytest.raises(NotImplementedError, match="K=65"):
+        D.sddmm(*big[:9])
+    assert set(D.launch_counts.values()) == {0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("experiment,nets", [("adv_classification", 1),
+                                             ("att_classification", 3)])
+def test_decomposed_attention_train_verb_on_card(tmp_path, experiment,
+                                                 nets):
+    """`train --spmm kernel` of adv and att for one epoch of two steps
+    (and one validation and one test batch) on the card: exact launch
+    counts — per step and message network one sddmm_fwd, one sddmm_bwd
+    and the chain's 1 + 1, one set2vec_fwd and set2vec_bwd; per eval batch
+    the eval kernels and no SDDMM — and finite losses."""
+    import json
+    import os
+    _need_card()
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.kernels import fused_att as A
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    from mpnn_tpu_torch.kernels import sddmm as D
+    from mpnn_tpu_torch.kernels import set2vec as S2V
+    from mpnn_tpu_torch.train import cli
+    smiles = (WIDE_SMILES[:10] * 4)[:40]
+    csv = os.path.join(str(tmp_path), "cls.csv")
+    with open(csv, "w") as fh:
+        fh.write("smiles,target\n" + "".join(
+            f"{s},{i % 3}\n" for i, s in enumerate(smiles)))
+    log = os.path.join(str(tmp_path), "log.jsonl")
+    for mod in (A, AS, D, S2V, M):
+        mod.reset_launch_counts()
+    cli.main(["train", "--experiment", experiment, "--data", csv,
+              "--epochs", "1", "--batch-size", "16", "--log", log,
+              "--spmm", "kernel"])
+    with open(log) as fh:
+        steps = [json.loads(x)["loss"] for x in fh if '"step"' in x]
+    assert len(steps) == 2 and np.isfinite(steps).all()
+    msg = "fused_att" if nets == 1 else "fused_att_steps"
+    assert {**D.launch_counts, **S2V.launch_counts, **M.launch_counts,
+            **A.launch_counts, **AS.launch_counts} == {
+        "sddmm_fwd": 2 * nets, "sddmm_bwd": 2 * nets,
+        "set2vec_fwd": 2 + 2, "set2vec_bwd": 2,
+        "edge_mlp_fwd": nets * (2 + 2), "edge_mlp_bwd": nets * 2,
+        "fused_att_fwd": 2 if nets == 1 else 0, "fused_att_bwd": 0,
+        "fused_att_steps_fwd": 0 if nets == 1 else 2,
+        "fused_att_steps_bwd": 0, **{f"{msg}_bwd": 0}}

@@ -144,7 +144,8 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                   "edge_mlp_bwd", "fused_bilinear_fwd",
                                   "fused_bilinear_bwd", "spmm_fwd",
                                   "spmm_da", "recurrence_fwd",
-                                  "recurrence_bwd"}
+                                  "recurrence_bwd", "sddmm_fwd",
+                                  "sddmm_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
     # every source in one family; each wide bucket its own library
@@ -156,7 +157,8 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                                      "MPNN_ODW=128")
     assert build.defines("fused_eval") == ()
     assert build.defines("spmm_da.f32") == build.defines(
-        "recurrence_bwd.f32") == ("MPNN_FP=32",)
+        "recurrence_bwd.f32") == build.defines("sddmm_bwd.f32") \
+        == ("MPNN_FP=32",)
 
 
 @pytest.mark.parametrize("exp", ["graph_norm_classification",
