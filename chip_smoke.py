@@ -177,6 +177,30 @@ Phases, one line each:
                b1024 steps' device idle share from a trace, and both SDDMM
                kernels' times beside their bounds and plain versions'
                (adv b1024).
+ 37. split-kernel-check — the split training backward's kernels (ro_bwd,
+               msg_bwd, ps_walk_bwd; kernels/split_bwd.py) against their
+               plain versions: b1024 in 16,512 slots and b3584 in 57,856,
+               lipo's widths (T 1) and the per-step family's (T 3) with
+               every msg × state norm pair, graph_norm's, the wide bucket
+               (f 27-32, od 60-128, 64 vocab ids), a ragged batch and b16,
+               every case with its inputs random at the padded node slots
+               (each output divided by its max abs; rtol 1e-4 / atol 1e-5);
+ 38. split-train — lipo through `train --batch-size 3584`, encoded_
+               classification and graph_norm_classification through
+               trainer.train at 3584 (1 epoch on 9,000 of bench.py's
+               molecules, the loader's node cap its worst batch): the node
+               slots, the `auto` route's exact launch counts (per step 1
+               ro_bwd, 1 msg_bwd, 1 recurrence_bwd or ps_walk_bwd; no
+               whole-step backward), the first 3 losses against the plain
+               path (rtol 1e-3), the first step's gradients against the
+               plain model in float64 (scaled, 1e-4 / 1e-5); one step of
+               each at b1024 on the whole route;
+ 39. split-times — lipo and encoded at b1024 (split forced) and b3584
+               (split by the rule): each split kernel's time beside its
+               bound and its plain version's, the whole route's backward
+               beside the split route's three launches, both routes'
+               train-step latency, and at b3584 their device busy time and
+               idle share.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -294,8 +318,9 @@ def phase_build():
             if m:
                 t = re.search(r"Li(\d+)ELi(\d+)E", m.group(1))
                 k = re.search(
-                    r"\d((?:fused|set2vec|edge_mlp|spmm|recurrence)_"
-                    r"[a-z_]+_kernel)[EIv]",
+                    r"\d((?:fused|set2vec|edge_mlp|spmm|recurrence|ro|"
+                    r"ps_walk|graph_sums|node|item|combine)(?:_[a-z_]+)?"
+                    r"_kernel)[EIv]",
                     m.group(1))
                 w = re.search(r"_kernelILi(\d+)EE", m.group(1))
                 entry = (f"<{t.group(1)},{t.group(2)}>" if t
@@ -352,7 +377,11 @@ def phase_build():
            f"{_lib_call('spmm', 'spmm_da', 'mpnn_spmm_da_smem_bytes')} B, "
            + ", ".join(
                f"{n} {_lib_call('recurrence', n, f'mpnn_{n}_smem_bytes', 6)} B"
-               for n in ("recurrence_fwd", "recurrence_bwd")) + " (T 6)")
+               for n in ("recurrence_fwd", "recurrence_bwd")) + " (T 6); "
+           f"ro_bwd {_lib_call('readout_bwd', 'ro_bwd', 'mpnn_ro_bwd_smem_bytes')}"
+           f" B, ps_walk_bwd "
+           f"{_lib_call('psteps_walk', 'ps_walk_bwd', 'mpnn_ps_walk_bwd_smem_bytes', 3)}"
+           " B (T 3), msg_bwd 2·128·16 floats (its item launch)")
     print(f"build: {wall:.1f} s wall ({', '.join(f'{k} {v:.1f} s' for k, v in secs.items())});"
           f" ptxas: {'; '.join(report)}; dynamic smem per block at K=16: "
           f"{dyn}", flush=True)
@@ -1228,8 +1257,10 @@ def phase_ps_kernel_check(device):
         ok_e, err_e, _ = _within(got, want)
         ok_e = ok_e and bool(torch.isfinite(got).all())
         cw = torch.randn(want.shape, generator=gen).to(device)
-        got = _step_and_grads(P.fused_psteps, _ps_step_args(c), leaves,
-                              cw, kw)
+        # the whole backward kernel, past 28,672 slots too (where the
+        # op's rule would split: split-kernel-check holds that route)
+        got = _step_and_grads(functools.partial(P.fused_psteps, bwd="whole"),
+                              _ps_step_args(c), leaves, cw, kw)
         torch.cuda.synchronize()
         want = _step_and_grads(P.fused_psteps_reference, _ps_step_args(c),
                                leaves, cw, kw)
@@ -3638,7 +3669,8 @@ def _kernel_modules():
     return [importlib.import_module(f"mpnn_tpu_torch.kernels.{m}")
             for m in ("fused_step", "fused_psteps", "fused_att",
                       "fused_att_steps", "set2vec", "edge_mlp",
-                      "fused_bilinear", "spmm", "recurrence", "sddmm")]
+                      "fused_bilinear", "spmm", "recurrence", "sddmm",
+                      "readout_bwd", "msg_bwd", "psteps_walk")]
 
 
 def _dec_reset():
@@ -3646,14 +3678,20 @@ def _dec_reset():
         mod.reset_launch_counts()
 
 
+def _launch_counts():
+    """Every kernel wrapper's launch count, by kernel."""
+    counts = {}
+    for mod in _kernel_modules():
+        counts.update(mod.launch_counts)
+    return counts
+
+
 def _dec_take(what, want):
     """Check the launches since _dec_reset() against the design's `want`:
     every kernel it names as it says, every other kernel of the port
     unlaunched; add the main path's to DEC_MAIN, DEC_ATT_MAIN and
     MLP_MAIN; return them."""
-    counts = {}
-    for mod in _kernel_modules():
-        counts.update(mod.launch_counts)
+    counts = _launch_counts()
     got = {k: counts[k] for k in want}
     other = {k: v for k, v in counts.items() if k not in want and v}
     if other:
@@ -4887,6 +4925,682 @@ def phase_dec_att_times(device, card):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the split training backward (kernels/split_bwd.py): ro_bwd, msg_bwd and
+# ps_walk_bwd, with recurrence_bwd between them for the shared family
+# ---------------------------------------------------------------------------
+
+SPLIT_KERNELS = ("ro_bwd", "msg_bwd", "ps_walk_bwd")
+# their launches on the main paths (split-train), summed
+SPLIT_MAIN = dict.fromkeys(SPLIT_KERNELS, 0)
+SPLIT_BATCH = 3584
+# the node slots of split-kernel-check's b3584 batch: 16.125 a molecule,
+# as the serving path's 16,512 at b1024
+SPLIT_NODES = 57856
+
+
+def _noisy(t, pad, gen):
+    """A copy of t (·, N, f) with random values at the padded node slots
+    `pad` (the dummy node among them): the kernels must give what the
+    function gives there, which masks them out."""
+    import torch
+    t = t.detach().clone()
+    idx = (slice(None),) * (t.dim() - 2) + (pad,)
+    t[idx] = torch.randn(t[idx].shape, generator=gen).to(t.device)
+    return t
+
+
+def split_kernel_case(tb, f, od, steps, mn, sn, gen, device, k=None):
+    """Each split-backward kernel through its wrapper against its plain
+    version on one batch: the per-step family's weights at widths f, od
+    and `steps` message networks (_ps_case; with k, k random vocab ids on
+    the real edges), the forward's residuals from the plain forward, and
+    random cotangents; h0, h_T's slot, gh and dm random at the padded node
+    slots. Returns {kernel: (ok, max error of its outputs each divided by
+    its max abs)}."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import psteps_walk as PW
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    c, _ = _ps_case(tb, f, od, gen, device, steps=steps)
+    if k is not None:
+        rnd = torch.randint(1, k, c["vid"].shape, generator=gen,
+                            dtype=torch.int32).to(device)
+        c["vid"] = torch.where(tb["edge_mask"] > 0, rnd,
+                               torch.zeros_like(rnd)).contiguous()
+        c["amat"] = 0.2 * torch.randn(steps, k, f, f, generator=gen).to(
+            device)
+    weights, meta = P.flat_weights(
+        c["amat"], c["a0"], c["mbias"], c["gru"], c["ma_bns"], c["bns"],
+        c["ro"], c["h0"], steps=steps, msg_norm=mn, state_norm=sn)
+    weights = [(name, t.detach()) for name, t in weights]
+    w = dict(weights)
+    mask, ng, plan = c["mask"], c["node_graph"], c["plan"]
+    pad = mask[:, 0] == 0
+    T = steps
+    with torch.no_grad():
+        _, out, stats, htil = P._reference_residuals(
+            weights, c["h0"].detach(), mask, ng, c["labels"], c["gmask"],
+            c["vid"], c["src"], c["dst"], plan, meta)
+        h0 = _noisy(c["h0"], pad, gen)
+        gout = torch.randn(out.shape, generator=gen).to(device)
+        gl = torch.randn(1, generator=gen).to(device)
+        ro = {s: {"w": w[f"ro_{s}w"], "b": w[f"ro_{s}b"]} for s in "ij"}
+        ro_in = (_noisy(htil[2 * T - 1], pad, gen), stats[2 * T - 1],
+                 w["bn_w"][T - 1], w["bn_b"][T - 1], h0, mask, ng, ro,
+                 c["labels"], c["gmask"], out, gout, gl)
+        gh = _noisy(torch.randn(h0.shape, generator=gen).to(device), pad,
+                    gen)
+        dm = torch.randn(T, *h0.shape, generator=gen).to(device)
+        runs = {
+            "ro_bwd": lambda fn: fn(*ro_in, state_norm=sn),
+            "ps_walk_bwd": lambda fn: fn(gh, h0, mask, htil, stats,
+                                         plan.graph_node_ptr, weights,
+                                         steps=T, msg_norm=mn,
+                                         state_norm=sn),
+            "msg_bwd": lambda fn: fn(w["amat"], w["a0"], h0, mask, ng,
+                                     c["vid"], c["src"], c["dst"], dm,
+                                     plan)}
+        plain = {
+            "ro_bwd": lambda *a, **kw: RB.ro_bwd_reference(*a, **kw),
+            "ps_walk_bwd": lambda gh_, h0_, mask_, htil_, st_, ptr_, wt, **kw:
+                PW.ps_walk_bwd_reference(gh_, h0_, mask_, htil_, dict(wt),
+                                         **kw),
+            "msg_bwd": lambda *a: MB.msg_bwd_reference(
+                *a[:-1], a[-1].graph_node_ptr.shape[0] - 1)}
+        fns = {"ro_bwd": RB.ro_bwd, "ps_walk_bwd": PW.ps_walk_bwd,
+               "msg_bwd": MB.msg_bwd}
+        res = {}
+        for name, run in runs.items():
+            got = _flat_tensors(run(fns[name]))
+            _sync(device)
+            want = _flat_tensors(run(plain[name]))
+            ok, err = True, 0.0
+            for a, b in zip(got, want):
+                o, e, _ = _scaled_within(a, b)
+                ok = ok and o and bool(torch.isfinite(a).all())
+                err = max(err, e)
+            res[name] = (ok and len(got) == len(want), err)
+    return res
+
+
+def _flat_tensors(x):
+    """The tensors of a nest of tuples, lists and dicts, in order."""
+    import torch
+    if torch.is_tensor(x):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    return [t for v in x for t in _flat_tensors(v)]
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+@functools.lru_cache(maxsize=None)
+def _split_check_batches(device):
+    """split-kernel-check's device batches: b1024 in 16,512 node slots,
+    b3584 in SPLIT_NODES, b16 and the ragged batch."""
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    b1024, b16, _, ragged = _dec_check_batches(device)
+    gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+        (SMILES * 359)[:SPLIT_BATCH], [0.0] * SPLIT_BATCH))
+    big = batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+        G.collate_packed(gs, node_cap=SPLIT_NODES).as_dict(), vocab_cap=8)),
+        device)
+    return b1024, big, b16, ragged
+
+
+def phase_split_kernel_check(device):
+    """The split backward's three kernels against their plain versions on
+    the card: at b1024 (16,512 slots) and b3584 (57,856 slots) for lipo's
+    widths (f 10, od 14, one message network; state bn1d) and the
+    per-step family's (f 8, od 16, T 3) with every msg × state norm pair,
+    graph_norm's (f 7, od 28), the wide bucket (f 27 and 32, od 108 and
+    128, 64 vocab ids), a ragged batch and b16; every case with h0, h_T's
+    slot, gh and dm random at the padded node slots (the dummy node's
+    among them). Each output divided by its max abs, rtol 1e-4 / atol
+    1e-5."""
+    import torch
+    gen = torch.Generator().manual_seed(101)
+    b1024, big, b16, ragged = _split_check_batches(device)
+    cases = ([("b1024 lipo", b1024, 10, 14, 1, "bn1d", "bn1d", None),
+              ("b3584 lipo", big, 10, 14, 1, "bn1d", "bn1d", None)]
+             + [("b3584 encoded", big, 8, 16, 3, mn, sn, None)
+                for mn, sn in PS_NORMS]
+             + [("b1024 encoded", b1024, 8, 16, 3, "bn1d", "bn1d", None),
+                ("b3584 graph_norm", big, 7, 28, 3, "none", "stateless",
+                 None),
+                ("b1024 wide", b1024, 27, 108, 3, "bn1d", "bn1d", 64),
+                ("b3584 wide", big, 32, 128, 3, "none", "stateless", 64),
+                ("b1024 wide lipo", b1024, 30, 60, 1, "bn1d", "bn1d", 64),
+                ("ragged", ragged, 8, 16, 3, "bn1d", "bn1d", None),
+                ("ragged T 1", ragged, 10, 14, 1, "bn1d", "bn1d", None),
+                ("b16", b16, 8, 16, 3, "bn1d", "stateless", None)])
+    worst = dict.fromkeys(SPLIT_KERNELS, 0.0)
+    results, failed = [], []
+    for what, tb, f, od, T, mn, sn, k in cases:
+        res = split_kernel_case(tb, f, od, T, mn, sn, gen, device, k=k)
+        for name, (ok, err) in res.items():
+            worst[name] = max(worst[name], err)
+        ok = all(o for o, _ in res.values())
+        results.append(
+            f"{what} {mn}/{sn} f={f} od={od} T={T}"
+            + (f" K={k}" if k else "") + f" ({tb['node_mask'].shape[0]} "
+            f"slots): " + " ".join(f"{n} {e:.2e}" for n, (_, e)
+                                   in res.items())
+            + f" {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(f"{what} {mn}/{sn}: {res}")
+    print(f"split-kernel-check: ro_bwd, msg_bwd, ps_walk_bwd vs their plain "
+          f"versions (each output divided by its max abs; rtol {RTOL} atol "
+          f"{ATOL}; inputs random at the padded slots): "
+          + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"the split backward's kernels disagree with "
+                           f"their plain versions: {failed}")
+    return worst
+
+
+SPLIT_ROWS = 9000
+# split-times' smaller batch, the split route forced there
+SPLIT_SMALL = 1024
+# the split-train runs: (experiment, the op's family)
+SPLIT_MODELS = (("lipo", "shared"), ("encoded_classification", "psteps"),
+                ("graph_norm_classification", "psteps"))
+
+
+@contextlib.contextmanager
+def _route(bwd):
+    """The training ops of models/fused_train.py with their backward route
+    forced to `bwd` within the block (the models pass none: 'auto')."""
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models import fused_train as FT
+    FT.fused_step = functools.partial(K.fused_step, bwd=bwd)
+    FT.fused_psteps = functools.partial(P.fused_psteps, bwd=bwd)
+    try:
+        yield
+    finally:
+        FT.fused_step, FT.fused_psteps = K.fused_step, P.fused_psteps
+
+
+def _split_want(family, route, n_steps, n_evals, nets):
+    """The launches of a fused training run: per step one forward and the
+    route's backward launches, per eval batch one eval launch, and the
+    edge-MLP chain's per message network."""
+    fwd, bwd, ev = (("fused_step_fwd", "fused_step_bwd", "fused_eval")
+                    if family == "shared" else
+                    ("fused_psteps_fwd", "fused_psteps_bwd",
+                     "fused_psteps_eval"))
+    want = {fwd: n_steps, ev: n_evals, "edge_mlp_fwd": nets * (
+        n_steps + n_evals), "edge_mlp_bwd": nets * n_steps}
+    if route == "whole":
+        want[bwd] = n_steps
+    else:
+        walk = "recurrence_bwd" if family == "shared" else "ps_walk_bwd"
+        want.update(dict.fromkeys(("ro_bwd", "msg_bwd", walk), n_steps))
+    return {k: v for k, v in want.items() if v}
+
+
+def _fused_first_grads(cfg, tcfg, batch, device):
+    """The first step's parameter gradients from the trainer's initial
+    weights (seed tcfg.seed) on `batch` through the whole-step ops (the
+    route their rule picks), the plain model in float32 and the plain
+    model in float64 (weights and the batch's floats cast up), under
+    PyTorch's deterministic algorithms (_dec_first_grads)."""
+    import torch
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train.trainer import batch_loss
+
+    def grads(fused, dtype):
+        n = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
+                         device).to(dtype)
+        b = {k: (v.to(dtype) if torch.is_tensor(v) and v.is_floating_point()
+                 else v) for k, v in batch.items()}
+        out, _ = network_apply_packed(n, b, fused=fused, training=True)
+        batch_loss(tcfg.loss, out, b).backward()
+        return {k: p.grad for k, p in n.named_parameters()
+                if p.grad is not None}
+
+    with _deterministic_torch():
+        return (grads(True, torch.float32), grads(False, torch.float32),
+                grads(False, torch.float64))
+
+
+def fused_grad_distance(cfg, got, exact):
+    """_grad_distance of the leaves of `got` from `exact` (float64), where
+    a leaf whose float64 gradient is zero in theory (a bias under a batch
+    norm, as the encoders' last layers: below 1e-9 of the largest
+    gradient) is held, unscaled, to atol of the largest gradient: its
+    distance is its max abs over that."""
+    top = max(float(w.abs().max()) for w in exact.values())
+    zero = {k for k, w in exact.items() if float(w.abs().max()) <= 1e-9 * top}
+    keep = lambda d: {k: v for k, v in d.items() if k not in zero}
+    margin, where, worst = _grad_distance(cfg, keep(got), keep(exact))
+    for k in zero:
+        m_k = float(got[k].abs().max()) / (ATOL * top)
+        if m_k >= margin:
+            margin, where = m_k, k
+    return margin, where, worst
+
+
+def _split_first_steps(what, cfg, tcfg, train_gs, device, steps):
+    """A run's first 3 logged losses against the plain path on the card
+    (rtol 1e-3), from the trainer's initial weights on its first shuffled
+    batches, and the first step's gradients through the fused ops against
+    the plain model in float64 (scaled, 1e-4 / 1e-5; a leaf whose float64
+    gradient is zero in theory within atol of the largest gradient).
+    Returns (max rel loss difference, the fused ops' max scaled gradient
+    distance from float64, the plain float32 model's)."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    loader = G.GraphLoader(train_gs, tcfg.batch_size, shuffle=True,
+                           seed=tcfg.seed)
+    batches = [batch_to_device(b, device) for b, _ in zip(loader, range(3))]
+    net = network_init(cfg, torch.Generator().manual_seed(tcfg.seed),
+                       device)
+    opt = adam(net.parameters(), tcfg.learning_rate,
+               weight_decay=tcfg.weight_decay)
+    plain = [float(train_step(net, opt, b, fused=False, loss_kind=tcfg.loss))
+             for b in batches]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if rel > 1e-3:
+        raise RuntimeError(f"{what}: first steps {steps[:3]} vs plain path "
+                           f"{plain} (rel {rel:.2e} > 1e-3)")
+    got, p32, exact = _fused_first_grads(cfg, tcfg, batches[0], device)
+    if set(got) != set(exact) or set(p32) != set(exact):
+        raise RuntimeError(f"{what}: the paths reach other leaves")
+    margin, where, worst = fused_grad_distance(cfg, got, exact)
+    p_margin, _, p_worst = fused_grad_distance(cfg, p32, exact)
+    if margin > 1:
+        raise RuntimeError(f"{what}: first-step gradient of {where}: "
+                           f"{margin:.2f} of the tolerance from float64 "
+                           f"(max scaled {worst:.3e}; the plain float32 "
+                           f"model: {p_margin:.2f}, {p_worst:.3e})")
+    return rel, worst, p_worst
+
+
+def phase_split_train(device):
+    """Large-batch training through the split backward, each run's launch
+    counts set to 0 just before it and read just after: lipo through
+    `train --batch-size 3584` (1 epoch on SPLIT_ROWS of bench.py's
+    molecules; the loader's node cap is its worst batch), encoded_
+    classification and graph_norm_classification through trainer.train at
+    batch 3584 on the same molecules. The node slots of each; the `auto`
+    route must split: per step one forward, one ro_bwd, one msg_bwd and
+    one recurrence_bwd (lipo) or ps_walk_bwd (the per-step family), no
+    whole-step backward. Each run's first 3 losses against the plain path
+    (rtol 1e-3) and its first step's gradients against the plain model in
+    float64 (rtol 1e-4 / atol 1e-5, scaled). Then one train step of each
+    model at b1024 (16,512 slots), which must take the whole route."""
+    import dataclasses
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import split_bwd
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.split import train_test_split
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    os.makedirs(OUT_DIR, exist_ok=True)
+    bs = SPLIT_BATCH
+
+    def split(gs):
+        tr, te = train_test_split(gs, 0.1, 317)
+        tr, va = train_test_split(tr, 0.1, 317)
+        return tr, va, te
+
+    def n_batches(gs):
+        return -(-len(gs) // bs)
+
+    lines = []
+    lcsv = _train_csv(SPLIT_ROWS)
+    lgs, _ = G.load_number_dataset(lcsv, "smiles", "exp")
+    pcsv = _ps_csv("split", SPLIT_ROWS)
+    pgs = G.load_classification_dataset(pcsv, "smiles", "target")[0]
+    b1024 = _split_check_batches(device)[0]
+    for exp_name, family in SPLIT_MODELS:
+        exp = experiments.get(exp_name)
+        gs = lgs if family == "shared" else pgs
+        tr, va, te = split(gs)
+        dims = dict(afm=int(gs[0].afm.shape[-1]), bfm=int(gs[0].bfm.shape[-1]),
+                    nafm=int(gs[0].nafm.shape[-1]))
+        cfg = (zoo.lipo(dims["afm"], dims["bfm"], dims["nafm"])
+               if family == "shared" else
+               zoo.build(exp.model, **dims, n_out=PS_CLASSES))
+        log = os.path.join(OUT_DIR, f"split_train_{exp_name}.jsonl")
+        if os.path.exists(log):
+            os.remove(log)
+        n = G.GraphLoader(tr, bs)._packed_caps[0]
+        f = cfg.mpnn.node_features
+        T = cfg.mpnn.message_steps
+        route = split_bwd.route(family, steps=T, f=f, n=n,
+                                msg_norm=cfg.mpnn.msg_norm,
+                                state_norm=cfg.mpnn.state_norm)
+        if route != "split":
+            raise RuntimeError(f"split-train {exp_name}: {n} node slots "
+                               f"take the {route} route")
+        tcfg = dataclasses.replace(exp.train, epochs=1, batch_size=bs,
+                                   log_path=log)
+        if family == "shared":
+            n_evals = n_batches(va) + n_batches(te)
+            steps, epochs, wall = _dec_run(f"split-train {exp_name}", argv=[
+                "train", "--experiment", exp_name, "--data", lcsv,
+                "--epochs", "1", "--batch-size", str(bs), "--ckpt-dir",
+                os.path.join(OUT_DIR, "split_ckpt_lipo"), "--log", log])
+            how = "`train --batch-size 3584`"
+        else:
+            n_evals = n_batches(va)
+            steps, epochs, wall = _dec_run(f"split-train {exp_name}",
+                                           api=(cfg, tcfg, tr, va))
+            how = "trainer.train(batch_size=3584)"
+        counts = _dec_take(f"split-train {exp_name}", _split_want(
+            family, "split", n_batches(tr), n_evals, _nets(cfg.mpnn)))
+        for k in SPLIT_KERNELS:
+            SPLIT_MAIN[k] += counts.get(k, 0)
+        rel, gerr, perr = _split_first_steps(
+            f"split-train {exp_name}", cfg, tcfg, tr, device, steps)
+        # one step at b1024: the whole route
+        tb = dict(b1024)
+        if family == "psteps":
+            tb["labels"] = (torch.arange(tb["labels"].shape[0],
+                                         device=device) % PS_CLASSES)
+        net = network_init(cfg, torch.Generator().manual_seed(317), device)
+        opt = adam(net.parameters(), 1e-4, weight_decay=1e-5)
+        _dec_reset()
+        loss = float(train_step(net, opt, tb, loss_kind=tcfg.loss))
+        torch.cuda.synchronize()
+        small = _dec_take(f"split-train {exp_name} b1024", _split_want(
+            family, "whole", 1, 0, _nets(cfg.mpnn)))
+        if not math.isfinite(loss):
+            raise RuntimeError(f"split-train {exp_name} b1024: loss {loss}")
+        lines.append(
+            f"{exp_name} ({how}, T {T}, f {f}; {len(tr)} train molecules in "
+            f"{n} node slots): {len(steps)} steps in {wall:.2f} s wall, "
+            f"launches {counts}; first 3 losses vs plain max rel {rel:.2e}, "
+            f"first-step gradients max_scaled {gerr:.3e} from float64 "
+            f"(plain float32 {perr:.3e}); val_loss "
+            f"{[round(r['val_loss'], 5) for r in epochs]}; at b1024 "
+            f"({b1024['node_mask'].shape[0]} slots) one step takes the "
+            f"whole route: {small}")
+    print("split-train: " + "; ".join(lines), flush=True)
+
+
+def _split_bounds(b, f, od, k, T, msg_norm, state_norm):
+    """Least times of the split backward's kernels on this batch, each the
+    larger of its float32 operations over the peak CUDA-core rate and its
+    bytes (each input read once, each output written once) over HBM
+    bandwidth; real nodes and edges. ro_bwd: rebuilding h_T, the logits
+    and values (2·2·2f·od a node), the softmax VJP, gh and dh0 (2·2·2f·od)
+    and the weight gradients' outer products (2·2·2f·od); msg_bwd: per
+    edge and network Aᵀ·dm and dm ⊗ h0 (2·2f²), per node and network the
+    graph sums and A0ᵀ·D, per graph dA0; ps_walk_bwd: per node and step
+    the replayed gates (2 GEMVs of f → 3f), their transposes and outer
+    products, the gate math and each norm in the modes present and its
+    VJP."""
+    nr = float(b["node_mask"].sum())
+    er = float(b["edge_mask"].sum())
+    n = float(b["node_mask"].shape[0])
+    g = float(b["graph_mask"].shape[0])
+    gemv = 2 * f * 3 * f
+    norms = 20 * f * ((msg_norm != "none") + (state_norm != "none"))
+    ro_w = 4 * f * od + 2 * od
+    gru_w = 6 * f * f + 6 * f + 4 * T * f
+    work = {
+        "ro_bwd": (nr * (3 * 2 * 2 * 2 * f * od + 12 * od + 3 * f),
+                   4 * (2 * nr * f + 2 * n + 4 * f + 2 * g + 2 * g * od + 1
+                        + 2 * nr * f + 2 * ro_w)),
+        "msg_bwd": (er * T * 4 * f * f + nr * T * (2 * f * f + f) + nr * f
+                    + g * T * 2 * f * f,
+                    4 * (T * nr * f + nr * f + 2 * n + 3 * er + g
+                         + n * f + 2 * T * (k * f * f + f * f) + T * f)),
+        "ps_walk_bwd": (T * nr * (6 * gemv + 15 * f + norms),
+                        4 * (2 * nr * f + 2 * T * nr * f + 4 * T * f
+                             + nr * f + T * nr * f + 2 * gru_w))}
+    out = {}
+    for name, (ops, nbytes) in work.items():
+        t_ops, t_bytes = ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+        out[name] = (max(t_ops, t_bytes) * 1e3,
+                     "operations" if t_ops >= t_bytes else "bytes", ops,
+                     nbytes)
+    return out
+
+
+def _split_launches(family, net, tb, gen):
+    """The split route's prepared kernel launches on the inputs the main
+    path gives them at this batch (the forward kernel run once for its
+    residuals), the whole route's backward launch, and the plain versions
+    as callables: ({name: PreparedLaunch}, {name: plain callable})."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import psteps_walk as PW
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    from mpnn_tpu_torch.kernels import recurrence as R
+    from mpnn_tpu_torch.models.fused_train import (fused_psteps_args,
+                                                   fused_step_args)
+    from mpnn_tpu_torch.models.network import mpnn_input
+    det = lambda x: ({k: det(v) for k, v in x.items()}
+                     if isinstance(x, dict) else
+                     [det(v) for v in x] if isinstance(x, list) else
+                     x.detach() if isinstance(x, torch.Tensor) else x)
+    labels = tb["labels"].float()
+    with torch.no_grad():
+        mb, _ = mpnn_input(net, tb, training=True)
+        if family == "shared":
+            args, kw = fused_step_args(net.mpnn, mb, labels)
+        else:
+            (args, kw), _ = fused_psteps_args(net.mpnn, mb, labels)
+    (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels, gmask, vid,
+     src, dst, plan) = [det(a) for a in args]
+    T = kw["steps"]
+    if family == "shared":
+        weights = K._flat_weights(amat, a0, mbias, gru, ma, bnp, ro)
+        meta = K.StepMeta(T, 1, 1, 1)
+        fwd = K.prepare_fused_step_fwd(weights, h0, mask, ng, labels, gmask,
+                                       vid, src, dst, plan, meta)
+    else:
+        weights, meta = P.flat_weights(amat, a0, mbias, gru, ma, bnp, ro, h0,
+                                       **kw)
+        fwd = P.prepare_fused_psteps_fwd(weights, h0, mask, ng, labels,
+                                         gmask, vid, src, dst, plan, meta)
+    _, out, stats, htil = K.launch_prepared(fwd)
+    w = dict(weights)
+    gout = torch.randn(out.shape, generator=gen).to(out.device)
+    gl = torch.ones(1, device=out.device)
+    last = T if family == "shared" else 2 * T - 1
+    sn = kw["state_norm"]
+    nw, nb = ((w["bn_w"], w["bn_b"]) if family == "shared"
+              else (w["bn_w"][T - 1], w["bn_b"][T - 1]))
+    ro_in = (htil[last], stats[last], nw, nb, h0, mask, ng, ro, labels,
+             gmask, out, gout, gl)
+    prep = {"ro_bwd": RB.prepare_ro_bwd(*ro_in, state_norm=sn)}
+    plain = {"ro_bwd": lambda: RB.ro_bwd_reference(*ro_in, state_norm=sn)}
+    gh = K.launch_prepared(prep["ro_bwd"])[0].clone()
+    a3 = amat if family == "psteps" else amat[None]
+    b3 = a0 if family == "psteps" else a0[None]
+    if family == "shared":
+        rw = [t.contiguous() for t in R._flat(gru, ma, bnp)]
+        prep["recurrence_bwd"] = R.prepare_recurrence_bwd(
+            htil[0], h0, mask, rw, stats, htil[1:], gh, steps=T)
+        plain["recurrence_bwd"] = lambda: R.recurrence_vjp_reference(
+            htil[0], h0, mask, gru, ma, bnp, gh, steps=T)
+        dmsgs = K.launch_prepared(prep["recurrence_bwd"])[0][None].clone()
+        prep["fused_step_bwd"] = K.prepare_fused_step_bwd(
+            weights, h0, labels, gmask, out, gout, gl, htil, stats, ng, vid,
+            src, dst, plan, meta._replace(split=0))
+    else:
+        walk_kw = dict(steps=T, msg_norm=kw["msg_norm"], state_norm=sn)
+        prep["ps_walk_bwd"] = PW.prepare_ps_walk_bwd(
+            weights, gh, h0, htil, stats, plan.graph_node_ptr, **walk_kw)
+        plain["ps_walk_bwd"] = lambda: PW.ps_walk_bwd_reference(
+            gh, h0, mask, htil, w, **walk_kw)
+        dmsgs = K.launch_prepared(prep["ps_walk_bwd"])[1].clone()
+        prep["fused_psteps_bwd"] = P.prepare_fused_psteps_bwd(
+            weights, h0, labels, gmask, out, gout, gl, htil, stats, ng, vid,
+            src, dst, plan, meta)
+    prep["msg_bwd"] = MB.prepare_msg_bwd(a3, b3, h0, mask, ng, vid, src, dst,
+                                         dmsgs, plan)
+    plain["msg_bwd"] = lambda: MB.msg_bwd_reference(
+        a3, b3, h0, mask, ng, vid, src, dst, dmsgs, gmask.shape[0])
+    return prep, plain, amat.shape[-3]
+
+
+def _split_trace(name, step):
+    """One train step (`step()`) in a torch.profiler trace, its table
+    written to profile_split_<name>.txt: (device busy us, device ops).
+    The trace reads the second of two steps, the first the profiler's
+    warm-up (_dec_trace); fails when it shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        step()
+        torch.cuda.synchronize()
+        prof.step()
+        step()
+        torch.cuda.synchronize()
+    busy, ops = _device_ops(prof)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, f"profile_split_{name}.txt"), "w") as fh:
+        fh.write(prof.key_averages().table(sort_by="self_device_time_total",
+                                           row_limit=40))
+    if busy <= 0:
+        raise RuntimeError(f"split-times {name}: the trace shows no device "
+                           f"time")
+    return busy, sum(e.count for e in ops)
+
+
+def phase_split_times(device, card):
+    """lipo and encoded_classification at b1024 (13,184 slots: the split
+    route forced) and b3584 (SPLIT_NODES slots: the split route by the
+    rule): each split-backward kernel's time (CUDA events over repeated
+    launches on the main path's inputs) beside its bound and its plain
+    version's; at b3584 the whole route's backward kernel beside the split
+    route's three launches; each route's train-step latency (host clock
+    ending in a device sync), and at b3584 its device busy time and idle
+    share from a trace (the latency medians of 10 steps a route, taken in
+    turns: whole, split, split, whole). Returns the b3584 encoded numbers
+    per kernel."""
+    import statistics
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train.optim import adam
+    from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
+    gen = torch.Generator().manual_seed(41)
+    small = SPLIT_SMALL
+    b1024 = batch_to_device(_batch((SMILES * (small // 10 + 1))[:small],
+                                   small), device)
+    big = _split_check_batches(device)[1]
+    out, lines = {}, []
+    for bname, tb in ((f"b{small}", b1024), ("b3584", big)):
+        for model, family in (("lipo", "shared"), ("encoded", "psteps")):
+            tb = dict(tb)
+            g = tb["graph_mask"].shape[0]
+            afm, bfm = tb["node_feats"].shape[1], tb["edge_feats"].shape[1]
+            nafm = tb["node_nafm"].shape[1]
+            if family == "shared":
+                cfg = zoo.lipo(afm, bfm, nafm)
+                tb["labels"] = torch.randn(g, generator=gen).to(device)
+                loss = "mse"
+            else:
+                cfg = zoo.encoded(afm, bfm, nafm, n_out=PS_CLASSES)
+                tb["labels"] = torch.randint(0, PS_CLASSES, (g,),
+                                             generator=gen).to(device)
+                loss = "ce"
+            net = network_init(cfg, gen, device)
+            opt = adam(net.parameters(), 1e-4, weight_decay=1e-5)
+            rec, parts = {}, []
+
+            def step():
+                return float(train_step(net, opt, tb, loss_kind=loss))
+            for route in ("whole", "split"):
+                with _route(route):
+                    _dec_reset()
+                    for _ in range(3):
+                        step()
+                    launched = {k for k, v in _launch_counts().items() if v}
+                    if ("ro_bwd" in launched) != (route == "split"):
+                        raise RuntimeError(f"split-times {model} {bname}: "
+                                           f"the {route} route launched "
+                                           f"{sorted(launched)}")
+            # the step latency in turns, whole, split, split, whole
+            lat = {"whole": [], "split": []}
+            for route in ("whole", "split", "split", "whole"):
+                with _route(route):
+                    for _ in range(5):
+                        t0 = time.perf_counter()
+                        step()
+                        torch.cuda.synchronize()
+                        lat[route].append((time.perf_counter() - t0) * 1e3)
+            for route in ("whole", "split"):
+                step_ms = statistics.median(lat[route])
+                rec[f"{route}_step_ms"] = step_ms
+                part = f"{route} step {step_ms:.3f} ms"
+                if bname == "b3584":
+                    with _route(route):
+                        busy, n_ops = _split_trace(f"{model}_{route}", step)
+                    part += (f" (device busy {busy:.1f} us in {n_ops} "
+                             f"device ops, idle share "
+                             f"{1 - busy / (step_ms * 1e3):.3f})")
+                parts.append(part)
+            prep, plain, k = _split_launches(family, net, tb, gen)
+            bounds = _split_bounds(tb, cfg.mpnn.node_features,
+                                   cfg.mpnn.output_dim, k,
+                                   cfg.mpnn.message_steps
+                                   if family == "psteps" else 1,
+                                   cfg.mpnn.msg_norm, cfg.mpnn.state_norm)
+            if family == "shared":
+                rb = _rec_bounds(tb["node_mask"].shape[0],
+                                 float(tb["node_mask"].sum()),
+                                 cfg.mpnn.node_features,
+                                 cfg.mpnn.message_steps)
+                bounds["recurrence_bwd"] = rb["recurrence_bwd"]
+            for name, p in prep.items():
+                ms = _events_ms(lambda: K.launch_prepared(p), 50)
+                rec[name] = dict(ms=ms)
+                txt = f"{name} {ms * 1e3:.2f} us"
+                if name in plain:
+                    with torch.no_grad():
+                        rec[name]["plain_ms"] = _events_ms(plain[name], 5,
+                                                           warm=1)
+                    rec[name].update(bound_ms=bounds[name][0],
+                                     bound_by=bounds[name][1])
+                    txt += (f" (plain {rec[name]['plain_ms'] * 1e3:.1f} us, "
+                            f"bound {bounds[name][0] * 1e3:.3f} us by "
+                            f"{bounds[name][1]})")
+                parts.append(txt)
+            split_sum = sum(rec[n]["ms"] for n in prep if n in plain)
+            whole = "fused_step_bwd" if family == "shared" \
+                else "fused_psteps_bwd"
+            parts.append(f"split backward's three launches "
+                         f"{split_sum * 1e3:.2f} us vs {whole} "
+                         f"{rec[whole]['ms'] * 1e3:.2f} us")
+            out[(bname, model)] = rec
+            lines.append(
+                f"{model} {bname} ({int(tb['node_mask'].sum())}/"
+                f"{tb['node_mask'].shape[0]} slots, "
+                f"{int(tb['edge_mask'].sum())} edges, vocab {k}): "
+                + ", ".join(parts))
+    print(f"split-times [{card}]: " + "; ".join(lines), flush=True)
+    return out[("b3584", "encoded")]
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4936,6 +5650,9 @@ def main() -> int:
     sddmm_worst = phase_sddmm_kernel_check(device)
     phase_dec_att_train(device)
     dec_att_times = phase_dec_att_times(device, card)
+    split_worst = phase_split_kernel_check(device)
+    phase_split_train(device)
+    split_times = phase_split_times(device, card)
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
@@ -5034,6 +5751,21 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/sddmm.py:{line}",
             "launches": DEC_ATT_MAIN[name], "max_abs_err": sddmm_worst[name],
+            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
+            "library_ms": None})
+    split_sites = {"ro_bwd": "fused_step.py:618",
+                   "msg_bwd": "fused_step.py:820",
+                   "ps_walk_bwd": "fused_psteps.py:616"}
+    for name in SPLIT_KERNELS:
+        # timed at the per-step family's b3584 (encoded), which runs all
+        # three
+        tt = split_times[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"mpnn_tpu_torch/csrc/{name}.cu",
+            "replaces": f"mpnn_tpu/kernels/{split_sites[name]}",
+            "launches": SPLIT_MAIN[name], "max_abs_err": split_worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -119,18 +119,6 @@ __host__ __device__ inline long long bwd_scratch_floats(
          (long long)grid * PsGradLayout(k_vocab, f, od, steps).total;
 }
 
-// First element index >= off owned by this thread (e ≡ tid mod kThreads).
-__device__ __forceinline__ int first_owned(int off) {
-  return off + ((int(threadIdx.x) - off) % kThreads + kThreads) % kThreads;
-}
-
-// wrow[off + i] += v[i] for the elements this thread owns, i < len.
-__device__ __forceinline__ void add_owned(float* wrow, int off, int len,
-                                          const float* v) {
-  for (int e = first_owned(off); e < off + len; e += kThreads)
-    wrow[e] += v[e - off];
-}
-
 // Readout weight gradients of one chunk from the staged rows
 // [h (FP) | h0 (FP) | dpi (ODW) | djv (ODW)].
 __device__ void readout_grads(float* wrow, const PsGradLayout& gl,
@@ -159,45 +147,6 @@ __device__ void readout_grads(float* wrow, const PsGradLayout& gl,
     }
     wrow[e] += s;
   }
-}
-
-// GRU weight gradients of one chunk from the staged rows
-// [mb | hprev | da_r | da_z | da_n | dnh] (FP each).
-__device__ void gru_grads(float* wrow, const PsGradLayout& gl,
-                          const float* xs, int f) {
-  for (int e = first_owned(gl.wih); e < gl.maw; e += kThreads) {
-    int col_x = -1, col_d;
-    if (e < gl.bih) {                                  // W_ih, W_hh
-      const bool hh = e >= gl.whh;
-      const int i = e - (hh ? gl.whh : gl.wih);
-      const int k = i / (3 * f), g = (i % (3 * f)) / f, j = i % f;
-      col_x = hh ? FP + k : k;
-      col_d = (2 + (hh && g == 2 ? 3 : g)) * FP + j;
-    } else {                                           // b_ih, b_hh
-      const bool hh = e >= gl.bhh;
-      const int i = e - (hh ? gl.bhh : gl.bih), g = i / f, j = i % f;
-      col_d = (2 + (hh && g == 2 ? 3 : g)) * FP + j;
-    }
-    float s = 0.f;
-    if (col_x >= 0) {
-      for (int i = 0; i < kChunk; ++i)
-        s = fmaf(xs[i * kStage + col_x], xs[i * kStage + col_d], s);
-    } else {
-      for (int i = 0; i < kChunk; ++i) s += xs[i * kStage + col_d];
-    }
-    wrow[e] += s;
-  }
-}
-
-// The closed-form norm VJP of one real node: dx = (dx̂ − S1/c)/d −
-// x̂·S2/(c·s), with the slot constants st and the totals S = [S1 | S2].
-__device__ __forceinline__ void norm_vjp(const float* dxh, const float* xh,
-                                         const float* st, const float* S,
-                                         float c, float* dx) {
-MPNN_UNROLL
-  for (int j = 0; j < FP; ++j)
-    dx[j] = (dxh[j] - S[j] / c) / st[2 * FP + j] -
-            xh[j] * S[FP + j] / (c * st[FP + j]);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -390,9 +339,6 @@ MPNN_UNROLL
 
   // ---- the reverse walk, t = T−1..0 --------------------------------------
   for (int t = T - 1; t >= 0; --t) {
-    const float* stt = st + (T + t) * 3 * FP;          // state slot t
-    const float* stp = st + (T + t - 1) * 3 * FP;      // state slot t−1
-    const float* stm = st + t * 3 * FP;                // message slot t
     const bool next_stats = t > 0 && state_stats;
     float* cpart_t = cpart + size_t((t - 1) & 1) * nchunks * 2 * FP;
     float* mpart_t = mpart + size_t(t) * nchunks * 2 * FP;
@@ -406,87 +352,10 @@ MPNN_UNROLL
       const float* wst = w + PL::step(t);
       const float* wsp = w + PL::step(t > 0 ? t - 1 : 0);
       if (n < n_real) {
-        float dhp[FP], hprev[FP], mb[FP];
-        {
-          float gh[FP];
-          load_row(ghs, n, f, gh);
-          if (state_stats) {
-            float x[FP], xh[FP], dxh[FP];
-            load_row(a.htil + size_t(T + t) * slot_sz, n, f, x);
-MPNN_UNROLL
-            for (int j = 0; j < FP; ++j) {
-              xh[j] = (x[j] - stt[j]) / stt[2 * FP + j];
-              dxh[j] = state_bn ? gh[j] * wst[PL::oBnW + j] : gh[j];
-            }
-            norm_vjp(dxh, xh, stt, cs, c, dhp);
-          } else {
-MPNN_UNROLL
-            for (int j = 0; j < FP; ++j) dhp[j] = gh[j];
-          }
-        }
-        if (t > 0) {
-          float x[FP];
-          load_row(a.htil + size_t(T + t - 1) * slot_sz, n, f, x);
-          apply_norm(smode, stp, wsp + PL::oBnW, wsp + PL::oBnB, x, hprev,
-                     xhp);
-        } else {
-          load_row(a.h0, n, f, hprev);
-        }
-        {
-          float m0[FP];
-          load_row(a.htil + size_t(t) * slot_sz, n, f, m0);
-          apply_norm(mmode, stm, wst + PL::oMaW, wst + PL::oMaB, m0, mb,
-                     xhm);
-        }
-MPNN_UNROLL
-        for (int j = 0; j < FP; ++j) {
-          float gr = w[PL::kBih + j], gz = w[PL::kBih + FP + j],
-                gn = w[PL::kBih + 2 * FP + j];
-          float rh = w[PL::kBhh + j], zh = w[PL::kBhh + FP + j],
-                nh = w[PL::kBhh + 2 * FP + j];
-MPNN_UNROLL
-          for (int k = 0; k < FP; ++k) {
-            const float* wi = w + PL::kWih + k * 3 * FP;
-            const float* wh = w + PL::kWhh + k * 3 * FP;
-            gr = fmaf(mb[k], wi[j], gr);
-            gz = fmaf(mb[k], wi[FP + j], gz);
-            gn = fmaf(mb[k], wi[2 * FP + j], gn);
-            rh = fmaf(hprev[k], wh[j], rh);
-            zh = fmaf(hprev[k], wh[FP + j], zh);
-            nh = fmaf(hprev[k], wh[2 * FP + j], nh);
-          }
-          const float sr = sigmoidf_(gr + rh);
-          const float sz = sigmoidf_(gz + zh);
-          const float tn = tanhf(gn + sr * nh);
-          const float dz = dhp[j] * (hprev[j] - tn);
-          const float da_n = dhp[j] * (1.0f - sz) * (1.0f - tn * tn);
-          const float dnh = da_n * sr;
-          row[2 * FP + j] = da_n * nh * sr * (1.0f - sr);       // da_r
-          row[3 * FP + j] = dz * sz * (1.0f - sz);              // da_z
-          row[4 * FP + j] = da_n;
-          row[5 * FP + j] = dnh;
-          row[j] = mb[j];
-          row[FP + j] = hprev[j];
-          ghn[j] = dhp[j] * sz;
-        }
-MPNN_UNROLL
-        for (int k = 0; k < FP; ++k) {
-          const float* wh = w + PL::kWhh + k * 3 * FP;
-          const float* wi = w + PL::kWih + k * 3 * FP;
-          float th = ghn[k], ti = 0.f;
-MPNN_UNROLL
-          for (int j = 0; j < FP; ++j) {
-            const float dar = row[2 * FP + j], daz = row[3 * FP + j];
-            th = fmaf(wh[j], dar, th);
-            th = fmaf(wh[FP + j], daz, th);
-            th = fmaf(wh[2 * FP + j], row[5 * FP + j], th);
-            ti = fmaf(wi[j], dar, ti);
-            ti = fmaf(wi[FP + j], daz, ti);
-            ti = fmaf(wi[2 * FP + j], row[4 * FP + j], ti);
-          }
-          ghn[k] = th;
-          dmb[k] = ti;
-        }
+        float gh[FP];
+        load_row(ghs, n, f, gh);
+        walk_node(w, st, cs, a.htil, a.h0, slot_sz, n, f, t, T, mmode,
+                  smode, c, gh, row, ghn, dmb, xhm, xhp);
         store_row(dms + size_t(t) * slot_sz, n, f, dmb);
         if (t > 0) {
           store_row(ghs, n, f, ghn);
@@ -501,7 +370,7 @@ MPNN_UNROLL
         for (int i = 0; i < kStage; ++i) row[i] = 0.f;
       }
       __syncthreads();
-      gru_grads(wrow, gl, xs, f);
+      gru_grads<kStage>(wrow, gl, xs, f);
       if (msg_bn) {
         float v[4][FP];
 MPNN_UNROLL

@@ -42,59 +42,19 @@ struct DaArgs {
   int n_edges, mf, nf, k_vocab;
 };
 
-__device__ __forceinline__ int n_chunks(int n_edges) {
-  return (n_edges + kChunkEdges - 1) / kChunkEdges;
-}
-
-// The vocab id of item b: the largest k with k + vptr[k]/kChunkEdges <= b
-// (that start is strictly increasing in k).
-__device__ int item_id(const int* vptr, int k_vocab, int b) {
-  int lo = 0, hi = k_vocab - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (mid + vptr[mid] / kChunkEdges <= b) lo = mid;
-    else hi = mid - 1;
-  }
-  return lo;
-}
-
 __global__ void __launch_bounds__(kThreads) spmm_da_kernel(DaArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float sm[];
   float* gs = sm;                                   // kChunkEdges · FP
   float* hs = gs + kChunkEdges * FP;                // kChunkEdges · FP
   const int tid = threadIdx.x;
-  const int items = a.k_vocab + n_chunks(a.n_edges);
+  const int items = da_items(a.n_edges, a.k_vocab);
 
   // ---- phase 1: one row of FP·FP partials per work item ------------------
-  for (int b = blockIdx.x; b < items; b += gridDim.x) {
-    const int k = item_id(a.vptr, a.k_vocab, b);
-    const int c = b - k;
-    const int lo = max(a.vptr[k], c * kChunkEdges);
-    const int hi = min(a.vptr[k + 1], (c + 1) * kChunkEdges);
-    if (lo >= hi) continue;                         // no item at b
-    const int cnt = hi - lo;
-    __syncthreads();                                // staging free
-    for (int i = tid; i < kChunkEdges * FP; i += kThreads) {
-      const int r = i / FP, j = i % FP;
-      float gv = 0.f, hv = 0.f;
-      if (r < cnt) {
-        const int e = a.vorder[lo + r];
-        if (j < a.mf) gv = __ldg(a.g + size_t(a.dst[e]) * a.mf + j);
-        if (j < a.nf) hv = __ldg(a.h + size_t(a.src[e]) * a.nf + j);
-      }
-      gs[i] = gv;
-      hs[i] = hv;
-    }
-    __syncthreads();
-    for (int q = tid; q < FP * FP; q += kThreads) {
-      const int m = q / FP, j = q % FP;
-      float s = 0.f;
-      for (int r = 0; r < cnt; ++r)
-        s = fmaf(gs[r * FP + m], hs[r * FP + j], s);
-      a.part[size_t(b) * FP * FP + q] = s;
-    }
-  }
+  for (int b = blockIdx.x; b < items; b += gridDim.x)
+    da_item_partial(a.g, nullptr, a.h, a.src, a.dst, a.vorder, a.vptr,
+                    a.k_vocab, a.mf, a.nf, b, gs, hs,
+                    a.part + size_t(b) * FP * FP);
   grid.sync();
 
   // ---- phase 2: dA[k][m][j] = Σ of id k's items, in chunk order ----------
@@ -102,13 +62,7 @@ __global__ void __launch_bounds__(kThreads) spmm_da_kernel(DaArgs a) {
   for (int i = blockIdx.x * kThreads + tid; i < total;
        i += gridDim.x * kThreads) {
     const int k = i / (a.mf * a.nf), r = i % (a.mf * a.nf);
-    const int q = (r / a.nf) * FP + r % a.nf;
-    const int e0 = a.vptr[k], e1 = a.vptr[k + 1];
-    float s = 0.f;
-    if (e1 > e0)
-      for (int c = e0 / kChunkEdges; c <= (e1 - 1) / kChunkEdges; ++c)
-        s += __ldcg(a.part + size_t(k + c) * FP * FP + q);
-    a.da[i] = s;
+    a.da[i] = da_item_total(a.part, a.vptr, k, (r / a.nf) * FP + r % a.nf);
   }
 }
 
@@ -123,17 +77,14 @@ int mpnn_spmm_da_smem_bytes() { return int(smem_bytes()); }
 
 // Floats of scratch (the items' partials) a launch over n_edges needs.
 long long mpnn_spmm_da_scratch_floats(int n_edges, int k_vocab) {
-  const long long items =
-      k_vocab + (n_edges + kChunkEdges - 1) / kChunkEdges;
-  return items * FP * FP;
+  return (long long)da_items(n_edges, k_vocab) * FP * FP;
 }
 
 // Blocks of the cooperative grid: all co-resident blocks, capped at the
 // work items. 0 on error.
 int mpnn_spmm_da_grid(int n_edges, int k_vocab) {
   const int most = resident_blocks(spmm_da_kernel, smem_bytes());
-  const int items = k_vocab + (n_edges + kChunkEdges - 1) / kChunkEdges;
-  return most < 1 ? 0 : min(items, most);
+  return most < 1 ? 0 : min(da_items(n_edges, k_vocab), most);
 }
 
 // Launches on `stream` and returns the launch's error code (0 = success).

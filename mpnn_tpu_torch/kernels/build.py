@@ -49,6 +49,9 @@ SOURCES: Dict[str, str] = {
     "recurrence_bwd": "recurrence_bwd.cu",
     "sddmm_fwd": "sddmm_fwd.cu",
     "sddmm_bwd": "sddmm_bwd.cu",
+    "ro_bwd": "ro_bwd.cu",
+    "msg_bwd": "msg_bwd.cu",
+    "ps_walk_bwd": "ps_walk_bwd.cu",
 }
 
 # the sources that build and load together (one op module's kernels)
@@ -64,12 +67,14 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
     "spmm": ("spmm_fwd", "spmm_da"),
     "recurrence": ("recurrence_fwd", "recurrence_bwd"),
     "sddmm": ("sddmm_fwd", "sddmm_bwd"),
+    # the split training backward's three kernels (kernels/split_bwd.py)
+    "split_bwd": ("ro_bwd", "msg_bwd", "ps_walk_bwd"),
 }
 
 # wide buckets: family → {tag: the -D defines of its libraries}. The
 # narrow build (tag '') takes each source's own defaults: f <= 16 (od <= 16
-# for the shared family, od <= 32 for the per-step one), set2vec w <= 32,
-# the bilinear family f <= 4 (its only bucket).
+# for the shared family, od <= 32 for the per-step one and the split
+# backward), set2vec w <= 32, the bilinear family f <= 4 (its only bucket).
 WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
     "fused_step": {"f32": ("MPNN_FP=32", "MPNN_ODP=64")},
     "fused_psteps": {"f32": ("MPNN_FP=32", "MPNN_ODW=128")},
@@ -79,6 +84,7 @@ WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
     "spmm": {"f32": ("MPNN_FP=32",)},
     "recurrence": {"f32": ("MPNN_FP=32",)},
     "sddmm": {"f32": ("MPNN_FP=32",)},
+    "split_bwd": {"f32": ("MPNN_FP=32", "MPNN_ODW=128")},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

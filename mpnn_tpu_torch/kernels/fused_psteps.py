@@ -9,14 +9,18 @@ one norm pair per step; messages from the initial state.
     STATELESS norm over the whole batch, or none), and the gated readout
     over [h_T ‖ h0] — one launch (csrc/fused_psteps_eval.cu).
   * fused_psteps — counterpart of make_fused_psteps_op (Pallas
-    `_ps_fwd_kernel` and the monolithic `_ps_bwd_kernel`): the same chain
-    with the per-step norms in training mode (batch statistics per step)
-    and the masked-MSE loss, as a torch.autograd.Function whose forward
-    and backward are one cooperative launch each
-    (csrc/fused_psteps_fwd.cu, csrc/fused_psteps_bwd.cu). The backward has
-    no node cap: the JAX package's streaming backward past 28,672 padded
-    nodes is a TPU VMEM workaround; this one computes the same function at
-    any size that fits device memory.
+    `_ps_fwd_kernel`, and its two backwards): the same chain with the
+    per-step norms in training mode (batch statistics per step) and the
+    masked-MSE loss, as a torch.autograd.Function whose forward is one
+    cooperative launch (csrc/fused_psteps_fwd.cu) and whose backward
+    takes one of two routes, as the JAX package's does
+    (kernels/split_bwd.py): up to 28,672 padded node slots the whole
+    backward in one launch (`_ps_bwd_kernel` → csrc/fused_psteps_bwd.cu);
+    past them the split backward of `_streaming_bwd` — the readout VJP
+    (kernels/readout_bwd.py), the reverse walk (kernels/psteps_walk.py)
+    and the message VJP of the T networks (kernels/msg_bwd.py). Both
+    routes compute the same function at any size that fits device memory;
+    `bwd=` forces one.
 
 The index plan and the device-built source order are the shared family's
 (graphs/batching.py::plan_fused_eval, kernels/fused_step.py::
@@ -35,6 +39,7 @@ import torch
 
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
 from mpnn_tpu_torch.kernels import fused_step as K
+from mpnn_tpu_torch.kernels.split_bwd import route
 from mpnn_tpu_torch.ops.norm import (BN_EPS, bn1d_train, fold_bn1d,
                                      mask_batch_norm_stats)
 
@@ -77,22 +82,10 @@ def _bucket(who: str, f: int, od: int, steps: int) -> str:
     return K.width_bucket(who, BUCKETS, f=f, od=od, steps=steps)
 
 
-def _ro_table(t: torch.Tensor, tag: str, fp: int = 32, odw: int = 128):
-    """A (2f, od) readout weight as the wide bucket's kernels read it:
-    each half [h | h0] zero-padded to fp rows, od to odw columns, in
-    device memory (csrc/fused_psteps_common.cuh::kRoInSmem). The narrow
-    build stages the weight itself."""
-    if not tag:
-        return t
-    f, od = t.shape[0] // 2, t.shape[1]
-    pad = lambda x: torch.nn.functional.pad(x, (0, odw - od, 0, fp - f))
-    return torch.cat([pad(t[:f]), pad(t[f:])]).contiguous()
-
-
 def _kernel_tensors(weights, tag: str):
     """The weight tensors in kernel argument order, the readout weights as
     the bucket reads them."""
-    return [_ro_table(t, tag) if name in ("ro_iw", "ro_jw") else t
+    return [K.ro_table(t, tag) if name in ("ro_iw", "ro_jw") else t
             for name, t in weights]
 
 
@@ -146,24 +139,29 @@ def fused_psteps_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru,
 def fused_psteps_reference(amat, a0, mbias, h0, mask, node_graph, gru,
                            ma_bns, bns, ro, labels, gmask, vid, src, dst,
                            plan: FusedEvalPlan, *, steps: int,
-                           msg_norm: str = "bn1d", state_norm: str = "bn1d"):
+                           msg_norm: str = "bn1d", state_norm: str = "bn1d",
+                           stash=None):
     """Plain PyTorch version of the training forward kernel (and, through
     autograd, of the backward kernel): make_fused_psteps_op's arguments
     minus the TPU window plan, plus the index plan. Returns (loss, out
     (G, od), [(ma_mean_t, ma_var_t)] × T, [(mean_t, var_t)] × T); the
     statistics are detached, zeros for a norm in mode 'none' (the
     stateless norm's are its batch mean and var, which feed no EMA).
-    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm."""
+    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm. A list `stash` receives
+    the forward kernel's residuals: each step's masked messages, then
+    each step's pre-norm GRU output."""
     _check_modes("fused_psteps", msg_norm, state_norm)
     f = h0.shape[1]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
     ng = node_graph.long()
     zero = h0.new_zeros(f)
     h = h0 * mask
-    ma_stats, bn_stats = [], []
+    ma_stats, bn_stats, states = [], [], []
     for t in range(steps):
         msgs = K._messages(amat[t], a0[t], mbias[t], h0, ng, vid, src, dst,
                            num_graphs) * mask
+        if stash is not None:
+            stash.append(msgs)
         if msg_norm == "bn1d":
             mb, st = bn1d_train(msgs, mask, ma_bns[t]["weight"],
                                 ma_bns[t]["bias"])
@@ -171,6 +169,7 @@ def fused_psteps_reference(amat, a0, mbias, h0, mask, node_graph, gru,
             mb, st = msgs, (zero, zero)
         ma_stats.append(tuple(x.detach() for x in st))
         h = K._gru(gru, mb @ gru["w_ih"] + gru["b_ih"], h, mask)
+        states.append(h)
         if state_norm == "bn1d":
             h, st = bn1d_train(h, mask, bns[t]["weight"], bns[t]["bias"])
         elif state_norm == "stateless":
@@ -178,6 +177,8 @@ def fused_psteps_reference(amat, a0, mbias, h0, mask, node_graph, gru,
         else:
             st = (zero, zero)
         bn_stats.append(tuple(x.detach() for x in st))
+    if stash is not None:
+        stash.extend(states)
     out = K._readout(h, h0, mask, ng, ro, num_graphs)
     loss = (((out - labels[:, None]) ** 2) * gmask[:, None]).sum() \
         / gmask.sum()
@@ -371,6 +372,7 @@ class PsMeta(NamedTuple):
     steps: int
     msg_mode: int
     state_mode: int
+    split: int = 0          # the split backward (kernels/split_bwd.py)
 
 
 def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
@@ -468,19 +470,22 @@ def flat_weights(amat, a0, mbias, gru, ma_bns, bns, ro, h0, *, steps: int,
 
 
 class _FusedPsteps(torch.autograd.Function):
-    """The training forward kernel, with the backward kernel as its VJP.
-    Inputs: meta, the 15 weight leaves (_GRAD_LEAVES order, per-step norms
-    stacked (T, f)), h0, then the non-differentiable batch tensors and the
-    plan. Outputs (loss (1,), out, stats); stats carry no gradient."""
+    """The training forward kernel, with the backward kernel as its VJP —
+    or, on the split route, the readout VJP, the reverse walk and the
+    message VJP (split_backward). Inputs: meta, the 15 weight leaves
+    (_GRAD_LEAVES order, per-step norms stacked (T, f)), h0, then the
+    non-differentiable batch tensors and the plan. Outputs (loss (1,),
+    out, stats); stats carry no gradient. On CPU tensors (the split route
+    only) the forward is the plain version with its stash."""
 
     @staticmethod
     def forward(ctx, meta, *args):
         weights = list(zip(_GRAD_LEAVES, args[:15]))
         h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
         plan = FusedEvalPlan(*args[23:])
-        loss, out, stats, htil = K.launch_prepared(prepare_fused_psteps_fwd(
+        loss, out, stats, htil = forward_residuals(
             weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
-            plan, meta))
+            plan, meta)
         ctx.meta = meta
         ctx.save_for_backward(*args, out, stats, htil)
         ctx.mark_non_differentiable(stats)
@@ -491,34 +496,117 @@ class _FusedPsteps(torch.autograd.Function):
         saved = ctx.saved_tensors
         args, (out, stats, htil) = saved[:-3], saved[-3:]
         weights = list(zip(_GRAD_LEAVES, args[:15]))
-        h0, _mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
         plan = FusedEvalPlan(*args[23:])
         gl = (torch.zeros(1, dtype=out.dtype, device=out.device)
               if g_loss is None else g_loss.reshape(1).contiguous())
         gout = (torch.zeros_like(out) if g_out is None
                 else g_out.contiguous())
-        dh0, dw = K.launch_prepared(prepare_fused_psteps_bwd(
-            weights, h0, labels, gmask, out, gout, gl, htil, stats,
-            node_graph, vid, src, dst, plan, ctx.meta))
-        f, od = h0.shape[1], out.shape[1]
-        grads = split_grads(dw, args[0].shape[1], f, od, ctx.meta.steps)
+        if ctx.meta.split:
+            dh0, grads = split_backward(
+                weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
+                plan, out, gout, gl, htil, stats, ctx.meta)
+        else:
+            dh0, dw = K.launch_prepared(prepare_fused_psteps_bwd(
+                weights, h0, labels, gmask, out, gout, gl, htil, stats,
+                node_graph, vid, src, dst, plan, ctx.meta))
+            f, od = h0.shape[1], out.shape[1]
+            grads = split_grads(dw, args[0].shape[1], f, od, ctx.meta.steps)
         return (None, *(grads[name] for name in _GRAD_LEAVES), dh0,
                 *([None] * (len(args) - 16)))
+
+
+_MODE_NAMES = {"msg": {BATCH_BN: "bn1d", NONE: "none"},
+               "state": {BATCH_BN: "bn1d", STATELESS: "stateless",
+                         NONE: "none"}}
+
+
+def forward_residuals(weights, h0, mask, node_graph, labels, gmask, vid,
+                      src, dst, plan, meta: PsMeta):
+    """The forward kernel's outputs (loss (1,), out, stats (2T, 2, f), htil
+    (2T, N, f)): its launch for CUDA tensors, the plain version for CPU
+    tensors."""
+    if h0.device.type != "cuda":
+        return _reference_residuals(weights, h0, mask, node_graph, labels,
+                                    gmask, vid, src, dst, plan, meta)
+    return K.launch_prepared(prepare_fused_psteps_fwd(
+        weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan,
+        meta))
+
+
+def _reference_residuals(weights, h0, mask, node_graph, labels, gmask, vid,
+                         src, dst, plan, meta: PsMeta):
+    """The forward kernel's outputs from the plain version."""
+    w = dict(weights)
+    T = meta.steps
+    norms = lambda a, b: [{"weight": w[a][t], "bias": w[b][t]}
+                          for t in range(T)]
+    stash = []
+    loss, out, ma, st = fused_psteps_reference(
+        w["amat"], w["a0"], w["mbias"], h0, mask, node_graph,
+        {k: w[k] for k in ("w_ih", "w_hh", "b_ih", "b_hh")},
+        norms("ma_w", "ma_b"), norms("bn_w", "bn_b"),
+        {"i": {"w": w["ro_iw"], "b": w["ro_ib"]},
+         "j": {"w": w["ro_jw"], "b": w["ro_jb"]}},
+        labels, gmask, vid, src, dst, plan, steps=T,
+        msg_norm=_MODE_NAMES["msg"][meta.msg_mode],
+        state_norm=_MODE_NAMES["state"][meta.state_mode], stash=stash)
+    stats = torch.stack([torch.stack(s) for s in (*ma, *st)])
+    return loss.reshape(1), out, stats, torch.stack(stash)
+
+
+def split_backward(weights, h0, mask, node_graph, labels, gmask, vid, src,
+                   dst, plan: FusedEvalPlan, out, gout, gl, htil, stats,
+                   meta: PsMeta):
+    """The split route of the per-step family's backward: the readout +
+    loss VJP (kernels/readout_bwd.py) on h_T rebuilt from the stash's last
+    state slot, the reverse walk (kernels/psteps_walk.py) on the stash,
+    and the message VJP of the T networks (kernels/msg_bwd.py). Each
+    launches its kernel for CUDA tensors and runs its plain version for
+    CPU tensors. Returns (dh0, {leaf: gradient})."""
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import psteps_walk as PW
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    w = dict(weights)
+    T = meta.steps
+    msg_norm = _MODE_NAMES["msg"][meta.msg_mode]
+    state_norm = _MODE_NAMES["state"][meta.state_mode]
+    ro = {"i": {"w": w["ro_iw"], "b": w["ro_ib"]},
+          "j": {"w": w["ro_jw"], "b": w["ro_jb"]}}
+    gh, dh0_ro, dro = RB.ro_bwd(
+        htil[2 * T - 1], stats[2 * T - 1], w["bn_w"][T - 1],
+        w["bn_b"][T - 1], h0, mask, node_graph, ro, labels, gmask, out,
+        gout, gl, state_norm=state_norm)
+    dh0_walk, dmsgs, dwalk = PW.ps_walk_bwd(
+        gh, h0, mask, htil, stats, plan.graph_node_ptr, weights, steps=T,
+        msg_norm=msg_norm, state_norm=state_norm)
+    dh0_msg, dmsg = MB.msg_bwd(w["amat"], w["a0"], h0, mask, node_graph,
+                               vid, src, dst, dmsgs, plan)
+    grads = {**dmsg, **dwalk, "ro_iw": dro["i"]["w"], "ro_ib": dro["i"]["b"],
+             "ro_jw": dro["j"]["w"], "ro_jb": dro["j"]["b"]}
+    return dh0_ro + dh0_walk + dh0_msg, grads
 
 
 def fused_psteps(amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns,
                  ro, labels, gmask, vid, src, dst, plan: FusedEvalPlan, *,
                  steps: int, msg_norm: str = "bn1d",
-                 state_norm: str = "bn1d"):
+                 state_norm: str = "bn1d", bwd: str = "auto"):
     """Whole-step training forward of the per-step family: (loss, out
     (G, od), [(ma_mean_t, ma_var_t)] × T, [(mean_t, var_t)] × T),
     differentiable in the weights and h0 for the cotangents of both loss
     and out. Arguments as fused_psteps_reference (ma_bns / bns: T dicts,
-    or empty for a mode without them). CPU tensors run the plain version
-    under autograd; CUDA tensors launch the forward kernel (and, in the
-    backward pass, the backward kernel) or raise."""
+    or empty for a mode without them). `bwd` picks the backward route:
+    'whole' (one kernel), 'split' (the readout VJP, the reverse walk and
+    the message VJP) or 'auto', the JAX package's rule (kernels/
+    split_bwd.py). CPU tensors run the plain version under autograd on the
+    whole route, and the plain versions of the three VJPs on the split
+    route; CUDA tensors launch the forward kernel (and, in the backward
+    pass, the route's kernels) or raise."""
     _check_modes("fused_psteps", msg_norm, state_norm)
-    if h0.device.type == "cpu":
+    split = route("psteps", steps=steps, f=h0.shape[1], n=h0.shape[0],
+                  msg_norm=msg_norm, state_norm=state_norm,
+                  bwd=bwd) == "split"
+    if h0.device.type == "cpu" and not split:
         return fused_psteps_reference(
             amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns, ro,
             labels, gmask, vid, src, dst, plan, steps=steps,
@@ -528,8 +616,8 @@ def fused_psteps(amat, a0, mbias, h0, mask, node_graph, gru, ma_bns, bns,
                                  steps=steps, msg_norm=msg_norm,
                                  state_norm=state_norm)
     loss, out, stats = _FusedPsteps.apply(
-        meta, *(t for _, t in weights), h0, mask, node_graph, labels, gmask,
-        vid, src, dst, *plan)
+        meta._replace(split=int(split)), *(t for _, t in weights), h0, mask,
+        node_graph, labels, gmask, vid, src, dst, *plan)
     ma_stats: List[tuple] = [(stats[t, 0], stats[t, 1])
                              for t in range(steps)]
     bn_stats = [(stats[steps + t, 0], stats[steps + t, 1])

@@ -8,11 +8,16 @@ kernels.
     leakage + message bias, the folded message norm, T × [GRU → folded
     state norm], and the gated readout, in one launch.
   * fused_step — counterpart of make_fused_step_op (Pallas `_fwd_kernel`
-    and `_full_bwd_kernel`): the same chain with the masked bn1d norms in
+    and its two backwards): the same chain with the masked bn1d norms in
     training mode (batch statistics over all real nodes, per step) and the
-    masked-MSE loss, as a torch.autograd.Function whose forward and
-    backward are one cooperative CUDA launch each (csrc/fused_step_fwd.cu,
-    csrc/fused_step_bwd.cu).
+    masked-MSE loss, as a torch.autograd.Function whose forward is one
+    cooperative CUDA launch (csrc/fused_step_fwd.cu) and whose backward
+    takes the JAX package's route for the batch (kernels/split_bwd.py):
+    the whole backward in one launch (`_full_bwd_kernel` →
+    csrc/fused_step_bwd.cu), or past its node count, with bn1d norms, the
+    split one — the readout VJP (`_ro_bwd_kernel` → kernels/
+    readout_bwd.py), the recurrence VJP (kernels/recurrence.py) and the
+    message VJP (`_msg_bwd_kernel` → kernels/msg_bwd.py).
 
 The TPU kernel's window plan (`fs_win`/`fs_ns`, 128-lane one-hot windows,
 128-graph blocks) is a VMEM workaround and is not ported. In its place the
@@ -37,6 +42,7 @@ from typing import Dict, NamedTuple
 import torch
 
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
+from mpnn_tpu_torch.kernels.split_bwd import route
 from mpnn_tpu_torch.ops.norm import BN_EPS, bn1d_train, fold_bn1d
 
 # width buckets of the CUDA kernels, narrowest first: (tag, the most of
@@ -146,14 +152,17 @@ def fused_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
 def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                          bn, ro, labels, gmask, vid, src, dst,
                          plan: FusedEvalPlan, *, steps: int,
-                         msg_norm: str = "bn1d", state_norm: str = "bn1d"):
+                         msg_norm: str = "bn1d", state_norm: str = "bn1d",
+                         stash=None):
     """Plain PyTorch version of the training forward kernel (and, through
     autograd, of the backward kernel): make_fused_step_op's arguments
     minus the TPU window plan, plus the index plan (only its graph count is
     read). h0 PRE-MASKED. Returns (loss, out (G, od), (ma_mean, ma_var),
     [(mean_t, var_t)] × steps); the statistics are detached (they feed the
     running EMAs only), zeros for a norm in mode 'none'.
-    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm."""
+    loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm. A list `stash` receives
+    the forward kernel's residuals: the masked messages, then each step's
+    pre-norm state."""
     _check_modes("fused_step", msg_norm, state_norm)
     f = h0.shape[1]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
@@ -161,6 +170,8 @@ def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     zero = h0.new_zeros(f)
     msgs = _messages(amat, a0, mbias, h0, ng, vid, src, dst,
                      num_graphs) * mask
+    if stash is not None:
+        stash.append(msgs)
     if msg_norm == "bn1d":
         mb, ma_stats = bn1d_train(msgs, mask, ma_bn["weight"], ma_bn["bias"])
     else:
@@ -170,6 +181,8 @@ def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     step_stats = []
     for _ in range(steps):
         h = _gru(gru, gi, h, mask)
+        if stash is not None:
+            stash.append(h)
         if state_norm == "bn1d":
             h, st = bn1d_train(h, mask, bn["weight"], bn["bias"])
         else:
@@ -308,6 +321,19 @@ def vocab_table(t: torch.Tensor, tag: str, fp: int = 32) -> torch.Tensor:
         return t
     f = t.shape[-1]
     return torch.nn.functional.pad(t, (0, fp - f, 0, fp - f)).contiguous()
+
+
+def ro_table(t: torch.Tensor, tag: str, fp: int = 32, odw: int = 128):
+    """A (2f, od) readout weight as the per-step family's and the split
+    backward's wide buckets read it: each half [h | h0] zero-padded to fp
+    rows, od to odw columns, in device memory (csrc/
+    fused_psteps_common.cuh::kRoInSmem, csrc/ro_bwd.cu::kWInSmem). The
+    narrow builds stage the weight themselves."""
+    if not tag:
+        return t
+    f, od = t.shape[0] // 2, t.shape[1]
+    pad = lambda x: torch.nn.functional.pad(x, (0, odw - od, 0, fp - f))
+    return torch.cat([pad(t[:f]), pad(t[f:])]).contiguous()
 
 
 def _check_plan(plan, device, n, e, num_graphs):
@@ -492,6 +518,7 @@ class StepMeta(NamedTuple):
     steps: int
     msg_bn: int
     state_bn: int
+    split: int = 0          # the split backward (kernels/split_bwd.py)
 
 
 def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
@@ -607,19 +634,22 @@ def split_grads(dw: torch.Tensor, k_vocab: int, f: int, od: int):
 
 
 class _FusedStep(torch.autograd.Function):
-    """The training forward kernel, with the backward kernel as its VJP.
-    Inputs: meta, the 15 weight leaves (_GRAD_LEAVES order), h0, then the
-    non-differentiable batch tensors and the plan. Outputs (loss (1,),
-    out, stats); stats carry no gradient (they feed the running EMAs)."""
+    """The training forward kernel, with the backward kernel as its VJP —
+    or, on the split route, the readout, recurrence and message VJPs
+    (split_backward). Inputs: meta, the 15 weight leaves (_GRAD_LEAVES
+    order), h0, then the non-differentiable batch tensors and the plan.
+    Outputs (loss (1,), out, stats); stats carry no gradient (they feed
+    the running EMAs). On CPU tensors (the split route only) the forward
+    is the plain version with its stash."""
 
     @staticmethod
     def forward(ctx, meta, *args):
         weights = list(zip(_GRAD_LEAVES, args[:15]))
         h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
         plan = FusedEvalPlan(*args[23:])
-        loss, out, stats, htil = launch_prepared(prepare_fused_step_fwd(
+        loss, out, stats, htil = forward_residuals(
             weights, h0, mask, node_graph, labels, gmask, vid, src, dst,
-            plan, meta))
+            plan, meta)
         ctx.meta = meta
         ctx.save_for_backward(*args, out, stats, htil)
         ctx.mark_non_differentiable(stats)
@@ -630,33 +660,110 @@ class _FusedStep(torch.autograd.Function):
         saved = ctx.saved_tensors
         args, (out, stats, htil) = saved[:-3], saved[-3:]
         weights = list(zip(_GRAD_LEAVES, args[:15]))
-        h0, _mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
+        h0, mask, node_graph, labels, gmask, vid, src, dst = args[15:23]
         plan = FusedEvalPlan(*args[23:])
         gl = (torch.zeros(1, dtype=out.dtype, device=out.device)
               if g_loss is None else g_loss.reshape(1).contiguous())
         gout = (torch.zeros_like(out) if g_out is None
                 else g_out.contiguous())
-        dh0, dw = launch_prepared(prepare_fused_step_bwd(
-            weights, h0, labels, gmask, out, gout, gl, htil, stats,
-            node_graph, vid, src, dst, plan, ctx.meta))
-        f, od, k = h0.shape[1], out.shape[1], args[0].shape[0]
-        grads = split_grads(dw, k, f, od)
+        if ctx.meta.split:
+            dh0, grads = split_backward(
+                dict(weights), h0, mask, node_graph, labels, gmask, vid,
+                src, dst, plan, out, gout, gl, htil, stats,
+                steps=ctx.meta.steps)
+        else:
+            dh0, dw = launch_prepared(prepare_fused_step_bwd(
+                weights, h0, labels, gmask, out, gout, gl, htil, stats,
+                node_graph, vid, src, dst, plan, ctx.meta))
+            f, od, k = h0.shape[1], out.shape[1], args[0].shape[0]
+            grads = split_grads(dw, k, f, od)
         return (None, *(grads[name] for name in _GRAD_LEAVES), dh0,
                 *([None] * (len(args) - 16)))
+
+
+def forward_residuals(weights, h0, mask, node_graph, labels, gmask, vid,
+                      src, dst, plan, meta: StepMeta):
+    """The forward kernel's outputs (loss (1,), out, stats (T+1, 2, f),
+    htil (T+1, N, f)): its launch for CUDA tensors, the plain version for
+    CPU tensors."""
+    if h0.device.type != "cuda":
+        return _reference_residuals(weights, h0, mask, node_graph, labels,
+                                    gmask, vid, src, dst, plan, meta)
+    return launch_prepared(prepare_fused_step_fwd(
+        weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan,
+        meta))
+
+
+def _reference_residuals(weights, h0, mask, node_graph, labels, gmask, vid,
+                         src, dst, plan, meta: StepMeta):
+    """The forward kernel's outputs from the plain version."""
+    w = dict(weights)
+    stash = []
+    loss, out, ma, st = fused_step_reference(
+        w["amat"], w["a0"], w["mbias"], h0, mask, node_graph,
+        {k: w[k] for k in ("w_ih", "w_hh", "b_ih", "b_hh")},
+        {"weight": w["ma_w"], "bias": w["ma_b"]},
+        {"weight": w["bn_w"], "bias": w["bn_b"]},
+        {"i": {"w": w["ro_iw"], "b": w["ro_ib"]},
+         "j": {"w": w["ro_jw"], "b": w["ro_jb"]}},
+        labels, gmask, vid, src, dst, plan, steps=meta.steps,
+        msg_norm="bn1d" if meta.msg_bn else "none",
+        state_norm="bn1d" if meta.state_bn else "none", stash=stash)
+    stats = torch.stack([torch.stack(ma), *(torch.stack(s) for s in st)])
+    return loss.reshape(1), out, stats, torch.stack(stash)
+
+
+def split_backward(w, h0, mask, node_graph, labels, gmask, vid, src, dst,
+                   plan: FusedEvalPlan, out, gout, gl, htil, stats, *,
+                   steps: int):
+    """The split route of the shared family's backward (bn1d/bn1d): the
+    readout + loss VJP (kernels/readout_bwd.py) on h_T rebuilt from the
+    stash's last slot, the recurrence VJP (kernels/recurrence.py) on the
+    stash as it stands — slot 0 the masked messages, slots 1..T the
+    pre-norm states — and the message VJP (kernels/msg_bwd.py, one
+    network). Each launches its kernel for CUDA tensors and runs its plain
+    version for CPU tensors. Returns (dh0, {leaf: gradient})."""
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    from mpnn_tpu_torch.kernels import recurrence as R
+    ro = {"i": {"w": w["ro_iw"], "b": w["ro_ib"]},
+          "j": {"w": w["ro_jw"], "b": w["ro_jb"]}}
+    gh, dh0_ro, dro = RB.ro_bwd(
+        htil[steps], stats[steps], w["bn_w"], w["bn_b"], h0, mask,
+        node_graph, ro, labels, gmask, out, gout, gl, state_norm="bn1d")
+    dmsgs, dh0_rec, drec = R.recurrence_vjp(
+        htil[0], h0, mask, {k: w[k] for k in ("w_ih", "w_hh", "b_ih",
+                                              "b_hh")},
+        {"weight": w["ma_w"], "bias": w["ma_b"]},
+        {"weight": w["bn_w"], "bias": w["bn_b"]}, stats, htil[1:], gh,
+        steps=steps)
+    dh0_msg, dmsg = MB.msg_bwd(w["amat"][None], w["a0"][None], h0, mask,
+                               node_graph, vid, src, dst, dmsgs[None], plan)
+    grads = {"amat": dmsg["amat"][0], "a0": dmsg["a0"][0],
+             "mbias": dmsg["mbias"][0], **drec,
+             "ro_iw": dro["i"]["w"], "ro_ib": dro["i"]["b"],
+             "ro_jw": dro["j"]["w"], "ro_jb": dro["j"]["b"]}
+    return dh0_ro + dh0_rec + dh0_msg, grads
 
 
 def fused_step(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
                labels, gmask, vid, src, dst, plan: FusedEvalPlan, *,
                steps: int, msg_norm: str = "bn1d",
-               state_norm: str = "bn1d"):
+               state_norm: str = "bn1d", bwd: str = "auto"):
     """Whole-step training forward: (loss, out (G, od), (ma_mean, ma_var),
     [(mean_t, var_t)] × steps), differentiable in the weights and h0 for
     the cotangents of both loss and out. Arguments as fused_step_reference.
-    CPU tensors run the plain version under autograd; CUDA tensors launch
-    the forward kernel (and, in the backward pass, the backward kernel) or
-    raise."""
+    `bwd` picks the backward route: 'whole' (one kernel), 'split' (the
+    readout, recurrence and message VJPs; bn1d/bn1d only) or 'auto', the
+    JAX package's rule (kernels/split_bwd.py). CPU tensors run the plain
+    version under autograd on the whole route, and the plain versions of
+    the three VJPs on the split route; CUDA tensors launch the forward
+    kernel (and, in the backward pass, the route's kernels) or raise."""
     _check_modes("fused_step", msg_norm, state_norm)
-    if h0.device.type == "cpu":
+    split = route("shared", steps=steps, f=h0.shape[1], n=h0.shape[0],
+                  msg_norm=msg_norm, state_norm=state_norm,
+                  bwd=bwd) == "split"
+    if h0.device.type == "cpu" and not split:
         return fused_step_reference(
             amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
             labels, gmask, vid, src, dst, plan, steps=steps,
@@ -665,7 +772,7 @@ def fused_step(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
         raise NotImplementedError(
             f"fused_step: steps={steps}; the kernels take 1 to {MAX_STEPS}")
     meta = StepMeta(steps, int(msg_norm == "bn1d"),
-                    int(state_norm == "bn1d"))
+                    int(state_norm == "bn1d"), int(split))
     weights = [t for _, t in _flat_weights(amat, a0, mbias, gru, ma_bn, bn,
                                            ro)]
     loss, out, stats = _FusedStep.apply(

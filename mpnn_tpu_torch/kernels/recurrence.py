@@ -230,6 +230,40 @@ def recurrence(msgs, h0, mask, gru, ma_bn, bn, *, steps: int):
             [(stats[t, 0], stats[t, 1]) for t in range(1, steps + 1)])
 
 
+def recurrence_vjp_reference(msgs, h0, mask, gru, ma_bn, bn, ght, *,
+                             steps: int):
+    """The plain VJP: autograd of reference_recurrence for the cotangent
+    ght of h_T. Returns (dmsgs, dh0, {leaf: gradient})."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_()
+                  for t in (msgs, h0, *_flat(gru, ma_bn, bn))]
+        m, h, w = leaves[0], leaves[1], leaves[2:]
+        ht, _, _ = reference_recurrence(
+            m, h, mask, dict(zip(("w_ih", "w_hh", "b_ih", "b_hh"), w)),
+            {"weight": w[4], "bias": w[5]},
+            {"weight": w[6], "bias": w[7]}, steps=steps)
+        g = torch.autograd.grad(ht, leaves, ght.detach())
+    return g[0], g[1], dict(zip(_LEAVES, g[2:]))
+
+
+def recurrence_vjp(msgs, h0, mask, gru, ma_bn, bn, stats, htil, ght, *,
+                   steps: int):
+    """(dmsgs, dh0, {leaf: gradient}) of the chain for the cotangent ght of
+    h_T, on a forward's residuals: stats (T+1, 2, f) and htil (T, N, f),
+    the pre-norm states (the split backward of kernels/fused_step.py feeds
+    the whole-step forward's stash). CPU tensors run the plain version
+    (recurrence_vjp_reference); CUDA tensors launch the backward kernel or
+    raise."""
+    if h0.device.type == "cpu":
+        return recurrence_vjp_reference(msgs, h0, mask, gru, ma_bn, bn, ght,
+                                        steps=steps)
+    weights = [t.contiguous() for t in _flat(gru, ma_bn, bn)]
+    dmsgs, dh0, dw = K.launch_prepared(prepare_recurrence_bwd(
+        msgs, h0, mask, weights, stats, htil, ght.contiguous(),
+        steps=steps))
+    return dmsgs, dh0, split_grads(dw, h0.shape[1])
+
+
 def make_recurrence_op(steps: int, f: int):
     """The `recurrence_fn` hook: fn(msgs, h0, mask, gru, ma_bn, bn) → (h_T,
     ma_stats, step_stats) with the step count bound, as mpnn_tpu/kernels/

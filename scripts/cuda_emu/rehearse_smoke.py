@@ -8,8 +8,12 @@ its times and profiles mean nothing. Run from the repository root:
 
 phases: mlp-kernel-check, mlp-times, wide, bil-kernel-check, bil-serve,
 bil-train, bil-times, ecfp, spmm-kernel-check, rec-kernel-check,
-dec-train, dec-times, sddmm-kernel-check, dec-att-train, dec-att-times
-(default all). The wide phase runs on 48 molecules with set2vec cut to 3
+dec-train, dec-times, sddmm-kernel-check, dec-att-train, dec-att-times,
+split-kernel-check, split-train, split-times (default all). The split
+phases run at batch 48 (1,024 node slots for the kernel check; 160
+molecules for split-train) and 16 for the whole route, the route rule's
+limits lowered so that 48 molecules split and 16 do not. The wide phase
+runs on 48 molecules with set2vec cut to 3
 steps (in every adv and att run); bil-train, ecfp, dec-train and
 dec-att-train on 64; rec-kernel-check at b16's and 2,000 node slots;
 dec-times and dec-att-times at batch 16 and 48, without a trace (the
@@ -30,8 +34,9 @@ import torch                                                   # noqa: E402
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
                                     fused_att_steps, fused_bilinear,
-                                    fused_psteps, fused_step, recurrence,
-                                    sddmm, set2vec, spmm)
+                                    fused_psteps, fused_step, msg_bwd,
+                                    psteps_walk, readout_bwd, recurrence,
+                                    sddmm, set2vec, spmm, split_bwd)
 
 ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
@@ -43,7 +48,8 @@ ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
         "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs",
         "spmm_fwd": "FwdArgs", "spmm_da": "DaArgs",
         "recurrence_fwd": "FwdArgs", "recurrence_bwd": "BwdArgs",
-        "sddmm_fwd": "FwdArgs", "sddmm_bwd": "BwdArgs"}
+        "sddmm_fwd": "FwdArgs", "sddmm_bwd": "BwdArgs",
+        "ro_bwd": "RoArgs", "msg_bwd": "MsgArgs", "ps_walk_bwd": "WalkArgs"}
 
 
 class _Event:
@@ -61,7 +67,8 @@ def main(argv) -> int:
     emu.build([f"{lib}:{ARGS[lib.partition('.')[0]]}"
                for lib in emu.B.all_libraries()])
     emu.emulate(fused_step, fused_psteps, fused_att, fused_att_steps,
-                set2vec, edge_mlp, fused_bilinear, spmm, recurrence, sddmm)
+                set2vec, edge_mlp, fused_bilinear, spmm, recurrence, sddmm,
+                readout_bwd, msg_bwd, psteps_walk)
     torch.cuda.synchronize = lambda *a: None
     torch.cuda.Event = _Event
     cpu = torch.device("cpu")
@@ -79,6 +86,25 @@ def main(argv) -> int:
     CS.REC_NODES = (2000,)
     CS.DEC_TIMES_BATCHES = CS.DEC_ATT_BATCHES = (16, 48)
     CS._dec_trace = lambda *a: (0.0, "no trace (emulated)")
+    CS._split_trace = lambda name, step: (step(), (0.0, 0))[1]
+    CS.SPLIT_ROWS, CS.SPLIT_BATCH, CS.SPLIT_NODES = 160, 48, 1024
+    CS.SPLIT_SMALL = 16
+    split_bwd.PS_WHOLE_NPAD_CAP = 384
+    split_bwd.WHOLE_BWD_BYTES = 800_000
+
+    def split_batches(device):
+        """split-kernel-check's batches cut: b16 for b1024, 48 molecules
+        in SPLIT_NODES slots for b3584."""
+        from mpnn_tpu_torch import graphs as G
+        from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+        gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+            (CS.SMILES * 5)[:CS.SPLIT_BATCH], [0.0] * CS.SPLIT_BATCH))
+        big = trainer.batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+            G.collate_packed(gs, node_cap=CS.SPLIT_NODES).as_dict(),
+            vocab_cap=8)), device)
+        b16 = trainer.batch_to_device(CS._batch(CS.SMILES * 2, 16), device)
+        return b16, big, b16, CS._ragged_att_batch(device)
+    CS._split_check_batches = split_batches
     # set2vec's 100 steps cut to 3: the stand-in takes seconds a step
     from mpnn_tpu_torch.models import zoo
     for name in ("adv", "att"):
@@ -102,7 +128,10 @@ def main(argv) -> int:
               "sddmm-kernel-check": lambda: CS.phase_sddmm_kernel_check(cpu),
               "dec-att-train": lambda: CS.phase_dec_att_train(cpu),
               "dec-att-times": lambda: CS.phase_dec_att_times(cpu,
-                                                              "emulated")}
+                                                              "emulated"),
+              "split-kernel-check": lambda: CS.phase_split_kernel_check(cpu),
+              "split-train": lambda: CS.phase_split_train(cpu),
+              "split-times": lambda: CS.phase_split_times(cpu, "emulated")}
     for name in argv or list(phases):
         phases[name]()
     return 0

@@ -98,11 +98,11 @@ def _torch_inputs(args, dims):
     return targs, leaves
 
 
-def _torch_step(args, dims, cw, msg_norm, state_norm):
+def _torch_step(args, dims, cw, msg_norm, state_norm, **kw):
     targs, leaves = _torch_inputs(args, dims)
     loss, out, ma, st = K.fused_step(*targs, steps=dims["steps"],
                                      msg_norm=msg_norm,
-                                     state_norm=state_norm)
+                                     state_norm=state_norm, **kw)
     obj = 1.3 * loss + (out * torch.tensor(cw)).sum()
     grads = torch.autograd.grad(obj, list(leaves.values()),
                                 allow_unused=True)

@@ -1494,3 +1494,115 @@ def test_decomposed_attention_train_verb_on_card(tmp_path, experiment,
         "fused_att_fwd": 2 if nets == 1 else 0, "fused_att_bwd": 0,
         "fused_att_steps_fwd": 0 if nets == 1 else 2,
         "fused_att_steps_bwd": 0, **{f"{msg}_bwd": 0}}
+
+
+# ---------------------------------------------------------------------------
+# the split training backward (ro_bwd.cu, msg_bwd.cu, ps_walk_bwd.cu;
+# kernels/split_bwd.py): each kernel against its plain version, and both
+# routes' first-step gradients at b3584. Cases and batches from
+# chip_smoke.py (imported inside the tests: it imports no JAX either)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("batch,f,od,steps,msg_norm,state_norm,k", [
+    (1024, 10, 14, 1, "bn1d", "bn1d", None),
+    (1024, 8, 16, 3, "bn1d", "bn1d", None),
+    (1024, 8, 16, 3, "none", "stateless", None),
+    (1024, 7, 28, 3, "bn1d", "none", None),
+    (1024, 27, 108, 3, "bn1d", "bn1d", 64),
+    (1024, 32, 128, 2, "none", "stateless", 64),
+    (3584, 10, 14, 1, "bn1d", "bn1d", None),
+    (3584, 8, 16, 3, "bn1d", "bn1d", None)])
+def test_cuda_split_kernels_match_plain_version(batch, f, od, steps,
+                                                msg_norm, state_norm, k):
+    """ro_bwd, msg_bwd and ps_walk_bwd through their wrappers against their
+    plain versions on one batch (b1024 in 16,512 node slots, b3584 in
+    57,856), the wide bucket among the widths, inputs random at the padded
+    node slots; each output divided by its max abs."""
+    dev = _need_card()
+    import chip_smoke as C
+    b1024, b3584, _, _ = C._split_check_batches(dev)
+    tb = b1024 if batch == 1024 else b3584
+    res = C.split_kernel_case(tb, f, od, steps, msg_norm, state_norm,
+                              torch.Generator().manual_seed(batch + f), dev,
+                              k=k)
+    assert all(ok for ok, _ in res.values()), res
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("model", ["lipo", "encoded"])
+def test_split_and_whole_routes_first_step_gradients_at_b3584(model):
+    """The first step's parameter gradients of each model at b3584 (57,856
+    node slots) through the whole-step ops, on the whole route and on the
+    split route, each within rtol 1e-4 / atol 1e-5 (scaled) of the plain
+    model in float64; the split route runs its three kernels."""
+    dev = _need_card()
+    import dataclasses
+    import chip_smoke as C
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.train import experiments
+    tb = dict(C._split_check_batches(dev)[1])
+    g = tb["graph_mask"].shape[0]
+    dims = (tb["node_feats"].shape[1], tb["edge_feats"].shape[1],
+            tb["node_nafm"].shape[1])
+    if model == "lipo":
+        cfg = zoo.lipo(*dims)
+        tcfg = experiments.get("lipo").train
+        tb["labels"] = torch.randn(g, generator=torch.Generator()
+                                   .manual_seed(3)).to(dev)
+    else:
+        cfg = zoo.encoded(*dims, n_out=4)
+        tcfg = dataclasses.replace(
+            experiments.get("encoded_classification").train, loss="ce")
+        tb["labels"] = torch.arange(g, device=dev) % 4
+    for route in ("whole", "split"):
+        RB.reset_launch_counts()
+        MB.reset_launch_counts()
+        with C._route(route):
+            got, _, exact = C._fused_first_grads(cfg, tcfg, tb, dev)
+        launched = RB.launch_counts["ro_bwd"] + MB.launch_counts["msg_bwd"]
+        assert launched == (2 if route == "split" else 0)
+        margin, where, worst = C.fused_grad_distance(cfg, got, exact)
+        assert margin <= 1, (route, where, worst)
+
+
+@pytest.mark.gpu
+def test_cuda_split_wrappers_raise_instead_of_falling_back():
+    """A wrong device, dtype or width raises; nothing falls back to the
+    plain version or the whole route."""
+    dev = _need_card()
+    from mpnn_tpu_torch.kernels import msg_bwd as MB
+    from mpnn_tpu_torch.kernels import readout_bwd as RB
+    RB.reset_launch_counts()
+    MB.reset_launch_counts()
+    rng = np.random.RandomState(12)
+    c, _ = _ps_problem(rng, 64)
+    n, f = c["h0"].shape
+    g = c["labels"].shape[0]
+    x = torch.randn(n, f, device=dev)
+    st = torch.stack([x.mean(0), x.var(0)])
+    ro = {s: {k: v.detach() for k, v in c["ro"][s].items()} for s in "ij"}
+    od = ro["i"]["b"].shape[0]
+    gout = torch.randn(g, od, device=dev)
+    ro_args = (x, st, torch.ones(f, device=dev), torch.zeros(f, device=dev),
+               c["h0"].detach(), c["mask"], c["node_graph"], ro,
+               c["labels"], c["gmask"], gout, gout, torch.ones(1, device=dev))
+    with pytest.raises(TypeError, match="float32"):
+        RB.ro_bwd(x.double(), *ro_args[1:], state_norm="bn1d")
+    with pytest.raises(ValueError, match="is on cpu"):
+        RB.ro_bwd(*ro_args[:4], ro_args[4], ro_args[5].cpu(),
+                  *ro_args[6:], state_norm="bn1d")
+    dm = torch.randn(3, n, f, device=dev)
+    msg_args = (c["amat"].detach(), c["a0"].detach(), c["h0"].detach(),
+                c["mask"], c["node_graph"], c["vid"], c["src"], c["dst"], dm,
+                c["plan"])
+    with pytest.raises(ValueError, match="dmsgs has shape"):
+        MB.msg_bwd(*msg_args[:8], dm[:2], c["plan"])
+    wide = torch.zeros(3, 8, 33, 33, device=dev)
+    with pytest.raises(NotImplementedError, match="f=33"):
+        MB.msg_bwd(wide, torch.zeros(3, 33, 33, device=dev),
+                   torch.zeros(n, 33, device=dev), *msg_args[3:8],
+                   torch.zeros(3, n, 33, device=dev), c["plan"])
+    assert RB.launch_counts["ro_bwd"] == MB.launch_counts["msg_bwd"] == 0

@@ -145,7 +145,8 @@ def test_kernel_wrapper_builds_nothing_at_import():
                                   "fused_bilinear_bwd", "spmm_fwd",
                                   "spmm_da", "recurrence_fwd",
                                   "recurrence_bwd", "sddmm_fwd",
-                                  "sddmm_bwd"}
+                                  "sddmm_bwd", "ro_bwd", "msg_bwd",
+                                  "ps_walk_bwd"}
     for src in build.SOURCES.values():
         assert os.path.exists(os.path.join(build.CSRC, src))
     # every source in one family; each wide bucket its own library
@@ -159,6 +160,12 @@ def test_kernel_wrapper_builds_nothing_at_import():
     assert build.defines("spmm_da.f32") == build.defines(
         "recurrence_bwd.f32") == build.defines("sddmm_bwd.f32") \
         == ("MPNN_FP=32",)
+    # the split backward's kernels: a narrow and a wide build each, the
+    # wide one at the per-step family's readout widths
+    assert build.FAMILIES["split_bwd"] == ("ro_bwd", "msg_bwd",
+                                           "ps_walk_bwd")
+    assert all(build.defines(f"{n}.f32") == ("MPNN_FP=32", "MPNN_ODW=128")
+               for n in build.FAMILIES["split_bwd"])
 
 
 @pytest.mark.parametrize("exp", ["graph_norm_classification",
