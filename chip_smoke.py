@@ -201,6 +201,27 @@ Phases, one line each:
                beside the split route's three launches, both routes'
                train-step latency, and at b3584 their device busy time and
                idle share.
+ 40. basic-kernel-check — rows 1-3 with the stateless state norm
+               ((none, stateless) and (bn1d, stateless); its serving launch
+               is the cooperative fused_eval_stateless) and in every width
+               bucket of the shared family ('', o64, f32, o128) against
+               their plain versions: lipo's widths at b1024 in 16,512 slots
+               and 2,560 molecules in 32,896 slots, ragged; the basic
+               shell's at b1024, b16 and with 64 vocab ids; at afm 27 (od
+               108) at b1024; h0 random at the padded node slots (rtol
+               1e-4, atol 1e-5; gradient leaves scaled by their max abs);
+ 41. basic  — basic_classification through `predict` (batch 16 and 1024)
+               and `train`, single_target through `predict` and `train` on
+               a 250-class CSV (one-vs-rest against class 243), the
+               autoencoder and the two stateless shared pairs through
+               trainer.train and the eval step: exact launch counts, first
+               3 losses against the plain path (rtol 1e-3), outputs and
+               first-step gradients against it; basic at afm 27 runs in
+               phase 24;
+ 42. basic-times — rows 1-3 in the stateless mode at lipo's widths, the
+               basic shell's in the o64 build and forced into the f32 one,
+               and at afm 27 in the o128 build (b1024): CUDA-event times
+               beside their bounds and plain versions'.
 Then the `kernels` JSON line, and last {"ok": true, "device": {...}}.
 Files it writes go to $MPNN_SMOKE_OUT (default ./smoke_out/).
 Any failure exits non-zero without the last line. Needs one card and
@@ -653,11 +674,12 @@ def phase_serve(device):
     return total_launches, runs
 
 
-def _bound_ms(b, f, od, k, steps):
+def _bound_ms(b, f, od, k, steps, stateless=False):
     """Least time of the eval kernel's work on this batch: the larger of
     its float32 operations over the peak CUDA-core rate and its bytes
     (each input read once, the output written once) over HBM bandwidth.
-    Counts real nodes and edges only."""
+    Counts real nodes and edges only. The stateless state norm adds its
+    two batch sums per step (Σx, Σ(x − mean)²)."""
     nr = float(b["node_mask"].sum())
     er = float(b["edge_mask"].sum())
     g = float(b["graph_mask"].shape[0])
@@ -666,6 +688,7 @@ def _bound_ms(b, f, od, k, steps):
            + nr * 5 * f                            # + base + bias, affine
            + nr * (2 * f * 3 * f + 3 * f)          # input gates
            + steps * nr * (2 * f * 3 * f + 3 * f + 19 * f)   # GRU + norm
+           + (steps * nr * 4 * f if stateless else 0)        # batch sums
            + nr * (2 * 2 * (2 * f) * od + 2 * od + 6 * od))  # readout
     weights = k * f * f + f * f + 6 * f * f + 11 * f + 4 * f * od + 2 * od
     nbytes = 4 * (nr * f + er * 3 + nr + g + weights + g * od)
@@ -941,7 +964,7 @@ def phase_train(device):
     return counts
 
 
-def _step_bounds(b, f, od, k, steps):
+def _step_bounds(b, f, od, k, steps, msg_norm="bn1d", state_norm="bn1d"):
     """Least times of the training kernels' work on this batch, each the
     larger of its float32 operations over the peak CUDA-core rate and its
     bytes (each input read once, each output written once, the residual
@@ -955,17 +978,19 @@ def _step_bounds(b, f, od, k, steps):
     W_hhᵀ·dg and the dW_hh outer product, and sums dgi over the steps;
     W_ih's two products run once, on Σ_t dgi_t. The readout's VJP
     recomputes its two GEMVs and takes their transposes and outer
-    products."""
+    products. A norm in mode 'none' takes no operations; bn1d and the
+    stateless norm the same count (the batch sums, the normalization)."""
     nr = float(b["node_mask"].sum())
     er = float(b["edge_mask"].sum())
     g = float(b["graph_mask"].shape[0])
     weights = k * f * f + f * f + 6 * f * f + 11 * f + 4 * f * od + 2 * od
     gemv = 2 * f * 3 * f                           # one f → 3f gate GEMV
     gate = 3 * f + 12 * f                          # + b_hh, the gate math
-    norm = 8 * f                                   # stats + normalize
+    norm = 8 * f if state_norm != "none" else 0    # stats + normalize
+    mnorm = 8 * f if msg_norm != "none" else 0
     ro_gemv = 2 * 2 * (2 * f) * od                 # W_i·x and W_j·x
     fwd_ops = (er * 2 * f * f + g * 2 * f * f + nr * 3 * f  # messages
-               + nr * norm + nr * (gemv + 3 * f)            # ma BN, gi once
+               + nr * mnorm + nr * (gemv + 3 * f)           # ma BN, gi once
                + steps * nr * (gemv + gate + norm)
                + nr * (ro_gemv + 8 * od) + g * 3 * od)      # readout, loss
     stash = (steps + 1) * nr * f + 2 * (steps + 1) * f
@@ -974,7 +999,7 @@ def _step_bounds(b, f, od, k, steps):
     bwd_ops = (nr * (3 * ro_gemv + 16 * od)                  # readout VJP
                + steps * nr * (3 * gemv + gate + 20 * f + 2 * norm)
                + nr * 2 * gemv                               # W_ih, Σ dgi
-               + nr * 2 * norm                               # message BN
+               + nr * 2 * mnorm                              # message BN
                + er * 4 * f * f + g * 4 * f * f + nr * 4 * f)  # message VJP
     bwd_bytes = 4 * (nr * f + er * 3 + 2 * nr + g * (2 + 2 * od) + 1
                      + weights + stash + nr * f + weights)
@@ -2732,8 +2757,10 @@ WIDE_SMILES = [
 ]
 WIDE_ROWS = 184
 # model → (experiment, the kernels its serving and training launch)
+STEP_KERNELS = ("fused_eval", "fused_step_fwd", "fused_step_bwd")
 WIDE_MODELS = {
-    "lipo": ("lipo", ("fused_eval", "fused_step_fwd", "fused_step_bwd")),
+    "lipo": ("lipo", STEP_KERNELS),
+    "basic": ("basic_classification", STEP_KERNELS),
     "graph_norm": ("graph_norm_classification", PS_KERNELS),
     "adv": ("adv_classification", ATT_KERNELS),
     "att": ("att_classification", (*ATTS_KERNELS, *ATT_KERNELS[2:])),
@@ -2756,17 +2783,23 @@ def _wide_reset():
     _att_reset()
 
 
-def _wide_csv(model, task, label_col):
+def _wide_csv(model, task, label_col, smiles=None, rows=None,
+              classes=PS_CLASSES, prefix="wide"):
+    """A CSV of `rows` molecules cycling through `smiles` (default the
+    wide set's WIDE_ROWS), labels a sine (mse) or random classes, each of
+    the first `classes` rows its own class."""
     import numpy as np
-    csv = os.path.join(OUT_DIR, f"wide_{model}.csv")
-    smiles = (WIDE_SMILES * (WIDE_ROWS // len(WIDE_SMILES) + 1))[:WIDE_ROWS]
-    rng = np.random.RandomState(WIDE_ROWS)
+    rows = WIDE_ROWS if rows is None else rows
+    smiles = WIDE_SMILES if smiles is None else smiles
+    csv = os.path.join(OUT_DIR, f"{prefix}_{model}.csv")
+    smiles = (smiles * (rows // len(smiles) + 1))[:rows]
+    rng = np.random.RandomState(rows)
     with open(csv, "w") as fh:
         fh.write(f"smiles,{label_col}\n")
         for i, sm in enumerate(smiles):
             y = (0.8 * math.sin(0.7 * i) if task == "mse"
-                 else (i % PS_CLASSES if i < PS_CLASSES
-                       else rng.randint(PS_CLASSES)))
+                 else (i % classes if i < classes
+                       else rng.randint(classes)))
             fh.write(f"{sm},{y}\n")
     return csv
 
@@ -2783,26 +2816,26 @@ def _kernel_device_us(prof):
     return out
 
 
-def phase_wide(device, card):
-    """lipo, graph_norm, adv and att served and trained on the card at the
-    widths of WIDE_SMILES (afm 27): `predict` at batch 16 from a seeded
-    checkpoint against the plain path on the same batches, one launch of
-    each forward (and of the edge-MLP forward per message network) per
-    request; the `train` verb for one epoch at batch 16, one launch of
-    each forward and backward per step, its first 3 losses against the
-    plain path (rtol 1e-3); the first step's outputs and every parameter
-    gradient, kernels against the plain path, each divided by its max abs
-    (rtol 1e-4, atol 1e-5): every family's wide bucket and the chain
-    kernels at these widths. Each model's kernels' device time in a trace
-    of one request and one train step. Then lipo at f 33 raises."""
-    import numpy as np
+def _verb_run(what, model, exp, kernels, cfg, csv, rows, task, n_out,
+              serve_bs, serving_net, device, files):
+    """One model through the verbs on the card: `predict` of the CSV's
+    `rows` molecules at each batch of serve_bs from a seeded checkpoint
+    (every norm random where serving_net) against the plain path on the
+    same batches, one launch of each serving kernel (and of the edge-MLP
+    forward per message network) per request; the `train` verb for one
+    epoch at batch 16, one launch of each forward and backward per step,
+    its first 3 losses against the plain path (rtol 1e-3); the first
+    step's outputs and every parameter gradient, kernels against the plain
+    path, each divided by its max abs (rtol 1e-4, atol 1e-5); each
+    kernel's device time in a trace of one request and one train step.
+    The experiment's transforms (graphs/filters.py) apply to both paths.
+    Returns (a report, the predict launches, the train launches)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch import graphs as G
-    from mpnn_tpu_torch.models import zoo
     from mpnn_tpu_torch.models.network import (network_apply_packed,
                                                network_init)
-    from mpnn_tpu_torch.train import cli, experiments
+    from mpnn_tpu_torch.train import cli
     from mpnn_tpu_torch.train.checkpoint import (load_checkpoint,
                                                  save_checkpoint)
     from mpnn_tpu_torch.train.optim import adam
@@ -2810,6 +2843,191 @@ def phase_wide(device, card):
     from mpnn_tpu_torch.train.trainer import (batch_to_device, ce_loss,
                                               eval_step_for_batch, mse_loss,
                                               train_step)
+    mc = cfg.mpnn
+    widths = (f"f {mc.node_features}, od {mc.output_dim}"
+              + (f", set2vec w {2 * mc.node_features}"
+                 if mc.readout == "set2vec" else ""))
+    nets = _nets(mc)
+
+    def dataset():
+        return cli.apply_experiment_transforms(exp, (
+            G.load_number_dataset(csv, "smiles", exp.label_col)[0]
+            if task == "mse" else G.load_classification_dataset(
+                csv, "smiles", exp.label_col)[0]))
+    gen = torch.Generator().manual_seed(71)
+    net = (_serving_net(gen, cfg, "cpu") if serving_net
+           else network_init(cfg, gen, "cpu"))
+    ckpt = os.path.join(OUT_DIR, f"ckpt_{files}.npz")
+    save_checkpoint(ckpt, net, meta={"seed": 71, "model": model})
+    # serving launches the eval kernel of the shared and per-step
+    # families, the forward kernels of the attention families; training
+    # the training forward (the attention families: the same forward)
+    # per step and the eval kernel per validation and test batch
+    evals = {"fused_eval", "fused_psteps_eval"}
+    train_fwd = {"fused_step_fwd", "fused_psteps_fwd"}
+    serve = [k for k in kernels
+             if k in evals or not (k.endswith("_bwd") or k in train_fwd)]
+    serve_counts, serve_errs = {}, []
+    for sbs in serve_bs:
+        buf = io.StringIO()
+        _wide_reset()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["predict", "--experiment", exp.name, "--data",
+                      csv, "--ckpt", ckpt, "--batch-size", str(sbs)])
+        torch.cuda.synchronize()
+        counts = _wide_counts()
+        n_req = -(-rows // sbs)
+        want = {k: (n_req if k in serve else 0) for k in kernels}
+        want.update(edge_mlp_fwd=nets * n_req, edge_mlp_bwd=0)
+        if any(counts[k] != v for k, v in want.items()):
+            raise RuntimeError(f"{what} predict at {sbs}: launches "
+                               f"{ {k: counts[k] for k in want} }, "
+                               f"the design's count is {want}")
+        recs = [json.loads(x) for x in buf.getvalue().splitlines()
+                if x]
+        key = "pred" if task == "mse" else "logits"
+        got = torch.tensor([r[key] for r in recs], dtype=torch.float64)
+        loader = G.GraphLoader(dataset(), sbs, collate="packed")
+        pnet, _ = load_checkpoint(ckpt, cfg, device=device)
+        with torch.no_grad():
+            plain = torch.cat([
+                network_apply_packed(pnet, batch_to_device(b, device),
+                                     fused=False)[
+                    :int(b["graph_mask"].sum())].reshape(
+                        -1, 1 if task == "mse" else n_out).cpu()
+                for b in loader]).to(torch.float64)
+        ok_s, err_s, _ = _within(got.reshape(plain.shape), plain)
+        if not (ok_s and torch.isfinite(got).all()):
+            raise RuntimeError(f"{what} predict at {sbs} vs plain "
+                               f"path: {err_s:.3e}")
+        for k in want:
+            serve_counts[k] = serve_counts.get(k, 0) + counts[k]
+        serve_errs.append(f"b{sbs} {n_req} requests max_abs "
+                          f"{err_s:.3e}")
+    loader = G.GraphLoader(dataset(), serve_bs[0], collate="packed")
+    # training: the verb, then the plain path's first 3 steps
+    log = os.path.join(OUT_DIR, f"{files}_train.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    bs = 16
+    _wide_reset()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["train", "--experiment", exp.name, "--data", csv,
+                  "--epochs", "1", "--batch-size", str(bs),
+                  "--ckpt-dir", os.path.join(OUT_DIR,
+                                             f"{files}_ckpt"),
+                  "--log", log])
+    torch.cuda.synchronize()
+    counts = _wide_counts()
+    with open(log) as fh:
+        steps = [json.loads(x)["loss"] for x in fh
+                 if x.strip() and '"step"' in x]
+    train_gs, test_gs = train_test_split(dataset(), 0.1, 317)
+    train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
+    n_steps = -(-len(train_gs) // bs)
+    n_eval = -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
+    want = {k: (n_eval if k in evals else
+                n_steps if k in train_fwd or k.endswith("_bwd") else
+                n_steps + n_eval) for k in kernels}
+    want.update(edge_mlp_fwd=nets * (n_steps + n_eval),
+                edge_mlp_bwd=nets * n_steps)
+    if len(steps) != n_steps or any(counts[k] != v
+                                    for k, v in want.items()):
+        raise RuntimeError(f"{what} train: {len(steps)} steps, "
+                           f"launches "
+                           f"{ {k: counts[k] for k in want} }, the "
+                           f"design's count is {want}")
+    tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(tnet.parameters(), exp.train.learning_rate,
+               weight_decay=exp.train.weight_decay)
+    plain_steps = []
+    for b in G.GraphLoader(train_gs, bs, shuffle=True, seed=317):
+        if len(plain_steps) == 3:
+            break
+        plain_steps.append(float(train_step(
+            tnet, opt, batch_to_device(b, device), fused=False,
+            loss_kind=task)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3],
+                                                  plain_steps))
+    if not (all(math.isfinite(x) for x in steps) and rel <= 1e-3):
+        raise RuntimeError(f"{what} train: first steps "
+                           f"{steps[:3]} vs plain {plain_steps}")
+    # the first step's outputs and gradients, kernels vs plain
+    tb = batch_to_device(next(iter(G.GraphLoader(
+        train_gs, bs, shuffle=True, seed=317))), device)
+    tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
+    loss_fn = mse_loss if task == "mse" else ce_loss
+    # message_bias's gradient is zero in theory under a message bn1d:
+    # both paths give float noise there, which is not compared
+    params = [p for n, p in tnet.named_parameters()
+              if not (n.endswith("message_bias")
+                      and mc.msg_norm == "bn1d")]
+    res = []
+    for fused in (True, False):
+        tnet.zero_grad(set_to_none=True)
+        o, _ = network_apply_packed(tnet, tb, fused=fused,
+                                    training=True)
+        loss_fn(o, tb["labels"], tb["graph_mask"]).backward()
+        res.append((o.detach(), [
+            torch.zeros_like(p) if p.grad is None else p.grad.clone()
+            for p in params]))
+    scale = float(res[1][0].abs().max()) or 1.0
+    ok_o, err_o, _ = _within(res[0][0] / scale, res[1][0] / scale)
+    _, _, ok_g, err_g = _fwd_bwd_errors(res[0], res[1])
+    if not (ok_o and ok_g):
+        raise RuntimeError(f"{what}: first step vs plain path, "
+                           f"outputs {err_o:.2e}, gradients "
+                           f"{err_g:.2e}")
+    # device time of the model's kernels: one request, one train step
+    step = eval_step_for_batch(cfg, task, next(iter(loader)))
+    eb = batch_to_device(next(iter(loader)), device)
+    for _ in range(2):
+        step(tnet, eb)
+        float(train_step(tnet, opt, tb, loss_kind=task))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        step(tnet, eb)
+        torch.cuda.synchronize()
+    req_us = _kernel_device_us(prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        float(train_step(tnet, opt, tb, loss_kind=task))
+        torch.cuda.synchronize()
+    step_us = _kernel_device_us(prof)
+    train_counts = {k: counts[k] for k in want}
+    return (
+        f"{model} ({widths}, {nets} message networks, pf "
+        f"{tnet.mpnn.message[0].shared.weight.shape[0]}): predict "
+        f"{rows} molecules ({', '.join(serve_errs)} vs plain path), "
+        f"launches {serve_counts}; train "
+        f"{n_steps} steps, launches { {k: counts[k] for k in want} }, "
+        f"first 3 losses vs plain max rel {rel:.2e}, first step's "
+        f"outputs and {len(res[0][1])} gradients vs plain (scaled) "
+        f"{err_o:.2e} / {err_g:.2e}; device us of one b16 request "
+        + str({k: round(v, 2) for k, v in req_us.items()})
+        + ", of one b16 train step "
+        + str({k: round(v, 2) for k, v in step_us.items()}),
+        serve_counts, train_counts)
+
+
+def phase_wide(device, card):
+    """lipo, basic, graph_norm, adv and att served and trained on the card
+    at the widths of WIDE_SMILES (afm 27) through _verb_run: `predict` at
+    batch 16, the `train` verb for one epoch at batch 16, launch counts,
+    the plain path (predictions, first 3 losses, the first step's outputs
+    and gradients) and each kernel's device time in a trace: every
+    family's wide bucket and the chain kernels at these widths;
+    basic_classification takes the shared family's od-128 bucket (od =
+    4·afm = 108). Then lipo at f 33 raises."""
+    import numpy as np
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.models.network import network_init
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.trainer import (batch_to_device,
+                                              eval_step_for_batch)
     os.makedirs(OUT_DIR, exist_ok=True)
     gs, ge = G.encode_molgraphs(G.generate_molgraphs(
         WIDE_SMILES, [0.0] * len(WIDE_SMILES)))
@@ -2817,170 +3035,22 @@ def phase_wide(device, card):
     if afm < 24:
         raise RuntimeError(f"wide: the SMILES featurize to afm {afm} < 24")
     lines = [f"afm {afm}, bfm {bfm}, nafm {nafm}"]
+    step_counts = dict.fromkeys(STEP_KERNELS, 0)
     for model, (exp_name, kernels) in WIDE_MODELS.items():
         exp = experiments.get(exp_name)
         task = "mse" if model == "lipo" else "ce"
         cfg = (zoo.lipo(afm, bfm, nafm) if model == "lipo" else
                zoo.build(model, afm=afm, bfm=bfm, nafm=nafm,
                          n_out=PS_CLASSES))
-        mc = cfg.mpnn
-        widths = (f"f {mc.node_features}, od {mc.output_dim}"
-                  + (f", set2vec w {2 * mc.node_features}"
-                     if mc.readout == "set2vec" else ""))
-        nets = _nets(mc)
         csv = _wide_csv(model, task, exp.label_col)
-
-        def dataset():
-            return (G.load_number_dataset(csv, "smiles", exp.label_col)[0]
-                    if task == "mse" else G.load_classification_dataset(
-                        csv, "smiles", exp.label_col)[0])
-        gen = torch.Generator().manual_seed(71)
-        net = (_serving_net(gen, cfg, "cpu") if model in ("lipo",
-                                                          "graph_norm")
-               else network_init(cfg, gen, "cpu"))
-        ckpt = os.path.join(OUT_DIR, f"ckpt_wide_{model}.npz")
-        save_checkpoint(ckpt, net, meta={"seed": 71, "model": model})
-        # serving launches the eval kernel of the shared and per-step
-        # families, the forward kernels of the attention families; training
-        # the training forward (the attention families: the same forward)
-        # per step and the eval kernel per validation and test batch
-        evals = {"fused_eval", "fused_psteps_eval"}
-        train_fwd = {"fused_step_fwd", "fused_psteps_fwd"}
-        serve = [k for k in kernels
-                 if k in evals or not (k.endswith("_bwd") or k in train_fwd)]
-        buf = io.StringIO()
-        _wide_reset()
-        with contextlib.redirect_stdout(buf):
-            cli.main(["predict", "--experiment", exp_name, "--data", csv,
-                      "--ckpt", ckpt, "--batch-size", "16"])
-        torch.cuda.synchronize()
-        counts = _wide_counts()
-        n_req = -(-WIDE_ROWS // 16)
-        want = {k: (n_req if k in serve else 0) for k in kernels}
-        want.update(edge_mlp_fwd=nets * n_req, edge_mlp_bwd=0)
-        if any(counts[k] != v for k, v in want.items()):
-            raise RuntimeError(f"wide {model} predict: launches "
-                               f"{ {k: counts[k] for k in want} }, the "
-                               f"design's count is {want}")
-        recs = [json.loads(x) for x in buf.getvalue().splitlines() if x]
-        key = "pred" if task == "mse" else "logits"
-        got = torch.tensor([r[key] for r in recs], dtype=torch.float64)
-        loader = G.GraphLoader(dataset(), 16, collate="packed")
-        pnet, _ = load_checkpoint(ckpt, cfg, device=device)
-        with torch.no_grad():
-            plain = torch.cat([
-                network_apply_packed(pnet, batch_to_device(b, device),
-                                     fused=False)[
-                    :int(b["graph_mask"].sum())].reshape(
-                        -1, 1 if task == "mse" else PS_CLASSES).cpu()
-                for b in loader]).to(torch.float64)
-        ok_s, err_s, _ = _within(got.reshape(plain.shape), plain)
-        if not (ok_s and torch.isfinite(got).all()):
-            raise RuntimeError(f"wide {model} predict vs plain path: "
-                               f"{err_s:.3e}")
-        serve_counts = {k: counts[k] for k in want}
-        # training: the verb, then the plain path's first 3 steps
-        log = os.path.join(OUT_DIR, f"wide_train_{model}.jsonl")
-        if os.path.exists(log):
-            os.remove(log)
-        bs = 16
-        _wide_reset()
-        with contextlib.redirect_stdout(io.StringIO()):
-            cli.main(["train", "--experiment", exp_name, "--data", csv,
-                      "--epochs", "1", "--batch-size", str(bs),
-                      "--ckpt-dir", os.path.join(OUT_DIR,
-                                                 f"wide_ckpt_{model}"),
-                      "--log", log])
-        torch.cuda.synchronize()
-        counts = _wide_counts()
-        with open(log) as fh:
-            steps = [json.loads(x)["loss"] for x in fh
-                     if x.strip() and '"step"' in x]
-        train_gs, test_gs = train_test_split(dataset(), 0.1, 317)
-        train_gs, val_gs = train_test_split(train_gs, 0.1, 317)
-        n_steps = -(-len(train_gs) // bs)
-        n_eval = -(-len(val_gs) // bs) + -(-len(test_gs) // bs)
-        want = {k: (n_eval if k in evals else
-                    n_steps if k in train_fwd or k.endswith("_bwd") else
-                    n_steps + n_eval) for k in kernels}
-        want.update(edge_mlp_fwd=nets * (n_steps + n_eval),
-                    edge_mlp_bwd=nets * n_steps)
-        if len(steps) != n_steps or any(counts[k] != v
-                                        for k, v in want.items()):
-            raise RuntimeError(f"wide {model} train: {len(steps)} steps, "
-                               f"launches "
-                               f"{ {k: counts[k] for k in want} }, the "
-                               f"design's count is {want}")
-        tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
-        opt = adam(tnet.parameters(), exp.train.learning_rate,
-                   weight_decay=exp.train.weight_decay)
-        plain_steps = []
-        for b in G.GraphLoader(train_gs, bs, shuffle=True, seed=317):
-            if len(plain_steps) == 3:
-                break
-            plain_steps.append(float(train_step(
-                tnet, opt, batch_to_device(b, device), fused=False,
-                loss_kind=task)))
-        rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3],
-                                                      plain_steps))
-        if not (all(math.isfinite(x) for x in steps) and rel <= 1e-3):
-            raise RuntimeError(f"wide {model} train: first steps "
-                               f"{steps[:3]} vs plain {plain_steps}")
-        # the first step's outputs and gradients, kernels vs plain
-        tb = batch_to_device(next(iter(G.GraphLoader(
-            train_gs, bs, shuffle=True, seed=317))), device)
-        tnet = network_init(cfg, torch.Generator().manual_seed(317), device)
-        loss_fn = mse_loss if task == "mse" else ce_loss
-        # message_bias's gradient is zero in theory under a message bn1d:
-        # both paths give float noise there, which is not compared
-        params = [p for n, p in tnet.named_parameters()
-                  if not (n.endswith("message_bias")
-                          and mc.msg_norm == "bn1d")]
-        res = []
-        for fused in (True, False):
-            tnet.zero_grad(set_to_none=True)
-            o, _ = network_apply_packed(tnet, tb, fused=fused,
-                                        training=True)
-            loss_fn(o, tb["labels"], tb["graph_mask"]).backward()
-            res.append((o.detach(), [
-                torch.zeros_like(p) if p.grad is None else p.grad.clone()
-                for p in params]))
-        scale = float(res[1][0].abs().max()) or 1.0
-        ok_o, err_o, _ = _within(res[0][0] / scale, res[1][0] / scale)
-        _, _, ok_g, err_g = _fwd_bwd_errors(res[0], res[1])
-        if not (ok_o and ok_g):
-            raise RuntimeError(f"wide {model}: first step vs plain path, "
-                               f"outputs {err_o:.2e}, gradients "
-                               f"{err_g:.2e}")
-        # device time of the model's kernels: one request, one train step
-        step = eval_step_for_batch(cfg, task, next(iter(loader)))
-        eb = batch_to_device(next(iter(loader)), device)
-        for _ in range(2):
-            step(tnet, eb)
-            float(train_step(tnet, opt, tb, loss_kind=task))
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            step(tnet, eb)
-            torch.cuda.synchronize()
-        req_us = _kernel_device_us(prof)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            float(train_step(tnet, opt, tb, loss_kind=task))
-            torch.cuda.synchronize()
-        step_us = _kernel_device_us(prof)
-        lines.append(
-            f"{model} ({widths}, {nets} message networks, pf "
-            f"{tnet.mpnn.message[0].shared.weight.shape[0]}): predict "
-            f"{WIDE_ROWS} molecules in {n_req} requests, launches "
-            f"{serve_counts}, vs plain path max_abs {err_s:.3e}; train "
-            f"{n_steps} steps, launches { {k: counts[k] for k in want} }, "
-            f"first 3 losses vs plain max rel {rel:.2e}, first step's "
-            f"outputs and {len(res[0][1])} gradients vs plain (scaled) "
-            f"{err_o:.2e} / {err_g:.2e}; device us of one b16 request "
-            + str({k: round(v, 2) for k, v in req_us.items()})
-            + ", of one b16 train step "
-            + str({k: round(v, 2) for k, v in step_us.items()}))
+        line, sc, tc = _verb_run(
+            f"wide {model}", model, exp, kernels, cfg, csv, WIDE_ROWS,
+            task, PS_CLASSES, serve_bs=(16,),
+            serving_net=model in ("lipo", "graph_norm"), device=device,
+            files=f"wide_{model}")
+        lines.append(line)
+        for k in step_counts:
+            step_counts[k] += sc.get(k, 0) + tc.get(k, 0)
     # past the widest bucket: f 33 raises, naming the widths
     too_wide = zoo.lipo(afm + 3, bfm, nafm)
     net = network_init(too_wide, torch.Generator().manual_seed(5), device)
@@ -2996,6 +3066,7 @@ def phase_wide(device, card):
     else:
         raise RuntimeError("wide: lipo at f 33 did not raise")
     print(f"wide [{card}]: " + "; ".join(lines), flush=True)
+    return step_counts
 
 
 # ---------------------------------------------------------------------------
@@ -5601,6 +5672,414 @@ def phase_split_times(device, card):
     return out[("b3584", "encoded")]
 
 
+# ---------------------------------------------------------------------------
+# the shared family's stateless state norm and wide-od buckets, and the
+# basic shell (basic_classification, single_target, autoencoder): phases
+# 40-42
+# ---------------------------------------------------------------------------
+
+BASIC_NORMS = (("none", "stateless"), ("bn1d", "stateless"))
+BASIC_ROWS = 1280
+SINGLE_ROWS = 500        # 250 classes: single_target's class 243 exists
+
+
+def _shell_args(tb, w, with_nafm, gen=None, k=None):
+    """fused_eval's positional arguments for a device batch whose node
+    features (+ nafm with `with_nafm`: the lipo shell's h0, else the basic
+    shell's) are h0, random at the padded node slots (the kernels and the
+    plain version both mask them out). With k, the real edges take vocab
+    ids drawn from 1..k-1 (the padded ones keep 0) and `w` holds k
+    tables."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_from_batch
+    mask = tb["node_mask"]
+    h0 = tb["node_feats"]
+    if with_nafm:
+        h0 = torch.cat([h0, tb["node_nafm"]], -1)
+    h0 = (h0 * mask).contiguous()
+    if gen is not None:
+        pad = torch.nonzero(mask[:, 0] == 0)[:, 0]
+        h0 = _noisy(h0[None], pad, gen)[0].contiguous()
+    vid = tb["edge_vid"]
+    if k is not None:
+        real = tb["edge_mask"] > 0
+        draw = torch.randint(1, k, vid.shape, generator=gen).to(vid.device)
+        vid = torch.where(real, draw.to(vid.dtype), torch.zeros_like(vid))
+    return (w["amat"], w["a0"], w["mbias"], h0, mask, tb["node_graph"],
+            w["gru"], w["ma"], w["ma_state"], w["bn"], w["bn_state"],
+            w["ro"], vid.contiguous(), tb["edge_src"], tb["edge_dst"],
+            plan_from_batch(tb))
+
+
+def _shell_step_args(eval_args, gen):
+    """fused_step's positional arguments from fused_eval's (the running
+    statistics dropped), every weight and h0 a leaf, random labels and one
+    padded graph slot; and the leaves in fused_step's gradient order."""
+    import torch
+    (amat, a0, mbias, h0, mask, ng, gru, ma, _, bn, _, ro, vid, src, dst,
+     plan) = eval_args
+    h0 = h0.detach().clone().requires_grad_()
+    leaves = [amat, a0, mbias, h0, *gru.values(), *ma.values(),
+              *bn.values(), ro["i"]["w"], ro["i"]["b"], ro["j"]["w"],
+              ro["j"]["b"]]
+    for x in leaves:
+        x.requires_grad_()
+    g = plan.graph_node_ptr.shape[0] - 1
+    labels = torch.randn(g, generator=gen).to(mask.device)
+    gmask = torch.ones(g, device=mask.device)
+    gmask[-1] = 0.0
+    return ((amat, a0, mbias, h0, mask, ng, gru, ma, bn, ro, labels, gmask,
+             vid, src, dst, plan), leaves)
+
+
+def _basic_batches(device):
+    """{name: device batch} of the kernel checks and times: bench.py's
+    SMILES at b1024 in the 16,512 node slots the serving path gives it
+    (past the JAX package's 16,384 layout switch) and 2,560 molecules in
+    32,896 slots (_dec_check_batches' batches), b16, a ragged batch with
+    single-atom molecules and a padded graph slot, and the wide set's
+    (afm 20-27) at b1024 and b16."""
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    b1024, b16, b2560, _ = _dec_check_batches(device)
+    ragged = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
+    return {"b1024": b1024, "b2560": b2560, "b16": b16,
+            "ragged": batch_to_device(_batch(ragged, len(ragged)), device),
+            "wide b1024": batch_to_device(
+                _batch((WIDE_SMILES * 45)[:1024], 1024), device),
+            "wide b16": batch_to_device(_batch(WIDE_SMILES[:16], 16),
+                                        device)}
+
+
+def phase_basic_kernel_check(device):
+    """Rows 1-3 in the stateless state norm, (none, stateless) and (bn1d,
+    stateless), and in every width bucket, against their plain versions
+    (rtol 1e-4, atol 1e-5; gradient leaves divided by their max abs;
+    cotangents 1.3·loss + Σ out·c): the serving kernel (the stateless
+    norm's cooperative one), the training forward (its statistics too)
+    and backward; h0 random at the padded node slots. Narrow: lipo's
+    widths (f 10, od 14, T 6) at b1024 (16,512 slots), 2,560 molecules
+    (32,896 slots), ragged; o64: the basic shell's (f 7, od 28, T 3) at
+    b1024, b16 and with 64 vocab ids; f32: f 23, od 60 at the wide set's
+    b16; o128: the basic shell at afm 27 (f 27, od 108) at b1024 and at
+    afm 20 with 64 vocab ids at b16 — with (none, none), the basic
+    models' pair, in the buckets the basic shell takes."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    gen = torch.Generator().manual_seed(41)
+    batches = _basic_batches(device)
+    cases = []            # (batch, h0 with nafm, od, T, K or None, modes)
+    for name in ("b1024", "b2560", "ragged"):
+        cases += [(name, True, 14, 6, None, m) for m in BASIC_NORMS
+                  if name != "b2560" or m == BASIC_NORMS[0]]
+    cases += [("b1024", False, 28, 3, None, m)
+              for m in BASIC_NORMS + (("none", "none"),)]
+    cases += [("b1024", False, 28, 3, 64, BASIC_NORMS[1]),
+              ("b16", False, 28, 3, None, BASIC_NORMS[0]),
+              ("wide b16", True, 60, 3, None, BASIC_NORMS[1])]
+    cases += [("wide b1024", False, 108, 3, None, m)
+              for m in BASIC_NORMS + (("none", "none"),)]
+    cases += [("wide b16", False, 108, 3, 64, BASIC_NORMS[0])]
+    worst = dict.fromkeys(("fused_eval", "fused_eval_stateless",
+                           "fused_step_fwd", "fused_step_bwd"), 0.0)
+    results, failed = [], []
+    for name, nafm, od, T, k, (mn, sn) in cases:
+        tb = batches[name]
+        f = tb["node_feats"].shape[1] + (tb["node_nafm"].shape[1]
+                                         if nafm else 0)
+        kk = k or int(tb["edge_vfirst"].shape[0])
+        w = _random_weights(f, od, kk, gen, device)
+        args = _shell_args(tb, w, nafm, gen, k)
+        kw = dict(steps=T, msg_norm=mn, state_norm=sn)
+        tag = K.width_bucket("", K.BUCKETS, f=f, od=od) or "narrow"
+        K.reset_launch_counts()
+        with torch.no_grad():
+            got = K.fused_eval(*args, **kw)
+            torch.cuda.synchronize()
+            want = K.fused_eval_reference(*args, **kw)
+        ev = "fused_eval_stateless" if sn == "stateless" else "fused_eval"
+        ok_e, err_e, _ = _within(got, want)
+        worst[ev] = max(worst[ev], err_e)
+        sargs, leaves = _shell_step_args(args, gen)
+        g = sargs[10].shape[0]
+        cw = torch.randn(g, od, generator=gen).to(device)
+        sgot = _step_and_grads(K.fused_step, sargs, leaves, cw, kw)
+        torch.cuda.synchronize()
+        swant = _step_and_grads(K.fused_step_reference, sargs, leaves, cw,
+                                kw)
+        ok_f, err_f, ok_b, err_b = _step_errors(sgot, swant, mn)
+        counts = {key: v for key, v in K.launch_counts.items() if v}
+        if counts != {ev: 1, "fused_step_fwd": 1, "fused_step_bwd": 1}:
+            raise RuntimeError(f"basic-kernel-check {name}: launches "
+                               f"{counts}")
+        worst["fused_step_fwd"] = max(worst["fused_step_fwd"], err_f)
+        worst["fused_step_bwd"] = max(worst["fused_step_bwd"], err_b)
+        what = (f"{name} {mn}/{sn} f={f} od={od} T={T} K={kk} {tag} "
+                f"({int(tb['node_mask'].sum())}/{tb['node_mask'].shape[0]}"
+                f" slots)")
+        ok = ok_e and ok_f and ok_b and bool(torch.isfinite(got).all())
+        results.append(f"{what}: {ev} {err_e:.2e} fwd {err_f:.2e} bwd "
+                       f"{err_b:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+    print(f"basic-kernel-check: rows 1-3 vs their plain versions (rtol "
+          f"{RTOL} atol {ATOL}; gradients divided by their max abs; h0 "
+          f"random at the padded slots): " + "; ".join(results), flush=True)
+    if failed:
+        raise RuntimeError(f"rows 1-3 disagree with their plain versions: "
+                           f"{failed}")
+    return worst
+
+
+def _api_run(what, cfg, task, train_gs, val_gs, device, files):
+    """A config without an experiment through the API: trainer.train for
+    one epoch at batch 16 (exact launch counts: one forward and one
+    backward per step, one serving launch per validation batch), its
+    first 3 losses against the plain path (rtol 1e-3), and the eval step
+    (trainer.eval_step_for_batch) on the validation batches against the
+    plain path on the same batches. Returns (a report, the launches)."""
+    import torch
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.models.network import (network_apply_packed,
+                                               network_init)
+    from mpnn_tpu_torch.train import trainer
+    from mpnn_tpu_torch.train.optim import adam
+    log = os.path.join(OUT_DIR, f"{files}_train.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    tcfg = trainer.TrainConfig(epochs=1, batch_size=16, learning_rate=1e-3,
+                               loss=task, seed=317, log_path=log)
+    _wide_reset()
+    net, hist = trainer.train(cfg, tcfg, train_gs, val_gs, device=device)
+    torch.cuda.synchronize()
+    n_steps = -(-len(train_gs) // 16)
+    n_val = -(-len(val_gs) // 16)
+    ev = ("fused_eval_stateless" if cfg.mpnn.state_norm == "stateless"
+          else "fused_eval")
+    counts = {k: v for k, v in K.launch_counts.items() if v}
+    want = {"fused_step_fwd": n_steps, "fused_step_bwd": n_steps,
+            ev: n_val}
+    if counts != want:
+        raise RuntimeError(f"{what}: launches {counts}, the design's count "
+                           f"is {want}")
+    mlp = _mlp_take(what, 1, n_steps + n_val, n_steps)
+    with open(log) as fh:
+        steps = [json.loads(x)["loss"] for x in fh if '"step"' in x]
+    pnet = network_init(cfg, torch.Generator().manual_seed(317), device)
+    opt = adam(pnet.parameters(), 1e-3)
+    plain = []
+    for b in G.GraphLoader(train_gs, 16, shuffle=True, seed=317):
+        if len(plain) == 3:
+            break
+        plain.append(float(trainer.train_step(
+            pnet, opt, trainer.batch_to_device(b, device), fused=False,
+            loss_kind=task)))
+    rel = max(abs(a - b) / abs(b) for a, b in zip(steps[:3], plain))
+    if not (all(math.isfinite(x) for x in steps) and rel <= 1e-3):
+        raise RuntimeError(f"{what}: first steps {steps[:3]} vs plain "
+                           f"{plain}")
+    errs = []
+    for b in G.GraphLoader(val_gs, 16):
+        step = trainer.eval_step_for_batch(cfg, task, b)
+        tb = trainer.batch_to_device(b, device)
+        _, out = step(net, tb)
+        with torch.no_grad():
+            ref = network_apply_packed(net, tb, fused=False)
+        ok, err, _ = _within(out, ref)
+        if not (ok and torch.isfinite(out).all()):
+            raise RuntimeError(f"{what}: served output vs plain {err:.2e}")
+        errs.append(err)
+    counts.update(mlp)
+    return (f"{what} (f {cfg.mpnn.node_features}, od "
+            f"{cfg.mpnn.output_dim}, {cfg.mpnn.msg_norm}/"
+            f"{cfg.mpnn.state_norm}): trainer.train {n_steps} steps, "
+            f"launches {counts}, first 3 losses vs plain max rel {rel:.2e},"
+            f" val_loss {hist[-1]['val_loss']:.5f}; eval step on "
+            f"{len(errs)} batches vs plain max_abs {max(errs):.2e}", counts)
+
+
+def phase_basic(device, card):
+    """The basic shell on bench.py's SMILES (afm 7, od 28: the f 16 / od 64
+    bucket): basic_classification through `predict` (batch 16 and 1024)
+    and `train` (_verb_run), single_target through `train` and `predict`
+    on a 250-class CSV (its one-vs-rest class 243, the MLP head), and the
+    autoencoder's encoder and the two stateless shared pairs (the basic
+    shell with state norm 'stateless', message norm none or bn1d) through
+    trainer.train and the eval step (_api_run). Returns the launches of
+    rows 1-3."""
+    import dataclasses
+    from mpnn_tpu_torch import graphs as G
+    from mpnn_tpu_torch.models import zoo
+    from mpnn_tpu_torch.train import experiments
+    from mpnn_tpu_torch.train.cli import apply_experiment_transforms
+    from mpnn_tpu_torch.train.split import train_test_split
+    os.makedirs(OUT_DIR, exist_ok=True)
+    lines = []
+    totals = dict.fromkeys(STEP_KERNELS + ("fused_eval_stateless",), 0)
+
+    def add(*counts):
+        for c in counts:
+            for k in totals:
+                totals[k] += c.get(k, 0)
+    for exp_name, rows, classes, serve_bs in (
+            ("basic_classification", BASIC_ROWS, PS_CLASSES, (16, 1024)),
+            ("single_target", SINGLE_ROWS, 250, (16,))):
+        exp = experiments.get(exp_name)
+        csv = _wide_csv(exp_name, "ce", exp.label_col, smiles=SMILES,
+                        rows=rows, classes=classes, prefix="basic")
+        gs = apply_experiment_transforms(exp, G.load_classification_dataset(
+            csv, "smiles", exp.label_col)[0])
+        n_out = int(max(g.label for g in gs)) + 1
+        afm, bfm = int(gs[0].afm.shape[-1]), int(gs[0].bfm.shape[-1])
+        cfg = zoo.build(exp.model, afm=afm, bfm=bfm, n_out=n_out)
+        line, sc, tc = _verb_run(
+            exp_name, exp.model, exp, STEP_KERNELS, cfg, csv, rows, "ce",
+            n_out, serve_bs=serve_bs, serving_net=False, device=device,
+            files=f"basic_{exp_name}")
+        lines.append(f"{exp_name} ({n_out} classes): {line}")
+        add(sc, tc)
+    csv = _wide_csv("api", "ce", "target", smiles=SMILES, rows=BASIC_ROWS,
+                    prefix="basic")
+    gs = G.load_classification_dataset(csv, "smiles", "target")[0]
+    train_gs, val_gs = train_test_split(gs, 0.1, 317)
+    afm, bfm = int(gs[0].afm.shape[-1]), int(gs[0].bfm.shape[-1])
+    basic = zoo.basic(afm, bfm, n_out=PS_CLASSES)
+    # the autoencoder's embeddings (od 2·afm = 14) trained as the logits
+    # of the four classes: the API has no loss of its own for them
+    for name, cfg in [("autoencoder", zoo.autoencoder(afm, bfm))] + [
+            (f"basic {mn}/{sn}", dataclasses.replace(
+                basic, mpnn=dataclasses.replace(basic.mpnn, msg_norm=mn,
+                                                state_norm=sn)))
+            for mn, sn in BASIC_NORMS]:
+        line, counts = _api_run(name, cfg, "ce", train_gs[:400], val_gs,
+                                device, f"basic_{name.replace('/', '_')}")
+        lines.append(line)
+        add(counts)
+    print(f"basic [{card}]: " + "; ".join(lines), flush=True)
+    return totals
+
+
+def _prep_step(eval_args, meta, gen, tag, device):
+    """The prepared training forward and backward launches (the backward
+    on the forward's residuals and a random cotangent) for fused_eval's
+    arguments, in bucket `tag`; the plain version's arguments; the
+    cotangent."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    (amat, a0, mbias, h0, mask, ng, gru, ma, _, bn, _, ro, vid, src, dst,
+     plan) = eval_args
+    g = plan.graph_node_ptr.shape[0] - 1
+    labels = torch.randn(g, generator=gen).to(device)
+    gmask = torch.ones(g, device=device)
+    weights = K._flat_weights(amat, a0, mbias, gru, ma, bn, ro)
+    pf = K.prepare_fused_step_fwd(weights, h0, mask, ng, labels, gmask, vid,
+                                  src, dst, plan, meta, tag=tag)
+    _, o, st, htil = K.launch_prepared(pf)
+    gout = torch.randn(o.shape, generator=gen).to(device)
+    gl = torch.ones(1, device=device)
+    pb = K.prepare_fused_step_bwd(weights, h0, labels, gmask, o, gout, gl,
+                                  htil, st, ng, vid, src, dst, plan, meta,
+                                  tag=tag)
+    ref = (amat, a0, mbias, h0, mask, ng, gru, ma, bn, ro, labels, gmask,
+           vid, src, dst, plan)
+    return pf, pb, ref, gout
+
+
+def phase_basic_times(device, card):
+    """At b1024 of bench.py's SMILES (and of the wide set for od 128): the
+    CUDA-event time of each of rows 1-3 beside its plain version's time
+    and its bound, in the stateless mode at lipo's widths (f 10, od 14, T
+    6; the bn1d pair's times are phase_times' and phase_train_times' in
+    the same run), at the basic shell's widths (f 7, od 28, T 3) in the
+    o64 bucket and forced into the f32 one (the measurement that keeps
+    o64 in BUCKETS), and at afm 27 (f 27, od 108) in the o128 bucket.
+    Returns the stateless serving kernel's numbers at the basic shell's
+    b1024 (its main path's shapes)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    gen = torch.Generator().manual_seed(43)
+    batches = _basic_batches(device)
+    out, lines = {}, []
+    for name, nafm, od, T, mn, sn, tags in (
+            ("lipo b1024", True, 14, 6, "none", "stateless", ("",)),
+            ("lipo b1024", True, 14, 6, "bn1d", "stateless", ("",)),
+            ("basic b1024", False, 28, 3, "none", "none", ("o64", "f32")),
+            ("basic b1024", False, 28, 3, "none", "stateless",
+             ("o64", "f32")),
+            ("wide b1024", False, 108, 3, "none", "none", ("o128",)),
+            ("wide b1024", False, 108, 3, "bn1d", "stateless", ("o128",))):
+        tb = batches[name.replace("lipo ", "").replace("basic ", "")]
+        f = tb["node_feats"].shape[1] + (tb["node_nafm"].shape[1]
+                                         if nafm else 0)
+        k = int(tb["edge_vfirst"].shape[0])
+        w = _random_weights(f, od, k, gen, device)
+        args = _shell_args(tb, w, nafm)
+        kw = dict(steps=T, msg_norm=mn, state_norm=sn)
+        meta = K.StepMeta(T, K.BATCH_BN if mn == "bn1d" else K.NONE,
+                          K._STATE_MODE[sn])
+        ev = "fused_eval_stateless" if sn == "stateless" else "fused_eval"
+        bounds = _shell_bounds(tb, f, od, k, T, mn, sn)
+        with torch.no_grad():
+            p_eval = _events_ms(lambda: K.fused_eval_reference(*args, **kw),
+                                10)
+        res = {}
+        for tag in tags:
+            with torch.no_grad():
+                pe = K.prepare_fused_eval(*args, **kw, check=False, tag=tag)
+                e_ms = _events_ms(lambda: K.launch_prepared(pe), 100)
+                pf, pb, ref, gout = _prep_step(args, meta, gen, tag,
+                                               device)
+                f_ms = _events_ms(lambda: K.launch_prepared(pf), 100)
+                b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
+            res[tag or "narrow"] = (e_ms, f_ms, b_ms)
+        with torch.no_grad():
+            pf_ms = _events_ms(lambda: K.fused_step_reference(*ref, **kw),
+                               10)
+        lv = lambda t: t.detach().requires_grad_()
+        tree = lambda d: {key: lv(v) for key, v in d.items()}
+        amat, a0, mbias, h0 = (lv(x) for x in ref[:4])
+        gru, ma, bn = tree(ref[6]), tree(ref[7]), tree(ref[8])
+        ro = {"i": tree(ref[9]["i"]), "j": tree(ref[9]["j"])}
+        leaves = [amat, a0, mbias, h0, *gru.values(), *ma.values(),
+                  *bn.values(), *ro["i"].values(), *ro["j"].values()]
+        loss, o_ref, _, _ = K.fused_step_reference(
+            amat, a0, mbias, h0, ref[4], ref[5], gru, ma, bn, ro, *ref[10:],
+            **kw)
+        obj = loss + (o_ref * gout).sum()
+        pb_ms = _events_ms(lambda: torch.autograd.grad(
+            obj, leaves, retain_graph=True, allow_unused=True), 10)
+        tags_s = "; ".join(
+            f"{t}: {ev} {v[0] * 1e3:.2f} us, fused_step_fwd "
+            f"{v[1] * 1e3:.2f} us, fused_step_bwd {v[2] * 1e3:.2f} us"
+            for t, v in res.items())
+        lines.append(
+            f"{name} {mn}/{sn} (f {f}, od {od}, T {T}, vocab {k}, "
+            f"{int(tb['node_mask'].sum())}/{tb['node_mask'].shape[0]} "
+            f"slots) {tags_s}; plain {p_eval * 1e3:.1f} / {pf_ms * 1e3:.1f}"
+            f" / {pb_ms * 1e3:.1f} us; bound " + ", ".join(
+                f"{n} {bounds[n][0] * 1e3:.3f} us by {bounds[n][1]}"
+                for n in ("eval", "fused_step_fwd", "fused_step_bwd")))
+        if name == "basic b1024" and sn == "stateless":
+            e_ms = res[K.width_bucket("", K.BUCKETS, f=f, od=od)][0]
+            out = dict(ms=e_ms, plain_ms=p_eval, bound_ms=bounds["eval"][0],
+                       bound_by=bounds["eval"][1])
+    print(f"basic-times [{card}]: CUDA events over back-to-back launches; "
+          + "; ".join(lines), flush=True)
+    return out
+
+
+def _shell_bounds(b, f, od, k, steps, msg_norm, state_norm):
+    """Bounds of rows 1-3 on this batch (_bound_ms, _step_bounds) with the
+    norms the pair has: the stateless norm's two batch sums and its
+    normalization per step in place of the folded affine, no message norm
+    for 'none'."""
+    t_eval = _bound_ms(b, f, od, k, steps, stateless=state_norm ==
+                       "stateless")
+    out = _step_bounds(b, f, od, k, steps, msg_norm, state_norm)
+    out["eval"] = t_eval
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5635,7 +6114,7 @@ def main() -> int:
     atts_times = phase_atts_times(device, card)
     mlp_worst = phase_mlp_kernel_check(device)
     mlp_times = phase_mlp_times(device, card)
-    phase_wide(device, card)
+    step_counts = phase_wide(device, card)
     bil_worst = phase_bil_kernel_check(device)
     bil_counts = phase_bil_serve(device)
     for k, v in phase_bil_train(device).items():
@@ -5653,21 +6132,44 @@ def main() -> int:
     split_worst = phase_split_kernel_check(device)
     phase_split_train(device)
     split_times = phase_split_times(device, card)
+    basic_worst = phase_basic_kernel_check(device)
+    for k, v in phase_basic(device, card).items():
+        step_counts[k] = step_counts.get(k, 0) + v
+    stateless_times = phase_basic_times(device, card)
+    # rows 1-3's launches: lipo's serve and train phases, the wide phase's
+    # lipo and basic, and the basic shell's phase; their errors: every
+    # kernel check of them
+    for k in worst:
+        worst[k] = max(worst[k], basic_worst[k])
     t = times[1024]
     kernels = [{
         "name": "fused_eval", "route": "cuda",
         "source": "mpnn_tpu_torch/csrc/fused_eval.cu",
         "replaces": "mpnn_tpu/kernels/fused_step.py:374",
-        "launches": launches, "max_abs_err": worst["fused_eval"],
+        "launches": launches + train_counts["fused_eval"]
+        + step_counts["fused_eval"],
+        "max_abs_err": worst["fused_eval"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": None}]
+        "bound_by": t["bound_by"], "library_ms": None}, {
+        # the stateless state norm's cooperative serving kernel, timed at
+        # the basic shell's b1024 (its main path's shapes)
+        "name": "fused_eval_stateless", "route": "cuda",
+        "source": "mpnn_tpu_torch/csrc/fused_eval.cu",
+        "replaces": "mpnn_tpu/kernels/fused_step.py:374",
+        "launches": step_counts["fused_eval_stateless"],
+        "max_abs_err": basic_worst["fused_eval_stateless"],
+        "ms": stateless_times["ms"],
+        "plain_ms": stateless_times["plain_ms"],
+        "bound_ms": stateless_times["bound_ms"],
+        "bound_by": stateless_times["bound_by"], "library_ms": None}]
     for name, line in (("fused_step_fwd", 232), ("fused_step_bwd", 668)):
         tt = ttimes[1024][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_step.py:{line}",
-            "launches": train_counts[name], "max_abs_err": worst[name],
+            "launches": train_counts[name] + step_counts[name],
+            "max_abs_err": worst[name],
             "ms": tt["ms"], "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})

@@ -28,6 +28,22 @@
 // stay exactly 0 through every stage, and padded readout outputs are kept
 // out of the softmax.
 //
+// Past ODP 64 (the od-128 build) the readout weights are read, zero-padded,
+// from device memory (kernels/fused_step.py::ro_table), and a lane's
+// od-long logits would spill: the lanes stage 32 nodes' [h ‖ h0] rows in
+// shared memory and the warp computes each node's readout with lanes over
+// od (fused_train_common.cuh::warp_readout_rows).
+//
+// The STATELESS state norm normalizes by the batch's own per-step mean and
+// var (eps 1e-6 inside the sqrt), so a graph's output depends on its batch
+// and a warp cannot serve its graph alone. That mode has a kernel of its
+// own, fused_eval_stateless_kernel: the training forward's body
+// (fused_step_forward.cuh) without the loss, the stats output and the
+// stash — one cooperative launch, node chunks, the statistics from per-
+// chunk partials combined in chunk order after grid.sync(), double-
+// buffered by step parity, no float atomics; T + 2 grid barriers. Its
+// scratch keeps the messages and one state slot, updated in place.
+//
 // Bound on an H100 SXM: f32 CUDA-core arithmetic (no tensor-core shape
 // fits f = 10); at the flagship batch of 1024 molecules the work is
 // ~1e8 flop against ~1 MB of traffic, so operations bound it (67 TFLOP/s
@@ -37,6 +53,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "fused_step_forward.cuh"
 #include "unroll.cuh"
 
 namespace {
@@ -80,10 +97,18 @@ struct Smem {
   static constexpr int kBhh = kBih + 3 * FP;
   static constexpr int kVec = kBhh + 3 * FP;     // mbias, ma_scale,
   static constexpr int kRiw = kVec + 5 * FP;     // ma_shift, s_scale, s_shift
-  static constexpr int kRjw = kRiw + 2 * FP * ODP;
-  static constexpr int kRib = kRjw + 2 * FP * ODP;
+  // the readout weights in shared memory up to ODP 64; past it in device
+  // memory, and each warp's 32 staged rows [h | h0] in their place
+  static constexpr bool kRoInSmem = ODP <= 64;
+  static constexpr int kRo = kRoInSmem ? 2 * FP * ODP : 0;
+  static constexpr int kRowStride = 2 * FP + 1;
+  static constexpr int kOdLanes = ODP >= 32 ? ODP / 32 : 1;
+  static constexpr int kRjw = kRiw + kRo;
+  static constexpr int kRib = kRjw + kRo;
   static constexpr int kRjb = kRib + ODP;
-  static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP (narrow)
+  static constexpr int kRows = kRjb + ODP;
+  static constexpr int kAmat =                   // then K·FP·FP (narrow)
+      kRows + (kRoInSmem ? 0 : kWarps * 32 * kRowStride);
   // past FP 16 the vocab tables are read, zero-padded, from device memory
   static constexpr bool kVocabInSmem = FP <= 16;
   static size_t bytes(int k_vocab) {
@@ -101,6 +126,88 @@ __device__ __forceinline__ int opaque_zero() {
 
 __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// Messages, GRU input gates and the T recurrent steps of real node n of a
+// graph whose A0·S_g is `base`: h = h_T (after the folded state norm) and
+// h0n = h0[n], in registers.
+template <int FP, int ODP>
+__device__ __forceinline__ void node_forward(const EvalArgs& a,
+                                             const float* sm, int n,
+                                             const float* base, float* h,
+                                             float* h0n) {
+  using L = Smem<FP, ODP>;
+  const int f = a.f;
+  const float* __restrict__ h0 = a.h0;
+  const float* w = sm + opaque_zero();
+  // ---- messages: edges into n, destination-sorted order ---------------
+  float msg[FP];
+MPNN_UNROLL
+  for (int m = 0; m < FP; ++m) msg[m] = 0.f;
+  const int p1 = __ldg(a.dst_ptr + n + 1);
+  for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
+    const int e = __ldg(a.edge_order + p);
+    const int sn = __ldg(a.src + e);
+    const float* am = (L::kVocabInSmem ? w + L::kAmat : a.amat) +
+                      __ldg(a.vid + e) * FP * FP;
+    float hs[FP];
+MPNN_UNROLL
+    for (int j = 0; j < FP; ++j)
+      hs[j] = j < f ? __ldg(h0 + size_t(sn) * f + j) : 0.f;
+MPNN_UNROLL
+    for (int m = 0; m < FP; ++m) {
+      float t = 0.f;
+MPNN_UNROLL
+      for (int j = 0; j < FP; ++j) t = fmaf(am[m * FP + j], hs[j], t);
+      msg[m] += t;
+    }
+  }
+  // ---- + A0·S_g + bias, folded msg norm, GRU input gates --------------
+  float mb[FP];
+MPNN_UNROLL
+  for (int m = 0; m < FP; ++m) {
+    float v = (msg[m] + base[m]) + w[L::kVec + m];
+    mb[m] = w[L::kVec + FP + m] * v + w[L::kVec + 2 * FP + m];
+  }
+  float gi[3 * FP];
+MPNN_UNROLL
+  for (int c = 0; c < 3 * FP; ++c) {
+    float t = 0.f;
+MPNN_UNROLL
+    for (int k = 0; k < FP; ++k) t = fmaf(mb[k], w[L::kWih + k * 3 * FP + c], t);
+    gi[c] = t + w[L::kBih + c];
+  }
+MPNN_UNROLL
+  for (int j = 0; j < FP; ++j) {
+    h0n[j] = j < f ? __ldg(h0 + size_t(n) * f + j) : 0.f;
+    h[j] = h0n[j];
+  }
+  // ---- T × [GRU → folded state norm] ----------------------------------
+  for (int t = 0; t < a.steps; ++t) {
+    const float* ws = w + opaque_zero();
+    float hn[FP];
+MPNN_UNROLL
+    for (int j = 0; j < FP; ++j) {
+      float rh = 0.f, zh = 0.f, nh = 0.f;
+MPNN_UNROLL
+      for (int k = 0; k < FP; ++k) {
+        const float* wr = ws + L::kWhh + k * 3 * FP;
+        rh = fmaf(h[k], wr[j], rh);
+        zh = fmaf(h[k], wr[FP + j], zh);
+        nh = fmaf(h[k], wr[2 * FP + j], nh);
+      }
+      rh += ws[L::kBhh + j];
+      zh += ws[L::kBhh + FP + j];
+      nh += ws[L::kBhh + 2 * FP + j];
+      const float r = sigmoidf_(gi[j] + rh);
+      const float z = sigmoidf_(gi[FP + j] + zh);
+      const float nn = tanhf(gi[2 * FP + j] + r * nh);
+      const float hp = (1.0f - z) * nn + z * h[j];
+      hn[j] = ws[L::kVec + 3 * FP + j] * hp + ws[L::kVec + 4 * FP + j];
+    }
+MPNN_UNROLL
+    for (int j = 0; j < FP; ++j) h[j] = hn[j];
+  }
 }
 
 template <int FP, int ODP>
@@ -134,7 +241,8 @@ fused_eval_kernel(EvalArgs a) {
     sm[L::kVec + 3 * FP + i] = in ? a.s_scale[i] : 0.f;
     sm[L::kVec + 4 * FP + i] = in ? a.s_shift[i] : 0.f;
   }
-  for (int i = threadIdx.x; i < 2 * FP * ODP; i += blockDim.x) {
+  for (int i = threadIdx.x; L::kRoInSmem && i < 2 * FP * ODP;
+       i += blockDim.x) {
     // padded row r: [h (FP) | h0 (FP)] → source row (r < FP ? r : f + r - FP)
     int r = i / ODP, o = i % ODP, half = r / FP, k = r % FP;
     bool in = k < f && o < od;
@@ -191,124 +299,85 @@ MPNN_UNROLL
     base[m] = t;
   }
 
-  float acc[ODP];
+  if constexpr (L::kRoInSmem) {
+    float acc[ODP];
 MPNN_UNROLL
-  for (int o = 0; o < ODP; ++o) acc[o] = 0.f;
-
-  for (int n = n0 + lane; n < n1; n += 32) {
-    const float* w = sm + opaque_zero();
-    // ---- messages: edges into n, destination-sorted order ---------------
-    float msg[FP];
+    for (int o = 0; o < ODP; ++o) acc[o] = 0.f;
+    for (int n = n0 + lane; n < n1; n += 32) {
+      const float* w = sm + opaque_zero();
+      float h[FP], h0n[FP];
+      node_forward<FP, ODP>(a, sm, n, base, h, h0n);
+      // ---- gated readout over [h_T ‖ h0], softmax over od ------------------
+      float pi[ODP], pj[ODP];
 MPNN_UNROLL
-    for (int m = 0; m < FP; ++m) msg[m] = 0.f;
-    const int p1 = __ldg(a.dst_ptr + n + 1);
-    for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
-      const int e = __ldg(a.edge_order + p);
-      const int sn = __ldg(a.src + e);
-      const float* am = (L::kVocabInSmem ? w + L::kAmat : a.amat) +
-                        __ldg(a.vid + e) * FP * FP;
-      float hs[FP];
-MPNN_UNROLL
-      for (int j = 0; j < FP; ++j)
-        hs[j] = j < f ? __ldg(h0 + size_t(sn) * f + j) : 0.f;
-MPNN_UNROLL
-      for (int m = 0; m < FP; ++m) {
-        float t = 0.f;
-MPNN_UNROLL
-        for (int j = 0; j < FP; ++j) t = fmaf(am[m * FP + j], hs[j], t);
-        msg[m] += t;
-      }
-    }
-    // ---- + A0·S_g + bias, folded msg norm, GRU input gates --------------
-    float mb[FP];
-MPNN_UNROLL
-    for (int m = 0; m < FP; ++m) {
-      float v = (msg[m] + base[m]) + w[L::kVec + m];
-      mb[m] = w[L::kVec + FP + m] * v + w[L::kVec + 2 * FP + m];
-    }
-    float gi[3 * FP];
-MPNN_UNROLL
-    for (int c = 0; c < 3 * FP; ++c) {
-      float t = 0.f;
-MPNN_UNROLL
-      for (int k = 0; k < FP; ++k) t = fmaf(mb[k], w[L::kWih + k * 3 * FP + c], t);
-      gi[c] = t + w[L::kBih + c];
-    }
-    float h0n[FP], h[FP];
-MPNN_UNROLL
-    for (int j = 0; j < FP; ++j) {
-      h0n[j] = j < f ? __ldg(h0 + size_t(n) * f + j) : 0.f;
-      h[j] = h0n[j];
-    }
-    // ---- T × [GRU → folded state norm] ----------------------------------
-    for (int t = 0; t < a.steps; ++t) {
-      const float* ws = w + opaque_zero();
-      float hn[FP];
-MPNN_UNROLL
-      for (int j = 0; j < FP; ++j) {
-        float rh = 0.f, zh = 0.f, nh = 0.f;
+      for (int o = 0; o < ODP; ++o) {
+        float ti = 0.f, tj = 0.f;
 MPNN_UNROLL
         for (int k = 0; k < FP; ++k) {
-          const float* wr = ws + L::kWhh + k * 3 * FP;
-          rh = fmaf(h[k], wr[j], rh);
-          zh = fmaf(h[k], wr[FP + j], zh);
-          nh = fmaf(h[k], wr[2 * FP + j], nh);
+          ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
+          tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
         }
-        rh += ws[L::kBhh + j];
-        zh += ws[L::kBhh + FP + j];
-        nh += ws[L::kBhh + 2 * FP + j];
-        const float r = sigmoidf_(gi[j] + rh);
-        const float z = sigmoidf_(gi[FP + j] + zh);
-        const float nn = tanhf(gi[2 * FP + j] + r * nh);
-        const float hp = (1.0f - z) * nn + z * h[j];
-        hn[j] = ws[L::kVec + 3 * FP + j] * hp + ws[L::kVec + 4 * FP + j];
+MPNN_UNROLL
+        for (int k = 0; k < FP; ++k) {
+          ti = fmaf(h0n[k], w[L::kRiw + (FP + k) * ODP + o], ti);
+          tj = fmaf(h0n[k], w[L::kRjw + (FP + k) * ODP + o], tj);
+        }
+        pi[o] = ti + w[L::kRib + o];
+        pj[o] = tj + w[L::kRjb + o];
+      }
+      float mx = -INFINITY;
+MPNN_UNROLL
+      for (int o = 0; o < ODP; ++o)
+        if (o < od) mx = fmaxf(mx, pi[o]);
+      float den = 0.f;
+MPNN_UNROLL
+      for (int o = 0; o < ODP; ++o) {
+        pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
+        den += pi[o];
       }
 MPNN_UNROLL
-      for (int j = 0; j < FP; ++j) h[j] = hn[j];
+      for (int o = 0; o < ODP; ++o) acc[o] += (pi[o] / den) * pj[o];
     }
-    // ---- gated readout over [h_T ‖ h0], softmax over od ------------------
-    float pi[ODP], pj[ODP];
-MPNN_UNROLL
-    for (int o = 0; o < ODP; ++o) {
-      float ti = 0.f, tj = 0.f;
-MPNN_UNROLL
-      for (int k = 0; k < FP; ++k) {
-        ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
-        tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
-      }
-MPNN_UNROLL
-      for (int k = 0; k < FP; ++k) {
-        ti = fmaf(h0n[k], w[L::kRiw + (FP + k) * ODP + o], ti);
-        tj = fmaf(h0n[k], w[L::kRjw + (FP + k) * ODP + o], tj);
-      }
-      pi[o] = ti + w[L::kRib + o];
-      pj[o] = tj + w[L::kRjb + o];
-    }
-    float mx = -INFINITY;
-MPNN_UNROLL
-    for (int o = 0; o < ODP; ++o)
-      if (o < od) mx = fmaxf(mx, pi[o]);
-    float den = 0.f;
-MPNN_UNROLL
-    for (int o = 0; o < ODP; ++o) {
-      pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
-      den += pi[o];
-    }
-MPNN_UNROLL
-    for (int o = 0; o < ODP; ++o) acc[o] += (pi[o] / den) * pj[o];
-  }
 
-  // ---- per-graph sum of the gated rows ----------------------------------
+    // ---- per-graph sum of the gated rows ----------------------------------
 MPNN_UNROLL
-  for (int o = 0; o < ODP; ++o) {
+    for (int o = 0; o < ODP; ++o) {
 MPNN_UNROLL
-    for (int off = 16; off > 0; off >>= 1)
-      acc[o] += __shfl_xor_sync(kFull, acc[o], off);
-  }
-  if (lane == 0) {
+      for (int off = 16; off > 0; off >>= 1)
+        acc[o] += __shfl_xor_sync(kFull, acc[o], off);
+    }
+    if (lane == 0) {
 MPNN_UNROLL
-    for (int o = 0; o < ODP; ++o)
-      if (o < od) a.out[size_t(g) * od + o] = acc[o];
+      for (int o = 0; o < ODP; ++o)
+        if (o < od) a.out[size_t(g) * od + o] = acc[o];
+    }
+  } else {
+    float acc[L::kOdLanes];
+MPNN_UNROLL
+    for (int q = 0; q < L::kOdLanes; ++q) acc[q] = 0.f;
+    float* xr = sm + L::kRows + warp * 32 * L::kRowStride;
+    for (int b = n0; b < n1; b += 32) {
+      float h[FP], h0n[FP];
+      if (b + lane < n1) {
+        node_forward<FP, ODP>(a, sm, b + lane, base, h, h0n);
+      } else {
+MPNN_UNROLL
+        for (int j = 0; j < FP; ++j) h[j] = h0n[j] = 0.f;
+      }
+      __syncwarp();                        // the last round's rows read
+MPNN_UNROLL
+      for (int j = 0; j < FP; ++j) {
+        xr[lane * L::kRowStride + j] = h[j];
+        xr[lane * L::kRowStride + FP + j] = h0n[j];
+      }
+      __syncwarp();
+      mpnn_train::warp_readout_rows<L::kRowStride>(
+          xr, min(32, n1 - b), a.ro_iw, a.ro_jw, sm + L::kRib, sm + L::kRjb,
+          od, acc);
+    }
+MPNN_UNROLL
+    for (int q = 0; q < L::kOdLanes; ++q)
+      if (lane + 32 * q < od) a.out[size_t(g) * od + lane + 32 * q] = acc[q];
   }
 }
 
@@ -327,21 +396,31 @@ cudaError_t launch(const EvalArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// The width bucket, zero-padded: f <= kMaxWidth, od <= kMaxOut. The
-// narrow build takes 16 and 16 (the flagship at bench widths: f = 10,
-// od = 14), the wide one -DMPNN_FP=32 -DMPNN_ODP=64 (kernels/build.py;
-// kernels/fused_step.py::BUCKETS). In the wide bucket `amat` arrives
-// zero-padded to (K, 32, 32).
-#ifndef MPNN_FP
-#define MPNN_FP 16
-#endif
-#ifndef MPNN_ODP
-#define MPNN_ODP 16
-#endif
-constexpr int kMaxWidth = MPNN_FP;
-constexpr int kMaxOut = MPNN_ODP;
+// The width bucket, zero-padded: f <= kMaxWidth, od <= kMaxOut
+// (fused_train_common.cuh's MPNN_FP, MPNN_ODP). The narrow build takes 16
+// and 16 (the flagship at bench widths: f = 10, od = 14), the others of
+// kernels/fused_step.py::BUCKETS their -D defines (kernels/build.py). Past
+// f 16 `amat` arrives zero-padded to (K, 32, 32); past od 64 the readout
+// weights to (2·FP, ODP).
+constexpr int kMaxWidth = mpnn_train::FP;
+constexpr int kMaxOut = mpnn_train::ODP;
 
 }  // namespace
+
+namespace stateless {
+
+using namespace mpnn_step;
+
+__global__ void __launch_bounds__(kThreads)
+fused_eval_stateless_kernel(FwdArgs a) {
+  step_forward<false>(a);
+}
+
+size_t smem_bytes(int k_vocab, int steps) {
+  return sizeof(float) * fwd_smem_floats(k_vocab, steps);
+}
+
+}  // namespace stateless
 
 extern "C" {
 
@@ -371,6 +450,52 @@ int mpnn_fused_eval(const float* amat, const float* a0, const float* mbias,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (f > kMaxWidth || od > kMaxOut) return int(cudaErrorInvalidValue);
   return int(launch<kMaxWidth, kMaxOut>(a, s));
+}
+
+// The serving kernel of the stateless state norm: its dynamic shared
+// memory in bytes, its scratch in floats (besides the (2, N, f) state
+// slots), and its cooperative grid (0 on error).
+int mpnn_fused_eval_stateless_smem_bytes(int k_vocab, int steps) {
+  return int(stateless::smem_bytes(k_vocab, steps));
+}
+
+long long mpnn_fused_eval_stateless_scratch_floats(int n_nodes,
+                                                   int n_graphs) {
+  return mpnn_step::fwd_scratch_floats(n_nodes, n_graphs);
+}
+
+int mpnn_fused_eval_stateless_grid(int k_vocab, int steps, int n_nodes,
+                                   int n_graphs) {
+  return mpnn_step::forward_grid(stateless::fused_eval_stateless_kernel,
+                                 stateless::smem_bytes(k_vocab, steps),
+                                 n_nodes, n_graphs);
+}
+
+// Launches the stateless-norm serving kernel on `stream` (one cooperative
+// launch of `grid` blocks) and returns the launch's error code. msg_mode
+// is kNone or kAffine (ma_scale, ma_shift: the folded eval bn1d); htil is
+// (2, N, f) device scratch. Does not synchronize and allocates nothing.
+int mpnn_fused_eval_stateless(
+    const float* amat, const float* a0, const float* mbias, const float* h0,
+    const float* w_ih, const float* w_hh, const float* b_ih,
+    const float* b_hh, const float* ma_scale, const float* ma_shift,
+    const float* ro_iw, const float* ro_ib, const float* ro_jw,
+    const float* ro_jb, const int* vid, const int* src,
+    const int* edge_order, const int* dst_ptr, const int* graph_node_ptr,
+    float* out, float* htil, float* scratch, int n_nodes, int n_graphs,
+    int f, int od, int k_vocab, int steps, int msg_mode, int grid,
+    void* stream) {
+  using namespace mpnn_step;
+  if (f > kMaxWidth || od > kMaxOut || steps < 1 || steps > kMaxSteps ||
+      grid < 1 || (msg_mode != kNone && msg_mode != kAffine))
+    return int(cudaErrorInvalidValue);
+  FwdArgs a{{amat, a0, mbias, w_ih, w_hh, b_ih, b_hh, ma_scale, ma_shift,
+             nullptr, nullptr, ro_iw, ro_ib, ro_jw, ro_jb},
+            h0, nullptr, nullptr, vid, src, edge_order, dst_ptr,
+            graph_node_ptr, nullptr, out, nullptr, htil, scratch,
+            n_nodes, n_graphs, f, od, k_vocab, steps, msg_mode, kStateless};
+  return launch_forward(stateless::fused_eval_stateless_kernel, a,
+                        stateless::smem_bytes(k_vocab, steps), grid, stream);
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -57,18 +57,14 @@ constexpr bool kRoInSmem = ODW <= 32;
 constexpr int kMaxSteps = 8;
 // steps whose messages one gather of h0[src] feeds (T <= 4: one gather)
 constexpr int kStepGroup = 4;
-constexpr float kBnEps = 1e-5f;        // masked bn1d: eps OUTSIDE the sqrt
-constexpr float kVarClamp = 1e-12f;
-constexpr float kStatelessEps = 1e-6f; // stateless norm: eps INSIDE the sqrt
-
-// norm modes (kernels/fused_psteps.py): none; bn1d on batch statistics
-// (training); a folded per-feature affine (eval bn1d); the stateless norm
-// on batch statistics (eval and training)
-enum Mode { kNone = 0, kBatchBn = 1, kAffine = 2, kStateless = 3 };
-
-__host__ __device__ inline bool has_stats(int mode) {
-  return mode == kBatchBn || mode == kStateless;
-}
+// the norm modes and the slot constants of both eps conventions are the
+// shared family's (fused_train_common.cuh)
+using mpnn_train::has_stats;
+using mpnn_train::kAffine;
+using mpnn_train::kBatchBn;
+using mpnn_train::kNone;
+using mpnn_train::kStateless;
+using mpnn_train::set_slot;
 
 struct PsWeights {
   const float* amat;   // (T, K, f, f): step t's message = amat[t][k] @ h0
@@ -164,18 +160,6 @@ __device__ void stage_ps_weights(float* sm, const PsWeights& w, int f,
   // norm constants: identity until a slot is set (mean 0, s = d = 1)
   for (int i = tid; i < 2 * steps * 3 * FP; i += nt)
     sm[PL::stats(steps) + i] = (i % (3 * FP)) < FP ? 0.f : 1.f;
-}
-
-// Set one slot's constants from its mean and biased var: bn1d normalizes
-// by d = sqrt(max(var, 1e-12)) + 1e-5 (s without the eps); the stateless
-// norm by d = s = sqrt(var + 1e-6).
-__device__ __forceinline__ void set_slot(float* st, int j, float mean,
-                                         float var, bool stateless) {
-  const float s = stateless ? sqrtf(var + kStatelessEps)
-                            : sqrtf(fmaxf(var, kVarClamp));
-  st[j] = mean;
-  st[FP + j] = s;
-  st[2 * FP + j] = stateless ? s : s + kBnEps;
 }
 
 // y = norm(x) of one real node in `mode`, with the slot constants `st`

@@ -9,9 +9,12 @@
 //
 //   dout  = gl·2(out − y)·gm/Σgm + gout
 //   readout VJP per node (softmax over od) → ∂h_T, ∂h0, ∂W_i, ∂W_j, ∂b
-//   for t = T..1: masked-BN VJP with the batch sums S1 = Σ dx̂,
+//   for t = T..1: masked-norm VJP with the batch sums S1 = Σ dx̂,
 //                 S2 = Σ dx̂·x̂ of slot t (closed form,
-//                 dx = (dx̂ − S1/c)/d − x̂·S2/(c·s)); GRU VJP → ∂h_{t−1},
+//                 dx = (dx̂ − S1/c)/d − x̂·S2/(c·s); bn1d: dx̂ = w·∂y,
+//                 d = s + 1e-5; the stateless norm: dx̂ = ∂y, d = s =
+//                 sqrt(var + 1e-6), so dx = (dx̂ − mean(dx̂) −
+//                 x̂·mean(dx̂·x̂))/s over real nodes); GRU VJP → ∂h_{t−1},
 //                 ∂W_ih, ∂W_hh, ∂b_ih, ∂b_hh (b_hh's n part sees r·∂n,
 //                 b_ih's sees ∂n), ∂(message input)
 //   message-BN VJP (batch sums of slot 0) → ∂m
@@ -33,6 +36,11 @@
 // end the block rows are reduced in block order. Results are
 // deterministic for a given grid size. The chunk partials of S1, S2
 // alternate between two buffers by slot parity, as in the forward.
+//
+// The readout VJP runs a thread per node. Up to ODP 64 its od-long
+// logits sit in registers; past it (the od-128 build) they are staged in
+// the node's shared-memory row, which is then 2FP + 2ODP + 1 floats, and
+// the readout weights are read from device memory (ro_table).
 //
 // Bound on an H100 SXM: as the forward, ~2× its arithmetic on a few MB;
 // the T + 3 grid barriers dominate in practice.
@@ -89,11 +97,16 @@ struct BwdArgs {
   float* dh0;               // (N, f)
   float* dw;                // GradLayout(K, f, od).total
   float* scratch;
-  int n_nodes, n_graphs, n_edges, f, od, k_vocab, steps, msg_bn, state_bn;
+  // msg_mode in {kNone, kBatchBn}, state_mode in {kNone, kBatchBn,
+  // kStateless} (fused_train_common.cuh::Mode)
+  int n_nodes, n_graphs, n_edges, f, od, k_vocab, steps, msg_mode,
+      state_mode;
 };
 
-constexpr int kStage = 6 * FP + 1;     // staged floats per node (odd)
-static_assert(2 * FP + 2 * ODP + 1 <= kStage, "readout rows exceed kStage");
+// staged floats per node (odd strides): the readout VJP's rows
+// [h | h0 | dpi | djv], the GRU VJP's [mb | hprev | da_r | da_z | da_n | dnh]
+constexpr int kRoStage = 2 * FP + 2 * ODP + 1;
+constexpr int kStage = 6 * FP + 1 > kRoStage ? 6 * FP + 1 : kRoStage;
 
 // First element index >= off owned by this thread (e ≡ tid mod kThreads).
 __device__ __forceinline__ int first_owned(int off) {
@@ -111,7 +124,7 @@ __device__ __forceinline__ void add_owned(float* wrow, int off, int len,
 // [h (FP) | h0 (FP) | dpi (ODP) | djv (ODP)].
 __device__ void readout_grads(float* wrow, const GradLayout& gl,
                               const float* xs, int f, int od) {
-  constexpr int kS = 2 * FP + 2 * ODP + 1;
+  constexpr int kS = kRoStage;
   for (int e = first_owned(gl.riw); e < gl.rjb + od; e += kThreads) {
     int col_x = -1, col_d;
     if (e < gl.rib) {
@@ -171,7 +184,9 @@ fused_step_bwd_kernel(BwdArgs a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float sm[];
   const int f = a.f, od = a.od, T = a.steps;
-  stage_weights(sm, a.w, f, od, a.k_vocab);
+  const int mmode = a.msg_mode, smode = a.state_mode;
+  const bool msg_stats = has_stats(mmode), state_stats = has_stats(smode);
+  stage_weights(sm, a.w, f, od, a.k_vocab, smode != kStateless);
   float* st = sm + L::stats(a.k_vocab);                // (T+1)·3·FP
   float* red = sm + L::after_stats(a.k_vocab, T);      // kWarps·4·FP
   float* sums = red + kWarps * 4 * FP;                 // 4·FP
@@ -199,7 +214,7 @@ fused_step_bwd_kernel(BwdArgs a) {
     const int s = i / FP, j = i % FP;
     const float mean = j < f ? a.stats[(size_t(s) * 2) * f + j] : 0.f;
     const float var = j < f ? a.stats[(size_t(s) * 2 + 1) * f + j] : 0.f;
-    set_slot(st + s * 3 * FP, j, mean, var);
+    set_slot(st + s * 3 * FP, j, mean, var, s > 0 && smode == kStateless);
   }
   for (int e = tid; e < NW; e += kThreads) wrow[e] = 0.f;
   {
@@ -227,7 +242,7 @@ fused_step_bwd_kernel(BwdArgs a) {
 
   // ---- B0: readout + loss VJP per node, and slot T's norm sums ----------
   {
-    constexpr int kS = 2 * FP + 2 * ODP + 1;
+    constexpr int kS = kRoStage;
     const float* stT = st + T * 3 * FP;
     float* cpart_t = cpart + size_t(T & 1) * nchunks * 2 * FP;
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
@@ -243,7 +258,7 @@ MPNN_UNROLL
         const int g = a.node_graph[n];
         float hraw[FP], h[FP], xh[FP], h0n[FP];
         load_row(a.htil + size_t(T) * slot_sz, n, f, hraw);
-        if (a.state_bn) {
+        if (state_stats) {
           xhat_of(stT, hraw, xh);
 MPNN_UNROLL
           for (int j = 0; j < FP; ++j)
@@ -253,72 +268,139 @@ MPNN_UNROLL
           for (int j = 0; j < FP; ++j) h[j] = hraw[j];
         }
         load_row(a.h0, n, f, h0n);
-        float pi[ODP], pj[ODP];
-MPNN_UNROLL
-        for (int o = 0; o < ODP; ++o) {
-          float ti = w[L::kRib + o], tj = w[L::kRjb + o];
-MPNN_UNROLL
-          for (int k = 0; k < FP; ++k) {
-            ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
-            tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
-            ti = fmaf(h0n[k], w[L::kRiw + (FP + k) * ODP + o], ti);
-            tj = fmaf(h0n[k], w[L::kRjw + (FP + k) * ODP + o], tj);
-          }
-          pi[o] = ti;
-          pj[o] = tj;
-        }
-        float mx = -INFINITY;
-MPNN_UNROLL
-        for (int o = 0; o < ODP; ++o)
-          if (o < od) mx = fmaxf(mx, pi[o]);
-        float den = 0.f;
-MPNN_UNROLL
-        for (int o = 0; o < ODP; ++o) {
-          pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
-          den += pi[o];
-        }
         const float y = a.labels[g], gmv = a.gmask[g];
-        float dot = 0.f;
-MPNN_UNROLL
-        for (int o = 0; o < ODP; ++o) {
-          const float smx = pi[o] / den;
-          float dout = 0.f;
-          if (o < od)
-            dout = gl_v * 2.0f * (a.out[size_t(g) * od + o] - y) * gmv *
-                       inv_gsum +
-                   a.gout[size_t(g) * od + o];
-          pi[o] = smx;                       // pi now holds the softmax
-          const float dsm = dout * pj[o];
-          pj[o] = dout * smx;                // pj now holds djv
-          row[2 * FP + ODP + o] = pj[o];
-          row[2 * FP + o] = dsm;             // dsm, turned into dpi below
-          dot = fmaf(dsm, smx, dot);
-        }
-MPNN_UNROLL
-        for (int o = 0; o < ODP; ++o) {
-          const float dpi = pi[o] * (row[2 * FP + o] - dot);
-          row[2 * FP + o] = dpi;
-          pi[o] = dpi;
-        }
         float gh[FP], dh[FP];
-MPNN_UNROLL
-        for (int k = 0; k < FP; ++k) {
-          float t1 = 0.f, t2 = 0.f;
+        if constexpr (kRoInSmem) {
+          float pi[ODP], pj[ODP];
 MPNN_UNROLL
           for (int o = 0; o < ODP; ++o) {
-            t1 = fmaf(w[L::kRiw + k * ODP + o], pi[o], t1);
-            t1 = fmaf(w[L::kRjw + k * ODP + o], pj[o], t1);
-            t2 = fmaf(w[L::kRiw + (FP + k) * ODP + o], pi[o], t2);
-            t2 = fmaf(w[L::kRjw + (FP + k) * ODP + o], pj[o], t2);
+            float ti = w[L::kRib + o], tj = w[L::kRjb + o];
+MPNN_UNROLL
+            for (int k = 0; k < FP; ++k) {
+              ti = fmaf(h[k], w[L::kRiw + k * ODP + o], ti);
+              tj = fmaf(h[k], w[L::kRjw + k * ODP + o], tj);
+              ti = fmaf(h0n[k], w[L::kRiw + (FP + k) * ODP + o], ti);
+              tj = fmaf(h0n[k], w[L::kRjw + (FP + k) * ODP + o], tj);
+            }
+            pi[o] = ti;
+            pj[o] = tj;
           }
-          gh[k] = t1;
-          dh[k] = t2;
-          row[k] = h[k];
-          row[FP + k] = h0n[k];
+          float mx = -INFINITY;
+MPNN_UNROLL
+          for (int o = 0; o < ODP; ++o)
+            if (o < od) mx = fmaxf(mx, pi[o]);
+          float den = 0.f;
+MPNN_UNROLL
+          for (int o = 0; o < ODP; ++o) {
+            pi[o] = o < od ? expf(pi[o] - mx) : 0.f;
+            den += pi[o];
+          }
+          float dot = 0.f;
+MPNN_UNROLL
+          for (int o = 0; o < ODP; ++o) {
+            const float smx = pi[o] / den;
+            float dout = 0.f;
+            if (o < od)
+              dout = gl_v * 2.0f * (a.out[size_t(g) * od + o] - y) * gmv *
+                         inv_gsum +
+                     a.gout[size_t(g) * od + o];
+            pi[o] = smx;                       // pi now holds the softmax
+            const float dsm = dout * pj[o];
+            pj[o] = dout * smx;                // pj now holds djv
+            row[2 * FP + ODP + o] = pj[o];
+            row[2 * FP + o] = dsm;             // dsm, turned into dpi below
+            dot = fmaf(dsm, smx, dot);
+          }
+MPNN_UNROLL
+          for (int o = 0; o < ODP; ++o) {
+            const float dpi = pi[o] * (row[2 * FP + o] - dot);
+            row[2 * FP + o] = dpi;
+            pi[o] = dpi;
+          }
+MPNN_UNROLL
+          for (int k = 0; k < FP; ++k) {
+            float t1 = 0.f, t2 = 0.f;
+MPNN_UNROLL
+            for (int o = 0; o < ODP; ++o) {
+              t1 = fmaf(w[L::kRiw + k * ODP + o], pi[o], t1);
+              t1 = fmaf(w[L::kRjw + k * ODP + o], pj[o], t1);
+              t2 = fmaf(w[L::kRiw + (FP + k) * ODP + o], pi[o], t2);
+              t2 = fmaf(w[L::kRjw + (FP + k) * ODP + o], pj[o], t2);
+            }
+            gh[k] = t1;
+            dh[k] = t2;
+            row[k] = h[k];
+            row[FP + k] = h0n[k];
+          }
+        } else {
+          // the logits staged in the node's row: dpi's slot holds the gate
+          // logits, then their exps, then dsm, then dpi; djv's holds the
+          // softmax, then djv
+          const float* riw = ro_gate(w, a.w);
+          const float* rjw = ro_value(w, a.w);
+          float* dpi = row + 2 * FP;
+          float* djv = row + 2 * FP + ODP;
+          float mx = -INFINITY;
+          for (int o = 0; o < ODP; ++o) {
+            float ti = w[L::kRib + o];
+MPNN_UNROLL
+            for (int k = 0; k < FP; ++k) {
+              ti = fmaf(h[k], __ldg(riw + k * ODP + o), ti);
+              ti = fmaf(h0n[k], __ldg(riw + (FP + k) * ODP + o), ti);
+            }
+            dpi[o] = ti;
+            if (o < od) mx = fmaxf(mx, ti);
+          }
+          float den = 0.f;
+          for (int o = 0; o < ODP; ++o) {
+            const float ex = o < od ? expf(dpi[o] - mx) : 0.f;
+            dpi[o] = ex;
+            den += ex;
+          }
+          // dout_o = ∂loss/∂out_go·gl + gout_go (0 past od)
+          auto dout_of = [&](int o) {
+            return o < od ? gl_v * 2.0f * (a.out[size_t(g) * od + o] - y) *
+                                    gmv * inv_gsum +
+                                a.gout[size_t(g) * od + o]
+                          : 0.f;
+          };
+          float dot = 0.f;
+          for (int o = 0; o < ODP; ++o) {
+            float tj = w[L::kRjb + o];
+MPNN_UNROLL
+            for (int k = 0; k < FP; ++k) {
+              tj = fmaf(h[k], __ldg(rjw + k * ODP + o), tj);
+              tj = fmaf(h0n[k], __ldg(rjw + (FP + k) * ODP + o), tj);
+            }
+            const float smx = dpi[o] / den;
+            const float dsm = dout_of(o) * tj;
+            dpi[o] = dsm;
+            djv[o] = smx;
+            dot = fmaf(dsm, smx, dot);
+          }
+          for (int o = 0; o < ODP; ++o) {
+            const float smx = djv[o];
+            dpi[o] = smx * (dpi[o] - dot);
+            djv[o] = dout_of(o) * smx;
+          }
+MPNN_UNROLL
+          for (int k = 0; k < FP; ++k) {
+            float t1 = 0.f, t2 = 0.f;
+            for (int o = 0; o < ODP; ++o) {
+              t1 = fmaf(__ldg(riw + k * ODP + o), dpi[o], t1);
+              t1 = fmaf(__ldg(rjw + k * ODP + o), djv[o], t1);
+              t2 = fmaf(__ldg(riw + (FP + k) * ODP + o), dpi[o], t2);
+              t2 = fmaf(__ldg(rjw + (FP + k) * ODP + o), djv[o], t2);
+            }
+            gh[k] = t1;
+            dh[k] = t2;
+            row[k] = h[k];
+            row[FP + k] = h0n[k];
+          }
         }
         store_row(a.dh0, n, f, dh);
         store_row(ghs, n, f, gh);
-        if (a.state_bn) {
+        if (state_stats) {
 MPNN_UNROLL
           for (int j = 0; j < FP; ++j) {
             v[0][j] = gh[j] * w[L::kBnW + j];      // dx̂
@@ -332,15 +414,17 @@ MPNN_UNROLL
       }
       __syncthreads();
       readout_grads(wrow, gl, xs, f, od);
-      if (a.state_bn) {
+      if (state_stats) {
         block_feature_sums<4>(v, red, sums);
         if (tid < 2 * FP) cpart_t[size_t(ch) * 2 * FP + tid] = sums[tid];
-        add_owned(wrow, gl.bnw, f, sums + 2 * FP);
-        add_owned(wrow, gl.bnb, f, sums + 3 * FP);
+        if (smode == kBatchBn) {
+          add_owned(wrow, gl.bnw, f, sums + 2 * FP);
+          add_owned(wrow, gl.bnb, f, sums + 3 * FP);
+        }
       }
       __syncthreads();
     }
-    if (a.state_bn) {
+    if (state_stats) {
       grid.sync();
       chunk_totals<2>(cpart_t, 2 * FP, nchunks, red, cs);
     }
@@ -351,7 +435,9 @@ MPNN_UNROLL
   for (int t = T; t >= 1; --t) {
     const float* stt = st + t * 3 * FP;
     const float* stp = st + (t - 1) * 3 * FP;
-    const bool next_bn = t > 1 ? a.state_bn : a.msg_bn;
+    const bool next_bn = t > 1 ? state_stats : msg_stats;
+    // the norm before step t carries an affine with gradients
+    const bool next_affine = (t > 1 ? smode : mmode) == kBatchBn;
     float* cpart_t = cpart + size_t((t - 1) & 1) * nchunks * 2 * FP;
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
@@ -367,7 +453,7 @@ MPNN_UNROLL
         {
           float gh[FP];
           load_row(ghs, n, f, gh);
-          if (a.state_bn) {
+          if (state_stats) {
             float x[FP], xh[FP];
             load_row(a.htil + size_t(t) * slot_sz, n, f, x);
             xhat_of(stt, x, xh);
@@ -384,7 +470,7 @@ MPNN_UNROLL
         }
         if (t > 1) {
           load_row(a.htil + size_t(t - 1) * slot_sz, n, f, hprev);
-          if (a.state_bn) {
+          if (state_stats) {
             xhat_of(stp, hprev, xhp);
 MPNN_UNROLL
             for (int j = 0; j < FP; ++j)
@@ -394,7 +480,7 @@ MPNN_UNROLL
           load_row(a.h0, n, f, hprev);
         }
         load_row(a.htil, n, f, mb);
-        if (a.msg_bn) {
+        if (msg_stats) {
           xhat_of(st0, mb, xh0);
 MPNN_UNROLL
           for (int j = 0; j < FP; ++j)
@@ -460,7 +546,7 @@ MPNN_UNROLL
         store_row(dmbs, n, f, dmb);
         if (t > 1) {
           store_row(ghs, n, f, ghn);
-          if (a.state_bn) {
+          if (state_stats) {
 MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               v[0][j] = ghn[j] * w[L::kBnW + j];
@@ -475,7 +561,7 @@ MPNN_UNROLL
 MPNN_UNROLL
           for (int j = 0; j < FP; ++j) d0[j] += ghn[j];
           store_row(a.dh0, n, f, d0);
-          if (a.msg_bn) {
+          if (msg_stats) {
 MPNN_UNROLL
             for (int j = 0; j < FP; ++j) {
               v[0][j] = dmb[j] * w[L::kMaW + j];    // dx̂ of the messages
@@ -495,8 +581,10 @@ MPNN_UNROLL
       if (next_bn) {
         block_feature_sums<4>(v, red, sums);
         if (tid < 2 * FP) cpart_t[size_t(ch) * 2 * FP + tid] = sums[tid];
-        add_owned(wrow, t > 1 ? gl.bnw : gl.maw, f, sums + 2 * FP);
-        add_owned(wrow, t > 1 ? gl.bnb : gl.mab, f, sums + 3 * FP);
+        if (next_affine) {
+          add_owned(wrow, t > 1 ? gl.bnw : gl.maw, f, sums + 2 * FP);
+          add_owned(wrow, t > 1 ? gl.bnb : gl.mab, f, sums + 3 * FP);
+        }
       }
       __syncthreads();
     }
@@ -507,7 +595,7 @@ MPNN_UNROLL
   }
 
   // ---- message-BN VJP: ∂m per node (S1, S2 of slot 0 in cs) -------------
-  if (a.msg_bn) {
+  if (msg_stats) {
     for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
       const int n = ch * kChunk + tid;
       if (n < n_real) {
@@ -717,15 +805,18 @@ int mpnn_fused_step_bwd(
     const int* src_order, const int* src_ptr, const int* graph_node_ptr,
     const int* node_graph, float* dh0, float* dw, float* scratch,
     int n_nodes, int n_graphs, int n_edges, int f, int od, int k_vocab,
-    int steps, int msg_bn, int state_bn, int grid, void* stream) {
-  if (f > FP || od > ODP || steps < 1 || steps > kMaxSteps || grid < 1)
+    int steps, int msg_mode, int state_mode, int grid, void* stream) {
+  if (f > FP || od > ODP || steps < 1 || steps > kMaxSteps || grid < 1 ||
+      (msg_mode != kNone && msg_mode != kBatchBn) ||
+      (state_mode != kNone && state_mode != kBatchBn &&
+       state_mode != kStateless))
     return int(cudaErrorInvalidValue);
   BwdArgs a{{amat, a0, mbias, w_ih, w_hh, b_ih, b_hh, ma_w, ma_b, bn_w,
              bn_b, ro_iw, ro_ib, ro_jw, ro_jb},
             h0, labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
             src_order, src_ptr, graph_node_ptr, node_graph, dh0, dw,
             scratch, n_nodes, n_graphs, n_edges, f, od, k_vocab, steps,
-            msg_bn, state_bn};
+            msg_mode, state_mode};
   const size_t bytes = smem_bytes(k_vocab, steps);
   cudaError_t err = cudaFuncSetAttribute(
       fused_step_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

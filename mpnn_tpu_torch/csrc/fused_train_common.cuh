@@ -32,10 +32,22 @@ constexpr int kChunk = kThreads;     // node slots per node chunk
 constexpr unsigned kFull = 0xffffffffu;
 constexpr float kEps = 1e-5f;        // masked bn1d: eps OUTSIDE the sqrt
 constexpr float kVarClamp = 1e-12f;  // var clamped inside the sqrt
+constexpr float kStatelessEps = 1e-6f;  // stateless norm: eps INSIDE the sqrt
+
+// Norm modes of a slot (kernels/fused_step.py, kernels/fused_psteps.py):
+// none; bn1d on batch statistics (training); a folded per-feature affine
+// (eval bn1d); the stateless norm on batch statistics (eval and training:
+// no affine, no running state).
+enum Mode { kNone = 0, kBatchBn = 1, kAffine = 2, kStateless = 3 };
+
+__host__ __device__ inline bool has_stats(int mode) {
+  return mode == kBatchBn || mode == kStateless;
+}
+
 // The width bucket: f <= FP and od <= ODP, zero-padded. kernels/build.py
 // compiles the narrow bucket (16, 16; the lipo family at bench widths,
-// f = 10, od = 14) and a wide one with -DMPNN_FP=32 -DMPNN_ODP=64;
-// kernels/fused_step.py::BUCKETS mirrors them.
+// f = 10, od = 14) and the others of kernels/fused_step.py::BUCKETS with
+// -DMPNN_FP / -DMPNN_ODP.
 #ifndef MPNN_FP
 #define MPNN_FP 16
 #endif
@@ -52,6 +64,15 @@ constexpr int kMaxSteps = 32;
 // the kernels read them from device memory through the read-only cache
 // (kernels/fused_step.py::vocab_table).
 constexpr bool kVocabInSmem = FP <= 16;
+// The (2FP, ODP) readout weights: staged in shared memory up to ODP 64.
+// Past it they would take 64 KB of a block at FP 32, and a thread's
+// od-long logit arrays would spill: the wrapper passes them zero-padded to
+// (2FP, ODP) in device memory (kernels/fused_step.py::ro_table), and the
+// readout runs with lanes over od (warp_readout_rows).
+constexpr bool kRoInSmem = ODP <= 64;
+// outputs per lane in the wide-od builds
+constexpr int kOdLanes = ODP >= 32 ? ODP / 32 : 1;
+static_assert(kRoInSmem || ODP % 32 == 0, "wide od in whole warps");
 
 struct Weights {
   const float* amat;   // (K, f, f): message = amat[k] @ h0[src]
@@ -85,8 +106,9 @@ struct L {
   static constexpr int kBnW = kMaB + FP;
   static constexpr int kBnB = kBnW + FP;
   static constexpr int kRiw = kBnB + FP;         // rows [h (FP) | h0 (FP)]
-  static constexpr int kRjw = kRiw + 2 * FP * ODP;
-  static constexpr int kRib = kRjw + 2 * FP * ODP;
+  static constexpr int kRo = kRoInSmem ? 2 * FP * ODP : 0;
+  static constexpr int kRjw = kRiw + kRo;
+  static constexpr int kRib = kRjw + kRo;
   static constexpr int kRjb = kRib + ODP;
   static constexpr int kAmat = kRjb + ODP;       // then K·FP·FP (narrow)
   __host__ __device__ static int stats(int k_vocab) {
@@ -111,8 +133,10 @@ __device__ __forceinline__ float sigmoidf_(float x) {
   return 1.0f / (1.0f + expf(-x));
 }
 
+// Stage the weights. Without `state_affine` (the stateless state norm) the
+// state norm's affine is the identity: weight 1, bias 0 on real features.
 __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
-                              int k_vocab) {
+                              int k_vocab, bool state_affine = true) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < FP * FP; i += nt) {
     int r = i / FP, c = i % FP;
@@ -134,10 +158,10 @@ __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
     sm[L::kMbias + i] = in ? w.mbias[i] : 0.f;
     sm[L::kMaW + i] = in ? w.ma_w[i] : 0.f;
     sm[L::kMaB + i] = in ? w.ma_b[i] : 0.f;
-    sm[L::kBnW + i] = in ? w.bn_w[i] : 0.f;
-    sm[L::kBnB + i] = in ? w.bn_b[i] : 0.f;
+    sm[L::kBnW + i] = in ? (state_affine ? w.bn_w[i] : 1.f) : 0.f;
+    sm[L::kBnB + i] = in && state_affine ? w.bn_b[i] : 0.f;
   }
-  for (int i = tid; i < 2 * FP * ODP; i += nt) {
+  for (int i = tid; kRoInSmem && i < 2 * FP * ODP; i += nt) {
     int r = i / ODP, o = i % ODP, half = r / FP, k = r % FP;
     bool in = k < f && o < od;
     int srow = half * f + k;
@@ -161,6 +185,17 @@ __device__ void stage_weights(float* sm, const Weights& w, int f, int od,
 __device__ __forceinline__ const float* amat_of(const float* w,
                                                 const Weights& wt, int k) {
   return (kVocabInSmem ? w + L::kAmat : wt.amat) + size_t(k) * FP * FP;
+}
+
+// The (2FP, ODP) readout gate and value weights: in shared memory (`w`)
+// or, past ODP 64, the zero-padded tables in device memory.
+__device__ __forceinline__ const float* ro_gate(const float* w,
+                                                const Weights& wt) {
+  return kRoInSmem ? w + L::kRiw : wt.ro_iw;
+}
+__device__ __forceinline__ const float* ro_value(const float* w,
+                                                 const Weights& wt) {
+  return kRoInSmem ? w + L::kRjw : wt.ro_jw;
 }
 
 // Load a node's f features (zero-padded to NF, FP unless a kernel is
@@ -256,13 +291,62 @@ MPNN_UNROLL
   __syncthreads();
 }
 
-// Set the norm constants of one slot from its mean and biased var.
+// Set the norm constants of one slot from its mean and biased var: bn1d
+// normalizes by d = sqrt(max(var, 1e-12)) + 1e-5 (s without the eps), the
+// stateless norm by d = s = sqrt(var + 1e-6).
 __device__ __forceinline__ void set_slot(float* st, int j, float mean,
-                                         float var) {
-  const float s = sqrtf(fmaxf(var, kVarClamp));
+                                         float var, bool stateless = false) {
+  const float s = stateless ? sqrtf(var + kStatelessEps)
+                            : sqrtf(fmaxf(var, kVarClamp));
   st[j] = mean;
   st[FP + j] = s;
-  st[2 * FP + j] = s + kEps;
+  st[2 * FP + j] = stateless ? s : s + kEps;
+}
+
+// The gated readout of `cnt` <= 32 staged nodes by one warp with lanes
+// over od (the wide-od builds): rows xr[i·RS + k], k < 2FP, hold
+// [h (FP) | h0 (FP)] zero-padded; lane l owns the outputs o = l + 32q, and
+// acc[q] += softmax_o(W_iᵀx + b_i)·(W_jᵀx + b_j) for each node in order.
+// The softmax's max and sum are butterflies, the same in every lane. Every
+// lane of the warp must call it.
+template <int RS>
+__device__ __forceinline__ void warp_readout_rows(
+    const float* xr, int cnt, const float* riw, const float* rjw,
+    const float* rib, const float* rjb, int od, float (&acc)[kOdLanes]) {
+  const int lane = threadIdx.x % 32;
+  for (int i = 0; i < cnt; ++i) {
+    const float* x = xr + i * RS;
+    float pi[kOdLanes], pj[kOdLanes];
+MPNN_UNROLL
+    for (int q = 0; q < kOdLanes; ++q) {
+      const int o = lane + 32 * q;
+      float ti = rib[o], tj = rjb[o];
+MPNN_UNROLL
+      for (int k = 0; k < 2 * FP; ++k) {
+        const float xk = x[k];
+        ti = fmaf(xk, __ldg(riw + k * ODP + o), ti);
+        tj = fmaf(xk, __ldg(rjw + k * ODP + o), tj);
+      }
+      pi[q] = ti;
+      pj[q] = tj;
+    }
+    float mx = -INFINITY;
+MPNN_UNROLL
+    for (int q = 0; q < kOdLanes; ++q)
+      if (lane + 32 * q < od) mx = fmaxf(mx, pi[q]);
+MPNN_UNROLL
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    float den = 0.f;
+MPNN_UNROLL
+    for (int q = 0; q < kOdLanes; ++q) {
+      pi[q] = lane + 32 * q < od ? expf(pi[q] - mx) : 0.f;
+      den += pi[q];
+    }
+    den = warp_sum(den);
+MPNN_UNROLL
+    for (int q = 0; q < kOdLanes; ++q) acc[q] += (pi[q] / den) * pj[q];
+  }
 }
 
 }  // namespace mpnn_train

@@ -76,7 +76,9 @@ FAMILIES: Dict[str, Tuple[str, ...]] = {
 # for the shared family, od <= 32 for the per-step one and the split
 # backward), set2vec w <= 32, the bilinear family f <= 4 (its only bucket).
 WIDE: Dict[str, Dict[str, Tuple[str, ...]]] = {
-    "fused_step": {"f32": ("MPNN_FP=32", "MPNN_ODP=64")},
+    "fused_step": {"o64": ("MPNN_ODP=64",),
+                   "f32": ("MPNN_FP=32", "MPNN_ODP=64"),
+                   "o128": ("MPNN_FP=32", "MPNN_ODP=128")},
     "fused_psteps": {"f32": ("MPNN_FP=32", "MPNN_ODW=128")},
     "fused_att": {"f32": ("MPNN_FP=32",)},
     "fused_att_steps": {"f32": ("MPNN_FP=32",)},

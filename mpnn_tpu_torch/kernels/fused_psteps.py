@@ -57,10 +57,9 @@ launch_counts: Dict[str, int] = {"fused_psteps_eval": 0,
                                  "fused_psteps_fwd": 0,
                                  "fused_psteps_bwd": 0}
 
-# norm modes as the kernels read them
-_MSG_MODES = ("bn1d", "none")
-_STATE_MODES = ("bn1d", "stateless", "none")
-NONE, BATCH_BN, AFFINE, STATELESS = 0, 1, 2, 3
+# norm modes as the kernels read them (the shared family's)
+_MSG_MODES, _STATE_MODES = K.MSG_MODES, K.STATE_MODES
+NONE, BATCH_BN, AFFINE, STATELESS = K.NONE, K.BATCH_BN, K.AFFINE, K.STATELESS
 
 
 def reset_launch_counts() -> None:

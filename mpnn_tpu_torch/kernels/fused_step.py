@@ -6,7 +6,10 @@ kernels.
     make_fused_eval_op (Pallas `_eval_kernel`). The CUDA kernel
     (csrc/fused_eval.cu) computes, per graph, the A-form messages + A0 bias
     leakage + message bias, the folded message norm, T × [GRU → folded
-    state norm], and the gated readout, in one launch.
+    state norm], and the gated readout, in one launch. The stateless state
+    norm normalizes by the batch's own statistics after every step, so
+    that mode launches a cooperative kernel of its own
+    (`fused_eval_stateless`, the training forward's body without the loss).
   * fused_step — counterpart of make_fused_step_op (Pallas `_fwd_kernel`
     and its two backwards): the same chain with the masked bn1d norms in
     training mode (batch statistics over all real nodes, per step) and the
@@ -37,27 +40,37 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from mpnn_tpu_torch.graphs.batching import FusedEvalPlan
 from mpnn_tpu_torch.kernels.split_bwd import route
-from mpnn_tpu_torch.ops.norm import BN_EPS, bn1d_train, fold_bn1d
+from mpnn_tpu_torch.ops.norm import (BN_EPS, bn1d_train, fold_bn1d,
+                                     mask_batch_norm_stats)
 
 # width buckets of the CUDA kernels, narrowest first: (tag, the most of
 # each width the bucket's build takes). Each is its own build of
 # csrc/fused_eval.cu and fused_step_{fwd,bwd}.cu (kernels/build.py::WIDE);
 # a batch takes the narrowest that holds it (width_bucket). lipo's od =
-# 2·afm stays within 64 at f <= 32.
-BUCKETS = (("", dict(f=16, od=16)), ("f32", dict(f=32, od=64)))
+# 2·afm stays within 64 at f <= 32; the basic shell's od = 4·afm takes
+# od 64 past afm 4 and od 128 past afm 16.
+BUCKETS = (("", dict(f=16, od=16)), ("o64", dict(f=16, od=64)),
+           ("f32", dict(f=32, od=64)), ("o128", dict(f=32, od=128)))
 MAX_WIDTH = BUCKETS[-1][1]["f"]
 # the most recurrent steps the training kernels take (kMaxSteps)
 MAX_STEPS = 32
 
+# norm modes as the kernels read them (csrc/fused_train_common.cuh::Mode)
+NONE, BATCH_BN, AFFINE, STATELESS = 0, 1, 2, 3
+MSG_MODES = ("bn1d", "none")
+STATE_MODES = ("bn1d", "stateless", "none")
+_STATE_MODE = {"bn1d": BATCH_BN, "stateless": STATELESS, "none": NONE}
+
 # launches of each kernel wrapper; reset with reset_launch_counts()
-launch_counts: Dict[str, int] = {"fused_eval": 0, "fused_step_fwd": 0,
-                                 "fused_step_bwd": 0}
+launch_counts: Dict[str, int] = {"fused_eval": 0,
+                                 "fused_eval_stateless": 0,
+                                 "fused_step_fwd": 0, "fused_step_bwd": 0}
 
 
 def reset_launch_counts() -> None:
@@ -72,14 +85,12 @@ def reset_launch_counts() -> None:
 def fold_norm(p_bn, s_bn, mode: str, f: int, like: torch.Tensor):
     """(scale, shift) of a masked bn1d in eval mode — bn1d_apply's eval
     branch with eps OUTSIDE the sqrt: scale = w/(rv**0.5+eps), shift =
-    b − rm·scale. 'none' folds to the identity affine."""
-    if mode == "none":
+    b − rm·scale. 'none' and 'stateless' fold to the identity affine (the
+    stateless norm has no running state: it normalizes by the batch's own
+    statistics, in the kernel)."""
+    if mode != "bn1d":
         return (torch.ones(f, dtype=like.dtype, device=like.device),
                 torch.zeros(f, dtype=like.dtype, device=like.device))
-    if mode != "bn1d":
-        raise NotImplementedError(
-            f"norm mode {mode!r}: the stateless state norm needs per-step "
-            "batch statistics over all nodes (ROADMAP queue 1)")
     return fold_bn1d(p_bn["weight"], p_bn["bias"], s_bn["running_mean"],
                      s_bn["running_var"], BN_EPS)
 
@@ -118,12 +129,11 @@ def _readout(h, h0, mask, ng, ro, num_graphs: int):
 
 
 def _check_modes(who: str, msg_norm: str, state_norm: str) -> None:
-    if msg_norm not in ("bn1d", "none") or state_norm not in ("bn1d",
-                                                              "none"):
-        raise NotImplementedError(
+    if msg_norm not in MSG_MODES or state_norm not in STATE_MODES:
+        raise ValueError(
             f"{who}: msg_norm={msg_norm!r}, state_norm={state_norm!r}; the "
-            "kernels take bn1d/none — the stateless state norm is still to "
-            "port (ROADMAP queue 1)")
+            f"kernels take msg norm in {MSG_MODES} and state norm in "
+            f"{STATE_MODES}")
 
 
 def fused_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
@@ -133,7 +143,9 @@ def fused_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     """Plain PyTorch version of the eval kernel, same arguments. h0
     PRE-MASKED (N, f); mask (N, 1); weights in the JAX layout (in, out);
     gates r|z|n. Returns out (G, od). Only the plan's graph count is read:
-    the plain version sums with index_add over all edges and nodes."""
+    the plain version sums with index_add over all edges and nodes. The
+    stateless state norm takes this batch's statistics after every step."""
+    _check_modes("fused_eval", msg_norm, state_norm)
     f = h0.shape[1]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
     maw, mab = fold_norm(ma_bn, ma_state, msg_norm, f, h0)
@@ -145,7 +157,11 @@ def fused_eval_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     gi = mb @ gru["w_ih"] + gru["b_ih"]
     h = h0 * mask
     for _ in range(steps):
-        h = (sw * _gru(gru, gi, h, mask) + sb) * mask
+        h = _gru(gru, gi, h, mask)
+        if state_norm == "stateless":
+            h = mask_batch_norm_stats(h, mask)[0]
+        else:
+            h = (sw * h + sb) * mask
     return _readout(h, h0, mask, ng, ro, num_graphs)
 
 
@@ -159,7 +175,8 @@ def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     minus the TPU window plan, plus the index plan (only its graph count is
     read). h0 PRE-MASKED. Returns (loss, out (G, od), (ma_mean, ma_var),
     [(mean_t, var_t)] × steps); the statistics are detached (they feed the
-    running EMAs only), zeros for a norm in mode 'none'.
+    running EMAs only), zeros for a norm in mode 'none' (the stateless
+    norm's are its batch mean and biased var, which feed no EMA).
     loss = Σ_g Σ_o (out_go − y_g)²·gm_g / Σ gm. A list `stash` receives
     the forward kernel's residuals: the masked messages, then each step's
     pre-norm state."""
@@ -185,6 +202,8 @@ def fused_step_reference(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
             stash.append(h)
         if state_norm == "bn1d":
             h, st = bn1d_train(h, mask, bn["weight"], bn["bias"])
+        elif state_norm == "stateless":
+            h, st = mask_batch_norm_stats(h, mask)
         else:
             st = (zero, zero)
         step_stats.append(tuple(x.detach() for x in st))
@@ -204,6 +223,11 @@ _SIGNATURES = {
     "fused_eval": {
         "mpnn_fused_eval": ([_P] * 22 + [_I] * 5 + [_P], _I),
         "mpnn_fused_eval_smem_bytes": ([_I], _I),
+        "mpnn_fused_eval_stateless": ([_P] * 22 + [_I] * 8 + [_P], _I),
+        "mpnn_fused_eval_stateless_smem_bytes": ([_I, _I], _I),
+        "mpnn_fused_eval_stateless_scratch_floats": ([_I, _I],
+                                                     ctypes.c_longlong),
+        "mpnn_fused_eval_stateless_grid": ([_I] * 4, _I),
     },
     "fused_step_fwd": {
         "mpnn_fused_step_fwd": ([_P] * 28 + [_I] * 9 + [_P], _I),
@@ -312,6 +336,33 @@ def width_bucket(who: str, buckets, **widths) -> str:
             for _, most in buckets))
 
 
+def bucket_of(who: str, tag: Optional[str], **widths) -> str:
+    """`tag` when its bucket of BUCKETS holds `widths` (a measurement's
+    choice), else ValueError; with tag None the narrowest bucket that
+    holds them (width_bucket)."""
+    if tag is None:
+        return width_bucket(who, BUCKETS, **widths)
+    most = dict(BUCKETS)[tag]
+    if not all(widths[k] <= v for k, v in most.items()):
+        raise ValueError(f"{who}: bucket {tag!r} ({most}) does not hold "
+                         f"{widths}")
+    return tag
+
+
+def step_tables(amat, ro_iw, ro_jw, tag: str):
+    """(amat, ro_iw, ro_jw) as the shared family's bucket `tag` reads
+    them: the vocab tables zero-padded to (K, 32, 32) past f 16
+    (fused_train_common.cuh::kVocabInSmem), the readout weights to
+    (2·32, od 128) past od 64 (kRoInSmem)."""
+    most = dict(BUCKETS)[tag]
+    if most["f"] > 16:
+        amat = vocab_table(amat, tag, most["f"])
+    if most["od"] > 64:
+        ro_iw, ro_jw = (ro_table(t, tag, most["f"], most["od"])
+                        for t in (ro_iw, ro_jw))
+    return amat, ro_iw, ro_jw
+
+
 def vocab_table(t: torch.Tensor, tag: str, fp: int = 32) -> torch.Tensor:
     """A (..., f, f) vocab table as a wide bucket's kernels read it: zero-
     padded to (..., fp, fp) in device memory, which the block's shared
@@ -399,7 +450,8 @@ def fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state,
     """Whole-step inference: out (G, od). Arguments in the JAX op's order
     (make_fused_eval_op), minus the TPU window plan, plus the index plan
     (tensors on the same device as h0). CPU tensors run the plain version;
-    CUDA tensors launch the CUDA kernel or raise."""
+    CUDA tensors launch the CUDA kernel (with the stateless state norm, its
+    cooperative kernel) or raise."""
     _check_modes("fused_eval", msg_norm, state_norm)
     if h0.device.type == "cpu":
         return fused_eval_reference(
@@ -416,11 +468,15 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                        ma_state, bn, bn_state, ro, vid, src, dst,
                        plan: FusedEvalPlan, *, steps: int,
                        msg_norm: str = "bn1d", state_norm: str = "bn1d",
-                       check: bool = True) -> PreparedLaunch:
+                       check: bool = True, tag: Optional[str] = None
+                       ) -> PreparedLaunch:
     """Checks (device, dtype, shape, contiguity and, with `check`, the
     batch layout), folds the norms and allocates the output of one CUDA
-    launch. check=False only to time the bare launch on inputs already
-    checked."""
+    launch: the warp-per-graph kernel, or for the stateless state norm the
+    cooperative one. check=False only to time the bare launch on inputs
+    already checked; `tag` forces a width bucket that holds the batch (to
+    time one bucket against another)."""
+    _check_modes("fused_eval", msg_norm, state_norm)
     device = h0.device
     if device.type != "cuda":
         raise ValueError(f"fused_eval: unsupported device {device}")
@@ -429,7 +485,7 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     od = ro["i"]["b"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    tag = width_bucket("fused_eval", BUCKETS, f=f, od=od)
+    tag = bucket_of("fused_eval", tag, f=f, od=od)
     lib = _lib("fused_eval", tag=tag)
     maw, mab = fold_norm(ma_bn, ma_state, msg_norm, f, h0)
     sw, sb = fold_norm(bn, bn_state, state_norm, f, h0)
@@ -457,10 +513,30 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                            k_vocab, num_graphs)
 
     out = torch.empty(num_graphs, od, dtype=torch.float32, device=device)
-    tensors = [vocab_table(amat, tag)] + [t for _, t, _ in floats[1:16]] + [
-        vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr, out]
+    amat_k, riw, rjw = step_tables(amat, ro["i"]["w"], ro["j"]["w"], tag)
+    plan_t = [vid, src, plan.edge_order, plan.dst_ptr, plan.graph_node_ptr,
+              out]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    if state_norm == "stateless":
+        grid = _grid(lib, "mpnn_fused_eval_stateless_grid", k_vocab, steps,
+                     n, num_graphs)
+        htil = torch.empty(2, n, f, dtype=torch.float32, device=device)
+        scratch = torch.empty(
+            lib.mpnn_fused_eval_stateless_scratch_floats(n, num_graphs),
+            dtype=torch.float32, device=device)
+        tensors = [amat_k] + [t for _, t, _ in floats[1:10]] + [
+            riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t + [htil, scratch]
+        args = (*(t.data_ptr() for t in tensors), n, num_graphs, f, od,
+                k_vocab, steps, AFFINE if msg_norm == "bn1d" else NONE,
+                grid, stream)
+        return PreparedLaunch("fused_eval_stateless",
+                              lib.mpnn_fused_eval_stateless,
+                              lib.mpnn_cuda_error_string, args, out,
+                              tuple(tensors))
+    tensors = [amat_k] + [t for _, t, _ in floats[1:12]] + [
+        riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t
     args = (*(t.data_ptr() for t in tensors), num_graphs, f, od, k_vocab,
-            steps, torch.cuda.current_stream(device).cuda_stream)
+            steps, stream)
     return PreparedLaunch("fused_eval", lib.mpnn_fused_eval,
                           lib.mpnn_cuda_error_string, args, out,
                           tuple(tensors))
@@ -514,10 +590,21 @@ def _flat_weights(amat, a0, mbias, gru, ma_bn, bn, ro):
             ("ro_jw", ro["j"]["w"]), ("ro_jb", ro["j"]["b"])]
 
 
+def _kernel_weights(weights, h0, tag: str):
+    """The training kernels' leading arguments: the 15 weight leaves with
+    h0 after mbias, the vocab and readout tables as the bucket reads them
+    (step_tables)."""
+    w = dict(weights)
+    amat, riw, rjw = step_tables(w["amat"], w["ro_iw"], w["ro_jw"], tag)
+    w.update(amat=amat, ro_iw=riw, ro_jw=rjw)
+    return [w["amat"], w["a0"], w["mbias"], h0] + [w[k]
+                                                   for k in _GRAD_LEAVES[3:]]
+
+
 class StepMeta(NamedTuple):
     steps: int
-    msg_bn: int
-    state_bn: int
+    msg_mode: int           # NONE or BATCH_BN
+    state_mode: int         # NONE, BATCH_BN or STATELESS
     split: int = 0          # the split backward (kernels/split_bwd.py)
 
 
@@ -534,7 +621,6 @@ def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
     od = w["ro_ib"].shape[0]
     e = src.shape[0]
     num_graphs = plan.graph_node_ptr.shape[0] - 1
-    width_bucket("fused_step", BUCKETS, f=f, od=od)
     layout = grad_layout(k_vocab, f, od)
     for name, t in weights:
         _check(name, t, layout[name][1], device, torch.float32)
@@ -551,15 +637,16 @@ def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
 
 def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
                            vid, src, dst, plan: FusedEvalPlan,
-                           meta: StepMeta) -> PreparedLaunch:
+                           meta: StepMeta, tag: Optional[str] = None
+                           ) -> PreparedLaunch:
     """One checked forward launch: its arguments and outputs (loss (1,),
     out (G, od), stats (T+1, 2, f), htil (T+1, N, f)). `weights` is the
-    (name, tensor) list of _flat_weights."""
+    (name, tensor) list of _flat_weights; `tag` as prepare_fused_eval's."""
     n, f, od, k_vocab, e, g = _check_step_inputs(
         weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan)
+    tag = bucket_of("fused_step", tag, f=f, od=od)
     check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab, g,
                        who="fused_step")
-    tag = width_bucket("fused_step", BUCKETS, f=f, od=od)
     lib = _lib("fused_step_fwd", tag=tag)
     device, T = h0.device, meta.steps
     grid = _grid(lib, "mpnn_fused_step_fwd_grid", k_vocab, T, n, g)
@@ -569,13 +656,11 @@ def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
     stats = torch.empty(T + 1, 2, f, **kw)
     htil = torch.empty(T + 1, n, f, **kw)
     scratch = torch.empty(lib.mpnn_fused_step_fwd_scratch_floats(n, g), **kw)
-    w = dict(weights)
-    tensors = [vocab_table(w["amat"], tag), w["a0"], w["mbias"], h0] + [
-        w[k] for k in _GRAD_LEAVES[3:]] + [
+    tensors = _kernel_weights(weights, h0, tag) + [
         labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
         plan.graph_node_ptr, loss, out, stats, htil, scratch]
     args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
-            meta.msg_bn, meta.state_bn, grid,
+            meta.msg_mode, meta.state_mode, grid,
             torch.cuda.current_stream(device).cuda_stream)
     return PreparedLaunch("fused_step_fwd", lib.mpnn_fused_step_fwd,
                           lib.mpnn_cuda_error_string, args,
@@ -584,11 +669,12 @@ def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
 
 def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                            stats, node_graph, vid, src, dst,
-                           plan: FusedEvalPlan, meta: StepMeta
-                           ) -> PreparedLaunch:
+                           plan: FusedEvalPlan, meta: StepMeta,
+                           tag: Optional[str] = None) -> PreparedLaunch:
     """One checked backward launch on the forward's residuals (the batch
     tensors as the forward checked them): its arguments and outputs
-    (dh0 (N, f), the flat gradient of grad_layout)."""
+    (dh0 (N, f), the flat gradient of grad_layout); `tag` as
+    prepare_fused_eval's."""
     device = h0.device
     n, f = h0.shape
     w = dict(weights)
@@ -598,7 +684,7 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                            ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
                            ("stats", stats, (T + 1, 2, f))]:
         _check(name, t, shape, device, torch.float32)
-    tag = width_bucket("fused_step", BUCKETS, f=f, od=od)
+    tag = bucket_of("fused_step", tag, f=f, od=od)
     lib = _lib("fused_step_bwd", tag=tag)
     layout = grad_layout(k_vocab, f, od)
     c_layout = (ctypes.c_int * 16)()
@@ -613,13 +699,12 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
     scratch = torch.empty(lib.mpnn_fused_step_bwd_scratch_floats(
         n, k_vocab, f, od, grid), **kw)
     src_order, src_ptr = source_order(src, n)
-    tensors = [vocab_table(w["amat"], tag), w["a0"], w["mbias"], h0] + [
-        w[k] for k in _GRAD_LEAVES[3:]] + [
+    tensors = _kernel_weights(weights, h0, tag) + [
         labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
         src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
         scratch]
     args = (*(t.data_ptr() for t in tensors), n, g, e, f, od, k_vocab, T,
-            meta.msg_bn, meta.state_bn, grid,
+            meta.msg_mode, meta.state_mode, grid,
             torch.cuda.current_stream(device).cuda_stream)
     return PreparedLaunch("fused_step_bwd", lib.mpnn_fused_step_bwd,
                           lib.mpnn_cuda_error_string, args, (dh0, dw),
@@ -707,8 +792,9 @@ def _reference_residuals(weights, h0, mask, node_graph, labels, gmask, vid,
         {"i": {"w": w["ro_iw"], "b": w["ro_ib"]},
          "j": {"w": w["ro_jw"], "b": w["ro_jb"]}},
         labels, gmask, vid, src, dst, plan, steps=meta.steps,
-        msg_norm="bn1d" if meta.msg_bn else "none",
-        state_norm="bn1d" if meta.state_bn else "none", stash=stash)
+        msg_norm="bn1d" if meta.msg_mode == BATCH_BN else "none",
+        state_norm={v: k for k, v in _STATE_MODE.items()}[meta.state_mode],
+        stash=stash)
     stats = torch.stack([torch.stack(ma), *(torch.stack(s) for s in st)])
     return loss.reshape(1), out, stats, torch.stack(stash)
 
@@ -755,7 +841,8 @@ def fused_step(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
     the cotangents of both loss and out. Arguments as fused_step_reference.
     `bwd` picks the backward route: 'whole' (one kernel), 'split' (the
     readout, recurrence and message VJPs; bn1d/bn1d only) or 'auto', the
-    JAX package's rule (kernels/split_bwd.py). CPU tensors run the plain
+    JAX package's rule (kernels/split_bwd.py), which keeps every other
+    norm pair, the stateless state norm's too, on the whole backward. CPU tensors run the plain
     version under autograd on the whole route, and the plain versions of
     the three VJPs on the split route; CUDA tensors launch the forward
     kernel (and, in the backward pass, the route's kernels) or raise."""
@@ -771,8 +858,8 @@ def fused_step(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, bn, ro,
     if not 1 <= steps <= MAX_STEPS:
         raise NotImplementedError(
             f"fused_step: steps={steps}; the kernels take 1 to {MAX_STEPS}")
-    meta = StepMeta(steps, int(msg_norm == "bn1d"),
-                    int(state_norm == "bn1d"), int(split))
+    meta = StepMeta(steps, BATCH_BN if msg_norm == "bn1d" else NONE,
+                    _STATE_MODE[state_norm], int(split))
     weights = [t for _, t in _flat_weights(amat, a0, mbias, gru, ma_bn, bn,
                                            ro)]
     loss, out, stats = _FusedStep.apply(

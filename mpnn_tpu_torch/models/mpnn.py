@@ -28,13 +28,15 @@ from mpnn_tpu_torch.ops.update import GRU
 
 
 def shared_shape(cfg: MPNNConfig) -> bool:
-    """The shared-weight family (lipo, bench.py's flagship): one message
-    network and one norm pair for all steps, msg/state norm in
-    {bn1d, none}."""
+    """The shared-weight family (lipo, bench.py's flagship; the basic
+    shell of basic, single_target and autoencoder): one message network
+    and one norm pair for all steps, msg norm in {bn1d, none}, state norm
+    in {bn1d, stateless, none} (mpnn_tpu/models/fused_train.py::
+    _shared_family_shape)."""
     return (cfg.message_fn == "edge_network"
             and cfg.share_message_weights
             and cfg.msg_norm in ("bn1d", "none")
-            and cfg.state_norm in ("bn1d", "none")
+            and cfg.state_norm in ("bn1d", "stateless", "none")
             and not cfg.per_step_norms
             and cfg.atom_encoder is None and cfg.bond_encoder is None
             and not cfg.input_norm)
@@ -154,9 +156,9 @@ def check_supported(cfg: MPNNConfig) -> None:
     if not supported(cfg):
         raise NotImplementedError(
             "mpnn_tpu_torch runs the edge_network families with graph_level "
-            "readout (shared weights with msg/state norm in {bn1d, none}, "
-            "or per-step weights with state norm in {bn1d, stateless, "
-            "none}) and the attention families (att or adj aggregation, "
+            "readout (shared or per-step weights, msg norm in {bn1d, none}, "
+            "state norm in {bn1d, stateless, none}) and the attention "
+            "families (att or adj aggregation, "
             "set2vec or graph_level readout, no encoders: GRU hidden = the "
             "initial state with shared weights and no norms, or the "
             "evolving state with per-step or shared weights and the "

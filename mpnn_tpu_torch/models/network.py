@@ -4,9 +4,11 @@ eval and training mode (counterpart of mpnn_tpu/models/network.py).
 The lipo composition (test_lipo.py:103-129): the graph_norm wrapper
 (masked bn1d over nafm, concatenated onto afm), the MPNN core, torch's
 plain BatchNorm1d over the graph embeddings, and the halving head. The
-per-step family's (test_graph_norm.py, test_graph_encode_norm.py): the
-plain wrapper, the MPNN core and one linear head. Head 'none'
-(basic_model_ecfp.py): the MPNN core's output is the network's.
+per-step family's (test_graph_norm.py, test_graph_encode_norm.py) and
+the basic shell's (test.py): the plain wrapper, the MPNN core and one
+linear head; single_target's (test_single_target.py) an MLP head of
+head_dims with relu between its layers. Head 'none' (basic_model_ecfp.py,
+the autoencoder's encoder): the MPNN core's output is the network's.
 """
 
 from __future__ import annotations
@@ -50,16 +52,32 @@ def halving_dims(start: int, floor: int = 10) -> Sequence[Tuple[int, int]]:
     return dims
 
 
+def head_widths(cfg: NetworkConfig) -> Sequence[Tuple[int, int]]:
+    """(in, out) of each head layer (mpnn_tpu/models/network.py::
+    network_init): 'linear' one Linear(emb → head_output); 'halving'
+    test_lipo.py's halving stack, then → head_output; 'mlp' emb →
+    head_dims[0] → … → head_dims[-1]; 'none' no layer."""
+    emb = cfg.mpnn.effective_output_dim
+    if cfg.head == "none":
+        return []
+    if cfg.head == "mlp":
+        widths = [emb, *cfg.head_dims]
+        return list(zip(widths[:-1], widths[1:]))
+    widths = list(halving_dims(emb)) if cfg.head == "halving" else []
+    last = widths[-1][1] if widths else emb
+    return widths + [(last, cfg.head_output)]
+
+
 class Network(nn.Module):
     def __init__(self, cfg: NetworkConfig, device=None):
         super().__init__()
         if cfg.input_wrapper not in ("plain", "graph_norm") \
-                or cfg.head not in ("halving", "linear", "none"):
+                or cfg.head not in ("halving", "linear", "mlp", "none"):
             raise NotImplementedError(
                 f"input wrapper {cfg.input_wrapper!r} / head {cfg.head!r}: "
                 "the port has the plain and graph_norm wrappers and the "
-                "linear, halving and none heads; the others are still to "
-                "port (ROADMAP)")
+                "linear, halving, mlp and none heads; the batch_norm "
+                "wrapper is still to port (ROADMAP)")
         self.cfg = cfg
         self.mpnn = MPNN(cfg.mpnn, device=device)
         if cfg.input_wrapper == "graph_norm":
@@ -69,15 +87,9 @@ class Network(nn.Module):
             self.head_bn = nn.BatchNorm1d(cfg.mpnn.effective_output_dim,
                                           eps=1e-5, momentum=0.1,
                                           device=device)
-        emb = cfg.mpnn.effective_output_dim
-        # 'linear': one Linear(emb → head_output); 'halving': test_lipo.py's
-        # halving stack; 'none': no layer
-        widths = list(halving_dims(emb)) if cfg.head == "halving" else []
-        last = widths[-1][1] if widths else emb
         self.head = nn.ModuleList(
             make_linear(i, o, device=device)
-            for i, o in widths + [(last, cfg.head_output)]
-        ) if cfg.head != "none" else nn.ModuleList()
+            for i, o in head_widths(cfg))
 
     def reset_parameters(self, generator: Optional[torch.Generator] = None):
         self.mpnn.reset_parameters(generator)

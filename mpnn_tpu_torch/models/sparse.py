@@ -513,7 +513,9 @@ def sparse_mpnn_apply(mpnn: MPNN, batch, *, training: bool = False,
     h = h0
     for _ in range(cfg.message_steps):
         h = gru_apply(mpnn.gru, msgs, h, mask)
-        if cfg.state_norm == "bn1d":
+        if cfg.state_norm == "stateless":
+            h = mask_batch_norm(h, mask)
+        elif cfg.state_norm == "bn1d":
             bn = mpnn.bn[0]
             if training:
                 h, st = bn1d_train(h, mask, bn.weight, bn.bias)

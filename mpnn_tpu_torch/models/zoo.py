@@ -1,8 +1,9 @@
 """Named model configurations (counterpart of mpnn_tpu/models/zoo.py).
-The port carries the flagship `lipo`, the per-step family's `graph_norm`,
-`encoded` and `encoded_ecfp`, the attention models `adv` and `att`, and
-the bilinear `ecfp_bilinear`; the other families are still to port
-(ROADMAP).
+The port carries the flagship `lipo`, the basic shell's `basic`,
+`single_target` and `autoencoder` (the shared family without norms), the
+per-step family's `graph_norm`, `encoded` and `encoded_ecfp`, the
+attention models `adv` and `att`, and the bilinear `ecfp_bilinear`;
+`lipo_ggnn` is still to port (ROADMAP).
 
 Naming trap: the `graph_norm` MODEL (test_graph_norm.py) has the `plain`
 input wrapper; the lipo shell's `graph_norm` WRAPPER is another thing."""
@@ -13,6 +14,17 @@ from typing import Callable, Dict
 
 from mpnn_tpu_torch.models.config import MPNNConfig
 from mpnn_tpu_torch.models.network import NetworkConfig
+
+
+def basic(afm: int, bfm: int, nafm: int = 0, n_out: int = 4) -> NetworkConfig:
+    """Multi-class classification (test.py): shared messages, no norms,
+    out = 4·afm, one Linear head."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=4 * afm, message_steps=3,
+            share_message_weights=True),
+        head="linear", head_output=n_out, kaiming_head=False)
 
 
 def lipo(afm: int, bfm: int, nafm: int, n_out: int = 1) -> NetworkConfig:
@@ -117,7 +129,36 @@ def ecfp_bilinear(afm: int = 2, bfm: int = 8, nafm: int = 0,
         head="none")
 
 
+def autoencoder(afm: int, bfm: int, nafm: int = 0,
+                n_out: int = 0) -> NetworkConfig:
+    """basic_graph_autoencoder Encoder.encode(): the basic MPNN and its
+    readout give the graph embeddings (decode() is an empty skeleton in
+    the reference, basic_graph_autoencoder.py:44-45)."""
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=n_out or 2 * afm, message_steps=3,
+            share_message_weights=True),
+        head="none")
+
+
+def single_target(afm: int, bfm: int, nafm: int = 0,
+                  n_out: int = 2) -> NetworkConfig:
+    """Binary one-vs-rest (test_single_target.py:78-98): the basic MPNN
+    with out = 4·afm and a 4-layer halving MLP head → 2 logits."""
+    out = 4 * afm
+    return NetworkConfig(
+        mpnn=MPNNConfig(
+            node_features=afm, edge_features=bfm, message_features=afm,
+            output_dim=out, message_steps=3, share_message_weights=True),
+        head="mlp",
+        head_dims=(out // 2, out // 4, max(out // 8, 4), n_out),
+        kaiming_head=False)
+
+
 ZOO: Dict[str, Callable[..., NetworkConfig]] = {
+    "single_target": single_target,
+    "basic": basic,
     "lipo": lipo,
     "adv": adv,
     "att": att,
@@ -125,6 +166,7 @@ ZOO: Dict[str, Callable[..., NetworkConfig]] = {
     "encoded": encoded,
     "encoded_ecfp": encoded_ecfp,
     "ecfp_bilinear": ecfp_bilinear,
+    "autoencoder": autoencoder,
 }
 
 

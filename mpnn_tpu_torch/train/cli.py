@@ -8,7 +8,9 @@ Verbs (both run on `cuda` unless --device cpu):
            seed), per-epoch validation through the eval kernel, one
            checkpoint per epoch in --ckpt-dir, per-step losses and
            per-epoch records in --log; prints one JSON line with the
-           history's last record and the test metrics. With --spmm kernel
+           history's last record and the test metrics. With --resume it
+           restarts from the latest checkpoint in --ckpt-dir, the JAX
+           package's or its own, at the next epoch. With --spmm kernel
            the training step takes the decomposed path instead (the JAX
            package's `train --packed --spmm kernel` without --fuse-step):
            the plain model with the step loop in PyTorch ops and a kernel
@@ -24,10 +26,12 @@ Verbs (both run on `cuda` unless --device cpu):
            experiment {"index": i, "pred": argmax, "logits": [...]} — the
            serving path, through the whole-step eval kernel.
 
-Experiments: lipo (regression), graph_norm_classification,
-encoded_classification, adv_classification and att_classification
-(classification; the CSV's label column holds the classes,
-LabelEncoder-encoded over the file as the JAX package does), and the ECFP
+Experiments: lipo (regression), basic_classification, single_target,
+graph_norm_classification, encoded_classification, adv_classification and
+att_classification (classification; the CSV's label column holds the
+classes, LabelEncoder-encoded over the file as the JAX package does;
+single_target then relabels one-vs-rest against class 243, as
+test_single_target.py does), and the ECFP
 task's encoded_ecfp and ecfp_bilinear (labels: each atom's 16,384 Morgan
 bits at radius 3, computed from the SMILES; the CSV's label column is
 read and replaced; loss ecfp_mse, `predict` prints each molecule's first
@@ -67,6 +71,31 @@ def _load_for(exp, data_path):
     if exp.task == "ecfp":
         return D.load_ecfp_dataset(data_path, exp.mol_col, exp.label_col)
     raise NotImplementedError(f"task {exp.task!r} is still to port")
+
+
+def apply_experiment_transforms(exp, gs):
+    """The experiment's preprocessing of the reference drivers
+    (mpnn_tpu/train/cli.py::_apply_experiment_transforms): the class-count
+    filter, the one-vs-rest relabeling, the affinity labels. The
+    embedding features wait for the pretraining module (ROADMAP)."""
+    from mpnn_tpu_torch.graphs.filters import (affinity_labels,
+                                               binarize_target,
+                                               filter_by_label_count)
+    if exp.filter_lower_count is not None or exp.filter_keep_first \
+            is not None or exp.filter_upper_count is not None:
+        gs, _, _ = filter_by_label_count(
+            gs, lower_cutoff=exp.filter_lower_count,
+            upper_cutoff=exp.filter_upper_count,
+            keep_first=exp.filter_keep_first)
+    if exp.binarize_target_class is not None:
+        gs = binarize_target(gs, exp.binarize_target_class)
+    if exp.affinity_target_class is not None:
+        gs = affinity_labels(gs, exp.affinity_target_class)
+    if exp.embed_features:
+        raise NotImplementedError(
+            f"experiment {exp.name!r}: the embedding features need the "
+            "pretraining module, still to port (ROADMAP queue 1)")
+    return gs
 
 
 def _n_out_for(exp, gs):
@@ -125,6 +154,7 @@ def cmd_predict(args):
     exp = experiments.get(args.experiment)
     device = resolve_device(args.device)      # before the featurization
     gs, _ge = _load_for(exp, args.data)
+    gs = apply_experiment_transforms(exp, gs)
     for rec in predict_records(exp, gs, args.ckpt,
                                batch_size=args.batch_size, device=device):
         print(json.dumps(rec))
@@ -139,6 +169,13 @@ def cmd_train(args):
     exp = experiments.get(args.experiment)
     device = resolve_device(args.device)      # before the featurization
     gs, _ge = _load_for(exp, args.data)
+    n_loaded = len(gs)
+    gs = apply_experiment_transforms(exp, gs)
+    if not gs:
+        raise SystemExit(
+            f"no graphs left after the experiment's filters (loaded "
+            f"{n_loaded}; filters: count>{exp.filter_lower_count}, "
+            f"count<{exp.filter_upper_count})")
     net_cfg = _build_net(exp, gs, _n_out_for(exp, gs))
     overrides = {k: v for k, v in (("epochs", args.epochs),
                                    ("batch_size", args.batch_size),
@@ -156,7 +193,7 @@ def cmd_train(args):
     train_gs, test_gs = train_test_split(gs, 0.1, tcfg.seed)
     train_gs, val_gs = train_test_split(train_gs, 0.1, tcfg.seed)
     net, history = trainer.train(net_cfg, tcfg, train_gs, val_gs,
-                                 device=device)
+                                 resume=args.resume, device=device)
     test = trainer.evaluate(net, GraphLoader(test_gs, tcfg.batch_size),
                             exp.loss, tcfg.metric_average, device=device)
     print(json.dumps({"experiment": exp.name, "epochs": len(history),
@@ -176,6 +213,9 @@ def main(argv=None):
     tr.add_argument("--ckpt-dir")
     tr.add_argument("--log", help="append every step's loss and every "
                                   "epoch's record as JSON lines")
+    tr.add_argument("--resume", action="store_true",
+                    help="restart from the latest ckpt_<epoch>.npz in "
+                         "--ckpt-dir (either package's) at the next epoch")
     tr.add_argument("--spmm", choices=["kernel"],
                     help="train through the decomposed path: the SpMM "
                          "(edge-network models) or SDDMM (adv, att) "

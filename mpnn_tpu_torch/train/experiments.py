@@ -1,15 +1,16 @@
 """Experiment registry (counterpart of mpnn_tpu/train/experiments.py): the
 dataset flavor, model-zoo builder, loss and hyperparameters of each
 reference training script. The port carries the flagship `lipo`, the
-per-step family's `graph_norm_classification` and
-`encoded_classification`, the attention models' `adv_classification`
-and `att_classification`, and the ECFP task's `encoded_ecfp` and
-`ecfp_bilinear`."""
+basic shell's `basic_classification` and `single_target`, the per-step
+family's `graph_norm_classification` and `encoded_classification`, the
+attention models' `adv_classification` and `att_classification`, and the
+ECFP task's `encoded_ecfp` and `ecfp_bilinear`. The autoencoder model has
+no experiment in either package: it is served through the API."""
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict
+from typing import Dict, Optional
 
 from mpnn_tpu_torch.train.trainer import TrainConfig
 
@@ -23,6 +24,14 @@ class Experiment:
     train: TrainConfig
     mol_col: str = "smiles"
     label_col: str = "target"
+    # the reference drivers' preprocessing (train/cli.py::
+    # apply_experiment_transforms; graphs/filters.py)
+    binarize_target_class: Optional[int] = None   # one-vs-rest
+    affinity_target_class: Optional[int] = None   # label ← affinity
+    filter_lower_count: Optional[int] = None      # class-count filter
+    filter_upper_count: Optional[int] = None
+    filter_keep_first: Optional[int] = None
+    embed_features: bool = False    # pretrained embedding features
     notes: str = ""
 
 
@@ -33,6 +42,26 @@ def _register(e: Experiment):
     EXPERIMENTS[e.name] = e
     return e
 
+
+# test.py: multi-class classification, bs 16, 500 epochs, plain Adam,
+# F1 > 0.78 checkpoint gate
+_register(Experiment(
+    name="basic_classification", task="classification", model="basic",
+    loss="ce",
+    train=TrainConfig(epochs=500, batch_size=16, learning_rate=1e-3,
+                      loss="ce", metric_average="weighted",
+                      ckpt_f1_gate=0.78),
+    notes="test.py: shared messages, no norms, one Linear head"))
+
+# test_single_target.py: binary one-vs-rest on a hard-coded target class
+# (243), basic model + 4-layer MLP head
+_register(Experiment(
+    name="single_target", task="classification", model="single_target",
+    loss="ce",
+    train=TrainConfig(epochs=500, batch_size=16, learning_rate=1e-3,
+                      loss="ce", metric_average="binary"),
+    binarize_target_class=243,
+    notes="test_single_target.py: one-vs-rest target 243, MLP head"))
 
 # test_adv.py: attention model, early stop once an epoch's summed train
 # loss is below 0.02

@@ -81,3 +81,15 @@ class ReduceLROnPlateau:
     def state_dict(self):
         return {k: getattr(self, k) for k in
                 ("lr", "best", "num_bad", "cooldown_counter")}
+
+    def load_state_dict(self, d):
+        for k, v in d.items():
+            setattr(self, k, v)
+
+
+def adam_state_prefix(opt: torch.optim.Optimizer) -> str:
+    """Where the JAX package's optimizer state (mpnn_tpu/train/optim.py::
+    adam: inject_hyperparams over the chain [add_decayed_weights, when
+    weight_decay > 0,] scale_by_adam, scale) keeps Adam's count and
+    moments: `inner_state/<i>/` with i the chain index of scale_by_adam."""
+    return f"inner_state/{int(opt.param_groups[0]['weight_decay'] > 0)}/"

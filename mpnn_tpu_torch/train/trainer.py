@@ -42,7 +42,9 @@ from mpnn_tpu_torch.models.network import (Network, NetworkConfig,
                                            assign_state, network_apply_packed,
                                            network_init)
 from mpnn_tpu_torch.train import metrics as M
-from mpnn_tpu_torch.train.checkpoint import save_checkpoint
+from mpnn_tpu_torch.train.checkpoint import (latest_checkpoint,
+                                             load_checkpoint, load_opt_state,
+                                             read_arrays, save_checkpoint)
 from mpnn_tpu_torch.train.optim import (ReduceLROnPlateau, adam,
                                         get_learning_rate, set_learning_rate)
 
@@ -287,7 +289,8 @@ def _check_trainable(net_cfg: NetworkConfig, cfg: TrainConfig,
 
 
 def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
-          val_graphs=None, *, net: Optional[Network] = None, device=None
+          val_graphs=None, *, net: Optional[Network] = None,
+          resume: bool = False, device=None
           ) -> Tuple[Network, List[dict]]:
     """The epoch loop of mpnn_tpu's train(): Adam (coupled weight decay)
     on shuffled packed batches through the training kernels (or, with
@@ -301,16 +304,30 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
     defaults to network_init from cfg.seed; runs on `cuda` unless
     device='cpu'. With cfg.log_path every
     step's loss and every epoch's record are appended there as JSON lines.
-    Returns (net, history). Resume and optimizer state in checkpoints are
-    still to port."""
+    Each checkpoint carries the optimizer state and the plateau schedule's
+    in the JAX package's layout. With `resume` (mpnn_tpu's train --resume)
+    the run restarts from the latest `ckpt_<epoch>.npz` in cfg.ckpt_dir,
+    written by either package — weights, running statistics, Adam's step
+    and moments, the learning rate, the schedule — at that epoch + 1.
+    Returns (net, history)."""
     device = resolve_device(device)
-    if net is None:
+    ckpt = latest_checkpoint(cfg.ckpt_dir) if resume and cfg.ckpt_dir \
+        else None
+    meta = {}
+    if ckpt:
+        net, meta = load_checkpoint(ckpt, net_cfg, device)
+    elif net is None:
         net = network_init(net_cfg, torch.Generator().manual_seed(cfg.seed),
                            device)
     require_on(net, device)
     opt = adam(net.parameters(), cfg.learning_rate,
                weight_decay=cfg.weight_decay)
     sched = ReduceLROnPlateau(cfg.learning_rate) if cfg.plateau else None
+    if ckpt:
+        load_opt_state(read_arrays(ckpt), net, opt)
+        if sched and meta.get("sched"):
+            sched.load_state_dict(meta["sched"])
+    start_epoch = int(meta.get("epoch", -1)) + 1
     train_loader = GraphLoader(train_graphs, cfg.batch_size, shuffle=True,
                                seed=cfg.seed)
     val_loader = (GraphLoader(val_graphs, cfg.batch_size)
@@ -321,7 +338,7 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
     with contextlib.ExitStack() as stack:
         log = (stack.enter_context(open(cfg.log_path, "a"))
                if cfg.log_path else None)
-        for epoch in range(cfg.epochs):
+        for epoch in range(start_epoch, cfg.epochs):
             epoch_loss = 0.0
             for batch in train_loader:
                 loss = float(train_step(net, opt,
@@ -349,7 +366,8 @@ def train(net_cfg: NetworkConfig, cfg: TrainConfig, train_graphs,
                 save_checkpoint(
                     os.path.join(cfg.ckpt_dir, f"ckpt_{epoch}.npz"), net,
                     meta={"epoch": epoch,
-                          "sched": sched.state_dict() if sched else None})
+                          "sched": sched.state_dict() if sched else None},
+                    opt=opt)
             if cfg.early_stop_loss is not None \
                     and epoch_loss < cfg.early_stop_loss:
                 break

@@ -30,8 +30,10 @@ import test_torch_gpu as T                                     # noqa: E402
 TOL = 1e-4
 # family → its libraries' argument structs
 ARGS = {
-    "fused_step": {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
-                   "fused_step_bwd": "BwdArgs"},
+    # fused_eval's cooperative kernel (the stateless norm) takes the
+    # forward's args; its warp kernel's launch is rewritten per call
+    "fused_step": {"fused_eval": "mpnn_step::FwdArgs",
+                   "fused_step_fwd": "FwdArgs", "fused_step_bwd": "BwdArgs"},
     "fused_psteps": {"fused_psteps_eval": "PsFwdArgs",
                      "fused_psteps_fwd": "PsFwdArgs",
                      "fused_psteps_bwd": "PsBwdArgs"},
@@ -71,7 +73,10 @@ def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
     cw = torch.as_tensor(rng.randn(g, od).astype(np.float32))
     sgot = T.step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
     swant = T.step_and_grads(K.fused_step_reference, sargs, leaves, cw, **kw)
-    assert K.launch_counts == {"fused_eval": 1, "fused_step_fwd": 1,
+    stateless = state_norm == "stateless"
+    assert K.launch_counts == {"fused_eval": int(not stateless),
+                               "fused_eval_stateless": int(stateless),
+                               "fused_step_fwd": 1,
                                "fused_step_bwd": 1}, K.launch_counts
     stats = max(_err(a, b) for a, b in zip(
         [*sgot[2], *(x for s in sgot[3] for x in s)],
@@ -184,6 +189,13 @@ CASES = {
         check_fused_step(1, 9, 19, 32, 6),
         check_fused_step(2, 7, 32, 64, 5, "none", "bn1d"),
         check_fused_step(3, 7, 24, 40, 4, "bn1d", "none"),
+        check_fused_step(4, 9, 10, 14, 6, "none", "stateless"),
+        check_fused_step(5, 9, 7, 28, 6, "none", "none"),
+        check_fused_step(6, 9, 7, 28, 6, "bn1d", "stateless"),
+        check_fused_step(7, 7, 24, 40, 4, "bn1d", "stateless"),
+        check_fused_step(8, 7, 27, 108, 5, "none", "none"),
+        check_fused_step(9, 7, 27, 108, 5, "none", "stateless"),
+        check_fused_step(10, 7, 32, 128, 4, "bn1d", "stateless"),
     ],
     "fused_psteps": lambda: [
         check_fused_psteps(0, 9, 8, 16, 5, "bn1d", "bn1d"),

@@ -5,7 +5,9 @@
 
 LIB is a library of kernels/build.py (a source name, or `name.tag` for a
 width bucket, compiled with that bucket's -D defines), ARGS the type of
-its kernel's one argument struct (fused_eval:EvalArgs). Each becomes
+the one argument struct of its cooperative kernels (fused_step_fwd:
+FwdArgs; `<<<...>>>` launches need none: fused_eval's warp kernel takes
+EvalArgs, its cooperative one mpnn_step::FwdArgs). Each becomes
 mpnn_tpu_torch/_build/emu/libmpnn_LIB.so with the same C entry points as
 the card's library; with --asan under AddressSanitizer (then run Python
 with LD_PRELOAD=$(g++ -print-file-name=libasan.so)). The check scripts
@@ -63,7 +65,7 @@ def build(specs: Iterable[str], asan: bool = False) -> None:
         flags += ["-fsanitize=address", "-fno-omit-frame-pointer"]
     procs: Dict[str, subprocess.Popen] = {}
     for spec in specs:
-        lib, args = spec.split(":")
+        lib, _, args = spec.partition(":")
         name = lib.partition(".")[0]
         unit = os.path.join(SRC, f"emu_{lib}.cpp")
         with open(unit, "w") as fh:

@@ -38,7 +38,7 @@ from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
                                     psteps_walk, readout_bwd, recurrence,
                                     sddmm, set2vec, spmm, split_bwd)
 
-ARGS = {"fused_eval": "EvalArgs", "fused_step_fwd": "FwdArgs",
+ARGS = {"fused_eval": "mpnn_step::FwdArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
         "fused_psteps_fwd": "PsFwdArgs", "fused_psteps_bwd": "PsBwdArgs",
         "fused_att_fwd": "FwdArgs", "fused_att_bwd": "BwdArgs",

@@ -60,11 +60,15 @@ def _torch_args(args, dims, ma_state, bn_state, device="cpu"):
             t(args["dst"]), K.FusedEvalPlan(*(t(p) for p in plan)))
 
 
-@pytest.mark.parametrize("msg_norm,state_norm",
-                         [("bn1d", "bn1d"), ("none", "none")])
-def test_fused_eval_matches_pallas_interpret(msg_norm, state_norm):
+@pytest.mark.parametrize("msg_norm,state_norm,od",
+                         [("bn1d", "bn1d", 6), ("none", "none", 6),
+                          ("none", "stateless", 6), ("bn1d", "stateless", 6),
+                          ("none", "none", 72), ("none", "stateless", 72)])
+def test_fused_eval_matches_pallas_interpret(msg_norm, state_norm, od):
+    """The served output of every norm pair; the stateless state norm by
+    this batch's own statistics; od 72 past the od-64 buckets."""
     rng = np.random.RandomState(0)
-    args, plan, dims = build_problem(rng)
+    args, plan, dims = build_problem(rng, od=od)
     ma_state, bn_state = _states(rng, dims["f"])
     want = _jax_out(args, plan, dims, ma_state, bn_state, msg_norm,
                     state_norm)
@@ -86,15 +90,6 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     b = K.fused_eval_reference(*targs, steps=dims["steps"])
     assert torch.equal(a, b)
     assert K.launch_counts["fused_eval"] == 0
-
-
-def test_stateless_state_norm_raises():
-    rng = np.random.RandomState(2)
-    args, _, dims = build_problem(rng, n=128, g=12)
-    ma_state, bn_state = _states(rng, dims["f"])
-    with pytest.raises(NotImplementedError, match="stateless"):
-        K.fused_eval(*_torch_args(args, dims, ma_state, bn_state),
-                     steps=dims["steps"], state_norm="stateless")
 
 
 def _layout_case():

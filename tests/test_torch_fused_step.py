@@ -29,16 +29,16 @@ from test_fused_step import as_jnp, build_problem
 
 RTOL, ATOL = 2e-4, 1e-5
 NORMS = [("bn1d", "bn1d"), ("bn1d", "none"), ("none", "bn1d"),
-         ("none", "none")]
+         ("none", "none"), ("none", "stateless"), ("bn1d", "stateless")]
 # the leaves in the order of the JAX op's differentiable arguments
 LEAVES = ["amat", "a0", "mbias", "h0", "gru/b_hh", "gru/b_ih", "gru/w_hh",
           "gru/w_ih", "ma_bn/bias", "ma_bn/weight", "bn/bias", "bn/weight",
           "ro/i/b", "ro/i/w", "ro/j/b", "ro/j/w"]
 
 
-def _small_problem(seed, steps=3):
+def _small_problem(seed, steps=3, od=6):
     rng = np.random.RandomState(seed)
-    args, plan, dims = build_problem(rng, n=128, g=12, steps=steps)
+    args, plan, dims = build_problem(rng, n=128, g=12, steps=steps, od=od)
     cw = rng.randn(dims["g"], dims["od"]).astype(np.float32)
     return args, plan, dims, cw
 
@@ -113,11 +113,15 @@ def _torch_step(args, dims, cw, msg_norm, state_norm, **kw):
              for (k, v), g in zip(leaves.items(), grads)})
 
 
-@pytest.mark.parametrize("msg_norm,state_norm", NORMS)
-def test_fused_step_matches_pallas_interpret(msg_norm, state_norm):
-    """loss, out, the batch statistics of every slot, and every gradient
-    leaf, with the cotangents of both the loss and out nonzero."""
-    args, plan, dims, cw = _small_problem(0)
+@pytest.mark.parametrize("msg_norm,state_norm,od",
+                         [(m, s, 6) for m, s in NORMS]
+                         + [("none", "none", 72), ("bn1d", "stateless", 72)])
+def test_fused_step_matches_pallas_interpret(msg_norm, state_norm, od):
+    """loss, out, the batch statistics of every slot (the stateless norm's
+    batch mean and var too), and every gradient leaf, with the cotangents
+    of both the loss and out nonzero; od 72 is past the od-64 buckets (the
+    basic shell's od = 4·afm at afm 18)."""
+    args, plan, dims, cw = _small_problem(0, od=od)
     want = _jax_step(args, plan, dims, cw, msg_norm, state_norm)
     got = _torch_step(args, dims, cw, msg_norm, state_norm)
     np.testing.assert_allclose(got[0], want[0], rtol=RTOL, atol=ATOL)
@@ -140,7 +144,7 @@ def test_fused_step_matches_pallas_interpret(msg_norm, state_norm):
     # the norms a mode leaves out get exactly zero gradient on both sides
     if msg_norm == "none":
         assert not got[4]["ma_bn/weight"].any()
-    if state_norm == "none":
+    if state_norm != "bn1d":
         assert not got[4]["bn/weight"].any()
 
 
@@ -154,13 +158,6 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     assert a[1].requires_grad and not a[2][0].requires_grad
     assert K.launch_counts["fused_step_fwd"] == 0
     assert K.launch_counts["fused_step_bwd"] == 0
-
-
-def test_stateless_state_norm_raises():
-    args, _, dims, _ = _small_problem(2, steps=2)
-    targs, _ = _torch_inputs(args, dims)
-    with pytest.raises(NotImplementedError, match="stateless"):
-        K.fused_step(*targs, steps=2, state_norm="stateless")
 
 
 def test_grad_layout_covers_every_leaf_once():

@@ -81,16 +81,22 @@ def _problem(rng, g=1024, f=10, od=14, k=8, device="cuda"):
 @pytest.mark.gpu
 @pytest.mark.parametrize("msg_norm,state_norm",
                          [("bn1d", "bn1d"), ("bn1d", "none"),
-                          ("none", "bn1d"), ("none", "none")])
+                          ("none", "bn1d"), ("none", "none"),
+                          ("none", "stateless"), ("bn1d", "stateless")])
 def test_cuda_kernel_matches_plain_version(msg_norm, state_norm):
-    """Flagship widths (f 10, od 14, T 6) at batch 1024."""
+    """Flagship widths (f 10, od 14, T 6) at batch 1024; the stateless
+    state norm through its cooperative kernel, by this batch's own
+    statistics."""
     _need_card()
     args = _problem(np.random.RandomState(0))
     K.reset_launch_counts()
     got = K.fused_eval(*args, steps=6, msg_norm=msg_norm,
                        state_norm=state_norm)
     torch.cuda.synchronize()
-    assert K.launch_counts["fused_eval"] == 1
+    stateless = state_norm == "stateless"
+    assert (K.launch_counts["fused_eval"],
+            K.launch_counts["fused_eval_stateless"]) == (int(not stateless),
+                                                         int(stateless))
     want = K.fused_eval_reference(*args, steps=6, msg_norm=msg_norm,
                                   state_norm=state_norm)
     assert torch.isfinite(got).all()
@@ -126,12 +132,15 @@ def test_cuda_wrapper_raises_instead_of_falling_back():
     bad[1] = args[1].cpu()
     with pytest.raises(ValueError, match="is on cpu"):
         K.fused_eval(*bad, steps=6)
-    with pytest.raises(NotImplementedError, match="stateless"):
-        K.fused_eval(*args, steps=6, state_norm="stateless")
+    with pytest.raises(ValueError, match="state norm in"):
+        K.fused_eval(*args, steps=6, state_norm="batch")
     wide = _problem(np.random.RandomState(2), g=8, f=K.MAX_WIDTH + 8)
     with pytest.raises(NotImplementedError, match="widths up to"):
         K.fused_eval(*wide, steps=6)
+    with pytest.raises(NotImplementedError, match="widths up to"):
+        K.fused_eval(*wide, steps=6, state_norm="stateless")
     assert K.launch_counts["fused_eval"] == 0
+    assert K.launch_counts["fused_eval_stateless"] == 0
 
 
 @pytest.mark.gpu
@@ -225,12 +234,15 @@ def assert_step_close(got, want, msg_norm, rtol=RTOL, atol=ATOL):
 @pytest.mark.parametrize("msg_norm,state_norm,g",
                          [("bn1d", "bn1d", 1024), ("bn1d", "none", 1024),
                           ("none", "bn1d", 1024), ("none", "none", 1024),
-                          ("bn1d", "bn1d", 37)])
+                          ("bn1d", "bn1d", 37), ("none", "stateless", 1024),
+                          ("bn1d", "stateless", 1024),
+                          ("none", "stateless", 37)])
 def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g):
     """Flagship widths (f 10, od 14, T 6): the forward kernel against
     fused_step_reference, the backward kernel against autograd through it,
-    with the cotangents of both the loss and out nonzero. g = 37 is a
-    ragged batch: single-atom graphs, padded edges, a padded graph slot."""
+    with the cotangents of both the loss and out nonzero; the stateless
+    state norm's statistics and closed-form VJP too. g = 37 is a ragged
+    batch: single-atom graphs, padded edges, a padded graph slot."""
     _need_card()
     rng = np.random.RandomState(g)
     args, leaves = _step_problem(rng, g)
@@ -266,8 +278,8 @@ def test_cuda_step_wrapper_raises_instead_of_falling_back():
     bad[15] = plan._replace(edge_order=order)
     with pytest.raises(ValueError, match="fused_step: plan edge_order"):
         K.fused_step(*bad, steps=6)
-    with pytest.raises(NotImplementedError, match="stateless"):
-        K.fused_step(*args, steps=6, state_norm="stateless")
+    with pytest.raises(NotImplementedError, match="bn1d-only"):
+        K.fused_step(*args, steps=6, state_norm="stateless", bwd="split")
     assert K.launch_counts["fused_step_fwd"] == 0
     assert K.launch_counts["fused_step_bwd"] == 0
 
@@ -793,26 +805,36 @@ def test_att_serving_path_on_card():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f,od", [(24, 48), (32, 64)])
-def test_cuda_shared_family_wide_bucket(f, od):
-    """Rows 1-3 at lipo's widths past 16 (od = 2·afm): the eval kernel and
-    the training kernels against their plain versions, ragged batch."""
+@pytest.mark.parametrize("f,od,msg_norm,state_norm", [
+    (24, 48, "bn1d", "bn1d"), (32, 64, "bn1d", "bn1d"),
+    (7, 28, "none", "none"), (7, 28, "bn1d", "stateless"),
+    (27, 108, "none", "none"), (32, 128, "bn1d", "stateless"),
+    (27, 108, "none", "stateless")])
+def test_cuda_shared_family_wide_bucket(f, od, msg_norm, state_norm):
+    """Rows 1-3 past the narrow bucket: lipo's widths past 16 (od =
+    2·afm), the basic shell's od = 4·afm at afm 7 (the f 16 / od 64
+    bucket) and afm 27-32 (the od-128 bucket), in both state-norm modes:
+    the eval kernel and the training kernels against their plain
+    versions, ragged batch."""
     _need_card()
     rng = np.random.RandomState(f + od)
     args = _problem(rng, g=300, f=f, od=od, k=12)
+    kw = dict(steps=3, msg_norm=msg_norm, state_norm=state_norm)
     K.reset_launch_counts()
-    got = K.fused_eval(*args, steps=3)
-    want = K.fused_eval_reference(*args, steps=3)
+    got = K.fused_eval(*args, **kw)
+    want = K.fused_eval_reference(*args, **kw)
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
     sargs, leaves = _step_problem(rng, 300, f=f, od=od, k=12)
     cw = torch.as_tensor(rng.randn(300, od).astype(np.float32),
                          device="cuda")
-    got = step_and_grads(K.fused_step, sargs, leaves, cw, steps=3)
+    got = step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
     torch.cuda.synchronize()
-    assert K.launch_counts == {"fused_eval": 1, "fused_step_fwd": 1,
-                               "fused_step_bwd": 1}
-    want = step_and_grads(K.fused_step_reference, sargs, leaves, cw, steps=3)
-    assert_step_close(got, want, "bn1d")
+    stateless = state_norm == "stateless"
+    assert K.launch_counts == {"fused_eval": int(not stateless),
+                               "fused_eval_stateless": int(stateless),
+                               "fused_step_fwd": 1, "fused_step_bwd": 1}
+    want = step_and_grads(K.fused_step_reference, sargs, leaves, cw, **kw)
+    assert_step_close(got, want, msg_norm)
 
 
 @pytest.mark.gpu

@@ -158,6 +158,11 @@ def test_buckets_and_the_widths_past_them():
     pick = K.width_bucket
     assert pick("", K.BUCKETS, f=10, od=14) == ""
     assert pick("", K.BUCKETS, f=19, od=32) == "f32"
+    # the basic shell's od = 4·afm: afm 7 in the f 16 / od 64 bucket, afm
+    # 17-32 in the od-128 one
+    assert pick("", K.BUCKETS, f=7, od=28) == "o64"
+    assert pick("", K.BUCKETS, f=20, od=65) == "o128"
+    assert pick("", K.BUCKETS, f=27, od=108) == "o128"
     assert pick("", P.BUCKETS, f=8, od=32, steps=8) == ""
     assert pick("", P.BUCKETS, f=16, od=64, steps=3) == "f32"
     assert pick("", A.BUCKETS, f=16, K=64) == ""
@@ -166,9 +171,9 @@ def test_buckets_and_the_widths_past_them():
                                                     w=34) == "w64"
     for buckets, widths, match in [
             (K.BUCKETS, dict(f=33, od=14), "fused: f=33, od=14; the "
-             "kernels are compiled for widths up to f=16, od=16 or f=32, "
-             "od=64"),
-            (K.BUCKETS, dict(f=20, od=65), "f=20, od=65"),
+             "kernels are compiled for widths up to f=16, od=16 or f=16, "
+             "od=64 or f=32, od=64 or f=32, od=128"),
+            (K.BUCKETS, dict(f=20, od=129), "f=20, od=129"),
             (P.BUCKETS, dict(f=33, od=128, steps=3), "f=33, od=128"),
             (P.BUCKETS, dict(f=24, od=96, steps=7), "steps=7"),
             (A.BUCKETS, dict(f=33, K=8), "f=33"),
