@@ -58,7 +58,11 @@ Phases, one line each:
                the card (rtol 1e-4, atol 1e-5; gradient leaves scaled by
                their max abs): adv widths (f 7, w 14) at batch 1024 and
                T 100, both aggregations (att, adj), both softmax modes,
-               T 3, and a ragged batch with a padded graph slot;
+               T 3, and a ragged batch with a padded graph slot; then
+               set2vec's every route in both modes, its tags asserted
+               (one block, a block per SM, chunked rows, the backward's
+               leaf sums and both kernels' slots in global scratch: w
+               14-64, up to 10,000 graphs);
  15. att-serve — `predict --experiment adv_classification` at batch 16
                and 1024 from a seeded checkpoint: one fused_att_fwd and one
                set2vec_fwd launch per request, logits against the plain
@@ -385,8 +389,10 @@ def phase_build():
                f"{n} {getattr(A._lib(n), f'mpnn_{n}_smem_bytes')(16)} B"
                for n in ("fused_att_fwd", "fused_att_bwd"))
            + " (K 16); " + ", ".join(
-               f"{n} {getattr(S._lib(n), f'mpnn_{n}_smem_bytes')(14)} B"
-               for n in ("set2vec_fwd", "set2vec_bwd")) + " (w 14); "
+               f"set2vec_{d} {S.device_shape(d, n, g, 14, 0).smem} B"
+               for d in ("fwd", "bwd") for n, g in ((258, 16),
+                                                     (16512, 1024)))
+           + " (w 14 at b16's one block, b1024's block per SM); "
            f"fused_att_steps_fwd {atts_fwd} B, fused_att_steps_bwd "
            f"{atts_bwd} B (Tm 3, K 16, T 3, f 7; their A' tables stay in "
            "device memory); " + ", ".join(
@@ -1798,24 +1804,168 @@ def _fwd_bwd_errors(got, want):
     return ok_f, err_f, ok_b, err_b
 
 
+# set2vec's routes at a size that forces each (kernels/set2vec.py::
+# launch_shape): the node counts of the chunked case pass a block's
+# staging capacity at w 14 (~3,100 rows forward, ~1,450 backward) and 54
+S2V_CHUNKED_SIZES = (40, 4000)       # graphs; three of them this large
+# w 54 on 300 graphs, the graphs of one block (2-3 on 132 SMs) empty
+S2V_EMPTY_BLOCK = (300, slice(11, 13))
+# graphs of the batches whose blocks hold more graphs than shared memory
+# fits beside their rows: at w 32 the backward's leaf sums move to global
+# scratch (past ~40 graphs a block); at w 54 (adv's training batch at afm
+# 27) the backward's slots too, at w 64 both kernels' (the spilled route)
+S2V_MANY_GRAPHS = {"global-acc": 6000, "spilled-bwd": 2048,
+                   "spilled": 10000}
+S2V_STEPS = 100                      # the reference's set2vec depth
+ATT_CHECK_BATCH = 1024               # att-kernel-check's large batch
+ATT_TIMES_BATCHES = (16, 1024)       # att-times' batches
+
+
+def _s2v_sizes_case(sizes, w, gen, device):
+    """set2vec's arguments on graphs of the given node counts (0: an empty
+    graph) and five padded slots: random masked x (N, w) and leaves drawn
+    as the JAX init draws them, every leaf requiring grad; (args,
+    leaves)."""
+    import numpy as np
+    import torch
+    sizes = np.asarray(sizes, np.int64)
+    g, n_real = len(sizes), int(sizes.sum())
+    n = n_real + 5
+    ng = np.full(n, g, np.int32)
+    ng[:n_real] = np.repeat(np.arange(g), sizes)
+    gnp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    mask = torch.as_tensor((np.arange(n) < n_real).astype(np.float32)[:, None]
+                           ).to(device)
+    b = (2 * w) ** -0.5
+
+    def u(*shape, b):
+        return ((torch.rand(*shape, generator=gen) * 2 - 1) * b).to(device)
+    rp = {"lstm": {**{f"w_h{c}": u(2 * w, w, b=b) for c in "ifgo"},
+                   **{f"b_h{c}": u(1, w, b=b) for c in "ifgo"}},
+          "q_attn": {"w": u(w, w, b=w ** -0.5)},
+          "e_attn": {"w": u(w, 1, b=w ** -0.5)}}
+    x = (torch.randn(n, w, generator=gen).to(device) * mask).contiguous()
+    leaves = [*rp["lstm"].values(), rp["q_attn"]["w"], rp["e_attn"]["w"],
+              x]
+    for t in leaves:
+        t.requires_grad_()
+    return (rp, x, mask, torch.as_tensor(ng).to(device),
+            torch.as_tensor(gnp).to(device)), leaves
+
+
+def _s2v_tags(args, w, device):
+    """(forward tag, backward tag) of a batch: S2vShape.tag, the route and
+    what gives way on it (chunked, global-acc, spilled)."""
+    from mpnn_tpu_torch.kernels import set2vec as S
+    n, g = args[1].shape[0], args[4].shape[0] - 1
+    ptr = args[4].cpu().tolist()
+    return tuple(S.device_shape(d, n, g, w, device).tag(ptr)
+                 for d in ("fwd", "bwd"))
+
+
+def _s2v_route(args, w, device):
+    """'fwd <tag> grid G warps W cap C; bwd ...' of a batch."""
+    from mpnn_tpu_torch.kernels import set2vec as S
+    n, g = args[1].shape[0], args[4].shape[0] - 1
+    tags = _s2v_tags(args, w, device)
+    return "; ".join(
+        f"{d} {tag} grid {sh.grid} warps {sh.warps} cap {sh.cap}"
+        for d, tag in zip(("fwd", "bwd"), tags)
+        for sh in [S.device_shape(d, n, g, w, device)])
+
+
+def _s2v_route_cases(b16):
+    """(name, graph sizes, w, steps, (forward tag, backward tag)) of each
+    set2vec route: b16 of bench.py at w 14 (one block), 54 and 64 (the
+    wide backward's leaf sums in global scratch); 24 graphs (one block,
+    two graphs a warp); 40 graphs, three past a block's capacity
+    (chunked), at w 14 and 54; 300 graphs at w 54, one block's graphs
+    empty; S2V_MANY_GRAPHS' batches at w 32, 54 and 64."""
+    import numpy as np
+    rng = np.random.RandomState(12)
+    ragged = lambda g: np.concatenate([[1, 1, 1], rng.randint(1, 25, g - 3)])
+    sizes16 = np.diff(b16["plan_graph_node_ptr"].cpu().numpy())
+    big = ragged(S2V_CHUNKED_SIZES[0])
+    big[[7, 20, 33]] = S2V_CHUNKED_SIZES[1]
+    empty = ragged(S2V_EMPTY_BLOCK[0])
+    empty[S2V_EMPTY_BLOCK[1]] = 0
+    many = {k: ragged(g) for k, g in S2V_MANY_GRAPHS.items()}
+    t = min(20, S2V_STEPS)
+    one, grid, wide = ("one-block",) * 2, ("grid",) * 2, "grid global-acc"
+    return [("b16", sizes16, 14, S2V_STEPS, one),
+            ("G24", ragged(24), 14, t, one),
+            ("b16 w54", sizes16, 54, t, ("one-block", wide)),
+            ("b16 w64", sizes16, 64, t, ("one-block", wide)),
+            ("chunked", big, 14, t, ("grid chunked",) * 2),
+            ("chunked w54", big, 54, t,
+             ("grid chunked", "grid chunked global-acc")),
+            (f"G{len(empty)} w54, a block empty", empty, 54, t,
+             ("grid", wide)),
+            (f"G{len(many['global-acc'])} w32", many["global-acc"], 32, t,
+             ("grid", "grid chunked global-acc")),
+            (f"G{len(many['spilled-bwd'])} w54", many["spilled-bwd"], 54, t,
+             ("grid", "grid chunked global-acc spilled")),
+            (f"G{len(many['spilled'])} w64", many["spilled"], 64, t,
+             ("grid chunked spilled", "grid chunked global-acc spilled"))]
+
+
+def _s2v_route_checks(device, gen):
+    """Each set2vec route in both softmax modes against set2vec_reference
+    and autograd through it: [(line, ok, forward error, backward error)]."""
+    import torch
+    from mpnn_tpu_torch.kernels import set2vec as S
+    b16 = _route_batch16(device)
+    out = []
+    for name, sizes, w, T, tags in _s2v_route_cases(b16):
+        for bsm in (True, False):
+            args, leaves = _s2v_sizes_case(sizes, w, gen, device)
+            routed = _s2v_tags(args, w, device) == tags
+            g = len(sizes)
+            cw = torch.randn(g, 2 * w, generator=gen).to(device)
+            kw = dict(time_steps=T, batch_softmax=bsm)
+            S.reset_launch_counts()
+            got = _fwd_and_grads(S.set2vec, args, leaves, cw, kw)
+            torch.cuda.synchronize()
+            counts = dict(S.launch_counts)
+            want = _fwd_and_grads(S.set2vec_reference, args, leaves, cw, kw)
+            okf, ef, okb, eb = _fwd_bwd_errors(got, want)
+            ok = routed and okf and okb and counts == {"set2vec_fwd": 1,
+                                                       "set2vec_bwd": 1}
+            out.append((
+                f"set2vec {name} (G={g}, nodes {int(args[2].sum())}/"
+                f"{args[1].shape[0]} slots, w {w}, T {T}, "
+                f"{'global' if bsm else 'per-graph'}; "
+                f"{_s2v_route(args, w, device)}"
+                f"{'' if routed else f'; expected {tags}'}): fwd {ef:.2e} "
+                f"bwd {eb:.2e} {'ok' if ok else 'FAIL'}", ok, ef, eb))
+    return out
+
+
+def _route_batch16(device):
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    return batch_to_device(_batch((SMILES * 2)[:16], 16), device)
+
+
 def phase_att_kernel_check(device):
     """The four attention-family kernels against their plain versions on
     the card: adv widths (f 7, w 14) at batch 1024 and T 100 with the 'att'
     aggregation and the batch-global softmax, then 'adj', the per-graph
     softmax, T 3, and a ragged batch (single-atom molecules, padded edges,
-    a padded graph slot)."""
+    a padded graph slot); then set2vec's every route (_s2v_route_cases) in
+    both softmax modes."""
     import torch
     from mpnn_tpu_torch.kernels import fused_att as A
     from mpnn_tpu_torch.kernels import set2vec as S
     from mpnn_tpu_torch.train.trainer import batch_to_device
     gen = torch.Generator().manual_seed(41)
-    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    bs, T = ATT_CHECK_BATCH, S2V_STEPS
+    big = batch_to_device(_batch((SMILES * 103)[:bs], bs), device)
     ragged = _ragged_att_batch(device)
-    cases = [("batch1024 att/global T100", b1024, True, True, 100),
-             ("batch1024 adj/global T100", b1024, False, True, 100),
-             ("batch1024 att/per-graph T100", b1024, True, False, 100),
-             ("batch1024 att/global T3", b1024, True, True, 3),
-             ("ragged att/global T100", ragged, True, True, 100),
+    cases = [(f"batch{bs} att/global T{T}", big, True, True, T),
+             (f"batch{bs} adj/global T{T}", big, False, True, T),
+             (f"batch{bs} att/per-graph T{T}", big, True, False, T),
+             (f"batch{bs} att/global T3", big, True, True, 3),
+             (f"ragged att/global T{T}", ragged, True, True, T),
              ("ragged adj/per-graph T3", ragged, False, False, 3)]
     worst = dict.fromkeys(ATT_KERNELS, 0.0)
     results, failed = [], []
@@ -1842,6 +1992,12 @@ def phase_att_kernel_check(device):
             f"edges {int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}):"
             f" att fwd {ef1:.2e} bwd {eb1:.2e}, set2vec fwd {ef2:.2e} bwd "
             f"{eb2:.2e} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            failed.append(what)
+    for what, ok, ef, eb in _s2v_route_checks(device, gen):
+        worst["set2vec_fwd"] = max(worst["set2vec_fwd"], ef)
+        worst["set2vec_bwd"] = max(worst["set2vec_bwd"], eb)
+        results.append(what)
         if not ok:
             failed.append(what)
     print(f"att-kernel-check: fused_att_fwd/bwd vs fused_att_reference and "
@@ -2236,9 +2392,9 @@ def phase_att_times(device, card):
     from mpnn_tpu_torch.kernels import fused_step as K
     from mpnn_tpu_torch.kernels import set2vec as S
     from mpnn_tpu_torch.models.fused_train import _build_att_form
-    out, lines = {}, []
+    out, lines, s2v_lines = {}, [], []
     gen = torch.Generator().manual_seed(47)
-    for bs in (16, 1024):
+    for bs in ATT_TIMES_BATCHES:
         b, tb, cfg, net, rec, idle = _att_latency("adv", bs, device, gen)
         # the kernels alone, on the inputs the main path gives them
         mpnn = net.mpnn
@@ -2292,6 +2448,10 @@ def phase_att_times(device, card):
             sb = S.prepare_set2vec_bwd(leaves, x, gnp, carry, att, gm, meta)
             times["set2vec_bwd"] = _events_ms(
                 lambda: K.launch_prepared(sb), 20)
+            s2v_lines.append(_s2v_time_line(
+                f"adv b{bs}", leaves, x, mask, ng, gnp, meta, device,
+                {k: times[k] for k in ("set2vec_fwd", "set2vec_bwd")},
+                rec))
             rp = {"lstm": dict(zip(S._GRAD_LEAVES[:8], leaves[:8])),
                   "q_attn": {"w": leaves[8]}, "e_attn": {"w": leaves[9]}}
             skw = dict(time_steps=meta.steps,
@@ -2339,7 +2499,93 @@ def phase_att_times(device, card):
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
                 f"{bounds[name][3] / 1e6:.3f} MB)" for name in ATT_KERNELS))
     print(f"att-times [{card}]: " + "; ".join(lines), flush=True)
+    s2v_lines += [_s2v_case_times(k, device, gen)
+                  for k in ("chunked", "spilled-bwd")]
+    print(f"set2vec-routes [{card}]: " + "; ".join(s2v_lines), flush=True)
     return out
+
+
+def _s2v_phases(stamps, names, reverse):
+    """Block 0's mean cycles in each phase of a step, and of the whole step
+    (stamp 0 to the next step's stamp 0), from an (T, phases) int64 tensor
+    of clock64 stamps; the backward's steps run T − 1 down to 0."""
+    st = stamps.cpu().double()
+    if reverse:
+        st = st.flip(0)
+    per = (st[1:, 0] - st[:-1, 0]).mean().item()
+    parts = [(st[:, i + 1] - st[:, i]).mean().item()
+             for i in range(st.shape[1] - 1)]
+    return per, dict(zip(names, parts))
+
+
+def _s2v_time_line(what, leaves, x, mask, ng, gnp, meta, device, times, rec):
+    """One batch's set2vec line: each route, the kernels' times a step,
+    the empty-step floor of the forward's grid and combine (timed), and
+    one launch's clock64 breakdown of a step into its phases (block 0),
+    each phase's share applied to the kernel's time a step. Fills
+    rec['set2vec'] with the numbers."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import set2vec as S
+    n, g, w = x.shape[0], gnp.shape[0] - 1, x.shape[1]
+    T = meta.steps
+    floor = _events_ms(lambda p=S.prepare_barrier_floor(n, g, w, T, device):
+                       K.launch_prepared(p), 20)
+    st_f = torch.zeros(T, S._FWD_PHASES, dtype=torch.int64, device=device)
+    m, carry, att = K.launch_prepared(S.prepare_set2vec_fwd(
+        leaves, x, mask, ng, gnp, meta, stash=True, stamps=st_f))
+    st_b = torch.zeros(T, S._BWD_PHASES, dtype=torch.int64, device=device)
+    K.launch_prepared(S.prepare_set2vec_bwd(
+        leaves, x, gnp, carry, att, torch.ones_like(m), meta, stamps=st_b))
+    torch.cuda.synchronize()
+    pf, phf = _s2v_phases(st_f, ("lstm+query", "energies+read", "combine",
+                                 "normalise"), False)
+    pb, phb = _s2v_phases(st_b, ("stash wait", "pass A", "combine+leaf sums",
+                                 "pass B", "VJPs"), True)
+    ms_f, ms_b = times["set2vec_fwd"], times["set2vec_bwd"]
+    rec["set2vec"] = dict(floor_ms=floor, fwd_step_us=ms_f * 1e3 / T,
+                          bwd_step_us=ms_b * 1e3 / T)
+
+    def fmt(per, ph, ms):
+        return ", ".join(f"{k} {v / per * ms * 1e3 / T:.2f} us"
+                         for k, v in ph.items())
+    return (f"{what} ({_s2v_route((None, x, None, None, gnp), w, device)}):"
+            f" set2vec_fwd {ms_f * 1e3:.2f} us = {ms_f * 1e3 / T:.2f} us a "
+            f"step [{fmt(pf, phf, ms_f)}; {pf:.0f} cycles a step], "
+            f"set2vec_bwd {ms_b * 1e3:.2f} us = {ms_b * 1e3 / T:.2f} us a "
+            f"step [{fmt(pb, phb, ms_b)}; {pb:.0f} cycles a step]; the "
+            f"empty-step floor (the forward's grid and combine, {T} steps) "
+            f"{floor * 1e3:.2f} us = {floor * 1e3 / T:.3f} us a step")
+
+
+def _s2v_case_times(key, device, gen):
+    """A route's kernels timed (events) at S2V_STEPS with the batch-global
+    softmax: 'chunked' on _s2v_route_cases' chunked batch at w 14,
+    'spilled-bwd' on its S2V_MANY_GRAPHS batch at w 54."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import set2vec as S
+    cases = _s2v_route_cases(_route_batch16(device))
+    name, sizes, w = {"chunked": cases[4], "spilled-bwd": cases[8]}[key][:3]
+    args, leaves = _s2v_sizes_case(sizes, w, gen, device)
+    rp, x, mask, ng, gnp = args
+    with torch.no_grad():
+        lv = [t.detach() for t in leaves[:10]]
+        meta = S.S2vMeta(S2V_STEPS, True)
+        se = S.prepare_set2vec_fwd(lv, x.detach(), mask, ng, gnp, meta,
+                                   stash=False)
+        st = S.prepare_set2vec_fwd(lv, x.detach(), mask, ng, gnp, meta,
+                                   stash=True)
+        m, carry, att = K.launch_prepared(st)
+        sb = S.prepare_set2vec_bwd(lv, x.detach(), gnp, carry, att,
+                                   torch.randn(m.shape, generator=gen)
+                                   .to(device), meta)
+        times = {"set2vec_fwd": _events_ms(lambda: K.launch_prepared(se),
+                                           5, warm=2),
+                 "set2vec_bwd": _events_ms(lambda: K.launch_prepared(sb),
+                                           5, warm=2)}
+        return _s2v_time_line(name, lv, x.detach(), mask, ng, gnp,
+                              meta, device, times, {})
 
 
 # ---------------------------------------------------------------------------

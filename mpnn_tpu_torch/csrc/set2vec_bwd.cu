@@ -1,35 +1,39 @@
 // Set2vec readout backward, hand-written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel mpnn_tpu/kernels/set2vec.py::_s2v_bwd_kernel (the
-// VJP of make_set2vec_op). Given gm = ∂L/∂m and the forward's stash (each
-// step's input carry and attention row), it walks the steps in reverse,
-// with the cotangent carry (dmh, dmr, dc) per graph, starting at
-// (gm[:, :w], gm[:, w:], 0):
+// VJP of make_set2vec_op). Given gm = ∂L/∂m and the forward's stash (a row
+// per step and graph: input carry, gates, query; each step's attention
+// row), it walks the steps in reverse, with the cotangent carry (dmh, dmr,
+// dc) per graph, starting at (gm[:, :w], gm[:, w:], 0):
 //
 //   read VJP      ∂x_v += att_v·dmr_g;  datt_v = dmr_g·x_v
-//   softmax VJP   de_v = att_v·(datt_v − Σ datt·att), the sum over the
-//                 whole batch (batch_softmax) or over v's graph
+//   softmax VJP   de_v = att_v·(datt_v − S), S = Σ datt·att over the whole
+//                 batch (batch_softmax) or over v's graph
 //   energy VJP    th = tanh(q_g + x_v):  ∂we += Σ th·de;
 //                 dth = we·de·(1 − th²);  ∂x_v += dth;  dq_g = Σ_v dth
 //   query VJP     ∂Wq += h ⊗ dq;  dh = dmh + Wq·dq
-//   LSTM VJP      the step recomputed from the stashed carry; ∂W_x, ∂b_x,
+//   LSTM VJP      from the stashed gates; ∂W_x += [mh ‖ mr] ⊗ da, ∂b_x,
 //                 and the carry's cotangent (dmh, dmr, dc) for step t − 1
 //
-// Design: ONE cooperative launch, one warp per graph, lane l on features
-// l + 32·r (set2vec_common.cuh). The batch-global Σ datt·att takes one grid barrier
-// per step (block partials double-buffered by step parity, combined in
-// block order); the per-graph mode needs none. The serial walk keeps only
-// what the next step needs — de, dq and the LSTM carry — and stashes each
-// step's de, dmr and q; after the walk the graph's warp sums ∂x_v and ∂we
-// over the steps from those stashes, so ∂x takes no read-modify-write per
-// step. In the narrow bucket the leaf gradients accumulate over all steps
-// in a private row per warp in shared memory (lane l owns the columns of
-// its features) and are summed over the warps in order; the wide bucket
-// sums them after the walk (leaf_grads_from_stash). Then, after a last
-// barrier, over the blocks in block order.
-// Bound on an H100: ~3× the forward's operations and the stash read once
-// (~22 MB at batch 1,024); the T + 1 barriers in series are what it
-// costs.
+// Bound on an H100: ~3× the forward's operations and its stash read once,
+// microseconds; the T steps in series are what it costs. The design keeps
+// each step's chain on chip, with the forward's mapping
+// (set2vec_common.cuh): the cotangent carry in the graph's slot of shared
+// memory; x rows staged once and ∂x accumulated beside them (the chunked
+// route streams both); the stash rows of step t − 1 (and, resident, its
+// attention row) brought in by TMA bulk copies while step t runs, double
+// buffered against two mbarriers. The leaf gradients accumulate per block
+// in shared memory (in the block's row of global scratch when its graphs'
+// slots leave no room: w 32 past ~40 graphs a block): after each step the
+// block adds every graph's outer products in graph order (each thread
+// owns its elements), overlapping the cross-block combine; ∂we from each
+// lane's sum. Blocks are summed in block order after the one grid barrier
+// at the end. The wide bucket (w <= 64) has no room for its 145 KB
+// accumulator beside the weights' 151: its accumulator is the block's row
+// of global scratch. A block with more graphs than its shared memory
+// holds slots for (w 54 past ~9 a block) keeps the cotangent slots and
+// leaf operands in its region of global scratch and reads the stash rows
+// where they lie: the spilled route. No float atomics anywhere.
 
 #include "set2vec_common.cuh"
 
@@ -37,9 +41,8 @@ namespace {
 
 using namespace mpnn_s2v;
 
-// Flat layout of the gradient output, of each warp's accumulator row and
-// of each block's partial row: real shapes, in this order.
-// kernels/set2vec.py::grad_layout mirrors it.
+// Flat layout of the gradient output and of each block's accumulator:
+// real shapes, in this order. kernels/set2vec.py::grad_layout mirrors it.
 struct S2vGradLayout {
   int w[4], b[4], q, e, total;
   __host__ __device__ explicit S2vGradLayout(int W) {
@@ -51,420 +54,561 @@ struct S2vGradLayout {
   }
 };
 
-// The leaf gradients: in the narrow bucket each warp accumulates them in a
-// private row of shared memory as the walk goes (lane l owns the columns of
-// its features). In the wide bucket (w <= 64) four such rows would take
-// 595 KB, so the walk stashes what they are made of instead — each step's
-// LSTM cotangents da (4w), h and dq per graph; the input carry [mh ‖ mr]
-// is the forward's stash — and after a grid barrier every block sums the
-// outer products over its slice of the (step, graph) rows, 32 rows at a
-// time staged in shared memory, into a block row of shared memory.
-constexpr bool kAccInSmem = WP == 32;
-constexpr int kPostRows = 32;          // (step, graph) rows per staged chunk
-
-// The launch's global scratch, in order: the cotangent carry (G, 3w), the
-// per-step stashes the ∂x pass reads — de (T, N), dmr and q (T, G, w) —
-// the global-softmax partials (2 · grid) and the block rows (grid · NW);
-// in the wide bucket also the leaf-gradient stashes da (T, G, 4w), h and
-// dq (T, G, w) and each warp's ∂we row (grid · kWarps · w).
-struct BwdScratch {
-  float *dcarry, *de, *dmr, *q, *part, *wpart, *da, *h, *dq, *dwe;
-  long long total;
-  __host__ __device__ BwdScratch(float* base, int N, int G, int W, int T,
-                                 int grid) {
-    const long long tg = (long long)T * G;
-    const long long o_de = (long long)G * 3 * W;
-    const long long o_dmr = o_de + (long long)T * N;
-    const long long o_q = o_dmr + tg * W;
-    const long long o_part = o_q + tg * W;
-    const long long o_wpart = o_part + 2LL * grid;
-    const long long o_da = o_wpart + (long long)grid * S2vGradLayout(W).total;
-    const long long o_h = o_da + (kAccInSmem ? 0 : tg * 4 * W);
-    const long long o_dq = o_h + (kAccInSmem ? 0 : tg * W);
-    const long long o_dwe = o_dq + (kAccInSmem ? 0 : tg * W);
-    total = o_dwe + (kAccInSmem ? 0 : (long long)grid * kWarps * W);
-    dcarry = base;
-    de = base + o_de;
-    dmr = base + o_dmr;
-    q = base + o_q;
-    part = base + o_part;
-    wpart = base + o_wpart;
-    da = base + o_da;
-    h = base + o_h;
-    dq = base + o_dq;
-    dwe = base + o_dwe;
+// Shared memory (floats): the weights (WL<WB>), [the leaf accumulator,]
+// [per graph a cotangent slot — dmh | dmr | dc | dq (WB each), Σ datt·att
+// — and the leaf products' operands — mh | mr | da_i..da_o | h | dq (WB
+// each) —, the two stash-row buffers (all three in global scratch on the
+// spilled route),] two mbarriers, each warp's ∂we, the combine's total,
+// the graphs' node pointers, then per row: x and ∂x (XS apart), datt /
+// de, and the two attention buffers.
+struct BwdSmem {
+  int W8, XS, RSt, SC, S2, AB, acc, cot, op, pbuf, mbar, wd, red, gp, xs,
+      dxs, db, ab, total;
+  __host__ __device__ BwdSmem(int W, int WB, int gpb, int warps, int cap,
+                              bool acc_smem, bool slots_smem) {
+    W8 = pad8(W);
+    XS = W8 + 1;
+    RSt = stash_width(W);
+    SC = 4 * WB + 4;
+    S2 = 8 * WB;
+    AB = al4(cap + 8);
+    acc = weights_floats(WB);
+    cot = acc + (acc_smem ? al4(S2vGradLayout(W).total) : 0);
+    const int g = slots_smem ? gpb : 0;
+    op = cot + g * SC;
+    pbuf = op + g * S2;
+    mbar = pbuf + 2 * g * RSt;
+    wd = mbar + 4;
+    red = wd + warps * W8;
+    gp = red + 4;
+    xs = gp + al4(gpb + 1);
+    dxs = xs + al4(cap * XS);
+    db = dxs + al4(cap * XS);
+    ab = db + al4(cap);
+    total = ab + 2 * AB;
   }
 };
+
+// Global scratch: the published words (T, grid, kWordStride), each
+// block's leaf row (grid, NW), then on the spilled route each block's
+// cotangent slots and leaf operands (grid, gpb, SC + S2).
+struct BwdScratch {
+  unsigned long long* part;
+  float* rows;
+  float* slots;
+  long long total;
+  __host__ __device__ BwdScratch(float* base, int W, int WB, int T,
+                                 int grid, int gpb, bool slots_smem) {
+    const long long words = 2LL * T * grid * kWordStride;
+    // the slots start 16-byte aligned (float4 loads)
+    const long long nrows =
+        ((long long)grid * S2vGradLayout(W).total + 3) & ~3LL;
+    part = reinterpret_cast<unsigned long long*>(base);
+    rows = base + words;
+    slots = rows + nrows;
+    total = words + nrows +
+            (slots_smem ? 0 : (long long)grid * gpb * (12 * WB + 4));
+  }
+};
+
+constexpr int kBwdPhases = 6;   // clock64 stamps a step (block 0)
 
 struct BwdArgs {
   S2vWeights w;
   const float* x;               // (N, w)
   const int* graph_node_ptr;    // (G + 1)
-  const float* carry_stash;     // (T, G, 3w)
-  const float* att_stash;       // (T, N)
+  const float* carry_stash;     // (T, G, stash_width(w))
+  const float* att_stash;       // (T, al4(N))
   const float* gm;              // (G, 2w)
   float* dx;                    // (N, w)
   float* dw;                    // S2vGradLayout(w).total
   float* scratch;
-  int n_nodes, n_graphs, width, steps, batch_softmax;
+  long long* stamps;            // (T, kBwdPhases) or null
+  int n_nodes, n_graphs, width, steps, batch_softmax, gpb, cap;
+  int acc_smem;   // the leaf accumulator in shared memory, else in the
+                  // block's row of global scratch (graphs too many for both)
 };
 
-// Wide bucket: this block's sums of the leaf gradients but ∂we over its
-// slice of the T·G (step, graph) rows, into acc (NW floats of shared
-// memory; ∂we's W left untouched), from the stashes. Every thread of the
-// block must call it.
-__device__ void leaf_grads_from_stash(const BwdArgs& a, const BwdScratch& sc,
-                                      const S2vGradLayout& L, float* acc,
-                                      float* rows) {
-  const int W = a.width, R = a.steps * a.n_graphs, tid = threadIdx.x;
-  const int RW = 8 * W;                  // a row: [mh | mr | da (4w) | h | dq]
-  const int r0 = int((long long)blockIdx.x * R / gridDim.x);
-  const int r1 = int((long long)(blockIdx.x + 1) * R / gridDim.x);
-  for (int e = tid; e < L.e; e += kThreads) acc[e] = 0.f;
-  for (int c0 = r0; c0 < r1; c0 += kPostRows) {
-    const int nr = min(kPostRows, r1 - c0);
-    __syncthreads();                     // the previous chunk is consumed
-    for (int i = tid; i < nr * RW; i += kThreads) {
-      const size_t rr = size_t(c0 + i / RW);
-      const int col = i % RW;
-      float v;
-      if (col < 2 * W) v = a.carry_stash[rr * 3 * W + col];
-      else if (col < 6 * W) v = __ldcg(sc.da + rr * 4 * W + col - 2 * W);
-      else if (col < 7 * W) v = __ldcg(sc.h + rr * W + col - 6 * W);
-      else v = __ldcg(sc.dq + rr * W + col - 7 * W);
-      rows[i] = v;
-    }
-    __syncthreads();
-    for (int e = tid; e < L.e; e += kThreads) {
-      int ca = -1, cb;                   // columns of the two factors
-      if (e < L.b[0]) {                  // W_g[k][j] += x[k]·da_g[j]
-        const int gg = e / (2 * W * W), i = e % (2 * W * W);
-        ca = i / W;
-        cb = 2 * W + gg * W + i % W;
-      } else if (e < L.q) {              // b_g[j] += da_g[j]
-        cb = 2 * W + (e - L.b[0]);
-      } else {                           // Wq[k][j] += h[k]·dq[j]
-        const int i = e - L.q;
-        ca = 6 * W + i / W;
-        cb = 7 * W + i % W;
-      }
-      float s = 0.f;
-      if (ca >= 0)
-        for (int i = 0; i < nr; ++i)
-          s = fmaf(rows[i * RW + ca], rows[i * RW + cb], s);
-      else
-        for (int i = 0; i < nr; ++i) s += rows[i * RW + cb];
-      acc[e] += s;
-    }
-  }
-  __syncthreads();
+// The leaf gradients of one step added to the block's accumulator: each
+// element's sum over the block's graphs in graph order, each thread its
+// own elements, kLeafBatch of them at a time so that their read-modify-
+// writes overlap (the wide bucket's accumulator is in global memory).
+// Threads walk the operands' padded layout (da_g[j] at (2 + g)·WB + j), so
+// a warp's loads meet no bank conflict. Every thread of the block calls
+// it.
+constexpr int kLeafBatch = 4;
+
+__device__ __forceinline__ void add_batch(float* __restrict__ acc,
+                                          const int (&idx)[kLeafBatch],
+                                          const float (&v)[kLeafBatch]) {
+  float old[kLeafBatch];
+#pragma unroll
+  for (int b = 0; b < kLeafBatch; ++b)
+    if (idx[b] >= 0) old[b] = acc[idx[b]];
+#pragma unroll
+  for (int b = 0; b < kLeafBatch; ++b)
+    if (idx[b] >= 0) acc[idx[b]] = old[b] + v[b];
 }
 
-template <int WB>
-__global__ void __launch_bounds__(kThreads)
-set2vec_bwd_kernel(BwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float sm[];
-  const int W = a.width, G = a.n_graphs, N = a.n_nodes, T = a.steps;
-  stage_s2v(sm, a.w, W);
-  const S2vGradLayout L(W);
-  const int NW = L.total;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  bool own[kPL];                                   // feature lane + 32·r
+__device__ void leaf_products(float* __restrict__ acc,
+                              const float* __restrict__ op, int nb, int S2,
+                              int W, int WB, const S2vGradLayout& GL) {
+  const int nt = blockDim.x, tid = threadIdx.x;
+  // ∂W_g[k][j] += Σ_i in_i[k]·da_i[g][j], in = [mh | mr]: element (k, c),
+  // c = g·WB + j over the padded columns
+  const int C = 4 * WB, E = 2 * W * C;
+  for (int e0 = tid; e0 < E; e0 += kLeafBatch * nt) {
+    int idx[kLeafBatch];
+    float v[kLeafBatch];
 #pragma unroll
-  for (int r = 0; r < kPL; ++r) own[r] = lane + 32 * r < W;
-  float* __restrict__ acc = sm + SL::total + warp * NW;  // this warp's leaves
-  float* buf = sm + SL::kBuf + warp * 2 * WP;      // [dmr | q] broadcast
-  float* red = sm + SL::kRed;
-  if (kAccInSmem)
-    for (int i = tid; i < kWarps * NW; i += kThreads) sm[SL::total + i] = 0.f;
-  const BwdScratch sc(a.scratch, N, G, W, T, gridDim.x);
-  const int n_real = a.graph_node_ptr[G];
-  {
-    const size_t pad = size_t(N - n_real) * W;
-    for (size_t i = size_t(blockIdx.x) * kThreads + tid; i < pad;
-         i += size_t(gridDim.x) * kThreads)
-      a.dx[size_t(n_real) * W + i] = 0.f;
+    for (int b = 0; b < kLeafBatch; ++b) {
+      const int e = e0 + b * nt, k = e / C, c = e - k * C;
+      const int g = c / WB, j = c - g * WB;
+      idx[b] = -1;
+      v[b] = 0.f;
+      if (e >= E || j >= W) continue;
+      const float* pa = op + (k < W ? k : WB + k - W);
+      const float* pb = op + 2 * WB + c;
+      for (int i = 0; i < nb; ++i) v[b] = fmaf(pa[i * S2], pb[i * S2], v[b]);
+      idx[b] = GL.w[g] + k * W + j;
+    }
+    add_batch(acc, idx, v);
   }
+  // ∂b_g[j] += Σ_i da_i[g][j]; ∂Wq[k][j] += Σ_i h_i[k]·dq_i[j]
+  const int E2 = C + W * WB;
+  for (int e0 = tid; e0 < E2; e0 += kLeafBatch * nt) {
+    int idx[kLeafBatch];
+    float v[kLeafBatch];
+#pragma unroll
+    for (int b = 0; b < kLeafBatch; ++b) {
+      const int e = e0 + b * nt;
+      idx[b] = -1;
+      v[b] = 0.f;
+      if (e >= E2) continue;
+      if (e < C) {
+        const int g = e / WB, j = e - g * WB;
+        if (j >= W) continue;
+        for (int i = 0; i < nb; ++i) v[b] += op[i * S2 + 2 * WB + e];
+        idx[b] = GL.b[g] + j;
+      } else {
+        const int kq = (e - C) / WB, j = e - C - kq * WB;
+        if (j >= W) continue;
+        const float *pa = op + 6 * WB + kq, *pb = op + 7 * WB + j;
+        for (int i = 0; i < nb; ++i)
+          v[b] = fmaf(pa[i * S2], pb[i * S2], v[b]);
+        idx[b] = GL.q + kq * W + j;
+      }
+    }
+    add_batch(acc, idx, v);
+  }
+}
+
+// kSlotsSmem: the graphs' slots in shared memory, else in the block's
+// region of global scratch (the spilled route); a compile-time choice, so
+// that the shared-memory route's accesses stay shared-space ones
+template <int WB, bool kSlotsSmem>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+set2vec_bwd_kernel(BwdArgs a) {
+  using LN = Lanes<WB>;
+  using WLB = WL<WB>;
+  constexpr int KP = kpl(WB), NG = LN::NG, RSQ = WLB::RSQ;
+  constexpr int NS = WB <= 16 ? 2 : 1;       // pass B's node split
+  extern __shared__ __align__(16) float sm[];
+  const int W = a.width, G = a.n_graphs, T = a.steps;
+  const int N = a.n_nodes, N4 = al4(N);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5, grid = gridDim.x, nt = blockDim.x;
+  const BwdSmem L(W, WB, a.gpb, nw, a.cap, a.acc_smem != 0, kSlotsSmem);
+  const S2vGradLayout GL(W);
+  const BwdScratch sc(a.scratch, W, WB, T, grid, a.gpb, kSlotsSmem);
+  const int W8 = L.W8, RSt = L.RSt;
+  const bool global_sm = a.batch_softmax != 0, multi = grid > 1;
   int lo, hi;
   block_graphs(G, lo, hi);
-  for (int g = lo + warp; g < hi; g += kWarps) {
-    float* dc = sc.dcarry + size_t(g) * 3 * W;
-#pragma unroll
-    for (int r = 0; r < kPL; ++r) {
-      if (!own[r]) continue;
-      const int j = lane + 32 * r;
-      dc[j] = a.gm[size_t(g) * 2 * W + j];
-      dc[W + j] = a.gm[size_t(g) * 2 * W + W + j];
-      dc[2 * W + j] = 0.f;
-    }
+  const int nb = hi - lo;
+
+  // ---- prologue -----------------------------------------------------------
+  int* gp = reinterpret_cast<int*>(sm + L.gp);
+  for (int i = tid; i <= nb; i += nt) gp[i] = a.graph_node_ptr[lo + i];
+  stage_weights<WB>(sm, a.w, W);
+  float* acc = a.acc_smem ? sm + L.acc
+                          : sc.rows + size_t(blockIdx.x) * GL.total;
+  for (int i = tid; i < GL.total; i += nt) acc[i] = 0.f;
+  float* const cots =
+      kSlotsSmem
+          ? sm + L.cot
+          : sc.slots + size_t(blockIdx.x) * a.gpb * (L.SC + L.S2);
+  float* const ops = kSlotsSmem ? sm + L.op : cots + a.gpb * L.SC;
+  for (int e = tid; e < nb * L.SC; e += nt) {    // the cotangent from gm
+    const int i = e / L.SC, o = e - i * L.SC;
+    const int part = o / WB, j = o - part * WB;
+    float v = 0.f;
+    if (part < 2 && j < W) v = a.gm[size_t(lo + i) * 2 * W + part * W + j];
+    cots[e] = v;
+  }
+  // the operands' padding past w is read (times zero weights) by the
+  // float4 broadcasts: zero
+  for (int e = tid; e < nb * L.S2; e += nt) ops[e] = 0.f;
+  if (multi && global_sm)
+    for (int t = tid; t < T; t += nt)
+      sc.part[word_at(t, grid, blockIdx.x)] = kEmpty;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(sm + L.mbar);
+  if (tid == 0) {
+    mbar_init(bar, 1);
+    mbar_init(bar + 1, 1);
+    mbar_fence_init();
+  }
+  {
+    const int n_real = a.graph_node_ptr[G];   // padded rows: ∂x = 0
+    for (size_t i = size_t(blockIdx.x) * nt + tid;
+         i < size_t(N - n_real) * W; i += size_t(grid) * nt)
+      a.dx[size_t(n_real) * W + i] = 0.f;
   }
   __syncthreads();
+  const int bn0 = gp[0], bn1 = gp[nb];
+  const bool resident = bn1 - bn0 <= a.cap;
+  const int nchunks = resident ? 1 : (bn1 - bn0 + a.cap - 1) / a.cap;
+  if (resident) {
+    stage_rows(sm + L.xs, a.x, bn0, bn1, W, W8, L.XS);
+    for (int i = tid; i < (bn1 - bn0) * L.XS; i += nt) sm[L.dxs + i] = 0.f;
+  } else {
+    for (int i = tid; i < (bn1 - bn0) * W; i += nt)
+      a.dx[size_t(bn0) * W + i] = 0.f;
+  }
+  cp_async_wait_all();
+  if (multi && global_sm)
+    cg::this_grid().sync();    // every block's words reset
+  else
+    __syncthreads();
+
+  // the stash rows of step t (unless spilled) and, resident, its attention
+  // row into buffer t & 1: one thread, TMA bulk copies, one mbarrier phase
+  const int a4 = bn0 & ~3, z4 = al4(bn1);
+  auto issue = [&](int t) {
+    const int b = t & 1;
+    const unsigned cbytes = kSlotsSmem ? unsigned(nb) * RSt * 4 : 0u;
+    const unsigned abytes = resident && bn1 > bn0 ? unsigned(z4 - a4) * 4 : 0;
+    mbar_arrive_tx(bar + b, cbytes + abytes);
+    if (cbytes)
+      bulk_g2s(sm + L.pbuf + b * a.gpb * RSt,
+               a.carry_stash + (size_t(t) * G + lo) * RSt, cbytes, bar + b);
+    if (abytes)
+      bulk_g2s(sm + L.ab + b * L.AB, a.att_stash + size_t(t) * N4 + a4,
+               abytes, bar + b);
+  };
+  if (tid == 0) issue(T - 1);
+  unsigned phase[2] = {0u, 0u};
+
+  const float* we = sm + WLB::we;
+  const float* xs = sm + L.xs;
+  float* dxs = sm + L.dxs;
+  float* db = sm + L.db;
+  float* red = sm + L.red;
+  const LN ln(lane);
+  int kc[KP];                      // this lane's feature (or row), clamped
+#pragma unroll
+  for (int r = 0; r < KP; ++r) kc[r] = min(ln.j0 + 32 * r, W - 1);
+  const int sub = NS == 2 ? lane >> 4 : 0;
+  const int jl = NS == 2 ? lane & 15 : lane;
+  float dwe[KP];
+#pragma unroll
+  for (int r = 0; r < KP; ++r) dwe[r] = 0.f;
+  const bool stamp = a.stamps && blockIdx.x == 0 && tid == 0;
+  auto cot = [&](int i) { return cots + i * L.SC; };
+  auto opr = [&](int i) { return ops + i * L.S2; };
+  // this lane's rows of the gate weights, from gate 2·gh (its half's
+  // first: W_g[half][k][j] at wrow[r][WL::row(g − 2·gh, half, 0) + j]),
+  // and of Wq (Wq[k][j] at qrow[r][j])
+  const float* wrow[KP];
+  const float* qrow[KP];
+#pragma unroll
+  for (int r = 0; r < KP; ++r) {
+    wrow[r] = sm + WLB::gates + WLB::row(2 * ln.gh, 0, kc[r]);
+    qrow[r] = sm + WLB::wq + kc[r] * RSQ;
+  }
+  // load rows [c0, c1) of x, their attention values of step t and (with
+  // `dx`) their ∂x rows into shared memory: the chunked route
+  auto stage_chunk = [&](int t, int c0, int c1, bool dx) {
+    __syncthreads();
+    stage_rows(sm + L.xs, a.x, c0, c1, W, W8, L.XS);
+    for (int v = c0 + tid; v < c1; v += nt)
+      cp_async4(sm + L.ab + v - c0, a.att_stash + size_t(t) * N4 + v);
+    if (dx)          // plain loads: the block itself wrote these rows
+      for (int i = tid; i < (c1 - c0) * W8; i += nt) {
+        const int r = i / W8, j = i - r * W8;
+        if (j < W) dxs[r * L.XS + j] = a.dx[size_t(c0 + r) * W + j];
+      }
+    cp_async_wait_all();
+    __syncthreads();
+  };
 
   for (int t = T - 1; t >= 0; --t) {
-    const float* att = a.att_stash + size_t(t) * N;
-    float* dat = sc.de + size_t(t) * N;
-    // ---- datt_v = dmr·x_v and Σ datt·att ---------------------------------
-    float ploc = 0.f;
-    for (int g = lo + warp; g < hi; g += kWarps) {
+    const int b = t & 1;
+    if (stamp) a.stamps[t * kBwdPhases] = clock64();
+    mbar_wait(bar + b, phase[b]);
+    phase[b] ^= 1u;
+    const float* pb =                              // row i: graph lo + i
+        kSlotsSmem ? sm + L.pbuf + b * a.gpb * RSt
+                     : a.carry_stash + (size_t(t) * G + lo) * RSt;
+    // the attention value of node v (resident: the prefetched row)
+    const float* atr = sm + L.ab + b * L.AB - a4;
+    if (stamp) a.stamps[t * kBwdPhases + 1] = clock64();
+    for (int i = warp; i < nb; i += nw) {
+      float* ct = cot(i);
 #pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        const int j = lane + 32 * r;
-        const float dmr = own[r] ? sc.dcarry[size_t(g) * 3 * W + W + j] : 0.f;
-        buf[j] = dmr;
-        if (own[r]) sc.dmr[(size_t(t) * G + g) * W + j] = dmr;
-      }
-      __syncwarp();
-      const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
-      float gloc = 0.f;
-      for (int n = n0 + lane; n < n1; n += 32) {
-        const float* xv = a.x + size_t(n) * W;
-        float d = 0.f;
-        for (int j = 0; j < W; ++j) d = fmaf(buf[j], xv[j], d);
-        dat[n] = d;
-        gloc = fmaf(d, att[n], gloc);
-      }
-      if (a.batch_softmax) {
-        ploc += gloc;
-      } else {
-        const float sg = warp_sum_(gloc);
-        for (int n = n0 + lane; n < n1; n += 32)
-          dat[n] = att[n] * (dat[n] - sg);
-      }
-      __syncwarp();
+      for (int r = 0; r < KP; ++r)
+        if (lane + 32 * r < W) ct[3 * WB + lane + 32 * r] = 0.f;  // dq
+      if (lane == 0) ct[4 * WB] = 0.f;
     }
-    if (a.batch_softmax) {
-      ploc = warp_sum_(ploc);
-      if (lane == 0) red[warp] = ploc;
-      __syncthreads();
-      float* pt = sc.part + size_t(t & 1) * gridDim.x;
-      if (tid == 0) {
-        float sb = 0.f;
-        for (int i = 0; i < kWarps; ++i) sb += red[i];
-        pt[blockIdx.x] = sb;
-      }
-      grid.sync();
-      if (warp == 0) {
-        float s = 0.f;
-        for (int i = lane; i < int(gridDim.x); i += 32) s += __ldcg(pt + i);
-        s = warp_sum_(s);
-        if (lane == 0) red[kWarps] = s;
-      }
-      __syncthreads();
-      const float S = red[kWarps];
-      for (int g = lo + warp; g < hi; g += kWarps) {
-        const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
-        for (int n = n0 + lane; n < n1; n += 32)
-          dat[n] = att[n] * (dat[n] - S);
-      }
-      __syncthreads();                             // red[] read
-    }
+    __syncwarp();
 
-    // ---- per graph: dq, then the query and LSTM VJPs ---------------------
-    for (int g = lo + warp; g < hi; g += kWarps) {
-      const float* cs = a.carry_stash + (size_t(t) * G + g) * 3 * W;
-      float* dc = sc.dcarry + size_t(g) * 3 * W;
-      const size_t tg = size_t(t) * G + g;
-      float mh[kPL], mr[kPL], cp[kPL], dmh[kPL], dcn[kPL];
-#pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        const int j = lane + 32 * r;
-        mh[r] = own[r] ? cs[j] : 0.f;
-        mr[r] = own[r] ? cs[W + j] : 0.f;
-        cp[r] = own[r] ? cs[2 * W + j] : 0.f;
-        dmh[r] = own[r] ? dc[j] : 0.f;
-        dcn[r] = own[r] ? dc[2 * W + j] : 0.f;
-      }
-      float act[kPL][4], tc[kPL], h[kPL], q[kPL];
-      lstm_gates<WB>(sm, mh, mr, lane, act);
-#pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        tc[r] = tanhf(act[r][1] * cp[r] + act[r][0] * act[r][2]);
-        h[r] = act[r][3] * tc[r];
-      }
-      query<WB>(sm, h, lane, q);
-      __syncwarp();                                // dat[] of the lanes
-      const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
-      // dq_g = Σ_v we·de_v·(1 − th²); ∂x and ∂we wait for the pass below
-      float dq[kPL];
-#pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        dq[r] = 0.f;
-        if (!own[r]) continue;
-        const int j = lane + 32 * r;
-        sc.q[tg * W + j] = q[r];
-        const float wej = sm[SL::kE + j];
-        for (int n = n0; n < n1; ++n) {
-          const float th = tanhf(q[r] + a.x[size_t(n) * W + j]);
-          dq[r] += wej * dat[n] * (1.0f - th * th);
+    // ---- pass A: datt_v = dmr·x_v and Σ datt·att per graph ----------------
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int c0 = bn0 + ch * a.cap, c1 = min(bn1, c0 + a.cap);
+      if (!resident) stage_chunk(t, c0, c1, false);
+      const float* at = resident ? atr : sm + L.ab - c0;
+      for (int i = warp; i < nb; i += nw) {
+        const int n0 = max(gp[i], c0), n1 = min(gp[i + 1], c1);
+        if (n0 >= n1) continue;
+        float* ct = cot(i);
+        float gl = 0.f;
+        for (int v = n0 + lane; v < n1; v += 32) {
+          const float d = dot8(ct + WB, xs + (v - c0) * L.XS, W8);
+          if (resident) db[v - c0] = d;
+          gl = fmaf(d, at[v], gl);
         }
+        gl = warp_sum_(gl);
+        if (lane == 0) ct[4 * WB] += gl;
+        __syncwarp();
       }
-      // q = h·Wq
-      float dh[kPL];
+    }
+    if (stamp) a.stamps[t * kBwdPhases + 2] = clock64();
+    // every graph's Σ datt·att and the last step's leaf operands are
+    // written; the buffer of step t + 1 is free
+    __syncthreads();
+    if (tid == 0 && t > 0) issue(t - 1);
+    float S = 0.f;
+    unsigned long long* row = sc.part + word_at(t, grid, 0);
+    if (global_sm && warp == 0) {
+      for (int i = lane; i < nb; i += 32) S += cot(i)[4 * WB];
+      S = warp_sum_(S);
+      if (multi && lane == 0)
+        st_relaxed(row + blockIdx.x * kWordStride, pack2(S, 0.f));
+    }
+    if (t < T - 1) leaf_products(acc, ops, nb, L.S2, W, WB, GL);
+    if (global_sm && warp == 0) {
+      if (multi) S = sum_words(row, grid, lane);
+      if (lane == 0) red[0] = S;
+    }
+    __syncthreads();           // the total; the leaf operands consumed
+    if (stamp) a.stamps[t * kBwdPhases + 3] = clock64();
+    const float S_all = global_sm ? red[0] : 0.f;
+
+    // ---- pass B: de, ∂x, dq and ∂we --------------------------------------
+    for (int ch = 0; ch < nchunks; ++ch) {
+      const int c0 = bn0 + ch * a.cap, c1 = min(bn1, c0 + a.cap);
+      if (!resident) stage_chunk(t, c0, c1, true);
+      const float* at = resident ? atr : sm + L.ab - c0;
+      for (int i = warp; i < nb; i += nw) {
+        const int n0 = max(gp[i], c0), n1 = min(gp[i + 1], c1);
+        if (n0 >= n1) continue;
+        float* ct = cot(i);
+        const float Sg = global_sm ? S_all : ct[4 * WB];
+        for (int v = n0 + lane; v < n1; v += 32) {
+          const float d = resident ? db[v - c0]
+                                   : dot8(ct + WB, xs + (v - c0) * L.XS, W8);
+          db[v - c0] = at[v] * (d - Sg);
+        }
+        __syncwarp();
+        const float* q = pb + i * RSt + 7 * W;
 #pragma unroll
-      for (int r = 0; r < kPL; ++r) dh[r] = dmh[r];
-#pragma unroll
-      for (int kr = 0; kr * 32 < WB; ++kr) {
-#pragma unroll 8
-        for (int kk = 0; kk < (WB < 32 ? WB : 32); ++kk) {
-          const int k = kr * 32 + kk;
-          const float hk = __shfl_sync(kFull, h[kr], kk);
-          const float dqk = __shfl_sync(kFull, dq[kr], kk);
-#pragma unroll
-          for (int r = 0; r < kPL; ++r) {
-            const int j = lane + 32 * r;
-            if (kAccInSmem && own[r] && k < W)
-              acc[L.q + k * W + j] += hk * dq[r];
-            dh[r] = fmaf(sm[SL::kQ + j * WS + k], dqk, dh[r]);
+        for (int r = 0; r < KP; ++r) {
+          const int j = jl + 32 * r, jc = min(j, W - 1);
+          const float qj = q[jc], dmrj = ct[WB + jc], wej = we[jc];
+          float dq = 0.f, dwl = 0.f;
+          for (int v = n0 + sub; v < n1; v += NS) {
+            const int row = v - c0;
+            const float th = tanh_fast(qj + xs[row * L.XS + jc]);
+            const float de = db[row], dd = de * (1.0f - th * th);
+            dq = fmaf(wej, dd, dq);
+            dwl = fmaf(th, de, dwl);
+            if (j < W)
+              dxs[row * L.XS + j] += at[v] * dmrj + wej * dd;
+          }
+          if (NS == 2) dq += __shfl_xor_sync(kFull, dq, 16);
+          if (j < W) {
+            dwe[r] += dwl;
+            if (sub == 0) ct[3 * WB + j] += dq;
           }
         }
+        __syncwarp();
       }
-      // LSTM
-      float da[kPL][4], dct[kPL];
-#pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        const float i_ = act[r][0], f_ = act[r][1], g_ = act[r][2],
-                    o_ = act[r][3];
-        dct[r] = dcn[r] + dh[r] * o_ * (1.0f - tc[r] * tc[r]);
-        da[r][0] = dct[r] * g_ * i_ * (1.0f - i_);
-        da[r][1] = dct[r] * cp[r] * f_ * (1.0f - f_);
-        da[r][2] = dct[r] * i_ * (1.0f - g_ * g_);
-        da[r][3] = dh[r] * tc[r] * o_ * (1.0f - o_);
-      }
-      float dmh_p[kPL], dmr_p[kPL];
-#pragma unroll
-      for (int r = 0; r < kPL; ++r) dmh_p[r] = dmr_p[r] = 0.f;
-#pragma unroll
-      for (int kr = 0; kr * 32 < WB; ++kr) {
-#pragma unroll 4
-        for (int kk = 0; kk < (WB < 32 ? WB : 32); ++kk) {
-          const int k = kr * 32 + kk;
-          const float xk = __shfl_sync(kFull, mh[kr], kk);
-          const float yk = __shfl_sync(kFull, mr[kr], kk);
-#pragma unroll
-          for (int gg = 0; gg < 4; ++gg) {
-            const float dak = __shfl_sync(kFull, da[kr][gg], kk);
-#pragma unroll
-            for (int r = 0; r < kPL; ++r) {
-              const int j = lane + 32 * r;
-              if (kAccInSmem && own[r] && k < W) {
-                acc[L.w[gg] + k * W + j] += xk * da[r][gg];
-                acc[L.w[gg] + (W + k) * W + j] += yk * da[r][gg];
-              }
-              dmh_p[r] = fmaf(sm[SL::kW + (gg * 2 * WP + j) * WS + k], dak,
-                              dmh_p[r]);
-              dmr_p[r] = fmaf(sm[SL::kW + (gg * 2 * WP + WP + j) * WS + k],
-                              dak, dmr_p[r]);
-            }
-          }
+      if (!resident) {
+        __syncthreads();                   // every warp's ∂x of the chunk
+        for (int i = tid; i < (c1 - c0) * W8; i += nt) {
+          const int r = i / W8, j = i - r * W8;
+          if (j < W) a.dx[size_t(c0 + r) * W + j] = dxs[r * L.XS + j];
         }
       }
+    }
+    if (stamp) a.stamps[t * kBwdPhases + 4] = clock64();
+
+    // ---- the query and LSTM VJPs; the cotangent carry of step t − 1 ------
+    for (int i = warp; i < nb; i += nw) {
+      const float* st = pb + i * RSt;      // [mh | mr | c | i f g o | q]
+      float* ct = cot(i);
+      float* op = opr(i);
+      // dh[k] = dmh[k] + Σ_j Wq[k][j]·dq[j]: lane over k, dq a float4
+      // broadcast; at WB 16 half gh takes the j of parity gh
+      float dh[KP];
 #pragma unroll
-      for (int r = 0; r < kPL; ++r) {
-        if (!own[r]) continue;
-        const int j = lane + 32 * r;
-        if (kAccInSmem) {
+      for (int r = 0; r < KP; ++r) dh[r] = 0.f;
 #pragma unroll
-          for (int gg = 0; gg < 4; ++gg) acc[L.b[gg] + j] += da[r][gg];
+      for (int j0 = 0; j0 < WB; j0 += 4) {
+        if (j0 >= W) break;
+        float d4[4];
+        ld4(ct + 3 * WB + j0, d4);
+        if constexpr (LN::kHalf) {
+#pragma unroll
+          for (int m = 0; m < 2; ++m)
+            dh[0] = fmaf(qrow[0][j0 + 2 * m + ln.gh],
+                         ln.gh ? d4[2 * m + 1] : d4[2 * m], dh[0]);
         } else {
 #pragma unroll
-          for (int gg = 0; gg < 4; ++gg)
-            sc.da[(tg * 4 + gg) * W + j] = da[r][gg];
-          sc.h[tg * W + j] = h[r];
-          sc.dq[tg * W + j] = dq[r];
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int r = 0; r < KP; ++r)
+              dh[r] = fmaf(qrow[r][j0 + jj], d4[jj], dh[r]);
         }
-        dc[j] = dmh_p[r];
-        dc[W + j] = dmr_p[r];
-        dc[2 * W + j] = dct[r] * act[r][1];
+      }
+      if constexpr (LN::kHalf) dh[0] += __shfl_xor_sync(kFull, dh[0], 16);
+      // the LSTM VJP at this lane's feature, from the stashed gates
+      float da[KP][4], h[KP], dcp[KP];
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        const int j = kc[r];
+        const float i_ = st[3 * W + j], f_ = st[4 * W + j],
+                    g_ = st[5 * W + j], o_ = st[6 * W + j], cp = st[2 * W + j];
+        const float tc = tanhf(f_ * cp + i_ * g_), dhr = ct[j] + dh[r];
+        const float dct = ct[2 * WB + j] + dhr * o_ * (1.0f - tc * tc);
+        h[r] = o_ * tc;
+        da[r][0] = dct * g_ * i_ * (1.0f - i_);
+        da[r][1] = dct * cp * f_ * (1.0f - f_);
+        da[r][2] = dct * i_ * (1.0f - g_ * g_);
+        da[r][3] = dhr * tc * o_ * (1.0f - o_);
+        dcp[r] = dct * f_;
+      }
+      // the leaf operands, da among them for the products below
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        const int j = ln.j0 + 32 * r;
+        if (ln.gh || j >= W) continue;
+        op[j] = st[j];
+        op[WB + j] = st[W + j];
+#pragma unroll
+        for (int g = 0; g < 4; ++g) op[(2 + g) * WB + j] = da[r][g];
+        op[6 * WB + j] = h[r];
+        op[7 * WB + j] = ct[3 * WB + j];
       }
       __syncwarp();
-    }
-  }
-
-  // ---- ∂x and ∂we off the serial chain: each node's sum over the steps ---
-  //   ∂x_v = Σ_t att_t,v·dmr_t,g + we·de_t,v·(1 − th²),  ∂we = Σ th·de
-  // from the per-step stashes; a graph's rows were written by this warp.
+      // [dmh ‖ dmr] of step t − 1 = W·da: lane over k, da a float4
+      // broadcast; at WB 16 each half takes two gates
+      float dmh_p[KP], dmr_p[KP];
 #pragma unroll
-  for (int r = 0; r < kPL; ++r) {
-    const int j = lane + 32 * r;
-    if (!own[r]) continue;
-    const float wej = sm[SL::kE + j];
-    float dwe = 0.f;
-    for (int g = lo + warp; g < hi; g += kWarps) {
-      const float* qg = sc.q + size_t(g) * W + j;
-      const float* dmrg = sc.dmr + size_t(g) * W + j;
-      const size_t gstride = size_t(G) * W;
-      for (int n = a.graph_node_ptr[g]; n < a.graph_node_ptr[g + 1]; ++n) {
-        const float xv = a.x[size_t(n) * W + j];
-        float d = 0.f;
-        for (int t = T - 1; t >= 0; --t) {
-          const float de = sc.de[size_t(t) * N + n];
-          const float th = tanhf(qg[t * gstride] + xv);
-          dwe = fmaf(th, de, dwe);
-          d += a.att_stash[size_t(t) * N + n] * dmrg[t * gstride] +
-               wej * de * (1.0f - th * th);
+      for (int r = 0; r < KP; ++r) dmh_p[r] = dmr_p[r] = 0.f;
+#pragma unroll
+      for (int gi = 0; gi < NG; ++gi) {
+        const float* dag = op + (2 + 2 * ln.gh + gi) * WB;
+#pragma unroll
+        for (int j0 = 0; j0 < WB; j0 += 4) {
+          if (j0 >= W) break;
+          float d4[4];
+          ld4(dag + j0, d4);
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+            for (int r = 0; r < KP; ++r) {
+              dmh_p[r] = fmaf(wrow[r][WLB::row(gi, 0, 0) + j0 + jj], d4[jj],
+                              dmh_p[r]);
+              dmr_p[r] = fmaf(wrow[r][WLB::row(gi, 1, 0) + j0 + jj], d4[jj],
+                              dmr_p[r]);
+            }
         }
-        a.dx[size_t(n) * W + j] = d;
+      }
+      if constexpr (LN::kHalf) {
+        dmh_p[0] += __shfl_xor_sync(kFull, dmh_p[0], 16);
+        dmr_p[0] += __shfl_xor_sync(kFull, dmr_p[0], 16);
+      }
+#pragma unroll
+      for (int r = 0; r < KP; ++r) {
+        const int j = ln.j0 + 32 * r;
+        if (ln.gh || j >= W) continue;
+        ct[j] = dmh_p[r];
+        ct[WB + j] = dmr_p[r];
+        ct[2 * WB + j] = dcp[r];
       }
     }
-    if (kAccInSmem)
-      acc[L.e + j] += dwe;
-    else
-      sc.dwe[(size_t(blockIdx.x) * kWarps + warp) * W + j] = dwe;
+    __syncwarp();
+    if (stamp) a.stamps[t * kBwdPhases + 5] = clock64();
+  }
+
+  // ---- the last step's leaf products, ∂we, ∂x rows; blocks in order -----
+  __syncthreads();
+  leaf_products(acc, ops, nb, L.S2, W, WB, GL);
+  float* wd = sm + L.wd + warp * W8;
+#pragma unroll
+  for (int r = 0; r < KP; ++r) {
+    float v = dwe[r];
+    if (NS == 2) v += __shfl_xor_sync(kFull, v, 16);
+    const int j = jl + 32 * r;
+    if (sub == 0 && j < W8) wd[j] = j < W ? v : 0.f;
   }
   __syncthreads();
-
-  // ---- warps in order into the block row, blocks in order into dw ---------
-  float* wrow = sc.wpart + size_t(blockIdx.x) * NW;
-  if (kAccInSmem) {
-    for (int e = tid; e < NW; e += kThreads) {
+  for (int j = tid; j < W; j += nt) {
+    float s = 0.f;
+    for (int w = 0; w < nw; ++w) s += sm[L.wd + w * W8 + j];
+    acc[GL.e + j] += s;
+  }
+  if (resident)
+    for (int i = tid; i < (bn1 - bn0) * W8; i += nt) {
+      const int r = i / W8, j = i - r * W8;
+      if (j < W) a.dx[size_t(bn0 + r) * W + j] = dxs[r * L.XS + j];
+    }
+  __syncthreads();
+  if (multi) {
+    if (a.acc_smem) {
+      float* row = sc.rows + size_t(blockIdx.x) * GL.total;
+      for (int e = tid; e < GL.total; e += nt) row[e] = acc[e];
+    }
+    cg::this_grid().sync();
+    for (int e = blockIdx.x * nt + tid; e < GL.total; e += grid * nt) {
       float s = 0.f;
-      for (int i = 0; i < kWarps; ++i) s += sm[SL::total + i * NW + e];
-      wrow[e] = s;
+      for (int bb = 0; bb < grid; ++bb)
+        s += __ldcg(sc.rows + size_t(bb) * GL.total + e);
+      a.dw[e] = s;
     }
   } else {
-    grid.sync();                         // every block's stashes written
-    leaf_grads_from_stash(a, sc, L, sm, sm + NW);
-    for (int e = tid; e < NW; e += kThreads) {
-      float s = sm[e];
-      if (e >= L.e) {                    // ∂we: this block's warps in order
-        s = 0.f;
-        for (int i = 0; i < kWarps; ++i)
-          s += __ldcg(sc.dwe + (size_t(blockIdx.x) * kWarps + i) * W +
-                      e - L.e);
-      }
-      wrow[e] = s;
-    }
-  }
-  grid.sync();
-  for (int e = blockIdx.x * kThreads + tid; e < NW;
-       e += gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int b = 0; b < int(gridDim.x); ++b)
-      s += __ldcg(sc.wpart + size_t(b) * NW + e);
-    a.dw[e] = s;
+    for (int e = tid; e < GL.total; e += nt) a.dw[e] = acc[e];
   }
 }
 
-size_t smem_bytes(int width) {
-  const size_t nw = S2vGradLayout(width).total;
-  if (kAccInSmem)
-    return sizeof(float) * (size_t(SL::total) + size_t(kWarps) * nw);
-  // the walk's staged weights, or the leaf pass's block row and row chunk
-  return sizeof(float) * max(size_t(SL::total),
-                             nw + size_t(kPostRows) * 8 * width);
-}
-
-const void* kernel_for(int width) {
-  return kernel_for_width(width, set2vec_bwd_kernel<16>,
-                          set2vec_bwd_kernel<WP>);
+const void* kernel_for(int width, bool slots_smem) {
+  return slots_smem ? kernel_for_width(width, set2vec_bwd_kernel<16, true>,
+                                       set2vec_bwd_kernel<WP, true>)
+                    : kernel_for_width(width, set2vec_bwd_kernel<16, false>,
+                                       set2vec_bwd_kernel<WP, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-int mpnn_set2vec_bwd_smem_bytes(int width) { return int(smem_bytes(width)); }
+int mpnn_set2vec_bwd_smem_bytes(int width, int gpb, int warps, int cap,
+                                int acc_smem, int slots_smem) {
+  return int(sizeof(float) * BwdSmem(width, wb_of(width), gpb, warps, cap,
+                                     acc_smem != 0, slots_smem != 0)
+                                 .total);
+}
 
 // The 11 offsets of the flat gradient layout (S2vGradLayout), total last.
 void mpnn_set2vec_bwd_layout(int width, int* out) {
@@ -474,13 +618,11 @@ void mpnn_set2vec_bwd_layout(int width, int* out) {
   for (int i = 0; i < 11; ++i) out[i] = v[i];
 }
 
-long long mpnn_set2vec_bwd_scratch_floats(int n_nodes, int n_graphs,
-                                          int width, int steps, int grid) {
-  return BwdScratch(nullptr, n_nodes, n_graphs, width, steps, grid).total;
-}
-
-int mpnn_set2vec_bwd_grid(int n_graphs, int width) {
-  return coop_grid(kernel_for(width), smem_bytes(width), n_graphs);
+long long mpnn_set2vec_bwd_scratch_floats(int width, int steps, int grid,
+                                          int gpb, int slots_smem) {
+  return BwdScratch(nullptr, width, wb_of(width), steps, grid, gpb,
+                    slots_smem != 0)
+      .total;
 }
 
 int mpnn_set2vec_bwd(
@@ -489,24 +631,24 @@ int mpnn_set2vec_bwd(
     const float* b_hg, const float* b_ho, const float* wq, const float* we,
     const float* x, const int* graph_node_ptr, const float* carry_stash,
     const float* att_stash, const float* gm, float* dx, float* dw,
-    float* scratch, int n_nodes, int n_graphs, int width, int steps,
-    int batch_softmax, int grid, void* stream) {
-  if (width < 1 || width > WP || steps < 1 || n_graphs < 1 || grid < 1)
+    float* scratch, long long* stamps, int n_nodes, int n_graphs, int width,
+    int steps, int batch_softmax, int grid, int warps, int gpb, int cap,
+    int acc_smem, int slots_smem, void* stream) {
+  if (width < 1 || width > WP || steps < 1 || n_graphs < 1 || grid < 1 ||
+      grid > n_graphs || grid > kMaxGrid || warps < 1 || warps > kMaxWarps ||
+      cap < 1 || (long long)gpb * grid < n_graphs)
     return int(cudaErrorInvalidValue);
   BwdArgs a{{{w_hi, w_hf, w_hg, w_ho}, {b_hi, b_hf, b_hg, b_ho}, wq, we},
             x, graph_node_ptr, carry_stash, att_stash, gm, dx, dw, scratch,
-            n_nodes, n_graphs, width, steps, batch_softmax};
-  const size_t bytes = smem_bytes(width);
-  const void* kernel = kernel_for(width);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err != cudaSuccess) return int(err);
+            stamps, n_nodes, n_graphs, width, steps, batch_softmax, gpb,
+            cap, acc_smem};
   void* args[] = {&a};
-  err = cudaLaunchCooperativeKernel(kernel, dim3(grid),
-                                    dim3(kThreads), args, bytes,
-                                    static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  return int(launch_coop(
+      kernel_for(width, slots_smem != 0), grid, warps,
+      sizeof(float) * BwdSmem(width, wb_of(width), gpb, warps, cap,
+                              acc_smem != 0, slots_smem != 0)
+                          .total,
+      args, stream));
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -14,11 +14,17 @@ make_set2vec_op (Pallas `_s2v_fwd_kernel` and `_s2v_bwd_kernel`).
 With the batch-global softmax a molecule's output depends on the other
 molecules of its batch, as in the reference. `set2vec` is a
 torch.autograd.Function whose forward and backward are one cooperative
-CUDA launch each (csrc/set2vec_fwd.cu, csrc/set2vec_bwd.cu). For training
-the forward writes the residual stash — each step's input carry (mh, mr,
-c) and attention row — which the backward walks in reverse; serving skips
-it. CPU tensors run the plain version set2vec_reference (under autograd);
-CUDA tensors launch the kernels or raise — no fallback.
+CUDA launch each (csrc/set2vec_fwd.cu, csrc/set2vec_bwd.cu), shaped by
+`launch_shape` on the host: one block for a batch of at most 32 graphs
+that fits it, else a block per SM; a block whose node rows exceed its
+staging capacity streams them (the chunked route), and a block with more
+graphs than its shared memory holds slots for keeps them in global
+scratch (the spilled route). For training the
+forward writes the residual stash — a row per step and graph (input
+carry, gates, query) and each step's attention row — which the backward
+walks in reverse; serving skips it. CPU tensors run the plain version
+set2vec_reference (under autograd); CUDA tensors launch the kernels or
+raise — no fallback.
 """
 
 from __future__ import annotations
@@ -87,23 +93,188 @@ def set2vec_reference(rparams, x, mask, node_graph, graph_node_ptr, *,
 
 
 # ---------------------------------------------------------------------------
+# the launch shape: the host's route rule
+# ---------------------------------------------------------------------------
+
+MAX_WARPS = 16           # csrc/set2vec_common.cuh::kMaxWarps
+MAX_GRID = 256           # csrc/set2vec_common.cuh::kMaxGrid
+BWD_MIN_WARPS = 8        # the backward's block-wide leaf sums: 256 threads
+ONE_BLOCK_GRAPHS = 32    # a batch of at most this many graphs: one block
+MIN_ROWS = 32            # the least staging capacity a launch accepts
+_FWD_PHASES, _BWD_PHASES = 5, 6   # clock64 stamps a step (csrc)
+
+
+def _al4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _pad8(n: int) -> int:
+    return (n + 7) & ~7
+
+
+def stash_width(w: int) -> int:
+    """Floats a row of the forward's training stash takes:
+    [mh | mr | c | i f g o | q] (csrc/set2vec_common.cuh::stash_width)."""
+    return _al4(8 * w)
+
+
+def att_stride(n: int) -> int:
+    """Floats a step's row of the attention stash takes (16-byte rows, so
+    the backward's bulk copies start aligned)."""
+    return _al4(n)
+
+
+def width_bound(w: int) -> int:
+    """The width bound WB the kernels are instantiated for at w
+    (csrc/set2vec_common.cuh::wb_of): 16 or 32 in the narrow bucket, 64 in
+    the wide one."""
+    return 16 if w <= 16 else 32 if w <= BUCKETS[0][1]["w"] else 64
+
+
+def _weights_floats(wb: int) -> int:
+    pair = 4 * wb * (wb + 1) + (16 if wb == 16 else 0)
+    rsq = 18 if wb == 16 else wb + 1
+    return _al4(2 * pair) + 4 * wb + _al4(wb * rsq) + wb
+
+
+def smem_floats(direction: str, w: int, gpb: int, warps: int, cap: int,
+                acc_smem: bool = True, slots_smem: bool = True) -> int:
+    """Shared memory (floats) of a block of `direction` ('fwd' or 'bwd')
+    at width w with `gpb` graphs, `warps` warps and `cap` staged rows: the
+    layouts csrc/set2vec_fwd.cu::FwdSmem and csrc/set2vec_bwd.cu::BwdSmem
+    (the wrappers check the built library agrees); the backward's leaf
+    accumulator in it with `acc_smem`, the graphs' slots with
+    `slots_smem`."""
+    wb, w8 = width_bound(w), _pad8(w)
+    xs = w8 + 1
+    slots = gpb if slots_smem else 0
+    if direction == "fwd":
+        return (_weights_floats(wb) + slots * (4 * wb + 4) + 4
+                + _al4(gpb + 1) + _al4(cap * xs) + _al4(cap))
+    acc = _al4(grad_layout(w)["total"][0]) if acc_smem else 0
+    per_graph = 4 * wb + 4 + 8 * wb + 2 * stash_width(w)
+    return (_weights_floats(wb) + acc + slots * per_graph + 4 + warps * w8
+            + 4 + _al4(gpb + 1) + 2 * _al4(cap * xs) + _al4(cap)
+            + 2 * _al4(cap + 8))
+
+
+class S2vShape(NamedTuple):
+    """A launch: `grid` blocks of `warps` warps, at most `gpb` graphs a
+    block, `cap` node rows staged a block (a block with more streams them:
+    the chunked route), `smem` bytes of shared memory a block, the
+    backward's leaf accumulator in shared memory (`acc_smem`) or in the
+    block's row of global scratch, the graphs' slots in shared memory
+    (`slots_smem`) or in the block's region of global scratch (the
+    spilled route)."""
+    grid: int
+    warps: int
+    gpb: int
+    cap: int
+    smem: int
+    acc_smem: bool = True
+    slots_smem: bool = True
+
+    @property
+    def route(self) -> str:
+        return "one-block" if self.grid == 1 else "grid"
+
+    def tag(self, graph_node_ptr) -> str:
+        """The route of a batch with these node pointers (a sequence of G
+        + 1 ints), and what gives way on it: 'one-block' or 'grid', then
+        'chunked' when a block's rows pass `cap`, 'global-acc',
+        'spilled'."""
+        ptr, g = [int(p) for p in graph_node_ptr], len(graph_node_ptr) - 1
+        most = max(ptr[(b + 1) * g // self.grid] - ptr[b * g // self.grid]
+                   for b in range(self.grid))
+        return " ".join([self.route] + ["chunked"] * (most > self.cap)
+                        + ["global-acc"] * (not self.acc_smem)
+                        + ["spilled"] * (not self.slots_smem))
+
+
+def launch_shape(direction: str, n_nodes: int, n_graphs: int, w: int, *,
+                 smem_bytes: int, sms: int) -> S2vShape:
+    """The route rule, from the shapes alone: a batch of at most
+    ONE_BLOCK_GRAPHS graphs whose node slots all fit one block's staging
+    capacity runs as ONE block (a warp per graph, no grid barrier); any
+    other as min(sms, G, MAX_GRID) blocks, one per SM, a warp per graph up
+    to MAX_WARPS (the backward at least BWD_MIN_WARPS, for its block-wide
+    leaf sums). A block stages up to `cap` node rows — all the slots if they
+    fit, else as many as `smem_bytes` leaves — and a block whose graphs
+    hold more streams them in chunks of `cap` rows. A block must stage at
+    least MIN_ROWS rows (or all the slots); what gives way for them, in
+    turn: the backward's leaf accumulator (in shared memory in the narrow
+    bucket, else the block's row of global scratch — past ~40 graphs a
+    block at w 32, and always in the wide bucket, whose 145 KB do not fit
+    beside the weights' 151 KB), then the graphs' slots (the spilled
+    route: the backward past ~9 graphs a block at w 54-64, the forward
+    past ~70). NotImplementedError only when the weights alone leave no
+    room (a card with less shared memory than an H100)."""
+    budget = smem_bytes // 4
+
+    def fit(grid, acc_smem, slots_smem):
+        gpb = -(-n_graphs // grid)
+        warps = min(MAX_WARPS, max(gpb, BWD_MIN_WARPS if direction == "bwd"
+                                   else 1))
+        floats = lambda cap: smem_floats(direction, w, gpb, warps, cap,
+                                         acc_smem, slots_smem)
+        cap = max(1, n_nodes)
+        if floats(cap) > budget:
+            per = 2 * (_pad8(w) + 1) + 3 if direction == "bwd" \
+                else _pad8(w) + 2
+            cap = max(0, (budget - floats(0)) // per)
+            while cap > 0 and floats(cap) > budget:
+                cap -= 1
+        return S2vShape(grid, warps, gpb, cap, 4 * floats(cap), acc_smem,
+                        slots_smem)
+
+    # (acc_smem, slots_smem), in the order they give way
+    if direction == "fwd":
+        tiers = [(True, True), (True, False)]
+    else:
+        tiers = [(True, True)] * (w <= BUCKETS[0][1]["w"]) + [
+            (False, True), (False, False)]
+    if n_graphs <= ONE_BLOCK_GRAPHS:
+        one = fit(1, *tiers[0])
+        if one.cap >= n_nodes:
+            return one
+    grid = min(sms, n_graphs, MAX_GRID)
+    for acc_smem, slots_smem in tiers:
+        shape = fit(grid, acc_smem, slots_smem)
+        if shape.cap >= min(MIN_ROWS, n_nodes):
+            return shape
+    raise NotImplementedError(
+        f"set2vec_{direction}: {n_graphs} graphs of width {w} leave room "
+        f"for {shape.cap} staged rows a block ({smem_bytes} bytes of shared "
+        f"memory, {sms} SMs); at least {MIN_ROWS} are needed")
+
+
+def device_shape(direction: str, n_nodes: int, n_graphs: int, w: int,
+                 device) -> S2vShape:
+    """launch_shape on `device`'s SM count and shared-memory limit."""
+    props = torch.cuda.get_device_properties(device)
+    return launch_shape(direction, n_nodes, n_graphs, w,
+                        smem_bytes=props.shared_memory_per_block_optin,
+                        sms=props.multi_processor_count)
+
+
+# ---------------------------------------------------------------------------
 # the CUDA kernels' libraries
 # ---------------------------------------------------------------------------
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "set2vec_fwd": {
-        "mpnn_set2vec_fwd": ([_P] * 16 + [_I] * 6 + [_P], _I),
-        "mpnn_set2vec_fwd_smem_bytes": ([_I], _I),
-        "mpnn_set2vec_fwd_scratch_floats": ([_I] * 3, ctypes.c_longlong),
-        "mpnn_set2vec_fwd_grid": ([_I, _I], _I),
+        "mpnn_set2vec_fwd": ([_P] * 17 + [_I] * 10 + [_P], _I),
+        "mpnn_set2vec_fwd_smem_bytes": ([_I] * 4, _I),
+        "mpnn_set2vec_stash_width": ([_I], _I),
+        "mpnn_set2vec_fwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+        "mpnn_set2vec_floor": ([_I] * 3 + [_P] * 3, _I),
     },
     "set2vec_bwd": {
-        "mpnn_set2vec_bwd": ([_P] * 18 + [_I] * 6 + [_P], _I),
-        "mpnn_set2vec_bwd_smem_bytes": ([_I], _I),
+        "mpnn_set2vec_bwd": ([_P] * 19 + [_I] * 11 + [_P], _I),
+        "mpnn_set2vec_bwd_smem_bytes": ([_I] * 6, _I),
         "mpnn_set2vec_bwd_layout": ([_I, _P], None),
         "mpnn_set2vec_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
-        "mpnn_set2vec_bwd_grid": ([_I, _I], _I),
     },
 }
 
@@ -190,33 +361,61 @@ def _check_inputs(leaves, x, mask, node_graph, graph_node_ptr, steps):
     return n, w, g
 
 
+def _checked_shape(lib, direction, n, g, w, device) -> S2vShape:
+    """device_shape, held against the built library's own shared-memory
+    size for it."""
+    shape = device_shape(direction, n, g, w, device)
+    fn = getattr(lib, f"mpnn_set2vec_{direction}_smem_bytes")
+    size = fn(w, shape.gpb, shape.cap, int(shape.slots_smem)) \
+        if direction == "fwd" else fn(w, shape.gpb, shape.warps, shape.cap,
+                                      int(shape.acc_smem),
+                                      int(shape.slots_smem))
+    if size != shape.smem:
+        raise RuntimeError(f"set2vec_{direction}: the built library's "
+                           f"shared memory ({size} B) disagrees with "
+                           f"launch_shape's ({shape.smem} B)")
+    return shape
+
+
 class S2vMeta(NamedTuple):
     steps: int
     batch_softmax: bool
 
 
 def prepare_set2vec_fwd(leaves, x, mask, node_graph, graph_node_ptr,
-                        meta: S2vMeta, *, stash: bool) -> K.PreparedLaunch:
+                        meta: S2vMeta, *, stash: bool,
+                        stamps=None) -> K.PreparedLaunch:
     """One checked forward launch: outputs m (G, 2w) and, with `stash`,
-    the residuals the backward reads — the input carry of every step
-    (T, G, 3w) as [mh ‖ mr ‖ c] and the attention rows (T, N) — else
-    empty tensors."""
+    the residuals the backward reads — a row per step and graph (T, G,
+    stash_width(w)) and the attention rows (T, att_stride(N)) — else empty
+    tensors. `stamps`, an int64 (T, 5) tensor, takes block 0's clock64
+    stamps of each step's phases."""
     n, w, g = _check_inputs(leaves, x, mask, node_graph, graph_node_ptr,
                             meta.steps)
     lib = _lib("set2vec_fwd", K.width_bucket("set2vec", BUCKETS, w=w))
+    if lib.mpnn_set2vec_stash_width(w) != stash_width(w):
+        raise RuntimeError("set2vec_fwd: the built library's stash row "
+                           "disagrees with stash_width")
     T = meta.steps
-    grid = K._grid(lib, "mpnn_set2vec_fwd_grid", g, w)
+    shape = _checked_shape(lib, "fwd", n, g, w, x.device)
     kw = dict(dtype=torch.float32, device=x.device)
     m = torch.empty(g, 2 * w, **kw)
-    carry = torch.empty(T, g, 3 * w, **kw) if stash else torch.empty(0, **kw)
-    att = torch.empty(T, n, **kw) if stash else torch.empty(0, **kw)
-    scratch = torch.empty(lib.mpnn_set2vec_fwd_scratch_floats(n, g, grid),
-                          **kw)
-    tensors = list(leaves) + [x, graph_node_ptr, m, carry, att, scratch]
+    carry = torch.empty(T, g, stash_width(w), **kw) if stash \
+        else torch.empty(0, **kw)
+    att = torch.empty(T, att_stride(n), **kw) if stash \
+        else torch.empty(0, **kw)
+    part = torch.empty(lib.mpnn_set2vec_fwd_scratch_floats(
+        w, T, shape.grid, shape.gpb, int(shape.slots_smem)), **kw)
+    tensors = list(leaves) + [x, graph_node_ptr, m, carry, att, part]
     ptrs = [t.data_ptr() for t in tensors]
     if not stash:
         ptrs[-3] = ptrs[-2] = None
-    args = (*ptrs, n, g, w, T, int(meta.batch_softmax), grid,
+    if stamps is not None:
+        K._check("stamps", stamps, (T, _FWD_PHASES), x.device, torch.int64)
+        tensors.append(stamps)
+    args = (*ptrs, None if stamps is None else stamps.data_ptr(), n, g, w,
+            T, int(meta.batch_softmax), shape.grid, shape.warps, shape.gpb,
+            shape.cap, int(shape.slots_smem),
             torch.cuda.current_stream(x.device).cuda_stream)
     return K.PreparedLaunch("set2vec_fwd", lib.mpnn_set2vec_fwd,
                             lib.mpnn_cuda_error_string, args,
@@ -224,14 +423,16 @@ def prepare_set2vec_fwd(leaves, x, mask, node_graph, graph_node_ptr,
 
 
 def prepare_set2vec_bwd(leaves, x, graph_node_ptr, carry, att, gm,
-                        meta: S2vMeta) -> K.PreparedLaunch:
+                        meta: S2vMeta, *, stamps=None) -> K.PreparedLaunch:
     """One checked backward launch on the forward's stash: outputs dx
-    (N, w) and the flat gradient of grad_layout."""
+    (N, w) and the flat gradient of grad_layout. `stamps`, an int64
+    (T, 6) tensor, takes block 0's clock64 stamps of each step's phases."""
     device = x.device
     n, w = x.shape
     g, T = graph_node_ptr.shape[0] - 1, meta.steps
-    for name, t, shape in [("carry", carry, (T, g, 3 * w)),
-                           ("att", att, (T, n)), ("gm", gm, (g, 2 * w))]:
+    for name, t, shape in [("carry", carry, (T, g, stash_width(w))),
+                           ("att", att, (T, att_stride(n))),
+                           ("gm", gm, (g, 2 * w))]:
         K._check(name, t, shape, device, torch.float32)
     lib = _lib("set2vec_bwd", K.width_bucket("set2vec", BUCKETS, w=w))
     layout = grad_layout(w)
@@ -240,20 +441,44 @@ def prepare_set2vec_bwd(leaves, x, graph_node_ptr, carry, att, gm,
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("set2vec_bwd: the gradient layout of the built "
                            "library disagrees with grad_layout")
-    grid = K._grid(lib, "mpnn_set2vec_bwd_grid", g, w)
+    shape = _checked_shape(lib, "bwd", n, g, w, device)
     kw = dict(dtype=torch.float32, device=device)
     dx = torch.empty(n, w, **kw)
     dw = torch.empty(layout["total"][0], **kw)
-    scratch = torch.empty(
-        lib.mpnn_set2vec_bwd_scratch_floats(n, g, w, T, grid), **kw)
+    scratch = torch.empty(lib.mpnn_set2vec_bwd_scratch_floats(
+        w, T, shape.grid, shape.gpb, int(shape.slots_smem)), **kw)
     tensors = list(leaves) + [x, graph_node_ptr, carry, att, gm, dx, dw,
                               scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, w, T,
-            int(meta.batch_softmax), grid,
+    if stamps is not None:
+        K._check("stamps", stamps, (T, _BWD_PHASES), device, torch.int64)
+    args = (*(t.data_ptr() for t in tensors),
+            None if stamps is None else stamps.data_ptr(), n, g, w, T,
+            int(meta.batch_softmax), shape.grid, shape.warps, shape.gpb,
+            shape.cap, int(shape.acc_smem), int(shape.slots_smem),
             torch.cuda.current_stream(device).cuda_stream)
+    if stamps is not None:
+        tensors.append(stamps)
     return K.PreparedLaunch("set2vec_bwd", lib.mpnn_set2vec_bwd,
                             lib.mpnn_cuda_error_string, args, (dx, dw),
                             tuple(tensors), launch_counts)
+
+
+def prepare_barrier_floor(n_nodes: int, n_graphs: int, w: int, steps: int,
+                          device) -> K.PreparedLaunch:
+    """The forward's grid and batch-global combine over `steps` empty steps
+    (csrc/set2vec_fwd.cu::set2vec_floor_kernel): the floor its waits set.
+    A measurement kernel; it counts in no launch table of the ops."""
+    lib = _lib("set2vec_fwd", K.width_bucket("set2vec", BUCKETS, w=w))
+    shape = device_shape("fwd", n_nodes, n_graphs, w, device)
+    kw = dict(dtype=torch.float32, device=device)
+    part = torch.empty(lib.mpnn_set2vec_fwd_scratch_floats(
+        w, steps, shape.grid, shape.gpb, 1), **kw)
+    out = torch.empty(1, **kw)
+    args = (shape.grid, shape.warps, steps, part.data_ptr(), out.data_ptr(),
+            torch.cuda.current_stream(device).cuda_stream)
+    return K.PreparedLaunch("set2vec_floor", lib.mpnn_set2vec_floor,
+                            lib.mpnn_cuda_error_string, args, (out,),
+                            (part, out), {"set2vec_floor": 0})
 
 
 class _Set2Vec(torch.autograd.Function):

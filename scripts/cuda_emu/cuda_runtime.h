@@ -8,18 +8,30 @@
 // limit guarantees. Nothing here models timing, caches or memory ordering
 // beyond the barriers. scripts/cuda_emu/emu.py compiles a kernel source
 // against it; scripts/cuda_emu/check_att_steps.py runs two kernels with it.
+// Hopper's asynchronous copies are modelled too (the set2vec kernels'
+// MPNN_CUDA_EMU branch): a cp.async lands at the thread's wait, a TMA bulk
+// copy at the first wait on its mbarrier — never earlier — and a bulk
+// copy off the 16-byte rule aborts with a message.
 #pragma once
 #include <algorithm>
 #include <barrier>
+#include <chrono>
 #include <cmath>
 #include <cstddef>
+#include <cstdint>
 #include <cstdio>
+#include <cstdlib>
+#include <cstring>
 #include <limits>
 #include <map>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <type_traits>
+#include <utility>
 #include <vector>
+
+#define MPNN_CUDA_EMU 1
 
 #define __global__
 #define __device__
@@ -27,10 +39,12 @@
 #define __forceinline__ inline
 #define __shared__
 #define __launch_bounds__(...)
+#define __align__(n) alignas(n)
 using std::max;
 using std::min;
 
 struct uint3 { unsigned x, y, z; };
+struct alignas(16) float4 { float x, y, z, w; };
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -41,7 +55,8 @@ inline thread_local dim3 blockDim, gridDim;
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 enum { cudaSuccess = 0, cudaErrorInvalidValue = 1,
-       cudaErrorInvalidConfiguration = 9 };
+       cudaErrorInvalidConfiguration = 9,
+       cudaErrorCooperativeLaunchTooLarge = 720 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize };
 
@@ -82,6 +97,95 @@ inline float __shfl_sync(unsigned, float v, int src) {
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __ldcg(const float* p) { return *p; }
+inline unsigned __float_as_uint(float x) {
+  unsigned u;
+  std::memcpy(&u, &x, 4);
+  return u;
+}
+inline float __uint_as_float(unsigned u) {
+  float x;
+  std::memcpy(&x, &u, 4);
+  return x;
+}
+inline float __expf(float x) { return std::exp(x); }
+inline float __fdividef(float a, float b) { return a / b; }
+inline long long clock64() {
+  return std::chrono::steady_clock::now().time_since_epoch().count();
+}
+
+// cp.async: the copies a thread issued land at its cp_async_wait_all
+inline thread_local std::vector<std::pair<float*, const float*>> emu_cp_q;
+inline void emu_cp_async4(float* d, const float* s) {
+  emu_cp_q.emplace_back(d, s);
+}
+inline void emu_cp_async_wait_all() {
+  for (auto& c : emu_cp_q) *c.first = *c.second;
+  emu_cp_q.clear();
+}
+
+// mbarriers (keyed by their shared-memory address) and the TMA bulk copies
+// that complete their transactions: a phase completes when every expected
+// arrival has come and every expected byte has landed; the copies of a
+// phase land at the first try_wait on its barrier.
+struct EmuMbar {
+  unsigned expected = 0, pending = 0, phase = 0;
+  long long tx = 0;
+  std::vector<std::pair<void*, std::vector<char>>> copies;
+};
+inline std::mutex emu_mbar_mu;
+inline std::map<const void*, EmuMbar> emu_mbars;
+inline void emu_mbar_complete(EmuMbar& m) {
+  if (m.pending == 0 && m.tx == 0) {
+    ++m.phase;
+    m.pending = m.expected;
+  }
+}
+inline void emu_mbar_init(void* bar, unsigned count) {
+  std::lock_guard<std::mutex> g(emu_mbar_mu);
+  EmuMbar& m = emu_mbars[bar];
+  m = EmuMbar();
+  m.expected = m.pending = count;
+}
+inline void emu_mbar_arrive_tx(void* bar, unsigned bytes) {
+  std::lock_guard<std::mutex> g(emu_mbar_mu);
+  EmuMbar& m = emu_mbars.at(bar);
+  m.tx += bytes;
+  --m.pending;
+  emu_mbar_complete(m);
+}
+inline void emu_bulk_g2s(void* dst, const void* src, unsigned bytes,
+                         void* bar) {
+  if (reinterpret_cast<uintptr_t>(dst) % 16 ||
+      reinterpret_cast<uintptr_t>(src) % 16 || bytes % 16 || !bytes) {
+    std::fprintf(stderr, "cp.async.bulk: dst %p src %p bytes %u break the "
+                 "16-byte rule\n", dst, src, bytes);
+    std::abort();
+  }
+  std::lock_guard<std::mutex> g(emu_mbar_mu);
+  const char* s = static_cast<const char*>(src);
+  emu_mbars.at(bar).copies.emplace_back(dst,
+                                        std::vector<char>(s, s + bytes));
+}
+inline bool emu_mbar_try_wait(void* bar, unsigned parity) {
+  std::lock_guard<std::mutex> g(emu_mbar_mu);
+  EmuMbar& m = emu_mbars.at(bar);
+  for (auto& c : m.copies) {
+    std::memcpy(c.first, c.second.data(), c.second.size());
+    m.tx -= (long long)c.second.size();
+    emu_mbar_complete(m);
+  }
+  m.copies.clear();
+  return (m.phase & 1u) != parity;
+}
+
+// the cross-block words: relaxed 64-bit atomics
+inline unsigned long long emu_ld_relaxed(const unsigned long long* p) {
+  return __atomic_load_n(p, __ATOMIC_RELAXED);
+}
+inline void emu_st_relaxed(unsigned long long* p, unsigned long long v) {
+  __atomic_store_n(p, v, __ATOMIC_RELAXED);
+}
+inline void emu_spin_pause() { std::this_thread::yield(); }
 
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {

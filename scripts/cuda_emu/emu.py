@@ -47,8 +47,9 @@ def _stage_sources() -> None:
     for path in glob.glob(os.path.join(B.CSRC, "*.cu*")):
         with open(path) as fh:
             text = fh.read()
-        text = re.sub(r"extern __shared__ float (\w+)\[\];",
-                      r"float* \1 = (float*)emu_smem();", text)
+        text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float "
+                      r"(\w+)\[\];", r"float* \1 = (float*)emu_smem();",
+                      text)
         text = re.sub(r"([\w:]+(?:<[^<>;]*>)?)<<<(.*?)>>>\(([^;]*)\);",
                       lambda m: "emu_launch({}, {}, {});".format(
                           m.group(1), " ".join(m.group(2).split()),
@@ -107,7 +108,8 @@ def emulate(*modules) -> None:
     torch.cuda.current_device = lambda: 0
     torch.cuda.device = lambda d: contextlib.nullcontext()
     torch.cuda.get_device_properties = lambda d: types.SimpleNamespace(
-        shared_memory_per_block_optin=232448)         # an H100's
+        shared_memory_per_block_optin=232448,         # an H100's
+        multi_processor_count=3)                      # cuda_runtime.h's
     for mod in modules:
         for name, fn in list(vars(mod).items()):
             if not inspect.isfunction(fn) or fn.__module__ != mod.__name__:

@@ -6,7 +6,12 @@ its times and profiles mean nothing. Run from the repository root:
 
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
-phases: mlp-kernel-check, mlp-times, wide, bil-kernel-check, bil-serve,
+phases: att-kernel-check, att-times (set2vec's routes, its empty-step
+floor and clock64 phases; batch 48 for 1024, 3 set2vec steps, the
+empty-block case on 27 graphs, the many-graph cases on 130, 60 and
+230),
+mlp-kernel-check,
+mlp-times, wide, bil-kernel-check, bil-serve,
 bil-train, bil-times, ecfp, spmm-kernel-check, rec-kernel-check,
 dec-train, dec-times, sddmm-kernel-check, dec-att-train, dec-att-times,
 split-kernel-check, split-train, split-times (default all). The split
@@ -113,7 +118,32 @@ def main(argv) -> int:
             return dataclasses.replace(cfg, mpnn=dataclasses.replace(
                 cfg.mpnn, set2vec_steps=3))
         zoo.ZOO[name] = cut
-    phases = {"mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
+    # att-kernel-check and att-times: batch 48 for 1024, 3 set2vec steps,
+    # the empty block's case on 27 graphs (block 1 of 3 empty: the wide
+    # backward holds ~10 graphs a block), the many-graph cases sized for 3
+    # SMs (the same routes)
+    CS.ATT_CHECK_BATCH, CS.ATT_TIMES_BATCHES = 48, (16, 48)
+    CS.S2V_STEPS = 3
+    CS.S2V_EMPTY_BLOCK = (27, slice(9, 18))
+    CS.S2V_MANY_GRAPHS = {"global-acc": 130, "spilled-bwd": 60,
+                          "spilled": 230}
+    # the cases' expected route tags are an H100's (132 SMs): on the
+    # stand-in's 3 SMs a batch's tags are what its launch shape gives
+    cases = CS._s2v_route_cases
+
+    def emulated_cases(b16):
+        out = []
+        for name, sizes, w, t, _ in cases(b16):
+            ptr = [0, *(int(v) for v in torch.as_tensor(sizes).cumsum(0))]
+            n = ptr[-1] + 5
+            out.append((name, sizes, w, t, tuple(
+                set2vec.device_shape(d, n, len(sizes), w, "cpu").tag(ptr)
+                for d in ("fwd", "bwd"))))
+        return out
+    CS._s2v_route_cases = emulated_cases
+    phases = {"att-kernel-check": lambda: CS.phase_att_kernel_check(cpu),
+              "att-times": lambda: CS.phase_att_times(cpu, "emulated"),
+              "mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
               "mlp-times": lambda: CS.phase_mlp_times(cpu, "emulated"),
               "wide": lambda: CS.phase_wide(cpu, "emulated"),
               "bil-kernel-check": lambda: CS.phase_bil_kernel_check(cpu),

@@ -569,19 +569,95 @@ def _s2v_problem(rng, g, w=14, device="cuda"):
     return (rp, x, mask, ng, plan.graph_node_ptr), leaves
 
 
+def s2v_sizes_problem(rng, sizes, w=14, pad=5, device="cuda"):
+    """set2vec's arguments on graphs of the given node counts (0 for an
+    empty graph), `pad` padded node slots after them: a random masked x
+    (N, w) and readout leaves in the JAX layout, each requiring grad."""
+    sizes = np.asarray(sizes, np.int64)
+    g, n_real = len(sizes), int(sizes.sum())
+    n = n_real + pad
+    ng = np.full(n, g, np.int32)
+    ng[:n_real] = np.repeat(np.arange(g), sizes)
+    gnp = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device=device)
+    i = lambda x: torch.as_tensor(np.ascontiguousarray(x), device=device)
+    mask = t((np.arange(n) < n_real)[:, None])
+    b = 1.0 / np.sqrt(2 * w)
+    u = lambda *s_: t(rng.uniform(-b, b, s_))
+    rp = {"lstm": {**{f"w_h{k}": u(2 * w, w) for k in "ifgo"},
+                   **{f"b_h{k}": u(1, w) for k in "ifgo"}},
+          "q_attn": {"w": t(rng.uniform(-1, 1, (w, w)) / np.sqrt(w))},
+          "e_attn": {"w": t(rng.uniform(-1, 1, (w, 1)) / np.sqrt(w))}}
+    x = t(rng.randn(n, w)) * mask
+    leaves = {**{f"lstm/{k}": v for k, v in rp["lstm"].items()},
+              "q_attn": rp["q_attn"]["w"], "e_attn": rp["e_attn"]["w"],
+              "x": x}
+    for v in leaves.values():
+        v.requires_grad_(True)
+    return (rp, x, mask, i(ng), i(gnp)), leaves
+
+
+def s2v_cases():
+    """set2vec's routes on the card as (id, graph sizes, w, steps, the
+    forward's and the backward's S2vShape.tag): bench.py-like ragged
+    graphs of 1 to 24 nodes (the first three single-node), at b16, 24 (one
+    block of 16 warps: two graphs a warp) and b1024; 40 graphs of which
+    three hold 4,000 nodes, past a block's staging capacity, at w 14 and
+    54; w 54 and 64 at b16 and 300 graphs, the graphs of one block empty;
+    6,000 graphs at w 32 (the backward's leaf sums in global scratch);
+    2,048 graphs at w 54 (adv's training batch at afm 27: the backward's
+    slots in global scratch) and 10,000 at w 64 (both kernels' slots)."""
+    rng = np.random.RandomState(5)
+    ragged = lambda g: np.concatenate([[1, 1, 1], rng.randint(1, 25, g - 3)])
+    big = ragged(40)
+    big[[7, 20, 33]] = 4000
+    wide = ragged(300)
+    wide[11:13] = 0              # a block of 2-3 graphs on 132 SMs: empty
+    one, grid = ("one-block",) * 2, ("grid",) * 2
+    chunked = ("grid chunked", "grid chunked")
+    wide_b16 = ("one-block", "grid global-acc")
+    wide_grid = ("grid", "grid global-acc")
+    return [("b16", ragged(16), 14, 100, one),
+            ("g24", ragged(24), 14, 20, one),
+            ("b1024", ragged(1024), 14, 100, grid),
+            ("chunked", big, 14, 20, chunked),
+            ("b16-w54", ragged(16), 54, 20, wide_b16),
+            ("b16-w64", ragged(16), 64, 20, wide_b16),
+            ("g300-w54-empty-block", wide, 54, 20, wide_grid),
+            ("g300-w64-empty-block", wide, 64, 20, wide_grid),
+            ("chunked-w54", big, 54, 20,
+             ("grid chunked", "grid chunked global-acc")),
+            ("g6000-w32", ragged(6000), 32, 20,
+             ("grid", "grid chunked global-acc")),
+            ("g2048-w54", ragged(2048), 54, 20,
+             ("grid", "grid chunked global-acc spilled")),
+            ("g10000-w64", ragged(10000), 64, 20,
+             ("grid chunked spilled", "grid chunked global-acc spilled"))]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("batch_softmax,steps,g", [
-    (True, 100, 1024), (False, 100, 1024), (True, 3, 37), (False, 3, 37)])
-def test_cuda_set2vec_kernels_match_plain_version(batch_softmax, steps, g):
-    """adv's set width (w 14): the forward kernel against
-    set2vec_reference, the backward against autograd through it, both
-    softmax modes, the reference's 100 steps at batch 1024 and 3 steps on
-    a ragged batch of 37."""
+@pytest.mark.parametrize("batch_softmax", [True, False])
+@pytest.mark.parametrize("case", range(len(s2v_cases())),
+                         ids=[c[0] for c in s2v_cases()])
+def test_cuda_set2vec_kernels_match_plain_version(batch_softmax, case):
+    """Every route of the set2vec kernels (kernels/set2vec.py::
+    launch_shape: one block, a block per SM, rows streamed in chunks, the
+    backward's leaf sums or both kernels' slots in global scratch) in both
+    softmax modes at w 14, 32, 54 and 64: the forward kernel against
+    set2vec_reference, the backward against autograd through it (leaves
+    scaled by their max abs), one launch of each."""
     _need_card()
     from mpnn_tpu_torch.kernels import set2vec as S
-    rng = np.random.RandomState(g + steps + batch_softmax)
-    args, leaves = _s2v_problem(rng, g)
-    cw = torch.as_tensor(rng.randn(g, 28).astype(np.float32), device="cuda")
+    name, sizes, w, steps, tags = s2v_cases()[case]
+    rng = np.random.RandomState(case + 10 * batch_softmax)
+    args, leaves = s2v_sizes_problem(rng, sizes, w=w)
+    n, g = args[1].shape[0], len(sizes)
+    ptr = args[4].cpu().numpy()
+    assert tuple(S.device_shape(d, n, g, w, "cuda").tag(ptr)
+                 for d in ("fwd", "bwd")) == tags
+    cw = torch.as_tensor(rng.randn(g, 2 * w).astype(np.float32),
+                         device="cuda")
     kw = dict(time_steps=steps, batch_softmax=batch_softmax)
     S.reset_launch_counts()
     got = _value_and_grads(S.set2vec, args, leaves, cw, **kw)
