@@ -99,14 +99,22 @@ Phases, one line each:
  22. mlp-kernel-check — the edge-MLP chain kernels (edge_mlp fwd/bwd, the
                ×50 tail every model's A-form build runs once per message
                network) against their plain version on the card: each
-               model's chain at its b1024 vocab rows, and pf 16, 49, 64
-               and 256 (rtol 1e-4, atol 1e-5 of each output's or leaf's
-               max abs). Phases 4, 7, 11, 12, 15, 16, 19 and 20 also check
-               their edge-MLP launches: one forward per message network per
-               forward launch of the model's kernels, one backward per
-               message network per backward launch;
- 23. mlp-times — both chain kernels' times at those shapes beside their
-               bounds and the plain chain's time;
+               model's chain at its b1024 vocab rows, and pf 16, 49, 64,
+               81, 144, 256, 484 and 625 and the zero row alone — every
+               route of the launch rule: registers in one block and in
+               several, W_s panels in one block and in clusters of 2 and
+               4, W_s from device memory in clusters of 8 (rtol 1e-4,
+               atol 1e-5 of each output's or leaf's max abs). Phases 4, 7,
+               11, 12, 15, 16, 19 and 20 also check their edge-MLP
+               launches: one forward per message network per forward
+               launch of the model's kernels, one backward per message
+               network per backward launch;
+ 23. mlp-times — both chain kernels' times (events; beside them the
+               device time in a trace) at those shapes beside their
+               bounds and the plain chain's time, the empty-chain floor of
+               each launch (its grid and barriers, no work) and block 0's
+               clock64 phases of a tail layer (loads, dot, barrier) and,
+               in the backward, of the ∂W product;
  24. wide  — lipo, graph_norm, adv and att from SMILES that featurize to
                afm 27 (f 27-30, od up to 108, set2vec w 54): `predict` and
                the `train` verb through every family's wide width bucket,
@@ -1028,6 +1036,18 @@ def _train_net(b, gen, device):
                    b["node_nafm"].shape[1])
     net = network_init(cfg, gen, device)
     return net, adam(net.parameters(), 1e-2, weight_decay=1e-4)
+
+
+def _kernel_trace_us_n(n, *prepared):
+    """Device time of n launches of each prepared kernel, in turns, from
+    one torch.profiler trace (us, summed over the n). A trace that holds
+    none of a kernel's launches (a short trace can lose them) is taken
+    again, up to three times."""
+    for _ in range(3):
+        got = list(_kernel_trace_us(*(list(prepared) * n)).values())
+        if all(v > 0 for v in got):
+            break
+    return got
 
 
 def _kernel_trace_us(*prepared):
@@ -2865,10 +2885,22 @@ def _mlp_cases(device, gen):
             if 0.3 <= float(pen.abs().max()) <= 30:
                 break
         return what, x, ws, bs, scale * base
+    # every route of kernels/edge_mlp.py::launch_shape on an H100: the
+    # register route in one block (the models' R 9, pf 16) and in several
+    # (pf 49, 64), only the zero row; the panel route in one block (pf
+    # 81), in clusters of 2 (pf 144's backward, pf 256's forward) and of
+    # 4 (pf 256's backward), 17 clusters each; the l2 route past what a
+    # cluster of 8 holds (pf 484's backward beside its forward in a
+    # cluster of 8; pf 625 both ways)
     cases += [synthetic("encoded (ef 2, pf 16)", rows.shape[0], 2, 8),
               synthetic("bfm 7 (pf 49)", 65, 7, 10),
               synthetic("bfm 8 (pf 64)", 65, 8, 32),
-              synthetic("bfm 4 at f 19 (pf 256)", 65, 4, 19)]
+              synthetic("bfm 4 at f 19 (pf 256)", 65, 4, 19),
+              synthetic("the zero row alone (pf 36)", 1, 6, 7),
+              synthetic("bfm 3 (pf 81)", 65, 3, 10),
+              synthetic("ef 12 (pf 144)", 65, 12, 13),
+              synthetic("bfm 22 at f 23 (pf 484)", 9, 22, 23),
+              synthetic("bfm 5 at f 26 (pf 625)", 9, 5, 26)]
     return cases
 
 
@@ -2906,7 +2938,11 @@ def phase_mlp_kernel_check(device):
                           float((res[0][0] - res[1][0]).abs().max()))
         worst_b = max(worst_b, err_b)
         pf = sw.shape[0]
-        lines.append(f"{what} (R {x.shape[0]}, H {h}, pf {pf}): fwd max_abs "
+        routes = " / ".join(M.device_shape(
+            d, x.shape[0], [x.shape[1]] + [w.shape[1] for w in ws], 50,
+            device).tag() for d in ("fwd", "bwd"))
+        lines.append(f"{what} (R {x.shape[0]}, H {h}, pf {pf}; {routes}): "
+                     f"fwd max_abs "
                      f"{err_f * scale:.3e} of max {scale:.3e}, bwd "
                      f"max_scaled {err_b:.3e} "
                      f"{'ok' if ok_f and ok_b else 'FAIL'}")
@@ -2945,11 +2981,73 @@ def _mlp_bounds(rows, dims, tail):
     return out
 
 
+# the empty-chain floor runs as one launch of this many chains' layers
+MLP_FLOOR_REPEAT = 100
+
+
+def _mlp_detail(x, ws, bs, sw, g, f_ms, b_ms):
+    """One chain's device times, empty-chain floor and clock64 phases:
+    each kernel's device time a launch from a torch.profiler trace of 20
+    launches (CUDA events over back-to-back launches also hold the host's
+    launch gap, which a kernel of a few us does not cover); the floor
+    kernels (the launch's grid, block, cluster and shared memory, H + T
+    forward and 2·(H + T) backward barrier-separated empty layers; timed
+    with events as one launch of MLP_FLOOR_REPEAT times as many layers,
+    divided by it, so that no launch gap is in it); and one launch of each kernel with block
+    0's thread 0 stamping its phases (cycles; the probe is tail layer T /
+    2: its input row's loads alone, the dot with its loads and stores, the
+    barrier). Returns (text, numbers)."""
+    import torch
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    from mpnn_tpu_torch.kernels import fused_step as K
+    dims = [x.shape[1]] + [w.shape[1] for w in ws]
+    rows, layers, dev = x.shape[0], len(ws) + 50, x.device
+    fwd = M.prepare_edge_mlp_fwd(x, ws, bs, sw, tail=50)
+    bwd = M.prepare_edge_mlp_bwd(x, ws, bs, sw, g, tail=50)
+    dev_us = {p.name: t / 20 for p, t in zip(
+        (fwd, bwd), _kernel_trace_us_n(20, fwd, bwd))}
+    rep = MLP_FLOOR_REPEAT
+    floor = {d: _events_ms(lambda d=d, n=n: M.launch_floor(
+        d, rows, dims, 50, rep * n, dev), 5) / rep
+        for d, n in (("fwd", layers), ("bwd", 2 * layers))}
+    st = {d: torch.zeros(M.PROF_SLOTS, dtype=torch.int64, device=dev)
+          for d in ("fwd", "bwd")}
+    K.launch_prepared(M.prepare_edge_mlp_fwd(x, ws, bs, sw, tail=50,
+                                             prof=st["fwd"]))
+    K.launch_prepared(M.prepare_edge_mlp_bwd(x, ws, bs, sw, g, tail=50,
+                                             prof=st["bwd"]))
+    torch.cuda.synchronize()
+    f, b = st["fwd"].tolist(), st["bwd"].tolist()
+    ph = {"fwd": {"stage": f[1] - f[0], "chain": f[7] - f[1],
+                  "layer": (f[7] - f[1]) / layers,
+                  "probe loads": f[4] - f[3], "probe dot": f[5] - f[4],
+                  "probe barrier": f[6] - f[5], "write": f[8] - f[7],
+                  "total": f[8] - f[0]},
+          "bwd": {"stage": b[1] - b[0], "recompute": b[7] - b[1],
+                  "reverse start": b[8] - b[7], "walk": b[13] - b[8],
+                  "walk layer": (b[13] - b[8]) / 50,
+                  "probe loads": b[10] - b[9], "probe dot": b[11] - b[10],
+                  "probe barrier": b[12] - b[11], "dW_s": b[14] - b[13],
+                  "head": b[15] - b[14], "combine": b[16] - b[15],
+                  "total": b[16] - b[0]}}
+    text = (f"device time (trace) fwd {dev_us['edge_mlp_fwd']:.2f} us, "
+            f"bwd {dev_us['edge_mlp_bwd']:.2f} us; empty-chain floor fwd "
+            f"{floor['fwd'] * 1e3:.3f} us ({layers} layers), bwd "
+            f"{floor['bwd'] * 1e3:.3f} us ({2 * layers}); block 0 clock64 "
+            f"cycles: " + "; ".join(
+                f"{d} [" + ", ".join(f"{k} {v:.0f}" for k, v in p.items())
+                + "]" for d, p in ph.items()))
+    return text, {"device_us": dev_us, "floor_ms": floor, "cycles": ph}
+
+
 def phase_mlp_times(device, card):
-    """Each chain kernel's time (CUDA events over 200 launches) at the
-    shapes of mlp-kernel-check's cases, beside its bound and its plain
+    """Each chain kernel's time (CUDA events over 200 launches, as every
+    other row's; beside it the device time in a trace) at the shapes of
+    mlp-kernel-check's cases, beside its bound, its plain
     version's time (the 51-layer chain of torch.mm; the backward autograd
-    through it). The lipo b1024 case is the main path's row."""
+    through it), its launch shape, the empty-chain floor of that launch and
+    block 0's clock64 phases (_mlp_detail). The lipo b1024 case is the main
+    path's row. Writes every number to $MPNN_SMOKE_OUT/mlp_times.json."""
     import torch
     from mpnn_tpu_torch.kernels import edge_mlp as M
     from mpnn_tpu_torch.kernels import fused_step as K
@@ -2972,20 +3070,36 @@ def phase_mlp_times(device, card):
             pen, leaves, g, retain_graph=True), 20)
         dims = [x.shape[1]] + [w.shape[1] for w in ws]
         bounds = _mlp_bounds(x.shape[0], dims, 50)
+        detail, nums = _mlp_detail(x, ws, bs, sw, g, f_ms, b_ms)
+        routes = {d: M.device_shape(d, x.shape[0], dims, 50, device).tag()
+                  for d in ("fwd", "bwd")}
+        # a kernel's time: events over back-to-back launches, as every
+        # row's; a ~10 us kernel's events also hold the host's launch gap,
+        # so its device time in a trace stands beside them (trace_ms)
+        dev = nums["device_us"]
         out[what] = {
-            "edge_mlp_fwd": dict(ms=f_ms, plain_ms=pfw_ms),
-            "edge_mlp_bwd": dict(ms=b_ms, plain_ms=pbw_ms)}
+            "edge_mlp_fwd": dict(ms=f_ms, trace_ms=dev["edge_mlp_fwd"] / 1e3,
+                                 plain_ms=pfw_ms),
+            "edge_mlp_bwd": dict(ms=b_ms, trace_ms=dev["edge_mlp_bwd"] / 1e3,
+                                 plain_ms=pbw_ms),
+            "routes": routes, **nums}
         for name in MLP_KERNELS:
             bound, by, _, _ = bounds[name]
             out[what][name].update(bound_ms=bound, bound_by=by)
-        lines.append(f"{what} (R {x.shape[0]}, dims {dims}): " + ", ".join(
-            f"{n} {out[what][n]['ms'] * 1e3:.2f} us, plain "
-            f"{out[what][n]['plain_ms'] * 1e3:.1f} us, bound "
-            f"{bounds[n][0] * 1e3:.3f} us by {bounds[n][1]} "
-            f"({bounds[n][2] / 1e6:.2f} Mop, {bounds[n][3] / 1e6:.4f} MB)"
-            for n in MLP_KERNELS))
-    print(f"mlp-times [{card}] (T 50, events over 200 launches): "
-          + "; ".join(lines), flush=True)
+        lines.append(
+            f"{what} (R {x.shape[0]}, dims {dims}; {routes['fwd']} / "
+            f"{routes['bwd']}): " + ", ".join(
+                f"{n} {out[what][n]['ms'] * 1e3:.2f} us (events; trace "
+                f"{out[what][n]['trace_ms'] * 1e3:.2f} us), plain "
+                f"{out[what][n]['plain_ms'] * 1e3:.1f} us, bound "
+                f"{bounds[n][0] * 1e3:.3f} us by {bounds[n][1]} "
+                f"({bounds[n][2] / 1e6:.2f} Mop, {bounds[n][3] / 1e6:.4f} "
+                f"MB)" for n in MLP_KERNELS) + f"; {detail}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "mlp_times.json"), "w") as fh:
+        json.dump({"card": card, "cases": out}, fh, indent=1)
+    print(f"mlp-times [{card}] (T 50; events over 200 launches, device "
+          f"time in a trace of 20): " + "; ".join(lines), flush=True)
     return out["lipo b1024"]
 
 
@@ -6466,7 +6580,8 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/edge_mlp.py:{line}",
             "launches": MLP_MAIN[name], "max_abs_err": mlp_worst[name],
-            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "ms": tt["ms"], "trace_ms": tt["trace_ms"],
+            "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     for name, line in zip(BIL_KERNELS, (73, 137)):

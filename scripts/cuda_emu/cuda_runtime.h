@@ -11,9 +11,14 @@
 // Hopper's asynchronous copies are modelled too (the set2vec kernels'
 // MPNN_CUDA_EMU branch): a cp.async lands at the thread's wait, a TMA bulk
 // copy at the first wait on its mbarrier — never earlier — and a bulk
-// copy off the 16-byte rule aborts with a message.
+// copy off the 16-byte rule aborts with a message. So are thread-block
+// clusters (cudaLaunchKernelEx with a cluster dimension, the edge-MLP
+// kernels' panel route): cooperative_groups::this_cluster() gives the
+// block's rank, a std::barrier per cluster for cluster.sync(), and
+// map_shared_rank() the same offset in a peer block's shared memory.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <chrono>
 #include <cmath>
@@ -45,6 +50,10 @@ using std::min;
 
 struct uint3 { unsigned x, y, z; };
 struct alignas(16) float4 { float x, y, z, w; };
+struct alignas(8) float2 { float x, y; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -65,8 +74,16 @@ struct EmuBlock {
   std::unique_ptr<std::barrier<>> bar;
   std::vector<std::unique_ptr<std::barrier<>>> warp_bar;
   float shfl[32][32];
+  std::atomic<int> any{0};             // __syncthreads_or
+  std::mutex named_mu;                 // named barriers (bar.sync id, n)
+  std::map<int, std::unique_ptr<std::barrier<>>> named;
 };
 inline thread_local EmuBlock* emu_block = nullptr;
+// the launch's clusters: size, the calling block's cluster barrier, and
+// the grid's blocks (a peer's shared memory)
+inline thread_local unsigned emu_cluster = 1;
+inline thread_local std::barrier<>* emu_cluster_bar = nullptr;
+inline thread_local EmuBlock* emu_blocks = nullptr;
 inline std::barrier<>* emu_grid_bar = nullptr;
 // the "SMs" of the emulated card, one block each: a grid of a few blocks
 // exercises the kernels' block-strided loops and cross-block reductions
@@ -94,6 +111,33 @@ inline float __shfl_sync(unsigned, float v, int src) {
   const float r = emu_block->shfl[w][src & 31];
   __syncwarp();
   return r;
+}
+// bar.sync id, n: a named barrier of n threads of the block (made at its
+// first use)
+inline void emu_named_sync(int id, int n) {
+  std::barrier<>* bar;
+  {
+    std::lock_guard<std::mutex> g(emu_block->named_mu);
+    auto& b = emu_block->named[id];
+    if (!b) b.reset(new std::barrier<>(n));
+    bar = b.get();
+  }
+  bar->arrive_and_wait();
+}
+inline int __syncthreads_or(int pred) {
+  if (pred) emu_block->any.store(1);
+  emu_block->bar->arrive_and_wait();
+  const int r = emu_block->any.load();
+  emu_block->bar->arrive_and_wait();
+  if (threadIdx.x == 0) emu_block->any.store(0);
+  emu_block->bar->arrive_and_wait();
+  return r;
+}
+inline void __threadfence() {
+  std::atomic_thread_fence(std::memory_order_seq_cst);
+}
+inline int atomicAdd(int* p, int v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __ldcg(const float* p) { return *p; }
@@ -226,15 +270,18 @@ inline cudaError_t cudaGetLastError() {
 inline const char* cudaGetErrorString(cudaError_t) { return "emulated"; }
 
 // Run `kernel` (a __global__ function taking one argument struct by value)
-// over grid × block threads.
+// over grid × block threads, in clusters of `cluster` consecutive blocks.
 template <class Args>
 void emu_run(const void* kernel, void* arg, unsigned grid, unsigned block,
-             size_t smem) {
+             size_t smem, unsigned cluster = 1) {
   auto fn = (void (*)(Args))kernel;
   Args args = *(Args*)arg;
   std::barrier<> grid_bar(grid * block);
   emu_grid_bar = &grid_bar;
   std::vector<EmuBlock> blocks(grid);
+  std::vector<std::unique_ptr<std::barrier<>>> cluster_bars;
+  for (unsigned c = 0; c < grid / cluster; ++c)
+    cluster_bars.emplace_back(new std::barrier<>(cluster * block));
   for (auto& b : blocks) {
     b.smem.assign(smem / sizeof(float) + 1,
                   std::numeric_limits<float>::quiet_NaN());
@@ -251,6 +298,9 @@ void emu_run(const void* kernel, void* arg, unsigned grid, unsigned block,
         blockDim = dim3(block);
         gridDim = dim3(grid);
         emu_block = &blocks[b];
+        emu_blocks = blocks.data();
+        emu_cluster = cluster;
+        emu_cluster_bar = cluster_bars[b / cluster].get();
         fn(args);
       });
   for (auto& t : threads) t.join();
@@ -258,14 +308,14 @@ void emu_run(const void* kernel, void* arg, unsigned grid, unsigned block,
 
 // Set by the translation unit emu.py writes for each kernel source, which
 // knows the kernel's argument type; static, so every library keeps its own.
-static void (*emu_runner)(const void*, void*, unsigned, unsigned,
-                          size_t) = nullptr;
+static void (*emu_runner)(const void*, void*, unsigned, unsigned, size_t,
+                          unsigned) = nullptr;
 
 inline cudaError_t cudaLaunchCooperativeKernel(const void* kernel, dim3 grid,
                                                dim3 block, void** args,
                                                size_t smem, cudaStream_t) {
   if (smem > emu_limit_of(kernel)) return cudaErrorInvalidValue;
-  emu_runner(kernel, args[0], grid.x, block.x, smem);
+  emu_runner(kernel, args[0], grid.x, block.x, smem, 1);
   return cudaSuccess;
 }
 
@@ -283,4 +333,41 @@ inline void emu_launch(void (*kernel)(Args), G grid, B block, size_t smem,
     return;
   }
   emu_run<Args>((const void*)kernel, &a, emu_x(grid), emu_x(block), smem);
+}
+
+// cudaLaunchKernelEx with a cluster dimension (the only attribute the
+// kernels set): a cluster of 1-8 blocks that divides the grid, as on the
+// card without the non-portable size attribute.
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttributeValue {
+  struct { unsigned x, y, z; } clusterDim;
+};
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  cudaLaunchAttributeValue val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes = 0;
+  cudaStream_t stream = nullptr;
+  cudaLaunchAttribute* attrs = nullptr;
+  unsigned numAttrs = 0;
+};
+template <class Args>
+inline cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                                      void (*kernel)(Args), Args a) {
+  if (cfg->dynamicSmemBytes > emu_limit_of((const void*)kernel))
+    return cudaErrorInvalidValue;
+  unsigned cluster = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension) {
+      const auto& d = cfg->attrs[i].val.clusterDim;
+      if (d.y != 1 || d.z != 1) return cudaErrorInvalidValue;
+      cluster = d.x;
+    }
+  if (cluster < 1 || cluster > 8 || cfg->gridDim.x % cluster)
+    return cudaErrorInvalidConfiguration;
+  emu_run<Args>((const void*)kernel, &a, cfg->gridDim.x, cfg->blockDim.x,
+                cfg->dynamicSmemBytes, cluster);
+  return cudaSuccess;
 }

@@ -86,6 +86,13 @@ def main(argv) -> int:
     # one launch per timing: the stand-in's times mean nothing; a smaller
     # wide data set (a thread per CUDA thread is slow)
     CS._events_ms = lambda fn, reps, warm=5: (fn(), 0.0)[1]
+
+    def trace_us(*prepared):            # the stand-in has no device trace
+        for p in prepared:
+            fused_step.launch_prepared(p)
+        return {p.name: 1.0 for p in prepared}
+    CS._kernel_trace_us = trace_us
+    CS.MLP_FLOOR_REPEAT = 1
     CS.WIDE_ROWS = 48
     CS.TRAIN_ROWS = CS.ECFP_ROWS = 64
     CS.REC_NODES = (2000,)

@@ -46,10 +46,13 @@ TAIL = 50
 
 # (rows, head dims, tail): pf 16 (encoded: ef 2, two head layers), 36
 # (bench's bfm 6), 49 (bfm 7, a full vocab of 64 + the zero row), 64 (the
-# reference's bfm 8), 256 (bfm 4 at f 19, two head layers), no tail
+# reference's bfm 8), 256 (bfm 4 at f 19, two head layers), no tail, the
+# zero row alone, and 130 rows (five of the JAX kernels' blocks of 32; on
+# the card, several blocks or clusters)
 CASES = [(9, [(2, 4), (4, 16)], TAIL), (14, [(6, 36)], TAIL),
          (65, [(7, 49)], TAIL), (23, [(8, 64)], TAIL),
-         (11, [(4, 16), (16, 256)], 3), (9, [(6, 36)], 0)]
+         (11, [(4, 16), (16, 256)], 3), (9, [(6, 36)], 0),
+         (1, [(6, 36)], TAIL), (130, [(7, 49)], 3)]
 
 
 def _scaled_close(got, want, what):
@@ -94,6 +97,127 @@ def test_op_matches_pallas_kernels(rows, head, tail):
              + ["ws"])
     for name, gr, w in zip(names, grads, want):
         _scaled_close(gr, np.asarray(w).reshape(gr.shape), name)
+
+
+# an H100: 227 KB of shared memory a block, 132 SMs
+H100 = dict(smem_bytes=232448, sms=132)
+
+# (direction, rows, dims, the rule's launch on an H100): the register
+# route — a thread a column, REG_ROWS rows a block (the forward 2, the
+# backward 4): one block up to that, then balanced blocks (9 rows: 5 of 2
+# forward, 3 of 3 backward); rows / sms past 528 rows;
+# the cap of 15 rows (a named barrier each; pf 16), the threads' cap (pf
+# 64: 8 rows of 64 threads) and the backward's shared-memory cap (pf 64:
+# 7 rows of 52 layers' outputs and gz) — and the
+# panel route's cluster: the fewest blocks whose W_s panels fit (pf 81,
+# 144, 256)
+RULE_CASES = [
+    ("fwd", 1, [6, 36], "reg C1 rb1 x1"),
+    ("bwd", 1, [6, 36], "reg C1 rb1 x1"),
+    ("fwd", 4, [6, 36], "reg C1 rb2 x2"),
+    ("bwd", 5, [6, 36], "reg C1 rb3 x2"),
+    ("fwd", 9, [6, 36], "reg C1 rb2 x5"),
+    ("bwd", 9, [6, 36], "reg C1 rb3 x3"),
+    ("fwd", 9, [2, 4, 16], "reg C1 rb2 x5"),
+    ("bwd", 65, [7, 49], "reg C1 rb4 x17"),
+    ("fwd", 65, [8, 64], "reg C1 rb2 x33"),
+    ("bwd", 65, [8, 64], "reg C1 rb4 x17"),
+    ("fwd", 528, [6, 36], "reg C1 rb4 x132"),
+    ("fwd", 529, [6, 36], "reg C1 rb5 x106"),
+    ("bwd", 2000, [2, 4, 16], "reg C1 rb15 x134"),
+    ("fwd", 10000, [8, 64], "reg C1 rb8 x1250"),
+    ("bwd", 10000, [8, 64], "reg C1 rb7 x1429"),
+    ("fwd", 65, [3, 9, 81], "panel C1 rb4 x17"),
+    ("bwd", 65, [12, 144], "panel C2 rb4 x17"),
+    ("fwd", 65, [4, 16, 256], "panel C2 rb4 x17"),
+    ("bwd", 65, [4, 16, 256], "panel C4 rb4 x17"),
+    ("bwd", 1, [4, 16, 256], "panel C4 rb1 x1"),
+    ("bwd", 200, [4, 16, 256], "panel C4 rb4 x50"),
+    # past what a cluster of 8 holds: the l2 route (bond widths 22-31 at
+    # f > ef give pf 484-961; 5 → 25 → 625 at f 26-32)
+    ("fwd", 9, [22, 484], "panel C8 rb3 x3"),
+    ("bwd", 9, [22, 484], "l2 C8 rb3 x3"),
+    ("fwd", 1, [25, 625], "l2 C8 rb1 x1"),
+    ("bwd", 9, [5, 25, 625], "l2 C8 rb3 x3"),
+    ("fwd", 200, [5, 25, 625], "l2 C8 rb13 x16"),
+    ("bwd", 65, [31, 961], "l2 C8 rb4 x17"),
+]
+
+
+@pytest.mark.parametrize("direction,rows,dims,tag", RULE_CASES)
+def test_launch_rule_at_its_boundaries(direction, rows, dims, tag):
+    """kernels/edge_mlp.py::launch_shape on an H100 at the zoo's widths:
+    the route, the cluster and the rows a block hold, every row covered
+    once, each block's shared memory within the card's, the register
+    route's threads within its register budget, every cluster rank owning
+    W_s columns, the l2 route only where no cluster of 8 holds W_s's
+    panels (and the backward's stash)."""
+    s = M.launch_shape(direction, rows, dims, TAIL, **H100)
+    assert s.tag() == tag
+    pf = dims[-1]
+    assert s.rb * s.clusters >= rows > s.rb * (s.clusters - 1)
+    assert s.smem_bytes == 4 * M.smem_floats(direction, dims, TAIL, s.kp,
+                                             s.cluster, s.rb,
+                                             s.route == "l2")
+    assert s.smem_bytes <= H100["smem_bytes"]
+    if s.route == "reg":
+        assert pf <= M.REG_MAX_PF and s.kp == M.reg_kp(pf) and s.kp >= pf
+        assert s.threads == M.reg_lanes(s.kp) * s.rb
+        assert s.threads <= M.reg_max_threads(s.kp) and s.rb <= 15
+    else:
+        assert pf > M.REG_MAX_PF and s.kp == 0
+        assert s.threads == M.PANEL_THREADS
+        panel = -(-pf // s.cluster + 3) // 4 * 4
+        assert (s.cluster - 1) * panel < pf
+        # the next smaller cluster (on the l2 route, a cluster of 8) does
+        # not hold W_s's panel and RT rows
+        if s.cluster > 1:
+            smaller = s.cluster if s.route == "l2" else s.cluster // 2
+            assert M.smem_floats(direction, dims, TAIL, 0, smaller,
+                                 M.RT) * 4 > H100["smem_bytes"]
+
+
+@pytest.mark.parametrize("direction", ["fwd", "bwd"])
+def test_launch_rule_grows_blocks_with_rows(direction):
+    """More rows never lower the rows a block holds, never pass a block's
+    budget, and leave no block empty, at every zoo width; the backward
+    holds no more rows a block than the forward."""
+    for dims in ([2, 4, 16], [6, 36], [7, 49], [8, 64], [3, 9, 81],
+                 [12, 144], [4, 16, 256], [5, 25, 625], [31, 961]):
+        last = 0
+        for rows in (1, 2, 5, 9, 33, 65, 130, 200, 1000, 5000):
+            s = M.launch_shape(direction, rows, dims, TAIL, **H100)
+            assert s.rb >= min(last, rows) and s.rb <= rows
+            assert -(-rows // s.rb) == s.clusters
+            assert s.smem_bytes <= H100["smem_bytes"]
+            if direction == "bwd":
+                f = M.launch_shape("fwd", rows, dims, TAIL, **H100)
+                assert s.rb <= max(f.rb, M.RT)
+            last = s.rb
+
+
+def test_launch_rule_on_a_smaller_card():
+    """With less shared memory the backward's rows a block fall, W_s at pf
+    256 needs a larger cluster, a card where no cluster of 8 holds W_s
+    takes the l2 route, and one where not even that route's rows and head
+    fit raises rather than launching something else."""
+    assert M.launch_shape("bwd", 9, [6, 36], TAIL, smem_bytes=100 * 1024,
+                          sms=132).rb < 9
+    small = dict(smem_bytes=150 * 1024, sms=132)
+    assert M.launch_shape("fwd", 65, [4, 16, 256], TAIL,
+                          **small).cluster == 4
+    assert M.launch_shape("bwd", 65, [4, 16, 256], TAIL,
+                          **small).cluster == 8
+    assert M.launch_shape("bwd", 65, [4, 16, 256], TAIL,
+                          smem_bytes=48 * 1024, sms=132).tag() == \
+        "l2 C8 rb4 x17"
+    with pytest.raises(NotImplementedError, match="head weights"):
+        M.launch_shape("bwd", 65, [4, 16, 256], TAIL, smem_bytes=16 * 1024,
+                       sms=132)
+    # one row of the register route that no block holds
+    with pytest.raises(NotImplementedError, match="one row at pf 64"):
+        M.launch_shape("bwd", 9, [8, 64], TAIL, smem_bytes=16 * 1024,
+                       sms=132)
 
 
 def test_grad_layout_is_the_jax_tuple_order():

@@ -1003,18 +1003,54 @@ def _mlp_problem(rng, rows, head, tail, device="cuda"):
     return t(x), [t(w) for w in ws], [t(b) for b in bs], t(sw)
 
 
+# (rows, head, tail, the routes of kernels/edge_mlp.py::launch_shape on an
+# H100, forward / backward): the register route in one block (the zero row
+# alone; the backward's 4 rows) and in several (pf 16-64, 4 to 200 rows),
+# no tail; the
+# panel route in one block (pf 81), in clusters of 2 and 4 (pf 144, 256),
+# 17 and 50 clusters; the l2 route (W_s and the backward's stash in device
+# memory) past what a cluster of 8 holds: bond widths 22, 25 (and 5 at
+# f 26) and 31 at f > ef give pf 484, 625 and 961
+MLP_ROUTE_CASES = [
+    (9, [(2, 4), (4, 16)], 50, "reg C1 rb2 x5", "reg C1 rb3 x3"),
+    (9, [(6, 36)], 50, "reg C1 rb2 x5", "reg C1 rb3 x3"),
+    (4, [(6, 36)], 50, "reg C1 rb2 x2", "reg C1 rb4 x1"),
+    (65, [(7, 49)], 50, "reg C1 rb2 x33", "reg C1 rb4 x17"),
+    (65, [(8, 64)], 50, "reg C1 rb2 x33", "reg C1 rb4 x17"),
+    (1, [(6, 36)], 50, "reg C1 rb1 x1", "reg C1 rb1 x1"),
+    (200, [(6, 36)], 50, "reg C1 rb2 x100", "reg C1 rb4 x50"),
+    (5, [(6, 36)], 0, "reg C1 rb2 x3", "reg C1 rb3 x2"),
+    (65, [(3, 9), (9, 81)], 50, "panel C1 rb4 x17", "panel C1 rb4 x17"),
+    (65, [(12, 144)], 50, "panel C1 rb4 x17", "panel C2 rb4 x17"),
+    (65, [(4, 16), (16, 256)], 50, "panel C2 rb4 x17", "panel C4 rb4 x17"),
+    (200, [(4, 16), (16, 256)], 50, "panel C2 rb4 x50", "panel C4 rb4 x50"),
+    (9, [(22, 484)], 50, "panel C8 rb3 x3", "l2 C8 rb3 x3"),
+    (9, [(5, 25), (25, 625)], 50, "l2 C8 rb3 x3", "l2 C8 rb3 x3"),
+    (65, [(31, 961)], 50, "l2 C8 rb5 x13", "l2 C8 rb4 x17"),
+]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,head,tail", [
-    (9, [(2, 4), (4, 16)], 50), (14, [(6, 36)], 50), (65, [(7, 49)], 50),
-    (65, [(8, 64)], 50), (11, [(4, 16), (16, 256)], 50), (5, [(6, 36)], 0)])
-def test_cuda_edge_mlp_kernels_match_plain_version(rows, head, tail):
-    """The chain at pf 16, 36, 49, 64 and 256 (W_s past shared memory) and
-    without a tail: the forward kernel against edge_mlp_reference and the
-    backward against autograd through it, every input's gradient."""
+@pytest.mark.parametrize("rows,head,tail,fwd_route,bwd_route",
+                         MLP_ROUTE_CASES)
+def test_cuda_edge_mlp_kernels_match_plain_version(rows, head, tail,
+                                                   fwd_route, bwd_route):
+    """The chain on every route of the launch rule (pf 16 to 961, R 1 to
+    200, clusters of 1 to 8, no tail): the forward kernel against
+    edge_mlp_reference and the backward against autograd through it,
+    every input's gradient; one launch each; the built libraries' shared
+    memory equal to the rule's; a second run gives the same bits (the
+    backward's cross-block counters reset themselves)."""
     _need_card()
     from mpnn_tpu_torch.kernels import edge_mlp as M
     rng = np.random.RandomState(rows + tail)
     x, ws, bs, sw = _mlp_problem(rng, rows, head, tail)
+    dims = [head[0][0]] + [o for _, o in head]
+    for direction, route in (("fwd", fwd_route), ("bwd", bwd_route)):
+        shape = M.device_shape(direction, rows, dims, tail, x.device)
+        assert shape.tag() == route
+        assert M.library_smem_bytes(direction, rows, dims, tail,
+                                    shape) == shape.smem_bytes
     leaves = {"x": x, **{f"w{i}": w for i, w in enumerate(ws)},
               **{f"b{i}": b for i, b in enumerate(bs)}, "ws": sw}
     cw = torch.as_tensor(rng.randn(rows, sw.shape[0]).astype(np.float32),
@@ -1024,6 +1060,10 @@ def test_cuda_edge_mlp_kernels_match_plain_version(rows, head, tail):
                            tail=tail)
     torch.cuda.synchronize()
     assert M.launch_counts == {"edge_mlp_fwd": 1, "edge_mlp_bwd": 1}
+    again = _value_and_grads(M.edge_mlp, (x, ws, bs, sw), leaves, cw,
+                             tail=tail)
+    assert torch.equal(again[0], got[0])
+    assert all(torch.equal(again[1][k], got[1][k]) for k in got[1])
     want = _value_and_grads(M.edge_mlp_reference, (x, ws, bs, sw), leaves,
                             cw, tail=tail)
     scale = float(want[0].abs().max())       # the chain's scale varies
