@@ -14,7 +14,11 @@ Phases, one line each:
                with padded edges and single-atom molecules
                (rtol 1e-4, atol 1e-5: float32 sums in other orders); the
                training kernels with nonzero loss and `out` cotangents,
-               each gradient leaf scaled by its max abs;
+               each gradient leaf scaled by its max abs; the backward on
+               every route of its rule (one cluster of 1, 2, 4 and 8
+               blocks, the grid, the grid with tiles smaller than the
+               graphs) at b1024, b16 and ragged, each run twice for the
+               same bits;
   4. serve   — the `predict` verb from SMILES (bench.py's ten molecules,
                repeated) at batch 16 and 1024 with a checkpoint built from
                a seeded torch.Generator; launch counts read around it;
@@ -32,7 +36,9 @@ Phases, one line each:
                1e-3); then `predict` from the checkpoint it wrote;
   8. train-times — train-step latency at batch 16 and 1024, and each
                training kernel's time beside its bound and its plain
-               version's time;
+               version's time; the backward's route, its empty-walk
+               floor (the same grid and combines, no arithmetic) and
+               block 0's clock64 phases;
   9. train-profile — torch.profiler trace of one batch-1024 train step;
  10. ps-kernel-check — the per-step family's three kernels against their
                plain versions on the card (rtol 1e-4, atol 1e-5; each
@@ -120,7 +126,8 @@ Phases, one line each:
                the `train` verb through every family's wide width bucket,
                launch counts, the plain path (predictions, first 3 losses,
                the first step's outputs and gradients), each kernel's
-               device time in a trace; lipo at f 33 raises;
+               device time in a trace; lipo's wide backward on every
+               route of its rule; lipo at f 33 raises;
  25. bil-kernel-check — the bilinear family's two kernels (fused_bilinear
                fwd/bwd) against their plain versions on the card (rtol
                1e-4, atol 1e-5; h0 and GRU gradients scaled by their max
@@ -222,6 +229,8 @@ Phases, one line each:
                shell's at b1024, b16 and with 64 vocab ids; at afm 27 (od
                108) at b1024; h0 random at the padded node slots (rtol
                1e-4, atol 1e-5; gradient leaves scaled by their max abs);
+               the backward's routes in every bucket, twice each for the
+               same bits;
  41. basic  — basic_classification through `predict` (batch 16 and 1024)
                and `train`, single_target through `predict` and `train` on
                a 250-class CSV (one-vs-rest against class 243), the
@@ -386,9 +395,7 @@ def phase_build():
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
            f"fused_step_fwd "
            f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
-           f" B, fused_step_bwd "
-           f"{K._lib('fused_step_bwd').mpnn_fused_step_bwd_smem_bytes(16, 6)}"
-           f" B (T 6); " + ", ".join(
+           f" B, fused_step_bwd {_bwd_smem_line()} (T 6); " + ", ".join(
                f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
                for n in ("fused_psteps_eval", "fused_psteps_fwd",
                          "fused_psteps_bwd"))
@@ -462,12 +469,118 @@ def _batch(smiles, batch_size):
     return next(iter(G.GraphLoader(gs, batch_size, collate="packed")))
 
 
+def _bwd_smem_line():
+    """fused_step_bwd's node capacity and dynamic shared memory per bucket
+    (K 16, T 6) on this card, each held against the library's own layout
+    (kernels/fused_step.py::bwd_smem_floats mirrors csrc's Smem)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out = []
+    for tag, _ in K.BUCKETS:
+        cap = K.bwd_capacity(tag, 16, 6, smem)
+        lib = K._lib("fused_step_bwd", tag=tag)
+        for c in (1, cap):
+            want = 4 * K.bwd_smem_floats(tag, 16, 6, c, K.EDGE_RATIO * c)
+            got = lib.mpnn_fused_step_bwd_smem_bytes(16, 6, c,
+                                                     K.EDGE_RATIO * c)
+            if got != want:
+                raise RuntimeError(f"fused_step_bwd.{tag}: the library "
+                                   f"takes {got} B at {c} nodes, "
+                                   f"bwd_smem_floats {want}")
+        out.append(f"{tag or 'narrow'} {cap} nodes a block, {want} B")
+    return ", ".join(out)
+
+
+@contextlib.contextmanager
+def _bwd_route(route, grid=None):
+    """Force fused_step_bwd's route for the launches inside (the rule's
+    shape with its route replaced: kernels/fused_step.py::launch_shape):
+    None (the rule's own choice), 'cluster C' (one cluster of C blocks),
+    'grid' (`grid` blocks, by default one per GRID_NODES of the n slots,
+    at least 2, at most 128), 'spilled' (a block per 128 slots, at least
+    2, with 16-node tiles: blocks keep their graphs in global scratch).
+    The GPU tests, the emulator's checks and scripts/time_fused_step.py
+    --sweep force routes through it."""
+    from mpnn_tpu_torch.kernels import fused_step as K
+    keep = K.device_bwd_shape
+
+    def forced(n, tag, k, steps, step_sums, device):
+        s = keep(n, tag, k, steps, step_sums, device)
+        if route is None:
+            return s
+        if route.startswith("cluster"):
+            return s._replace(route="cluster", grid=int(route.split()[1]))
+        per = 128 if route == "spilled" else K.GRID_NODES
+        s = s._replace(route="grid",
+                       grid=grid or min(128, max(2, -(-n // per))))
+        if route == "spilled":
+            s = s._replace(ncap=16, ecap=16 * K.EDGE_RATIO,
+                           smem_bytes=4 * K.bwd_smem_floats(
+                               tag, k, steps, 16, 16 * K.EDGE_RATIO))
+        return s
+    K.device_bwd_shape = forced
+    try:
+        yield
+    finally:
+        K.device_bwd_shape = keep
+
+
+def _bwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
+                      device):
+    """fused_step_bwd on each forced route against autograd through the
+    plain version (each leaf divided by its max abs; rtol 1e-4, atol
+    1e-5), run twice for the same bits, one forward and one backward
+    launch a run. Returns (report, worst error, failed)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    sargs, leaves = _shell_step_args(eval_args, gen)
+    h0 = sargs[3]
+    n, f = h0.shape
+    k = sargs[0].shape[0]
+    tag = K.width_bucket("", K.BUCKETS, f=f, od=od)
+    cw = torch.randn(sargs[10].shape[0], od, generator=gen).to(device)
+    kw = dict(steps=steps, msg_norm=mn, state_norm=sn)
+    want = _step_and_grads(K.fused_step_reference, sargs, leaves, cw, kw)
+    out, worst, failed = [], 0.0, []
+    for route in routes:
+        with _bwd_route(route):
+            K.reset_launch_counts()
+            got = _step_and_grads(K.fused_step, sargs, leaves, cw, kw)
+            again = _step_and_grads(K.fused_step, sargs, leaves, cw, kw)
+            torch.cuda.synchronize()
+            shape = K.device_bwd_shape(n, tag, k, steps, sn != "none",
+                                       device)
+        counts = (K.launch_counts["fused_step_fwd"],
+                  K.launch_counts["fused_step_bwd"])
+        same = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        _, _, ok_b, err_b = _step_errors(got, want, mn)
+        ok = (ok_b and same and counts == (2, 2)
+              and shape.route == {"spilled": "grid"}.get(
+                  route, route.split()[0])
+              and (not route.startswith("cluster")
+                   or shape.grid == int(route.split()[1])))
+        worst = max(worst, err_b)
+        out.append(f"{shape.tag()} {err_b:.2e}"
+                   + ("" if same else " BITS DIFFER")
+                   + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"{what} {route}")
+    return (f"{what} {mn}/{sn} f={f} od={od} T={steps} K={k} "
+            f"({n} slots): " + ", ".join(out)), worst, failed
+
+
+CHECK_BATCH = 1024                   # kernel-check's large batch
+TRAIN_TIMES_BATCHES = (16, 1024)     # train-times' batches
+
+
 def phase_kernel_check(device):
     import torch
     from mpnn_tpu_torch.kernels import fused_step as K
     from mpnn_tpu_torch.train.trainer import batch_to_device
     gen = torch.Generator().manual_seed(1)
-    flag = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    flag = batch_to_device(_batch((SMILES * 103)[:CHECK_BATCH],
+                                  CHECK_BATCH), device)
     ragged_smiles = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
     ragged = batch_to_device(_batch(ragged_smiles, len(ragged_smiles)),
                              device)
@@ -528,6 +641,35 @@ def phase_kernel_check(device):
     if failed:
         raise RuntimeError(f"training kernels disagree with their plain "
                            f"version: {failed}")
+    # the backward on every route of its rule: one block, clusters of 2, 4
+    # and 8, the grid, the grid with tiles too small for the graphs
+    b16 = batch_to_device(_batch((SMILES * 2)[:16], 16), device)
+    lines = []
+    every = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
+             "spilled")
+    for what, tb, mn, sn, routes in (
+            ("b1024", flag, "bn1d", "bn1d", every),
+            ("b1024", flag, "none", "none", ("cluster 8", "grid")),
+            ("b16", b16, "bn1d", "bn1d", every),
+            ("b16", b16, "bn1d", "none", ("cluster 1", "grid")),
+            ("ragged", ragged, "bn1d", "bn1d", ("cluster 1", "grid",
+                                                "spilled"))):
+        k = int(tb["edge_vfirst"].shape[0])
+        f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
+        w = _random_weights(f, 14, k, gen, device)
+        line, err, bad = _bwd_route_checks(
+            what, _shell_args(tb, w, True, gen), 14, 6, mn, sn, routes, gen,
+            device)
+        lines.append(line)
+        worst_bwd = max(worst_bwd, err)
+        failed += bad
+    print(f"kernel-check: fused_step_bwd's routes vs autograd through "
+          f"fused_step_reference (each leaf divided by its max abs, rtol "
+          f"{RTOL} atol {ATOL}; two runs, the same bits; one launch each; "
+          f"h0 random at the padded slots): " + "; ".join(lines),
+          flush=True)
+    if failed:
+        raise RuntimeError(f"fused_step_bwd disagrees on a route: {failed}")
     return {"fused_eval": worst, "fused_step_fwd": worst_fwd,
             "fused_step_bwd": worst_bwd}
 
@@ -1067,6 +1209,47 @@ def _kernel_trace_us(*prepared):
             for p in prepared}
 
 
+def _bwd_phases(p, T):
+    """fused_step_bwd's clock64 stamps (block 0, thread 0; cycles) as
+    phases: staging and the vocab sort, the readout VJP, its batch sums'
+    combine, one walk step's arithmetic and its combine (mean over the T
+    steps), W_hh's and W_ih's rows (W_ih's products once), the message
+    norm's combine, the message VJP, dA, the final sum."""
+    steps = [(p[4 + 2 * i] - p[3 + 2 * i], p[5 + 2 * i] - p[4 + 2 * i])
+             for i in range(T)]
+    return {"staging": p[1] - p[0], "readout": p[2] - p[1],
+            "readout combine": p[3] - p[2],
+            "step": sum(a for a, _ in steps) / T,
+            "step combine": sum(b for _, b in steps) / T,
+            "W_hh rows": p[70] - p[3 + 2 * T], "W_ih once": p[71] - p[70],
+            "message combine": p[72] - p[71], "message VJP": p[73] - p[72],
+            "dA": p[74] - p[73], "final sum": p[75] - p[74],
+            "total": p[75] - p[0]}
+
+
+def _bwd_detail(weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid,
+                src, dst, plan, meta, device, tag=None):
+    """fused_step_bwd's route on these inputs, the empty-walk floor
+    (CUDA events over 100 launches of the same grid and combines with no
+    arithmetic) and block 0's clock64 phases of one launch."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    args = (weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid, src,
+            dst, plan, meta)
+    pfl = K.prepare_fused_step_bwd(*args, tag=tag, floor=True)
+    floor_ms = _events_ms(lambda: K.launch_prepared(pfl), 100)
+    prof = torch.zeros(K.PROF_SLOTS, dtype=torch.int64, device=device)
+    counts = dict(K.launch_counts)
+    K.launch_prepared(K.prepare_fused_step_bwd(*args, tag=tag, prof=prof))
+    K.launch_counts.update(counts)
+    torch.cuda.synchronize()
+    tag = K.bucket_of("fused_step", tag, f=h0.shape[1], od=o.shape[1])
+    shape = K.device_bwd_shape(h0.shape[0], tag, weights[0][1].shape[0],
+                               meta.steps, meta.state_mode != K.NONE, device)
+    phases = _bwd_phases(prof.tolist(), meta.steps)
+    return shape.tag(), floor_ms, phases
+
+
 def phase_train_times(device, card):
     """Train-step latency (host clock ending in a device sync, the loss
     read back) at batch 16 and 1024, and each training kernel's time
@@ -1081,7 +1264,7 @@ def phase_train_times(device, card):
     from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
     out, lines = {}, []
     gen = torch.Generator().manual_seed(2)
-    for bs in (16, 1024):
+    for bs in TRAIN_TIMES_BATCHES:
         b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
         b["labels"] = torch.randn(bs, generator=gen).numpy()
         tb = batch_to_device(b, device)
@@ -1118,6 +1301,9 @@ def phase_train_times(device, card):
                                       meta)
         b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
         trace_us = _kernel_trace_us(pf, pb)
+        route, floor_ms, phases = _bwd_detail(
+            weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid, src,
+            dst, plan, meta, device)
         ref_args = (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels,
                     gmask, vid, src, dst, plan)
         with torch.no_grad():
@@ -1137,6 +1323,8 @@ def phase_train_times(device, card):
                    "fused_step_bwd": dict(ms=b_ms, plain_ms=pb_ms)}
         for name in ("fused_step_fwd", "fused_step_bwd"):
             out[bs][name]["trace_us"] = trace_us[name]
+        out[bs]["fused_step_bwd"].update(route=route, floor_ms=floor_ms,
+                                         phases=phases)
         for name in ("fused_step_fwd", "fused_step_bwd"):
             bound, by, ops, nbytes = bounds[name]
             out[bs][name].update(bound_ms=bound, bound_by=by)
@@ -1153,7 +1341,10 @@ def phase_train_times(device, card):
                 f"bound {bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
                 f"{bounds[name][3] / 1e6:.3f} MB)"
-                for name in ("fused_step_fwd", "fused_step_bwd")))
+                for name in ("fused_step_fwd", "fused_step_bwd"))
+            + f"; fused_step_bwd route {route}, empty-walk floor "
+            f"{floor_ms * 1e3:.2f} us (events), block 0's clock64 cycles "
+            + json.dumps({k: round(v) for k, v in phases.items()}))
     print(f"train-times [{card}]: " + "; ".join(lines), flush=True)
     return out
 
@@ -3411,6 +3602,21 @@ def phase_wide(device, card):
         lines.append(line)
         for k in step_counts:
             step_counts[k] += sc.get(k, 0) + tc.get(k, 0)
+    # lipo's wide backward (od = 2·afm: the f32 bucket) on every route, at
+    # the widths its batch of 16 of these SMILES featurizes to
+    gen = torch.Generator().manual_seed(44)
+    tb = batch_to_device(_batch(WIDE_SMILES[:16], 16), device)
+    f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
+    od = 2 * tb["node_feats"].shape[1]
+    line, _, bad = _bwd_route_checks(
+        "wide lipo b16", _shell_args(tb, _random_weights(
+            f, od, int(tb["edge_vfirst"].shape[0]), gen, device), True,
+            gen), od, 6, "bn1d", "bn1d",
+        ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
+         "spilled"), gen, device)
+    lines.append(f"fused_step_bwd's routes: {line}")
+    if bad:
+        raise RuntimeError(f"wide: fused_step_bwd disagrees on {bad}")
     # past the widest bucket: f 33 raises, naming the widths
     too_wide = zoo.lipo(afm + 3, bfm, nafm)
     net = network_init(too_wide, torch.Generator().manual_seed(5), device)
@@ -6184,6 +6390,33 @@ def phase_basic_kernel_check(device):
     print(f"basic-kernel-check: rows 1-3 vs their plain versions (rtol "
           f"{RTOL} atol {ATOL}; gradients divided by their max abs; h0 "
           f"random at the padded slots): " + "; ".join(results), flush=True)
+    # the backward's routes in every bucket
+    lines = []
+    for name, nafm, od, T, mn, sn, routes in (
+            ("b16", False, 28, 3, "none", "none",
+             ("cluster 1", "cluster 2", "cluster 4", "grid")),
+            ("b1024", False, 28, 3, "none", "stateless",
+             ("cluster 8", "grid", "spilled")),
+            ("b2560", True, 14, 6, "none", "stateless", ("grid",)),
+            ("wide b16", True, 60, 3, "bn1d", "stateless",
+             ("cluster 1", "cluster 4", "grid", "spilled")),
+            ("wide b16", False, 108, 3, "none", "none",
+             ("cluster 1", "cluster 8", "grid")),
+            ("wide b16", False, 108, 3, "bn1d", "stateless",
+             ("cluster 2", "grid", "spilled"))):
+        tb = batches[name]
+        f = tb["node_feats"].shape[1] + (tb["node_nafm"].shape[1]
+                                         if nafm else 0)
+        k = int(tb["edge_vfirst"].shape[0])
+        w = _random_weights(f, od, k, gen, device)
+        line, err, bad = _bwd_route_checks(
+            name, _shell_args(tb, w, nafm, gen), od, T, mn, sn, routes, gen,
+            device)
+        lines.append(line)
+        worst["fused_step_bwd"] = max(worst["fused_step_bwd"], err)
+        failed += bad
+    print(f"basic-kernel-check: fused_step_bwd's routes in every bucket "
+          f"(as kernel-check's): " + "; ".join(lines), flush=True)
     if failed:
         raise RuntimeError(f"rows 1-3 disagree with their plain versions: "
                            f"{failed}")
@@ -6530,7 +6763,8 @@ def main() -> int:
             "replaces": f"mpnn_tpu/kernels/fused_step.py:{line}",
             "launches": train_counts[name] + step_counts[name],
             "max_abs_err": worst[name],
-            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "ms": tt["ms"], "trace_ms": tt["trace_us"] / 1e3,
+            "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     for name, line in zip(PS_KERNELS, (1254, 195, 428)):

@@ -1,8 +1,10 @@
 // Shared pieces of the two whole-step TRAINING kernels (fused_step_fwd.cu,
 // fused_step_bwd.cu): the weight layout in shared memory, the batch-wide
-// masked-BN statistics and the fixed-order reductions.
+// masked-BN statistics and the fixed-order reductions. The backward takes
+// the weight layout and the norm constants from here and maps its work
+// itself (fused_step_bwd.cu); the rest describes the forward kernels.
 //
-// Both kernels are single cooperative launches. Work is mapped two ways:
+// The forward is a single cooperative launch. Work is mapped two ways:
 //   * graph phases (messages, readout, the message backward): ONE WARP per
 //     graph, lanes over its nodes, per-graph sums as xor butterflies;
 //   * node phases (the T recurrent steps and their reverse): node CHUNKS of

@@ -236,11 +236,12 @@ _SIGNATURES = {
         "mpnn_fused_step_fwd_grid": ([_I] * 4, _I),
     },
     "fused_step_bwd": {
-        "mpnn_fused_step_bwd": ([_P] * 33 + [_I] * 10 + [_P], _I),
-        "mpnn_fused_step_bwd_smem_bytes": ([_I, _I], _I),
+        "mpnn_fused_step_bwd": ([_P] * 36 + [_I] * 14 + [_P], _I),
+        "mpnn_fused_step_bwd_smem_bytes": ([_I] * 4, _I),
         "mpnn_fused_step_bwd_layout": ([_I, _I, _I, _P], None),
-        "mpnn_fused_step_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
-        "mpnn_fused_step_bwd_grid": ([_I] * 5, _I),
+        "mpnn_fused_step_bwd_scratch_floats": ([_I] * 7, ctypes.c_longlong),
+        "mpnn_fused_step_bwd_sync_words": ([_P], _I),
+        "mpnn_fused_step_bwd_max_grid": ([_I], _I),
     },
 }
 _READY = set()
@@ -667,23 +668,185 @@ def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
                           (loss, out, stats, htil), tuple(tensors))
 
 
+# ---------------------------------------------------------------------------
+# the backward's routes (csrc/fused_step_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256          # kBT
+MAX_CLUSTER = 8            # the portable cluster size
+MAX_GRID = 512             # kMaxGrid: the flag rows of the grid route
+EDGE_RATIO = 3             # edge slots a node slot of a block's tile
+MAX_NCAP = 1024            # the most node slots a block's tile is given
+PROF_SLOTS = 80            # kProfSlots: block 0's clock64 stamps
+# Node slots a block takes. With a state norm (its batch sums cross blocks
+# in every step) up to CLUSTER_SLOTS slots the cluster route takes the
+# fewest blocks (1, 2, 4, 8) whose share is at most CLUSTER_NODES (8 past
+# them); otherwise, and without a state norm at any size, the grid route
+# takes one block per GRID_NODES slots, up to the co-resident blocks. From
+# scripts/time_fused_step.py --sweep (PERF.md, row 3; events): lipo
+# bn1d/bn1d's cluster of 8 beat every grid at 256 and 384 slots (63.7,
+# 65.2 us; a block per 8 slots 68.1, 70.4) and lost at 512 (72.0 against
+# 69.9 at a block per 16) and 640 (82.3 against 71.7); from 512 to 2,176
+# slots a block per 16 beat 8, 32, 64 and 100 or lay within 2%; without a
+# state norm the grid at 16 beat a cluster of 8 at 256 slots (basic
+# none/none 48.7 against 53.9 us) and 8 a block was at most 5% faster.
+CLUSTER_NODES = 32
+CLUSTER_SLOTS = 384
+GRID_NODES = 16
+
+
+def _bucket_widths(tag: str):
+    most = dict(BUCKETS)[tag]
+    return most["f"], most["od"]
+
+
+def bwd_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int,
+                    ecap: int) -> int:
+    """Floats of one backward block's shared memory (csrc/
+    fused_step_bwd.cu::Smem after fused_train_common.cuh::L): the staged
+    weights and norm constants, the batch sums, the reduction scratch, the
+    readout's staged rows, the block's node and edge tables (ncap nodes,
+    ecap edges), two staged htil slots and the node tile."""
+    fp, odp = _bucket_widths(tag)
+    al4 = lambda v: (v + 3) & ~3
+    ro = 2 * fp * odp if odp <= 64 else 0           # kRoInSmem
+    vocab = k_vocab * fp * fp if fp <= 16 else 0    # kVocabInSmem
+    weights = 7 * fp * fp + 11 * fp + 2 * ro + 2 * odp + vocab
+    n = al4(weights + 3 * fp * (steps + 1))
+    warps = BWD_THREADS // 32
+    red = max(warps * fp * fp, BWD_THREADS * 16)
+    rows = (BWD_THREADS // fp) * 2 * (2 * fp + 4 + 2 * odp)
+    n += 4 * fp + al4((steps + 1) * 2 * fp) + 4 + red + rows
+    n += al4(2 * ncap + 1 + 5 * ecap + (warps + 1) * k_vocab + 1)
+    n += 2 * ncap * fp + ncap * 10 * fp
+    return n
+
+
+class BwdShape(NamedTuple):
+    """A backward launch: the route ('cluster': one thread-block cluster
+    of `grid` blocks; 'grid': `grid` co-resident blocks), the node and
+    edge slots of a block's shared-memory tile, its dynamic shared memory
+    (bytes)."""
+    route: str
+    grid: int
+    ncap: int
+    ecap: int
+    smem_bytes: int
+
+    def tag(self) -> str:
+        return f"{self.route} x{self.grid} cap {self.ncap}"
+
+
+def bwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int) -> int:
+    """The most node slots (at most MAX_NCAP, EDGE_RATIO edges each) whose
+    tile fits `smem_bytes` of a block; 0 when none does."""
+    fits = lambda c: 4 * bwd_smem_floats(tag, k_vocab, steps, c,
+                                         EDGE_RATIO * c) <= smem_bytes
+    lo, hi = 0, MAX_NCAP
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                 step_sums: bool, smem_bytes: int, max_grid: int
+                 ) -> BwdShape:
+    """The backward's route for a batch of `n` node slots, from shapes and
+    norms alone: with `step_sums` (a state norm, whose batch sums every
+    step combines across blocks) up to CLUSTER_SLOTS slots one cluster of
+    the fewest blocks (1, 2, 4) that take at most CLUSTER_NODES slots each,
+    else 8; past them, and without step_sums at any size, the grid route
+    with a block per GRID_NODES slots, at most `max_grid` (the card's
+    co-resident blocks);
+    neither share past 3/4 of a block's tile, which holds as many nodes as
+    its shared memory does (bwd_capacity: fewer in the wide buckets and
+    with a large vocab or T).
+    A block whose graphs still outgrow its tile keeps them in global
+    scratch, on the same route. NotImplementedError when not one node
+    fits."""
+    cap = bwd_capacity(tag, k_vocab, steps, smem_bytes)
+    if cap < 1:
+        raise NotImplementedError(
+            f"fused_step_bwd: one node at vocab {k_vocab}, T {steps} needs "
+            f"{4 * bwd_smem_floats(tag, k_vocab, steps, 1, EDGE_RATIO)} "
+            f"bytes of shared memory; the card has {smem_bytes}")
+    bytes_ = 4 * bwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap)
+    # a block's share of the slots stays within 3/4 of its tile: whole
+    # graphs go to a block, so its real nodes pass its share by up to a
+    # graph
+    fill = max(1, 3 * cap // 4)
+    if step_sums and n <= CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
+        c = next((c for c in (1, 2, 4)
+                  if -(-n // c) <= min(CLUSTER_NODES, fill)), MAX_CLUSTER)
+        return BwdShape("cluster", c, cap, EDGE_RATIO * cap, bytes_)
+    grid = max(1, min(max_grid, MAX_GRID, -(-n // min(GRID_NODES, fill))))
+    return BwdShape("grid", grid, cap, EDGE_RATIO * cap, bytes_)
+
+
+_BWD_SHAPES: Dict[tuple, BwdShape] = {}
+
+
+def device_bwd_shape(n: int, tag: str, k_vocab: int, steps: int,
+                     step_sums: bool, device) -> BwdShape:
+    """launch_shape on `device`'s shared memory and co-resident blocks."""
+    key = (n, tag, k_vocab, steps, step_sums, str(device))
+    if key not in _BWD_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        cap = bwd_capacity(tag, k_vocab, steps, smem)
+        lib = _lib("fused_step_bwd", tag=tag)
+        most = lib.mpnn_fused_step_bwd_max_grid(4 * bwd_smem_floats(
+            tag, k_vocab, steps, max(cap, 1), EDGE_RATIO * max(cap, 1)))
+        if most < 1:
+            raise RuntimeError("fused_step_bwd: no block fits this card")
+        _BWD_SHAPES[key] = launch_shape(n, tag, k_vocab, steps,
+                                        step_sums=step_sums,
+                                        smem_bytes=smem, max_grid=most)
+    return _BWD_SHAPES[key]
+
+
+# The grid route's flags and counters, one pair per device and stream,
+# zeroed once: every launch leaves its counters zero and tags its flags
+# with a value the last launch left in the flag buffer's last word.
+_SYNC: Dict[tuple, tuple] = {}
+
+
+def _sync_buffers(lib, device, stream: int):
+    key = (str(device), stream)
+    if key not in _SYNC:
+        n_counters = ctypes.c_int()
+        words = lib.mpnn_fused_step_bwd_sync_words(ctypes.byref(n_counters))
+        _SYNC[key] = (torch.zeros(words, dtype=torch.int64, device=device),
+                      torch.zeros(n_counters.value, dtype=torch.int32,
+                                  device=device))
+    return _SYNC[key]
+
+
 def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                            stats, node_graph, vid, src, dst,
                            plan: FusedEvalPlan, meta: StepMeta,
-                           tag: Optional[str] = None) -> PreparedLaunch:
+                           tag: Optional[str] = None, prof=None,
+                           floor: bool = False) -> PreparedLaunch:
     """One checked backward launch on the forward's residuals (the batch
     tensors as the forward checked them): its arguments and outputs
     (dh0 (N, f), the flat gradient of grad_layout); `tag` as
-    prepare_fused_eval's."""
+    prepare_fused_eval's. A measurement may take block 0's clock64 stamps
+    (`prof`, int64 with PROF_SLOTS slots) or launch the empty walk
+    (`floor`: the route's grid and combines, no arithmetic; counted as its
+    own key)."""
     device = h0.device
     n, f = h0.shape
     w = dict(weights)
     k_vocab, od = w["amat"].shape[0], w["ro_ib"].shape[0]
     e, g, T = src.shape[0], plan.graph_node_ptr.shape[0] - 1, meta.steps
-    for name, t, shape in [("out", out, (g, od)), ("gout", gout, (g, od)),
-                           ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
-                           ("stats", stats, (T + 1, 2, f))]:
-        _check(name, t, shape, device, torch.float32)
+    for name, t, shape_ in [("out", out, (g, od)), ("gout", gout, (g, od)),
+                            ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
+                            ("stats", stats, (T + 1, 2, f))]:
+        _check(name, t, shape_, device, torch.float32)
+    if prof is not None and (prof.dtype != torch.int64
+                             or prof.numel() < PROF_SLOTS):
+        raise ValueError(f"prof: int64 with {PROF_SLOTS} slots expected")
     tag = bucket_of("fused_step", tag, f=f, od=od)
     lib = _lib("fused_step_bwd", tag=tag)
     layout = grad_layout(k_vocab, f, od)
@@ -692,23 +855,36 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("fused_step_bwd: the gradient layout of the "
                            "built library disagrees with grad_layout")
-    grid = _grid(lib, "mpnn_fused_step_bwd_grid", k_vocab, T, n, g, e)
+    shape = device_bwd_shape(n, tag, k_vocab, T, meta.state_mode != NONE,
+                             device)
     kw = dict(dtype=torch.float32, device=device)
     dh0 = torch.empty(n, f, **kw)
     dw = torch.empty(layout["total"][0], **kw)
     scratch = torch.empty(lib.mpnn_fused_step_bwd_scratch_floats(
-        n, k_vocab, f, od, grid), **kw)
+        n, e, k_vocab, f, od, T, shape.grid), **kw)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    flags, counters = (_sync_buffers(lib, device, stream)
+                       if shape.route == "grid" and shape.grid > 1
+                       else (None, None))
     src_order, src_ptr = source_order(src, n)
     tensors = _kernel_weights(weights, h0, tag) + [
         labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
         src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
         scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, e, f, od, k_vocab, T,
-            meta.msg_mode, meta.state_mode, grid,
-            torch.cuda.current_stream(device).cuda_stream)
-    return PreparedLaunch("fused_step_bwd", lib.mpnn_fused_step_bwd,
+    ptr = lambda t: None if t is None else t.data_ptr()
+    args = (*(t.data_ptr() for t in tensors), ptr(flags), ptr(counters),
+            ptr(prof), n, g, e, f, od, k_vocab, T, meta.msg_mode,
+            meta.state_mode, int(shape.route == "grid"), shape.grid,
+            shape.ncap, shape.ecap, int(floor), stream)
+    return PreparedLaunch("fused_step_bwd_floor" if floor
+                          else "fused_step_bwd", lib.mpnn_fused_step_bwd,
                           lib.mpnn_cuda_error_string, args, (dh0, dw),
-                          tuple(tensors))
+                          tuple(tensors) + (flags, counters, prof),
+                          floor_counts if floor else launch_counts)
+
+
+# the empty walk's launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"fused_step_bwd_floor": 0}
 
 
 def split_grads(dw: torch.Tensor, k_vocab: int, f: int, od: int):

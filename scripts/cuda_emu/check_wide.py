@@ -20,9 +20,10 @@ import numpy as np
 import torch
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-sys.path[:0] = [HERE, os.path.join(os.path.dirname(os.path.dirname(HERE)),
-                                   "tests")]
+ROOT = os.path.dirname(os.path.dirname(HERE))
+sys.path[:0] = [HERE, os.path.join(ROOT, "tests"), ROOT]
 
+import chip_smoke as CS                                        # noqa: E402
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import fused_step as K             # noqa: E402
 import test_torch_gpu as T                                     # noqa: E402
@@ -61,8 +62,16 @@ def _report(what, errs):
     return ok
 
 
+# the backward's routes, forced as the GPU tests force them
+# (chip_smoke.py::_bwd_route) (one block, a
+# cluster of 8, the grid, the grid with 16-node tiles: blocks keep their
+# graphs in global scratch); None keeps the rule's choice
+ROUTES = {None: None, "one": "cluster 1", "cluster": "cluster 8",
+          "grid": "grid", "spilled": "spilled"}
+
+
 def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
-                     steps=3):
+                     steps=3, route=None):
     rng = np.random.RandomState(seed)
     args = T._problem(rng, g=g, f=f, od=od, k=k, device="cpu")
     kw = dict(steps=steps, msg_norm=msg_norm, state_norm=state_norm)
@@ -71,7 +80,11 @@ def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
     want = K.fused_eval_reference(*args, **kw)
     sargs, leaves = T._step_problem(rng, g, f=f, od=od, k=k, device="cpu")
     cw = torch.as_tensor(rng.randn(g, od).astype(np.float32))
-    sgot = T.step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
+    tag = K.width_bucket('', K.BUCKETS, f=f, od=od)
+    with CS._bwd_route(ROUTES[route]):
+        sgot = T.step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
+        shape = K.device_bwd_shape(sargs[3].shape[0], tag, k, steps,
+                                   state_norm != "none", "cpu")
     swant = T.step_and_grads(K.fused_step_reference, sargs, leaves, cw, **kw)
     stateless = state_norm == "stateless"
     assert K.launch_counts == {"fused_eval": int(not stateless),
@@ -84,8 +97,9 @@ def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
     grads = {n: v for n, v in sgot[4].items()
              if not (n == "mbias" and msg_norm == "bn1d")}
     return _report(
-        f"fused_step g={g} f={f} od={od} K={k} {msg_norm}/{state_norm} "
-        f"bucket {K.width_bucket('', K.BUCKETS, f=f, od=od) or 'narrow'}",
+        f"fused_step g={g} f={f} od={od} K={k} T={steps} "
+        f"{msg_norm}/{state_norm} bucket {tag or 'narrow'} "
+        f"bwd {shape.tag()}",
         {"eval": _err(got, want), "loss": _err(sgot[0], swant[0]),
          "out": _err(sgot[1], swant[1]), "stats": stats,
          "grads": _scaled(grads, swant[4])})
@@ -186,16 +200,30 @@ def check_set2vec(seed, g, w, steps, batch_softmax):
 CASES = {
     "fused_step": lambda: [
         check_fused_step(0, 9, 10, 14, 6),
+        check_fused_step(0, 9, 10, 14, 6, route="one"),
+        check_fused_step(0, 9, 10, 14, 6, route="cluster"),
+        check_fused_step(0, 9, 10, 14, 6, route="grid"),
+        check_fused_step(0, 9, 10, 14, 6, route="spilled"),
+        check_fused_step(11, 5, 10, 14, 6, steps=1, route="grid"),
+        check_fused_step(12, 5, 10, 14, 64, "bn1d", "stateless", steps=7,
+                         route="cluster"),
         check_fused_step(1, 9, 19, 32, 6),
         check_fused_step(2, 7, 32, 64, 5, "none", "bn1d"),
+        check_fused_step(2, 7, 32, 64, 5, "none", "bn1d", route="grid"),
         check_fused_step(3, 7, 24, 40, 4, "bn1d", "none"),
         check_fused_step(4, 9, 10, 14, 6, "none", "stateless"),
+        check_fused_step(4, 9, 10, 14, 6, "none", "stateless",
+                         route="spilled"),
         check_fused_step(5, 9, 7, 28, 6, "none", "none"),
-        check_fused_step(6, 9, 7, 28, 6, "bn1d", "stateless"),
+        check_fused_step(5, 9, 7, 28, 6, "none", "none", route="grid"),
+        check_fused_step(6, 9, 7, 28, 6, "bn1d", "stateless",
+                         route="cluster"),
         check_fused_step(7, 7, 24, 40, 4, "bn1d", "stateless"),
         check_fused_step(8, 7, 27, 108, 5, "none", "none"),
-        check_fused_step(9, 7, 27, 108, 5, "none", "stateless"),
-        check_fused_step(10, 7, 32, 128, 4, "bn1d", "stateless"),
+        check_fused_step(9, 7, 27, 108, 5, "none", "stateless",
+                         route="grid"),
+        check_fused_step(10, 7, 32, 128, 4, "bn1d", "stateless",
+                         route="spilled"),
     ],
     "fused_psteps": lambda: [
         check_fused_psteps(0, 9, 8, 16, 5, "bn1d", "bn1d"),

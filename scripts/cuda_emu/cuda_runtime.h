@@ -112,6 +112,22 @@ inline float __shfl_sync(unsigned, float v, int src) {
   __syncwarp();
   return r;
 }
+inline int __shfl_sync(unsigned, int v, int src) {
+  const int w = threadIdx.x / 32, l = threadIdx.x % 32;
+  float f;
+  std::memcpy(&f, &v, 4);
+  emu_block->shfl[w][l] = f;
+  __syncwarp();
+  std::memcpy(&v, &emu_block->shfl[w][src & 31], 4);
+  __syncwarp();
+  return v;
+}
+inline int __shfl_up_sync(unsigned, int v, unsigned d) {
+  const int l = threadIdx.x % 32;
+  return __shfl_sync(0u, v, l >= int(d) ? l - int(d) : l);
+}
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs(int(x)); }
 // bar.sync id, n: a named barrier of n threads of the block (made at its
 // first use)
 inline void emu_named_sync(int id, int n) {

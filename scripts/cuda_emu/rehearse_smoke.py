@@ -6,7 +6,10 @@ its times and profiles mean nothing. Run from the repository root:
 
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
-phases: att-kernel-check, att-times (set2vec's routes, its empty-step
+phases: kernel-check, train-times, basic-kernel-check (the shared
+family's kernels and row 3's backward on every route: batch 48 for 1024,
+64 molecules in 2,000 slots for 2,560), att-kernel-check, att-times
+(set2vec's routes, its empty-step
 floor and clock64 phases; batch 48 for 1024, 3 set2vec steps, the
 empty-block case on 27 graphs, the many-graph cases on 130, 60 and
 230),
@@ -101,8 +104,11 @@ def main(argv) -> int:
     CS._split_trace = lambda name, step: (step(), (0.0, 0))[1]
     CS.SPLIT_ROWS, CS.SPLIT_BATCH, CS.SPLIT_NODES = 160, 48, 1024
     CS.SPLIT_SMALL = 16
-    split_bwd.PS_WHOLE_NPAD_CAP = 384
-    split_bwd.WHOLE_BWD_BYTES = 800_000
+
+    def lower_split():
+        """The split phases' limits: 48 molecules split, 16 do not."""
+        split_bwd.PS_WHOLE_NPAD_CAP = 384
+        split_bwd.WHOLE_BWD_BYTES = 800_000
 
     def split_batches(device):
         """split-kernel-check's batches cut: b16 for b1024, 48 molecules
@@ -148,7 +154,31 @@ def main(argv) -> int:
                 for d in ("fwd", "bwd"))))
         return out
     CS._s2v_route_cases = emulated_cases
-    phases = {"att-kernel-check": lambda: CS.phase_att_kernel_check(cpu),
+    # kernel-check, train-times and basic-kernel-check (row 3's routes):
+    # batch 48 for 1024, the wide set's 48 for its 1024, 64 molecules in
+    # 2,000 slots for 2,560 in 32,896
+    CS.CHECK_BATCH, CS.TRAIN_TIMES_BATCHES = 48, (16, 48)
+
+    def basic_batches(device):
+        from mpnn_tpu_torch import graphs as G
+        from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+        gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+            (CS.SMILES * 7)[:64], [0.0] * 64))
+        big = trainer.batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+            G.collate_packed(gs, node_cap=2000).as_dict())), device)
+        b = lambda sm, n: trainer.batch_to_device(CS._batch(sm[:n], n),
+                                                  device)
+        ragged = CS.SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
+        return {"b1024": b(CS.SMILES * 5, 48), "b2560": big,
+                "b16": b(CS.SMILES * 2, 16),
+                "ragged": b(ragged, len(ragged)),
+                "wide b1024": b(CS.WIDE_SMILES * 3, 48),
+                "wide b16": b(CS.WIDE_SMILES, 16)}
+    CS._basic_batches = basic_batches
+    phases = {"kernel-check": lambda: CS.phase_kernel_check(cpu),
+              "train-times": lambda: CS.phase_train_times(cpu, "emulated"),
+              "basic-kernel-check": lambda: CS.phase_basic_kernel_check(cpu),
+              "att-kernel-check": lambda: CS.phase_att_kernel_check(cpu),
               "att-times": lambda: CS.phase_att_times(cpu, "emulated"),
               "mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
               "mlp-times": lambda: CS.phase_mlp_times(cpu, "emulated"),
@@ -166,9 +196,12 @@ def main(argv) -> int:
               "dec-att-train": lambda: CS.phase_dec_att_train(cpu),
               "dec-att-times": lambda: CS.phase_dec_att_times(cpu,
                                                               "emulated"),
-              "split-kernel-check": lambda: CS.phase_split_kernel_check(cpu),
-              "split-train": lambda: CS.phase_split_train(cpu),
-              "split-times": lambda: CS.phase_split_times(cpu, "emulated")}
+              "split-kernel-check": lambda: (
+                  lower_split(), CS.phase_split_kernel_check(cpu)),
+              "split-train": lambda: (lower_split(),
+                                      CS.phase_split_train(cpu)),
+              "split-times": lambda: (
+                  lower_split(), CS.phase_split_times(cpu, "emulated"))}
     for name in argv or list(phases):
         phases[name]()
     return 0

@@ -209,3 +209,91 @@ def test_layout_checks_cover_the_source_plan(fault):
     with pytest.raises(ValueError, match="fused_step: src/dst out of range"):
         K.check_batch_layout(h0, mask, ng, vid, bad, dst, plan, dims["k"],
                              dims["g"], who="fused_step")
+
+
+# ---------------------------------------------------------------------------
+# the backward's route rule (kernels/fused_step.py::launch_shape), decided
+# on the host from shapes alone
+# ---------------------------------------------------------------------------
+
+H100_SMEM, H100_GRID = 232448, 132          # opt-in bytes a block; 1 a SM
+
+
+def _rule(n, tag="", k=8, steps=6, smem=H100_SMEM, max_grid=H100_GRID,
+          step_sums=True):
+    return K.launch_shape(n, tag, k, steps, step_sums=step_sums,
+                          smem_bytes=smem, max_grid=max_grid)
+
+
+def test_bwd_rule_at_its_node_count_boundaries():
+    """With a state norm (batch sums every step), up to CLUSTER_SLOTS node
+    slots one cluster of the fewest blocks (1, 2, 4) whose share is at
+    most CLUSTER_NODES, else 8; then the grid at GRID_NODES a block,
+    capped at the co-resident blocks (lipo's narrow bucket, K 8, T 6)."""
+    cn, cs, gn = K.CLUSTER_NODES, K.CLUSTER_SLOTS, K.GRID_NODES
+    assert 8 * cn <= cs
+    for c in (1, 2, 4):
+        assert _rule(c * cn)[:2] == ("cluster", c)
+        assert _rule(c * cn + 1)[:2] == ("cluster", 2 * c)
+    assert _rule(8 * cn)[:2] == ("cluster", 8)
+    assert _rule(cs)[:2] == ("cluster", 8)
+    assert _rule(cs + 1)[:2] == ("grid", -(-(cs + 1) // gn))
+    assert _rule(256)[:2] == ("cluster", 8)                 # b16
+    assert _rule(13184)[:2] == ("grid", min(H100_GRID, -(-13184 // gn)))
+    assert _rule(10 ** 6)[:2] == ("grid", H100_GRID)
+    assert _rule(10 ** 6, max_grid=1000)[:2] == ("grid", K.MAX_GRID)
+    assert _rule(1)[:2] == ("cluster", 1)
+
+
+@pytest.mark.parametrize("tag", ["", "o64", "f32", "o128"])
+def test_bwd_rule_without_a_state_norm_takes_the_grid(tag):
+    """Without a state norm no step combines across blocks: the grid route
+    at every size, a block per GRID_NODES slots (one block alone up to
+    GRID_NODES), capped at the co-resident blocks; the tile is the one
+    the state-norm rule gives."""
+    gn = K.GRID_NODES
+    for n in (1, gn, gn + 1, 256, K.CLUSTER_SLOTS, 13184, 10 ** 6):
+        s = _rule(n, tag, step_sums=False)
+        assert s.route == "grid", (n, s.tag())
+        assert s.grid == min(H100_GRID, -(-n // gn)), (n, s.tag())
+        assert s[2:] == _rule(n, tag)[2:]
+
+
+@pytest.mark.parametrize("tag", ["", "o64", "f32", "o128"])
+def test_bwd_rule_keeps_a_block_within_its_tile(tag):
+    """The narrow bucket's tile holds a whole b16 of lipo (207 real nodes);
+    a block's share of the
+    slots stays within 3/4 of its tile on both routes, so a block past it
+    holds a graph larger than the share (which the kernel keeps in global
+    scratch); the bytes are the tile's."""
+    cap = K.bwd_capacity(tag, 8, 6, H100_SMEM)
+    assert cap >= {"": 207, "o64": 150, "f32": 64, "o128": 64}[tag]
+    for n in (16, 256, 512, 600, 4096, 13184, 57856):
+        for sums in (True, False):
+            s = _rule(n, tag, step_sums=sums)
+            assert s.ncap == cap and s.ecap == K.EDGE_RATIO * cap
+            assert s.smem_bytes == 4 * K.bwd_smem_floats(
+                tag, 8, 6, cap, s.ecap) <= H100_SMEM
+            if s.grid < H100_GRID:
+                assert -(-n // s.grid) <= 3 * cap // 4
+    assert 4 * K.bwd_smem_floats(tag, 8, 6, cap + 1,
+                                 K.EDGE_RATIO * (cap + 1)) > H100_SMEM
+
+
+def test_bwd_rule_on_vocab_steps_and_a_smaller_card():
+    """The tile shrinks with the vocab (staged at f <= 16), with T (the
+    norm constants) and with a card's shared memory; the route follows
+    the tile; a card that cannot hold one node raises."""
+    caps = [K.bwd_capacity("", k, t, H100_SMEM)
+            for k, t in ((8, 6), (64, 6), (8, 32), (64, 32))]
+    assert caps[0] > caps[1] > caps[3] and caps[0] > caps[2] > caps[3]
+    # past f 16 the vocab's tables stay in device memory: only its
+    # counters take room
+    assert K.bwd_capacity("f32", 64, 6, H100_SMEM) >= K.bwd_capacity(
+        "f32", 8, 6, H100_SMEM) - 4
+    small = _rule(512, smem=100 * 1024)
+    assert small.ncap < _rule(512).ncap
+    assert small.route == "grid" or -(-512 // small.grid) <= \
+        3 * small.ncap // 4
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _rule(16, smem=16 * 1024)

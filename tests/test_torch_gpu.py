@@ -27,12 +27,15 @@ def _need_card():
     return torch.device("cuda", 0)
 
 
-def _problem(rng, g=1024, f=10, od=14, k=8, device="cuda"):
+def _problem(rng, g=1024, f=10, od=14, k=8, device="cuda", big=0):
     """A packed-like batch: contiguous ragged graphs (1 to 24 nodes, so
     some single-atom graphs), edges inside each graph, padded edges on the
-    dummy last node with vid 0, padded nodes carrying node_graph == g."""
+    dummy last node with vid 0, padded nodes carrying node_graph == g;
+    with `big`, graph g // 2 has that many nodes."""
     sizes = rng.randint(1, 25, g)
-    sizes[:3] = 1
+    sizes[:min(3, g - 1)] = 1
+    if big:
+        sizes[g // 2] = big
     n_real = int(sizes.sum())
     n = n_real + 1 + rng.randint(0, 64)
     node_graph = np.full(n, g, np.int32)
@@ -177,12 +180,18 @@ def test_serving_path_on_card():
 # the training kernels (fused_step_fwd.cu, fused_step_bwd.cu)
 # ---------------------------------------------------------------------------
 
-def _step_problem(rng, g, f=10, od=14, k=8, device="cuda"):
+STEP_LEAVES = ["amat", "a0", "mbias", "h0", "w_ih", "w_hh", "b_ih", "b_hh",
+               "ma_w", "ma_b", "bn_w", "bn_b", "ro_iw", "ro_ib", "ro_jw",
+               "ro_jb"]
+
+
+def _step_problem(rng, g, f=10, od=14, k=8, device="cuda", big=0):
     """fused_step's arguments on a _problem batch (its eval-only running
     statistics dropped), with labels and a graph mask, and the weight and
     h0 leaves set to require grad."""
     (amat, a0, mbias, h0, mask, ng, gru, ma_p, _, bn_p, _, ro, vid, src,
-     dst, plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device)
+     dst, plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device,
+                           big=big)
     leaves = [amat, a0, mbias, h0, *gru.values(), *ma_p.values(),
               *bn_p.values(), ro["i"]["w"], ro["i"]["b"], ro["j"]["w"],
               ro["j"]["b"]]
@@ -190,13 +199,11 @@ def _step_problem(rng, g, f=10, od=14, k=8, device="cuda"):
         x.requires_grad_(True)
     labels = torch.as_tensor(rng.randn(g).astype(np.float32), device=device)
     gmask = torch.ones(g, device=device)
-    gmask[-1] = 0.0                          # one padded graph slot
+    if g > 1:
+        gmask[-1] = 0.0                      # one padded graph slot
     args = (amat, a0, mbias, h0, mask, ng, gru, ma_p, bn_p, ro, labels,
             gmask, vid, src, dst, plan)
-    names = ["amat", "a0", "mbias", "h0", "w_ih", "w_hh", "b_ih", "b_hh",
-             "ma_w", "ma_b", "bn_w", "bn_b", "ro_iw", "ro_ib", "ro_jw",
-             "ro_jb"]
-    return args, dict(zip(names, leaves))
+    return args, dict(zip(STEP_LEAVES, leaves))
 
 
 def step_and_grads(fn, args, leaves, cw, **kw):
@@ -230,32 +237,164 @@ def assert_step_close(got, want, msg_norm, rtol=RTOL, atol=ATOL):
                                    atol=atol, msg=lambda m: f"{name}: {m}")
 
 
+def float64_step_and_grads(args, cw, **kw):
+    """step_and_grads through fused_step_reference in float64 on the same
+    batch: the exact side where float32 in any summation order sits past
+    1e-5 of it (scripts/time_fused_step.py --witness prints both sides'
+    distances)."""
+    def dbl(x):
+        if isinstance(x, dict):
+            return {k: dbl(v) for k, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.detach().double()
+        return x
+    a64 = [dbl(a) for a in args]
+    amat, a0, mbias, h0, _, _, gru, ma_p, bn_p, ro = a64[:10]
+    leaves = [amat, a0, mbias, h0, *gru.values(), *ma_p.values(),
+              *bn_p.values(), ro["i"]["w"], ro["i"]["b"], ro["j"]["w"],
+              ro["j"]["b"]]
+    for x in leaves:
+        x.requires_grad_(True)
+    return step_and_grads(K.fused_step_reference, tuple(a64),
+                          dict(zip(STEP_LEAVES, leaves)), cw.double(), **kw)
+
+
+def exactness(got, want, exact, msg_norm):
+    """Each output and gradient leaf's distance from the float64 answer,
+    scaled by that answer's max abs, for the kernel (`got`) and the plain
+    float32 version (`want`): {name: (kernel, plain)}; message_bias under
+    the message bn1d (zero in theory) left out."""
+    pairs = [("loss", got[0], want[0], exact[0]),
+             ("out", got[1], want[1], exact[1])] + [
+        (n, got[4][n], want[4][n], exact[4][n]) for n in exact[4]
+        if not (n == "mbias" and msg_norm == "bn1d")]
+    out = {}
+    for name, k, p, x in pairs:
+        scale = x.abs().max().clamp_min(1e-30)
+        out[name] = tuple(float(((y.double() - x) / scale).abs().max())
+                          for y in (k, p))
+    return out
+
+
+def _step_case(args, leaves, cw, route, od, exact=False, **kw):
+    """One forward and one backward launch on `route`, against the plain
+    version, and the same bits again; returns the route's BwdShape. The
+    route is forced as chip_smoke.py forces it (None: the rule's). With
+    `exact`, each output and leaf is held to the float64 answer instead:
+    within atol of it, or no further from it than the plain float32
+    version is."""
+    from chip_smoke import _bwd_route
+    h0, k = args[3], args[0].shape[0]
+    with _bwd_route(route):
+        K.reset_launch_counts()
+        got = step_and_grads(K.fused_step, args, leaves, cw, **kw)
+        torch.cuda.synchronize()
+        assert (K.launch_counts["fused_step_fwd"],
+                K.launch_counts["fused_step_bwd"]) == (1, 1)
+        again = step_and_grads(K.fused_step, args, leaves, cw, **kw)
+        shape = K.device_bwd_shape(
+            h0.shape[0], K.width_bucket("", K.BUCKETS, f=h0.shape[1],
+                                        od=od), k, kw["steps"],
+            kw["state_norm"] != "none", h0.device)
+    want = step_and_grads(K.fused_step_reference, args, leaves, cw, **kw)
+    assert all(torch.isfinite(x).all() for x in got[4].values())
+    if exact:
+        dist = exactness(got, want, float64_step_and_grads(args, cw, **kw),
+                         kw["msg_norm"])
+        far = {n: d for n, d in dist.items() if d[0] > max(ATOL, d[1])}
+        assert not far, f"(kernel, plain) from float64: {far}"
+    else:
+        assert_step_close(got, want, kw["msg_norm"])
+    for name, gr in got[4].items():
+        assert torch.equal(gr, again[4][name]), f"{name}: bits differ"
+    if route:
+        assert shape.route == {"spilled": "grid"}.get(
+            route, route.split()[0]), shape.tag()
+        if route.startswith("cluster"):
+            assert shape.grid == int(route.split()[1]), shape.tag()
+    return shape
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("msg_norm,state_norm,g",
-                         [("bn1d", "bn1d", 1024), ("bn1d", "none", 1024),
-                          ("none", "bn1d", 1024), ("none", "none", 1024),
-                          ("bn1d", "bn1d", 37), ("none", "stateless", 1024),
-                          ("bn1d", "stateless", 1024),
-                          ("none", "stateless", 37)])
-def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g):
-    """Flagship widths (f 10, od 14, T 6): the forward kernel against
+@pytest.mark.parametrize(
+    "msg_norm,state_norm,g,route,steps,k,big",
+    [("bn1d", "bn1d", 1024, None, 6, 8, 0),
+     ("bn1d", "none", 1024, None, 6, 8, 0),
+     ("none", "bn1d", 1024, None, 6, 8, 0),
+     ("none", "none", 1024, None, 6, 8, 0),
+     ("bn1d", "bn1d", 37, None, 6, 8, 0),
+     ("none", "stateless", 1024, None, 6, 8, 0),
+     ("bn1d", "stateless", 1024, None, 6, 8, 0),
+     ("none", "stateless", 37, None, 6, 8, 0),
+     # every route of the backward's rule
+     ("bn1d", "bn1d", 16, "cluster 1", 6, 8, 0),
+     ("bn1d", "bn1d", 16, "cluster 2", 6, 8, 0),
+     ("bn1d", "bn1d", 16, "cluster 4", 6, 8, 0),
+     ("bn1d", "bn1d", 16, "cluster 8", 6, 8, 0),
+     ("bn1d", "bn1d", 16, "grid", 6, 8, 0),
+     ("bn1d", "bn1d", 1024, "cluster 8", 6, 8, 0),
+     ("bn1d", "bn1d", 1024, "spilled", 6, 8, 0),
+     ("none", "none", 16, "cluster 4", 6, 8, 0),
+     ("bn1d", "stateless", 37, "spilled", 6, 8, 0),
+     ("bn1d", "none", 100, None, 6, 8, 0),
+     # T 1 and 32, 64 vocab ids, one graph, a graph past a block's tile
+     ("bn1d", "bn1d", 64, None, 1, 8, 0),
+     ("bn1d", "stateless", 64, None, 32, 8, 0),
+     ("bn1d", "stateless", 64, "grid", 32, 8, 0),
+     ("bn1d", "bn1d", 64, None, 6, 64, 0),
+     ("none", "none", 1, None, 6, 8, 0),
+     ("none", "none", 1, None, 6, 8, 300),
+     ("bn1d", "bn1d", 20, None, 6, 8, 300),
+     ("bn1d", "bn1d", 20, "cluster 1", 6, 8, 260),
+     ("none", "stateless", 20, "grid", 6, 8, 260),
+     ("none", "none", 4, "grid", 3, 8, 600)])
+def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g,
+                                               route, steps, k, big):
+    """Flagship widths (f 10, od 14): the forward kernel against
     fused_step_reference, the backward kernel against autograd through it,
     with the cotangents of both the loss and out nonzero; the stateless
     state norm's statistics and closed-form VJP too. g = 37 is a ragged
-    batch: single-atom graphs, padded edges, a padded graph slot."""
+    batch: single-atom graphs, padded edges, a padded graph slot. The
+    backward on every route of its rule (`route`, else the rule's: with a
+    state norm one cluster up to CLUSTER_SLOTS node slots, the grid past
+    them — g = 100 —, without one the grid at every size), at T 1
+    and 32, with 64 vocab ids, on one graph (no norms: under a batch norm
+    one graph's ∂A0 and ∂mbias are batch-wide sums that cancel to rounding
+    on both sides), and with a graph of `big` nodes, past a block's
+    shared-memory tile (up to 600 nodes); each twice, the same bits."""
     _need_card()
-    rng = np.random.RandomState(g)
-    args, leaves = _step_problem(rng, g)
+    rng = np.random.RandomState(
+        g if (steps, k, big) == (6, 8, 0) else 7 * g + steps + k + big)
+    args, leaves = _step_problem(rng, g, k=k, big=big)
     cw = torch.as_tensor(rng.randn(g, 14).astype(np.float32), device="cuda")
-    kw = dict(steps=6, msg_norm=msg_norm, state_norm=state_norm)
-    K.reset_launch_counts()
-    got = step_and_grads(K.fused_step, args, leaves, cw, **kw)
-    torch.cuda.synchronize()
-    assert (K.launch_counts["fused_step_fwd"],
-            K.launch_counts["fused_step_bwd"]) == (1, 1)
-    want = step_and_grads(K.fused_step_reference, args, leaves, cw, **kw)
-    assert all(torch.isfinite(x).all() for x in got[4].values())
-    assert_step_close(got, want, msg_norm)
+    shape = _step_case(args, leaves, cw, route, 14, steps=steps,
+                       msg_norm=msg_norm, state_norm=state_norm)
+    if g == 100:
+        assert shape.route == "grid", shape.tag()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "msg_norm,state_norm,g,route,steps,big",
+    [("none", "bn1d", 64, None, 32, 0),
+     ("none", "bn1d", 64, "grid", 32, 0),
+     ("none", "none", 4, None, 3, 4000),
+     ("bn1d", "bn1d", 4, None, 6, 4000),
+     ("bn1d", "bn1d", 4, "cluster 8", 6, 4000)])
+def test_cuda_step_kernels_against_float64(msg_norm, state_norm, g, route,
+                                           steps, big):
+    """Batches where float32 in any summation order sits past 1e-5 of the
+    exact gradients, so that the plain float32 version is no yardstick at
+    that tolerance: T 32 without a message norm, and a 4,000-node graph
+    on the grid and on a cluster. Every output and leaf is held to the
+    float64 answer (within 1e-5 of its max abs, or no further than the
+    plain float32 version is); one launch each way, the same bits twice."""
+    _need_card()
+    rng = np.random.RandomState(7 * g + steps + 8 + big)
+    args, leaves = _step_problem(rng, g, big=big)
+    cw = torch.as_tensor(rng.randn(g, 14).astype(np.float32), device="cuda")
+    _step_case(args, leaves, cw, route, 14, exact=True, steps=steps,
+               msg_norm=msg_norm, state_norm=state_norm)
 
 
 @pytest.mark.gpu
@@ -881,19 +1020,27 @@ def test_att_serving_path_on_card():
 # ---------------------------------------------------------------------------
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("f,od,msg_norm,state_norm", [
-    (24, 48, "bn1d", "bn1d"), (32, 64, "bn1d", "bn1d"),
-    (7, 28, "none", "none"), (7, 28, "bn1d", "stateless"),
-    (27, 108, "none", "none"), (32, 128, "bn1d", "stateless"),
-    (27, 108, "none", "stateless")])
-def test_cuda_shared_family_wide_bucket(f, od, msg_norm, state_norm):
+@pytest.mark.parametrize("f,od,msg_norm,state_norm,route", [
+    (24, 48, "bn1d", "bn1d", None), (32, 64, "bn1d", "bn1d", None),
+    (7, 28, "none", "none", None), (7, 28, "bn1d", "stateless", None),
+    (27, 108, "none", "none", None), (32, 128, "bn1d", "stateless", None),
+    (27, 108, "none", "stateless", None),
+    (7, 28, "none", "none", "cluster 1"), (7, 28, "bn1d", "bn1d", "grid"),
+    (7, 28, "bn1d", "stateless", "spilled"),
+    (32, 64, "bn1d", "bn1d", "cluster 2"), (24, 48, "bn1d", "none", "grid"),
+    (30, 60, "none", "stateless", "spilled"),
+    (27, 108, "none", "none", "cluster 8"),
+    (32, 128, "bn1d", "stateless", "grid"),
+    (27, 108, "bn1d", "bn1d", "spilled")])
+def test_cuda_shared_family_wide_bucket(f, od, msg_norm, state_norm, route):
     """Rows 1-3 past the narrow bucket: lipo's widths past 16 (od =
     2·afm), the basic shell's od = 4·afm at afm 7 (the f 16 / od 64
     bucket) and afm 27-32 (the od-128 bucket), in both state-norm modes:
     the eval kernel and the training kernels against their plain
-    versions, ragged batch."""
+    versions, ragged batch; the backward on each route of its rule in
+    every bucket, each twice for the same bits."""
     _need_card()
-    rng = np.random.RandomState(f + od)
+    rng = np.random.RandomState(f + od + (len(route) if route else 0))
     args = _problem(rng, g=300, f=f, od=od, k=12)
     kw = dict(steps=3, msg_norm=msg_norm, state_norm=state_norm)
     K.reset_launch_counts()
@@ -903,14 +1050,11 @@ def test_cuda_shared_family_wide_bucket(f, od, msg_norm, state_norm):
     sargs, leaves = _step_problem(rng, 300, f=f, od=od, k=12)
     cw = torch.as_tensor(rng.randn(300, od).astype(np.float32),
                          device="cuda")
-    got = step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
-    torch.cuda.synchronize()
     stateless = state_norm == "stateless"
     assert K.launch_counts == {"fused_eval": int(not stateless),
                                "fused_eval_stateless": int(stateless),
-                               "fused_step_fwd": 1, "fused_step_bwd": 1}
-    want = step_and_grads(K.fused_step_reference, sargs, leaves, cw, **kw)
-    assert_step_close(got, want, msg_norm)
+                               "fused_step_fwd": 0, "fused_step_bwd": 0}
+    _step_case(sargs, leaves, cw, route, od, **kw)
 
 
 @pytest.mark.gpu
