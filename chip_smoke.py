@@ -177,13 +177,15 @@ Phases, one line each:
                kernels' times beside their bounds and plain versions'
                (b1024), and the decomposed step's device idle share.
  34. sddmm-kernel-check — the attention SDDMM kernels (sddmm_fwd,
-               sddmm_bwd) against their plain version under autograd:
-               adv's b1024 batch in 16,512 node slots (f 7, its own
-               vocab), f 27 and f 32 with 64 vocab ids, mf 13 at nf 10, a
-               ragged batch, b16 and 32,896 slots, every case with
-               aprime[0], h and the cotangent random at the dummy node
-               (rtol 1e-4, atol 1e-5; the five gradients divided by
-               their max abs);
+               sddmm_bwd) against their plain version under autograd on
+               the tile rule's tiles and on the smallest tiles (a lane
+               group one position, long rows over many tiles): adv's b1024
+               batch in 16,512 node slots (f 7, its own vocab), f 27 and
+               f 32 with 64 vocab ids, mf 13 at nf 10, a hub node of 400
+               edges, a ragged batch, b16 and 32,896 slots, every case
+               with aprime[0], h and the cotangent random at the dummy
+               node (rtol 1e-4, atol 1e-5; the five gradients divided by
+               their max abs; a second run gives the same bits);
  35. dec-att-train — the attention models' decomposed path: `train
                --spmm kernel` and trainer.train(fuse_step=False) on adv
                and att (1 epoch at 16), att at afm 27 — each run's exact
@@ -194,8 +196,10 @@ Phases, one line each:
  36. dec-att-times — the decomposed adv and att train steps at batch 16
                and 1024 beside the whole-step path's in the same run, the
                b1024 steps' device idle share from a trace, and both SDDMM
-               kernels' times beside their bounds and plain versions'
-               (adv b1024).
+               kernels' times at adv b16 and b1024 (events; the trace's
+               device time beside them) with their bounds, plain
+               versions', routes, empty-kernel floors, clock64 phases
+               and times on the real edges alone.
  37. split-kernel-check — the split training backward's kernels (ro_bwd,
                msg_bwd, ps_walk_bwd; kernels/split_bwd.py) against their
                plain versions: b1024 in 16,512 slots and b3584 in 57,856,
@@ -929,6 +933,26 @@ def phase_times(device, card, runs):
     return out
 
 
+def _trace(fn, cpu=True):
+    """A torch.profiler trace of `fn()` (each run ended by a device sync)
+    that reads the second of two runs, the first the profiler's warm-up:
+    the first kernels after the profiler starts can go missing from its
+    trace (a single-run trace once lacked a train step's first chain
+    kernel, and once att's three edge-MLP forwards at the head of its
+    step). `cpu` adds the host's ops to the device's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU] * cpu
+                 + [ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        fn()
+        torch.cuda.synchronize()
+    return prof
+
+
 def _device_ops(prof):
     """(device busy us, key_averages rows of the device ops): the kernels
     and copies of a torch.profiler trace, user annotations (such as the
@@ -965,7 +989,6 @@ def phase_profile(device, runs, request_ms):
     idle share compares it with the unprofiled request median. Fails when
     the trace shows no device time for the kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.train.trainer import (batch_to_device,
                                               eval_step_for_batch)
     net, loader = runs[1024]
@@ -973,11 +996,7 @@ def phase_profile(device, runs, request_ms):
     step = eval_step_for_batch(net.cfg, "mse", b)
     step(net, batch_to_device(b, device))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        _, o = step(net, batch_to_device(b, device))
-        o.cpu()
-        torch.cuda.synchronize()
+    prof = _trace(lambda: step(net, batch_to_device(b, device))[1].cpu())
     ka = prof.key_averages()
     with open(os.path.join(OUT_DIR, "profile_1024.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=30))
@@ -1196,13 +1215,9 @@ def _kernel_trace_us(*prepared):
     """Device time of one launch of each prepared training kernel, from a
     torch.profiler trace (the events' time over back-to-back launches also
     holds any host launch gap)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.kernels import fused_step as K
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for p in prepared:
-            K.launch_prepared(p)
-        torch.cuda.synchronize()
+    prof = _trace(lambda: [K.launch_prepared(p) for p in prepared],
+                  cpu=False)
     _, ops = _device_ops(prof)
     return {p.name: sum(getattr(e, "self_device_time_total", 0.0)
                         for e in ops if f"{p.name}_kernel" in e.key)
@@ -1354,7 +1369,6 @@ def phase_train_profile(device, step_ms):
     backward, Adam, running statistics); fails when the trace shows no
     device time for either training kernel."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.train.trainer import batch_to_device, train_step
     gen = torch.Generator().manual_seed(3)
     b = _batch((SMILES * 103)[:1024], 1024)
@@ -1363,10 +1377,8 @@ def phase_train_profile(device, step_ms):
     for _ in range(2):
         float(train_step(net, opt, batch_to_device(b, device)))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        float(train_step(net, opt, batch_to_device(b, device)))
-        torch.cuda.synchronize()
+    prof = _trace(lambda: float(train_step(net, opt,
+                                           batch_to_device(b, device))))
     ka = prof.key_averages()
     with open(os.path.join(OUT_DIR, "profile_train_1024.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
@@ -1797,7 +1809,6 @@ def phase_ps_times(device, card):
     and the device busy time of one batch-1024 train step."""
     import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.kernels import fused_psteps as P
     from mpnn_tpu_torch.kernels import fused_step as K
     from mpnn_tpu_torch.models import zoo
@@ -1843,10 +1854,8 @@ def phase_ps_times(device, card):
             req_lat.append((time.perf_counter() - t0) * 1e3)
         busy = None
         if bs == 1024:
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                float(train_step(net, opt, tb, loss_kind="ce"))
-                torch.cuda.synchronize()
+            prof = _trace(lambda: float(train_step(net, opt, tb,
+                                                   loss_kind="ce")))
             busy, ops = _device_ops(prof)
             with open(os.path.join(OUT_DIR, "profile_ps_train_1024.txt"),
                       "w") as f:
@@ -2519,7 +2528,6 @@ def _att_latency(model, bs, device, gen):
     line)."""
     import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.models import zoo
     from mpnn_tpu_torch.models.network import network_init
     from mpnn_tpu_torch.train.optim import adam
@@ -2559,10 +2567,8 @@ def _att_latency(model, bs, device, gen):
            "request_ms": statistics.median(req_lat)}
     idle = ""
     if bs == 1024:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            float(train_step(net, opt, tb, loss_kind="ce"))
-            torch.cuda.synchronize()
+        prof = _trace(lambda: float(train_step(net, opt, tb,
+                                               loss_kind="ce")))
         busy, ops = _device_ops(prof)
         with open(os.path.join(OUT_DIR, f"profile_{model}_train_1024.txt"),
                   "w") as fh:
@@ -2575,9 +2581,7 @@ def _att_latency(model, bs, device, gen):
         if min(kern.values()) <= 0:
             raise RuntimeError(f"{model} times: no device time for {kern}")
         mm = _mm_count(prof)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as rprof:
-            request()
+        rprof = _trace(request)
         rbusy, rops = _device_ops(rprof)
         idle = (f"; one train step's device busy {busy:.1f} us in "
                 f"{sum(e.count for e in ops)} device ops, {mm} aten::mm, "
@@ -3382,7 +3386,6 @@ def _verb_run(what, model, exp, kernels, cfg, csv, rows, task, n_out,
     The experiment's transforms (graphs/filters.py) apply to both paths.
     Returns (a report, the predict launches, the train launches)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch import graphs as G
     from mpnn_tpu_torch.models.network import (network_apply_packed,
                                                network_init)
@@ -3536,16 +3539,9 @@ def _verb_run(what, model, exp, kernels, cfg, csv, rows, task, n_out,
         step(tnet, eb)
         float(train_step(tnet, opt, tb, loss_kind=task))
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step(tnet, eb)
-        torch.cuda.synchronize()
-    req_us = _kernel_device_us(prof)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        float(train_step(tnet, opt, tb, loss_kind=task))
-        torch.cuda.synchronize()
-    step_us = _kernel_device_us(prof)
+    req_us = _kernel_device_us(_trace(lambda: step(tnet, eb)))
+    step_us = _kernel_device_us(_trace(
+        lambda: float(train_step(tnet, opt, tb, loss_kind=task))))
     train_counts = {k: counts[k] for k in want}
     return (
         f"{model} ({widths}, {nets} message networks, pf "
@@ -4072,7 +4068,6 @@ def _ecfp_latency(net, b, tb, device):
     import copy
     import statistics
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from mpnn_tpu_torch.train.optim import adam
     from mpnn_tpu_torch.train.trainer import (batch_to_device,
                                               eval_step_for_batch,
@@ -4099,9 +4094,7 @@ def _ecfp_latency(net, b, tb, device):
             fn()
             lat.append((time.perf_counter() - t0) * 1e3)
         rec[name] = statistics.median(lat)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        step()
+    prof = _trace(step)
     busy, ops = _device_ops(prof)
     g = int(b["graph_mask"].shape[0])
     with open(os.path.join(OUT_DIR, f"profile_encoded_ecfp_train_{g}.txt"),
@@ -4984,18 +4977,8 @@ def _dec_trace(what, step, kernels, step_ms):
     device ops, the idle share of the step's median and each of
     `kernels`' device time); fails when one of them shows none. The
     trace reads the second of two steps, the first the profiler's
-    warm-up: the first kernels after the profiler starts can go missing
-    from its trace (a single-step trace once lacked the step's first
-    chain kernel)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        float(step())
-        torch.cuda.synchronize()
-        prof.step()
-        float(step())
-        torch.cuda.synchronize()
+    warm-up (_trace)."""
+    prof = _trace(lambda: float(step()))
     with open(os.path.join(OUT_DIR, f"profile_dec_{what}_train_1024.txt"),
               "w") as fh:
         fh.write(prof.key_averages().table(
@@ -5208,37 +5191,105 @@ def _sddmm_case(tb, f, k, gen, device, mf=None, ef=None):
             plan_from_batch(tb), r(n, mf))
 
 
+@contextlib.contextmanager
+def _sddmm_route(per=None):
+    """Force the SDDMM kernels' tiles (kernels/sddmm.py::launch_shape)
+    inside the block: `per`, the positions a lane group takes in a tile
+    and in a backward's vocab tile ((1, 1): the smallest tiles, every long
+    row crossing them). A measurement's and a check's; the wrapper takes
+    the rule's."""
+    import torch
+    from mpnn_tpu_torch.kernels import sddmm as D
+    real = D.device_shape
+
+    def forced(direction, n_edges, mf, nf, k_vocab, device):
+        props = torch.cuda.get_device_properties(device)
+        return D.launch_shape(
+            direction, n_edges, mf, nf, k_vocab,
+            smem_bytes=props.shared_memory_per_block_optin,
+            sms=props.multi_processor_count, per=per)
+    D.device_shape = forced
+    try:
+        yield
+    finally:
+        D.device_shape = real
+
+
+def _hub_case(c, tb, hub, gen):
+    """_sddmm_case's arguments with `hub` random real edges turned to end
+    at one real node (a destination of hundreds of edges: its row crosses
+    tiles) and the index plan rebuilt for it."""
+    import numpy as np
+    import torch
+    from mpnn_tpu_torch.graphs.batching import FusedEvalPlan, plan_fused_eval
+    dst = c[7].cpu().numpy().copy()
+    real = np.nonzero(tb["edge_mask"].cpu().numpy() > 0)[0]
+    pick = torch.randperm(len(real), generator=gen)[:hub].numpy()
+    dst[real[pick]] = dst[real[len(real) // 2]]
+    ng = tb["node_graph"].cpu().numpy()
+    plan = FusedEvalPlan(*(torch.as_tensor(x, device=c[7].device)
+                           for x in plan_fused_eval(
+                               dst, ng, int(tb["graph_mask"].shape[0]))))
+    return (*c[:7], torch.as_tensor(dst, device=c[7].device), plan, c[9])
+
+
+# sddmm-kernel-check's tiles: (name, _sddmm_route's arguments); in "small
+# tiles" a lane group takes one position, so long rows cross many tiles
+SDDMM_ROUTES = {"rule": {}, "small tiles": dict(per=(1, 1))}
+
+
 def phase_sddmm_kernel_check(device):
     """sddmm_fwd and sddmm_bwd against sddmm_reference under autograd on
-    the card: adv's b1024 batch in 16,512 node slots at bench widths (f 7,
-    ef 6, its own vocab), f 27 and f 32 with 64 random vocab ids (the wide
-    bucket; ef 32 at f 32), mf 13 at nf 10, a ragged batch (single atoms,
-    padded edges, a padded graph slot), b16, and 32,896 node slots. Every
-    case has a nonzero aprime[0] and random h and cotangent rows at the
-    dummy node, where the padded edges end: out within rtol 1e-4 / atol
-    1e-5, the five gradients each divided by its max abs; the dummy row's
-    message and gradient must not be zero where the batch has padded
-    edges."""
+    the card, on kernels/sddmm.py::launch_shape's tiles and on the
+    smallest tiles (SDDMM_ROUTES): adv's b1024 batch in 16,512 node slots at bench widths (f
+    7, ef 6, its own vocab), f 27 and f 32 with 64 random vocab ids (the
+    wide bucket; ef 32 at f 32), mf 13 at nf 10, a ragged batch (single
+    atoms, padded edges, a padded graph slot), b16, 32,896 slots, and hub
+    nodes of 400 and 5,000 real edges (the latter over 157 tiles).
+    Every case has a nonzero aprime[0] and random h and cotangent rows at
+    the dummy node, where the padded edges end: out within rtol 1e-4 / atol
+    1e-5, the five gradients each divided by its max abs, the same bits in
+    a second run; the dummy row's message and gradient must not be zero
+    where the batch has padded edges."""
     import torch
     from mpnn_tpu_torch.kernels import sddmm as D
     gen = torch.Generator().manual_seed(87)
     b1024, b16, big, ragged = _dec_check_batches(device)
-    cases = [("batch1024", b1024, 7, None, None, None),
-             ("batch1024", b1024, 27, 64, None, None),
-             ("batch1024", b1024, 32, 64, None, 32),
-             ("batch1024", b1024, 10, 9, 13, None),
-             ("ragged", ragged, 7, None, None, None),
-             ("ragged", ragged, 27, 64, None, None),
-             ("batch16", b16, 7, None, None, None),
-             ("batch2560", big, 7, None, None, None)]
+    cases = [("batch1024", b1024, 7, None, None, None, "rule", 0),
+             ("batch1024", b1024, 7, None, None, None, "small tiles", 0),
+             ("batch1024", b1024, 27, 64, None, None, "rule", 0),
+             ("batch1024", b1024, 27, 64, None, None, "small tiles", 0),
+             ("batch1024", b1024, 32, 64, None, 32, "rule", 0),
+             ("batch1024", b1024, 10, 9, 13, None, "rule", 0),
+             ("batch1024 hub", b1024, 7, None, None, None, "rule", 400),
+             ("batch1024 hub", b1024, 7, None, None, None, "small tiles",
+              400),
+             ("ragged", ragged, 7, None, None, None, "rule", 0),
+             ("ragged", ragged, 27, 64, None, None, "rule", 0),
+             ("batch16", b16, 7, None, None, None, "rule", 0),
+             ("batch16", b16, 7, None, None, None, "small tiles", 0),
+             ("batch16", b16, 27, 64, None, None, "rule", 0),
+             ("batch2560", big, 7, None, None, None, "rule", 0),
+             ("batch2560 hub", big, 7, None, None, None, "small tiles",
+              5000)]
     worst = dict.fromkeys(SDDMM_KERNELS, 0.0)
     results, failed, sinks = [], [], 0
-    for what, tb, f, k, mf, ef in cases:
+    for what, tb, f, k, mf, ef, route, hub in cases:
         c = _sddmm_case(tb, f, k, gen, device, mf=mf, ef=ef)
-        D.reset_launch_counts()
-        got = sddmm_value_and_grads(D.sddmm, *c)
-        torch.cuda.synchronize()
-        counts = dict(D.launch_counts)
+        if hub:
+            c = _hub_case(c, tb, hub, gen)
+        with _sddmm_route(**SDDMM_ROUTES[route]):
+            tags = [D.device_shape(d, c[5].shape[0], c[0].shape[1],
+                                   c[0].shape[2], c[0].shape[0],
+                                   device).tag() for d in ("fwd", "bwd")]
+            runs, counts = [], []
+            for _ in range(2):
+                D.reset_launch_counts()
+                runs.append(sddmm_value_and_grads(D.sddmm, *c))
+                torch.cuda.synchronize()
+                counts.append(dict(D.launch_counts))
+        got = runs[0]
+        same = all(torch.equal(x, y) for x, y in zip(*runs))
         want = sddmm_value_and_grads(
             lambda *x: D.sddmm_reference(*x[:8]), *c)
         ok_o, err_o, _ = _within(got[0], want[0])
@@ -5250,8 +5301,8 @@ def phase_sddmm_kernel_check(device):
         sink = (not pads or (bool(got[0][-1].abs().max() > 0)
                              and bool(got[5][-1].abs().max() > 0)))
         sinks += bool(pads)
-        ok = (ok_o and ok_g and sink
-              and counts == {"sddmm_fwd": 1, "sddmm_bwd": 1}
+        ok = (ok_o and ok_g and sink and same
+              and counts == [{"sddmm_fwd": 1, "sddmm_bwd": 1}] * 2
               and all(bool(torch.isfinite(x).all()) for x in got))
         worst["sddmm_fwd"] = max(worst["sddmm_fwd"], err_o)
         worst["sddmm_bwd"] = max(worst["sddmm_bwd"], err_g)
@@ -5260,17 +5311,21 @@ def phase_sddmm_kernel_check(device):
             f"K={c[0].shape[0]} (nodes {int(tb['node_mask'].sum())}/"
             f"{tb['node_mask'].shape[0]} slots, edges "
             f"{int(tb['edge_mask'].sum())}/{tb['edge_src'].shape[0]}, "
-            f"{pads} at the dummy node): out max_abs={err_o:.3e} grads "
-            f"max_scaled={err_g:.3e} {'ok' if ok else 'FAIL'}")
+            f"{pads} at the dummy node; {route}: {tags[0]} / {tags[1]}): "
+            f"out max_abs={err_o:.3e} grads max_scaled={err_g:.3e}, same "
+            f"bits {same} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(f"{what} nf={f}: {counts}, dummy row {sink}")
+            failed.append(f"{what} nf={f} {route}: {counts}, dummy row "
+                          f"{sink}, same bits {same}")
     if not sinks:
         failed.append("no case had padded edges")
+    if {c[6] for c in cases} != set(SDDMM_ROUTES):
+        failed.append("a tile size of SDDMM_ROUTES was not run")
     print(f"sddmm-kernel-check: sddmm_fwd and sddmm_bwd vs sddmm_reference "
           f"under autograd (rtol {RTOL} atol {ATOL}; the gradients of "
           f"aprime, evocab, wa, ba and h divided by their max abs; 1 + 1 "
-          f"launches a case; aprime[0], h and gout random at the dummy "
-          f"node): " + "; ".join(results), flush=True)
+          f"launches a run, two runs a case; aprime[0], h and gout random "
+          f"at the dummy node): " + "; ".join(results), flush=True)
     if failed:
         raise RuntimeError(f"the SDDMM kernels disagree with their plain "
                            f"version: {failed}")
@@ -5441,22 +5496,127 @@ def _sddmm_inputs(net, tb):
             plan_from_batch(tb))
 
 
+def _sddmm_phases(p, direction):
+    """The SDDMM kernels' clock64 stamps (cycles) as phases: the forward's
+    block 0 (its tile), the backward's block 0 setup (the nonempty ids),
+    its first vocab and first node tile (a tile's indices include staging
+    the tables) and the last sums (kernels/sddmm.py::PROF_SLOTS)."""
+    if direction == "fwd":
+        return {"tables and indices": p[1] - p[0], "rows": p[2] - p[1],
+                "compute": p[3] - p[2], "row sums and combine": p[4] - p[3],
+                "total": p[5] - p[0]}
+    vocab = {"indices": p[1] - p[0], "rows": p[2] - p[1],
+             "compute": p[3] - p[2], "dots": p[4] - p[3]}
+    if p[5]:
+        vocab["combine"] = p[5] - p[4]
+    return {"setup": p[21] - p[20], "vocab tile": vocab,
+            "node tile": {"indices": p[9] - p[8], "rows": p[10] - p[9],
+                          "compute": p[11] - p[10],
+                          "row sums and combine": p[12] - p[11]},
+            "last sums": p[17] - p[16]}
+
+
+def _sddmm_detail(pf, pb, prep_f, prep_b, device):
+    """The empty-kernel floors (the same grid and combines with no
+    arithmetic: CUDA events over 100 launches, and the device time a launch
+    in a trace of 20) and one launch's clock64 phases of the prepared
+    forward and backward; prep_*(**kw) prepares another launch on the same
+    inputs. Leaves the launch counts as they were."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import sddmm as D
+    floors, phases = {}, {}
+    counts = dict(D.launch_counts)
+    for name, prep in (("sddmm_fwd", prep_f), ("sddmm_bwd", prep_b)):
+        fl = prep(floor=True)
+        floors[name] = (_events_ms(lambda: K.launch_prepared(fl), 100),
+                        _kernel_trace_us_n(20, fl)[0] / 20 / 1e3)
+        prof = torch.zeros(D.PROF_SLOTS, dtype=torch.int64, device=device)
+        K.launch_prepared(prep(prof=prof))
+        torch.cuda.synchronize()
+        phases[name] = _sddmm_phases(prof.tolist(), name[-3:])
+    D.launch_counts.update(counts)
+    return floors, phases
+
+
+def _sddmm_times(net, b, tb, gen, device):
+    """Both SDDMM kernels on adv's first message network's inputs on one
+    batch: CUDA events over 100 back-to-back launches (`ms`, as every row),
+    the device time a launch in a trace of 20, the plain version's time
+    (autograd through it for the backward), the bound, the route, the
+    empty-kernel floor, one launch's clock64 phases, and each kernel on the
+    real edges alone (the padded edges all end at the dummy node).
+    Returns ({kernel: record}, text)."""
+    import torch
+    from mpnn_tpu_torch.graphs.batching import plan_fused_eval
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import sddmm as D
+    args, plan = _sddmm_inputs(net, tb)
+    n, f = args[4].shape
+    k, mf = args[0].shape[:2]
+    ef, e = args[1].shape[1], args[5].shape[0]
+    bs = int(b["graph_mask"].shape[0])
+    g = torch.randn(n, mf, generator=gen).to(device)
+    order, ptr = plan.edge_order, plan.dst_ptr
+    er = int(b["edge_mask"].sum())
+    with torch.no_grad():
+        prep_f = lambda **kw: D.prepare_sddmm_fwd(*args, order, ptr, **kw)
+        prep_b = lambda **kw: D.prepare_sddmm_bwd(*args[:5], g, *args[5:],
+                                                  **kw)
+        pf, pb = prep_f(), prep_b()
+        ms = {p.name: _events_ms(lambda p=p: K.launch_prepared(p), 100)
+              for p in (pf, pb)}
+        trace = dict(zip(("sddmm_fwd", "sddmm_bwd"),
+                         (t / 20 for t in _kernel_trace_us_n(20, pf, pb))))
+        rp = [torch.as_tensor(x, device=device) for x in plan_fused_eval(
+            b["edge_dst"][:er], b["node_graph"], bs)]
+        real = [a[:er].contiguous() for a in args[5:]]
+        pr = (D.prepare_sddmm_fwd(*args[:5], *real, rp[0], rp[1]),
+              D.prepare_sddmm_bwd(*args[:5], g, *real))
+        real_ms = {p.name: _events_ms(lambda p=p: K.launch_prepared(p), 100)
+                   for p in pr}
+        floors, phases = _sddmm_detail(pf, pb, prep_f, prep_b, device)
+        plain = {"sddmm_fwd": _events_ms(
+            lambda: D.sddmm_reference(*args), 20)}
+    leaves = [x.detach().requires_grad_() for x in args[:5]]
+    obj = (D.sddmm_reference(*leaves, *args[5:]) * g).sum()
+    plain["sddmm_bwd"] = _events_ms(lambda: torch.autograd.grad(
+        obj, leaves, retain_graph=True), 20)
+    bounds = _sddmm_bounds(float(b["node_mask"].sum()), float(er), k, f,
+                           ef, mf)
+    rec, parts = {}, []
+    for name in SDDMM_KERNELS:
+        shape = D.device_shape(name[-3:], e, mf, f, k, device)
+        rec[name] = dict(ms=ms[name], trace_ms=trace[name] / 1e3,
+                         plain_ms=plain[name], bound_ms=bounds[name][0],
+                         bound_by=bounds[name][1], floor_ms=floors[name],
+                         real_ms=real_ms[name], route=shape.tag(),
+                         phases=phases[name])
+        parts.append(
+            f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches; trace "
+            f"{trace[name]:.2f} us), plain {plain[name] * 1e3:.1f} us, bound "
+            f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
+            f"({bounds[name][2] / 1e6:.3f} Mop, {bounds[name][3] / 1e6:.3f} "
+            f"MB), route {shape.tag()}, empty-kernel floor "
+            f"{floors[name][0] * 1e3:.2f} us (trace "
+            f"{floors[name][1] * 1e3:.2f} us), on the {er} real edges alone "
+            f"{real_ms[name] * 1e3:.2f} us, clock64 cycles "
+            f"{json.dumps(phases[name])}")
+    text = (f"SDDMM (K {k}, nf {f}, mf {mf}, ef {ef}; {e - er} padded edges "
+            f"at the dummy node): " + ", ".join(parts))
+    return rec, text
+
+
 def phase_dec_att_times(device, card):
     """The decomposed adv and att train steps (the SDDMM, set2vec and
     edge-MLP kernels; host clock ending in the loss read-back) at batch
     16 and 1024 beside the whole-step path's on the same batch and
     weights, in turns (whole, decomposed, decomposed, whole); at b1024
     the decomposed step's device busy time, device ops and idle share
-    from a trace, and each SDDMM kernel's time (CUDA events over
-    back-to-back launches on adv's first step's own inputs) beside its
-    bound and its plain version's time (autograd through it for the
-    backward), and the forward on the real edges alone (the padded edges
-    all end at the dummy node, whose row walks them in series)."""
+    from a trace, and at both batches each SDDMM kernel's time on adv's
+    first step's own inputs (_sddmm_times)."""
     import statistics
     import torch
-    from mpnn_tpu_torch.graphs.batching import plan_fused_eval
-    from mpnn_tpu_torch.kernels import fused_step as K
-    from mpnn_tpu_torch.kernels import sddmm as D
     from mpnn_tpu_torch.models import zoo
     from mpnn_tpu_torch.models.network import network_init
     from mpnn_tpu_torch.train.optim import adam
@@ -5510,52 +5670,10 @@ def phase_dec_att_times(device, card):
                     rec["step_ms"])
                 rec["busy_us"] = busy
                 line += "; " + traced
-            if bs == DEC_ATT_BATCHES[-1] and model == "adv":
-                args, plan = _sddmm_inputs(net, tb)
-                n, f = args[4].shape
-                k, mf = args[0].shape[:2]
-                ef = args[1].shape[1]
-                g = torch.randn(n, mf, generator=gen).to(device)
-                order, ptr = plan.edge_order, plan.dst_ptr
-                with torch.no_grad():
-                    pf = D.prepare_sddmm_fwd(*args[:7], order, ptr)
-                    pb = D.prepare_sddmm_bwd(*args[:5], g, *args[5:], order,
-                                             ptr)
-                    ms = {p.name: _events_ms(
-                        lambda p=p: K.launch_prepared(p), 100)
-                        for p in (pf, pb)}
-                    er_i = int(b["edge_mask"].sum())
-                    rp = [torch.as_tensor(x, device=device) for x in
-                          plan_fused_eval(b["edge_dst"][:er_i],
-                                          b["node_graph"], bs)]
-                    pr = D.prepare_sddmm_fwd(
-                        *args[:5], args[5][:er_i].contiguous(),
-                        args[6][:er_i].contiguous(), rp[0], rp[1])
-                    real_ms = _events_ms(lambda: K.launch_prepared(pr), 100)
-                    dummy_edges = int((b["edge_dst"] == n - 1).sum())
-                    plain = {"sddmm_fwd": _events_ms(
-                        lambda: D.sddmm_reference(*args), 20)}
-                leaves = [x.detach().requires_grad_() for x in args[:5]]
-                obj = (D.sddmm_reference(*leaves, *args[5:]) * g).sum()
-                plain["sddmm_bwd"] = _events_ms(lambda: torch.autograd.grad(
-                    obj, leaves, retain_graph=True), 20)
-                bounds = _sddmm_bounds(float(b["node_mask"].sum()),
-                                       float(er_i), k, f, ef, mf)
-                for name in SDDMM_KERNELS:
-                    out[bs][name] = dict(
-                        ms=ms[name], plain_ms=plain[name],
-                        bound_ms=bounds[name][0], bound_by=bounds[name][1])
-                line += "; " + ", ".join(
-                    f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches)"
-                    f", plain {plain[name] * 1e3:.1f} us, bound "
-                    f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
-                    f"({bounds[name][2] / 1e6:.3f} Mop, "
-                    f"{bounds[name][3] / 1e6:.3f} MB)"
-                    for name in SDDMM_KERNELS)
-                line += (f" (K {k}, nf {f}, mf {mf}, ef {ef}); sddmm_fwd "
-                         f"on the {er_i} real edges alone "
-                         f"{real_ms * 1e3:.2f} us (the dummy node's row "
-                         f"takes the other {dummy_edges})")
+            if model == "adv":
+                sd, text = _sddmm_times(net, b, tb, gen, device)
+                out[bs].update(sd)
+                line += "; " + text
             out[bs][model] = rec
             lines.append(line)
     print(f"dec-att-times [{card}]: " + "; ".join(lines), flush=True)
@@ -6100,16 +6218,8 @@ def _split_trace(name, step):
     """One train step (`step()`) in a torch.profiler trace, its table
     written to profile_split_<name>.txt: (device busy us, device ops).
     The trace reads the second of two steps, the first the profiler's
-    warm-up (_dec_trace); fails when it shows no device time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
-        step()
-        torch.cuda.synchronize()
-        prof.step()
-        step()
-        torch.cuda.synchronize()
+    warm-up (_trace); fails when it shows no device time."""
+    prof = _trace(step)
     busy, ops = _device_ops(prof)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, f"profile_split_{name}.txt"), "w") as fh:
@@ -6848,7 +6958,8 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/sddmm.py:{line}",
             "launches": DEC_ATT_MAIN[name], "max_abs_err": sddmm_worst[name],
-            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "ms": tt["ms"], "trace_ms": tt["trace_ms"],
+            "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     split_sites = {"ro_bwd": "fused_step.py:618",

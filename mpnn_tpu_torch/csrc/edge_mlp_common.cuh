@@ -52,6 +52,8 @@
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
+#include "smem_limit.cuh"
+
 namespace mpnn_mlp {
 
 namespace cg = cooperative_groups;
@@ -633,28 +635,7 @@ __host__ __device__ inline int clusters_of(const MlpArgs& m) {
   return (m.rows + m.rb - 1) / m.rb;
 }
 
-// Raise `kernel`'s dynamic shared-memory limit to `bytes` once per kernel,
-// device and size (the runtime call costs more than the launch).
-template <class Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes) {
-  thread_local const void* fns[64];
-  thread_local int devs[64], sizes[64], n = 0;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  for (int i = 0; i < n; ++i)
-    if (fns[i] == (const void*)kernel && devs[i] == dev &&
-        sizes[i] >= int(bytes))
-      return cudaSuccess;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
-  if (err == cudaSuccess && n < 64) {
-    fns[n] = (const void*)kernel;
-    devs[n] = dev;
-    sizes[n++] = int(bytes);
-  }
-  return err;
-}
+using mpnn_smem::allow_smem;
 
 // Launch `kernel` on `grid` blocks of `threads` with `bytes` of dynamic
 // shared memory: in clusters of `cdim` blocks (the panel route), or plain.

@@ -7,59 +7,50 @@
 //
 //   dg_e   = A'[vid_e]ᵀ · gout[dst_e],   dgate_e = dg_e ⊙ h[src_e]
 //   dlog_e = gate_e ⊙ (dgate_e − Σ gate_e ⊙ dgate_e)
-//   dh[s]  = Σ_{e: src_e = s} dg_e ⊙ gate_e  +  Wh · Σ_{e: dst_e = s} dlog_e
+//   dh[s]  = Σ_{e: src_e = s} dg_e ⊙ gate_e  +  Σ_{e: dst_e = s} Wh · dlog_e
 //   dA'[k] = Σ_{e: vid_e = k} gout[dst_e] ⊗ g_e                 (K, mf, nf)
-//   dWh    = Σ_d h[d] ⊗ D_d,   dba = Σ_d D_d,   D_d = Σ_{e: dst_e = d} dlog_e
-//   dev[k] = We · Dv_k,   dWe = Σ_k ev[k] ⊗ Dv_k,
-//   Dv_k   = Σ_{e: vid_e = k} dlog_e
+//   dWh    = Σ_k dWh_k,  dWh_k = Σ_{e: vid_e = k} h[dst_e] ⊗ dlog_e
+//   dba    = Σ_k Dv_k,   Dv_k = Σ_{e: vid_e = k} dlog_e
+//   dev[k] = We · Dv_k,   dWe = Σ_k ev[k] ⊗ Dv_k
 //
 // (Wa = [Wh; We], dWa = [dWh; dWe].) The TPU kernels recompute the gate in
 // node windows and accumulate every gradient across their sequential grid
-// in VMEM; here the grid runs in parallel and every sum has a fixed order.
+// in VMEM; here the tiles run in parallel and every sum has a fixed order.
 //
-// Design: ONE cooperative launch, two grid barriers.
-//   Phase 1 (one warp per destination row, lane j = feature j, as the
-//     forward): per edge in the stable destination order, recompute gate
-//     and g, form dg, dlog (the softmax's closed-form VJP, its Σ a warp
-//     sum) and dg ⊙ gate, write g, dlog and dg ⊙ gate to edge-ordered
-//     scratch, and sum D_d in edge order. The row writes dh[d] = Wh·D_d and
-//     adds h[d] ⊗ D_d and D_d to its warp's registers; the block sums its
-//     warps in order into its row of partials.
-//   Grid barrier.
-//   Phase 2: (a) dh[s] += Σ dg ⊙ gate over s's outgoing edges in the
-//     device-built stable source order (one warp per node); (b) dA' and
-//     Dv from stable vocab-sorted chunks of kChunkEdges edges, as
-//     spmm_da.cu takes dA: work item (k, c) at index k + c stages its
-//     edges' gout[dst], g and dlog in shared memory and sums them in order
-//     into its row of partials; (c) dWh and dba: the blocks' partials
-//     summed in block order.
-//   Grid barrier.
-//   Phase 3: dA' = each id's items summed in chunk order; dev and dWe from
-//     Dv, each Dv_k summed from its items in chunk order where it is read.
-// Every scratch buffer is written in one phase and read only in later
-// ones: none is reused across a barrier. No float atomics.
+// Design: one launch, no grid barrier, two views of the edges, each cut
+// into tiles as sddmm_common.cuh describes and each recomputing the gate:
+//   - the node view walks the 2E edge ends stably sorted by node (the
+//     wrapper's sort of [dst; src]): an end contributes Wh·dlog_e at its
+//     destination or dg_e ⊙ gate_e at its source, and a node's ends,
+//     summed in order, are its dh row (a row crossing tiles from the
+//     tiles' partials in tile order) — dh's two halves in one sum;
+//   - the vocab view walks the edges stably sorted by vocab id: a tile
+//     stages gout[dst], g, h[dst] and dlog of its edges and forms each of
+//     its ids' dA'_k, dWh_k and Dv_k as dot products over the id's edges
+//     in order; an id crossing tiles is summed from the tiles' partial
+//     rows in tile order (split over 2-8 lanes past 16 partials). An id's
+//     dA'_k goes to the output, its dWh_k and Dv_k to a row of scratch;
+//     the block that completes the last id (an integer count of finished
+//     ids) forms dWh, dba, dev and dWe from those K rows, each sum over
+//     the ids in order.
+// Vocab tiles first, then node tiles, a block each; the counters return
+// to zero by the end of every launch, so there is no memset.
 //
 // Padded edges are computed as the forward has them (they end at the
 // batch's dummy node; A'[k0] is not zero): they feed dA', dWa and dba
 // through gout at the dummy row, exactly as the plain version does.
 //
-// Bound on an H100 SXM: per real edge the gate's recompute, the two
-// GEMVs with A'[vid] and Wh and the outer products of dA' and dWa (~20
-// MFLOP at adv's b1024, f 7, ef 6), and the bytes of h, gout, dh, the
-// edge arrays and the tables (~2 MB): ~0.6 us by bytes. Latency of the
-// row walks (in series on the dummy row), the shuffle chains and the two
-// grid barriers sets the time.
+// Bound: chip_smoke.py::_sddmm_bounds (the gate's recompute, the two
+// GEMVs with A'[vid] and Wh and the outer products of dA' and dWa per
+// real edge against the bytes of h, gout, dh, the edge arrays and the
+// tables). The tiles' three rounds of dependent loads, the shuffle chains,
+// the combines' L2 round trips and the launch set the time.
 
 #include "sddmm_common.cuh"
 
 namespace {
 
 using namespace mpnn_sddmm;
-
-// dA': vocab-sorted edges in chunks of kChunkEdges, one block per item
-constexpr int kChunkEdges = 128;
-// a row of partials: FP·FP of an outer-product sum, then FP of a vector's
-constexpr int kPart = FP * FP + FP;
 
 struct BwdArgs {
   const float* aprime;  // (K, mf, nf)
@@ -71,10 +62,9 @@ struct BwdArgs {
   const int* vid;       // (E)
   const int* src;       // (E)
   const int* dst;       // (E)
-  const int* order;     // (E) edge ids, stably sorted by destination
-  const int* ptr;       // (N + 1) row pointers into order
-  const int* sorder;    // (E) edge ids, stably sorted by source
-  const int* sptr;      // (N + 1) row pointers into sorder
+  const int* norder;    // (2E) ends by node: x < E edge x's destination
+                        // end, else edge x − E's source end
+  const int* nptr;      // (N + 1) row pointers into norder
   const int* vorder;    // (E) edge ids, stably sorted by vocab id
   const int* vptr;      // (K + 1) id pointers into vorder
   float* da;            // (K, mf, nf)
@@ -82,246 +72,433 @@ struct BwdArgs {
   float* dwa;           // (nf + ef, nf)
   float* dba;           // (nf)
   float* dh;            // (N, nf)
-  float* edge_g;        // (E, nf) scratch: g_e
-  float* edge_dl;       // (E, nf) scratch: dlog_e
-  float* edge_dhs;      // (E, nf) scratch: dg_e ⊙ gate_e
-  float* part_w;        // (grid, kPart) the blocks' dWh and dba partials
-  float* part_v;        // (K + chunks, kPart) the items' dA' and Dv
-  int n, n_edges, mf, nf, ef, k_vocab;
+  float* nslots;        // (2·ntiles, FP) partials of dh rows crossing tiles
+  float* vslots;        // (2·vtiles, R) partials of ids crossing tiles
+  float* idrows;        // (K, nf·nf + nf) each id's dWh_k and Dv_k
+  float* grows;         // (groups, nf·nf + nf) each id group's sums
+  int* counters;        // ntiles + vtiles + groups + 1, zero between
+                        // launches
+  long long* prof;      // null, or kProfSlots clock64 stamps
+  int n, n_edges, mf, nf, ef, k_vocab, nper, vper, ntiles, vtiles, floor;
 };
 
-__device__ __forceinline__ int n_chunks(int n_edges) {
-  return (n_edges + kChunkEdges - 1) / kChunkEdges;
+// the last sums go through groups of kIdGroup consecutive ids: a group's
+// nonempty id rows summed in id order, then the groups in group order
+constexpr int kIdGroup = 8;
+
+__host__ __device__ inline int id_groups(int k_vocab) {
+  return (k_vocab + kIdGroup - 1) / kIdGroup;
 }
 
-// The vocab id of item b: the largest k with k + vptr[k]/kChunkEdges <= b
-// (that start is strictly increasing in k).
-__device__ int item_id(const int* vptr, int k_vocab, int b) {
-  int lo = 0, hi = k_vocab - 1;
-  while (lo < hi) {
-    const int mid = (lo + hi + 1) / 2;
-    if (mid + vptr[mid] / kChunkEdges <= b) lo = mid;
-    else hi = mid - 1;
-  }
-  return lo;
+// edges a lane group computes at a time: two where A' sits in shared
+// memory (their chains interleave); the wide bucket's A' column takes the
+// registers a second edge would
+constexpr int kTwo = kTableInSmem ? 2 : 1;
+
+// a vocab id's partial row: dA'_k (mf·nf), dWh_k (nf·nf), Dv_k (nf)
+__host__ __device__ inline int id_width(int mf, int nf) {
+  return mf * nf + nf * nf + nf;
 }
 
-// Dv_k[j]: id k's items summed in chunk order (0 for an id with no edge).
-__device__ float vocab_dlog(const BwdArgs& a, int k, int j) {
-  const int e0 = a.vptr[k], e1 = a.vptr[k + 1];
-  float s = 0.f;
-  if (e1 > e0)
-    for (int c = e0 / kChunkEdges; c <= (e1 - 1) / kChunkEdges; ++c)
-      s += __ldcg(a.part_v + size_t(k + c) * kPart + FP * FP + j);
-  return s;
+__host__ __device__ inline int bwd_smem_floats(int k_vocab, int te_n,
+                                               int te_v) {
+  const int sn = stage_floats(te_n, 4), sv = stage_floats(te_v, 5);
+  return table_floats(k_vocab) + (sn > sv ? sn : sv) + 8 +
+         k_vocab * FP + al4(k_vocab) + kIdGroup;
 }
 
-__global__ void __launch_bounds__(kThreads) sddmm_bwd_kernel(BwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float sm[];
-  const Tables t = stage_tables(sm, a.wa, a.ba, a.evocab, a.nf, a.ef,
-                                a.k_vocab);
-  // narrow: A' as it is, ab[(k·FP + m)·FP + j] = A'[k][m][j], zero-padded
-  float* ab = t.next;
-  float* work = ab + (kTableInSmem ? a.k_vocab * FP * FP : 0);
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  if (kTableInSmem)
-    for (int i = tid; i < a.k_vocab * FP * FP; i += kThreads) {
-      const int k = i / (FP * FP), r = i % (FP * FP), m = r / FP,
-                j = r % FP;
-      ab[i] = (m < a.mf && j < a.nf)
-                  ? a.aprime[(size_t(k) * a.mf + m) * a.nf + j]
-                  : 0.f;
-    }
-  __syncthreads();
+template <int G>
+struct Bwd {
+  const BwdArgs& a;
+  Tables t;
+  float* area;     // the tile's staging area
+  int* flag;       // 8 ints
+  float* dv;       // (K, FP) the last sums' Dv
+  int* nz;         // (K) nonempty ids
+  int* gnz;        // (kIdGroup) nonempty ids a group
+  int n_groups;    // groups with a nonempty id
 
-  // ---- phase 1: per destination row --------------------------------------
-  float pw[FP];                  // this lane's column of Σ h[d] ⊗ D_d
-#pragma unroll
-  for (int i = 0; i < FP; ++i) pw[i] = 0.f;
-  float pb = 0.f;                // Σ D_d on this lane
-  for (int row = blockIdx.x * kWarps + warp; row < a.n;
-       row += gridDim.x * kWarps) {
-    const int p0 = a.ptr[row], p1 = a.ptr[row + 1];
-    if (p1 == p0) {
-      if (lane < a.nf) a.dh[size_t(row) * a.nf + lane] = 0.f;
-      continue;
-    }
-    const float hd =
-        lane < a.nf ? __ldg(a.h + size_t(row) * a.nf + lane) : 0.f;
-    const float go =
-        lane < a.mf ? __ldg(a.gout + size_t(row) * a.mf + lane) : 0.f;
-    const float u = row_logits(t, hd, lane, a.nf);
-    float dsum = 0.f;
-    for (int p = p0; p < p1; ++p) {
-      const int e = __ldg(a.order + p);
-      const int k = __ldg(a.vid + e);
-      const float hs =
-          lane < a.nf ? __ldg(a.h + size_t(__ldg(a.src + e)) * a.nf + lane)
-                      : 0.f;
-      const float gate = edge_gate(t, u, k, lane, a.nf);
-      // dg[j] = Σ_m A'[k][m][j]·gout[d][m] on lane j
-      float dg = 0.f;
-      for (int m = 0; m < a.mf; ++m) {
-        const float gm = __shfl_sync(kFull, go, m);
-        if (kTableInSmem) {
-          if (lane < FP)
-            dg = fmaf(ab[(size_t(k) * FP + m) * FP + lane], gm, dg);
-        } else if (lane < a.nf) {
-          dg = fmaf(__ldg(a.aprime + (size_t(k) * a.mf + m) * a.nf + lane),
-                    gm, dg);
-        }
-      }
-      const float dgate = dg * hs;
-      const float dl = gate * (dgate - warp_sum(gate * dgate));
-      dsum += dl;
-      if (lane < a.nf) {
-        const size_t o = size_t(e) * a.nf + lane;
-        a.edge_g[o] = gate * hs;
-        a.edge_dl[o] = dl;
-        a.edge_dhs[o] = dg * gate;
-      }
-    }
-    // dh[d][i] = Σ_j Wh[i][j]·D_d[j] on lane i (the source half is added
-    // in phase 2)
-    float dhd = 0.f;
-    for (int j = 0; j < a.nf; ++j) {
-      const float dj = __shfl_sync(kFull, dsum, j);
-      if (lane < a.nf) dhd = fmaf(t.whT[j * FP + lane], dj, dhd);
-    }
-    if (lane < a.nf) a.dh[size_t(row) * a.nf + lane] = dhd;
-#pragma unroll
-    for (int i = 0; i < FP; ++i)
-      pw[i] = fmaf(__shfl_sync(kFull, hd, i), dsum, pw[i]);
-    pb += dsum;
-  }
-  // the block's partials: its warps' sums in warp order
-  float* red = work;             // kWarps · kPart
-  if (lane < FP) {
-#pragma unroll
-    for (int i = 0; i < FP; ++i) red[warp * kPart + i * FP + lane] = pw[i];
-    red[warp * kPart + FP * FP + lane] = pb;
-  }
-  __syncthreads();
-  for (int q = tid; q < kPart; q += kThreads) {
-    float s = 0.f;
-    for (int w = 0; w < kWarps; ++w) s += red[w * kPart + q];
-    a.part_w[size_t(blockIdx.x) * kPart + q] = s;
-  }
-  grid.sync();
-
-  // ---- phase 2a: dh[s] += Σ over s's outgoing edges, in source order ----
-  for (int s = blockIdx.x * kWarps + warp; s < a.n;
-       s += gridDim.x * kWarps) {
-    if (lane >= a.nf) continue;
-    float acc = 0.f;
-    const int p1 = a.sptr[s + 1];
-    for (int p = a.sptr[s]; p < p1; ++p)
-      acc += __ldcg(a.edge_dhs + size_t(a.sorder[p]) * a.nf + lane);
-    const size_t o = size_t(s) * a.nf + lane;
-    a.dh[o] = __ldcg(a.dh + o) + acc;
+  __device__ bool nonempty(int k) const {
+    return __ldg(a.vptr + k + 1) > __ldg(a.vptr + k);
   }
 
-  // ---- phase 2b: one row of partials per vocab work item ----------------
-  float* gs = work;                            // kChunkEdges · FP: gout[dst]
-  float* vs = gs + kChunkEdges * FP;           // kChunkEdges · FP: g
-  float* ls = vs + kChunkEdges * FP;           // kChunkEdges · FP: dlog
-  const int items = a.k_vocab + n_chunks(a.n_edges);
-  for (int b = blockIdx.x; b < items; b += gridDim.x) {
-    const int k = item_id(a.vptr, a.k_vocab, b);
-    const int c = b - k;
-    const int lo = max(a.vptr[k], c * kChunkEdges);
-    const int hi = min(a.vptr[k + 1], (c + 1) * kChunkEdges);
-    if (lo >= hi) continue;                    // no item at b
-    const int cnt = hi - lo;
-    __syncthreads();                           // staging free
-    for (int i = tid; i < kChunkEdges * FP; i += kThreads) {
-      const int r = i / FP, j = i % FP;
-      float gv = 0.f, vv = 0.f, lv = 0.f;
-      if (r < cnt) {
-        const int e = a.vorder[lo + r];
-        if (j < a.mf) gv = __ldg(a.gout + size_t(a.dst[e]) * a.mf + j);
-        if (j < a.nf) {
-          vv = __ldcg(a.edge_g + size_t(e) * a.nf + j);
-          lv = __ldcg(a.edge_dl + size_t(e) * a.nf + j);
-        }
-      }
-      gs[i] = gv;
-      vs[i] = vv;
-      ls[i] = lv;
+  // dg (lane j), the gate and dlog of the staged position p (all lanes of
+  // the warp call it; lanes past nf give 0). The wide bucket loads its
+  // A' column before the gate, all loads in flight together.
+  __device__ __forceinline__ void grads(const Stage& s, int p, int j, float& gate,
+                        float& dg, float& dl) const {
+    const int k = s.vid[p];
+    const float* go = s.at(2, p);
+    float ar[kTableInSmem ? 1 : FP];
+    if constexpr (!kTableInSmem) {
+#pragma unroll
+      for (int m = 0; m < FP; ++m)
+        ar[m] = m < a.mf && j < a.nf
+                    ? __ldg(a.aprime + (size_t(k) * a.mf + m) * a.nf + j)
+                    : 0.f;
+    }
+    gate = edge_gate<G>(t, s.at(1, p), k, j, a.nf);
+    dg = 0.f;
+#pragma unroll
+    for (int m = 0; m < G; ++m)
+      dg = fmaf(kTableInSmem ? t.ap[(k * FP + m) * FP + j] : ar[m], go[m],
+                dg);
+    const float dgate = dg * s.at(0, p)[j];
+    dl = gate * (dgate - group_sum<G>(gate * dgate));
+  }
+
+  // indices of the tile's positions (a thread a position: the order's
+  // entry, the edge's src, dst and vid, and key, the row), then hs, hd
+  // and gout[dst] rows
+  // (the tables are staged while the index loads are in flight)
+  template <class Key>
+  __device__ __forceinline__ void stage(const Stage& s, const int* order, int ts, int cnt,
+                        Key key, long long* st) const {
+    const int tid = threadIdx.x;
+    int x = 0, sv = 0, dv_ = 0, kv = 0;
+    if (tid < cnt) {
+      x = __ldg(order + ts + tid);
+      const int e = x < a.n_edges ? x : x - a.n_edges;
+      sv = __ldg(a.src + e);
+      dv_ = __ldg(a.dst + e);
+      kv = __ldg(a.vid + e);
+    }
+    if (!a.floor)
+      stage_tables(t, a.aprime, a.wa, a.ba, a.evocab, a.mf, a.nf, a.ef,
+                   a.k_vocab, false);
+    if (tid < cnt) {
+      s.ent[tid] = x;
+      s.src[tid] = sv;
+      s.dst[tid] = dv_;
+      s.vid[tid] = kv;
+      s.key[tid] = key(x, sv, dv_, kv);
     }
     __syncthreads();
-    for (int q = tid; q < kPart; q += kThreads) {
-      float s = 0.f;
-      if (q < FP * FP) {
-        const int m = q / FP, j = q % FP;
-        for (int r = 0; r < cnt; ++r)
-          s = fmaf(gs[r * FP + m], vs[r * FP + j], s);
-      } else {
-        for (int r = 0; r < cnt; ++r) s += ls[r * FP + q - FP * FP];
+    if (st) st[1] = clock64();
+    if (!a.floor) {
+      stage_rows(s, 0, s.src, a.h, a.nf, cnt);
+      stage_rows(s, 1, s.dst, a.h, a.nf, cnt);
+      stage_rows(s, 2, s.dst, a.gout, a.mf, cnt);
+    }
+    __syncthreads();
+    if (st) st[2] = clock64();
+  }
+
+  // ---- the node view: dh ------------------------------------------------
+  __device__ RowView node_rows() const {
+    return RowView{a.nptr, a.dh, a.nslots, a.counters, a.nf,
+                   (kThreads / G) * a.nper};
+  }
+
+  __device__ void node_tile(int tile, long long* st) const {
+    const int te = (kThreads / G) * a.nper, ts = tile * te;
+    const int cnt = min(te, 2 * a.n_edges - ts);
+    const Stage s = carve_stage(area, te);
+    const int tid = threadIdx.x, j = tid % G, gi = tid / G;
+    const int base = (tid % 32) - j;
+    if (st) st[0] = clock64();
+    const int E = a.n_edges;
+    stage(s, a.norder, ts, cnt,
+          [E](int x, int sv, int dv_, int) { return x < E ? dv_ : sv; },
+          st);
+    // an end's term: Wh·dlog on lane i at its destination, dg ⊙ gate at
+    // its source
+    auto term = [&](int pc) {
+      float gate, dg, dl;
+      grads(s, pc, j, gate, dg, dl);
+      float wd = 0.f;
+#pragma unroll
+      for (int jj = 0; jj < G; ++jj)
+        wd = fmaf(t.whT[jj * FP + j], __shfl_sync(kFull, dl, base + jj), wd);
+      return s.ent[pc] < E ? wd : dg * gate;
+    };
+    for (int i = 0; i < a.nper; i += kTwo) {
+      const int pa = gi * a.nper + i,
+                pb = kTwo == 2 && i + 1 < a.nper ? pa + 1 : pa;
+      float ca = 0.f, cb = 0.f;
+      if (!a.floor) {
+        ca = term(min(pa, cnt - 1));
+        if constexpr (kTwo == 2) cb = term(min(pb, cnt - 1));
       }
-      a.part_v[size_t(b) * kPart + q] = s;
+      if (pa < cnt) s.at(3, pa)[j] = ca;
+      if (pb != pa && pb < cnt) s.at(3, pb)[j] = cb;
     }
+    __syncthreads();
+    if (st) st[3] = clock64();
+    tile_rows<G>(node_rows(), s, 3, tile, cnt, a.nper, flag);
+    if (st) st[4] = clock64();
   }
 
-  // ---- phase 2c: dWh and dba, the blocks' partials in block order -------
-  const int nwh = a.nf * a.nf + a.nf;
-  for (int i = blockIdx.x * kThreads + tid; i < nwh;
-       i += gridDim.x * kThreads) {
-    const int q = i < a.nf * a.nf ? (i / a.nf) * FP + i % a.nf
-                                  : FP * FP + i - a.nf * a.nf;
-    float s = 0.f;
-    for (int blk = 0; blk < int(gridDim.x); ++blk)
-      s += __ldcg(a.part_w + size_t(blk) * kPart + q);
-    if (i < a.nf * a.nf) a.dwa[i] = s;
-    else a.dba[i - a.nf * a.nf] = s;
+  // ---- the vocab view: dA', dWh_k, Dv_k ---------------------------------
+  __device__ void write_id(int k, int o, float x) const {
+    const int mn = a.mf * a.nf;
+    if (o < mn)
+      a.da[size_t(k) * mn + o] = x;
+    else
+      a.idrows[size_t(k) * (a.nf * a.nf + a.nf) + o - mn] = x;
   }
-  grid.sync();
 
-  // ---- phase 3: dA', dev and dWe -----------------------------------------
-  const int nda = a.k_vocab * a.mf * a.nf;
-  const int ndev = a.k_vocab * a.ef;
-  const int total = nda + ndev + a.ef * a.nf;
-  for (int i = blockIdx.x * kThreads + tid; i < total;
-       i += gridDim.x * kThreads) {
-    if (i < nda) {
-      const int k = i / (a.mf * a.nf), r = i % (a.mf * a.nf);
-      const int q = (r / a.nf) * FP + r % a.nf;
-      const int e0 = a.vptr[k], e1 = a.vptr[k + 1];
-      float s = 0.f;
-      if (e1 > e0)
-        for (int c = e0 / kChunkEdges; c <= (e1 - 1) / kChunkEdges; ++c)
-          s += __ldcg(a.part_v + size_t(k + c) * kPart + q);
-      a.da[i] = s;
-    } else if (i < nda + ndev) {
-      // dev[k][x] = Σ_j We[x][j]·Dv_k[j]
-      const int k = (i - nda) / a.ef, x = (i - nda) % a.ef;
-      float s = 0.f;
-      for (int j = 0; j < a.nf; ++j)
-        s = fmaf(a.wa[(a.nf + x) * a.nf + j], vocab_dlog(a, k, j), s);
-      a.devocab[i - nda] = s;
-    } else {
-      // dWe[x][j] = Σ_k ev[k][x]·Dv_k[j]
-      const int r = i - nda - ndev, x = r / a.nf, j = r % a.nf;
-      float s = 0.f;
-      for (int k = 0; k < a.k_vocab; ++k)
-        s = fmaf(a.evocab[k * a.ef + x], vocab_dlog(a, k, j), s);
-      a.dwa[(a.nf + x) * a.nf + j] = s;
-    }
+  // id k's partials summed in tile order (all threads), its counter set
+  // back to zero first
+  __device__ __forceinline__ void finish_id(int k) const {
+    const int te = (kThreads / G) * a.vper, R = id_width(a.mf, a.nf);
+    const int vs = __ldg(a.vptr + k), ve = __ldg(a.vptr + k + 1);
+    const int t0 = vs / te, t1 = (ve - 1) / te;
+    int* vcnt = a.counters + a.ntiles;
+    if (threadIdx.x == 0) vcnt[t0] = 0;
+    __threadfence();
+    sum_partials(
+        t1 - t0 + 1, R,
+        [&](int u, int o) {
+          return __ldcg(a.vslots + (2 * size_t(t0 + u) + (u == 0)) * R + o);
+        },
+        [&](int o, float x) { write_id(k, o, x); });
   }
+
+  // group g's nonempty id rows summed in id order (all threads)
+  __device__ __forceinline__ void group_rows(int g) const {
+    const int RW = a.nf * a.nf + a.nf, k0 = g * kIdGroup;
+    const int n = min(kIdGroup, a.k_vocab - k0);
+    sum_partials(
+        n, RW,
+        [&](int u, int o) {
+          return nz[k0 + u] ? __ldcg(a.idrows + size_t(k0 + u) * RW + o)
+                            : 0.f;
+        },
+        [&](int o, float x) { a.grows[size_t(g) * RW + o] = x; });
+  }
+
+  __device__ void vocab_tile(int tile, long long* st) const {
+    const int te = (kThreads / G) * a.vper, ts = tile * te;
+    const int cnt = min(te, a.n_edges - ts);
+    const int R = id_width(a.mf, a.nf), mn = a.mf * a.nf;
+    const Stage s = carve_stage(area, te);
+    const int tid = threadIdx.x, j = tid % G, gi = tid / G;
+    if (st) st[0] = clock64();
+    stage(s, a.vorder, ts, cnt, [](int, int, int, int k) { return k; },
+          st);
+    // an edge's g and dlog
+    auto edge = [&](int pc, float& g, float& dl) {
+      float gate, dg;
+      grads(s, pc, j, gate, dg, dl);
+      g = gate * s.at(0, pc)[j];
+    };
+    for (int i = 0; i < a.vper; i += kTwo) {
+      const int pa = gi * a.vper + i,
+                pb = kTwo == 2 && i + 1 < a.vper ? pa + 1 : pa;
+      float ga = 0.f, la = 0.f, gb = 0.f, lb = 0.f;
+      if (!a.floor) {
+        edge(min(pa, cnt - 1), ga, la);
+        if constexpr (kTwo == 2) edge(min(pb, cnt - 1), gb, lb);
+      }
+      if (pa < cnt) {
+        s.at(3, pa)[j] = ga;
+        s.at(4, pa)[j] = la;
+      }
+      if (pb != pa && pb < cnt) {
+        s.at(3, pb)[j] = gb;
+        s.at(4, pb)[j] = lb;
+      }
+    }
+    __syncthreads();
+    if (st) st[3] = clock64();
+    // the tile's ids: dot products over each id's positions, in order
+    const int k0 = s.key[0], k1 = s.key[cnt - 1];
+    for (int k = k0; k <= k1; ++k) {
+      const int vs = __ldg(a.vptr + k), ve = __ldg(a.vptr + k + 1);
+      const int q0 = max(vs, ts) - ts, q1 = min(ve, ts + cnt) - ts;
+      if (q1 <= q0) continue;
+      const bool whole = vs >= ts && ve <= ts + cnt;
+      for (int o = tid; o < R; o += kThreads) {
+        float x = 0.f;
+        if (!a.floor) {
+          if (o < mn) {
+            const float* u = s.at(2, 0) + o / a.nf;
+            const float* w = s.at(3, 0) + o % a.nf;
+            for (int q = q0; q < q1; ++q) x = fmaf(u[q * FP], w[q * FP], x);
+          } else if (o < mn + a.nf * a.nf) {
+            const int r = o - mn;
+            const float* u = s.at(1, 0) + r / a.nf;
+            const float* w = s.at(4, 0) + r % a.nf;
+            for (int q = q0; q < q1; ++q) x = fmaf(u[q * FP], w[q * FP], x);
+          } else {
+            const float* w = s.at(4, 0) + o - mn - a.nf * a.nf;
+            for (int q = q0; q < q1; ++q) x += w[q * FP];
+          }
+        }
+        if (whole)
+          write_id(k, o, x);
+        else
+          a.vslots[(2 * size_t(tile) + (vs < ts ? 0 : 1)) * R + o] = x;
+      }
+    }
+    if (st) st[4] = clock64();
+    // the ids crossing the tile, counted; the ids this tile completes,
+    // counted by group; the groups it completes, summed; the block that
+    // completes the last group forms the last sums
+    __threadfence();
+    __syncthreads();
+    int* vcnt = a.counters + a.ntiles;
+    if (tid == 0) {
+      flag[0] = flag[1] = -1;
+      const int vs0 = __ldg(a.vptr + k0), ve0 = __ldg(a.vptr + k0 + 1);
+      if (vs0 < ts) {                  // the first id began earlier
+        const int t0 = vs0 / te, t1 = (ve0 - 1) / te;
+        if (atomicAdd(vcnt + t0, 1) == t1 - t0) flag[0] = k0;
+      }
+      const int vs1 = __ldg(a.vptr + k1), ve1 = __ldg(a.vptr + k1 + 1);
+      if (vs1 >= ts && ve1 > ts + cnt) {  // the last id goes on
+        const int t1 = (ve1 - 1) / te;
+        if (atomicAdd(vcnt + tile, 1) == t1 - tile) flag[1] = k1;
+      }
+    }
+    __syncthreads();
+    for (int w = 0; w < 2; ++w)
+      if (flag[w] >= 0) finish_id(flag[w]);
+    if (st) st[5] = clock64();
+    __threadfence();
+    __syncthreads();
+    int* gcnt = vcnt + a.vtiles;
+    const int groups = id_groups(a.k_vocab);
+    if (tid == 0) {
+      int add[kMaxVocab / kIdGroup] = {};
+      for (int k = k0; k <= k1; ++k) {
+        const int vs = __ldg(a.vptr + k), ve = __ldg(a.vptr + k + 1);
+        add[k / kIdGroup] += ve > vs && vs >= ts && ve <= ts + cnt;
+      }
+      for (int w = 0; w < 2; ++w)
+        if (flag[w] >= 0) ++add[flag[w] / kIdGroup];
+      int fin = 0;
+      for (int g = 0; g < groups; ++g)
+        if (add[g] > 0 && atomicAdd(gcnt + g, add[g]) + add[g] == gnz[g]) {
+          fin |= 1 << g;
+          gcnt[g] = 0;                 // every id of the group counted
+        }
+      flag[2] = fin;
+    }
+    __syncthreads();
+    const int fin = flag[2];
+    if (fin == 0) return;
+    for (int g = 0; g < groups; ++g)
+      if (fin >> g & 1) group_rows(g);
+    __threadfence();
+    __syncthreads();
+    if (tid == 0) {
+      int* top = gcnt + groups;
+      const int nf_ = __popc(unsigned(fin));
+      flag[3] = atomicAdd(top, nf_) + nf_ == n_groups;
+      if (flag[3]) *top = 0;
+    }
+    __syncthreads();
+    if (flag[3]) final_sums();
+  }
+
+  // ---- the last sums: dWh, dba from the group rows; dev, dWe from the K
+  // Dv_k rows ---------------------------------------------------------------
+  __device__ void final_sums() const {
+    const int K = a.k_vocab, nf = a.nf, ef = a.ef, RW = nf * nf + nf;
+    const int tid = threadIdx.x;
+    if (a.prof != nullptr && tid == 0) a.prof[16] = clock64();
+    __threadfence();
+#pragma unroll 8
+    for (int q = tid; q < K * FP; q += kThreads) {
+      const int k = q / FP, jj = q % FP;
+      dv[q] = jj < nf && nz[k]
+                  ? __ldcg(a.idrows + size_t(k) * RW + nf * nf + jj)
+                  : 0.f;
+    }
+    sum_partials(
+        id_groups(K), RW,
+        [&](int u, int o) {
+          return gnz[u] ? __ldcg(a.grows + size_t(u) * RW + o) : 0.f;
+        },
+        [&](int o, float x) {
+          if (o < nf * nf)
+            a.dwa[o] = x;
+          else
+            a.dba[o - nf * nf] = x;
+        });
+    __syncthreads();
+    // dWe[x][j] = Σ_k ev[k][x]·Dv_k[j], the ids in order
+    for (int q = tid; q < ef * nf; q += kThreads) {
+      const int x = q / nf, jj = q % nf;
+      float s = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < K; ++k)
+        s = fmaf(__ldg(a.evocab + k * ef + x), dv[k * FP + jj], s);
+      a.dwa[nf * nf + q] = s;
+    }
+    // dev[k][x] = Σ_j We[x][j]·Dv_k[j]
+    for (int q = tid; q < K * ef; q += kThreads) {
+      const int k = q / ef, x = q % ef;
+      float s = 0.f;
+#pragma unroll 8
+      for (int jj = 0; jj < nf; ++jj)
+        s = fmaf(__ldg(a.wa + (nf + x) * nf + jj), dv[k * FP + jj], s);
+      a.devocab[q] = s;
+    }
+    const int mn = a.mf * nf;
+    for (int k = 0; k < K; ++k)        // dA' of the ids with no edge
+      if (!nz[k])
+        for (int q = tid; q < mn; q += kThreads) a.da[k * mn + q] = 0.f;
+    if (a.prof != nullptr && tid == 0) a.prof[17] = clock64();
+  }
+};
+
+// A block a tile: vocab tiles first, then node tiles. `floor`: the same
+// grid, staging of the indices and combines, no tables, rows or
+// arithmetic.
+template <int G>
+__global__ void __launch_bounds__(kThreads) sddmm_bwd_kernel(BwdArgs a) {
+  extern __shared__ float sm[];
+  const int te_n = (kThreads / G) * a.nper, te_v = (kThreads / G) * a.vper;
+  Bwd<G> b{a};
+  b.t = carve_tables(sm, a.k_vocab);
+  b.area = sm + table_floats(a.k_vocab);
+  const int sn = stage_floats(te_n, 4), sv = stage_floats(te_v, 5);
+  b.flag = reinterpret_cast<int*>(b.area + (sn > sv ? sn : sv));
+  b.dv = reinterpret_cast<float*>(b.flag + 8);
+  b.nz = reinterpret_cast<int*>(b.dv + a.k_vocab * FP);
+  b.gnz = b.nz + al4(a.k_vocab);
+  const int tid = threadIdx.x, groups = id_groups(a.k_vocab);
+  const bool prof = a.prof != nullptr && tid == 0;
+  if (prof && blockIdx.x == 0) a.prof[20] = clock64();
+  for (int k = tid; k < a.k_vocab; k += kThreads) b.nz[k] = b.nonempty(k);
+  __syncthreads();
+  if (tid < groups) {
+    int c = 0;
+    for (int k = tid * kIdGroup; k < min(a.k_vocab, (tid + 1) * kIdGroup);
+         ++k)
+      c += b.nz[k];
+    b.gnz[tid] = c;
+  }
+  b.n_groups = __syncthreads_count(tid < groups && b.gnz[tid] > 0);
+  if (prof && blockIdx.x == 0) a.prof[21] = clock64();
+  const int w = blockIdx.x;
+  if (w < a.vtiles)
+    b.vocab_tile(w, prof && w == 0 ? a.prof : nullptr);
+  else
+    b.node_tile(w - a.vtiles, prof && w == a.vtiles ? a.prof + 8 : nullptr);
+  zero_empty_rows(a.nptr, a.dh, a.n, a.nf);
 }
 
-size_t smem_bytes(int k_vocab) {
-  const size_t work = kWarps * kPart > 3 * kChunkEdges * FP
-                          ? size_t(kWarps) * kPart
-                          : size_t(3) * kChunkEdges * FP;
-  return sizeof(float) *
-         (table_floats(k_vocab) +
-          (kTableInSmem ? size_t(k_vocab) * FP * FP : 0) + work);
+using BwdKernel = void (*)(BwdArgs);
+
+// The kernel of a group width; null for a width the bucket does not
+// build.
+BwdKernel bwd_kernel(int g) {
+  if constexpr (FP == 32) {
+    if (g == 32) return sddmm_bwd_kernel<32>;
+  } else {
+    if (g == 8) return sddmm_bwd_kernel<8>;
+    if (g == 16) return sddmm_bwd_kernel<16>;
+  }
+  return nullptr;
 }
 
-long long items_of(int n_edges, int k_vocab) {
-  return k_vocab + (n_edges + kChunkEdges - 1) / kChunkEdges;
+int tiles_of(int n_pos, int g, int per) {
+  const int te = (kThreads / g) * per;
+  return (n_pos + te - 1) / te;
 }
 
 }  // namespace
@@ -329,61 +506,67 @@ long long items_of(int n_edges, int k_vocab) {
 extern "C" {
 
 // Dynamic shared memory of one block, in bytes.
-int mpnn_sddmm_bwd_smem_bytes(int k_vocab) {
-  return int(smem_bytes(k_vocab));
+int mpnn_sddmm_bwd_smem_bytes(int k_vocab, int group, int nper, int vper) {
+  return int(sizeof(float) * bwd_smem_floats(k_vocab, (kThreads / group) *
+                                                          nper,
+                                             (kThreads / group) * vper));
 }
 
-// Floats of scratch a launch needs: the edges' three rows (3·E·nf), then
-// the blocks' partials (grid rows), then the vocab items' (K + chunks
-// rows), each row kPart floats.
-long long mpnn_sddmm_bwd_scratch_floats(int n_edges, int nf, int k_vocab,
-                                        int grid) {
-  return 3LL * n_edges * nf + (grid + items_of(n_edges, k_vocab)) * kPart;
+// Floats of scratch a launch needs: the node tiles' partial dh rows (2·FP
+// a tile), the vocab tiles' partial id rows (2·R a tile), the ids' and
+// the id groups' dWh and Dv rows.
+long long mpnn_sddmm_bwd_scratch_floats(int n_edges, int mf, int nf,
+                                        int k_vocab, int group, int nper,
+                                        int vper) {
+  return 2LL * tiles_of(2 * n_edges, group, nper) * FP +
+         2LL * tiles_of(n_edges, group, vper) * id_width(mf, nf) +
+         (long long)(k_vocab + id_groups(k_vocab)) * (nf * nf + nf);
 }
 
-// Blocks of the cooperative grid: all co-resident blocks at this vocab
-// size, capped at the work (a warp per node row, a block per vocab item).
-// The kernel's shared-memory limit stays at the largest vocab's. 0 on
-// error.
-int mpnn_sddmm_bwd_grid(int n, int n_edges, int k_vocab) {
-  if (k_vocab < 1 || k_vocab > kMaxVocab) return 0;
-  const int most = resident_blocks(sddmm_bwd_kernel, smem_bytes(k_vocab),
-                                   smem_bytes(kMaxVocab));
-  const int rows = (n + kWarps - 1) / kWarps;
-  const int items = int(items_of(n_edges, k_vocab));
-  const int need = rows > items ? rows : items;
-  return most < 1 ? 0 : (most < need ? most : need);
+// Ints of counters a launch needs: a node tile's, a vocab tile's, an id
+// group's and one for the groups.
+int mpnn_sddmm_bwd_counters(int n_edges, int k_vocab, int group, int nper,
+                            int vper) {
+  return tiles_of(2 * n_edges, group, nper) +
+         tiles_of(n_edges, group, vper) + id_groups(k_vocab) + 1;
 }
 
 // Launches on `stream` and returns the launch's error code (0 = success).
-// Does not synchronize and allocates nothing.
+// Does not synchronize and allocates nothing. (group, nper, vper) from
+// kernels/sddmm.py::launch_shape: lanes an edge, positions a group in a
+// node and a vocab tile; a block a tile. counters:
+// mpnn_sddmm_bwd_counters ints, zero (every launch leaves them zero).
+// prof: null or kProfSlots int64.
 int mpnn_sddmm_bwd(const float* aprime, const float* evocab, const float* wa,
                    const float* ba, const float* h, const float* gout,
                    const int* vid, const int* src, const int* dst,
-                   const int* order, const int* ptr, const int* sorder,
-                   const int* sptr, const int* vorder, const int* vptr,
-                   float* da, float* devocab, float* dwa, float* dba,
-                   float* dh, float* scratch, int n, int n_edges, int mf,
-                   int nf, int ef, int k_vocab, int grid, void* stream) {
+                   const int* norder, const int* nptr, const int* vorder,
+                   const int* vptr, float* da, float* devocab, float* dwa,
+                   float* dba, float* dh, float* scratch, int* counters,
+                   long long* prof, int n, int n_edges, int mf, int nf,
+                   int ef, int k_vocab, int group, int nper, int vper,
+                   int floor, void* stream) {
   if (mf < 1 || mf > FP || nf < 1 || nf > FP || ef < 0 ||
       ef > kMaxEdgeFeatures || k_vocab < 1 || k_vocab > kMaxVocab || n < 1 ||
-      n_edges < 1 || grid < 1)
+      n_edges < 1 || group != group_of(mf, nf) || nper < 1 ||
+      nper > kMaxPer || vper < 1 || vper > kMaxPer || counters == nullptr)
     return int(cudaErrorInvalidValue);
-  float* edge_g = scratch;
-  float* edge_dl = edge_g + size_t(n_edges) * nf;
-  float* edge_dhs = edge_dl + size_t(n_edges) * nf;
-  float* part_w = edge_dhs + size_t(n_edges) * nf;
-  float* part_v = part_w + size_t(grid) * kPart;
-  BwdArgs a{aprime, evocab, wa, ba, h, gout, vid, src, dst, order, ptr,
-            sorder, sptr, vorder, vptr, da, devocab, dwa, dba, dh,
-            edge_g, edge_dl, edge_dhs, part_w, part_v,
-            n, n_edges, mf, nf, ef, k_vocab};
-  void* args[] = {&a};
-  cudaError_t err = cudaLaunchCooperativeKernel(
-      (void*)sddmm_bwd_kernel, dim3(grid), dim3(kThreads), args,
-      smem_bytes(k_vocab), static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  const int ntiles = tiles_of(2 * n_edges, group, nper);
+  const int vtiles = tiles_of(n_edges, group, vper);
+  float* nslots = scratch;
+  float* vslots = nslots + 2 * size_t(ntiles) * FP;
+  float* idrows = vslots + 2 * size_t(vtiles) * id_width(mf, nf);
+  float* grows = idrows + size_t(k_vocab) * (nf * nf + nf);
+  BwdArgs args{aprime, evocab, wa, ba, h, gout, vid, src, dst, norder, nptr,
+               vorder, vptr, da, devocab, dwa, dba, dh, nslots, vslots,
+               idrows, grows, counters, prof, n, n_edges, mf, nf, ef,
+               k_vocab, nper, vper, ntiles, vtiles, floor};
+  const BwdKernel kernel = bwd_kernel(group);
+  if (kernel == nullptr) return int(cudaErrorInvalidValue);
+  const int te_n = (kThreads / group) * nper, te_v = (kThreads / group) * vper;
+  return int(launch(kernel, ntiles + vtiles,
+                    sizeof(float) * bwd_smem_floats(k_vocab, te_n, te_v),
+                    static_cast<cudaStream_t>(stream), args));
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -149,6 +149,15 @@ inline int __syncthreads_or(int pred) {
   emu_block->bar->arrive_and_wait();
   return r;
 }
+inline int __syncthreads_count(int pred) {
+  if (pred) emu_block->any.fetch_add(1);
+  emu_block->bar->arrive_and_wait();
+  const int r = emu_block->any.load();
+  emu_block->bar->arrive_and_wait();
+  if (threadIdx.x == 0) emu_block->any.store(0);
+  emu_block->bar->arrive_and_wait();
+  return r;
+}
 inline void __threadfence() {
   std::atomic_thread_fence(std::memory_order_seq_cst);
 }

@@ -25,7 +25,9 @@ runs on 48 molecules with set2vec cut to 3
 steps (in every adv and att run); bil-train, ecfp, dec-train and
 dec-att-train on 64; rec-kernel-check at b16's and 2,000 node slots;
 dec-times and dec-att-times at batch 16 and 48, without a trace (the
-stand-in has no device to trace).
+stand-in has no device to trace); spmm- and sddmm-kernel-check at batch
+48 for 1024 and 64 molecules in 2,000 slots for 2,560 (the SDDMM's
+smallest tiles sized for 24 SMs).
 """
 
 import dataclasses
@@ -175,6 +177,24 @@ def main(argv) -> int:
                 "wide b1024": b(CS.WIDE_SMILES * 3, 48),
                 "wide b16": b(CS.WIDE_SMILES, 16)}
     CS._basic_batches = basic_batches
+
+    def dec_batches(device):
+        """spmm- and sddmm-kernel-check's batches cut: 48 molecules for
+        1024, 64 in 2,000 slots for 2,560 in 32,896."""
+        from mpnn_tpu_torch import graphs as G
+        from mpnn_tpu_torch.graphs.batching import attach_fused_plan
+        gs, _ = G.encode_molgraphs(G.generate_molgraphs(
+            (CS.SMILES * 7)[:64], [0.0] * 64))
+        big = trainer.batch_to_device(attach_fused_plan(G.attach_edge_vocab(
+            G.collate_packed(gs, node_cap=2000).as_dict(), vocab_cap=8)),
+            device)
+        b48 = trainer.batch_to_device(CS._batch(CS.SMILES * 5, 48), device)
+        b16 = trainer.batch_to_device(CS._batch(CS.SMILES * 2, 16), device)
+        return b48, b16, big, CS._ragged_att_batch(device)
+    CS._dec_check_batches = dec_batches
+    # the SDDMM kernels' forced tiles within the stand-in's thread limit
+    # (~20k CUDA threads a launch): the largest, a group 8 positions
+    CS.SDDMM_ROUTES["small tiles"] = dict(per=(8, 8))
     phases = {"kernel-check": lambda: CS.phase_kernel_check(cpu),
               "train-times": lambda: CS.phase_train_times(cpu, "emulated"),
               "basic-kernel-check": lambda: CS.phase_basic_kernel_check(cpu),

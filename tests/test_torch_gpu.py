@@ -1237,6 +1237,47 @@ def test_cuda_edge_mlp_wrapper_raises_instead_of_falling_back():
 
 
 @pytest.mark.gpu
+def test_cuda_edge_mlp_backward_from_two_threads():
+    """The backward kernel's shared-memory limit belongs to the kernel, not
+    to a host thread: autograd launches the backward at T 50 from its own
+    thread, this thread a prepared backward of the same kernel at T 3 (a
+    smaller stash), then autograd the T-50 backward again. No launch may
+    lower the limit below the size another thread's launch relies on; the
+    last run gives the first's bits and matches the plain version."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import edge_mlp as M
+    rng = np.random.RandomState(17)
+    x, ws, bs, sw = _mlp_problem(rng, 9, [(6, 36)], 50)
+    dims = [6, 36]
+    big, small = (M.device_shape("bwd", 9, dims, t, x.device)
+                  for t in (50, 3))
+    assert (big.kp, big.cluster, big.route) == (small.kp, small.cluster,
+                                               small.route)
+    assert big.smem_bytes > small.smem_bytes
+    leaves = {"x": x, "w0": ws[0], "b0": bs[0], "ws": sw}
+    cw = torch.as_tensor(rng.randn(9, 36).astype(np.float32), device="cuda")
+    first = _value_and_grads(M.edge_mlp, (x, ws, bs, sw), leaves, cw,
+                             tail=50)
+    detached = [t.detach() for t in (x, ws[0], bs[0], sw)]
+    K.launch_prepared(M.prepare_edge_mlp_bwd(
+        detached[0], [detached[1]], [detached[2]], detached[3],
+        torch.ones(9, 36, device="cuda"), tail=3))
+    M.reset_launch_counts()
+    again = _value_and_grads(M.edge_mlp, (x, ws, bs, sw), leaves, cw,
+                             tail=50)
+    torch.cuda.synchronize()
+    assert M.launch_counts == {"edge_mlp_fwd": 1, "edge_mlp_bwd": 1}
+    assert torch.equal(again[0], first[0])
+    assert all(torch.equal(again[1][k], first[1][k]) for k in first[1])
+    want = _value_and_grads(M.edge_mlp_reference, (x, ws, bs, sw), leaves,
+                            cw, tail=50)
+    scale = float(want[0].abs().max())
+    torch.testing.assert_close(again[0] / scale, want[0] / scale,
+                               rtol=RTOL, atol=ATOL)
+    _grads_close(again[1], want[1])
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("model", ["lipo", "graph_norm", "adv", "att"])
 def test_wide_model_paths_on_card(model):
     """Serving through the kernels at afm 27 (SMILES with many atom types
@@ -1639,46 +1680,74 @@ def test_decomposed_lipo_step_on_card():
                        "recurrence_bwd": 3}, dict.fromkeys(counts[0], 0)]
 
 
-def sddmm_problem(rng, g, f=7, mf=None, ef=6, k=9, device="cuda"):
+def sddmm_problem(rng, g, f=7, mf=None, ef=6, k=9, device="cuda", hub=0):
     """The attention SDDMM's arguments on a _problem batch (ragged graphs
     of 1 to 24 nodes, padded edges on the dummy node with vid 0): a random
     aprime (K, mf, nf) whose row 0 is not zero (as the model's A'_0 =
     pen(0)·W̃ + Bf), evocab (K, ef), wa (nf + ef, nf), ba, h (N, nf)
     random on every row (the dummy row too, so the padded edges carry
-    messages), and a cotangent gout (N, mf) random on every row. Returns
+    messages), and a cotangent gout (N, mf) random on every row. With
+    `hub`, that many real edges are turned to end at one real node: a
+    destination of hundreds of edges, whose row crosses tiles. Returns
     (aprime, evocab, wa, ba, h, vid, src, dst, plan, gout)."""
     mf = f if mf is None else mf
     p = _problem(rng, g=g, f=f, k=k, device=device)
     n = p[3].shape[0]
+    vid, src, dst, plan = p[12:16]
+    if hub:
+        d = dst.cpu().numpy().copy()
+        real = np.nonzero(vid.cpu().numpy() > 0)[0]
+        d[rng.choice(real, hub, replace=False)] = d[real[len(real) // 2]]
+        dst = torch.as_tensor(d, device=device)
+        plan = K.FusedEvalPlan(*(torch.as_tensor(x, device=device)
+                                 for x in plan_fused_eval(
+                                     d, p[5].cpu().numpy(), g)))
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
                                   device=device)
     return (t(rng.randn(k, mf, f) * 0.3), t(rng.randn(k, ef)),
             t(rng.randn(f + ef, f) * 0.3), t(rng.randn(f) * 0.1),
-            t(rng.randn(n, f)), *p[12:16], t(rng.randn(n, mf)))
+            t(rng.randn(n, f)), vid, src, dst, plan, t(rng.randn(n, mf)))
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("g,f,mf,ef,k", [(1024, 7, 7, 6, 9),
-                                         (1024, 27, 27, 6, 64),
-                                         (37, 7, 7, 6, 64), (37, 27, 27, 6, 9),
-                                         (200, 10, 13, 6, 9),
-                                         (2560, 7, 7, 6, 9)])
-def test_cuda_sddmm_kernels_match_plain_version(g, f, mf, ef, k):
+@pytest.mark.parametrize("g,f,mf,ef,k,hub,route", [
+    (1024, 7, 7, 6, 9, 0, "rule"), (1024, 27, 27, 6, 64, 0, "rule"),
+    (37, 7, 7, 6, 64, 0, "rule"), (37, 27, 27, 6, 9, 0, "rule"),
+    (200, 10, 13, 6, 9, 0, "rule"), (2560, 7, 7, 6, 9, 0, "rule"),
+    (16, 7, 7, 6, 9, 0, "rule"), (16, 10, 13, 6, 9, 0, "small tiles"),
+    (16, 7, 7, 6, 9, 0, "small tiles"), (16, 27, 27, 6, 64, 0, "rule"),
+    (1024, 7, 7, 6, 9, 300, "rule"), (1024, 7, 7, 6, 9, 300, "small tiles"),
+    (200, 7, 7, 6, 9, 0, "small tiles"), (37, 27, 27, 6, 64, 0, "small tiles"),
+    (2560, 7, 7, 6, 9, 0, "small tiles"),
+    (2560, 7, 7, 6, 9, 5000, "small tiles")])
+def test_cuda_sddmm_kernels_match_plain_version(g, f, mf, ef, k, hub, route):
     """sddmm_fwd and sddmm_bwd against the plain version under autograd
     at adv's bench widths (f 7, K 9) and real widths (f 27, K 64), mf !=
-    nf, ragged batches and past 32k node slots (g 2560). aprime[0], h
-    and the cotangent are random at the dummy node, so the padded edges
-    carry messages and gradients there; the gradients are divided by
-    their max abs."""
+    nf, ragged batches, past 32k node slots (g 2560) and with a hub node
+    of 300 or 5,000 real edges, on the launch rule's tiles and on the
+    smallest tiles, whose long rows cross many tiles (the 5,000-edge hub
+    157 of them). aprime[0], h and the cotangent are random
+    at the dummy node, so the padded edges carry messages and gradients
+    there; the gradients are divided by their max abs; a second run gives
+    the same bits; the library's shared memory is launch_shape's."""
     _need_card()
-    from chip_smoke import sddmm_value_and_grads
+    from chip_smoke import SDDMM_ROUTES, _sddmm_route, sddmm_value_and_grads
     from mpnn_tpu_torch.kernels import sddmm as D
-    rng = np.random.RandomState(g + f + k)
-    c = sddmm_problem(rng, g, f=f, mf=mf, ef=ef, k=k)
-    D.reset_launch_counts()
-    got = sddmm_value_and_grads(D.sddmm, *c)
-    torch.cuda.synchronize()
-    assert D.launch_counts == {"sddmm_fwd": 1, "sddmm_bwd": 1}
+    rng = np.random.RandomState(g + f + k + hub)
+    c = sddmm_problem(rng, g, f=f, mf=mf, ef=ef, k=k, hub=hub)
+    runs = []
+    with _sddmm_route(**SDDMM_ROUTES[route]):
+        for d in ("fwd", "bwd"):
+            shape = D.device_shape(d, c[5].shape[0], mf, f, k, c[4].device)
+            assert D.library_smem_bytes(d, shape, k, mf, f) == \
+                shape.smem_bytes, shape
+        for _ in range(2):
+            D.reset_launch_counts()
+            runs.append(sddmm_value_and_grads(D.sddmm, *c))
+            torch.cuda.synchronize()
+            assert D.launch_counts == {"sddmm_fwd": 1, "sddmm_bwd": 1}
+    got = runs[0]
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
     want = sddmm_value_and_grads(lambda *x: D.sddmm_reference(*x[:8]), *c)
     torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
     _grads_close(dict(zip(("aprime", "evocab", "wa", "ba", "h"), got[1:])),
@@ -1691,15 +1760,26 @@ def test_cuda_sddmm_vocab_sizes_in_turn():
     """Both SDDMM kernels at every vocab size from 64 down to 1, then 64
     again, in one process (the narrow bucket stages aprime in K KB of
     shared memory: no launch may leave a kernel's limit below a later,
-    larger K's), each within rtol/atol of the plain version."""
+    larger K's), each within rtol/atol of the plain version; before the
+    last, a K-1 backward launched from this thread while autograd launches
+    the others from its own (the limit is the kernel's, not a thread's)."""
     _need_card()
     from chip_smoke import sddmm_value_and_grads
     from mpnn_tpu_torch.kernels import sddmm as D
-    for k in [*range(D.MAX_VOCAB, 0, -1), D.MAX_VOCAB]:
+
+    def case(k):
         c = list(sddmm_problem(np.random.RandomState(k), 5, f=10,
                                k=max(k, 2)))
         c[0], c[1] = c[0][:k].contiguous(), c[1][:k].contiguous()
         c[5] = c[5].clamp(max=k - 1).contiguous()
+        return c
+    ks = [*range(D.MAX_VOCAB, 0, -1), D.MAX_VOCAB]
+    for i, k in enumerate(ks):
+        c = case(k)
+        if i == len(ks) - 1:
+            one = case(1)
+            K.launch_prepared(D.prepare_sddmm_bwd(*one[:5], one[9],
+                                                  *one[5:8]))
         got = sddmm_value_and_grads(D.sddmm, *c)
         want = sddmm_value_and_grads(lambda *x: D.sddmm_reference(*x[:8]),
                                      *c)

@@ -158,3 +158,107 @@ def test_widths_past_the_buckets_raise():
                                        dst)]
     with pytest.raises(ValueError, match="unsupported device cpu"):
         D.check_inputs(*t, plan)
+
+
+# kernels/sddmm.py::launch_shape on an H100: (direction, edges, mf, nf, K,
+# the rule's tag); adv's b1 (62 edges), b16 (512), b128 (3,350), b256
+# (6,700) and b1024 (26,752), the tiles growing past one position a group
+# (the forward past 396 tiles, the backward past 66), the wide bucket at
+# K 64, mf 13 / nf 10, 66,560 edges (32,896 node slots)
+H100 = dict(smem_bytes=232448, sms=132)
+RULE_CASES = [
+    ("fwd", 62, 7, 7, 8, "g8 p1 x2"),
+    ("bwd", 62, 7, 7, 8, "g8 p1/1 x6"),
+    ("fwd", 512, 7, 7, 8, "g8 p1 x16"),
+    ("bwd", 512, 7, 7, 8, "g8 p1/1 x48"),
+    ("fwd", 32 * 396, 7, 7, 8, "g8 p1 x396"),
+    ("fwd", 32 * 396 + 1, 7, 7, 8, "g8 p2 x199"),
+    ("bwd", 16 * 66, 7, 7, 8, "g8 p1/1 x99"),
+    ("bwd", 16 * 66 + 1, 7, 7, 8, "g8 p2/1 x68"),
+    ("bwd", 3350, 7, 7, 8, "g8 p4/2 x106"),
+    ("bwd", 6700, 7, 7, 8, "g8 p4/4 x158"),
+    ("fwd", 26752, 7, 7, 8, "g8 p3 x279"),
+    ("bwd", 26752, 7, 7, 8, "g8 p4/4 x627"),
+    ("fwd", 66560, 7, 7, 8, "g8 p4 x520"),
+    ("bwd", 66560, 7, 7, 8, "g8 p4/4 x1560"),
+    ("fwd", 26752, 27, 27, 64, "g32 p8 x418"),
+    ("bwd", 26752, 32, 32, 64, "g32 p8/8 x1254"),
+    ("fwd", 26752, 13, 10, 9, "g16 p5 x335"),
+    ("bwd", 26752, 13, 10, 9, "g16 p8/8 x627"),
+    ("bwd", 40, 16, 9, 64, "g16 p1/1 x8"),
+]
+
+
+@pytest.mark.parametrize("direction,edges,mf,nf,k,tag", RULE_CASES)
+def test_launch_rule_at_its_boundaries(direction, edges, mf, nf, k, tag):
+    """A block a tile at every size, the lane group (8, 16 or 32: the
+    narrowest holding mf and nf), the fewest positions a group takes that
+    keep the tiles within GRID_WAVE[direction] blocks an SM, at most
+    TILE_POSITIONS a tile and MAX_PER a group, every position in one tile
+    (the forward's E edges; the backward's 2E edge ends and E edges), and
+    a block's shared memory within the card's."""
+    s = D.launch_shape(direction, edges, mf, nf, k, **H100)
+    assert s.tag() == tag
+    ng = D.THREADS // s.group
+    assert s.group == D.group_of(mf, nf) >= max(mf, nf)
+    pos = edges if direction == "fwd" else 2 * edges
+    cap = int(D.GRID_WAVE[direction] * H100["sms"])
+    for per, tiles, n in ((s.per, s.tiles, pos), (s.vper, s.vtiles, edges)):
+        if direction == "fwd" and n == edges and per == 0:
+            assert tiles == 0
+            continue
+        most = min(D.MAX_PER, D.TILE_POSITIONS // ng)
+        assert 1 <= per <= most
+        assert tiles == -(-n // (ng * per))
+        # the fewest positions a group that keep the tiles within the cap
+        assert per == most or -(-n // (ng * per)) <= cap
+        assert per == 1 or -(-n // (ng * (per - 1))) > cap
+    assert s.grid == s.tiles + s.vtiles
+    fp = 16 if s.group <= 16 else 32
+    assert s.smem_bytes == 4 * D.smem_floats(direction, k, fp, ng * s.per,
+                                             ng * s.vper)
+    assert s.smem_bytes <= H100["smem_bytes"]
+
+
+def test_launch_rule_on_a_smaller_card_and_forced_routes():
+    """With less shared memory a tile gives way (fewer positions a group)
+    until a block fits, and a card where not even one position a group
+    fits raises rather than launching something else; forced tiles (a
+    measurement's and a check's) take the given positions a group, within
+    1 to MAX_PER."""
+    big = D.launch_shape("bwd", 26752, 7, 7, 64, **H100)
+    small = D.launch_shape("bwd", 26752, 7, 7, 64, smem_bytes=100 * 1024,
+                           sms=132)
+    assert small.per < big.per and small.smem_bytes <= 100 * 1024
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        D.launch_shape("bwd", 26752, 16, 16, 64, smem_bytes=60 * 1024,
+                       sms=132)
+    # the smallest tiles: a group one position, a tile 32 edges
+    tiny = D.launch_shape("fwd", 26752, 7, 7, 8, **H100, per=(1, 1))
+    assert tiny.tag() == "g8 p1 x836"
+    assert D.launch_shape("bwd", 26752, 7, 7, 8, **H100,
+                          per=(4, 2)).tag() == "g8 p4/2 x836"
+    assert D.launch_shape("bwd", 512, 7, 7, 8, **H100,
+                          per=(0, 9)).tag() == f"g8 p1/{D.MAX_PER} x34"
+    # forced tiles give way to shared memory as the rule's do
+    assert D.launch_shape("bwd", 26752, 7, 7, 64, smem_bytes=100 * 1024,
+                          sms=132, per=(8, 8)).smem_bytes <= 100 * 1024
+
+
+def test_node_order_is_each_nodes_destination_then_source_ends():
+    """The backward's node order: for each node its destination ends
+    (edge ids x < E) in edge order, then its source ends (E + edge id) in
+    edge order, with row pointers — the order a node's dh sums its
+    terms in."""
+    rs = np.random.RandomState(5)
+    n, e = 13, 40
+    src = rs.randint(0, n, e).astype(np.int32)
+    dst = rs.randint(0, n, e).astype(np.int32)
+    order, ptr = D.node_order(torch.from_numpy(src), torch.from_numpy(dst),
+                              n)
+    want = [x for v in range(n)
+            for x in [i for i in range(e) if dst[i] == v]
+            + [e + i for i in range(e) if src[i] == v]]
+    assert order.tolist() == want
+    counts = np.bincount(np.concatenate([dst, src]), minlength=n)
+    assert ptr.tolist() == [0, *np.cumsum(counts).tolist()]
