@@ -397,9 +397,8 @@ def phase_build():
     atts_bwd = AS._lib("fused_att_steps_bwd") \
         .mpnn_fused_att_steps_bwd_smem_bytes(3, 16, 3, 7)
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
-           f"fused_step_fwd "
-           f"{K._lib('fused_step_fwd').mpnn_fused_step_fwd_smem_bytes(16, 6)}"
-           f" B, fused_step_bwd {_bwd_smem_line()} (T 6); " + ", ".join(
+           f"fused_step_fwd and fused_eval_stateless {_fwd_smem_line()}, "
+           f"fused_step_bwd {_bwd_smem_line()} (T 6); " + ", ".join(
                f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
                for n in ("fused_psteps_eval", "fused_psteps_fwd",
                          "fused_psteps_bwd"))
@@ -496,6 +495,35 @@ def _bwd_smem_line():
     return ", ".join(out)
 
 
+def _fwd_smem_line():
+    """The forward kernels' node capacity and dynamic shared memory per
+    bucket (K 16, T 6) on this card, each held against both libraries' own
+    layout (kernels/fused_step.py::fwd_smem_floats mirrors csrc's Smem)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out = []
+    most = torch.cuda.get_device_properties(0).multi_processor_count
+    for tag, _ in K.BUCKETS:
+        cap = K.fwd_capacity(tag, 16, 6, smem, most)
+        libs = ((K._lib("fused_step_fwd", tag=tag),
+                 "mpnn_fused_step_fwd_smem_bytes"),
+                (K._lib("fused_eval", tag=tag),
+                 "mpnn_fused_eval_stateless_smem_bytes"))
+        for c, blocks in ((1, 1), (1, 8), (cap, most)):
+            want = 4 * K.fwd_smem_floats(tag, 16, 6, c, K.EDGE_RATIO * c,
+                                         blocks)
+            for lib, fn in libs:
+                got = getattr(lib, fn)(16, 6, c, K.EDGE_RATIO * c, blocks)
+                if got != want:
+                    raise RuntimeError(f"{fn}.{tag}: the library takes {got}"
+                                       f" B at {c} nodes, fwd_smem_floats "
+                                       f"{want}")
+        out.append(f"{tag or 'narrow'} {cap} nodes a block, {want} B "
+                   f"(grid of {most})")
+    return ", ".join(out)
+
+
 @contextlib.contextmanager
 def _bwd_route(route, grid=None):
     """Force fused_step_bwd's route for the launches inside (the rule's
@@ -530,6 +558,54 @@ def _bwd_route(route, grid=None):
         K.device_bwd_shape = keep
 
 
+@contextlib.contextmanager
+def _fwd_route(route, grid=None):
+    """Force the forward kernels' route (fused_step_fwd and the stateless
+    serving kernel: kernels/fused_step.py::fwd_launch_shape) for the
+    launches inside, as _bwd_route forces the backward's: None (the rule's
+    own choice), 'cluster C', 'grid' (`grid` blocks, by default one per
+    FWD_GRID_NODES of the n slots, at least 2, at most 128), 'spilled' (a
+    block per 128 slots, at least 2, with 16-node tiles: blocks keep their
+    graphs in global scratch)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    keep = K.device_fwd_shape
+
+    def forced(n, tag, k, steps, sums, device, kernel="fused_step_fwd"):
+        s = keep(n, tag, k, steps, sums, device, kernel)
+        if route is None:
+            return s
+        if route.startswith("cluster"):
+            s = s._replace(route="cluster", grid=int(route.split()[1]))
+        else:
+            per = 128 if route == "spilled" else K.FWD_GRID_NODES
+            s = s._replace(route="grid",
+                           grid=grid or min(128, max(2, -(-n // per))))
+        smem = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+        cap = (16 if route == "spilled" else
+               min(s.ncap, K.fwd_capacity(tag, k, steps, smem, s.grid)))
+        return s._replace(ncap=cap, ecap=cap * K.EDGE_RATIO,
+                          smem_bytes=4 * K.fwd_smem_floats(
+                              tag, k, steps, cap, cap * K.EDGE_RATIO,
+                              s.grid))
+    K.device_fwd_shape = forced
+    try:
+        yield
+    finally:
+        K.device_fwd_shape = keep
+
+
+def _route_matches(shape, route):
+    """Whether a launch's shape is the forced `route`'s (None: any)."""
+    if route is None:
+        return True
+    if shape.route != {"spilled": "grid"}.get(route, route.split()[0]):
+        return False
+    return (not route.startswith("cluster")
+            or shape.grid == int(route.split()[1]))
+
+
 def _bwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
                       device):
     """fused_step_bwd on each forced route against autograd through the
@@ -560,10 +636,7 @@ def _bwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
         same = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
         _, _, ok_b, err_b = _step_errors(got, want, mn)
         ok = (ok_b and same and counts == (2, 2)
-              and shape.route == {"spilled": "grid"}.get(
-                  route, route.split()[0])
-              and (not route.startswith("cluster")
-                   or shape.grid == int(route.split()[1])))
+              and _route_matches(shape, route))
         worst = max(worst, err_b)
         out.append(f"{shape.tag()} {err_b:.2e}"
                    + ("" if same else " BITS DIFFER")
@@ -572,6 +645,138 @@ def _bwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
             failed.append(f"{what} {route}")
     return (f"{what} {mn}/{sn} f={f} od={od} T={steps} K={k} "
             f"({n} slots): " + ", ".join(out)), worst, failed
+
+
+def _step_float64(sargs, leaves, cw, kw):
+    """_step_and_grads through fused_step_reference in float64 on the same
+    batch (tests/test_torch_gpu.py::float64_step_and_grads)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+
+    def dbl(x):
+        if isinstance(x, dict):
+            return {key: dbl(v) for key, v in x.items()}
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.detach().double()
+        return x
+    a64 = [dbl(a) for a in sargs]
+    amat, a0, mbias, h0, _, _, gru, ma, bn, ro = a64[:10]
+    l64 = [amat, a0, mbias, h0, *gru.values(), *ma.values(), *bn.values(),
+           ro["i"]["w"], ro["i"]["b"], ro["j"]["w"], ro["j"]["b"]]
+    for x in l64:
+        x.requires_grad_()
+    return _step_and_grads(K.fused_step_reference, a64, l64, cw.double(), kw)
+
+
+def _exact_grad_errors(got, want, exact, msg_norm):
+    """Each gradient leaf's distance from the float64 answer, scaled by
+    its max abs, for the kernel and the plain float32 version: (ok: the
+    kernel within ATOL of it or no further than the plain version, worst
+    kernel distance, worst plain distance); message_bias under the
+    message bn1d (zero in theory) left out."""
+    ok, dk_max, dp_max = True, 0.0, 0.0
+    for i, (k, p, x) in enumerate(zip(got[1], want[1], exact[1])):
+        if i == 2 and msg_norm == "bn1d":
+            continue
+        scale = float(x.abs().max()) or 1.0
+        dk = float((k.double() - x).abs().max()) / scale
+        dp = float((p.double() - x).abs().max()) / scale
+        ok = ok and dk <= max(ATOL, dp)
+        dk_max, dp_max = max(dk_max, dk), max(dp_max, dp)
+    return ok, dk_max, dp_max
+
+
+def _fwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
+                      device):
+    """The forward kernels on each forced route (_fwd_route): the training
+    forward's loss, out, stats and stash (htil, padded slots zero) against
+    the plain version's, and with the stateless state norm the serving
+    kernel against fused_eval_reference (rtol 1e-4, atol 1e-5); the
+    backward on each route's stash against a float64 run of the plain
+    version (each leaf within 1e-5 of its max abs, or no further than the
+    plain float32 version, whose batch sums PyTorch runs with atomics:
+    its gradients sat 1.1-1.4e-5 from the kernel's at b1024 bn1d/bn1d);
+    each twice for the same bits, with exact launch counts. Returns
+    (report, worst forward error, worst backward distance from float64,
+    worst serving error, failed)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    sargs, leaves = _shell_step_args(eval_args, gen)
+    (amat, a0, mbias, h0, mask, ng, gru, ma, bn, ro, labels, gmask, vid,
+     src, dst, plan) = sargs
+    n, f = h0.shape
+    k = amat.shape[0]
+    n_real = int(mask.sum())
+    tag = K.width_bucket("", K.BUCKETS, f=f, od=od)
+    cw = torch.randn(labels.shape[0], od, generator=gen).to(device)
+    kw = dict(steps=steps, msg_norm=mn, state_norm=sn)
+    meta = K.StepMeta(steps, K.BATCH_BN if mn == "bn1d" else K.NONE,
+                      K._STATE_MODE[sn])
+    det = lambda d: {key: (det(v) if isinstance(v, dict) else v.detach())
+                     for key, v in d.items()}
+    weights = K._flat_weights(amat.detach(), a0.detach(), mbias.detach(),
+                              det(gru), det(ma), det(bn), det(ro))
+    res_args = (weights, h0.detach(), mask, ng, labels, gmask, vid, src, dst,
+                plan, meta)
+    ref = K._reference_residuals(*res_args)
+    want = _step_and_grads(K.fused_step_reference, sargs, leaves, cw, kw)
+    exact = _step_float64(sargs, leaves, cw, kw)
+    stateless = sn == "stateless"
+    if stateless:
+        with torch.no_grad():
+            served_want = K.fused_eval_reference(*eval_args, **kw)
+    out, failed = [], []
+    worst = {"fwd": 0.0, "bwd": 0.0, "eval": 0.0}
+    for route in routes:
+        K.reset_launch_counts()
+        with _fwd_route(route):
+            got = _step_and_grads(K.fused_step, sargs, leaves, cw, kw)
+            again = _step_and_grads(K.fused_step, sargs, leaves, cw, kw)
+            stash = K.forward_residuals(*res_args)
+            served = served2 = None
+            if stateless:
+                with torch.no_grad():
+                    served = K.fused_eval(*eval_args, **kw)
+                    served2 = K.fused_eval(*eval_args, **kw)
+            torch.cuda.synchronize()
+            shape = K.device_fwd_shape(n, tag, k, steps,
+                                       mn != "none" or sn != "none", device)
+        counts = {key: v for key, v in K.launch_counts.items() if v}
+        want_counts = {"fused_step_fwd": 3, "fused_step_bwd": 2}
+        if stateless:
+            want_counts["fused_eval_stateless"] = 2
+        ok_f, err_f, _, _ = _step_errors(got, want, mn)
+        ok_b, err_b, err_p = _exact_grad_errors(got, want, exact, mn)
+        for a, b in zip(stash, ref):
+            ok, mabs, _ = _within(a, b)
+            ok_f, err_f = ok_f and ok, max(err_f, mabs)
+        pad = float(stash[3][:, n_real:].abs().max()) if n > n_real else 0.0
+        same = (all(torch.equal(a, b) for a, b in zip(got[0], again[0]))
+                and all(torch.equal(a, b) for a, b in zip(got[1], again[1])))
+        err_e, ok_e = 0.0, True
+        if stateless:
+            ok_e, err_e, _ = _within(served, served_want)
+            same = same and torch.equal(served, served2)
+        ok = (ok_f and ok_b and ok_e and same and pad == 0.0
+              and counts == want_counts and _route_matches(shape, route))
+        worst["fwd"] = max(worst["fwd"], err_f)
+        worst["bwd"] = max(worst["bwd"], err_b)
+        worst["eval"] = max(worst["eval"], err_e)
+        out.append(f"{shape.tag()} fwd {err_f:.2e} bwd {err_b:.2e} from "
+                   f"float64 (plain {err_p:.2e})"
+                   + (f" serve {err_e:.2e}" if stateless else "")
+                   + ("" if same else " BITS DIFFER")
+                   + ("" if pad == 0.0 else f" PAD {pad:.1e}")
+                   + ("" if counts == want_counts else f" LAUNCHES {counts}")
+                   + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"{what} {route}")
+    return (f"{what} {mn}/{sn} f={f} od={od} T={steps} K={k} "
+            f"({n_real}/{n} slots): " + ", ".join(out)), worst, failed
+
+
+FWD_ROUTES = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
+              "spilled")
 
 
 CHECK_BATCH = 1024                   # kernel-check's large batch
@@ -616,7 +821,7 @@ def phase_kernel_check(device):
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{failed}")
-    worst_fwd, worst_bwd, results = 0.0, 0.0, []
+    worst_fwd, worst_bwd, worst_sl, results = 0.0, 0.0, 0.0, []
     for tb, mn, sn in cases:
         k = int(tb["edge_vfirst"].shape[0])
         f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
@@ -674,8 +879,42 @@ def phase_kernel_check(device):
           flush=True)
     if failed:
         raise RuntimeError(f"fused_step_bwd disagrees on a route: {failed}")
+    # the forward kernels on every route of their rule: one block, clusters
+    # of 2, 4 and 8, the grid, the grid with tiles too small for the graphs
+    lines = []
+    for what, tb, mn, sn, routes in (
+            ("b1024", flag, "bn1d", "bn1d", FWD_ROUTES),
+            ("b1024", flag, "none", "none", ("cluster 8", "grid")),
+            ("b1024", flag, "bn1d", "stateless", ("cluster 8", "grid",
+                                                  "spilled")),
+            ("b16", b16, "bn1d", "bn1d", FWD_ROUTES),
+            ("b16", b16, "none", "stateless", FWD_ROUTES),
+            ("ragged", ragged, "bn1d", "bn1d", ("cluster 1", "grid",
+                                                "spilled"))):
+        k = int(tb["edge_vfirst"].shape[0])
+        f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
+        w = _random_weights(f, 14, k, gen, device)
+        line, errs, bad = _fwd_route_checks(
+            what, _shell_args(tb, w, True, gen), 14, 6, mn, sn, routes, gen,
+            device)
+        lines.append(line)
+        worst_fwd = max(worst_fwd, errs["fwd"])
+        worst_bwd = max(worst_bwd, errs["bwd"])
+        worst_sl = max(worst_sl, errs["eval"])
+        failed += bad
+    print(f"kernel-check: the forward kernels' routes (fused_step_fwd's "
+          f"loss, out, stats and stash vs the plain version's, "
+          f"fused_eval_stateless vs fused_eval_reference, rtol {RTOL} atol "
+          f"{ATOL}; the backward on that stash vs a float64 run of the "
+          f"plain version, each leaf within {ATOL} of its max abs or no "
+          f"further than the plain float32 version; two runs, the same "
+          f"bits; padded stash slots zero; exact launches): "
+          + "; ".join(lines), flush=True)
+    if failed:
+        raise RuntimeError(f"the forward kernels disagree on a route: "
+                           f"{failed}")
     return {"fused_eval": worst, "fused_step_fwd": worst_fwd,
-            "fused_step_bwd": worst_bwd}
+            "fused_step_bwd": worst_bwd, "fused_eval_stateless": worst_sl}
 
 
 def _step_args(tb, w, gen):
@@ -1265,6 +1504,50 @@ def _bwd_detail(weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid,
     return shape.tag(), floor_ms, phases
 
 
+def _fwd_phases(p, T):
+    """The forward kernels' clock64 stamps (block 0, thread 0; cycles) as
+    phases: the weights, the block's partition and its tile staged, the
+    messages (A0 term and the edges), the message norm's combine, one
+    step's node pass and its combine (mean over the T steps), the
+    readout's gated rows, the per-graph sums, the route's finish (the
+    loss); with a state norm on statistics also step 1's combine in four
+    parts."""
+    steps = [(p[4 + 2 * i] - p[3 + 2 * i], p[5 + 2 * i] - p[4 + 2 * i])
+             for i in range(T)]
+    out = {"staging": p[1] - p[0], "messages": p[2] - p[1],
+           "message combine": p[3] - p[2],
+           "step": sum(a for a, _ in steps) / T,
+           "step combine": sum(b for _, b in steps) / T,
+           "readout rows": p[70] - p[3 + 2 * T],
+           "graph sums": p[71] - p[70], "finish": p[75] - p[71],
+           "total": p[75] - p[0]}
+    if p[79]:
+        # step 1's combine across blocks: the block's partial row, the
+        # wait for every block's, the rows staged, the two sums
+        out.update({"s1 block partial": p[76] - p[4],
+                    "s1 wait": p[77] - p[76], "s1 staged": p[78] - p[77],
+                    "s1 sums": p[79] - p[78]})
+    return out
+
+
+def _fwd_detail(prepare, n, tag, k, steps, sums, device, kernel):
+    """A forward kernel's route on these inputs (`prepare(**kw)` makes its
+    launch), the empty-forward floor (CUDA events over 100 launches of the
+    same grid and combines with no arithmetic) and block 0's clock64
+    phases of one launch."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    pfl = prepare(floor=True)
+    floor_ms = _events_ms(lambda: K.launch_prepared(pfl), 100)
+    prof = torch.zeros(K.FWD_PROF_SLOTS, dtype=torch.int64, device=device)
+    counts = dict(K.launch_counts)
+    K.launch_prepared(prepare(prof=prof))
+    K.launch_counts.update(counts)
+    torch.cuda.synchronize()
+    shape = K.device_fwd_shape(n, tag, k, steps, sums, device, kernel)
+    return shape.tag(), floor_ms, _fwd_phases(prof.tolist(), steps)
+
+
 def phase_train_times(device, card):
     """Train-step latency (host clock ending in a device sync, the loss
     read back) at batch 16 and 1024, and each training kernel's time
@@ -1319,6 +1602,12 @@ def phase_train_times(device, card):
         route, floor_ms, phases = _bwd_detail(
             weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid, src,
             dst, plan, meta, device)
+        f_route, f_floor_ms, f_phases = _fwd_detail(
+            lambda **kw: K.prepare_fused_step_fwd(
+                weights, h0, mask, ng, labels, gmask, vid, src, dst, plan,
+                meta, **kw), h0.shape[0],
+            K.bucket_of("fused_step", None, f=h0.shape[1], od=o.shape[1]),
+            amat.shape[0], meta.steps, True, device, "fused_step_fwd")
         ref_args = (amat, a0, mbias, h0, mask, ng, gru, ma, bnp, ro, labels,
                     gmask, vid, src, dst, plan)
         with torch.no_grad():
@@ -1340,6 +1629,8 @@ def phase_train_times(device, card):
             out[bs][name]["trace_us"] = trace_us[name]
         out[bs]["fused_step_bwd"].update(route=route, floor_ms=floor_ms,
                                          phases=phases)
+        out[bs]["fused_step_fwd"].update(route=f_route, floor_ms=f_floor_ms,
+                                         phases=f_phases)
         for name in ("fused_step_fwd", "fused_step_bwd"):
             bound, by, ops, nbytes = bounds[name]
             out[bs][name].update(bound_ms=bound, bound_by=by)
@@ -1357,6 +1648,9 @@ def phase_train_times(device, card):
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
                 f"{bounds[name][3] / 1e6:.3f} MB)"
                 for name in ("fused_step_fwd", "fused_step_bwd"))
+            + f"; fused_step_fwd route {f_route}, empty-forward floor "
+            f"{f_floor_ms * 1e3:.2f} us (events), block 0's clock64 cycles "
+            + json.dumps({k: round(v) for k, v in f_phases.items()})
             + f"; fused_step_bwd route {route}, empty-walk floor "
             f"{floor_ms * 1e3:.2f} us (events), block 0's clock64 cycles "
             + json.dumps({k: round(v) for k, v in phases.items()}))
@@ -3613,6 +3907,13 @@ def phase_wide(device, card):
     lines.append(f"fused_step_bwd's routes: {line}")
     if bad:
         raise RuntimeError(f"wide: fused_step_bwd disagrees on {bad}")
+    line, _, bad = _fwd_route_checks(
+        "wide lipo b16", _shell_args(tb, _random_weights(
+            f, od, int(tb["edge_vfirst"].shape[0]), gen, device), True,
+            gen), od, 6, "bn1d", "bn1d", FWD_ROUTES, gen, device)
+    lines.append(f"the forward kernels' routes: {line}")
+    if bad:
+        raise RuntimeError(f"wide: the forward kernels disagree on {bad}")
     # past the widest bucket: f 33 raises, naming the widths
     too_wide = zoo.lipo(afm + 3, bfm, nafm)
     net = network_init(too_wide, torch.Generator().manual_seed(5), device)
@@ -6527,6 +6828,38 @@ def phase_basic_kernel_check(device):
         failed += bad
     print(f"basic-kernel-check: fused_step_bwd's routes in every bucket "
           f"(as kernel-check's): " + "; ".join(lines), flush=True)
+    # the forward kernels' routes in every bucket
+    lines = []
+    for name, nafm, od, T, mn, sn, routes in (
+            ("b16", False, 28, 3, "none", "none",
+             ("cluster 1", "cluster 4", "grid", "spilled")),
+            ("b1024", False, 28, 3, "none", "stateless",
+             ("cluster 8", "grid", "spilled")),
+            ("b2560", True, 14, 6, "none", "stateless", ("grid",)),
+            ("wide b16", True, 60, 3, "bn1d", "stateless",
+             ("cluster 1", "cluster 2", "grid", "spilled")),
+            ("wide b16", False, 108, 3, "none", "none",
+             ("cluster 8", "grid")),
+            ("wide b16", False, 108, 3, "bn1d", "stateless",
+             ("cluster 4", "grid", "spilled")),
+            ("wide b1024", False, 108, 3, "none", "stateless",
+             ("grid",))):
+        tb = batches[name]
+        f = tb["node_feats"].shape[1] + (tb["node_nafm"].shape[1]
+                                         if nafm else 0)
+        k = int(tb["edge_vfirst"].shape[0])
+        w = _random_weights(f, od, k, gen, device)
+        line, errs, bad = _fwd_route_checks(
+            name, _shell_args(tb, w, nafm, gen), od, T, mn, sn, routes, gen,
+            device)
+        lines.append(line)
+        worst["fused_step_fwd"] = max(worst["fused_step_fwd"], errs["fwd"])
+        worst["fused_step_bwd"] = max(worst["fused_step_bwd"], errs["bwd"])
+        worst["fused_eval_stateless"] = max(worst["fused_eval_stateless"],
+                                            errs["eval"])
+        failed += bad
+    print(f"basic-kernel-check: the forward kernels' routes in every bucket "
+          f"(as kernel-check's): " + "; ".join(lines), flush=True)
     if failed:
         raise RuntimeError(f"rows 1-3 disagree with their plain versions: "
                            f"{failed}")
@@ -6696,8 +7029,10 @@ def phase_basic_times(device, card):
     the same run), at the basic shell's widths (f 7, od 28, T 3) in the
     o64 bucket and forced into the f32 one (the measurement that keeps
     o64 in BUCKETS), and at afm 27 (f 27, od 108) in the o128 bucket.
-    Returns the stateless serving kernel's numbers at the basic shell's
-    b1024 (its main path's shapes)."""
+    The stateless serving kernel in its own bucket also gets its route,
+    the empty-forward floor, block 0's clock64 phases and the device time
+    of a launch in a trace. Returns the stateless serving kernel's numbers
+    at the basic shell's b1024 (its main path's shapes)."""
     import torch
     from mpnn_tpu_torch.kernels import fused_step as K
     gen = torch.Generator().manual_seed(43)
@@ -6725,7 +7060,8 @@ def phase_basic_times(device, card):
         with torch.no_grad():
             p_eval = _events_ms(lambda: K.fused_eval_reference(*args, **kw),
                                 10)
-        res = {}
+        res, detail = {}, ""
+        own = K.width_bucket("", K.BUCKETS, f=f, od=od)
         for tag in tags:
             with torch.no_grad():
                 pe = K.prepare_fused_eval(*args, **kw, check=False, tag=tag)
@@ -6734,6 +7070,19 @@ def phase_basic_times(device, card):
                                                device)
                 f_ms = _events_ms(lambda: K.launch_prepared(pf), 100)
                 b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
+                if sn == "stateless" and tag == own:
+                    e_trace = _kernel_trace_us_n(20, pe)[0] / 20 / 1e3
+                    route, floor_ms, phases = _fwd_detail(
+                        lambda **kw2: K.prepare_fused_eval(
+                            *args, **kw, check=False, tag=tag, **kw2),
+                        args[3].shape[0], own, k, T, True, device,
+                        "fused_eval")
+                    detail = (
+                        f"; {ev} trace {e_trace * 1e3:.2f} us a launch, "
+                        f"route {route}, empty-forward floor "
+                        f"{floor_ms * 1e3:.2f} us (events), block 0's "
+                        f"clock64 cycles " + json.dumps(
+                            {key: round(v) for key, v in phases.items()}))
             res[tag or "narrow"] = (e_ms, f_ms, b_ms)
         with torch.no_grad():
             pf_ms = _events_ms(lambda: K.fused_step_reference(*ref, **kw),
@@ -6761,10 +7110,12 @@ def phase_basic_times(device, card):
             f"slots) {tags_s}; plain {p_eval * 1e3:.1f} / {pf_ms * 1e3:.1f}"
             f" / {pb_ms * 1e3:.1f} us; bound " + ", ".join(
                 f"{n} {bounds[n][0] * 1e3:.3f} us by {bounds[n][1]}"
-                for n in ("eval", "fused_step_fwd", "fused_step_bwd")))
+                for n in ("eval", "fused_step_fwd", "fused_step_bwd"))
+            + detail)
         if name == "basic b1024" and sn == "stateless":
-            e_ms = res[K.width_bucket("", K.BUCKETS, f=f, od=od)][0]
-            out = dict(ms=e_ms, plain_ms=p_eval, bound_ms=bounds["eval"][0],
+            e_ms = res[own or "narrow"][0]
+            out = dict(ms=e_ms, trace_ms=e_trace, plain_ms=p_eval,
+                       bound_ms=bounds["eval"][0],
                        bound_by=bounds["eval"][1])
     print(f"basic-times [{card}]: CUDA events over back-to-back launches; "
           + "; ".join(lines), flush=True)
@@ -6860,8 +7211,9 @@ def main() -> int:
         "source": "mpnn_tpu_torch/csrc/fused_eval.cu",
         "replaces": "mpnn_tpu/kernels/fused_step.py:374",
         "launches": step_counts["fused_eval_stateless"],
-        "max_abs_err": basic_worst["fused_eval_stateless"],
+        "max_abs_err": worst["fused_eval_stateless"],
         "ms": stateless_times["ms"],
+        "trace_ms": stateless_times["trace_ms"],
         "plain_ms": stateless_times["plain_ms"],
         "bound_ms": stateless_times["bound_ms"],
         "bound_by": stateless_times["bound_by"], "library_ms": None}]

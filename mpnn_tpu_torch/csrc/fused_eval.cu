@@ -39,10 +39,10 @@
 // and a warp cannot serve its graph alone. That mode has a kernel of its
 // own, fused_eval_stateless_kernel: the training forward's body
 // (fused_step_forward.cuh) without the loss, the stats output and the
-// stash — one cooperative launch, node chunks, the statistics from per-
-// chunk partials combined in chunk order after grid.sync(), double-
-// buffered by step parity, no float atomics; T + 2 grid barriers. Its
-// scratch keeps the messages and one state slot, updated in place.
+// stash — a node on a group of lanes, each block owning whole graphs, the
+// per-step statistics from block partials combined in block order (one
+// cluster, or co-resident blocks through per-launch flags), no grid
+// barrier, no float atomics.
 //
 // Bound on an H100 SXM: f32 CUDA-core arithmetic (no tensor-core shape
 // fits f = 10); at the flagship batch of 1024 molecules the work is
@@ -411,13 +411,9 @@ namespace stateless {
 
 using namespace mpnn_step;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFT, 1)
 fused_eval_stateless_kernel(FwdArgs a) {
   step_forward<false>(a);
-}
-
-size_t smem_bytes(int k_vocab, int steps) {
-  return sizeof(float) * fwd_smem_floats(k_vocab, steps);
 }
 
 }  // namespace stateless
@@ -453,28 +449,32 @@ int mpnn_fused_eval(const float* amat, const float* a0, const float* mbias,
 }
 
 // The serving kernel of the stateless state norm: its dynamic shared
-// memory in bytes, its scratch in floats (besides the (2, N, f) state
-// slots), and its cooperative grid (0 on error).
-int mpnn_fused_eval_stateless_smem_bytes(int k_vocab, int steps) {
-  return int(stateless::smem_bytes(k_vocab, steps));
+// memory in bytes at node capacity ncap and edge capacity ecap in a
+// launch of `blocks` blocks, its scratch in floats and its co-resident
+// blocks (0 on error); its routes and flags are the training forward's
+// (fused_step_forward.cuh).
+int mpnn_fused_eval_stateless_smem_bytes(int k_vocab, int steps, int ncap,
+                                         int ecap, int blocks) {
+  return int(mpnn_step::fwd_smem_bytes(k_vocab, steps, ncap, ecap, blocks));
 }
 
-long long mpnn_fused_eval_stateless_scratch_floats(int n_nodes,
-                                                   int n_graphs) {
-  return mpnn_step::fwd_scratch_floats(n_nodes, n_graphs);
+long long mpnn_fused_eval_stateless_scratch_floats(int n_nodes, int n_edges,
+                                                   int n_graphs, int steps,
+                                                   int grid) {
+  return (long long)mpnn_step::Scratch(n_nodes, n_edges, n_graphs, steps,
+                                       grid).total;
 }
 
-int mpnn_fused_eval_stateless_grid(int k_vocab, int steps, int n_nodes,
-                                   int n_graphs) {
-  return mpnn_step::forward_grid(stateless::fused_eval_stateless_kernel,
-                                 stateless::smem_bytes(k_vocab, steps),
-                                 n_nodes, n_graphs);
+int mpnn_fused_eval_stateless_max_grid(int bytes) {
+  return mpnn_step::forward_max_grid(stateless::fused_eval_stateless_kernel,
+                                     bytes);
 }
 
-// Launches the stateless-norm serving kernel on `stream` (one cooperative
-// launch of `grid` blocks) and returns the launch's error code. msg_mode
-// is kNone or kAffine (ma_scale, ma_shift: the folded eval bn1d); htil is
-// (2, N, f) device scratch. Does not synchronize and allocates nothing.
+// Launches the stateless-norm serving kernel on `stream` and returns the
+// launch's error code. msg_mode is kNone or kAffine (ma_scale, ma_shift:
+// the folded eval bn1d). route, grid, counters, ncap, ecap, floor and
+// prof as mpnn_fused_step_fwd's. Does not synchronize and allocates
+// nothing.
 int mpnn_fused_eval_stateless(
     const float* amat, const float* a0, const float* mbias, const float* h0,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -482,20 +482,23 @@ int mpnn_fused_eval_stateless(
     const float* ro_iw, const float* ro_ib, const float* ro_jw,
     const float* ro_jb, const int* vid, const int* src,
     const int* edge_order, const int* dst_ptr, const int* graph_node_ptr,
-    float* out, float* htil, float* scratch, int n_nodes, int n_graphs,
-    int f, int od, int k_vocab, int steps, int msg_mode, int grid,
+    float* out, float* scratch, int* counters, long long* prof, int n_nodes,
+    int n_graphs, int n_edges, int f, int od, int k_vocab, int steps,
+    int msg_mode, int route, int grid, int ncap, int ecap, int floor,
     void* stream) {
   using namespace mpnn_step;
-  if (f > kMaxWidth || od > kMaxOut || steps < 1 || steps > kMaxSteps ||
-      grid < 1 || (msg_mode != kNone && msg_mode != kAffine))
+  if (msg_mode != kNone && msg_mode != kAffine)
     return int(cudaErrorInvalidValue);
   FwdArgs a{{amat, a0, mbias, w_ih, w_hh, b_ih, b_hh, ma_scale, ma_shift,
              nullptr, nullptr, ro_iw, ro_ib, ro_jw, ro_jb},
             h0, nullptr, nullptr, vid, src, edge_order, dst_ptr,
-            graph_node_ptr, nullptr, out, nullptr, htil, scratch,
-            n_nodes, n_graphs, f, od, k_vocab, steps, msg_mode, kStateless};
-  return launch_forward(stateless::fused_eval_stateless_kernel, a,
-                        stateless::smem_bytes(k_vocab, steps), grid, stream);
+            graph_node_ptr, nullptr, out, nullptr, nullptr, scratch,
+            counters, prof, n_nodes, n_graphs, n_edges, f, od, k_vocab, steps,
+            msg_mode, kStateless, route, route == kRouteCluster ? grid : 1,
+            ncap, ecap, floor};
+  if (const int err = check_route(a, grid)) return err;
+  return launch_forward(stateless::fused_eval_stateless_kernel, a, grid,
+                        stream);
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -22,14 +22,17 @@
 // 1e-6) on the same per-step batch statistics, with no affine and no
 // running state (make_fused_step_op's state_norm='stateless').
 //
-// Design: ONE cooperative launch; the body, its phases and barriers
-// (T + 3 for bn1d/bn1d) are in fused_step_forward.cuh, which the serving
+// Design: a node on a group of lanes, its gates and state on chip, each
+// block owning whole graphs; only the per-step batch statistics and the
+// loss cross blocks (one cluster through distributed shared memory, or
+// co-resident blocks through per-launch flags); no grid barrier. The body,
+// its routes and combines are in fused_step_forward.cuh, which the serving
 // kernel of the stateless norm (fused_eval.cu) shares.
 //
 // Bound on an H100 SXM: f32 CUDA-core arithmetic on ~1e8 flop and a few
-// MB of traffic at batch 1024, so in practice the T + 3 grid barriers and
-// the launch dominate; chip_smoke.py recounts the bound from the run's
-// shapes.
+// MB of traffic at batch 1024; in practice the launch, the staging and
+// the per-step combines (a dependent round trip each) dominate;
+// chip_smoke.py recounts the bound from the run's shapes.
 
 #include "fused_step_forward.cuh"
 
@@ -37,41 +40,50 @@ namespace {
 
 using namespace mpnn_step;
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kFT, 1)
 fused_step_fwd_kernel(FwdArgs a) {
   step_forward<true>(a);
-}
-
-size_t smem_bytes(int k_vocab, int steps) {
-  return sizeof(float) * fwd_smem_floats(k_vocab, steps);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Dynamic shared memory of one block, in bytes.
-int mpnn_fused_step_fwd_smem_bytes(int k_vocab, int steps) {
-  return int(smem_bytes(k_vocab, steps));
+// Dynamic shared memory of one block at node capacity ncap and edge
+// capacity ecap in a launch of `blocks` blocks, in bytes
+// (kernels/fused_step.py::fwd_smem_floats mirrors it).
+int mpnn_fused_step_fwd_smem_bytes(int k_vocab, int steps, int ncap,
+                                   int ecap, int blocks) {
+  return int(fwd_smem_bytes(k_vocab, steps, ncap, ecap, blocks));
 }
 
-// Floats of scratch the launch needs (chunk partials, per-graph terms).
-long long mpnn_fused_step_fwd_scratch_floats(int n_nodes, int n_graphs) {
-  return fwd_scratch_floats(n_nodes, n_graphs);
+// Floats of scratch the launch needs (spilled tiles, partial rows, the
+// per-graph loss terms).
+long long mpnn_fused_step_fwd_scratch_floats(int n_nodes, int n_edges,
+                                             int n_graphs, int steps,
+                                             int grid) {
+  return (long long)Scratch(n_nodes, n_edges, n_graphs, steps, grid).total;
 }
 
-// Blocks of the cooperative grid: all co-resident blocks, capped at the
-// work's need (one warp per graph, one thread per node slot). 0 on error.
-int mpnn_fused_step_fwd_grid(int k_vocab, int steps, int n_nodes,
-                             int n_graphs) {
-  return forward_grid(fused_step_fwd_kernel, smem_bytes(k_vocab, steps),
-                      n_nodes, n_graphs);
+// The integer counters of the grid route (one buffer per stream, zeroed
+// once; every launch leaves them zero; the serving kernel takes the same).
+int mpnn_fused_step_fwd_counters() { return kCounters; }
+
+// The co-resident blocks of the grid route at this shared memory, capped
+// at kMaxGrid; 0 on error.
+int mpnn_fused_step_fwd_max_grid(int bytes) {
+  return forward_max_grid(fused_step_fwd_kernel, bytes);
 }
 
 // Launches on `stream` and returns the launch's error code (0 = success).
 // Does not synchronize and allocates nothing. msg_mode in {kNone,
 // kBatchBn}, state_mode in {kNone, kBatchBn, kStateless}
-// (fused_train_common.cuh::Mode).
+// (fused_train_common.cuh::Mode). route 0: one cluster of `grid` blocks
+// (1, 2, 4 or 8); route 1: `grid` co-resident blocks with `counters`
+// (mpnn_fused_step_fwd_counters ints). ncap, ecap: the node and edge
+// capacity of a block's shared memory. floor != 0 launches the empty
+// forward (the same grid and combines; loss, stats 0). prof: null or
+// kProfSlots int64 clock64 stamps of block 0.
 int mpnn_fused_step_fwd(
     const float* amat, const float* a0, const float* mbias, const float* h0,
     const float* w_ih, const float* w_hh, const float* b_ih,
@@ -81,20 +93,22 @@ int mpnn_fused_step_fwd(
     const float* labels, const float* gmask, const int* vid, const int* src,
     const int* edge_order, const int* dst_ptr, const int* graph_node_ptr,
     float* loss, float* out, float* stats, float* htil, float* scratch,
-    int n_nodes, int n_graphs, int f, int od, int k_vocab, int steps,
-    int msg_mode, int state_mode, int grid, void* stream) {
-  if (f > FP || od > ODP || steps < 1 || steps > kMaxSteps || grid < 1 ||
-      (msg_mode != kNone && msg_mode != kBatchBn) ||
+    int* counters, long long* prof, int n_nodes, int n_graphs, int n_edges,
+    int f, int od, int k_vocab, int steps, int msg_mode, int state_mode,
+    int route, int grid, int ncap, int ecap, int floor, void* stream) {
+  if ((msg_mode != kNone && msg_mode != kBatchBn) ||
       (state_mode != kNone && state_mode != kBatchBn &&
        state_mode != kStateless))
     return int(cudaErrorInvalidValue);
   FwdArgs a{{amat, a0, mbias, w_ih, w_hh, b_ih, b_hh, ma_w, ma_b, bn_w,
              bn_b, ro_iw, ro_ib, ro_jw, ro_jb},
             h0, labels, gmask, vid, src, edge_order, dst_ptr,
-            graph_node_ptr, loss, out, stats, htil, scratch,
-            n_nodes, n_graphs, f, od, k_vocab, steps, msg_mode, state_mode};
-  return launch_forward(fused_step_fwd_kernel, a,
-                        smem_bytes(k_vocab, steps), grid, stream);
+            graph_node_ptr, loss, out, stats, htil, scratch, counters, prof,
+            n_nodes, n_graphs, n_edges, f, od, k_vocab, steps, msg_mode,
+            state_mode, route, route == kRouteCluster ? grid : 1, ncap, ecap,
+            floor};
+  if (const int err = check_route(a, grid)) return err;
+  return launch_forward(fused_step_fwd_kernel, a, grid, stream);
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -1,20 +1,20 @@
-// Shared pieces of the two whole-step TRAINING kernels (fused_step_fwd.cu,
-// fused_step_bwd.cu): the weight layout in shared memory, the batch-wide
-// masked-BN statistics and the fixed-order reductions. The backward takes
-// the weight layout and the norm constants from here and maps its work
-// itself (fused_step_bwd.cu); the rest describes the forward kernels.
-//
-// The forward is a single cooperative launch. Work is mapped two ways:
+// Shared pieces of the whole-step kernels: the weight layout in shared
+// memory, the masked-BN norm modes and constants, and the fixed-order
+// reductions. The shared family's forward and backward
+// (fused_step_forward.cuh, fused_step_bwd.cu) take the weight layout and
+// the norm constants from here and map their work themselves (a node on
+// a group of lanes); the per-step, attention-step and recurrence families
+// also map node phases as here:
 //   * graph phases (messages, readout, the message backward): ONE WARP per
 //     graph, lanes over its nodes, per-graph sums as xor butterflies;
 //   * node phases (the T recurrent steps and their reverse): node CHUNKS of
 //     kChunk consecutive node slots, one thread per node; chunk c is
 //     handled by block c mod gridDim.x in every phase, so a thread meets
 //     the same nodes at every step and reads back what it wrote itself.
-// Batch-wide statistics are combined from per-CHUNK partials, in chunk
-// order, after a grid-wide barrier: every block computes the same totals
-// with the same arithmetic, so results do not depend on scheduling or on
-// the grid size. No float atomics anywhere.
+// Their batch-wide statistics are combined from per-CHUNK partials, in
+// chunk order, after a grid-wide barrier: every block computes the same
+// totals with the same arithmetic, so results do not depend on scheduling
+// or on the grid size. No float atomics anywhere.
 
 #pragma once
 

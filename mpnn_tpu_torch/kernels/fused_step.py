@@ -8,13 +8,14 @@ kernels.
     leakage + message bias, the folded message norm, T × [GRU → folded
     state norm], and the gated readout, in one launch. The stateless state
     norm normalizes by the batch's own statistics after every step, so
-    that mode launches a cooperative kernel of its own
-    (`fused_eval_stateless`, the training forward's body without the loss).
+    that mode launches a kernel of its own (`fused_eval_stateless`, the
+    training forward's body without the loss, on its routes).
   * fused_step — counterpart of make_fused_step_op (Pallas `_fwd_kernel`
     and its two backwards): the same chain with the masked bn1d norms in
     training mode (batch statistics over all real nodes, per step) and the
     masked-MSE loss, as a torch.autograd.Function whose forward is one
-    cooperative CUDA launch (csrc/fused_step_fwd.cu) and whose backward
+    CUDA launch (csrc/fused_step_fwd.cu, on the route of fwd_launch_shape)
+    and whose backward
     takes the JAX package's route for the batch (kernels/split_bwd.py):
     the whole backward in one launch (`_full_bwd_kernel` →
     csrc/fused_step_bwd.cu), or past its node count, with bn1d norms, the
@@ -223,17 +224,18 @@ _SIGNATURES = {
     "fused_eval": {
         "mpnn_fused_eval": ([_P] * 22 + [_I] * 5 + [_P], _I),
         "mpnn_fused_eval_smem_bytes": ([_I], _I),
-        "mpnn_fused_eval_stateless": ([_P] * 22 + [_I] * 8 + [_P], _I),
-        "mpnn_fused_eval_stateless_smem_bytes": ([_I, _I], _I),
-        "mpnn_fused_eval_stateless_scratch_floats": ([_I, _I],
+        "mpnn_fused_eval_stateless": ([_P] * 23 + [_I] * 13 + [_P], _I),
+        "mpnn_fused_eval_stateless_smem_bytes": ([_I] * 5, _I),
+        "mpnn_fused_eval_stateless_scratch_floats": ([_I] * 5,
                                                      ctypes.c_longlong),
-        "mpnn_fused_eval_stateless_grid": ([_I] * 4, _I),
+        "mpnn_fused_eval_stateless_max_grid": ([_I], _I),
     },
     "fused_step_fwd": {
-        "mpnn_fused_step_fwd": ([_P] * 28 + [_I] * 9 + [_P], _I),
-        "mpnn_fused_step_fwd_smem_bytes": ([_I, _I], _I),
-        "mpnn_fused_step_fwd_scratch_floats": ([_I, _I], ctypes.c_longlong),
-        "mpnn_fused_step_fwd_grid": ([_I] * 4, _I),
+        "mpnn_fused_step_fwd": ([_P] * 30 + [_I] * 14 + [_P], _I),
+        "mpnn_fused_step_fwd_smem_bytes": ([_I] * 5, _I),
+        "mpnn_fused_step_fwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+        "mpnn_fused_step_fwd_counters": ([], _I),
+        "mpnn_fused_step_fwd_max_grid": ([_I], _I),
     },
     "fused_step_bwd": {
         "mpnn_fused_step_bwd": ([_P] * 36 + [_I] * 14 + [_P], _I),
@@ -469,14 +471,16 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                        ma_state, bn, bn_state, ro, vid, src, dst,
                        plan: FusedEvalPlan, *, steps: int,
                        msg_norm: str = "bn1d", state_norm: str = "bn1d",
-                       check: bool = True, tag: Optional[str] = None
-                       ) -> PreparedLaunch:
+                       check: bool = True, tag: Optional[str] = None,
+                       prof=None, floor: bool = False) -> PreparedLaunch:
     """Checks (device, dtype, shape, contiguity and, with `check`, the
     batch layout), folds the norms and allocates the output of one CUDA
     launch: the warp-per-graph kernel, or for the stateless state norm the
-    cooperative one. check=False only to time the bare launch on inputs
-    already checked; `tag` forces a width bucket that holds the batch (to
-    time one bucket against another)."""
+    training forward's body (on its route, fwd_launch_shape). check=False
+    only to time the bare launch on inputs already checked; `tag` forces a
+    width bucket that holds the batch (to time one bucket against
+    another). The stateless kernel also takes a measurement's `prof` and
+    `floor`, as prepare_fused_step_fwd does."""
     _check_modes("fused_eval", msg_norm, state_norm)
     device = h0.device
     if device.type != "cuda":
@@ -512,6 +516,7 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
     if check:
         check_batch_layout(h0, mask, node_graph, vid, src, dst, plan,
                            k_vocab, num_graphs)
+    _check_prof(prof, FWD_PROF_SLOTS)
 
     out = torch.empty(num_graphs, od, dtype=torch.float32, device=device)
     amat_k, riw, rjw = step_tables(amat, ro["i"]["w"], ro["j"]["w"], tag)
@@ -519,21 +524,26 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
               out]
     stream = torch.cuda.current_stream(device).cuda_stream
     if state_norm == "stateless":
-        grid = _grid(lib, "mpnn_fused_eval_stateless_grid", k_vocab, steps,
-                     n, num_graphs)
-        htil = torch.empty(2, n, f, dtype=torch.float32, device=device)
+        shape = device_fwd_shape(n, tag, k_vocab, steps, True, device,
+                                 "fused_eval")
         scratch = torch.empty(
-            lib.mpnn_fused_eval_stateless_scratch_floats(n, num_graphs),
+            lib.mpnn_fused_eval_stateless_scratch_floats(
+                n, e, num_graphs, steps, shape.grid),
             dtype=torch.float32, device=device)
+        counters = _fwd_counters(shape, device, stream)
         tensors = [amat_k] + [t for _, t, _ in floats[1:10]] + [
-            riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t + [htil, scratch]
-        args = (*(t.data_ptr() for t in tensors), n, num_graphs, f, od,
-                k_vocab, steps, AFFINE if msg_norm == "bn1d" else NONE,
-                grid, stream)
-        return PreparedLaunch("fused_eval_stateless",
+            riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t + [scratch]
+        args = (*(t.data_ptr() for t in tensors), _ptr(counters),
+                _ptr(prof), n, num_graphs, e, f, od, k_vocab, steps,
+                AFFINE if msg_norm == "bn1d" else NONE,
+                int(shape.route == "grid"), shape.grid, shape.ncap,
+                shape.ecap, int(floor), stream)
+        return PreparedLaunch("fused_eval_stateless_floor" if floor
+                              else "fused_eval_stateless",
                               lib.mpnn_fused_eval_stateless,
                               lib.mpnn_cuda_error_string, args, out,
-                              tuple(tensors))
+                              tuple(tensors) + (counters, prof),
+                              floor_counts if floor else launch_counts)
     tensors = [amat_k] + [t for _, t, _ in floats[1:12]] + [
         riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t
     args = (*(t.data_ptr() for t in tensors), num_graphs, f, od, k_vocab,
@@ -638,34 +648,230 @@ def _check_step_inputs(weights, h0, mask, node_graph, labels, gmask, vid,
 
 def prepare_fused_step_fwd(weights, h0, mask, node_graph, labels, gmask,
                            vid, src, dst, plan: FusedEvalPlan,
-                           meta: StepMeta, tag: Optional[str] = None
-                           ) -> PreparedLaunch:
-    """One checked forward launch: its arguments and outputs (loss (1,),
-    out (G, od), stats (T+1, 2, f), htil (T+1, N, f)). `weights` is the
-    (name, tensor) list of _flat_weights; `tag` as prepare_fused_eval's."""
+                           meta: StepMeta, tag: Optional[str] = None,
+                           prof=None, floor: bool = False) -> PreparedLaunch:
+    """One checked forward launch on its route (fwd_launch_shape): its
+    arguments and outputs (loss (1,), out (G, od), stats (T+1, 2, f), htil
+    (T+1, N, f)). `weights` is the (name, tensor) list of _flat_weights;
+    `tag` as prepare_fused_eval's. A measurement may take block 0's
+    clock64 stamps (`prof`, int64 with FWD_PROF_SLOTS slots) or launch the
+    empty forward (`floor`: the route's grid and combines, no arithmetic;
+    counted as its own key)."""
     n, f, od, k_vocab, e, g = _check_step_inputs(
         weights, h0, mask, node_graph, labels, gmask, vid, src, dst, plan)
     tag = bucket_of("fused_step", tag, f=f, od=od)
     check_batch_layout(h0, mask, node_graph, vid, src, dst, plan, k_vocab, g,
                        who="fused_step")
+    _check_prof(prof, FWD_PROF_SLOTS)
     lib = _lib("fused_step_fwd", tag=tag)
     device, T = h0.device, meta.steps
-    grid = _grid(lib, "mpnn_fused_step_fwd_grid", k_vocab, T, n, g)
+    sums = meta.msg_mode != NONE or meta.state_mode != NONE
+    shape = device_fwd_shape(n, tag, k_vocab, T, sums, device)
+    stream = torch.cuda.current_stream(device).cuda_stream
     kw = dict(dtype=torch.float32, device=device)
     loss = torch.empty(1, **kw)
     out = torch.empty(g, od, **kw)
     stats = torch.empty(T + 1, 2, f, **kw)
     htil = torch.empty(T + 1, n, f, **kw)
-    scratch = torch.empty(lib.mpnn_fused_step_fwd_scratch_floats(n, g), **kw)
+    scratch = torch.empty(lib.mpnn_fused_step_fwd_scratch_floats(
+        n, e, g, T, shape.grid), **kw)
+    counters = _fwd_counters(shape, device, stream)
     tensors = _kernel_weights(weights, h0, tag) + [
         labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
         plan.graph_node_ptr, loss, out, stats, htil, scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
-            meta.msg_mode, meta.state_mode, grid,
-            torch.cuda.current_stream(device).cuda_stream)
-    return PreparedLaunch("fused_step_fwd", lib.mpnn_fused_step_fwd,
+    args = (*(t.data_ptr() for t in tensors), _ptr(counters),
+            _ptr(prof), n, g, e, f, od, k_vocab, T, meta.msg_mode,
+            meta.state_mode, int(shape.route == "grid"), shape.grid,
+            shape.ncap, shape.ecap, int(floor), stream)
+    return PreparedLaunch("fused_step_fwd_floor" if floor
+                          else "fused_step_fwd", lib.mpnn_fused_step_fwd,
                           lib.mpnn_cuda_error_string, args,
-                          (loss, out, stats, htil), tuple(tensors))
+                          (loss, out, stats, htil),
+                          tuple(tensors) + (counters, prof),
+                          floor_counts if floor else launch_counts)
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _check_prof(prof, slots: int) -> None:
+    if prof is not None and (prof.dtype != torch.int64
+                             or prof.numel() < slots):
+        raise ValueError(f"prof: int64 with {slots} slots expected")
+
+
+# ---------------------------------------------------------------------------
+# the forward's routes (csrc/fused_step_forward.cuh: the training forward
+# and the stateless serving kernel)
+# ---------------------------------------------------------------------------
+
+FWD_THREADS = 256          # kFT
+FWD_MAX_GRID = 512         # kMaxGrid: the flag rows of the grid route
+FWD_PROF_SLOTS = 80        # kProfSlots: block 0's clock64 stamps
+FWD_MAX_NCAP = 2048        # the most node slots a block's tile is given
+# Node slots a block takes. With a norm on batch statistics (its sums
+# cross blocks in every slot) up to FWD_CLUSTER_SLOTS slots one cluster of
+# the fewest blocks (1, 2, 4, 8) whose share is at most FWD_CLUSTER_NODES
+# (8 past them); past them a grid of a block per FWD_STAT_NODES slots,
+# but no more than max(FWD_STAT_BLOCKS, ceil(sqrt(n))) blocks (each
+# slot's combine reads every block's row, so its cost grows with the
+# blocks while a block's nodes shrink); without one, at any size, a block
+# per FWD_GRID_NODES slots; all up to the co-resident blocks. From
+# scripts/time_fused_step.py --fwd --sweep on an H100 (PERF.md, row 2;
+# events): lipo bn1d/bn1d's cluster of 8 beat or tied every grid
+# up to 512 slots (b16 44.5 us against 46.1 at 11 blocks; b32 46.8
+# against 45.6-45.8 at 22-32) and lost past it (b40 54.9 against 46.6 at
+# 26); the best grids took 27 (640 slots), 38 (896), 70 (1,664 and
+# 3,328), 82-132 (6,656) and 103 blocks (13,184; 115 and 132 within 4%);
+# without a norm on statistics (basic none/none) 16 blocks at 256 slots
+# and 132 at 13,184.
+FWD_CLUSTER_NODES = 32
+FWD_CLUSTER_SLOTS = 512
+FWD_STAT_NODES = 24
+FWD_STAT_BLOCKS = 70
+FWD_GRID_NODES = 16
+
+
+def fwd_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int,
+                    ecap: int, blocks: int) -> int:
+    """Floats of one forward block's shared memory in a launch of `blocks`
+    blocks (csrc/fused_step_forward.cuh::Smem after fused_train_common.cuh::
+    L): the staged weights and norm constants, each slot's partial row,
+    the reduction scratch, every block's partial row of the slot being
+    combined, the block's edge tables (ncap nodes, ecap edges) and the
+    node tile."""
+    fp, odp = _bucket_widths(tag)
+    al4 = lambda v: (v + 3) & ~3
+    ro = 2 * fp * odp if odp <= 64 else 0           # kRoInSmem
+    vocab = k_vocab * fp * fp if fp <= 16 else 0    # kVocabInSmem
+    weights = 7 * fp * fp + 11 * fp + 2 * ro + 2 * odp + vocab
+    n = al4(weights + 3 * fp * (steps + 1))
+    # a block's partial row of each slot (kRow), every block's row staged
+    # for the combine (kStaged)
+    n += al4((steps + 1) * (3 * fp + 4)) + 2 * FWD_THREADS
+    n += max(blocks, 1) * (2 * fp + 4)
+    n += al4(ncap + 1 + 2 * ecap) + ncap * 5 * fp
+    return n
+
+
+class FwdShape(NamedTuple):
+    """A forward launch: the route ('cluster': one thread-block cluster of
+    `grid` blocks; 'grid': `grid` co-resident blocks), the node and edge
+    slots of a block's shared-memory tile, its dynamic shared memory
+    (bytes)."""
+    route: str
+    grid: int
+    ncap: int
+    ecap: int
+    smem_bytes: int
+
+    def tag(self) -> str:
+        return f"{self.route} x{self.grid} cap {self.ncap}"
+
+
+def fwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int,
+                 blocks: int) -> int:
+    """The most node slots (at most FWD_MAX_NCAP, EDGE_RATIO edges each)
+    whose tile fits `smem_bytes` of a forward block in a launch of up to
+    `blocks` blocks; 0 when none does."""
+    fits = lambda c: 4 * fwd_smem_floats(tag, k_vocab, steps, c,
+                                         EDGE_RATIO * c, blocks) <= smem_bytes
+    lo, hi = 0, FWD_MAX_NCAP
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
+
+
+def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                     sums: bool, smem_bytes: int, max_grid: int) -> FwdShape:
+    """The forward's route for a batch of `n` node slots, from shapes and
+    norms alone: with `sums` (a norm on batch statistics, whose sums cross
+    blocks in every slot) up to FWD_CLUSTER_SLOTS slots one cluster of the
+    fewest blocks (1, 2, 4) that take at most FWD_CLUSTER_NODES slots
+    each, else 8; past them the grid route with a block per
+    FWD_STAT_NODES slots, at most max(FWD_STAT_BLOCKS, ceil(sqrt(n)))
+    blocks, and without sums at any size a block per FWD_GRID_NODES
+    slots; each at most
+    `max_grid` (the card's co-resident blocks); neither share past 3/4 of
+    a block's tile with room for the partial rows of the most blocks the
+    card holds (fwd_capacity); the launch's tile then fills what its own
+    block count leaves. A block whose graphs still outgrow its tile keeps
+    them in global scratch, on the same route. NotImplementedError when
+    not one node fits."""
+    most = max(MAX_CLUSTER, min(max_grid, FWD_MAX_GRID))
+    cap = fwd_capacity(tag, k_vocab, steps, smem_bytes, most)
+    if cap < 1:
+        raise NotImplementedError(
+            f"fused_step_fwd: one node at vocab {k_vocab}, T {steps} needs "
+            f"{4 * fwd_smem_floats(tag, k_vocab, steps, 1, EDGE_RATIO, most)}"
+            f" bytes of shared memory; the card has {smem_bytes}")
+
+    def shape(route, g):
+        c = fwd_capacity(tag, k_vocab, steps, smem_bytes, g)
+        return FwdShape(route, g, c, EDGE_RATIO * c, 4 * fwd_smem_floats(
+            tag, k_vocab, steps, c, EDGE_RATIO * c, g))
+    fill = max(1, 3 * cap // 4)
+    if sums and n <= FWD_CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
+        return shape("cluster", next(
+            (c for c in (1, 2, 4)
+             if -(-n // c) <= min(FWD_CLUSTER_NODES, fill)), MAX_CLUSTER))
+    want = (min(-(-n // FWD_STAT_NODES),
+                max(FWD_STAT_BLOCKS, math.isqrt(n - 1) + 1)) if sums
+            else -(-n // FWD_GRID_NODES))
+    return shape("grid", max(1, min(max_grid, FWD_MAX_GRID,
+                                    max(want, -(-n // fill)))))
+
+
+_FWD_SHAPES: Dict[tuple, FwdShape] = {}
+# the C function of each forward kernel's co-resident blocks
+_FWD_MAX_GRID = {"fused_step_fwd": "mpnn_fused_step_fwd_max_grid",
+                 "fused_eval": "mpnn_fused_eval_stateless_max_grid"}
+
+
+def device_fwd_shape(n: int, tag: str, k_vocab: int, steps: int, sums: bool,
+                     device, kernel: str = "fused_step_fwd") -> FwdShape:
+    """fwd_launch_shape on `device`'s shared memory and the co-resident
+    blocks of `kernel`'s library ('fused_step_fwd', or 'fused_eval' for
+    the stateless serving kernel)."""
+    key = (n, tag, k_vocab, steps, sums, str(device), kernel)
+    if key not in _FWD_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        # the co-resident blocks of a block that fills the card's shared
+        # memory, as the rule's tile does
+        sms = props.multi_processor_count
+        cap = max(fwd_capacity(tag, k_vocab, steps, smem, sms), 1)
+        lib = _lib(kernel, tag=tag)
+        most = getattr(lib, _FWD_MAX_GRID[kernel])(4 * fwd_smem_floats(
+            tag, k_vocab, steps, cap, EDGE_RATIO * cap, sms))
+        if most < 1:
+            raise RuntimeError(f"{kernel}: no block fits this card")
+        _FWD_SHAPES[key] = fwd_launch_shape(n, tag, k_vocab, steps,
+                                            sums=sums, smem_bytes=smem,
+                                            max_grid=most)
+    return _FWD_SHAPES[key]
+
+
+# The forward kernels' counters on the grid route (each slot's arrivals,
+# the launch's; the training forward and the stateless serving kernel
+# share them, apart from the backward's), one buffer per device and
+# stream, zeroed once: every launch leaves them zero.
+_FWD_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _fwd_counters(shape: FwdShape, device, stream: int):
+    """The counters of a forward launch: the grid route past one block
+    takes them; None otherwise."""
+    if shape.route != "grid" or shape.grid < 2:
+        return None
+    key = (str(device), stream)
+    if key not in _FWD_COUNTERS:
+        _FWD_COUNTERS[key] = torch.zeros(
+            _lib("fused_step_fwd").mpnn_fused_step_fwd_counters(),
+            dtype=torch.int32, device=device)
+    return _FWD_COUNTERS[key]
 
 
 # ---------------------------------------------------------------------------
@@ -844,9 +1050,7 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                             ("gl", gl, (1,)), ("htil", htil, (T + 1, n, f)),
                             ("stats", stats, (T + 1, 2, f))]:
         _check(name, t, shape_, device, torch.float32)
-    if prof is not None and (prof.dtype != torch.int64
-                             or prof.numel() < PROF_SLOTS):
-        raise ValueError(f"prof: int64 with {PROF_SLOTS} slots expected")
+    _check_prof(prof, PROF_SLOTS)
     tag = bucket_of("fused_step", tag, f=f, od=od)
     lib = _lib("fused_step_bwd", tag=tag)
     layout = grad_layout(k_vocab, f, od)
@@ -883,8 +1087,10 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
                           floor_counts if floor else launch_counts)
 
 
-# the empty walk's launches (a measurement's yardstick, not the path's)
-floor_counts: Dict[str, int] = {"fused_step_bwd_floor": 0}
+# the empty kernels' launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"fused_step_fwd_floor": 0,
+                                "fused_eval_stateless_floor": 0,
+                                "fused_step_bwd_floor": 0}
 
 
 def split_grads(dw: torch.Tensor, k_vocab: int, f: int, od: int):

@@ -70,39 +70,85 @@ ROUTES = {None: None, "one": "cluster 1", "cluster": "cluster 8",
           "grid": "grid", "spilled": "spilled"}
 
 
+def _stash(sargs, steps, msg_norm, state_norm):
+    """The training forward's outputs through the wrapper (forward_
+    residuals): (loss, out, stats, htil)."""
+    (amat, a0, mbias, h0, mask, ng, gru, ma, bn, ro, labels, gmask, vid,
+     src, dst, plan) = sargs
+    det = lambda d: {k: (det(v) if isinstance(v, dict) else v.detach())
+                     for k, v in d.items()}
+    weights = K._flat_weights(amat.detach(), a0.detach(), mbias.detach(),
+                              det(gru), det(ma), det(bn), det(ro))
+    meta = K.StepMeta(steps, K.BATCH_BN if msg_norm == "bn1d" else K.NONE,
+                      K._STATE_MODE[state_norm])
+    return K.forward_residuals(weights, h0.detach(), mask, ng, labels, gmask,
+                               vid, src, dst, plan, meta)
+
+
 def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
-                     steps=3, route=None):
+                     steps=3, route=None, fwd=None, big=0):
+    """Rows 1-3 through the public ops against their plain versions; the
+    backward on `route` (ROUTES), the forward kernels on `fwd` (a route of
+    chip_smoke.py::_fwd_route, None the rule's): the serving output, loss,
+    out, every slot's statistics, the stash (padded slots zero) and the
+    gradients, and the same bits again from a second forward."""
     rng = np.random.RandomState(seed)
-    args = T._problem(rng, g=g, f=f, od=od, k=k, device="cpu")
+    args = T._problem(rng, g=g, f=f, od=od, k=k, device="cpu", big=big)
     kw = dict(steps=steps, msg_norm=msg_norm, state_norm=state_norm)
     K.reset_launch_counts()
-    got = K.fused_eval(*args, **kw)
+    with CS._fwd_route(fwd):
+        got = K.fused_eval(*args, **kw)
+        got2 = K.fused_eval(*args, **kw)
     want = K.fused_eval_reference(*args, **kw)
-    sargs, leaves = T._step_problem(rng, g, f=f, od=od, k=k, device="cpu")
+    sargs, leaves = T._step_problem(rng, g, f=f, od=od, k=k, device="cpu",
+                                    big=big)
     cw = torch.as_tensor(rng.randn(g, od).astype(np.float32))
     tag = K.width_bucket('', K.BUCKETS, f=f, od=od)
-    with CS._bwd_route(ROUTES[route]):
+    n = sargs[3].shape[0]
+    with CS._bwd_route(ROUTES[route]), CS._fwd_route(fwd):
         sgot = T.step_and_grads(K.fused_step, sargs, leaves, cw, **kw)
-        shape = K.device_bwd_shape(sargs[3].shape[0], tag, k, steps,
-                                   state_norm != "none", "cpu")
+        shape = K.device_bwd_shape(n, tag, k, steps, state_norm != "none",
+                                   "cpu")
+        fshape = K.device_fwd_shape(
+            n, tag, k, steps, msg_norm != "none" or state_norm != "none",
+            "cpu")
+        stash = _stash(sargs, steps, msg_norm, state_norm)
+        stash2 = _stash(sargs, steps, msg_norm, state_norm)
     swant = T.step_and_grads(K.fused_step_reference, sargs, leaves, cw, **kw)
+    ref = K._reference_residuals(
+        list(zip(K._GRAD_LEAVES, [x.detach() for x in (
+            leaves["amat"], leaves["a0"], leaves["mbias"], leaves["w_ih"],
+            leaves["w_hh"], leaves["b_ih"], leaves["b_hh"], leaves["ma_w"],
+            leaves["ma_b"], leaves["bn_w"], leaves["bn_b"], leaves["ro_iw"],
+            leaves["ro_ib"], leaves["ro_jw"], leaves["ro_jb"])])),
+        sargs[3].detach(), *sargs[4:6], *sargs[10:16],
+        K.StepMeta(steps, K.BATCH_BN if msg_norm == "bn1d" else K.NONE,
+                   K._STATE_MODE[state_norm]))
     stateless = state_norm == "stateless"
-    assert K.launch_counts == {"fused_eval": int(not stateless),
-                               "fused_eval_stateless": int(stateless),
-                               "fused_step_fwd": 1,
+    assert K.launch_counts == {"fused_eval": 2 * int(not stateless),
+                               "fused_eval_stateless": 2 * int(stateless),
+                               "fused_step_fwd": 3,
                                "fused_step_bwd": 1}, K.launch_counts
+    assert CS._route_matches(fshape, fwd), fshape.tag()
     stats = max(_err(a, b) for a, b in zip(
         [*sgot[2], *(x for s in sgot[3] for x in s)],
         [*swant[2], *(x for s in swant[3] for x in s)]))
     grads = {n: v for n, v in sgot[4].items()
              if not (n == "mbias" and msg_norm == "bn1d")}
+    n_real = int(sargs[4].sum())
+    same = (torch.equal(got, got2)
+            and all(torch.equal(a, b) for a, b in zip(stash, stash2)))
+    errs = {"eval": _err(got, want), "loss": _err(sgot[0], swant[0]),
+            "out": _err(sgot[1], swant[1]), "stats": stats,
+            "htil": _err(stash[3], ref[3]),
+            "pad": float(stash[3][:, n_real:].abs().max())
+            if n > n_real else 0.0,
+            "grads": _scaled(grads, swant[4]),
+            "bits": 0.0 if same else 1.0}
     return _report(
         f"fused_step g={g} f={f} od={od} K={k} T={steps} "
         f"{msg_norm}/{state_norm} bucket {tag or 'narrow'} "
-        f"bwd {shape.tag()}",
-        {"eval": _err(got, want), "loss": _err(sgot[0], swant[0]),
-         "out": _err(sgot[1], swant[1]), "stats": stats,
-         "grads": _scaled(grads, swant[4])})
+        f"fwd {fshape.tag()} bwd {shape.tag()}", errs)
 
 
 def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3):
@@ -199,6 +245,33 @@ def check_set2vec(seed, g, w, steps, batch_softmax):
 
 CASES = {
     "fused_step": lambda: [
+        # the forward kernels on every route: one block, clusters of 2, 4
+        # and 8, the grid, the grid with 16-node tiles (spilled); a graph
+        # past a block's tile; T 1 and 32
+        check_fused_step(20, 9, 10, 14, 6, fwd="cluster 1"),
+        check_fused_step(21, 9, 10, 14, 6, "bn1d", "stateless",
+                         fwd="cluster 2"),
+        check_fused_step(22, 9, 10, 14, 6, "none", "stateless",
+                         fwd="cluster 4"),
+        check_fused_step(23, 9, 10, 14, 6, fwd="cluster 8"),
+        check_fused_step(24, 9, 10, 14, 6, "none", "none", fwd="cluster 8"),
+        check_fused_step(25, 9, 10, 14, 6, fwd="grid"),
+        check_fused_step(26, 9, 10, 14, 6, "none", "stateless", fwd="grid"),
+        check_fused_step(27, 9, 10, 14, 6, "none", "none", fwd="grid"),
+        check_fused_step(28, 9, 10, 14, 6, "bn1d", "none", fwd="spilled"),
+        check_fused_step(29, 9, 10, 14, 6, "bn1d", "stateless",
+                         fwd="spilled"),
+        check_fused_step(30, 4, 10, 14, 6, big=40, fwd="cluster 2"),
+        check_fused_step(31, 4, 10, 14, 6, "none", "stateless", big=40,
+                         fwd="grid"),
+        check_fused_step(32, 5, 10, 14, 6, steps=1, fwd="grid"),
+        check_fused_step(33, 5, 10, 14, 6, "bn1d", "stateless", steps=32,
+                         fwd="cluster 4"),
+        check_fused_step(34, 7, 27, 108, 5, "bn1d", "stateless",
+                         fwd="cluster 2"),
+        check_fused_step(35, 7, 23, 60, 5, "bn1d", "bn1d", fwd="grid"),
+        check_fused_step(36, 7, 7, 28, 5, "none", "stateless",
+                         fwd="spilled"),
         check_fused_step(0, 9, 10, 14, 6),
         check_fused_step(0, 9, 10, 14, 6, route="one"),
         check_fused_step(0, 9, 10, 14, 6, route="cluster"),

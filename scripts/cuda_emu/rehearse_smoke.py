@@ -6,9 +6,10 @@ its times and profiles mean nothing. Run from the repository root:
 
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
-phases: kernel-check, train-times, basic-kernel-check (the shared
-family's kernels and row 3's backward on every route: batch 48 for 1024,
-64 molecules in 2,000 slots for 2,560), att-kernel-check, att-times
+phases: kernel-check, train-times, basic-kernel-check, basic-times (the
+shared family's kernels, row 2's forward kernels and row 3's backward on
+every route, their floors and clock64 phases: batch 48 for 1024, 64
+molecules in 2,000 slots for 2,560), att-kernel-check, att-times
 (set2vec's routes, its empty-step
 floor and clock64 phases; batch 48 for 1024, 3 set2vec steps, the
 empty-block case on 27 graphs, the many-graph cases on 130, 60 and
@@ -198,6 +199,7 @@ def main(argv) -> int:
     phases = {"kernel-check": lambda: CS.phase_kernel_check(cpu),
               "train-times": lambda: CS.phase_train_times(cpu, "emulated"),
               "basic-kernel-check": lambda: CS.phase_basic_kernel_check(cpu),
+              "basic-times": lambda: CS.phase_basic_times(cpu, "emulated"),
               "att-kernel-check": lambda: CS.phase_att_kernel_check(cpu),
               "att-times": lambda: CS.phase_att_times(cpu, "emulated"),
               "mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),

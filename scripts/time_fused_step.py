@@ -41,8 +41,21 @@ graph, as tests/test_torch_gpu.py::test_cuda_step_kernels_against_float64
 builds them) against the plain float32 version and a float64 run of it,
 and prints each leaf's distances from the float64 answer.
 
+--fwd also times the training forward (fused_step_fwd) and, for the
+stateless state norm, the serving kernel (fused_eval_stateless) on the
+same cases, and with --detail (a checkout whose chip_smoke.py has
+_fwd_detail) their route, empty-forward floor and block 0's clock64
+phases. --fwd --sweep (a checkout whose chip_smoke.py has _fwd_route)
+times the training forward of lipo's bn1d/bn1d at b16 to b1024, the
+basic shell's none/none and none/stateless, on the forward rule's own
+route and on its neighbours: one cluster of 1, 2, 4 and 8 blocks and the
+grid at a block per 16, 24, 32, 48, 64, 96, 128 and 256 slots, capped at
+the card's co-resident blocks: the measurement behind FWD_CLUSTER_SLOTS,
+FWD_CLUSTER_NODES and FWD_GRID_NODES.
+
 Prints one JSON line: {"label", "card", "times": {case: {"ms",
-"trace_ms"}}, "split": {...}, "step": {...}, "witness": {...}}.
+"trace_ms"}}, "fwd": {case: {...}}, "split": {...}, "step": {...},
+"witness": {...}}.
 """
 
 import argparse
@@ -155,6 +168,83 @@ def _sweep(CS, K, case, reps, device):
                     eval_args, meta, torch.Generator().manual_seed(
                         400 + case[1]), None, device)
             shape = K.device_bwd_shape(n, tag, k, meta.steps, sums, device)
+        t = _time(CS, K, p, reps)
+        res.append(f"{'rule ' if route is None else ''}{shape.tag()} "
+                   f"{t['ms'] * 1e3:.2f} us (trace "
+                   f"{t['trace_ms'] * 1e3:.2f})")
+    return [f"{n} slots"] + res
+
+
+def _fwd_times(CS, K, pf, eval_args, meta, reps, detail, device):
+    """The training forward's and (stateless state norm) the serving
+    kernel's times on a case; with `detail`, their route, floor and
+    clock64 phases."""
+    out = {"fused_step_fwd": _time(CS, K, pf, reps)}
+    kw = dict(steps=meta.steps,
+              msg_norm="bn1d" if meta.msg_mode == K.BATCH_BN else "none",
+              state_norm={v: k for k, v in K._STATE_MODE.items()}[
+                  meta.state_mode])
+    n, f = eval_args[3].shape
+    od = eval_args[11]["i"]["b"].shape[0]
+    k = eval_args[0].shape[0]
+    tag = K.width_bucket("", K.BUCKETS, f=f, od=od)
+    if kw["state_norm"] == "stateless":
+        with torch.no_grad():
+            pe = K.prepare_fused_eval(*eval_args, **kw, check=False)
+        out["fused_eval_stateless"] = _time(CS, K, pe, reps)
+    if detail and hasattr(CS, "_fwd_detail"):
+        (amat, a0, mbias, h0, mask, ng, gru, ma, _, bn, _, ro, vid, src,
+         dst, plan) = eval_args
+        labels, gmask = pf.keep[16:18]
+        weights = K._flat_weights(amat, a0, mbias, gru, ma, bn, ro)
+        sums = meta.msg_mode != K.NONE or meta.state_mode != K.NONE
+        with torch.no_grad():
+            out["fused_step_fwd"]["detail"] = CS._fwd_detail(
+                lambda **kw2: K.prepare_fused_step_fwd(
+                    weights, h0, mask, ng, labels, gmask, vid, src, dst,
+                    plan, meta, **kw2), n, tag, k, meta.steps, sums, device,
+                "fused_step_fwd")
+            if kw["state_norm"] == "stateless":
+                out["fused_eval_stateless"]["detail"] = CS._fwd_detail(
+                    lambda **kw2: K.prepare_fused_eval(
+                        *eval_args, **kw, check=False, **kw2), n, tag, k,
+                    meta.steps, True, device, "fused_eval")
+    return out
+
+
+FWD_SWEEP = [(f"lipo b{bs} bn1d/bn1d", bs, True, 2, 6, "bn1d", "bn1d")
+             for bs in (16, 24, 32, 40, 64, 128, 256, 512, 1024)] + [
+    (f"basic b{bs} none/none", bs, False, 4, 3, "none", "none")
+    for bs in (16, 40, 1024)] + [
+    (f"basic b{bs} none/stateless", bs, False, 4, 3, "none", "stateless")
+    for bs in (16, 1024)]
+
+
+def _fwd_sweep(CS, K, case, reps, device):
+    """The training forward of `case` on the forward rule's route and on
+    each forced neighbour (chip_smoke.py::_fwd_route)."""
+    _, _, eval_args, meta = _case(CS, K, 100 + case[1], case, device)
+    n, f = eval_args[3].shape
+    tag = K.width_bucket("", K.BUCKETS, f=f,
+                         od=eval_args[11]["i"]["b"].shape[0])
+    k = eval_args[0].shape[0]
+    sums = meta.msg_mode != K.NONE or meta.state_mode != K.NONE
+    rule = K.device_fwd_shape(n, tag, k, meta.steps, sums, device)
+    most = K._lib("fused_step_fwd", tag=tag).mpnn_fused_step_fwd_max_grid(
+        rule.smem_bytes)
+    routes = [(None, None)] + [(f"cluster {c}", None) for c in (1, 2, 4, 8)
+                               ] + [
+        ("grid", g) for g in sorted({max(2, min(most, -(-n // per)))
+                                     for per in (16, 24, 32, 48, 64, 96,
+                                                 128, 256)})]
+    res = []
+    for route, grid in routes:
+        with CS._fwd_route(route, grid):
+            with torch.no_grad():
+                p, _, _, _ = CS._prep_step(
+                    eval_args, meta, torch.Generator().manual_seed(
+                        400 + case[1]), None, device)
+            shape = K.device_fwd_shape(n, tag, k, meta.steps, sums, device)
         t = _time(CS, K, p, reps)
         res.append(f"{'rule ' if route is None else ''}{shape.tag()} "
                    f"{t['ms'] * 1e3:.2f} us (trace "
@@ -286,6 +376,7 @@ def main(argv) -> int:
     ap.add_argument("--sweep", action="store_true")
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--witness", action="store_true")
+    ap.add_argument("--fwd", action="store_true")
     ap.add_argument("--cases", default="",
                     help="comma-separated case-name prefixes (default all)")
     ap.add_argument("--sweep-cases", default="",
@@ -302,13 +393,27 @@ def main(argv) -> int:
         text=True).stdout.strip()
     device = torch.device("cuda", 0)
     wanted = [c for c in args.cases.split(",") if c]
-    out, split = {}, {}
+    out, split, fwd = {}, {}, {}
     for i, case in enumerate(CASES):
         name = case[0]
         if wanted and not any(name.startswith(c) for c in wanted):
             continue
         pf, pb, eval_args, meta = _case(CS, K, i, case, device)
         out[name] = _time(CS, K, pb, args.reps)
+        if args.fwd:
+            fwd[name] = _fwd_times(CS, K, pf, eval_args, meta, args.reps,
+                                   args.detail, device)
+            print(f"{name}: " + ", ".join(
+                f"{kn} {v['ms'] * 1e3:.2f} us (trace "
+                f"{v['trace_ms'] * 1e3:.2f})"
+                + (f" route {v['detail'][0]}, floor "
+                   f"{v['detail'][1] * 1e3:.2f} us, clock64 "
+                   + json.dumps({a: round(b) for a, b in
+                                 v['detail'][2].items()})
+                   if "detail" in v else "")
+                for kn, v in fwd[name].items())
+                + f"; fused_step_bwd {out[name]['ms'] * 1e3:.2f} us",
+                flush=True)
         if args.detail and hasattr(CS, "_bwd_detail"):
             route, floor_ms, phases = _detail(CS, K, pb, eval_args, meta,
                                               device)
@@ -328,7 +433,14 @@ def main(argv) -> int:
             prep, _, _ = CS._split_launches("shared", net, tb, gen)
             t = {k: _time(CS, K, p, args.reps) for k, p in prep.items()}
             split[f"lipo b{bs} ({b['node_mask'].shape[0]} slots)"] = t
-    if args.sweep and hasattr(CS, "_bwd_route"):
+    if args.fwd and args.sweep and hasattr(CS, "_fwd_route"):
+        picked = [c for c in args.sweep_cases.split(",") if c]
+        for case in FWD_SWEEP:
+            if picked and not any(case[0].startswith(c) for c in picked):
+                continue
+            print(f"fwd sweep {case[0]}: " + "; ".join(
+                _fwd_sweep(CS, K, case, args.reps, device)), flush=True)
+    elif args.sweep and hasattr(CS, "_bwd_route"):
         picked = [c for c in args.sweep_cases.split(",") if c]
         for case in SWEEP:
             if picked and not any(case[0].startswith(c) for c in picked):
@@ -337,9 +449,12 @@ def main(argv) -> int:
                 _sweep(CS, K, case, args.reps, device)), flush=True)
     step = _step(CS, K, device) if args.step else {}
     witness = _witness(CS, K) if args.witness else {}
+    for v in fwd.values():
+        for t in v.values():
+            t.pop("detail", None)
     print(json.dumps({"label": args.label, "card": card, "times": out,
-                      "split": split, "step": step, "witness": witness}),
-          flush=True)
+                      "fwd": fwd, "split": split, "step": step,
+                      "witness": witness}), flush=True)
     return 0
 
 

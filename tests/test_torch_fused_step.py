@@ -297,3 +297,101 @@ def test_bwd_rule_on_vocab_steps_and_a_smaller_card():
         3 * small.ncap // 4
     with pytest.raises(NotImplementedError, match="shared memory"):
         _rule(16, smem=16 * 1024)
+
+
+# ---------------------------------------------------------------------------
+# the forward's route rule (kernels/fused_step.py::fwd_launch_shape): the
+# training forward's and the stateless serving kernel's, decided on the
+# host from shapes alone
+# ---------------------------------------------------------------------------
+
+def _fwd_rule(n, tag="", k=8, steps=6, smem=H100_SMEM, max_grid=H100_GRID,
+              sums=True):
+    return K.fwd_launch_shape(n, tag, k, steps, sums=sums, smem_bytes=smem,
+                              max_grid=max_grid)
+
+
+def test_fwd_rule_at_its_node_count_boundaries():
+    """With a norm on batch statistics (its sums cross blocks every
+    slot), up to FWD_CLUSTER_SLOTS node slots one cluster of the fewest
+    blocks (1, 2, 4) whose share is at most FWD_CLUSTER_NODES, else 8;
+    then a grid of a block per FWD_STAT_NODES slots, at most
+    max(FWD_STAT_BLOCKS, ceil(sqrt(n))) blocks, capped at the co-resident
+    blocks and at FWD_MAX_GRID (lipo's narrow bucket, K 8, T 6)."""
+    cn, cs = K.FWD_CLUSTER_NODES, K.FWD_CLUSTER_SLOTS
+    assert 8 * cn <= cs
+    for c in (1, 2, 4):
+        assert _fwd_rule(c * cn)[:2] == ("cluster", c)
+        assert _fwd_rule(c * cn + 1)[:2] == ("cluster", 2 * c)
+    assert _fwd_rule(8 * cn)[:2] == ("cluster", 8)
+    assert _fwd_rule(cs)[:2] == ("cluster", 8)
+    sn, sb = K.FWD_STAT_NODES, K.FWD_STAT_BLOCKS
+    assert _fwd_rule(cs + 1)[:2] == ("grid", -(-(cs + 1) // sn))
+    assert _fwd_rule(258)[:2] == ("cluster", 8)             # lipo b16
+    assert _fwd_rule(640)[:2] == ("grid", -(-640 // sn))    # lipo b40
+    assert _fwd_rule(sn * sb)[:2] == ("grid", sb)
+    assert _fwd_rule(sn * sb + 1)[:2] == ("grid", sb)
+    assert _fwd_rule(sb * sb + 1)[:2] == ("grid", sb + 1)   # then √n
+    assert _fwd_rule(13184)[:2] == ("grid", 115)
+    assert _fwd_rule(16512)[:2] == ("grid", 129)            # lipo b1024
+    assert _fwd_rule(10 ** 6)[:2] == ("grid", H100_GRID)
+    assert _fwd_rule(10 ** 6, max_grid=1000)[:2] == ("grid", K.FWD_MAX_GRID)
+    assert _fwd_rule(1)[:2] == ("cluster", 1)
+
+
+@pytest.mark.parametrize("tag", ["", "o64", "f32", "o128"])
+def test_fwd_rule_without_batch_statistics_takes_the_grid(tag):
+    """Without a norm on batch statistics (basic none/none) no slot
+    crosses blocks: the grid at every size, a block per FWD_GRID_NODES
+    slots (one block alone up to FWD_GRID_NODES), capped at the
+    co-resident blocks; the tile is the one the rule gives with them (its
+    bytes follow the block count: every block's partial row)."""
+    gn = K.FWD_GRID_NODES
+    for n in (1, gn, gn + 1, 258, K.FWD_CLUSTER_SLOTS, 16512, 10 ** 6):
+        s = _fwd_rule(n, tag, sums=False)
+        assert s.route == "grid", (n, s.tag())
+        assert s.grid == min(H100_GRID, -(-n // gn)), (n, s.tag())
+        assert s.ncap == K.fwd_capacity(tag, 8, 6, H100_SMEM, s.grid)
+
+
+@pytest.mark.parametrize("tag", ["", "o64", "f32", "o128"])
+def test_fwd_rule_keeps_a_block_within_its_tile(tag):
+    """The narrow bucket's tile holds a whole b16 of lipo (258 slots) and
+    the wide ones over 150 nodes beside the partial rows of a grid of
+    132 blocks; a block's share of the slots stays within 3/4 of that
+    tile on both routes, so a block past it holds a graph larger than its
+    share (which the kernel keeps in global scratch); the launch's tile
+    fills what its own block count leaves, and its bytes fit the card."""
+    cap = K.fwd_capacity(tag, 8, 6, H100_SMEM, H100_GRID)
+    assert cap >= {"": 512, "o64": 460, "f32": 150, "o128": 150}[tag]
+    for n in (16, 258, 512, 600, 4096, 16512, 57856):
+        for sums in (True, False):
+            s = _fwd_rule(n, tag, sums=sums)
+            assert s.ncap == K.fwd_capacity(tag, 8, 6, H100_SMEM, s.grid)
+            assert s.ncap >= cap and s.ecap == K.EDGE_RATIO * s.ncap
+            assert s.smem_bytes == 4 * K.fwd_smem_floats(
+                tag, 8, 6, s.ncap, s.ecap, s.grid) <= H100_SMEM
+            if s.grid < H100_GRID:
+                assert -(-n // s.grid) <= 3 * cap // 4
+    assert 4 * K.fwd_smem_floats(tag, 8, 6, cap + 1, K.EDGE_RATIO * (cap + 1),
+                                 H100_GRID) > H100_SMEM
+
+
+def test_fwd_rule_on_vocab_steps_and_a_smaller_card():
+    """The tile shrinks with the vocab (staged at f <= 16), with T (the
+    norm constants and the partial rows) and with a card's shared memory;
+    the route follows the tile; a card that cannot hold one node
+    raises."""
+    caps = [K.fwd_capacity("", k, t, H100_SMEM, H100_GRID)
+            for k, t in ((8, 6), (64, 6), (8, 32), (64, 32))]
+    assert caps[0] > caps[1] > caps[3] and caps[0] > caps[2] > caps[3]
+    # past f 16 the vocab's tables stay in device memory; the partial rows
+    # of more blocks take room
+    assert K.fwd_capacity("f32", 64, 6, H100_SMEM, H100_GRID) == \
+        K.fwd_capacity("f32", 8, 6, H100_SMEM, H100_GRID)
+    assert K.fwd_capacity("", 8, 6, H100_SMEM, 8) > caps[0]
+    small = _fwd_rule(512, smem=100 * 1024)
+    assert small.ncap < _fwd_rule(512).ncap
+    assert -(-512 // small.grid) <= 3 * small.ncap // 4
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _fwd_rule(16, smem=16 * 1024)

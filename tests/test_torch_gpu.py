@@ -276,16 +276,71 @@ def exactness(got, want, exact, msg_norm):
     return out
 
 
-def _step_case(args, leaves, cw, route, od, exact=False, **kw):
+def _stash_case(args, od, fwd, **kw):
+    """The training forward's residuals (loss, out, stats, htil) on the
+    forced forward route `fwd` against the plain version's (padded stash
+    slots zero, the same bits twice) and, with the stateless state norm,
+    the serving kernel on that route against fused_eval_reference (the
+    message norm folded from unit running statistics); returns the
+    route's FwdShape."""
+    from chip_smoke import _fwd_route, _route_matches
+    (amat, a0, mbias, h0, mask, ng, gru, ma, bn, ro, labels, gmask, vid,
+     src, dst, plan) = args
+    det = lambda d: {key: (det(v) if isinstance(v, dict) else v.detach())
+                     for key, v in d.items()}
+    weights = K._flat_weights(amat.detach(), a0.detach(), mbias.detach(),
+                              det(gru), det(ma), det(bn), det(ro))
+    meta = K.StepMeta(kw["steps"],
+                      K.BATCH_BN if kw["msg_norm"] == "bn1d" else K.NONE,
+                      K._STATE_MODE[kw["state_norm"]])
+    res = (weights, h0.detach(), mask, ng, labels, gmask, vid, src, dst,
+           plan, meta)
+    n, f = h0.shape
+    with _fwd_route(fwd):
+        got = K.forward_residuals(*res)
+        again = K.forward_residuals(*res)
+        shape = K.device_fwd_shape(
+            n, K.width_bucket("", K.BUCKETS, f=f, od=od), amat.shape[0],
+            kw["steps"], kw["msg_norm"] != "none" or kw["state_norm"] != "none",
+            h0.device)
+        if kw["state_norm"] == "stateless":
+            unit = {"running_mean": torch.zeros_like(mbias.detach()),
+                    "running_var": torch.ones_like(mbias.detach())}
+            eargs = (amat.detach(), a0.detach(), mbias.detach(), h0.detach(),
+                     mask, ng, det(gru), det(ma), unit, det(bn), unit,
+                     det(ro), vid, src, dst, plan)
+            K.reset_launch_counts()
+            served = K.fused_eval(*eargs, **kw)
+            served2 = K.fused_eval(*eargs, **kw)
+            assert K.launch_counts["fused_eval_stateless"] == 2
+            torch.testing.assert_close(
+                served, K.fused_eval_reference(*eargs, **kw), rtol=RTOL,
+                atol=ATOL)
+            assert torch.equal(served, served2), "serving: bits differ"
+    want = K._reference_residuals(*res)
+    for name, a, b, c in zip(("loss", "out", "stats", "htil"), got, want,
+                             again):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m: f"{name}: {m}")
+        assert torch.equal(a, c), f"{name}: bits differ"
+    n_real = int(mask.sum())
+    if n > n_real:
+        assert float(got[3][:, n_real:].abs().max()) == 0.0, "padded slots"
+    assert _route_matches(shape, fwd), shape.tag()
+    return shape
+
+
+def _step_case(args, leaves, cw, route, od, exact=False, fwd=None, **kw):
     """One forward and one backward launch on `route`, against the plain
     version, and the same bits again; returns the route's BwdShape. The
-    route is forced as chip_smoke.py forces it (None: the rule's). With
-    `exact`, each output and leaf is held to the float64 answer instead:
-    within atol of it, or no further from it than the plain float32
-    version is."""
-    from chip_smoke import _bwd_route
+    backward's route is forced as chip_smoke.py forces it (None: the
+    rule's), and the forward's (`fwd`) too: then its residuals are held to
+    the plain version's (_stash_case). With `exact`, each output and leaf
+    is held to the float64 answer instead: within atol of it, or no
+    further from it than the plain float32 version is."""
+    from chip_smoke import _bwd_route, _fwd_route, _route_matches
     h0, k = args[3], args[0].shape[0]
-    with _bwd_route(route):
+    with _bwd_route(route), _fwd_route(fwd):
         K.reset_launch_counts()
         got = step_and_grads(K.fused_step, args, leaves, cw, **kw)
         torch.cuda.synchronize()
@@ -296,6 +351,8 @@ def _step_case(args, leaves, cw, route, od, exact=False, **kw):
             h0.shape[0], K.width_bucket("", K.BUCKETS, f=h0.shape[1],
                                         od=od), k, kw["steps"],
             kw["state_norm"] != "none", h0.device)
+    if fwd is not None:
+        _stash_case(args, od, fwd, **kw)
     want = step_and_grads(K.fused_step_reference, args, leaves, cw, **kw)
     assert all(torch.isfinite(x).all() for x in got[4].values())
     if exact:
@@ -307,18 +364,40 @@ def _step_case(args, leaves, cw, route, od, exact=False, **kw):
         assert_step_close(got, want, kw["msg_norm"])
     for name, gr in got[4].items():
         assert torch.equal(gr, again[4][name]), f"{name}: bits differ"
-    if route:
-        assert shape.route == {"spilled": "grid"}.get(
-            route, route.split()[0]), shape.tag()
-        if route.startswith("cluster"):
-            assert shape.grid == int(route.split()[1]), shape.tag()
+    for a, b in zip(got[:2], again[:2]):
+        assert torch.equal(a, b), "forward: bits differ"
+    assert _route_matches(shape, route), shape.tag()
     return shape
+
+
+FWD_CASES = [
+    # the forward kernels on every route of their rule: one cluster of 1,
+    # 2, 4 and 8 blocks, the grid, 16-node tiles (spilled) and graphs past
+    # a block's tile; T 1 and 32, 64 vocab ids, none/none, bn1d/stateless,
+    # the ragged g 37 batch
+    ("bn1d", "bn1d", 16, None, 6, 8, 0, "cluster 1"),
+    ("bn1d", "bn1d", 16, None, 6, 8, 0, "cluster 2"),
+    ("bn1d", "stateless", 16, None, 6, 8, 0, "cluster 4"),
+    ("bn1d", "bn1d", 16, None, 6, 8, 0, "cluster 8"),
+    ("none", "stateless", 16, None, 6, 8, 0, "grid"),
+    ("bn1d", "bn1d", 1024, None, 6, 8, 0, "grid"),
+    ("bn1d", "stateless", 1024, None, 6, 8, 0, "cluster 8"),
+    ("bn1d", "bn1d", 37, None, 6, 8, 0, "spilled"),
+    ("none", "none", 37, None, 6, 8, 0, "cluster 2"),
+    ("none", "none", 1024, None, 6, 8, 0, "grid"),
+    ("bn1d", "bn1d", 64, None, 1, 8, 0, "cluster 4"),
+    ("bn1d", "stateless", 64, None, 32, 8, 0, "grid"),
+    ("bn1d", "bn1d", 64, None, 6, 64, 0, "cluster 8"),
+    ("bn1d", "bn1d", 20, None, 6, 8, 300, "spilled"),
+    ("bn1d", "bn1d", 4, None, 3, 8, 600, "grid"),
+]
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "msg_norm,state_norm,g,route,steps,k,big",
-    [("bn1d", "bn1d", 1024, None, 6, 8, 0),
+    "msg_norm,state_norm,g,route,steps,k,big,fwd",
+    [c + (None,) for c in [
+     ("bn1d", "bn1d", 1024, None, 6, 8, 0),
      ("bn1d", "none", 1024, None, 6, 8, 0),
      ("none", "bn1d", 1024, None, 6, 8, 0),
      ("none", "none", 1024, None, 6, 8, 0),
@@ -347,9 +426,9 @@ def _step_case(args, leaves, cw, route, od, exact=False, **kw):
      ("bn1d", "bn1d", 20, None, 6, 8, 300),
      ("bn1d", "bn1d", 20, "cluster 1", 6, 8, 260),
      ("none", "stateless", 20, "grid", 6, 8, 260),
-     ("none", "none", 4, "grid", 3, 8, 600)])
+     ("none", "none", 4, "grid", 3, 8, 600)]] + FWD_CASES)
 def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g,
-                                               route, steps, k, big):
+                                               route, steps, k, big, fwd):
     """Flagship widths (f 10, od 14): the forward kernel against
     fused_step_reference, the backward kernel against autograd through it,
     with the cotangents of both the loss and out nonzero; the stateless
@@ -361,40 +440,49 @@ def test_cuda_step_kernels_match_plain_version(msg_norm, state_norm, g,
     and 32, with 64 vocab ids, on one graph (no norms: under a batch norm
     one graph's ∂A0 and ∂mbias are batch-wide sums that cancel to rounding
     on both sides), and with a graph of `big` nodes, past a block's
-    shared-memory tile (up to 600 nodes); each twice, the same bits."""
+    shared-memory tile (up to 600 nodes); each twice, the same bits. With
+    `fwd`, the forward kernels on that forced route (FWD_CASES): their
+    stash (padded slots zero) against the plain version's, and the
+    stateless serving kernel against fused_eval_reference."""
     _need_card()
     rng = np.random.RandomState(
         g if (steps, k, big) == (6, 8, 0) else 7 * g + steps + k + big)
     args, leaves = _step_problem(rng, g, k=k, big=big)
     cw = torch.as_tensor(rng.randn(g, 14).astype(np.float32), device="cuda")
     shape = _step_case(args, leaves, cw, route, 14, steps=steps,
-                       msg_norm=msg_norm, state_norm=state_norm)
+                       msg_norm=msg_norm, state_norm=state_norm, fwd=fwd)
     if g == 100:
         assert shape.route == "grid", shape.tag()
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize(
-    "msg_norm,state_norm,g,route,steps,big",
-    [("none", "bn1d", 64, None, 32, 0),
-     ("none", "bn1d", 64, "grid", 32, 0),
-     ("none", "none", 4, None, 3, 4000),
-     ("bn1d", "bn1d", 4, None, 6, 4000),
-     ("bn1d", "bn1d", 4, "cluster 8", 6, 4000)])
+    "msg_norm,state_norm,g,route,steps,big,fwd",
+    [("none", "bn1d", 64, None, 32, 0, None),
+     ("none", "bn1d", 64, "grid", 32, 0, None),
+     ("none", "none", 4, None, 3, 4000, None),
+     ("bn1d", "bn1d", 4, None, 6, 4000, None),
+     ("bn1d", "bn1d", 4, "cluster 8", 6, 4000, None),
+     # the forward kernels in one block, a 600-node graph past its tile,
+     # the stateless norm without a message norm
+     ("none", "stateless", 4, None, 3, 600, "cluster 1")])
 def test_cuda_step_kernels_against_float64(msg_norm, state_norm, g, route,
-                                           steps, big):
+                                           steps, big, fwd):
     """Batches where float32 in any summation order sits past 1e-5 of the
     exact gradients, so that the plain float32 version is no yardstick at
-    that tolerance: T 32 without a message norm, and a 4,000-node graph
-    on the grid and on a cluster. Every output and leaf is held to the
-    float64 answer (within 1e-5 of its max abs, or no further than the
-    plain float32 version is); one launch each way, the same bits twice."""
+    that tolerance: T 32 without a message norm, a 4,000-node graph on
+    the grid and on a cluster, and the forward kernels forced into one
+    block with a 600-node graph (`fwd`: their stash also held to the
+    plain version's, as test_cuda_step_kernels_match_plain_version holds
+    it). Every output and leaf is held to the float64 answer (within 1e-5
+    of its max abs, or no further than the plain float32 version is); one
+    launch each way, the same bits twice."""
     _need_card()
     rng = np.random.RandomState(7 * g + steps + 8 + big)
     args, leaves = _step_problem(rng, g, big=big)
     cw = torch.as_tensor(rng.randn(g, 14).astype(np.float32), device="cuda")
     _step_case(args, leaves, cw, route, 14, exact=True, steps=steps,
-               msg_norm=msg_norm, state_norm=state_norm)
+               msg_norm=msg_norm, state_norm=state_norm, fwd=fwd)
 
 
 @pytest.mark.gpu
