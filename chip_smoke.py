@@ -400,9 +400,9 @@ def phase_build():
            f"fused_step_fwd and fused_eval_stateless {_fwd_smem_line()}, "
            f"fused_step_bwd {_bwd_smem_line()} (T 6); " + ", ".join(
                f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
-               for n in ("fused_psteps_eval", "fused_psteps_fwd",
-                         "fused_psteps_bwd"))
+               for n in ("fused_psteps_eval", "fused_psteps_fwd"))
            + " (T 3; their A tables stay in device memory, any K); "
+           f"{_walk_smem_line()}; "
            + ", ".join(
                f"{n} {getattr(A._lib(n), f'mpnn_{n}_smem_bytes')(16)} B"
                for n in ("fused_att_fwd", "fused_att_bwd"))
@@ -420,9 +420,9 @@ def phase_build():
            f"{_lib_call('spmm', 'spmm_fwd', 'mpnn_spmm_fwd_smem_bytes', 16)} B"
            f" (K 16; the wide bucket reads A from device memory), spmm_da "
            f"{_lib_call('spmm', 'spmm_da', 'mpnn_spmm_da_smem_bytes')} B, "
-           + ", ".join(
-               f"{n} {_lib_call('recurrence', n, f'mpnn_{n}_smem_bytes', 6)} B"
-               for n in ("recurrence_fwd", "recurrence_bwd")) + " (T 6); "
+           "recurrence_fwd "
+           f"{_lib_call('recurrence', 'recurrence_fwd', 'mpnn_recurrence_fwd_smem_bytes', 6)}"
+           " B (T 6); "
            f"ro_bwd {_lib_call('readout_bwd', 'ro_bwd', 'mpnn_ro_bwd_smem_bytes')}"
            f" B, ps_walk_bwd "
            f"{_lib_call('psteps_walk', 'ps_walk_bwd', 'mpnn_ps_walk_bwd_smem_bytes', 3)}"
@@ -495,6 +495,44 @@ def _bwd_smem_line():
     return ", ".join(out)
 
 
+def _walk_smem_line():
+    """fused_psteps_bwd's (K 16, T 3) and recurrence_bwd's (T 6) node
+    capacity and dynamic shared memory per bucket on this card, each held
+    against the library's own layout (bwd_smem_floats of kernels/
+    fused_psteps.py and kernels/recurrence.py mirror csrc's Smem)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import recurrence as R
+    smem = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    out = []
+    for tag, _ in P.BUCKETS:
+        cap = P.bwd_capacity(tag, 16, 3, smem)
+        lib = P._lib("fused_psteps_bwd", tag)
+        for c in (1, cap):
+            e = P.EDGE_RATIO * c
+            want = 4 * P.bwd_smem_floats(tag, 16, 3, c, e)
+            got = lib.mpnn_fused_psteps_bwd_smem_bytes(16, 3, c, e)
+            if got != want:
+                raise RuntimeError(f"fused_psteps_bwd.{tag}: the library "
+                                   f"takes {got} B at {c} nodes, "
+                                   f"bwd_smem_floats {want}")
+        out.append(f"fused_psteps_bwd {tag or 'narrow'} {cap} nodes a "
+                   f"block, {want} B")
+    for tag, _ in R.BUCKETS:
+        cap = R.bwd_capacity(tag, 6, smem)
+        lib = R._lib("recurrence_bwd", tag)
+        for c in (1, cap):
+            want = 4 * R.bwd_smem_floats(tag, 6, c)
+            got = lib.mpnn_recurrence_bwd_smem_bytes(6, c)
+            if got != want:
+                raise RuntimeError(f"recurrence_bwd.{tag}: the library "
+                                   f"takes {got} B at {c} nodes, "
+                                   f"bwd_smem_floats {want}")
+        out.append(f"recurrence_bwd {tag or 'narrow'} {cap} nodes a block, "
+                   f"{want} B")
+    return ", ".join(out) + " (K 16, T 3; T 6)"
+
+
 def _fwd_smem_line():
     """The forward kernels' node capacity and dynamic shared memory per
     bucket (K 16, T 6) on this card, each held against both libraries' own
@@ -525,37 +563,42 @@ def _fwd_smem_line():
 
 
 @contextlib.contextmanager
-def _bwd_route(route, grid=None):
-    """Force fused_step_bwd's route for the launches inside (the rule's
-    shape with its route replaced: kernels/fused_step.py::launch_shape):
-    None (the rule's own choice), 'cluster C' (one cluster of C blocks),
-    'grid' (`grid` blocks, by default one per GRID_NODES of the n slots,
-    at least 2, at most 128), 'spilled' (a block per 128 slots, at least
-    2, with 16-node tiles: blocks keep their graphs in global scratch).
-    The GPU tests, the emulator's checks and scripts/time_fused_step.py
-    --sweep force routes through it."""
-    from mpnn_tpu_torch.kernels import fused_step as K
-    keep = K.device_bwd_shape
+def _forced_bwd_shape(mod, route, grid, spilled):
+    """Force a reverse walk's route (`mod.device_bwd_shape`, the rule's
+    shape with its route replaced) for the launches inside: None (the
+    rule's own choice), 'cluster C' (one cluster of C blocks), 'grid'
+    (`grid` blocks, by default one per mod.GRID_NODES of the n slots, at
+    least 2, at most 128), 'spilled' (a block per 128 slots, at least 2,
+    with 16-node tiles: `spilled(shape, tag, *rest)` sizes them)."""
+    keep = mod.device_bwd_shape
 
-    def forced(n, tag, k, steps, step_sums, device):
-        s = keep(n, tag, k, steps, step_sums, device)
+    def forced(n, tag, *rest):
+        s = keep(n, tag, *rest)
         if route is None:
             return s
         if route.startswith("cluster"):
             return s._replace(route="cluster", grid=int(route.split()[1]))
-        per = 128 if route == "spilled" else K.GRID_NODES
+        per = 128 if route == "spilled" else mod.GRID_NODES
         s = s._replace(route="grid",
                        grid=grid or min(128, max(2, -(-n // per))))
-        if route == "spilled":
-            s = s._replace(ncap=16, ecap=16 * K.EDGE_RATIO,
-                           smem_bytes=4 * K.bwd_smem_floats(
-                               tag, k, steps, 16, 16 * K.EDGE_RATIO))
-        return s
-    K.device_bwd_shape = forced
+        return spilled(s, tag, *rest) if route == "spilled" else s
+    mod.device_bwd_shape = forced
     try:
         yield
     finally:
-        K.device_bwd_shape = keep
+        mod.device_bwd_shape = keep
+
+
+def _bwd_route(route, grid=None):
+    """Force fused_step_bwd's route for the launches inside (kernels/
+    fused_step.py::launch_shape; _forced_bwd_shape). The GPU tests, the
+    emulator's checks and scripts/time_fused_step.py --sweep force routes
+    through it."""
+    from mpnn_tpu_torch.kernels import fused_step as K
+    return _forced_bwd_shape(K, route, grid, lambda s, tag, k, steps, *_: (
+        s._replace(ncap=16, ecap=16 * K.EDGE_RATIO,
+                   smem_bytes=4 * K.bwd_smem_floats(
+                       tag, k, steps, 16, 16 * K.EDGE_RATIO))))
 
 
 @contextlib.contextmanager
@@ -1548,6 +1591,74 @@ def _fwd_detail(prepare, n, tag, k, steps, sums, device, kernel):
     return shape.tag(), floor_ms, _fwd_phases(prof.tolist(), steps)
 
 
+def _walk_phases(p, T, names):
+    """A reverse walk's clock64 stamps (block 0, thread 0; cycles) as
+    phases: `names` maps the stamps before the walk (0..3) and after it
+    (70..75) to their phases; the walk's steps are stamps 3 + 2i (its
+    start) to 4 + 2i (its arithmetic) to 5 + 2i (its combine), averaged
+    over the T steps (the combine over the steps that have one)."""
+    arith = [p[4 + 2 * i] - p[3 + 2 * i] for i in range(T)]
+    comb = [p[5 + 2 * i] - p[4 + 2 * i] for i in range(T - 1)]
+    out = {"step": sum(arith) / T,
+           "step combine": sum(comb) / max(len(comb), 1)}
+    for name, (a, b) in names.items():
+        out[name] = p[b] - p[a]
+    out["total"] = p[75] - p[0]
+    return out
+
+
+def _rec_bwd_phases(p, T):
+    """recurrence_bwd's clock64 phases: staging, the input gates and slot
+    T's sums, their combine, one walk step's arithmetic and its combine,
+    W_hh's rows, W_ih's products once with the message sums, their
+    combine, ∂msgs, the final sum."""
+    last = 4 + 2 * (T - 1)
+    return _walk_phases(p, T, {
+        "staging": (0, 1), "gates": (1, 2), "slot T combine": (2, 3),
+        "W_hh rows": (last + 1, 70), "W_ih once": (70, 71),
+        "message combine": (71, 72), "dmsgs": (72, 73),
+        "final sum": (73, 75)})
+
+
+def _ps_bwd_phases(p, T):
+    """fused_psteps_bwd's clock64 phases: staging and the vocab sort, the
+    readout VJP (block-local: a block owns whole graphs), step T−1's state
+    sums and their combine, one walk step's arithmetic and its combine
+    (steps T−2..0), the weight rows, the T message norms' one combine,
+    ∂m_t, the message VJP (A0_t, mbias_t, the edges' A_tᵀ), dA_t, the
+    final sum."""
+    last = 4 + 2 * (T - 1)
+    return _walk_phases(p, T, {
+        "staging": (0, 1), "readout": (1, 2), "step T−1 combine": (2, 3),
+        "weight rows": (last, 70), "message combine": (70, 71),
+        "dm": (71, 72), "message VJP": (72, 73), "dA": (73, 74),
+        "final sum": (74, 75)})
+
+
+def _walk_detail(prepare, shape_of, phases_of, counts, device):
+    """A reverse-walk kernel's route (`shape_of()`), the empty-walk floor
+    (CUDA events over 100 launches of the same grid and combines with no
+    arithmetic; `prepare(floor=True)`) and block 0's clock64 phases of one
+    launch (`prepare(prof=...)`), leaving the main path's launch `counts`
+    as they were."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    pfl = prepare(floor=True)
+    floor_ms = _events_ms(lambda: K.launch_prepared(pfl), 100)
+    prof = torch.zeros(80, dtype=torch.int64, device=device)
+    keep = dict(counts)
+    K.launch_prepared(prepare(prof=prof))
+    counts.update(keep)
+    torch.cuda.synchronize()
+    return shape_of().tag(), floor_ms, phases_of(prof.tolist())
+
+
+def _detail_text(name, tag, floor_ms, phases):
+    return (f"{name} route {tag}, empty walk {floor_ms * 1e3:.2f} us, "
+            f"block 0 (cycles): " + ", ".join(
+                f"{k} {v:.0f}" for k, v in phases.items()))
+
+
 def phase_train_times(device, card):
     """Train-step latency (host clock ending in a device sync, the loss
     read back) at batch 16 and 1024, and each training kernel's time
@@ -1708,6 +1819,9 @@ PS_EXPERIMENTS = (("graph_norm_classification", "graph_norm"),
                   ("encoded_classification", "encoded"))
 PS_CLASSES = 4
 PS_KERNELS = ("fused_psteps_eval", "fused_psteps_fwd", "fused_psteps_bwd")
+# ps-kernel-check's large batches, ps-times' batches
+PS_CHECK_BATCHES = (1024, 2560)
+PS_TIMES_BATCHES = (128, 1024)
 
 
 def _ps_case(tb, f, od, gen, device, steps=3, from_feats=False):
@@ -1758,6 +1872,24 @@ def _ps_case(tb, f, od, gen, device, steps=3, from_feats=False):
     return c, leaves
 
 
+# fused_psteps_bwd's forced routes (_ps_route): every route of its rule,
+# and 16-node tiles that leave a block's graphs in global scratch
+PS_ROUTES = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
+             "spilled")
+
+
+def _ps_route(route, grid=None):
+    """Force fused_psteps_bwd's route for the launches inside (kernels/
+    fused_psteps.py::launch_shape; _forced_bwd_shape). The GPU tests, the
+    emulator's checks and scripts/time_fused_psteps.py --sweep force
+    routes through it."""
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    return _forced_bwd_shape(P, route, grid, lambda s, tag, k, steps, *_: (
+        s._replace(ncap=16, ecap=16 * P.EDGE_RATIO,
+                   smem_bytes=4 * P.bwd_smem_floats(
+                       tag, k, steps, 16, 16 * P.EDGE_RATIO))))
+
+
 def _ps_eval_call(fn, c, **kw):
     return fn(c["amat"], c["a0"], c["mbias"], c["h0"], c["mask"],
               c["node_graph"], c["gru"], c["ma_bns"], c["ma_states"],
@@ -1773,17 +1905,74 @@ def _ps_step_args(c):
             c["plan"])
 
 
+def _ps_bwd_route_checks(device, gen):
+    """fused_psteps_bwd on every forced route of its rule (_ps_route), one
+    of the six norm pairs each at b16 (256 slots), then b1024 on 16-node
+    tiles (spilled) and the ragged batch at graph_norm's widths in one
+    block: each against autograd through the plain version (leaves
+    divided by their max abs; rtol 1e-4, atol 1e-5), twice for the same
+    bits, one forward and one backward launch a run. Returns (report,
+    worst error, failed)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.train.trainer import batch_to_device
+    b1024, b16, _, ragged = _dec_check_batches(device)
+    cases = ([("b16", b16, 8, 16, mn, sn, r)
+              for (mn, sn), r in zip(PS_NORMS, PS_ROUTES)]
+             + [("b1024", b1024, 8, 16, "bn1d", "bn1d", "spilled"),
+                ("ragged graph_norm", ragged, None, None, "none",
+                 "stateless", "cluster 1")])
+    out, worst, failed = [], 0.0, []
+    whole = functools.partial(P.fused_psteps, bwd="whole")
+    for what, tb, f, od, mn, sn, route in cases:
+        feats = f is None
+        f = int(tb["node_feats"].shape[1]) if feats else f
+        od = 4 * f if feats else od
+        c, leaves = _ps_case(tb, f, od, gen, device, from_feats=feats)
+        kw = dict(steps=3, msg_norm=mn, state_norm=sn)
+        cw = torch.randn(c["labels"].shape[0], od, generator=gen).to(device)
+        with _ps_route(route):
+            P.reset_launch_counts()
+            got = _step_and_grads(whole, _ps_step_args(c), leaves, cw, kw)
+            again = _step_and_grads(whole, _ps_step_args(c), leaves, cw,
+                                    kw)
+            torch.cuda.synchronize()
+            shape = P.device_bwd_shape(
+                c["h0"].shape[0], K.width_bucket("", P.BUCKETS, f=f, od=od,
+                                                 steps=3),
+                c["amat"].shape[1], 3, sn != "none", device)
+        counts = (P.launch_counts["fused_psteps_fwd"],
+                  P.launch_counts["fused_psteps_bwd"])
+        want = _step_and_grads(P.fused_psteps_reference, _ps_step_args(c),
+                               leaves, cw, kw)
+        same = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+        _, _, ok_b, err_b = _step_errors(got, want, mn)
+        ok = (ok_b and same and counts == (2, 2)
+              and _route_matches(shape, route))
+        worst = max(worst, err_b)
+        out.append(f"{what} {mn}/{sn} f={f} {shape.tag()} {err_b:.2e}"
+                   + ("" if same else " BITS DIFFER")
+                   + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"{what} {mn}/{sn} {route}")
+    return ("fused_psteps_bwd on forced routes (T 3, twice for the same "
+            "bits): " + ", ".join(out)), worst, failed
+
+
 def phase_ps_kernel_check(device):
-    """The per-step kernels against their plain versions on the card."""
+    """The per-step kernels against their plain versions on the card; the
+    backward also on every forced route of its rule."""
     import torch
     from mpnn_tpu_torch.kernels import fused_psteps as P
     from mpnn_tpu_torch.train.trainer import batch_to_device
     gen = torch.Generator().manual_seed(11)
-    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    nb, nbig = PS_CHECK_BATCHES
+    b1024 = batch_to_device(_batch((SMILES * 256)[:nb], nb), device)
     ragged_smiles = SMILES[:7] + ["C", "O", "CCO", "C", "[NH4+]"]
     ragged = batch_to_device(_batch(ragged_smiles, len(ragged_smiles)),
                              device)
-    big = batch_to_device(_batch((SMILES * 256)[:2560], 2560), device)
+    big = batch_to_device(_batch((SMILES * 256)[:nbig], nbig), device)
     # graph_norm's widths come from the batch: f = afm, od = 4·afm
     cases = ([("batch1024", b1024, 8, mn, sn) for mn, sn in PS_NORMS]
              + [("batch1024 graph_norm", b1024, None, "none", "stateless"),
@@ -1824,12 +2013,16 @@ def phase_ps_kernel_check(device):
             f"{err_b:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"{what} {mn}/{sn}")
+    report, err_r, failed_r = _ps_bwd_route_checks(device, gen)
+    worst["fused_psteps_bwd"] = max(worst["fused_psteps_bwd"], err_r)
+    failed += failed_r
     print(f"ps-kernel-check: fused_psteps_eval vs fused_psteps_eval_"
           f"reference, fused_psteps_fwd vs fused_psteps_reference, "
           f"fused_psteps_bwd vs autograd through it (T 3, cotangents "
           f"1.3·loss + Σ out·c; rtol {RTOL} atol {ATOL}, gradient leaves "
           f"divided by their max abs; message biases under the message "
-          f"bn1d within {ATOL}·max|dA0|): " + "; ".join(results), flush=True)
+          f"bn1d within {ATOL}·max|dA0|): " + "; ".join(results)
+          + "; " + report, flush=True)
     if failed:
         raise RuntimeError(f"per-step kernels disagree with their plain "
                            f"versions: {failed}")
@@ -2115,7 +2308,7 @@ def phase_ps_times(device, card):
                                               train_step)
     out, lines = {}, []
     gen = torch.Generator().manual_seed(31)
-    for bs in (128, 1024):
+    for bs in PS_TIMES_BATCHES:
         b = _batch((SMILES * (bs // len(SMILES) + 1))[:bs], bs)
         b["labels"] = torch.randint(0, PS_CLASSES, (bs,),
                                     generator=gen).numpy()
@@ -2147,7 +2340,7 @@ def phase_ps_times(device, card):
             request()
             req_lat.append((time.perf_counter() - t0) * 1e3)
         busy = None
-        if bs == 1024:
+        if bs == PS_TIMES_BATCHES[-1]:
             prof = _trace(lambda: float(train_step(net, opt, tb,
                                                    loss_kind="ce")))
             busy, ops = _device_ops(prof)
@@ -2183,6 +2376,18 @@ def phase_ps_times(device, card):
                                         gl, htil, st, ng, vid, src, dst,
                                         plan, meta)
         b_ms = _events_ms(lambda: K.launch_prepared(pb), 100)
+        b_trace = _kernel_trace_us_n(20, pb)[0] / 20
+        bargs = (weights, h0, labels, gmask, o, gout, gl, htil, st, ng, vid,
+                 src, dst, plan, meta)
+        detail = _detail_text("fused_psteps_bwd", *_walk_detail(
+            lambda **kw: P.prepare_fused_psteps_bwd(*bargs, **kw),
+            lambda: P.device_bwd_shape(
+                h0.shape[0], K.width_bucket("", P.BUCKETS, f=h0.shape[1],
+                                            od=o.shape[1], steps=meta.steps),
+                amat.shape[1], meta.steps, meta.state_mode != P.NONE,
+                device),
+            lambda pr: _ps_bwd_phases(pr, meta.steps), P.launch_counts,
+            device))
         with torch.no_grad():
             pf_ms = _events_ms(lambda: P.fused_psteps_reference(
                 *sargs, **skw), 10)
@@ -2205,7 +2410,8 @@ def phase_ps_times(device, card):
                "request_ms": statistics.median(req_lat),
                "fused_psteps_eval": dict(ms=e_ms, plain_ms=pe_ms),
                "fused_psteps_fwd": dict(ms=f_ms, plain_ms=pf_ms),
-               "fused_psteps_bwd": dict(ms=b_ms, plain_ms=pb_ms)}
+               "fused_psteps_bwd": dict(ms=b_ms, plain_ms=pb_ms,
+                                        trace_ms=b_trace / 1e3)}
         for name in PS_KERNELS:
             rec[name].update(bound_ms=bounds[name][0],
                              bound_by=bounds[name][1])
@@ -2225,7 +2431,8 @@ def phase_ps_times(device, card):
                 f"{rec[name]['plain_ms'] * 1e3:.1f} us, bound "
                 f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
-                f"{bounds[name][3] / 1e6:.3f} MB)" for name in PS_KERNELS))
+                f"{bounds[name][3] / 1e6:.3f} MB)" for name in PS_KERNELS)
+            + f"; fused_psteps_bwd {b_trace:.2f} us (trace); " + detail)
     print(f"ps-times [{card}]: " + "; ".join(lines), flush=True)
     return out
 
@@ -4799,14 +5006,33 @@ def rec_case(n, f, gen, device, weight_sd=None):
     return (msgs, h0, mask, gru, ma, bn), leaves, r(n, f)
 
 
+# recurrence_bwd's forced routes (_rec_route): every route of its rule,
+# and a tile of 16 nodes that leaves a block's nodes in global scratch
+REC_ROUTES = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
+              "spilled")
+
+
+def _rec_route(route, grid=None):
+    """Force recurrence_bwd's route for the launches inside (kernels/
+    recurrence.py::launch_shape; _forced_bwd_shape). The GPU tests, the
+    emulator's checks and scripts/time_recurrence.py --sweep force routes
+    through it."""
+    from mpnn_tpu_torch.kernels import recurrence as R
+    return _forced_bwd_shape(R, route, grid, lambda s, tag, steps, *_: (
+        s._replace(ncap=16, smem_bytes=4 * R.bwd_smem_floats(
+            tag, steps, 16))))
+
+
 def phase_rec_kernel_check(device):
     """recurrence_fwd and recurrence_bwd against reference_recurrence under
     autograd on the card, T 6 at f 10 and f 30 (the wide bucket), at b16's
     node slots, b1024's (16,512) and 32,896, a random mask: h_T, both
     statistics and every gradient leaf (each divided by its max abs)
     within rtol 1e-4 / atol 1e-5; then the serving launch (no residuals);
-    then at N(0, 0.3²) GRU weights the kernels within the same tolerance
-    of a float64 run, the plain chain's distance from it beside them."""
+    the backward on every forced route of its rule (_rec_route), twice
+    for the same bits; then at N(0, 0.3²) GRU weights the kernels within
+    the same tolerance of a float64 run, the plain chain's distance from
+    it beside them."""
     import torch
     from mpnn_tpu_torch.kernels import recurrence as R
     gen = torch.Generator().manual_seed(83)
@@ -4844,6 +5070,42 @@ def phase_rec_kernel_check(device):
                 f"max_scaled={gerr:.3e} {'ok' if ok else 'FAIL'}")
             if not ok:
                 failed.append(f"N={n} f={f}: {counts}")
+    # recurrence_bwd on every forced route, twice for the same bits
+    route_cases = ([(n16, 10, r) for r in REC_ROUTES]
+                   + [(REC_NODES[0], 10, "cluster 8"),
+                      (REC_NODES[0], 30, "grid"),
+                      (REC_NODES[0], 30, "spilled"),
+                      (REC_NODES[-1], 10, "spilled")])
+    routed = []
+    for n, f, route in route_cases:
+        args, leaves, g = rec_case(n, f, gen, device)
+        with _rec_route(route):
+            R.reset_launch_counts()
+            got = rec_value_and_grads(R.recurrence, args, leaves, g,
+                                      DEC_STEPS)
+            again = rec_value_and_grads(R.recurrence, args, leaves, g,
+                                        DEC_STEPS)
+            torch.cuda.synchronize()
+            shape = R.device_bwd_shape(n, "" if f <= 16 else "f32",
+                                       DEC_STEPS, device)
+        counts = dict(R.launch_counts)
+        want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                                   DEC_STEPS)
+        gerr, ok_g = 0.0, True
+        for k, w in want[1].items():
+            ok_k, e_k, _ = _scaled_within(got[1][k], w)
+            ok_g, gerr = ok_g and ok_k, max(gerr, e_k)
+        same = all(torch.equal(got[1][k], again[1][k]) for k in got[1])
+        ok = (ok_g and same and _route_matches(shape, route) and counts
+              == {"recurrence_fwd": 2, "recurrence_bwd": 2})
+        worst["recurrence_bwd"] = max(worst["recurrence_bwd"], gerr)
+        routed.append(f"N={n} f={f} {shape.tag()} {gerr:.2e}"
+                      + ("" if same else " BITS DIFFER")
+                      + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"N={n} f={f} {route}: {counts}")
+    results.append("recurrence_bwd on forced routes (twice for the same "
+                   "bits): " + ", ".join(routed))
     # past the init scale: GRU weights N(0, 0.3²) at b1024's slots and f
     # 30, the kernels and the plain chain each against a float64 run
     args, leaves, g = rec_case(REC_NODES[0], 30, gen, device, weight_sd=0.3)
@@ -5384,6 +5646,15 @@ def phase_dec_times(device, card):
                                                steps=DEC_STEPS)
                 ms = {p.name: _events_ms(lambda p=p: K.launch_prepared(p),
                                          100) for p in (pf, pd, prf, prb)}
+                rb_trace = _kernel_trace_us_n(20, prb)[0] / 20
+                rargs = (msgs, h0, mask, weights, stats, htil, g)
+                rdetail = _detail_text("recurrence_bwd", *_walk_detail(
+                    lambda **kw: R.prepare_recurrence_bwd(
+                        *rargs, steps=DEC_STEPS, **kw),
+                    lambda: R.device_bwd_shape(n, "" if f <= 16 else "f32",
+                                               DEC_STEPS, device),
+                    lambda pr: _rec_bwd_phases(pr, DEC_STEPS),
+                    R.launch_counts, device))
                 # the serving launch: h_T and the statistics alone, the
                 # function that recurrence_fwd's bound counts
                 prs = R.prepare_recurrence_fwd(msgs, h0, mask, weights,
@@ -5428,6 +5699,7 @@ def phase_dec_times(device, card):
                 bound, by, ops, nbytes = bounds[name]
                 out[bs][name] = dict(ms=ms[name], plain_ms=plain[name],
                                      bound_ms=bound, bound_by=by)
+            out[bs]["recurrence_bwd"]["trace_ms"] = rb_trace / 1e3
             line += "; " + ", ".join(
                 f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches), "
                 f"plain {plain[name] * 1e3:.1f} us, bound "
@@ -5438,7 +5710,8 @@ def phase_dec_times(device, card):
                      f"without the residual stash (the serving launch) "
                      f"{serve_ms * 1e3:.2f} us; spmm_fwd on the "
                      f"{er_i} real edges alone {real_ms * 1e3:.2f} us (the "
-                     f"dummy node's row takes the other {dummy_edges})")
+                     f"dummy node's row takes the other {dummy_edges}); "
+                     f"recurrence_bwd {rb_trace:.2f} us (trace); {rdetail}")
             busy, traced = _dec_trace(
                 "lipo", lambda: train_step(net, opt, batch_to_device(
                     b, device), hooks=hooks), DEC_KERNELS + MLP_KERNELS,
@@ -6154,10 +6427,51 @@ def phase_split_kernel_check(device):
             + f" {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(f"{what} {mn}/{sn}: {res}")
+    # the walks the split's rule sets beside ps_walk_bwd at b3584's 57,856
+    # slots: the per-step family's whole backward (forced, every norm
+    # pair; blocks past their tile) and lipo's recurrence_bwd (its rule's
+    # route and 16-node tiles), each against its plain version
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import recurrence as R
+    whole = functools.partial(P.fused_psteps, bwd="whole")
+    walks = []
+    for mn, sn in PS_NORMS:
+        c, leaves = _ps_case(big, 8, 16, gen, device)
+        kw = dict(steps=3, msg_norm=mn, state_norm=sn)
+        cw = torch.randn(c["labels"].shape[0], 16, generator=gen).to(device)
+        got = _step_and_grads(whole, _ps_step_args(c), leaves, cw, kw)
+        _sync(device)
+        want = _step_and_grads(P.fused_psteps_reference, _ps_step_args(c),
+                               leaves, cw, kw)
+        _, _, ok, err = _step_errors(got, want, mn)
+        walks.append(f"fused_psteps_bwd {mn}/{sn} {err:.2e}"
+                     + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"b3584 whole {mn}/{sn}")
+    for route in (None, "spilled"):
+        args, leaves, g = rec_case(SPLIT_NODES, 10, gen, device)
+        with _rec_route(route):
+            got = rec_value_and_grads(R.recurrence, args, leaves, g,
+                                      DEC_STEPS)
+            _sync(device)
+            shape = R.device_bwd_shape(SPLIT_NODES, "", DEC_STEPS, device)
+        want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                                   DEC_STEPS)
+        ok, err = True, 0.0
+        for k, w in want[1].items():
+            ok_k, e_k, _ = _scaled_within(got[1][k], w)
+            ok, err = ok and ok_k, max(err, e_k)
+        walks.append(f"recurrence_bwd {shape.tag()} {err:.2e}"
+                     + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"b3584 recurrence_bwd {route}")
+    results.append(f"b3584 ({SPLIT_NODES} slots) whole walks: "
+                   + ", ".join(walks))
     print(f"split-kernel-check: ro_bwd, msg_bwd, ps_walk_bwd vs their plain "
           f"versions (each output divided by its max abs; rtol {RTOL} atol "
-          f"{ATOL}; inputs random at the padded slots): "
-          + "; ".join(results), flush=True)
+          f"{ATOL}; inputs random at the padded slots); fused_psteps_bwd "
+          f"and recurrence_bwd beside them: " + "; ".join(results),
+          flush=True)
     if failed:
         raise RuntimeError(f"the split backward's kernels disagree with "
                            f"their plain versions: {failed}")
@@ -7230,13 +7544,15 @@ def main() -> int:
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     for name, line in zip(PS_KERNELS, (1254, 195, 428)):
-        tt = ps_times[1024][name]
+        tt = ps_times[PS_TIMES_BATCHES[-1]][name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/fused_psteps.py:{line}",
             "launches": ps_counts[name], "max_abs_err": ps_worst[name],
-            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "ms": tt["ms"], **({"trace_ms": tt["trace_ms"]}
+                               if "trace_ms" in tt else {}),
+            "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     att_sites = {"fused_att_fwd": "fused_att.py:77",
@@ -7300,7 +7616,9 @@ def main() -> int:
             "source": f"mpnn_tpu_torch/csrc/{name}.cu",
             "replaces": f"mpnn_tpu/kernels/{dec_sites[name]}",
             "launches": DEC_MAIN[name], "max_abs_err": dec_worst[name],
-            "ms": tt["ms"], "plain_ms": tt["plain_ms"],
+            "ms": tt["ms"], **({"trace_ms": tt["trace_ms"]}
+                               if "trace_ms" in tt else {}),
+            "plain_ms": tt["plain_ms"],
             "bound_ms": tt["bound_ms"], "bound_by": tt["bound_by"],
             "library_ms": None})
     for name, line in zip(SDDMM_KERNELS, (46, 134)):

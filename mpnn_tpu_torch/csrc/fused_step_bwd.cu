@@ -68,11 +68,12 @@
 // Bound on an H100 SXM: f32 CUDA-core arithmetic (chip_smoke.py
 // _step_bounds counts W_ih's products once, as this kernel runs them).
 
-#include "fused_train_common.cuh"
+#include "walk_bwd.cuh"
 
 namespace {
 
 using namespace mpnn_train;
+using namespace mpnn_walk;
 
 // Flat layout of the gradient output (and of each block's partial row):
 // real (unpadded) shapes, in this order. kernels/fused_step.py::grad_layout
@@ -100,15 +101,8 @@ struct GradLayout {
   }
 };
 
-constexpr int kBT = 256;              // threads a block
-constexpr int GS = FP;                // lanes a node (a group)
-constexpr int NG = kBT / GS;          // groups a block
-constexpr int kWB = kBT / 32;         // warps a block
-constexpr int kMaxGrid = 512;         // kernels/fused_step.py::MAX_GRID
-constexpr int kFlagStride = 4;        // u64 words: a flag a 32-byte sector
-constexpr int kFlagWords = (kMaxSteps + 1) * kMaxGrid * kFlagStride + 1;
-constexpr int kMaxGroups = 32;        // counter groups of the grid route
-constexpr int kProfSlots = 80;        // block 0's clock64 stamps
+// the grid route's flags: a row a round (slots 0..T), the tag last
+constexpr int kFlagWords = flag_words(kMaxSteps + 1);
 // W_hh's column a lane: in registers at FP 16, read from shared memory
 // at FP 32 (192 registers of weights and gradients would spill)
 constexpr bool kWReg = FP <= 16;
@@ -134,8 +128,6 @@ constexpr int kGi = 0, kSda = 3 * FP, kGh = 6 * FP, kXh = 7 * FP,
 constexpr int kDmb = 0, kX0 = FP, kDm = 2 * FP;
 static_assert(ODP % GS == 0 || ODP < GS, "outputs a lane");
 static_assert(QO == 1 || QO == 2 || QO == 4, "1, 2 or 4 outputs a lane");
-
-enum Route { kRouteCluster = 0, kRouteGrid = 1 };
 
 struct BwdArgs {
   Weights w;
@@ -170,10 +162,6 @@ struct BwdArgs {
 // ---------------------------------------------------------------------------
 // shared memory and scratch layouts
 // ---------------------------------------------------------------------------
-
-__host__ __device__ constexpr int al4(int n) { return (n + 3) & ~3; }
-
-constexpr int kRed = kWB * FP * FP > kBT * 16 ? kWB * FP * FP : kBT * 16;
 
 // Offsets (floats) of one block's shared memory past the staged weights
 // and norm constants (L::after_stats).
@@ -222,120 +210,15 @@ struct Scratch {
 // device helpers
 // ---------------------------------------------------------------------------
 
-#ifdef MPNN_CUDA_EMU
-__device__ inline void cp_async4(float* d, const float* s) {
-  emu_cp_async4(d, s);
-}
-__device__ inline void cp_async_wait_all() { emu_cp_async_wait_all(); }
-__device__ inline unsigned long long ld_flag(const unsigned long long* p) {
-  return emu_ld_relaxed(p);
-}
-__device__ inline void st_flag(unsigned long long* p, unsigned long long v) {
-  emu_st_relaxed(p, v);
-}
-__device__ inline void spin_pause() { emu_spin_pause(); }
-#else
-__device__ __forceinline__ void cp_async4(float* d, const float* s) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(d))),
-               "l"(s)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-__device__ __forceinline__ unsigned long long ld_flag(
-    const unsigned long long* p) {
-  unsigned long long v;
-  asm volatile("ld.relaxed.gpu.global.b64 %0, [%1];\n"
-               : "=l"(v)
-               : "l"(p)
-               : "memory");
-  return v;
-}
-__device__ __forceinline__ void st_flag(unsigned long long* p,
-                                        unsigned long long v) {
-  asm volatile("st.relaxed.gpu.global.b64 [%0], %1;\n" ::"l"(p), "l"(v)
-               : "memory");
-}
-__device__ __forceinline__ void spin_pause() {}
-#endif
-
-// 4 bytes into the node tile: cp.async into shared memory, a plain copy
-// into a spilled block's global scratch
-template <bool kSm>
-__device__ __forceinline__ void copy4(float* d, const float* s) {
-  if constexpr (kSm)
-    cp_async4(d, s);
-  else
-    *d = __ldg(s);
-}
+// The lane-group helpers, the flag and counter protocol's final sums and
+// the launch are walk_bwd.cuh's (shared with recurrence_bwd.cu and
+// fused_psteps_bwd.cu). The step combine below is this kernel's own: with
+// walk_bwd.cuh's (16 loads in flight, a cluster's 8 ranks unrolled)
+// inside its walk the f32 build spilled 48 B instead of 24 and ran 24%
+// slower (PERF.md, PR 17).
 
 __device__ __forceinline__ void stamp(const BwdArgs& a, int slot) {
-  if (a.prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 &&
-      slot < kProfSlots)
-    a.prof[slot] = clock64();
-}
-
-// lane j of a group takes value v of the group's lane k
-__device__ __forceinline__ float gshfl(float v, int k) {
-  const int base = int(threadIdx.x % 32) & ~(GS - 1);
-  return __shfl_sync(kFull, v, base + k);
-}
-
-// sums and maxima over a group's lanes (the same in every lane)
-__device__ __forceinline__ float gsum(float v) {
-#pragma unroll
-  for (int off = GS / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(kFull, v, off);
-  return v;
-}
-__device__ __forceinline__ float gmax(float v) {
-#pragma unroll
-  for (int off = GS / 2; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
-}
-
-// Reduce-scatter over the group's lanes: every lane holds NV partials p;
-// afterwards lane j holds the group's sums of p[j·NV/GS + i] in p[i],
-// i < NV/GS. Each round halves the live values; the order of the adds is
-// fixed.
-template <int NV, int OFF = GS / 2>
-__device__ __forceinline__ void reduce_scatter(float* p, int j) {
-  if constexpr (OFF >= 1) {
-    constexpr int H = NV * OFF / GS;
-    const bool up = (j & OFF) != 0;
-#pragma unroll
-    for (int i = 0; i < H; ++i) {
-      const float send = up ? p[i] : p[H + i];
-      const float keep = up ? p[H + i] : p[i];
-      p[i] = keep + __shfl_xor_sync(kFull, send, OFF);
-    }
-    reduce_scatter<NV, OFF / 2>(p, j);
-  }
-}
-
-// Per-lane vectors v[LEN] of every group summed over the block's groups
-// in order (at FP 16 the two groups of a warp first), into
-// out(idx, j) for idx < LEN, j < FP. Every thread calls it.
-template <int LEN, class Out>
-__device__ void groups_to(const float (&v)[LEN], float* red, Out out) {
-  static_assert(LEN * FP * kWB <= kRed, "red holds a warp's row");
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-#pragma unroll
-  for (int i = 0; i < LEN; ++i) {
-    float s = v[i];
-    if constexpr (GS < 32) s += __shfl_xor_sync(kFull, s, 16);
-    if (lane < FP) red[(warp * LEN + i) * FP + lane] = s;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < LEN * FP; e += kBT) {
-    float s = 0.f;
-    for (int w = 0; w < kWB; ++w) s += red[w * LEN * FP + e];
-    out(e / FP, e % FP, s);
-  }
-  __syncthreads();
+  mpnn_walk::stamp(a.prof, slot);
 }
 
 struct Ctx {
@@ -349,6 +232,11 @@ struct Ctx {
   float c, inv_gsum, gl_v;
   unsigned long long tag;   // the grid route's flag value this launch
   Smem L2;
+
+  __device__ Sync sync() const {
+    return Sync{a.route, nblocks, b, tag, a.flags, a.counters,
+                a.flags == nullptr ? nullptr : a.flags + kFlagWords - 1};
+  }
 };
 
 // The totals over the route's blocks of round s's block partial (2FP
@@ -426,36 +314,6 @@ __device__ void batch_sums(Ctx& x, int s, float s1, float s2) {
   combine(x, s);
 }
 
-// dst[e] = Σ_{r < nrows} rows[r·NW + e] in row order, for this block's
-// threads' elements e in [e0, e1): a thread takes 4 elements at once and
-// issues 8 rows' loads of each together before their adds.
-__device__ void ordered_row_sums(float* dst, const float* rows, int nrows,
-                                 int NW, int e0, int e1) {
-  for (int e = e0 + int(threadIdx.x); e < e1; e += 4 * kBT) {
-    float s[4] = {0.f, 0.f, 0.f, 0.f};
-    for (int r0 = 0; r0 < nrows; r0 += 8) {
-      float v[8][4];
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int ec = e + c * kBT;
-          v[i][c] = r0 + i < nrows && ec < e1
-                        ? __ldcg(rows + size_t(r0 + i) * NW + ec)
-                        : 0.f;
-        }
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          if (r0 + i < nrows) s[c] += v[i][c];
-    }
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (e + c * kBT < e1) dst[e + c * kBT] = s[c];
-  }
-}
-
 // Under the message bn1d Σ_g D_g = 0 (Σ ∂m over the batch), so dA0 =
 // Σ_g D_g ⊗ (S_g − S̄) for any S̄. With S̄ = Σ_g n_g·S_g / c (the mean over
 // the real nodes of their graph's Σh0) a shift common to every node's ∂m,
@@ -482,45 +340,20 @@ __device__ void center_da0(Ctx& x, const float* prows, int nrows, size_t ld,
   __syncthreads();
 }
 
-// The last block of each counter group sums its group's rows in block
-// order; the last group's last block sums the group rows into dw (the grid
-// route). Rows are complete before the call; every thread calls it.
+// The blocks' rows summed into dw in block order (the grid route:
+// walk_bwd.cuh's counter groups), then dA0 centred by the block that
+// finished dw. Rows are complete before the call; every thread calls it.
 __device__ void final_sum_grid(Ctx& x) {
   const BwdArgs& a = x.a;
-  const int tid = threadIdx.x, G = x.nblocks, NW = x.gl.total;
+  const int G = x.nblocks, NW = x.gl.total;
   const Scratch sc(a.n_nodes, a.n_edges, a.k_vocab, a.f, a.od, a.steps, G);
   const float* rows = a.scratch + sc.rows;
-  float* gparts = a.scratch + sc.gparts;
-  int gsz = 1;
-  while (gsz * gsz < G) ++gsz;
-  const int ngroups = (G + gsz - 1) / gsz;
-  const int g = x.b / gsz, b0 = g * gsz, b1 = min(G, b0 + gsz);
-  __threadfence();
-  __syncthreads();
-  int last = 0;
-  if (tid == 0) last = atomicAdd(a.counters + g, 1) == b1 - b0 - 1;
-  if (!__syncthreads_or(last)) return;
-  if (tid == 0) a.counters[g] = 0;
-  __threadfence();
-  ordered_row_sums(ngroups == 1 ? a.dw : gparts + size_t(g) * NW,
-                   rows + size_t(b0) * (NW + FP), b1 - b0, NW + FP, 0, NW);
-  if (ngroups > 1) {
-    __threadfence();
-    __syncthreads();
-    last = 0;
-    if (tid == 0) last = atomicAdd(a.counters + kMaxGroups, 1) == ngroups - 1;
-    if (!__syncthreads_or(last)) return;
-    if (tid == 0) a.counters[kMaxGroups] = 0;
-    __threadfence();
-    ordered_row_sums(a.dw, gparts, ngroups, NW, 0, NW);
-  }
-  if (has_stats(a.msg_mode) && !a.floor) {
+  if (mpnn_walk::final_sum_grid(x.sync(), a.dw, rows, NW, NW + FP,
+                                a.scratch + sc.gparts) &&
+      has_stats(a.msg_mode) && !a.floor) {
     __syncthreads();
     center_da0(x, rows + NW, G, NW + FP, true);
   }
-  // this launch's flags are spent: the next launch on this buffer tags
-  // its flags with the next value
-  if (tid == 0) st_flag(a.flags + kFlagWords - 1, x.tag);
 }
 
 // The rows of a cluster summed in rank order, a column chunk per block.
@@ -530,11 +363,7 @@ __device__ void final_sum_cluster(Ctx& x) {
   const int C = a.cluster, NW = x.gl.total;
   const float* rows = a.scratch + Scratch(a.n_nodes, a.n_edges, a.k_vocab,
                                           a.f, a.od, a.steps, C).rows;
-  __threadfence();
-  cg::this_cluster().sync();
-  const int per = (NW + C - 1) / C;
-  const int e0 = x.b * per;
-  ordered_row_sums(a.dw, rows, C, NW + FP, e0, min(NW, e0 + per));
+  mpnn_walk::final_sum_cluster(x.sync(), a.dw, rows, NW, NW + FP);
   if (has_stats(a.msg_mode) && !a.floor) {
     __threadfence();
     cg::this_cluster().sync();
@@ -1445,18 +1274,7 @@ int mpnn_fused_step_bwd_sync_words(int* counters) {
 // The co-resident blocks of the grid route at this shared memory, capped
 // at kMaxGrid; 0 on error.
 int mpnn_fused_step_bwd_max_grid(int bytes) {
-  if (cudaFuncSetAttribute(fused_step_bwd_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           bytes) != cudaSuccess)
-    return 0;
-  int dev = 0, sms = 0, per_sm = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess ||
-      cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, fused_step_bwd_kernel, kBT, bytes) != cudaSuccess)
-    return 0;
-  return min(per_sm * sms, kMaxGrid);
+  return max_grid(fused_step_bwd_kernel, bytes);
 }
 
 // Launches on `stream` and returns the launch's error code (0 = success).
@@ -1498,33 +1316,8 @@ int mpnn_fused_step_bwd(
             scratch, flags, counters, prof, n_nodes, n_graphs, n_edges, f,
             od, k_vocab, steps, msg_mode, state_mode, route,
             route == kRouteCluster ? grid : 1, ncap, ecap, floor};
-  const size_t bytes = smem_bytes(k_vocab, steps, ncap, ecap);
-  cudaError_t err = cudaFuncSetAttribute(
-      fused_step_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      int(bytes));
-  if (err != cudaSuccess) return int(err);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteGrid) {
-    void* args[] = {&a};
-    err = cudaLaunchCooperativeKernel((void*)fused_step_bwd_kernel,
-                                      dim3(grid), dim3(kBT), args, bytes, s);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(grid);
-    cfg.blockDim = dim3(kBT);
-    cfg.dynamicSmemBytes = bytes;
-    cfg.stream = s;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = grid;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = grid > 1 ? 1 : 0;
-    err = cudaLaunchKernelEx(&cfg, fused_step_bwd_kernel, a);
-  }
-  if (err != cudaSuccess) return int(err);
-  return int(cudaGetLastError());
+  return launch_route(fused_step_bwd_kernel, a, route, grid,
+                      smem_bytes(k_vocab, steps, ncap, ecap), stream);
 }
 
 const char* mpnn_cuda_error_string(int err) {

@@ -15,7 +15,9 @@ one norm pair per step; messages from the initial state.
     cooperative launch (csrc/fused_psteps_fwd.cu) and whose backward
     takes one of two routes, as the JAX package's does
     (kernels/split_bwd.py): up to 28,672 padded node slots the whole
-    backward in one launch (`_ps_bwd_kernel` → csrc/fused_psteps_bwd.cu);
+    backward in one launch (`_ps_bwd_kernel` → csrc/fused_psteps_bwd.cu,
+    on a thread-block cluster or a grid of co-resident blocks that
+    launch_shape picks, with no grid barrier);
     past them the split backward of `_streaming_bwd` — the readout VJP
     (kernels/readout_bwd.py), the reverse walk (kernels/psteps_walk.py)
     and the message VJP of the T networks (kernels/msg_bwd.py). Both
@@ -205,12 +207,13 @@ _SIGNATURES = {
         "mpnn_fused_psteps_fwd_grid": ([_I] * 3, _I),
     },
     "fused_psteps_bwd": {
-        "mpnn_fused_psteps_bwd": ([_P] * 33 + [_I] * 10 + [_P], _I),
-        "mpnn_fused_psteps_bwd_smem_bytes": ([_I], _I),
+        "mpnn_fused_psteps_bwd": ([_P] * 36 + [_I] * 14 + [_P], _I),
+        "mpnn_fused_psteps_bwd_smem_bytes": ([_I] * 4, _I),
         "mpnn_fused_psteps_bwd_layout": ([_I] * 4 + [_P], None),
         "mpnn_fused_psteps_bwd_scratch_floats": ([_I] * 7,
                                                  ctypes.c_longlong),
-        "mpnn_fused_psteps_bwd_grid": ([_I] * 4, _I),
+        "mpnn_fused_psteps_bwd_sync_words": ([_P], _I),
+        "mpnn_fused_psteps_bwd_max_grid": ([_I], _I),
     },
 }
 
@@ -406,13 +409,115 @@ def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
                             launch_counts)
 
 
+# ---------------------------------------------------------------------------
+# the backward's routes (csrc/fused_psteps_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256          # walk_bwd.cuh::kBT
+EDGE_RATIO = 3             # edge slots a node slot of a block's tile
+MAX_NCAP = 1024            # the most node slots a block's tile is given
+PROF_SLOTS = 80            # walk_bwd.cuh::kProfSlots: block 0's stamps
+# The route policy is the three reverse walks' one (fused_step.walk_shape):
+# with a state norm on batch statistics (bn1d or the stateless norm: its
+# sums cross blocks every step) a cluster up to CLUSTER_SLOTS slots;
+# otherwise, and without one (the T message norms' sums cross blocks once,
+# after the walk), a grid of a block per GRID_NODES slots.
+MAX_CLUSTER, MAX_GRID = K.MAX_CLUSTER, K.MAX_GRID
+CLUSTER_NODES, CLUSTER_SLOTS, GRID_NODES = (K.CLUSTER_NODES, K.CLUSTER_SLOTS,
+                                            K.GRID_NODES)
+
+# the empty walk's launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"fused_psteps_bwd_floor": 0}
+
+
+def bwd_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int,
+                    ecap: int) -> int:
+    """Floats of one backward block's shared memory (csrc/
+    fused_psteps_bwd.cu::Smem after fused_psteps_common.cuh::PL): the
+    staged weights and the 2T slots' norm constants, the round totals and
+    block partials, the reduction scratch, the readout's staged rows (and
+    in the wide bucket a round's gates), the block's node and edge tables
+    (ncap nodes, ecap edges), two steps' staged stash rows and the node
+    tile ((4 + T)·FP floats a node)."""
+    b = dict(BUCKETS)[tag]
+    fp, odw, T = b["f"], b["od"], steps
+    al4 = lambda v: (v + 3) & ~3
+    ro = 2 * fp * odw if odw <= 32 else 0          # kRoInSmem
+    weights = (2 * fp * 3 * fp + 6 * fp + 2 * ro + 2 * odw
+               + T * (fp * fp + 5 * fp) + 2 * T * 3 * fp)
+    warps = BWD_THREADS // 32
+    ng = BWD_THREADS // fp
+    red = max(warps * fp * fp, BWD_THREADS * 16)
+    rows = ng * 2 * (2 * fp + 4 + 2 * odw)
+    wst = 0 if fp <= 16 else ng * 6 * fp
+    n = al4(weights) + al4(3 * fp * T) + fp + 6 * fp * T + 4 + red + rows
+    n += wst + al4(2 * ncap + 1 + 5 * ecap + (warps + 1) * k_vocab + 1)
+    return n + 4 * ncap * fp + ncap * (4 + T) * fp
+
+
+# a backward launch (route, blocks, the tile's node and edge slots, bytes)
+PsBwdShape = K.BwdShape
+
+
+def _tile_floats(tag: str, k_vocab: int, steps: int):
+    return lambda c: bwd_smem_floats(tag, k_vocab, steps, c, EDGE_RATIO * c)
+
+
+def bwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int) -> int:
+    """The most node slots (at most MAX_NCAP, EDGE_RATIO edges each) whose
+    tile fits `smem_bytes` of a block; 0 when none does."""
+    return K.tile_capacity(_tile_floats(tag, k_vocab, steps), smem_bytes,
+                           MAX_NCAP)
+
+
+def launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                 state_sums: bool, smem_bytes: int, max_grid: int
+                 ) -> PsBwdShape:
+    """The backward's route for a batch of `n` node slots (the walks'
+    fused_step.walk_shape, with `state_sums` for a state norm on batch
+    statistics): a block's share stays within 3/4 of its tile
+    (bwd_capacity: fewer nodes in the wide bucket and at a large vocab or
+    T), since whole graphs go to a block. A block whose graphs still
+    outgrow its tile keeps them in global scratch, on the same route."""
+    s = K.walk_shape(
+        f"fused_psteps_bwd: one node at vocab {k_vocab}, T {steps}", n,
+        _tile_floats(tag, k_vocab, steps), most_ncap=MAX_NCAP, share=0.75,
+        step_sums=state_sums, smem_bytes=smem_bytes, max_grid=max_grid)
+    return PsBwdShape(s.route, s.grid, s.ncap, EDGE_RATIO * s.ncap,
+                      s.smem_bytes)
+
+
+_BWD_SHAPES: Dict[tuple, PsBwdShape] = {}
+
+
+def device_bwd_shape(n: int, tag: str, k_vocab: int, steps: int,
+                     state_sums: bool, device) -> PsBwdShape:
+    """launch_shape on `device`'s shared memory and co-resident blocks."""
+    key = (n, tag, k_vocab, steps, state_sums, str(device))
+    if key not in _BWD_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        cap = max(bwd_capacity(tag, k_vocab, steps, smem), 1)
+        most = _lib("fused_psteps_bwd", tag).mpnn_fused_psteps_bwd_max_grid(
+            4 * bwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap))
+        if most < 1:
+            raise RuntimeError("fused_psteps_bwd: no block fits this card")
+        _BWD_SHAPES[key] = launch_shape(n, tag, k_vocab, steps,
+                                        state_sums=state_sums,
+                                        smem_bytes=smem, max_grid=most)
+    return _BWD_SHAPES[key]
+
+
 def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
                              htil, stats, node_graph, vid, src, dst,
-                             plan: FusedEvalPlan, meta: PsMeta
-                             ) -> K.PreparedLaunch:
+                             plan: FusedEvalPlan, meta: PsMeta, prof=None,
+                             floor: bool = False) -> K.PreparedLaunch:
     """One checked backward launch on the forward's residuals (the batch
-    tensors as the forward checked them): outputs dh0 (N, f) and the flat
-    gradient of grad_layout."""
+    tensors as the forward checked them), on its route (device_bwd_shape):
+    outputs dh0 (N, f) and the flat gradient of grad_layout. A measurement
+    may take block 0's clock64 stamps (`prof`, int64 with PROF_SLOTS
+    slots) or launch the empty walk (`floor`: the route's grid and
+    combines, no arithmetic; counted as its own key)."""
     device = h0.device
     n, f = h0.shape
     w = dict(weights)
@@ -422,6 +527,7 @@ def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
                            ("gl", gl, (1,)), ("htil", htil, (2 * T, n, f)),
                            ("stats", stats, (2 * T, 2, f))]:
         K._check(name, t, shape, device, torch.float32)
+    K._check_prof(prof, PROF_SLOTS)
     tag = _bucket("fused_psteps", f, od, T)
     lib = _lib("fused_psteps_bwd", tag)
     layout = grad_layout(k_vocab, f, od, T)
@@ -430,22 +536,33 @@ def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("fused_psteps_bwd: the gradient layout of the "
                            "built library disagrees with grad_layout")
-    grid = K._grid(lib, "mpnn_fused_psteps_bwd_grid", T, n, g, e)
+    shape = device_bwd_shape(n, tag, k_vocab, T, meta.state_mode != NONE,
+                             device)
     kw = dict(dtype=torch.float32, device=device)
     dh0 = torch.empty(n, f, **kw)
     dw = torch.empty(layout["total"][0], **kw)
     scratch = torch.empty(lib.mpnn_fused_psteps_bwd_scratch_floats(
-        n, g, k_vocab, f, od, T, grid), **kw)
+        n, e, k_vocab, f, od, T, shape.grid), **kw)
+    stream = _stream(device)
+    flags, counters = (K.sync_buffers(lib.mpnn_fused_psteps_bwd_sync_words,
+                                      device, stream)
+                       if shape.route == "grid" and shape.grid > 1
+                       else (None, None))
     src_order, src_ptr = K.source_order(src, n)
     tensors = _kernel_tensors(weights, tag) + [
         h0, labels, gmask, out, gout, gl, htil, stats, vid, src, dst,
         src_order, src_ptr, plan.graph_node_ptr, node_graph, dh0, dw,
         scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, e, f, od, k_vocab, T,
-            meta.msg_mode, meta.state_mode, grid, _stream(device))
-    return K.PreparedLaunch("fused_psteps_bwd", lib.mpnn_fused_psteps_bwd,
+    args = (*(t.data_ptr() for t in tensors), K._ptr(flags),
+            K._ptr(counters), K._ptr(prof), n, g, e, f, od, k_vocab, T,
+            meta.msg_mode, meta.state_mode, int(shape.route == "grid"),
+            shape.grid, shape.ncap, shape.ecap, int(floor), stream)
+    return K.PreparedLaunch("fused_psteps_bwd_floor" if floor
+                            else "fused_psteps_bwd",
+                            lib.mpnn_fused_psteps_bwd,
                             lib.mpnn_cuda_error_string, args, (dh0, dw),
-                            tuple(tensors), launch_counts)
+                            tuple(tensors) + (flags, counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 def flat_weights(amat, a0, mbias, gru, ma_bns, bns, ro, h0, *, steps: int,

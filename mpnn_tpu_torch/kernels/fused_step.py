@@ -884,21 +884,77 @@ MAX_GRID = 512             # kMaxGrid: the flag rows of the grid route
 EDGE_RATIO = 3             # edge slots a node slot of a block's tile
 MAX_NCAP = 1024            # the most node slots a block's tile is given
 PROF_SLOTS = 80            # kProfSlots: block 0's clock64 stamps
-# Node slots a block takes. With a state norm (its batch sums cross blocks
-# in every step) up to CLUSTER_SLOTS slots the cluster route takes the
-# fewest blocks (1, 2, 4, 8) whose share is at most CLUSTER_NODES (8 past
-# them); otherwise, and without a state norm at any size, the grid route
-# takes one block per GRID_NODES slots, up to the co-resident blocks. From
-# scripts/time_fused_step.py --sweep (PERF.md, row 3; events): lipo
-# bn1d/bn1d's cluster of 8 beat every grid at 256 and 384 slots (63.7,
-# 65.2 us; a block per 8 slots 68.1, 70.4) and lost at 512 (72.0 against
-# 69.9 at a block per 16) and 640 (82.3 against 71.7); from 512 to 2,176
-# slots a block per 16 beat 8, 32, 64 and 100 or lay within 2%; without a
-# state norm the grid at 16 beat a cluster of 8 at 256 slots (basic
-# none/none 48.7 against 53.9 us) and 8 a block was at most 5% faster.
+# Node slots a block takes, in all three reverse walks (fused_step_bwd,
+# fused_psteps_bwd, recurrence_bwd; walk_shape). With a state norm (its
+# batch sums cross blocks in every step) up to CLUSTER_SLOTS slots the
+# cluster route takes the fewest blocks (1, 2, 4, 8) whose share is at
+# most CLUSTER_NODES (8 past them); otherwise, and without a state norm at
+# any size, the grid route takes one block per GRID_NODES slots, up to the
+# co-resident blocks. From scripts/time_fused_step.py --sweep (PERF.md,
+# row 3; events): lipo bn1d/bn1d's cluster of 8 beat every grid at 256
+# and 384 slots (63.7, 65.2 us; a block per 8 slots 68.1, 70.4) and lost
+# at 512 (72.0 against 69.9 at a block per 16) and 640 (82.3 against 71.7);
+# from 512 to 2,176 slots a block per 16 beat 8, 32, 64 and 100 or lay
+# within 2%; without a state norm the grid at 16 beat a cluster of 8 at
+# 256 slots (basic none/none 48.7 against 53.9 us) and 8 a block was at
+# most 5% faster. scripts/time_fused_psteps.py and scripts/time_recurrence.py
+# --sweep found the same constants for the other two walks (PERF.md, PR 17).
 CLUSTER_NODES = 32
 CLUSTER_SLOTS = 384
 GRID_NODES = 16
+
+
+class WalkShape(NamedTuple):
+    """A reverse walk's launch: the route ('cluster': one thread-block
+    cluster of `grid` blocks; 'grid': `grid` co-resident blocks), the node
+    slots of a block's shared-memory tile and its dynamic shared memory
+    (bytes)."""
+    route: str
+    grid: int
+    ncap: int
+    smem_bytes: int
+
+    def tag(self) -> str:
+        return f"{self.route} x{self.grid} cap {self.ncap}"
+
+
+def tile_capacity(smem_floats, smem_bytes: int, most: int) -> int:
+    """The most node slots c <= `most` whose tile of smem_floats(c) floats
+    fits `smem_bytes`; 0 when none does."""
+    lo, hi = 0, most
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = ((mid, hi) if 4 * smem_floats(mid) <= smem_bytes
+                  else (lo, mid - 1))
+    return lo
+
+
+def walk_shape(who: str, n: int, smem_floats, *, most_ncap: int,
+               share: float, step_sums: bool, smem_bytes: int,
+               max_grid: int) -> WalkShape:
+    """The route of a reverse walk over `n` node slots, from shapes alone:
+    with `step_sums` (batch sums that every step combines across blocks)
+    up to CLUSTER_SLOTS slots one cluster of the fewest blocks (1, 2, 4)
+    that take at most CLUSTER_NODES slots each, else 8; past them, and
+    without step_sums at any size, the grid route with a block per
+    GRID_NODES slots, at most `max_grid` (the card's co-resident blocks)
+    and MAX_GRID. Neither route gives a block more than `share` of its
+    tile, the most node slots (at most `most_ncap`) whose smem_floats fit
+    `smem_bytes`, while the card holds the blocks. NotImplementedError
+    (naming `who`) when not one node fits."""
+    cap = tile_capacity(smem_floats, smem_bytes, most_ncap)
+    if cap < 1:
+        raise NotImplementedError(
+            f"{who} needs {4 * smem_floats(1)} bytes of shared memory; the "
+            f"card has {smem_bytes}")
+    bytes_ = 4 * smem_floats(cap)
+    fill = max(1, int(share * cap))
+    if step_sums and n <= CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
+        c = next((c for c in (1, 2, 4)
+                  if -(-n // c) <= min(CLUSTER_NODES, fill)), MAX_CLUSTER)
+        return WalkShape("cluster", c, cap, bytes_)
+    grid = max(1, min(max_grid, MAX_GRID, -(-n // min(GRID_NODES, fill))))
+    return WalkShape("grid", grid, cap, bytes_)
 
 
 def _bucket_widths(tag: str):
@@ -943,51 +999,32 @@ class BwdShape(NamedTuple):
         return f"{self.route} x{self.grid} cap {self.ncap}"
 
 
+def _tile_floats(tag: str, k_vocab: int, steps: int):
+    return lambda c: bwd_smem_floats(tag, k_vocab, steps, c, EDGE_RATIO * c)
+
+
 def bwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int) -> int:
     """The most node slots (at most MAX_NCAP, EDGE_RATIO edges each) whose
     tile fits `smem_bytes` of a block; 0 when none does."""
-    fits = lambda c: 4 * bwd_smem_floats(tag, k_vocab, steps, c,
-                                         EDGE_RATIO * c) <= smem_bytes
-    lo, hi = 0, MAX_NCAP
-    while lo < hi:
-        mid = (lo + hi + 1) // 2
-        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
-    return lo
+    return tile_capacity(_tile_floats(tag, k_vocab, steps), smem_bytes,
+                         MAX_NCAP)
 
 
 def launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
                  step_sums: bool, smem_bytes: int, max_grid: int
                  ) -> BwdShape:
-    """The backward's route for a batch of `n` node slots, from shapes and
-    norms alone: with `step_sums` (a state norm, whose batch sums every
-    step combines across blocks) up to CLUSTER_SLOTS slots one cluster of
-    the fewest blocks (1, 2, 4) that take at most CLUSTER_NODES slots each,
-    else 8; past them, and without step_sums at any size, the grid route
-    with a block per GRID_NODES slots, at most `max_grid` (the card's
-    co-resident blocks);
-    neither share past 3/4 of a block's tile, which holds as many nodes as
-    its shared memory does (bwd_capacity: fewer in the wide buckets and
-    with a large vocab or T).
-    A block whose graphs still outgrow its tile keeps them in global
-    scratch, on the same route. NotImplementedError when not one node
-    fits."""
-    cap = bwd_capacity(tag, k_vocab, steps, smem_bytes)
-    if cap < 1:
-        raise NotImplementedError(
-            f"fused_step_bwd: one node at vocab {k_vocab}, T {steps} needs "
-            f"{4 * bwd_smem_floats(tag, k_vocab, steps, 1, EDGE_RATIO)} "
-            f"bytes of shared memory; the card has {smem_bytes}")
-    bytes_ = 4 * bwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap)
-    # a block's share of the slots stays within 3/4 of its tile: whole
-    # graphs go to a block, so its real nodes pass its share by up to a
-    # graph
-    fill = max(1, 3 * cap // 4)
-    if step_sums and n <= CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
-        c = next((c for c in (1, 2, 4)
-                  if -(-n // c) <= min(CLUSTER_NODES, fill)), MAX_CLUSTER)
-        return BwdShape("cluster", c, cap, EDGE_RATIO * cap, bytes_)
-    grid = max(1, min(max_grid, MAX_GRID, -(-n // min(GRID_NODES, fill))))
-    return BwdShape("grid", grid, cap, EDGE_RATIO * cap, bytes_)
+    """The backward's route for a batch of `n` node slots (walk_shape, with
+    `step_sums` for a state norm): a block's share stays within 3/4 of its
+    tile (bwd_capacity: fewer nodes in the wide buckets and with a large
+    vocab or T), since whole graphs go to a block and its real nodes pass
+    its share by up to a graph. A block whose graphs still outgrow its
+    tile keeps them in global scratch, on the same route."""
+    s = walk_shape(f"fused_step_bwd: one node at vocab {k_vocab}, T {steps}",
+                   n, _tile_floats(tag, k_vocab, steps), most_ncap=MAX_NCAP,
+                   share=0.75, step_sums=step_sums, smem_bytes=smem_bytes,
+                   max_grid=max_grid)
+    return BwdShape(s.route, s.grid, s.ncap, EDGE_RATIO * s.ncap,
+                    s.smem_bytes)
 
 
 _BWD_SHAPES: Dict[tuple, BwdShape] = {}
@@ -1012,17 +1049,20 @@ def device_bwd_shape(n: int, tag: str, k_vocab: int, steps: int,
     return _BWD_SHAPES[key]
 
 
-# The grid route's flags and counters, one pair per device and stream,
-# zeroed once: every launch leaves its counters zero and tags its flags
-# with a value the last launch left in the flag buffer's last word.
+# The grid routes' flags and counters of the reverse walks (fused_step_bwd,
+# fused_psteps_bwd, recurrence_bwd), one pair per kernel, device and
+# stream, zeroed once: every launch leaves its counters zero and tags its
+# flags with a value the last launch left in the flag buffer's last word.
 _SYNC: Dict[tuple, tuple] = {}
 
 
-def _sync_buffers(lib, device, stream: int):
-    key = (str(device), stream)
+def sync_buffers(words_fn, device, stream: int):
+    """The (u64 flags, int32 counters) pair of a kernel's grid route;
+    `words_fn` is its library's `*_sync_words` entry point."""
+    key = (words_fn.__name__, str(device), stream)
     if key not in _SYNC:
         n_counters = ctypes.c_int()
-        words = lib.mpnn_fused_step_bwd_sync_words(ctypes.byref(n_counters))
+        words = words_fn(ctypes.byref(n_counters))
         _SYNC[key] = (torch.zeros(words, dtype=torch.int64, device=device),
                       torch.zeros(n_counters.value, dtype=torch.int32,
                                   device=device))
@@ -1067,7 +1107,8 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
     scratch = torch.empty(lib.mpnn_fused_step_bwd_scratch_floats(
         n, e, k_vocab, f, od, T, shape.grid), **kw)
     stream = torch.cuda.current_stream(device).cuda_stream
-    flags, counters = (_sync_buffers(lib, device, stream)
+    flags, counters = (sync_buffers(lib.mpnn_fused_step_bwd_sync_words,
+                                    device, stream)
                        if shape.route == "grid" and shape.grid > 1
                        else (None, None))
     src_order, src_ptr = source_order(src, n)

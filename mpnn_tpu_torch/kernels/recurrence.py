@@ -14,10 +14,12 @@ feed the running EMAs: models/sparse.py::mpnn_new_state).
 make_recurrence_op(steps, f) returns the `recurrence_fn` hook of
 models/sparse.py. The JAX package picks one of four TPU variants by VMEM
 size (make_recurrence_op_auto); they compute the same function, and here
-one pair of kernels does at any node count: csrc/recurrence_fwd.cu and
-csrc/recurrence_bwd.cu, one cooperative launch each. CPU tensors run the
-plain version (reference_recurrence under autograd); CUDA tensors launch
-the kernels or raise.
+one pair of kernels does at any node count: csrc/recurrence_fwd.cu (one
+cooperative launch) and csrc/recurrence_bwd.cu (one launch on the route
+launch_shape picks: a thread-block cluster or a grid of co-resident
+blocks, no grid barrier). CPU tensors run the plain version
+(reference_recurrence under autograd); CUDA tensors launch the kernels or
+raise.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ BUCKETS = (("", dict(f=16)), ("f32", dict(f=32)))
 MAX_STEPS = 32
 
 launch_counts: Dict[str, int] = {"recurrence_fwd": 0, "recurrence_bwd": 0}
+# the empty walk's launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"recurrence_bwd_floor": 0}
 
 
 def reset_launch_counts() -> None:
@@ -71,12 +75,13 @@ _SIGNATURES = {
         "mpnn_recurrence_fwd_grid": ([_I, _I], _I),
     },
     "recurrence_bwd": {
-        "mpnn_recurrence_bwd": ([_P] * 18 + [_I] * 4 + [_P], _I),
-        "mpnn_recurrence_bwd_smem_bytes": ([_I], _I),
+        "mpnn_recurrence_bwd": ([_P] * 21 + [_I] * 7 + [_P], _I),
+        "mpnn_recurrence_bwd_smem_bytes": ([_I, _I], _I),
         "mpnn_recurrence_bwd_layout": ([_I, _P], None),
-        "mpnn_recurrence_bwd_scratch_floats": ([_I, _I, _I],
+        "mpnn_recurrence_bwd_scratch_floats": ([_I] * 4,
                                                ctypes.c_longlong),
-        "mpnn_recurrence_bwd_grid": ([_I, _I], _I),
+        "mpnn_recurrence_bwd_sync_words": ([_P], _I),
+        "mpnn_recurrence_bwd_max_grid": ([_I], _I),
     },
 }
 
@@ -146,15 +151,98 @@ def prepare_recurrence_fwd(msgs, h0, mask, weights, *, steps: int,
                             (ht, stats, htil), keep, launch_counts)
 
 
+# ---------------------------------------------------------------------------
+# the backward's routes (csrc/recurrence_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256          # walk_bwd.cuh::kBT
+MAX_NCAP = 2048            # the most node slots a block's tile is given
+PROF_SLOTS = 80            # walk_bwd.cuh::kProfSlots: block 0's stamps
+# The route policy is the three reverse walks' one (fused_step.walk_shape):
+# every step's batch sums cross blocks, so a cluster up to CLUSTER_SLOTS
+# slots, past them a grid of a block per GRID_NODES slots.
+MAX_CLUSTER, MAX_GRID = K.MAX_CLUSTER, K.MAX_GRID
+CLUSTER_NODES, CLUSTER_SLOTS, GRID_NODES = (K.CLUSTER_NODES, K.CLUSTER_SLOTS,
+                                            K.GRID_NODES)
+
+
+def _fp(tag: str) -> int:
+    return dict(BUCKETS)[tag]["f"]
+
+
+def bwd_smem_floats(tag: str, steps: int, ncap: int) -> int:
+    """Floats of one backward block's shared memory (csrc/
+    recurrence_bwd.cu::Smem after recurrence_common.cuh::RL): the staged
+    weights and each slot's norm constants, the round totals and block
+    partials, the reduction scratch, two staged h̃ slots and the node tile
+    (8·FP floats a node)."""
+    fp = _fp(tag)
+    al4 = lambda v: (v + 3) & ~3
+    cw = 2 * fp + 4
+    red = max((BWD_THREADS // 32) * fp * fp, BWD_THREADS * 16)
+    n = al4(6 * fp * fp + 10 * fp + 4 * fp * (steps + 1))
+    return n + cw + (steps + 1) * cw + 4 + red + 2 * ncap * fp + ncap * 8 * fp
+
+
+# a backward launch (route, blocks, the tile's node slots, bytes)
+RecShape = K.WalkShape
+
+
+def bwd_capacity(tag: str, steps: int, smem_bytes: int) -> int:
+    """The most node slots (at most MAX_NCAP) whose tile fits `smem_bytes`
+    of a block; 0 when none does."""
+    return K.tile_capacity(lambda c: bwd_smem_floats(tag, steps, c),
+                           smem_bytes, MAX_NCAP)
+
+
+def launch_shape(n: int, tag: str, steps: int, *, smem_bytes: int,
+                 max_grid: int) -> RecShape:
+    """The backward's route for `n` node slots (the walks'
+    fused_step.walk_shape; every step's sums cross blocks): no share past
+    a block's tile (bwd_capacity: fewer slots in the wide bucket and at a
+    large T) while the card holds the blocks. Past that (57,856 slots of
+    lipo's split at f 10) a block keeps its nodes in global scratch, on
+    the same route."""
+    return K.walk_shape(f"recurrence_bwd: one node at T {steps}", n,
+                        lambda c: bwd_smem_floats(tag, steps, c),
+                        most_ncap=MAX_NCAP, share=1.0, step_sums=True,
+                        smem_bytes=smem_bytes, max_grid=max_grid)
+
+
+_BWD_SHAPES: Dict[tuple, RecShape] = {}
+
+
+def device_bwd_shape(n: int, tag: str, steps: int, device) -> RecShape:
+    """launch_shape on `device`'s shared memory and co-resident blocks."""
+    key = (n, tag, steps, str(device))
+    if key not in _BWD_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        cap = max(bwd_capacity(tag, steps, smem), 1)
+        most = _lib("recurrence_bwd", tag).mpnn_recurrence_bwd_max_grid(
+            4 * bwd_smem_floats(tag, steps, cap))
+        if most < 1:
+            raise RuntimeError("recurrence_bwd: no block fits this card")
+        _BWD_SHAPES[key] = launch_shape(n, tag, steps, smem_bytes=smem,
+                                        max_grid=most)
+    return _BWD_SHAPES[key]
+
+
 def prepare_recurrence_bwd(msgs, h0, mask, weights, stats, htil, ght, *,
-                           steps: int) -> K.PreparedLaunch:
-    """One checked backward launch on the forward's residuals. Outputs
-    (dmsgs (N, f), dh0 (N, f), the flat gradient of grad_layout)."""
+                           steps: int, prof=None, floor: bool = False
+                           ) -> K.PreparedLaunch:
+    """One checked backward launch on the forward's residuals, on its route
+    (device_bwd_shape). Outputs (dmsgs (N, f), dh0 (N, f), the flat
+    gradient of grad_layout). A measurement may take block 0's clock64
+    stamps (`prof`, int64 with PROF_SLOTS slots) or launch the empty walk
+    (`floor`: the route's grid and combines, no arithmetic; counted as its
+    own key)."""
     n, f, tag = _check_inputs(msgs, h0, mask, weights, steps)
     for name, t, shape in [("stats", stats, (steps + 1, 2, f)),
                            ("htil", htil, (steps, n, f)),
                            ("ght", ght, (n, f))]:
         K._check(name, t, shape, h0.device, torch.float32)
+    K._check_prof(prof, PROF_SLOTS)
     lib = _lib("recurrence_bwd", tag)
     layout = grad_layout(f)
     c_layout = (ctypes.c_int * 9)()
@@ -162,20 +250,29 @@ def prepare_recurrence_bwd(msgs, h0, mask, weights, stats, htil, ght, *,
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("recurrence_bwd: the gradient layout of the "
                            "built library disagrees with grad_layout")
-    grid = K._grid(lib, "mpnn_recurrence_bwd_grid", steps, n)
-    kw = dict(dtype=torch.float32, device=h0.device)
+    device = h0.device
+    shape = device_bwd_shape(n, tag, steps, device)
+    kw = dict(dtype=torch.float32, device=device)
     dmsgs = torch.empty(n, f, **kw)
     dh0 = torch.empty(n, f, **kw)
     dw = torch.empty(layout["total"][0], **kw)
-    scratch = torch.empty(lib.mpnn_recurrence_bwd_scratch_floats(n, f, grid),
-                          **kw)
+    scratch = torch.empty(lib.mpnn_recurrence_bwd_scratch_floats(
+        n, f, steps, shape.grid), **kw)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    flags, counters = (K.sync_buffers(lib.mpnn_recurrence_bwd_sync_words,
+                                      device, stream)
+                       if shape.route == "grid" and shape.grid > 1
+                       else (None, None))
     keep = (msgs, h0, mask, *weights, stats, htil, ght, dmsgs, dh0, dw,
             scratch)
-    args = (*(t.data_ptr() for t in keep), n, f, steps, grid,
-            torch.cuda.current_stream(h0.device).cuda_stream)
-    return K.PreparedLaunch("recurrence_bwd", lib.mpnn_recurrence_bwd,
+    args = (*(t.data_ptr() for t in keep), K._ptr(flags), K._ptr(counters),
+            K._ptr(prof), n, f, steps, int(shape.route == "grid"),
+            shape.grid, shape.ncap, int(floor), stream)
+    return K.PreparedLaunch("recurrence_bwd_floor" if floor
+                            else "recurrence_bwd", lib.mpnn_recurrence_bwd,
                             lib.mpnn_cuda_error_string, args,
-                            (dmsgs, dh0, dw), keep, launch_counts)
+                            (dmsgs, dh0, dw), keep + (flags, counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 def split_grads(dw: torch.Tensor, f: int):

@@ -4,7 +4,10 @@ through the port's own op (kernels/recurrence.py: the checks, the
 autograd Function, the residual stash) and held against the plain version
 reference_recurrence: h_T, both statistics and every gradient leaf, in
 the narrow (f <= 16) and the wide bucket (f <= 32), with a random mask,
-node counts that leave a chunk ragged and more chunks than blocks; then
+node counts that leave a chunk ragged and more chunks than blocks; the
+backward on the route its rule picks and on every forced route
+(chip_smoke.py::_rec_route: clusters of 1-8 blocks, a grid, a 16-node tile
+that leaves blocks in global scratch), each twice for the same bits; then
 the serving launch (no residuals); then, at GRU weights past the init
 scale, the kernels against a float64 run. A rehearsal before a chip call;
 timings mean nothing here. Run from the repository root:
@@ -26,20 +29,27 @@ sys.path[:0] = [HERE, os.path.join(os.path.dirname(os.path.dirname(HERE)),
 
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import recurrence as R             # noqa: E402
-from chip_smoke import (rec_case, rec_distances,              # noqa: E402
-                        rec_float64, rec_value_and_grads)
+from chip_smoke import (_rec_route, rec_case,                 # noqa: E402
+                        rec_distances, rec_float64,
+                        rec_value_and_grads)
 
 
 def close(got, want):
     return bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
 
 
-def case(seed, n, f, steps):
+def case(seed, n, f, steps, route=None, grid=None):
     args, leaves, g = rec_case(n, f, torch.Generator().manual_seed(seed),
                                "cpu")
     R.reset_launch_counts()
-    got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
-    assert R.launch_counts == {"recurrence_fwd": 1, "recurrence_bwd": 1}
+    with _rec_route(route, grid):
+        got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+        again = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+        shape = R.device_bwd_shape(n, "" if f <= 16 else "f32", steps,
+                                   "cpu")
+    assert R.launch_counts == {"recurrence_fwd": 2, "recurrence_bwd": 2}
+    same = all(torch.equal(x, y) for x, y in zip(got[1].values(),
+                                                  again[1].values()))
     want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
                                steps)
     ok = all(close(x, y) for x, y in zip(got[0], want[0]))
@@ -51,8 +61,9 @@ def case(seed, n, f, steps):
         ok = ok and close(got[1][name] / scale, w / scale)
     with torch.no_grad():
         served = R.recurrence(*args, steps=steps)[0]
-    ok = ok and close(served, want[0][0])
-    print(f"N={n} f={f} T={steps}: fwd+stats {ef:.2e} grads {eb:.2e} "
+    ok = ok and close(served, want[0][0]) and same
+    print(f"N={n} f={f} T={steps} {shape.tag()}: fwd+stats {ef:.2e} grads "
+          f"{eb:.2e}{'' if same else ' BITS DIFFER'} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok
 
@@ -79,10 +90,18 @@ def main(argv) -> int:
               asan="--asan" in argv)
     emu.emulate(R)
     oks = [case(0, 256, 10, 4),           # TestRecurrence's shape
-           case(1, 700, 10, 6),           # 6 chunks on 3 blocks, ragged
+           case(1, 700, 10, 6),           # the grid of 3 blocks, ragged
            case(2, 300, 24, 3),           # the wide bucket
            case(3, 130, 32, 2),
            case(4, 40, 7, 1),
+           # every forced route, narrow and wide
+           *[case(6 + i, 200, 10, 3, route, 4 if route == "grid" else None)
+             for i, route in enumerate(("cluster 1", "cluster 2",
+                                        "cluster 4", "cluster 8", "grid",
+                                        "spilled"))],
+           case(12, 90, 30, 2, "cluster 4"),
+           case(13, 90, 30, 2, "spilled"),
+           case(14, 5, 10, 2, "cluster 8"),   # blocks without nodes
            float64_case(5, 700, 30, 6)]
     return 0 if all(oks) else 1
 

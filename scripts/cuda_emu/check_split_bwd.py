@@ -6,12 +6,16 @@ split_kernel_case: inputs random at the padded node slots), in the narrow
 and the wide bucket, every per-step norm pair, T 1 and 3; then both
 families' ops with bwd="split" (the forward's plain version, the
 emulated backward kernels) against the plain whole-step version under
-autograd. A rehearsal before a chip call; timings mean nothing here. Run
-from the repository root:
+autograd, the shared family's recurrence_bwd on every route its rule
+can take (chip_smoke.py::_rec_route, the tile overflow and a cluster of
+one among them), and the per-step family's whole backward
+(fused_psteps_bwd) on every route of its rule (chip_smoke.py::_ps_route)
+beside its split. A rehearsal before a chip call; timings mean nothing
+here. Run from the repository root:
 
     python scripts/cuda_emu/check_split_bwd.py [--asan]
 
-which builds the eight libraries first. Exits non-zero when a case
+which builds the eleven libraries first. Exits non-zero when a case
 disagrees beyond 1e-4 / 1e-5 (each output divided by its max abs).
 """
 
@@ -71,7 +75,9 @@ def kernel_cases(b40, ragged):
 
 def route_cases(b40):
     """fused_step and fused_psteps with bwd='split' against the plain
-    whole-step version under autograd."""
+    whole-step version under autograd, recurrence_bwd on every forced
+    route; fused_psteps with bwd='whole' on every forced route of its
+    backward."""
     gen = torch.Generator().manual_seed(6)
     ok_all = True
     f = int(b40["node_feats"].shape[1] + b40["node_nafm"].shape[1])
@@ -80,19 +86,40 @@ def route_cases(b40):
     args, leaves = C._step_args(b40, w, gen)
     cw = torch.randn(args[10].shape[0], 14, generator=gen)
     kw = dict(steps=4, msg_norm="bn1d", state_norm="bn1d")
-    for mod in (K, MB, RB, R):
-        mod.reset_launch_counts()
-    got = C._step_and_grads(K.fused_step, args, leaves, cw,
-                            dict(kw, bwd="split"))
-    counts = {**RB.launch_counts, **MB.launch_counts,
-              "recurrence_bwd": R.launch_counts["recurrence_bwd"]}
     want = C._step_and_grads(K.fused_step_reference, args, leaves, cw, kw)
-    ok_f, err_f, ok_b, err_b = C._step_errors(got, want, "bn1d")
-    ok = ok_f and ok_b and counts == {"ro_bwd": 1, "msg_bwd": 1,
-                                      "recurrence_bwd": 1}
-    ok_all = ok_all and ok
-    print(f"fused_step bwd=split f={f}: fwd {err_f:.2e} bwd {err_b:.2e} "
-          f"launches {counts} {'ok' if ok else 'FAIL'}", flush=True)
+    for route in (None, *C.REC_ROUTES):
+        for mod in (K, MB, RB, R):
+            mod.reset_launch_counts()
+        with C._rec_route(route, 3 if route == "grid" else None):
+            got = C._step_and_grads(K.fused_step, args, leaves, cw,
+                                    dict(kw, bwd="split"))
+            shape = R.device_bwd_shape(args[3].shape[0], "", 4, CPU)
+        counts = {**RB.launch_counts, **MB.launch_counts,
+                  "recurrence_bwd": R.launch_counts["recurrence_bwd"]}
+        ok_f, err_f, ok_b, err_b = C._step_errors(got, want, "bn1d")
+        ok = ok_f and ok_b and counts == {"ro_bwd": 1, "msg_bwd": 1,
+                                          "recurrence_bwd": 1}
+        ok_all = ok_all and ok
+        print(f"fused_step bwd=split f={f} recurrence_bwd {shape.tag()}: "
+              f"fwd {err_f:.2e} bwd {err_b:.2e} launches {counts} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+    c, leaves = C._ps_case(b40, 8, 16, gen, CPU)
+    cw = torch.randn(c["labels"].shape[0], 16, generator=gen)
+    kw = dict(steps=3, msg_norm="bn1d", state_norm="bn1d")
+    want = C._step_and_grads(P.fused_psteps_reference, C._ps_step_args(c),
+                             leaves, cw, kw)
+    for route in (None, *C.PS_ROUTES):
+        P.reset_launch_counts()
+        with C._ps_route(route, 3 if route == "grid" else None):
+            got = C._step_and_grads(P.fused_psteps, C._ps_step_args(c),
+                                    leaves, cw, dict(kw, bwd="whole"))
+            shape = P.device_bwd_shape(c["h0"].shape[0], "", k, 3, True,
+                                       CPU)
+        ok_f, err_f, ok_b, err_b = C._step_errors(got, want, "bn1d")
+        ok = ok_f and ok_b and P.launch_counts["fused_psteps_bwd"] == 1
+        ok_all = ok_all and ok
+        print(f"fused_psteps bwd=whole {shape.tag()}: fwd {err_f:.2e} bwd "
+              f"{err_b:.2e} {'ok' if ok else 'FAIL'}", flush=True)
     for mn, sn in C.PS_NORMS:
         c, leaves = C._ps_case(b40, 8, 16, gen, CPU)
         cw = torch.randn(c["labels"].shape[0], 16, generator=gen)
@@ -118,7 +145,9 @@ def main(argv) -> int:
     emu.build(["ro_bwd:RoArgs", "msg_bwd:MsgArgs", "ps_walk_bwd:WalkArgs",
                "recurrence_bwd:BwdArgs", "ro_bwd.f32:RoArgs",
                "msg_bwd.f32:MsgArgs", "ps_walk_bwd.f32:WalkArgs",
-               "recurrence_bwd.f32:BwdArgs"], asan="--asan" in argv)
+               "recurrence_bwd.f32:BwdArgs", "fused_step_fwd:FwdArgs",
+               "fused_psteps_fwd:PsFwdArgs", "fused_psteps_bwd:PsBwdArgs"],
+              asan="--asan" in argv)
     emu.emulate(RB, MB, PW, R, K, P)
     b40, ragged = batches()
     oks = [kernel_cases(b40, ragged), route_cases(b40)]

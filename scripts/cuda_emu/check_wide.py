@@ -151,22 +151,34 @@ def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
         f"fwd {fshape.tag()} bwd {shape.tag()}", errs)
 
 
-def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3):
+def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3,
+                       route=None, grid=None, big=0):
+    """Row 14a through the public ops against their plain versions; the
+    backward on `route` (chip_smoke.py::_ps_route; None the rule's, `grid`
+    its blocks), twice for the same bits; `big` adds a graph of that many
+    nodes (past a block's tile)."""
     from mpnn_tpu_torch.kernels import fused_psteps as P
     rng = np.random.RandomState(seed)
     c, leaves = T._ps_problem(rng, g, f=f, od=od, k=k, steps=steps,
-                              device="cpu")
+                              device="cpu", big=big)
     kw = dict(steps=steps, msg_norm=msg_norm, state_norm=state_norm)
     P.reset_launch_counts()
     with torch.no_grad():
         got = T._ps_eval(P.fused_psteps_eval, c, **kw)
         want = T._ps_eval(P.fused_psteps_eval_reference, c, **kw)
     cw = torch.as_tensor(rng.randn(g, od).astype(np.float32))
-    sgot = T.ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
+    tag = K.width_bucket('', P.BUCKETS, f=f, od=od, steps=steps)
+    with CS._ps_route(route, grid):
+        sgot = T.ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
+        again = T.ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
+        shape = P.device_bwd_shape(c["h0"].shape[0], tag, k, steps,
+                                   state_norm != "none", "cpu")
     swant = T.ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw,
                                 **kw)
-    assert P.launch_counts == {"fused_psteps_eval": 1, "fused_psteps_fwd": 1,
-                               "fused_psteps_bwd": 1}, P.launch_counts
+    assert P.launch_counts == {"fused_psteps_eval": 1, "fused_psteps_fwd": 2,
+                               "fused_psteps_bwd": 2}, P.launch_counts
+    same = all(torch.equal(a, b) for a, b in zip(sgot[4].values(),
+                                                  again[4].values()))
     stats = max(_err(a, b) for a, b in zip(
         [x for s in [*sgot[2], *sgot[3]] for x in s],
         [x for s in [*swant[2], *swant[3]] for x in s]))
@@ -174,11 +186,11 @@ def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3):
              if not (n == "mbias" and msg_norm == "bn1d")}
     return _report(
         f"fused_psteps g={g} f={f} od={od} K={k} T={steps} "
-        f"{msg_norm}/{state_norm} bucket "
-        f"{K.width_bucket('', P.BUCKETS, f=f, od=od, steps=steps) or 'narrow'}",
+        f"{msg_norm}/{state_norm} bucket {tag or 'narrow'} bwd "
+        f"{shape.tag()}" + ("" if same else " BITS DIFFER"),
         {"eval": _err(got, want), "loss": _err(sgot[0], swant[0]),
          "out": _err(sgot[1], swant[1]), "stats": stats,
-         "grads": _scaled(grads, swant[4])})
+         "grads": _scaled(grads, swant[4]), "same": 0.0 if same else 1.0})
 
 
 def _value_and_grads(fn, args, leaves, cw, **kw):
@@ -304,6 +316,27 @@ CASES = {
         check_fused_psteps(2, 7, 32, 128, 5, "bn1d", "bn1d"),
         check_fused_psteps(3, 7, 30, 120, 4, "none", "none", steps=6),
         check_fused_psteps(4, 7, 24, 96, 4, "bn1d", "stateless", steps=2),
+        # every norm pair, every forced route of the backward, T 1 and 8,
+        # a graph past a block's tile
+        check_fused_psteps(5, 9, 8, 16, 5, "bn1d", "none"),
+        check_fused_psteps(6, 9, 8, 16, 5, "none", "bn1d", route="grid",
+                           grid=3),
+        check_fused_psteps(7, 9, 8, 16, 5, "bn1d", "stateless",
+                           route="cluster 1"),
+        check_fused_psteps(8, 9, 8, 16, 5, "none", "none",
+                           route="cluster 2"),
+        check_fused_psteps(9, 9, 10, 28, 5, "bn1d", "bn1d",
+                           route="cluster 4", steps=1),
+        check_fused_psteps(10, 9, 8, 16, 5, "none", "stateless",
+                           route="cluster 8", steps=8),
+        check_fused_psteps(11, 9, 8, 16, 5, "bn1d", "bn1d",
+                           route="spilled"),
+        check_fused_psteps(12, 7, 27, 108, 5, "bn1d", "stateless",
+                           route="spilled"),
+        check_fused_psteps(13, 7, 27, 108, 5, "none", "bn1d",
+                           route="cluster 4"),
+        check_fused_psteps(14, 4, 8, 16, 5, "bn1d", "bn1d", route="grid",
+                           grid=3, big=300),
     ],
     "fused_att": lambda: [
         check_fused_att(0, 9, 7, 6, True),

@@ -14,7 +14,10 @@ molecules in 2,000 slots for 2,560), att-kernel-check, att-times
 floor and clock64 phases; batch 48 for 1024, 3 set2vec steps, the
 empty-block case on 27 graphs, the many-graph cases on 130, 60 and
 230),
-mlp-kernel-check,
+ps-kernel-check, ps-times (the per-step family's kernels, its backward
+on every forced route, its floor and clock64 phases: 48 molecules for
+1024 and 64 for 2560; ps-times at 16 and 48 for 128 and 1024, no step
+trace), mlp-kernel-check,
 mlp-times, wide, bil-kernel-check, bil-serve,
 bil-train, bil-times, ecfp, spmm-kernel-check, rec-kernel-check,
 dec-train, dec-times, sddmm-kernel-check, dec-att-train, dec-att-times,
@@ -102,8 +105,22 @@ def main(argv) -> int:
     CS.WIDE_ROWS = 48
     CS.TRAIN_ROWS = CS.ECFP_ROWS = 64
     CS.REC_NODES = (2000,)
+    # the forced grid of recurrence_bwd at 2,000 slots within the stand-in's
+    # thread limit (a block per 16 slots would launch 125 blocks)
+    rec_route = CS._rec_route
+    CS._rec_route = lambda route, grid=None: rec_route(
+        route, grid or (4 if route == "grid" else None))
     CS.DEC_TIMES_BATCHES = CS.DEC_ATT_BATCHES = (16, 48)
     CS._dec_trace = lambda *a: (0.0, "no trace (emulated)")
+
+    class _NoTrace:                     # ps-times' step trace: nothing
+        def key_averages(self):
+            return type("T", (), {"table": lambda *a, **k: ""})()
+    CS._trace = lambda fn, cpu=True: (fn(), _NoTrace())[1]
+    CS._device_ops = lambda prof: (0.0, [])
+    # ps-kernel-check at 48 molecules for 1024 and 64 for 2560; ps-times
+    # at 16 and 48 for 128 and 1024
+    CS.PS_CHECK_BATCHES, CS.PS_TIMES_BATCHES = (48, 64), (16, 48)
     CS._split_trace = lambda name, step: (step(), (0.0, 0))[1]
     CS.SPLIT_ROWS, CS.SPLIT_BATCH, CS.SPLIT_NODES = 160, 48, 1024
     CS.SPLIT_SMALL = 16
@@ -210,6 +227,8 @@ def main(argv) -> int:
               "bil-train": lambda: CS.phase_bil_train(cpu),
               "bil-times": lambda: CS.phase_bil_times(cpu, "emulated"),
               "ecfp": lambda: CS.phase_ecfp(cpu, "emulated"),
+              "ps-kernel-check": lambda: CS.phase_ps_kernel_check(cpu),
+              "ps-times": lambda: CS.phase_ps_times(cpu, "emulated"),
               "spmm-kernel-check": lambda: CS.phase_spmm_kernel_check(cpu),
               "rec-kernel-check": lambda: CS.phase_rec_kernel_check(cpu),
               "dec-train": lambda: CS.phase_dec_train(cpu),

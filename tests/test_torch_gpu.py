@@ -549,13 +549,14 @@ PS_NORMS = [(m, s) for m in ("bn1d", "none")
             for s in ("bn1d", "stateless", "none")]
 
 
-def _ps_problem(rng, g, f=8, od=16, k=8, steps=3, device="cuda"):
-    """A _problem batch with per-step weights: T A tables (vocab id 0 the
-    zero row), A0 matrices, message biases, norm pairs and running
-    statistics; labels, one padded graph slot, and {leaf: tensor} of the
-    training op's differentiable arguments, each requiring grad."""
+def _ps_problem(rng, g, f=8, od=16, k=8, steps=3, device="cuda", big=0):
+    """A _problem batch (`big`: one graph of that many nodes) with per-step
+    weights: T A tables (vocab id 0 the zero row), A0 matrices, message
+    biases, norm pairs and running statistics; labels, one padded graph
+    slot, and {leaf: tensor} of the training op's differentiable
+    arguments, each requiring grad."""
     (_, _, _, h0, mask, ng, gru, _, _, _, _, ro, vid, src, dst,
-     plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device)
+     plan) = _problem(rng, g=g, f=f, od=od, k=k, device=device, big=big)
     t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
                                   device=device)
     amat = rng.randn(steps, k, f, f) * 0.2
@@ -677,6 +678,192 @@ def test_cuda_psteps_step_kernels_match_plain_version(msg_norm, state_norm,
     want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
     assert all(torch.isfinite(x).all() for x in got[4].values())
     assert_ps_close(got, want, msg_norm)
+
+
+def float64_ps_step_and_grads(c, cw, **kw):
+    """ps_step_and_grads through fused_psteps_reference in float64 on the
+    same batch (as float64_step_and_grads for the shared family)."""
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+
+    def dbl(x):
+        if isinstance(x, dict):
+            return {k: dbl(v) for k, v in x.items()}
+        if isinstance(x, list):
+            return [dbl(v) for v in x]
+        if isinstance(x, torch.Tensor) and x.is_floating_point():
+            return x.detach().double()
+        return x
+    c64 = {k: dbl(v) for k, v in c.items()}
+    leaves = {"amat": c64["amat"], "a0": c64["a0"], "mbias": c64["mbias"],
+              "h0": c64["h0"],
+              **{f"gru/{n}": v for n, v in c64["gru"].items()},
+              **{f"ma{i}/{n}": v for i, b in enumerate(c64["ma_bns"])
+                 for n, v in b.items()},
+              **{f"bn{i}/{n}": v for i, b in enumerate(c64["bns"])
+                 for n, v in b.items()},
+              **{f"ro/{s}/{n}": v for s in ("i", "j")
+                 for n, v in c64["ro"][s].items()}}
+    for x in leaves.values():
+        x.requires_grad_(True)
+    return ps_step_and_grads(P.fused_psteps_reference, c64, leaves,
+                             cw.double(), **kw)
+
+
+def _ps_bwd_case(c, leaves, cw, route, exact=False, **kw):
+    """One forward and one whole-backward launch of the per-step op, the
+    backward on `route` (chip_smoke.py::_ps_route; None the rule's),
+    against the plain version (or, with `exact`, the float64 answer:
+    within atol of it, or no further than the plain float32 version is),
+    and the same bits again; returns the route's shape."""
+    from chip_smoke import _ps_route, _route_matches
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    h0, k = c["h0"], c["amat"].shape[1]
+    tag = K.width_bucket("", P.BUCKETS, f=h0.shape[1], od=cw.shape[1],
+                         steps=kw["steps"])
+    with _ps_route(route):
+        P.reset_launch_counts()
+        got = ps_step_and_grads(P.fused_psteps, c, leaves, cw, bwd="whole",
+                                **kw)
+        torch.cuda.synchronize()
+        assert (P.launch_counts["fused_psteps_fwd"],
+                P.launch_counts["fused_psteps_bwd"]) == (1, 1)
+        again = ps_step_and_grads(P.fused_psteps, c, leaves, cw,
+                                  bwd="whole", **kw)
+        shape = P.device_bwd_shape(h0.shape[0], tag, k, kw["steps"],
+                                   kw["state_norm"] != "none", h0.device)
+    want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
+    assert all(torch.isfinite(x).all() for x in got[4].values())
+    if exact:
+        dist = exactness(got, want, float64_ps_step_and_grads(c, cw, **kw),
+                         kw["msg_norm"])
+        far = {n: d for n, d in dist.items() if d[0] > max(ATOL, d[1])}
+        assert not far, f"(kernel, plain) from float64: {far}"
+    else:
+        assert_ps_close(got, want, kw["msg_norm"])
+    for name, gr in got[4].items():
+        assert torch.equal(gr, again[4][name]), f"{name}: bits differ"
+    assert _route_matches(shape, route), shape.tag()
+    return shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm,g,f,od,steps,route,big", [
+    # every route of the backward's rule, every norm pair
+    ("bn1d", "bn1d", 16, 8, 16, 3, "cluster 1", 0),
+    ("bn1d", "stateless", 16, 8, 16, 3, "cluster 2", 0),
+    ("none", "bn1d", 16, 8, 16, 3, "cluster 4", 0),
+    ("bn1d", "bn1d", 16, 8, 16, 3, "cluster 8", 0),
+    ("none", "none", 16, 8, 16, 3, "grid", 0),
+    ("bn1d", "none", 1024, 8, 16, 3, "spilled", 0),
+    ("none", "stateless", 1024, 8, 16, 3, "cluster 8", 0),
+    ("bn1d", "bn1d", 1024, 8, 16, 3, None, 0),
+    # T 8 and 1, a graph past a block's tile, the split's boundary
+    # (~28,700 slots) and past it (~32,900) on the whole route
+    ("bn1d", "stateless", 37, 16, 32, 8, None, 0),
+    ("none", "bn1d", 64, 8, 16, 1, "grid", 0),
+    ("bn1d", "bn1d", 20, 8, 16, 3, None, 300),
+    ("bn1d", "bn1d", 2290, 8, 16, 3, None, 0),
+    ("none", "stateless", 2630, 7, 28, 3, None, 0),
+    # the wide bucket (graph_norm at afm 27, its widest build)
+    ("bn1d", "bn1d", 16, 27, 108, 3, "cluster 8", 0),
+    ("none", "stateless", 300, 27, 108, 6, "grid", 0),
+    ("bn1d", "stateless", 64, 32, 128, 3, "spilled", 0)])
+def test_cuda_psteps_bwd_on_every_route(msg_norm, state_norm, g, f, od,
+                                        steps, route, big):
+    """fused_psteps_bwd on each route of its rule (one cluster of 1-8
+    blocks, the grid, 16-node tiles that leave blocks in global scratch)
+    against autograd through fused_psteps_reference, cotangents of both
+    the loss and out nonzero; each launch twice, the same bits."""
+    _need_card()
+    rng = np.random.RandomState(7 * g + f + steps + big)
+    c, leaves = _ps_problem(rng, g, f=f, od=od, steps=steps, big=big)
+    cw = torch.as_tensor(rng.randn(g, od).astype(np.float32), device="cuda")
+    shape = _ps_bwd_case(c, leaves, cw, route, steps=steps,
+                         msg_norm=msg_norm, state_norm=state_norm)
+    if g >= 2290:
+        assert shape.route == "grid", shape.tag()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm", PS_NORMS)
+def test_cuda_psteps_bwd_against_float64(msg_norm, state_norm):
+    """A 4,000-node graph (with three small ones), where float32 in any
+    summation order sits near or past 1e-5 of the exact gradients (the
+    plain float32 version up to ~3e-5): every output and leaf of the two
+    kernels is held to the float64 answer as test_cuda_step_kernels_
+    against_float64 holds row 3's (within 1e-5 of its max abs, or no
+    further than the plain float32 version is), or else the whole
+    backward kernel on the residuals of a float64 run of the plain forward
+    (rounded to float32) within 1e-5 of it while the two kernels stay
+    within 3e-5: the forward kernel's own float32 stash alone puts h0's
+    gradient 2.15e-5 from float64 at none/stateless, where that backward
+    sits ~4e-7 from it and the plain version, whose sums PyTorch runs
+    with atomics, 1.3e-5 to 2.3e-4 from run to run (an open fault of the
+    forward, ROADMAP 3.1). The backward on the rule's route and on a
+    cluster of 8, the same bits twice."""
+    _need_card()
+    from chip_smoke import _ps_route
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    rng = np.random.RandomState(4008)
+    c, leaves = _ps_problem(rng, 4, big=4000)
+    cw = torch.as_tensor(rng.randn(4, 16).astype(np.float32), device="cuda")
+    kw = dict(steps=3, msg_norm=msg_norm, state_norm=state_norm)
+    exact = float64_ps_step_and_grads(c, cw, **kw)
+    want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
+    d = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
+         for k, v in c.items()}
+    det = lambda x: ({k: det(v) for k, v in x.items()}
+                     if isinstance(x, dict) else [det(v) for v in x]
+                     if isinstance(x, list) else x.detach())
+    weights, meta = P.flat_weights(
+        d["amat"], d["a0"], d["mbias"], det(d["gru"]), det(d["ma_bns"]),
+        det(d["bns"]), det(d["ro"]), d["h0"], **kw)
+    with torch.no_grad():
+        _, out, stats, htil = P._reference_residuals(
+            [(n, t.double()) for n, t in weights], d["h0"].double(),
+            d["mask"].double(), d["node_graph"], d["labels"].double(),
+            d["gmask"].double(), d["vid"], d["src"], d["dst"], d["plan"],
+            meta)
+    args = (weights, d["h0"], d["labels"], d["gmask"], out.float(), cw,
+            torch.full((1,), 1.3, device="cuda"), htil.float(),
+            stats.float(), d["node_graph"], d["vid"], d["src"], d["dst"],
+            d["plan"], meta)
+    k, (f, od) = d["amat"].shape[1], (d["h0"].shape[1], cw.shape[1])
+    for route in (None, "cluster 8"):
+        with _ps_route(route):
+            got = ps_step_and_grads(P.fused_psteps, c, leaves, cw,
+                                    bwd="whole", **kw)
+            again = ps_step_and_grads(P.fused_psteps, c, leaves, cw,
+                                      bwd="whole", **kw)
+            runs = [K.launch_prepared(P.prepare_fused_psteps_bwd(*args))
+                    for _ in range(2)]
+        for name, gr in got[4].items():
+            assert torch.equal(gr, again[4][name]), f"{name}: bits differ"
+        for a, b in zip(*runs):
+            assert torch.equal(a, b), "bits differ"
+        dh0, dw = runs[0]
+        g = P.split_grads(dw, k, f, od, 3)
+        on_exact = {
+            "amat": g["amat"], "a0": g["a0"], "mbias": g["mbias"], "h0": dh0,
+            **{f"gru/{n}": g[n] for n in ("w_ih", "w_hh", "b_ih", "b_hh")},
+            **{f"{s}{i}/{n}": g[f"{s}_{n[0]}"][i] for s in ("ma", "bn")
+               for i in range(3) for n in ("weight", "bias")},
+            **{f"ro/{s}/{n}": g[f"ro_{s}{n}"] for s in ("i", "j")
+               for n in ("w", "b")}}
+        far = {}
+        for name, (d_kernel, d_plain) in exactness(got, want, exact,
+                                                   msg_norm).items():
+            if d_kernel <= max(ATOL, d_plain):
+                continue
+            if name not in on_exact:              # the forward's outputs
+                far[name] = (d_kernel, d_plain)
+                continue
+            e = exact[4][name]
+            d_exact = float(((on_exact[name].double() - e)
+                             / e.abs().max().clamp_min(1e-30)).abs().max())
+            if d_exact > ATOL or d_kernel > 3 * ATOL:
+                far[name] = (d_kernel, d_plain, d_exact)
+        assert not far, f"{route}: (kernels, plain, on exact) {far}"
 
 
 @pytest.mark.gpu
@@ -1696,6 +1883,72 @@ def test_cuda_recurrence_kernels_near_float64_past_init_scale():
     got = rec_value_and_grads(R.recurrence, args, leaves, g, 6)
     ef, eg, ok = rec_distances(got, rec_float64(args, leaves, g, 6))
     assert ok, (ef, eg)
+
+
+def _rec_bwd_case(n, f, steps, route, weight_sd=None):
+    """recurrence_bwd on `route` (chip_smoke.py::_rec_route; None the
+    rule's) against autograd through reference_recurrence (or, past the
+    init scale, a float64 run), twice for the same bits; returns the
+    route's shape."""
+    from chip_smoke import (_rec_route, _route_matches, rec_case,
+                            rec_distances, rec_float64, rec_value_and_grads)
+    from mpnn_tpu_torch.kernels import recurrence as R
+    gen = torch.Generator().manual_seed(3 * n + f + steps)
+    args, leaves, g = rec_case(n, f, gen, "cuda", weight_sd=weight_sd)
+    with _rec_route(route):
+        R.reset_launch_counts()
+        got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+        again = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
+        torch.cuda.synchronize()
+        assert R.launch_counts == {"recurrence_fwd": 2,
+                                   "recurrence_bwd": 2}
+        shape = R.device_bwd_shape(n, "" if f <= 16 else "f32", steps,
+                                   torch.device("cuda", 0))
+    if weight_sd is None:
+        want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                                   steps)
+        _grads_close(got[1], want[1])
+    else:
+        ef, eg, ok = rec_distances(got, rec_float64(args, leaves, g, steps))
+        assert ok, (ef, eg)
+    for name, gr in got[1].items():
+        assert torch.equal(gr, again[1][name]), f"{name}: bits differ"
+    assert _route_matches(shape, route), shape.tag()
+    return shape
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,steps,route", [
+    (256, 10, 6, "cluster 1"), (256, 10, 6, "cluster 2"),
+    (256, 10, 6, "cluster 4"), (256, 10, 6, "cluster 8"),
+    (256, 10, 6, "grid"), (256, 10, 6, "spilled"),
+    (16512, 10, 6, "cluster 8"), (16512, 30, 6, "grid"),
+    (16512, 30, 6, "spilled"), (28672, 10, 6, None), (32896, 10, 6, None),
+    (57856, 10, 6, None), (300, 24, 3, "cluster 1"), (5, 10, 2, "cluster 8"),
+    (256, 10, 32, None), (16512, 10, 1, None)])
+def test_cuda_recurrence_bwd_on_every_route(n, f, steps, route):
+    """recurrence_bwd on each route of its rule (one cluster of 1-8 blocks,
+    the grid, 16-node tiles that leave blocks in global scratch), at b16's
+    slots, b1024's (16,512), 28,672, 32,896 and the split's 57,856, f 10
+    and the wide bucket, T 1, 2, 3, 6 and 32, blocks without nodes: every
+    gradient leaf (each divided by its max abs) within rtol/atol of the
+    plain version's, the same bits twice."""
+    _need_card()
+    shape = _rec_bwd_case(n, f, steps, route)
+    if route is None:
+        assert shape.route == ("cluster" if n <= 384 else "grid"), \
+            shape.tag()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [None, "cluster 8", "spilled"])
+def test_cuda_recurrence_bwd_near_float64_on_routes(route):
+    """At GRU weights N(0, 0.3²), f 30 and 16,512 slots (as
+    test_cuda_recurrence_kernels_near_float64_past_init_scale), the
+    backward on the rule's route, one cluster of 8 and 16-node tiles:
+    within rtol/atol of a float64 run, the same bits twice."""
+    _need_card()
+    _rec_bwd_case(16512, 30, 6, route, weight_sd=0.3)
 
 
 @pytest.mark.gpu

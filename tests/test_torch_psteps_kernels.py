@@ -292,3 +292,95 @@ def test_grad_layout_covers_every_leaf_once():
     parts = P.split_grads(flat, k, f, od, T)
     assert torch.equal(torch.cat([parts[n].reshape(-1)
                                   for n in P._GRAD_LEAVES]), flat)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's route rule (kernels/fused_psteps.py::launch_shape),
+# decided on the host from shapes alone
+# ---------------------------------------------------------------------------
+
+H100_SMEM, H100_GRID = 232448, 132          # opt-in bytes a block; 1 a SM
+
+
+def _rule(n, tag="", k=8, steps=3, smem=H100_SMEM, max_grid=H100_GRID,
+          state_sums=True):
+    return P.launch_shape(n, tag, k, steps, state_sums=state_sums,
+                          smem_bytes=smem, max_grid=max_grid)
+
+
+def test_bwd_rule_at_its_node_count_boundaries():
+    """With a state norm on batch statistics (its sums cross blocks every
+    step), up to CLUSTER_SLOTS node slots one cluster of the fewest
+    blocks (1, 2, 4) whose share is at most CLUSTER_NODES, else 8; then
+    the grid at GRID_NODES slots a block, capped at the co-resident
+    blocks (encoded's widths: K 8, T 3)."""
+    cn, cs, gn = P.CLUSTER_NODES, P.CLUSTER_SLOTS, P.GRID_NODES
+    assert 8 * cn <= cs
+    for c in (1, 2, 4):
+        assert _rule(c * cn)[:2] == ("cluster", c)
+        assert _rule(c * cn + 1)[:2] == ("cluster", 2 * c)
+    assert _rule(8 * cn)[:2] == ("cluster", 8)
+    assert _rule(cs)[:2] == ("cluster", 8)
+    assert _rule(cs + 1)[:2] == ("grid", -(-(cs + 1) // gn))
+    assert _rule(1)[:2] == ("cluster", 1)
+    assert _rule(1664)[:2] == ("grid", -(-1664 // gn))      # b128
+    assert _rule(28672)[:2] == ("grid", H100_GRID)          # the split's
+    assert _rule(10 ** 6, max_grid=1000)[:2] == ("grid", P.MAX_GRID)
+
+
+@pytest.mark.parametrize("tag", ["", "f32"])
+def test_bwd_rule_without_a_state_norm_takes_the_grid(tag):
+    """A state norm of 'none' combines nothing per step (the message
+    norms' sums cross blocks once, after the walk): the grid route at
+    every size, a block per GRID_NODES slots (one block alone up to
+    GRID_NODES), capped at the co-resident blocks; the tile is the one
+    the state-norm rule gives."""
+    gn = P.GRID_NODES
+    for n in (1, gn, gn + 1, 256, P.CLUSTER_SLOTS, 13184, 10 ** 6):
+        s = _rule(n, tag, state_sums=False)
+        assert s.route == "grid", (n, s.tag())
+        assert s.grid == min(H100_GRID, -(-n // gn)), (n, s.tag())
+        assert s[2:] == _rule(n, tag)[2:]
+
+
+@pytest.mark.parametrize("tag,steps,least", [("", 3, 200), ("", 8, 120),
+                                             ("f32", 3, 64),
+                                             ("f32", 6, 48)])
+def test_bwd_rule_keeps_a_block_within_its_tile(tag, steps, least):
+    """A block's tile holds (4 + T)·FP floats a node, two steps' staged
+    rows and EDGE_RATIO edges a node: at least `least` node slots on an
+    H100 (a whole b16 of encoded fits the narrow build's); a block's share
+    stays within 3/4 of its tile on both routes, so a block past it holds
+    a graph larger than the share (which the kernel keeps in global
+    scratch); the bytes are the tile's, and one more node does not fit."""
+    cap = P.bwd_capacity(tag, 8, steps, H100_SMEM)
+    assert cap >= least
+    for n in (16, 256, 512, 600, 1664, 4096, 13184, 28672):
+        for sums in (True, False):
+            s = _rule(n, tag, steps=steps, state_sums=sums)
+            assert s.ncap == cap and s.ecap == P.EDGE_RATIO * cap
+            assert s.smem_bytes == 4 * P.bwd_smem_floats(
+                tag, 8, steps, cap, s.ecap) <= H100_SMEM
+            if s.grid < H100_GRID:
+                assert -(-n // s.grid) <= 3 * cap // 4, (n, s.tag())
+    assert 4 * P.bwd_smem_floats(tag, 8, steps, cap + 1,
+                                 P.EDGE_RATIO * (cap + 1)) > H100_SMEM
+
+
+@pytest.mark.parametrize("max_grid", [132, 114, 78])
+def test_bwd_rule_on_vocab_steps_and_a_smaller_card(max_grid):
+    """The tile shrinks with the vocab (its counters), with T and with a
+    card's shared memory; the route follows the tile; a card with fewer
+    SMs caps the grid; a card that cannot hold one node raises."""
+    caps = [P.bwd_capacity("", k, t, H100_SMEM)
+            for k, t in ((8, 3), (64, 3), (8, 8), (64, 8))]
+    assert caps[0] > caps[1] > caps[3] and caps[0] > caps[2] > caps[3]
+    for n in (600, 13184, 28672):
+        s = _rule(n, max_grid=max_grid)
+        assert s.grid == min(max_grid, -(-n // P.GRID_NODES)), s.tag()
+    small = _rule(512, smem=100 * 1024, max_grid=max_grid)
+    assert small.ncap < _rule(512).ncap
+    assert small.route == "grid" or -(-512 // small.grid) <= \
+        3 * small.ncap // 4
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _rule(16, smem=16 * 1024)

@@ -113,3 +113,75 @@ def test_hook_checks_the_width_at_once():
     with pytest.raises(NotImplementedError, match="f=33"):
         R.make_recurrence_op(6, 33)
     R.make_recurrence_op(6, 32)
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's route rule (kernels/recurrence.py::launch_shape),
+# decided on the host from shapes alone
+# ---------------------------------------------------------------------------
+
+H100_SMEM, H100_GRID = 232448, 132          # opt-in bytes a block; 1 a SM
+
+
+def _rule(n, tag="", steps=6, smem=H100_SMEM, max_grid=H100_GRID):
+    return R.launch_shape(n, tag, steps, smem_bytes=smem, max_grid=max_grid)
+
+
+def test_bwd_rule_at_its_node_count_boundaries():
+    """Up to CLUSTER_SLOTS node slots one cluster of the fewest blocks (1,
+    2, 4) whose share is at most CLUSTER_NODES, else 8; then the grid at
+    GRID_NODES slots a block, capped at the co-resident blocks and at
+    MAX_GRID (lipo's f 10, T 6)."""
+    cn, cs, gn = R.CLUSTER_NODES, R.CLUSTER_SLOTS, R.GRID_NODES
+    assert 8 * cn <= cs
+    for c in (1, 2, 4):
+        assert _rule(c * cn)[:2] == ("cluster", c)
+        assert _rule(c * cn + 1)[:2] == ("cluster", 2 * c)
+    assert _rule(8 * cn)[:2] == ("cluster", 8)
+    assert _rule(cs)[:2] == ("cluster", 8)
+    assert _rule(cs + 1)[:2] == ("grid", -(-(cs + 1) // gn))
+    assert _rule(1)[:2] == ("cluster", 1)
+    assert _rule(16512)[:2] == ("grid", H100_GRID)          # b1024
+    assert _rule(10 ** 6)[:2] == ("grid", H100_GRID)
+    assert _rule(10 ** 6, max_grid=1000)[:2] == ("grid", R.MAX_GRID)
+
+
+@pytest.mark.parametrize("tag,least", [("", 300), ("f32", 128)])
+def test_bwd_rule_keeps_a_block_within_its_tile(tag, least):
+    """A block's tile holds 8·FP floats a node and two staged slots: at
+    least `least` node slots on an H100 at T 6; its share of the slots
+    stays within the tile while the card holds the blocks (past 132 ×
+    cap slots — lipo's split at 57,856 — blocks keep their nodes in
+    global scratch); the bytes are the tile's, and one more node does not
+    fit."""
+    cap = R.bwd_capacity(tag, 6, H100_SMEM)
+    assert cap >= least
+    for n in (16, 256, 384, 600, 4096, 16512, 32896, 57856):
+        s = _rule(n, tag)
+        assert s.ncap == cap
+        assert s.smem_bytes == 4 * R.bwd_smem_floats(tag, 6, cap) \
+            <= H100_SMEM
+        if n <= H100_GRID * cap:
+            assert -(-n // s.grid) <= cap, (n, s.tag())
+        else:
+            assert s.grid == H100_GRID, (n, s.tag())
+    assert 4 * R.bwd_smem_floats(tag, 6, cap + 1) > H100_SMEM
+
+
+@pytest.mark.parametrize("max_grid", [132, 114, 78])
+def test_bwd_rule_on_steps_and_a_smaller_card(max_grid):
+    """The tile shrinks with T (each slot's norm constants and partials)
+    and with a card's shared memory; a card with fewer SMs (114 on an
+    H100 PCIe, or 78) caps the grid; a card that cannot hold one node
+    raises."""
+    caps = [R.bwd_capacity("", t, H100_SMEM) for t in (1, 6, 32)]
+    assert caps[0] >= caps[1] > caps[2] > 0
+    assert R.bwd_capacity("", 6, 100 * 1024) < caps[1]
+    for n in (600, 16512, 57856):
+        s = _rule(n, max_grid=max_grid)
+        assert s.route == "grid"
+        assert s.grid == min(max_grid, -(-n // R.GRID_NODES))
+    small = _rule(512, smem=100 * 1024, max_grid=max_grid)
+    assert -(-512 // small.grid) <= small.ncap
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _rule(16, smem=8 * 1024)
