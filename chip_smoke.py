@@ -398,10 +398,10 @@ def phase_build():
         .mpnn_fused_att_steps_bwd_smem_bytes(3, 16, 3, 7)
     dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
            f"fused_step_fwd and fused_eval_stateless {_fwd_smem_line()}, "
-           f"fused_step_bwd {_bwd_smem_line()} (T 6); " + ", ".join(
-               f"{n} {getattr(P._lib(n), f'mpnn_{n}_smem_bytes')(3)} B"
-               for n in ("fused_psteps_eval", "fused_psteps_fwd"))
-           + " (T 3; their A tables stay in device memory, any K); "
+           f"fused_step_bwd {_bwd_smem_line()} (T 6); fused_psteps_eval "
+           f"{P._lib('fused_psteps_eval').mpnn_fused_psteps_eval_smem_bytes(3)}"
+           " B (T 3; its A tables stay in device memory, any K); "
+           f"fused_psteps_fwd {_ps_fwd_smem_line()}; "
            f"{_walk_smem_line()}; "
            + ", ".join(
                f"{n} {getattr(A._lib(n), f'mpnn_{n}_smem_bytes')(16)} B"
@@ -417,8 +417,10 @@ def phase_build():
                f"{n} {getattr(B._lib(n), f'mpnn_{n}_smem_bytes')(16, 32)} B"
                for n in ("fused_bilinear_fwd", "fused_bilinear_bwd"))
            + " (K 16, graphs up to 32 atoms); spmm_fwd "
-           f"{_lib_call('spmm', 'spmm_fwd', 'mpnn_spmm_fwd_smem_bytes', 16)} B"
-           f" (K 16; the wide bucket reads A from device memory), spmm_da "
+           f"{_lib_call('spmm', 'spmm_fwd', 'mpnn_spmm_fwd_smem_bytes', 16, 16, 8)}"
+           f" B (K 16, a tile of 128 positions; the wide bucket stages up "
+           f"to 16 ids' tables, past them it reads A from device memory), "
+           f"spmm_da "
            f"{_lib_call('spmm', 'spmm_da', 'mpnn_spmm_da_smem_bytes')} B, "
            "recurrence_fwd "
            f"{_lib_call('recurrence', 'recurrence_fwd', 'mpnn_recurrence_fwd_smem_bytes', 6)}"
@@ -562,6 +564,37 @@ def _fwd_smem_line():
     return ", ".join(out)
 
 
+def _ps_fwd_smem_line():
+    """fused_psteps_fwd's node capacity and dynamic shared memory per
+    bucket (K 8 and 64, T 3) on this card, each held against the
+    library's own layout (kernels/fused_psteps.py::fwd_smem_floats
+    mirrors csrc's Smem)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    props = torch.cuda.get_device_properties(0)
+    smem, most = (props.shared_memory_per_block_optin,
+                  props.multi_processor_count)
+    out = []
+    for tag, _ in P.BUCKETS:
+        lib = P._lib("fused_psteps_fwd", tag)
+        for k in (8, 64):
+            cap = P.fwd_capacity(tag, k, 3, smem, most)
+            staged = P.amat_in_smem(tag, k, 3)
+            for c, blocks in ((1, 1), (1, 8), (cap, most)):
+                want = 4 * P.fwd_smem_floats(tag, k, 3, c, P.EDGE_RATIO * c,
+                                             blocks)
+                got = lib.mpnn_fused_psteps_fwd_smem_bytes(
+                    k, 3, c, P.EDGE_RATIO * c, blocks, int(staged))
+                if got != want:
+                    raise RuntimeError(
+                        f"fused_psteps_fwd.{tag}: the library takes {got} B "
+                        f"at {c} nodes, K {k}; fwd_smem_floats {want}")
+            out.append(f"{tag or 'narrow'} K {k} {cap} nodes a block, "
+                       f"{want} B (grid of {most}; tables "
+                       f"{'staged' if staged else 'in device memory'})")
+    return ", ".join(out)
+
+
 @contextlib.contextmanager
 def _forced_bwd_shape(mod, route, grid, spilled):
     """Force a reverse walk's route (`mod.device_bwd_shape`, the rule's
@@ -602,20 +635,20 @@ def _bwd_route(route, grid=None):
 
 
 @contextlib.contextmanager
-def _fwd_route(route, grid=None):
-    """Force the forward kernels' route (fused_step_fwd and the stateless
-    serving kernel: kernels/fused_step.py::fwd_launch_shape) for the
-    launches inside, as _bwd_route forces the backward's: None (the rule's
-    own choice), 'cluster C', 'grid' (`grid` blocks, by default one per
+def _forced_fwd_shape(mod, route, grid):
+    """Force a forward kernel's route (`mod.device_fwd_shape`, the rule's
+    shape with its route replaced; the tile from `mod.fwd_capacity` and
+    `mod.fwd_smem_floats`) for the launches inside: None (the rule's own
+    choice), 'cluster C', 'grid' (`grid` blocks, by default one per
     FWD_GRID_NODES of the n slots, at least 2, at most 128), 'spilled' (a
     block per 128 slots, at least 2, with 16-node tiles: blocks keep their
     graphs in global scratch)."""
     import torch
     from mpnn_tpu_torch.kernels import fused_step as K
-    keep = K.device_fwd_shape
+    keep = mod.device_fwd_shape
 
-    def forced(n, tag, k, steps, sums, device, kernel="fused_step_fwd"):
-        s = keep(n, tag, k, steps, sums, device, kernel)
+    def forced(n, tag, k, steps, sums, device, *rest):
+        s = keep(n, tag, k, steps, sums, device, *rest)
         if route is None:
             return s
         if route.startswith("cluster"):
@@ -627,16 +660,32 @@ def _fwd_route(route, grid=None):
         smem = torch.cuda.get_device_properties(
             device).shared_memory_per_block_optin
         cap = (16 if route == "spilled" else
-               min(s.ncap, K.fwd_capacity(tag, k, steps, smem, s.grid)))
-        return s._replace(ncap=cap, ecap=cap * K.EDGE_RATIO,
-                          smem_bytes=4 * K.fwd_smem_floats(
-                              tag, k, steps, cap, cap * K.EDGE_RATIO,
+               min(s.ncap, mod.fwd_capacity(tag, k, steps, smem, s.grid)))
+        return s._replace(ncap=cap, ecap=cap * mod.EDGE_RATIO,
+                          smem_bytes=4 * mod.fwd_smem_floats(
+                              tag, k, steps, cap, cap * mod.EDGE_RATIO,
                               s.grid))
-    K.device_fwd_shape = forced
+    mod.device_fwd_shape = forced
     try:
         yield
     finally:
-        K.device_fwd_shape = keep
+        mod.device_fwd_shape = keep
+
+
+def _fwd_route(route, grid=None):
+    """Force the shared family's forward kernels' route (fused_step_fwd and
+    the stateless serving kernel: kernels/fused_step.py::fwd_launch_shape)
+    for the launches inside (_forced_fwd_shape), as _bwd_route forces the
+    backward's."""
+    from mpnn_tpu_torch.kernels import fused_step as K
+    return _forced_fwd_shape(K, route, grid)
+
+
+def _ps_fwd_route(route, grid=None):
+    """Force fused_psteps_fwd's route (kernels/fused_psteps.py::
+    fwd_launch_shape) for the launches inside (_forced_fwd_shape)."""
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    return _forced_fwd_shape(P, route, grid)
 
 
 def _route_matches(shape, route):
@@ -1235,6 +1284,23 @@ def _trace(fn, cpu=True):
     return prof
 
 
+def _trace_kernels(fn, kernels, cpu=True):
+    """_trace of `fn()`, taken again (up to three traces) while one of the
+    named kernels shows no device time in it (a trace can still lose the
+    launches at its head, as the edge-MLP forwards of adv's b1024 step
+    once were): (trace, device busy us, device ops, {kernel: device us});
+    the caller fails on a kernel that stays at zero."""
+    for _ in range(3):
+        prof = _trace(fn, cpu)
+        busy, ops = _device_ops(prof)
+        kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
+                       for e in ops if f"{k}_kernel" in e.key)
+                for k in kernels}
+        if min(kern.values()) > 0:
+            break
+    return prof, busy, ops, kern
+
+
 def _device_ops(prof):
     """(device busy us, key_averages rows of the device ops): the kernels
     and copies of a torch.profiler trace, user annotations (such as the
@@ -1782,8 +1848,9 @@ def phase_train_profile(device, step_ms):
     for _ in range(2):
         float(train_step(net, opt, batch_to_device(b, device)))
     torch.cuda.synchronize()
-    prof = _trace(lambda: float(train_step(net, opt,
-                                           batch_to_device(b, device))))
+    prof, busy, ops, kern = _trace_kernels(
+        lambda: float(train_step(net, opt, batch_to_device(b, device))),
+        ("fused_step_fwd", "fused_step_bwd", *MLP_KERNELS))
     ka = prof.key_averages()
     with open(os.path.join(OUT_DIR, "profile_train_1024.txt"), "w") as f:
         f.write(ka.table(sort_by="self_device_time_total", row_limit=40))
@@ -1791,9 +1858,6 @@ def phase_train_profile(device, step_ms):
     def dev(e):
         return getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0))
-    busy, ops = _device_ops(prof)
-    kern = {k: sum(dev(e) for e in ops if f"{k}_kernel" in e.key)
-            for k in ("fused_step_fwd", "fused_step_bwd", *MLP_KERNELS)}
     if min(kern.values()) <= 0:
         raise RuntimeError(f"train-profile: no device time for {kern}")
     top = sorted(ops, key=dev, reverse=True)[:6]
@@ -1903,6 +1967,96 @@ def _ps_step_args(c):
             c["node_graph"], c["gru"], c["ma_bns"], c["bns"], c["ro"],
             c["labels"], c["gmask"], c["vid"], c["src"], c["dst"],
             c["plan"])
+
+
+def ps_stash(c, steps, msg_norm, state_norm):
+    """The per-step training forward kernel's outputs (loss, out, stats
+    (2T, 2, f), htil (2T, N, f)) through forward_residuals on a
+    _ps_case-style dict, and the plain version's on the same inputs."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    det = lambda x: ({k: det(v) for k, v in x.items()}
+                     if isinstance(x, dict) else [det(v) for v in x]
+                     if isinstance(x, list) else x.detach())
+    weights, meta = P.flat_weights(
+        c["amat"].detach(), c["a0"].detach(), c["mbias"].detach(),
+        det(c["gru"]), det(c["ma_bns"]), det(c["bns"]), det(c["ro"]),
+        c["h0"].detach(), steps=steps, msg_norm=msg_norm,
+        state_norm=state_norm)
+    args = (weights, c["h0"].detach(), c["mask"], c["node_graph"],
+            c["labels"], c["gmask"], c["vid"], c["src"], c["dst"], c["plan"],
+            meta)
+    with torch.no_grad():
+        return P.forward_residuals(*args), P._reference_residuals(*args)
+
+
+# fused_psteps_fwd's forced routes in ps-kernel-check: both routes of its
+# rule for every norm pair, and 16-node tiles
+PS_FWD_ROUTES = ("cluster 8", "grid")
+
+
+def _ps_fwd_route_checks(device, gen):
+    """fused_psteps_fwd on forced routes (_ps_fwd_route): every norm pair on
+    a cluster of 8 and on the grid at b16, b1024 on 16-node tiles
+    (spilled), the wide bucket at T 6 (f 27, od 108) on the grid and on a
+    cluster, K 64 (the tables in device memory) and a graph of 700 nodes:
+    loss, out, every slot's statistics and the whole stash against the
+    plain version (rtol 1e-4, atol 1e-5), padded slots zero, twice for
+    the same bits, one launch a run. Returns (report, worst error,
+    failed)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    b1024, b16, _, _ = _dec_check_batches(device)
+    cases = ([("b16", b16, 8, 16, 3, mn, sn, r, None)
+              for mn, sn in PS_NORMS for r in PS_FWD_ROUTES]
+             + [("b1024", b1024, 8, 16, 3, "bn1d", "bn1d", "spilled", None),
+                ("b16 wide T6", b16, 27, 108, 6, "none", "stateless",
+                 "grid", None),
+                ("b16 wide T6", b16, 32, 128, 6, "bn1d", "bn1d",
+                 "cluster 4", None),
+                ("b1024 K64", b1024, 16, 32, 3, "bn1d", "stateless", None,
+                 64)])
+    out, worst, failed = [], 0.0, []
+    for what, tb, f, od, steps, mn, sn, route, k in cases:
+        c, _ = _ps_case(tb, f, od, gen, device, steps=steps)
+        if k is not None:
+            c["amat"] = (0.2 * torch.randn(steps, k, f, f, generator=gen)
+                         ).to(device)
+            c["amat"][:, 0] = 0.0
+            c["vid"] = torch.where(
+                tb["edge_mask"] > 0, torch.randint(
+                    1, k, c["vid"].shape, generator=gen,
+                    dtype=torch.int32).to(device),
+                torch.zeros_like(c["vid"])).contiguous()
+        P.reset_launch_counts()
+        with _ps_fwd_route(route):
+            got, want = ps_stash(c, steps, mn, sn)
+            again, _ = ps_stash(c, steps, mn, sn)
+            torch.cuda.synchronize()
+            n = c["h0"].shape[0]
+            shape = P.device_fwd_shape(
+                n, K.width_bucket("", P.BUCKETS, f=f, od=od, steps=steps),
+                c["amat"].shape[1], steps, mn != "none" or sn != "none",
+                device)
+        errs = [_within(a, b) for a, b in zip(got, want)]
+        err = max(e[1] for e in errs)
+        n_real = int(tb["node_mask"].sum())
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        ok = (all(e[0] for e in errs) and same
+              and not got[3][:, n_real:].any()
+              and P.launch_counts["fused_psteps_fwd"] == 2
+              and _route_matches(shape, route)
+              and all(bool(torch.isfinite(x).all()) for x in got))
+        worst = max(worst, err)
+        out.append(f"{what} {mn}/{sn} f={f} T={steps} K="
+                   f"{c['amat'].shape[1]} {shape.tag()} {err:.2e}"
+                   + ("" if same else " BITS DIFFER")
+                   + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"fwd {what} {mn}/{sn} {route}")
+    return ("fused_psteps_fwd on forced routes (loss, out, stats, stash; "
+            "twice for the same bits): " + ", ".join(out)), worst, failed
 
 
 def _ps_bwd_route_checks(device, gen):
@@ -2016,6 +2170,10 @@ def phase_ps_kernel_check(device):
     report, err_r, failed_r = _ps_bwd_route_checks(device, gen)
     worst["fused_psteps_bwd"] = max(worst["fused_psteps_bwd"], err_r)
     failed += failed_r
+    freport, err_f, failed_f = _ps_fwd_route_checks(device, gen)
+    worst["fused_psteps_fwd"] = max(worst["fused_psteps_fwd"], err_f)
+    failed += failed_f
+    report += "; " + freport
     print(f"ps-kernel-check: fused_psteps_eval vs fused_psteps_eval_"
           f"reference, fused_psteps_fwd vs fused_psteps_reference, "
           f"fused_psteps_bwd vs autograd through it (T 3, cotangents "
@@ -2288,6 +2446,38 @@ def _ps_bounds(b, f, od, k, steps, msg_norm, state_norm):
     return res
 
 
+def _ps_fwd_detail(fargs, device):
+    """fused_psteps_fwd's route on these inputs (prepare_fused_psteps_fwd's
+    arguments), the empty-forward floor (CUDA events over 100 launches of
+    the same grid and combines with no arithmetic) and block 0's clock64
+    phases of one launch (_fwd_phases: the stamps follow row 2's),
+    leaving the launch counts as they were."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    from mpnn_tpu_torch.kernels import fused_step as K
+    weights, h0, meta = fargs[0], fargs[1], fargs[-1]
+    pfl = P.prepare_fused_psteps_fwd(*fargs, floor=True)
+    floor_ms = _events_ms(lambda: K.launch_prepared(pfl), 100)
+    prof = torch.zeros(P.FWD_PROF_SLOTS, dtype=torch.int64, device=device)
+    counts = dict(P.launch_counts)
+    K.launch_prepared(P.prepare_fused_psteps_fwd(*fargs, prof=prof))
+    P.launch_counts.update(counts)
+    torch.cuda.synchronize()
+    w = dict(weights)
+    tag = K.width_bucket("", P.BUCKETS, f=h0.shape[1],
+                         od=w["ro_ib"].shape[0], steps=meta.steps)
+    shape = P.device_fwd_shape(
+        h0.shape[0], tag, w["amat"].shape[1], meta.steps,
+        meta.msg_mode != P.NONE or meta.state_mode != P.NONE, device)
+    return shape.tag(), floor_ms, _fwd_phases(prof.tolist(), meta.steps)
+
+
+def _ps_fwd_detail_text(tag, floor_ms, phases):
+    return (f"fused_psteps_fwd route {tag}, empty forward "
+            f"{floor_ms * 1e3:.2f} us, block 0 (cycles): " + ", ".join(
+                f"{k} {v:.0f}" for k, v in phases.items()))
+
+
 def phase_ps_times(device, card):
     """The encoded model at batch 128 and 1024: request latency and
     train-step latency (host clock ending in a device sync), each
@@ -2366,9 +2556,12 @@ def phase_ps_times(device, card):
          vid, src, dst, plan) = sargs
         weights, meta = P.flat_weights(amat, a0, mbias, gru, ma, bnp, ro, h0,
                                        **skw)
-        pf = P.prepare_fused_psteps_fwd(weights, h0, mask, ng, labels,
-                                        gmask, vid, src, dst, plan, meta)
+        fargs = (weights, h0, mask, ng, labels, gmask, vid, src, dst, plan,
+                 meta)
+        pf = P.prepare_fused_psteps_fwd(*fargs)
         f_ms = _events_ms(lambda: K.launch_prepared(pf), 100)
+        f_trace = _kernel_trace_us_n(20, pf)[0] / 20
+        fdetail = _ps_fwd_detail_text(*_ps_fwd_detail(fargs, device))
         _, o, st, htil = K.launch_prepared(pf)
         gout = torch.randn(o.shape, generator=gen).to(device)
         gl = torch.ones(1, device=device)
@@ -2409,7 +2602,8 @@ def phase_ps_times(device, card):
         rec = {"step_ms": statistics.median(step_lat),
                "request_ms": statistics.median(req_lat),
                "fused_psteps_eval": dict(ms=e_ms, plain_ms=pe_ms),
-               "fused_psteps_fwd": dict(ms=f_ms, plain_ms=pf_ms),
+               "fused_psteps_fwd": dict(ms=f_ms, plain_ms=pf_ms,
+                                        trace_ms=f_trace / 1e3),
                "fused_psteps_bwd": dict(ms=b_ms, plain_ms=pb_ms,
                                         trace_ms=b_trace / 1e3)}
         for name in PS_KERNELS:
@@ -2432,6 +2626,7 @@ def phase_ps_times(device, card):
                 f"{bounds[name][0] * 1e3:.3f} us by {bounds[name][1]} "
                 f"({bounds[name][2] / 1e6:.2f} Mop, "
                 f"{bounds[name][3] / 1e6:.3f} MB)" for name in PS_KERNELS)
+            + f"; fused_psteps_fwd {f_trace:.2f} us (trace); {fdetail}"
             + f"; fused_psteps_bwd {b_trace:.2f} us (trace); " + detail)
     print(f"ps-times [{card}]: " + "; ".join(lines), flush=True)
     return out
@@ -3068,17 +3263,13 @@ def _att_latency(model, bs, device, gen):
            "request_ms": statistics.median(req_lat)}
     idle = ""
     if bs == 1024:
-        prof = _trace(lambda: float(train_step(net, opt, tb,
-                                               loss_kind="ce")))
-        busy, ops = _device_ops(prof)
+        prof, busy, ops, kern = _trace_kernels(
+            lambda: float(train_step(net, opt, tb, loss_kind="ce")),
+            (*ATT_MODELS[model][1], *ATT_KERNELS[2:], *MLP_KERNELS))
         with open(os.path.join(OUT_DIR, f"profile_{model}_train_1024.txt"),
                   "w") as fh:
             fh.write(prof.key_averages().table(
                 sort_by="self_device_time_total", row_limit=40))
-        kern = {k: sum(getattr(e, "self_device_time_total", 0.0)
-                       for e in ops if f"{k}_kernel" in e.key)
-                for k in (*ATT_MODELS[model][1], *ATT_KERNELS[2:],
-                          *MLP_KERNELS)}
         if min(kern.values()) <= 0:
             raise RuntimeError(f"{model} times: no device time for {kern}")
         mm = _mm_count(prof)
@@ -4848,7 +5039,7 @@ def _spmm_case(tb, f, k, gen, device):
     real rows and zero on the padded ones, a random table with A_0 = 0 and
     a cotangent g. k None: the batch's own vocabulary (its edge_vid, K its
     vocab capacity); else k ids drawn at random for the real edges, the
-    padded edges keeping id 0."""
+    padded edges keeping id 0; k 1: every edge id 0, A_0 random."""
     import torch
     from mpnn_tpu_torch.graphs.batching import plan_from_batch
     mask = tb["node_mask"]
@@ -4856,17 +5047,73 @@ def _spmm_case(tb, f, k, gen, device):
     vid = tb["edge_vid"]
     if k is None:
         k = int(tb["edge_vfirst"].shape[0])
+    elif k == 1:
+        vid = torch.zeros_like(vid)
     else:
         rnd = torch.randint(1, k, vid.shape, generator=gen,
                             dtype=torch.int32).to(device)
         vid = torch.where(tb["edge_mask"] > 0, rnd,
                           torch.zeros_like(rnd)).contiguous()
     a = 0.3 * torch.randn(k, f, f, generator=gen)
-    a[0] = 0.0
+    if k > 1:
+        a[0] = 0.0
     h = (torch.randn(n, f, generator=gen).to(device) * mask).contiguous()
     g = torch.randn(n, f, generator=gen).to(device)
     return (a.to(device), h, vid, tb["edge_src"], tb["edge_dst"],
             plan_from_batch(tb), g)
+
+
+@contextlib.contextmanager
+def _spmm_route(per=None):
+    """Force spmm_fwd's tiles (kernels/spmm.py::launch_shape) inside the
+    block: `per`, the positions a lane group takes in a tile (1: the
+    smallest tiles, every long row crossing many of them). A
+    measurement's and a check's; the wrapper takes the rule's."""
+    import torch
+    from mpnn_tpu_torch.kernels import spmm as S
+    real = S.device_shape
+
+    def forced(n_pos, mo, ni, k_vocab, device):
+        props = torch.cuda.get_device_properties(device)
+        return S.launch_shape(
+            n_pos, mo, ni, k_vocab,
+            smem_bytes=props.shared_memory_per_block_optin,
+            sms=props.multi_processor_count, per=per)
+    S.device_shape = forced
+    try:
+        yield
+    finally:
+        S.device_shape = real
+
+
+# spmm-kernel-check's tiles: (name, _spmm_route's arguments); in "small
+# tiles" a lane group takes one position, so the dummy row and a hub's
+# cross many tiles
+SPMM_ROUTES = {"rule": {}, "small tiles": dict(per=1)}
+
+
+def spmm_hub_case(c, hub, gen):
+    """An SpMM case (a, h, vid, src, dst, plan, g) with `hub` of its real
+    edges (those not ending at the dummy last node) turned to end at one
+    real node, a destination of high in-degree whose row crosses tiles,
+    and the index plan rebuilt for it."""
+    import numpy as np
+    import torch
+    from mpnn_tpu_torch.graphs.batching import FusedEvalPlan, plan_fused_eval
+    a, h, vid, src, dst, plan, g = c
+    n = h.shape[0]
+    d = dst.cpu().numpy().copy()
+    real = np.nonzero(d != n - 1)[0]
+    pick = torch.randperm(len(real), generator=gen)[:hub].numpy()
+    d[real[pick]] = d[real[len(real) // 2]]
+    # the plan's graph pointers are the batch's: node_graph from them
+    gp = plan.graph_node_ptr.cpu().numpy()
+    ng = np.full(n, len(gp) - 1, np.int32)
+    for i in range(len(gp) - 1):
+        ng[gp[i]:gp[i + 1]] = i
+    new = FusedEvalPlan(*(torch.as_tensor(x, device=dst.device)
+                          for x in plan_fused_eval(d, ng, len(gp) - 1)))
+    return a, h, vid, src, torch.as_tensor(d, device=dst.device), new, g
 
 
 def spmm_value_and_grads(fn, a, h, vid, src, dst, plan, g):
@@ -4919,50 +5166,72 @@ def phase_spmm_kernel_check(device):
     """spmm_fwd (the forward, and its transposed launch: the VJP's dh) and
     spmm_da against the plain version under autograd on the card: lipo's
     b1024 batch in 16,512 node slots at bench widths (f 10, its own
-    vocab), f 30 with 64 random
-    vocab ids (the wide bucket), a ragged batch (single atoms, padded
-    edges, a padded graph slot), b16, and 32,896 node slots. out within
-    rtol 1e-4 / atol 1e-5; dA and dh each divided by its max abs."""
+    vocab), f 30 with 64 random vocab ids (the wide bucket), K 1 and 64 in
+    the narrow bucket and K 8 in the wide one, a ragged batch (single
+    atoms, padded edges, a padded graph slot), b16, and 32,896 node slots;
+    on the rule's tiles and the smallest (SPMM_ROUTES: the dummy row then
+    spans hundreds of tiles), and a hub node of 400 edges on both. Each
+    case twice, the same bits. out within rtol 1e-4 / atol 1e-5; dA and
+    dh each divided by its max abs."""
     import torch
     from mpnn_tpu_torch.kernels import spmm as S
     gen = torch.Generator().manual_seed(81)
     b1024, b16, big, ragged = _dec_check_batches(device)
-    cases = [("batch1024", b1024, 10, None), ("batch1024", b1024, 30, 64),
-             ("ragged", ragged, 10, None), ("ragged", ragged, 30, 64),
-             ("batch16", b16, 10, None), ("batch2560", big, 10, None)]
+    cases = [("batch1024", b1024, 10, None, "rule", 0),
+             ("batch1024", b1024, 10, None, "small tiles", 0),
+             ("batch1024", b1024, 30, 64, "rule", 0),
+             ("batch1024", b1024, 10, 1, "rule", 0),
+             ("batch1024", b1024, 10, 64, "rule", 0),
+             ("batch1024", b1024, 30, 8, "small tiles", 0),
+             ("batch1024 hub", b1024, 10, None, "rule", 400),
+             ("batch1024 hub", b1024, 10, None, "small tiles", 400),
+             ("ragged", ragged, 10, None, "rule", 0),
+             ("ragged", ragged, 30, 64, "small tiles", 0),
+             ("batch16", b16, 10, None, "rule", 0),
+             ("batch2560", big, 10, None, "rule", 0),
+             ("batch2560", big, 30, 64, "small tiles", 0)]
     worst = {"spmm_fwd": 0.0, "spmm_da": 0.0}
     results, failed = [], []
-    for what, tb, f, k in cases:
+    for what, tb, f, k, route, hub in cases:
         c = _spmm_case(tb, f, k, gen, device)
+        if hub:
+            c = spmm_hub_case(c, hub, gen)
         S.reset_launch_counts()
-        got = spmm_value_and_grads(S.spmm, *c)
-        torch.cuda.synchronize()
+        with _spmm_route(**SPMM_ROUTES[route]):
+            got = spmm_value_and_grads(S.spmm, *c)
+            again = spmm_value_and_grads(S.spmm, *c)
+            torch.cuda.synchronize()
+            shape = S.device_shape(c[2].shape[0], f, f, c[0].shape[0],
+                                   device)
         counts = dict(S.launch_counts)
         want = spmm_value_and_grads(
             lambda *x: S.spmm_reference(*x[:5]), *c)
         ok_o, err_o, _ = _within(got[0], want[0])
         ok_a, err_a, _ = _scaled_within(got[1], want[1])
         ok_h, err_h, _ = _scaled_within(got[2], want[2])
+        same = all(torch.equal(x, y) for x, y in zip(got, again))
         # the padded edges sit on the dummy (last) node: exactly zero there
-        pad0 = not got[0][-1].any() and not got[2][-1].any()
-        ok = (ok_o and ok_a and ok_h and pad0 and counts == {
-            "spmm_fwd": 2, "spmm_da": 1}
+        # (dh too where A_0 = 0: every K but 1)
+        pad0 = not got[0][-1].any() and (k == 1 or not got[2][-1].any())
+        ok = (ok_o and ok_a and ok_h and pad0 and same and counts == {
+            "spmm_fwd": 4, "spmm_da": 2}
             and all(bool(torch.isfinite(x).all()) for x in got))
         worst["spmm_fwd"] = max(worst["spmm_fwd"], err_o, err_h)
         worst["spmm_da"] = max(worst["spmm_da"], err_a)
         results.append(
-            f"{what} f={f} K={c[0].shape[0]} (nodes "
+            f"{what} f={f} K={c[0].shape[0]} {route} {shape.tag()} (nodes "
             f"{int(tb['node_mask'].sum())}/{tb['node_mask'].shape[0]} "
             f"slots, edges {int(tb['edge_mask'].sum())}/"
             f"{tb['edge_src'].shape[0]}): out max_abs={err_o:.3e} dh "
-            f"max_scaled={err_h:.3e} dA max_scaled={err_a:.3e} "
-            f"{'ok' if ok else 'FAIL'}")
+            f"max_scaled={err_h:.3e} dA max_scaled={err_a:.3e}"
+            f"{'' if same else ' BITS DIFFER'} {'ok' if ok else 'FAIL'}")
         if not ok:
-            failed.append(f"{what} f={f}: {counts}, padded rows zero {pad0}")
+            failed.append(f"{what} f={f} {route}: {counts}, padded rows "
+                          f"zero {pad0}")
     print(f"spmm-kernel-check: spmm_fwd (forward and dh) and spmm_da vs "
           f"spmm_reference under autograd (rtol {RTOL} atol {ATOL}; dA, dh "
-          f"divided by their max abs; 2 + 1 launches a case): "
-          + "; ".join(results), flush=True)
+          f"divided by their max abs; 2 + 1 launches a run, two runs a "
+          f"case for the same bits): " + "; ".join(results), flush=True)
     if failed:
         raise RuntimeError(f"the SpMM kernels disagree with their plain "
                            f"version: {failed}")
@@ -5497,6 +5766,48 @@ def _spmm_bounds(nr, er, k, f):
     return out
 
 
+def _spmm_phases(p):
+    """spmm_fwd's clock64 stamps of block 0 (its tile; cycles) as phases:
+    the indices, the x rows with the used ids' tables, the products, the
+    tile's row sums with the combine of rows crossing tiles, the rows
+    without edges zeroed."""
+    return {"indices": p[1] - p[0], "rows and tables": p[2] - p[1],
+            "products": p[3] - p[2], "row sums and combine": p[4] - p[3],
+            "empty rows": p[5] - p[4], "total": p[5] - p[0]}
+
+
+def _spmm_detail(prep, device):
+    """spmm_fwd's tiles, the empty-kernel floor (the same tiles, index
+    staging and combines with no arithmetic: CUDA events over 100
+    launches, and the device time a launch in a trace of 20) and one
+    launch's clock64 phases; prep(**kw) prepares a launch on the inputs.
+    Leaves the launch counts as they were."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import spmm as S
+    counts = dict(S.launch_counts)
+    fl = prep(floor=True)
+    floor = (_events_ms(lambda: K.launch_prepared(fl), 100),
+             _kernel_trace_us_n(20, fl)[0] / 20 / 1e3)
+    prof = torch.zeros(S.PROF_SLOTS, dtype=torch.int64, device=device)
+    p = prep(prof=prof)
+    K.launch_prepared(p)
+    torch.cuda.synchronize()
+    S.launch_counts.update(counts)
+    a, _, _, _, _, order = p.keep[:6]
+    shape = S.device_shape(order.shape[0], a.shape[1], a.shape[2],
+                           a.shape[0], device)
+    return shape.tag(), floor, _spmm_phases(prof.tolist())
+
+
+def _spmm_detail_text(what, detail):
+    tag, (f_ms, f_trace), phases = detail
+    return (f"spmm_fwd {what} tiles {tag}, empty kernel "
+            f"{f_ms * 1e3:.2f} us (trace {f_trace * 1e3:.2f}), block 0 "
+            f"(cycles): " + ", ".join(f"{k} {v:.0f}"
+                                      for k, v in phases.items()))
+
+
 def _rec_bounds(n, nr, f, steps):
     """Least times of the recurrence kernels' work, as _spmm_bounds
     counts it: each kernel's function on its own inputs. The forward
@@ -5541,14 +5852,11 @@ def _dec_trace(what, step, kernels, step_ms):
     `kernels`' device time); fails when one of them shows none. The
     trace reads the second of two steps, the first the profiler's
     warm-up (_trace)."""
-    prof = _trace(lambda: float(step()))
+    prof, busy, ops, kern = _trace_kernels(lambda: float(step()), kernels)
     with open(os.path.join(OUT_DIR, f"profile_dec_{what}_train_1024.txt"),
               "w") as fh:
         fh.write(prof.key_averages().table(
             sort_by="self_device_time_total", row_limit=40))
-    busy, ops = _device_ops(prof)
-    kern = {k: sum(getattr(e, "self_device_time_total", 0.0) for e in ops
-                   if f"{k}_kernel" in e.key) for k in kernels}
     if min(kern.values()) <= 0:
         raise RuntimeError(f"dec times: the trace shows no device time for "
                            f"{sorted(k for k, v in kern.items() if v <= 0)}")
@@ -5628,8 +5936,9 @@ def phase_dec_times(device, card):
                 k = amat.shape[0]
                 msgs = S.spmm_reference(amat, h0, vid, src, dst)
                 g = torch.randn(n, f, generator=gen).to(device)
-                pf = S.prepare_spmm_fwd(amat, h0, vid, src, plan.edge_order,
-                                        plan.dst_ptr, n_out=n)
+                pf = S.prepare_spmm_fwd(amat, h0, vid, src, dst,
+                                        plan.edge_order, plan.dst_ptr,
+                                        n_out=n)
                 pd = S.prepare_spmm_da(h0, g, vid, src, dst, k)
                 m = net.mpnn
                 gru = {kk: v.detach() for kk, v in m.gru.as_dict().items()}
@@ -5646,6 +5955,21 @@ def phase_dec_times(device, card):
                                                steps=DEC_STEPS)
                 ms = {p.name: _events_ms(lambda p=p: K.launch_prepared(p),
                                          100) for p in (pf, pd, prf, prb)}
+                # the forward's device time, its transposed launch (dh),
+                # their tiles, floors and phases
+                s_order, s_ptr = K.source_order(src, n)
+                at = amat.transpose(1, 2).contiguous()
+                pdh = S.prepare_spmm_fwd(at, g, vid, dst, src, s_order,
+                                         s_ptr, n_out=n)
+                dh_ms = _events_ms(lambda: K.launch_prepared(pdh), 100)
+                sf_trace, dh_trace = (_kernel_trace_us_n(20, p)[0] / 20
+                                      for p in (pf, pdh))
+                sdetail = "; ".join(_spmm_detail_text(w, _spmm_detail(
+                    lambda **kw: S.prepare_spmm_fwd(*xs, n_out=n, **kw),
+                    device)) for w, xs in (
+                        ("forward", (amat, h0, vid, src, dst,
+                                     plan.edge_order, plan.dst_ptr)),
+                        ("dh", (at, g, vid, dst, src, s_order, s_ptr))))
                 rb_trace = _kernel_trace_us_n(20, prb)[0] / 20
                 rargs = (msgs, h0, mask, weights, stats, htil, g)
                 rdetail = _detail_text("recurrence_bwd", *_walk_detail(
@@ -5667,7 +5991,8 @@ def phase_dec_times(device, card):
                                             b["node_graph"], bs)
                 rp = [torch.as_tensor(x, device=device) for x in real_plan]
                 pr = S.prepare_spmm_fwd(amat, h0, vid[:er_i].contiguous(),
-                                        src[:er_i].contiguous(), rp[0],
+                                        src[:er_i].contiguous(),
+                                        dst[:er_i].contiguous(), rp[0],
                                         rp[1], n_out=n)
                 real_ms = _events_ms(lambda: K.launch_prepared(pr), 100)
                 dummy_edges = int((b["edge_dst"] == n - 1).sum())
@@ -5700,6 +6025,7 @@ def phase_dec_times(device, card):
                 out[bs][name] = dict(ms=ms[name], plain_ms=plain[name],
                                      bound_ms=bound, bound_by=by)
             out[bs]["recurrence_bwd"]["trace_ms"] = rb_trace / 1e3
+            out[bs]["spmm_fwd"]["trace_ms"] = sf_trace / 1e3
             line += "; " + ", ".join(
                 f"{name} {ms[name] * 1e3:.2f} us (events, 100 launches), "
                 f"plain {plain[name] * 1e3:.1f} us, bound "
@@ -5711,7 +6037,10 @@ def phase_dec_times(device, card):
                      f"{serve_ms * 1e3:.2f} us; spmm_fwd on the "
                      f"{er_i} real edges alone {real_ms * 1e3:.2f} us (the "
                      f"dummy node's row takes the other {dummy_edges}); "
-                     f"recurrence_bwd {rb_trace:.2f} us (trace); {rdetail}")
+                     f"recurrence_bwd {rb_trace:.2f} us (trace); {rdetail}; "
+                     f"spmm_fwd {sf_trace:.2f} us (trace), its dh launch "
+                     f"{dh_ms * 1e3:.2f} us (events, trace {dh_trace:.2f}); "
+                     f"{sdetail}")
             busy, traced = _dec_trace(
                 "lipo", lambda: train_step(net, opt, batch_to_device(
                     b, device), hooks=hooks), DEC_KERNELS + MLP_KERNELS,
@@ -6481,9 +6810,16 @@ def phase_split_kernel_check(device):
 SPLIT_ROWS = 9000
 # split-times' smaller batch, the split route forced there
 SPLIT_SMALL = 1024
-# the split-train runs: (experiment, the op's family)
+# the split-train runs: (experiment, the op's family); encoded_ecfp's
+# message bn1d with state none is the one main-path pair without a state
+# norm
 SPLIT_MODELS = (("lipo", "shared"), ("encoded_classification", "psteps"),
-                ("graph_norm_classification", "psteps"))
+                ("graph_norm_classification", "psteps"),
+                ("encoded_ecfp", "psteps"))
+# encoded_ecfp's molecules (16,384 float32 bits an atom): its train split
+# (~2,430 molecules, ~39k node slots) takes one batch past the split's
+# 28,672 slots
+SPLIT_ECFP_ROWS = 3000
 
 
 @contextlib.contextmanager
@@ -6607,7 +6943,9 @@ def phase_split_train(device):
     `train --batch-size 3584` (1 epoch on SPLIT_ROWS of bench.py's
     molecules; the loader's node cap is its worst batch), encoded_
     classification and graph_norm_classification through trainer.train at
-    batch 3584 on the same molecules. The node slots of each; the `auto`
+    batch 3584 on the same molecules, encoded_ecfp (bn1d/none) through
+    trainer.train at batch 3584 on SPLIT_ECFP_ROWS of them with their
+    Morgan bits. The node slots of each; the `auto`
     route must split: per step one forward, one ro_bwd, one msg_bwd and
     one recurrence_bwd (lipo) or ps_walk_bwd (the per-step family), no
     whole-step backward. Each run's first 3 losses against the plain path
@@ -6643,12 +6981,19 @@ def phase_split_train(device):
     b1024 = _split_check_batches(device)[0]
     for exp_name, family in SPLIT_MODELS:
         exp = experiments.get(exp_name)
-        gs = lgs if family == "shared" else pgs
+        ecfp = exp.task == "ecfp"
+        if ecfp:
+            gs, ge = G.load_ecfp_dataset(
+                _ecfp_csv("split_ecfp", SPLIT_ECFP_ROWS), "smiles", "target")
+        else:
+            gs = lgs if family == "shared" else pgs
         tr, va, te = split(gs)
         dims = dict(afm=int(gs[0].afm.shape[-1]), bfm=int(gs[0].bfm.shape[-1]),
                     nafm=int(gs[0].nafm.shape[-1]))
         cfg = (zoo.lipo(dims["afm"], dims["bfm"], dims["nafm"])
                if family == "shared" else
+               zoo.build(exp.model, afm=ge.atom_width(), bfm=ge.bond_width(),
+                         n_out=16384) if ecfp else
                zoo.build(exp.model, **dims, n_out=PS_CLASSES))
         log = os.path.join(OUT_DIR, f"split_train_{exp_name}.jsonl")
         if os.path.exists(log):
@@ -6683,8 +7028,13 @@ def phase_split_train(device):
         rel, gerr, perr = _split_first_steps(
             f"split-train {exp_name}", cfg, tcfg, tr, device, steps)
         # one step at b1024: the whole route
-        tb = dict(b1024)
-        if family == "psteps":
+        if ecfp:
+            loader = G.GraphLoader(tr, SPLIT_SMALL)
+            tb = batch_to_device(loader._collate_chunk(
+                loader._epoch_chunks()[0]), device)
+        else:
+            tb = dict(b1024)
+        if family == "psteps" and not ecfp:
             tb["labels"] = (torch.arange(tb["labels"].shape[0],
                                          device=device) % PS_CLASSES)
         net = network_init(cfg, torch.Generator().manual_seed(317), device)
@@ -6703,8 +7053,9 @@ def phase_split_train(device):
             f"first-step gradients max_scaled {gerr:.3e} from float64 "
             f"(plain float32 {perr:.3e}); val_loss "
             f"{[round(r['val_loss'], 5) for r in epochs]}; at b1024 "
-            f"({b1024['node_mask'].shape[0]} slots) one step takes the "
+            f"({tb['node_mask'].shape[0]} slots) one step takes the "
             f"whole route: {small}")
+        del tb
     print("split-train: " + "; ".join(lines), flush=True)
 
 

@@ -1,7 +1,8 @@
 // Shared pieces of the PER-STEP family's whole-step kernels
 // (fused_psteps_eval.cu, fused_psteps_fwd.cu, fused_psteps_bwd.cu): the
 // weight layout in shared memory, the per-step norm constants, and the
-// forward body that the serving kernel and the training forward share.
+// serving kernel's forward body (the training forward has its own,
+// fused_psteps_fwd.cu).
 //
 // The per-step family (graph_norm, encoded) has one message network per
 // step, whose A-form is T tables A_t (K, f, f), T bias-leakage matrices
@@ -262,27 +263,25 @@ MPNN_UNROLL
 }
 
 // ---------------------------------------------------------------------------
-// the forward body (serving kernel: kTrain = false; training forward: true)
+// the serving kernel's forward body (fused_psteps_eval.cu)
 // ---------------------------------------------------------------------------
 
 struct PsFwdArgs {
   PsWeights w;
   const float* h0;          // (N, f), pre-masked
-  const float* labels;      // (G) (training)
-  const float* gmask;       // (G) (training)
+  const float* labels;      // unused: null
+  const float* gmask;       // unused: null
   const int* vid;           // (E)
   const int* src;           // (E)
   const int* edge_order;    // (E) edge ids, stably sorted by destination
   const int* dst_ptr;       // (N + 1) row pointers into edge_order
   const int* graph_node_ptr;  // (G + 1) node range of each graph
-  float* loss;              // (1) (training)
+  float* loss;              // unused: null
   float* out;               // (G, od)
-  float* stats;             // (2T, 2, f): mean, biased var (training)
-  float* htil;              // messages of each step, then the pre-norm
-                            // state: (2T, N, f) in training, one state
-                            // slot per step; (T + 1, N, f) at serving
-                            // time, one slot updated in place
-  float* scratch;           // chunk partials + per-graph loss terms
+  float* stats;             // unused: null
+  float* htil;              // (T + 1, N, f): the messages of each step,
+                            // then one pre-norm state slot updated in place
+  float* scratch;           // chunk partials (fwd_scratch_floats)
   int n_nodes, n_graphs, f, od, k_vocab, steps, msg_mode, state_mode;
 };
 
@@ -382,23 +381,18 @@ __device__ void combine_slot(const float* part, int nchunks, int n_real,
   __syncthreads();
 }
 
-// The whole forward in one cooperative launch. Phases, with their grid
-// barriers:
+// The whole serving forward in one cooperative launch. Phases, with
+// their grid barriers:
 //   M  messages of all T steps, one warp per graph: per node, one gather
 //      of h0[src] per incoming edge feeds kStepGroup steps' A tables;
 //      + A0_t·S_g + mbias_t; into htil slots 0..T-1          (1 barrier)
-//   MS (training, message bn1d) the batch statistics of all T message
-//      slots from one chunk pass                            (1 barrier)
-//   R  T recurrent steps on node chunks: message norm → GRU → state norm;
-//      a state norm on batch statistics (training bn1d, the stateless
-//      norm in both modes) combines chunk partials after each step
-//                                  (T barriers, or 1 if no statistics)
-//   O  the gated readout, one warp per graph; training: the loss terms,
-//      then block 0 sums them in graph order                (1 barrier)
+//   R  T recurrent steps on node chunks: message norm (a folded affine)
+//      → GRU → state norm; the stateless norm combines chunk partials
+//      after each step               (T barriers, or 1 if no statistics)
+//   O  the gated readout, one warp per graph
 // The state-norm partials alternate between two buffers by step parity
 // (a block that combined step t may write step t+1's partials while a
 // slower block still reads step t's).
-template <bool kTrain>
 __device__ void psteps_forward(const PsFwdArgs& a) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float sm[];
@@ -414,35 +408,13 @@ __device__ void psteps_forward(const PsFwdArgs& a) {
   const int N = a.n_nodes, G = a.n_graphs;
   const int n_real = a.graph_node_ptr[G];
   const int nchunks = (n_real + kChunk - 1) / kChunk;
-  float* part_msg = a.scratch;                         // T·nchunks·2FP
-  float* part_state = part_msg + size_t(T) * nchunks * kPartStride;
-  float* lossg = part_state + 2 * size_t(nchunks) * kPartStride;   // G
+  // the state partials past T·nchunks rows (fwd_scratch_floats' layout)
+  float* part_state = a.scratch + size_t(T) * nchunks * kPartStride;
   const size_t slot_sz = size_t(N) * f;
   const int mmode = a.msg_mode, smode = a.state_mode;
-  // the pre-norm state written by step t: its own slot in training (the
-  // backward reads every step's); at serving time one slot, updated in
-  // place, since a thread reads back only the rows it wrote
-  auto state_slot = [&](int t) {
-    return a.htil + size_t(kTrain ? T + t : T) * slot_sz;
-  };
-
-  if (kTrain) {
-    // padded node slots carry zero in every stash slot; the stats rows of
-    // a norm without statistics are zero
-    const size_t pad = size_t(N - n_real) * f;
-    const size_t total = pad * (2 * T);
-    for (size_t i = size_t(blockIdx.x) * kThreads + tid; i < total;
-         i += size_t(gridDim.x) * kThreads) {
-      const size_t s = i / pad, r = i % pad;
-      a.htil[s * slot_sz + size_t(n_real) * f + r] = 0.f;
-    }
-    if (blockIdx.x == 0)
-      for (int i = tid; i < 2 * T * 2 * f; i += kThreads) {
-        const int s = i / (2 * f);
-        const bool on = s < T ? has_stats(mmode) : has_stats(smode);
-        if (!on) a.stats[i] = 0.f;
-      }
-  }
+  // the pre-norm state written by each step: one slot, updated in place,
+  // since a thread reads back only the rows it wrote
+  auto state_slot = [&](int) { return a.htil + size_t(T) * slot_sz; };
 
   // ---- phase M: messages of all T steps, one warp per graph -------------
   const int gw = blockIdx.x * kWarps + warp, nw = gridDim.x * kWarps;
@@ -510,30 +482,6 @@ MPNN_UNROLL
   }
   grid.sync();
 
-  // ---- phase MS: batch statistics of every message slot (training) ------
-  if (kTrain && mmode == kBatchBn) {
-    for (int c = blockIdx.x; c < nchunks; c += gridDim.x) {
-      const int n = c * kChunk + tid;
-      const int cnt = chunk_count(c, n_real);
-      for (int t = 0; t < T; ++t) {
-        float x[FP];
-MPNN_UNROLL
-        for (int j = 0; j < FP; ++j) x[j] = 0.f;
-        if (n < n_real) load_row_cg(a.htil + size_t(t) * slot_sz, n, f, x);
-MPNN_UNROLL
-        for (int j = 0; j < FP; ++j) xs[tid * kStage + j] = x[j];
-        __syncthreads();
-        chunk_moments(xs, cnt, red, cmean,
-                      part_msg + (size_t(t) * nchunks + c) * kPartStride);
-      }
-    }
-    grid.sync();
-    for (int t = 0; t < T; ++t)
-      combine_slot(part_msg + size_t(t) * nchunks * kPartStride, nchunks,
-                   n_real, f, red, cmean, st + t * 3 * FP, false, a.stats,
-                   t);
-  }
-
   // ---- phase R: T recurrent steps on node chunks ------------------------
   const bool state_stats = has_stats(smode);
   for (int t = 0; t < T; ++t) {
@@ -574,13 +522,13 @@ MPNN_UNROLL
     if (state_stats) {
       grid.sync();
       combine_slot(part_t, nchunks, n_real, f, red, cmean,
-                   st + (T + t) * 3 * FP, smode == kStateless,
-                   kTrain ? a.stats : nullptr, T + t);
+                   st + (T + t) * 3 * FP, smode == kStateless, nullptr,
+                   T + t);
     }
   }
   if (!state_stats) grid.sync();         // every h̃_T visible to the readout
 
-  // ---- phase O: gated readout per graph (and each graph's loss term) ----
+  // ---- phase O: gated readout per graph --------------------------------
   const float* hT = state_slot(T - 1);
   const float* stT = st + (2 * T - 1) * 3 * FP;
   for (int g = gw; g < G; g += nw) {
@@ -600,39 +548,9 @@ MPNN_UNROLL
 MPNN_UNROLL
     for (int o = 0; o < ODW; ++o) acc[o] = warp_sum(acc[o]);
     if (lane == 0) {
-      float l = 0.f;
-      const float y = kTrain ? a.labels[g] : 0.f;
-      const float gm = kTrain ? a.gmask[g] : 0.f;
 MPNN_UNROLL
       for (int o = 0; o < ODW; ++o)
-        if (o < od) {
-          a.out[size_t(g) * od + o] = acc[o];
-          const float d = acc[o] - y;
-          l = fmaf(d * d, gm, l);
-        }
-      if (kTrain) lossg[g] = l;
-    }
-  }
-  if (!kTrain) return;
-  grid.sync();
-
-  // ---- loss = Σ_g term_g / Σ_g gm_g, in graph order, by block 0 ---------
-  if (blockIdx.x == 0) {
-    float num = 0.f, den = 0.f;
-    for (int g = tid; g < G; g += kThreads) {
-      num += __ldcg(lossg + g);
-      den += a.gmask[g];
-    }
-    red[tid] = num;
-    xs[tid] = den;
-    __syncthreads();
-    if (tid == 0) {
-      float sn = 0.f, sd = 0.f;
-      for (int i = 0; i < kThreads; ++i) {
-        sn += red[i];
-        sd += xs[i];
-      }
-      a.loss[0] = sn / sd;
+        if (o < od) a.out[size_t(g) * od + o] = acc[o];
     }
   }
 }

@@ -21,17 +21,16 @@
 // the bound from the run's shapes.
 //
 // Design: the stateless norm needs batch-wide statistics after every
-// step, so a graph-local warp cannot serve a batch alone. The kernel is
-// the training forward's body (fused_psteps_common.cuh) instantiated
-// without the statistics pass of the messages, the stats output and the
-// loss: ONE cooperative launch, messages of all T steps from one gather of
-// h0[src] per edge, node chunks for the recurrence, the stateless norm's
-// statistics from per-chunk partials combined in chunk order after
-// grid.sync() (double-buffered by step parity), no float atomics.
-// Barriers: 2, plus T with the stateless norm. Scratch in device memory:
-// the T message slots and ONE state slot, updated in place by each step
-// ((T + 1)·N·f floats; the training forward keeps all T states, 2T·N·f,
-// for its backward).
+// step, so a graph-local warp cannot serve a batch alone. The kernel's
+// body (fused_psteps_common.cuh::psteps_forward, the training forward's
+// design before fused_psteps_fwd.cu was redesigned): ONE cooperative
+// launch, messages of all T steps from one gather of h0[src] per edge,
+// node chunks for the recurrence, the stateless norm's statistics from
+// per-chunk partials combined in chunk order after grid.sync()
+// (double-buffered by step parity), no float atomics. Barriers: 2, plus T
+// with the stateless norm. Scratch in device memory: the T message slots
+// and ONE state slot, updated in place by each step ((T + 1)·N·f
+// floats).
 
 #include "fused_psteps_common.cuh"
 
@@ -41,7 +40,7 @@ using namespace mpnn_psteps;
 
 __global__ void __launch_bounds__(kThreads)
 fused_psteps_eval_kernel(PsFwdArgs a) {
-  psteps_forward<false>(a);
+  psteps_forward(a);
 }
 
 }  // namespace

@@ -1,7 +1,8 @@
 // Shared pieces of the attention SDDMM kernels (sddmm_fwd.cu,
 // sddmm_bwd.cu): the width bucket, the shared-memory tables, the tiles of
 // edges, the per-edge gate on a group of lanes, the in-tile row sums and
-// the fixed-order combines across tiles.
+// the fixed-order combines across tiles. The vocab SpMM forward
+// (spmm_fwd.cu) walks its edges on the same tiles, row sums and combines.
 //
 // The function (mpnn_tpu/kernels/sddmm.py, the unfused attention message
 // of the attention models' decomposed training path):

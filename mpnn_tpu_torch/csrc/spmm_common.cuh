@@ -1,5 +1,7 @@
-// Shared pieces of the vocab-indexed SpMM kernels (spmm_fwd.cu,
-// spmm_da.cu): the width bucket and the work mapping.
+// Shared pieces of the vocab-indexed SpMM table gradient (spmm_da.cu; the
+// message VJP of msg_bwd.cu shares its items): the width bucket and the
+// work mapping. The forward (spmm_fwd.cu) walks its edges on the SDDMM
+// forward's tiles (sddmm_common.cuh).
 //
 // The function (mpnn_tpu/kernels/spmm.py, the A-form message sum of the
 // edge-network family):
@@ -16,9 +18,8 @@
 // order. No float atomics, so results do not depend on scheduling.
 //
 // Width buckets (kernels/build.py::WIDE, kernels/spmm.py::BUCKETS): the
-// narrow build takes mf, nf <= 16 and stages A in shared memory (64 KB at
-// K 64); the wide build (-DMPNN_FP=32) reads A from device memory through
-// the read-only cache (256 KB at K 64 would not fit a block).
+// narrow build takes mf, nf <= 16, the wide build (-DMPNN_FP=32) up to
+// 32.
 
 #pragma once
 
@@ -35,10 +36,6 @@ namespace cg = cooperative_groups;
 constexpr int FP = MPNN_FP;              // widest mf, nf of the bucket
 static_assert(FP == 16 || FP == 32, "the buckets are 16 and 32 wide");
 constexpr int kThreads = 256;
-// the forward: a lane group of FP lanes per output row, lane m computes
-// feature m
-constexpr int kRowsPerBlock = kThreads / FP;
-constexpr bool kTableInSmem = FP <= 16;
 constexpr int kMaxVocab = 64;
 // dA: vocab-sorted edges in chunks of kChunkEdges, one block per work item
 constexpr int kChunkEdges = 128;

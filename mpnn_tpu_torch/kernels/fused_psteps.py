@@ -12,9 +12,11 @@ one norm pair per step; messages from the initial state.
     `_ps_fwd_kernel`, and its two backwards): the same chain with the
     per-step norms in training mode (batch statistics per step) and the
     masked-MSE loss, as a torch.autograd.Function whose forward is one
-    cooperative launch (csrc/fused_psteps_fwd.cu) and whose backward
+    launch (csrc/fused_psteps_fwd.cu) and whose backward
     takes one of two routes, as the JAX package's does
-    (kernels/split_bwd.py): up to 28,672 padded node slots the whole
+    (kernels/split_bwd.py); the forward runs on a thread-block cluster or
+    a grid of co-resident blocks that fwd_launch_shape picks, with no grid
+    barrier. Up to 28,672 padded node slots the whole
     backward in one launch (`_ps_bwd_kernel` → csrc/fused_psteps_bwd.cu,
     on a thread-block cluster or a grid of co-resident blocks that
     launch_shape picks, with no grid barrier);
@@ -200,11 +202,12 @@ _SIGNATURES = {
         "mpnn_fused_psteps_eval_grid": ([_I] * 3, _I),
     },
     "fused_psteps_fwd": {
-        "mpnn_fused_psteps_fwd": ([_P] * 28 + [_I] * 9 + [_P], _I),
-        "mpnn_fused_psteps_fwd_smem_bytes": ([_I], _I),
-        "mpnn_fused_psteps_fwd_scratch_floats": ([_I, _I, _I],
+        "mpnn_fused_psteps_fwd": ([_P] * 30 + [_I] * 15 + [_P], _I),
+        "mpnn_fused_psteps_fwd_smem_bytes": ([_I] * 6, _I),
+        "mpnn_fused_psteps_fwd_scratch_floats": ([_I] * 5,
                                                  ctypes.c_longlong),
-        "mpnn_fused_psteps_fwd_grid": ([_I] * 3, _I),
+        "mpnn_fused_psteps_fwd_max_grid": ([_I], _I),
+        "mpnn_fused_psteps_fwd_counters": ([], _I),
     },
     "fused_psteps_bwd": {
         "mpnn_fused_psteps_bwd": ([_P] * 36 + [_I] * 14 + [_P], _I),
@@ -377,36 +380,158 @@ class PsMeta(NamedTuple):
     split: int = 0          # the split backward (kernels/split_bwd.py)
 
 
+# ---------------------------------------------------------------------------
+# the training forward's routes (csrc/fused_psteps_fwd.cu)
+# ---------------------------------------------------------------------------
+
+FWD_THREADS = 256          # kFT
+FWD_PROF_SLOTS = 80        # kProfSlots: block 0's clock64 stamps
+# The T·K message tables sit in shared memory up to this many floats
+# (64 KB: encoded's T 3, K 8 at FP 16 take 24 KB; at K 64 they would take
+# 196 KB), else the kernel reads them through the read-only cache
+# (csrc/fused_psteps_fwd.cu::kAmatSmemFloats).
+AMAT_SMEM_FLOATS = 16384
+
+
+def amat_in_smem(tag: str, k_vocab: int, steps: int) -> bool:
+    """Whether the forward stages the T·K message tables in shared memory."""
+    fp = dict(BUCKETS)[tag]["f"]
+    return steps * k_vocab * fp * fp <= AMAT_SMEM_FLOATS
+
+
+def fwd_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int,
+                    ecap: int, blocks: int) -> int:
+    """Floats of one forward block's shared memory in a launch of `blocks`
+    blocks (csrc/fused_psteps_fwd.cu::Smem after fused_psteps_common.cuh::
+    PL): the staged weights and the 2T slots' norm constants, the message
+    tables when they fit (amat_in_smem), each slot's partial row, the
+    reduction scratch, every block's partial row of the slot being
+    combined, the block's edge tables (ncap nodes, ecap edges) and the node
+    tile (h0, the state, the T messages: max((2 + T)·FP, od) a node)."""
+    b = dict(BUCKETS)[tag]
+    fp, odw, T = b["f"], b["od"], steps
+    al4 = lambda v: (v + 3) & ~3
+    ro = 2 * fp * odw if odw <= 32 else 0          # kRoInSmem
+    weights = (2 * fp * 3 * fp + 6 * fp + 2 * ro + 2 * odw
+               + T * (fp * fp + 5 * fp) + 2 * T * 3 * fp)
+    n = al4(weights)
+    n += T * k_vocab * fp * fp if amat_in_smem(tag, k_vocab, T) else 0
+    n += al4(2 * T * (3 * fp + 4)) + 2 * FWD_THREADS
+    n += max(blocks, 1) * (2 * fp + 4)
+    return n + al4(ncap + 1 + 2 * ecap) + ncap * max((2 + T) * fp, odw)
+
+
+def fwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int,
+                 blocks: int) -> int:
+    """The most node slots (at most fused_step.FWD_MAX_NCAP, EDGE_RATIO
+    edges each) whose tile fits `smem_bytes` of a forward block in a launch
+    of up to `blocks` blocks; 0 when none does."""
+    return K.tile_capacity(
+        lambda c: fwd_smem_floats(tag, k_vocab, steps, c, EDGE_RATIO * c,
+                                  blocks), smem_bytes, K.FWD_MAX_NCAP)
+
+
+def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                     sums: bool, smem_bytes: int, max_grid: int
+                     ) -> K.FwdShape:
+    """The training forward's route for a batch of `n` node slots: the
+    shared family's forward policy (fused_step.fwd_policy and its
+    constants) on this kernel's tiles, with `sums` for a norm on batch
+    statistics (the T message norms' one combine or a state norm's combine
+    a step): up to 512 slots one cluster, past them a grid of a block per
+    24 slots; without either a grid of a block per 16 slots."""
+    return K.fwd_policy(
+        f"fused_psteps_fwd: one node at vocab {k_vocab}, T {steps}", n,
+        lambda c, g: fwd_smem_floats(tag, k_vocab, steps, c, EDGE_RATIO * c,
+                                     g),
+        sums=sums, smem_bytes=smem_bytes, max_grid=max_grid)
+
+
+_FWD_SHAPES: Dict[tuple, K.FwdShape] = {}
+
+
+def device_fwd_shape(n: int, tag: str, k_vocab: int, steps: int,
+                     sums: bool, device) -> K.FwdShape:
+    """fwd_launch_shape on `device`'s shared memory and the kernel's
+    co-resident blocks."""
+    key = (n, tag, k_vocab, steps, sums, str(device))
+    if key not in _FWD_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        sms = props.multi_processor_count
+        cap = max(fwd_capacity(tag, k_vocab, steps, smem, sms), 1)
+        most = _lib("fused_psteps_fwd", tag).mpnn_fused_psteps_fwd_max_grid(
+            4 * fwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap,
+                                sms))
+        if most < 1:
+            raise RuntimeError("fused_psteps_fwd: no block fits this card")
+        _FWD_SHAPES[key] = fwd_launch_shape(n, tag, k_vocab, steps,
+                                            sums=sums, smem_bytes=smem,
+                                            max_grid=most)
+    return _FWD_SHAPES[key]
+
+
+# The forward's grid-route counters (each round's arrivals, the launch's),
+# one buffer per device and stream, zeroed once: every launch leaves them
+# zero.
+_FWD_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _fwd_counters(shape: K.FwdShape, tag: str, device, stream: int):
+    if shape.route != "grid" or shape.grid < 2:
+        return None
+    key = (str(device), stream)
+    if key not in _FWD_COUNTERS:
+        _FWD_COUNTERS[key] = torch.zeros(
+            _lib("fused_psteps_fwd", tag).mpnn_fused_psteps_fwd_counters(),
+            dtype=torch.int32, device=device)
+    return _FWD_COUNTERS[key]
+
+
 def prepare_fused_psteps_fwd(weights, h0, mask, node_graph, labels, gmask,
                              vid, src, dst, plan: FusedEvalPlan,
-                             meta: PsMeta) -> K.PreparedLaunch:
-    """One checked forward launch: outputs loss (1,), out (G, od), stats
-    (2T, 2, f) and the residual stash htil (2T, N, f) — slots 0..T-1 the
-    masked messages of each step, T..2T-1 the pre-norm GRU outputs.
-    `weights` is the (name, tensor) list in _GRAD_LEAVES order."""
+                             meta: PsMeta, prof=None, floor: bool = False
+                             ) -> K.PreparedLaunch:
+    """One checked forward launch on its route (device_fwd_shape): outputs
+    loss (1,), out (G, od), stats (2T, 2, f) and the residual stash htil
+    (2T, N, f) — slots 0..T-1 the masked messages of each step, T..2T-1
+    the pre-norm GRU outputs. `weights` is the (name, tensor) list in
+    _GRAD_LEAVES order. A measurement may take block 0's clock64 stamps
+    (`prof`, int64 with FWD_PROF_SLOTS slots) or launch the empty forward
+    (`floor`: the route's grid and combines, no arithmetic; counted as its
+    own key)."""
     T = meta.steps
     n, f, od, k_vocab, e, g, tag = _check_inputs(
         "fused_psteps", weights, h0, mask, node_graph, vid, src, dst, plan,
         T, extra=(("labels", labels), ("gmask", gmask)))
+    K._check_prof(prof, FWD_PROF_SLOTS)
     lib = _lib("fused_psteps_fwd", tag)
     device = h0.device
-    grid = K._grid(lib, "mpnn_fused_psteps_fwd_grid", T, n, g)
+    sums = meta.msg_mode != NONE or meta.state_mode != NONE
+    shape = device_fwd_shape(n, tag, k_vocab, T, sums, device)
+    stream = _stream(device)
     kw = dict(dtype=torch.float32, device=device)
     loss = torch.empty(1, **kw)
     out = torch.empty(g, od, **kw)
     stats = torch.empty(2 * T, 2, f, **kw)
     htil = torch.empty(2 * T, n, f, **kw)
-    scratch = torch.empty(
-        lib.mpnn_fused_psteps_fwd_scratch_floats(n, g, T), **kw)
+    scratch = torch.empty(lib.mpnn_fused_psteps_fwd_scratch_floats(
+        n, e, g, T, shape.grid), **kw)
+    counters = _fwd_counters(shape, tag, device, stream)
     tensors = _kernel_tensors(weights, tag) + [
         h0, labels, gmask, vid, src, plan.edge_order, plan.dst_ptr,
         plan.graph_node_ptr, loss, out, stats, htil, scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, f, od, k_vocab, T,
-            meta.msg_mode, meta.state_mode, grid, _stream(device))
-    return K.PreparedLaunch("fused_psteps_fwd", lib.mpnn_fused_psteps_fwd,
+    args = (*(t.data_ptr() for t in tensors), K._ptr(counters), K._ptr(prof),
+            n, g, e, f, od, k_vocab, T, meta.msg_mode, meta.state_mode,
+            int(shape.route == "grid"), shape.grid, shape.ncap, shape.ecap,
+            int(amat_in_smem(tag, k_vocab, T)), int(floor), stream)
+    return K.PreparedLaunch("fused_psteps_fwd_floor" if floor
+                            else "fused_psteps_fwd",
+                            lib.mpnn_fused_psteps_fwd,
                             lib.mpnn_cuda_error_string, args,
-                            (loss, out, stats, htil), tuple(tensors),
-                            launch_counts)
+                            (loss, out, stats, htil),
+                            tuple(tensors) + (counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -426,8 +551,10 @@ MAX_CLUSTER, MAX_GRID = K.MAX_CLUSTER, K.MAX_GRID
 CLUSTER_NODES, CLUSTER_SLOTS, GRID_NODES = (K.CLUSTER_NODES, K.CLUSTER_SLOTS,
                                             K.GRID_NODES)
 
-# the empty walk's launches (a measurement's yardstick, not the path's)
-floor_counts: Dict[str, int] = {"fused_psteps_bwd_floor": 0}
+# the empty forward's and walk's launches (a measurement's yardstick, not
+# the path's)
+floor_counts: Dict[str, int] = {"fused_psteps_fwd_floor": 0,
+                                "fused_psteps_bwd_floor": 0}
 
 
 def bwd_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int,

@@ -784,34 +784,38 @@ def fwd_capacity(tag: str, k_vocab: int, steps: int, smem_bytes: int,
     return lo
 
 
-def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
-                     sums: bool, smem_bytes: int, max_grid: int) -> FwdShape:
-    """The forward's route for a batch of `n` node slots, from shapes and
-    norms alone: with `sums` (a norm on batch statistics, whose sums cross
-    blocks in every slot) up to FWD_CLUSTER_SLOTS slots one cluster of the
-    fewest blocks (1, 2, 4) that take at most FWD_CLUSTER_NODES slots
-    each, else 8; past them the grid route with a block per
-    FWD_STAT_NODES slots, at most max(FWD_STAT_BLOCKS, ceil(sqrt(n)))
-    blocks, and without sums at any size a block per FWD_GRID_NODES
-    slots; each at most
-    `max_grid` (the card's co-resident blocks); neither share past 3/4 of
-    a block's tile with room for the partial rows of the most blocks the
-    card holds (fwd_capacity); the launch's tile then fills what its own
-    block count leaves. A block whose graphs still outgrow its tile keeps
-    them in global scratch, on the same route. NotImplementedError when
-    not one node fits."""
+def fwd_policy(who: str, n: int, floats, *, sums: bool, smem_bytes: int,
+               max_grid: int) -> FwdShape:
+    """The forward kernels' route policy for a batch of `n` node slots,
+    from shapes and norms alone (this family's training forward and
+    stateless serving kernel, the per-step family's training forward):
+    with `sums` (a norm on batch statistics, whose sums cross blocks) up
+    to FWD_CLUSTER_SLOTS slots one cluster of the fewest blocks (1, 2, 4)
+    that take at most FWD_CLUSTER_NODES slots each, else 8; past them the
+    grid route with a block per FWD_STAT_NODES slots, at most
+    max(FWD_STAT_BLOCKS, ceil(sqrt(n))) blocks, and without sums at any
+    size a block per FWD_GRID_NODES slots; each at most `max_grid` (the
+    card's co-resident blocks); neither share past 3/4 of a block's tile
+    (the most node slots, at most FWD_MAX_NCAP with EDGE_RATIO edges
+    each, whose floats(ncap, blocks) fit `smem_bytes`) with room for the
+    partial rows of the most blocks the card holds; the launch's tile
+    then fills what its own block count leaves. A block whose graphs
+    still outgrow its tile keeps them in global scratch, on the same
+    route. NotImplementedError (naming `who`) when not one node fits."""
     most = max(MAX_CLUSTER, min(max_grid, FWD_MAX_GRID))
-    cap = fwd_capacity(tag, k_vocab, steps, smem_bytes, most)
+
+    def cap_of(g):
+        return tile_capacity(lambda c: floats(c, g), smem_bytes,
+                             FWD_MAX_NCAP)
+    cap = cap_of(most)
     if cap < 1:
         raise NotImplementedError(
-            f"fused_step_fwd: one node at vocab {k_vocab}, T {steps} needs "
-            f"{4 * fwd_smem_floats(tag, k_vocab, steps, 1, EDGE_RATIO, most)}"
-            f" bytes of shared memory; the card has {smem_bytes}")
+            f"{who} needs {4 * floats(1, most)} bytes of shared memory; the "
+            f"card has {smem_bytes}")
 
     def shape(route, g):
-        c = fwd_capacity(tag, k_vocab, steps, smem_bytes, g)
-        return FwdShape(route, g, c, EDGE_RATIO * c, 4 * fwd_smem_floats(
-            tag, k_vocab, steps, c, EDGE_RATIO * c, g))
+        c = cap_of(g)
+        return FwdShape(route, g, c, EDGE_RATIO * c, 4 * floats(c, g))
     fill = max(1, 3 * cap // 4)
     if sums and n <= FWD_CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
         return shape("cluster", next(
@@ -822,6 +826,17 @@ def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
             else -(-n // FWD_GRID_NODES))
     return shape("grid", max(1, min(max_grid, FWD_MAX_GRID,
                                     max(want, -(-n // fill)))))
+
+
+def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                     sums: bool, smem_bytes: int, max_grid: int) -> FwdShape:
+    """This family's forward route for a batch of `n` node slots
+    (fwd_policy on fwd_smem_floats' tiles)."""
+    return fwd_policy(
+        f"fused_step_fwd: one node at vocab {k_vocab}, T {steps}", n,
+        lambda c, g: fwd_smem_floats(tag, k_vocab, steps, c, EDGE_RATIO * c,
+                                     g),
+        sums=sums, smem_bytes=smem_bytes, max_grid=max_grid)
 
 
 _FWD_SHAPES: Dict[tuple, FwdShape] = {}

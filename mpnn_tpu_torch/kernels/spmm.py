@@ -17,12 +17,15 @@ stable vocab order are built on the device (fused_step.py::source_order).
 CPU tensors run the plain version (spmm_reference under autograd); CUDA
 tensors launch the hand-written kernels csrc/spmm_fwd.cu (the forward and,
 on Aᵀ through the source order, dh) and csrc/spmm_da.cu (dA), or raise.
+launch_shape sizes the forward's tiles of edges on the host from the
+shapes alone, a block a tile (csrc/spmm_fwd.cu, on csrc/sddmm_common.cuh's
+tiles).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -58,11 +61,123 @@ def spmm_da_reference(h, g, vid, src, dst, k_vocab: int):
         0, vid.long(), outer)
 
 
+# ---------------------------------------------------------------------------
+# the forward's tiles, from shapes alone
+# ---------------------------------------------------------------------------
+
+# csrc/sddmm_common.cuh's constants
+THREADS = 256
+MAX_PER = 8               # positions a lane group takes in a tile
+PROF_SLOTS = 24
+# The tile rule (scripts/time_spmm.py --sweep; PERF.md, row 9): the
+# positions cut into tiles of about GRID_WAVE blocks an SM, a tile at most
+# TILE_POSITIONS positions (row 11's forward rule, kernels/sddmm.py).
+GRID_WAVE = 3
+TILE_POSITIONS = 128
+
+
+def group_of(mo: int, ni: int) -> int:
+    """Lanes a position: the narrowest of 8, 16 (the narrow bucket) and 32
+    (the wide bucket) that holds mo and ni."""
+    f = max(mo, ni)
+    return 8 if f <= 8 else 16 if f <= 16 else 32
+
+
+# the vocab ids whose A tables a block stages (csrc/spmm_fwd.cu::
+# kStageIds): every id in the narrow bucket, 16 in the wide one
+STAGE_IDS = {16: MAX_VOCAB, 32: 16}
+
+
+def smem_floats(k_vocab: int, fp: int, te: int) -> int:
+    """Dynamic shared memory of a block, in floats (csrc/spmm_fwd.cu::
+    fwd_smem_floats): the used ids' A tables (room for min(K, STAGE_IDS)
+    of them), a tile's staged positions (te of them: five index arrays,
+    the x rows and the products), the used-id mask, the boundary rows'
+    pointers and the combine's flags."""
+    al4 = lambda n: (n + 3) & ~3
+    table = min(k_vocab, STAGE_IDS[fp]) * fp * fp
+    return table + al4(5 * te) + 2 * te * fp + 8
+
+
+class SpmmShape(NamedTuple):
+    """A forward launch, a block a tile: lanes a position, positions a
+    group takes in a tile, the tiles, dynamic shared memory (bytes)."""
+    group: int
+    per: int
+    tiles: int
+    smem_bytes: int
+
+    def tag(self) -> str:
+        return f"g{self.group} p{self.per} x{self.tiles}"
+
+
+def launch_shape(n_pos: int, mo: int, ni: int, k_vocab: int, *,
+                 smem_bytes: int, sms: int, per: Optional[int] = None
+                 ) -> SpmmShape:
+    """The tile rule, from the shapes alone: the n_pos positions of the
+    order (the edges) cut into tiles, a block a tile, a group taking the
+    fewest positions that keep the tiles within GRID_WAVE blocks an SM, at
+    most TILE_POSITIONS a tile and MAX_PER a group. `per` forces the
+    positions a group (a measurement's and a check's). A tile gives way
+    (fewer positions a group) until the block fits `smem_bytes`."""
+    group = group_of(mo, ni)
+    fp = 16 if group <= 16 else 32
+    ng = THREADS // group
+    cdiv = lambda a, b: -(-a // b)
+    if per is None:
+        most = min(MAX_PER, max(1, TILE_POSITIONS // ng))
+        per = min(most, max(1, cdiv(n_pos, ng * max(1, GRID_WAVE * sms))))
+    per = min(MAX_PER, max(1, per))
+    while 4 * smem_floats(k_vocab, fp, ng * per) > smem_bytes and per > 1:
+        per -= 1
+    need = 4 * smem_floats(k_vocab, fp, ng * per)
+    if need > smem_bytes:
+        raise NotImplementedError(
+            f"spmm_fwd: a tile at K={k_vocab} needs {need} bytes of shared "
+            f"memory; the card has {smem_bytes}")
+    return SpmmShape(group, per, cdiv(n_pos, ng * per), need)
+
+
+_SHAPES: Dict[tuple, SpmmShape] = {}
+
+
+def device_shape(n_pos: int, mo: int, ni: int, k_vocab: int,
+                 device) -> SpmmShape:
+    """launch_shape on `device`'s SM count and shared-memory limit."""
+    key = (n_pos, mo, ni, k_vocab, str(device))
+    if key not in _SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        _SHAPES[key] = launch_shape(
+            n_pos, mo, ni, k_vocab,
+            smem_bytes=props.shared_memory_per_block_optin,
+            sms=props.multi_processor_count)
+    return _SHAPES[key]
+
+
+# The forward's integer counters, one buffer per device and stream, zeroed
+# once (a larger batch takes a new zeroed one): every launch leaves them
+# zero.
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    key = (str(device), stream)
+    if key not in _COUNTERS or _COUNTERS[key].numel() < n:
+        _COUNTERS[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                     device=device)
+    return _COUNTERS[key]
+
+
+# a floor launch's count: a measurement's yardstick, never the main path's
+floor_counts: Dict[str, int] = {"spmm_fwd": 0}
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "spmm_fwd": {
-        "mpnn_spmm_fwd": ([_P] * 7 + [_I] * 4 + [_P], _I),
-        "mpnn_spmm_fwd_smem_bytes": ([_I], _I),
+        "mpnn_spmm_fwd": ([_P] * 11 + [_I] * 8 + [_P], _I),
+        "mpnn_spmm_fwd_smem_bytes": ([_I] * 3, _I),
+        "mpnn_spmm_fwd_scratch_floats": ([_I] * 3, ctypes.c_longlong),
     },
     "spmm_da": {
         "mpnn_spmm_da": ([_P] * 8 + [_I] * 5 + [_P], _I),
@@ -133,20 +248,31 @@ def _check_inputs(a, h, vid, src, dst, plan: FusedEvalPlan) -> int:
     return k_vocab
 
 
-def prepare_spmm_fwd(a, x, vid, gather, order, ptr, *, n_out: int
-                     ) -> K.PreparedLaunch:
+def prepare_spmm_fwd(a, x, vid, gather, key, order, ptr, *, n_out: int,
+                     prof=None, floor: bool = False) -> K.PreparedLaunch:
     """One launch of the forward kernel on inputs the caller checked:
     out[r] = Σ_{p ∈ [ptr[r], ptr[r+1])} a[vid_e]·x[gather_e], e = order[p];
-    a (K, mo, ni), x (·, ni). Output out (n_out, mo)."""
+    a (K, mo, ni), x (·, ni), key[e] the output row of edge e (the order
+    groups the edges by it). Output out (n_out, mo). `prof`: block 0's
+    clock64 stamps (int64, PROF_SLOTS); `floor`: the empty-kernel floor
+    (the same tiles and combines, no arithmetic; counted apart)."""
     k_vocab, mo, ni = a.shape
+    e = order.shape[0]
+    shape = device_shape(e, mo, ni, k_vocab, x.device)
     lib = _lib("spmm_fwd", _bucket(mo, ni))
-    out = torch.empty(n_out, mo, dtype=torch.float32, device=x.device)
-    keep = (a, x, vid, gather, order, ptr, out)
-    args = (*(t.data_ptr() for t in keep), n_out, mo, ni, k_vocab,
-            torch.cuda.current_stream(x.device).cuda_stream)
+    kw = dict(dtype=torch.float32, device=x.device)
+    out = torch.empty(n_out, mo, **kw)
+    scratch = torch.empty(lib.mpnn_spmm_fwd_scratch_floats(
+        e, shape.group, shape.per), **kw)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    counters = _counters(x.device, stream, shape.tiles)
+    K._check_prof(prof, PROF_SLOTS)
+    keep = (a, x, vid, gather, key, order, ptr, out, scratch, counters, prof)
+    args = (*(t.data_ptr() for t in keep[:10]), K._ptr(prof), n_out, e, mo,
+            ni, k_vocab, shape.group, shape.per, int(floor), stream)
     return K.PreparedLaunch("spmm_fwd", lib.mpnn_spmm_fwd,
                             lib.mpnn_cuda_error_string, args, out, keep,
-                            launch_counts)
+                            floor_counts if floor else launch_counts)
 
 
 def prepare_spmm_da(h, g, vid, src, dst, k_vocab: int) -> K.PreparedLaunch:
@@ -178,7 +304,7 @@ class _SpMM(torch.autograd.Function):
     def forward(ctx, a, h, vid, src, dst, edge_order, dst_ptr):
         ctx.save_for_backward(a, h, vid, src, dst)
         return K.launch_prepared(prepare_spmm_fwd(
-            a, h, vid, src, edge_order, dst_ptr, n_out=h.shape[0]))
+            a, h, vid, src, dst, edge_order, dst_ptr, n_out=h.shape[0]))
 
     @staticmethod
     def backward(ctx, g):
@@ -188,8 +314,8 @@ class _SpMM(torch.autograd.Function):
         if ctx.needs_input_grad[1]:
             s_order, s_ptr = K.source_order(src, h.shape[0])
             dh = K.launch_prepared(prepare_spmm_fwd(
-                a.transpose(1, 2).contiguous(), g, vid, dst, s_order, s_ptr,
-                n_out=h.shape[0]))
+                a.transpose(1, 2).contiguous(), g, vid, dst, src, s_order,
+                s_ptr, n_out=h.shape[0]))
         if ctx.needs_input_grad[0]:
             da = K.launch_prepared(prepare_spmm_da(h, g, vid, src, dst,
                                                    a.shape[0]))

@@ -36,7 +36,7 @@ ARGS = {
     "fused_step": {"fused_eval": "mpnn_step::FwdArgs",
                    "fused_step_fwd": "FwdArgs", "fused_step_bwd": "BwdArgs"},
     "fused_psteps": {"fused_psteps_eval": "PsFwdArgs",
-                     "fused_psteps_fwd": "PsFwdArgs",
+                     "fused_psteps_fwd": "mpnn_psfwd::FwdArgs",
                      "fused_psteps_bwd": "PsBwdArgs"},
     "fused_att": {"fused_att_fwd": "FwdArgs", "fused_att_bwd": "BwdArgs"},
     "fused_att_steps": {"fused_att_steps_fwd": "FwdArgs",
@@ -152,11 +152,13 @@ def check_fused_step(seed, g, f, od, k, msg_norm="bn1d", state_norm="bn1d",
 
 
 def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3,
-                       route=None, grid=None, big=0):
+                       route=None, grid=None, big=0, fwd=None):
     """Row 14a through the public ops against their plain versions; the
     backward on `route` (chip_smoke.py::_ps_route; None the rule's, `grid`
-    its blocks), twice for the same bits; `big` adds a graph of that many
-    nodes (past a block's tile)."""
+    its blocks), the forward on `fwd` (chip_smoke.py::_ps_fwd_route; None
+    the rule's): loss, out, every slot's statistics, the stash (padded
+    slots zero), the gradients, each twice for the same bits; `big` adds a
+    graph of that many nodes (past a block's tile)."""
     from mpnn_tpu_torch.kernels import fused_psteps as P
     rng = np.random.RandomState(seed)
     c, leaves = T._ps_problem(rng, g, f=f, od=od, k=k, steps=steps,
@@ -168,17 +170,26 @@ def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3,
         want = T._ps_eval(P.fused_psteps_eval_reference, c, **kw)
     cw = torch.as_tensor(rng.randn(g, od).astype(np.float32))
     tag = K.width_bucket('', P.BUCKETS, f=f, od=od, steps=steps)
-    with CS._ps_route(route, grid):
+    n = c["h0"].shape[0]
+    with CS._ps_route(route, grid), CS._ps_fwd_route(fwd):
         sgot = T.ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
         again = T.ps_step_and_grads(P.fused_psteps, c, leaves, cw, **kw)
-        shape = P.device_bwd_shape(c["h0"].shape[0], tag, k, steps,
-                                   state_norm != "none", "cpu")
+        shape = P.device_bwd_shape(n, tag, k, steps, state_norm != "none",
+                                   "cpu")
+        fshape = P.device_fwd_shape(
+            n, tag, k, steps, msg_norm != "none" or state_norm != "none",
+            "cpu")
+        stash, ref = CS.ps_stash(c, steps, msg_norm, state_norm)
+        stash2, _ = CS.ps_stash(c, steps, msg_norm, state_norm)
     swant = T.ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw,
                                 **kw)
-    assert P.launch_counts == {"fused_psteps_eval": 1, "fused_psteps_fwd": 2,
+    assert P.launch_counts == {"fused_psteps_eval": 1, "fused_psteps_fwd": 4,
                                "fused_psteps_bwd": 2}, P.launch_counts
-    same = all(torch.equal(a, b) for a, b in zip(sgot[4].values(),
-                                                  again[4].values()))
+    assert CS._route_matches(fshape, fwd), fshape.tag()
+    n_real = int(c["mask"].sum())
+    same = (all(torch.equal(a, b) for a, b in zip(sgot[4].values(),
+                                                   again[4].values()))
+            and all(torch.equal(a, b) for a, b in zip(stash, stash2)))
     stats = max(_err(a, b) for a, b in zip(
         [x for s in [*sgot[2], *sgot[3]] for x in s],
         [x for s in [*swant[2], *swant[3]] for x in s]))
@@ -186,10 +197,14 @@ def check_fused_psteps(seed, g, f, od, k, msg_norm, state_norm, steps=3,
              if not (n == "mbias" and msg_norm == "bn1d")}
     return _report(
         f"fused_psteps g={g} f={f} od={od} K={k} T={steps} "
-        f"{msg_norm}/{state_norm} bucket {tag or 'narrow'} bwd "
-        f"{shape.tag()}" + ("" if same else " BITS DIFFER"),
+        f"{msg_norm}/{state_norm} bucket {tag or 'narrow'} fwd "
+        f"{fshape.tag()} bwd {shape.tag()}"
+        + ("" if same else " BITS DIFFER"),
         {"eval": _err(got, want), "loss": _err(sgot[0], swant[0]),
          "out": _err(sgot[1], swant[1]), "stats": stats,
+         "htil": _err(stash[3], ref[3]), "fstats": _err(stash[2], ref[2]),
+         "pad": float(stash[3][:, n_real:].abs().max())
+         if n > n_real else 0.0,
          "grads": _scaled(grads, swant[4]), "same": 0.0 if same else 1.0})
 
 
@@ -316,27 +331,33 @@ CASES = {
         check_fused_psteps(2, 7, 32, 128, 5, "bn1d", "bn1d"),
         check_fused_psteps(3, 7, 30, 120, 4, "none", "none", steps=6),
         check_fused_psteps(4, 7, 24, 96, 4, "bn1d", "stateless", steps=2),
-        # every norm pair, every forced route of the backward, T 1 and 8,
-        # a graph past a block's tile
-        check_fused_psteps(5, 9, 8, 16, 5, "bn1d", "none"),
+        # every norm pair, every forced route of the backward and of the
+        # forward, T 1 and 8, a graph past a block's tile
+        check_fused_psteps(5, 9, 8, 16, 5, "bn1d", "none", fwd="grid"),
         check_fused_psteps(6, 9, 8, 16, 5, "none", "bn1d", route="grid",
-                           grid=3),
+                           grid=3, fwd="cluster 8"),
         check_fused_psteps(7, 9, 8, 16, 5, "bn1d", "stateless",
-                           route="cluster 1"),
+                           route="cluster 1", fwd="spilled"),
         check_fused_psteps(8, 9, 8, 16, 5, "none", "none",
-                           route="cluster 2"),
+                           route="cluster 2", fwd="cluster 2"),
         check_fused_psteps(9, 9, 10, 28, 5, "bn1d", "bn1d",
-                           route="cluster 4", steps=1),
+                           route="cluster 4", steps=1, fwd="grid"),
         check_fused_psteps(10, 9, 8, 16, 5, "none", "stateless",
-                           route="cluster 8", steps=8),
+                           route="cluster 8", steps=8, fwd="cluster 4"),
         check_fused_psteps(11, 9, 8, 16, 5, "bn1d", "bn1d",
-                           route="spilled"),
+                           route="spilled", fwd="cluster 1"),
         check_fused_psteps(12, 7, 27, 108, 5, "bn1d", "stateless",
-                           route="spilled"),
+                           route="spilled", fwd="spilled"),
         check_fused_psteps(13, 7, 27, 108, 5, "none", "bn1d",
-                           route="cluster 4"),
+                           route="cluster 4", fwd="grid"),
         check_fused_psteps(14, 4, 8, 16, 5, "bn1d", "bn1d", route="grid",
-                           grid=3, big=300),
+                           grid=3, big=300, fwd="grid"),
+        check_fused_psteps(15, 9, 8, 16, 40, "bn1d", "stateless",
+                           fwd="cluster 8"),
+        check_fused_psteps(16, 7, 32, 128, 9, "bn1d", "none", steps=6,
+                           fwd="spilled"),
+        check_fused_psteps(17, 9, 16, 32, 64, "none", "bn1d", steps=5,
+                           fwd="grid"),
     ],
     "fused_att": lambda: [
         check_fused_att(0, 9, 7, 6, True),

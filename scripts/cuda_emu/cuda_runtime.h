@@ -164,6 +164,9 @@ inline void __threadfence() {
 inline int atomicAdd(int* p, int v) {
   return __atomic_fetch_add(p, v, __ATOMIC_SEQ_CST);
 }
+inline unsigned atomicOr(unsigned* p, unsigned v) {
+  return __atomic_fetch_or(p, v, __ATOMIC_SEQ_CST);
+}
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __ldcg(const float* p) { return *p; }
 inline unsigned __float_as_uint(float x) {

@@ -31,7 +31,8 @@ dec-att-train on 64; rec-kernel-check at b16's and 2,000 node slots;
 dec-times and dec-att-times at batch 16 and 48, without a trace (the
 stand-in has no device to trace); spmm- and sddmm-kernel-check at batch
 48 for 1024 and 64 molecules in 2,000 slots for 2,560 (the SDDMM's
-smallest tiles sized for 24 SMs).
+smallest tiles sized for 24 SMs, the SpMM's at 4 positions a group);
+split-train's encoded_ecfp on 160 molecules.
 """
 
 import dataclasses
@@ -54,7 +55,8 @@ from mpnn_tpu_torch.kernels import (edge_mlp, fused_att,       # noqa: E402
 
 ARGS = {"fused_eval": "mpnn_step::FwdArgs", "fused_step_fwd": "FwdArgs",
         "fused_step_bwd": "BwdArgs", "fused_psteps_eval": "PsFwdArgs",
-        "fused_psteps_fwd": "PsFwdArgs", "fused_psteps_bwd": "PsBwdArgs",
+        "fused_psteps_fwd": "mpnn_psfwd::FwdArgs",
+        "fused_psteps_bwd": "PsBwdArgs",
         "fused_att_fwd": "FwdArgs", "fused_att_bwd": "BwdArgs",
         "fused_att_steps_fwd": "FwdArgs", "fused_att_steps_bwd": "BwdArgs",
         "set2vec_fwd": "FwdArgs", "set2vec_bwd": "BwdArgs",
@@ -123,6 +125,7 @@ def main(argv) -> int:
     CS.PS_CHECK_BATCHES, CS.PS_TIMES_BATCHES = (48, 64), (16, 48)
     CS._split_trace = lambda name, step: (step(), (0.0, 0))[1]
     CS.SPLIT_ROWS, CS.SPLIT_BATCH, CS.SPLIT_NODES = 160, 48, 1024
+    CS.SPLIT_ECFP_ROWS = 160
     CS.SPLIT_SMALL = 16
 
     def lower_split():
@@ -213,6 +216,7 @@ def main(argv) -> int:
     # the SDDMM kernels' forced tiles within the stand-in's thread limit
     # (~20k CUDA threads a launch): the largest, a group 8 positions
     CS.SDDMM_ROUTES["small tiles"] = dict(per=(8, 8))
+    CS.SPMM_ROUTES["small tiles"] = dict(per=4)
     phases = {"kernel-check": lambda: CS.phase_kernel_check(cpu),
               "train-times": lambda: CS.phase_train_times(cpu, "emulated"),
               "basic-kernel-check": lambda: CS.phase_basic_kernel_check(cpu),

@@ -1,6 +1,7 @@
 """Time the per-step family's whole-step training backward
-(fused_psteps_bwd) of the checkout in the working directory, so that two
-commits can be held against each other on one card:
+(fused_psteps_bwd), or with --fwd its training forward (fused_psteps_fwd),
+of the checkout in the working directory, so that two commits can be held
+against each other on one card:
 
     cd <checkout> && python <this repo>/scripts/time_fused_psteps.py --label L
 
@@ -26,6 +27,14 @@ of 1, 2, 4 and 8 blocks (while a block's share fits its tile) and the
 grid at a block per 8, 16, 32, 64 and 128 slots, capped at the card's
 co-resident blocks: the measurement behind the rule's CLUSTER_SLOTS and
 GRID_NODES.
+
+--fwd times the training forward (fused_psteps_fwd) instead, on the same
+cases and inputs: --detail then prints its route, empty-forward floor and
+clock64 phases (a checkout whose chip_smoke.py has _ps_fwd_detail), and
+--sweep (one with _ps_fwd_route) its rule's route beside one cluster of
+1, 2, 4 and 8 blocks and the grid at a block per 8, 16, 24, 32, 64 and 128
+slots: the measurement behind fused_step.fwd_policy's constants for this
+kernel.
 
 Prints one JSON line: {"label", "card", "times": {case: {"ms",
 "trace_ms"[, "route", "floor_ms", "phases"]}}, "sweep": {case: [...]}}.
@@ -76,9 +85,10 @@ def _batch(CS, bs, slots, device):
         device)
 
 
-def _case(CS, P, K, i, case, device):
+def _case(CS, P, K, i, case, device, fwd=False):
     """The prepared backward launch of a case on the forward's residuals,
-    and its arguments (for the detail)."""
+    and its arguments (for the detail); with `fwd` the prepared forward
+    launch and its arguments."""
     _, bs, slots, feats, mn, sn, *od = case
     gen = torch.Generator().manual_seed(500 + i)
     tb = _batch(CS, bs, slots, device)
@@ -95,9 +105,11 @@ def _case(CS, P, K, i, case, device):
             c["amat"], c["a0"], c["mbias"], c["gru"], c["ma_bns"],
             c["bns"], c["ro"], c["h0"], steps=3, msg_norm=mn,
             state_norm=sn)
-        pf = P.prepare_fused_psteps_fwd(
-            weights, c["h0"], c["mask"], c["node_graph"], c["labels"],
-            c["gmask"], c["vid"], c["src"], c["dst"], c["plan"], meta)
+        fargs = (weights, c["h0"], c["mask"], c["node_graph"], c["labels"],
+                 c["gmask"], c["vid"], c["src"], c["dst"], c["plan"], meta)
+        pf = P.prepare_fused_psteps_fwd(*fargs)
+        if fwd:
+            return pf, fargs
         _, out, stats, htil = K.launch_prepared(pf)
         gout = torch.randn(out.shape, generator=gen).to(device)
         gl = torch.ones(1, device=device)
@@ -155,12 +167,49 @@ def _sweep(CS, P, K, args, reps, device):
     return [f"{n} slots"] + res
 
 
+def _fwd_shape(P, K, fargs, device):
+    weights, h0, meta = fargs[0], fargs[1], fargs[-1]
+    w = dict(weights)
+    tag = K.width_bucket("", P.BUCKETS, f=h0.shape[1],
+                         od=w["ro_ib"].shape[0], steps=meta.steps)
+    return P.device_fwd_shape(
+        h0.shape[0], tag, w["amat"].shape[1], meta.steps,
+        meta.msg_mode != P.NONE or meta.state_mode != P.NONE, device)
+
+
+def _fwd_sweep(CS, P, K, fargs, reps, device):
+    """The forward on the rule's route and each forced neighbour
+    (chip_smoke.py::_ps_fwd_route): '<route tag> <events us> (trace us)'."""
+    rule = _fwd_shape(P, K, fargs, device)
+    n = fargs[1].shape[0]
+    most = max(rule.grid, P._lib("fused_psteps_fwd", "" if fargs[1].shape[1]
+                                 <= 16 else "f32")
+               .mpnn_fused_psteps_fwd_max_grid(rule.smem_bytes))
+    routes = [(None, None)] + [
+        (f"cluster {c}", None) for c in (1, 2, 4, 8)
+        if -(-n // c) <= 3 * rule.ncap // 4] + [
+        ("grid", g) for g in sorted({max(2, min(most, -(-n // per)))
+                                     for per in (8, 16, 24, 32, 64, 128)})]
+    res = []
+    for route, grid in routes:
+        with CS._ps_fwd_route(route, grid):
+            p = P.prepare_fused_psteps_fwd(*fargs)
+            shape = _fwd_shape(P, K, fargs, device)
+        t = _time(CS, K, p, reps)
+        res.append(f"{'rule ' if route is None else ''}{shape.tag()} "
+                   f"{t['ms'] * 1e3:.2f} us (trace "
+                   f"{t['trace_ms'] * 1e3:.2f})")
+    return [f"{n} slots"] + res
+
+
 def main(argv) -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--label", default=os.path.basename(os.getcwd()))
     ap.add_argument("--reps", type=int, default=100)
     ap.add_argument("--detail", action="store_true")
     ap.add_argument("--sweep", action="store_true")
+    ap.add_argument("--fwd", action="store_true",
+                    help="time the training forward (fused_psteps_fwd)")
     ap.add_argument("--cases", default="",
                     help="comma-separated case-name prefixes (default all)")
     args = ap.parse_args(argv)
@@ -180,6 +229,26 @@ def main(argv) -> int:
     for i, case in enumerate(CASES):
         name = case[0]
         if wanted and not any(name.startswith(c) for c in wanted):
+            continue
+        if args.fwd:
+            pf, fargs = _case(CS, P, K, i, case, device, fwd=True)
+            out[name] = _time(CS, K, pf, args.reps)
+            line = (f"fwd {name} ({fargs[1].shape[0]} slots): "
+                    f"{out[name]['ms'] * 1e3:.2f} us (trace "
+                    f"{out[name]['trace_ms'] * 1e3:.2f})")
+            if args.detail and hasattr(CS, "_ps_fwd_detail"):
+                route, floor_ms, phases = CS._ps_fwd_detail(fargs, device)
+                out[name].update(route=route, floor_ms=floor_ms, phases={
+                    k: round(v) for k, v in phases.items()})
+                line += (f", route {route}, empty-forward floor "
+                         f"{floor_ms * 1e3:.2f} us, clock64 cycles "
+                         + json.dumps(out[name]["phases"]))
+            print(line, flush=True)
+            if args.sweep and hasattr(CS, "_ps_fwd_route") \
+                    and "wide" not in name:
+                sweep[name] = _fwd_sweep(CS, P, K, fargs, args.reps, device)
+                print(f"sweep fwd {name}: " + "; ".join(sweep[name]),
+                      flush=True)
             continue
         pb, bargs = _case(CS, P, K, i, case, device)
         out[name] = _time(CS, K, pb, args.reps)

@@ -785,22 +785,71 @@ def test_cuda_psteps_bwd_on_every_route(msg_norm, state_norm, g, f, od,
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("msg_norm,state_norm,g,f,od,k,steps,route,big", [
+    # every route of the forward's rule, every norm pair
+    ("bn1d", "bn1d", 16, 8, 16, 8, 3, "cluster 1", 0),
+    ("bn1d", "stateless", 16, 8, 16, 8, 3, "cluster 2", 0),
+    ("none", "bn1d", 16, 8, 16, 8, 3, "cluster 4", 0),
+    ("bn1d", "none", 16, 8, 16, 8, 3, "cluster 8", 0),
+    ("none", "stateless", 1024, 8, 16, 8, 3, "grid", 0),
+    ("none", "none", 1024, 8, 16, 8, 3, "spilled", 0),
+    ("bn1d", "bn1d", 1024, 8, 16, 8, 3, None, 0),
+    ("bn1d", "none", 1024, 8, 32, 8, 3, None, 0),
+    # the tables in device memory (K 64), T 1 and 8, a graph past a
+    # block's tile, past the split's boundary (~32,900 slots)
+    ("bn1d", "stateless", 300, 16, 32, 64, 8, None, 0),
+    ("none", "bn1d", 64, 8, 16, 8, 1, "grid", 0),
+    ("bn1d", "bn1d", 20, 8, 16, 8, 3, "grid", 700),
+    ("none", "stateless", 2630, 7, 28, 8, 3, None, 0),
+    # the wide bucket, T 6
+    ("bn1d", "bn1d", 16, 27, 108, 8, 3, "cluster 8", 0),
+    ("none", "stateless", 300, 27, 108, 8, 6, "grid", 0),
+    ("bn1d", "none", 64, 32, 128, 8, 6, "spilled", 0)])
+def test_cuda_psteps_fwd_on_every_route(msg_norm, state_norm, g, f, od, k,
+                                        steps, route, big):
+    """fused_psteps_fwd on each route of its rule (one cluster of 1-8
+    blocks, the grid, 16-node tiles that leave blocks in global scratch)
+    against the plain version: loss, out, every slot's statistics and the
+    whole stash (padded slots zero), within rtol/atol; each launch twice,
+    the same bits."""
+    _need_card()
+    from chip_smoke import _ps_fwd_route, _route_matches, ps_stash
+    from mpnn_tpu_torch.kernels import fused_psteps as P
+    rng = np.random.RandomState(5 * g + f + k + steps + big)
+    c, _ = _ps_problem(rng, g, f=f, od=od, k=k, steps=steps, big=big)
+    P.reset_launch_counts()
+    with _ps_fwd_route(route):
+        got, want = ps_stash(c, steps, msg_norm, state_norm)
+        again, _ = ps_stash(c, steps, msg_norm, state_norm)
+        n = c["h0"].shape[0]
+        tag = K.width_bucket("", P.BUCKETS, f=f, od=od, steps=steps)
+        shape = P.device_fwd_shape(
+            n, tag, k, steps, msg_norm != "none" or state_norm != "none",
+            c["h0"].device)
+    torch.cuda.synchronize()
+    assert P.launch_counts["fused_psteps_fwd"] == 2
+    assert _route_matches(shape, route), shape.tag()
+    for name, a, b in zip(("loss", "out", "stats", "htil"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=ATOL,
+                                   msg=lambda m, name=name: f"{name}: {m}")
+    n_real = int(c["mask"].sum())
+    assert not got[3][:, n_real:].any(), "padded slots"
+    for a, b in zip(got, again):
+        assert torch.equal(a, b), "bits differ"
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("msg_norm,state_norm", PS_NORMS)
 def test_cuda_psteps_bwd_against_float64(msg_norm, state_norm):
     """A 4,000-node graph (with three small ones), where float32 in any
     summation order sits near or past 1e-5 of the exact gradients (the
     plain float32 version up to ~3e-5): every output and leaf of the two
-    kernels is held to the float64 answer as test_cuda_step_kernels_
-    against_float64 holds row 3's (within 1e-5 of its max abs, or no
-    further than the plain float32 version is), or else the whole
-    backward kernel on the residuals of a float64 run of the plain forward
-    (rounded to float32) within 1e-5 of it while the two kernels stay
-    within 3e-5: the forward kernel's own float32 stash alone puts h0's
-    gradient 2.15e-5 from float64 at none/stateless, where that backward
-    sits ~4e-7 from it and the plain version, whose sums PyTorch runs
-    with atomics, 1.3e-5 to 2.3e-4 from run to run (an open fault of the
-    forward, ROADMAP 3.1). The backward on the rule's route and on a
-    cluster of 8, the same bits twice."""
+    kernels, the forward's stash feeding the backward, is held to the
+    float64 answer as test_cuda_step_kernels_against_float64 holds row
+    3's: within 1e-5 of its max abs, or no further than the plain float32
+    version is. The backward on the rule's route and on a cluster of 8,
+    the same bits twice."""
     _need_card()
     from chip_smoke import _ps_route
     from mpnn_tpu_torch.kernels import fused_psteps as P
@@ -810,60 +859,18 @@ def test_cuda_psteps_bwd_against_float64(msg_norm, state_norm):
     kw = dict(steps=3, msg_norm=msg_norm, state_norm=state_norm)
     exact = float64_ps_step_and_grads(c, cw, **kw)
     want = ps_step_and_grads(P.fused_psteps_reference, c, leaves, cw, **kw)
-    d = {k: (v.detach() if isinstance(v, torch.Tensor) else v)
-         for k, v in c.items()}
-    det = lambda x: ({k: det(v) for k, v in x.items()}
-                     if isinstance(x, dict) else [det(v) for v in x]
-                     if isinstance(x, list) else x.detach())
-    weights, meta = P.flat_weights(
-        d["amat"], d["a0"], d["mbias"], det(d["gru"]), det(d["ma_bns"]),
-        det(d["bns"]), det(d["ro"]), d["h0"], **kw)
-    with torch.no_grad():
-        _, out, stats, htil = P._reference_residuals(
-            [(n, t.double()) for n, t in weights], d["h0"].double(),
-            d["mask"].double(), d["node_graph"], d["labels"].double(),
-            d["gmask"].double(), d["vid"], d["src"], d["dst"], d["plan"],
-            meta)
-    args = (weights, d["h0"], d["labels"], d["gmask"], out.float(), cw,
-            torch.full((1,), 1.3, device="cuda"), htil.float(),
-            stats.float(), d["node_graph"], d["vid"], d["src"], d["dst"],
-            d["plan"], meta)
-    k, (f, od) = d["amat"].shape[1], (d["h0"].shape[1], cw.shape[1])
     for route in (None, "cluster 8"):
         with _ps_route(route):
             got = ps_step_and_grads(P.fused_psteps, c, leaves, cw,
                                     bwd="whole", **kw)
             again = ps_step_and_grads(P.fused_psteps, c, leaves, cw,
                                       bwd="whole", **kw)
-            runs = [K.launch_prepared(P.prepare_fused_psteps_bwd(*args))
-                    for _ in range(2)]
         for name, gr in got[4].items():
             assert torch.equal(gr, again[4][name]), f"{name}: bits differ"
-        for a, b in zip(*runs):
-            assert torch.equal(a, b), "bits differ"
-        dh0, dw = runs[0]
-        g = P.split_grads(dw, k, f, od, 3)
-        on_exact = {
-            "amat": g["amat"], "a0": g["a0"], "mbias": g["mbias"], "h0": dh0,
-            **{f"gru/{n}": g[n] for n in ("w_ih", "w_hh", "b_ih", "b_hh")},
-            **{f"{s}{i}/{n}": g[f"{s}_{n[0]}"][i] for s in ("ma", "bn")
-               for i in range(3) for n in ("weight", "bias")},
-            **{f"ro/{s}/{n}": g[f"ro_{s}{n}"] for s in ("i", "j")
-               for n in ("w", "b")}}
-        far = {}
-        for name, (d_kernel, d_plain) in exactness(got, want, exact,
-                                                   msg_norm).items():
-            if d_kernel <= max(ATOL, d_plain):
-                continue
-            if name not in on_exact:              # the forward's outputs
-                far[name] = (d_kernel, d_plain)
-                continue
-            e = exact[4][name]
-            d_exact = float(((on_exact[name].double() - e)
-                             / e.abs().max().clamp_min(1e-30)).abs().max())
-            if d_exact > ATOL or d_kernel > 3 * ATOL:
-                far[name] = (d_kernel, d_plain, d_exact)
-        assert not far, f"{route}: (kernels, plain, on exact) {far}"
+        far = {name: d for name, d in exactness(got, want, exact,
+                                                msg_norm).items()
+               if d[0] > max(ATOL, d[1])}
+        assert not far, f"{route}: (kernels, plain) from float64: {far}"
 
 
 @pytest.mark.gpu
@@ -1836,6 +1843,43 @@ def test_cuda_spmm_vocab_sizes_in_turn():
                                                          dst),
                                    rtol=RTOL, atol=ATOL,
                                    msg=lambda m, k=k: f"K={k}: {m}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("g,f,k,route,hub", [
+    (1024, 10, 8, "small tiles", 0), (1024, 10, 8, "rule", 400),
+    (1024, 10, 8, "small tiles", 400), (1024, 8, 1, "rule", 0),
+    (300, 16, 64, "small tiles", 0), (1024, 30, 64, "small tiles", 300),
+    (2560, 10, 64, "rule", 0), (16, 16, 8, "small tiles", 0)])
+def test_cuda_spmm_fwd_on_its_tiles(g, f, k, route, hub):
+    """spmm_fwd's forward and dh (with spmm_da) against the plain version
+    on the rule's tiles and the smallest (chip_smoke.py::SPMM_ROUTES: the
+    dummy row, and a hub node's row where `hub` edges end at one node,
+    cross many tiles), K 1 to 64 in both buckets, past 32k node slots;
+    each case twice for the same bits."""
+    _need_card()
+    from chip_smoke import (SPMM_ROUTES, _spmm_route, spmm_hub_case,
+                            spmm_value_and_grads)
+    from mpnn_tpu_torch.kernels import spmm as S
+    rng = np.random.RandomState(g + f + k + hub)
+    c = spmm_problem(rng, g, f=f, k=max(k, 2))
+    if k == 1:
+        a = torch.as_tensor(rng.randn(1, f, f).astype(np.float32) * 0.3,
+                            device="cuda")
+        c = (a, c[1], torch.zeros_like(c[2]), *c[3:])
+    if hub:
+        c = spmm_hub_case(c, hub, torch.Generator().manual_seed(g))
+    S.reset_launch_counts()
+    with _spmm_route(**SPMM_ROUTES[route]):
+        got = spmm_value_and_grads(S.spmm, *c)
+        again = spmm_value_and_grads(S.spmm, *c)
+    torch.cuda.synchronize()
+    assert S.launch_counts == {"spmm_fwd": 4, "spmm_da": 2}
+    want = spmm_value_and_grads(lambda *x: S.spmm_reference(*x[:5]), *c)
+    torch.testing.assert_close(got[0], want[0], rtol=RTOL, atol=ATOL)
+    _grads_close(dict(zip("ah", got[1:])), dict(zip("ah", want[1:])))
+    for x, y in zip(got, again):
+        assert torch.equal(x, y), "bits differ"
 
 
 @pytest.mark.gpu

@@ -27,6 +27,7 @@ from mpnn_tpu.kernels.fused_psteps import (make_fused_psteps_eval_op,
                                            make_fused_psteps_op)
 from mpnn_tpu_torch.graphs.batching import plan_fused_eval
 from mpnn_tpu_torch.kernels import fused_psteps as P
+from mpnn_tpu_torch.kernels import fused_step as K
 from test_fused_step import build_problem
 
 RTOL, ATOL = 2e-4, 1e-5
@@ -384,3 +385,101 @@ def test_bwd_rule_on_vocab_steps_and_a_smaller_card(max_grid):
         3 * small.ncap // 4
     with pytest.raises(NotImplementedError, match="shared memory"):
         _rule(16, smem=16 * 1024)
+
+
+# ---------------------------------------------------------------------------
+# the training forward's route rule (kernels/fused_psteps.py::
+# fwd_launch_shape: the shared family's forward policy on this kernel's
+# tiles), decided on the host from shapes alone
+# ---------------------------------------------------------------------------
+
+def _fwd_rule(n, tag="", k=8, steps=3, smem=H100_SMEM, max_grid=H100_GRID,
+              sums=True):
+    return P.fwd_launch_shape(n, tag, k, steps, sums=sums, smem_bytes=smem,
+                              max_grid=max_grid)
+
+
+def test_fwd_rule_at_its_node_count_boundaries():
+    """With a norm on batch statistics (the T message norms' one combine,
+    or a state norm's every step) up to FWD_CLUSTER_SLOTS node slots one
+    cluster of the fewest blocks (1, 2, 4) whose share is at most
+    FWD_CLUSTER_NODES, else 8; past them the grid at a block per
+    FWD_STAT_NODES slots up to max(FWD_STAT_BLOCKS, ⌈√n⌉) blocks; without
+    one a block per FWD_GRID_NODES slots; all capped at the co-resident
+    blocks (encoded's widths: K 8, T 3)."""
+    cn, cs = K.FWD_CLUSTER_NODES, K.FWD_CLUSTER_SLOTS
+    sn, sb, gn = K.FWD_STAT_NODES, K.FWD_STAT_BLOCKS, K.FWD_GRID_NODES
+    for c in (1, 2, 4):
+        assert _fwd_rule(c * cn)[:2] == ("cluster", c)
+        assert _fwd_rule(c * cn + 1)[:2] == ("cluster", 2 * c)
+    assert _fwd_rule(1)[:2] == ("cluster", 1)
+    assert _fwd_rule(cs)[:2] == ("cluster", 8)
+    assert _fwd_rule(cs + 1)[:2] == ("grid", -(-(cs + 1) // sn))
+    assert _fwd_rule(1664)[:2] == ("grid", sb)               # b128
+    assert _fwd_rule(16512)[:2] == ("grid", 129)             # b1024
+    assert _fwd_rule(28672)[:2] == ("grid", H100_GRID)       # the split's
+    for n in (1, gn, gn + 1, 256, 1664, 16512):
+        assert _fwd_rule(n, sums=False)[:2] == (
+            "grid", min(H100_GRID, -(-n // gn)))
+    # every route's tile is the launch's own: its rows for its blocks
+    for n in (16, 300, 600, 16512, 10 ** 5):
+        s = _fwd_rule(n)
+        assert s.ncap == P.fwd_capacity("", 8, 3, H100_SMEM, s.grid)
+        assert s.ecap == P.EDGE_RATIO * s.ncap
+        assert s.smem_bytes == 4 * P.fwd_smem_floats(
+            "", 8, 3, s.ncap, s.ecap, s.grid) <= H100_SMEM
+
+
+@pytest.mark.parametrize("tag,steps,k,least", [
+    ("", 1, 8, 800), ("", 3, 8, 450), ("", 6, 8, 240), ("", 8, 8, 160),
+    ("", 3, 64, 500), ("f32", 1, 8, 220), ("f32", 3, 8, 200),
+    ("f32", 6, 8, 110)])
+def test_fwd_rule_tile_for_steps_one_to_eight(tag, steps, k, least):
+    """A node's tile row holds h0, the state and the T messages
+    (max((2 + T)·FP, od) floats) and EDGE_RATIO edges: at least `least`
+    node slots on an H100; the message tables sit in shared memory while
+    T·K·FP² fit AMAT_SMEM_FLOATS (encoded's K 8, T 3: 24 KB) and are read
+    from device memory past it (K 64); a block's share stays within 3/4
+    of its tile, so a block past it holds a graph larger than the share
+    (which the kernel keeps in global scratch); one more node does not
+    fit."""
+    fp = dict(P.BUCKETS)[tag]["f"]
+    assert P.amat_in_smem(tag, k, steps) == (
+        steps * k * fp * fp <= P.AMAT_SMEM_FLOATS)
+    for n in (16, 256, 600, 1664, 16512, 28672):
+        for sums in (True, False):
+            s = _fwd_rule(n, tag, k=k, steps=steps, sums=sums)
+            cap = P.fwd_capacity(tag, k, steps, H100_SMEM, s.grid)
+            assert s.ncap == cap >= least, (n, s.tag())
+            if s.grid < H100_GRID:
+                assert -(-n // s.grid) <= 3 * cap // 4, (n, s.tag())
+            assert 4 * P.fwd_smem_floats(tag, k, steps, cap + 1,
+                                         P.EDGE_RATIO * (cap + 1),
+                                         s.grid) > H100_SMEM
+
+
+def test_fwd_rule_without_any_norm_on_statistics():
+    """none/none (and a pair whose only norm is 'none') combines nothing:
+    a grid of a block per FWD_GRID_NODES slots at every size, one block
+    alone up to FWD_GRID_NODES; the rule never takes a cluster then."""
+    gn = K.FWD_GRID_NODES
+    for n in (1, gn, gn + 1, 100, 512, 13184):
+        s = _fwd_rule(n, sums=False)
+        assert s.route == "grid" and s.grid == min(H100_GRID, -(-n // gn))
+
+
+@pytest.mark.parametrize("max_grid", [132, 114, 78])
+def test_fwd_rule_on_vocab_steps_and_a_smaller_card(max_grid):
+    """The tile shrinks with the staged tables (K, T) and a card's shared
+    memory; a card with fewer SMs caps the grid; a card that cannot hold
+    one node raises."""
+    caps = [P.fwd_capacity("", k, t, H100_SMEM, 132)
+            for k, t in ((8, 3), (16, 3), (8, 6))]
+    assert caps[0] > caps[1] and caps[0] > caps[2]
+    for n in (2000, 16512, 28672):
+        s = _fwd_rule(n, max_grid=max_grid, sums=False)
+        assert s.grid == min(max_grid, -(-n // K.FWD_GRID_NODES)), s.tag()
+    small = _fwd_rule(512, smem=100 * 1024, max_grid=max_grid)
+    assert small.ncap < _fwd_rule(512).ncap
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _fwd_rule(16, smem=8 * 1024)

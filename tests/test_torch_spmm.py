@@ -149,3 +149,75 @@ def test_layout_check_names_the_fault():
     shuffled = plan._replace(edge_order=plan.edge_order.flip(0))
     with pytest.raises(ValueError, match="not destination-sorted"):
         S.check_layout(t(h), t(vid), t(src), t(dst), shuffled, 7)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's tile rule (kernels/spmm.py::launch_shape)
+# ---------------------------------------------------------------------------
+
+H100 = dict(smem_bytes=232448, sms=132)
+
+# (positions, mo, ni, K, the launch's tag): a row crossing one tile (b16),
+# the cap of GRID_WAVE blocks an SM and one past it, lipo's b1024 and
+# 32,896 slots, the 8-lane groups (f <= 8), the wide bucket and K 1 to 64
+RULE_CASES = [
+    (62, 10, 10, 8, "g16 p1 x4"),
+    (16 * 396, 10, 10, 8, "g16 p1 x396"),
+    (16 * 396 + 1, 10, 10, 8, "g16 p2 x199"),
+    (33024, 10, 10, 8, "g16 p6 x344"),
+    (66560, 10, 10, 8, "g16 p8 x520"),
+    (26752, 8, 8, 1, "g8 p3 x279"),
+    (26752, 16, 16, 64, "g16 p5 x335"),
+    (26752, 30, 30, 64, "g32 p8 x418"),
+    (40, 24, 17, 17, "g32 p1 x5"),
+    (1, 1, 1, 1, "g8 p1 x1"),
+]
+
+
+@pytest.mark.parametrize("pos,mo,ni,k,tag", RULE_CASES)
+def test_launch_rule_at_its_boundaries(pos, mo, ni, k, tag):
+    """A block a tile at every size, the lane group (8, 16 or 32: the
+    narrowest holding mo and ni), the fewest positions a group takes that
+    keep the tiles within GRID_WAVE blocks an SM, at most TILE_POSITIONS a
+    tile and MAX_PER a group, every position in one tile, and a block's
+    shared memory (the narrow bucket's tables too) within the card's."""
+    s = S.launch_shape(pos, mo, ni, k, **H100)
+    assert s.tag() == tag
+    ng = S.THREADS // s.group
+    assert s.group == S.group_of(mo, ni) >= max(mo, ni)
+    cap = S.GRID_WAVE * H100["sms"]
+    most = min(S.MAX_PER, S.TILE_POSITIONS // ng)
+    assert 1 <= s.per <= most
+    assert s.tiles == -(-pos // (ng * s.per))
+    assert s.per == most or s.tiles <= cap
+    assert s.per == 1 or -(-pos // (ng * (s.per - 1))) > cap
+    fp = 16 if s.group <= 16 else 32
+    assert s.smem_bytes == 4 * S.smem_floats(k, fp, ng * s.per)
+    assert s.smem_bytes <= H100["smem_bytes"]
+
+
+def test_launch_rule_on_a_smaller_card_and_forced_tiles():
+    """With less shared memory (K 64's tables take 64 KB in the narrow
+    bucket) a tile gives way, fewer positions a group, until a block fits;
+    a card where not one position a group fits raises rather than
+    launching something else; forced tiles (a measurement's and a
+    check's) take the given positions a group, within 1 to MAX_PER; a
+    smaller card's fewer SMs give larger tiles."""
+    big = S.launch_shape(66560, 16, 16, 64, **H100)
+    small = S.launch_shape(66560, 16, 16, 64, smem_bytes=70 * 1024, sms=132)
+    assert small.per < big.per and small.smem_bytes <= 70 * 1024
+    assert small.tag() == "g16 p2 x2080"
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        S.launch_shape(66560, 16, 16, 64, smem_bytes=60 * 1024, sms=132)
+    # the wide bucket stages at most STAGE_IDS tables (64 KB): its tiles
+    # give way at K 64 as at K 16, and not at K 4
+    wide = [S.launch_shape(66560, 32, 32, k, smem_bytes=70 * 1024,
+                           sms=132).per for k in (4, 16, 64)]
+    assert wide[0] == 8 and wide[1] == wide[2] < 8
+    for per, want in ((1, "g16 p1 x4160"), (5, "g16 p5 x832"),
+                      (99, "g16 p8 x520"), (0, "g16 p1 x4160")):
+        assert S.launch_shape(66560, 10, 10, 8, **H100,
+                              per=per).tag() == want
+    assert S.launch_shape(3745, 10, 10, 8, **H100).tag() == "g16 p1 x235"
+    assert (S.launch_shape(3745, 10, 10, 8, smem_bytes=232448,
+                           sms=78).tag() == "g16 p2 x118")
