@@ -348,6 +348,7 @@ def _lib_call(module, name, fn, *args):
 
 
 def phase_build():
+    import torch
     from mpnn_tpu_torch.kernels import build
     from mpnn_tpu_torch.kernels import fused_step as K
     t0 = time.perf_counter()
@@ -394,9 +395,23 @@ def phase_build():
     from mpnn_tpu_torch.kernels import set2vec as S
     atts_fwd = AS._lib("fused_att_steps_fwd") \
         .mpnn_fused_att_steps_fwd_smem_bytes(3, 16, 3)
+    atts_cap = K.tile_capacity(AS._tile_floats("", 3, 16, 3), torch.cuda
+                               .get_device_properties(0)
+                               .shared_memory_per_block_optin, AS.MAX_NCAP)
     atts_bwd = AS._lib("fused_att_steps_bwd") \
-        .mpnn_fused_att_steps_bwd_smem_bytes(3, 16, 3, 7)
-    dyn = (f"fused_eval {K._lib().mpnn_fused_eval_smem_bytes(16)} B, "
+        .mpnn_fused_att_steps_bwd_smem_bytes(3, 16, 3, atts_cap,
+                                             AS.EDGE_RATIO * atts_cap)
+    if atts_bwd != 4 * AS.bwd_smem_floats("", 3, 16, 3, atts_cap,
+                                          AS.EDGE_RATIO * atts_cap):
+        raise RuntimeError("fused_att_steps_bwd: the library's shared "
+                           "memory disagrees with bwd_smem_floats")
+    eval_cap = 2 * K.EVAL_NODES
+    eval_smem = K._lib().mpnn_fused_eval_smem_bytes(16, 6, eval_cap,
+                                                    K.EDGE_RATIO * eval_cap)
+    if eval_smem != 4 * K.eval_smem_floats("", 16, 6, eval_cap):
+        raise RuntimeError("fused_eval: the library's shared memory "
+                           "disagrees with eval_smem_floats")
+    dyn = (f"fused_eval {eval_smem} B (T 6, a tile of {eval_cap} nodes), "
            f"fused_step_fwd and fused_eval_stateless {_fwd_smem_line()}, "
            f"fused_step_bwd {_bwd_smem_line()} (T 6); fused_psteps_eval "
            f"{P._lib('fused_psteps_eval').mpnn_fused_psteps_eval_smem_bytes(3)}"
@@ -411,9 +426,10 @@ def phase_build():
                for d in ("fwd", "bwd") for n, g in ((258, 16),
                                                      (16512, 1024)))
            + " (w 14 at b16's one block, b1024's block per SM); "
-           f"fused_att_steps_fwd {atts_fwd} B, fused_att_steps_bwd "
-           f"{atts_bwd} B (Tm 3, K 16, T 3, f 7; their A' tables stay in "
-           "device memory); " + ", ".join(
+           f"fused_att_steps_fwd {atts_fwd} B (its A' tables stay in "
+           f"device memory), fused_att_steps_bwd {atts_bwd} B ({atts_cap} "
+           "nodes a block, A'_t staged; Tm 3, K 16, T 3, f 7); "
+           + ", ".join(
                f"{n} {getattr(B._lib(n), f'mpnn_{n}_smem_bytes')(16, 32)} B"
                for n in ("fused_bilinear_fwd", "fused_bilinear_bwd"))
            + " (K 16, graphs up to 32 atoms); spmm_fwd "
@@ -601,8 +617,17 @@ def _forced_bwd_shape(mod, route, grid, spilled):
     shape with its route replaced) for the launches inside: None (the
     rule's own choice), 'cluster C' (one cluster of C blocks), 'grid'
     (`grid` blocks, by default one per mod.GRID_NODES of the n slots, at
-    least 2, at most 128), 'spilled' (a block per 128 slots, at least 2,
-    with 16-node tiles: `spilled(shape, tag, *rest)` sizes them)."""
+    least 2, at most 128), 'grid G' (G blocks), 'spilled' (a block per 128
+    slots, at least 2, with 16-node tiles: `spilled(shape, tag, *rest)`
+    sizes them)."""
+    kind, _, arg = (route or "").partition(" ")
+    if route is not None and not (
+            (kind == "cluster" and arg in ("1", "2", "4", "8"))
+            or (kind == "grid" and (not arg or arg.isdigit()))
+            or route == "spilled"):
+        raise ValueError(f"unknown route {route!r}")
+    if kind == "grid" and arg:
+        route, grid = "grid", int(arg)
     keep = mod.device_bwd_shape
 
     def forced(n, tag, *rest):
@@ -632,6 +657,52 @@ def _bwd_route(route, grid=None):
         s._replace(ncap=16, ecap=16 * K.EDGE_RATIO,
                    smem_bytes=4 * K.bwd_smem_floats(
                        tag, k, steps, 16, 16 * K.EDGE_RATIO))))
+
+
+def _att_bwd_route(route, grid=None):
+    """Force fused_att_steps_bwd's route (kernels/fused_att_steps.py::
+    launch_shape) for the launches inside, as _bwd_route forces
+    fused_step_bwd's."""
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    return _forced_bwd_shape(AS, route, grid, lambda s, tag, tm, k, steps,
+                             *_: s._replace(
+        ncap=16, ecap=16 * AS.EDGE_RATIO,
+        smem_bytes=4 * AS.bwd_smem_floats(tag, tm, k, steps, 16,
+                                          16 * AS.EDGE_RATIO)))
+
+
+@contextlib.contextmanager
+def _eval_route(route):
+    """Force the folded serving kernel's route (kernels/fused_step.py::
+    eval_launch_shape) for the launches inside: None (the rule's own
+    choice), 'nodes P' (a block per P slots), 'one' (a single block),
+    'spilled' (the rule's blocks, every tile in global scratch)."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    kind, _, p = (route or "").partition(" ")
+    if route is not None and route not in ("one", "spilled") and (
+            kind != "nodes" or not p.isdigit() or int(p) < 1):
+        raise ValueError(f"fused_eval: unknown route {route!r}")
+    keep = K.device_eval_shape
+
+    def forced(n, tag, k_vocab, steps, device, graphs=0):
+        s = keep(n, tag, k_vocab, steps, device, graphs)
+        if route is None:
+            return s
+        if route == "spilled":
+            return s._replace(ncap=1, ecap=K.EDGE_RATIO,
+                              smem_bytes=4 * K.eval_smem_floats(
+                                  tag, k_vocab, steps, 1))
+        smem = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+        return K.eval_launch_shape(
+            n, tag, k_vocab, steps, smem_bytes=smem, max_grid=s.grid,
+            graphs=graphs, nodes=1 << 30 if route == "one" else int(p))
+    K.device_eval_shape = forced
+    try:
+        yield
+    finally:
+        K.device_eval_shape = keep
 
 
 @contextlib.contextmanager
@@ -869,6 +940,11 @@ def _fwd_route_checks(what, eval_args, od, steps, mn, sn, routes, gen,
 
 FWD_ROUTES = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
               "spilled")
+# the folded serving kernel's routes (_eval_route; None the rule's)
+EVAL_ROUTES = (None, "nodes 1", "nodes 64", "one", "spilled")
+# fused_att_steps_bwd's routes (_att_bwd_route; None the rule's)
+ATTS_BWD_ROUTES = (None, "cluster 1", "cluster 2", "cluster 4", "cluster 8",
+                   "grid", "spilled")
 
 
 CHECK_BATCH = 1024                   # kernel-check's large batch
@@ -913,6 +989,45 @@ def phase_kernel_check(device):
     if failed:
         raise RuntimeError(f"kernel disagrees with its plain version: "
                            f"{failed}")
+    # the folded kernel on every route: the rule's, a block a node, 64
+    # nodes a block, one block, every tile spilled; b1024 and b16, the four
+    # folded modes, each twice for the same bits
+    b16 = batch_to_device(_batch((SMILES * 2)[:16], 16), device)
+    lines = []
+    for what, tb in (("b1024", flag), ("b16", b16), ("ragged", ragged)):
+        k = int(tb["edge_vfirst"].shape[0])
+        f = tb["node_feats"].shape[1] + tb["node_nafm"].shape[1]
+        args = _kernel_args(tb, _random_weights(f, 14, k, gen, device))
+        n = args[3].shape[0]
+        errs = []
+        for route in EVAL_ROUTES:
+            with _eval_route(route):
+                shape = K.device_eval_shape(
+                    n, "", k, 6, device,
+                    args[15].graph_node_ptr.shape[0] - 1)
+            for mn in ("bn1d", "none"):
+                for sn in ("bn1d", "none"):
+                    kw = dict(steps=6, msg_norm=mn, state_norm=sn)
+                    K.reset_launch_counts()
+                    with _eval_route(route):
+                        got = K.fused_eval(*args, **kw)
+                        again = K.fused_eval(*args, **kw)
+                    torch.cuda.synchronize()
+                    want = K.fused_eval_reference(*args, **kw)
+                    ok, mabs, _ = _within(got, want)
+                    ok = (ok and torch.equal(got, again)
+                          and K.launch_counts["fused_eval"] == 2)
+                    worst = max(worst, mabs)
+                    errs.append(mabs)
+                    if not ok:
+                        failed.append(f"{what} {route} {mn}/{sn}")
+            lines.append(f"{what} {route or 'rule'} ({shape.tag()}) max_abs "
+                         f"{max(errs[-4:]):.3e}")
+    print(f"kernel-check: fused_eval's routes vs fused_eval_reference "
+          f"(rtol {RTOL}, atol {ATOL}; the four folded modes, two runs, the "
+          f"same bits; one launch each): " + "; ".join(lines), flush=True)
+    if failed:
+        raise RuntimeError(f"fused_eval disagrees on a route: {failed}")
     worst_fwd, worst_bwd, worst_sl, results = 0.0, 0.0, 0.0, []
     for tb, mn, sn in cases:
         k = int(tb["edge_vfirst"].shape[0])
@@ -944,7 +1059,6 @@ def phase_kernel_check(device):
                            f"version: {failed}")
     # the backward on every route of its rule: one block, clusters of 2, 4
     # and 8, the grid, the grid with tiles too small for the graphs
-    b16 = batch_to_device(_batch((SMILES * 2)[:16], 16), device)
     lines = []
     every = ("cluster 1", "cluster 2", "cluster 4", "cluster 8", "grid",
              "spilled")
@@ -3503,6 +3617,7 @@ def _s2v_case_times(key, device, gen):
 # model's own first, then the other modes the kernels take
 ATTS_MODES = [(True, "stateless", False), (True, "none", False),
               (False, "stateless", False), (True, "stateless", True)]
+ATTS_CHECK_BATCH = 1024              # atts-kernel-check's large batch
 
 
 def _atts_case(tb, gen, device, tm):
@@ -3543,7 +3658,8 @@ def phase_atts_kernel_check(device):
     from mpnn_tpu_torch.kernels import fused_att_steps as AS
     from mpnn_tpu_torch.train.trainer import batch_to_device
     gen = torch.Generator().manual_seed(51)
-    b1024 = batch_to_device(_batch((SMILES * 103)[:1024], 1024), device)
+    b1024 = batch_to_device(_batch((SMILES * 103)[:ATTS_CHECK_BATCH],
+                                   ATTS_CHECK_BATCH), device)
     ragged = _ragged_att_batch(device)
 
     def name(per_step, norm, corr):
@@ -3587,6 +3703,49 @@ def phase_atts_kernel_check(device):
     if failed:
         raise RuntimeError(f"att-steps kernels disagree with their plain "
                            f"versions: {failed}")
+    # the backward on every route of its rule and the rule's own, at b1024
+    # and b16 (per-step tables, the stateless norm, 'att'; b16 also shared
+    # tables without a norm), each twice for the same bits
+    b16 = batch_to_device(_batch((SMILES * 2)[:16], 16), device)
+    lines = []
+    for what, tb, per_step, norm, corr in (
+            ("b1024", b1024, True, "stateless", True),
+            ("b16", b16, True, "stateless", True),
+            ("b16", b16, False, "none", True)):
+        args, leaves = _atts_case(tb, gen, device, 3 if per_step else 1)
+        cw = torch.randn(args[5].shape, generator=gen).to(device)
+        kw = dict(steps=3, with_corr=corr, state_norm=norm)
+        want = _fwd_and_grads(AS.fused_att_steps_reference, args, leaves, cw,
+                              kw)
+        n, k = args[5].shape[0], args[0].shape[1]
+        for route in ATTS_BWD_ROUTES:
+            AS.reset_launch_counts()
+            with _att_bwd_route(route):
+                shape = AS.device_bwd_shape(n, "", args[0].shape[0], k, 3,
+                                            norm == "stateless", device)
+                got = _fwd_and_grads(AS.fused_att_steps, args, leaves, cw,
+                                     kw)
+                again = _fwd_and_grads(AS.fused_att_steps, args, leaves, cw,
+                                       kw)
+            torch.cuda.synchronize()
+            _, _, ok_b, eb = _fwd_bwd_errors(got, want)
+            same = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+            ok = (ok_b and same and AS.launch_counts["fused_att_steps_bwd"]
+                  == 2)
+            worst["fused_att_steps_bwd"] = max(worst["fused_att_steps_bwd"],
+                                               eb)
+            lines.append(f"{what} {name(per_step, norm, corr)} "
+                         f"{route or 'rule'} ({shape.tag()}) bwd {eb:.2e}"
+                         f"{'' if ok else ' FAIL'}")
+            if not ok:
+                failed.append(f"{what} {route}")
+    print(f"atts-kernel-check: fused_att_steps_bwd's routes vs autograd "
+          f"through fused_att_steps_reference (leaves divided by their max "
+          f"abs, rtol {RTOL} atol {ATOL}; two runs, the same bits; one "
+          f"launch each): " + "; ".join(lines), flush=True)
+    if failed:
+        raise RuntimeError(f"fused_att_steps_bwd disagrees on a route: "
+                           f"{failed}")
     return worst
 
 

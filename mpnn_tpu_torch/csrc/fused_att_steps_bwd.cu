@@ -18,48 +18,73 @@
 //       → ∂qv_t[k];  ∂h0[u] += dg_e ⊙ gate_e
 //     'att' correction A0_t·(g0_v ⊙ X_v), X_v = S_g − Σ_e h0[u]:
 //       ∂A0_t += dm ⊗ (g0_v ⊙ X_v); dX = (A0_tᵀ·dm) ⊙ g0_v reaches every
-//       node of g (through S_g, one warp sum) and, negated, each in-edge's
-//       source; dz0_v (the softmax VJP of g0_v) → ∂q0_t
+//       node of g (through S_g) and, negated, each in-edge's source; dz0_v
+//       (the softmax VJP of g0_v) → ∂q0_t
 //     ∂Wh_t += h0[v] ⊗ (Σ_e dz_e + dz0_v);  ∂h0[v] += Wh_t·(Σ_e dz_e + dz0_v)
 //
-// Bound on an H100: about twice the forward's operations on the same
-// rows, and the stash read once; microseconds at batch 1,024 — the T + 3
-// grid barriers in series dominate (chip_smoke.py::_atts_bounds counts it).
+// Design (walk_bwd.cuh, as the per-step family's fused_psteps_bwd.cu). A
+// node is a GROUP of FP lanes, one feature a lane; a block of 256 threads
+// owns whole graphs (a contiguous node range, balanced by node count).
+// Messages flow only inside a graph, so the message VJP of every step is
+// block-local: nothing of it crosses blocks but the weight gradients.
+//   * The reverse chain keeps each node's walk state (∂h, ∂h0, h0, each
+//     message slot's ∂m) in a shared-memory tile for the whole launch; a
+//     lane keeps its columns of ∂W_hh and ∂W_ih in registers at FP 16 (at
+//     FP 32 a round's rows are staged and summed an element a thread). The
+//     transposed products are reduce-scatters over the group. Each step's
+//     batch sums (S1, S2 and Σx̂, by which x̂ is centred on its batch mean)
+//     of the NEXT slot are summed in the same pass, then combined across
+//     the blocks without a grid barrier: through distributed shared memory
+//     in one thread-block cluster of 1-8 blocks, or on a grid of
+//     co-resident blocks through per-round flags that carry the launch's
+//     tag. The batch mean S1/c, as two floats, is taken out of each node's
+//     cotangent before the scaling, so its rounding does not add up over a
+//     large batch.
+//   * The message VJP of each step runs on sddmm_common.cuh's edge tiles:
+//     the block's edges are its tile (a block owns whole graphs, so no
+//     destination row crosses blocks), in the plan's destination order, a
+//     group of G lanes (8, 16 or 32: the narrowest that holds f) an edge,
+//     two edges a group a round: the gate (edge_gate on Wh_t and qv_t),
+//     dg from A'_t staged in shared memory (when K·FP·FP fits, else read
+//     from device memory; the next step's staged behind this one), the
+//     softmax's VJP. A node pass, a group a node, then sums its in-edges'
+//     dz in destination order, applies the correction and Wh_t (staged
+//     transposed). ∂A'_t and ∂qv_t are sums over each vocab id's edges in
+//     the block's vocab order (a stable counting sort per block; an
+//     edge's gate row is written at its position in that order): a group
+//     a run of consecutive positions, its ids' rows in registers, an id
+//     that crosses runs summed from the runs' rows in run order (an
+//     element a thread over the id's edges where those rows outgrow the
+//     reduction scratch). A source node sums its out-edges' rows in
+//     source order.
+//   * The blocks' gradient rows are summed in block order: by the last
+//     block of each counter group (an integer counter the block resets)
+//     on the grid route, by rank-owned column chunks in the cluster. No
+//     cooperative launch, no grid barrier, no memset, no float atomics;
+//     the grid route's blocks are at most the card's co-resident ones.
+//   A block whose graphs outgrow its tile keeps them in its region of
+//   global scratch instead (the same code).
 //
-// Design: ONE cooperative launch, no float atomics, sums in a fixed order.
-// The chain runs on 128-node chunks (chunk c on block c mod gridDim.x, a
-// thread reads back its own rows); the batch sums of step t−1 are taken in
-// the same chunk pass as step t's GRU VJP, combined in chunk order after
-// one grid barrier into shared memory, double-buffered by step parity (T
-// barriers in all, none without the norm). Then one warp per graph walks
-// each node's in-edges for every message step (A'_t read from device
-// memory), writes the per-node and per-edge terms of the weight gradients
-// to scratch rows and each edge's source cotangent (summed over the steps
-// by the lane that owns the edge's destination), and, after a __syncwarp,
-// walks its nodes' out-edges (the device-built source order) to sum them.
-// Weight gradients go to a block-private row, each element owned by one
-// thread: the GRU's from shared-memory rows of each chunk of the chain,
-// the message tables' from node and edge chunks after a grid barrier; the
-// rows are reduced in block order after a last one. Deterministic for a
-// given grid. Instantiated for f <= 8 (the att model's 7) and f <= 16.
+// Numerics: float32 FMA (the norm's mean as two floats). Every cross-thread
+// sum runs in a fixed order (groups, then warps, then blocks or ranks), so
+// a launch gives the same bits on every run of the same route.
+//
+// Bound on an H100: about twice the forward's operations on the same rows
+// and the stash read once (chip_smoke.py::_atts_bounds counts it).
 
 #include "fused_att_steps_common.cuh"
+#include "sddmm_common.cuh"
+#include "walk_bwd.cuh"
 
 namespace {
 
 using namespace mpnn_atts;
-using mpnn_att::feat_softmax;
-using mpnn_att::gate_pre;
-using mpnn_att::matvec_add;
-using mpnn_att::matvec_t_add;
-using mpnn_train::block_feature_sums;
-using mpnn_train::chunk_totals;
-using mpnn_train::load_row;
-using mpnn_train::load_row_cg;
+using namespace mpnn_walk;
+using mpnn_train::kFull;
 using mpnn_train::opaque_zero;
+using mpnn_train::set_slot;
 using mpnn_train::sigmoidf_;
-using mpnn_train::store_row;
-using mpnn_train::warp_sum;
+namespace sd = mpnn_sddmm;
 
 // Flat layout of the gradient output (and of each block's partial row):
 // real shapes, in this order. kernels/fused_att_steps.py::grad_layout
@@ -80,12 +105,28 @@ struct AttsGradLayout {
   }
 };
 
-// Scratch rows, f floats per segment: per chain node [mb | hprev | da_r |
-// da_z | da_n | dnh] (shared memory only); per message step and node
-// [g0 ⊙ X | dz0 | dzall]; per message step and edge [gate ⊙ h0[u] | dz].
-enum { kMb, kHp, kDar, kDaz, kDan, kDnh, kChainSegs };
-enum { kG0x, kDz0, kDzall, kNodeSegs };
-constexpr int kEdgeSegs = 2;
+constexpr int kFlagWords = flag_words(kMaxSteps);
+// per-node state (floats): ∂h of the state being walked, ∂h0, h0, S_g of
+// its graph (then X_v = S_g − Σ_e h0[src] over its in-edges), Σ_t dX, then
+// ∂m_t of each message slot: (5 + Tm)·FP
+constexpr int kGh = 0, kD0 = FP, kH0 = 2 * FP, kSg = 3 * FP, kDX = 4 * FP,
+              kDm = 5 * FP;
+// per-edge rows (floats): gate ⊙ h0[src] of the message step being walked
+// (row r: the edge at position r of the block's vocab order), dz of that
+// step and the source cotangent Σ_t dg ⊙ gate (row p: the edge at position
+// p of the destination order)
+constexpr int kEg = 0, kEz = FP, kEd = 2 * FP, ES = 3 * FP;
+// ∂W_ih's and ∂W_hh's columns a lane in registers at FP 16; at FP 32 a
+// round's rows [mb | h | da_r | da_z | da_n | r·∂n] are staged and the
+// padded W_ih, W_hh, b_ih, b_hh summed an element a thread
+constexpr bool kWReg = FP <= 16;
+constexpr int kWS = 6 * FP;
+constexpr int kGruEl = 6 * FP * FP + 6 * FP;
+constexpr int kOwn = kWReg ? 1 : (kGruEl + kBT - 1) / kBT;
+// A'_t is staged in shared memory when its K tables take at most this
+__host__ __device__ constexpr bool aprime_staged(int k_vocab) {
+  return k_vocab * FP * FP <= 16384;
+}
 
 struct BwdArgs {
   AttsWeights w;
@@ -99,538 +140,1023 @@ struct BwdArgs {
   const int* dst;               // (E)
   const int* edge_order;        // (E) edge ids, stably sorted by dst
   const int* dst_ptr;           // (N + 1)
-  const int* src_order;         // (E) edge ids, stably sorted by src
-  const int* src_ptr;           // (N + 1)
+  const int* src_pos;           // (E) positions in edge_order by source
+  const int* src_ptr;           // (N + 1) row pointers into src_pos
   const int* graph_node_ptr;    // (G + 1)
   float* dh0;                   // (N, f)
   float* dw;                    // AttsGradLayout(Tm, K, f).total
-  float* scratch;
+  float* scratch;               // Scratch(...).total
+  unsigned long long* flags;    // grid route: kFlagWords, zero once
+  int* counters;                // grid route: kMaxGroups + 1, zero between
+  long long* prof;              // null, or kProfSlots clock64 stamps
   int n_nodes, n_graphs, n_edges, f, k_vocab, steps, tm, with_corr,
       stateless;
+  int route, ncap, ecap, floor;
 };
 
-// shared memory after the weights and norm constants: block sums (red
-// kWarps·2·FP, sums 2·FP), the state sums S1 | S2 (2·FP), the staged rows
-// (kChunk · (6f + 1)) and the staged vocab ids (kChunk ints)
-__host__ __device__ inline size_t bwd_smem_floats(int tm, int k_vocab,
-                                                  int steps, int f) {
-  return size_t(SL::after_stats(tm, k_vocab, steps)) + kWarps * 2 * FP +
-         4 * FP + size_t(kChunk) * (kChainSegs * f + 1) + kChunk;
+// Offsets (floats) of one block's shared memory past the staged weights
+// and the T slots' norm constants (SL::after_stats).
+struct Smem {
+  int tot, cpart, misc, red, wst, tab, ap, ints, state, edges, total;
+  __host__ __device__ Smem(int tm, int k_vocab, int steps, int ncap,
+                           int ecap) {
+    int off = al4(SL::after_stats(tm, k_vocab, steps));
+    tot = off;    off += al4(3 * FP);
+    // each state round's partial [S1 | S2 | Σx̂]
+    cpart = off;  off += 3 * FP * steps;
+    misc = off;   off += 4;
+    red = off;    off += kRed;
+    wst = off;    off += kWReg ? 0 : NG * kWS;
+    tab = off;    off += FP * FP + FP;          // Wh_tᵀ, a zero bias
+    ap = off;     off += aprime_staged(k_vocab) ? k_vocab * FP * FP : 0;
+    // ints: dst and src pointers (ncap + 1 each), edges (src, dst, vid),
+    // positions by source, the vocab order (edges, their positions in it,
+    // their destinations), per-warp vocab counts, segment starts
+    ints = off;
+    off += al4(2 * (ncap + 1) + 7 * ecap + (kWB + 1) * k_vocab + 1);
+    state = off;  off += ncap * (5 + tm) * FP;
+    edges = off;  off += ecap * ES;
+    total = off;
+  }
+};
+
+size_t smem_bytes(int tm, int k_vocab, int steps, int ncap, int ecap) {
+  return sizeof(float) * size_t(Smem(tm, k_vocab, steps, ncap, ecap).total);
 }
 
-__host__ __device__ inline long long bwd_scratch_floats(
-    int n_nodes, int n_edges, int k_vocab, int f, int steps, int tm,
-    int grid) {
-  const long long nchunks = (n_nodes + kChunk - 1) / kChunk;
-  return (1LL + tm) * n_nodes * f                   // ghs, dms
-         + 2LL * nchunks * 2 * FP                   // state-sum partials
-         + (long long)tm * n_nodes * kNodeSegs * f  // node rows
-         + (long long)tm * n_edges * kEdgeSegs * f  // edge rows
-         + (long long)n_edges * f                   // source cotangents
-         + (long long)grid * AttsGradLayout(tm, k_vocab, f).total;
-}
+// Offsets (floats) of the global scratch.
+struct Scratch {
+  size_t state, edges, ints, cparts, rows, gparts, total;
+  __host__ __device__ Scratch(int n, int e, int k, int f, int steps, int tm,
+                              int grid) {
+    const size_t nw = AttsGradLayout(tm, k, f).total;
+    size_t off = 0;
+    state = off;   off += size_t(n) * (5 + tm) * FP;   // spilled tiles
+    edges = off;   off += size_t(e) * ES;
+    // pointers (2 (n + grid + 1)), edges (3e), by source (e), the vocab
+    // order (3e)
+    ints = off;    off += 2 * size_t(n + grid + 1) + 7 * size_t(e);
+    cparts = off;  off += size_t(3) * FP * steps * grid;
+    rows = off;    off += size_t(grid) * nw;
+    gparts = off;  off += size_t(kMaxGroups) * nw;
+    total = off;
+  }
+};
 
-// First element index >= off owned by this thread (e ≡ tid mod kThreads).
-__device__ __forceinline__ int first_owned(int off) {
-  return off + ((int(threadIdx.x) - off) % kThreads + kThreads) % kThreads;
-}
+struct Ctx {
+  const BwdArgs& a;
+  float* sm;
+  Smem L2;
+  Sync y;
+  const AttsGradLayout gl;
+  float* row;               // this block's gradient row
+  int T, Tm, K, f, SS;
+  int lo, hi, n0, nb, e0, eb, s0, n_real;
+  float c;
+};
 
-// The staged weights: the launch's dynamic shared memory, behind an
-// opaque offset so loop-invariant weights stay in shared memory.
-__device__ __forceinline__ const float* sm_weights() {
-  extern __shared__ float atts_sm[];
-  return atts_sm + opaque_zero();
-}
-
-// The chain's VJP for one real node at step t: from the cotangent dhp of
-// h̃_t, the GRU's inputs mb and hprev, the GRU VJP; stages the chain row
-// (stride kS) and returns ∂hprev (ghn) and ∂mb (dmb).
-template <int NF>
-__device__ __forceinline__ void gru_backward(const float* dhp,
-                                             const float* hprev,
-                                             const float* mb, int f,
-                                             float* row, float* ghn,
-                                             float* dmb) {
-  const float* w = sm_weights();
-  float dar[NF], daz[NF], dan[NF], dnh[NF];
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) {
-    float gr = w[PL::kBih + j], gz = w[PL::kBih + FP + j],
-          gn = w[PL::kBih + 2 * FP + j];
-    float rh = w[PL::kBhh + j], zh = w[PL::kBhh + FP + j],
-          nh = w[PL::kBhh + 2 * FP + j];
-MPNN_UNROLL
-    for (int k = 0; k < NF; ++k) {
-      const float* wi = w + PL::kWih + k * 3 * FP;
-      const float* whh = w + PL::kWhh + k * 3 * FP;
-      gr = fmaf(mb[k], wi[j], gr);
-      gz = fmaf(mb[k], wi[FP + j], gz);
-      gn = fmaf(mb[k], wi[2 * FP + j], gn);
-      rh = fmaf(hprev[k], whh[j], rh);
-      zh = fmaf(hprev[k], whh[FP + j], zh);
-      nh = fmaf(hprev[k], whh[2 * FP + j], nh);
-    }
-    const float sr = sigmoidf_(gr + rh);
-    const float sz = sigmoidf_(gz + zh);
-    const float tn = tanhf(gn + sr * nh);
-    const float dz = dhp[j] * (hprev[j] - tn);
-    dan[j] = dhp[j] * (1.0f - sz) * (1.0f - tn * tn);
-    dnh[j] = dan[j] * sr;
-    dar[j] = dan[j] * nh * sr * (1.0f - sr);
-    daz[j] = dz * sz * (1.0f - sz);
-    ghn[j] = dhp[j] * sz;
-  }
-MPNN_UNROLL
-  for (int k = 0; k < NF; ++k) {
-    const float* whh = w + PL::kWhh + k * 3 * FP;
-    const float* wi = w + PL::kWih + k * 3 * FP;
-    float th = ghn[k], ti = 0.f;
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) {
-      th = fmaf(whh[j], dar[j], th);
-      th = fmaf(whh[FP + j], daz[j], th);
-      th = fmaf(whh[2 * FP + j], dnh[j], th);
-      ti = fmaf(wi[j], dar[j], ti);
-      ti = fmaf(wi[FP + j], daz[j], ti);
-      ti = fmaf(wi[2 * FP + j], dan[j], ti);
-    }
-    ghn[k] = th;
-    dmb[k] = ti;
-  }
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) {
-    if (j < f) {
-      row[kMb * f + j] = mb[j];
-      row[kHp * f + j] = hprev[j];
-      row[kDar * f + j] = dar[j];
-      row[kDaz * f + j] = daz[j];
-      row[kDan * f + j] = dan[j];
-      row[kDnh * f + j] = dnh[j];
-    }
-  }
-}
-
-// The GRU leaves' terms of one chunk from the staged chain rows.
-__device__ void gru_grads(float* wrow, const AttsGradLayout& gl,
-                          const float* xs, int kS, int f) {
-  for (int e = first_owned(gl.wih); e < gl.total; e += kThreads) {
-    int cx = -1, cd;
-    if (e < gl.bih) {                                  // W_ih, W_hh
-      const bool hh = e >= gl.whh;
-      const int i = e - (hh ? gl.whh : gl.wih);
-      const int k = i / (3 * f), g = (i % (3 * f)) / f, j = i % f;
-      cx = (hh ? kHp : kMb) * f + k;
-      cd = (hh && g == 2 ? kDnh : kDar + g) * f + j;
-    } else {                                           // b_ih, b_hh
-      const bool hh = e >= gl.bhh;
-      const int i = e - (hh ? gl.bhh : gl.bih), g = i / f, j = i % f;
-      cd = (hh && g == 2 ? kDnh : kDar + g) * f + j;
-    }
-    float s = 0.f;
-    if (cx >= 0) {
-      for (int i = 0; i < kChunk; ++i) s = fmaf(xs[i * kS + cx], xs[i * kS + cd], s);
-    } else {
-      for (int i = 0; i < kChunk; ++i) s += xs[i * kS + cd];
-    }
-    wrow[e] += s;
-  }
-}
-
-// Message step t for one real node n: the in-edge walk and the correction
-// VJP. Writes the node's row, its in-edges' rows, adds its in-edges' source
-// cotangents (stored at t = 0) and Wh_t·dzall to ∂h0[n]; adds its dX to dS.
-template <int NF>
-__device__ __forceinline__ void node_backward(const BwdArgs& a, int t, int n,
-                                              const float (&S)[NF],
-                                              const float* dms, float* nrow,
-                                              float* erow, float* dhs,
-                                              float (&dS)[NF]) {
-  const int f = a.f, K = a.k_vocab;
-  const float* blk = sm_weights() + SL::step(t, K);
-  const float* at = a.w.aprime + size_t(t) * K * f * f;
-  float dm[NF], zh[NF], dwn[NF], g0[NF];
-  {
-    float h0n[NF];
-    load_row<NF>(a.h0, n, f, h0n);
-    gate_pre<NF>(blk, h0n, zh);
-  }
-  load_row_cg<NF>(dms, n, f, dm);
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) dwn[j] = g0[j] = 0.f;
-  if (a.with_corr) {
-    feat_softmax<NF>(zh, blk + AL::kQ0, f, g0);
-    matvec_t_add<NF>(blk + AL::kA0, dm, dwn);         // A0_tᵀ·dm
-  }
-  float xsum[NF], dzall[NF];
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) xsum[j] = dzall[j] = 0.f;
-  const int p1 = __ldg(a.dst_ptr + n + 1);
-  for (int p = __ldg(a.dst_ptr + n); p < p1; ++p) {
-    const float* we = sm_weights() + SL::step(t, K);
-    const int e = __ldg(a.edge_order + p);
-    const int k = __ldg(a.vid + e);
-    float hs[NF], gate[NF], dg[NF];
-    load_row<NF>(a.h0, __ldg(a.src + e), f, hs);
-    feat_softmax<NF>(zh, we + SL::kQv + k * FP, f, gate);
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) dg[j] = 0.f;
-    gmatvec_t_add<NF>(at + size_t(k) * f * f, f, dm, dg);  // A'_t[k]ᵀ·dm
-    float s = 0.f;
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) s = fmaf(dg[j] * hs[j], gate[j], s);
-    float* er = erow + size_t(e) * kEdgeSegs * f;
-    float* dr = dhs + size_t(e) * f;
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) {
-      if (j < f) {
-        const float dz = gate[j] * (dg[j] * hs[j] - s);
-        const float d = dg[j] * gate[j] - dwn[j] * g0[j];
-        er[j] = gate[j] * hs[j];
-        er[f + j] = dz;
-        dr[j] = t == 0 ? d : dr[j] + d;
-        dzall[j] += dz;
-      }
-      xsum[j] += hs[j];
-    }
-  }
-  float g0x[NF], dz0[NF];
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) g0x[j] = dz0[j] = 0.f;
-  if (a.with_corr) {
-    float s0 = 0.f, dgx[NF];
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) {
-      const float x = S[j] - xsum[j];
-      g0x[j] = g0[j] * x;
-      dgx[j] = dwn[j] * x;                             // ∂g0
-      s0 = fmaf(dgx[j], g0[j], s0);
-      dS[j] = fmaf(dwn[j], g0[j], dS[j]);              // dX
-    }
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) {
-      dz0[j] = g0[j] * (dgx[j] - s0);
-      dzall[j] += dz0[j];
-    }
-  }
-  float* row = nrow + size_t(n) * kNodeSegs * f;
-MPNN_UNROLL
-  for (int j = 0; j < NF; ++j) {
-    if (j < f) {
-      row[kG0x * f + j] = g0x[j];
-      row[kDz0 * f + j] = dz0[j];
-      row[kDzall * f + j] = dzall[j];
-    }
-  }
-  float dh[NF];
-  load_row_cg<NF>(a.dh0, n, f, dh);
-  matvec_add<NF>(blk + AL::kWh, dzall, dh);            // Wh_t·dzall
-  store_row<NF>(a.dh0, n, f, dh);
-}
-
-template <int NF>
-__global__ void __launch_bounds__(kThreads, 1)
-fused_att_steps_bwd_kernel(BwdArgs a) {
-  cg::grid_group grid = cg::this_grid();
-  extern __shared__ float sm[];
-  const int f = a.f, K = a.k_vocab, T = a.steps, Tm = a.tm;
-  const bool stateless = a.stateless != 0;
-  stage_atts_weights(sm, a.w, f, K, Tm);
-  float* st = sm + SL::stats(Tm, K);                   // T·3·FP
-  float* red = sm + SL::after_stats(Tm, K, T);         // kWarps·2·FP
-  float* sums = red + kWarps * 2 * FP;                 // 2·FP
-  float* cs = sums + 2 * FP;                           // S1 | S2
-  float* xs = cs + 2 * FP;                             // kChunk·(6f + 1)
-  int* vids = reinterpret_cast<int*>(xs + kChunk * (kChainSegs * f + 1));
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int N = a.n_nodes, G = a.n_graphs, E = a.n_edges;
-  const AttsGradLayout gl(Tm, K, f);
-  const int NW = gl.total;
-  const int n_real = a.graph_node_ptr[G];
-  const float c = float(n_real);
-  const int nchunks = (n_real + kChunk - 1) / kChunk;
-  const size_t slot_sz = size_t(N) * f;
-  float* ghs = a.scratch;                                    // (N, f)
-  float* dms = ghs + slot_sz;                                // (Tm, N, f)
-  float* cpart = dms + Tm * slot_sz;                         // 2·nchunks·2FP
-  float* nrows = cpart + 2 * size_t(nchunks) * 2 * FP;       // Tm·N·3f
-  float* erows = nrows + size_t(Tm) * N * kNodeSegs * f;     // Tm·E·2f
-  float* dhs = erows + size_t(Tm) * E * kEdgeSegs * f;       // (E, f)
-  float* wpart = dhs + size_t(E) * f;                        // grid·NW
-  float* wrow = wpart + size_t(blockIdx.x) * NW;
-
-  // ---- set-up: the state slots' constants, zeroed rows -------------------
-  if (stateless)
-    for (int i = tid; i < T * FP; i += kThreads) {
-      const int s = i / FP, j = i % FP;
-      const float mean = j < f ? a.stats[(size_t(s) * 2) * f + j] : 0.f;
-      const float var = j < f ? a.stats[(size_t(s) * 2 + 1) * f + j] : 0.f;
-      mpnn_psteps::set_slot(st + s * 3 * FP, j, mean, var, true);
-    }
-  for (int e = tid; e < NW; e += kThreads) wrow[e] = 0.f;
-  {
-    const size_t pad = size_t(N - n_real) * f;
-    for (size_t i = size_t(blockIdx.x) * kThreads + tid; i < pad;
-         i += size_t(gridDim.x) * kThreads)
-      a.dh0[size_t(n_real) * f + i] = 0.f;
+// The first graphs g in [0, G] with graph_node_ptr[g] >= t0 and >= t1,
+// into g0 and g1 (every thread); `slot` holds 2 ints.
+__device__ void first_graphs_at(const BwdArgs& a, int t0, int t1, int* slot,
+                                int& g0, int& g1) {
+  const int G = a.n_graphs;
+  if (threadIdx.x == 0) slot[0] = slot[1] = G;
+  __syncthreads();
+  for (int g = threadIdx.x; g <= G; g += kBT) {
+    const int p = __ldg(a.graph_node_ptr + g);
+    const int prev = g > 0 ? __ldg(a.graph_node_ptr + g - 1) : -1;
+    if (p >= t0 && prev < t0) slot[0] = g;
+    if (p >= t1 && prev < t1) slot[1] = g;
   }
   __syncthreads();
+  g0 = slot[0];
+  g1 = slot[1];
+  __syncthreads();
+}
 
-  // ---- the last step's batch sums S1 = Σ g, S2 = Σ g·x̂ -------------------
+// The totals over the launch's blocks of state round r's block partial
+// (3f floats packed to the real features, cpart + r·3FP) into tot.
+__device__ void combine_state(Ctx& x, int r) {
+  const BwdArgs& a = x.a;
+  const int G = x.y.nblocks;
+  float* gp = a.scratch +
+              Scratch(a.n_nodes, a.n_edges, a.k_vocab, a.f, a.steps, a.tm,
+                      G).cparts + size_t(r) * G * 3 * FP;
+  combine(x.y, x.sm + x.L2.cpart + r * 3 * FP, x.sm + x.L2.tot, 3 * x.f, gp,
+          a.flags + size_t(r) * kMaxGrid * kFlagStride, x.sm + x.L2.red);
+}
+
+// Per-lane compensated sums of a state slot's VJP (S1 = Σ g, S2 = Σ g·x̂,
+// Σ x̂ over the block's nodes) into round r's partial, over the groups in
+// order. Every thread calls it.
+__device__ void state_partial(Ctx& x, int r, const Ksum& s1, const Ksum& s2,
+                              const Ksum& sx) {
+  float v[3] = {s1.s, s2.s, sx.s};
+  float* cpart = x.sm + x.L2.cpart + r * 3 * FP;
+  const int f = x.f;
+  groups_to<3>(v, x.sm + x.L2.red, [&](int i, int jj, float t) {
+    if (jj < f) cpart[i * f + jj] = t;
+  });
+}
+
+// One message step's VJP over the block's edges and nodes (below, in
+// body). The gate's tables are sddmm_common.cuh's: wh = Wh_t, whT its
+// transpose, ew = qv_t, bs zero, ap = A'_t staged (or null).
+struct MsgStep {
+  float* state;
+  float* erow;
+  const int* eptr;
+  const int* einfo;
+  const int* vpos;          // an edge's position in the block's vocab order
+  sd::Tables tb;
+  const float* agl;         // A'_t in device memory (K, f, f)
+  int SS, f, nb, eb, t;
+  bool corr, aps;
+};
+
+// The edges of step t, a group of G lanes an edge (lane j feature j), two
+// edges a group a round where A'_t is staged (their chains interleave;
+// one in the wide bucket, whose A'_t may come from device memory): the
+// gate on h0[dst] (sddmm_common.cuh's edge_gate), dg = A'_t[k]ᵀ·∂m_t[dst]
+// and the softmax's VJP dz. Writes gate ⊙ h0[src] at the edge's vocab
+// position, dz at its destination position, and adds dg ⊙ gate to its
+// source cotangent.
+template <int G>
+__device__ void message_edges(const MsgStep& ms) {
+  constexpr int NE = kBT / G;
+  constexpr int U = FP <= 16 ? 2 : 1;
+  const int tid = threadIdx.x, j = tid % G, gi = tid / G;
+  const int f = ms.f, t = ms.t, SS = ms.SS, eb = ms.eb;
+  if (eb == 0) return;
+  for (int p0 = 0; p0 < eb; p0 += U * NE) {
+    // every group runs each round (the group sums take the whole warp); a
+    // slot past the edges runs on the last one and writes nothing
+    float eg[U], dz[U], dgg[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int pc = min(p0 + u * NE + gi, eb - 1);
+      const int* ei = ms.einfo + 3 * pc;
+      const int k = ei[2];
+      const float* sv = ms.state + size_t(ei[1]) * SS;
+      const float gate = sd::edge_gate<G>(ms.tb, sv + kH0, k, j, f);
+      const float hs = ms.state[size_t(ei[0]) * SS + kH0 + j];
+      const float* dmv = sv + kDm + t * FP;
+      float dg = 0.f;
+      if (ms.aps) {
+        const float* am = ms.tb.ap + k * FP * FP + j;
+#pragma unroll
+        for (int m = 0; m < G; ++m) dg = fmaf(am[m * FP], dmv[m], dg);
+      } else {
+        const float* am = ms.agl + size_t(k) * f * f + j;
+#pragma unroll
+        for (int m = 0; m < G; ++m)
+          if (m < f && j < f) dg = fmaf(__ldg(am + m * f), dmv[m], dg);
+      }
+      const float x = dg * hs;
+      dz[u] = gate * (x - sd::group_sum<G>(x * gate));
+      eg[u] = gate * hs;
+      dgg[u] = dg * gate;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int p = p0 + u * NE + gi;
+      if (p >= eb) continue;
+      float* er = ms.erow + size_t(p) * ES;
+      ms.erow[size_t(ms.vpos[p]) * ES + kEg + j] = eg[u];
+      er[kEz + j] = dz[u];
+      er[kEd + j] = t == 0 ? dgg[u] : er[kEd + j] + dgg[u];
+    }
+  }
+}
+
+// The nodes of step t, a group of G lanes a node: Σ dz over the node's
+// in-edges in destination order, the correction (the gate g0 of Wh_tᵀ·
+// h0[v] + q0_t, X_v, dz0; Σ_t A0_tᵀ·∂m ⊙ g0 into the node's dX row), and
+// ∂h0[v] += Wh_t·(Σ dz + dz0); sums ∂A0_t and ∂Wh_t (lane j: column j,
+// into acc[k] and acc[G + k]) and ∂q0_t (acc[2G]) over the group's nodes.
+template <int G>
+__device__ void message_nodes(const MsgStep& ms, const float* wv,
+                              float (&acc)[2 * G + 1]) {
+  constexpr int NE = kBT / G;
+  const int tid = threadIdx.x, j = tid % G, gi = tid / G;
+  const int base = (tid % 32) - j;
+  const int f = ms.f, t = ms.t, SS = ms.SS, nb = ms.nb;
+  const bool in = j < f;
+  const float q0j = wv[AL::kQ0 + j];
+  for (int i0 = 0; i0 < nb; i0 += NE) {
+    // every group runs each round; a slot past the nodes runs on node 0
+    // with ∂m = 0 and no edges, and writes nothing
+    const int i = i0 + gi;
+    const bool ok = i < nb;
+    float* s = ms.state + size_t(ok ? i : 0) * SS;
+    const float dm = ok ? s[kDm + t * FP + j] : 0.f;
+    const float h0v = s[kH0 + j];
+    float dzall = 0.f;
+    if (ok)
+      for (int p = ms.eptr[i]; p < ms.eptr[i + 1]; ++p)
+        dzall += ms.erow[size_t(p) * ES + kEz + j];
+    float g0x = 0.f, dz0 = 0.f;
+    if (ms.corr) {
+      float z = 0.f, d = 0.f;
+#pragma unroll
+      for (int k = 0; k < G; ++k) {
+        z = fmaf(__shfl_sync(kFull, h0v, base + k), wv[AL::kWh + k * FP + j],
+                 z);
+        d = fmaf(wv[AL::kA0 + k * FP + j], __shfl_sync(kFull, dm, base + k),
+                 d);
+      }
+      const float zz = in ? z + q0j : sd::kPadLogit;
+      const float mx = sd::group_max<G>(zz);
+      const float ex = in ? expf(zz - mx) : 0.f;
+      const float g0 = ex / sd::group_sum<G>(ex);
+      const float xv = s[kSg + j];
+      g0x = g0 * xv;
+      const float dgx = d * xv;                        // ∂g0
+      dz0 = g0 * (dgx - sd::group_sum<G>(dgx * g0));
+      dzall += dz0;
+      if (ok) s[kDX + j] += d * g0;
+    }
+    // ∂h0[v] += Wh_t·dzall (lane i: Σ_jj Wh_t[i][jj]·dzall[jj])
+    float hv = 0.f;
+#pragma unroll
+    for (int k = 0; k < G; ++k) {
+      const float dzk = __shfl_sync(kFull, dzall, base + k);
+      hv = fmaf(ms.tb.whT[k * FP + j], dzk, hv);
+      if (ms.corr)
+        acc[k] = fmaf(__shfl_sync(kFull, dm, base + k), g0x, acc[k]);
+      acc[G + k] = fmaf(__shfl_sync(kFull, h0v, base + k), dzall, acc[G + k]);
+    }
+    acc[2 * G] += dz0;
+    if (ok) s[kD0 + j] += hv;
+  }
+}
+
+// A'_t zero-padded to (K, FP, FP) into shared memory, asynchronously (the
+// caller waits).
+__device__ void stage_aprime(const BwdArgs& a, float* apt, int t, int K,
+                             int f) {
+  for (int i = threadIdx.x; i < K * FP * FP; i += kBT) {
+    const int k = i / (FP * FP), m = (i / FP) % FP, n = i % FP;
+    if (m < f && n < f)
+      cp_async4(apt + i, a.w.aprime + ((size_t(t) * K + k) * f + m) * f + n);
+    else
+      apt[i] = 0.f;
+  }
+}
+
+// The message VJP of step t on G-lane groups: Wh_tᵀ staged (A'_t is on
+// its way: started by the previous step, or before the first), the edges,
+// then A'_{t+1} started, the nodes, ∂A0_t, ∂Wh_t, ∂q0_t, and the vocab
+// sums ∂A'_t, ∂qv_t into the block's row. Every thread calls it.
+template <int G>
+__device__ void message_step(Ctx& x, const MsgStep& ms, const int* slist,
+                             const int* vdst, const int* seg) {
+  constexpr int NE = kBT / G;
+  const BwdArgs& a = x.a;
+  const int tid = threadIdx.x, f = x.f, K = x.K, SS = x.SS, t = ms.t;
+  const AttsGradLayout& gl = x.gl;
+  float* row = x.row;
+  float* red = x.sm + x.L2.red;
+  const float* wv = x.sm + opaque_zero() + SL::step(t, K);
+  // Wh_tᵀ and the zero bias
+  float* whT = x.sm + x.L2.tab;
+  for (int i = tid; i < FP * FP + FP; i += kBT)
+    whT[i] = i < FP * FP ? wv[AL::kWh + (i % FP) * FP + i / FP] : 0.f;
+  cp_async_wait_all();
+  __syncthreads();
+  if (t < 6) stamp(a.prof, 61 + 3 * t);
+  message_edges<G>(ms);
+  __syncthreads();
+  if (ms.aps && t + 1 < x.Tm) stage_aprime(a, x.sm + x.L2.ap, t + 1, K, f);
+  if (t < 6) stamp(a.prof, 62 + 3 * t);
+  float acc[2 * G + 1];
+#pragma unroll
+  for (int m = 0; m < 2 * G + 1; ++m) acc[m] = 0.f;
+  message_nodes<G>(ms, wv, acc);
+  if (t < 6) stamp(a.prof, 63 + 3 * t);
+  // the group sums, in one round where `red` holds them
+  auto put = [&](int i, int jj, float v) {
+    if (jj >= f) return;
+    if (i < G) {
+      if (i < f) row[gl.a0 + (t * f + i) * f + jj] = v;
+    } else if (i < 2 * G) {
+      if (i - G < f) row[gl.wh + (t * f + i - G) * f + jj] = v;
+    } else {
+      row[gl.q0 + t * f + jj] = v;
+    }
+  };
+  if constexpr ((2 * G + 1) * G * kWB <= kRed) {
+    groups_to<2 * G + 1, G>(acc, red, put);
+  } else {
+    float v0[G], v1[G], v2[1] = {acc[2 * G]};
+#pragma unroll
+    for (int m = 0; m < G; ++m) {
+      v0[m] = acc[m];
+      v1[m] = acc[G + m];
+    }
+    groups_to<G, G>(v0, red, put);
+    groups_to<G, G>(v1, red, [&](int i, int jj, float v) {
+      put(G + i, jj, v);
+    });
+    groups_to<1, G>(v2, red, [&](int, int jj, float v) {
+      put(2 * G, jj, v);
+    });
+  }
+  // ∂A'_t[k] = Σ ∂m_t[dst] ⊗ (gate ⊙ h0[src]), ∂qv_t[k] = Σ dz over the
+  // block's edges of id k in vocab order (the edges' gate rows sit at
+  // their vocab positions); W = f·f + f elements an id
+  const int ff = f * f, W = ff + f;
+  auto out = [&](int k, int o, float v) {
+    row[o < ff ? gl.a + (t * K + k) * ff + o
+               : gl.qv + (t * K + k) * f + o - ff] = v;
+  };
+  if (2 * NE * W <= kRed) {
+    // a group of G lanes a run of `per` consecutive vocab positions: lane
+    // j keeps column j of its current id's ∂A'_t (acc[m]) and ∂qv_t (aq);
+    // an id inside the run goes to the row, an id crossing runs to the
+    // run's slot in `red` (two a run: 0 for an id that began in an
+    // earlier run, 1 for one that goes on), then is summed from its runs'
+    // slots in run order
+    const int eb = ms.eb, per = (eb + NE - 1) / NE;
+    const int j = tid % G, g = tid / G;
+    const int r0 = min(eb, g * per), r1 = min(eb, r0 + per);
+    if (r0 < r1) {
+      int lo = 0, hi = K;                  // seg[lo] <= r0 < seg[lo + 1]
+      while (hi - lo > 1) {
+        const int mid = (lo + hi) / 2;
+        if (seg[mid] <= r0) lo = mid; else hi = mid;
+      }
+      int k = lo;
+      float aq = 0.f;
+#pragma unroll
+      for (int m = 0; m < G; ++m) acc[m] = 0.f;
+      auto flush = [&]() {
+        if (j >= f) return;
+        const bool began = seg[k] < r0, goes = seg[k + 1] > r1;
+        float* o = began || goes ? red + (2 * g + (began ? 0 : 1)) * W
+                                 : row + gl.a + (t * K + k) * ff;
+        float* oq = began || goes ? o + ff : row + gl.qv + (t * K + k) * f;
+#pragma unroll
+        for (int m = 0; m < G; ++m)
+          if (m < f) o[m * f + j] = acc[m];
+        oq[j] = aq;
+      };
+      for (int r = r0; r < r1; ++r) {
+        if (r == seg[k + 1]) {             // the next nonempty id
+          flush();
+#pragma unroll
+          for (int m = 0; m < G; ++m) acc[m] = 0.f;
+          aq = 0.f;
+          do ++k; while (seg[k + 1] == r);
+        }
+        const float* dmr = ms.state + size_t(vdst[r]) * SS + kDm + t * FP;
+        const float e = ms.erow[size_t(r) * ES + kEg + j];
+#pragma unroll
+        for (int m = 0; m < G; ++m) acc[m] = fmaf(dmr[m], e, acc[m]);
+        aq += ms.erow[size_t(slist[r]) * ES + kEz + j];
+      }
+      flush();
+    }
+    __syncthreads();
+    // the ids that cross runs (and the empty ones), an element a thread
+    for (int el = tid; el < K * W; el += kBT) {
+      const int k = el / W, o = el % W;
+      const int s0 = seg[k], s1 = seg[k + 1];
+      if (s1 == s0) {
+        out(k, o, 0.f);
+        continue;
+      }
+      const int g0 = s0 / per, g1 = (s1 - 1) / per;
+      if (g0 == g1) continue;              // its run wrote it
+      float v = red[(2 * g0 + 1) * W + o];
+      for (int gg = g0 + 1; gg <= g1; ++gg) v += red[2 * gg * W + o];
+      out(k, o, v);
+    }
+  } else {
+    // the runs' slots outgrow `red` (the wider groups): a thread an
+    // element sums the id's positions, four interleaved sums joined in a
+    // fixed order
+    for (int el = tid; el < K * W; el += kBT) {
+      const int k = el / W, o = el % W;
+      const bool isa = o < ff;
+      const int m = isa ? o / f : 0, n = isa ? o % f : o - ff;
+      auto term = [&](int r) {
+        return isa ? ms.state[size_t(vdst[r]) * SS + kDm + t * FP + m] *
+                         ms.erow[size_t(r) * ES + kEg + n]
+                   : ms.erow[size_t(slist[r]) * ES + kEz + n];
+      };
+      float c0 = 0.f, c1 = 0.f, c2 = 0.f, c3 = 0.f;
+      const int r1 = seg[k + 1];
+      int r = seg[k];
+      for (; r + 4 <= r1; r += 4) {
+        c0 += term(r);
+        c1 += term(r + 1);
+        c2 += term(r + 2);
+        c3 += term(r + 3);
+      }
+      if (r < r1) c0 += term(r);
+      if (r + 1 < r1) c1 += term(r + 1);
+      if (r + 2 < r1) c2 += term(r + 2);
+      out(k, o, (c0 + c1) + (c2 + c3));
+    }
+  }
+  __syncthreads();
+}
+
+// The body of one block, its per-node state in shared memory (kSm) or in
+// its region of global scratch.
+template <bool kSm>
+__device__ void body(Ctx& x) {
+  const BwdArgs& a = x.a;
+  float* sm = x.sm;
+  const int tid = threadIdx.x, q = tid / GS, j = tid % GS;
+  const int f = x.f, T = x.T, Tm = x.Tm, K = x.K, N = a.n_nodes, SS = x.SS;
+  const int n0 = x.n0, nb = x.nb, e0 = x.e0, eb = x.eb;
+  const bool stateless = a.stateless != 0, corr = a.with_corr != 0;
+  const Scratch sc(N, a.n_edges, K, f, T, Tm, x.y.nblocks);
+  const size_t slot_sz = size_t(N) * f;
+  const AttsGradLayout& gl = x.gl;
+  const float* st = sm + SL::stats(Tm, K);
+  float* red = sm + x.L2.red;
+  float* tot = sm + x.L2.tot;
+  float* state = kSm ? sm + x.L2.state
+                     : a.scratch + sc.state + size_t(n0) * SS;
+  float* erow = kSm ? sm + x.L2.edges : a.scratch + sc.edges + size_t(e0) * ES;
+  const int ncap = a.ncap, ecap = a.ecap;
+  int* ibase = kSm ? reinterpret_cast<int*>(sm + x.L2.ints)
+                   : reinterpret_cast<int*>(a.scratch + sc.ints);
+  const size_t gp = size_t(N + x.y.nblocks + 1);      // a pointer region
+  int* eptr = kSm ? ibase : ibase + n0 + x.y.b;
+  int* sptr = kSm ? ibase + ncap + 1 : ibase + gp + n0 + x.y.b;
+  int* einfo = kSm ? ibase + 2 * (ncap + 1) : ibase + 2 * gp + 3 * size_t(e0);
+  int* spos = kSm ? einfo + 3 * ecap
+                  : ibase + 2 * gp + 3 * size_t(a.n_edges) + e0;
+  int* slist = kSm ? spos + ecap
+                   : ibase + 2 * gp + 4 * size_t(a.n_edges) + e0;
+  int* vpos = kSm ? slist + ecap
+                  : ibase + 2 * gp + 5 * size_t(a.n_edges) + e0;
+  int* vdst = kSm ? vpos + ecap
+                  : ibase + 2 * gp + 6 * size_t(a.n_edges) + e0;
+  int* vcnt = reinterpret_cast<int*>(sm + x.L2.ints) +
+              (kSm ? 2 * (ncap + 1) + 7 * ecap : 0);
+  int* seg = vcnt + kWB * K;             // K + 1 segment starts
+  float* row = x.row;
+
+  // ---- staging: the block's nodes and edges ------------------------------
+  for (int i = tid; i <= nb; i += kBT) {
+    eptr[i] = __ldg(a.dst_ptr + n0 + i) - e0;
+    sptr[i] = __ldg(a.src_ptr + n0 + i) - x.s0;
+  }
+  for (int p = tid; p < eb; p += kBT) {
+    const int e = __ldg(a.edge_order + e0 + p);
+    einfo[3 * p] = __ldg(a.src + e) - n0;
+    einfo[3 * p + 1] = __ldg(a.dst + e) - n0;
+    einfo[3 * p + 2] = __ldg(a.vid + e);
+    spos[p] = __ldg(a.src_pos + x.s0 + p) - e0;
+  }
+  for (int i = tid; i < nb * FP; i += kBT) {
+    const int v = i / FP, jj = i % FP;
+    float* s = state + size_t(v) * SS;
+    const size_t g = size_t(n0 + v) * f + jj;
+    if (jj < f) {
+      copy4<kSm>(s + kGh + jj, a.gh + g);
+      copy4<kSm>(s + kH0 + jj, a.h0 + g);
+    } else {
+      s[kGh + jj] = 0.f;
+      s[kH0 + jj] = 0.f;
+    }
+    s[kD0 + jj] = 0.f;
+    s[kDX + jj] = 0.f;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+
+  // ---- the block's edges in vocab order: a stable counting sort ----------
+  {
+    const int warp = tid / 32, lane = tid % 32;
+    const int per = (eb + kWB - 1) / kWB;
+    const int p0 = min(eb, warp * per), p1 = min(eb, p0 + per);
+    for (int i = tid; i < kWB * K; i += kBT) vcnt[i] = 0;
+    __syncthreads();
+    // pass 0 counts, pass 1 places; per chunk of 32 edges the lanes of an
+    // id find their peers and the lowest one updates the warp's count
+    for (int pass = 0; pass < 2; ++pass) {
+      for (int c0 = p0; c0 < p1; c0 += 32) {
+        const int p = c0 + lane;
+        const int v = p < p1 ? einfo[3 * p + 2] : -1;
+        unsigned peers = 0;
+        for (int l = 0; l < 32; ++l)
+          peers |= (__shfl_sync(kFull, v, l) == v ? 1u : 0u) << l;
+        const int rank = __popc(peers & ((1u << lane) - 1u));
+        const int lead = __ffs(peers) - 1;
+        int base = 0;
+        if (lane == lead && v >= 0) {
+          base = vcnt[warp * K + v];
+          vcnt[warp * K + v] = base + __popc(peers);
+        }
+        base = __shfl_sync(kFull, base, lead);
+        if (pass == 1 && v >= 0) {
+          slist[base + rank] = p;
+          vpos[p] = base + rank;
+        }
+        __syncwarp();
+      }
+      __syncthreads();
+      if (pass == 0) {
+        // segment starts (ids in order) and each warp's cursor in them:
+        // warp 0 scans the ids' totals, 32 ids a round
+        if (warp == 0) {
+          int base = 0;
+          for (int k0 = 0; k0 < K; k0 += 32) {
+            const int k = k0 + lane;
+            int t = 0;
+            if (k < K)
+              for (int ww = 0; ww < kWB; ++ww) t += vcnt[ww * K + k];
+            int incl = t;
+            for (int off = 1; off < 32; off <<= 1) {
+              const int u = __shfl_up_sync(kFull, incl, off);
+              if (lane >= off) incl += u;
+            }
+            if (k < K) {
+              int run = base + incl - t;
+              seg[k] = run;
+              for (int ww = 0; ww < kWB; ++ww) {
+                const int cnt = vcnt[ww * K + k];
+                vcnt[ww * K + k] = run;
+                run += cnt;
+              }
+            }
+            base += __shfl_sync(kFull, incl, 31);
+          }
+          if (lane == 0) seg[K] = base;
+        }
+        __syncthreads();
+      }
+    }
+    for (int p = tid; p < eb; p += kBT) vdst[vpos[p]] = einfo[3 * p + 1];
+    __syncthreads();
+  }
+  stamp(a.prof, 1);
+
+  // ---- the last slot's batch sums: g = gh, x̂ of h̃_{T−1} -----------------
   if (stateless) {
     const float* stl = st + (T - 1) * 3 * FP;
-    float* cpart_t = cpart + size_t((T - 1) & 1) * nchunks * 2 * FP;
-    for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
-      const int n = ch * kChunk + tid;
-      float v[2][FP];
-MPNN_UNROLL
-      for (int j = 0; j < FP; ++j) v[0][j] = v[1][j] = 0.f;
-      if (n < n_real) {
-        float g[FP], x[FP];
-        load_row(a.gh, n, f, g);
-        load_row(a.htil + size_t(T - 1) * slot_sz, n, f, x);
-        mpnn_train::xhat_of(stl, x, x);
-MPNN_UNROLL
-        for (int j = 0; j < FP; ++j) {
-          v[0][j] = g[j];
-          v[1][j] = g[j] * x[j];
-        }
-      }
-      block_feature_sums<2>(v, red, sums);
-      if (tid < 2 * FP) cpart_t[size_t(ch) * 2 * FP + tid] = sums[tid];
-      __syncthreads();
+    Ksum s1, s2, sx;
+    for (int i = q; i < nb; i += NG) {
+      const float g = state[size_t(i) * SS + kGh + j];
+      const float raw =
+          j < f ? __ldg(a.htil + size_t(T - 1) * slot_sz +
+                        size_t(n0 + i) * f + j)
+                : 0.f;
+      const float xh = (raw - stl[j]) * (1.0f / stl[2 * FP + j]);
+      s1.add(g);
+      s2.add(g * xh);
+      sx.add(j < f ? xh : 0.f);
     }
-    grid.sync();
-    chunk_totals<2>(cpart_t, 2 * FP, nchunks, red, cs);
+    state_partial(x, T - 1, s1, s2, sx);
   }
 
   // ---- the reverse chain, t = T−1..0 ---------------------------------------
-  const int kS = kChainSegs * f + 1;
+  const float* w = sm;
+  float dwh[3][kWReg ? FP : 1], dwi[3][kWReg ? FP : 1], own[kOwn];
+  float bhh_acc[3] = {0.f, 0.f, 0.f}, bih_acc[3] = {0.f, 0.f, 0.f};
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int k = 0; k < (kWReg ? FP : 1); ++k) dwh[g][k] = dwi[g][k] = 0.f;
+#pragma unroll
+  for (int i = 0; i < kOwn; ++i) own[i] = 0.f;
   for (int t = T - 1; t >= 0; --t) {
     const float* stt = st + t * 3 * FP;
-    const float* stp = st + max(t - 1, 0) * 3 * FP;
-    const bool next_sums = t > 0 && stateless;
+    const float* stp = st + (t > 0 ? t - 1 : 0) * 3 * FP;
     const int ms = min(t, Tm - 1);
     // slot ms is first reached at t = T−1 (the last slot) or t = ms
     const bool first = ms < Tm - 1 || t == T - 1;
-    float* cpart_t = cpart + size_t((t - 1) & 1) * nchunks * 2 * FP;
-    for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
-      const int n = ch * kChunk + tid;
-      float* row = xs + tid * kS;
-      float v[2][FP];
-MPNN_UNROLL
-      for (int j = 0; j < FP; ++j) v[0][j] = v[1][j] = 0.f;
-      if (n < n_real) {
-        float g[FP], dhp[FP], hprev[FP], mb[FP], ghn[FP], dmb[FP];
-        load_row(t == T - 1 ? a.gh : ghs, n, f, g);
-        if (stateless) {
-          float xh[FP];
-          load_row(a.htil + size_t(t) * slot_sz, n, f, xh);
-          mpnn_train::xhat_of(stt, xh, xh);
-MPNN_UNROLL
-          for (int j = 0; j < FP; ++j)
-            dhp[j] = (g[j] - cs[j] / c) / stt[2 * FP + j] -
-                     xh[j] * cs[FP + j] / (c * stt[FP + j]);
-        } else {
-MPNN_UNROLL
-          for (int j = 0; j < FP; ++j) dhp[j] = g[j];
-        }
-        if (t > 0) {
-          load_row(a.htil + size_t(t - 1) * slot_sz, n, f, hprev);
-          if (stateless) mpnn_train::xhat_of(stp, hprev, hprev);
-        } else {
-          load_row(a.h0, n, f, hprev);
-        }
-        load_row(a.msgs + size_t(ms) * slot_sz, n, f, mb);
-        gru_backward<NF>(dhp, hprev, mb, f, row, ghn, dmb);
-        float* dmr = dms + size_t(ms) * slot_sz;
-        if (!first) {
-          float prev[NF];
-          load_row<NF>(dmr, n, f, prev);
-MPNN_UNROLL
-          for (int j = 0; j < NF; ++j) dmb[j] += prev[j];
-        }
-        store_row<NF>(dmr, n, f, dmb);
-        store_row<NF>(t > 0 ? ghs : a.dh0, n, f, ghn);
-        if (next_sums) {
-MPNN_UNROLL
-          for (int j = 0; j < NF; ++j) {
-            v[0][j] = ghn[j];
-            v[1][j] = ghn[j] * hprev[j];
-          }
-        }
+    // the norm VJP of slot t as dhp = (g − S1/c)·rd − (x̂ − x̄)·cb; the mean
+    // S1/c in two floats (Mean2) taken out before the scaling, so that its
+    // rounding does not add up over a large batch in the next step's sums
+    float xbar = 0.f, cb = 0.f, rd = 1.f, meant = 0.f;
+    Mean2 m1;
+    if (stateless) {
+      __syncthreads();
+      combine_state(x, t);
+      // x̂'s batch mean x̄ taken out: S2 −= S1·x̄
+      xbar = j < f ? tot[2 * f + j] / x.c : 0.f;
+      __syncthreads();
+      if (tid < f) tot[f + tid] -= tot[tid] * (tot[2 * f + tid] / x.c);
+      __syncthreads();
+      const bool on = j < f;
+      rd = 1.0f / stt[2 * FP + j];
+      meant = stt[j];
+      if (on) m1 = Mean2(tot[j], x.c);
+      cb = on ? tot[f + j] / (x.c * stt[FP + j]) : 0.f;
+    }
+    stamp(a.prof, 2 + 2 * (T - 1 - t));
+    const float rdp = 1.0f / stp[2 * FP + j], meanp = stp[j];
+    const size_t mslot = size_t(ms) * slot_sz;
+    Ksum s1, s2, sx;
+    for (int i0 = 0; i0 < nb; i0 += NG) {
+      // warp-uniform rounds: a slot past the nodes runs on node 0 with
+      // ∂h = 0 and writes nothing
+      const int i = i0 + q;
+      const bool ok = i < nb;
+      const int ic = ok ? i : 0;
+      float* s = state + size_t(ic) * SS;
+      const size_t gi = size_t(n0 + ic) * f + j;
+      const bool in = j < f;
+      const float g = ok ? s[kGh + j] : 0.f;
+      float dhp = g;
+      if (stateless) {
+        const float raw = in ? __ldg(a.htil + size_t(t) * slot_sz + gi) : 0.f;
+        const float xh = (raw - meant) * rd;
+        dhp = ok ? m1.off_times(g, rd) - (xh - xbar) * cb : 0.f;
+      }
+      // the previous state (x̂ of h̃_{t−1}, h̃_{t−1} or h0), the messages
+      float hprev;
+      if (t > 0) {
+        const float raw =
+            in ? __ldg(a.htil + size_t(t - 1) * slot_sz + gi) : 0.f;
+        hprev = stateless ? (raw - meanp) * rdp : raw;
       } else {
-        for (int i = 0; i < kS; ++i) row[i] = 0.f;
+        hprev = s[kH0 + j];
       }
-      __syncthreads();
-      gru_grads(wrow, gl, xs, kS, f);
-      if (next_sums) {
-        block_feature_sums<2>(v, red, sums);
-        if (tid < 2 * FP) cpart_t[size_t(ch) * 2 * FP + tid] = sums[tid];
+      const float mb = in ? __ldg(a.msgs + mslot + gi) : 0.f;
+      const float* wv = w + opaque_zero();
+      float hb[kWReg ? FP : 1];
+      float gir = wv[PL::kBih + j], giz = wv[PL::kBih + FP + j],
+            gin = wv[PL::kBih + 2 * FP + j];
+      float ghr = wv[PL::kBhh + j], ghz = wv[PL::kBhh + FP + j],
+            ghn = wv[PL::kBhh + 2 * FP + j];
+#pragma unroll
+      for (int k = 0; k < FP; ++k) {
+        const float hk = gshfl(hprev, k);
+        if constexpr (kWReg) hb[k] = hk;
+        const float mk = gshfl(mb, k);
+        const float* wi = wv + PL::kWih + k * 3 * FP + j;
+        const float* wh = wv + PL::kWhh + k * 3 * FP + j;
+        gir = fmaf(mk, wi[0], gir);
+        giz = fmaf(mk, wi[FP], giz);
+        gin = fmaf(mk, wi[2 * FP], gin);
+        ghr = fmaf(hk, wh[0], ghr);
+        ghz = fmaf(hk, wh[FP], ghz);
+        ghn = fmaf(hk, wh[2 * FP], ghn);
       }
-      __syncthreads();
+      const float sr = sigmoidf_(gir + ghr);
+      const float sz = sigmoidf_(giz + ghz);
+      const float tn = tanhf(gin + sr * ghn);
+      const float dz = dhp * (hprev - tn);
+      const float da_n = dhp * (1.0f - sz) * (1.0f - tn * tn);
+      const float dnh = da_n * sr;
+      const float da_r = da_n * ghn * sr * (1.0f - sr);
+      const float da_z = dz * sz * (1.0f - sz);
+      bhh_acc[0] += da_r;
+      bhh_acc[1] += da_z;
+      bhh_acc[2] += dnh;
+      bih_acc[0] += da_r;
+      bih_acc[1] += da_z;
+      bih_acc[2] += da_n;
+      float p[FP];
+#pragma unroll
+      for (int k = 0; k < FP; ++k) {
+        if constexpr (kWReg) {
+          const float mk = gshfl(mb, k);
+          dwh[0][k] = fmaf(hb[k], da_r, dwh[0][k]);
+          dwh[1][k] = fmaf(hb[k], da_z, dwh[1][k]);
+          dwh[2][k] = fmaf(hb[k], dnh, dwh[2][k]);
+          dwi[0][k] = fmaf(mk, da_r, dwi[0][k]);
+          dwi[1][k] = fmaf(mk, da_z, dwi[1][k]);
+          dwi[2][k] = fmaf(mk, da_n, dwi[2][k]);
+        }
+        const float* wh = wv + PL::kWhh + k * 3 * FP + j;
+        float v = wh[0] * da_r;
+        v = fmaf(wh[FP], da_z, v);
+        v = fmaf(wh[2 * FP], dnh, v);
+        p[k] = v;
+      }
+      reduce_scatter<FP>(p, j);
+      const float gprev = fmaf(dhp, sz, p[0]);
+#pragma unroll
+      for (int k = 0; k < FP; ++k) {
+        const float* wi = wv + PL::kWih + k * 3 * FP + j;
+        float v = wi[0] * da_r;
+        v = fmaf(wi[FP], da_z, v);
+        v = fmaf(wi[2 * FP], da_n, v);
+        p[k] = v;
+      }
+      reduce_scatter<FP>(p, j);
+      const float dmb = p[0];
+      if constexpr (!kWReg) {
+        // this round's rows staged; the W_ih, W_hh, b_ih, b_hh elements
+        // a thread owns summed over the round's nodes in order
+        float* wr = sm + x.L2.wst + q * kWS;
+        wr[j] = mb;
+        wr[FP + j] = hprev;
+        wr[2 * FP + j] = da_r;
+        wr[3 * FP + j] = da_z;
+        wr[4 * FP + j] = da_n;
+        wr[5 * FP + j] = dnh;
+        __syncthreads();
+        const float* ws = sm + x.L2.wst;
+#pragma unroll
+        for (int u = 0; u < kOwn; ++u) {
+          const int e = tid + u * kBT;
+          if (e >= kGruEl) continue;
+          // the input column (−1: a bias) and the gate column of e
+          int cx = -1, cd;
+          if (e < 6 * FP * FP) {
+            const bool hh = e >= 3 * FP * FP;
+            const int ii = hh ? e - 3 * FP * FP : e;
+            const int k = ii / (3 * FP), cc = ii % (3 * FP);
+            cx = hh ? FP + k : k;
+            cd = hh && cc >= 2 * FP ? 5 * FP + cc - 2 * FP : 2 * FP + cc;
+          } else {
+            const bool hh = e >= 6 * FP * FP + 3 * FP;
+            const int cc = e - 6 * FP * FP - (hh ? 3 * FP : 0);
+            cd = hh && cc >= 2 * FP ? 5 * FP + cc - 2 * FP : 2 * FP + cc;
+          }
+          float acc = own[u];
+          if (cx >= 0) {
+            for (int r = 0; r < NG; ++r)
+              acc = fmaf(ws[r * kWS + cx], ws[r * kWS + cd], acc);
+          } else {
+            for (int r = 0; r < NG; ++r) acc += ws[r * kWS + cd];
+          }
+          own[u] = acc;
+        }
+        __syncthreads();
+      }
+      __syncwarp();
+      if (ok) {
+        float* dmr = s + kDm + ms * FP + j;
+        *dmr = first ? dmb : *dmr + dmb;
+        if (t > 0)
+          s[kGh + j] = gprev;
+        else
+          s[kD0 + j] = gprev;
+        if (stateless && t > 0) {
+          // the next slot's sums: g = ∂h_t, x̂ = hprev
+          s1.add(gprev);
+          s2.add(gprev * hprev);
+          sx.add(in ? hprev : 0.f);
+        }
+      }
     }
-    if (next_sums) {
-      grid.sync();
-      chunk_totals<2>(cpart_t, 2 * FP, nchunks, red, cs);
+    if (stateless && t > 0) state_partial(x, t - 1, s1, s2, sx);
+    stamp(a.prof, 3 + 2 * (T - 1 - t));
+  }
+  // A'_0 on its way to shared memory while the GRU rows and X_v are summed
+  if (aprime_staged(K)) stage_aprime(a, sm + x.L2.ap, 0, K, f);
+  // ∂W_hh, ∂W_ih, both biases into the row
+  if constexpr (kWReg) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g) {
+      groups_to<FP>(dwh[g], red, [&](int k, int jj, float v) {
+        if (k < f && jj < f) row[gl.whh + k * 3 * f + g * f + jj] = v;
+      });
+      groups_to<FP>(dwi[g], red, [&](int k, int jj, float v) {
+        if (k < f && jj < f) row[gl.wih + k * 3 * f + g * f + jj] = v;
+      });
+    }
+    float v[6] = {bhh_acc[0], bhh_acc[1], bhh_acc[2],
+                  bih_acc[0], bih_acc[1], bih_acc[2]};
+    groups_to<6>(v, red, [&](int i, int jj, float s) {
+      if (jj < f) row[(i < 3 ? gl.bhh : gl.bih) + (i % 3) * f + jj] = s;
+    });
+  } else {
+#pragma unroll
+    for (int u = 0; u < kOwn; ++u) {
+      const int e = tid + u * kBT;
+      if (e < 6 * FP * FP) {
+        const bool hh = e >= 3 * FP * FP;
+        const int ii = hh ? e - 3 * FP * FP : e;
+        const int k = ii / (3 * FP), g = (ii % (3 * FP)) / FP, jj = ii % FP;
+        if (k < f && jj < f)
+          row[(hh ? gl.whh : gl.wih) + k * 3 * f + g * f + jj] = own[u];
+      } else if (e < kGruEl) {
+        const bool hh = e >= 6 * FP * FP + 3 * FP;
+        const int cc = e - 6 * FP * FP - (hh ? 3 * FP : 0);
+        if (cc % FP < f)
+          row[(hh ? gl.bhh : gl.bih) + (cc / FP) * f + cc % FP] = own[u];
+      }
     }
   }
-  grid.sync();
+  stamp(a.prof, 40);
 
-  // ---- the message steps' VJP, one warp per graph ---------------------------
-  for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
-    const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
-    float S[NF], dS[NF];
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) S[j] = dS[j] = 0.f;
-    if (a.with_corr) {
-      for (int n = n0 + lane; n < n1; n += 32) {
-        float hn[NF];
-        load_row<NF>(a.h0, n, f, hn);
-MPNN_UNROLL
-        for (int j = 0; j < NF; ++j) S[j] += hn[j];
+  // ---- X_v = S_g − Σ_e h0[src] of each node (a group a graph, then a
+  // group a node over its in-edges in destination order) ------------------
+  if (corr) {
+    for (int g0 = x.lo; g0 < x.hi; g0 += NG) {
+      // warp-uniform rounds: a slot past the graphs sums no nodes
+      const int g = g0 + q;
+      const int v0 = g < x.hi ? __ldg(a.graph_node_ptr + g) - n0 : 0;
+      const int v1 = g < x.hi ? __ldg(a.graph_node_ptr + g + 1) - n0 : 0;
+      Ksum ks;
+      for (int v = v0; v < v1; ++v) ks.add(state[size_t(v) * SS + kH0 + j]);
+      // S_g = s − c, c (its rounding) parked in the node's dX slot
+      for (int v = v0; v < v1; ++v) {
+        state[size_t(v) * SS + kSg + j] = ks.s;
+        state[size_t(v) * SS + kDX + j] = ks.c;
       }
-MPNN_UNROLL
-      for (int j = 0; j < NF; ++j) S[j] = warp_sum(S[j]);
     }
-    for (int t = 0; t < Tm; ++t)
-      for (int n = n0 + lane; n < n1; n += 32)
-        node_backward<NF>(a, t, n, S, dms + size_t(t) * slot_sz,
-                          nrows + size_t(t) * N * kNodeSegs * f,
-                          erows + size_t(t) * E * kEdgeSegs * f, dhs, dS);
-MPNN_UNROLL
-    for (int j = 0; j < NF; ++j) dS[j] = warp_sum(dS[j]);
-    __syncwarp();                     // the lanes' source cotangents
-    for (int n = n0 + lane; n < n1; n += 32) {
-      float d[NF];
-      load_row_cg<NF>(a.dh0, n, f, d);
-MPNN_UNROLL
-      for (int j = 0; j < NF; ++j) d[j] += dS[j];
-      const int p1 = __ldg(a.src_ptr + n + 1);
-      for (int p = __ldg(a.src_ptr + n); p < p1; ++p) {
-        float u[NF];
-        load_row_cg<NF>(dhs, __ldg(a.src_order + p), f, u);
-MPNN_UNROLL
-        for (int j = 0; j < NF; ++j) d[j] += u[j];
-      }
-      store_row<NF>(a.dh0, n, f, d);
+    __syncthreads();
+    // X_v = fl(s − Σ_e h0[src]) + (its error − c), as the forward's
+    for (int v = q; v < nb; v += NG) {
+      float xs = 0.f;
+      for (int p = eptr[v]; p < eptr[v + 1]; ++p)
+        xs += state[size_t(einfo[3 * p]) * SS + kH0 + j];
+      float* sv = state + size_t(v) * SS;
+      float x = sv[kSg + j];
+      const float e = two_sum(x, -xs);
+      sv[kSg + j] = x + (e - sv[kDX + j]);
+      sv[kDX + j] = 0.f;
     }
-    __syncwarp();
   }
-  grid.sync();
+  __syncthreads();
 
-  // ---- the message tables' gradients into the block's row -----------------
-  const int ff = f * f;
+  // ---- the message VJP of each message step --------------------------------
+  const bool aps = aprime_staged(K);
   for (int t = 0; t < Tm; ++t) {
-    // per node: ∂A0_t = Σ dm ⊗ g0⊙X, ∂q0_t = Σ dz0, ∂Wh_t = Σ h0 ⊗ dzall
-    const int kSn = 5 * f + 1;                     // [dm | g0x | dz0 | h0 | dzall]
-    const float* nr = nrows + size_t(t) * N * kNodeSegs * f;
-    for (int ch = blockIdx.x; ch < nchunks; ch += gridDim.x) {
-      const int n = ch * kChunk + tid;
-      float* row = xs + tid * kSn;
-      if (n < n_real) {
-        for (int j = 0; j < f; ++j) {
-          row[j] = __ldcg(dms + size_t(t) * slot_sz + size_t(n) * f + j);
-          row[f + j] = __ldcg(nr + (size_t(n) * kNodeSegs + kG0x) * f + j);
-          row[2 * f + j] = __ldcg(nr + (size_t(n) * kNodeSegs + kDz0) * f + j);
-          row[3 * f + j] = a.h0[size_t(n) * f + j];
-          row[4 * f + j] =
-              __ldcg(nr + (size_t(n) * kNodeSegs + kDzall) * f + j);
-        }
-      } else {
-        for (int i = 0; i < kSn; ++i) row[i] = 0.f;
-      }
-      __syncthreads();
-      for (int i = tid; i < 2 * ff + f; i += kThreads) {
-        int cx = -1, cd, e;
-        if (i < ff) {                              // A0_t: dm ⊗ g0x
-          cx = i / f;
-          cd = f + i % f;
-          e = gl.a0 + t * ff + i;
-        } else if (i < ff + f) {                   // q0_t: Σ dz0
-          cd = 2 * f + (i - ff);
-          e = gl.q0 + t * f + (i - ff);
-        } else {                                   // Wh_t: h0 ⊗ dzall
-          const int ii = i - ff - f;
-          cx = 3 * f + ii / f;
-          cd = 4 * f + ii % f;
-          e = gl.wh + t * ff + ii;
-        }
-        float s = 0.f;
-        if (cx >= 0) {
-          for (int r = 0; r < kChunk; ++r)
-            s = fmaf(xs[r * kSn + cx], xs[r * kSn + cd], s);
-        } else {
-          for (int r = 0; r < kChunk; ++r) s += xs[r * kSn + cd];
-        }
-        wrow[e] += s;
-      }
-      __syncthreads();
-    }
-    // per edge: ∂A'_t[k] = Σ dm_dst ⊗ g, ∂qv_t[k] = Σ dz
-    const int kSe = 3 * f;                         // [dm_dst | g | dz]
-    const float* er = erows + size_t(t) * E * kEdgeSegs * f;
-    const int nech = (E + kChunk - 1) / kChunk;
-    for (int ec = blockIdx.x; ec < nech; ec += gridDim.x) {
-      const int e = ec * kChunk + tid;
-      float* row = xs + tid * kSe;
-      vids[tid] = -1;
-      if (e < E) {
-        const int d = __ldg(a.dst + e);
-        if (d < n_real) {
-          vids[tid] = __ldg(a.vid + e);
-          for (int j = 0; j < f; ++j) {
-            row[j] = __ldcg(dms + size_t(t) * slot_sz + size_t(d) * f + j);
-            row[f + j] = __ldcg(er + size_t(e) * kEdgeSegs * f + j);
-            row[2 * f + j] = __ldcg(er + size_t(e) * kEdgeSegs * f + f + j);
-          }
-        }
-      }
-      __syncthreads();
-      for (int i = tid; i < K * ff + K * f; i += kThreads) {
-        float s = 0.f;
-        int el;
-        if (i < K * ff) {                          // A'_t[k]: dm ⊗ g
-          const int k = i / ff, m = (i % ff) / f, j = i % f;
-          for (int r = 0; r < kChunk; ++r)
-            if (vids[r] == k) s = fmaf(xs[r * kSe + m], xs[r * kSe + f + j], s);
-          el = gl.a + t * K * ff + i;
-        } else {                                   // qv_t[k]: Σ dz
-          const int i0 = i - K * ff, k = i0 / f, j = i0 % f;
-          for (int r = 0; r < kChunk; ++r)
-            if (vids[r] == k) s += xs[r * kSe + 2 * f + j];
-          el = gl.qv + t * K * f + i0;
-        }
-        wrow[el] += s;
-      }
-      __syncthreads();
-    }
+    const float* wv = sm + SL::step(t, K);
+    const MsgStep ms{state, erow, eptr, einfo, vpos,
+                     sd::Tables{const_cast<float*>(wv) + AL::kWh,
+                                sm + x.L2.tab, const_cast<float*>(wv) + SL::kQv,
+                                sm + x.L2.tab + FP * FP, sm + x.L2.ap},
+                     a.w.aprime + size_t(t) * K * f * f, SS, f, nb, eb, t,
+                     corr, aps};
+    if (FP == 16 && f <= 8)
+      message_step<8>(x, ms, slist, vdst, seg);
+    else
+      message_step<FP>(x, ms, slist, vdst, seg);
+    stamp(a.prof, 41 + t);
   }
-  grid.sync();
 
-  // ---- reduce the block rows in block order ------------------------------
-  for (int e = blockIdx.x * kThreads + tid; e < NW;
-       e += gridDim.x * kThreads) {
-    float s = 0.f;
-    for (int b = 0; b < int(gridDim.x); ++b)
-      s += __ldcg(wpart + size_t(b) * NW + e);
-    a.dw[e] = s;
+  // ---- ∂h0: Σ_t dX over each graph into its nodes, then an element a
+  // thread, its out-edges' source cotangents less Σ_t dX of their
+  // destinations, in source order ---------------------------------------------
+  if (corr) {
+    for (int g0 = x.lo; g0 < x.hi; g0 += NG) {
+      const int g = g0 + q;
+      const int v0 = g < x.hi ? __ldg(a.graph_node_ptr + g) - n0 : 0;
+      const int v1 = g < x.hi ? __ldg(a.graph_node_ptr + g + 1) - n0 : 0;
+      Ksum ks;
+      for (int v = v0; v < v1; ++v) ks.add(state[size_t(v) * SS + kDX + j]);
+      for (int v = v0; v < v1; ++v) state[size_t(v) * SS + kD0 + j] += ks.s;
+    }
+    __syncthreads();
   }
+  for (int i = tid; i < nb * f; i += kBT) {
+    const int v = i / f, jj = i % f;
+    float acc = state[size_t(v) * SS + kD0 + jj];
+    for (int pq = sptr[v]; pq < sptr[v + 1]; ++pq) {
+      const int p = spos[pq];
+      acc += erow[size_t(p) * ES + kEd + jj];
+      if (corr) acc -= state[size_t(einfo[3 * p + 1]) * SS + kDX + jj];
+    }
+    a.dh0[size_t(n0) * f + i] = acc;
+  }
+  stamp(a.prof, 60);
 }
 
-// The instantiation that runs width f.
-const void* kernel_for(int f) {
-  if constexpr (FP <= 16)               // the narrow bucket's two builds
-    if (f <= 8) return (const void*)fused_att_steps_bwd_kernel<8>;
-  return (const void*)fused_att_steps_bwd_kernel<FP>;
+// The empty walk: the route's grid, staging of nothing, each round's
+// combine of zero partials and the final sum of a zero row.
+__device__ void floor_body(Ctx& x) {
+  cp_async_wait_all();
+  for (int e = threadIdx.x; e < x.gl.total; e += kBT) x.row[e] = 0.f;
+  for (int e = threadIdx.x; e < 3 * FP * x.T; e += kBT)
+    x.sm[x.L2.cpart + e] = 0.f;
+  __syncthreads();
+  if (x.a.stateless)
+    for (int t = x.T - 1; t >= 0; --t) {
+      combine_state(x, t);
+      __syncthreads();
+    }
+}
+
+__global__ void __launch_bounds__(kBT, 1)
+fused_att_steps_bwd_kernel(BwdArgs a) {
+  extern __shared__ float sm[];
+  const int tid = threadIdx.x;
+  const int nblocks = int(gridDim.x);
+  Ctx x{a, sm, Smem(a.tm, a.k_vocab, a.steps, a.ncap, a.ecap),
+        Sync{a.route, nblocks, int(blockIdx.x), 0ull, a.flags, a.counters,
+             a.flags == nullptr ? nullptr : a.flags + kFlagWords - 1},
+        AttsGradLayout(a.tm, a.k_vocab, a.f), nullptr,
+        a.steps, a.tm, a.k_vocab, a.f, (5 + a.tm) * FP,
+        0, 0, 0, 0, 0, 0, 0, 0, 0.f};
+  stamp(a.prof, 0);
+  const bool flagged = a.route == kRouteGrid && nblocks > 1;
+  if (flagged && tid == 0)
+    reinterpret_cast<unsigned long long*>(sm + x.L2.misc)[0] =
+        ld_flag(x.y.last) + 1;
+  // the weights staged asynchronously; waited for with the node tile
+  stage_atts_weights(sm, a.w, a.f, a.k_vocab, a.tm,
+                     [](float* d, bool in, const float* s) {
+                       if (in)
+                         cp_async4(d, s);
+                       else
+                         *d = 0.f;
+                     });
+  const int T = a.steps;
+  float* st = sm + SL::stats(a.tm, a.k_vocab);
+  if (a.stateless)
+    for (int i = tid; i < T * FP; i += kBT) {
+      const int s = i / FP, jj = i % FP;
+      const float mean = jj < a.f ? a.stats[(size_t(s) * 2) * a.f + jj] : 0.f;
+      const float var =
+          jj < a.f ? a.stats[(size_t(s) * 2 + 1) * a.f + jj] : 0.f;
+      set_slot(st + s * 3 * FP, jj, mean, var, true);
+    }
+  __syncthreads();
+  if (flagged)
+    x.y.tag = reinterpret_cast<unsigned long long*>(sm + x.L2.misc)[0];
+  x.n_real = __ldg(a.graph_node_ptr + a.n_graphs);
+  x.c = float(x.n_real);
+  // this block's graphs and nodes, balanced by node count
+  {
+    int* slot = reinterpret_cast<int*>(sm + x.L2.red);
+    first_graphs_at(a, split_at(x.n_real, nblocks, x.y.b),
+                    x.y.b + 1 == nblocks
+                        ? x.n_real + 1
+                        : split_at(x.n_real, nblocks, x.y.b + 1),
+                    slot, x.lo, x.hi);
+    x.n0 = __ldg(a.graph_node_ptr + x.lo);
+    const int n1 = __ldg(a.graph_node_ptr + x.hi);
+    x.nb = n1 - x.n0;
+    x.e0 = __ldg(a.dst_ptr + x.n0);
+    x.eb = __ldg(a.dst_ptr + n1) - x.e0;
+    x.s0 = __ldg(a.src_ptr + x.n0);
+  }
+  // padded node slots: ∂h0 = 0
+  for (size_t i = size_t(blockIdx.x) * kBT + tid;
+       i < size_t(a.n_nodes - x.n_real) * a.f; i += size_t(gridDim.x) * kBT)
+    a.dh0[size_t(x.n_real) * a.f + i] = 0.f;
+  const bool alone = nblocks == 1;
+  const Scratch sc(a.n_nodes, a.n_edges, a.k_vocab, a.f, T, a.tm, nblocks);
+  const int NW = x.gl.total;
+  x.row = alone ? a.dw : a.scratch + sc.rows + size_t(x.y.b) * NW;
+  if (a.floor)
+    floor_body(x);
+  else if (x.nb <= a.ncap && x.eb <= a.ecap)
+    body<true>(x);
+  else
+    body<false>(x);
+  if (alone) {
+  } else if (a.route == kRouteCluster) {
+    final_sum_cluster(x.y, a.dw, a.scratch + sc.rows, NW, NW);
+  } else {
+    final_sum_grid(x.y, a.dw, a.scratch + sc.rows, NW, NW,
+                   a.scratch + sc.gparts);
+  }
+  stamp(a.prof, kProfSlots - 1);
+}
+
+// Launch on `route`: one cluster of `grid` blocks, or `grid` blocks in a
+// plain launch. The grid route's blocks wait on each other's flags, so it
+// refuses (cudaErrorCooperativeLaunchTooLarge) a grid past the blocks
+// that fit the card together at this launch's shared memory; it also
+// needs the card to itself (a kernel on another stream holding SMs could
+// keep a block from starting while the others wait).
+int launch(const BwdArgs& a, int grid, size_t bytes, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_att_steps_bwd_kernel,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
+  if (err != cudaSuccess) return int(err);
+  if (a.route == kRouteGrid && grid > 1) {
+    // the occupancy query once per shared-memory size
+    static int seen_bytes = -1, most = 0;
+    if (int(bytes) != seen_bytes) {
+      most = max_grid(fused_att_steps_bwd_kernel, int(bytes));
+      seen_bytes = int(bytes);
+    }
+    if (grid > most) return int(cudaErrorCooperativeLaunchTooLarge);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(kBT);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = grid;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = a.route == kRouteCluster && grid > 1 ? 1 : 0;
+  err = cudaLaunchKernelEx(&cfg, fused_att_steps_bwd_kernel, a);
+  if (err != cudaSuccess) return int(err);
+  return int(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
+// Dynamic shared memory of one block at node capacity ncap and edge
+// capacity ecap, in bytes (kernels/fused_att_steps.py::bwd_smem_floats
+// mirrors it).
 int mpnn_fused_att_steps_bwd_smem_bytes(int tm, int k_vocab, int steps,
-                                        int f) {
-  return int(sizeof(float) * bwd_smem_floats(tm, k_vocab, steps, f));
+                                        int ncap, int ecap) {
+  return int(smem_bytes(tm, k_vocab, steps, ncap, ecap));
 }
 
 // The 10 offsets of the flat gradient layout (AttsGradLayout), total last.
@@ -645,40 +1171,57 @@ long long mpnn_fused_att_steps_bwd_scratch_floats(int n_nodes, int n_edges,
                                                   int k_vocab, int f,
                                                   int steps, int tm,
                                                   int grid) {
-  return bwd_scratch_floats(n_nodes, n_edges, k_vocab, f, steps, tm, grid);
+  return (long long)Scratch(n_nodes, n_edges, k_vocab, f, steps, tm, grid)
+      .total;
 }
 
-int mpnn_fused_att_steps_bwd_grid(int f, int tm, int k_vocab, int steps,
-                                  int n_nodes, int n_graphs, int n_edges) {
-  const int need = max(max((n_nodes + kChunk - 1) / kChunk,
-                           (n_graphs + kWarps - 1) / kWarps),
-                       (n_edges + kChunk - 1) / kChunk);
-  return mpnn_psteps::coop_grid(
-      kernel_for(f), sizeof(float) * bwd_smem_floats(tm, k_vocab, steps, f),
-      need);
+// The flag and counter words of the grid route (one buffer each per
+// stream, zeroed once): u64 flags, int counters.
+int mpnn_fused_att_steps_bwd_sync_words(int* counters) {
+  *counters = kMaxGroups + 1;
+  return kFlagWords;
 }
 
+// The co-resident blocks at this shared memory, capped at kMaxGrid; 0 on
+// error.
+int mpnn_fused_att_steps_bwd_max_grid(int bytes) {
+  return max_grid(fused_att_steps_bwd_kernel, bytes);
+}
+
+// Launches on `stream` and returns the launch's error code (0 = success).
+// route 0: one cluster of `grid` blocks (1, 2, 4 or 8); route 1: `grid`
+// co-resident blocks with `flags` and `counters`. ncap, ecap: the node and
+// edge capacity of a block's shared memory. floor != 0 launches the empty
+// walk (the same grid, combines and final sum; dw gets zeros). prof: null
+// or kProfSlots int64 clock64 stamps of block 0.
 int mpnn_fused_att_steps_bwd(
     const float* aprime, const float* a0, const float* qv, const float* q0,
     const float* wh, const float* w_ih, const float* w_hh, const float* b_ih,
     const float* b_hh, const float* h0, const float* msgs, const float* htil,
     const float* stats, const float* gh, const int* vid, const int* src,
     const int* dst, const int* edge_order, const int* dst_ptr,
-    const int* src_order, const int* src_ptr, const int* graph_node_ptr,
-    float* dh0, float* dw, float* scratch, int n_nodes, int n_graphs,
-    int n_edges, int f, int k_vocab, int steps, int tm, int with_corr,
-    int stateless, int grid, void* stream) {
+    const int* src_pos, const int* src_ptr, const int* graph_node_ptr,
+    float* dh0, float* dw, float* scratch, unsigned long long* flags,
+    int* counters, long long* prof, int n_nodes, int n_graphs, int n_edges,
+    int f, int k_vocab, int steps, int tm, int with_corr, int stateless,
+    int route, int grid, int ncap, int ecap, int floor, void* stream) {
   if (f < 1 || f > FP || k_vocab < 1 || k_vocab > kMaxVocab || steps < 1 ||
       steps > kMaxSteps || (tm != steps && tm != 1) || n_graphs < 1 ||
-      grid < 1)
+      grid < 1 || ncap < 1 || ecap < 0 ||
+      (route == kRouteCluster &&
+       (grid != 1 && grid != 2 && grid != 4 && grid != 8)) ||
+      (route == kRouteGrid &&
+       (grid > kMaxGrid || (grid > 1 && (!flags || !counters)))) ||
+      (route != kRouteCluster && route != kRouteGrid))
     return int(cudaErrorInvalidValue);
   BwdArgs a{{aprime, a0, qv, q0, wh, w_ih, w_hh, b_ih, b_hh},
             h0, msgs, htil, stats, gh, vid, src, dst, edge_order, dst_ptr,
-            src_order, src_ptr, graph_node_ptr, dh0, dw, scratch, n_nodes,
-            n_graphs, n_edges, f, k_vocab, steps, tm, with_corr, stateless};
-  return mpnn_psteps::coop_launch(
-      kernel_for(f), a, sizeof(float) * bwd_smem_floats(tm, k_vocab, steps, f),
-      grid, stream);
+            src_pos, src_ptr, graph_node_ptr, dh0, dw, scratch,
+            route == kRouteGrid ? flags : nullptr,
+            route == kRouteGrid ? counters : nullptr, prof, n_nodes,
+            n_graphs, n_edges, f, k_vocab, steps, tm, with_corr, stateless,
+            route, ncap, ecap, floor};
+  return launch(a, grid, smem_bytes(tm, k_vocab, steps, ncap, ecap), stream);
 }
 
 const char* mpnn_cuda_error_string(int err) {

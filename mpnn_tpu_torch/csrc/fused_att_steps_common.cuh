@@ -36,6 +36,16 @@ namespace cg = cooperative_groups;
 constexpr int kMaxSteps = 8;
 constexpr int kMaxVocab = 64;
 
+// s ← fl(s + b); returns s + b − fl(s + b) exactly (Knuth's two-sum). The
+// 'att' correction's graph sums S_g are carried as S + lo with it: S_g's
+// rounding, common to a graph's nodes, would add up in the backward's sums
+// over a large graph.
+__device__ __forceinline__ float two_sum(float& s, float b) {
+  const float a = s, t = a + b, bb = t - a;
+  s = t;
+  return (a - (t - bb)) + (b - bb);
+}
+
 struct AttsWeights {
   const float* aprime;  // (Tm, K, f, f): msg[m] = Σ_n aprime[t][k][m][n]·g[n]
   const float* a0;      // (Tm, f, f) the non-edge matrices
@@ -68,37 +78,48 @@ struct SL {
   }
 };
 
+// The weights into shared memory, zero-padded: put(d, in, s) stores *s
+// (in) or 0 at d — a plain copy, or an asynchronous one the caller waits
+// for.
+template <class Put>
 __device__ void stage_atts_weights(float* sm, const AttsWeights& w, int f,
-                                   int k_vocab, int tm) {
+                                   int k_vocab, int tm, Put put) {
   const int tid = threadIdx.x, nt = blockDim.x;
   for (int i = tid; i < FP * 3 * FP; i += nt) {
     const int r = i / (3 * FP), gc = i % (3 * FP), g = gc / FP, c = gc % FP;
     const bool in = r < f && c < f;
-    sm[PL::kWih + i] = in ? w.w_ih[r * 3 * f + g * f + c] : 0.f;
-    sm[PL::kWhh + i] = in ? w.w_hh[r * 3 * f + g * f + c] : 0.f;
+    put(sm + PL::kWih + i, in, w.w_ih + r * 3 * f + g * f + c);
+    put(sm + PL::kWhh + i, in, w.w_hh + r * 3 * f + g * f + c);
   }
   for (int i = tid; i < 3 * FP; i += nt) {
     const int g = i / FP, c = i % FP;
-    sm[PL::kBih + i] = c < f ? w.b_ih[g * f + c] : 0.f;
-    sm[PL::kBhh + i] = c < f ? w.b_hh[g * f + c] : 0.f;
+    put(sm + PL::kBih + i, c < f, w.b_ih + g * f + c);
+    put(sm + PL::kBhh + i, c < f, w.b_hh + g * f + c);
   }
   const int per = SL::per(k_vocab);
   for (int i = tid; i < tm * per; i += nt) {
     const int t = i / per, o = i % per;
-    float v = 0.f;
+    float* d = sm + SL::kSteps + i;
     if (o < AL::kQ0) {                               // A0_t, then Wh_t
       const int oo = o % (FP * FP), r = oo / FP, c = oo % FP;
       const float* src = o < AL::kWh ? w.a0 : w.wh;
-      if (r < f && c < f) v = src[(t * f + r) * f + c];
+      put(d, r < f && c < f, src + (t * f + r) * f + c);
     } else if (o < SL::kQv) {                        // q0_t
       const int j = o - AL::kQ0;
-      if (j < f) v = w.q0[t * f + j];
+      put(d, j < f, w.q0 + t * f + j);
     } else {                                         // qv_t[k]
       const int k = (o - SL::kQv) / FP, j = (o - SL::kQv) % FP;
-      if (j < f) v = w.qv[(t * k_vocab + k) * f + j];
+      put(d, j < f, w.qv + (t * k_vocab + k) * f + j);
     }
-    sm[SL::kSteps + i] = v;
   }
+}
+
+__device__ void stage_atts_weights(float* sm, const AttsWeights& w, int f,
+                                   int k_vocab, int tm) {
+  stage_atts_weights(sm, w, f, k_vocab, tm,
+                     [](float* d, bool in, const float* s) {
+                       *d = in ? *s : 0.f;
+                     });
 }
 
 // acc[m] += Σ_n A[m][n]·v[n] for an (f, f) matrix in device memory.

@@ -57,6 +57,7 @@ using mpnn_psteps::kPartStride;
 using mpnn_psteps::kStage;
 using mpnn_train::load_row;
 using mpnn_train::load_row_cg;
+using mpnn_train::kFull;
 using mpnn_train::opaque_zero;
 using mpnn_train::store_row;
 using mpnn_train::warp_sum;
@@ -124,18 +125,32 @@ fused_att_steps_fwd_kernel(FwdArgs a) {
   // ---- phase M: the Tm message slots, one warp per graph ----------------
   for (int g = blockIdx.x * kWarps + warp; g < G; g += gridDim.x * kWarps) {
     const int n0 = a.graph_node_ptr[g], n1 = a.graph_node_ptr[g + 1];
+    // S_g as the unevaluated sum S + lo (two_sum; lo in `red`, a row a
+    // warp), X_v = S_g − Σ_e h0[u] as fl(S − Σ) + (its error + lo)
     float S[NF];
+    float* lo = red + warp * FP;
 MPNN_UNROLL
     for (int j = 0; j < NF; ++j) S[j] = 0.f;
     if (a.with_corr) {
+      float L[NF];
+MPNN_UNROLL
+      for (int j = 0; j < NF; ++j) L[j] = 0.f;
       for (int n = n0 + lane; n < n1; n += 32) {
         float hn[NF];
         load_row<NF>(a.h0, n, f, hn);
 MPNN_UNROLL
-        for (int j = 0; j < NF; ++j) S[j] += hn[j];
+        for (int j = 0; j < NF; ++j) L[j] += two_sum(S[j], hn[j]);
       }
 MPNN_UNROLL
-      for (int j = 0; j < NF; ++j) S[j] = warp_sum(S[j]);
+      for (int j = 0; j < NF; ++j)
+        for (int off = 16; off > 0; off >>= 1) {
+          const float ol = __shfl_xor_sync(kFull, L[j], off);
+          L[j] += ol + two_sum(S[j], __shfl_xor_sync(kFull, S[j], off));
+        }
+      if (lane == 0)
+MPNN_UNROLL
+        for (int j = 0; j < NF; ++j) lo[j] = L[j];
+      __syncwarp();
     }
     for (int n = n0 + lane; n < n1; n += 32) {
       float h0n[NF];
@@ -165,7 +180,11 @@ MPNN_UNROLL
           float g0[NF];
           feat_softmax<NF>(zh, blk + AL::kQ0, f, g0);
 MPNN_UNROLL
-          for (int j = 0; j < NF; ++j) g0[j] *= S[j] - xsum[j];
+          for (int j = 0; j < NF; ++j) {
+            float x = S[j];
+            const float e = two_sum(x, -xsum[j]);
+            g0[j] *= x + (e + lo[j]);
+          }
           matvec_add<NF>(blk + AL::kA0, g0, acc);
         }
         store_row<NF>(a.msgs + size_t(t) * slot_sz, n, f, acc);

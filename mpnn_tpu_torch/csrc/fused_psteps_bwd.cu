@@ -774,12 +774,14 @@ __device__ void body(Ctx& x) {
     const float* stm = st + t * 3 * FP;            // message slot t
     const float* wst = w + PL::step(t);
     const float* wsp = w + PL::step(t > 0 ? t - 1 : 0);
-    // the norm VJP of slot T + t as dhp = ∂h·dxw·rd − ca − x̂·cb: the
-    // reciprocals once a step
+    // the norm VJP of slot T + t as dhp = (∂h·dxw − S1/c)·rd − x̂·cb: the
+    // reciprocals once a step; the mean S1/c in two floats (Mean2), taken
+    // out of each node's dx̂ before the scaling, so that its rounding does
+    // not add up over the batch in the next step's sums.
     const float dxw = smode == kBatchBn ? wst[PL::oBnW + j] : 1.f;
     const float rd = 1.0f / stt[2 * FP + j];
     const bool on = state_stats && j < f;
-    const float ca = on ? tot[j] / x.c * rd : 0.f;
+    const Mean2 m1 = on ? Mean2(tot[j], x.c) : Mean2();
     const float cb = on ? tot[f + j] / (x.c * stt[FP + j]) : 0.f;
     const float rdp = 1.0f / stp[2 * FP + j], meanp = stp[j];
     const float bnwp = wsp[PL::oBnW + j], bnbp = wsp[PL::oBnB + j];
@@ -796,7 +798,7 @@ __device__ void body(Ctx& x) {
       const float gh = s[kGh + j];
       const float dhp =
           !ok ? 0.f
-          : state_stats ? fmaf(gh * dxw, rd, -ca) - (s[kXh + j] - xbar) * cb
+          : state_stats ? m1.off_times(gh * dxw, rd) - (s[kXh + j] - xbar) * cb
                         : gh;
       // the previous state, the step's normalized messages
       float hprev, xhp = 0.f;
@@ -986,6 +988,7 @@ __device__ void body(Ctx& x) {
       const float S2 = j < f ? tot[t * 3 * f + f + j] : 0.f;
       const float rdm = 1.0f / stm[2 * FP + j];
       const float cb = S2 / (x.c * stm[FP + j]);
+      const Mean2 m1(S1, x.c);                       // as the state norm's
       for (int i = q; i < nb; i += NG) {
         float* s = state + size_t(i) * SS;
         const float mraw =
@@ -994,7 +997,7 @@ __device__ void body(Ctx& x) {
                   : 0.f;
         const float xm = (mraw - stm[j]) * rdm - xbar;
         s[kDm + t * FP + j] =
-            (s[kDm + t * FP + j] * maw - S1 / x.c) * rdm - xm * cb;
+            m1.off_times(s[kDm + t * FP + j] * maw, rdm) - xm * cb;
       }
     }
   } else {

@@ -1,7 +1,7 @@
 // The whole-step FORWARD body of the shared-weight edge-network MPNN,
 // shared by the training forward (fused_step_fwd.cu, kTrain = true) and the
-// serving kernel of the stateless state norm (fused_eval.cu, kTrain =
-// false):
+// two serving kernels (fused_eval.cu, kTrain = false: the stateless state
+// norm's, and the folded norms' on the free route):
 //
 //   m_d   = Σ_{e: dst_e = d} A[vid_e]·h0[src_e] + A0·S_g + mbias   (slot 0)
 //   mb    = msg_norm(m)        (bn1d on the batch statistics of slot 0, a
@@ -13,7 +13,8 @@
 //
 // state_norm is bn1d on the batch statistics of each step, w·(x − mean)/
 // (sqrt(max(var, 1e-12)) + 1e-5) + b, the STATELESS norm on them, (x −
-// mean)/sqrt(var + 1e-6) with no affine and no running state, or none.
+// mean)/sqrt(var + 1e-6) with no affine and no running state, a folded
+// affine w·x + b at serving time, or none.
 // Training writes each slot's (mean, biased var) (the running EMAs read
 // the bn1d ones) and the residual stash htil (T+1, N, f): slot 0 the
 // masked messages, slot t the pre-norm state of step t, padded node slots
@@ -54,6 +55,10 @@
 //     and sums them in block order. The last block to finish (one more
 //     counter) sums the loss in graph order and sets every counter back
 //     to zero: no memset before the launch.
+//   * free (serving with folded norms: no statistics, no loss): any number
+//     of blocks in a plain launch; nothing crosses blocks, so there is no
+//     cluster, no flag and no counter, and blocks past the co-resident
+//     ones simply run in a later wave.
 //   Without a norm on batch statistics no slot crosses blocks at all.
 //
 // Numerics: float32 FMA only; every cross-thread sum runs in a fixed
@@ -93,7 +98,7 @@ constexpr int kRed = 2 * kFT;
 static_assert(ODP <= 4 * FP, "a node's gated row fits its gi and x");
 static_assert(QO * GS >= ODP, "a lane's outputs cover od");
 
-enum Route { kRouteCluster = 0, kRouteGrid = 1 };
+enum Route { kRouteCluster = 0, kRouteGrid = 1, kRouteFree = 2 };
 
 struct FwdArgs {
   Weights w;                // ma_w/ma_b: the folded affine in kAffine mode
@@ -113,7 +118,8 @@ struct FwdArgs {
   int* counters;            // grid route: kCounters, zero between launches
   long long* prof;          // null, or kProfSlots clock64 stamps (block 0)
   // msg_mode in {kNone, kBatchBn (training), kAffine (serving)};
-  // state_mode in {kNone, kBatchBn (training), kStateless}
+  // state_mode in {kNone, kBatchBn (training), kAffine (serving: bn_w,
+  // bn_b the folded affine), kStateless}
   int n_nodes, n_graphs, n_edges, f, od, k_vocab, steps, msg_mode,
       state_mode;
   int route, cluster, ncap, ecap, floor;
@@ -663,8 +669,9 @@ __device__ void body(Ctx& x) {
           gr[u] = s[u][kGi + j];
           gz[u] = s[u][kGi + FP + j];
           gn[u] = s[u][kGi + 2 * FP + j];
-          hprev[u] = state_stats ? bnw * ((raw[u] - meanp) / dp) + bnb
-                                 : raw[u];
+          hprev[u] = state_stats     ? bnw * ((raw[u] - meanp) / dp) + bnb
+                     : smode == kAffine ? fmaf(bnw, raw[u], bnb)
+                                        : raw[u];
         }
       }
       float ghr[U], ghz[U], ghn[U];
@@ -738,7 +745,9 @@ __device__ void body(Ctx& x) {
         ok[u] = i < nb;
         s[u] = ok[u] ? state + size_t(i) * SS : u > 0 ? s[0] : state;
         const float raw = s[u][kX + j];
-        h[u] = state_stats ? bnw * ((raw - meanT) / dT) + bnb : raw;
+        h[u] = state_stats     ? bnw * ((raw - meanT) / dT) + bnb
+               : smode == kAffine ? fmaf(bnw, raw, bnb)
+                                  : raw;
         h0v[u] = s[u][kH0 + j];
 #pragma unroll
         for (int v = 0; v < QO; ++v) {
@@ -872,10 +881,12 @@ __device__ void loss_sum(Ctx& x) {
 // The route's end: the loss (training) by the last block of the grid (an
 // integer counter), cluster rank 0 or the one block; the grid's last block
 // sets every counter back to zero (every block has passed every slot).
+// The free route has nothing to finish.
 template <bool kTrain>
 __device__ void finish(Ctx& x) {
   const FwdArgs& a = x.a;
   const int tid = threadIdx.x;
+  if (a.route == kRouteFree) return;
   __threadfence();
   if (a.route == kRouteCluster && a.cluster > 1) {
     // also keeps every block's shared memory alive until its peers have
@@ -898,13 +909,20 @@ __device__ void finish(Ctx& x) {
   if (kTrain) loss_sum(x);
 }
 
+// The partial rows a block stages for a slot's combine: one a block of
+// the launch; none cross blocks on the free route.
+__host__ __device__ inline int staged_rows(int route, int nblocks) {
+  return route == kRouteFree ? 1 : nblocks;
+}
+
 template <bool kTrain>
 __device__ void step_forward(const FwdArgs& a) {
   extern __shared__ float sm[];
   const int tid = threadIdx.x;
   const int nblocks = a.route == kRouteCluster ? a.cluster : int(gridDim.x);
   Ctx x{a, sm, a.steps, a.f, a.od, int(blockIdx.x), nblocks, 0, 0, 0, 0, 0,
-        0, 0, Smem(a.k_vocab, a.steps, a.ncap, a.ecap, nblocks)};
+        0, 0, Smem(a.k_vocab, a.steps, a.ncap, a.ecap,
+             staged_rows(a.route, nblocks))};
   stamp(a, 0);
   if (!a.floor)
     stage_weights_async(sm, a.w, a.f, a.od, a.k_vocab,
@@ -980,18 +998,22 @@ inline int check_route(const FwdArgs& a, int grid) {
        (grid != 1 && grid != 2 && grid != 4 && grid != 8)) ||
       (a.route == kRouteGrid &&
        (grid > kMaxGrid || (grid > 1 && !a.counters))) ||
-      (a.route != kRouteCluster && a.route != kRouteGrid))
+      (a.route == kRouteFree &&
+       (has_stats(a.msg_mode) || has_stats(a.state_mode) || a.loss)) ||
+      (a.route != kRouteCluster && a.route != kRouteGrid &&
+       a.route != kRouteFree))
     return int(cudaErrorInvalidValue);
   return 0;
 }
 
-// Launch `kernel` on `stream`: one cluster of `grid` blocks, or `grid`
-// co-resident blocks (a cooperative launch, for co-residency only).
-// Returns the launch's error code (0 = success). Does not synchronize.
+// Launch `kernel` on `stream`: one cluster of `grid` blocks, `grid`
+// co-resident blocks (a cooperative launch, for co-residency only), or on
+// the free route `grid` blocks in a plain launch. Returns the launch's
+// error code (0 = success). Does not synchronize.
 template <typename K>
 int launch_forward(K kernel, FwdArgs a, int grid, void* stream) {
-  const size_t bytes =
-      fwd_smem_bytes(a.k_vocab, a.steps, a.ncap, a.ecap, grid);
+  const size_t bytes = fwd_smem_bytes(a.k_vocab, a.steps, a.ncap, a.ecap,
+                                      staged_rows(a.route, grid));
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(bytes));
   if (err != cudaSuccess) return int(err);
@@ -1012,7 +1034,7 @@ int launch_forward(K kernel, FwdArgs a, int grid, void* stream) {
     attr[0].val.clusterDim.y = 1;
     attr[0].val.clusterDim.z = 1;
     cfg.attrs = attr;
-    cfg.numAttrs = grid > 1 ? 1 : 0;
+    cfg.numAttrs = a.route == kRouteCluster && grid > 1 ? 1 : 0;
     err = cudaLaunchKernelEx(&cfg, kernel, a);
   }
   if (err != cudaSuccess) return int(err);

@@ -146,25 +146,27 @@ __device__ __forceinline__ void reduce_scatter(float* p, int j) {
   }
 }
 
-// Per-lane vectors v[LEN] of every group summed over the block's groups
-// in order (at FP 16 the two groups of a warp first), into
-// out(idx, j) for idx < LEN, j < FP. Every thread calls it; `red` holds
-// kRed floats.
-template <int LEN, class Out>
+// Per-lane vectors v[LEN] of every group of G lanes (by default a node's
+// GS) summed over the block's groups in order (a warp's groups first, by
+// xor shuffles), into out(idx, j) for idx < LEN, j < G. Every thread calls
+// it; `red` holds kRed floats.
+template <int LEN, int G = GS, class Out>
 __device__ void groups_to(const float (&v)[LEN], float* red, Out out) {
-  static_assert(LEN * FP * kWB <= kRed, "red holds a warp's row");
+  static_assert(LEN * G * kWB <= kRed, "red holds a warp's row");
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 #pragma unroll
   for (int i = 0; i < LEN; ++i) {
     float s = v[i];
-    if constexpr (GS < 32) s += __shfl_xor_sync(kFull, s, 16);
-    if (lane < FP) red[(warp * LEN + i) * FP + lane] = s;
+#pragma unroll
+    for (int off = 16; off >= G; off >>= 1)
+      s += __shfl_xor_sync(kFull, s, off);
+    if (lane < G) red[(warp * LEN + i) * G + lane] = s;
   }
   __syncthreads();
-  for (int e = threadIdx.x; e < LEN * FP; e += kBT) {
+  for (int e = threadIdx.x; e < LEN * G; e += kBT) {
     float s = 0.f;
-    for (int w = 0; w < kWB; ++w) s += red[w * LEN * FP + e];
-    out(e / FP, e % FP, s);
+    for (int w = 0; w < kWB; ++w) s += red[w * LEN * G + e];
+    out(e / G, e % G, s);
   }
   __syncthreads();
 }
@@ -178,6 +180,25 @@ struct Ksum {
     const float t = s + y;
     c = (t - s) - y;
     s = t;
+  }
+};
+
+// A batch mean s/c as the unevaluated sum hi + lo of two floats (lo the
+// rounding of hi, from the division's exact residual). A node's x − hi −
+// lo rounds relative to the node's own value; x − fl(s/c) would carry
+// fl's rounding, common to every node, into a sum over the batch, where
+// it adds up (a large graph's cotangents share a large offset).
+struct Mean2 {
+  float hi = 0.f, lo = 0.f;
+  __device__ Mean2() {}
+  __device__ Mean2(float s, float c) : hi(s / c), lo(fmaf(-hi, c, s) / c) {}
+  // (x − s/c)·r: x − hi exactly as d + e (Knuth's two-sum), then one
+  // rounding of d·r + (e − lo)·r
+  __device__ __forceinline__ float off_times(float x, float r) const {
+    const float d = x - hi;
+    const float xv = d + hi, bv = d - xv;
+    const float e = (x - xv) + (-hi - bv);
+    return fmaf(d, r, (e - lo) * r);
   }
 };
 

@@ -15,15 +15,17 @@ rank-1 non-edge correction A0_t·(g0 ⊙ (S_g − Σ_e h0[src]))):
                 h = mask_batch_norm(h)    (the stateless norm, or none)
 
 `fused_att_steps` is a torch.autograd.Function whose forward and backward
-are one cooperative CUDA launch each (csrc/fused_att_steps_fwd.cu,
-csrc/fused_att_steps_bwd.cu). The stateless norm has no parameters and no
-running state, so serving and training share the forward; the training
-forward also writes the residuals the backward reads (the Tm message
-slots, the T pre-norm states, each step's mean and var), which serving
-skips. CPU tensors run the plain version fused_att_steps_reference (under
+are one CUDA launch each (csrc/fused_att_steps_fwd.cu, a cooperative
+launch; csrc/fused_att_steps_bwd.cu, on the route of launch_shape: one
+thread-block cluster or a grid of co-resident blocks, no grid barrier).
+The stateless norm has no parameters and no running state, so serving
+and training share the forward; the training forward also writes the
+residuals the backward reads (the Tm message slots, the T pre-norm
+states, each step's mean and var), which serving skips. CPU tensors run the plain version fused_att_steps_reference (under
 autograd); CUDA tensors launch the kernels or raise — no fallback. The
 index plan is graphs/batching.py::plan_fused_eval's; the backward's source
-order is built on the device (kernels/fused_step.py::source_order).
+order (each edge's position in the destination order, sorted by source) is
+built on the device (kernels/fused_step.py::source_order).
 """
 
 from __future__ import annotations
@@ -50,11 +52,15 @@ STATE_NORMS = ("stateless", "none")
 
 launch_counts: Dict[str, int] = {"fused_att_steps_fwd": 0,
                                  "fused_att_steps_bwd": 0}
+# the empty backward's launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"fused_att_steps_bwd_floor": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in floor_counts:
+        floor_counts[k] = 0
 
 
 def _check_shape(who: str, tm: int, steps: int, state_norm: str) -> None:
@@ -107,12 +113,13 @@ _SIGNATURES = {
         "mpnn_fused_att_steps_fwd_grid": ([_I] * 6, _I),
     },
     "fused_att_steps_bwd": {
-        "mpnn_fused_att_steps_bwd": ([_P] * 25 + [_I] * 10 + [_P], _I),
-        "mpnn_fused_att_steps_bwd_smem_bytes": ([_I] * 4, _I),
+        "mpnn_fused_att_steps_bwd": ([_P] * 28 + [_I] * 14 + [_P], _I),
+        "mpnn_fused_att_steps_bwd_smem_bytes": ([_I] * 5, _I),
         "mpnn_fused_att_steps_bwd_layout": ([_I, _I, _I, _P], None),
         "mpnn_fused_att_steps_bwd_scratch_floats": ([_I] * 7,
                                                     ctypes.c_longlong),
-        "mpnn_fused_att_steps_bwd_grid": ([_I] * 7, _I),
+        "mpnn_fused_att_steps_bwd_sync_words": ([_P], _I),
+        "mpnn_fused_att_steps_bwd_max_grid": ([_I], _I),
     },
 }
 
@@ -238,12 +245,111 @@ def prepare_fused_att_steps_fwd(weights, h0, mask, node_graph, vid, src, dst,
                             launch_counts)
 
 
+# ---------------------------------------------------------------------------
+# the backward's routes (csrc/fused_att_steps_bwd.cu)
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256          # kBT
+PROF_SLOTS = 80            # kProfSlots: block 0's clock64 stamps
+APRIME_SMEM_FLOATS = 16384  # A'_t staged in shared memory up to this
+# The reverse walks' policy (kernels/fused_step.py::walk_shape: with the
+# stateless norm one cluster of the fewest of 1, 2, 4 or 8 blocks of at
+# most CLUSTER_NODES slots each, up to CLUSTER_SLOTS node slots; else a
+# grid of a block per GRID_NODES slots up to the co-resident blocks) on
+# this kernel's tile, with its own cluster constants. From
+# scripts/time_att_steps.py --sweep on an H100 (PERF.md, row 16; events, the
+# att model's widths): one block was first at b1 (13 slots; 47.0 us
+# against 48.5-60.3 on the other routes), clusters of 4-8 at b4 (64 slots;
+# 53.5 / 51.3 against 59.5 for 2 and 60.4 for the best grid), and the grid
+# from b16 (256 slots: a block per 8-16 slots 71.7-73.0 against 80.1 for a
+# cluster of 8) to b1024 (132 blocks first).
+CLUSTER_SLOTS = 128
+CLUSTER_NODES = 16
+EDGE_RATIO = K.EDGE_RATIO
+MAX_NCAP = K.MAX_NCAP
+GRID_NODES = K.GRID_NODES
+
+
+def bwd_smem_floats(tag: str, tm: int, k_vocab: int, steps: int, ncap: int,
+                    ecap: int) -> int:
+    """Floats of one backward block's shared memory (csrc/
+    fused_att_steps_bwd.cu::Smem after fused_att_steps_common.cuh::SL):
+    the GRU and the Tm step blocks [A0_t | Wh_t | q0_t | qv_t], the T
+    slots' norm constants, the round totals and partials, the reduction
+    scratch, (at FP 32) a round's staged gates, Wh_tᵀ and a zero bias,
+    A'_t when it fits, the block's node and edge tables, the node tile
+    ((5 + Tm)·FP a node) and the edge rows (3·FP an edge)."""
+    fp = dict(BUCKETS)[tag]["f"]
+    al4 = lambda v: (v + 3) & ~3
+    warps = BWD_THREADS // 32
+    weights = (6 * fp * fp + 6 * fp + tm * (2 * fp * fp + fp + k_vocab * fp)
+               + steps * 3 * fp)
+    red = max(warps * fp * fp, BWD_THREADS * 16)
+    wst = 0 if fp <= 16 else (BWD_THREADS // fp) * 6 * fp
+    ap = k_vocab * fp * fp if k_vocab * fp * fp <= APRIME_SMEM_FLOATS else 0
+    n = (al4(weights) + al4(3 * fp) + 3 * fp * steps + 4 + red + wst
+         + fp * fp + fp + ap)
+    n += al4(2 * (ncap + 1) + 7 * ecap + (warps + 1) * k_vocab + 1)
+    return n + ncap * (5 + tm) * fp + ecap * 3 * fp
+
+
+def _tile_floats(tag, tm, k_vocab, steps):
+    return lambda c: bwd_smem_floats(tag, tm, k_vocab, steps, c,
+                                     EDGE_RATIO * c)
+
+
+def launch_shape(n: int, tag: str, tm: int, k_vocab: int, steps: int, *,
+                 state_sums: bool, smem_bytes: int,
+                 max_grid: int) -> K.BwdShape:
+    """The backward's route for a batch of `n` node slots: the reverse
+    walks' policy (fused_step.walk_shape, with `state_sums` for the
+    stateless norm, whose batch sums cross blocks every step) on this
+    kernel's tile with this module's CLUSTER_SLOTS and CLUSTER_NODES; a
+    block's share stays within 3/4 of the tile; the grid route within
+    `max_grid`, the card's co-resident blocks. The grid route's blocks
+    wait on each other's flags: its launch refuses a grid past the blocks
+    that fit the card together at its shared memory, and it needs the card
+    to itself (a kernel on another stream holding SMs could keep one of
+    its blocks from starting). NotImplementedError when not one node
+    fits."""
+    floats = _tile_floats(tag, tm, k_vocab, steps)
+    s = K.walk_shape(
+        f"fused_att_steps_bwd: one node at vocab {k_vocab}, Tm {tm}, T "
+        f"{steps}", n, floats, most_ncap=MAX_NCAP, share=0.75,
+        step_sums=state_sums, smem_bytes=smem_bytes, max_grid=max_grid,
+        cluster_slots=CLUSTER_SLOTS, cluster_nodes=CLUSTER_NODES)
+    return K.BwdShape(s.route, s.grid, s.ncap, EDGE_RATIO * s.ncap,
+                      s.smem_bytes)
+
+
+def device_bwd_shape(n: int, tag: str, tm: int, k_vocab: int, steps: int,
+                     state_sums: bool, device) -> K.BwdShape:
+    """launch_shape on `device`'s shared memory and co-resident blocks."""
+    def most(smem, _):
+        cap = max(K.tile_capacity(_tile_floats(tag, tm, k_vocab, steps),
+                                  smem, MAX_NCAP), 1)
+        return _lib("fused_att_steps_bwd", tag) \
+            .mpnn_fused_att_steps_bwd_max_grid(
+                4 * bwd_smem_floats(tag, tm, k_vocab, steps, cap,
+                                    EDGE_RATIO * cap))
+    return K.device_shape(
+        ("fused_att_steps_bwd", n, tag, tm, k_vocab, steps, state_sums),
+        device, most, lambda smem, m: launch_shape(
+            n, tag, tm, k_vocab, steps, state_sums=state_sums,
+            smem_bytes=smem, max_grid=m))
+
+
 def prepare_fused_att_steps_bwd(weights, h0, msgs, htil, stats, gh, vid, src,
-                                dst, plan: FusedEvalPlan, meta: AttsMeta
+                                dst, plan: FusedEvalPlan, meta: AttsMeta, *,
+                                prof=None, floor: bool = False
                                 ) -> K.PreparedLaunch:
     """One checked backward launch on the training forward's residuals
-    (the batch tensors as the forward checked them): outputs dh0 (N, f)
-    and the flat gradient of grad_layout."""
+    (the batch tensors as the forward checked them), on its route
+    (device_bwd_shape): outputs dh0 (N, f) and
+    the flat gradient of grad_layout. A measurement may take block 0's
+    clock64 stamps (`prof`, int64 with PROF_SLOTS slots) or launch the
+    empty walk (`floor`: the route's grid and combines, no arithmetic;
+    counted as its own key)."""
     device = h0.device
     n, f = h0.shape
     w = dict(weights)
@@ -253,35 +359,42 @@ def prepare_fused_att_steps_bwd(weights, h0, msgs, htil, stats, gh, vid, src,
                            ("htil", htil, (T, n, f)),
                            ("stats", stats, (T, 2, f)), ("gh", gh, (n, f))]:
         K._check(name, t, shape, device, torch.float32)
-    lib = _lib("fused_att_steps_bwd", K.width_bucket(
-        "", BUCKETS, f=f, K=k_vocab, steps=T))
-    _check_smem(lib.mpnn_fused_att_steps_bwd_smem_bytes(tm, k_vocab, T, f),
-                device, f=f, K=k_vocab, Tm=tm, steps=T)
+    K._check_prof(prof, PROF_SLOTS)
+    tag = K.width_bucket("", BUCKETS, f=f, K=k_vocab, steps=T)
+    lib = _lib("fused_att_steps_bwd", tag)
     layout = grad_layout(tm, k_vocab, f)
     c_layout = (ctypes.c_int * 10)()
     lib.mpnn_fused_att_steps_bwd_layout(tm, k_vocab, f, c_layout)
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("fused_att_steps_bwd: the gradient layout of the "
                            "built library disagrees with grad_layout")
-    grid = K._grid(lib, "mpnn_fused_att_steps_bwd_grid", f, tm, k_vocab, T,
-                   n, g, e)
+    shape = device_bwd_shape(n, tag, tm, k_vocab, T, meta.stateless, device)
     kw = dict(dtype=torch.float32, device=device)
     dh0 = torch.empty(n, f, **kw)
     dw = torch.empty(layout["total"][0], **kw)
     scratch = torch.empty(lib.mpnn_fused_att_steps_bwd_scratch_floats(
-        n, e, k_vocab, f, T, tm, grid), **kw)
-    src_order, src_ptr = K.source_order(src, n)
+        n, e, k_vocab, f, T, tm, shape.grid), **kw)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    flags, counters = (K.sync_buffers(
+        lib.mpnn_fused_att_steps_bwd_sync_words, device, stream)
+        if shape.route == "grid" and shape.grid > 1 else (None, None))
+    # each edge's position in the destination order, sorted by source
+    src_pos, src_ptr = K.source_order(src[plan.edge_order.long()], n)
     tensors = [w[k] for k in _GRAD_LEAVES] + [
         h0, msgs, htil, stats, gh, vid, src, dst, plan.edge_order,
-        plan.dst_ptr, src_order, src_ptr, plan.graph_node_ptr, dh0, dw,
+        plan.dst_ptr, src_pos, src_ptr, plan.graph_node_ptr, dh0, dw,
         scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, e, f, k_vocab, T, tm,
-            int(meta.with_corr), int(meta.stateless), grid,
-            torch.cuda.current_stream(device).cuda_stream)
-    return K.PreparedLaunch("fused_att_steps_bwd",
+    args = (*(t.data_ptr() for t in tensors), K._ptr(flags),
+            K._ptr(counters), K._ptr(prof), n, g, e, f, k_vocab, T, tm,
+            int(meta.with_corr), int(meta.stateless),
+            int(shape.route == "grid"), shape.grid, shape.ncap, shape.ecap,
+            int(floor), stream)
+    return K.PreparedLaunch("fused_att_steps_bwd_floor" if floor
+                            else "fused_att_steps_bwd",
                             lib.mpnn_fused_att_steps_bwd,
                             lib.mpnn_cuda_error_string, args, (dh0, dw),
-                            tuple(tensors), launch_counts)
+                            tuple(tensors) + (flags, counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 class _FusedAttSteps(torch.autograd.Function):
@@ -326,7 +439,7 @@ def fused_att_steps(aprime, a0, qv, q0, wh, h0, mask, node_graph, gru, vid,
     aprime, a0, qv, q0, wh, the GRU weights and h0. Arguments as
     fused_att_steps_reference. CPU tensors run the plain version under
     autograd; CUDA tensors launch the forward kernel (and, in the backward
-    pass, the backward kernel) or raise."""
+    pass, the backward kernel on launch_shape's route) or raise."""
     if h0.device.type == "cpu":
         return fused_att_steps_reference(
             aprime, a0, qv, q0, wh, h0, mask, node_graph, gru, vid, src, dst,

@@ -447,28 +447,19 @@ def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
         sums=sums, smem_bytes=smem_bytes, max_grid=max_grid)
 
 
-_FWD_SHAPES: Dict[tuple, K.FwdShape] = {}
-
-
 def device_fwd_shape(n: int, tag: str, k_vocab: int, steps: int,
                      sums: bool, device) -> K.FwdShape:
     """fwd_launch_shape on `device`'s shared memory and the kernel's
     co-resident blocks."""
-    key = (n, tag, k_vocab, steps, sums, str(device))
-    if key not in _FWD_SHAPES:
-        props = torch.cuda.get_device_properties(device)
-        smem = props.shared_memory_per_block_optin
-        sms = props.multi_processor_count
+    def most(smem, sms):
         cap = max(fwd_capacity(tag, k_vocab, steps, smem, sms), 1)
-        most = _lib("fused_psteps_fwd", tag).mpnn_fused_psteps_fwd_max_grid(
+        return _lib("fused_psteps_fwd", tag).mpnn_fused_psteps_fwd_max_grid(
             4 * fwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap,
                                 sms))
-        if most < 1:
-            raise RuntimeError("fused_psteps_fwd: no block fits this card")
-        _FWD_SHAPES[key] = fwd_launch_shape(n, tag, k_vocab, steps,
-                                            sums=sums, smem_bytes=smem,
-                                            max_grid=most)
-    return _FWD_SHAPES[key]
+    return K.device_shape(
+        ("fused_psteps_fwd", n, tag, k_vocab, steps, sums), device, most,
+        lambda smem, m: fwd_launch_shape(n, tag, k_vocab, steps, sums=sums,
+                                         smem_bytes=smem, max_grid=m))
 
 
 # The forward's grid-route counters (each round's arrivals, the launch's),
@@ -614,25 +605,18 @@ def launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
                       s.smem_bytes)
 
 
-_BWD_SHAPES: Dict[tuple, PsBwdShape] = {}
-
-
 def device_bwd_shape(n: int, tag: str, k_vocab: int, steps: int,
                      state_sums: bool, device) -> PsBwdShape:
     """launch_shape on `device`'s shared memory and co-resident blocks."""
-    key = (n, tag, k_vocab, steps, state_sums, str(device))
-    if key not in _BWD_SHAPES:
-        props = torch.cuda.get_device_properties(device)
-        smem = props.shared_memory_per_block_optin
+    def most(smem, _):
         cap = max(bwd_capacity(tag, k_vocab, steps, smem), 1)
-        most = _lib("fused_psteps_bwd", tag).mpnn_fused_psteps_bwd_max_grid(
+        return _lib("fused_psteps_bwd", tag).mpnn_fused_psteps_bwd_max_grid(
             4 * bwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap))
-        if most < 1:
-            raise RuntimeError("fused_psteps_bwd: no block fits this card")
-        _BWD_SHAPES[key] = launch_shape(n, tag, k_vocab, steps,
-                                        state_sums=state_sums,
-                                        smem_bytes=smem, max_grid=most)
-    return _BWD_SHAPES[key]
+    return K.device_shape(
+        ("fused_psteps_bwd", n, tag, k_vocab, steps, state_sums), device,
+        most, lambda smem, m: launch_shape(n, tag, k_vocab, steps,
+                                           state_sums=state_sums,
+                                           smem_bytes=smem, max_grid=m))
 
 
 def prepare_fused_psteps_bwd(weights, h0, labels, gmask, out, gout, gl,

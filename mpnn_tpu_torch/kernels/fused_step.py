@@ -222,8 +222,10 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: (argtypes, restype) of each library's entry points
 _SIGNATURES = {
     "fused_eval": {
-        "mpnn_fused_eval": ([_P] * 22 + [_I] * 5 + [_P], _I),
-        "mpnn_fused_eval_smem_bytes": ([_I], _I),
+        "mpnn_fused_eval": ([_P] * 24 + [_I] * 11 + [_P], _I),
+        "mpnn_fused_eval_smem_bytes": ([_I] * 4, _I),
+        "mpnn_fused_eval_scratch_floats": ([_I] * 5, ctypes.c_longlong),
+        "mpnn_fused_eval_max_grid": ([_I], _I),
         "mpnn_fused_eval_stateless": ([_P] * 23 + [_I] * 13 + [_P], _I),
         "mpnn_fused_eval_stateless_smem_bytes": ([_I] * 5, _I),
         "mpnn_fused_eval_stateless_scratch_floats": ([_I] * 5,
@@ -453,8 +455,9 @@ def fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn, ma_state,
     """Whole-step inference: out (G, od). Arguments in the JAX op's order
     (make_fused_eval_op), minus the TPU window plan, plus the index plan
     (tensors on the same device as h0). CPU tensors run the plain version;
-    CUDA tensors launch the CUDA kernel (with the stateless state norm, its
-    cooperative kernel) or raise."""
+    CUDA tensors launch the CUDA kernel (the folded norms' on the free
+    route of eval_launch_shape, the stateless state norm's on the training
+    forward's routes) or raise."""
     _check_modes("fused_eval", msg_norm, state_norm)
     if h0.device.type == "cpu":
         return fused_eval_reference(
@@ -475,12 +478,13 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                        prof=None, floor: bool = False) -> PreparedLaunch:
     """Checks (device, dtype, shape, contiguity and, with `check`, the
     batch layout), folds the norms and allocates the output of one CUDA
-    launch: the warp-per-graph kernel, or for the stateless state norm the
-    training forward's body (on its route, fwd_launch_shape). check=False
-    only to time the bare launch on inputs already checked; `tag` forces a
-    width bucket that holds the batch (to time one bucket against
-    another). The stateless kernel also takes a measurement's `prof` and
-    `floor`, as prepare_fused_step_fwd does."""
+    launch of the training forward's body: with folded norms on the free
+    route (eval_launch_shape on the card, device_eval_shape),
+    for the stateless state norm on the training forward's routes
+    (fwd_launch_shape). check=False only to time the bare launch on inputs
+    already checked; `tag` forces a width bucket that holds the batch (to
+    time one bucket against another); `prof` and `floor` as
+    prepare_fused_step_fwd's."""
     _check_modes("fused_eval", msg_norm, state_norm)
     device = h0.device
     if device.type != "cuda":
@@ -544,13 +548,19 @@ def prepare_fused_eval(amat, a0, mbias, h0, mask, node_graph, gru, ma_bn,
                               lib.mpnn_cuda_error_string, args, out,
                               tuple(tensors) + (counters, prof),
                               floor_counts if floor else launch_counts)
+    shape = device_eval_shape(n, tag, k_vocab, steps, device, num_graphs)
+    scratch = torch.empty(lib.mpnn_fused_eval_scratch_floats(
+        n, e, num_graphs, steps, shape.grid), dtype=torch.float32,
+        device=device)
     tensors = [amat_k] + [t for _, t, _ in floats[1:12]] + [
-        riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t
-    args = (*(t.data_ptr() for t in tensors), num_graphs, f, od, k_vocab,
-            steps, stream)
-    return PreparedLaunch("fused_eval", lib.mpnn_fused_eval,
-                          lib.mpnn_cuda_error_string, args, out,
-                          tuple(tensors))
+        riw, ro["i"]["b"], rjw, ro["j"]["b"]] + plan_t + [scratch]
+    args = (*(t.data_ptr() for t in tensors), _ptr(prof), n, num_graphs, e,
+            f, od, k_vocab, steps, shape.grid, shape.ncap, shape.ecap,
+            int(floor), stream)
+    return PreparedLaunch("fused_eval_floor" if floor else "fused_eval",
+                          lib.mpnn_fused_eval, lib.mpnn_cuda_error_string,
+                          args, out, tuple(tensors) + (prof,),
+                          floor_counts if floor else launch_counts)
 
 
 # ---------------------------------------------------------------------------
@@ -839,7 +849,27 @@ def fwd_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
         sums=sums, smem_bytes=smem_bytes, max_grid=max_grid)
 
 
-_FWD_SHAPES: Dict[tuple, FwdShape] = {}
+_DEVICE_SHAPES: Dict[tuple, tuple] = {}
+
+
+def device_shape(key: tuple, device, most_fn, rule_fn):
+    """A launch rule's shape on `device`, computed once for each `key`
+    (the kernel's name first, then the rule's arguments):
+    `most_fn(smem, sms)` gives the kernel's co-resident blocks (its
+    library's max_grid at the rule's largest tile) on a card with `smem`
+    bytes of shared memory a block and `sms` multiprocessors, and
+    `rule_fn(smem, most)` the shape. RuntimeError when no block fits."""
+    key = key + (str(device),)
+    if key not in _DEVICE_SHAPES:
+        props = torch.cuda.get_device_properties(device)
+        smem = props.shared_memory_per_block_optin
+        most = most_fn(smem, props.multi_processor_count)
+        if most < 1:
+            raise RuntimeError(f"{key[0]}: no block fits this card")
+        _DEVICE_SHAPES[key] = rule_fn(smem, most)
+    return _DEVICE_SHAPES[key]
+
+
 # the C function of each forward kernel's co-resident blocks
 _FWD_MAX_GRID = {"fused_step_fwd": "mpnn_fused_step_fwd_max_grid",
                  "fused_eval": "mpnn_fused_eval_stateless_max_grid"}
@@ -850,23 +880,17 @@ def device_fwd_shape(n: int, tag: str, k_vocab: int, steps: int, sums: bool,
     """fwd_launch_shape on `device`'s shared memory and the co-resident
     blocks of `kernel`'s library ('fused_step_fwd', or 'fused_eval' for
     the stateless serving kernel)."""
-    key = (n, tag, k_vocab, steps, sums, str(device), kernel)
-    if key not in _FWD_SHAPES:
-        props = torch.cuda.get_device_properties(device)
-        smem = props.shared_memory_per_block_optin
+    def most(smem, sms):
         # the co-resident blocks of a block that fills the card's shared
         # memory, as the rule's tile does
-        sms = props.multi_processor_count
         cap = max(fwd_capacity(tag, k_vocab, steps, smem, sms), 1)
-        lib = _lib(kernel, tag=tag)
-        most = getattr(lib, _FWD_MAX_GRID[kernel])(4 * fwd_smem_floats(
-            tag, k_vocab, steps, cap, EDGE_RATIO * cap, sms))
-        if most < 1:
-            raise RuntimeError(f"{kernel}: no block fits this card")
-        _FWD_SHAPES[key] = fwd_launch_shape(n, tag, k_vocab, steps,
-                                            sums=sums, smem_bytes=smem,
-                                            max_grid=most)
-    return _FWD_SHAPES[key]
+        return getattr(_lib(kernel, tag=tag), _FWD_MAX_GRID[kernel])(
+            4 * fwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap,
+                                sms))
+    return device_shape(
+        (kernel, n, tag, k_vocab, steps, sums), device, most,
+        lambda smem, m: fwd_launch_shape(n, tag, k_vocab, steps, sums=sums,
+                                         smem_bytes=smem, max_grid=m))
 
 
 # The forward kernels' counters on the grid route (each slot's arrivals,
@@ -887,6 +911,87 @@ def _fwd_counters(shape: FwdShape, device, stream: int):
             _lib("fused_step_fwd").mpnn_fused_step_fwd_counters(),
             dtype=torch.int32, device=device)
     return _FWD_COUNTERS[key]
+
+
+# ---------------------------------------------------------------------------
+# the folded serving kernel's route (csrc/fused_eval.cu::fused_eval_kernel:
+# the forward's body on the free route, no statistics, no loss)
+# ---------------------------------------------------------------------------
+
+# Node slots a block takes: a block per EVAL_NODES slots, or a block a
+# graph where that gives more (a b16 request spreads over as many blocks as
+# it has graphs: blocks own whole graphs), at most the card's co-resident
+# blocks (b1024 fills the card in about one wave). A block's tile holds
+# EVAL_SLACK times its share (its graphs pass the share by up to a graph);
+# a block whose graphs outgrow it keeps them in global scratch, on the
+# same route. From scripts/time_fused_step.py --eval --sweep on an H100
+# (PERF.md, row 1; a trace's device time): a block per 16 slots was first
+# at lipo b16, b128 and b1024 and basic o64 b16 and b1024 (8, 32, 64 and
+# 128 up to 3× slower), and at the wide buckets' b16 (8 slots a graph) a
+# block a graph beat it by 29-35%.
+EVAL_NODES = 16
+EVAL_SLACK = 2
+
+
+class EvalShape(NamedTuple):
+    """A folded serving launch: `grid` independent blocks (the free
+    route), the node and edge slots of a block's shared-memory tile and
+    its dynamic shared memory (bytes)."""
+    grid: int
+    ncap: int
+    ecap: int
+    smem_bytes: int
+    route: str = "free"
+
+    def tag(self) -> str:
+        return f"free x{self.grid} cap {self.ncap}"
+
+
+def eval_smem_floats(tag: str, k_vocab: int, steps: int, ncap: int) -> int:
+    """Floats of one folded serving block's shared memory (fwd_smem_floats
+    with one staged row: no slot crosses blocks)."""
+    return fwd_smem_floats(tag, k_vocab, steps, ncap, EDGE_RATIO * ncap, 1)
+
+
+def eval_launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
+                      smem_bytes: int, max_grid: int, graphs: int = 0,
+                      nodes: Optional[int] = None,
+                      ncap: Optional[int] = None) -> EvalShape:
+    """The folded serving kernel's launch for a batch of `n` node slots in
+    `graphs` graphs: a block per EVAL_NODES slots or a block a graph,
+    whichever is more (`nodes` forces a block per `nodes` slots), at most
+    `max_grid` blocks (the co-resident ones at the rule's tile) unless
+    `nodes` is forced; a block's tile EVAL_SLACK times its share, within
+    the most node slots (FWD_MAX_NCAP) whose tile fits `smem_bytes`
+    (`ncap` forces a tile: 1 spills every block of more than one node).
+    NotImplementedError when not one node fits."""
+    cap = tile_capacity(lambda c: eval_smem_floats(tag, k_vocab, steps, c),
+                        smem_bytes, FWD_MAX_NCAP)
+    if cap < 1:
+        raise NotImplementedError(
+            f"fused_eval: one node at vocab {k_vocab}, T {steps} needs "
+            f"{4 * eval_smem_floats(tag, k_vocab, steps, 1)} bytes of "
+            f"shared memory; the card has {smem_bytes}")
+    if nodes is None:
+        grid = max(1, min(max_grid, max(-(-n // EVAL_NODES), graphs)))
+    else:
+        grid = max(1, -(-n // nodes))
+    c = min(cap, ncap or EVAL_SLACK * -(-n // grid))
+    return EvalShape(grid, c, EDGE_RATIO * c,
+                     4 * eval_smem_floats(tag, k_vocab, steps, c))
+
+
+def device_eval_shape(n: int, tag: str, k_vocab: int, steps: int, device,
+                      graphs: int = 0) -> EvalShape:
+    """eval_launch_shape on `device`'s shared memory and the folded
+    kernel's co-resident blocks at the rule's tile."""
+    def rule(smem, most):
+        return eval_launch_shape(n, tag, k_vocab, steps, smem_bytes=smem,
+                                 max_grid=most, graphs=graphs)
+    return device_shape(
+        ("fused_eval", n, tag, k_vocab, steps, graphs), device,
+        lambda smem, _: _lib("fused_eval", tag=tag).mpnn_fused_eval_max_grid(
+            rule(smem, 1 << 30).smem_bytes), rule)
 
 
 # ---------------------------------------------------------------------------
@@ -946,11 +1051,14 @@ def tile_capacity(smem_floats, smem_bytes: int, most: int) -> int:
 
 def walk_shape(who: str, n: int, smem_floats, *, most_ncap: int,
                share: float, step_sums: bool, smem_bytes: int,
-               max_grid: int) -> WalkShape:
+               max_grid: int, cluster_slots: int = CLUSTER_SLOTS,
+               cluster_nodes: int = CLUSTER_NODES) -> WalkShape:
     """The route of a reverse walk over `n` node slots, from shapes alone:
     with `step_sums` (batch sums that every step combines across blocks)
-    up to CLUSTER_SLOTS slots one cluster of the fewest blocks (1, 2, 4)
-    that take at most CLUSTER_NODES slots each, else 8; past them, and
+    up to `cluster_slots` slots one cluster of the fewest blocks (1, 2, 4)
+    that take at most `cluster_nodes` slots each, else 8 (the walk's
+    CLUSTER_SLOTS and CLUSTER_NODES unless a kernel measured its own);
+    past them, and
     without step_sums at any size, the grid route with a block per
     GRID_NODES slots, at most `max_grid` (the card's co-resident blocks)
     and MAX_GRID. Neither route gives a block more than `share` of its
@@ -964,9 +1072,9 @@ def walk_shape(who: str, n: int, smem_floats, *, most_ncap: int,
             f"card has {smem_bytes}")
     bytes_ = 4 * smem_floats(cap)
     fill = max(1, int(share * cap))
-    if step_sums and n <= CLUSTER_SLOTS and -(-n // MAX_CLUSTER) <= fill:
+    if step_sums and n <= cluster_slots and -(-n // MAX_CLUSTER) <= fill:
         c = next((c for c in (1, 2, 4)
-                  if -(-n // c) <= min(CLUSTER_NODES, fill)), MAX_CLUSTER)
+                  if -(-n // c) <= min(cluster_nodes, fill)), MAX_CLUSTER)
         return WalkShape("cluster", c, cap, bytes_)
     grid = max(1, min(max_grid, MAX_GRID, -(-n // min(GRID_NODES, fill))))
     return WalkShape("grid", grid, cap, bytes_)
@@ -1042,26 +1150,18 @@ def launch_shape(n: int, tag: str, k_vocab: int, steps: int, *,
                     s.smem_bytes)
 
 
-_BWD_SHAPES: Dict[tuple, BwdShape] = {}
-
-
 def device_bwd_shape(n: int, tag: str, k_vocab: int, steps: int,
                      step_sums: bool, device) -> BwdShape:
     """launch_shape on `device`'s shared memory and co-resident blocks."""
-    key = (n, tag, k_vocab, steps, step_sums, str(device))
-    if key not in _BWD_SHAPES:
-        props = torch.cuda.get_device_properties(device)
-        smem = props.shared_memory_per_block_optin
-        cap = bwd_capacity(tag, k_vocab, steps, smem)
-        lib = _lib("fused_step_bwd", tag=tag)
-        most = lib.mpnn_fused_step_bwd_max_grid(4 * bwd_smem_floats(
-            tag, k_vocab, steps, max(cap, 1), EDGE_RATIO * max(cap, 1)))
-        if most < 1:
-            raise RuntimeError("fused_step_bwd: no block fits this card")
-        _BWD_SHAPES[key] = launch_shape(n, tag, k_vocab, steps,
-                                        step_sums=step_sums,
-                                        smem_bytes=smem, max_grid=most)
-    return _BWD_SHAPES[key]
+    def most(smem, _):
+        cap = max(bwd_capacity(tag, k_vocab, steps, smem), 1)
+        return _lib("fused_step_bwd", tag=tag).mpnn_fused_step_bwd_max_grid(
+            4 * bwd_smem_floats(tag, k_vocab, steps, cap, EDGE_RATIO * cap))
+    return device_shape(
+        ("fused_step_bwd", n, tag, k_vocab, steps, step_sums), device, most,
+        lambda smem, m: launch_shape(n, tag, k_vocab, steps,
+                                     step_sums=step_sums, smem_bytes=smem,
+                                     max_grid=m))
 
 
 # The grid routes' flags and counters of the reverse walks (fused_step_bwd,
@@ -1145,6 +1245,7 @@ def prepare_fused_step_bwd(weights, h0, labels, gmask, out, gout, gl, htil,
 
 # the empty kernels' launches (a measurement's yardstick, not the path's)
 floor_counts: Dict[str, int] = {"fused_step_fwd_floor": 0,
+                                "fused_eval_floor": 0,
                                 "fused_eval_stateless_floor": 0,
                                 "fused_step_bwd_floor": 0}
 

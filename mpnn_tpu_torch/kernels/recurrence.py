@@ -209,23 +209,16 @@ def launch_shape(n: int, tag: str, steps: int, *, smem_bytes: int,
                         smem_bytes=smem_bytes, max_grid=max_grid)
 
 
-_BWD_SHAPES: Dict[tuple, RecShape] = {}
-
-
 def device_bwd_shape(n: int, tag: str, steps: int, device) -> RecShape:
     """launch_shape on `device`'s shared memory and co-resident blocks."""
-    key = (n, tag, steps, str(device))
-    if key not in _BWD_SHAPES:
-        props = torch.cuda.get_device_properties(device)
-        smem = props.shared_memory_per_block_optin
+    def most(smem, _):
         cap = max(bwd_capacity(tag, steps, smem), 1)
-        most = _lib("recurrence_bwd", tag).mpnn_recurrence_bwd_max_grid(
+        return _lib("recurrence_bwd", tag).mpnn_recurrence_bwd_max_grid(
             4 * bwd_smem_floats(tag, steps, cap))
-        if most < 1:
-            raise RuntimeError("recurrence_bwd: no block fits this card")
-        _BWD_SHAPES[key] = launch_shape(n, tag, steps, smem_bytes=smem,
-                                        max_grid=most)
-    return _BWD_SHAPES[key]
+    return K.device_shape(
+        ("recurrence_bwd", n, tag, steps), device, most,
+        lambda smem, m: launch_shape(n, tag, steps, smem_bytes=smem,
+                                     max_grid=m))
 
 
 def prepare_recurrence_bwd(msgs, h0, mask, weights, stats, htil, ght, *,

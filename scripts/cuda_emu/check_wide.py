@@ -31,8 +31,7 @@ import test_torch_gpu as T                                     # noqa: E402
 TOL = 1e-4
 # family → its libraries' argument structs
 ARGS = {
-    # fused_eval's cooperative kernel (the stateless norm) takes the
-    # forward's args; its warp kernel's launch is rewritten per call
+    # both of fused_eval's kernels take the forward's args
     "fused_step": {"fused_eval": "mpnn_step::FwdArgs",
                    "fused_step_fwd": "FwdArgs", "fused_step_bwd": "BwdArgs"},
     "fused_psteps": {"fused_psteps_eval": "PsFwdArgs",

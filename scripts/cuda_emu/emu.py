@@ -6,8 +6,8 @@
 LIB is a library of kernels/build.py (a source name, or `name.tag` for a
 width bucket, compiled with that bucket's -D defines), ARGS the type of
 the one argument struct of its cooperative kernels (fused_step_fwd:
-FwdArgs; `<<<...>>>` launches need none: fused_eval's warp kernel takes
-EvalArgs, its cooperative one mpnn_step::FwdArgs). Each becomes
+FwdArgs; `<<<...>>>` launches need none: both of fused_eval's kernels
+take mpnn_step::FwdArgs). Each becomes
 mpnn_tpu_torch/_build/emu/libmpnn_LIB.so with the same C entry points as
 the card's library; with --asan under AddressSanitizer (then run Python
 with LD_PRELOAD=$(g++ -print-file-name=libasan.so)). The check scripts

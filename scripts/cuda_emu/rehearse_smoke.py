@@ -7,9 +7,11 @@ its times and profiles mean nothing. Run from the repository root:
     python scripts/cuda_emu/rehearse_smoke.py [phase ...]
 
 phases: kernel-check, train-times, basic-kernel-check, basic-times (the
-shared family's kernels, row 2's forward kernels and row 3's backward on
-every route, their floors and clock64 phases: batch 48 for 1024, 64
-molecules in 2,000 slots for 2,560), att-kernel-check, att-times
+shared family's kernels, row 1's folded kernel, row 2's forward kernels
+and row 3's backward on every route, their floors and clock64 phases:
+batch 48 for 1024, 64 molecules in 2,000 slots for 2,560),
+atts-kernel-check (row 16's kernels, the backward on every route: batch
+48 for 1024), att-kernel-check, att-times
 (set2vec's routes, its empty-step
 floor and clock64 phases; batch 48 for 1024, 3 set2vec steps, the
 empty-block case on 27 graphs, the many-graph cases on 130, 60 and
@@ -112,6 +114,11 @@ def main(argv) -> int:
     rec_route = CS._rec_route
     CS._rec_route = lambda route, grid=None: rec_route(
         route, grid or (4 if route == "grid" else None))
+    # fused_att_steps_bwd's forced grids within the stand-in's 3
+    # co-resident blocks (its grid route refuses more)
+    att_route = CS._att_bwd_route
+    CS._att_bwd_route = lambda route, grid=None: att_route(
+        route, grid or (3 if route in ("grid", "spilled") else None))
     CS.DEC_TIMES_BATCHES = CS.DEC_ATT_BATCHES = (16, 48)
     CS._dec_trace = lambda *a: (0.0, "no trace (emulated)")
 
@@ -181,6 +188,11 @@ def main(argv) -> int:
     # batch 48 for 1024, the wide set's 48 for its 1024, 64 molecules in
     # 2,000 slots for 2,560 in 32,896
     CS.CHECK_BATCH, CS.TRAIN_TIMES_BATCHES = 48, (16, 48)
+    # atts-kernel-check (row 16's backward on every route): batch 48
+    CS.ATTS_CHECK_BATCH = 48
+    # fused_eval's routes: a block per 16 nodes for a block per node (the
+    # stand-in runs out of threads past ~20k CUDA threads a launch)
+    CS.EVAL_ROUTES = (None, "nodes 16", "nodes 64", "one", "spilled")
 
     def basic_batches(device):
         from mpnn_tpu_torch import graphs as G
@@ -222,6 +234,7 @@ def main(argv) -> int:
               "basic-kernel-check": lambda: CS.phase_basic_kernel_check(cpu),
               "basic-times": lambda: CS.phase_basic_times(cpu, "emulated"),
               "att-kernel-check": lambda: CS.phase_att_kernel_check(cpu),
+              "atts-kernel-check": lambda: CS.phase_atts_kernel_check(cpu),
               "att-times": lambda: CS.phase_att_times(cpu, "emulated"),
               "mlp-kernel-check": lambda: CS.phase_mlp_kernel_check(cpu),
               "mlp-times": lambda: CS.phase_mlp_times(cpu, "emulated"),

@@ -53,9 +53,20 @@ grid at a block per 16, 24, 32, 48, 64, 96, 128 and 256 slots, capped at
 the card's co-resident blocks: the measurement behind FWD_CLUSTER_SLOTS,
 FWD_CLUSTER_NODES and FWD_GRID_NODES.
 
+--eval times the folded-norm serving kernel (fused_eval, row 1) alone on
+EVAL_CASES: lipo bn1d/bn1d at b16, b128 and b1024, the basic shell's
+none/none (o64 build) at b16 and b1024, wide lipo at b16 (f 30, the f32
+build) and the wide basic shell at b16 and b1024 (f 27, od 108, the o128
+build), with --detail (a checkout with kernels/fused_step.py::
+device_eval_shape) its route, empty-kernel floor and block 0's clock64
+phases. --eval --sweep (the same checkout) times each case on the rule's
+route and at a block per 8, 16, 32, 64 and 128 node slots (the free
+route's blocks never wait on each other, so no cap), ranked on the
+trace's device time: the measurement behind EVAL_NODES.
+
 Prints one JSON line: {"label", "card", "times": {case: {"ms",
-"trace_ms"}}, "fwd": {case: {...}}, "split": {...}, "step": {...},
-"witness": {...}}.
+"trace_ms"}}, "fwd": {case: {...}}, "eval": {case: {...}}, "split":
+{...}, "step": {...}, "witness": {...}}.
 """
 
 import argparse
@@ -85,6 +96,65 @@ CASES = [
     ("wide basic b16 bn1d/stateless (o128)", -16, False, 4, 3, "bn1d",
      "stateless"),
 ]
+
+
+# the folded serving kernel's cases: (name, batch, h0 with nafm, od of afm,
+# T, msg norm, state norm)
+EVAL_CASES = [
+    ("lipo b16 bn1d/bn1d", 16, True, 2, 6, "bn1d", "bn1d"),
+    ("lipo b128 bn1d/bn1d", 128, True, 2, 6, "bn1d", "bn1d"),
+    ("lipo b1024 bn1d/bn1d", 1024, True, 2, 6, "bn1d", "bn1d"),
+    ("basic b16 none/none (o64)", 16, False, 4, 3, "none", "none"),
+    ("basic b1024 none/none (o64)", 1024, False, 4, 3, "none", "none"),
+    ("wide lipo b16 bn1d/bn1d (f32)", -16, True, 2, 6, "bn1d", "bn1d"),
+    ("wide basic b16 none/none (o128)", -16, False, 4, 3, "none", "none"),
+    ("wide basic b1024 none/none (o128)", -1024, False, 4, 3, "none",
+     "none"),
+]
+EVAL_SWEEP_NODES = (8, 16, 32, 64, 128)
+
+
+def _eval_times(CS, K, i, case, reps, detail, sweep, device):
+    """The folded serving kernel on a case: events and trace; with
+    `detail` its route, floor and clock64 phases; with `sweep` each forced
+    block size beside the rule's."""
+    _, _, eval_args, meta = _case(CS, K, 600 + i, case, device)
+    kw = dict(steps=case[4], msg_norm=case[5], state_norm=case[6])
+    n, f = eval_args[3].shape
+    od = eval_args[11]["i"]["b"].shape[0]
+    k = eval_args[0].shape[0]
+    g = eval_args[15].graph_node_ptr.shape[0] - 1
+    tag = K.width_bucket("", K.BUCKETS, f=f, od=od)
+    with torch.no_grad():
+        pe = K.prepare_fused_eval(*eval_args, **kw, check=False)
+        out = _time(CS, K, pe, reps)
+        routed = hasattr(K, "device_eval_shape")
+        if detail and routed:
+            pfl = K.prepare_fused_eval(*eval_args, **kw, check=False,
+                                       floor=True)
+            prof = torch.zeros(K.FWD_PROF_SLOTS, dtype=torch.int64,
+                               device=device)
+            K.launch_prepared(K.prepare_fused_eval(*eval_args, **kw,
+                                                   check=False, prof=prof))
+            torch.cuda.synchronize()
+            out.update(
+                route=K.device_eval_shape(n, tag, k, case[4], device,
+                                          g).tag(),
+                floor_ms=CS._events_ms(lambda: K.launch_prepared(pfl), 100),
+                phases={a: round(b) for a, b in
+                        CS._fwd_phases(prof.tolist(), case[4]).items()})
+        if sweep and hasattr(CS, "_eval_route"):
+            row = {}
+            for route in (None, *(f"nodes {p}" for p in EVAL_SWEEP_NODES)):
+                with CS._eval_route(route):
+                    pr = K.prepare_fused_eval(*eval_args, **kw, check=False)
+                    t = K.device_eval_shape(n, tag, k, case[4], device,
+                                            g).tag()
+                row[f"{route or 'rule'} ({t})"] = _time(CS, K, pr, reps)
+            row["ranked on trace"] = sorted(
+                row, key=lambda r: row[r]["trace_ms"])
+            out["sweep"] = row
+    return out
 
 
 def _batch(CS, bs, device):
@@ -377,6 +447,7 @@ def main(argv) -> int:
     ap.add_argument("--step", action="store_true")
     ap.add_argument("--witness", action="store_true")
     ap.add_argument("--fwd", action="store_true")
+    ap.add_argument("--eval", action="store_true")
     ap.add_argument("--cases", default="",
                     help="comma-separated case-name prefixes (default all)")
     ap.add_argument("--sweep-cases", default="",
@@ -393,8 +464,15 @@ def main(argv) -> int:
         text=True).stdout.strip()
     device = torch.device("cuda", 0)
     wanted = [c for c in args.cases.split(",") if c]
-    out, split, fwd = {}, {}, {}
-    for i, case in enumerate(CASES):
+    out, split, fwd, ev = {}, {}, {}, {}
+    for i, case in enumerate(EVAL_CASES if args.eval else []):
+        name = case[0]
+        if wanted and not any(name.startswith(c) for c in wanted):
+            continue
+        ev[name] = _eval_times(CS, K, i, case, args.reps, args.detail,
+                               args.sweep, device)
+        print(json.dumps({f"fused_eval {name}": ev[name]}), flush=True)
+    for i, case in enumerate([] if args.eval else CASES):
         name = case[0]
         if wanted and not any(name.startswith(c) for c in wanted):
             continue
@@ -433,7 +511,9 @@ def main(argv) -> int:
             prep, _, _ = CS._split_launches("shared", net, tb, gen)
             t = {k: _time(CS, K, p, args.reps) for k, p in prep.items()}
             split[f"lipo b{bs} ({b['node_mask'].shape[0]} slots)"] = t
-    if args.fwd and args.sweep and hasattr(CS, "_fwd_route"):
+    if args.eval:
+        pass
+    elif args.fwd and args.sweep and hasattr(CS, "_fwd_route"):
         picked = [c for c in args.sweep_cases.split(",") if c]
         for case in FWD_SWEEP:
             if picked and not any(case[0].startswith(c) for c in picked):
@@ -453,7 +533,7 @@ def main(argv) -> int:
         for t in v.values():
             t.pop("detail", None)
     print(json.dumps({"label": args.label, "card": card, "times": out,
-                      "fwd": fwd, "split": split, "step": step,
+                      "fwd": fwd, "eval": ev, "split": split, "step": step,
                       "witness": witness}), flush=True)
     return 0
 

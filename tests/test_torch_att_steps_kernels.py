@@ -231,3 +231,83 @@ def test_serving_writes_no_training_residuals(op, monkeypatch):
         with torch.set_grad_enabled(grad_mode):
             call()
         assert seen["flag"] is want, (grad_mode, requires)
+
+
+# the backward's launch rule (kernels/fused_att_steps.py::launch_shape) on
+# an H100's shared memory and co-resident blocks (one a multiprocessor),
+# at the att model's widths (narrow bucket, Tm 3, K 8, T 3): with the
+# stateless norm one cluster up to the module's CLUSTER_SLOTS node slots
+# (the fewest blocks of at most its CLUSTER_NODES slots each), then a grid
+# of a block per GRID_NODES slots up to the co-resident blocks; without a
+# state norm always the grid
+H100 = dict(smem_bytes=232448, max_grid=132)
+
+BWD_RULE_CASES = [
+    (13, True, {}, "cluster x1 cap 161"),           # b1
+    (16, True, {}, "cluster x1 cap 161"),
+    (17, True, {}, "cluster x2 cap 161"),
+    (64, True, {}, "cluster x4 cap 161"),           # b4
+    (65, True, {}, "cluster x8 cap 161"),
+    (128, True, {}, "cluster x8 cap 161"),          # the cluster's capacity
+    (129, True, {}, "grid x9 cap 161"),             # one past it
+    (256, True, {}, "grid x16 cap 161"),            # b16
+    (16512, True, {}, "grid x132 cap 161"),         # b1024: co-resident
+    (30, False, {}, "grid x2 cap 161"),
+    (16512, False, {}, "grid x132 cap 161"),
+    (16512, True, dict(smem_bytes=60 * 1024), "grid x132 cap 16"),
+    (16512, True, dict(max_grid=66), "grid x66 cap 161"),   # a smaller card
+    (16512, True, dict(route="cluster 8"), "cluster x8 cap 161"),
+    (30, True, dict(route="grid"), "grid x2 cap 161"),
+    (4000, True, dict(route="grid 5"), "grid x5 cap 161"),
+    (4000, True, dict(route="grid 500"), "grid x500 cap 161"),  # refused
+    # at launch: past the co-resident blocks
+    (16512, True, dict(route="spilled"), "grid x128 cap 16"),
+]
+
+
+@pytest.mark.parametrize("n,sums,kw,tag", BWD_RULE_CASES)
+def test_bwd_launch_rule_at_its_boundaries(n, sums, kw, tag, monkeypatch):
+    """The route and blocks, the tile (the most node slots, EDGE_RATIO
+    edges each, whose shared memory fits the card) and the block's bytes
+    that tile's; forced routes (chip_smoke.py::_att_bwd_route, around the
+    rule's shape) keep the rule's tile (16 node slots when spilled), and
+    a forced grid is taken as asked (the launch refuses one past the
+    co-resident blocks)."""
+    kw = dict(kw)
+    route = kw.pop("route", None)
+    args = {**H100, **kw}
+    if route is None:
+        s = AS.launch_shape(n, "", 3, 8, 3, state_sums=sums, **args)
+    else:
+        import chip_smoke as CS
+        monkeypatch.setattr(
+            AS, "device_bwd_shape", lambda n, tag, tm, k, steps, sums_,
+            device: AS.launch_shape(n, tag, tm, k, steps, state_sums=sums_,
+                                    **args))
+        with CS._att_bwd_route(route):
+            s = AS.device_bwd_shape(n, "", 3, 8, 3, sums, "cuda")
+    assert s.tag() == tag
+    assert s.ecap == AS.EDGE_RATIO * s.ncap
+    assert s.smem_bytes == 4 * AS.bwd_smem_floats("", 3, 8, 3, s.ncap,
+                                                  s.ecap)
+    assert s.smem_bytes <= args["smem_bytes"]
+    assert s.route == "cluster" or route or s.grid <= args["max_grid"]
+
+
+def test_bwd_launch_rule_refusals_and_the_wide_bucket():
+    """A card where not one node's tile fits raises rather than launching
+    something else; the wide bucket at K 64, Tm 8, T 8 now fits a tile
+    (its A' tables are read from device memory); an unknown route
+    raises (chip_smoke.py::_att_bwd_route)."""
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        AS.launch_shape(256, "f32", 8, 64, 8, state_sums=True,
+                        smem_bytes=150000, max_grid=132)
+    wide = AS.launch_shape(256, "f32", 8, 64, 8, state_sums=True, **H100)
+    assert wide.tag() == "grid x52 cap 7"
+    assert AS.bwd_smem_floats("f32", 8, 64, 8, 1, 3) > AS.bwd_smem_floats(
+        "", 8, 64, 8, 1, 3)
+    import chip_smoke as CS
+    for bad in ("cluster 3", "grid x", "stream", "one"):
+        with pytest.raises(ValueError, match="route"):
+            with CS._att_bwd_route(bad):
+                pass

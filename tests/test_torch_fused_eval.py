@@ -133,3 +133,83 @@ def test_layout_checks_raise(fault):
     with pytest.raises(ValueError, match="fused_eval"):
         K.check_batch_layout(h0, mask, ng, vid, src, dst, plan, dims["k"],
                              dims["g"])
+
+
+# the folded serving kernel's launch rule (kernels/fused_step.py::
+# eval_launch_shape) on an H100's shared memory, for its narrow bucket at
+# lipo's vocab and steps; max_grid stands for the card's co-resident
+# blocks (two an SM)
+H100 = dict(smem_bytes=232448, max_grid=264)
+
+EVAL_RULE_CASES = [
+    (1, {}, "free x1 cap 2"),
+    (256, {}, "free x16 cap 32"),                  # b16: a block a graph
+    (16 * 264, {}, "free x264 cap 32"),            # the co-resident blocks
+    (16 * 264 + 1, {}, "free x264 cap 34"),        # one past: no more
+    (16512, {}, "free x264 cap 126"),              # b1024: one wave
+    (16512, dict(max_grid=114), "free x114 cap 290"),   # a smaller card
+    (16512, dict(nodes=1), "free x16512 cap 2"),   # forced shares
+    (16512, dict(nodes=1 << 30), "free x1 cap 601"),    # the tile fills
+    (16512, dict(ncap=1), "free x264 cap 1"),
+    (256, dict(nodes=40), "free x7 cap 74"),
+    # a block a graph where the batch has more graphs than EVAL_NODES
+    # shares (the wide buckets' b16: 8 slots a graph)
+    (256, dict(graphs=16), "free x16 cap 32"),
+    (128, dict(graphs=16), "free x16 cap 16"),
+    (16512, dict(graphs=1024), "free x264 cap 126"),
+    (2000, dict(graphs=300), "free x264 cap 16"),
+]
+
+
+@pytest.mark.parametrize("n,kw,tag", EVAL_RULE_CASES)
+def test_eval_launch_rule_at_its_boundaries(n, kw, tag):
+    """A block per EVAL_NODES slots or a block a graph, whichever is more,
+    at most the co-resident blocks (one wave) unless a share is forced; a
+    tile EVAL_SLACK times the share,
+    within the most node slots that fit the card (FWD_MAX_NCAP) or the
+    forced tile; the block's shared memory that tile's."""
+    args = {**H100, **kw}
+    s = K.eval_launch_shape(n, "", 6, 6, **args)
+    assert s.tag() == tag
+    assert s.route == "free" and s.ecap == K.EDGE_RATIO * s.ncap
+    assert s.smem_bytes == 4 * K.eval_smem_floats("", 6, 6, s.ncap)
+    assert s.smem_bytes <= H100["smem_bytes"]
+    if "nodes" not in kw:
+        assert s.grid == max(1, min(args["max_grid"], max(
+            -(-n // K.EVAL_NODES), kw.get("graphs", 0))))
+
+
+def test_eval_launch_rule_names_and_refusals(monkeypatch):
+    """The forced routes' names (chip_smoke.py::_eval_route, which forces
+    the launches inside it) map to the rule's keywords; an unknown one
+    raises; a card where not one node's tile fits raises rather than
+    launching something else; the wide buckets' tiles give way first."""
+    import types
+
+    import chip_smoke as CS
+    monkeypatch.setattr(
+        K, "device_eval_shape", lambda n, tag, k, steps, device, graphs=0:
+        K.eval_launch_shape(n, tag, k, steps, graphs=graphs, **H100))
+    monkeypatch.setattr(torch.cuda, "get_device_properties", lambda d:
+                        types.SimpleNamespace(
+                            shared_memory_per_block_optin=232448))
+    rule = K.device_eval_shape(16512, "", 6, 6, "cuda", 1024)
+    for route, kw in ((None, {}), ("nodes 8", dict(nodes=8)),
+                      ("one", dict(nodes=1 << 30)), ("spilled", dict(ncap=1))):
+        with CS._eval_route(route):
+            got = K.device_eval_shape(16512, "", 6, 6, "cuda", 1024)
+        assert got == K.eval_launch_shape(16512, "", 6, 6, graphs=1024,
+                                          **{**H100, **kw}), route
+    assert K.device_eval_shape(16512, "", 6, 6, "cuda", 1024) == rule
+    for bad in ("nodes", "nodes 0", "grid", "cluster 8"):
+        with pytest.raises(ValueError, match="route"):
+            with CS._eval_route(bad):
+                pass
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        K.eval_launch_shape(256, "o128", 64, 6, smem_bytes=4096,
+                            max_grid=264)
+    narrow = K.eval_launch_shape(16512, "", 6, 6, smem_bytes=40 * 1024,
+                                 max_grid=264)
+    wide = K.eval_launch_shape(16512, "o128", 6, 6, smem_bytes=40 * 1024,
+                               max_grid=264)
+    assert wide.ncap < narrow.ncap <= 126

@@ -118,6 +118,38 @@ def test_cuda_kernel_other_widths(f, od, k):
     torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL)
 
 
+# the folded serving kernel's routes (chip_smoke.py::_eval_route; None is
+# the rule's own) and the shared family's four width buckets
+EVAL_ROUTES = [None, "nodes 1", "nodes 64", "one", "spilled"]
+EVAL_BUCKETS = [(10, 14, 8), (7, 28, 6), (27, 54, 6), (27, 108, 6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", EVAL_ROUTES)
+@pytest.mark.parametrize("f,od,k", EVAL_BUCKETS)
+def test_cuda_fused_eval_on_every_route(route, f, od, k):
+    """The folded-norm kernel on each route, in each bucket (narrow, o64,
+    f32, o128) and all four folded modes, on a ragged batch with
+    single-node graphs, against fused_eval_reference (rtol 1e-4, atol
+    1e-5); twice for the same bits, one launch a call."""
+    _need_card()
+    args = _problem(np.random.RandomState(f + od), g=300, f=f, od=od, k=k)
+    for mn in ("bn1d", "none"):
+        for sn in ("bn1d", "none"):
+            kw = dict(steps=3, msg_norm=mn, state_norm=sn)
+            K.reset_launch_counts()
+            from chip_smoke import _eval_route
+            with _eval_route(route):
+                got = K.fused_eval(*args, **kw)
+                again = K.fused_eval(*args, **kw)
+            torch.cuda.synchronize()
+            assert K.launch_counts["fused_eval"] == 2
+            assert torch.equal(got, again), (mn, sn)
+            want = K.fused_eval_reference(*args, **kw)
+            torch.testing.assert_close(got, want, rtol=RTOL, atol=ATOL,
+                                       msg=lambda m: f"{mn}/{sn}: {m}")
+
+
 @pytest.mark.gpu
 def test_cuda_wrapper_raises_instead_of_falling_back():
     _need_card()
@@ -1249,15 +1281,155 @@ def test_cuda_att_steps_wrapper_raises_instead_of_falling_back():
     with pytest.raises(NotImplementedError, match="steps"):
         AS.fused_att_steps(*deep, steps=AS.MAX_STEPS + 1)
     assert set(AS.launch_counts.values()) == {0}
-    # the wide bucket's backward at the largest vocab and depth: its staged
-    # gate tables need more than a block's shared memory (the forward fits)
-    big, _ = _atts_problem(np.random.RandomState(16), 8, f=32, k=64,
-                           tm=AS.MAX_STEPS)
+    # the wide bucket's backward at the largest vocab and depth: its A'
+    # tables stay in device memory and a tile of a few nodes fits (blocks
+    # past it keep their graphs in global scratch), so it launches
+    big, big_leaves = _atts_problem(np.random.RandomState(16), 8, f=32,
+                                    k=64, tm=AS.MAX_STEPS)
     h = AS.fused_att_steps(*big, steps=AS.MAX_STEPS)
-    with pytest.raises(NotImplementedError, match="shared memory"):
-        h.sum().backward()
+    h.sum().backward()
     assert AS.launch_counts == {"fused_att_steps_fwd": 1,
-                                "fused_att_steps_bwd": 0}
+                                "fused_att_steps_bwd": 1}
+    assert all(torch.isfinite(x.grad).all() for x in big_leaves.values())
+    # a forced grid past the co-resident blocks is refused at launch (its
+    # blocks would wait on flags of blocks that never start)
+    from chip_smoke import _att_bwd_route
+    live, _ = _atts_problem(np.random.RandomState(17), 64)
+    h = AS.fused_att_steps(*live, steps=3)
+    with _att_bwd_route("grid 500"):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            h.sum().backward()
+
+
+# the backward's forced routes (chip_smoke.py::_att_bwd_route; None is the
+# rule's own), each with a mode, a batch and a bucket
+ATTS_BWD_ROUTES = [
+    (None, True, "stateless", True, 1024, 7),
+    (None, False, "none", True, 1024, 7),
+    ("cluster 1", True, "stateless", True, 37, 7),
+    ("cluster 2", False, "stateless", False, 37, 7),
+    ("cluster 4", True, "none", True, 37, 16),
+    ("cluster 8", True, "stateless", True, 37, 7),
+    ("grid", True, "stateless", True, 1024, 7),
+    ("grid 7", False, "none", True, 300, 7),
+    ("spilled", True, "stateless", True, 300, 7),
+    (None, True, "stateless", True, 64, 27),
+    ("grid 3", False, "stateless", True, 64, 32),
+    ("cluster 2", True, "none", False, 64, 30),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,per_step,state_norm,with_corr,g,f",
+                         ATTS_BWD_ROUTES)
+def test_cuda_att_steps_bwd_on_every_route(route, per_step, state_norm,
+                                          with_corr, g, f):
+    """The backward kernel on each forced route and the rule's, in both
+    buckets (f ≤ 16 and f32), Tm 1 and T, the stateless norm and none:
+    every leaf against autograd through the plain version (each divided
+    by its max abs; rtol 1e-4, atol 1e-5), run twice for the same bits,
+    one launch a run."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    rng = np.random.RandomState(3 * g + f + per_step + 5 * with_corr)
+    args, leaves = _atts_problem(rng, g, f=f, tm=3 if per_step else 1)
+    cw = torch.as_tensor(rng.randn(*args[5].shape).astype(np.float32),
+                         device="cuda")
+    kw = dict(steps=3, with_corr=with_corr, state_norm=state_norm)
+    AS.reset_launch_counts()
+    from chip_smoke import _att_bwd_route
+    with _att_bwd_route(route):
+        got = _value_and_grads(AS.fused_att_steps, args, leaves, cw, **kw)
+        again = _value_and_grads(AS.fused_att_steps, args, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert AS.launch_counts == {"fused_att_steps_fwd": 2,
+                                "fused_att_steps_bwd": 2}
+    assert all(torch.equal(got[1][n], again[1][n]) for n in got[1])
+    want = _value_and_grads(AS.fused_att_steps_reference, args, leaves, cw,
+                            **kw)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,state_norm,f", [
+    (None, "stateless", 27), ("grid 2", "none", 32)])
+def test_cuda_att_steps_bwd_wide_at_k64_tm8(route, state_norm, f):
+    """The wide bucket at K 64, Tm 8, T 8 (a 7-node tile, A' read from
+    device memory, larger graphs kept in global scratch): every leaf
+    against autograd through the plain version (each divided by its max
+    abs; rtol 1e-4, atol 1e-5), run twice for the same bits, one launch a
+    run."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    rng = np.random.RandomState(6408 + f)
+    args, leaves = _atts_problem(rng, 24, f=f, k=64, tm=8)
+    cw = torch.as_tensor(rng.randn(*args[5].shape).astype(np.float32),
+                         device="cuda")
+    kw = dict(steps=8, with_corr=True, state_norm=state_norm)
+    AS.reset_launch_counts()
+    from chip_smoke import _att_bwd_route
+    with _att_bwd_route(route):
+        got = _value_and_grads(AS.fused_att_steps, args, leaves, cw, **kw)
+        again = _value_and_grads(AS.fused_att_steps, args, leaves, cw, **kw)
+    torch.cuda.synchronize()
+    assert AS.launch_counts == {"fused_att_steps_fwd": 2,
+                                "fused_att_steps_bwd": 2}
+    assert all(torch.equal(got[1][n], again[1][n]) for n in got[1])
+    want = _value_and_grads(AS.fused_att_steps_reference, args, leaves, cw,
+                            **kw)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [None, "grid", "cluster 8"])
+def test_cuda_att_steps_bwd_against_float64(route):
+    """A 4,000-node graph among small ones (att widths, Tm 3, the
+    stateless norm and the correction): its batch sums and a long graph's
+    sums put float32 in any order near 1e-5, so every leaf is held to a
+    float64 run of the plain version: within 1e-5 of its max abs, or no further than the plain float32
+    version is. The same bits twice."""
+    _need_card()
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    rng = np.random.RandomState(4016)
+    (_, _, _, h0, mask, ng, gru, _, _, _, _, _, vid, src, dst,
+     plan) = _problem(rng, g=4, f=7, od=4, k=8, big=4000)
+    t = lambda x: torch.as_tensor(np.ascontiguousarray(x, np.float32),
+                                  device="cuda")
+    w = {"aprime": t(rng.randn(3, 8, 7, 7) * 0.3),
+         "a0": t(rng.randn(3, 7, 7) * 0.3), "qv": t(rng.randn(3, 8, 7)),
+         "q0": t(rng.randn(3, 7)), "wh": t(rng.randn(3, 7, 7) * 0.5)}
+    cw = t(rng.randn(*h0.shape))
+    kw = dict(steps=3, with_corr=True, state_norm="stateless")
+
+    def run(fn, dtype, **extra):
+        lv = {**{k: v.to(dtype) for k, v in w.items()}, "h0": h0.to(dtype),
+              **{f"gru/{n}": v.to(dtype) for n, v in gru.items()}}
+        for x in lv.values():
+            x.requires_grad_(True)
+        out = fn(lv["aprime"], lv["a0"], lv["qv"], lv["q0"], lv["wh"],
+                 lv["h0"], mask.to(dtype), ng,
+                 {n: lv[f"gru/{n}"] for n in gru}, vid, src, dst, plan,
+                 **kw, **extra)
+        gr = torch.autograd.grad((out * cw.to(dtype)).sum(),
+                                 list(lv.values()), allow_unused=True)
+        return {k: (torch.zeros_like(v) if g_ is None else g_).double()
+                for (k, v), g_ in zip(lv.items(), gr)}
+    AS.reset_launch_counts()
+    from chip_smoke import _att_bwd_route
+    with _att_bwd_route(route):
+        got = run(AS.fused_att_steps, torch.float32)
+        again = run(AS.fused_att_steps, torch.float32)
+    assert AS.launch_counts["fused_att_steps_bwd"] == 2
+    assert all(torch.equal(got[n], again[n]) for n in got)
+    plain = run(AS.fused_att_steps_reference, torch.float32)
+    exact = run(AS.fused_att_steps_reference, torch.float64)
+    for name, x in exact.items():
+        scale = x.abs().max().clamp_min(1e-30)
+        dk = float(((got[name] - x) / scale).abs().max())
+        dp = float(((plain[name] - x) / scale).abs().max())
+        assert dk <= max(ATOL, dp), (name, dk, dp)
 
 
 @pytest.mark.gpu
