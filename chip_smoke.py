@@ -405,6 +405,18 @@ def phase_build():
                                           AS.EDGE_RATIO * atts_cap):
         raise RuntimeError("fused_att_steps_bwd: the library's shared "
                            "memory disagrees with bwd_smem_floats")
+    att_bwd = A._lib("fused_att_bwd").mpnn_fused_att_bwd_smem_bytes(
+        16, 2 * A.BWD_NODES, 2 * A.BWD_NODES * A.EDGE_RATIO)
+    if att_bwd != 4 * A.bwd_smem_floats("", 16, 2 * A.BWD_NODES):
+        raise RuntimeError("fused_att_bwd: the library's shared memory "
+                           "disagrees with bwd_smem_floats")
+    from mpnn_tpu_torch.kernels import recurrence as R
+    rec = R.device_fwd_shape(16512, "", 6, 0)
+    if rec.smem_bytes != _lib_call(
+            "recurrence", "recurrence_fwd", "mpnn_recurrence_fwd_smem_bytes",
+            6, rec.ncap, rec.grid):
+        raise RuntimeError("recurrence_fwd: the library's shared memory "
+                           "disagrees with fwd_smem_floats")
     eval_cap = 2 * K.EVAL_NODES
     eval_smem = K._lib().mpnn_fused_eval_smem_bytes(16, 6, eval_cap,
                                                     K.EDGE_RATIO * eval_cap)
@@ -418,10 +430,9 @@ def phase_build():
            " B (T 3; its A tables stay in device memory, any K); "
            f"fused_psteps_fwd {_ps_fwd_smem_line()}; "
            f"{_walk_smem_line()}; "
-           + ", ".join(
-               f"{n} {getattr(A._lib(n), f'mpnn_{n}_smem_bytes')(16)} B"
-               for n in ("fused_att_fwd", "fused_att_bwd"))
-           + " (K 16); " + ", ".join(
+           + f"fused_att_fwd {A._lib('fused_att_fwd').mpnn_fused_att_fwd_smem_bytes(16)}"
+           f" B (K 16), fused_att_bwd {att_bwd} B (K 16, a tile of "
+           f"{2 * A.BWD_NODES} nodes); " + ", ".join(
                f"set2vec_{d} {S.device_shape(d, n, g, 14, 0).smem} B"
                for d in ("fwd", "bwd") for n, g in ((258, 16),
                                                      (16512, 1024)))
@@ -438,9 +449,8 @@ def phase_build():
            f"to 16 ids' tables, past them it reads A from device memory), "
            f"spmm_da "
            f"{_lib_call('spmm', 'spmm_da', 'mpnn_spmm_da_smem_bytes')} B, "
-           "recurrence_fwd "
-           f"{_lib_call('recurrence', 'recurrence_fwd', 'mpnn_recurrence_fwd_smem_bytes', 6)}"
-           " B (T 6); "
+           f"recurrence_fwd {rec.smem_bytes} B (T 6, f 10, b1024's "
+           f"{rec.tag()}); "
            f"ro_bwd {_lib_call('readout_bwd', 'ro_bwd', 'mpnn_ro_bwd_smem_bytes')}"
            f" B, ps_walk_bwd "
            f"{_lib_call('psteps_walk', 'ps_walk_bwd', 'mpnn_ps_walk_bwd_smem_bytes', 3)}"
@@ -703,6 +713,45 @@ def _eval_route(route):
         yield
     finally:
         K.device_eval_shape = keep
+
+
+@contextlib.contextmanager
+def _adv_bwd_route(route):
+    """Force the adv model's backward launch (kernels/fused_att.py::
+    launch_shape) for the launches inside: None (the rule's own choice),
+    'nodes P' (a block per P slots), 'one' (a single block), 'spilled'
+    (the rule's blocks, every tile in global scratch), as _eval_route
+    forces the folded serving kernel's."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_att as A
+    kind, _, p = (route or "").partition(" ")
+    if route is not None and route not in ("one", "spilled") and (
+            kind != "nodes" or not p.isdigit() or int(p) < 1):
+        raise ValueError(f"fused_att_bwd: unknown route {route!r}")
+    keep = A.device_bwd_shape
+
+    def forced(n, tag, k_vocab, graphs, device):
+        s = keep(n, tag, k_vocab, graphs, device)
+        if route is None:
+            return s
+        if route == "spilled":
+            return s._replace(ncap=1, ecap=A.EDGE_RATIO,
+                              smem_bytes=4 * A.bwd_smem_floats(tag, k_vocab,
+                                                               1))
+        smem = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+        return A.launch_shape(n, tag, k_vocab, smem_bytes=smem,
+                              max_grid=s.grid, graphs=graphs,
+                              nodes=1 << 30 if route == "one" else int(p))
+    A.device_bwd_shape = forced
+    try:
+        yield
+    finally:
+        A.device_bwd_shape = keep
+
+
+# the adv backward's forced routes (_adv_bwd_route; None is the rule's)
+ADV_BWD_ROUTES = (None, "nodes 1", "nodes 64", "one", "spilled")
 
 
 @contextlib.contextmanager
@@ -3024,6 +3073,40 @@ def phase_att_kernel_check(device):
             f"{eb2:.2e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failed.append(what)
+    # fused_att_bwd on every forced launch and the rule's (b1024 and the
+    # ragged batch, the correction on and off), twice for the same bits
+    routed = []
+    for tb, corr in ((big, True), (big, False), (ragged, True)):
+        aa, al, _, _ = _att_case(tb, gen, device)
+        n, g = int(tb["node_mask"].shape[0]), int(tb["graph_mask"].shape[0])
+        cw = torch.randn(n, aa[0].shape[1], generator=gen).to(device)
+        kw = dict(with_corr=corr)
+        want = _fwd_and_grads(A.fused_att_reference, aa, al, cw, kw)
+        for route in ADV_BWD_ROUTES if tb is big and corr else (None,):
+            A.reset_launch_counts()
+            with _adv_bwd_route(route):
+                got = _fwd_and_grads(A.fused_att, aa, al, cw, kw)
+                again = _fwd_and_grads(A.fused_att, aa, al, cw, kw)
+                torch.cuda.synchronize()
+                shape = A.device_bwd_shape(
+                    n, A.K.width_bucket("", A.BUCKETS, f=aa[5].shape[1],
+                                        K=aa[0].shape[0]),
+                    aa[0].shape[0], g, device)
+            counts = dict(A.launch_counts)
+            _, _, ok_b, eb = _fwd_bwd_errors(got, want)
+            same = all(torch.equal(a, b) for a, b in zip(got[1], again[1]))
+            ok = ok_b and same and counts == {"fused_att_fwd": 2,
+                                              "fused_att_bwd": 2}
+            worst["fused_att_bwd"] = max(worst["fused_att_bwd"], eb)
+            routed.append(f"{'b' + str(g) if tb is big else 'ragged'} "
+                          f"{'att' if corr else 'adj'} {route or 'rule'} "
+                          f"({shape.tag()}) {eb:.2e}"
+                          + ("" if same else " BITS DIFFER")
+                          + ("" if ok else " FAIL"))
+            if not ok:
+                failed.append(f"fused_att_bwd {route}: {counts}")
+    results.append("fused_att_bwd on forced launches (twice for the same "
+                   "bits): " + ", ".join(routed))
     for what, ok, ef, eb in _s2v_route_checks(device, gen):
         worst["set2vec_fwd"] = max(worst["set2vec_fwd"], ef)
         worst["set2vec_bwd"] = max(worst["set2vec_bwd"], eb)
@@ -5148,6 +5231,8 @@ DEC_MAIN = dict.fromkeys(DEC_KERNELS, 0)
 DEC_STEPS = 6
 # rec-kernel-check's node slots besides b16's: b1024's and 2,560 molecules'
 REC_NODES = (16512, 32896)
+# and the split's (lipo b3584), past the forward's tiles at f 30
+REC_SPLIT_NODES = 57856
 # dec-times' batch sizes; the kernels are timed at the last
 DEC_TIMES_BATCHES = (16, 1024)
 
@@ -5451,6 +5536,50 @@ def _rec_route(route, grid=None):
             tag, steps, 16))))
 
 
+@contextlib.contextmanager
+def _rec_fwd_route(route, grid=None):
+    """Force recurrence_fwd's route (kernels/recurrence.py::
+    fwd_launch_shape) for the launches inside: None (the rule's own
+    choice), 'cluster C', 'grid' (`grid` blocks, by default one per
+    FWD_GRID_NODES of the n slots, at least 2, at most 128), 'spilled' (a
+    block per 128 slots, at least 2, with 16-node tiles: blocks keep their
+    slots in global scratch), as _fwd_route forces the shared family's
+    forward."""
+    import torch
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import recurrence as R
+    keep = R.device_fwd_shape
+
+    def forced(n, tag, steps, device):
+        s = keep(n, tag, steps, device)
+        if route is None:
+            return s
+        if route.startswith("cluster"):
+            s = s._replace(route="cluster", grid=int(route.split()[1]))
+        else:
+            per = 128 if route == "spilled" else K.FWD_GRID_NODES
+            s = s._replace(route="grid",
+                           grid=grid or min(128, max(2, -(-n // per))))
+        smem = torch.cuda.get_device_properties(
+            device).shared_memory_per_block_optin
+        cap = (16 if route == "spilled" else
+               min(s.ncap, R.fwd_capacity(tag, steps, smem, s.grid)))
+        return s._replace(ncap=cap, ecap=0, smem_bytes=4 * R.fwd_smem_floats(
+            tag, steps, cap, s.grid))
+    R.device_fwd_shape = forced
+    try:
+        yield
+    finally:
+        R.device_fwd_shape = keep
+
+
+# recurrence_fwd's forced routes (_rec_fwd_route): every route of its
+# rule, and a tile of 16 nodes that leaves a block's slots in global
+# scratch
+REC_FWD_ROUTES = ("cluster 1", "cluster 2", "cluster 4", "cluster 8",
+                  "grid", "spilled")
+
+
 def phase_rec_kernel_check(device):
     """recurrence_fwd and recurrence_bwd against reference_recurrence under
     autograd on the card, T 6 at f 10 and f 30 (the wide bucket), at b16's
@@ -5534,6 +5663,49 @@ def phase_rec_kernel_check(device):
             failed.append(f"N={n} f={f} {route}: {counts}")
     results.append("recurrence_bwd on forced routes (twice for the same "
                    "bits): " + ", ".join(routed))
+    # recurrence_fwd on every forced route and the rule's, training and
+    # serving, twice for the same bits
+    routed = []
+    fwd_cases = ([(n16, 10, r) for r in (None, *REC_FWD_ROUTES)]
+                 + [(REC_NODES[0], 10, None), (REC_NODES[0], 30, None),
+                    (REC_NODES[0], 10, "cluster 8"),
+                    (REC_NODES[0], 30, "grid"),
+                    (REC_NODES[0], 30, "spilled"),
+                    (REC_NODES[-1], 10, None), (REC_SPLIT_NODES, 10, None),
+                    (REC_SPLIT_NODES, 30, None)])
+    for n, f, route in fwd_cases:
+        args, leaves, g = rec_case(n, f, gen, device)
+        want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
+                                   DEC_STEPS)[0]
+        with _rec_fwd_route(route):
+            R.reset_launch_counts()
+            with torch.no_grad():
+                runs = [R.recurrence(*args, steps=DEC_STEPS)
+                        for _ in range(2)]
+            got = [rec_value_and_grads(R.recurrence, args, leaves, g,
+                                       DEC_STEPS)[0] for _ in range(2)]
+            torch.cuda.synchronize()
+            shape = R.device_fwd_shape(n, "" if f <= 16 else "f32",
+                                       DEC_STEPS, device)
+        counts = dict(R.launch_counts)
+        flat = lambda o: [o[0], *o[1], *(x for st in o[2] for x in st)]
+        errs = [_within(x, y) for x, y in zip(got[0], want)]
+        errs += [_within(x, y) for x, y in zip(flat(runs[0]), flat(want))]
+        ef = max(e[1] for e in errs)
+        same = all(torch.equal(x, y) for x, y in zip(flat(runs[0]),
+                                                    flat(runs[1]))) and all(
+            torch.equal(x, y) for x, y in zip(got[0], got[1]))
+        ok = (all(e[0] for e in errs) and same
+              and _route_matches(shape, route)
+              and counts == {"recurrence_fwd": 4, "recurrence_bwd": 2})
+        worst["recurrence_fwd"] = max(worst["recurrence_fwd"], ef)
+        routed.append(f"N={n} f={f} {shape.tag()} {ef:.2e}"
+                      + ("" if same else " BITS DIFFER")
+                      + ("" if ok else " FAIL"))
+        if not ok:
+            failed.append(f"recurrence_fwd N={n} f={f} {route}: {counts}")
+    results.append("recurrence_fwd on forced routes, training and serving "
+                   "(twice for the same bits): " + ", ".join(routed))
     # past the init scale: GRU weights N(0, 0.3²) at b1024's slots and f
     # 30, the kernels and the plain chain each against a float64 run
     args, leaves, g = rec_case(REC_NODES[0], 30, gen, device, weight_sd=0.3)

@@ -1,6 +1,7 @@
-// Shared pieces of the attention family's message + GRU kernels
-// (fused_att_fwd.cu, fused_att_bwd.cu): the weights' layout in shared
-// memory, the gate softmax over the f real features and the GRU forward.
+// Shared pieces of the attention family's message + GRU forward kernels
+// (fused_att_fwd.cu; fused_att_steps_common.cuh builds on them): the
+// weights' layout in shared memory, the gate softmax over the f real
+// features and the GRU forward.
 //
 // Graph phases run ONE WARP per graph, lanes over its nodes: a node's
 // messages are a walk over its destination-sorted in-edges, so every edge
@@ -145,19 +146,6 @@ MPNN_UNROLL
 MPNN_UNROLL
     for (int n = 0; n < NF; ++n) t = fmaf(mat[m * FP + n], v[n], t);
     acc[m] = t;
-  }
-}
-
-// acc[n] += Σ_m mat[m][n]·v[m]: the transposed product.
-template <int NF = FP>
-__device__ __forceinline__ void matvec_t_add(const float* mat, const float* v,
-                                             float* acc) {
-MPNN_UNROLL
-  for (int n = 0; n < NF; ++n) {
-    float t = acc[n];
-MPNN_UNROLL
-    for (int m = 0; m < NF; ++m) t = fmaf(mat[m * FP + n], v[m], t);
-    acc[n] = t;
   }
 }
 

@@ -242,6 +242,103 @@ __device__ __forceinline__ void reduce_scatter(float* p, int j) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// the GRU on a group's lanes (lane j: feature j of U nodes, interleaved)
+// ---------------------------------------------------------------------------
+
+// W_hh's column of lane j (whh = the staged W_hh + j, rows of 3·FP) in
+// registers at FP 16; nothing at FP 32, where gru_step reads it from
+// shared memory.
+__device__ __forceinline__ void whh_columns(const float* whh,
+                                            float (&wc)[3][kWReg ? FP : 1]) {
+  if constexpr (kWReg) {
+#pragma unroll
+    for (int g = 0; g < 3; ++g)
+#pragma unroll
+      for (int k = 0; k < FP; ++k)
+        wc[g][k] = whh[k * 3 * FP + g * FP];
+  }
+}
+
+// The input gates (r, z, n) = W_ihᵀ·mb + b_ih of U nodes at lane j: wih =
+// the staged W_ih + j (rows of 3·FP), bih = the staged b_ih + j; mb's
+// other features by shuffles within the group.
+template <int U>
+__device__ __forceinline__ void input_gates(const float* wih,
+                                            const float* bih,
+                                            const float (&mb)[U],
+                                            float (&gr)[U], float (&gz)[U],
+                                            float (&gn)[U]) {
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    gr[u] = bih[0];
+    gz[u] = bih[FP];
+    gn[u] = bih[2 * FP];
+  }
+#pragma unroll
+  for (int k = 0; k < FP; ++k) {
+    const float* wi = wih + k * 3 * FP;
+    const float w0 = wi[0], w1 = wi[FP], w2 = wi[2 * FP];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float mk = gshfl(mb[u], k);
+      gr[u] = fmaf(mk, w0, gr[u]);
+      gz[u] = fmaf(mk, w1, gz[u]);
+      gn[u] = fmaf(mk, w2, gn[u]);
+    }
+  }
+}
+
+// One GRU step of U nodes at lane j: the hidden gates W_hhᵀ·h + b_hh (W_hh's
+// column in wc at FP 16, else read at whh = the staged W_hh + j; h's other
+// features by shuffles), then h̃ = (1 − z)·n + z·h with r = σ(gi_r + gh_r),
+// z = σ(gi_z + gh_z), n = tanh(gi_n + r·gh_n), into hn.
+template <int U>
+__device__ __forceinline__ void gru_step(const float (&wc)[3][kWReg ? FP : 1],
+                                         const float* whh, float bhr,
+                                         float bhz, float bhn,
+                                         const float (&gr)[U],
+                                         const float (&gz)[U],
+                                         const float (&gn)[U],
+                                         const float (&hprev)[U],
+                                         float (&hn)[U]) {
+  float ghr[U], ghz[U], ghn[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    ghr[u] = bhr;
+    ghz[u] = bhz;
+    ghn[u] = bhn;
+  }
+#pragma unroll
+  for (int k = 0; k < FP; ++k) {
+    float w0, w1, w2;
+    if constexpr (kWReg) {
+      w0 = wc[0][k];
+      w1 = wc[1][k];
+      w2 = wc[2][k];
+    } else {
+      const float* wh = whh + k * 3 * FP;
+      w0 = wh[0];
+      w1 = wh[FP];
+      w2 = wh[2 * FP];
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float hk = gshfl(hprev[u], k);
+      ghr[u] = fmaf(w0, hk, ghr[u]);
+      ghz[u] = fmaf(w1, hk, ghz[u]);
+      ghn[u] = fmaf(w2, hk, ghn[u]);
+    }
+  }
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    const float r = sigmoidf_(gr[u] + ghr[u]);
+    const float z = sigmoidf_(gz[u] + ghz[u]);
+    const float nn = tanhf(gn[u] + r * ghn[u]);
+    hn[u] = (1.0f - z) * nn + z * hprev[u];
+  }
+}
+
 // The first graphs g in [0, G] with graph_node_ptr[g] >= t0 and >= t1,
 // found by the block's threads together (one latency).
 __device__ inline void first_graphs_at(const int* graph_node_ptr, int G,
@@ -360,29 +457,41 @@ struct Ctx {
   Smem L2;
 };
 
+// How the block partial rows of a slot meet (combine_slot): the route,
+// the launch's blocks and this one, the real features, the grid route's
+// arrival counters (a slot each), and block 0's clock64 stamps of the
+// combine (null: none).
+struct SlotSync {
+  int route, nblocks, b, f;
+  int* counters;
+  long long* prof;
+};
+
+__device__ __forceinline__ void stamp_at(long long* prof, int slot) {
+  if (prof != nullptr && blockIdx.x == 0 && threadIdx.x == 0 &&
+      slot < kProfSlots)
+    prof[slot] = clock64();
+}
+
 // The batch mean and biased var of slot s from the route's block partial
-// rows (this block's in cpart + s·kRow): every row staged in shared memory
-// in one round trip (from the cluster's peers, or from global scratch once
-// the slot's arrival counter reads the block count), then Chan's formula
-// over the blocks in order: the P lanes of a feature take every P-th
-// block in order and combine in a fixed xor tree. Sets the slot's norm
-// constants (the stateless convention with `stateless`); block 0 writes
-// (mean, var) to `stats` when it is given. Every thread calls it.
-__device__ void finish_slot(Ctx& x, int s, bool stateless, float* stats) {
-  const FwdArgs& a = x.a;
-  float* sm = x.sm;
+// rows (this block's at bp: Σx (FP), Σ(x − mean_block)² (FP), mean_block
+// (FP), its count; the same offset in every block): every row staged in
+// shared memory (`rows`, nblocks·kStaged floats) in one round trip (from
+// the cluster's peers, or, on the grid route, published to `gp`, the
+// slot's nblocks·(2f + 1) floats of global scratch, and read back once the
+// slot's arrival counter reads the block count), then Chan's formula over
+// the blocks in order: the P lanes of a feature take every P-th block in
+// order and combine in a fixed xor tree. `n`: the batch's real rows (0:
+// summed from the rows' counts, into n). Every thread calls it and gets
+// the (mean, var) of feature threadIdx.x / P (zero past f).
+__device__ float2 combine_slot(const SlotSync& y, int s, const float* bp,
+                               float* rows, float* gp, float& n) {
   const int tid = threadIdx.x;
-  float* bp = sm + x.L2.cpart + s * kRow;
-  const int G = x.nblocks;
-  // block 0's stamps of the first step's combine: its row complete, every
-  // block's row there, staged, summed
-  const bool probe = s == 1;
-  if (probe) stamp(a, 76);
-  float* rows = sm + x.L2.rows;           // G rows of kStaged
-  if (G > 1 && a.route == kRouteCluster) {
+  const int G = y.nblocks;
+  if (G > 1 && y.route == kRouteCluster) {
     cg::cluster_group cl = cg::this_cluster();
     cl.sync();
-    if (probe) stamp(a, 77);
+    stamp_at(y.prof, 77);
     for (int e = tid; e < G * (2 * FP + 1); e += kFT) {
       const int r = e / (2 * FP + 1), c = e % (2 * FP + 1);
       // mean_block, then Σ(x − mean_block)², then the count
@@ -392,22 +501,20 @@ __device__ void finish_slot(Ctx& x, int s, bool stateless, float* stats) {
   } else if (G > 1) {
     // the published row holds the real features only: mean_block (f),
     // Σ(x − mean_block)² (f), the count
-    const int f = x.f, wr = 2 * f + 1;
+    const int f = y.f, wr = 2 * f + 1;
     auto col = [&](int c) { return (c / f) * FP + c % f; };
-    float* gp = a.scratch + Scratch(a.n_nodes, a.n_edges, a.n_graphs,
-                                    a.steps, G).cparts + size_t(s) * G * kRow;
     if (tid < wr)
-      gp[size_t(x.b) * wr + tid] =
+      gp[size_t(y.b) * wr + tid] =
           bp[tid < f ? 2 * FP + tid : tid < 2 * f ? FP + tid - f : 3 * FP];
     __threadfence();
     __syncthreads();
     if (tid == 0) {
-      atomicAdd(a.counters + s, 1);
-      while (ld_count(a.counters + s) < G) spin_pause();
+      atomicAdd(y.counters + s, 1);
+      while (ld_count(y.counters + s) < G) spin_pause();
       __threadfence();
     }
     __syncthreads();
-    if (probe) stamp(a, 77);
+    stamp_at(y.prof, 77);
     // 8 loads in flight a thread
     for (int e0 = tid; e0 < G * wr; e0 += 8 * kFT) {
       float u[8];
@@ -426,18 +533,22 @@ __device__ void finish_slot(Ctx& x, int s, bool stateless, float* stats) {
     rows[tid] = bp[tid < FP ? 2 * FP + tid : tid < 2 * FP ? tid : 3 * FP];
   }
   __syncthreads();
-  if (probe) stamp(a, 78);
+  stamp_at(y.prof, 78);
   // lane p of feature i takes blocks p, p + P, ... (padded features: zero)
   constexpr int P = kFT / FP;
   const int i = tid / P, p = tid % P;
-  const bool real = i < x.f;
-  const float n = float(x.n_real);
+  const bool real = i < y.f;
   auto psum = [](float v) {
 #pragma unroll
     for (int off = P / 2; off > 0; off >>= 1)
       v += __shfl_xor_sync(kFull, v, off);
     return v;
   };
+  if (n <= 0.f) {
+    float c = 0.f;
+    for (int bb = p; bb < G; bb += P) c += rows[bb * kStaged + 2 * FP];
+    n = psum(c);
+  }
   float v = 0.f;
   for (int bb = p; real && bb < G; bb += P) {
     const float* row = rows + bb * kStaged;
@@ -453,13 +564,38 @@ __device__ void finish_slot(Ctx& x, int s, bool stateless, float* stats) {
       w += row[FP + i] + c * d * d;
     }
   }
-  const float var = psum(w) / n;
+  return make_float2(mean, psum(w) / n);
+}
+
+// The batch mean and biased var of slot s from the route's block partial
+// rows (this block's in cpart + s·kRow; combine_slot), then the slot's
+// norm constants (the stateless convention with `stateless`); block 0
+// writes (mean, var) to `stats` when it is given. Every thread calls it.
+__device__ void finish_slot(Ctx& x, int s, bool stateless, float* stats) {
+  const FwdArgs& a = x.a;
+  float* sm = x.sm;
+  const int tid = threadIdx.x;
+  const int G = x.nblocks;
+  // block 0's stamps of the first step's combine: its row complete, every
+  // block's row there, staged, summed
+  const bool probe = s == 1;
+  if (probe) stamp(a, 76);
+  float n = float(x.n_real);
+  const float2 mv = combine_slot(
+      SlotSync{a.route, G, x.b, x.f, a.counters, probe ? a.prof : nullptr},
+      s, sm + x.L2.cpart + s * kRow, sm + x.L2.rows,
+      a.scratch + Scratch(a.n_nodes, a.n_edges, a.n_graphs, a.steps, G)
+                      .cparts + size_t(s) * G * kRow,
+      n);
+  constexpr int P = kFT / FP;
+  const int i = tid / P, p = tid % P;
+  const bool real = i < x.f;
   if (p == 0) {
-    set_slot(sm + L::stats(a.k_vocab) + s * 3 * FP, i, mean, var,
+    set_slot(sm + L::stats(a.k_vocab) + s * 3 * FP, i, mv.x, mv.y,
              stateless);
     if (stats != nullptr && x.b == 0 && real) {
-      stats[(size_t(s) * 2) * x.f + i] = mean;
-      stats[(size_t(s) * 2 + 1) * x.f + i] = var;
+      stats[(size_t(s) * 2) * x.f + i] = mv.x;
+      stats[(size_t(s) * 2 + 1) * x.f + i] = mv.y;
     }
   }
   __syncthreads();
@@ -601,13 +737,7 @@ __device__ void body(Ctx& x) {
   const float bhr = w[L::kBhh + j], bhz = w[L::kBhh + FP + j],
               bhn = w[L::kBhh + 2 * FP + j];
   float wc[3][kWReg ? FP : 1];
-  if constexpr (kWReg) {
-#pragma unroll
-    for (int g = 0; g < 3; ++g)
-#pragma unroll
-      for (int k = 0; k < FP; ++k)
-        wc[g][k] = w[L::kWhh + k * 3 * FP + g * FP + j];
-  }
+  whh_columns(w + L::kWhh + j, wc);
   for (int t = 1; t <= T; ++t) {
     const float* stp = st + (t - 1) * 3 * FP;
     const float meanp = stp[j], dp = stp[2 * FP + j];
@@ -638,22 +768,8 @@ __device__ void body(Ctx& x) {
           mb[u] = msg_stats ? maw * ((raw[u] - st0[j]) / st0[2 * FP + j]) + mab
                   : mmode == kAffine ? maw * raw[u] + mab
                                      : raw[u];
-          gr[u] = wv[L::kBih + j];
-          gz[u] = wv[L::kBih + FP + j];
-          gn[u] = wv[L::kBih + 2 * FP + j];
         }
-#pragma unroll
-        for (int k = 0; k < FP; ++k) {
-          const float* wi = wv + L::kWih + k * 3 * FP + j;
-          const float w0 = wi[0], w1 = wi[FP], w2 = wi[2 * FP];
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const float mk = gshfl(mb[u], k);
-            gr[u] = fmaf(mk, w0, gr[u]);
-            gz[u] = fmaf(mk, w1, gz[u]);
-            gn[u] = fmaf(mk, w2, gn[u]);
-          }
-        }
+        input_gates<U>(wv + L::kWih + j, wv + L::kBih + j, mb, gr, gz, gn);
 #pragma unroll
         for (int u = 0; u < U; ++u) {
           if (ok[u]) {
@@ -674,40 +790,12 @@ __device__ void body(Ctx& x) {
                                         : raw[u];
         }
       }
-      float ghr[U], ghz[U], ghn[U];
+      float hnu[U];
+      gru_step<U>(wc, wv + L::kWhh + j, bhr, bhz, bhn, gr, gz, gn, hprev,
+                  hnu);
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        ghr[u] = bhr;
-        ghz[u] = bhz;
-        ghn[u] = bhn;
-      }
-#pragma unroll
-      for (int k = 0; k < FP; ++k) {
-        float w0, w1, w2;
-        if constexpr (kWReg) {
-          w0 = wc[0][k];
-          w1 = wc[1][k];
-          w2 = wc[2][k];
-        } else {
-          const float* wh = wv + L::kWhh + k * 3 * FP + j;
-          w0 = wh[0];
-          w1 = wh[FP];
-          w2 = wh[2 * FP];
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float hk = gshfl(hprev[u], k);
-          ghr[u] = fmaf(w0, hk, ghr[u]);
-          ghz[u] = fmaf(w1, hk, ghz[u]);
-          ghn[u] = fmaf(w2, hk, ghn[u]);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const float r = sigmoidf_(gr[u] + ghr[u]);
-        const float z = sigmoidf_(gz[u] + ghz[u]);
-        const float nn = tanhf(gn[u] + r * ghn[u]);
-        const float hn = (1.0f - z) * nn + z * hprev[u];
+        const float hn = hnu[u];
         if (ok[u]) {
           s[u][kX + j] = hn;
           if (kTrain && j < f)

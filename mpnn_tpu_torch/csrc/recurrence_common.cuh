@@ -1,8 +1,7 @@
 // Shared pieces of the fused recurrence kernels (recurrence_fwd.cu,
-// recurrence_bwd.cu): the weights in shared memory, the per-slot norm
-// constants and the GRU cell. The node-chunk work mapping, the fixed-order
-// block and chunk sums, the masked-BN constants and the row loads are
-// those of the whole-step training kernels (fused_train_common.cuh).
+// recurrence_bwd.cu): the weights' layout in shared memory and the
+// per-slot norm constants (the masked-BN constants of the whole-step
+// training kernels, fused_train_common.cuh).
 //
 // The function (mpnn_tpu/kernels/recurrence.py::reference_recurrence, the
 // lipo family's step chain with its messages constant across steps):
@@ -86,63 +85,6 @@ __device__ __forceinline__ void set_rec_slot(float* st, int j, float mean,
                                              float var) {
   set_slot(st, j, mean, var);
   st[3 * FP + j] = var > kVarClamp ? 1.f : 0.f;
-}
-
-// y = (w·x̂ + b) of one real node's row x under slot `st`, affine at
-// offsets (kw, kb) of the staged weights; x̂ goes to xh.
-__device__ __forceinline__ void bn_row(const float* w, int kw, int kb,
-                                       const float* st, const float* x,
-                                       float* xh, float* y) {
-  xhat_of(st, x, xh);
-MPNN_UNROLL
-  for (int j = 0; j < FP; ++j) y[j] = w[kw + j] * xh[j] + w[kb + j];
-}
-
-// The input gates gi = W_ihᵀ·mb + b_ih of one node, written to its (3f)
-// row of device memory.
-__device__ __forceinline__ void input_gates(const float* w, const float* mb,
-                                            int f, float* gi) {
-  for (int c = 0; c < 3 * f; ++c) {
-    const int g = c / f, j = c % f;
-    float s = w[RL::kBih + g * FP + j];
-MPNN_UNROLL
-    for (int k = 0; k < FP; ++k)
-      s = fmaf(mb[k], w[RL::kWih + k * 3 * FP + g * FP + j], s);
-    gi[c] = s;
-  }
-}
-
-// The hidden gates W_hhᵀ·h + b_hh of one node at column j: (r, z, n).
-__device__ __forceinline__ void hidden_gates(const float* w, const float* h,
-                                             int j, float& rh, float& zh,
-                                             float& nh) {
-  rh = w[RL::kBhh + j];
-  zh = w[RL::kBhh + FP + j];
-  nh = w[RL::kBhh + 2 * FP + j];
-MPNN_UNROLL
-  for (int k = 0; k < FP; ++k) {
-    const float* wh = w + RL::kWhh + k * 3 * FP;
-    rh = fmaf(h[k], wh[j], rh);
-    zh = fmaf(h[k], wh[FP + j], zh);
-    nh = fmaf(h[k], wh[2 * FP + j], nh);
-  }
-}
-
-// One GRU step of a real node (mask 1): h̃ = (1 − z)·n + z·h with
-// r = σ(gi_r + gh_r), z = σ(gi_z + gh_z), n = tanh(gi_n + r·gh_n); gi is
-// the node's (3f) row of input gates. Padded features come out zero.
-__device__ __forceinline__ void gru_cell(const float* w, const float* gi,
-                                         int f, const float* h, float* out) {
-MPNN_UNROLL
-  for (int j = 0; j < FP; ++j) {
-    float rh, zh, nh;
-    hidden_gates(w, h, j, rh, zh, nh);
-    const bool in = j < f;
-    const float r = sigmoidf_((in ? gi[j] : 0.f) + rh);
-    const float z = sigmoidf_((in ? gi[f + j] : 0.f) + zh);
-    const float n = tanhf((in ? gi[2 * f + j] : 0.f) + r * nh);
-    out[j] = in ? (1.0f - z) * n + z * h[j] : 0.f;
-  }
 }
 
 }  // namespace mpnn_rec

@@ -42,7 +42,10 @@ constexpr int kMaxGroups = 32;        // counter groups of the final sum
 constexpr int kProfSlots = 80;        // block 0's clock64 stamps
 constexpr int kRed = kWB * FP * FP > kBT * 16 ? kWB * FP * FP : kBT * 16;
 
-enum Route { kRouteCluster = 0, kRouteGrid = 1 };
+// cluster: one thread-block cluster; grid: co-resident blocks that meet
+// through flags; free: independent blocks (no batch sum crosses them, only
+// the final sum of the gradient rows, through counters), any number
+enum Route { kRouteCluster = 0, kRouteGrid = 1, kRouteFree = 2 };
 
 // u64 flag words of `rounds` combine rounds, the last word the tag of the
 // launch that used them last
@@ -347,9 +350,10 @@ __device__ bool final_sum_grid(const Sync& y, float* dw, const float* rows,
     ordered_row_sums(dw, gparts, ngroups, NW, 0, NW);
   }
   // dw complete for this block's threads; no fence before the tag: the
-  // next launch on this stream reads it only after this one has ended
+  // next launch on this stream reads it only after this one has ended (a
+  // launch without flags has no tag)
   __syncthreads();
-  if (tid == 0) st_flag(y.last, y.tag);
+  if (tid == 0 && y.last != nullptr) st_flag(y.last, y.tag);
   return true;
 }
 

@@ -18,9 +18,11 @@ Every message step of this family is the same GRU(msgs, h0), so one
 application is exact (the plain model, models/sparse.py, runs the steps).
 
 `fused_att` is a torch.autograd.Function whose forward and backward are
-one CUDA launch each (csrc/fused_att_fwd.cu, csrc/fused_att_bwd.cu). The
-forward writes the masked messages for the backward only when a gradient
-is wanted; serving skips that write. CPU tensors run the plain version
+one CUDA launch each (csrc/fused_att_fwd.cu, csrc/fused_att_bwd.cu: the
+att model's T-step backward body at T 1 on independent blocks that own
+whole graphs, launch_shape's grid). The forward writes the masked
+messages for the backward only when a gradient is wanted; serving skips
+that write. CPU tensors run the plain version
 fused_att_reference (under autograd); CUDA tensors launch the kernels or
 raise — no fallback. The index plan is graphs/batching.py::
 plan_fused_eval's; the backward's source order is built on the device
@@ -31,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
@@ -45,11 +47,15 @@ BUCKETS = (("", dict(f=16, K=64)), ("f32", dict(f=32, K=64)))
 MAX_WIDTH = BUCKETS[-1][1]["f"]
 
 launch_counts: Dict[str, int] = {"fused_att_fwd": 0, "fused_att_bwd": 0}
+# the empty backward's launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"fused_att_bwd_floor": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in floor_counts:
+        floor_counts[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -101,11 +107,12 @@ _SIGNATURES = {
         "mpnn_fused_att_fwd_smem_bytes": ([_I], _I),
     },
     "fused_att_bwd": {
-        "mpnn_fused_att_bwd": ([_P] * 23 + [_I] * 7 + [_P], _I),
-        "mpnn_fused_att_bwd_smem_bytes": ([_I], _I),
+        "mpnn_fused_att_bwd": ([_P] * 25 + [_I] * 10 + [_P], _I),
+        "mpnn_fused_att_bwd_smem_bytes": ([_I] * 3, _I),
         "mpnn_fused_att_bwd_layout": ([_I, _I, _P], None),
         "mpnn_fused_att_bwd_scratch_floats": ([_I] * 5, ctypes.c_longlong),
-        "mpnn_fused_att_bwd_grid": ([_I] * 4, _I),
+        "mpnn_fused_att_bwd_counters": ([], _I),
+        "mpnn_fused_att_bwd_max_grid": ([_I], _I),
     },
 }
 
@@ -202,12 +209,117 @@ def prepare_fused_att_fwd(weights, h0, mask, node_graph, vid, src, dst,
                             tuple(tensors), launch_counts)
 
 
+# ---------------------------------------------------------------------------
+# the backward's launch (csrc/fused_att_bwd.cu: independent blocks)
+# ---------------------------------------------------------------------------
+
+BWD_THREADS = 256          # walk_bwd.cuh::kBT
+MAX_GRID = 512             # walk_bwd.cuh::kMaxGrid
+PROF_SLOTS = 80            # walk_bwd.cuh::kProfSlots: block 0's stamps
+EDGE_RATIO = K.EDGE_RATIO  # edge slots a node slot of a block's tile
+MAX_NCAP = K.MAX_NCAP      # the most node slots a block's tile is given
+# Node slots a block takes (launch_shape): a block per BWD_NODES slots or a
+# block a graph, whichever is more, at most the card's co-resident blocks
+# at the rule's tile (blocks own whole graphs and wait on no other block,
+# as the folded serving kernel's do: kernels/fused_step.py::
+# eval_launch_shape); a tile of BWD_SLACK times the share. From
+# scripts/time_att.py --sweep on an H100 (PERF.md, row 15; trace): a
+# block per 16 slots was first or within 1% of the best at adv b16 (23.3
+# us against 25.5-38.9 at a block per 4-128), b128 (24.1 against
+# 26.9-64.9) and b1024 (132 blocks, 41.6 against 45.6-87.4) and at the
+# f32 bucket's b16 (80.5 against 86.6-288.6); b1 runs one block.
+BWD_NODES = 16
+BWD_SLACK = 2
+
+
+def bwd_smem_floats(tag: str, k_vocab: int, ncap: int) -> int:
+    """Floats of one backward block's shared memory at node capacity ncap
+    and EDGE_RATIO edges a node (the T-step kernel's tile at T 1, one
+    message network: kernels/fused_att_steps.py::bwd_smem_floats)."""
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    return AS.bwd_smem_floats(tag, 1, k_vocab, 1, ncap, EDGE_RATIO * ncap)
+
+
+class AttBwdShape(NamedTuple):
+    """A backward launch: `grid` independent blocks (the free route), the
+    node and edge slots of a block's shared-memory tile and its dynamic
+    shared memory (bytes)."""
+    grid: int
+    ncap: int
+    ecap: int
+    smem_bytes: int
+    route: str = "free"
+
+    def tag(self) -> str:
+        return f"free x{self.grid} cap {self.ncap}"
+
+
+def launch_shape(n: int, tag: str, k_vocab: int, *, smem_bytes: int,
+                 max_grid: int, graphs: int = 0,
+                 nodes: Optional[int] = None,
+                 ncap: Optional[int] = None) -> AttBwdShape:
+    """The backward's launch for a batch of `n` node slots in `graphs`
+    graphs: a block per BWD_NODES slots or a block a graph, whichever is
+    more (`nodes` forces a block per `nodes` slots), at most `max_grid`
+    blocks (the co-resident ones at the rule's tile) and MAX_GRID; a
+    block's tile BWD_SLACK times its share, within the most node slots
+    (MAX_NCAP) whose tile fits `smem_bytes` (`ncap` forces a tile: 1
+    spills every block of more than one node). A block whose graphs
+    outgrow its tile keeps them in global scratch, on the same launch.
+    NotImplementedError when not one node fits."""
+    cap = K.tile_capacity(lambda c: bwd_smem_floats(tag, k_vocab, c),
+                          smem_bytes, MAX_NCAP)
+    if cap < 1:
+        raise NotImplementedError(
+            f"fused_att_bwd: one node at vocab {k_vocab} needs "
+            f"{4 * bwd_smem_floats(tag, k_vocab, 1)} bytes of shared "
+            f"memory; the card has {smem_bytes}")
+    if nodes is None:
+        grid = max(1, min(max_grid, MAX_GRID,
+                          max(-(-n // BWD_NODES), graphs)))
+    else:
+        grid = max(1, min(MAX_GRID, -(-n // nodes)))
+    c = min(cap, ncap or BWD_SLACK * -(-n // grid))
+    return AttBwdShape(grid, c, EDGE_RATIO * c,
+                       4 * bwd_smem_floats(tag, k_vocab, c))
+
+
+def device_bwd_shape(n: int, tag: str, k_vocab: int, graphs: int,
+                     device) -> AttBwdShape:
+    """launch_shape on `device`'s shared memory and the kernel's
+    co-resident blocks at the rule's tile."""
+    def rule(smem, most):
+        return launch_shape(n, tag, k_vocab, smem_bytes=smem, max_grid=most,
+                            graphs=graphs)
+    return K.device_shape(
+        ("fused_att_bwd", n, tag, k_vocab, graphs), device,
+        lambda smem, _: _lib("fused_att_bwd", tag)
+        .mpnn_fused_att_bwd_max_grid(rule(smem, MAX_GRID).smem_bytes), rule)
+
+
+# The backward's counters (its final sum's arrivals), one buffer per
+# device and stream, zeroed once: every launch leaves them zero.
+_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _counters(lib, device, stream: int) -> torch.Tensor:
+    key = (str(device), stream)
+    if key not in _COUNTERS:
+        _COUNTERS[key] = torch.zeros(lib.mpnn_fused_att_bwd_counters(),
+                                     dtype=torch.int32, device=device)
+    return _COUNTERS[key]
+
+
 def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
-                          plan: FusedEvalPlan, *, with_corr: bool
+                          plan: FusedEvalPlan, *, with_corr: bool,
+                          prof=None, floor: bool = False
                           ) -> K.PreparedLaunch:
     """One checked backward launch on the forward's residuals (the batch
-    tensors as the forward checked them): outputs dh0 (N, f) and the flat
-    gradient of grad_layout."""
+    tensors as the forward checked them), on its launch (device_bwd_shape):
+    outputs dh0 (N, f) and the flat gradient of grad_layout. A
+    measurement may take block 0's clock64 stamps (`prof`, int64 with
+    PROF_SLOTS slots) or launch the empty walk (`floor`: the same grid and
+    final sum, no arithmetic; counted as its own key)."""
     device = h0.device
     n, f = h0.shape
     w = dict(weights)
@@ -215,6 +327,7 @@ def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
     e, g = src.shape[0], plan.graph_node_ptr.shape[0] - 1
     for name, t in [("msgs", msgs), ("gh", gh)]:
         K._check(name, t, (n, f), device, torch.float32)
+    K._check_prof(prof, PROF_SLOTS)
     tag = K.width_bucket("fused_att", BUCKETS, f=f, K=k_vocab)
     lib = _lib("fused_att_bwd", tag)
     layout = grad_layout(k_vocab, f)
@@ -223,22 +336,27 @@ def prepare_fused_att_bwd(weights, h0, msgs, gh, vid, src, dst,
     if [v[0] for v in layout.values()] != list(c_layout):
         raise RuntimeError("fused_att_bwd: the gradient layout of the "
                            "built library disagrees with grad_layout")
-    grid = K._grid(lib, "mpnn_fused_att_bwd_grid", k_vocab, n, g, e)
+    shape = device_bwd_shape(n, tag, k_vocab, g, device)
     kw = dict(dtype=torch.float32, device=device)
     dh0 = torch.empty(n, f, **kw)
     dw = torch.empty(layout["total"][0], **kw)
     scratch = torch.empty(lib.mpnn_fused_att_bwd_scratch_floats(
-        n, e, k_vocab, f, grid), **kw)
-    src_order, src_ptr = K.source_order(src, n)
-    tensors = _kernel_tensors(weights, tag) + [
-        h0, msgs, gh, vid, src, dst, plan.edge_order, plan.dst_ptr,
-        src_order, src_ptr, plan.graph_node_ptr, dh0, dw, scratch]
-    args = (*(t.data_ptr() for t in tensors), n, g, e, f, k_vocab,
-            int(with_corr), grid, torch.cuda.current_stream(device)
-            .cuda_stream)
-    return K.PreparedLaunch("fused_att_bwd", lib.mpnn_fused_att_bwd,
+        n, e, k_vocab, f, shape.grid), **kw)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counters = _counters(lib, device, stream) if shape.grid > 1 else None
+    # each edge's position in the destination order, sorted by source
+    src_pos, src_ptr = K.source_order(src[plan.edge_order.long()], n)
+    tensors = [w[k] for k in _GRAD_LEAVES] + [
+        h0, msgs, gh, vid, src, dst, plan.edge_order, plan.dst_ptr, src_pos,
+        src_ptr, plan.graph_node_ptr, dh0, dw, scratch]
+    args = (*(t.data_ptr() for t in tensors), K._ptr(counters),
+            K._ptr(prof), n, g, e, f, k_vocab, int(with_corr), shape.grid,
+            shape.ncap, shape.ecap, int(floor), stream)
+    return K.PreparedLaunch("fused_att_bwd_floor" if floor
+                            else "fused_att_bwd", lib.mpnn_fused_att_bwd,
                             lib.mpnn_cuda_error_string, args, (dh0, dw),
-                            tuple(tensors), launch_counts)
+                            tuple(tensors) + (counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 class _FusedAtt(torch.autograd.Function):

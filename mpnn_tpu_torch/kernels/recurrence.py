@@ -15,9 +15,9 @@ make_recurrence_op(steps, f) returns the `recurrence_fn` hook of
 models/sparse.py. The JAX package picks one of four TPU variants by VMEM
 size (make_recurrence_op_auto); they compute the same function, and here
 one pair of kernels does at any node count: csrc/recurrence_fwd.cu (one
-cooperative launch) and csrc/recurrence_bwd.cu (one launch on the route
-launch_shape picks: a thread-block cluster or a grid of co-resident
-blocks, no grid barrier). CPU tensors run the plain version
+launch on the route fwd_launch_shape picks) and csrc/recurrence_bwd.cu
+(one launch on the route launch_shape picks): each a thread-block
+cluster or a grid of co-resident blocks, no grid barrier. CPU tensors run the plain version
 (reference_recurrence under autograd); CUDA tensors launch the kernels or
 raise.
 """
@@ -40,13 +40,16 @@ BUCKETS = (("", dict(f=16)), ("f32", dict(f=32)))
 MAX_STEPS = 32
 
 launch_counts: Dict[str, int] = {"recurrence_fwd": 0, "recurrence_bwd": 0}
-# the empty walk's launches (a measurement's yardstick, not the path's)
-floor_counts: Dict[str, int] = {"recurrence_bwd_floor": 0}
+# the empty kernels' launches (a measurement's yardstick, not the path's)
+floor_counts: Dict[str, int] = {"recurrence_fwd_floor": 0,
+                                "recurrence_bwd_floor": 0}
 
 
 def reset_launch_counts() -> None:
     for k in launch_counts:
         launch_counts[k] = 0
+    for k in floor_counts:
+        floor_counts[k] = 0
 
 
 def reference_recurrence(msgs, h0, mask, gru, ma_bn, bn, *, steps: int):
@@ -69,10 +72,11 @@ def reference_recurrence(msgs, h0, mask, gru, ma_bn, bn, *, steps: int):
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "recurrence_fwd": {
-        "mpnn_recurrence_fwd": ([_P] * 15 + [_I] * 5 + [_P], _I),
-        "mpnn_recurrence_fwd_smem_bytes": ([_I], _I),
-        "mpnn_recurrence_fwd_scratch_floats": ([_I, _I], ctypes.c_longlong),
-        "mpnn_recurrence_fwd_grid": ([_I, _I], _I),
+        "mpnn_recurrence_fwd": ([_P] * 17 + [_I] * 7 + [_P], _I),
+        "mpnn_recurrence_fwd_smem_bytes": ([_I] * 3, _I),
+        "mpnn_recurrence_fwd_scratch_floats": ([_I] * 3, ctypes.c_longlong),
+        "mpnn_recurrence_fwd_counters": ([], _I),
+        "mpnn_recurrence_fwd_max_grid": ([_I], _I),
     },
     "recurrence_bwd": {
         "mpnn_recurrence_bwd": ([_P] * 21 + [_I] * 7 + [_P], _I),
@@ -130,25 +134,123 @@ def _check_inputs(msgs, h0, mask, weights, steps):
     return n, f, tag
 
 
+# ---------------------------------------------------------------------------
+# the forward's routes (csrc/recurrence_fwd.cu)
+# ---------------------------------------------------------------------------
+
+FWD_THREADS = 256          # fused_step_forward.cuh::kFT
+FWD_PROF_SLOTS = 80        # fused_step_forward.cuh::kProfSlots
+# Every slot's statistics cross blocks, so the route policy is the shared
+# family's forward one (kernels/fused_step.py::fwd_policy with sums: a
+# cluster up to FWD_CLUSTER_SLOTS slots, past them a grid of a block per
+# FWD_STAT_NODES slots, at most max(FWD_STAT_BLOCKS, ceil(sqrt(n)))
+# blocks), its constants kept there. scripts/time_recurrence.py --fwd
+# --sweep on an H100 (PERF.md, row 5; events) found the rule's route first
+# or within 1% at lipo b16 (a cluster of 8, 29.3 us against 36.2-80.9),
+# b128 (70 blocks, 43.9 against 43.7-124.7), b1024 (129 blocks) and the
+# split's 57,856 slots (132 blocks).
+
+
+def fwd_smem_floats(tag: str, steps: int, ncap: int, blocks: int) -> int:
+    """Floats of one forward block's shared memory in a launch of `blocks`
+    blocks (csrc/recurrence_fwd.cu::Smem after recurrence_common.cuh::RL):
+    the staged weights and each slot's norm constants, each slot's partial
+    row, the reduction scratch, every block's partial row of the slot
+    being combined (the cluster route stages them), the tile's mask and
+    its rows (4·FP floats a node)."""
+    fp = _fp(tag)
+    al4 = lambda v: (v + 3) & ~3
+    row, staged = 3 * fp + 4, 2 * fp + 4            # kRow, kStaged
+    n = al4(6 * fp * fp + 10 * fp + 4 * fp * (steps + 1))
+    n += al4((steps + 1) * row) + 2 * FWD_THREADS
+    n += max(blocks, 1) * staged
+    return n + al4(ncap) + ncap * 4 * fp
+
+
+def fwd_capacity(tag: str, steps: int, smem_bytes: int, blocks: int) -> int:
+    """The most node slots (at most K.FWD_MAX_NCAP) whose tile fits
+    `smem_bytes` of a forward block in a launch of up to `blocks` blocks;
+    0 when none does."""
+    return K.tile_capacity(lambda c: fwd_smem_floats(tag, steps, c, blocks),
+                           smem_bytes, K.FWD_MAX_NCAP)
+
+
+def fwd_launch_shape(n: int, tag: str, steps: int, *, smem_bytes: int,
+                     max_grid: int) -> K.FwdShape:
+    """The forward's route for `n` node slots: the shared family's forward
+    policy (fused_step.fwd_policy, every slot's sums crossing blocks) on
+    this kernel's tile. A block whose slots outgrow its tile (past what
+    the co-resident blocks hold: ~57,856 slots of lipo's split at f 10 fit)
+    keeps them in global scratch, on the same route."""
+    return K.fwd_policy(
+        f"recurrence_fwd: one node at T {steps}", n,
+        lambda c, g: fwd_smem_floats(tag, steps, c, g), sums=True,
+        smem_bytes=smem_bytes, max_grid=max_grid)
+
+
+def device_fwd_shape(n: int, tag: str, steps: int, device) -> K.FwdShape:
+    """fwd_launch_shape on `device`'s shared memory and the kernel's
+    co-resident blocks at the tile that fills a block's shared memory."""
+    def most(smem, sms):
+        cap = max(fwd_capacity(tag, steps, smem, sms), 1)
+        return _lib("recurrence_fwd", tag).mpnn_recurrence_fwd_max_grid(
+            4 * fwd_smem_floats(tag, steps, cap, sms))
+    return K.device_shape(
+        ("recurrence_fwd", n, tag, steps), device, most,
+        lambda smem, m: fwd_launch_shape(n, tag, steps, smem_bytes=smem,
+                                         max_grid=m))
+
+
+# The forward's counters on the grid route (each slot's arrivals, the
+# launch's), one buffer per device and stream, zeroed once: every launch
+# leaves them zero.
+_FWD_COUNTERS: Dict[tuple, torch.Tensor] = {}
+
+
+def _fwd_counters(lib, device, stream: int) -> torch.Tensor:
+    key = (str(device), stream)
+    if key not in _FWD_COUNTERS:
+        _FWD_COUNTERS[key] = torch.zeros(lib.mpnn_recurrence_fwd_counters(),
+                                         dtype=torch.int32, device=device)
+    return _FWD_COUNTERS[key]
+
+
 def prepare_recurrence_fwd(msgs, h0, mask, weights, *, steps: int,
-                           stash: bool) -> K.PreparedLaunch:
-    """One checked forward launch. Outputs (h_T (N, f), stats (T+1, 2, f),
-    htil): with `stash` htil (T, N, f) holds every step's pre-norm state
-    for the backward; without, a one-slot scratch."""
+                           stash: bool, prof=None, floor: bool = False
+                           ) -> K.PreparedLaunch:
+    """One checked forward launch on its route (device_fwd_shape). Outputs
+    (h_T (N, f), stats (T+1, 2, f), htil): with `stash` htil (T, N, f)
+    holds every step's pre-norm state for the backward; without, an empty
+    tensor (serving writes no residuals). A measurement may take block 0's
+    clock64 stamps (`prof`, int64 with FWD_PROF_SLOTS slots) or launch the
+    empty forward (`floor`: the route's grid and combines, no arithmetic;
+    counted as its own key)."""
     n, f, tag = _check_inputs(msgs, h0, mask, weights, steps)
+    K._check_prof(prof, FWD_PROF_SLOTS)
     lib = _lib("recurrence_fwd", tag)
-    grid = K._grid(lib, "mpnn_recurrence_fwd_grid", steps, n)
-    kw = dict(dtype=torch.float32, device=h0.device)
+    device = h0.device
+    shape = device_fwd_shape(n, tag, steps, device)
+    kw = dict(dtype=torch.float32, device=device)
     ht = torch.empty(n, f, **kw)
     stats = torch.empty(steps + 1, 2, f, **kw)
-    htil = torch.empty(steps if stash else 1, n, f, **kw)
-    scratch = torch.empty(lib.mpnn_recurrence_fwd_scratch_floats(n, f), **kw)
+    htil = torch.empty((steps, n, f) if stash else (0,), **kw)
+    scratch = torch.empty(lib.mpnn_recurrence_fwd_scratch_floats(
+        n, steps, shape.grid), **kw)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    counters = (_fwd_counters(lib, device, stream)
+                if shape.route == "grid" and shape.grid > 1 else None)
     keep = (msgs, h0, mask, *weights, ht, stats, htil, scratch)
-    args = (*(t.data_ptr() for t in keep), n, f, steps, int(stash), grid,
-            torch.cuda.current_stream(h0.device).cuda_stream)
-    return K.PreparedLaunch("recurrence_fwd", lib.mpnn_recurrence_fwd,
+    ptrs = [t.data_ptr() for t in keep]
+    if not stash:
+        ptrs[-2] = None
+    args = (*ptrs, K._ptr(counters), K._ptr(prof), n, f, steps,
+            int(shape.route == "grid"), shape.grid, shape.ncap, int(floor),
+            stream)
+    return K.PreparedLaunch("recurrence_fwd_floor" if floor
+                            else "recurrence_fwd", lib.mpnn_recurrence_fwd,
                             lib.mpnn_cuda_error_string, args,
-                            (ht, stats, htil), keep, launch_counts)
+                            (ht, stats, htil), keep + (counters, prof),
+                            floor_counts if floor else launch_counts)
 
 
 # ---------------------------------------------------------------------------

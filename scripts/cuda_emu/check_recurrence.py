@@ -3,13 +3,12 @@ csrc/recurrence_bwd.cu) run on the CPU through the CUDA stand-in, driven
 through the port's own op (kernels/recurrence.py: the checks, the
 autograd Function, the residual stash) and held against the plain version
 reference_recurrence: h_T, both statistics and every gradient leaf, in
-the narrow (f <= 16) and the wide bucket (f <= 32), with a random mask,
-node counts that leave a chunk ragged and more chunks than blocks; the
-backward on the route its rule picks and on every forced route
-(chip_smoke.py::_rec_route: clusters of 1-8 blocks, a grid, a 16-node tile
-that leaves blocks in global scratch), each twice for the same bits; then
-the serving launch (no residuals); then, at GRU weights past the init
-scale, the kernels against a float64 run. A rehearsal before a chip call;
+the narrow (f <= 16) and the wide bucket (f <= 32), with a random mask;
+each kernel on the route its rule picks and on every forced route
+(chip_smoke.py::_rec_fwd_route and _rec_route: clusters of 1-8 blocks, a
+grid, a 16-node tile that leaves blocks in global scratch), each twice
+for the same bits; then the serving launch (no residuals); then, at GRU
+weights past the init scale, the kernels against a float64 run. A rehearsal before a chip call;
 timings mean nothing here. Run from the repository root:
 
     python scripts/cuda_emu/check_recurrence.py [--asan]
@@ -29,8 +28,8 @@ sys.path[:0] = [HERE, os.path.join(os.path.dirname(os.path.dirname(HERE)),
 
 import emu                                                     # noqa: E402
 from mpnn_tpu_torch.kernels import recurrence as R             # noqa: E402
-from chip_smoke import (_rec_route, rec_case,                 # noqa: E402
-                        rec_distances, rec_float64,
+from chip_smoke import (_rec_fwd_route, _rec_route,           # noqa: E402
+                        rec_case, rec_distances, rec_float64,
                         rec_value_and_grads)
 
 
@@ -38,18 +37,21 @@ def close(got, want):
     return bool(((got - want).abs() <= 1e-5 + 1e-4 * want.abs()).all())
 
 
-def case(seed, n, f, steps, route=None, grid=None):
+def case(seed, n, f, steps, route=None, grid=None, fwd=None, fwd_grid=None):
     args, leaves, g = rec_case(n, f, torch.Generator().manual_seed(seed),
                                "cpu")
     R.reset_launch_counts()
-    with _rec_route(route, grid):
+    tag = "" if f <= 16 else "f32"
+    with _rec_route(route, grid), _rec_fwd_route(fwd, fwd_grid):
         got = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
         again = rec_value_and_grads(R.recurrence, args, leaves, g, steps)
-        shape = R.device_bwd_shape(n, "" if f <= 16 else "f32", steps,
-                                   "cpu")
-    assert R.launch_counts == {"recurrence_fwd": 2, "recurrence_bwd": 2}
-    same = all(torch.equal(x, y) for x, y in zip(got[1].values(),
-                                                  again[1].values()))
+        shape = R.device_bwd_shape(n, tag, steps, "cpu")
+        fshape = R.device_fwd_shape(n, tag, steps, "cpu")
+        with torch.no_grad():
+            served = R.recurrence(*args, steps=steps)[0]
+    assert R.launch_counts == {"recurrence_fwd": 3, "recurrence_bwd": 2}
+    same = all(torch.equal(x, y) for x, y in zip(
+        [*got[0], *got[1].values()], [*again[0], *again[1].values()]))
     want = rec_value_and_grads(R.reference_recurrence, args, leaves, g,
                                steps)
     ok = all(close(x, y) for x, y in zip(got[0], want[0]))
@@ -59,10 +61,9 @@ def case(seed, n, f, steps, route=None, grid=None):
         scale = float(w.abs().max()) or 1.0
         eb = max(eb, float(((got[1][name] - w) / scale).abs().max()))
         ok = ok and close(got[1][name] / scale, w / scale)
-    with torch.no_grad():
-        served = R.recurrence(*args, steps=steps)[0]
     ok = ok and close(served, want[0][0]) and same
-    print(f"N={n} f={f} T={steps} {shape.tag()}: fwd+stats {ef:.2e} grads "
+    print(f"N={n} f={f} T={steps} fwd {fshape.tag()} bwd {shape.tag()}: "
+          f"fwd+stats {ef:.2e} grads "
           f"{eb:.2e}{'' if same else ' BITS DIFFER'} "
           f"{'ok' if ok else 'FAIL'}", flush=True)
     return ok
@@ -85,8 +86,8 @@ def float64_case(seed, n, f, steps):
 
 
 def main(argv) -> int:
-    emu.build(["recurrence_fwd:FwdArgs", "recurrence_bwd:BwdArgs",
-               "recurrence_fwd.f32:FwdArgs", "recurrence_bwd.f32:BwdArgs"],
+    emu.build(["recurrence_fwd:RecFwdArgs", "recurrence_bwd:BwdArgs",
+               "recurrence_fwd.f32:RecFwdArgs", "recurrence_bwd.f32:BwdArgs"],
               asan="--asan" in argv)
     emu.emulate(R)
     oks = [case(0, 256, 10, 4),           # TestRecurrence's shape
@@ -102,6 +103,17 @@ def main(argv) -> int:
            case(12, 90, 30, 2, "cluster 4"),
            case(13, 90, 30, 2, "spilled"),
            case(14, 5, 10, 2, "cluster 8"),   # blocks without nodes
+           # every forced route of the forward, narrow and wide, T up to
+           # the kernels' 32 steps
+           *[case(15 + i, 200, 10, 3, fwd=route,
+                  fwd_grid=3 if route == "grid" else None)
+             for i, route in enumerate(("cluster 1", "cluster 2",
+                                        "cluster 4", "cluster 8", "grid",
+                                        "spilled"))],
+           case(21, 90, 30, 2, fwd="cluster 4"),
+           case(22, 300, 27, 3, fwd="spilled"),
+           case(23, 5, 10, 2, fwd="cluster 8"),  # blocks without nodes
+           case(24, 120, 10, 32, fwd="grid", fwd_grid=3),
            float64_case(5, 700, 30, 6)]
     return 0 if all(oks) else 1
 

@@ -51,6 +51,7 @@ using std::min;
 struct uint3 { unsigned x, y, z; };
 struct alignas(16) float4 { float x, y, z, w; };
 struct alignas(8) float2 { float x, y; };
+inline float2 make_float2(float x, float y) { return float2{x, y}; }
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }

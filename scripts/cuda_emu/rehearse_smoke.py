@@ -65,7 +65,7 @@ ARGS = {"fused_eval": "mpnn_step::FwdArgs", "fused_step_fwd": "FwdArgs",
         "edge_mlp_fwd": "FwdArgs", "edge_mlp_bwd": "BwdArgs",
         "fused_bilinear_fwd": "FwdArgs", "fused_bilinear_bwd": "BwdArgs",
         "spmm_fwd": "FwdArgs", "spmm_da": "DaArgs",
-        "recurrence_fwd": "FwdArgs", "recurrence_bwd": "BwdArgs",
+        "recurrence_fwd": "RecFwdArgs", "recurrence_bwd": "BwdArgs",
         "sddmm_fwd": "FwdArgs", "sddmm_bwd": "BwdArgs",
         "ro_bwd": "RoArgs", "msg_bwd": "MsgArgs", "ps_walk_bwd": "WalkArgs"}
 
@@ -114,6 +114,14 @@ def main(argv) -> int:
     rec_route = CS._rec_route
     CS._rec_route = lambda route, grid=None: rec_route(
         route, grid or (4 if route == "grid" else None))
+    # recurrence_fwd's forced grids within the stand-in's 3 co-resident
+    # blocks (its grid route refuses more), the split's slots cut
+    rec_fwd_route = CS._rec_fwd_route
+    CS._rec_fwd_route = lambda route, grid=None: rec_fwd_route(
+        route, grid or (3 if route in ("grid", "spilled") else None))
+    CS.REC_SPLIT_NODES = 3000
+    # fused_att_bwd's launches: a block per 16 nodes for a block per node
+    CS.ADV_BWD_ROUTES = (None, "nodes 16", "nodes 64", "one", "spilled")
     # fused_att_steps_bwd's forced grids within the stand-in's 3
     # co-resident blocks (its grid route refuses more)
     att_route = CS._att_bwd_route

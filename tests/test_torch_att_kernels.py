@@ -252,3 +252,124 @@ def test_grad_layouts_cover_every_leaf_once():
         parts = mod.split_grads(flat, *args)
         assert torch.equal(torch.cat([parts[nm].reshape(-1)
                                       for nm in mod._GRAD_LEAVES]), flat)
+
+
+@pytest.mark.parametrize("with_corr", [True, False])
+def test_fused_att_is_the_one_step_att_steps_function(with_corr):
+    """The adv model's op is the att model's T-step op at one step, one
+    message network and no state norm, bit for bit: the forward and the
+    autograd gradient of every leaf on the same seeded inputs (the
+    identity on which the adv backward kernel builds the T-step one's
+    body at T 1)."""
+    from mpnn_tpu_torch.kernels import fused_att_steps as AS
+    p, _, dims, cw = att_problem(3)
+    args, leaves = torch_att_args(p, dims)
+    c = torch.tensor(cw)
+    h = A.fused_att_reference(*args, with_corr=with_corr)
+    want = torch.autograd.grad((h * c).sum(), list(leaves.values()),
+                               allow_unused=True)
+    one = [t.unsqueeze(0) for t in args[:5]]
+    h1 = AS.fused_att_steps_reference(*one, *args[5:], steps=1,
+                                      with_corr=with_corr,
+                                      state_norm="none")
+    got = torch.autograd.grad((h1 * c).sum(), list(leaves.values()),
+                              allow_unused=True)
+    assert torch.equal(h, h1)
+    for name, w, g in zip(leaves, want, got):
+        assert (w is None) == (g is None), name
+        if w is not None:
+            assert torch.equal(w, g), name
+
+
+# ---------------------------------------------------------------------------
+# the backward kernel's launch rule (kernels/fused_att.py::launch_shape),
+# decided on the host from shapes alone
+# ---------------------------------------------------------------------------
+
+H100_SMEM = 232448                   # opt-in bytes a block
+
+# (node slots, graphs, bucket, vocab, co-resident blocks, the launch's tag)
+BWD_RULE_CASES = [
+    (14, 1, "", 8, 132, "free x1 cap 28"),          # b1: one block
+    (270, 16, "", 8, 132, "free x17 cap 32"),       # b16: a block per 16
+    (100, 20, "", 8, 132, "free x20 cap 10"),       # a block a graph
+    (132 * 16, 132, "", 8, 132, "free x132 cap 32"),  # the card's blocks
+    (132 * 16 + 1, 132, "", 8, 132, "free x132 cap 34"),  # one past them
+    (16512, 1024, "", 8, 132, "free x132 cap 187"),   # b1024, tile's cap
+    (16512, 1024, "", 64, 264, "free x264 cap 126"),  # two blocks an SM
+    (16512, 1024, "f32", 64, 132, "free x132 cap 71"),  # the wide bucket
+    (10 ** 6, 4000, "", 8, 1000, "free x512 cap 187"),  # MAX_GRID
+]
+
+
+@pytest.mark.parametrize("n,g,tag,k,most,want", BWD_RULE_CASES)
+def test_att_bwd_rule_at_its_boundaries(n, g, tag, k, most, want):
+    """A block per BWD_NODES slots or a block a graph, whichever is more,
+    at most the co-resident blocks and MAX_GRID; a tile of BWD_SLACK
+    times the share within the most node slots a block's shared memory
+    holds (the bytes are the tile's, one more node does not fit)."""
+    s = A.launch_shape(n, tag, k, smem_bytes=H100_SMEM, max_grid=most,
+                       graphs=g)
+    assert s.tag() == want
+    assert s.grid == min(most, A.MAX_GRID, max(-(-n // A.BWD_NODES), g))
+    cap = A.K.tile_capacity(lambda c: A.bwd_smem_floats(tag, k, c),
+                            H100_SMEM, A.MAX_NCAP)
+    assert s.ncap == min(cap, A.BWD_SLACK * -(-n // s.grid))
+    assert s.ecap == A.EDGE_RATIO * s.ncap
+    assert s.smem_bytes == 4 * A.bwd_smem_floats(tag, k, s.ncap) \
+        <= H100_SMEM
+    assert 4 * A.bwd_smem_floats(tag, k, cap + 1) > H100_SMEM
+
+
+def test_att_bwd_rule_on_a_smaller_card_and_forced_launches():
+    """Less shared memory shrinks the tile (blocks past it keep their
+    graphs in global scratch, on the same launch); a card that cannot
+    hold one node raises; forced launches (a check's and a
+    measurement's) take a block per `nodes` slots past the co-resident
+    blocks (up to MAX_GRID) or the given tile."""
+    big = A.launch_shape(16512, "", 8, smem_bytes=H100_SMEM, max_grid=132,
+                         graphs=1024)
+    small = A.launch_shape(16512, "", 8, smem_bytes=100 * 1024,
+                           max_grid=132, graphs=1024)
+    assert small.grid == big.grid and small.ncap < big.ncap
+    assert small.smem_bytes <= 100 * 1024
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        A.launch_shape(16, "", 8, smem_bytes=8 * 1024, max_grid=132)
+    one = A.launch_shape(16512, "", 8, smem_bytes=H100_SMEM, max_grid=132,
+                         graphs=1024, nodes=1 << 30)
+    assert (one.grid, one.ncap) == (1, big.ncap)
+    per = A.launch_shape(16512, "", 8, smem_bytes=H100_SMEM, max_grid=132,
+                         graphs=1024, nodes=64)
+    assert per.grid == 258
+    assert A.launch_shape(16512, "", 8, smem_bytes=H100_SMEM, max_grid=132,
+                          nodes=1).grid == A.MAX_GRID
+    spilled = A.launch_shape(270, "", 8, smem_bytes=H100_SMEM, max_grid=132,
+                             graphs=16, ncap=1)
+    assert (spilled.grid, spilled.ncap, spilled.ecap) == (17, 1,
+                                                          A.EDGE_RATIO)
+
+
+@pytest.mark.parametrize("route,want", [
+    (None, "free x17 cap 32"), ("nodes 1", "free x270 cap 2"),
+    ("nodes 64", "free x5 cap 108"), ("one", "free x1 cap 187"),
+    ("spilled", "free x17 cap 1")])
+def test_att_bwd_forced_launches(monkeypatch, route, want):
+    """chip_smoke.py::_adv_bwd_route forces each launch on the rule's
+    card (an H100's shared memory and 132 co-resident blocks) at b16's
+    270 node slots in 16 graphs, and restores the rule after."""
+    import types
+    from chip_smoke import _adv_bwd_route
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d: types.SimpleNamespace(
+            shared_memory_per_block_optin=H100_SMEM,
+            multi_processor_count=132))
+    rule = lambda n, tag, k, g, device: A.launch_shape(
+        n, tag, k, smem_bytes=H100_SMEM, max_grid=132, graphs=g)
+    monkeypatch.setattr(A, "device_bwd_shape", rule)
+    with _adv_bwd_route(route):
+        assert A.device_bwd_shape(270, "", 8, 16, "cuda").tag() == want
+    assert A.device_bwd_shape is rule
+    with pytest.raises(ValueError, match="unknown route"):
+        with _adv_bwd_route("grid"):
+            pass

@@ -1157,6 +1157,67 @@ def test_cuda_att_wrappers_raise_instead_of_falling_back():
         S.launch_counts.values()) == {0}
 
 
+# the adv backward's forced launches (chip_smoke.py::_adv_bwd_route; None
+# is the rule's own), each with the correction on or off, a batch and a
+# bucket
+ATT_BWD_ROUTES = [
+    (None, True, 1024, 7), (None, False, 1024, 7), (None, True, 16, 7),
+    ("nodes 1", True, 1024, 7), ("nodes 64", False, 300, 7),
+    ("one", True, 37, 7), ("spilled", True, 300, 7), (None, True, 37, 16),
+    (None, True, 64, 27), ("nodes 1", False, 64, 32), ("one", True, 64, 30),
+    ("spilled", False, 64, 24),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route,with_corr,g,f", ATT_BWD_ROUTES)
+def test_cuda_att_bwd_on_every_route(route, with_corr, g, f):
+    """The adv backward kernel on each forced launch and the rule's, in
+    both buckets (f ≤ 16 and f32), with and without the correction: every
+    leaf against autograd through the plain version (each divided by its
+    max abs; rtol 1e-4, atol 1e-5), run twice for the same bits, one
+    launch a run."""
+    _need_card()
+    from chip_smoke import _adv_bwd_route
+    from mpnn_tpu_torch.kernels import fused_att as A
+    rng = np.random.RandomState(5 * g + f + with_corr)
+    args, leaves = _att_problem(rng, g, f=f, k=64 if f > 16 else 8)
+    cw = torch.as_tensor(rng.randn(*args[5].shape).astype(np.float32),
+                         device="cuda")
+    A.reset_launch_counts()
+    with _adv_bwd_route(route):
+        got = _value_and_grads(A.fused_att, args, leaves, cw,
+                               with_corr=with_corr)
+        again = _value_and_grads(A.fused_att, args, leaves, cw,
+                                 with_corr=with_corr)
+    torch.cuda.synchronize()
+    assert A.launch_counts == {"fused_att_fwd": 2, "fused_att_bwd": 2}
+    assert all(torch.equal(got[1][n], again[1][n]) for n in got[1])
+    want = _value_and_grads(A.fused_att_reference, args, leaves, cw,
+                            with_corr=with_corr)
+    assert all(torch.isfinite(x).all() for x in got[1].values())
+    _grads_close(got[1], want[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", [None, "nodes 64", "one"])
+def test_cuda_att_bwd_against_float64(route):
+    """A 4,000-node graph among small ones (adv widths, the correction
+    on; scripts/att_float64.py's problem): the forward's h and messages
+    and every backward leaf held to a float64 run of the plain version,
+    within 1e-5 of its max abs or no further than the plain float32
+    version is. The same bits twice."""
+    _need_card()
+    import contextlib
+    from chip_smoke import _adv_bwd_route
+    from scripts import att_float64
+    with _adv_bwd_route(route) if route else contextlib.nullcontext():
+        out = att_float64.measure("cuda")
+    assert out["same bits twice"]
+    for name, r in out["rows"].items():
+        assert r["kernels"] <= max(ATOL, r["plain"]), (name, r)
+
+
 @pytest.mark.gpu
 def test_adv_serving_path_on_card():
     """predict of adv on cuda (one fused_att_fwd and one set2vec_fwd
@@ -2165,6 +2226,72 @@ def test_cuda_recurrence_bwd_near_float64_on_routes(route):
     within rtol/atol of a float64 run, the same bits twice."""
     _need_card()
     _rec_bwd_case(16512, 30, 6, route, weight_sd=0.3)
+
+
+
+def _rec_stash_reference(args, steps):
+    """reference_recurrence's pre-norm states h̃_t (T, N, f), its h_T and
+    statistics, in plain PyTorch."""
+    from mpnn_tpu_torch.kernels.fused_step import _gru
+    from mpnn_tpu_torch.ops.norm import bn1d_train
+    msgs, h0, mask, gru, ma, bn = [
+        {k: v.detach() for k, v in a.items()} if isinstance(a, dict)
+        else a.detach() for a in args]
+    mb, st0 = bn1d_train(msgs, mask, ma["weight"], ma["bias"])
+    gi = mb @ gru["w_ih"] + gru["b_ih"]
+    h, pre, stats = h0 * mask, [], [torch.stack(st0)]
+    for _ in range(steps):
+        ht = _gru(gru, gi, h, mask)
+        pre.append(ht)
+        h, st = bn1d_train(ht, mask, bn["weight"], bn["bias"])
+        stats.append(torch.stack(st))
+    return h, torch.stack(stats), torch.stack(pre)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,f,steps,route", [
+    (256, 10, 6, None), (256, 10, 6, "cluster 1"), (256, 10, 6, "cluster 2"),
+    (256, 10, 6, "cluster 4"), (256, 10, 6, "cluster 8"),
+    (256, 10, 6, "grid"), (256, 10, 6, "spilled"), (16512, 10, 6, None),
+    (16512, 30, 6, None), (16512, 30, 6, "spilled"), (32896, 10, 6, "grid"),
+    (57856, 10, 6, None), (57856, 30, 6, None), (300, 24, 3, "cluster 8"),
+    (5, 10, 2, "cluster 8"), (256, 10, 32, None), (2048, 32, 32, "grid")])
+def test_cuda_recurrence_fwd_on_every_route(n, f, steps, route):
+    """recurrence_fwd on each route of its rule (one cluster of 1-8
+    blocks, the grid, 16-node tiles that leave blocks in global scratch)
+    and the rule's own, at b16's slots, b1024's (16,512), 32,896 and the
+    split's 57,856 (past the blocks' tiles at f 30), f 10 and the wide
+    bucket, T up to 32, blocks without nodes: h_T, the statistics and the
+    stash of pre-norm states against reference_recurrence (rtol 1e-4,
+    atol 1e-5), training and serving, each twice for the same bits."""
+    _need_card()
+    from chip_smoke import _rec_fwd_route, _route_matches, rec_case
+    from mpnn_tpu_torch.kernels import fused_step as K
+    from mpnn_tpu_torch.kernels import recurrence as R
+    gen = torch.Generator().manual_seed(7 * n + f + steps)
+    args, _, _ = rec_case(n, f, gen, "cuda")
+    msgs, h0, mask, gru, ma, bn = args
+    weights = [t.detach().contiguous() for t in R._flat(gru, ma, bn)]
+    d = lambda t: t.detach().contiguous()
+    want = _rec_stash_reference(args, steps)
+    R.reset_launch_counts()
+    with _rec_fwd_route(route):
+        runs = [K.launch_prepared(R.prepare_recurrence_fwd(
+            d(msgs), d(h0), d(mask), weights, steps=steps, stash=stash))
+            for stash in (True, True, False, False)]
+        shape = R.device_fwd_shape(n, "" if f <= 16 else "f32", steps,
+                                   torch.device("cuda", 0))
+    torch.cuda.synchronize()
+    assert R.launch_counts == {"recurrence_fwd": 4, "recurrence_bwd": 0}
+    assert _route_matches(shape, route), shape.tag()
+    for ht, stats, htil in runs:
+        torch.testing.assert_close(ht, want[0], rtol=RTOL, atol=ATOL)
+        torch.testing.assert_close(stats, want[1], rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(runs[0][2], want[2], rtol=RTOL, atol=ATOL)
+    assert runs[2][2].numel() == 0
+    for a, b in ((runs[0], runs[1]), (runs[2], runs[3])):
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), "bits differ"
+    assert torch.equal(runs[0][0], runs[2][0])
 
 
 @pytest.mark.gpu

@@ -185,3 +185,95 @@ def test_bwd_rule_on_steps_and_a_smaller_card(max_grid):
     assert -(-512 // small.grid) <= small.ncap
     with pytest.raises(NotImplementedError, match="shared memory"):
         _rule(16, smem=8 * 1024)
+
+
+# ---------------------------------------------------------------------------
+# the forward kernel's route rule (kernels/recurrence.py::fwd_launch_shape:
+# the shared family's forward policy on this kernel's tile)
+# ---------------------------------------------------------------------------
+
+def _fwd_rule(n, tag="", steps=6, smem=H100_SMEM, max_grid=H100_GRID):
+    return R.fwd_launch_shape(n, tag, steps, smem_bytes=smem,
+                              max_grid=max_grid)
+
+
+K = R.K
+CN, CS = K.FWD_CLUSTER_NODES, K.FWD_CLUSTER_SLOTS
+# (node slots, bucket, co-resident blocks, route, blocks)
+FWD_RULE_CASES = [
+    (1, "", 132, "cluster", 1),
+    (CN, "", 132, "cluster", 1),                  # one block's capacity
+    (CN + 1, "", 132, "cluster", 2),              # one past it
+    (2 * CN + 1, "", 132, "cluster", 4),
+    (4 * CN + 1, "", 132, "cluster", 8),
+    (CS, "", 132, "cluster", 8),                  # the cluster's capacity
+    (CS + 1, "", 132, "grid", -(-(CS + 1) // K.FWD_STAT_NODES)),  # past it
+    (CS, "f32", 132, "cluster", 8),
+    (CS + 1, "f32", 132, "grid", 22),
+    (16512, "", 132, "grid", 129),                # b1024: ceil(sqrt(n))
+    (16512, "f32", 132, "grid", 129),
+    (57856, "", 132, "grid", 132),                # the split's slots
+    (57856, "", 114, "grid", 114),                # a card with fewer SMs
+    (10 ** 6, "", 1000, "grid", K.FWD_MAX_GRID),  # the flag rows' limit
+]
+
+
+@pytest.mark.parametrize("n,tag,most,route,grid", FWD_RULE_CASES)
+def test_fwd_rule_at_its_capacities(n, tag, most, route, grid):
+    """Up to FWD_CLUSTER_SLOTS slots one cluster of the fewest blocks (1,
+    2, 4) whose share is at most FWD_CLUSTER_NODES, else 8; past them the
+    grid at FWD_STAT_NODES slots a block, at most max(FWD_STAT_BLOCKS,
+    ceil(sqrt(n))) blocks, the co-resident ones and FWD_MAX_GRID; the
+    tile fills a block's shared memory beside the launch's partial rows
+    (one more node does not fit)."""
+    s = _fwd_rule(n, tag, max_grid=most)
+    assert (s.route, s.grid) == (route, grid)
+    cap = R.fwd_capacity(tag, 6, H100_SMEM, s.grid)
+    assert s.ncap == cap >= 1
+    assert s.smem_bytes == 4 * R.fwd_smem_floats(tag, 6, cap, s.grid) \
+        <= H100_SMEM
+    assert 4 * R.fwd_smem_floats(tag, 6, cap + 1, s.grid) > H100_SMEM
+
+
+def test_fwd_rule_tiles_and_a_smaller_card():
+    """lipo's b1024 (16,512 slots) fits the tiles at f 10 and f 30; the
+    split's 57,856 slots fit 132 tiles at f 10 and spill at f 30 (its
+    blocks keep their slots in global scratch, on the same route); the
+    tile shrinks with T and with a card's shared memory; a card that
+    cannot hold one node raises."""
+    for tag in ("", "f32"):
+        s = _fwd_rule(16512, tag)
+        assert -(-16512 // s.grid) <= s.ncap
+    assert -(-57856 // 132) <= _fwd_rule(57856).ncap
+    assert -(-57856 // 132) > _fwd_rule(57856, "f32").ncap
+    caps = [R.fwd_capacity("", t, H100_SMEM, 132) for t in (1, 6, 32)]
+    assert caps[0] > caps[1] > caps[2] > 0
+    small = _fwd_rule(16512, smem=100 * 1024)
+    assert small.grid == 129 and small.ncap < _fwd_rule(16512).ncap
+    assert small.smem_bytes <= 100 * 1024
+    with pytest.raises(NotImplementedError, match="shared memory"):
+        _fwd_rule(16, smem=4 * 1024)
+
+
+@pytest.mark.parametrize("route,want", [
+    (None, "grid x129 cap 776"), ("cluster 2", "cluster x2 cap 776"),
+    ("cluster 8", "cluster x8 cap 776"), ("grid", "grid x128 cap 776"),
+    ("spilled", "grid x128 cap 16")])
+def test_fwd_forced_routes(monkeypatch, route, want):
+    """chip_smoke.py::_rec_fwd_route forces each route on the rule's card
+    (an H100's shared memory, 132 co-resident blocks) at lipo b1024's
+    16,512 slots, within the rule's tile (a forced cluster's blocks keep
+    their slots past it in global scratch), and restores the rule
+    after."""
+    import types
+    from chip_smoke import _rec_fwd_route
+    monkeypatch.setattr(
+        torch.cuda, "get_device_properties",
+        lambda d: types.SimpleNamespace(
+            shared_memory_per_block_optin=H100_SMEM,
+            multi_processor_count=132))
+    rule = lambda n, tag, steps, device: _fwd_rule(n, tag, steps)
+    monkeypatch.setattr(R, "device_fwd_shape", rule)
+    with _rec_fwd_route(route):
+        assert R.device_fwd_shape(16512, "", 6, "cuda").tag() == want
+    assert R.device_fwd_shape is rule
